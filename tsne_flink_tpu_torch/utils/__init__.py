@@ -1,0 +1,1 @@
+"""utils of the PyTorch port (mirrors tsne_flink_tpu/utils)."""
