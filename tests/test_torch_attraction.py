@@ -1,9 +1,10 @@
-"""PyTorch port, the fused CSR step (B3) and KL pass (B4) vs the JAX package.
+"""PyTorch port, the fused CSR step (B3), KL pass (B4) and forces (B5) vs
+the JAX package.
 
 On the CPU the port's wrappers run their plain versions.  The JAX side
-runs its Pallas kernels in interpret mode (``_run_fused``/``_run_loss``,
-``fused_step_update(kernel="pallas-interpret")``) and its XLA twins.  The
-inputs are those of
+runs its Pallas kernels in interpret mode (``_run_fused``/``_run_loss``/
+``_run_forces``, the wrappers with ``kernel="pallas-interpret"``) and its
+XLA twins.  The inputs are those of
 tests/test_fused_step.py::test_fused_interpret_pallas_matches_xla_twin:
 tie-free, so the gains ladder must agree exactly.
 """
@@ -146,7 +147,65 @@ def test_index_gathering_loss_matches_jax_attraction_loss(jax_kind):
     np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-9)
 
 
+def _jax_forces(kind, yc, yj, val):
+    args = (jnp.asarray(yc), jnp.asarray(yj), jnp.asarray(val),
+            jnp.float32(4.0))
+    if kind == "pallas-interpret":
+        return jatt._run_forces(*args, interpret=True)
+    return jatt._xla_forces(*args)
+
+
+def test_forces_tile_matches_jax(jax_kind):
+    """B5's plain version in f32 against the Pallas kernel (interpret
+    mode) and the XLA twin: rtol 2e-5, the bar of tests/test_pallas.py."""
+    yc, yj, val = _inputs()[:3]
+    want = np.asarray(_jax_forces(jax_kind, yc, yj, val))
+    got = tatt._plain_forces(*map(torch.from_numpy, (yc, yj, val)),
+                             4.0).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, want, rtol=2e-5,
+                               atol=2e-5 * np.abs(want).max())
+
+
+def test_forces_f64_match_xla_twin():
+    yc, yj, val = (a.astype(np.float64) for a in _inputs()[:3])
+    want = np.asarray(jatt._xla_forces(jnp.asarray(yc), jnp.asarray(yj),
+                                       jnp.asarray(val), 4.0))
+    got = tatt._plain_forces(*map(torch.from_numpy, (yc, yj, val)), 4.0)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-12)
+
+
+@pytest.mark.parametrize("w", [16, 600])
+def test_index_gathering_forces_match_jax_attraction_forces(jax_kind, w):
+    """The port's wrapper gathers y_full[jidx] itself.  At W = 600 the JAX
+    wrapper hands the Pallas kind to XLA (its VMEM bound); the port's
+    kernel takes every width."""
+    y, hidx, hval = _csr_problem(w=w)[:3]
+    want = np.asarray(jatt.attraction_forces(
+        jnp.asarray(y), jnp.asarray(y), jnp.asarray(hidx), jnp.asarray(hval),
+        jnp.float32(4.0), row_chunk=64, kernel=jax_kind))
+    t = torch.from_numpy
+    got = tatt.attraction_forces(t(y), t(y), t(hidx), t(hval), 4.0,
+                                 row_chunk=48).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5,
+                               atol=2e-5 * np.abs(want).max())
+
+
+def test_fused_head_is_the_forces():
+    """The plain fused step runs the plain forces' head math: its gradient
+    is (forces + tail − rep/Z) bit for bit."""
+    y, hidx, hval, tail, repz, upd, gains = map(torch.from_numpy,
+                                                _csr_problem())
+    att = tatt.attraction_forces(y, y, hidx, hval, 4.0, row_chunk=48)
+    _, _, _, gsq = tatt.fused_step_update(y, y, hidx, hval, 4.0, tail, repz,
+                                          None, upd, gains, 0.8, eta=1000.0,
+                                          min_gain=0.01, row_chunk=48)
+    grad = (att + tail) - repz
+    assert torch.equal(gsq, torch.sum(grad * grad, dim=1))
+
+
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
     y, hidx, hval = map(torch.from_numpy, _csr_problem()[:3])
-    with pytest.raises(ValueError, match="CUDA"):
-        tatt._check_cuda("B3", y, y, hidx, hval)
+    for kid in ("B3", "B4", "B5"):
+        with pytest.raises(ValueError, match="CUDA"):
+            tatt._check_cuda(kid, y, y, hidx, hval)

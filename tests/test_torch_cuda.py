@@ -9,7 +9,8 @@ JAX, so the card's machine runs them without the JAX test harness:
 
 The main-path shapes are checked by chip_smoke.py; these cover the edges:
 tiny and ragged N, k = N - 1, exact ties, every metric, m = 3, row
-shards with validity masks, and launch counting.
+shards with validity masks, B5 from one slot to wide rows, B5 as the
+fused step's head, and launch counting.
 """
 
 import numpy as np
@@ -122,6 +123,78 @@ def test_fused_step_and_loss_match_plain(dev, m):
     # part of the bar scales with the largest row, as in chip_smoke.py
     torch.testing.assert_close(lk, lp, rtol=2e-5,
                                atol=2e-5 * float(lp.abs().max()))
+
+
+def _rows(dev, n, w, m, seed):
+    rng = np.random.default_rng(seed)
+
+    def t(a, dtype=np.float32):
+        return torch.from_numpy(np.asarray(a, dtype)).to(dev)
+
+    y = t(rng.standard_normal((n, m)) * 3)
+    jidx = t(rng.integers(0, n, (n, w)), np.int32)
+    jval = rng.random((n, w)) * 1e-3
+    jval[rng.random((n, w)) < 0.3] = 0.0
+    return y, jidx, t(jval)
+
+
+@pytest.mark.parametrize("m", [2, 3])
+@pytest.mark.parametrize("w", [1, 40, 3466])
+def test_forces_match_plain_at_any_width(dev, m, w):
+    """B5 takes every width: one slot, a CSR-head width, and the width of
+    a hub-heavy graph's [N, S] rows (~110 slots per lane)."""
+    y, jidx, jval = _rows(dev, 300, w, m, w + m)
+    ak = att.attraction_forces(y, y, jidx, jval, 4.0)
+    ap = att.attraction_forces_plain(y, y, jidx, jval, 4.0)
+    torch.testing.assert_close(ak, ap, rtol=2e-5,
+                               atol=2e-5 * float(ap.abs().max()))
+    # a shard of rows against the full embedding
+    ak = att.attraction_forces(y[100:200], y, jidx[100:200], jval[100:200],
+                               1.0)
+    ap = att.attraction_forces_plain(y[100:200], y, jidx[100:200],
+                                     jval[100:200], 1.0)
+    torch.testing.assert_close(ak, ap, rtol=2e-5,
+                               atol=2e-5 * float(ap.abs().max()))
+
+
+def test_forces_are_the_fused_steps_head(dev):
+    """The unfused step from B5's forces against B3 on tie-free inputs:
+    the gains ladder agrees exactly, y and update to rtol 1e-4."""
+    y, hidx, hval = _rows(dev, 500, 64, 2, 9)
+    forces = att.attraction_forces(y, y, hidx, hval, 4.0)
+    rng = np.random.default_rng(10)
+    sign = torch.from_numpy(rng.choice([-1.0, 1.0], y.shape).astype(
+        np.float32)).to(dev)
+    repz = 1e-3 * torch.randn(y.shape, device=dev)
+    mag = forces.abs() + 1e-3 * forces.abs().max()
+    tail = repz - forces + sign * mag  # every grad is ±(|att| + margin)
+    upd = 1e-2 * torch.randn(y.shape, device=dev)
+    gains = 1.0 + torch.rand(y.shape, device=dev)
+    yk, uk, gk, _ = att.fused_step_update(y, y, hidx, hval, 4.0, tail, repz,
+                                          None, upd, gains, 0.8, eta=200.0,
+                                          min_gain=0.01)
+    grad = (forces + tail) - repz
+    same = (grad > 0.0) == (upd > 0.0)
+    g = torch.clamp(torch.where(same, gains * 0.8, gains + 0.2), min=0.01)
+    u = 0.8 * upd - 200.0 * g * grad
+    assert torch.equal(gk, g)
+    torch.testing.assert_close(uk, u, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(yk, y + u, rtol=1e-4, atol=1e-6)
+
+
+def test_forces_wrapper_refuses_what_b5_does_not_take(dev):
+    y, jidx, jval = _rows(dev, 50, 8, 2, 0)
+    before = KERNELS["B5"].launches
+    att.attraction_forces(y, y, jidx, jval, 1.0)
+    att.attraction_forces(y.cpu(), y.cpu(), jidx.cpu(), jval.cpu(), 1.0)
+    assert KERNELS["B5"].launches == before + 1
+    for bad in (dict(y_local=y.double(), y_full=y.double()),
+                dict(jidx=jidx.long()), dict(jval=jval[:, :4])):
+        kw = dict(y_local=y, y_full=y, jidx=jidx, jval=jval, exag=1.0)
+        kw.update(bad)
+        with pytest.raises(ValueError, match="B5"):
+            att.attraction_forces(**kw)
+    assert KERNELS["B5"].launches == before + 1
 
 
 def test_launches_count_kernel_launches_only(dev):

@@ -8,9 +8,11 @@ run on ``cuda`` unless the caller passes ``device="cpu"``; on CPU tensors
 every wrapper runs its plain version, on CUDA tensors it launches its
 kernel or raises.
 
-Ported so far (slice 1): the single-device ``tsne_embed`` main path —
-exact kNN -> perplexity-calibrated affinities -> capped-width CSR layout
--> the fused CSR optimize loop with exact repulsion.
+Ported so far: the single-device ``tsne_embed`` main path — exact kNN ->
+perplexity-calibrated affinities (sorted, split or blocks assembly) ->
+the attraction layout (capped-width CSR, padded rows, flat edge list or
+blocks) -> the optimize loop with exact repulsion, fused (CSR) or
+unfused.
 """
 
 from tsne_flink_tpu_torch.models.tsne import (TsneConfig, TsneState,

@@ -2,8 +2,8 @@
 
 t-SNE has no weights: what the two packages must share is the
 configuration, the optimizer state and the prepared joint P (its row
-layout or its CSR head + tail).  Arrays cross as numpy arrays, so this
-module imports nothing of JAX.
+layout, its CSR head + tail, its edge list or its blocks).  Arrays cross
+as numpy arrays, so this module imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -55,3 +55,19 @@ def csr_from_numpy(head, tail, *, device=None):
     return (_tensor(hidx, device, torch.int32), _tensor(hval, device),
             _tensor(tsrc, device, torch.int32),
             _tensor(tdst, device, torch.int32), _tensor(tval, device))
+
+
+def edges_from_numpy(src, dst, val, *, device=None):
+    """A prepared flat edge list -> the ``(src, dst, val)`` that
+    ``optimize(edges=...)`` takes."""
+    device = resolve_device(device)
+    return (_tensor(src, device, torch.int32),
+            _tensor(dst, device, torch.int32), _tensor(val, device))
+
+
+def blocks_from_numpy(jidx, jval, extra, *, device=None):
+    """A prepared blocks layout ``(jidx, jval, (rsrc, rdst, rval))`` ->
+    ``(jidx, jval, edges)`` for ``optimize(jidx, jval, edges=edges,
+    edges_extra=True)``."""
+    return (*rows_from_numpy(jidx, jval, device=device),
+            edges_from_numpy(*extra, device=device))

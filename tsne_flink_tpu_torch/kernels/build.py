@@ -1,6 +1,7 @@
 """Build and bind the port's CUDA kernels (``csrc/*.cu``).
 
-All sources compile in ONE ``nvcc`` call into one shared library with a
+Each source compiles in its own ``nvcc`` process, all started together,
+and one more ``nvcc`` links the objects into one shared library with a
 plain C interface, loaded with ``ctypes`` — no PyTorch headers, so a build
 takes seconds.  The library lands in ``kernels/build/`` (listed in
 ``.gitignore``) under a name keyed by a hash of the sources and flags, so
@@ -29,8 +30,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
-NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-shared", "-Xcompiler",
-                           "-fPIC", "-Xptxas", "-v")
+NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                           "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -44,6 +45,7 @@ SIGNATURES = {
                             _F, _F, _F, _F, _P, _P, _P, _P, _P],
     "tsne_attraction_loss_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P,
                                  _P],
+    "tsne_attraction_forces_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
 }
 
 
@@ -78,22 +80,42 @@ def _digest() -> str:
 
 
 def build() -> BuildResult:
-    """Compile ``csrc/*.cu`` into the keyed library unless it exists."""
+    """Compile ``csrc/*.cu`` into the keyed library unless it exists: one
+    ``nvcc -c`` per source, all running at once, then one link."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    out = BUILD_DIR / f"libtsne_kernels_{_digest()}.so"
+    digest = _digest()
+    out = BUILD_DIR / f"libtsne_kernels_{digest}.so"
     if out.exists():
         return BuildResult(out, 0.0, "")
+    tag = f"{digest}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in sources()]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources())]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-    os.replace(tmp, out)
-    return BuildResult(out, seconds, log)
+    procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(src)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(sources(), objs)]
+    try:
+        logs = [(src.name, proc.communicate()[0], proc.returncode)
+                for src, proc in zip(sources(), procs)]
+        log = "".join(f"[{name}]\n{text}" for name, text, _ in logs)
+        failed = [name for name, _, rc in logs if rc != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {', '.join(failed)}:\n{log}")
+        link = subprocess.run([nvcc(), *ARCH_FLAGS, "-shared", "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True, check=False)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+        os.replace(tmp, out)
+    finally:
+        for proc in procs:
+            proc.kill()  # a no-op for those that ended
+            proc.wait()
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
+    return BuildResult(out, time.perf_counter() - t0, log)
 
 
 @functools.cache
@@ -135,6 +157,7 @@ KERNELS = {
     "B2": Kernel("tsne_repulsion_f32"),
     "B3": Kernel("tsne_fused_step_f32"),
     "B4": Kernel("tsne_attraction_loss_f32"),
+    "B5": Kernel("tsne_attraction_forces_f32"),
 }
 
 

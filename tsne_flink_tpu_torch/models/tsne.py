@@ -1,22 +1,26 @@
 """The t-SNE optimizer (port of ``tsne_flink_tpu/models/tsne.py``).
 
 Ported: the configuration and state, the init, the vdM update and
-centering, and the single-device main path ``tsne_embed`` -> ``optimize``
-over the fused CSR branch:
+centering, and the single-device ``tsne_embed`` -> ``optimize`` over
+every attraction layout:
 
-* every iteration — exact repulsion (kernel B2), the CSR tail forces by a
-  deterministic sorted segment sum, the fused head step (kernel B3), and
-  centering;
-* every ``LOSS_EVERY``-th iteration — the KL pass (kernel B4 + the tail's
-  share), written into a loss trace that stays on the device.
+* every iteration — exact repulsion (kernel B2), then either the fused
+  CSR step (the CSR tail forces by a deterministic sorted segment sum,
+  then the head step, kernel B3) or the unfused step: the attraction
+  forces of the armed layout (kernel B5 over the [N, S] rows, the blocks
+  layout's forward block or a CSR head; sorted segment sums over an edge
+  list, the blocks layout's reverse block or a CSR tail), grad = att −
+  rep/Z, the vdM update; then centering;
+* every ``LOSS_EVERY``-th iteration — the KL pass (kernel B4 over the row
+  part + the edge part's share), written into a loss trace that stays on
+  the device.
 
 The loop is a Python loop with no per-iteration host sync: the phase
 gates (momentum, exaggeration, the KL report) depend on the iteration
 number alone, and Z reaches the kernels as a device tensor.
 
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-queue item: the rows/edges/blocks layouts and the unfused step (A6, with
-kernel B5), FFT repulsion (A8), BH repulsion (A12), the repulsion stride,
+queue item: FFT repulsion (A8), BH repulsion (A12), the repulsion stride,
 autopilot, health sentinel, telemetry and landmark schedule (A10), and
 mesh sharding (A14).
 """
@@ -54,7 +58,7 @@ class TsneConfig:
     repulsion: str = "exact"  # exact (ported) | bh | fft
     exact_impl: str = "auto"  # the JAX package's kernel choice; the port
     # always runs kernel B2 on CUDA tensors and its plain version on CPU
-    attraction: str = "auto"  # auto | rows | edges | csr (csr ported)
+    attraction: str = "auto"  # auto | rows | edges | csr
     row_chunk: int = 2048
     repulsion_stride: int = 1
     autopilot: bool = False
@@ -109,6 +113,16 @@ def _segment_sum(data, lengths):
     return torch.segment_reduce(data, "sum", lengths=lengths, axis=0)
 
 
+def _without_padding(edges):
+    """An edge list without its padding entries (val = 0; they add exactly
+    nothing).  The padding all lands in row n-1's segment, and a sorted
+    segment sum walks each segment in one thread: the blocks layout's
+    1.7M padding slots at N = 60,000 cost 110 ms an iteration on an H100.
+    One host sync, once per run."""
+    keep = edges[2] > 0
+    return tuple(a[keep] for a in edges)
+
+
 def _edge_forces(y_local, y_full, src, dst, val, exag, lengths=None):
     """Attraction forces of a flat edge list sorted by ``src`` (the CSR
     tail): Σ_e val·exag·q (y_src − y_dst) per source row."""
@@ -155,6 +169,73 @@ def _repulsion(y_local, y_full, cfg: TsneConfig, row_offset=0,
     return rep, torch.sum(zrow)
 
 
+def _attraction_forces(y_local, y_full, jidx, jval, cfg: TsneConfig, exag,
+                       edges=None, edges_extra=False, csr=None,
+                       edge_len=None):
+    """F_attr_i = Σ_j P_ij q_ij (y_i − y_j) over the armed layout: the
+    CSR head (kernel B5) + tail, the split-blocks pair (B5 over the
+    forward block + the reverse edges), the flat edge list, or the padded
+    [N, S] rows (B5).  ``edge_len`` is the per-row length of the edge
+    part, computed once per run.  Cast to the state dtype."""
+    from tsne_flink_tpu_torch.ops.attraction_cuda import attraction_forces
+    if csr is not None:
+        hidx, hval, tsrc, tdst, tval = csr
+        att = (attraction_forces(y_local, y_full, hidx, hval, exag,
+                                 row_chunk=cfg.row_chunk)
+               + _edge_forces(y_local, y_full, tsrc, tdst, tval, exag,
+                              edge_len))
+    elif edges is not None and edges_extra:
+        att = (attraction_forces(y_local, y_full, jidx, jval, exag,
+                                 row_chunk=cfg.row_chunk)
+               + _edge_forces(y_local, y_full, *edges, exag, edge_len))
+    elif edges is not None:
+        att = _edge_forces(y_local, y_full, *edges, exag, edge_len)
+    else:
+        att = attraction_forces(y_local, y_full, jidx, jval, exag,
+                                row_chunk=cfg.row_chunk)
+    return att.to(y_local.dtype)
+
+
+def _attraction_loss(y_local, y_full, jidx, jval, cfg: TsneConfig, exag, z,
+                     edges=None, edges_extra=False, csr=None, edge_len=None):
+    """Per-row partial KL Σ p log(p/(q/Z)) [nloc] over the armed layout
+    (kernel B4 over the row part), cast to the state dtype."""
+    from tsne_flink_tpu_torch.ops.attraction_cuda import attraction_loss
+    if csr is not None:
+        hidx, hval, tsrc, tdst, tval = csr
+        loss = (attraction_loss(y_local, y_full, hidx, hval, exag, z,
+                                row_chunk=cfg.row_chunk)
+                + _edge_loss(y_local, y_full, tsrc, tdst, tval, exag, z,
+                             edge_len))
+    elif edges is not None and edges_extra:
+        loss = (attraction_loss(y_local, y_full, jidx, jval, exag, z,
+                                row_chunk=cfg.row_chunk)
+                + _edge_loss(y_local, y_full, *edges, exag, z, edge_len))
+    elif edges is not None:
+        loss = _edge_loss(y_local, y_full, *edges, exag, z, edge_len)
+    else:
+        loss = attraction_loss(y_local, y_full, jidx, jval, exag, z,
+                               row_chunk=cfg.row_chunk)
+    return loss.to(y_local.dtype)
+
+
+def _gradient(y_local, jidx, jval, cfg: TsneConfig, exag, valid_full=None,
+              edges=None, edges_extra=False, csr=None, want_loss=True,
+              edge_len=None):
+    """``(grad, loss)``: grad_i = F_attr_i − F_rep_i / Z
+    (TsneHelpers.scala:311-317), and the KL as a 0-d tensor when
+    ``want_loss``, else None (the KL pass does not run)."""
+    rep, z = _repulsion(y_local, y_local, cfg, valid_full=valid_full)
+    layout = dict(edges=edges, edges_extra=edges_extra, csr=csr,
+                  edge_len=edge_len)
+    att = _attraction_forces(y_local, y_local, jidx, jval, cfg, exag,
+                             **layout)
+    loss = (torch.sum(_attraction_loss(y_local, y_local, jidx, jval, cfg,
+                                       exag, z, **layout))
+            if want_loss else None)
+    return att - rep / z, loss
+
+
 def _update_embedding(state: TsneState, grad, momentum, cfg: TsneConfig):
     """vdM adaptive gains + momentum (TsneHelpers.scala:357-366)."""
     same_sign = (grad > 0.0) == (state.update > 0.0)
@@ -185,36 +266,47 @@ def loss_slot(i: int, n_slots: int) -> int:
 
 def optimize(state: TsneState, jidx, jval, cfg: TsneConfig, *,
              valid=None, start_iter: int = 0, num_iters: int | None = None,
-             loss_carry=None, csr=None, edges=None, fused_step=None,
-             axis_name=None, with_health: bool = False,
-             with_telemetry: bool = False):
-    """The 3-phase gradient descent over the fused CSR branch.
+             loss_carry=None, edges=None, edges_extra: bool = False,
+             csr=None, fused_step=None, axis_name=None,
+             with_health: bool = False, with_telemetry: bool = False):
+    """The 3-phase gradient descent over the armed attraction layout.
 
     Returns ``(state, losses)``: ``losses[t]`` is the KL at 1-based
     iteration 10·(t+1), a device tensor never read on the host here.
     ``start_iter``/``num_iters`` run a segment of the schedule (gates and
     slots key off the absolute iteration) and ``loss_carry`` threads the
-    trace between segments.  ``csr`` is ``(hidx, hval, tsrc, tdst, tval)``
-    from ``ops/attraction_cuda.build_csr``; ``jidx``/``jval`` are unused by
-    this branch and kept for the JAX signature."""
+    trace between segments.
+
+    The layout, as in the JAX function: ``csr`` = ``(hidx, hval, tsrc,
+    tdst, tval)`` from ``ops/attraction_cuda.build_csr``; ``edges`` =
+    ``(src, dst, val)`` sorted by src (``ops/affinities.assemble_edges``),
+    or with ``edges_extra`` the blocks layout's reverse block beside the
+    forward rows ``(jidx, jval)``; neither = the padded [N, S] rows
+    ``(jidx, jval)``.  ``fused_step`` (None means on) runs the CSR layout
+    through the fused step, kernel B3; ``False``, and every other layout,
+    takes the unfused step."""
     if axis_name is not None:
         raise NotImplementedError("mesh sharding is not ported yet "
                                   "(ROADMAP queue A14)")
-    if csr is None or edges is not None or fused_step is False:
-        raise NotImplementedError(
-            "only the fused CSR step is ported; the rows/edges/blocks "
-            "layouts and the unfused step (kernel B5) are ROADMAP queue A6")
     if (cfg.repulsion_stride != 1 or cfg.autopilot or with_health
             or with_telemetry):
         raise NotImplementedError(
             "repulsion_stride, autopilot, the health sentinel and telemetry "
             "are not ported yet (ROADMAP queue A10)")
-    from tsne_flink_tpu_torch.ops.attraction_cuda import (attraction_loss,
-                                                          fused_step_update)
+    from tsne_flink_tpu_torch.ops.attraction_cuda import fused_step_update
 
-    hidx, hval, tsrc, tdst, tval = csr
+    fused = csr is not None and fused_step is not False
     n = state.y.shape[0]
-    tail_len = torch.bincount(tsrc.long(), minlength=n)
+    if csr is not None:
+        csr = csr[:2] + _without_padding(csr[2:])
+    elif edges is not None:
+        edges = _without_padding(edges)
+    # the edge part's per-row lengths, for its sorted segment sums
+    esrc = csr[2] if csr is not None else None if edges is None else edges[0]
+    edge_len = (None if esrc is None
+                else torch.bincount(esrc.long(), minlength=n))
+    layout = dict(edges=edges, edges_extra=edges_extra, csr=csr,
+                  edge_len=edge_len)
     n_slots = max(cfg.n_loss_slots, 1)
     losses = (loss_carry.clone() if loss_carry is not None
               else torch.zeros(n_slots, dtype=state.y.dtype,
@@ -226,67 +318,97 @@ def optimize(state: TsneState, jidx, jval, cfg: TsneConfig, *,
                     else cfg.final_momentum)
         exag = (cfg.early_exaggeration if i < cfg.exaggeration_end else 1.0)
         record = (i + 1) % LOSS_EVERY == 0
-        rep, z = _repulsion(st.y, st.y, cfg, valid_full=valid)
-        if record:
-            loss_rows = (attraction_loss(st.y, st.y, hidx, hval, exag, z,
-                                         row_chunk=cfg.row_chunk)
-                         + _edge_loss(st.y, st.y, tsrc, tdst, tval, exag, z,
-                                      tail_len))
-            losses[loss_slot(i, n_slots)] = torch.sum(loss_rows)
-        tail = _edge_forces(st.y, st.y, tsrc, tdst, tval, exag,
-                            tail_len).to(st.y.dtype)
-        y2, u2, g2, _gsq = fused_step_update(
-            st.y, st.y, hidx, hval, exag, tail, rep / z, valid, st.update,
-            st.gains, momentum, eta=cfg.learning_rate,
-            min_gain=cfg.min_gain, row_chunk=cfg.row_chunk)
-        st = _center(TsneState(y=y2, update=u2, gains=g2), valid)
+        if fused:
+            rep, z = _repulsion(st.y, st.y, cfg, valid_full=valid)
+            if record:
+                losses[loss_slot(i, n_slots)] = torch.sum(_attraction_loss(
+                    st.y, st.y, jidx, jval, cfg, exag, z, **layout))
+            hidx, hval, tsrc, tdst, tval = csr
+            tail = _edge_forces(st.y, st.y, tsrc, tdst, tval, exag,
+                                edge_len).to(st.y.dtype)
+            y2, u2, g2, _gsq = fused_step_update(
+                st.y, st.y, hidx, hval, exag, tail, rep / z, valid,
+                st.update, st.gains, momentum, eta=cfg.learning_rate,
+                min_gain=cfg.min_gain, row_chunk=cfg.row_chunk)
+            st = TsneState(y=y2, update=u2, gains=g2)
+        else:
+            grad, loss = _gradient(st.y, jidx, jval, cfg, exag,
+                                   valid_full=valid, want_loss=record,
+                                   **layout)
+            if record:
+                losses[loss_slot(i, n_slots)] = loss
+            if valid is not None:
+                grad = grad * valid[:, None].to(grad.dtype)
+            st = _update_embedding(st, grad, momentum, cfg)
+        st = _center(st, valid)
     return st, losses
 
 
 def _plan_layout(jidx, jval, cfg: TsneConfig):
     """``(edges, csr)`` for the planned attraction layout: the CSR head +
-    tail of ``build_csr`` (the only layout ported)."""
-    from tsne_flink_tpu_torch.ops.affinities import plan_attraction
+    tail of ``build_csr``, the flat edge list of ``assemble_edges``, or
+    ``(None, None)`` for the padded rows."""
+    from tsne_flink_tpu_torch.ops.affinities import (assemble_edges,
+                                                     plan_attraction)
     layout, param = plan_attraction(jidx, jval, cfg.attraction)
-    if layout != "csr":
-        raise NotImplementedError(
-            f"attraction layout '{layout}' is not ported yet (ROADMAP queue "
-            "A6); pass TsneConfig(attraction='csr')")
-    from tsne_flink_tpu_torch.ops.attraction_cuda import build_csr
-    head, tail = build_csr(jidx, jval, param)
-    return None, head + tail
+    if layout == "csr":
+        from tsne_flink_tpu_torch.ops.attraction_cuda import build_csr
+        head, tail = build_csr(jidx, jval, param)
+        return None, head + tail
+    if layout == "edges":
+        return assemble_edges(jidx, jval, param), None
+    return None, None
 
 
 def tsne_embed(x, cfg: TsneConfig | None = None, *,
                neighbors: int | None = None, knn_method: str = "bruteforce",
-               seed: int = 0, device=None, y0=None,
+               seed: int = 0, sym_width: int | None = None,
+               affinity_assembly: str | None = None, device=None, y0=None,
                stats: dict | None = None):
     """Single-device end to end: kNN -> β-calibrated affinities ->
-    symmetrized P -> CSR layout -> init -> optimize.  Returns
+    symmetrized P -> attraction layout -> init -> optimize.  Returns
     ``(embedding [N, m], loss trace)`` on ``device`` (default ``cuda``).
+
+    ``affinity_assembly``: ``auto`` (None means auto) | ``sorted`` |
+    ``split`` ([N, S] rows) | ``blocks`` (the forward rows + reverse edge
+    list, never the [N, S] rows).  ``auto`` with an explicit ``sym_width``
+    means ``sorted``.  Rows are then laid out by ``cfg.attraction``; the
+    blocks layout is optimized as it is.
 
     ``seed`` seeds the ``torch.Generator`` of the init (``y0`` replaces
     the draw).  ``stats``, when given, receives the stage seconds
     (``knn``, ``affinities``, ``plan``, ``optimize``), each measured to the
-    end of the device's work."""
+    end of the device's work, and the labels of the resolved ``assembly``
+    and attraction ``layout`` (csr | edges | rows | blocks)."""
     cfg = cfg or TsneConfig()
     device = resolve_device(device)
     x = torch.as_tensor(x, device=device)
     n = x.shape[0]
     k = neighbors if neighbors is not None else 3 * int(cfg.perplexity)
+    assembly = affinity_assembly or "auto"
+    if assembly == "auto" and sym_width is not None:
+        assembly = "sorted"  # a pinned width is a row-layout request
     from tsne_flink_tpu_torch.utils.artifacts import prepare
     prep = prepare(x, neighbors=k, knn_method=knn_method, metric=cfg.metric,
-                   perplexity=cfg.perplexity, device=device)
+                   perplexity=cfg.perplexity, assembly=assembly,
+                   sym_width=sym_width, device=device)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     state = init_working_set(gen, n, cfg.n_components, x.dtype, device, y0)
     t0 = time.perf_counter()
-    _, csr = _plan_layout(prep.jidx, prep.jval, cfg)
+    if prep.extra_edges is not None:
+        edges, csr, layout = prep.extra_edges, None, "blocks"
+    else:
+        edges, csr = _plan_layout(prep.jidx, prep.jval, cfg)
+        layout = ("csr" if csr is not None
+                  else "rows" if edges is None else "edges")
     t_plan = timed_stage(device, t0)
     t0 = time.perf_counter()
-    state, losses = optimize(state, prep.jidx, prep.jval, cfg, csr=csr)
+    state, losses = optimize(state, prep.jidx, prep.jval, cfg, edges=edges,
+                             edges_extra=layout == "blocks", csr=csr)
     t_opt = timed_stage(device, t0)
     if stats is not None:
         stats.update(knn=prep.knn_seconds, affinities=prep.affinity_seconds,
-                     plan=t_plan, optimize=t_opt)
+                     plan=t_plan, optimize=t_opt, assembly=prep.label,
+                     layout=layout)
     return state.y, losses

@@ -1,4 +1,5 @@
-"""B3 and B4: the fused CSR-head step and its KL pass, plus the CSR layout.
+"""B3, B4 and B5: the fused CSR-head step, the KL pass and the forces alone,
+plus the CSR layout.
 
 Port of ``tsne_flink_tpu/ops/attraction_pallas.py``:
 
@@ -11,15 +12,18 @@ Port of ``tsne_flink_tpu/ops/attraction_pallas.py``:
   update in one pass per row, plus per-row ‖grad‖².
 * :func:`attraction_loss` (B4, replaces ``::_loss_kernel``): per-row KL
   partials Σ pe·log(pe·Z/q) over the head.
+* :func:`attraction_forces` (B5, replaces ``::_forces_kernel``): the
+  forces y_i·Σw − Σw·y_j alone, over any row layout — the [N, S] rows,
+  the blocks layout's forward block or a CSR head in the unfused step.
 
 The kernels are ``csrc/attraction.cu``; its header says what bounds them
 on an H100 (bytes) and how they gather ``y_full[hidx]`` inside the kernel
 instead of materialising it.  On CPU tensors the wrappers run
-:func:`fused_step_plain` / :func:`attraction_loss_plain`, which mirror the
-JAX package's XLA twins (``_xla_fused`` / ``_xla_loss``) operation for
-operation; on CUDA tensors they launch the kernels or raise.  The
-forces-only kernel B5 (rows layout, unfused step, serving) is ROADMAP
-queue A6.
+:func:`fused_step_plain` / :func:`attraction_loss_plain` /
+:func:`attraction_forces_plain`, which mirror the JAX package's XLA twins
+(``_xla_fused`` / ``_xla_loss`` / ``_xla_forces``) operation for
+operation, the fused one through the same head math as the forces; on
+CUDA tensors they launch the kernels or raise.
 """
 
 from __future__ import annotations
@@ -98,12 +102,16 @@ def _head_q(yc, yj):
     return 1.0 / (1.0 + torch.clamp(d2, min=0.0))
 
 
+def _plain_forces(yc, yj, val, exag):
+    """Head forces of a [c, W] tile: y_i·Σw − Σw·y_j, w = val·exag·q."""
+    w = val * exag * _head_q(yc, yj)
+    return (yc * torch.sum(w, dim=1)[:, None]
+            - torch.sum(w[:, :, None] * yj, dim=1))
+
+
 def _plain_fused(yc, yj, val, tail, repz, maskc, upd, gains, exag, momentum,
                  eta, min_gain):
-    w = val * exag * _head_q(yc, yj)
-    att = yc * torch.sum(w, dim=1)[:, None] - torch.sum(w[:, :, None] * yj,
-                                                         dim=1)
-    att = (att + tail).to(yc.dtype)
+    att = (_plain_forces(yc, yj, val, exag) + tail).to(yc.dtype)
     grad = (att - repz) * maskc[:, None]
     same_sign = (grad > 0.0) == (upd > 0.0)
     gains = torch.clamp(torch.where(same_sign, gains * 0.8, gains + 0.2),
@@ -142,6 +150,16 @@ def fused_step_plain(y_local, y_full, jidx, jval, exag, tail_att, repz,
                                  repz[sl], maskv[sl], update[sl], gains[sl],
                                  exag, momentum, eta, min_gain))
     return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def attraction_forces_plain(y_local, y_full, jidx, jval, exag, *,
+                            row_chunk: int = 4096):
+    """Plain version of B5: forces [nloc, m], chunked over rows."""
+    return torch.cat([
+        _plain_forces(y_local[s:s + row_chunk],
+                      y_full[jidx[s:s + row_chunk].long()],
+                      jval[s:s + row_chunk], exag)
+        for s in range(0, y_local.shape[0], row_chunk)])
 
 
 def attraction_loss_plain(y_local, y_full, jidx, jval, exag, z, *,
@@ -235,3 +253,20 @@ def attraction_loss(y_local, y_full, jidx, jval, exag, z, *,
                       jval.data_ptr(), nloc, jidx.shape[1], y_local.shape[1],
                       float(exag), z.data_ptr(), loss.data_ptr())
     return loss
+
+
+def attraction_forces(y_local, y_full, jidx, jval, exag, *,
+                      row_chunk: int = 4096):
+    """Attraction forces over a row block ``(jidx, jval)`` [nloc, W] of
+    any width: [nloc, m], a new tensor.  ``exag`` is a host float."""
+    if y_local.device.type == "cpu":
+        return attraction_forces_plain(y_local, y_full, jidx, jval, exag,
+                                       row_chunk=row_chunk)
+    _check_cuda("B5", y_local, y_full, jidx, jval)
+    nloc = y_local.shape[0]
+    att = torch.empty_like(y_local)
+    if nloc:
+        KERNELS["B5"](y_local.data_ptr(), y_full.data_ptr(), jidx.data_ptr(),
+                      jval.data_ptr(), nloc, jidx.shape[1], y_local.shape[1],
+                      float(exag), att.data_ptr())
+    return att
