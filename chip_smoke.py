@@ -10,8 +10,9 @@ Phases, in order; any failure exits non-zero before the result line:
    (seconds + ptxas lines);
 3. kernels — each hand-written kernel against its plain PyTorch version
    on the card, at the shapes of the main paths (B1 at 8,192 x 784; B2,
-   B3, B4 at 60,000 rows; B5 and B4 at the three widths below), and one
-   CSR step fused (B3) against unfused (B5 + tail + the vdM update);
+   B3, B4 at 60,000 rows; B5 and B4 at the three widths below; B6 on the
+   candidate sets of a real refine chunk at both hybrid-kNN shapes), and
+   one CSR step fused (B3) against unfused (B5 + tail + the vdM update);
 4. full    — ``tsne_embed`` on 60,000 x 784 MNIST-like blobs (perplexity
    30, k = 90, exact repulsion, CSR attraction, 300 iterations): stage
    seconds, the launches of each kernel in that run (counted from 0 just
@@ -27,8 +28,24 @@ Phases, in order; any failure exits non-zero before the result line:
 6. blocks  — the blocks assembly on the blobs of phase 4: launches, the
    split with the reverse edges' segment sum, the checks of phase 4, and
    a final KL within 0.05 of phase 4's (both optimize the same P);
-7. determinism — two runs at N = 2,000 give the same bits, on the CSR
-   path and on the rows path.
+7. project — ``tsne_embed`` on the blobs of phase 4 with the hybrid kNN
+   (``knn_method="project"``: 3 seed rounds + 6 refine cycles, B6 scoring
+   every refine chunk) and exact repulsion: launches, the kNN substage
+   seconds, recall@90 against B1's exact graph (>= 0.93), B6's time
+   beside B1's, and the checks of phase 4;
+8. large — ``tsne_embed`` at the shape of the 10x Genomics 1.3M mouse
+   brain cells (1,306,127 x 50 principal components; a synthetic
+   stand-in, see ``make_cells``): perplexity 50, k = 150, the hybrid kNN
+   (3 + 5 cycles), FFT repulsion (grid 1024, p = 3), 300 iterations at
+   FIt-SNE's large-N learning rate (``fitsne_learning_rate``):
+   stage and kNN substage seconds, B1's exact graph at this shape (its
+   time, and the hybrid's recall against it, >= 0.90), the FFT
+   repulsion's per-iteration split (spread / FFTs / gather) beside B2's
+   at 60,000 and at this N (the exact/FFT crossover), peak memory, and
+   the quality checks (finite, falling KL, label agreement within 0.05
+   of the latent's own);
+9. determinism — two runs at N = 2,000 give the same bits, on the CSR
+   path, the rows path, and the hybrid kNN + FFT path.
 
 The widths at which B5 and B4 are held: the latent blobs' [N, S] rows
 (S ~ 146), the blobs' [N, S] rows (S ~ 3,466: what attraction="rows"
@@ -40,7 +57,9 @@ is the JSON record of every kernel.  The script imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
 import subprocess
 import sys
@@ -55,6 +74,10 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
 
 N_FULL, F_FULL, CLASSES = 60_000, 784, 10
+#: the 10x Genomics 1.3M mouse brain cells (BASELINE.json config 5) after
+#: FIt-SNE's preprocessing: 1,306,127 cells x 50 principal components
+N_CELLS, F_CELLS, CELL_TYPES = 1_306_127, 50, 30
+PERPLEXITY_CELLS, K_CELLS = 50.0, 150
 N_B1_CHECK = 8_192
 N_DETERMINISM = 2_000
 PERPLEXITY, K, ITERATIONS = 30.0, 90, 300
@@ -75,7 +98,18 @@ KERNEL_META = {
            "tsne_flink_tpu/ops/attraction_pallas.py:156"),
     "B5": ("attraction_forces", "tsne_flink_tpu_torch/csrc/attraction.cu",
            "tsne_flink_tpu/ops/attraction_pallas.py:140"),
+    "B6": ("cand_sqdist", "tsne_flink_tpu_torch/csrc/knn_cand.cu",
+           "tsne_flink_tpu/ops/knn_pallas.py:264"),
 }
+
+
+def fitsne_learning_rate(n: int) -> float:
+    """The learning rate a user sets at large N: FIt-SNE's default,
+    max(200, N/12) for the usual gradient 4·Σ(p − q)q̃(y_i − y_j), times
+    4 for this package's gradient, which has no factor 4
+    (TsneHelpers.scala:311-317).  The default 1000 leaves a 1.3M-point
+    map unconverged after 300 iterations."""
+    return 4.0 * max(200.0, n / 12.0)
 
 
 class SmokeFailure(RuntimeError):
@@ -96,6 +130,25 @@ def make_data(n=N_FULL, d=F_FULL, classes=CLASSES, seed=0):
     x = centers[labels] + 0.15 * rng.standard_normal((n, d)).astype(
         np.float32)
     return np.clip(x, 0.0, 1.0), labels
+
+
+def make_cells(n=N_CELLS, d=F_CELLS, types=CELL_TYPES, latent=10, seed=0):
+    """A stand-in for the 1.3M-cell PCA matrix (the real one is not in
+    the repository): ``types`` cell types with Zipf-skewed sizes,
+    Gaussian clusters in a ``latent``-D space, lifted to ``d`` dims by a
+    random map with a decaying per-dim scale (as principal components
+    decay), plus small noise.  Returns (x f32 [n, d], labels, latent z)."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, types + 1)
+    labels = rng.choice(types, n, p=p / p.sum())
+    centers = 4.0 * rng.standard_normal((types, latent))
+    z = (centers[labels] + rng.standard_normal((n, latent))).astype(
+        np.float32)
+    scale = np.exp(-np.arange(d) / 12.0).astype(np.float32)
+    lift = rng.standard_normal((latent, d)).astype(np.float32) * scale
+    x = z @ lift + 0.05 * scale * rng.standard_normal((n, d)).astype(
+        np.float32)
+    return x.astype(np.float32), labels, z
 
 
 def make_latent_blobs(n=N_FULL, d=F_FULL, classes=CLASSES, seed=0):
@@ -337,10 +390,12 @@ def label_agreement(y, labels, n_sub=5000, nn=10, seed=3):
     return float(np.mean(lab[nb] == lab[:, None]))
 
 
-def run_embed(tag, x_np, cfg, want, **kw):
+def run_embed(tag, x_np, cfg, want, neighbors=K, knn_method="bruteforce",
+              **kw):
     """One ``tsne_embed`` at full size, its launches counted from 0 just
     before it: prints the stage seconds, launches and peak memory, checks
-    the launches against ``want``; returns (y, losses, stats, launches)."""
+    the launches against ``want`` (a dict, or a function of the run's
+    stats); returns (y, losses, stats, launches)."""
     import torch
     from tsne_flink_tpu_torch import tsne_embed
     from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
@@ -350,19 +405,24 @@ def run_embed(tag, x_np, cfg, want, **kw):
     stats = {}
     reset_launches()
     t0 = time.perf_counter()
-    y, losses = tsne_embed(x_np, cfg, neighbors=K, knn_method="bruteforce",
-                           seed=0, stats=stats, **kw)
+    y, losses = tsne_embed(x_np, cfg, neighbors=neighbors,
+                           knn_method=knn_method, seed=0, stats=stats, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = launches()
     peak = torch.cuda.max_memory_allocated()
     n, f = x_np.shape
-    print(f"[{tag}] {n}x{f} k={K} perplexity={cfg.perplexity} "
-          f"{cfg.iterations} iterations, assembly {stats['assembly']}, "
-          f"layout {stats['layout']}: {wall:.3f} s end to end")
+    print(f"[{tag}] {n}x{f} k={neighbors} knn {knn_method} perplexity="
+          f"{cfg.perplexity} repulsion {cfg.repulsion} {cfg.iterations} "
+          f"iterations, assembly {stats['assembly']}, layout "
+          f"{stats['layout']}: {wall:.3f} s end to end")
     print(f"[{tag}] stages s: " + ", ".join(
         f"{k}={v:.4f}" for k, v in stats.items() if isinstance(v, float))
         + f", s/iter={stats['optimize'] / cfg.iterations:.6f}")
+    print(f"[{tag}] knn substages s: " + ", ".join(
+        f"{k}={v:.4f}" for k, v in stats["knn_substages"].items()))
+    if callable(want):
+        want = want(stats)
     print(f"[{tag}] launches {json.dumps(counts)}")
     print(f"[{tag}] peak memory {peak / 2**30:.3f} GiB ({held / 2**30:.3f} "
           "GiB of it held by this script before the run)")
@@ -390,9 +450,75 @@ def quality(tag, y, losses, labels, cfg, min_agree):
     return float(lh[-1])
 
 
-def want_launches(b3, b5):
-    return {"B1": 1, "B2": ITERATIONS, "B3": b3, "B4": ITERATIONS // 10,
-            "B5": b5}
+def want_launches(b3, b5, b1=1, b2=None, b6=0, b4=None):
+    """Launches of one run; B2 and B4 default to every iteration and
+    every 10th."""
+    return {"B1": b1, "B2": ITERATIONS if b2 is None else b2, "B3": b3,
+            "B4": ITERATIONS // 10 if b4 is None else b4, "B5": b5,
+            "B6": b6}
+
+
+def layout_launches(layout, **kw):
+    """The launches of a run whose attraction layout resolved to
+    ``layout``: B3 runs the CSR step, B5 the rows and blocks layouts' row
+    part, B4 every layout with a row part."""
+    it = ITERATIONS
+    return want_launches(b3=it if layout == "csr" else 0,
+                         b5=it if layout in ("rows", "blocks") else 0,
+                         b4=0 if layout == "edges" else it // 10, **kw)
+
+
+def b6_launches(n, d, k, cycles):
+    """B6 launches of the hybrid plan: one per funnel stage (JL filter,
+    cascade, exact) per refine chunk per cycle."""
+    from tsne_flink_tpu_torch.ops import knn as tknn
+    from tsne_flink_tpu_torch.ops.knn_tiles import pick_knn_tiles
+    fd = tknn.pick_knn_filter(d)
+    plan = tknn._refine_plan(d, k, filter_dims=fd,
+                             expand_k=(k + 1) // 2 if fd else None)
+    stages = 1 + bool(plan.filter_dims) + bool(plan.cascade_dims)
+    chunk = pick_knn_tiles(n, d, k, "cuda").refine_chunk
+    return cycles * math.ceil(n / chunk) * stages
+
+
+@contextlib.contextmanager
+def record_knn():
+    """Keep the graph the run's kNN stage returns (the list yielded gets
+    (idx, dist)); the stage itself runs unchanged."""
+    from tsne_flink_tpu_torch.ops import knn as tknn
+    real = tknn.knn
+    graph = []
+
+    def recorded(*a, **kw):
+        out = real(*a, **kw)
+        graph[:] = out
+        return out
+
+    tknn.knn = recorded
+    try:
+        yield graph
+    finally:
+        tknn.knn = real
+
+
+def recall_at_k(dist_approx, dist_exact, tol=1e-5):
+    """scripts/measure_recall.recall_at_k: the approximate distances
+    within the exact k-th (ties count as hits)."""
+    import torch
+    kth = dist_exact[:, -1:] * (1 + tol) + tol
+    return float(torch.mean((dist_approx <= kth).double()))
+
+
+def timed_exact_graph(x, k):
+    """B1's exact graph of ``x`` and its seconds (host clock to the end
+    of the device's work)."""
+    import torch
+    from tsne_flink_tpu_torch.ops.knn import knn_bruteforce
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx, dist = knn_bruteforce(x, k)
+    torch.cuda.synchronize()
+    return idx, dist, time.perf_counter() - t0
 
 
 def kernel_record(kid, name, src, repl, launches, err, times, bnd):
@@ -405,7 +531,8 @@ def kernel_record(kid, name, src, repl, launches, err, times, bnd):
 
 
 def phase_full(x_np, labels, errs, csr):
-    """The CSR run; returns the records of B1-B4 and its final KL."""
+    """The CSR run; returns the records of B1-B4, its final KL, its final
+    embedding, and B1's and B2's ms at its shapes."""
     import torch
     from tsne_flink_tpu_torch import TsneConfig
     from tsne_flink_tpu_torch.models.tsne import (_edge_forces,
@@ -456,7 +583,7 @@ def phase_full(x_np, labels, errs, csr):
     }
     kernels = []
     for kid, (name, src, repl) in KERNEL_META.items():
-        if kid == "B5":
+        if kid not in t:  # B5 and B6: from the runs that launch them
             continue
         ms, plain_ms, lib_ms = t[kid]
         bms, by = bounds[kid]
@@ -478,7 +605,7 @@ def phase_full(x_np, labels, errs, csr):
           f"{t['B3'][0]:.4f}, B4/10 {t['B4'][0] / 10:.4f}, tail forces "
           f"{tail_ms:.4f} ({int((tval > 0).sum())} edges), the rest "
           f"{rest:.4f} (by difference)")
-    return kernels, final_kl
+    return kernels, final_kl, y, t["B1"][0], t["B2"][0]
 
 
 def b5_times(y, jidx, jval):
@@ -573,9 +700,195 @@ def phase_blocks(x_np, labels, blocks, csr_kl):
           f"{rev_ms:.4f}, the rest {rest:.4f} (by difference)")
 
 
+class _Captured(Exception):
+    pass
+
+
+def capture_refine_chunk(x, k, calls):
+    """The (base, sq, rows, cand) of the first ``calls`` B6 calls of one
+    refine round (its first chunk's funnel stages), over a one-round
+    Z-order seed graph of ``x`` — the round stops once they are taken."""
+    import torch
+    from tsne_flink_tpu_torch.ops import knn as tknn
+    got = []
+    real = tknn._cand_sqdist
+
+    def grab(base, sq, rows, cand, compact=False):
+        got.append((base, sq, rows.to(torch.int32),
+                    cand.to(torch.int32).contiguous()))
+        if len(got) == calls:
+            raise _Captured
+        return real(base, sq, rows, cand, compact)
+
+    gen = torch.Generator(device=x.device)
+    gen.manual_seed(0)
+    idx, dist = tknn.knn_project(x, k, rounds=1, generator=gen)
+    fd = tknn.pick_knn_filter(x.shape[1])
+    tknn._cand_sqdist = grab
+    try:
+        tknn.knn_refine(x, idx, dist, generator=gen, filter_dims=fd,
+                        expand_k=(k + 1) // 2 if fd else None)
+    except _Captured:
+        pass
+    finally:
+        tknn._cand_sqdist = real
+    return got
+
+
+def phase_b6(x_np, xc_np):
+    """B6 against its plain version on the candidate sets of a real refine
+    chunk: the blobs' cascade (F = 128) and exact (F = 784) stages, and
+    the cells' exact stage (F = 50).  Returns its max abs error and, per
+    shape, its (ms, plain ms, library ms), bound and chunk rows."""
+    import torch
+    from tsne_flink_tpu_torch.ops.knn_cuda import (cand_sqdist,
+                                                   cand_sqdist_plain)
+    err, shapes = 0.0, {}
+    for tag, data, k, calls in (("blobs", x_np, K, 2),
+                                ("cells", xc_np, K_CELLS, 1)):
+        x = torch.from_numpy(data).cuda()
+        for base, sq, rows, cand in capture_refine_chunk(x, k, calls):
+            (c, z), f = cand.shape, base.shape[1]
+            got = cand_sqdist(base, sq, rows, cand)
+            want = cand_sqdist_plain(base, sq, rows, cand)
+            e = rel_close(got, want, 2e-5, f"B6 {tag} F={f} Z={z}")
+            err = max(err, e)
+            nrm = (sq[rows.long()][:, None] + sq[cand.long()])[:, :, None]
+            times = (cuda_ms(lambda: cand_sqdist(base, sq, rows, cand), 20),
+                     cuda_ms(lambda: cand_sqdist_plain(base, sq, rows,
+                                                       cand), 3),
+                     cuda_ms(lambda: torch.baddbmm(
+                         nrm, base[cand.long()], base[rows.long()][:, :, None],
+                         alpha=-2.0), 3))
+            # each input read once: the U distinct rows of base (and their
+            # norms) the chunk touches, the ids; the scores written once
+            u = int(torch.unique(torch.cat([rows, cand.reshape(-1)])).numel())
+            bnd = bound(c * z * (2.0 * f + 3.0),
+                        4.0 * (u * (f + 1) + c + 2 * c * z))
+            shapes[(tag, f, z)] = (times, bnd, c)
+            print(f"[kernels] B6 {tag} refine chunk c={c} Z={z} F={f} ({u} "
+                  f"distinct rows; the gathered rows are {c * z * f * 4e-9:.3f}"
+                  f" GB): max |d2 err| {e:.3e} (max d2 "
+                  f"{float(want.max()):.4g}); {times[0]:.4f} ms (plain "
+                  f"{times[1]:.4f} ms, library gather + baddbmm "
+                  f"{times[2]:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]})")
+        del x
+    return err, shapes
+
+
+def fft_split(y, cfg):
+    """CUDA-event ms of one FFT repulsion call on ``y`` and its parts:
+    (spread = stencil + sorted segment sum, the FFTs with the spectral Z,
+    the gather, the whole call)."""
+    import torch
+    from tsne_flink_tpu_torch.ops import repulsion_fft as rf
+    geom = rf.fft_geometry(y.shape[1], cfg.fft_grid, y.dtype, y.device)
+    g, p = geom.grid, cfg.fft_interp
+    ones = torch.ones(y.shape[0], device=y.device)
+    rows = torch.arange(y.shape[0], device=y.device)
+    st = rf.fft_stencil(y, g, p)
+    grid = rf.fft_spread(y, st, g, ones)
+    pot, _ = rf.fft_convolve(grid, geom, st.h)
+    return (cuda_ms(lambda: rf.fft_spread(y, rf.fft_stencil(y, g, p), g,
+                                          ones), 10),
+            cuda_ms(lambda: rf.fft_convolve(grid, geom, st.h), 10),
+            cuda_ms(lambda: rf.fft_gather(y, pot, st, g, rows, ones), 10),
+            cuda_ms(lambda: rf.fft_repulsion(y, geom=geom,
+                                             interp=p), 10))
+
+
+def phase_project(x_np, labels, b1_ms, b6_shapes):
+    """The blobs with the hybrid kNN: exact launch counts, substages,
+    recall@90 against B1's exact graph, the checks of phase 4."""
+    import torch
+    from tsne_flink_tpu_torch import TsneConfig
+    from tsne_flink_tpu_torch.ops.knn import pick_knn_refine
+
+    n, d = x_np.shape
+    cycles = pick_knn_refine(n, d)
+    cfg = TsneConfig(perplexity=PERPLEXITY, iterations=ITERATIONS,
+                     repulsion="exact")
+    with record_knn() as graph:
+        y, losses, stats, counts = run_embed(
+            "project", x_np, cfg,
+            lambda st: layout_launches(st["layout"], b1=0,
+                                       b6=b6_launches(n, d, K, cycles)),
+            knn_method="project")
+    quality("project", y, losses, labels, cfg, 0.9)
+    _, dist_e, t_b1 = timed_exact_graph(torch.from_numpy(x_np).cuda(), K)
+    recall = recall_at_k(graph[1], dist_e)
+    print(f"[project] recall@{K} against B1's exact graph {recall:.4f} "
+          f"(bar 0.93)")
+    check(recall >= 0.93, f"[project] recall {recall} < 0.93")
+    per = {key: v for key, v in b6_shapes.items() if key[0] == "blobs"}
+    b6_ms = " + ".join(f"{v[0][0]:.4f} ms at F={key[1]}, Z={key[2]}"
+                       for key, v in per.items())
+    print(f"[project] {cycles} refine cycles; B6 x{counts['B6']} launches "
+          f"({b6_ms} per chunk); knn stage {stats['knn']:.3f} s vs B1's "
+          f"exact sweep {t_b1:.3f} s here ({b1_ms / 1e3:.3f} s in [full])")
+
+
+def phase_large(xc_np, labels, z_latent, y_60k, b2_ms_60k):
+    """The 1.3M-cell shape with the hybrid kNN and FFT repulsion.  Returns
+    the run's B6 launches."""
+    import torch
+    from tsne_flink_tpu_torch import TsneConfig
+    from tsne_flink_tpu_torch.ops.knn import pick_knn_refine, pick_knn_rounds
+    from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
+    from tsne_flink_tpu_torch.utils.flops import knn_flops
+
+    n, d = xc_np.shape
+    rounds, cycles = pick_knn_rounds(n), pick_knn_refine(n, d)
+    cfg = TsneConfig(perplexity=PERPLEXITY_CELLS, iterations=ITERATIONS,
+                     learning_rate=fitsne_learning_rate(n),
+                     repulsion="fft", fft_grid=1024, fft_interp=3)
+    agree_z = label_agreement(torch.from_numpy(z_latent).cuda(), labels)
+    print(f"[large] the {z_latent.shape[1]}-D latent's own 10-NN label "
+          f"agreement {agree_z:.4f}")
+    with record_knn() as graph:
+        y, losses, stats, counts = run_embed(
+            "large", xc_np, cfg,
+            lambda st: layout_launches(st["layout"], b1=0, b2=0,
+                                       b6=b6_launches(n, d, K_CELLS,
+                                                      cycles)),
+            neighbors=K_CELLS, knn_method="project")
+    quality("large", y, losses, labels, cfg, agree_z - 0.05)
+    x = torch.from_numpy(xc_np).cuda()
+    _, dist_e, t_b1 = timed_exact_graph(x, K_CELLS)
+    recall = recall_at_k(graph[1], dist_e)
+    del graph[:], dist_e, x
+    print(f"[large] {rounds} seed rounds + {cycles} cycles, B6 x"
+          f"{counts['B6']}: knn stage {stats['knn']:.3f} s; B1's exact "
+          f"graph {t_b1:.3f} s; recall@{K_CELLS} {recall:.4f} (bar 0.90)")
+    check(recall >= 0.90, f"[large] recall {recall} < 0.90")
+    eff_exact = knn_flops(n, d, K_CELLS, "bruteforce") / t_b1
+    eff_hybrid = knn_flops(n, d, K_CELLS, "project", rounds=rounds,
+                           refine_rounds=cycles) / stats["knn"]
+    print(f"[large] knn efficiencies (knn_flops / s): exact (B1) "
+          f"{eff_exact:.4e}, hybrid {eff_hybrid:.4e}")
+    sp, ff, ga, whole = fft_split(y, cfg)
+    sp6, ff6, ga6, whole6 = fft_split(y_60k, cfg)
+    b2_large = cuda_ms(lambda: cuda_exact_repulsion(y, row_z=True), 1, 0)
+    it_ms = stats["optimize"] / ITERATIONS * 1e3
+    print(f"[large] FFT repulsion at N={n}: {whole:.4f} ms (spread "
+          f"{sp:.4f}, FFTs {ff:.4f}, gather {ga:.4f}); at N={N_FULL} "
+          f"{whole6:.4f} ms (spread {sp6:.4f}, FFTs {ff6:.4f}, gather "
+          f"{ga6:.4f}); per iteration {it_ms:.4f} ms")
+    # B2 grows as N², the FFT as c0 + c1·N: the N where they cross
+    a = b2_ms_60k / N_FULL ** 2
+    c1 = (whole - whole6) / (n - N_FULL)
+    c0 = whole6 - c1 * N_FULL
+    cross = (c1 + math.sqrt(c1 * c1 + 4 * a * c0)) / (2 * a)
+    print(f"[large] B2 exact repulsion: {b2_ms_60k:.4f} ms at N={N_FULL}, "
+          f"{b2_large:.4f} ms at N={n}; exact/FFT crossover at N ~ "
+          f"{cross:.0f}")
+    return counts["B6"]
+
+
 def phase_determinism(x_np, xl_np):
     import torch
     from tsne_flink_tpu_torch import TsneConfig, tsne_embed
+    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
     for name, data, attraction in (("CSR", x_np, "csr"),
                                    ("rows", xl_np, "rows")):
         cfg = TsneConfig(perplexity=PERPLEXITY, iterations=ITERATIONS,
@@ -589,6 +902,19 @@ def phase_determinism(x_np, xl_np):
         print(f"[determinism] {name} N={N_DETERMINISM} two runs "
               f"bit-identical: {same}")
         check(same, f"two {name} runs at N={N_DETERMINISM} differ")
+    # the large-N path: hybrid kNN (two refine cycles, so B6 runs) + FFT
+    cfg = TsneConfig(perplexity=PERPLEXITY, iterations=ITERATIONS,
+                     repulsion="fft")
+    reset_launches()
+    runs = [tsne_embed(x_np[:N_DETERMINISM], cfg, neighbors=K, seed=0,
+                       knn_method="project", knn_refine=2)
+            for _ in range(2)]
+    b6 = launches()["B6"]
+    check(b6 > 0, "[determinism] project + FFT: B6 never launched")
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    print(f"[determinism] project + FFT N={N_DETERMINISM} (B6 x{b6}) two "
+          f"runs bit-identical: {same}")
+    check(same, f"two project + FFT runs at N={N_DETERMINISM} differ")
 
 
 def main() -> int:
@@ -609,10 +935,19 @@ def main() -> int:
         phase_build()
         x_np, labels = make_data()
         xl_np, labels_l, z_latent = make_latent_blobs()
+        xc_np, labels_c, z_cells = make_cells()
         errs, csr, rows, blocks = phase_kernels(x_np, xl_np)
-        kernels, csr_kl = phase_full(x_np, labels, errs, csr)
+        errs["B6"], b6_shapes = phase_b6(x_np, xc_np)
+        kernels, csr_kl, y_60k, b1_ms, b2_ms = phase_full(x_np, labels,
+                                                          errs, csr)
         kernels.append(phase_rows(xl_np, labels_l, z_latent, rows, errs))
         phase_blocks(x_np, labels, blocks, csr_kl)
+        phase_project(x_np, labels, b1_ms, b6_shapes)
+        b6_count = phase_large(xc_np, labels_c, z_cells, y_60k, b2_ms)
+        (times, bnd, _), = [v for key, v in b6_shapes.items()
+                            if key[0] == "cells"]
+        kernels.append(kernel_record("B6", *KERNEL_META["B6"], b6_count,
+                                     errs["B6"], times, bnd))
         phase_determinism(x_np, xl_np)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

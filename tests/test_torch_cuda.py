@@ -10,7 +10,9 @@ JAX, so the card's machine runs them without the JAX test harness:
 The main-path shapes are checked by chip_smoke.py; these cover the edges:
 tiny and ragged N, k = N - 1, exact ties, every metric, m = 3, row
 shards with validity masks, B5 from one slot to wide rows, B5 as the
-fused step's head, and launch counting.
+fused step's head, B6 at every width class, the kNN methods launching
+B1 and B6 on CUDA tensors, FFT repulsion on the card, and launch
+counting.
 """
 
 import numpy as np
@@ -18,10 +20,15 @@ import pytest
 import torch
 
 from tsne_flink_tpu_torch.kernels.build import KERNELS
+from tsne_flink_tpu_torch.kernels.build import reset_launches
 from tsne_flink_tpu_torch.ops import attraction_cuda as att
+from tsne_flink_tpu_torch.ops import knn as tknn
 from tsne_flink_tpu_torch.ops.knn import cosine_zbase
-from tsne_flink_tpu_torch.ops.knn_cuda import (_fused_final, knn_sweep_cuda,
+from tsne_flink_tpu_torch.ops.knn_cuda import (_fused_final, cand_sqdist,
+                                               cand_sqdist_plain,
+                                               knn_sweep_cuda,
                                                knn_sweep_plain)
+from tsne_flink_tpu_torch.ops.repulsion_fft import fft_repulsion
 from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
 from tsne_flink_tpu_torch.ops.repulsion_exact import exact_repulsion
 
@@ -205,3 +212,88 @@ def test_launches_count_kernel_launches_only(dev):
     assert KERNELS["B2"].launches == before + 1
     with pytest.raises(TypeError):
         cuda_exact_repulsion(y.double())  # no fallback on a CUDA tensor
+
+
+@pytest.mark.parametrize("n,f,c,z", [(50, 3, 7, 5), (3000, 50, 300, 2416),
+                                     (3000, 128, 200, 736),
+                                     (2000, 784, 100, 270),
+                                     (500, 63, 33, 1), (500, 64, 9, 31)])
+def test_cand_sqdist_matches_plain(dev, n, f, c, z):
+    """B6 at the hybrid kNN's width classes (thread per candidate below
+    F = 64, warp per candidate from it), duplicates and self candidates
+    included."""
+    rng = np.random.default_rng(f)
+    base = torch.from_numpy(rng.random((n, f)).astype(np.float32)).to(dev)
+    sq = torch.sum(base * base, dim=1)
+    rows = torch.from_numpy(rng.integers(0, n, c).astype(np.int32)).to(dev)
+    cand = torch.from_numpy(rng.integers(0, n, (c, z)).astype(
+        np.int32)).to(dev)
+    cand[:, 0] = rows  # self: d² ~ 0, clamped
+    before = KERNELS["B6"].launches
+    got = cand_sqdist(base, sq, rows, cand)
+    want = cand_sqdist_plain(base, sq, rows, cand)
+    assert KERNELS["B6"].launches == before + 1
+    # the norm trick cancels to the scale of the squared norms, so the
+    # absolute part of the bar is taken from them (a self-only row of
+    # z = 1 has every distance 0)
+    torch.testing.assert_close(got, want, rtol=2e-5,
+                               atol=2e-5 * float(sq.max()))
+    assert bool((got >= 0).all())
+
+
+def test_cand_wrapper_refuses_what_b6_does_not_take(dev):
+    base = torch.rand(40, 8, device=dev)
+    sq = torch.sum(base * base, dim=1)
+    rows = torch.arange(4, device=dev, dtype=torch.int32)
+    cand = torch.zeros((4, 6), device=dev, dtype=torch.int32)
+    before = KERNELS["B6"].launches
+    cand_sqdist(base.cpu(), sq.cpu(), rows.cpu(), cand.cpu())  # plain
+    for bad in (dict(cand=cand.long()), dict(base=base.double()),
+                dict(rows=rows[:3]), dict(cand=cand.t())):
+        kw = dict(base=base, sq=sq, rows=rows, cand=cand)
+        kw.update(bad)
+        with pytest.raises(ValueError, match="B6"):
+            cand_sqdist(**kw)
+    assert KERNELS["B6"].launches == before
+
+
+def _recall(dist_approx, dist_exact, tol=1e-5):
+    kth = dist_exact[:, -1:] * (1 + tol) + tol
+    return float((dist_approx <= kth).double().mean())
+
+
+def test_knn_methods_launch_b1_and_b6(dev):
+    """partition is B1's exact graph; project's refine rounds score their
+    candidates with B6 and reach the exact graph's neighbourhood."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.standard_normal((3000, 40)).astype(
+        np.float32)).to(dev)
+    reset_launches()
+    bi, bd = tknn.knn(x, 20, "bruteforce")
+    pi, pd = tknn.knn(x, 20, "partition")
+    assert KERNELS["B1"].launches == 2 and KERNELS["B6"].launches == 0
+    assert torch.equal(pi, bi) and torch.equal(pd, bd)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    hi, hd = tknn.knn(x, 20, "project", rounds=2, refine=2, generator=gen)
+    assert KERNELS["B1"].launches == 2 and KERNELS["B6"].launches >= 2
+    assert hi.is_cuda and hi.dtype == torch.int32
+    assert _recall(hd, bd) >= 0.9
+    gen = torch.Generator(device=dev).manual_seed(0)
+    again = tknn.knn(x, 20, "project", rounds=2, refine=2, generator=gen)
+    assert torch.equal(again[0], hi) and torch.equal(again[1], hd)
+
+
+def test_fft_repulsion_on_the_card(dev):
+    """The sorted-segment-sum spread gives the same bits every call, and
+    the card's forces and Z agree with an f64 CPU run."""
+    rng = np.random.default_rng(4)
+    y = rng.standard_normal((20_000, 2)) * 20.0
+    yc = torch.from_numpy(y.astype(np.float32)).to(dev)
+    r1, z1 = fft_repulsion(yc, grid=512)
+    r2, z2 = fft_repulsion(yc, grid=512)
+    assert torch.equal(r1, r2) and torch.equal(z1, z2)
+    rr, zr = fft_repulsion(torch.from_numpy(y.astype(np.float32)).double(),
+                           grid=512)
+    torch.testing.assert_close(r1.double().cpu(), rr, rtol=1e-3,
+                               atol=1e-3 * float(rr.abs().max()))
+    assert abs(float(z1) - float(zr)) <= 1e-4 * float(zr)

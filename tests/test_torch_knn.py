@@ -1,4 +1,5 @@
-"""PyTorch port, exact kNN (kernel B1's plain version) vs the JAX package.
+"""PyTorch port, exact kNN (kernel B1's plain version) vs the JAX package,
+and the kNN dispatch.
 
 The port runs on the CPU, where ``fused_knn`` takes the plain sweep.  The
 JAX side runs the Pallas kernel in interpret mode (``fused_knn(...,
@@ -107,11 +108,19 @@ def test_final_orders_an_unordered_list():
 
 
 def test_k_clamps_and_unported_methods_raise():
+    """k clamps to N - 1; every method of the dispatch runs (partition is
+    the bruteforce graph exactly, project and auto give [N, k] graphs);
+    an unknown method raises."""
     x = torch.from_numpy(_points()[:5])
     idx, _ = tknn.knn(x, 10, "bruteforce")
     assert idx.shape == (5, 4)
-    for method in ("partition", "project", "auto"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            tknn.knn(x, 3, method)
+    xs = torch.from_numpy(_points())
+    bi, bd = tknn.knn(xs, K, "bruteforce")
+    pi, pd = tknn.knn(xs, K, "partition")
+    assert torch.equal(pi, bi) and torch.equal(pd, bd)
+    for method in ("project", "auto"):
+        mi, md = tknn.knn(xs, K, method)
+        assert mi.shape == (N, K) and mi.dtype == torch.int32
+        assert torch.isfinite(md).all()
     with pytest.raises(ValueError):
         tknn.knn(x, 3, "nope")

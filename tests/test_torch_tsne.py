@@ -171,7 +171,8 @@ def test_slice_end_to_end_matches_jax(problem):
     assert abs(loss_p[-1] - loss_j[-1]) <= KL_GUARDRAIL_TOL
     assert y_t.shape == (SPEC["n"], 2) and torch.isfinite(y_t).all()
     assert set(stats) == {"knn", "affinities", "plan", "optimize",
-                          "assembly", "layout"}
+                          "assembly", "layout", "knn_substages"}
+    assert set(stats["knn_substages"]) == {"exact_sweep"}
     assert (stats["assembly"], stats["layout"]) == ("split-rows", "csr")
 
 
@@ -336,7 +337,6 @@ def test_unported_branches_raise(problem):
              ({}, replace(tcfg, repulsion_stride=2), "A10"),
              ({"with_health": True}, tcfg, "A10"),
              ({"axis_name": "x"}, tcfg, "A14"),
-             ({}, replace(tcfg, repulsion="fft"), "A8"),
              ({}, replace(tcfg, repulsion="bh"), "A12"),
              ({}, replace(tcfg, autopilot=True), "A10")]
     for kw, c, item in cases:

@@ -46,6 +46,7 @@ SIGNATURES = {
     "tsne_attraction_loss_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P,
                                  _P],
     "tsne_attraction_forces_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
+    "tsne_cand_sqdist_f32": [_P, _P, _P, _P, _I, _I, _I, _P, _P],
 }
 
 
@@ -158,6 +159,7 @@ KERNELS = {
     "B3": Kernel("tsne_fused_step_f32"),
     "B4": Kernel("tsne_attraction_loss_f32"),
     "B5": Kernel("tsne_attraction_forces_f32"),
+    "B6": Kernel("tsne_cand_sqdist_f32"),
 }
 
 

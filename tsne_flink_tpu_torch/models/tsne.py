@@ -4,7 +4,9 @@ Ported: the configuration and state, the init, the vdM update and
 centering, and the single-device ``tsne_embed`` -> ``optimize`` over
 every attraction layout:
 
-* every iteration — exact repulsion (kernel B2), then either the fused
+* every iteration — the repulsion (exact, kernel B2; or FFT, with the
+  grid geometry built once per run and the spectral Z used as the global
+  Z), then either the fused
   CSR step (the CSR tail forces by a deterministic sorted segment sum,
   then the head step, kernel B3) or the unfused step: the attraction
   forces of the armed layout (kernel B5 over the [N, S] rows, the blocks
@@ -19,8 +21,11 @@ The loop is a Python loop with no per-iteration host sync: the phase
 gates (momentum, exaggeration, the KL report) depend on the iteration
 number alone, and Z reaches the kernels as a device tensor.
 
+``tsne_embed`` takes every kNN method of ``ops/knn`` (the hybrid
+``project`` plan with its own ``torch.Generator``).
+
 Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-queue item: FFT repulsion (A8), BH repulsion (A12), the repulsion stride,
+queue item: BH repulsion (A12), the repulsion stride,
 autopilot, health sentinel, telemetry and landmark schedule (A10), and
 mesh sharding (A14).
 """
@@ -55,7 +60,7 @@ class TsneConfig:
     theta: float = 0.25
     metric: str = "sqeuclidean"
     min_gain: float = 0.01
-    repulsion: str = "exact"  # exact (ported) | bh | fft
+    repulsion: str = "exact"  # exact | fft (ported) | bh
     exact_impl: str = "auto"  # the JAX package's kernel choice; the port
     # always runs kernel B2 on CUDA tensors and its plain version on CPU
     attraction: str = "auto"  # auto | rows | edges | csr
@@ -153,16 +158,31 @@ def _edge_loss(y_local, y_full, src, dst, val, exag, z, lengths=None):
     return _segment_sum(terms, lengths)
 
 
+def _repulsion_scratch(cfg: TsneConfig, m: int, dtype, device):
+    """Loop-invariant repulsion scratch, built ONCE per ``optimize`` run:
+    the FFT backend's circulant lattice (``ops/repulsion_fft
+    .fft_geometry``); None for the exact backend."""
+    if cfg.repulsion == "fft":
+        from tsne_flink_tpu_torch.ops.repulsion_fft import fft_geometry
+        return fft_geometry(m, cfg.fft_grid, dtype, device)
+    return None
+
+
 def _repulsion(y_local, y_full, cfg: TsneConfig, row_offset=0,
-               valid_full=None):
+               valid_full=None, rep_scratch=None):
     """(rep [nloc, m], Z) with Z the global partition sum (a 0-d tensor):
-    kernel B2's per-row partials summed in one fixed order."""
+    kernel B2's per-row partials summed in one fixed order, or the FFT
+    backend's spectral Z, global already."""
+    if cfg.repulsion == "fft":
+        from tsne_flink_tpu_torch.ops.repulsion_fft import fft_repulsion
+        return fft_repulsion(y_local, y_full, grid=cfg.fft_grid,
+                             interp=cfg.fft_interp, row_offset=row_offset,
+                             col_valid=valid_full, geom=rep_scratch)
     if cfg.repulsion != "exact":
-        item = {"fft": "A8", "bh": "A12"}.get(cfg.repulsion)
-        if item is None:
+        if cfg.repulsion != "bh":
             raise ValueError(f"unknown repulsion backend '{cfg.repulsion}'")
-        raise NotImplementedError(f"repulsion='{cfg.repulsion}' is not "
-                                  f"ported yet (ROADMAP queue {item})")
+        raise NotImplementedError("repulsion='bh' is not ported yet "
+                                  "(ROADMAP queue A12)")
     rep, zrow = cuda_exact_repulsion(y_local, y_full, row_offset=row_offset,
                                      col_valid=valid_full, row_z=True,
                                      row_chunk=cfg.row_chunk)
@@ -221,11 +241,12 @@ def _attraction_loss(y_local, y_full, jidx, jval, cfg: TsneConfig, exag, z,
 
 def _gradient(y_local, jidx, jval, cfg: TsneConfig, exag, valid_full=None,
               edges=None, edges_extra=False, csr=None, want_loss=True,
-              edge_len=None):
+              edge_len=None, rep_scratch=None):
     """``(grad, loss)``: grad_i = F_attr_i − F_rep_i / Z
     (TsneHelpers.scala:311-317), and the KL as a 0-d tensor when
     ``want_loss``, else None (the KL pass does not run)."""
-    rep, z = _repulsion(y_local, y_local, cfg, valid_full=valid_full)
+    rep, z = _repulsion(y_local, y_local, cfg, valid_full=valid_full,
+                        rep_scratch=rep_scratch)
     layout = dict(edges=edges, edges_extra=edges_extra, csr=csr,
                   edge_len=edge_len)
     att = _attraction_forces(y_local, y_local, jidx, jval, cfg, exag,
@@ -307,6 +328,8 @@ def optimize(state: TsneState, jidx, jval, cfg: TsneConfig, *,
                 else torch.bincount(esrc.long(), minlength=n))
     layout = dict(edges=edges, edges_extra=edges_extra, csr=csr,
                   edge_len=edge_len)
+    scratch = _repulsion_scratch(cfg, state.y.shape[1], state.y.dtype,
+                                 state.y.device)
     n_slots = max(cfg.n_loss_slots, 1)
     losses = (loss_carry.clone() if loss_carry is not None
               else torch.zeros(n_slots, dtype=state.y.dtype,
@@ -319,7 +342,8 @@ def optimize(state: TsneState, jidx, jval, cfg: TsneConfig, *,
         exag = (cfg.early_exaggeration if i < cfg.exaggeration_end else 1.0)
         record = (i + 1) % LOSS_EVERY == 0
         if fused:
-            rep, z = _repulsion(st.y, st.y, cfg, valid_full=valid)
+            rep, z = _repulsion(st.y, st.y, cfg, valid_full=valid,
+                                rep_scratch=scratch)
             if record:
                 losses[loss_slot(i, n_slots)] = torch.sum(_attraction_loss(
                     st.y, st.y, jidx, jval, cfg, exag, z, **layout))
@@ -334,7 +358,7 @@ def optimize(state: TsneState, jidx, jval, cfg: TsneConfig, *,
         else:
             grad, loss = _gradient(st.y, jidx, jval, cfg, exag,
                                    valid_full=valid, want_loss=record,
-                                   **layout)
+                                   rep_scratch=scratch, **layout)
             if record:
                 losses[loss_slot(i, n_slots)] = loss
             if valid is not None:
@@ -360,8 +384,20 @@ def _plan_layout(jidx, jval, cfg: TsneConfig):
     return None, None
 
 
+def knn_generator(seed: int, device) -> torch.Generator:
+    """The kNN stage's own ``torch.Generator``, separate from the init's:
+    seeded from ``seed`` through a numpy ``SeedSequence`` spawn key, so the
+    two streams never coincide."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(np.random.SeedSequence(seed, spawn_key=(1,))
+                        .generate_state(1, np.uint64)[0] >> 1))
+    return gen
+
+
 def tsne_embed(x, cfg: TsneConfig | None = None, *,
                neighbors: int | None = None, knn_method: str = "bruteforce",
+               knn_iterations: int | None = None,
+               knn_refine: int | None = None, knn_blocks: int = 8,
                seed: int = 0, sym_width: int | None = None,
                affinity_assembly: str | None = None, device=None, y0=None,
                stats: dict | None = None):
@@ -375,11 +411,18 @@ def tsne_embed(x, cfg: TsneConfig | None = None, *,
     means ``sorted``.  Rows are then laid out by ``cfg.attraction``; the
     blocks layout is optimized as it is.
 
+    ``knn_method``: bruteforce | partition | project | auto
+    (``ops/knn.knn``); ``knn_iterations`` and ``knn_refine`` are the
+    project plan's Z-order seed rounds and refine cycles (None = the auto
+    policies), ``knn_blocks`` the partition schedule's block count.
+
     ``seed`` seeds the ``torch.Generator`` of the init (``y0`` replaces
-    the draw).  ``stats``, when given, receives the stage seconds
-    (``knn``, ``affinities``, ``plan``, ``optimize``), each measured to the
-    end of the device's work, and the labels of the resolved ``assembly``
-    and attraction ``layout`` (csr | edges | rows | blocks)."""
+    the draw) and, through :func:`knn_generator`, the kNN stage's own.
+    ``stats``, when given, receives the stage seconds (``knn``,
+    ``affinities``, ``plan``, ``optimize``), each measured to the end of
+    the device's work, the kNN substage seconds (``knn_substages``), and
+    the labels of the resolved ``assembly`` and attraction ``layout``
+    (csr | edges | rows | blocks)."""
     cfg = cfg or TsneConfig()
     device = resolve_device(device)
     x = torch.as_tensor(x, device=device)
@@ -390,6 +433,9 @@ def tsne_embed(x, cfg: TsneConfig | None = None, *,
         assembly = "sorted"  # a pinned width is a row-layout request
     from tsne_flink_tpu_torch.utils.artifacts import prepare
     prep = prepare(x, neighbors=k, knn_method=knn_method, metric=cfg.metric,
+                   knn_rounds=knn_iterations, knn_refine=knn_refine,
+                   knn_blocks=knn_blocks,
+                   generator=knn_generator(seed, device),
                    perplexity=cfg.perplexity, assembly=assembly,
                    sym_width=sym_width, device=device)
     gen = torch.Generator(device=device)
@@ -410,5 +456,5 @@ def tsne_embed(x, cfg: TsneConfig | None = None, *,
     if stats is not None:
         stats.update(knn=prep.knn_seconds, affinities=prep.affinity_seconds,
                      plan=t_plan, optimize=t_opt, assembly=prep.label,
-                     layout=layout)
+                     layout=layout, knn_substages=prep.knn_substages)
     return state.y, losses

@@ -3,7 +3,8 @@
 * :func:`metric_fn` — an elementwise pair metric over the trailing axis;
   always ``"sqeuclidean"`` for the embedding-space Student-t q_ij.
 * :func:`pairwise` — a distance matrix ``[Na, d] x [Nb, d] -> [Na, Nb]``
-  around one matmul (``‖a‖² + ‖b‖² − 2 a·bᵀ``).
+  around one matmul (``‖a‖² + ‖b‖² − 2 a·bᵀ``), batched over leading
+  dimensions.
 
 Operands stay in their own dtype: this slice has no bf16 operand policy,
 and float32 products run in full float32 (callers on the card keep
@@ -49,16 +50,17 @@ def metric_fn(metric: str):
 
 
 def pairwise(metric: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Distance matrix [Na, Nb] via one matmul."""
+    """Distance matrix [..., Na, Nb] via one (batched) matmul; leading
+    dimensions of ``a`` [..., Na, d] and ``b`` [..., Nb, d] are a batch."""
     _check(metric)
-    g = a @ b.T
+    g = a @ b.transpose(-1, -2)
     if metric == "cosine":
         na = torch.linalg.norm(a, dim=-1)
         nb = torch.linalg.norm(b, dim=-1)
-        return 1.0 - g / (na[:, None] * nb[None, :])
+        return 1.0 - g / (na[..., :, None] * nb[..., None, :])
     ra = torch.sum(a * a, dim=-1)
     rb = torch.sum(b * b, dim=-1)
-    d2 = torch.clamp(ra[:, None] + rb[None, :] - 2.0 * g, min=0.0)
+    d2 = torch.clamp(ra[..., :, None] + rb[..., None, :] - 2.0 * g, min=0.0)
     if metric == "euclidean":
         return torch.sqrt(d2)
     return d2

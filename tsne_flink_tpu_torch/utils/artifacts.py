@@ -13,6 +13,9 @@ from dataclasses import dataclass
 
 import torch
 
+# resolve_knn_plan lives with the policies it applies; it is importable
+# from here as from the JAX package's utils/artifacts
+from tsne_flink_tpu_torch.ops.knn import resolve_knn_plan  # noqa: F401
 from tsne_flink_tpu_torch.utils.device import resolve_device, timed_stage
 
 
@@ -29,16 +32,25 @@ class PrepareResult:
     # split | blocks
     knn_seconds: float
     affinity_seconds: float
+    knn_substages: dict | None = None  # kNN substage seconds (None when
+    # the graph was given)
 
 
 def prepare(x=None, *, knn=None, neighbors: int,
             knn_method: str = "bruteforce", metric: str = "sqeuclidean",
+            knn_rounds: int | None = None, knn_refine: int | None = None,
+            knn_blocks: int = 8, generator: torch.Generator | None = None,
             perplexity: float, assembly: str = "auto",
             sym_width: int | None = None, device=None) -> PrepareResult:
     """kNN (or the given ``knn=(idx, dist)``), then the symmetrized P by
     ``assembly``: ``auto`` (``affinity_auto``: split rows, or blocks when
     the rows would not fit), ``blocks`` (``affinity_blocks``), or
-    ``sorted`` / ``split`` (``affinity_pipeline`` at ``sym_width``)."""
+    ``sorted`` / ``split`` (``affinity_pipeline`` at ``sym_width``).
+
+    The kNN plan resolves through ``ops/knn.resolve_knn_plan``
+    (``knn_rounds``/``knn_refine`` None = the auto policies); the hybrid
+    plan draws from ``generator`` (None: the kNN functions' seeded
+    defaults)."""
     from tsne_flink_tpu_torch.ops import affinities as aff
     from tsne_flink_tpu_torch.ops.knn import knn as knn_dispatch
 
@@ -47,11 +59,16 @@ def prepare(x=None, *, knn=None, neighbors: int,
                          "(auto | sorted | split | blocks)")
     device = resolve_device(device)
     t0 = time.perf_counter()
+    subs = None
     if knn is not None:
         idx, dist = (torch.as_tensor(a, device=device) for a in knn)
     else:
+        subs = {}
         idx, dist = knn_dispatch(torch.as_tensor(x, device=device),
-                                 int(neighbors), knn_method, metric)
+                                 int(neighbors), knn_method, metric,
+                                 blocks=knn_blocks, rounds=knn_rounds,
+                                 refine=knn_refine, generator=generator,
+                                 on_substage=subs.update)
     t_knn = timed_stage(device, t0)
     t0 = time.perf_counter()
     if assembly == "auto":
@@ -66,4 +83,4 @@ def prepare(x=None, *, knn=None, neighbors: int,
     t_aff = timed_stage(device, t0)
     return PrepareResult(idx=idx, dist=dist, jidx=jidx, jval=jval,
                          extra_edges=extra, label=label, knn_seconds=t_knn,
-                         affinity_seconds=t_aff)
+                         affinity_seconds=t_aff, knn_substages=subs)
