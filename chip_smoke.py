@@ -7,18 +7,29 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. device  — name, count, and nvidia-smi's name + power limit;
 2. build   — nvcc of csrc/*.cu, one process per source, all at once
-   (seconds + ptxas lines);
+   (seconds + ptxas lines), B1's configuration (ring stages, distance-
+   tile buffers, shared memory) per k class, and, where the toolkit has
+   cuobjdump, whether B1's SASS holds tensor-core (HMMA/HGMMA) and
+   asynchronous-copy (LDGSTS/UTMALDG) instructions (informative);
 3. kernels — each hand-written kernel against its plain PyTorch version
-   on the card, at the shapes of the main paths (B1 at 8,192 x 784; B2,
-   B3, B4 at 60,000 rows; B5 and B4 at the three widths below; B6 on the
-   candidate sets of a real refine chunk at both hybrid-kNN shapes), and
-   one CSR step fused (B3) against unfused (B5 + tail + the vdM update);
+   on the card, at the shapes of the main paths: B1 at 8,192 x 784
+   (k = 90) and 8,192 x 50 (k = 150), held to the float64 graph (index
+   agreement >= 0.999 and >= the plain FP32 version's own) and to its
+   plain version (distances rtol 1e-4, neighbour sets >= 0.999), two
+   launches bit-identical; B2 at 60,000 rows (m = 2 and 3, a masked row
+   shard, two launches bit-identical), B3, B4 at 60,000 rows; B5 and B4
+   at the three widths below; B6 on the candidate sets of a real refine
+   chunk at both hybrid-kNN shapes; and one CSR step fused (B3) against
+   unfused (B5 + tail + the vdM update);
 4. full    — ``tsne_embed`` on 60,000 x 784 MNIST-like blobs (perplexity
    30, k = 90, exact repulsion, CSR attraction, 300 iterations): stage
    seconds, the launches of each kernel in that run (counted from 0 just
    before it), each kernel's CUDA-event time at the run's shapes beside its
-   plain version's and its bound, peak memory, the loss trace, and the
-   quality checks (finite, falling KL, 10-NN label agreement >= 0.9);
+   plain version's and its bound (B1 and its library yardstick each the
+   median of 3 warm launches taken in turns, B1's bound that of 3xTF32 on
+   the tensor cores beside one FP32 pass), peak memory, the loss trace,
+   and the quality checks (finite, falling KL, 10-NN label agreement >=
+   0.9);
 5. rows    — the default configuration (``attraction="auto"``) on
    60,000 x 784 "latent blobs" (10 clusters in a 3-D latent, lifted
    linearly to 784 dims), where auto must pick the rows layout: launches,
@@ -39,7 +50,8 @@ Phases, in order; any failure exits non-zero before the result line:
    (3 + 5 cycles), FFT repulsion (grid 1024, p = 3), 300 iterations at
    FIt-SNE's large-N learning rate (``fitsne_learning_rate``):
    stage and kNN substage seconds, B1's exact graph at this shape (its
-   time, and the hybrid's recall against it, >= 0.90), the FFT
+   time, 3 warm launches and both bounds, and the hybrid's recall
+   against it, >= 0.90), the FFT
    repulsion's per-iteration split (spread / FFTs / gather) beside B2's
    at 60,000 and at this N (the exact/FFT crossover), peak memory, and
    the quality checks (finite, falling KL, label agreement within 0.05
@@ -61,6 +73,7 @@ import contextlib
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -69,8 +82,10 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-#: H100 SXM published peaks at 700 W (NVIDIA data sheet)
+#: H100 SXM published peaks at 700 W (NVIDIA data sheet): FP32 outside
+#: the tensor cores, dense TF32 on them, HBM
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 N_FULL, F_FULL, CLASSES = 60_000, 784, 10
@@ -164,6 +179,36 @@ def make_latent_blobs(n=N_FULL, d=F_FULL, classes=CLASSES, seed=0):
     return x.astype(np.float32), labels, z
 
 
+def b1_bounds(n, f, k):
+    """B1's bounds: (3xTF32 on the tensor cores — three passes of 2·N²·F
+    at the TF32 peak —, and one FP32 pass outside them), each with x
+    read once and [N, k] distances and ids written once."""
+    nbytes = n * f * 4 + n * k * 8
+    return (bound(3 * 2.0 * n * n * f, nbytes, PEAK_TF32_FLOPS),
+            bound(2.0 * n * n * f, nbytes))
+
+
+def alternated_ms(fns, order):
+    """CUDA-event ms of single launches taken in turns: one warm-up of
+    each function, then one timed launch per name in ``order`` (e.g.
+    kernel, library, library, kernel, ...).  Returns {name: [ms, ...]}."""
+    import torch
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    out = {name: [] for name in fns}
+    for name in order:
+        out[name].append(cuda_ms(fns[name], 1, 0))
+    return out
+
+
+def spread(ms):
+    """'median ms (min–max)' of a list of times."""
+    import statistics
+    return (f"{statistics.median(ms):.4f} ms (min-max {min(ms):.4f}-"
+            f"{max(ms):.4f}, {len(ms)} warm reps)")
+
+
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     """Mean CUDA-event milliseconds of ``fn`` over ``reps`` launches."""
     import torch
@@ -180,10 +225,11 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return a.elapsed_time(b) / reps
 
 
-def bound(ops: float, nbytes: float):
-    """(bound_ms, bound_by): the larger of ops at the FP32 peak and bytes
-    at the HBM rate."""
-    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+def bound(ops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
+    """(bound_ms, bound_by): the larger of ops at the peak of their pipe
+    (FP32 outside the tensor cores unless ``peak`` says otherwise) and
+    bytes at the HBM rate."""
+    t_ops = ops / peak * 1e3
     t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -232,17 +278,136 @@ def phase_device():
     return name, count
 
 
+def sass_check(lib_path):
+    """{kernel: (tensor-core ops, async-copy ops)} found in each SASS
+    function of the library whose name holds ``knn_kernel``, or None where
+    the toolkit has no cuobjdump."""
+    import shutil
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    found = {}
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split(None, 1)[0]
+        if "knn_kernel" not in name:
+            continue
+        found[name] = (sorted({op for op in ("HMMA", "HGMMA")
+                               if op in chunk}),
+                       sorted({op for op in ("LDGSTS", "UTMALDG")
+                               if op in chunk}))
+    return found
+
+
 def phase_build():
     from tsne_flink_tpu_torch.kernels.build import build, library
+    from tsne_flink_tpu_torch.ops.knn_cuda import knn_config
     res = build()
     print(f"[build] nvcc {res.seconds:.2f} s -> {os.path.relpath(res.path)}")
     for line in res.log.splitlines():
         if "ptxas info" in line or "spill" in line:
             print("  " + line.strip())
     library()
+    for k in (K, K_CELLS, 256):
+        stages, bufs, smem = knn_config(k)
+        print(f"[build] B1 at k={k}: {stages}-stage cp.async ring, {bufs} "
+              f"distance-tile buffer(s), {smem} B shared memory")
+    sass = sass_check(res.path)
+    if sass is None:
+        print("[build] cuobjdump not found: B1's SASS not inspected")
+    for name, (mma, copy) in (sass or {}).items():
+        print(f"[build] B1 SASS {name[name.index('knn_kernel'):][:21]}: "
+              f"tensor-core ops "
+              f"{mma or 'none'}, async copies {copy or 'none'}")
 
 
-def phase_kernels(x_np, xl_np):
+def set_agreement(a, b):
+    """Mean over rows of |a_i ∩ b_i| / k for two [N, k] id lists."""
+    import torch
+    return float(torch.mean((a[:, :, None] == b[:, None, :]).any(
+        dim=2).float()))
+
+
+def b1_gates(tag, x_np, k):
+    """B1 against the exact answer and its plain version on the card: its
+    slot-wise index agreement with the float64 graph >= 0.999 and >= the
+    plain (FP32) version's own; against plain, distances within rtol
+    1e-4 and neighbour sets >= 0.999; two launches bit-identical.
+    Returns the max |distance error| against plain."""
+    import torch
+    from tsne_flink_tpu_torch.ops.knn_cuda import (_fused_final,
+                                                   knn_sweep_cuda,
+                                                   knn_sweep_plain)
+    xs = torch.from_numpy(x_np).cuda()
+    raw = knn_sweep_cuda(xs, k, False)
+    again = knn_sweep_cuda(xs, k, False)
+    ik, dk = _fused_final(*raw, "sqeuclidean")
+    ip, dp = _fused_final(*knn_sweep_plain(xs, k, False), "sqeuclidean")
+    i64, _ = _fused_final(*knn_sweep_plain(xs.double(), k, False),
+                          "sqeuclidean")
+    torch.cuda.synchronize()
+    agree_k = float(torch.mean((ik == i64).float()))
+    agree_p = float(torch.mean((ip == i64).float()))
+    sets = set_agreement(ik, ip)
+    n, f = x_np.shape
+    print(f"[kernels] B1 {tag} {n}x{f} k={k}: index agreement with the "
+          f"float64 graph {agree_k:.6f} (plain FP32 {agree_p:.6f}); with "
+          f"plain {float(torch.mean((ik == ip).float())):.6f}, sets "
+          f"{sets:.6f}")
+    check(agree_k >= 0.999, f"B1 {tag} agreement with float64 "
+          f"{agree_k:.5f} < 0.999")
+    check(agree_k >= agree_p, f"B1 {tag} agreement with float64 "
+          f"{agree_k:.5f} < plain's {agree_p:.5f}")
+    check(sets >= 0.999, f"B1 {tag} set agreement with plain {sets:.5f}")
+    check(torch.equal(raw[0], again[0]) and torch.equal(raw[1], again[1]),
+          f"B1 {tag}: two launches differ")
+    err = rel_close(dk, dp, 1e-4, f"B1 {tag} distances")
+    print(f"[kernels] B1 {tag}: max |d err| vs plain {err:.3e}; two "
+          f"launches bit-identical")
+    return err
+
+
+def b2_gates():
+    """B2 against its plain version at 60,000 x 2 (rep, row Z and global Z
+    within rtol 2e-5; two launches bit-identical), at m = 3, and on a
+    masked row shard at a row offset.  Returns (y, plain rep, plain row Z,
+    max error)."""
+    import torch
+    from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
+    from tsne_flink_tpu_torch.ops.repulsion_exact import exact_repulsion
+    y = embedding_like(N_FULL, 1)
+    rk, zk = cuda_exact_repulsion(y, row_z=True)
+    rp, zp = exact_repulsion(y, row_z=True)
+    err = max(rel_close(rk, rp, 2e-5, "B2 rep"),
+              rel_close(zk, zp, 2e-5, "B2 row Z"))
+    zt_k, zt_p = float(torch.sum(zk)), float(torch.sum(zp))
+    check(abs(zt_k - zt_p) <= 2e-5 * abs(zt_p), "B2 global Z")
+    again = cuda_exact_repulsion(y, row_z=True)
+    check(torch.equal(again[0], rk) and torch.equal(again[1], zk),
+          "B2: two launches differ")
+    print(f"[kernels] B2 {N_FULL}x2: max |rep err| {err:.3e}, "
+          f"Z {zt_k:.8e} vs {zt_p:.8e}; two launches bit-identical")
+    rng = np.random.default_rng(5)
+    y3 = torch.cat([y, torch.from_numpy(3.0 * rng.standard_normal(
+        (N_FULL, 1)).astype(np.float32)).cuda()], dim=1).contiguous()
+    valid = torch.arange(N_FULL, device=y.device) < N_FULL - 777
+    a, b = N_FULL // 3, 2 * N_FULL // 3
+    for tag, shard, off, mask in (("m=3", y3, 0, None),
+                                  (f"m=3 rows {a}-{b - 1} of a masked y",
+                                   y3[a:b].contiguous(), a, valid)):
+        r3k, z3k = cuda_exact_repulsion(shard, y3, row_offset=off,
+                                        col_valid=mask, row_z=True)
+        r3p, z3p = exact_repulsion(shard, y3, row_offset=off,
+                                   col_valid=mask, row_z=True)
+        e = max(rel_close(r3k, r3p, 2e-5, f"B2 {tag} rep"),
+                rel_close(z3k, z3p, 2e-5, f"B2 {tag} row Z"))
+        err = max(err, e)
+        print(f"[kernels] B2 {tag}: max |rep/Z err| {e:.3e}")
+    return y, rp, zp, err
+
+
+def phase_kernels(x_np, xl_np, xc_np):
     """Kernel vs plain on the card.  Returns each kernel's max abs error,
     the real CSR layout of the blobs, the latent blobs' [N, S] rows and
     the blobs' blocks layout (forward rows, reverse edges)."""
@@ -252,35 +417,17 @@ def phase_kernels(x_np, xl_np):
                                                   _update_embedding)
     from tsne_flink_tpu_torch.ops import attraction_cuda as att
     from tsne_flink_tpu_torch.ops.affinities import affinity_blocks
-    from tsne_flink_tpu_torch.ops.knn_cuda import (_fused_final,
-                                                   knn_sweep_cuda,
-                                                   knn_sweep_plain)
     from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
     from tsne_flink_tpu_torch.ops.repulsion_exact import exact_repulsion
     from tsne_flink_tpu_torch.utils.artifacts import prepare
 
     errs = {}
-    # B1 at 8,192 x 784, k = 90
-    xs = torch.from_numpy(x_np[:N_B1_CHECK]).cuda()
-    ik, dk = _fused_final(*knn_sweep_cuda(xs, K, False), "sqeuclidean")
-    ip, dp = _fused_final(*knn_sweep_plain(xs, K, False), "sqeuclidean")
-    torch.cuda.synchronize()
-    agree = float(torch.mean((ik == ip).float()))
-    check(agree >= 0.999, f"B1 index agreement {agree:.5f} < 0.999")
-    errs["B1"] = rel_close(dk, dp, 1e-4, "B1 distances")
-    print(f"[kernels] B1 {N_B1_CHECK}x{F_FULL} k={K}: index agreement "
-          f"{agree:.6f}, max |d err| {errs['B1']:.3e}")
+    # B1 at 8,192 x 784, k = 90 (the blobs) and 8,192 x 50, k = 150 (the
+    # cells, padded to 64 features)
+    errs["B1"] = max(b1_gates("blobs", x_np[:N_B1_CHECK], K),
+                     b1_gates("cells", xc_np[:N_B1_CHECK], K_CELLS))
 
-    # B2 at 60,000 x 2
-    y = embedding_like(N_FULL, 1)
-    rk, zk = cuda_exact_repulsion(y, row_z=True)
-    rp, zp = exact_repulsion(y, row_z=True)
-    errs["B2"] = max(rel_close(rk, rp, 2e-5, "B2 rep"),
-                     rel_close(zk, zp, 2e-5, "B2 row Z"))
-    zt_k, zt_p = float(torch.sum(zk)), float(torch.sum(zp))
-    check(abs(zt_k - zt_p) <= 2e-5 * abs(zt_p), "B2 global Z")
-    print(f"[kernels] B2 {N_FULL}x2: max |rep err| {errs['B2']:.3e}, "
-          f"Z {zt_k:.8e} vs {zt_p:.8e}")
+    y, rp, zp, errs["B2"] = b2_gates()
 
     # B3 / B4 at 60,000 x W of the real CSR
     prep = prepare(x_np, neighbors=K, perplexity=PERPLEXITY)
@@ -561,10 +708,15 @@ def phase_full(x_np, labels, errs, csr):
     upd, gains = torch.zeros_like(y), torch.ones_like(y)
     step = (y, y, hidx, hval, 1.0, tail, repz, None, upd, gains, 0.8)
     kw = dict(eta=cfg.learning_rate, min_gain=cfg.min_gain)
+    # B1 and its one-call yardstick in turns, after a warm-up of each
+    b1 = alternated_ms({"kernel": lambda: knn_sweep_cuda(x, K, False),
+                        "library": lambda: library_knn(x, K)},
+                       ["kernel", "library", "library", "kernel", "kernel",
+                        "library"])
     t = {
-        "B1": (cuda_ms(lambda: knn_sweep_cuda(x, K, False), 1, 0),
+        "B1": (statistics.median(b1["kernel"]),
                cuda_ms(lambda: knn_sweep_plain(x, K, False), 1, 0),
-               cuda_ms(lambda: library_knn(x, K), 1, 0)),
+               statistics.median(b1["library"])),
         "B2": (cuda_ms(lambda: cuda_exact_repulsion(y, row_z=True), 20),
                cuda_ms(lambda: exact_repulsion(y, row_z=True), 3), None),
         "B3": (cuda_ms(lambda: att.fused_step_update(*step, **kw), 50),
@@ -575,8 +727,13 @@ def phase_full(x_np, labels, errs, csr):
                                                          1.0, z), 5), None),
     }
     nnz, head_bytes = head_need(hval)
+    b1_tf32, b1_fp32 = b1_bounds(n, F_FULL, K)
+    print(f"[full] B1 knn {n}x{F_FULL} k={K}: {spread(b1['kernel'])}; "
+          f"library (chunked matmul + topk) {spread(b1['library'])}; "
+          f"bound {b1_tf32[0]:.4f} ms (3xTF32 on the tensor cores), "
+          f"{b1_fp32[0]:.4f} ms (one FP32 pass outside them)")
     bounds = {
-        "B1": bound(2.0 * n * n * F_FULL, n * F_FULL * 4 + n * K * 8),
+        "B1": b1_tf32,
         "B2": bound(20.0 * n * n, n * m * 4 * 2 + n * 4),
         "B3": bound(20.0 * nnz, head_bytes + 8 * n * m * 4 + n * 4),
         "B4": bound(25.0 * nnz, head_bytes + n * m * 4 + n * 4),
@@ -828,12 +985,34 @@ def phase_project(x_np, labels, b1_ms, b6_shapes):
           f"exact sweep {t_b1:.3f} s here ({b1_ms / 1e3:.3f} s in [full])")
 
 
+def auto_crossover(d, eff_exact, eff_hybrid, k=K):
+    """The smallest N (to 1%) at which ``pick_knn_method``'s cost model,
+    with these efficiencies, prefers the hybrid plan at width ``d``."""
+    from tsne_flink_tpu_torch.ops.knn import pick_knn_refine, pick_knn_rounds
+    from tsne_flink_tpu_torch.utils.flops import knn_flops
+
+    def hybrid_wins(n):
+        exact = knn_flops(n, d, k, "bruteforce") / eff_exact
+        hybrid = knn_flops(n, d, k, "project", rounds=pick_knn_rounds(n),
+                           refine_rounds=pick_knn_refine(n, d)) / eff_hybrid
+        return exact > hybrid
+
+    lo, hi = 1_000, 1_000
+    while not hybrid_wins(hi):
+        lo, hi = hi, hi * 2
+    while hi > lo * 1.01:
+        mid = (lo + hi) // 2
+        lo, hi = (lo, mid) if hybrid_wins(mid) else (mid, hi)
+    return hi
+
+
 def phase_large(xc_np, labels, z_latent, y_60k, b2_ms_60k):
     """The 1.3M-cell shape with the hybrid kNN and FFT repulsion.  Returns
     the run's B6 launches."""
     import torch
     from tsne_flink_tpu_torch import TsneConfig
     from tsne_flink_tpu_torch.ops.knn import pick_knn_refine, pick_knn_rounds
+    from tsne_flink_tpu_torch.ops.knn_cuda import knn_sweep_cuda
     from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
     from tsne_flink_tpu_torch.utils.flops import knn_flops
 
@@ -856,16 +1035,28 @@ def phase_large(xc_np, labels, z_latent, y_60k, b2_ms_60k):
     x = torch.from_numpy(xc_np).cuda()
     _, dist_e, t_b1 = timed_exact_graph(x, K_CELLS)
     recall = recall_at_k(graph[1], dist_e)
-    del graph[:], dist_e, x
+    del graph[:], dist_e
     print(f"[large] {rounds} seed rounds + {cycles} cycles, B6 x"
           f"{counts['B6']}: knn stage {stats['knn']:.3f} s; B1's exact "
           f"graph {t_b1:.3f} s; recall@{K_CELLS} {recall:.4f} (bar 0.90)")
     check(recall >= 0.90, f"[large] recall {recall} < 0.90")
+    # B1 at this shape, warm (the graph above was its first launch)
+    b1_ms = [cuda_ms(lambda: knn_sweep_cuda(x, K_CELLS, False), 1, 0)
+             for _ in range(3)]
+    del x
+    b1_tf32, b1_fp32 = b1_bounds(n, d, K_CELLS)
+    print(f"[large] B1 knn {n}x{d} k={K_CELLS}: {spread(b1_ms)}; bound "
+          f"{b1_tf32[0]:.4f} ms (3xTF32 on the tensor cores), "
+          f"{b1_fp32[0]:.4f} ms (one FP32 pass outside them); the library "
+          f"yardstick is not timed at this shape")
     eff_exact = knn_flops(n, d, K_CELLS, "bruteforce") / t_b1
     eff_hybrid = knn_flops(n, d, K_CELLS, "project", rounds=rounds,
                            refine_rounds=cycles) / stats["knn"]
     print(f"[large] knn efficiencies (knn_flops / s): exact (B1) "
-          f"{eff_exact:.4e}, hybrid {eff_hybrid:.4e}")
+          f"{eff_exact:.4e}, hybrid {eff_hybrid:.4e}; with them "
+          f"pick_knn_method's exact/hybrid crossover at k = 90 lies near "
+          f"N = {auto_crossover(50, eff_exact, eff_hybrid)} (d = 50) and "
+          f"N = {auto_crossover(784, eff_exact, eff_hybrid)} (d = 784)")
     sp, ff, ga, whole = fft_split(y, cfg)
     sp6, ff6, ga6, whole6 = fft_split(y_60k, cfg)
     b2_large = cuda_ms(lambda: cuda_exact_repulsion(y, row_z=True), 1, 0)
@@ -936,7 +1127,7 @@ def main() -> int:
         x_np, labels = make_data()
         xl_np, labels_l, z_latent = make_latent_blobs()
         xc_np, labels_c, z_cells = make_cells()
-        errs, csr, rows, blocks = phase_kernels(x_np, xl_np)
+        errs, csr, rows, blocks = phase_kernels(x_np, xl_np, xc_np)
         errs["B6"], b6_shapes = phase_b6(x_np, xc_np)
         kernels, csr_kl, y_60k, b1_ms, b2_ms = phase_full(x_np, labels,
                                                           errs, csr)

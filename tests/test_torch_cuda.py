@@ -8,11 +8,13 @@ JAX, so the card's machine runs them without the JAX test harness:
         tests/test_torch_cuda.py
 
 The main-path shapes are checked by chip_smoke.py; these cover the edges:
-tiny and ragged N, k = N - 1, exact ties, every metric, m = 3, row
-shards with validity masks, B5 from one slot to wide rows, B5 as the
-fused step's head, B6 at every width class, the kNN methods launching
-B1 and B6 on CUDA tensors, FFT repulsion on the card, and launch
-counting.
+tiny and ragged N, k = N - 1, exact ties, every metric, B1 at the large
+run's width (F = 50 padded to 64, k = 150) and at k = K_MAX against the
+float64 graph, m = 3, row shards with validity masks, B2 below one tile
+and at ragged N, two launches bit-identical, B5 from one slot to wide
+rows, B5 as the fused step's head, B6 at every width class, the kNN
+methods launching B1 and B6 on CUDA tensors, FFT repulsion on the card,
+and launch counting.
 """
 
 import numpy as np
@@ -24,10 +26,11 @@ from tsne_flink_tpu_torch.kernels.build import reset_launches
 from tsne_flink_tpu_torch.ops import attraction_cuda as att
 from tsne_flink_tpu_torch.ops import knn as tknn
 from tsne_flink_tpu_torch.ops.knn import cosine_zbase
-from tsne_flink_tpu_torch.ops.knn_cuda import (_fused_final, cand_sqdist,
-                                               cand_sqdist_plain,
+from tsne_flink_tpu_torch.ops.knn_cuda import (K_MAX, _fused_final,
+                                               cand_sqdist,
+                                               cand_sqdist_plain, knn_config,
                                                knn_sweep_cuda,
-                                               knn_sweep_plain)
+                                               knn_sweep_plain, tf32_split)
 from tsne_flink_tpu_torch.ops.repulsion_fft import fft_repulsion
 from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
 from tsne_flink_tpu_torch.ops.repulsion_exact import exact_repulsion
@@ -69,6 +72,97 @@ def test_knn_metrics_match_plain(dev, metric):
     torch.testing.assert_close(dk, dp, rtol=1e-4, atol=1e-5)
 
 
+def _blobs(n, f, seed):
+    """bench.make_data's MNIST-like blobs: 10 centres in [0, 1], noise
+    0.15, clipped to [0, 1]: dense clusters with many near-ties."""
+    rng = np.random.default_rng(seed)
+    centers = rng.random((10, f)).astype(np.float32)
+    x = centers[rng.integers(0, 10, n)] + 0.15 * rng.standard_normal(
+        (n, f)).astype(np.float32)
+    return np.clip(x, 0.0, 1.0)
+
+
+def _cells(n, f, seed):
+    """chip_smoke.make_cells' stand-in for the 1.3M cells' 50 principal
+    components: Zipf-sized types in a 10-D latent, lifted with a decaying
+    per-dim scale."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / np.arange(1, 31)
+    labels = rng.choice(30, n, p=p / p.sum())
+    z = 4.0 * rng.standard_normal((30, 10))[labels] + rng.standard_normal(
+        (n, 10))
+    scale = np.exp(-np.arange(f) / 12.0)
+    lift = rng.standard_normal((10, f)) * scale
+    x = z @ lift + 0.05 * scale * rng.standard_normal((n, f))
+    return x.astype(np.float32)
+
+
+def _set_agreement(a, b):
+    """Mean over rows of |a_i ∩ b_i| / k for two [N, k] id lists."""
+    hits = (a[:, :, None] == b[:, None, :]).any(dim=2)
+    return float(hits.float().mean())
+
+
+def _b1_gates(x, k, metric):
+    """B1's bars against the float64 graph and its plain version: index
+    agreement >= 0.999 with the float64 graph and >= the plain version's
+    own; against plain, distances rtol 1e-4 and neighbour sets >= 0.999."""
+    cos = metric == "cosine"
+    base = cosine_zbase(x) if cos else x
+    ik, dk = _fused_final(*knn_sweep_cuda(base, k, cos), metric)
+    ip, dp = _fused_final(*knn_sweep_plain(base, k, cos), metric)
+    i64, _ = _fused_final(*knn_sweep_plain(base.double(), k, cos), metric)
+    agree_k = float((ik == i64).float().mean())
+    agree_p = float((ip == i64).float().mean())
+    assert agree_k >= 0.999 and agree_k >= agree_p, (agree_k, agree_p)
+    torch.testing.assert_close(dk, dp, rtol=1e-4,
+                               atol=1e-4 * float(dp.abs().max()))
+    assert _set_agreement(ik, ip) >= 0.999
+    return ik, dk
+
+
+@pytest.mark.parametrize("data,n,f,k,metric", [
+    ("cells", 6000, 50, 150, "sqeuclidean"),    # the large run's width
+    ("blobs", 3000, 784, K_MAX, "sqeuclidean"),  # the 1-buffer class
+    ("blobs", 2500, 784, 140, "euclidean"),      # the 2-stage class
+    ("blobs", 2000, 784, 90, "cosine"),
+    ("blobs", 1111, 100, 33, "sqeuclidean"),     # N, F off every tile edge
+])
+def test_knn_meets_its_bars_against_float64(dev, data, n, f, k, metric):
+    x = torch.from_numpy((_cells if data == "cells" else _blobs)(n, f, k))
+    _b1_gates(x.to(dev), k, metric)
+
+
+def test_knn_distances_are_the_three_pass_split_products(dev):
+    """The kernel's distances are the 3xTF32 products of tf32_split's
+    parts (emulated in float64) to within 1e-5 of the distance scale."""
+    x = torch.from_numpy(_blobs(1200, 784, 2)).to(dev)
+    dk, ik = knn_sweep_cuda(x, 90, False)
+    x64 = x.double()
+    hi, lo = (p.double() for p in tf32_split(x))
+    n2 = torch.sum(x64 * x64, dim=1)
+    d3 = torch.clamp(n2[:, None] + n2[None, :]
+                     - 2.0 * (lo @ hi.T + hi @ lo.T + hi @ hi.T), min=0)
+    want = torch.gather(d3, 1, ik.long())
+    scale = float(d3.max())
+    assert float(torch.max(torch.abs(dk.double() - want))) <= 1e-5 * scale
+
+
+def test_knn_configs_fit_and_launches_repeat_bitwise(dev):
+    """Each k class's (stages, buffers) fit the block's shared memory, and
+    two launches give the same bits."""
+    limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    configs = {k: knn_config(k) for k in (1, 90, 128, 129, 150, 160, 161,
+                                          K_MAX)}
+    assert configs[90][:2] == (3, 2) and configs[150][:2] == (2, 2)
+    assert configs[K_MAX][:2] == (2, 1)
+    assert all(smem <= limit for _, _, smem in configs.values())
+    x = torch.from_numpy(_blobs(1500, 784, 1)).to(dev)
+    a = knn_sweep_cuda(x, 90, False)
+    b = knn_sweep_cuda(x, 90, False)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
 @pytest.mark.parametrize("n,m", [(97, 2), (530, 2), (257, 3)])
 def test_repulsion_matches_plain(dev, n, m):
     rng = np.random.default_rng(0)
@@ -95,6 +189,50 @@ def test_repulsion_shards_and_validity(dev):
                                  row_z=True)
         torch.testing.assert_close(rk, rp, rtol=2e-5, atol=2e-5)
         torch.testing.assert_close(zk, zp, rtol=2e-5, atol=1e-6)
+
+
+def _close_scaled(a, b, rtol=2e-5):
+    """rtol with an absolute part of rtol·max|b|, as chip_smoke.py holds
+    B2: a sum over N columns cancels to well below its terms."""
+    torch.testing.assert_close(a, b, rtol=rtol,
+                               atol=rtol * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("n,m", [(100, 2), (100, 3), (3001, 2),
+                                 (20_011, 3), (20_011, 2)])
+def test_repulsion_below_a_tile_and_ragged(dev, n, m):
+    """N below one 512-row block; N off every multiple of the block's
+    rows and of the column splits (20,011 rows take S > 1)."""
+    rng = np.random.default_rng(n + m)
+    y = torch.from_numpy((rng.standard_normal((n, m)) * 20.0).astype(
+        np.float32)).to(dev)
+    rk, zk = cuda_exact_repulsion(y, row_z=True)
+    rp, zp = exact_repulsion(y, row_z=True)
+    _close_scaled(rk, rp)
+    _close_scaled(zk, zp)
+    assert abs(float(zk.sum()) - float(zp.sum())) <= 2e-5 * float(zp.sum())
+
+
+def test_repulsion_shards_validity_and_bitwise_repeat(dev):
+    """Row shards at a row_offset with a column mask, m = 3, at a size
+    that splits the columns; two launches give the same bits."""
+    rng = np.random.default_rng(7)
+    n, n_pad = 9000, 9472
+    y = np.zeros((n_pad, 3), np.float32)
+    y[:n] = rng.standard_normal((n, 3)) * 10.0
+    y = torch.from_numpy(y).to(dev)
+    valid = torch.arange(n_pad, device=dev) < n
+    for off in (0, 3001, 7000):
+        shard = y[off:off + 2472].contiguous()
+        rk, zk = cuda_exact_repulsion(shard, y, row_offset=off,
+                                      col_valid=valid, row_z=True)
+        rp, zp = exact_repulsion(shard, y, row_offset=off, col_valid=valid,
+                                 row_z=True)
+        _close_scaled(rk, rp)
+        _close_scaled(zk, zp)
+        again = cuda_exact_repulsion(shard, y, row_offset=off,
+                                     col_valid=valid, row_z=True)
+        assert torch.equal(again[0], rk) and torch.equal(again[1], zk)
 
 
 @pytest.mark.parametrize("m", [2, 3])

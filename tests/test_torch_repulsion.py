@@ -58,3 +58,23 @@ def test_chunking_does_not_change_the_result():
     b = exact_repulsion(y, row_chunk=1000, row_z=True)
     for u, v in zip(a, b):
         np.testing.assert_array_equal(u.numpy(), v.numpy())
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+def test_column_splits_fill_the_card_and_cover_the_columns(sms):
+    """B2's second grid dimension: enough blocks for two waves where the
+    columns allow it, never a range narrower than one staged tile, and
+    the ranges cover every column exactly once."""
+    from tsne_flink_tpu_torch.ops import repulsion_cuda as rc
+    for nloc, nfull in ((60_000, 60_000), (2000, 2000), (100, 100),
+                        (20_011, 20_011), (1_306_127, 1_306_127),
+                        (2472, 9472)):
+        s = rc.column_splits(nloc, nfull, sms)
+        tiles = -(-nfull // rc.COLS_PER_TILE)
+        assert 1 <= s <= tiles
+        blocks = -(-nloc // rc.ROWS_PER_BLOCK) * s
+        assert blocks >= min(rc.WAVES * sms * rc.BLOCKS_PER_SM,
+                             -(-nloc // rc.ROWS_PER_BLOCK) * tiles)
+        span = -(-nfull // s)
+        assert (s - 1) * span < nfull <= s * span
+    assert rc.column_splits(60_000, 60_000, 132) == 36

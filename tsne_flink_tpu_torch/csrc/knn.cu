@@ -1,229 +1,514 @@
-// B1 — exact self-kNN: distance tiles with an in-block running top-k.
+// B1 — exact self-kNN: distance tiles on the tensor cores (3xTF32) with a
+// running top-k merged by warps of their own.
 //
 // Replaces tsne_flink_tpu/ops/knn_pallas.py::_fused_kernel (launched by
 // _fused_sweep, driven by fused_knn).
 //
-// What bounds it on an H100: the 2·N²·F multiply-adds of the distance
-// tiles.  In FP32 outside the tensor cores (67 TFLOP/s at 700 W) that is
-// 84 ms at N = 60,000, F = 784; the bytes (x once, [N, k] out) are noise.
-// The top-k merge is ~k·log(N/k) insertions per row, far below the FMAs.
+// What bounds it on an H100: the N²·F multiply-adds of the distance tiles.
+// They run as three TF32 tensor-core passes (see Precision), 3·2·N²·F
+// operations at 495 TFLOP/s: 34 ms at N = 60,000, F = 784, against 84 ms
+// for one FP32 pass outside the tensor cores (67 TFLOP/s).  The bytes the
+// function must move (x once, [N, k] out) are noise, but a block re-reads
+// every column of x from L2, so what a block keeps per byte it loads, and
+// the serial top-k merge, decide how near the bound it gets.
 //
-// Design: one block owns TR = 64 query rows and walks all column tiles of
-// TC = 64 points.  Each tile is a register-blocked SGEMM (16 x 16 threads,
-// 4 x 4 outputs each) over the feature axis, staged through shared memory
-// in BK = 16 slices.  The 64 x 64 distance tile goes to shared memory and
-// is merged at once into each row's k-list, which stays in shared memory
-// for the whole sweep: no [chunk, N] block ever reaches device memory.
-// One warp merges a row: a ballot finds the tile columns that beat the
-// row's current worst entry, and each is inserted over that worst entry in
-// column order, after which the warp re-derives the worst by a shuffle
-// reduction.  Order is lexicographic on (distance, column), so ties go to
-// the lower column, as lax.top_k does.  The k-list leaves unordered; the
-// wrapper orders it (the _fused_final step of the TPU path).
+// Design:
+// - A block owns TR = 64 query rows and walks every column tile of TC = 128
+//   points.  Eight compute warps (2 x 4, 32 x 32 outputs each) run
+//   mma.sync.m16n8k8 TF32.  mma.sync rather than wgmma: TF32 wgmma needs
+//   its operands in swizzled shared-memory layouts described by matrix
+//   descriptors, while the split below happens on the way from shared
+//   memory to the fragments, which mma.sync takes from registers; the
+//   padded ring (row stride 36 floats) serves the fragments without bank
+//   conflicts.
+// - Feature slices of BK = 32 FP32 values stream through a ring of STAGES
+//   shared-memory stages filled by cp.async (16 bytes a thread, zero-filled
+//   past N and F): the next slice loads while the current one multiplies,
+//   across column-tile boundaries, with one 256-thread named barrier per
+//   slice.  The ring holds x itself, not its TF32 parts: splitting in
+//   registers (an integer rounding, a subtraction, a rounding again)
+//   halves the L2 traffic that a pre-split hi/lo pair doubled.
+// - The epilogue forms d for its 32 outputs, drops every entry that does
+//   not beat its row's current k-th distance (thr, kept by the merge warps),
+//   writes the survivors into a distance tile Dt (DTB buffers) and flags
+//   the rows that kept any.  Four merge warps, 16 rows each, merge tile t
+//   while the compute warps multiply tile t + 1, visiting only the flagged
+//   rows: FULL/EMPTY named barriers hand each Dt buffer over (bar.arrive by
+//   the producer, bar.sync by the consumer).
+// - A row's k-list is kept as 64-bit keys, (order-preserving distance bits)
+//   << 32 | column, so the lexicographic (distance, column) order is one
+//   integer compare: ties go to the lower column, as lax.top_k does.  While
+//   a flagged row merges, its list sits in the merge warp's registers (slot
+//   s·32 + lane in lane's reg[s]); the list first fills, then each survivor
+//   that beats the worst replaces it in the lane that holds the worst, which
+//   rescans its own slots, and two redux.sync max steps re-derive the worst.
+//   The list leaves unordered; the wrapper orders it (the _fused_final step
+//   of the TPU path).
+// - Shared memory: the ring (28 KB a stage, with the columns' norms), Dt (34 KB a buffer) and the
+//   k-lists (64·k·8 bytes) share the 227 KB a block may have, so the stage
+//   and buffer counts are templated on k's class (tsne_knn_config):
+//   k <= 128: 3 stages, 2 buffers; k <= 160: 2 and 2; k <= 256: 2 and 1.
 //
-// Precision: full FP32 (no TF32), the norm trick d = |a|² + |b|² − 2a·b
-// clamped at 0, like ops/metrics.pairwise; cosine takes L2-normalised rows
-// and computes 1 − a·b.  Row norms come in precomputed from the wrapper.
+// Precision ("3xTF32"): each x splits into hi = tf32(x) and lo = tf32(x -
+// hi) (ops/knn_cuda.tf32_split states the same split); each slice
+// accumulates lo·hiᵀ + hi·loᵀ + hi·hiᵀ (small terms first) in FP32 on the
+// tensor cores, dropping lo·loᵀ (~2^-22 relative).  The tensor cores
+// truncate when they add, and a norm-trick distance cancels ~8x at F =
+// 784, so one FP32 accumulator over all of F would lose to cuBLAS's FP32.
+// The accumulator is therefore flushed every 32 features into a
+// double-float sum (hi, lo) by an exact TwoSum, and the epilogue forms d =
+// |a|² + |b|² − 2g in double-float from row norms the wrapper passes as
+// (hi, lo) pairs of their float64 values, clamped at 0; cosine
+// (L2-normalised rows) takes 1 − g.
 #include "common.cuh"
 
 namespace {
 
-constexpr int TR = 64;
-constexpr int TC = 64;
-constexpr int BK = 16;
-constexpr int THREADS = 256;
-constexpr int DSTRIDE = TC + 1;
+constexpr int TR = 64;                 // rows a block owns
+constexpr int TC = 128;                // columns a tile sweeps
+constexpr int BK = 32;                 // features a stage holds
+constexpr int LDS = BK + 4;            // padded smem row stride (floats)
+constexpr int DSTRIDE = TC + 8;        // Dt row stride (floats)
+constexpr int COMPUTE = 256;           // compute threads (8 warps)
+constexpr int MERGE_WARPS = 4;         // 16 rows each
+constexpr int MROWS = TR / MERGE_WARPS;
+constexpr int THREADS = COMPUTE + 32 * MERGE_WARPS;
+constexpr int OPER_FLOATS = (TR + TC) * LDS;   // row tile, then column tile
+constexpr int STAGE_FLOATS = OPER_FLOATS + 2 * TC;  // + the columns' norms
+constexpr int DT_FLOATS = TR * DSTRIDE;
+constexpr int KREG = 8;                // k-list slots a merge lane holds
+// named barriers: 0 is __syncthreads
+constexpr int BAR_COMPUTE = 1;
+constexpr int BAR_FULL = 2;            // + buffer
+constexpr int BAR_EMPTY = 4;           // + buffer
 
-__device__ __forceinline__ bool lex_less(float d, int j, float d2, int j2) {
-  return d < d2 || (d == d2 && j < j2);
+using u64 = unsigned long long;
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-// stage rows [base, base + 64) x features [k0, k0 + BK) transposed into
-// dst[BK][64]; rows past n read as zero
-__device__ __forceinline__ void stage_tile(const float* __restrict__ x, int n,
-                                           int f, int base, int k0,
-                                           float* dst, int tid) {
-  const int r = tid >> 2;
-  const int kk = (tid & 3) * 4;
-  const int g = base + r;
-  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (g < n) v = *reinterpret_cast<const float4*>(x + (size_t)g * f + k0 + kk);
-  dst[(kk + 0) * 64 + r] = v.x;
-  dst[(kk + 1) * 64 + r] = v.y;
-  dst[(kk + 2) * 64 + r] = v.z;
-  dst[(kk + 3) * 64 + r] = v.w;
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  const unsigned saddr =
+      static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(saddr),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// x -> (hi, lo): hi = tf32(x) rounded to nearest (ties away from zero),
+// lo = tf32(x - hi), by integer rounding of the bits (as cvt.rna.tf32.f32
+// rounds, and faster: scripts/b1_breakdown_cuda.py times both); the split
+// ops/knn_cuda.tf32_split states in PyTorch
+__device__ __forceinline__ void split_tf32(float x, unsigned& hi,
+                                           unsigned& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  const float rest = x - __uint_as_float(hi);
+  lo = (__float_as_uint(rest) + 0x1000u) & 0xffffe000u;
+}
+
+// not volatile: the compiler may interleave independent products
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// (distance, column) -> a key whose unsigned order is the lexicographic one
+__device__ __forceinline__ u64 make_key(float d, int j) {
+  const unsigned bits = __float_as_uint(d);
+  const unsigned u = (bits & 0x80000000u) ? ~bits : (bits | 0x80000000u);
+  return (static_cast<u64>(u) << 32) | static_cast<unsigned>(j);
+}
+
+__device__ __forceinline__ float key_dist(u64 key) {
+  const unsigned u = static_cast<unsigned>(key >> 32);
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+__device__ __forceinline__ u64 shfl64(u64 v, int src) {
+  const unsigned lo = __shfl_sync(tsne::kFullMask, static_cast<unsigned>(v), src);
+  const unsigned hi = __shfl_sync(tsne::kFullMask, static_cast<unsigned>(v >> 32), src);
+  return (static_cast<u64>(hi) << 32) | lo;
+}
+
+// the largest key over the warp (keys are unique: columns differ)
+__device__ __forceinline__ u64 warp_max(u64 v) {
+  const unsigned hi = static_cast<unsigned>(v >> 32);
+  const unsigned mhi = __reduce_max_sync(tsne::kFullMask, hi);
+  const unsigned lo = hi == mhi ? static_cast<unsigned>(v) : 0u;
+  return (static_cast<u64>(mhi) << 32) | __reduce_max_sync(tsne::kFullMask, lo);
+}
+
+// a lane's largest held key and its register slot
+__device__ __forceinline__ void lane_max(const u64 (&reg)[KREG], u64& lm,
+                                         int& ls) {
+  lm = 0;
+  ls = 0;
+#pragma unroll
+  for (int s = 0; s < KREG; ++s)
+    if (reg[s] > lm) {
+      lm = reg[s];
+      ls = s;
+    }
+}
+
+__device__ __forceinline__ void reg_set(u64 (&reg)[KREG], int slot, u64 v) {
+#pragma unroll
+  for (int s = 0; s < KREG; ++s)
+    if (s == slot) reg[s] = v;
+}
+
+// exact s + e = a + b (TwoSum; no products, so no FMA contraction)
+__device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
+  s = a + b;
+  const float bp = s - a;
+  e = (a - (s - bp)) + (b - bp);
+}
+
+template <int STAGES, int DTB>
+__global__ void __launch_bounds__(THREADS, 1)
 knn_kernel(const float* __restrict__ x, const float* __restrict__ norms,
            int n, int f, int k, int cosine, float* __restrict__ out_d,
            int* __restrict__ out_i) {
   extern __shared__ __align__(16) float smem[];
-  float* As = smem;                    // [BK][TR]
-  float* Bs = As + BK * TR;            // [BK][TC]
-  float* Dt = Bs + BK * TC;            // [TR][DSTRIDE]
-  float* Ld = Dt + TR * DSTRIDE;       // [TR][k] list distances
-  int* Li = reinterpret_cast<int*>(Ld + TR * k);  // [TR][k] list columns
-  float* Wd = reinterpret_cast<float*>(Li + TR * k);  // [TR] worst distance
-  int* Wj = reinterpret_cast<int*>(Wd + TR);          // [TR] worst column
-  int* Ws = Wj + TR;                                   // [TR] worst slot
+  float* ring = smem;                                  // [STAGES][STAGE_FLOATS]
+  float* dt = ring + STAGES * STAGE_FLOATS;            // [DTB][TR][DSTRIDE]
+  u64* lists = reinterpret_cast<u64*>(dt + DTB * DT_FLOATS);  // [TR][k]
+  u64* wkey = lists + TR * k;                          // [TR] worst key
+  int* fill = reinterpret_cast<int*>(wkey + TR);       // [TR] filled slots
+  volatile float* thr = reinterpret_cast<float*>(fill + TR);  // [TR] k-th d
+  unsigned* rowmask = reinterpret_cast<unsigned*>(fill + 2 * TR);
+  // rowmask [DTB][MERGE_WARPS]: the rows of a Dt buffer with survivors
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
-  const int lane = tid & 31, warp = tid >> 5;
+  const int lane = tid & 31;
   const int row0 = blockIdx.x * TR;
+  const int ks_per_tile = (f + BK - 1) / BK;
+  const int tiles = (n + TC - 1) / TC;
+  const int total = tiles * ks_per_tile;
 
-  for (int e = tid; e < TR * k; e += THREADS) {
-    Ld[e] = INFINITY;
-    Li[e] = INT_MAX;
-  }
   for (int r = tid; r < TR; r += THREADS) {
-    Wd[r] = INFINITY;
-    Wj[r] = INT_MAX;
-    Ws[r] = 0;
+    wkey[r] = ~0ull;
+    fill[r] = 0;
+    thr[r] = INFINITY;
   }
-  float nr[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int g = row0 + ty * 4 + a;
-    nr[a] = (g < n && !cosine) ? norms[g] : 0.f;
-  }
+  for (int e = tid; e < DTB * MERGE_WARPS; e += THREADS) rowmask[e] = 0;
   __syncthreads();
 
-  for (int col0 = 0; col0 < n; col0 += TC) {
-    float acc[4][4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+  if (tid < COMPUTE) {
+    // ---------------- compute warps: products + filtering epilogue
+    const int warp = tid >> 5;
+    const int wm = warp >> 2, wn = warp & 3;
+    const int g = lane >> 2, tq = lane & 3;
 
-    for (int k0 = 0; k0 < f; k0 += BK) {
-      stage_tile(x, n, f, row0, k0, As, tid);
-      stage_tile(x, n, f, col0, k0, Bs, tid);
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        const float4 av = *reinterpret_cast<const float4*>(As + kk * TR + ty * 4);
-        const float4 bv = *reinterpret_cast<const float4*>(Bs + kk * TC + tx * 4);
-        const float a4[4] = {av.x, av.y, av.z, av.w};
-        const float b4[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int a = 0; a < 4; ++a)
-#pragma unroll
-          for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(a4[a], b4[b], acc[a][b]);
+    auto load_stage = [&](int s, int buf) {
+      const int col0 = (s / ks_per_tile) * TC;
+      const int kk = s % ks_per_tile;
+      const int k0 = kk * BK;
+      float* st = ring + buf * STAGE_FLOATS;
+      for (int c = tid; c < (TR + TC) * (BK / 4); c += COMPUTE) {
+        const int row = c / (BK / 4), q = c % (BK / 4);
+        const int gr = row < TR ? row0 + row : col0 + row - TR;
+        const int fk = k0 + q * 4;
+        const bool valid = gr < n && fk < f;
+        cp_async16(st + row * LDS + q * 4,
+                   x + (valid ? (size_t)gr * f + fk : 0), valid);
       }
-      __syncthreads();
+      // the tile's last stage also brings its columns' norm pairs (16
+      // bytes = two columns a copy; norms has a zero row past n)
+      if (kk == ks_per_tile - 1 && !cosine && tid < TC / 2) {
+        const bool valid = col0 + 2 * tid < n;
+        cp_async16(st + OPER_FLOATS + 4 * tid,
+                   norms + (valid ? 2 * ((size_t)col0 + 2 * tid) : 0), valid);
+      }
+    };
+
+    // this thread's 4 rows (m-tile i, half h) and their norms
+    float nah[2][2], nal[2][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gr = row0 + wm * 32 + i * 16 + g + 8 * h;
+        const bool ok = gr < n && !cosine;
+        nah[i][h] = ok ? norms[2 * (size_t)gr] : 0.f;
+        nal[i][h] = ok ? norms[2 * (size_t)gr + 1] : 0.f;
+      }
+
+    float acc[2][4][4], sh[2][4][4], sl[2][4][4];
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = sh[i][j][e] = sl[i][j][e] = 0.f;
+
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < total) load_stage(s, s);
+      cp_async_commit();
     }
 
-#pragma unroll
-    for (int b = 0; b < 4; ++b) {
-      const int c = tx * 4 + b;
-      const int gc = col0 + c;
-      const float nc = (gc < n && !cosine) ? norms[gc] : 0.f;
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        const int r = ty * 4 + a;
-        float d = cosine ? 1.f - acc[a][b]
-                         : fmaxf(nr[a] + nc - 2.f * acc[a][b], 0.f);
-        if (gc >= n || gc == row0 + r) d = INFINITY;  // never a candidate
-        Dt[r * DSTRIDE + c] = d;
+    for (int s = 0; s < total; ++s) {
+      cp_async_wait<STAGES - 2>();
+      bar_sync(BAR_COMPUTE, COMPUTE);
+      {
+        const int nx = s + STAGES - 1;
+        if (nx < total) load_stage(nx, nx % STAGES);
+        cp_async_commit();
       }
-    }
-    __syncthreads();
-
-    // merge: warp w owns rows [w * 8, w * 8 + 8)
-    for (int rw = 0; rw < TR / 8; ++rw) {
-      const int r = warp * (TR / 8) + rw;
-      if (row0 + r >= n) break;  // warp-uniform
-      float wd = Wd[r];
-      int wj = Wj[r];
-      int ws = Ws[r];
-      float* ld = Ld + r * k;
-      int* li = Li + r * k;
-      for (int half = 0; half < TC; half += 32) {
-        const float d = Dt[r * DSTRIDE + half + lane];
-        const int gc = col0 + half + lane;
-        unsigned cand = __ballot_sync(tsne::kFullMask,
-                                      d < INFINITY && lex_less(d, gc, wd, wj));
-        while (cand) {
-          const int src = __ffs(cand) - 1;
-          cand &= cand - 1;
-          const float cd = __shfl_sync(tsne::kFullMask, d, src);
-          const int cj = col0 + half + src;
-          if (!lex_less(cd, cj, wd, wj)) continue;  // warp-uniform
-          if (lane == 0) {
-            ld[ws] = cd;
-            li[ws] = cj;
-          }
-          __syncwarp();
-          // the new worst: lexicographic max over the k slots
-          float bd = -INFINITY;
-          int bj = INT_MIN;
-          int bs = INT_MAX;
-          for (int s = lane; s < k; s += 32) {
-            const float sd = ld[s];
-            const int sj = li[s];
-            if (lex_less(bd, bj, sd, sj)) {
-              bd = sd;
-              bj = sj;
-              bs = s;
-            }
-          }
+      const float* as = ring + (s % STAGES) * STAGE_FLOATS;
+      const float* bs = as + TR * LDS;
 #pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-            const float od = __shfl_xor_sync(tsne::kFullMask, bd, off);
-            const int oj = __shfl_xor_sync(tsne::kFullMask, bj, off);
-            const int os = __shfl_xor_sync(tsne::kFullMask, bs, off);
-            if (lex_less(bd, bj, od, oj) || (od == bd && oj == bj && os < bs)) {
-              bd = od;
-              bj = oj;
-              bs = os;
-            }
+      for (int kb = 0; kb < BK; kb += 8) {
+        unsigned ah[2][4], al[2][4], bh[4][2], bl[4][2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int o0 = (wm * 32 + i * 16 + g) * LDS + kb + tq;
+          const int o1 = o0 + 8 * LDS;
+          split_tf32(as[o0], ah[i][0], al[i][0]);
+          split_tf32(as[o1], ah[i][1], al[i][1]);
+          split_tf32(as[o0 + 4], ah[i][2], al[i][2]);
+          split_tf32(as[o1 + 4], ah[i][3], al[i][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int o = (wn * 32 + j * 8 + g) * LDS + kb + tq;
+          split_tf32(bs[o], bh[j][0], bl[j][0]);
+          split_tf32(bs[o + 4], bh[j][1], bl[j][1]);
+        }
+        // pass-major: eight independent products between two that share
+        // an accumulator; each output still sums lo·hi, hi·lo, hi·hi
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], al[i], bh[j]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], ah[i], bl[j]);
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], ah[i], bh[j]);
+      }
+
+      // flush the stage's FP32 sums (32 features) into the double-float
+      // totals
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float hi, err;
+            two_sum(sh[i][j][e], acc[i][j][e], hi, err);
+            sh[i][j][e] = hi;
+            sl[i][j][e] += err;
+            acc[i][j][e] = 0.f;
           }
-          wd = bd;
-          wj = bj;
-          ws = bs;
-          __syncwarp();
+      if (s % ks_per_tile != ks_per_tile - 1) continue;
+
+      // ---- epilogue of column tile t: filter into Dt, hand it over
+      const int t = s / ks_per_tile;
+      const int col0 = t * TC;
+      const int buf = t % DTB;
+      if (t >= DTB) bar_sync(BAR_EMPTY + buf, THREADS);
+      float* d_tile = dt + buf * DT_FLOATS;
+      const float* nb_tile = as + OPER_FLOATS;  // [TC][2], staged above
+      unsigned live = 0;  // bit i*16 + g + 8h: row (i, h) kept an entry
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = wn * 32 + j * 8 + 2 * tq;
+        const float4 nb = cosine ? make_float4(0.f, 0.f, 0.f, 0.f)
+                                 : *reinterpret_cast<const float4*>(nb_tile + 2 * c);
+        const float nbh[2] = {nb.x, nb.z}, nbl[2] = {nb.y, nb.w};
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = wm * 32 + i * 16 + g + 8 * h;
+            const int gr = row0 + r;
+            const float bar = thr[r];
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float gh = sh[i][j][2 * h + e], gl = sl[i][j][2 * h + e];
+              float d;
+              if (cosine) {
+                d = (1.f - gh) - gl;
+              } else {
+                float s1, e1;
+                two_sum(nah[i][h], nbh[e], s1, e1);
+                const float s2 = s1 - 2.f * gh;
+                const float lo = (e1 + (nal[i][h] + nbl[e])) - 2.f * gl;
+                d = fmaxf(s2 + lo, 0.f);
+              }
+              d = d + 0.f;  // -0 -> +0, so the key order is the value order
+              const int gc = col0 + c + e;
+              const bool keep = gr < n && gc < n && gc != gr && d <= bar;
+              v[e] = keep ? d : INFINITY;
+              if (keep) live |= 1u << (i * 16 + g + 8 * h);
+            }
+            *reinterpret_cast<float2*>(d_tile + r * DSTRIDE + c) =
+                make_float2(v[0], v[1]);
+          }
+      }
+      live = __reduce_or_sync(tsne::kFullMask, live);
+      if (lane == 0) {
+        // merge warp w owns rows [16w, 16w + 16): words wm*2 and wm*2 + 1
+        unsigned* word = rowmask + buf * MERGE_WARPS + wm * 2;
+        if (live & 0xffffu) atomicOr(word, live & 0xffffu);
+        if (live >> 16) atomicOr(word + 1, live >> 16);
+      }
+      bar_arrive(BAR_FULL + buf, THREADS);
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sh[i][j][e] = sl[i][j][e] = 0.f;
+    }
+  } else {
+    // ---------------- merge warps: fold each filtered tile into the k-lists
+    const int mw = (tid - COMPUTE) >> 5;
+    for (int t = 0; t < tiles; ++t) {
+      const int buf = t % DTB;
+      const int col0 = t * TC;
+      bar_sync(BAR_FULL + buf, THREADS);
+      const float* d_tile = dt + buf * DT_FLOATS;
+      unsigned rows = rowmask[buf * MERGE_WARPS + mw];
+      while (rows) {
+        const int r = mw * MROWS + __ffs(rows) - 1;
+        rows &= rows - 1;
+        u64* lk = lists + (size_t)r * k;
+        u64 wk = wkey[r];
+        int cnt = fill[r];
+        // the row's k-list in registers: slot s*32 + lane in reg[s]
+        u64 reg[KREG];
+#pragma unroll
+        for (int s = 0; s < KREG; ++s) {
+          const int slot = s * 32 + lane;
+          reg[s] = slot < cnt ? lk[slot] : 0ull;
+        }
+        u64 lm;
+        int ls;
+        lane_max(reg, lm, ls);
+#pragma unroll
+        for (int h = 0; h < TC; h += 32) {
+          const float d = d_tile[r * DSTRIDE + h + lane];
+          const u64 key = make_key(d, col0 + h + lane);
+          unsigned cand = __ballot_sync(tsne::kFullMask, d < INFINITY && key < wk);
+          while (cand) {
+            const int src = __ffs(cand) - 1;
+            cand &= cand - 1;
+            const u64 ck = shfl64(key, src);
+            if (ck >= wk) continue;  // warp-uniform
+            if (cnt < k) {
+              if (lane == (cnt & 31)) reg_set(reg, cnt >> 5, ck);
+              if (++cnt < k) continue;
+              lane_max(reg, lm, ls);
+            } else if (lm == wk) {   // the lane holding the worst
+              reg_set(reg, ls, ck);
+              lane_max(reg, lm, ls);
+            }
+            wk = warp_max(lm);
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < KREG; ++s) {
+          const int slot = s * 32 + lane;
+          if (slot < cnt) lk[slot] = reg[s];
+        }
+        if (lane == 0) {
+          wkey[r] = wk;
+          fill[r] = cnt;
+          thr[r] = cnt == k ? key_dist(wk) : INFINITY;
         }
       }
-      if (lane == 0) {
-        Wd[r] = wd;
-        Wj[r] = wj;
-        Ws[r] = ws;
-      }
+      __syncwarp();
+      if (lane == 0) rowmask[buf * MERGE_WARPS + mw] = 0;
+      if (t + DTB < tiles) bar_arrive(BAR_EMPTY + buf, THREADS);
     }
-    __syncthreads();
   }
+  __syncthreads();
 
   for (int e = tid; e < TR * k; e += THREADS) {
     const int g = row0 + e / k;
     if (g < n) {
-      out_d[(size_t)g * k + e % k] = Ld[e];
-      out_i[(size_t)g * k + e % k] = Li[e];
+      const u64 v = lists[e];
+      out_d[(size_t)g * k + e % k] = key_dist(v);
+      out_i[(size_t)g * k + e % k] = static_cast<int>(v & 0xffffffffu);
     }
   }
 }
 
-size_t smem_bytes(int k) {
-  return sizeof(float) * (BK * TR + BK * TC + TR * DSTRIDE + 2 * TR * k + 3 * TR);
+// the (stages, Dt buffers) of k's class and the dynamic shared memory
+size_t config(int k, int* stages, int* bufs) {
+  *stages = k <= 128 ? 3 : 2;
+  *bufs = k <= 160 ? 2 : 1;
+  return sizeof(float) * ((size_t)*stages * STAGE_FLOATS + (size_t)*bufs * DT_FLOATS) +
+         sizeof(u64) * ((size_t)TR * k + TR) + sizeof(int) * 2 * TR +
+         sizeof(unsigned) * (size_t)*bufs * MERGE_WARPS;
+}
+
+template <int STAGES, int DTB>
+int launch(const float* x, const float* norms, int n, int f, int k,
+           int cosine, float* out_d, int* out_i, size_t smem,
+           cudaStream_t stream) {
+  auto kern = knn_kernel<STAGES, DTB>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (n + TR - 1) / TR;
+  kern<<<blocks, THREADS, smem, stream>>>(x, norms, n, f, k, cosine, out_d,
+                                          out_i);
+  return tsne::launch_status();
 }
 
 }  // namespace
 
-// x [n, f] f32 (f a multiple of 16, 16-byte aligned rows), norms [n] f32
-// (unused for cosine), out_d/out_i [n, k]: each row's k nearest columns,
-// unordered.  Requires 1 <= k <= n - 1.
+// B1's configuration for k: writes the ring's stage count and the Dt
+// buffer count, returns the dynamic shared memory in bytes.
+TSNE_API int tsne_knn_config(int k, int* stages, int* bufs) {
+  return (int)config(k, stages, bufs);
+}
+
+// x [n, f] f32 (f a multiple of 16, 16-byte aligned rows); norms [n + 1,
+// 2] f32: each row's squared norm as a (hi, lo) pair, then a zero row, 16-
+// byte aligned (unused for cosine);
+// out_d/out_i [n, k]: each row's k nearest columns, unordered.  Requires
+// 1 <= k <= min(256, n - 1).
 TSNE_API int tsne_knn_f32(const float* x, const float* norms, int n, int f,
                           int k, int cosine, float* out_d, int* out_i,
                           void* stream) {
-  const size_t smem = smem_bytes(k);
-  cudaError_t err = cudaFuncSetAttribute(
-      knn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + TR - 1) / TR;
-  knn_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
-      x, norms, n, f, k, cosine, out_d, out_i);
-  return tsne::launch_status();
+  if (k < 1 || k > 32 * KREG || k > n - 1 || f % 16) return (int)cudaErrorInvalidValue;
+  int stages, bufs;
+  const size_t smem = config(k, &stages, &bufs);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (stages == 3)
+    return launch<3, 2>(x, norms, n, f, k, cosine, out_d, out_i, smem, s);
+  if (bufs == 2)
+    return launch<2, 2>(x, norms, n, f, k, cosine, out_d, out_i, smem, s);
+  return launch<2, 1>(x, norms, n, f, k, cosine, out_d, out_i, smem, s);
 }
 
 TSNE_API const char* tsne_error_string(int code) {

@@ -1,135 +1,180 @@
-// B2 — exact Student-t repulsion, one row against every point.
+// B2 — exact Student-t repulsion, every row against every point.
 //
 // Replaces tsne_flink_tpu/ops/repulsion_pallas.py::_kernel (launched by
 // _run, driven by pallas_exact_repulsion).
 //
 // Per row i: q_ij = 1 / (1 + |y_i − y_j|²), zeroed at the global i == j
-// (row_offset) and at invalid rows/columns; rep_i = Σ_j q_ij² (y_i − y_j)
-// and the per-row partial Z_i = Σ_j q_ij.  The global Z is a fixed-order
-// torch.sum of the per-row partials outside the kernel: no atomics, so a
-// run is deterministic.
+// (row_offset) and at invalid columns; rep_i = Σ_j q_ij² (y_i − y_j) and
+// the per-row partial Z_i = Σ_j q_ij.  Invalid rows get zeros.
 //
-// What bounds it on an H100: ~20 FP32 operations per pair, N² pairs —
-// 7.2e10 at N = 60,000, 1.1 ms at 67 TFLOP/s; the bytes (y once, rep and
-// Z out) are under a megabyte.  The embedding dimension m is 2 or 3, so a
-// tensor core would waste most of its depth: this is FMA work.
+// What bounds it on an H100: the N² pairs, each ~9 FP32 operations (m
+// differences, m FMAs for d², 1 add, q², m FMAs of the force, 1 add of Z)
+// and one reciprocal.  Counted as 20·N² operations at 67 TFLOP/s that is
+// 1.07 ms at N = 60,000; the FP32 pipe at ~9 ops a pair and the MUFU pipe
+// at 16 reciprocals a clock per SM (~0.9 ms) both sit near it.  The bytes
+// (y once, rep and Z out) are under a megabyte.  m is 2 or 3, so a tensor
+// core would waste most of its depth: this is FP32 and SFU work.
 //
-// Design: a block owns 64 rows with 4 threads per row; tiles of 512
-// points of y_full are staged in shared memory and each of a row's 4
-// threads sweeps a contiguous quarter of the tile (all lanes of a warp read
-// the same point: a broadcast).  d² is computed directly as Σ(y_i − y_j)²,
-// more accurate than the norm trick.  Each thread sums a tile into a
-// partial before adding it to its running total (two-level summation), and
-// the 4 partial rows are combined in a fixed order through shared memory.
+// Design:
+// - Register blocking: each thread owns R = 4 rows (strided by the block
+//   size, so loads coalesce), holds their coordinates and R·(m+1)
+//   accumulators in registers, and reuses every y_j it reads from shared
+//   memory (one float4 broadcast: x, y, z and the column's 0/1 weight)
+//   across its R rows: one shared-memory load per R pairs.
+// - One MUFU op a pair: q = rcp.approx.ftz(1 + d²) (1 + d² >= 1, so
+//   flushing denormals costs nothing; at most ~1 ulp).
+// - Masks out of the inner loop: the sweep is templated on whether
+//   col_valid is given (the weight multiplies q only then) and on whether
+//   the tile holds the diagonal; only the tiles whose columns meet the
+//   block's global rows (row_offset) take the path that zeroes i == j.
+// - Filling the card: a second grid dimension splits the columns into S
+//   ranges (the wrapper picks S for at least two waves of blocks); each
+//   block writes its rows' partial rep and Z to part[S, nloc, m + 1], and
+//   the wrapper sums over S in a fixed order.  No float atomics: a run is
+//   deterministic.  d² is computed directly as Σ(y_i − y_j)², and each
+//   thread sums a tile into a partial before adding it to its running
+//   total (two-level summation).
 #include "common.cuh"
 
 namespace {
 
-constexpr int ROWS = 64;
-constexpr int SPLIT = 4;
-constexpr int THREADS = ROWS * SPLIT;
-constexpr int TJ = 512;
+constexpr int THREADS = 128;
+constexpr int R = 4;                       // rows a thread owns
+constexpr int ROWS = THREADS * R;          // rows a block owns
+constexpr int TJ = 512;                    // columns a tile stages
 
-template <int M>
-__global__ void __launch_bounds__(THREADS)
-repulsion_kernel(const float* __restrict__ y_loc,
-                 const float* __restrict__ y_full,
-                 const unsigned char* __restrict__ valid, int nloc, int nfull,
-                 int row_offset, float* __restrict__ rep,
-                 float* __restrict__ zrow) {
-  __shared__ float ys[TJ * M];
-  __shared__ unsigned char vs[TJ];
-  __shared__ float red[SPLIT][ROWS][M + 1];
+__device__ __forceinline__ float rcp_approx(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;
+}
 
-  const int t = threadIdx.x;
-  const int r = t % ROWS;
-  const int part = t / ROWS;
-  const int i = blockIdx.x * ROWS + r;
-  const bool live = i < nloc;
-  const int gi = row_offset + i;
-
-  float yi[M];
+template <int M, bool VALID, bool DIAG>
+__device__ __forceinline__ void sweep(const float4* __restrict__ ys, int cnt,
+                                      int j0, const float (&yi)[R][M],
+                                      const int (&gi)[R],
+                                      float (&tacc)[R][M + 1]) {
+#pragma unroll 2
+  for (int jj = 0; jj < cnt; ++jj) {
+    const float4 p = ys[jj];
+    const float pj[3] = {p.x, p.y, p.z};
 #pragma unroll
-  for (int d = 0; d < M; ++d) yi[d] = live ? y_loc[(size_t)i * M + d] : 0.f;
-  float acc[M];
-#pragma unroll
-  for (int d = 0; d < M; ++d) acc[d] = 0.f;
-  float z = 0.f;
-
-  for (int j0 = 0; j0 < nfull; j0 += TJ) {
-    const int cnt = min(TJ, nfull - j0);
-    __syncthreads();
-    for (int e = t; e < cnt * M; e += THREADS) ys[e] = y_full[(size_t)j0 * M + e];
-    if (valid != nullptr)
-      for (int e = t; e < cnt; e += THREADS) vs[e] = valid[j0 + e];
-    __syncthreads();
-
-    const int per = (cnt + SPLIT - 1) / SPLIT;
-    const int jb = part * per;
-    const int je = min(cnt, jb + per);
-    const int self = gi - j0;  // tile-local column of the diagonal
-    float tacc[M];
-#pragma unroll
-    for (int d = 0; d < M; ++d) tacc[d] = 0.f;
-    float tz = 0.f;
-    for (int jj = jb; jj < je; ++jj) {
+    for (int r = 0; r < R; ++r) {
       float diff[M];
       float d2 = 0.f;
 #pragma unroll
       for (int d = 0; d < M; ++d) {
-        diff[d] = yi[d] - ys[jj * M + d];
+        diff[d] = yi[r][d] - pj[d];
         d2 = fmaf(diff[d], diff[d], d2);
       }
-      float q = __frcp_rn(1.f + d2);
-      if (jj == self || (valid != nullptr && !vs[jj])) q = 0.f;
-      tz += q;
+      float q = rcp_approx(1.f + d2);
+      if (VALID) q *= p.w;
+      if (DIAG) q = (j0 + jj == gi[r]) ? 0.f : q;
+      tacc[r][M] += q;
       const float q2 = q * q;
 #pragma unroll
-      for (int d = 0; d < M; ++d) tacc[d] = fmaf(q2, diff[d], tacc[d]);
+      for (int d = 0; d < M; ++d) tacc[r][d] = fmaf(q2, diff[d], tacc[r][d]);
     }
+  }
+}
+
+template <int M, bool VALID>
+__global__ void __launch_bounds__(THREADS)
+repulsion_kernel(const float* __restrict__ y_loc,
+                 const float* __restrict__ y_full,
+                 const unsigned char* __restrict__ valid, int nloc, int nfull,
+                 int row_offset, int col_span, float* __restrict__ part) {
+  __shared__ float4 ys[TJ];
+
+  const int t = threadIdx.x;
+  const int row0 = blockIdx.x * ROWS;
+  const int grow0 = row_offset + row0;     // the block's first global row
+  const int c_begin = blockIdx.y * col_span;
+  const int c_end = min(nfull, c_begin + col_span);
+
+  float yi[R][M];
+  int gi[R];
+  float acc[R][M + 1];
 #pragma unroll
-    for (int d = 0; d < M; ++d) acc[d] += tacc[d];
-    z += tz;
+  for (int r = 0; r < R; ++r) {
+    const int i = row0 + r * THREADS + t;
+    gi[r] = row_offset + i;
+#pragma unroll
+    for (int d = 0; d < M; ++d) yi[r][d] = i < nloc ? y_loc[(size_t)i * M + d] : 0.f;
+#pragma unroll
+    for (int d = 0; d <= M; ++d) acc[r][d] = 0.f;
   }
 
-#pragma unroll
-  for (int d = 0; d < M; ++d) red[part][r][d] = acc[d];
-  red[part][r][M] = z;
-  __syncthreads();
-  if (part == 0 && live) {
-    const bool row_ok = valid == nullptr || valid[gi];
-#pragma unroll
-    for (int d = 0; d <= M; ++d) {
-      float s = 0.f;
-#pragma unroll
-      for (int p = 0; p < SPLIT; ++p) s += red[p][r][d];
-      if (!row_ok) s = 0.f;
-      if (d < M)
-        rep[(size_t)i * M + d] = s;
-      else
-        zrow[i] = s;
+  for (int j0 = c_begin; j0 < c_end; j0 += TJ) {
+    const int cnt = min(TJ, c_end - j0);
+    __syncthreads();
+    for (int e = t; e < cnt; e += THREADS) {
+      const float* src = y_full + (size_t)(j0 + e) * M;
+      ys[e] = make_float4(src[0], src[1], M == 3 ? src[M - 1] : 0.f,
+                          VALID ? (valid[j0 + e] ? 1.f : 0.f) : 1.f);
     }
+    __syncthreads();
+
+    float tacc[R][M + 1];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int d = 0; d <= M; ++d) tacc[r][d] = 0.f;
+    // block-uniform: does this tile hold one of the block's diagonals?
+    if (j0 < grow0 + ROWS && grow0 < j0 + cnt)
+      sweep<M, VALID, true>(ys, cnt, j0, yi, gi, tacc);
+    else
+      sweep<M, VALID, false>(ys, cnt, j0, yi, gi, tacc);
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int d = 0; d <= M; ++d) acc[r][d] += tacc[r][d];
   }
+
+  float* out = part + (size_t)blockIdx.y * nloc * (M + 1);
+#pragma unroll
+  for (int r = 0; r < R; ++r) {
+    const int i = row0 + r * THREADS + t;
+    if (i >= nloc) continue;
+    const bool row_ok = !VALID || valid[gi[r]];
+#pragma unroll
+    for (int d = 0; d <= M; ++d)
+      out[(size_t)i * (M + 1) + d] = row_ok ? acc[r][d] : 0.f;
+  }
+}
+
+template <int M>
+int launch(const float* y_loc, const float* y_full, const unsigned char* valid,
+           int nloc, int nfull, int row_offset, int splits, float* part,
+           cudaStream_t s) {
+  const int col_span = (nfull + splits - 1) / splits;
+  const dim3 grid((nloc + ROWS - 1) / ROWS, splits);
+  if (valid != nullptr)
+    repulsion_kernel<M, true><<<grid, THREADS, 0, s>>>(
+        y_loc, y_full, valid, nloc, nfull, row_offset, col_span, part);
+  else
+    repulsion_kernel<M, false><<<grid, THREADS, 0, s>>>(
+        y_loc, y_full, valid, nloc, nfull, row_offset, col_span, part);
+  return tsne::launch_status();
 }
 
 }  // namespace
 
 // y_loc [nloc, m] = rows [row_offset, row_offset + nloc) of y_full
 // [nfull, m] (m = 2 or 3, f32), valid [nfull] uint8 or null (all valid);
-// writes rep [nloc, m] and the per-row partial Z zrow [nloc].
+// the columns split into `splits` equal ranges, one per grid row; writes
+// part [splits, nloc, m + 1]: per split, each row's partial rep and Z.
 TSNE_API int tsne_repulsion_f32(const float* y_loc, const float* y_full,
                                 const unsigned char* valid, int nloc,
-                                int nfull, int m, int row_offset, float* rep,
-                                float* zrow, void* stream) {
-  const int blocks = (nloc + ROWS - 1) / ROWS;
+                                int nfull, int m, int row_offset, int splits,
+                                float* part, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
+  if (splits < 1 || splits > 65535) return (int)cudaErrorInvalidValue;
   if (m == 2)
-    repulsion_kernel<2><<<blocks, THREADS, 0, s>>>(y_loc, y_full, valid, nloc,
-                                                   nfull, row_offset, rep, zrow);
-  else if (m == 3)
-    repulsion_kernel<3><<<blocks, THREADS, 0, s>>>(y_loc, y_full, valid, nloc,
-                                                   nfull, row_offset, rep, zrow);
-  else
-    return (int)cudaErrorInvalidValue;
-  return tsne::launch_status();
+    return launch<2>(y_loc, y_full, valid, nloc, nfull, row_offset, splits,
+                     part, s);
+  if (m == 3)
+    return launch<3>(y_loc, y_full, valid, nloc, nfull, row_offset, splits,
+                     part, s);
+  return (int)cudaErrorInvalidValue;
 }

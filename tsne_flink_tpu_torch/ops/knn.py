@@ -124,11 +124,12 @@ def pick_knn_refine(n: int, d: int | None = None) -> int:
 #: deliberately coarse (the decision only has to be right about a ~3x
 #: gap).  ``cpu``/``tpu``: the JAX package's (a 1-core CPU host; a v5e).
 #: ``cuda``: NVIDIA H100 80GB HBM3 at its 700 W limit, the ``[large]``
-#: phase of ``chip_smoke.py`` (1,306,127 x 50, k = 150): B1's exact sweep
-#: 14.36 s -> 1.22e13, the hybrid plan (3 seed rounds + 5 cycles) 11.01 s
-#: -> 4.53e11, each timed to the end of the device's work.  With them the
-#: card's crossover sits near 1M points at d = 50.
-KNN_EXACT_EFF = {"cpu": 55e9, "tpu": 2.0e13, "cuda": 1.2e13}
+#: phase of ``chip_smoke.py`` (1,306,127 x 50, k = 150): B1's exact graph
+#: (the 3xTF32 tensor-core sweep) in 9.11 s -> 1.93e13, the hybrid plan (3
+#: seed rounds + 5 cycles) 11.04 s -> 4.52e11, each timed to the end of
+#: the device's work.  With them the card's crossover at k = 90 sits near
+#: 1.2M points at d = 50 and 1.1M at d = 784 (``chip_smoke.auto_crossover``).
+KNN_EXACT_EFF = {"cpu": 55e9, "tpu": 2.0e13, "cuda": 1.9e13}
 KNN_HYBRID_EFF = {"cpu": 7e9, "tpu": 1.0e12, "cuda": 4.5e11}
 
 #: the plain exact sweep materialises a [row_chunk, N] distance block;

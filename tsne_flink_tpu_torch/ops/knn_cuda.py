@@ -3,18 +3,20 @@ B6: the refine funnel's candidate scorer.
 
 B1 replaces ``tsne_flink_tpu/ops/knn_pallas.py::_fused_kernel`` (with its
 ``_fused_prep`` staging and ``_fused_final`` ordering).  The kernel is
-``csrc/knn.cu``; its header says what bounds it on an H100 (the 2·N²·F
-FP32 multiply-adds) and how its design keeps every distance tile and
-each row's running k-list on chip.
+``csrc/knn.cu``; its header says what bounds it on an H100 (the N²·F
+multiply-adds, as three TF32 tensor-core passes) and how its design keeps
+every distance tile and each row's running k-list on chip.
 
 :func:`fused_knn` is the wrapper.  On a CPU tensor it runs
 :func:`knn_sweep_plain` — chunked :func:`~.metrics.pairwise` distances and
 a stable sort, which breaks ties by the lowest column exactly as the
 kernel's lexicographic (distance, column) order does (``torch.topk``
 fixes no order among ties).  On a CUDA tensor it launches the kernel or
-raises.  Both sweeps return each row's k nearest squared (or cosine)
-distances; :func:`_fused_final` orders them and takes the sqrt for
-``euclidean``.
+raises: :func:`knn_sweep_cuda` passes each row's squared norm as a (hi,
+lo) pair of its float64 value (:func:`norm_pairs`), and the kernel splits
+each value into TF32 parts as :func:`tf32_split` states in PyTorch.  Both
+sweeps return each row's k nearest squared (or cosine) distances;
+:func:`_fused_final` orders them and takes the sqrt for ``euclidean``.
 
 B6 replaces ``tsne_flink_tpu/ops/knn_pallas.py::_cand_kernel`` (driven
 by ``cand_sqdist_fused``).  The kernel is ``csrc/knn_cand.cu``: it
@@ -37,6 +39,8 @@ from tsne_flink_tpu_torch.ops.metrics import pairwise
 #: feature axis padded (with zeros) to this multiple for the kernel's
 #: 16-wide shared-memory slices and 16-byte row loads
 FEATURE_MULTIPLE = 16
+#: the mantissa bits a float32 has beyond TF32's 10
+TF32_DROPPED_BITS = 13
 #: the kernel keeps each row's k-list in shared memory: 64·k·8 bytes
 K_MAX = 256
 #: rows per distance block of the plain sweep
@@ -76,6 +80,44 @@ def knn_sweep_plain(base: torch.Tensor, k: int, cosine: bool,
     return torch.cat(ds), torch.cat(ids)
 
 
+def tf32_split(x: torch.Tensor):
+    """(hi, lo): ``hi`` is ``x`` rounded to the nearest TF32 value (ties
+    away from zero) through an int32 view, ``lo`` the TF32 rounding of the
+    exact remainder ``x − hi``.  Both are float32 tensors holding exact
+    TF32 values (their low 13 mantissa bits are zero); hi + lo carries
+    ~22 of float32's 24 significant bits.  Kernel B1 applies this split to
+    each value on its way into the tensor cores (``cvt.rna.tf32.f32``);
+    here it states the arithmetic for the tests."""
+    def rnd(t):
+        half = 1 << (TF32_DROPPED_BITS - 1)
+        mask = -(1 << TF32_DROPPED_BITS)
+        return ((t.contiguous().view(torch.int32) + half) & mask).view(
+            torch.float32)
+    hi = rnd(x)
+    return hi, rnd(x - hi)
+
+
+def norm_pairs(base: torch.Tensor) -> torch.Tensor:
+    """[N + 1, 2] float32: each row's squared norm, summed in float64, as a
+    (hi, lo) pair with hi + lo = the float64 value to ~2^-48, then a zero
+    row (the kernel copies the pairs two columns at a time)."""
+    n64 = torch.sum(base.double() ** 2, dim=1)
+    hi = n64.float()
+    pairs = torch.stack([hi, (n64 - hi.double()).float()], dim=1)
+    return torch.nn.functional.pad(pairs, (0, 0, 0, 1)).contiguous()
+
+
+def knn_config(k: int) -> tuple[int, int, int]:
+    """B1's configuration for ``k`` as the kernel chooses it: (ring
+    stages, distance-tile buffers, dynamic shared memory bytes)."""
+    import ctypes
+    from tsne_flink_tpu_torch.kernels.build import library
+    stages, bufs = ctypes.c_int(), ctypes.c_int()
+    smem = library().tsne_knn_config(k, ctypes.byref(stages),
+                                     ctypes.byref(bufs))
+    return stages.value, bufs.value, smem
+
+
 def _check_cuda(base: torch.Tensor, k: int) -> None:
     if not base.is_cuda:
         raise ValueError(f"B1 kernel takes a CUDA tensor, got {base.device}")
@@ -100,8 +142,8 @@ def knn_sweep_cuda(base: torch.Tensor, k: int, cosine: bool):
     base = base.contiguous()
     _check_cuda(base, k)
     n, f = base.shape
-    norms = (torch.zeros(1, device=base.device) if cosine
-             else torch.sum(base * base, dim=1))
+    norms = (torch.zeros((1, 2), device=base.device) if cosine
+             else norm_pairs(base))
     dist = torch.empty((n, k), device=base.device, dtype=torch.float32)
     idx = torch.empty((n, k), device=base.device, dtype=torch.int32)
     KERNELS["B1"](base.data_ptr(), norms.data_ptr(), n, f, k, int(cosine),

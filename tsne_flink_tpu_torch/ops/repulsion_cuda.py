@@ -2,9 +2,11 @@
 
 Replaces ``tsne_flink_tpu/ops/repulsion_pallas.py::_kernel`` (driven by
 ``pallas_exact_repulsion``).  The kernel is ``csrc/repulsion.cu``; its
-header says what bounds it on an H100 (~20 FP32 operations per pair, N²
-pairs) and how its design keeps the sweep deterministic (per-row partial
-Z, summed outside in a fixed order, no atomics).
+header says what bounds it on an H100 (~9 FP32 operations and one
+reciprocal per pair, N² pairs) and how its design fills the card: rows
+register-blocked per thread, and the columns split over a second grid
+dimension into :func:`column_splits` ranges whose partial rep and Z the
+wrapper sums in a fixed order (no atomics, so a run is deterministic).
 
 :func:`cuda_exact_repulsion` is the wrapper: the plain
 ``ops/repulsion_exact.exact_repulsion`` on a CPU tensor, the kernel on a
@@ -18,6 +20,25 @@ import torch
 
 from tsne_flink_tpu_torch.kernels.build import KERNELS
 from tsne_flink_tpu_torch.ops.repulsion_exact import exact_repulsion
+
+#: rows one block of the kernel owns (128 threads x 4 rows: ROWS in
+#: csrc/repulsion.cu)
+ROWS_PER_BLOCK = 512
+#: columns the kernel stages per tile (TJ there); a split spans at least one
+COLS_PER_TILE = 512
+#: blocks of 128 threads an SM keeps resident
+BLOCKS_PER_SM = 16
+#: waves of blocks the column splits aim for
+WAVES = 2
+
+
+def column_splits(nloc: int, nfull: int, sms: int) -> int:
+    """S, the column ranges of one launch: enough blocks for ``WAVES``
+    waves on ``sms`` SMs, but no range narrower than one tile.  A function
+    of the shapes and the card alone, so a run's summation order is fixed."""
+    row_blocks = -(-nloc // ROWS_PER_BLOCK)
+    want = -(-WAVES * sms * BLOCKS_PER_SM // row_blocks)
+    return max(1, min(want, -(-nfull // COLS_PER_TILE)))
 
 
 def _check_cuda(y, y_full, col_valid, row_offset):
@@ -54,13 +75,19 @@ def cuda_exact_repulsion(y: torch.Tensor, y_full: torch.Tensor | None = None,
                                row_z=row_z)
     _check_cuda(y, y_full, col_valid, row_offset)
     nloc, m = y.shape
-    rep = torch.empty_like(y)
-    zrow = torch.empty(nloc, device=y.device, dtype=torch.float32)
+    nfull = y_full.shape[0]
     valid = (None if col_valid is None
              else col_valid.to(torch.uint8).contiguous())
-    if nloc:
-        KERNELS["B2"](y.data_ptr(), y_full.data_ptr(),
-                      None if valid is None else valid.data_ptr(), nloc,
-                      y_full.shape[0], m, row_offset, rep.data_ptr(),
-                      zrow.data_ptr())
-    return rep, (zrow if row_z else torch.sum(zrow))
+    if not nloc:
+        return y.new_zeros((0, m)), (y.new_zeros((0,)) if row_z
+                                     else y.new_zeros(()))
+    sms = torch.cuda.get_device_properties(y.device).multi_processor_count
+    splits = column_splits(nloc, nfull, sms)
+    part = torch.empty((splits, nloc, m + 1), device=y.device,
+                       dtype=torch.float32)
+    KERNELS["B2"](y.data_ptr(), y_full.data_ptr(),
+                  None if valid is None else valid.data_ptr(), nloc, nfull,
+                  m, row_offset, splits, part.data_ptr())
+    total = torch.sum(part, dim=0)  # fixed order for a fixed shape
+    zrow = total[:, m].contiguous()
+    return total[:, :m].contiguous(), (zrow if row_z else torch.sum(zrow))
