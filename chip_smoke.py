@@ -18,9 +18,17 @@ Phases, in order; any failure exits non-zero before the result line:
    plain version (distances rtol 1e-4, neighbour sets >= 0.999), two
    launches bit-identical; B2 at 60,000 rows (m = 2 and 3, a masked row
    shard, two launches bit-identical), B3, B4 at 60,000 rows; B5 and B4
-   at the three widths below; B6 on the candidate sets of a real refine
-   chunk at both hybrid-kNN shapes; and one CSR step fused (B3) against
-   unfused (B5 + tail + the vdM update);
+   at the three widths below; B6, the fused refine-chunk stage, on the
+   stages of a real refine chunk at both hybrid-kNN shapes (the blobs'
+   cascade at F = 128 and exact stage at F = 784, the cells' exact stage
+   at F = 50) and on two synthetic edge chunks (every gateway one id; a
+   row whose gateways are all itself), held to the plain stage: each
+   distance the formula's for its (row, id), or its smaller old one, to
+   rtol 2e-5, neighbour sets >= 0.999, the k-th distance to rtol 2e-5,
+   ids distinct, self absent, rows ordered by (d, id), two launches
+   bit-identical; each stage timed over the first 32 chunks of a refine
+   round in sequence, as the round runs them; and one CSR step fused
+   (B3) against unfused (B5 + tail + the vdM update);
 4. full    — ``tsne_embed`` on 60,000 x 784 MNIST-like blobs (perplexity
    30, k = 90, exact repulsion, CSR attraction, 300 iterations): stage
    seconds, the launches of each kernel in that run (counted from 0 just
@@ -40,22 +48,27 @@ Phases, in order; any failure exits non-zero before the result line:
    split with the reverse edges' segment sum, the checks of phase 4, and
    a final KL within 0.05 of phase 4's (both optimize the same P);
 7. project — ``tsne_embed`` on the blobs of phase 4 with the hybrid kNN
-   (``knn_method="project"``: 3 seed rounds + 6 refine cycles, B6 scoring
-   every refine chunk) and exact repulsion: launches, the kNN substage
-   seconds, recall@90 against B1's exact graph (>= 0.93), B6's time
-   beside B1's, and the checks of phase 4;
+   (``knn_method="project"``: 3 seed rounds + 6 refine cycles, B6 running
+   every funnel stage of every refine chunk) and exact repulsion:
+   launches, the kNN substage seconds and the refine split, recall@90
+   against B1's exact graph (>= 0.93), B6's time beside B1's, and the
+   checks of phase 4;
 8. large — ``tsne_embed`` at the shape of the 10x Genomics 1.3M mouse
    brain cells (1,306,127 x 50 principal components; a synthetic
    stand-in, see ``make_cells``): perplexity 50, k = 150, the hybrid kNN
    (3 + 5 cycles), FFT repulsion (grid 1024, p = 3), 300 iterations at
    FIt-SNE's large-N learning rate (``fitsne_learning_rate``):
-   stage and kNN substage seconds, B1's exact graph at this shape (its
+   stage and kNN substage seconds, the refine substage split into B6
+   and the rest of its rounds, B1's exact graph at this shape (its
    time, 3 warm launches and both bounds, and the hybrid's recall
-   against it, >= 0.90), the FFT
-   repulsion's per-iteration split (spread / FFTs / gather) beside B2's
-   at 60,000 and at this N (the exact/FFT crossover), peak memory, and
-   the quality checks (finite, falling KL, label agreement within 0.05
-   of the latent's own);
+   against it, >= 0.90), the efficiencies of pick_knn_method's cost
+   model and its exact/hybrid crossover, the FFT repulsion's
+   per-iteration split (spread / FFTs / gather) beside B2's at 60,000
+   and at this N (the exact/FFT crossover), the rest of an iteration
+   split into B5 over the [N, 150] forward block (with its bound), B4,
+   the reverse edges' segment sum and the rest, peak memory, and the
+   quality checks (finite, falling KL, label agreement within 0.05 of
+   the latent's own);
 9. determinism — two runs at N = 2,000 give the same bits, on the CSR
    path, the rows path, and the hybrid kNN + FFT path.
 
@@ -113,7 +126,7 @@ KERNEL_META = {
            "tsne_flink_tpu/ops/attraction_pallas.py:156"),
     "B5": ("attraction_forces", "tsne_flink_tpu_torch/csrc/attraction.cu",
            "tsne_flink_tpu/ops/attraction_pallas.py:140"),
-    "B6": ("cand_sqdist", "tsne_flink_tpu_torch/csrc/knn_cand.cu",
+    "B6": ("refine_chunk", "tsne_flink_tpu_torch/csrc/knn_cand.cu",
            "tsne_flink_tpu/ops/knn_pallas.py:264"),
 }
 
@@ -861,75 +874,262 @@ class _Captured(Exception):
     pass
 
 
-def capture_refine_chunk(x, k, calls):
-    """The (base, sq, rows, cand) of the first ``calls`` B6 calls of one
-    refine round (its first chunk's funnel stages), over a one-round
-    Z-order seed graph of ``x`` — the round stops once they are taken."""
+def capture_refine_chunks(x, k, chunks):
+    """The funnel stages of the first ``chunks`` chunks of one refine round
+    over a three-round Z-order seed graph of ``x`` (the seed the hybrid
+    plan starts from), as the round calls them: per chunk, a list of
+    (kind, args, kwargs), kind "keep" or "final".  The round stops once
+    they are taken."""
     import torch
     from tsne_flink_tpu_torch.ops import knn as tknn
-    got = []
-    real = tknn._cand_sqdist
+    got = [[]]
+    real = {"keep": tknn.refine_keep, "final": tknn.refine_final}
 
-    def grab(base, sq, rows, cand, compact=False):
-        got.append((base, sq, rows.to(torch.int32),
-                    cand.to(torch.int32).contiguous()))
-        if len(got) == calls:
-            raise _Captured
-        return real(base, sq, rows, cand, compact)
+    def grab(kind):
+        def stage(*args, **kwargs):
+            got[-1].append((kind, args, kwargs))
+            out = real[kind](*args, **kwargs)
+            if kind == "final":
+                if len(got) == chunks:
+                    raise _Captured
+                got.append([])
+            return out
+        return stage
 
     gen = torch.Generator(device=x.device)
     gen.manual_seed(0)
-    idx, dist = tknn.knn_project(x, k, rounds=1, generator=gen)
+    idx, dist = tknn.knn_project(x, k, rounds=3, generator=gen)
     fd = tknn.pick_knn_filter(x.shape[1])
-    tknn._cand_sqdist = grab
+    tknn.refine_keep, tknn.refine_final = grab("keep"), grab("final")
     try:
         tknn.knn_refine(x, idx, dist, generator=gen, filter_dims=fd,
                         expand_k=(k + 1) // 2 if fd else None)
     except _Captured:
         pass
     finally:
-        tknn._cand_sqdist = real
-    return got
+        tknn.refine_keep, tknn.refine_final = real["keep"], real["final"]
+    return [chunk for chunk in got if chunk and chunk[-1][0] == "final"]
+
+
+def chunks_ms(stages, plain=False):
+    """CUDA-event milliseconds a chunk of one funnel stage run over
+    consecutive chunks of a round (``stages``: their (kind, args, kwargs)),
+    in sequence as the round runs them, after a 1 GiB write that flushes
+    the L2 cache and keeps the card busy while the host enqueues."""
+    import torch
+    for kind, args, kwargs in stages[:2]:
+        stage_call(kind, args, kwargs, plain)
+    flush = torch.empty(1 << 28, dtype=torch.float32, device="cuda")
+    flush.zero_()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for kind, args, kwargs in stages:
+        stage_call(kind, args, kwargs, plain)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / len(stages)
+
+
+def stage_call(kind, args, kwargs, plain=False):
+    """One funnel stage through its wrapper (kernel B6 on the card) or its
+    plain version, on the same inputs."""
+    from tsne_flink_tpu_torch.ops import knn_cuda as kc
+    fn = {("keep", False): kc.refine_keep, ("keep", True): kc.refine_keep_plain,
+          ("final", False): kc.refine_final,
+          ("final", True): kc.refine_final_plain}[kind, plain]
+    return fn(*args, **kwargs)
+
+
+def stage_rows(kind, args):
+    """The stage's chunk rows and its scoring operand (base, its norms)."""
+    import torch
+    if kind == "keep":
+        base, sq, row0, cand = args[:4]
+    else:
+        _, base, sq, row0, cand = args[:5]
+    rows = torch.arange(row0, row0 + cand.shape[0], device=cand.device)
+    return rows, base, sq
+
+
+def stage_candidates(kind, args, kwargs):
+    """Each row's candidates as the stage sees them: (ids [c, Z] with -1
+    for none, per-row count) — built from the gateways in a first stage."""
+    import torch
+    from tsne_flink_tpu_torch.ops.knn_cuda import refine_candidates_plain
+    rows, _, _ = stage_rows(kind, args)
+    cand = args[3] if kind == "keep" else args[4]
+    if kwargs.get("graph") is not None:
+        ids, bad = refine_candidates_plain(int(rows[0]), cand,
+                                           kwargs["graph"], kwargs["ke"])
+        ids = torch.where(bad, -1, ids)
+    else:
+        ids = cand.long()
+    return ids, (ids >= 0).sum(dim=1)
+
+
+def stage_bound(kind, args, kwargs, out):
+    """B6's bound on one stage from this run's inputs: each input read once
+    — the U distinct rows of the scored operand the stage touches (F + 1
+    floats each: the row and its norm), the gateways and the first ke ids
+    of each distinct gateway's list (a first stage) or the candidate list,
+    the old lists (exact stage) — and each output written once; 2F + 3
+    operations a unique candidate of a row (the FP32 pipe)."""
+    import torch
+    rows, base, _ = stage_rows(kind, args)
+    ids, count = stage_candidates(kind, args, kwargs)
+    c, f = rows.shape[0], base.shape[1]
+    u = int(torch.unique(torch.cat([rows, ids[ids >= 0]])).numel())
+    cand = args[3] if kind == "keep" else args[4]
+    nbytes = 4.0 * (u * (f + 1) + cand.numel())
+    if kwargs.get("graph") is not None:
+        nbytes += 4.0 * int(torch.unique(cand).numel()) * kwargs["ke"]
+    outs = out if isinstance(out, tuple) else (out,)
+    nbytes += sum(4.0 * t.numel() for t in outs if t is not None)
+    if kind == "final":
+        nbytes += 8.0 * args[5].numel()
+    return bound(float(count.sum()) * (2.0 * f + 3.0), nbytes), u, count
+
+
+def hold_stage(tag, kind, args, kwargs):
+    """The kernel against its plain version on one stage's inputs, on the
+    card.  Exact stage: every output distance is the plain formula's for
+    its (row, id), or the id's old distance where that is smaller, to
+    rtol 2e-5; neighbour sets agree with the plain
+    stage's >= 0.999; each row's k-th distance agrees to rtol 2e-5; ids
+    are distinct per row, the row itself absent, rows ordered by (d, id).
+    Keep stage: each row keeps min(keep, its unique candidates), the kept
+    sets agree >= 0.999, the last kept score agrees to rtol 2e-5, ids are
+    distinct, the row absent, -1 only after the kept ones and in rank
+    order.  Both: two launches bit-identical.  Returns the max |error| of
+    the distances (exact stage) or scores (keep stage)."""
+    import torch
+    from tsne_flink_tpu_torch.ops.knn_cuda import (cand_exact_plain,
+                                                   cand_sqdist_plain)
+    rows, base, sq = stage_rows(kind, args)
+    got = stage_call(kind, args, kwargs)
+    again = stage_call(kind, args, kwargs)
+    want = stage_call(kind, args, kwargs, plain=True)
+    torch.cuda.synchronize()
+    if kind == "final":
+        (gi, gd), (wi, wd) = got, want
+        check(torch.equal(gi, again[0]) and torch.equal(gd, again[1]),
+              f"B6 {tag}: two launches differ")
+        # an id the stage scored carries the formula's distance, or its old
+        # one where that is smaller (the old lists' distances come from
+        # earlier stages, rounded their own way)
+        metric, old_i, old_d = args[0], args[5], args[6]
+        formula = cand_exact_plain(metric, base, sq, rows, gi)
+        in_old = gi[:, :, None] == old_i[:, None, :]
+        old = torch.where(in_old, old_d[:, None, :], math.inf).amin(dim=2)
+        err = rel_close(gd, torch.minimum(formula, old), 2e-5,
+                        f"B6 {tag} distances vs the formula")
+        rel_close(gd[:, -1], wd[:, -1], 2e-5, f"B6 {tag} k-th distance")
+        ids_k, ids_p = gi.long(), wi.long()
+        same_d = gd[:, 1:] == gd[:, :-1]
+        ordered = bool(((gd[:, 1:] > gd[:, :-1])
+                        | (same_d & (ids_k[:, 1:] > ids_k[:, :-1]))).all())
+        check(ordered, f"B6 {tag}: rows not ordered by (d, id)")
+    else:
+        gi, wi = got[0].long(), torch.where(want[1], -1, want[0])
+        check(torch.equal(got[0], again[0]), f"B6 {tag}: two launches differ")
+        _, count = stage_candidates(kind, args, kwargs)
+        kept = (gi >= 0).sum(dim=1)
+        check(torch.equal(kept, torch.clamp(count, max=gi.shape[1])),
+              f"B6 {tag}: rows keep the wrong number of candidates")
+        pos = torch.arange(gi.shape[1], device=gi.device)
+        check(bool(((gi >= 0) == (pos[None, :] < kept[:, None])).all()),
+              f"B6 {tag}: -1 before a kept candidate")
+        safe_k = torch.where(gi >= 0, gi, rows[:, None])
+        safe_p = torch.where(wi >= 0, wi, rows[:, None])
+        sk = cand_sqdist_plain(base, sq, rows, safe_k)
+        sp = cand_sqdist_plain(base, sq, rows, safe_p)
+        last = torch.clamp(kept - 1, min=0)[:, None]
+        err = rel_close(torch.gather(sk, 1, last), torch.gather(sp, 1, last),
+                        2e-5, f"B6 {tag} last kept score")
+        tol = 2e-5 * (torch.abs(sk[:, :-1]) + torch.max(torch.abs(sk)))
+        valid = (gi[:, 1:] >= 0)
+        check(bool(((sk[:, 1:] >= sk[:, :-1] - tol) | ~valid).all()),
+              f"B6 {tag}: kept candidates not in rank order")
+        ids_k, ids_p = gi, wi
+    valid = ids_k >= 0
+    check(not bool((ids_k == rows[:, None]).any()), f"B6 {tag}: self kept")
+    srt = torch.sort(torch.where(valid, ids_k, -1 - torch.arange(
+        ids_k.shape[1], device=ids_k.device)), dim=1).values
+    check(not bool((srt[:, 1:] == srt[:, :-1]).any()),
+          f"B6 {tag}: an id twice in a row")
+    hits = (ids_k[:, :, None] == ids_p[:, None, :]).any(dim=2) & valid
+    sets = float(hits.sum()) / max(1, int(valid.sum()))
+    check(sets >= 0.999, f"B6 {tag}: set agreement with plain {sets:.5f}")
+    return err, sets
+
+
+def edge_chunks(kind, args, kwargs):
+    """Two synthetic variants of a first stage's inputs: every gateway of
+    every row one id (the first row's first gateway), and the first row's
+    gateways all the row itself (its candidates: its own list's first ke
+    ids, fewer than a keep stage keeps)."""
+    import torch
+    cand = args[3] if kind == "keep" else args[4]
+    row0 = args[2] if kind == "keep" else args[3]
+    one = torch.full_like(cand, int(cand[0, 0]))
+    short = cand.clone()
+    short[0] = row0
+    pos = 3 if kind == "keep" else 4
+    return {f"every gateway one id": args[:pos] + (one,) + args[pos + 1:],
+            f"row {row0}: gateways all itself": args[:pos] + (short,)
+            + args[pos + 1:]}
+
+
+#: consecutive refine chunks over which phase_b6 times each funnel stage
+B6_TIMED_CHUNKS = 32
 
 
 def phase_b6(x_np, xc_np):
-    """B6 against its plain version on the candidate sets of a real refine
-    chunk: the blobs' cascade (F = 128) and exact (F = 784) stages, and
-    the cells' exact stage (F = 50).  Returns its max abs error and, per
-    shape, its (ms, plain ms, library ms), bound and chunk rows."""
+    """B6 against its plain version on the stages of a real refine chunk:
+    the blobs' cascade (F = 128, first stage) and exact stage (F = 784),
+    and the cells' exact stage (F = 50, first stage); two synthetic edge
+    chunks at each first stage.  Each stage is timed over the round's
+    first B6_TIMED_CHUNKS chunks, kernel and plain.  Returns its max error
+    and, per stage, its (ms, plain ms, library ms), bound and chunk rows."""
     import torch
-    from tsne_flink_tpu_torch.ops.knn_cuda import (cand_sqdist,
-                                                   cand_sqdist_plain)
     err, shapes = 0.0, {}
-    for tag, data, k, calls in (("blobs", x_np, K, 2),
-                                ("cells", xc_np, K_CELLS, 1)):
+    for tag, data, k in (("blobs", x_np, K), ("cells", xc_np, K_CELLS)):
         x = torch.from_numpy(data).cuda()
-        for base, sq, rows, cand in capture_refine_chunk(x, k, calls):
-            (c, z), f = cand.shape, base.shape[1]
-            got = cand_sqdist(base, sq, rows, cand)
-            want = cand_sqdist_plain(base, sq, rows, cand)
-            e = rel_close(got, want, 2e-5, f"B6 {tag} F={f} Z={z}")
+        chunks = capture_refine_chunks(x, k, B6_TIMED_CHUNKS)
+        for s_idx, (kind, args, kwargs) in enumerate(chunks[0]):
+            rows, base, _ = stage_rows(kind, args)
+            c, f = rows.shape[0], base.shape[1]
+            first = kwargs.get("graph") is not None
+            name = (f"{tag} {'cascade' if kind == 'keep' else 'exact'} "
+                    f"stage F={f}")
+            e, sets = hold_stage(name, kind, args, kwargs)
             err = max(err, e)
-            nrm = (sq[rows.long()][:, None] + sq[cand.long()])[:, :, None]
-            times = (cuda_ms(lambda: cand_sqdist(base, sq, rows, cand), 20),
-                     cuda_ms(lambda: cand_sqdist_plain(base, sq, rows,
-                                                       cand), 3),
-                     cuda_ms(lambda: torch.baddbmm(
-                         nrm, base[cand.long()], base[rows.long()][:, :, None],
-                         alpha=-2.0), 3))
-            # each input read once: the U distinct rows of base (and their
-            # norms) the chunk touches, the ids; the scores written once
-            u = int(torch.unique(torch.cat([rows, cand.reshape(-1)])).numel())
-            bnd = bound(c * z * (2.0 * f + 3.0),
-                        4.0 * (u * (f + 1) + c + 2 * c * z))
-            shapes[(tag, f, z)] = (times, bnd, c)
-            print(f"[kernels] B6 {tag} refine chunk c={c} Z={z} F={f} ({u} "
-                  f"distinct rows; the gathered rows are {c * z * f * 4e-9:.3f}"
-                  f" GB): max |d2 err| {e:.3e} (max d2 "
-                  f"{float(want.max()):.4g}); {times[0]:.4f} ms (plain "
-                  f"{times[1]:.4f} ms, library gather + baddbmm "
-                  f"{times[2]:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]})")
-        del x
+            if first:
+                for edge, eargs in edge_chunks(kind, args, kwargs).items():
+                    ee, _ = hold_stage(f"{name}, {edge}", kind, eargs,
+                                       kwargs)
+                    err = max(err, ee)
+                    print(f"[kernels] B6 {name}, edge chunk '{edge}': held, "
+                          f"max err {ee:.3e}")
+            stages = [chunk[s_idx] for chunk in chunks]
+            times = (chunks_ms(stages), chunks_ms(stages, plain=True), None)
+            per = [stage_bound(*st, stage_call(*st)) for st in stages]
+            bnd = (statistics.mean(b[0][0] for b in per), per[0][0][1])
+            u = statistics.mean(b[1] for b in per)
+            count = torch.cat([b[2] for b in per])
+            shapes[(tag, kind, f)] = (times, bnd, c)
+            width = (args[3] if kind == "keep" else args[4]).shape[1]
+            zdesc = (f"{width} gateways -> up to {int(count.max())} unique "
+                     f"candidates a row, mean {float(count.float().mean()):.1f}"
+                     if first else f"a list of {width}")
+            print(f"[kernels] B6 {name} c={c} ({zdesc}; {u:.0f} distinct "
+                  f"rows a chunk): max err {e:.3e}, sets {sets:.6f}; "
+                  f"{times[0]:.4f} ms a chunk over {len(stages)} chunks in "
+                  f"sequence (plain chunk body on the card {times[1]:.4f} "
+                  f"ms, bound {bnd[0]:.4f} ms by {bnd[1]}); two launches "
+                  f"bit-identical")
+        del x, chunks
     return err, shapes
 
 
@@ -978,11 +1178,24 @@ def phase_project(x_np, labels, b1_ms, b6_shapes):
           f"(bar 0.93)")
     check(recall >= 0.93, f"[project] recall {recall} < 0.93")
     per = {key: v for key, v in b6_shapes.items() if key[0] == "blobs"}
-    b6_ms = " + ".join(f"{v[0][0]:.4f} ms at F={key[1]}, Z={key[2]}"
+    b6_ms = " + ".join(f"{v[0][0]:.4f} ms ({key[1]} stage, F={key[2]})"
                        for key, v in per.items())
     print(f"[project] {cycles} refine cycles; B6 x{counts['B6']} launches "
-          f"({b6_ms} per chunk); knn stage {stats['knn']:.3f} s vs B1's "
+          f"({b6_ms} a chunk); knn stage {stats['knn']:.3f} s vs B1's "
           f"exact sweep {t_b1:.3f} s here ({b1_ms / 1e3:.3f} s in [full])")
+    refine_split("project", stats, counts["B6"] // len(per),
+                 sum(v[0][0] for v in per.values()))
+
+
+def refine_split(tag, stats, chunks, chunk_ms):
+    """The refine substage split into B6 (its launches' chunks times the
+    held chunk's kernel time) and the rest of the round (draws, gateways,
+    reverse sample, gateway dedup, copies), by difference."""
+    refine = stats["knn_substages"]["refine"]
+    b6 = chunks * chunk_ms / 1e3
+    print(f"[{tag}] refine {refine:.4f} s: B6 ~{b6:.4f} s ({chunks} chunks x "
+          f"{chunk_ms:.4f} ms), the rest of the rounds {refine - b6:.4f} s "
+          f"(by difference)")
 
 
 def auto_crossover(d, eff_exact, eff_hybrid, k=K):
@@ -1006,11 +1219,14 @@ def auto_crossover(d, eff_exact, eff_hybrid, k=K):
     return hi
 
 
-def phase_large(xc_np, labels, z_latent, y_60k, b2_ms_60k):
+def phase_large(xc_np, labels, z_latent, y_60k, b2_ms_60k, b6_chunk_ms):
     """The 1.3M-cell shape with the hybrid kNN and FFT repulsion.  Returns
     the run's B6 launches."""
     import torch
     from tsne_flink_tpu_torch import TsneConfig
+    from tsne_flink_tpu_torch.models.tsne import (_edge_forces,
+                                                  _without_padding)
+    from tsne_flink_tpu_torch.ops.affinities import affinity_blocks
     from tsne_flink_tpu_torch.ops.knn import pick_knn_refine, pick_knn_rounds
     from tsne_flink_tpu_torch.ops.knn_cuda import knn_sweep_cuda
     from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
@@ -1035,11 +1251,22 @@ def phase_large(xc_np, labels, z_latent, y_60k, b2_ms_60k):
     x = torch.from_numpy(xc_np).cuda()
     _, dist_e, t_b1 = timed_exact_graph(x, K_CELLS)
     recall = recall_at_k(graph[1], dist_e)
-    del graph[:], dist_e
+    del dist_e
     print(f"[large] {rounds} seed rounds + {cycles} cycles, B6 x"
           f"{counts['B6']}: knn stage {stats['knn']:.3f} s; B1's exact "
           f"graph {t_b1:.3f} s; recall@{K_CELLS} {recall:.4f} (bar 0.90)")
     check(recall >= 0.90, f"[large] recall {recall} < 0.90")
+    refine_split("large", stats, counts["B6"], b6_chunk_ms)
+    # the blocks layout the run optimized: B5 over the forward block and
+    # the reverse edges' segment sum, as in [blocks]
+    _, fwd_val, rev = affinity_blocks(graph[0], graph[1], PERPLEXITY_CELLS)
+    b5 = b5_times(y, graph[0], fwd_val)
+    rsrc, rdst, rval = _without_padding(rev)
+    lengths = torch.bincount(rsrc.long(), minlength=n)
+    rev_ms = cuda_ms(lambda: _edge_forces(y, y, rsrc, rdst, rval, 1.0,
+                                          lengths), 20)
+    rval_n = int(rval.shape[0])
+    del graph[:], fwd_val, rev, rsrc, rdst, rval, lengths
     # B1 at this shape, warm (the graph above was its first launch)
     b1_ms = [cuda_ms(lambda: knn_sweep_cuda(x, K_CELLS, False), 1, 0)
              for _ in range(3)]
@@ -1065,6 +1292,14 @@ def phase_large(xc_np, labels, z_latent, y_60k, b2_ms_60k):
           f"{sp:.4f}, FFTs {ff:.4f}, gather {ga:.4f}); at N={N_FULL} "
           f"{whole6:.4f} ms (spread {sp6:.4f}, FFTs {ff6:.4f}, gather "
           f"{ga6:.4f}); per iteration {it_ms:.4f} ms")
+    ms, plain_ms, bms, by, b4 = b5
+    print(f"[large] B5 at W={K_CELLS} over {n} rows: {ms:.4f} ms (plain "
+          f"{plain_ms:.4f} ms, bound {bms:.4f} ms by {by}) x{counts['B5']} "
+          f"launches; B4 {b4:.4f} ms")
+    print(f"[large] per iteration {it_ms:.4f} ms: FFT repulsion {whole:.4f}, "
+          f"B5 {ms:.4f}, B4/10 {b4 / 10:.4f}, reverse-edge segment sum "
+          f"{rev_ms:.4f} ({rval_n} edges), the rest "
+          f"{it_ms - whole - ms - b4 / 10 - rev_ms:.4f} (by difference)")
     # B2 grows as N², the FFT as c0 + c1·N: the N where they cross
     a = b2_ms_60k / N_FULL ** 2
     c1 = (whole - whole6) / (n - N_FULL)
@@ -1134,9 +1369,10 @@ def main() -> int:
         kernels.append(phase_rows(xl_np, labels_l, z_latent, rows, errs))
         phase_blocks(x_np, labels, blocks, csr_kl)
         phase_project(x_np, labels, b1_ms, b6_shapes)
-        b6_count = phase_large(xc_np, labels_c, z_cells, y_60k, b2_ms)
         (times, bnd, _), = [v for key, v in b6_shapes.items()
                             if key[0] == "cells"]
+        b6_count = phase_large(xc_np, labels_c, z_cells, y_60k, b2_ms,
+                               times[0])
         kernels.append(kernel_record("B6", *KERNEL_META["B6"], b6_count,
                                      errs["B6"], times, bnd))
         phase_determinism(x_np, xl_np)

@@ -12,9 +12,10 @@ tiny and ragged N, k = N - 1, exact ties, every metric, B1 at the large
 run's width (F = 50 padded to 64, k = 150) and at k = K_MAX against the
 float64 graph, m = 3, row shards with validity masks, B2 below one tile
 and at ragged N, two launches bit-identical, B5 from one slot to wide
-rows, B5 as the fused step's head, B6 at every width class, the kNN
-methods launching B1 and B6 on CUDA tensors, FFT repulsion on the card,
-and launch counting.
+rows, B5 as the fused step's head, B6's fused refine stages at every
+width class (exact ties bit-equal to the plain stages; rows with fewer
+candidates than a stage keeps), the kNN methods launching B1 and B6 on
+CUDA tensors, FFT repulsion on the card, and launch counting.
 """
 
 import numpy as np
@@ -27,10 +28,13 @@ from tsne_flink_tpu_torch.ops import attraction_cuda as att
 from tsne_flink_tpu_torch.ops import knn as tknn
 from tsne_flink_tpu_torch.ops.knn import cosine_zbase
 from tsne_flink_tpu_torch.ops.knn_cuda import (K_MAX, _fused_final,
-                                               cand_sqdist,
+                                               cand_exact_plain, cand_sqdist,
                                                cand_sqdist_plain, knn_config,
                                                knn_sweep_cuda,
-                                               knn_sweep_plain, tf32_split)
+                                               knn_sweep_plain, refine_final,
+                                               refine_final_plain,
+                                               refine_keep,
+                                               refine_keep_plain, tf32_split)
 from tsne_flink_tpu_torch.ops.repulsion_fft import fft_repulsion
 from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
 from tsne_flink_tpu_torch.ops.repulsion_exact import exact_repulsion
@@ -352,46 +356,152 @@ def test_launches_count_kernel_launches_only(dev):
         cuda_exact_repulsion(y.double())  # no fallback on a CUDA tensor
 
 
-@pytest.mark.parametrize("n,f,c,z", [(50, 3, 7, 5), (3000, 50, 300, 2416),
-                                     (3000, 128, 200, 736),
-                                     (2000, 784, 100, 270),
-                                     (500, 63, 33, 1), (500, 64, 9, 31)])
-def test_cand_sqdist_matches_plain(dev, n, f, c, z):
-    """B6 at the hybrid kNN's width classes (thread per candidate below
-    F = 64, warp per candidate from it), duplicates and self candidates
-    included."""
-    rng = np.random.default_rng(f)
-    base = torch.from_numpy(rng.random((n, f)).astype(np.float32)).to(dev)
-    sq = torch.sum(base * base, dim=1)
-    rows = torch.from_numpy(rng.integers(0, n, c).astype(np.int32)).to(dev)
-    cand = torch.from_numpy(rng.integers(0, n, (c, z)).astype(
+def _refine_problem(dev, n, f, k, c, seed, lattice=False):
+    """Points, their squared norms, a graph [n, k] of distinct non-self
+    ids with the formula's distances ordered by (d, id), and the gateways
+    [c, 16] of rows 0 .. c-1: random ids, one repeated, and the row
+    itself (as the caller's gateway dedup leaves it)."""
+    rng = np.random.default_rng(seed)
+    x = (rng.integers(0, 3, (n, f)) if lattice else rng.random((n, f)))
+    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    sq = torch.sum(x * x, dim=1)
+    ids = np.stack([(i + 1 + rng.choice(n - 1, k, replace=False)) % n
+                    for i in range(n)]).astype(np.int32)
+    graph = torch.from_numpy(ids).to(dev)
+    rows = torch.arange(n, device=dev)
+    dist = cand_sqdist_plain(x, sq, rows, graph)
+    by_id = torch.argsort(graph, dim=1, stable=True)
+    graph, dist = torch.gather(graph, 1, by_id), torch.gather(dist, 1, by_id)
+    by_d = torch.argsort(dist, dim=1, stable=True)
+    graph = torch.gather(graph, 1, by_d).contiguous()
+    dist = torch.gather(dist, 1, by_d).contiguous()
+    gates = torch.from_numpy(rng.integers(0, n, (c, 16)).astype(
         np.int32)).to(dev)
-    cand[:, 0] = rows  # self: d² ~ 0, clamped
-    before = KERNELS["B6"].launches
-    got = cand_sqdist(base, sq, rows, cand)
-    want = cand_sqdist_plain(base, sq, rows, cand)
-    assert KERNELS["B6"].launches == before + 1
-    # the norm trick cancels to the scale of the squared norms, so the
-    # absolute part of the bar is taken from them (a self-only row of
-    # z = 1 has every distance 0)
-    torch.testing.assert_close(got, want, rtol=2e-5,
-                               atol=2e-5 * float(sq.max()))
-    assert bool((got >= 0).all())
+    gates[:, 1] = gates[:, 2]
+    gates[:, 0] = rows[:c].to(torch.int32)
+    return x, sq, graph, dist, gates
 
 
-def test_cand_wrapper_refuses_what_b6_does_not_take(dev):
-    base = torch.rand(40, 8, device=dev)
-    sq = torch.sum(base * base, dim=1)
-    rows = torch.arange(4, device=dev, dtype=torch.int32)
-    cand = torch.zeros((4, 6), device=dev, dtype=torch.int32)
+def _valid_ids(ids, bad=None):
+    return torch.where(bad, -1, ids) if bad is not None else ids
+
+
+def _hold_final(args, kw, exact):
+    """Kernel vs plain on one exact stage: bit-equal where every value is
+    exact (lattice data), else the smoke's bars."""
+    metric, base, sq, row0, _, old_i, old_d = args
     before = KERNELS["B6"].launches
-    cand_sqdist(base.cpu(), sq.cpu(), rows.cpu(), cand.cpu())  # plain
-    for bad in (dict(cand=cand.long()), dict(base=base.double()),
-                dict(rows=rows[:3]), dict(cand=cand.t())):
-        kw = dict(base=base, sq=sq, rows=rows, cand=cand)
+    gi, gd = refine_final(*args, **kw)
+    again = refine_final(*args, **kw)
+    assert KERNELS["B6"].launches == before + 2
+    wi, wd = refine_final_plain(*args, **kw)
+    assert torch.equal(gi, again[0]) and torch.equal(gd, again[1])
+    if exact:
+        assert torch.equal(gi, wi) and torch.equal(gd, wd)
+        return
+    rows = torch.arange(row0, row0 + gi.shape[0], device=gi.device)
+    formula = cand_exact_plain(metric, base, sq, rows, gi)
+    torch.testing.assert_close(gd, formula, rtol=2e-5,
+                               atol=2e-5 * float(formula.max()))
+    torch.testing.assert_close(gd[:, -1], wd[:, -1], rtol=2e-5,
+                               atol=2e-5 * float(wd.max()))
+    assert _set_agreement(gi.long(), wi.long()) >= 0.999
+    assert not bool((gi == rows[:, None]).any())
+    same = gd[:, 1:] == gd[:, :-1]
+    assert bool(((gd[:, 1:] > gd[:, :-1]) | (same & (gi[:, 1:] > gi[:, :-1])))
+                .all())
+
+
+def _hold_keep(args, kw, exact):
+    base, sq, row0, _, keep = args
+    gi, none = refine_keep(*args, **kw)
+    assert none is None and gi.dtype == torch.int32
+    assert torch.equal(gi, refine_keep(*args, **kw)[0])
+    wi = _valid_ids(*refine_keep_plain(*args, **kw)).to(torch.int32)
+    if exact:
+        assert torch.equal(gi, wi)
+    else:
+        assert torch.equal((gi >= 0).sum(dim=1), (wi >= 0).sum(dim=1))
+        hits = (gi[:, :, None] == wi[:, None, :]).any(dim=2) & (gi >= 0)
+        assert float(hits.sum()) / float((gi >= 0).sum()) >= 0.999
+    return gi
+
+
+@pytest.mark.parametrize("f,k,metric,lattice", [
+    (50, 150, "sqeuclidean", False),  # the cells' shape class
+    (3, 12, "euclidean", False),
+    (63, 40, "sqeuclidean", False),   # the last thread-per-candidate F
+    (64, 40, "euclidean", False),     # the first warp-per-candidate F
+    (16, 20, "sqeuclidean", True),    # exact ties, by id
+    (16, 20, "euclidean", True),      # ties after the sqrt
+])
+def test_refine_first_exact_stage_matches_plain(dev, f, k, metric, lattice):
+    """A chunk whose first stage is the exact one (no funnel): candidates
+    built from the gateways, deduped, scored, the k best merged."""
+    x, sq, graph, dist, gates = _refine_problem(dev, 3000, f, k, 300, f,
+                                                lattice)
+    if metric == "euclidean":
+        dist = torch.sqrt(dist)
+    for row0 in (0, 2700):
+        args = (metric, x, sq, row0, gates, graph[row0:row0 + 300],
+                dist[row0:row0 + 300])
+        _hold_final(args, dict(graph=graph, ke=k), lattice)
+
+
+@pytest.mark.parametrize("lattice", [False, True])
+def test_refine_keep_then_exact_stage_matches_plain(dev, lattice):
+    """The blobs' funnel: a cascade keep stage (F = 128, the first stage)
+    and the exact stage (F = 784) on its list."""
+    n, k, ke = 2000, 90, 45
+    x, sq, graph, dist, gates = _refine_problem(dev, n, 784, k, 200, 7,
+                                                lattice)
+    proj = (x[:, :128] * 2.0).contiguous()
+    psq = torch.sum(proj * proj, dim=1)
+    kept = _hold_keep((proj, psq, 0, gates, 270), dict(graph=graph, ke=ke),
+                      lattice)
+    _hold_final(("sqeuclidean", x, sq, 0, kept, graph[:200], dist[:200]),
+                {}, lattice)
+
+
+def test_refine_edge_chunks_match_plain(dev):
+    """Every gateway one id, and a row whose gateways are all itself: rows
+    with fewer unique candidates than the stage keeps (-1 after them) and
+    than k."""
+    n, k, ke = 2000, 90, 45
+    x, sq, graph, dist, gates = _refine_problem(dev, n, 128, k, 64, 8)
+    one = torch.full_like(gates, int(gates[0, 3]))
+    short = gates.clone()
+    short[5] = 5
+    for g in (one, short):
+        kept = _hold_keep((x, sq, 0, g, 270), dict(graph=graph, ke=ke),
+                          False)
+        assert bool((kept < 0).any())
+        _hold_final(("euclidean", x, sq, 0, kept, graph[:64],
+                     torch.sqrt(dist[:64])), {}, False)
+        _hold_final(("sqeuclidean", x, sq, 0, g, graph[:64], dist[:64]),
+                    dict(graph=graph, ke=ke), False)
+
+
+def test_refine_wrapper_refuses_what_b6_does_not_take(dev):
+    x, sq, graph, dist, gates = _refine_problem(dev, 200, 8, 6, 4, 9)
+    ok = dict(base=x, sq=sq, row0=0, cand=gates, keep=20)
+    before = KERNELS["B6"].launches
+    refine_keep(x.cpu(), sq.cpu(), 0, gates.cpu(), 20, graph=graph.cpu(),
+                ke=6)  # the plain version
+    for bad in (dict(cand=gates.long()), dict(base=x.double()),
+                dict(cand=gates.t()), dict(row0=199)):
+        kw = dict(ok)
         kw.update(bad)
         with pytest.raises(ValueError, match="B6"):
-            cand_sqdist(**kw)
+            refine_keep(kw["base"], kw["sq"], kw["row0"], kw["cand"],
+                        kw["keep"], graph=graph, ke=6)
+    with pytest.raises(ValueError, match="B6"):
+        refine_keep(x, sq, 0, gates, 20, graph=graph, ke=7)
+    with pytest.raises(ValueError, match="B6"):
+        refine_final("sqeuclidean", x, sq, 0, gates, graph[:4].long(),
+                     dist[:4], graph=graph, ke=6)
+    with pytest.raises(ValueError, match="CPU"):
+        cand_sqdist(x, sq, torch.arange(4, device=dev), gates)
     assert KERNELS["B6"].launches == before
 
 

@@ -7,7 +7,8 @@
 * ``project`` — the hybrid plan for large N: random-shift Z-order rounds
   with an exact banded re-rank (:func:`knn_project`), then cycles of fresh
   Z-order rounds + one NN-descent refine round (:func:`knn_refine`), whose
-  candidate scorer is kernel B6 (``ops/knn_cuda.cand_sqdist``).
+  refine chunks run their funnel stages through kernel B6
+  (``ops/knn_cuda.refine_keep`` / ``refine_final``).
 * ``auto`` — :func:`pick_knn_method`'s cost model over the FLOP counts of
   ``utils/flops.knn_flops``.
 
@@ -31,9 +32,9 @@ from dataclasses import dataclass
 
 import torch
 
-from tsne_flink_tpu_torch.ops.knn_cuda import (_cand_vectors, cand_sqdist,
-                                               fused_knn)
-from tsne_flink_tpu_torch.ops.metrics import metric_fn, pairwise
+from tsne_flink_tpu_torch.ops.knn_cuda import (fused_knn, refine_final,
+                                               refine_keep)
+from tsne_flink_tpu_torch.ops.metrics import pairwise
 from tsne_flink_tpu_torch.ops.zorder import zorder_permutation
 from tsne_flink_tpu_torch.utils.device import timed_stage
 
@@ -125,12 +126,13 @@ def pick_knn_refine(n: int, d: int | None = None) -> int:
 #: gap).  ``cpu``/``tpu``: the JAX package's (a 1-core CPU host; a v5e).
 #: ``cuda``: NVIDIA H100 80GB HBM3 at its 700 W limit, the ``[large]``
 #: phase of ``chip_smoke.py`` (1,306,127 x 50, k = 150): B1's exact graph
-#: (the 3xTF32 tensor-core sweep) in 9.11 s -> 1.93e13, the hybrid plan (3
-#: seed rounds + 5 cycles) 11.04 s -> 4.52e11, each timed to the end of
-#: the device's work.  With them the card's crossover at k = 90 sits near
-#: 1.2M points at d = 50 and 1.1M at d = 784 (``chip_smoke.auto_crossover``).
+#: (the 3xTF32 tensor-core sweep) in 9.03 s -> 1.95e13, the hybrid plan (3
+#: seed rounds + 5 cycles, each refine chunk's stages in the fused kernel
+#: B6) 7.68 s -> 6.49e11, each timed to the end of the device's work.
+#: With them the card's crossover at k = 90 sits near 832k points at
+#: d = 50 and 768k at d = 784 (``chip_smoke.auto_crossover``).
 KNN_EXACT_EFF = {"cpu": 55e9, "tpu": 2.0e13, "cuda": 1.9e13}
-KNN_HYBRID_EFF = {"cpu": 7e9, "tpu": 1.0e12, "cuda": 4.5e11}
+KNN_HYBRID_EFF = {"cpu": 7e9, "tpu": 1.0e12, "cuda": 6.5e11}
 
 #: the plain exact sweep materialises a [row_chunk, N] distance block;
 #: past this transient the CPU policy prefers the partition schedule.
@@ -373,43 +375,6 @@ def _generator(gen, device, seed: int) -> torch.Generator:
     return g
 
 
-# ---- the refine funnel's scorers ------------------------------------------
-
-def _cand_sqdist(base: torch.Tensor, sq: torch.Tensor, rows: torch.Tensor,
-                 cand: torch.Tensor, compact: bool = False) -> torch.Tensor:
-    """Squared euclidean distances row -> candidates, [c] x [c, Z] ->
-    [c, Z], with ``sq`` the cached squared norms of ``base``: kernel B6 on
-    the card, its plain version on the CPU."""
-    return cand_sqdist(base, sq, rows.to(torch.int32),
-                       cand.to(torch.int32).contiguous(), compact)
-
-
-def _cand_exact(metric: str, xf: torch.Tensor, cache: torch.Tensor,
-                rows: torch.Tensor, cand: torch.Tensor,
-                compact: bool = False) -> torch.Tensor:
-    """Exact CLI-metric distances row -> candidates.  ``cache`` holds the
-    squared norms (sqeuclidean/euclidean) or the norms (cosine).  Cosine
-    is a plain batched product on the card and the elementwise metric on
-    the CPU, as the JAX package's accelerator and CPU forms."""
-    if metric == "cosine":
-        pr = xf[rows.long()]
-        pc = _cand_vectors(xf, cand, compact)
-        if xf.is_cuda:
-            g = torch.einsum("cf,czf->cz", pr, pc)
-            return 1.0 - g / (cache[rows.long()][:, None]
-                              * cache[cand.long()])
-        return metric_fn("cosine")(pr[:, None, :], pc)
-    d2 = _cand_sqdist(xf, cache, rows, cand, compact)
-    return torch.sqrt(d2) if metric == "euclidean" else d2
-
-
-def _keep_smallest(score, cand, bad, keep: int):
-    """The ``keep`` best-scored candidates of each row, ascending, ties by
-    the lowest slot (``lax.top_k(-score, keep)``)."""
-    _, sel = _topk_smallest(score, keep)
-    return torch.gather(cand, 1, sel), torch.gather(bad, 1, sel)
-
-
 # ---- hybrid kNN -------------------------------------------------------------
 
 def knn_refine(x: torch.Tensor, idx: torch.Tensor, dist: torch.Tensor,
@@ -434,24 +399,29 @@ def knn_refine(x: torch.Tensor, idx: torch.Tensor, dist: torch.Tensor,
     proposes the gateways and the first ``expand_k`` out-neighbours of
     each as candidates, id-dedups them per row, ranks them through the
     staged funnel (a JL stage of ``filter_dims``, a ``cascade_dims``
-    cascade, each a projection scored by kernel B6), scores the survivors
-    exactly in the CLI metric (B6 for sqeuclidean/euclidean), pre-top-ks
-    to k and merges them into the row's list.  Rows are processed in
-    chunks of ``row_chunk`` (the tile plan's ``refine_chunk``); every
-    operation is per row, so the chunk size never changes the result.
+    cascade, each over a projection), scores the survivors exactly in the
+    CLI metric, pre-top-ks to k and merges them into the row's list.
+    Rows are processed in chunks of ``row_chunk`` (the tile plan's
+    ``refine_chunk``), one call of ``ops/knn_cuda.refine_keep`` or
+    ``refine_final`` per funnel stage per chunk: kernel B6 on the card
+    (the exact stage of cosine excepted), the plain chunk body on the CPU.
+    Every operation is per row, so the chunk size never changes the
+    result.
 
     ``draws`` (one :class:`RefineDraw` per round) replaces the draws from
     ``generator`` (default: a generator seeded 7).  ``dedup_gather``
     (True | False | "auto" = False) routes the plain scorers' vector
     gathers through ``ops/knn_cuda._compact_gather``; on the card B6
-    gathers in the kernel and the option is moot.  The sharded form (``x_full``,
-    ``idx_full``, ``row_offset``, ``n_valid``) is ROADMAP queue A14."""
+    gathers in the kernel and the option is moot.  The sharded form
+    (``x_full``, ``idx_full``, ``row_offset``, ``n_valid``) is ROADMAP
+    queue A14."""
     if (x_full is not None or idx_full is not None or row_offset
             or n_valid is not None):
         raise NotImplementedError(
             "the sharded refine (x_full, idx_full, row_offset, n_valid) is "
             "not ported yet (ROADMAP queue A14)")
     x = x.contiguous()
+    idx, dist = idx.contiguous(), dist.contiguous()
     nloc, k = idx.shape
     dim = x.shape[1]
     dev = x.device
@@ -505,36 +475,26 @@ def knn_refine(x: torch.Tensor, idx: torch.Tensor, dist: torch.Tensor,
         u_loc = torch.where(dupu, rows_g[:, None], us)
         del gate, rev, us, dupu
 
+        if x.is_cuda:
+            u_loc = u_loc.to(torch.int32)  # kernel B6's gateway operand
+
         new_i = torch.empty_like(idx)
         new_d = torch.empty_like(dist)
         for c0 in range(0, nloc, c):
-            rc = rows_g[c0:c0 + c]
-            cc = rc.shape[0]
-            mine = u_loc[c0:c0 + c]                       # [cc, 2s]
-            cand = torch.cat([mine, gidx[mine][..., :ke].reshape(cc, -1)],
-                             dim=1)                       # [cc, 2s(1+ke)]
-            cand = torch.sort(cand, dim=1).values
-            bad = cand == rc[:, None]                     # self
-            bad[:, 1:] |= cand[:, 1:] == cand[:, :-1]     # in-row duplicates
+            # the chunk's first stage builds its candidates: the gateways
+            # and the first ke ids of each gateway's list
+            cand, bad, first = u_loc[c0:c0 + c], None, dict(graph=idx, ke=ke)
             if plan.filter_dims:
-                ad = _cand_sqdist(proj, psq, rc, cand, compact)
-                cand, bad = _keep_smallest(ad.masked_fill(bad, math.inf),
-                                           cand, bad, plan.keep)
+                cand, bad = refine_keep(proj, psq, c0, cand, plan.keep,
+                                        bad=bad, compact=compact, **first)
+                first = {}
             if plan.cascade_dims:
-                ad = _cand_sqdist(proj2, p2sq, rc, cand, compact)
-                cand, bad = _keep_smallest(ad.masked_fill(bad, math.inf),
-                                           cand, bad, plan.keep2)
-            dd = _cand_exact(metric, x, xcache, rc, cand,
-                             compact).masked_fill(bad, math.inf)
-            if dd.shape[1] > k:
-                # lossless pre-top-k: candidates are per-row unique, so
-                # any id of the final smallest-k of old ∪ new is among the
-                # k smallest new ones
-                dd, selk = _topk_smallest(dd, k)
-                cand = torch.gather(cand, 1, selk)
-            ni, nd = _dedup_smallest(
-                torch.cat([idx[c0:c0 + c], cand.to(idx.dtype)], dim=1),
-                torch.cat([dist[c0:c0 + c], dd], dim=1), k)
+                cand, bad = refine_keep(proj2, p2sq, c0, cand, plan.keep2,
+                                        bad=bad, compact=compact, **first)
+                first = {}
+            ni, nd = refine_final(metric, x, xcache, c0, cand,
+                                  idx[c0:c0 + c], dist[c0:c0 + c], bad=bad,
+                                  compact=compact, **first)
             new_i[c0:c0 + c] = ni
             new_d[c0:c0 + c] = nd
         idx, dist = new_i, new_d

@@ -1,5 +1,5 @@
 """B1: exact self-kNN through the fused distance + top-k kernel, and
-B6: the refine funnel's candidate scorer.
+B6: one funnel stage of a refine chunk, fused.
 
 B1 replaces ``tsne_flink_tpu/ops/knn_pallas.py::_fused_kernel`` (with its
 ``_fused_prep`` staging and ``_fused_final`` ordering).  The kernel is
@@ -19,22 +19,30 @@ sweeps return each row's k nearest squared (or cosine) distances;
 :func:`_fused_final` orders them and takes the sqrt for ``euclidean``.
 
 B6 replaces ``tsne_flink_tpu/ops/knn_pallas.py::_cand_kernel`` (driven
-by ``cand_sqdist_fused``).  The kernel is ``csrc/knn_cand.cu``: it
-gathers the candidate rows by index itself, so the [c, Z, F] candidate
-operand the JAX form gathers first never exists in device memory, and a
-candidate row shared by many chunk rows is served from L2 — the JAX
-package's dedup-then-gather (:func:`_compact_gather`) is moot on the
-card.  :func:`cand_sqdist` is the wrapper: :func:`cand_sqdist_plain` on a
-CPU tensor (which keeps the compact gather as an option, bit-identical to
-the direct one), the kernel on a CUDA tensor, or it raises.
+by ``cand_sqdist_fused``) together with the glue of the JAX package's
+refine chunk around it.  The kernel is ``csrc/knn_cand.cu``: one launch
+per funnel stage per chunk builds each row's candidates from its gateways
+(first stage), dedups them in shared memory, scores them (gathering the
+candidate rows by index itself), selects the best and, in the exact
+stage, merges them into the row's list; the [c, Z] candidate, score and
+mask tensors of the plain chunk never exist in device memory, and the
+JAX package's dedup-then-gather (:func:`_compact_gather`) is moot on the
+card.  :func:`refine_keep` and :func:`refine_final` are the wrappers:
+their plain versions (:func:`refine_keep_plain`,
+:func:`refine_final_plain`, today's chunk body of ``knn_refine``) on a
+CPU tensor, the kernel on a CUDA tensor, or they raise.
+:func:`cand_sqdist_plain` is the TPU kernel's formula, which the plain
+stages score with.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from tsne_flink_tpu_torch.kernels.build import KERNELS
-from tsne_flink_tpu_torch.ops.metrics import pairwise
+from tsne_flink_tpu_torch.ops.metrics import metric_fn, pairwise
 
 #: feature axis padded (with zeros) to this multiple for the kernel's
 #: 16-wide shared-memory slices and 16-byte row loads
@@ -177,11 +185,13 @@ def fused_knn(x: torch.Tensor, k: int, metric: str = "sqeuclidean"):
     return _fused_final(dist, idx, metric)
 
 
-# ---- B6: the refine funnel's candidate scorer ---------------------------
+# ---- B6: one funnel stage of a refine chunk -----------------------------
 
-#: the kernel keeps a chunk row's vector in shared memory (F·4 bytes of
-#: the 48 KB a launch gets without opting in)
+#: the kernel keeps a chunk row's vector in shared memory (F·4 bytes)
 CAND_F_MAX = 12_288
+#: keys the kernel sorts a row: a keep stage's survivors, or the exact
+#: stage's old + new lists (2k)
+REFINE_SORT_MAX = 1024
 
 
 def _compact_gather(base: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
@@ -215,10 +225,9 @@ def _cand_vectors(base: torch.Tensor, cand: torch.Tensor,
 def cand_sqdist_plain(base: torch.Tensor, sq: torch.Tensor,
                       rows: torch.Tensor, cand: torch.Tensor,
                       compact: bool = False) -> torch.Tensor:
-    """Plain version of B6, the TPU kernel's own formula: ``(sq[rows] +
-    sq[cand]) − 2·Σ_f r·c`` clamped at 0, [c, Z].  ``compact`` gathers
-    the candidate vectors through the dedup-then-gather form (identical
-    values)."""
+    """The TPU kernel's formula, B6's scores: ``(sq[rows] + sq[cand]) −
+    2·Σ_f r·c`` clamped at 0, [c, Z].  ``compact`` gathers the candidate
+    vectors through the dedup-then-gather form (identical values)."""
     rows = rows.long()
     pr = base[rows]                                 # [c, F]
     pc = _cand_vectors(base, cand, compact)         # [c, Z, F]
@@ -227,11 +236,114 @@ def cand_sqdist_plain(base: torch.Tensor, sq: torch.Tensor,
                        min=0.0)
 
 
-def _check_cand(base, sq, rows, cand) -> None:
-    for name, t, dtype, dim in (("base", base, torch.float32, 2),
-                                ("sq", sq, torch.float32, 1),
-                                ("rows", rows, torch.int32, 1),
-                                ("cand", cand, torch.int32, 2)):
+def cand_sqdist(base: torch.Tensor, sq: torch.Tensor, rows: torch.Tensor,
+                cand: torch.Tensor, compact: bool = False) -> torch.Tensor:
+    """Squared euclidean distances from each of ``base[rows]`` [c] to its
+    candidates ``base[cand]`` [c, Z] -> [c, Z], on a CPU tensor.  On the
+    card B6 scores inside the fused stage (:func:`refine_keep`,
+    :func:`refine_final`), which never builds this [c, Z] tensor: a CUDA
+    tensor raises."""
+    if base.device.type != "cpu":
+        raise ValueError("B6 scores candidates inside the fused refine "
+                         "stage on the card (refine_keep / refine_final); "
+                         "cand_sqdist takes CPU tensors")
+    return cand_sqdist_plain(base, sq, rows, cand, compact)
+
+
+def cand_exact_plain(metric: str, xf: torch.Tensor, cache: torch.Tensor,
+                     rows: torch.Tensor, cand: torch.Tensor,
+                     compact: bool = False) -> torch.Tensor:
+    """Exact CLI-metric distances row -> candidates.  ``cache`` holds the
+    squared norms (sqeuclidean/euclidean) or the norms (cosine).  Cosine
+    is a plain batched product on the card and the elementwise metric on
+    the CPU, as the JAX package's accelerator and CPU forms."""
+    if metric == "cosine":
+        pr = xf[rows.long()]
+        pc = _cand_vectors(xf, cand, compact)
+        if xf.is_cuda:
+            g = torch.einsum("cf,czf->cz", pr, pc)
+            return 1.0 - g / (cache[rows.long()][:, None]
+                              * cache[cand.long()])
+        return metric_fn("cosine")(pr[:, None, :], pc)
+    d2 = cand_sqdist_plain(xf, cache, rows, cand, compact)
+    return torch.sqrt(d2) if metric == "euclidean" else d2
+
+
+def _chunk_rows(row0: int, cand: torch.Tensor) -> torch.Tensor:
+    return torch.arange(row0, row0 + cand.shape[0], device=cand.device)
+
+
+def refine_candidates_plain(row0: int, gates: torch.Tensor,
+                            graph: torch.Tensor, ke: int):
+    """A chunk's candidates: its rows' gateways [c, 2s] and the first
+    ``ke`` ids of each gateway's list in ``graph``, sorted by id ->
+    (cand [c, 2s(1 + ke)] int64, bad: self or an in-row duplicate)."""
+    cc = gates.shape[0]
+    rc = _chunk_rows(row0, gates)
+    mine = gates.long()
+    cand = torch.cat([mine, graph[mine][..., :ke].reshape(cc, -1).long()],
+                     dim=1)
+    cand = torch.sort(cand, dim=1).values
+    bad = cand == rc[:, None]                     # self
+    bad[:, 1:] |= cand[:, 1:] == cand[:, :-1]     # in-row duplicates
+    return cand, bad
+
+
+def _stage_input(row0, cand, bad, graph, ke):
+    """(cand, bad) of a plain stage: built from the gateways (``graph``
+    given), a kernel stage's list (``bad`` None: -1 marks no candidate),
+    or a plain stage's output as it is."""
+    if graph is not None:
+        return refine_candidates_plain(row0, cand, graph, ke)
+    if bad is None:
+        bad = cand < 0
+        cand = torch.where(bad, _chunk_rows(row0, cand)[:, None],
+                           cand.long())
+    return cand, bad
+
+
+def refine_keep_plain(base, sq, row0: int, cand, keep: int, *, bad=None,
+                      graph=None, ke: int = 0, compact: bool = False):
+    """Plain version of a keep stage (the JL filter or the cascade): the
+    ``keep`` best-scored candidates of each row, ascending, ties by the
+    lowest slot (``lax.top_k(-score, keep)``) -> (cand, bad)."""
+    from tsne_flink_tpu_torch.ops.knn import _topk_smallest
+    cand, bad = _stage_input(row0, cand, bad, graph, ke)
+    ad = cand_sqdist_plain(base, sq, _chunk_rows(row0, cand), cand, compact)
+    _, sel = _topk_smallest(ad.masked_fill(bad, math.inf), keep)
+    return torch.gather(cand, 1, sel), torch.gather(bad, 1, sel)
+
+
+def refine_final_plain(metric: str, base, cache, row0: int, cand, old_i,
+                       old_d, *, bad=None, graph=None, ke: int = 0,
+                       compact: bool = False):
+    """Plain version of the exact stage: exact CLI-metric distances, the
+    lossless pre-top-k to k, and the merge into the rows' lists
+    ``old_i``/``old_d`` [c, k] (each id's smallest distance, ordered by
+    (distance, id)) -> (new_i, new_d)."""
+    from tsne_flink_tpu_torch.ops.knn import _dedup_smallest, _topk_smallest
+    cand, bad = _stage_input(row0, cand, bad, graph, ke)
+    dd = cand_exact_plain(metric, base, cache, _chunk_rows(row0, cand), cand,
+                          compact).masked_fill(bad, math.inf)
+    k = old_i.shape[1]
+    if dd.shape[1] > k:
+        # lossless pre-top-k: candidates are per-row unique, so any id of
+        # the final smallest-k of old ∪ new is among the k smallest new ones
+        dd, selk = _topk_smallest(dd, k)
+        cand = torch.gather(cand, 1, selk)
+    return _dedup_smallest(torch.cat([old_i, cand.to(old_i.dtype)], dim=1),
+                           torch.cat([old_d, dd], dim=1), k)
+
+
+def _check_refine(base, sq, row0, cand, graph, ke, old) -> None:
+    named = [("base", base, torch.float32, 2), ("sq", sq, torch.float32, 1),
+             ("cand", cand, torch.int32, 2)]
+    if graph is not None:
+        named.append(("graph", graph, torch.int32, 2))
+    if old is not None:
+        named += [("old_i", old[0], torch.int32, 2),
+                  ("old_d", old[1], torch.float32, 2)]
+    for name, t, dtype, dim in named:
         if not t.is_cuda or t.device != base.device:
             raise ValueError(f"B6 kernel takes CUDA tensors on one device; "
                              f"{name} is on {t.device}")
@@ -239,25 +351,89 @@ def _check_cand(base, sq, rows, cand) -> None:
             raise ValueError(f"B6 kernel takes a contiguous {dim}-D {dtype} "
                              f"{name}; got {t.dtype} {tuple(t.shape)}")
     n, f = base.shape
-    if sq.shape[0] != n or cand.shape[0] != rows.shape[0]:
+    c = cand.shape[0]
+    if sq.shape[0] != n or not 0 <= row0 <= n - c or c < 1:
         raise ValueError(f"B6 kernel: sq {tuple(sq.shape)} must be [{n}] and "
-                         f"cand {tuple(cand.shape)} [{rows.shape[0]}, Z]")
+                         f"rows {row0}..{row0 + c - 1} within it")
+    if graph is not None and (graph.shape[0] != n
+                              or not 1 <= ke <= graph.shape[1]):
+        raise ValueError(f"B6 kernel: graph {tuple(graph.shape)} must be "
+                         f"[{n}, >= ke = {ke}]")
+    if old is not None and (old[0].shape != old[1].shape
+                            or old[0].shape[0] != c
+                            or 2 * old[0].shape[1] > REFINE_SORT_MAX):
+        raise ValueError(f"B6 kernel: old lists {tuple(old[0].shape)} must "
+                         f"be [{c}, k], k <= {REFINE_SORT_MAX // 2}")
     if not 1 <= f <= CAND_F_MAX:
         raise ValueError(f"B6 kernel takes 1 <= F <= {CAND_F_MAX}; got {f}")
 
 
-def cand_sqdist(base: torch.Tensor, sq: torch.Tensor, rows: torch.Tensor,
-                cand: torch.Tensor, compact: bool = False) -> torch.Tensor:
-    """Squared euclidean distances from each of ``base[rows]`` [c] to its
-    candidates ``base[cand]`` [c, Z] -> [c, Z], with ``sq`` the cached
-    squared norms of ``base``.  Kernel B6 on a CUDA tensor (ids int32,
-    every one in range); the plain version on a CPU tensor."""
+def _refine_launch(base, sq, row0, cand, graph, ke, *, keep=0, old=None,
+                   euclid=False):
+    """Launch B6 on one stage of rows row0 .. row0 + c − 1; allocates only
+    its outputs: ids [c, keep] (keep mode) or the new lists [c, k]."""
+    _check_refine(base, sq, row0, cand, graph, ke, old)
+    (n, f), (c, w) = base.shape, cand.shape
+    dev = base.device
+    if old is None:
+        keep = min(keep, w * (1 + ke) if graph is not None else w)
+        if not 1 <= keep <= REFINE_SORT_MAX:
+            raise ValueError(f"B6 kernel keeps 1..{REFINE_SORT_MAX} a row; "
+                             f"got {keep}")
+        out_i = torch.empty((c, keep), dtype=torch.int32, device=dev)
+        out_d, k = None, 0
+    else:
+        k = old[0].shape[1]
+        out_i = torch.empty((c, k), dtype=torch.int32, device=dev)
+        out_d = torch.empty((c, k), dtype=torch.float32, device=dev)
+    KERNELS["B6"](base.data_ptr(), sq.data_ptr(), n, f, row0, c,
+                  cand.data_ptr(), w,
+                  None if graph is None else graph.data_ptr(),
+                  0 if graph is None else graph.shape[1], ke, keep,
+                  None if old is None else old[0].data_ptr(),
+                  None if old is None else old[1].data_ptr(), k, int(euclid),
+                  out_i.data_ptr(), None if out_d is None else out_d.data_ptr())
+    return out_i if old is None else (out_i, out_d)
+
+
+def refine_keep(base: torch.Tensor, sq: torch.Tensor, row0: int,
+                cand: torch.Tensor, keep: int, *, bad=None, graph=None,
+                ke: int = 0, compact: bool = False):
+    """One keep stage of the refine funnel over chunk rows row0 .. row0 +
+    c − 1, scored by squared distances in ``base`` (a projection; ``sq``
+    its squared norms): each row's ``keep`` best candidates in rank order.
+
+    With ``graph`` [N, k] (a chunk's first stage) ``cand`` holds the rows'
+    gateways [c, 2s] and the stage builds the candidates from them and the
+    first ``ke`` ids of each gateway's list; otherwise ``cand`` is the
+    previous stage's output.  Returns (cand, bad): on a CPU tensor the
+    plain version's (ids, self/duplicate mask); on a CUDA tensor kernel
+    B6's int32 ids, -1 where a row had fewer candidates, and None."""
     if base.device.type == "cpu":
-        return cand_sqdist_plain(base, sq, rows, cand, compact)
-    _check_cand(base, sq, rows, cand)
-    c, z = cand.shape
-    out = torch.empty((c, z), device=base.device, dtype=torch.float32)
-    if c and z:
-        KERNELS["B6"](base.data_ptr(), sq.data_ptr(), rows.data_ptr(),
-                      cand.data_ptr(), c, z, base.shape[1], out.data_ptr())
-    return out
+        return refine_keep_plain(base, sq, row0, cand, keep, bad=bad,
+                                 graph=graph, ke=ke, compact=compact)
+    return _refine_launch(base, sq, row0, cand, graph, ke, keep=keep), None
+
+
+def refine_final(metric: str, base: torch.Tensor, cache: torch.Tensor,
+                 row0: int, cand: torch.Tensor, old_i: torch.Tensor,
+                 old_d: torch.Tensor, *, bad=None, graph=None, ke: int = 0,
+                 compact: bool = False):
+    """The exact stage of the refine funnel over chunk rows row0 .. row0 +
+    c − 1: exact ``metric`` distances in ``base`` (``cache`` its squared
+    norms, or its norms for cosine), the k nearest candidates merged into
+    the rows' lists ``old_i``/``old_d`` [c, k] -> (new_i, new_d), each id
+    at its smallest distance, rows ordered by (distance, id).  ``cand``,
+    ``bad``, ``graph`` and ``ke`` as :func:`refine_keep`'s.
+
+    Kernel B6 on a CUDA tensor for sqeuclidean and euclidean; the plain
+    version on a CPU tensor, and for cosine, whose exact stage is plain
+    PyTorch on the card too (the JAX package has no kernel for it)."""
+    if base.device.type == "cpu" or metric == "cosine":
+        return refine_final_plain(metric, base, cache, row0, cand, old_i,
+                                  old_d, bad=bad, graph=graph, ke=ke,
+                                  compact=compact)
+    if metric not in ("sqeuclidean", "euclidean"):
+        raise ValueError(f"Metric '{metric}' not defined")
+    return _refine_launch(base, cache, row0, cand, graph, ke,
+                          old=(old_i, old_d), euclid=metric == "euclidean")

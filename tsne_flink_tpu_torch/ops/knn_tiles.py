@@ -38,11 +38,11 @@ MIN_BLOCK = 1024
 MAX_BLOCK = 8192
 
 #: refine row-chunk bounds: the CPU's measured optimum, and the JAX
-#: package's ceiling for accelerators.  On the card the candidate scorer
-#: (kernel B6) gathers candidate vectors inside the kernel, so a chunk's
-#: transients are its [c, Z] id/score planes and sort buffers, not the
-#: [c, Z, d] gather the budget model counts; the cap rises so the 1.3M
-#: refine runs a few hundred chunks a round instead of ~1,300.
+#: package's ceiling for accelerators.  On the card kernel B6 runs each
+#: funnel stage of a chunk in shared memory, so a chunk's transients are
+#: its [c, keep] / [c, k] outputs, not the [c, Z, d] gather the budget
+#: model counts; the cap rises so the 1.3M refine runs a few hundred
+#: chunks a round instead of ~1,300.
 MIN_REFINE_CHUNK = 64
 MAX_REFINE_CHUNK = 1024
 MAX_REFINE_CHUNK_CUDA = 8192
