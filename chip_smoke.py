@@ -7,29 +7,46 @@ Phases, in order; any failure exits non-zero before the result line:
 
 1. device  — name, count, and nvidia-smi's name + power limit;
 2. build   — nvcc of csrc/*.cu, one process per source, all at once
-   (seconds + ptxas lines), B1's configuration (ring stages, distance-
-   tile buffers, shared memory) per k class, and, where the toolkit has
-   cuobjdump, whether B1's SASS holds tensor-core (HMMA/HGMMA) and
-   asynchronous-copy (LDGSTS/UTMALDG) instructions (informative);
+   (seconds, and each kernel instance's registers and spills), B1's
+   configuration (rows a block, ring stages, distance-tile buffers,
+   shared memory) per k class, and, where the toolkit has cuobjdump,
+   whether B1's SASS holds tensor-core (HMMA/HGMMA) and asynchronous-copy
+   (LDGSTS/UTMALDG) instructions (informative);
 3. kernels — each hand-written kernel against its plain PyTorch version
    on the card, at the shapes of the main paths: B1 at 8,192 x 784
    (k = 90) and 8,192 x 50 (k = 150), held to the float64 graph (index
    agreement >= 0.999 and >= the plain FP32 version's own) and to its
    plain version (distances rtol 1e-4, neighbour sets >= 0.999), two
    launches bit-identical; B2 at 60,000 rows (m = 2 and 3, a masked row
-   shard, two launches bit-identical), B3, B4 at 60,000 rows; B5 and B4
-   at the three widths below; B6, the fused refine-chunk stage, on the
-   stages of a real refine chunk at both hybrid-kNN shapes (the blobs'
-   cascade at F = 128 and exact stage at F = 784, the cells' exact stage
-   at F = 50) and on two synthetic edge chunks (every gateway one id; a
-   row whose gateways are all itself), held to the plain stage: each
-   distance the formula's for its (row, id), or its smaller old one, to
-   rtol 2e-5, neighbour sets >= 0.999, the k-th distance to rtol 2e-5,
-   ids distinct, self absent, rows ordered by (d, id), two launches
-   bit-identical; each stage timed over the first 32 chunks of a refine
-   round in sequence, as the round runs them; and one CSR step fused
-   (B3) against unfused (B5 + tail + the vdM update);
-4. full    — ``tsne_embed`` on 60,000 x 784 MNIST-like blobs (perplexity
+   shard, two launches bit-identical), B3, B4 at 60,000 rows; B5 and B4,
+   each one launch over a row block and a ragged edge part, at the
+   widths below, on the CSR run's head + tail, on its tail alone, on
+   the blobs' blocks layout (forward block + reverse edges), on the flat
+   edge list (no row block) and on an edge problem (a hub row of 3,000
+   edges, a row with none, the last row owning padding), rtol 2e-5, two
+   launches bit-identical, and one launch over head + tail equal bit for
+   bit to the head's plus the tail's; B6, the fused refine-chunk stage,
+   on the stages of a real refine chunk at both hybrid-kNN shapes (the
+   blobs' cascade at F = 128 and exact stage at F = 784, the cells'
+   exact stage at F = 50) and on two synthetic edge chunks (every gateway
+   one id; a row whose gateways are all itself), held to the plain
+   stage: each distance the formula's for its (row, id), or its smaller
+   old one, to rtol 2e-5, neighbour sets >= 0.999, the k-th distance to
+   rtol 2e-5, ids distinct, self absent, rows ordered by (d, id), two
+   launches bit-identical; each stage timed over the first 32 chunks of
+   a refine round in sequence, as the round runs them; and one CSR step
+   fused (B3 with B5's tail) against unfused (B5 over head + tail + the
+   vdM update);
+4. widths  — the kernels at the limits they were widened to: B2-B5 at
+   m = 1, 4 and 8 on 4,000 rows, B1 at k = 300 and k = 1,024 on a cut of
+   the blobs (its first 256 slots bit for bit the k = 256 class's list,
+   each neighbour within the float64 k-th distance, and against plain as
+   above), B6 at k = 600 on refine chunks captured from cuts of the
+   blobs (cascade + exact) and the cells, and at k = 1,024 on the cells,
+   each against its plain version with the bars above; ``tsne_embed`` at n_components 1, 4 and 8, and
+   at k = 1,024 on the bruteforce and project paths; and the limits left
+   (k past 1,024, m past 8) refused before the kNN stage starts;
+5. full    — ``tsne_embed`` on 60,000 x 784 MNIST-like blobs (perplexity
    30, k = 90, exact repulsion, CSR attraction, 300 iterations): stage
    seconds, the launches of each kernel in that run (counted from 0 just
    before it), each kernel's CUDA-event time at the run's shapes beside its
@@ -38,22 +55,26 @@ Phases, in order; any failure exits non-zero before the result line:
    the tensor cores beside one FP32 pass), peak memory, the loss trace,
    and the quality checks (finite, falling KL, 10-NN label agreement >=
    0.9);
-5. rows    — the default configuration (``attraction="auto"``) on
+6. rows    — the default configuration (``attraction="auto"``) on
    60,000 x 784 "latent blobs" (10 clusters in a 3-D latent, lifted
    linearly to 784 dims), where auto must pick the rows layout: launches,
    the per-iteration split (B2, B5, B4/10, the rest), and the quality
    checks (finite, falling KL, label agreement within 0.05 of the latent
    itself);
-6. blocks  — the blocks assembly on the blobs of phase 4: launches, the
-   split with the reverse edges' segment sum, the checks of phase 4, and
-   a final KL within 0.05 of phase 4's (both optimize the same P);
-7. project — ``tsne_embed`` on the blobs of phase 4 with the hybrid kNN
+7. blocks  — the blocks assembly on the blobs of phase 5: launches, the
+   attraction pass timed after an L2 flush as one launch of B5 (and of
+   B4) over the forward block and the reverse edges, beside the old pair
+   (B5 over the forward block + the reverse edges' segment sum; B4 + the
+   reverse edges' KL), with its bytes bound and its gathers' L2 sectors,
+   the split of an iteration, the checks of phase 5, and a final KL
+   within 0.05 of phase 5's (both optimize the same P);
+8. project — ``tsne_embed`` on the blobs of phase 5 with the hybrid kNN
    (``knn_method="project"``: 3 seed rounds + 6 refine cycles, B6 running
    every funnel stage of every refine chunk) and exact repulsion:
    launches, the kNN substage seconds and the refine split, recall@90
    against B1's exact graph (>= 0.93), B6's time beside B1's, and the
-   checks of phase 4;
-8. large — ``tsne_embed`` at the shape of the 10x Genomics 1.3M mouse
+   checks of phase 5;
+9. large — ``tsne_embed`` at the shape of the 10x Genomics 1.3M mouse
    brain cells (1,306,127 x 50 principal components; a synthetic
    stand-in, see ``make_cells``): perplexity 50, k = 150, the hybrid kNN
    (3 + 5 cycles), FFT repulsion (grid 1024, p = 3), 300 iterations at
@@ -64,12 +85,12 @@ Phases, in order; any failure exits non-zero before the result line:
    against it, >= 0.90), the efficiencies of pick_knn_method's cost
    model and its exact/hybrid crossover, the FFT repulsion's
    per-iteration split (spread / FFTs / gather) beside B2's at 60,000
-   and at this N (the exact/FFT crossover), the rest of an iteration
-   split into B5 over the [N, 150] forward block (with its bound), B4,
-   the reverse edges' segment sum and the rest, peak memory, and the
+   and at this N (the exact/FFT crossover), the blocks layout's
+   attraction pass as in phase 7 (B5 and B4 held against their plain
+   versions there too), the rest of an iteration, peak memory, and the
    quality checks (finite, falling KL, label agreement within 0.05 of
    the latent's own);
-9. determinism — two runs at N = 2,000 give the same bits, on the CSR
+10. determinism — two runs at N = 2,000 give the same bits, on the CSR
    path, the rows path, and the hybrid kNN + FFT path.
 
 The widths at which B5 and B4 are held: the latent blobs' [N, S] rows
@@ -83,6 +104,7 @@ is the JSON record of every kernel.  The script imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -109,6 +131,10 @@ PERPLEXITY_CELLS, K_CELLS = 50.0, 150
 N_B1_CHECK = 8_192
 N_DETERMINISM = 2_000
 PERPLEXITY, K, ITERATIONS = 30.0, 90, 300
+#: the widths phase: rows for B2-B5 at m = 1, 4, 8; B6's k and cut; the
+#: points and iterations of its short embeds; the largest k the kernels take
+N_WIDTHS, K_B6_DEEP, N_REFINE_DEEP = 4_000, 600, 20_000
+N_EMBED_DEEP, ITER_WIDTHS, K_DEEP = 12_000, 100, 1024
 #: the final-KL gap allowed between two runs over the same P
 #: (tsne_flink_tpu/models/autopilot.py KL_GUARDRAIL_TOL, copied)
 KL_GUARDRAIL_TOL = 0.05
@@ -277,6 +303,113 @@ def rel_close(a, b, rtol, what):
     return float(err.max())
 
 
+def flushed_ms(fn, reps=10):
+    """(median, list) of CUDA-event ms of single calls of ``fn``, each
+    after a 256 MiB write that flushes the L2 cache (one warm-up call)."""
+    import torch
+    fn()
+    flush = torch.empty(1 << 26, dtype=torch.float32, device="cuda")
+    out = []
+    for _ in range(reps):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b))
+    return statistics.median(out), out
+
+
+def hold_pass(tag, y, fidx, fval, rag, z, exag=4.0):
+    """B5 and B4, one launch each over a row block ``(fidx, fval)`` (None:
+    none) and a ragged part ``rag``, against their plain versions (forward
+    + ragged) on the card: rtol 2e-5 with an absolute part of
+    rtol·max|value|, the total KL to rtol 2e-5, two launches
+    bit-identical.  Returns (max force error, max KL error)."""
+    import torch
+    from tsne_flink_tpu_torch.ops import attraction_cuda as att
+    fk = att.attraction_forces(y, y, fidx, fval, exag, ragged=rag)
+    again = att.attraction_forces(y, y, fidx, fval, exag, ragged=rag)
+    fp = att.attraction_forces_plain(y, y, fidx, fval, exag, ragged=rag)
+    e5 = rel_close(fk, fp, 2e-5, f"B5 {tag}")
+    check(torch.equal(fk, again), f"B5 {tag}: two launches differ")
+    lk = att.attraction_loss(y, y, fidx, fval, 1.0, z, ragged=rag)
+    lagain = att.attraction_loss(y, y, fidx, fval, 1.0, z, ragged=rag)
+    lp = att.attraction_loss_plain(y, y, fidx, fval, 1.0, z, ragged=rag)
+    e4 = rel_close(lk, lp, 2e-5, f"B4 {tag}")
+    check(torch.equal(lk, lagain), f"B4 {tag}: two launches differ")
+    check(abs(float(lk.sum()) - float(lp.sum()))
+          <= 2e-5 * float(lp.abs().sum()), f"B4 {tag} total loss")
+    w = 0 if fidx is None else fidx.shape[1]
+    print(f"[kernels] B5/B4 {tag}: {y.shape[0]} rows, W={w}, "
+          f"{0 if rag is None else rag.dst.shape[0]} ragged edges: max "
+          f"|att err| {e5:.3e}, max |loss err| {e4:.3e}; two launches "
+          f"bit-identical")
+    return e5, e4
+
+
+def against_f64(tag, y, fidx, fval, rag, z):
+    """B5 and B4 at a run's final embedding, where y_i·Σw and Σw·y_j
+    cancel far more than on ``embedding_like``'s: the kernel's and the
+    plain version's f32 results each against the plain version in
+    float64, the kernel's max error at most twice the plain's."""
+    import torch
+    from tsne_flink_tpu_torch.ops import attraction_cuda as att
+    rag64 = rag._replace(val=rag.val.double())
+    y64, v64 = y.double(), fval.double()
+    out = {}
+    for kid, kern, plain, p64 in (
+            ("B5", lambda: att.attraction_forces(y, y, fidx, fval, 4.0,
+                                                 ragged=rag),
+             lambda: att.attraction_forces_plain(y, y, fidx, fval, 4.0,
+                                                 ragged=rag),
+             lambda: att.attraction_forces_plain(y64, y64, fidx, v64, 4.0,
+                                                 ragged=rag64)),
+            ("B4", lambda: att.attraction_loss(y, y, fidx, fval, 1.0, z,
+                                               ragged=rag),
+             lambda: att.attraction_loss_plain(y, y, fidx, fval, 1.0, z,
+                                               ragged=rag),
+             lambda: att.attraction_loss_plain(y64, y64, fidx, v64, 1.0,
+                                               z.double(), ragged=rag64))):
+        ref = p64()
+        ek = float(torch.max(torch.abs(kern().double() - ref)))
+        ep = float(torch.max(torch.abs(plain().double() - ref)))
+        out[kid] = (ek, ep)
+        print(f"[{tag}] {kid} at the run's final y against float64: kernel "
+              f"max |err| {ek:.3e}, plain f32 {ep:.3e} (max |value| "
+              f"{float(torch.max(torch.abs(ref))):.3e})")
+        check(ek <= 2.0 * ep, f"[{tag}] {kid} less accurate than plain: "
+              f"{ek:.3e} vs {ep:.3e}")
+    return out
+
+
+def edge_problem(y, w, seed):
+    """An edge case of B5/B4's inputs over y's rows: a row block [N, w]
+    (30% padding) and a ragged part whose row 0 is a hub of 3,000 edges,
+    row 1 has none, the others 0-11, then 700 padding edges (value 0)
+    owned by the last row."""
+    import torch
+    from tsne_flink_tpu_torch.ops import attraction_cuda as att
+    n = y.shape[0]
+    rng = np.random.default_rng(seed)
+    jidx = torch.from_numpy(rng.integers(0, n, (n, w)).astype(
+        np.int32)).cuda()
+    v = (rng.random((n, w)) * 1e-3).astype(np.float32)
+    v[rng.random((n, w)) < 0.3] = 0.0
+    deg = rng.integers(0, 12, n)
+    deg[0], deg[1] = 3000, 0
+    e = int(deg.sum())
+    src = np.concatenate([np.repeat(np.arange(n), deg), np.full(700, n - 1)])
+    dst = np.concatenate([rng.integers(0, n, e), np.zeros(700, np.int64)])
+    val = np.concatenate([rng.random(e) * 1e-3, np.zeros(700)])
+    t = [torch.from_numpy(a).cuda() for a in (src.astype(np.int32),
+                                              dst.astype(np.int32),
+                                              val.astype(np.float32))]
+    return jidx, torch.from_numpy(v).cuda(), att.ragged_edges(*t, n)
+
+
 def phase_device():
     import torch
     name = torch.cuda.get_device_name(0)
@@ -313,19 +446,39 @@ def sass_check(lib_path):
     return found
 
 
+def kernel_name(mangled):
+    """'forces_kernel<8, 1, 0>' from a mangled kernel instance's name: its
+    name and the integer (and bool) template arguments in order."""
+    import re
+    names = re.findall(r"\d+([a-z_]+?_kernel)", mangled)
+    if not names:
+        return mangled
+    rest = mangled.split(names[-1], 1)[1].split("Ev")[0]
+    ints = re.findall(r"L[ib](\d+)E", rest)
+    return f"{names[-1]}<{', '.join(ints)}>"
+
+
 def phase_build():
     from tsne_flink_tpu_torch.kernels.build import build, library
     from tsne_flink_tpu_torch.ops.knn_cuda import knn_config
     res = build()
     print(f"[build] nvcc {res.seconds:.2f} s -> {os.path.relpath(res.path)}")
+    # one line a kernel instance: registers, spills, name<template ints>
+    fn, spill = "?", ""
     for line in res.log.splitlines():
-        if "ptxas info" in line or "spill" in line:
-            print("  " + line.strip())
+        if "Compiling entry function" in line:
+            fn = kernel_name(line.split("'")[1] if "'" in line else line)
+        elif "bytes spill stores" in line:
+            spill = line.strip()
+        elif "ptxas info    : Used" in line:
+            regs = line.split("Used ")[1].split(" registers")[0]
+            print(f"  {regs:>3} registers | {spill} | {fn}")
     library()
-    for k in (K, K_CELLS, 256):
-        stages, bufs, smem = knn_config(k)
-        print(f"[build] B1 at k={k}: {stages}-stage cp.async ring, {bufs} "
-              f"distance-tile buffer(s), {smem} B shared memory")
+    for k in (K, K_CELLS, 256, 300, 1024):
+        rows, stages, bufs, smem = knn_config(k)
+        print(f"[build] B1 at k={k}: {rows} rows a block, {stages}-stage "
+              f"cp.async ring, {bufs} distance-tile buffer(s), {smem} B "
+              f"shared memory")
     sass = sass_check(res.path)
     if sass is None:
         print("[build] cuobjdump not found: B1's SASS not inspected")
@@ -381,6 +534,52 @@ def b1_gates(tag, x_np, k):
     return err
 
 
+def b1_deep_gates(tag, x_np, k):
+    """B1's deep class (k > 256: 16 rows a block) on the card: its first
+    256 slots are bit for bit the k = 256 class's list (the same
+    distances, so the same precision as the classes the float64 bar
+    holds); against plain, distances rtol 1e-4 and neighbour sets >=
+    0.999; against the float64 graph, each kept neighbour within the
+    float64 k-th distance (rtol 1e-6, so near-ties count) for >= 0.999 of
+    the slots, and slot-wise agreement >= the plain FP32 version's own;
+    two launches bit-identical.  Returns the max |distance error|."""
+    import torch
+    from tsne_flink_tpu_torch.ops.knn_cuda import (_fused_final,
+                                                   knn_sweep_cuda,
+                                                   knn_sweep_plain)
+    from tsne_flink_tpu_torch.ops.metrics import pairwise
+    xs = torch.from_numpy(x_np).cuda()
+    raw = knn_sweep_cuda(xs, k, False)
+    again = knn_sweep_cuda(xs, k, False)
+    ik, dk = _fused_final(*raw, "sqeuclidean")
+    iw, dw = _fused_final(*knn_sweep_cuda(xs, 256, False), "sqeuclidean")
+    ip, dp = _fused_final(*knn_sweep_plain(xs, k, False), "sqeuclidean")
+    x64 = xs.double()
+    i64, d64 = _fused_final(*knn_sweep_plain(x64, k, False), "sqeuclidean")
+    dk64 = torch.cat([torch.gather(pairwise("sqeuclidean", x64[s:s + 1024],
+                                            x64), 1, ik[s:s + 1024].long())
+                      for s in range(0, xs.shape[0], 1024)])
+    within = float(torch.mean((dk64 <= d64[:, -1:] * (1 + 1e-6)).float()))
+    agree_k = float(torch.mean((ik == i64).float()))
+    agree_p = float(torch.mean((ip == i64).float()))
+    sets = set_agreement(ik, ip)
+    n, f = x_np.shape
+    print(f"[widths] B1 {tag} {n}x{f} k={k}: first 256 slots = the k=256 "
+          f"class's: {torch.equal(ik[:, :256], iw) and torch.equal(dk[:, :256], dw)}; "
+          f"within the float64 k-th {within:.6f}; slot-wise agreement with "
+          f"the float64 graph {agree_k:.6f} (plain FP32 {agree_p:.6f}); "
+          f"sets vs plain {sets:.6f}")
+    check(torch.equal(ik[:, :256], iw) and torch.equal(dk[:, :256], dw),
+          f"B1 {tag}: the deep class's first 256 slots differ from k=256's")
+    check(within >= 0.999, f"B1 {tag}: {within:.5f} within the float64 k-th")
+    check(agree_k >= agree_p, f"B1 {tag} agreement with float64 "
+          f"{agree_k:.5f} < plain's {agree_p:.5f}")
+    check(sets >= 0.999, f"B1 {tag} set agreement with plain {sets:.5f}")
+    check(torch.equal(raw[0], again[0]) and torch.equal(raw[1], again[1]),
+          f"B1 {tag}: two launches differ")
+    return rel_close(dk, dp, 1e-4, f"B1 {tag} distances")
+
+
 def b2_gates():
     """B2 against its plain version at 60,000 x 2 (rep, row Z and global Z
     within rtol 2e-5; two launches bit-identical), at m = 3, and on a
@@ -427,9 +626,12 @@ def phase_kernels(x_np, xl_np, xc_np):
     import torch
     from tsne_flink_tpu_torch.models.tsne import (TsneConfig, TsneState,
                                                   _plan_layout,
-                                                  _update_embedding)
+                                                  _update_embedding,
+                                                  _without_padding)
     from tsne_flink_tpu_torch.ops import attraction_cuda as att
-    from tsne_flink_tpu_torch.ops.affinities import affinity_blocks
+    from tsne_flink_tpu_torch.ops.affinities import (affinity_blocks,
+                                                     assemble_edges,
+                                                     edge_count)
     from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
     from tsne_flink_tpu_torch.ops.repulsion_exact import exact_repulsion
     from tsne_flink_tpu_torch.utils.artifacts import prepare
@@ -496,13 +698,62 @@ def phase_kernels(x_np, xl_np, xc_np):
     print(f"[kernels] CSR step fused (B3) vs unfused (B5 + tail + update): "
           f"gains equal, max |y/upd diff| {diff:.3e}, bits equal: {bits}")
 
+    # B5 and B4 over the real CSR head + tail, its tail alone (the fused
+    # step's tail), and one launch over both = the head's + the tail's
+    tail_rag = att.ragged_edges(*_without_padding(csr[2:]), N_FULL)
+    for tag, blk in (("CSR head + tail", (hidx, hval)),
+                     ("CSR tail alone (W = 0)", (None, None))):
+        e5, e4 = hold_pass(f"{N_FULL} x {tag}", y, *blk, tail_rag, z)
+        errs["B5"] = max(errs.get("B5", 0.0), e5)
+        errs["B4"] = max(errs["B4"], e4)
+    both = att.attraction_forces(y, y, hidx, hval, exag, ragged=tail_rag)
+    parts = (att.attraction_forces(y, y, hidx, hval, exag)
+             + att.attraction_forces(y, y, None, None, exag,
+                                     ragged=tail_rag))
+    check(torch.equal(both, parts), "B5 over head + tail is not the head's "
+          "launch + the tail's, bit for bit")
+    # the fused step as optimize runs it (B5's tail into B3) against the
+    # unfused one (B5 over head + tail, then the vdM update), tie-free
+    margin = torch.abs(both) + 1e-3 * torch.max(torch.abs(both))
+    repz_t = (both - sign * margin).contiguous()
+    tail_k = att.attraction_forces(y, y, None, None, exag, ragged=tail_rag)
+    fused = att.fused_step_update(y, y, hidx, hval, exag, tail_k, repz_t,
+                                  None, upd, gains, momentum, **kw)
+    unf = _update_embedding(TsneState(y, upd, gains), both - repz_t,
+                            momentum, TsneConfig(learning_rate=kw["eta"],
+                                                 min_gain=kw["min_gain"]))
+    check(torch.equal(fused[2], unf.gains),
+          "fused (B5 tail) vs unfused (B5 head + tail): gains differ")
+    diff = max(rel_close(fused[0], unf.y, 1e-4, "fused vs unfused y (tail)"),
+               rel_close(fused[1], unf.update, 1e-4,
+                         "fused vs unfused update (tail)"))
+    bits = (torch.equal(fused[0], unf.y)
+            and torch.equal(fused[1], unf.update))
+    print(f"[kernels] CSR step with the real tail, fused (B3 + B5's tail) vs "
+          f"unfused (B5 over head + tail + update): gains equal, max |y/upd "
+          f"diff| {diff:.3e}, bits equal: {bits}")
+
     # B5 and B4 at the three widths of the new paths
     prep_l = prepare(xl_np, neighbors=K, perplexity=PERPLEXITY)
     _, fwd_val, rev = affinity_blocks(prep.idx, prep.dist, PERPLEXITY)
     widths = {"latent-blobs rows": (prep_l.jidx, prep_l.jval),
               "blobs rows": (prep.jidx, prep.jval),
               "blobs blocks forward": (prep.idx, fwd_val)}
-    errs["B5"] = 0.0
+    # the blocks layout's whole pass, the flat edge list of the blobs' rows
+    # (the edges layout: no row block), and the edge problem
+    rev_rag = att.ragged_edges(*_without_padding(rev), N_FULL)
+    edges = assemble_edges(prep.jidx, prep.jval, edge_count(prep.jval))
+    edge_rag = att.ragged_edges(*_without_padding(edges), N_FULL)
+    eidx, eval_, erag = edge_problem(y, 90, 6)
+    for tag, blk, rag in (
+            ("blobs blocks (forward + reverse)", (prep.idx, fwd_val),
+             rev_rag),
+            ("blobs edges layout (W = 0)", (None, None), edge_rag),
+            ("edge problem (hub row, empty row, padding)", (eidx, eval_),
+             erag)):
+        e5, e4 = hold_pass(tag, y, *blk, rag, z)
+        errs["B5"] = max(errs["B5"], e5)
+        errs["B4"] = max(errs["B4"], e4)
     for name, (ji, jv) in widths.items():
         fk = att.attraction_forces(y, y, ji, jv, 4.0)
         fp = att.attraction_forces_plain(y, y, ji, jv, 4.0)
@@ -610,22 +861,19 @@ def quality(tag, y, losses, labels, cfg, min_agree):
     return float(lh[-1])
 
 
-def want_launches(b3, b5, b1=1, b2=None, b6=0, b4=None):
-    """Launches of one run; B2 and B4 default to every iteration and
-    every 10th."""
+def want_launches(b3, b1=1, b2=None, b6=0):
+    """Launches of one run: B2 every iteration unless given, B5 every
+    iteration (the whole attraction pass of the unfused step; the CSR
+    tail of the fused one), B4 every 10th (the KL over both parts), B3
+    every iteration of a fused CSR run (``b3``)."""
     return {"B1": b1, "B2": ITERATIONS if b2 is None else b2, "B3": b3,
-            "B4": ITERATIONS // 10 if b4 is None else b4, "B5": b5,
-            "B6": b6}
+            "B4": ITERATIONS // 10, "B5": ITERATIONS, "B6": b6}
 
 
 def layout_launches(layout, **kw):
     """The launches of a run whose attraction layout resolved to
-    ``layout``: B3 runs the CSR step, B5 the rows and blocks layouts' row
-    part, B4 every layout with a row part."""
-    it = ITERATIONS
-    return want_launches(b3=it if layout == "csr" else 0,
-                         b5=it if layout in ("rows", "blocks") else 0,
-                         b4=0 if layout == "edges" else it // 10, **kw)
+    ``layout``: B3 runs the CSR step, B5 and B4 every layout."""
+    return want_launches(b3=ITERATIONS if layout == "csr" else 0, **kw)
 
 
 def b6_launches(n, d, k, cycles):
@@ -691,12 +939,11 @@ def kernel_record(kid, name, src, repl, launches, err, times, bnd):
 
 
 def phase_full(x_np, labels, errs, csr):
-    """The CSR run; returns the records of B1-B4, its final KL, its final
+    """The CSR run; returns the records of B1-B3, its final KL, its final
     embedding, and B1's and B2's ms at its shapes."""
     import torch
     from tsne_flink_tpu_torch import TsneConfig
-    from tsne_flink_tpu_torch.models.tsne import (_edge_forces,
-                                                  _without_padding)
+    from tsne_flink_tpu_torch.models.tsne import _without_padding
     from tsne_flink_tpu_torch.ops import attraction_cuda as att
     from tsne_flink_tpu_torch.ops.knn_cuda import (knn_sweep_cuda,
                                                    knn_sweep_plain)
@@ -706,7 +953,7 @@ def phase_full(x_np, labels, errs, csr):
     cfg = TsneConfig(perplexity=PERPLEXITY, iterations=ITERATIONS,
                      repulsion="exact", attraction="csr")
     y, losses, stats, counts = run_embed("full", x_np, cfg,
-                                         want_launches(ITERATIONS, 0))
+                                         want_launches(ITERATIONS))
     check(stats["layout"] == "csr", f"[full] layout {stats['layout']}")
     final_kl = quality("full", y, losses, labels, cfg, 0.9)
 
@@ -717,7 +964,9 @@ def phase_full(x_np, labels, errs, csr):
     rep, zrow = cuda_exact_repulsion(y, row_z=True)
     z = torch.sum(zrow)
     repz = (rep / z).contiguous()
-    tail = _edge_forces(y, y, tsrc, tdst, tval, 1.0).contiguous()
+    # the tail as optimize runs it (without its padding), through B5
+    tail_rag = att.ragged_edges(*_without_padding((tsrc, tdst, tval)), n)
+    tail = att.attraction_forces(y, y, None, None, 1.0, ragged=tail_rag)
     upd, gains = torch.zeros_like(y), torch.ones_like(y)
     step = (y, y, hidx, hval, 1.0, tail, repz, None, upd, gains, 0.8)
     kw = dict(eta=cfg.learning_rate, min_gain=cfg.min_gain)
@@ -734,10 +983,14 @@ def phase_full(x_np, labels, errs, csr):
                cuda_ms(lambda: exact_repulsion(y, row_z=True), 3), None),
         "B3": (cuda_ms(lambda: att.fused_step_update(*step, **kw), 50),
                cuda_ms(lambda: att.fused_step_plain(*step, **kw), 5), None),
-        "B4": (cuda_ms(lambda: att.attraction_loss(y, y, hidx, hval, 1.0,
-                                                   z), 50),
-               cuda_ms(lambda: att.attraction_loss_plain(y, y, hidx, hval,
-                                                         1.0, z), 5), None),
+        "B4": (cuda_ms(lambda: att.attraction_loss(
+                   y, y, hidx, hval, 1.0, z, ragged=tail_rag), 50),
+               cuda_ms(lambda: att.attraction_loss_plain(
+                   y, y, hidx, hval, 1.0, z, ragged=tail_rag), 5), None),
+        "B5": (cuda_ms(lambda: att.attraction_forces(
+                   y, y, None, None, 1.0, ragged=tail_rag), 50),
+               cuda_ms(lambda: att.attraction_forces_plain(
+                   y, y, None, None, 1.0, ragged=tail_rag), 5), None),
     }
     nnz, head_bytes = head_need(hval)
     b1_tf32, b1_fp32 = b1_bounds(n, F_FULL, K)
@@ -745,36 +998,35 @@ def phase_full(x_np, labels, errs, csr):
           f"library (chunked matmul + topk) {spread(b1['library'])}; "
           f"bound {b1_tf32[0]:.4f} ms (3xTF32 on the tensor cores), "
           f"{b1_fp32[0]:.4f} ms (one FP32 pass outside them)")
+    e_tail = int(tail_rag.dst.shape[0])
+    tail_bytes = 8.0 * e_tail + 8.0 * (n + 1)
     bounds = {
         "B1": b1_tf32,
         "B2": bound(20.0 * n * n, n * m * 4 * 2 + n * 4),
         "B3": bound(20.0 * nnz, head_bytes + 8 * n * m * 4 + n * 4),
-        "B4": bound(25.0 * nnz, head_bytes + n * m * 4 + n * 4),
+        "B4": bound(25.0 * (nnz + e_tail),
+                    head_bytes + tail_bytes + n * m * 4 + n * 4),
+        "B5": bound(20.0 * e_tail, tail_bytes + 2 * n * m * 4),
     }
     kernels = []
-    for kid, (name, src, repl) in KERNEL_META.items():
-        if kid not in t:  # B5 and B6: from the runs that launch them
-            continue
-        ms, plain_ms, lib_ms = t[kid]
+    for kid, (ms, plain_ms, lib_ms) in t.items():
+        name, src, repl = KERNEL_META[kid]
         bms, by = bounds[kid]
-        print(f"[full] {kid} {name}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-              f"library {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, "
-              f"bound {bms:.4f} ms by {by}) x{counts[kid]} launches")
-        kernels.append(kernel_record(kid, name, src, repl, counts[kid],
-                                     errs[kid], t[kid], bounds[kid]))
-    # the rest of an iteration: the CSR tail's sorted segment sum (plain
-    # PyTorch) over the tail as optimize runs it (without its padding),
-    # then whatever is left of s/iter besides the kernels
-    tsrc, tdst, tval = _without_padding((tsrc, tdst, tval))
-    lengths = torch.bincount(tsrc.long(), minlength=n)
-    tail_ms = cuda_ms(lambda: _edge_forces(y, y, tsrc, tdst, tval, 1.0,
-                                           lengths), 20)
+        what = {"B4": " (head + tail)", "B5": " (the tail, W = 0)"}
+        print(f"[full] {kid} {name}{what.get(kid, '')}: {ms:.4f} ms (plain "
+              f"{plain_ms:.4f} ms, library "
+              f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
+              f"{bms:.4f} ms by {by}) x{counts[kid]} launches")
+        if kid in ("B1", "B2", "B3"):  # B4-B6: from the large run
+            kernels.append(kernel_record(kid, name, src, repl, counts[kid],
+                                         errs[kid], t[kid], bounds[kid]))
     it_ms = stats["optimize"] / ITERATIONS * 1e3
-    rest = it_ms - t["B2"][0] - t["B3"][0] - t["B4"][0] / 10 - tail_ms
+    rest = (it_ms - t["B2"][0] - t["B3"][0] - t["B4"][0] / 10
+            - t["B5"][0])
     print(f"[full] per iteration {it_ms:.4f} ms: B2 {t['B2'][0]:.4f}, B3 "
-          f"{t['B3'][0]:.4f}, B4/10 {t['B4'][0] / 10:.4f}, tail forces "
-          f"{tail_ms:.4f} ({int((tval > 0).sum())} edges), the rest "
-          f"{rest:.4f} (by difference)")
+          f"{t['B3'][0]:.4f}, B5 (tail, {e_tail} edges) {t['B5'][0]:.4f}, "
+          f"B4/10 {t['B4'][0] / 10:.4f}, the rest {rest:.4f} (by "
+          f"difference)")
     return kernels, final_kl, y, t["B1"][0], t["B2"][0]
 
 
@@ -797,9 +1049,71 @@ def b5_times(y, jidx, jval):
                     50))
 
 
+def pass_times(tag, y, fidx, fval, rev):
+    """The blocks layout's attraction pass at a run's shapes, each call
+    timed after an L2 flush (median of 10): one launch of B5 and of B4
+    over the forward block and the reverse edges (without their padding,
+    as optimize runs them), beside the old pair — B5 over the forward
+    block + the reverse edges' sorted segment sum, B4 + their KL — and the
+    plain versions.  Bounds: the bytes of the pass (each slot's value,
+    each valid slot's index, 8 bytes an edge and a row pointer, the [N, m]
+    planes) at the HBM rate; beside them the L2 sectors its gathers touch
+    (32 B a gathered neighbour row).  Returns ({kid: (ms, plain ms,
+    None)}, {kid: bound})."""
+    import torch
+    from tsne_flink_tpu_torch.models.tsne import _without_padding
+    from tsne_flink_tpu_torch.ops import attraction_cuda as att
+    n, m = y.shape
+    rsrc, rdst, rval = _without_padding(rev)
+    rag = att.ragged_edges(rsrc, rdst, rval, n)
+    lengths = torch.diff(rag.rowptr)
+    z = torch.tensor(float(n) * n, device=y.device)
+    fns = {
+        "B5": lambda: att.attraction_forces(y, y, fidx, fval, 1.0,
+                                            ragged=rag),
+        "B4": lambda: att.attraction_loss(y, y, fidx, fval, 1.0, z,
+                                          ragged=rag),
+        "B5 forward": lambda: att.attraction_forces(y, y, fidx, fval, 1.0),
+        "segment sum": lambda: att.edge_forces_plain(y, y, rsrc, rdst, rval,
+                                                     1.0, lengths),
+        "B4 forward": lambda: att.attraction_loss(y, y, fidx, fval, 1.0, z),
+        "edge loss": lambda: att.edge_loss_plain(y, y, rsrc, rdst, rval, 1.0,
+                                                 z, lengths),
+    }
+    t = {name: flushed_ms(fn)[0] for name, fn in fns.items()}
+    plain5 = cuda_ms(lambda: att.attraction_forces_plain(
+        y, y, fidx, fval, 1.0, ragged=rag), 3)
+    plain4 = cuda_ms(lambda: att.attraction_loss_plain(
+        y, y, fidx, fval, 1.0, z, ragged=rag), 3)
+    nnz, fwd_bytes = head_need(fval)
+    e = int(rval.shape[0])
+    rev_bytes = 8.0 * e + 8.0 * (n + 1)
+    bounds = {"B5": bound(20.0 * (nnz + e),
+                          fwd_bytes + rev_bytes + 2 * n * m * 4),
+              "B4": bound(25.0 * (nnz + e),
+                          fwd_bytes + rev_bytes + n * m * 4 + n * 4)}
+    old5 = t["B5 forward"] + t["segment sum"]
+    old4 = t["B4 forward"] + t["edge loss"]
+    print(f"[{tag}] attraction pass over W={fidx.shape[1]} ({nnz} entries) "
+          f"+ {e} reverse edges, each call after an L2 flush (medians of "
+          f"10): B5 one launch {t['B5']:.4f} ms vs B5 forward "
+          f"{t['B5 forward']:.4f} + reverse segment sum "
+          f"{t['segment sum']:.4f} = {old5:.4f} ms; B4 one launch "
+          f"{t['B4']:.4f} ms vs B4 forward {t['B4 forward']:.4f} + reverse "
+          f"edge loss {t['edge loss']:.4f} = {old4:.4f} ms")
+    print(f"[{tag}] the pass's bound: B5 {bounds['B5'][0]:.4f} ms, B4 "
+          f"{bounds['B4'][0]:.4f} ms (bytes: {fwd_bytes / 1e9:.4f} GB of "
+          f"slots + {rev_bytes / 1e9:.4f} GB of edges); its gathers touch "
+          f"{(nnz + e) / 1e6:.2f}M L2 sectors ({32.0 * (nnz + e) / 1e9:.3f} "
+          f"GB at 32 B each); plain B5 {plain5:.4f} ms, plain B4 "
+          f"{plain4:.4f} ms")
+    return ({"B5": (t["B5"], plain5, None), "B4": (t["B4"], plain4, None)},
+            bounds)
+
+
 def phase_rows(xl_np, labels, z_latent, rows, errs):
     """The default configuration on the latent blobs: auto must take the
-    rows layout.  Returns B5's record, at this run's shapes."""
+    rows layout; B5 and B4 timed at its [N, S] rows."""
     import torch
     from tsne_flink_tpu_torch import TsneConfig
     from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
@@ -808,7 +1122,7 @@ def phase_rows(xl_np, labels, z_latent, rows, errs):
     agree_z = label_agreement(torch.from_numpy(z_latent).cuda(), labels)
     print(f"[rows] the 3-D latent's own 10-NN label agreement {agree_z:.4f}")
     y, losses, stats, counts = run_embed("rows", xl_np, cfg,
-                                         want_launches(0, ITERATIONS))
+                                         want_launches(0))
     check(stats["layout"] == "rows",
           f"[rows] auto resolved to {stats['layout']}, not rows")
     quality("rows", y, losses, labels, cfg, agree_z - 0.05)
@@ -825,25 +1139,21 @@ def phase_rows(xl_np, labels, z_latent, rows, errs):
           f"{b4:.4f} ms")
     print(f"[rows] per iteration {it_ms:.4f} ms: B2 {b2:.4f}, B5 {ms:.4f}, "
           f"B4/10 {b4 / 10:.4f}, the rest {rest:.4f} (by difference)")
-    name, src, repl = KERNEL_META["B5"]
-    return kernel_record("B5", name, src, repl, counts["B5"], errs["B5"],
-                         (ms, plain_ms, None), (bms, by))
 
 
 def phase_blocks(x_np, labels, blocks, csr_kl):
-    """The blocks assembly on the blobs: the CSR run's checks, and its
-    final KL within KL_GUARDRAIL_TOL of the CSR run's."""
+    """The blocks assembly on the blobs: the CSR run's checks, its final KL
+    within KL_GUARDRAIL_TOL of the CSR run's, and its attraction pass
+    timed as ``pass_times`` says."""
     import torch
     from tsne_flink_tpu_torch import TsneConfig
-    from tsne_flink_tpu_torch.models.tsne import (_edge_forces,
-                                                  _without_padding)
     from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
 
     cfg = TsneConfig(perplexity=PERPLEXITY, iterations=ITERATIONS,
                      repulsion="exact")
-    y, losses, stats, _ = run_embed("blocks", x_np, cfg,
-                                    want_launches(0, ITERATIONS),
-                                    affinity_assembly="blocks")
+    y, losses, stats, counts = run_embed("blocks", x_np, cfg,
+                                         want_launches(0),
+                                         affinity_assembly="blocks")
     check(stats["layout"] == "blocks", f"[blocks] layout {stats['layout']}")
     kl = quality("blocks", y, losses, labels, cfg, 0.9)
     print(f"[blocks] final KL {kl:.6f} vs the CSR run's {csr_kl:.6f}: gap "
@@ -851,23 +1161,13 @@ def phase_blocks(x_np, labels, blocks, csr_kl):
     check(abs(kl - csr_kl) <= KL_GUARDRAIL_TOL,
           f"[blocks] final KL {kl} vs CSR {csr_kl}")
     fidx, fval, rev = blocks
-    n, w = fidx.shape
     b2 = cuda_ms(lambda: cuda_exact_repulsion(y, row_z=True), 20)
-    ms, plain_ms, bms, by, b4 = b5_times(y, fidx, fval)
-    # the reverse edges as optimize runs them: without their padding
-    rsrc, rdst, rval = _without_padding(rev)
-    lengths = torch.bincount(rsrc.long(), minlength=n)
-    rev_ms = cuda_ms(lambda: _edge_forces(y, y, rsrc, rdst, rval, 1.0,
-                                          lengths), 20)
+    t, _ = pass_times("blocks", y, fidx, fval, rev)
     it_ms = stats["optimize"] / ITERATIONS * 1e3
-    rest = it_ms - b2 - ms - b4 / 10 - rev_ms
-    print(f"[blocks] forward block W={w}, {rval.shape[0]} reverse edges "
-          f"(of {rev[2].shape[0]} slots)")
-    print(f"[blocks] B5 at W={w}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-          f"bound {bms:.4f} ms by {by}); B4 {b4:.4f} ms")
-    print(f"[blocks] per iteration {it_ms:.4f} ms: B2 {b2:.4f}, B5 "
-          f"{ms:.4f}, B4/10 {b4 / 10:.4f}, reverse-edge segment sum "
-          f"{rev_ms:.4f}, the rest {rest:.4f} (by difference)")
+    b5, b4 = t["B5"][0], t["B4"][0]
+    print(f"[blocks] per iteration {it_ms:.4f} ms: B2 {b2:.4f}, B5 {b5:.4f} "
+          f"x{counts['B5']}, B4/10 {b4 / 10:.4f}, the rest "
+          f"{it_ms - b2 - b5 - b4 / 10:.4f} (by difference)")
 
 
 class _Captured(Exception):
@@ -1133,6 +1433,127 @@ def phase_b6(x_np, xc_np):
     return err, shapes
 
 
+def phase_widths(x_np, xc_np):
+    """The kernels at the limits they were widened to, against their plain
+    versions on the card: B2-B5 at m = 1, 4 and 8 (B5/B4 over a row block
+    and a ragged part with a hub row, an empty row and padding; B3's gains
+    exactly equal on tie-free inputs), B1 at k = 300 and K_DEEP on a cut
+    of the blobs, B6 at K_B6_DEEP on refine chunks captured from cuts of
+    the blobs and the cells (and at K_DEEP on the cells); then
+    ``tsne_embed`` at n_components 1, 4, 8 and at k = K_DEEP on the
+    bruteforce and project paths, and the limits left refused before the
+    kNN stage.  Returns each kernel's max error."""
+    import torch
+    from tsne_flink_tpu_torch import TsneConfig, tsne_embed
+    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
+    from tsne_flink_tpu_torch.ops import attraction_cuda as att
+    from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
+    from tsne_flink_tpu_torch.ops.repulsion_exact import exact_repulsion
+
+    errs = {kid: 0.0 for kid in KERNEL_META}
+    rng = np.random.default_rng(8)
+    for m in (1, 4, 8):
+        y = torch.from_numpy((10.0 * rng.standard_normal(
+            (N_WIDTHS, m))).astype(np.float32)).cuda()
+        rk, zk = cuda_exact_repulsion(y, row_z=True)
+        rp, zp = exact_repulsion(y, row_z=True)
+        e2 = max(rel_close(rk, rp, 2e-5, f"B2 m={m} rep"),
+                 rel_close(zk, zp, 2e-5, f"B2 m={m} row Z"))
+        again = cuda_exact_repulsion(y, row_z=True)
+        check(torch.equal(again[0], rk) and torch.equal(again[1], zk),
+              f"B2 m={m}: two launches differ")
+        jidx, jval, rag = edge_problem(y, 64, m)
+        e5, e4 = hold_pass(f"m={m}", y, jidx, jval, rag, torch.sum(zp))
+        # B3 on tie-free inputs: every grad sits at ±(|att| + a margin)
+        forces = att.attraction_forces(y, y, jidx, jval, 4.0)
+        sign = torch.from_numpy(rng.choice([-1.0, 1.0], y.shape).astype(
+            np.float32)).cuda()
+        tail = att.attraction_forces(y, y, None, None, 4.0, ragged=rag)
+        margin = torch.abs(forces + tail) + 1e-3 * torch.max(
+            torch.abs(forces + tail))
+        repz = ((forces + tail) - sign * margin).contiguous()
+        upd = (1e-2 * torch.randn(y.shape, device="cuda")).contiguous()
+        gains = (1.0 + torch.rand(y.shape, device="cuda")).contiguous()
+        args = (y, y, jidx, jval, 4.0, tail, repz, None, upd, gains, 0.8)
+        kw = dict(eta=200.0, min_gain=0.01)
+        out_k = att.fused_step_update(*args, **kw)
+        out_p = att.fused_step_plain(*args, **kw)
+        check(torch.equal(out_k[2], out_p[2]), f"B3 m={m}: gains differ")
+        e3 = max(rel_close(out_k[0], out_p[0], 1e-4, f"B3 m={m} y"),
+                 rel_close(out_k[1], out_p[1], 1e-4, f"B3 m={m} update"))
+        for kid, e in (("B2", e2), ("B3", e3), ("B4", e4), ("B5", e5)):
+            errs[kid] = max(errs[kid], e)
+        print(f"[widths] m={m} on {N_WIDTHS} rows: B2 max err {e2:.3e}, B3 "
+              f"gains equal and max |y/upd err| {e3:.3e}, B5/B4 as above")
+    for k in (300, K_DEEP):
+        errs["B1"] = max(errs["B1"], b1_deep_gates(f"blobs k={k}",
+                                                   x_np[:N_B1_CHECK], k))
+    for tag, data, k in (("blobs", x_np, K_B6_DEEP),
+                         ("cells", xc_np, K_B6_DEEP),
+                         ("cells", xc_np, K_DEEP)):
+        x = torch.from_numpy(data[:N_REFINE_DEEP]).cuda()
+        (chunk,) = capture_refine_chunks(x, k, 1)
+        for kind, args, kwargs in chunk:
+            rows, base, _ = stage_rows(kind, args)
+            name = (f"{tag} k={k} {'keep' if kind == 'keep' else 'exact'} "
+                    f"stage F={base.shape[1]}")
+            e, sets = hold_stage(name, kind, args, kwargs)
+            errs["B6"] = max(errs["B6"], e)
+            print(f"[widths] B6 {name} c={rows.shape[0]}: max err {e:.3e}, "
+                  f"sets {sets:.6f}; two launches bit-identical")
+        del x, chunk
+    # tsne_embed at the new widths and k, on the card
+    cfg = TsneConfig(perplexity=PERPLEXITY, iterations=ITER_WIDTHS)
+    for m in (1, 4, 8):
+        reset_launches()
+        y, losses = tsne_embed(x_np[:N_WIDTHS], TsneConfig(
+            n_components=m, perplexity=PERPLEXITY, iterations=ITER_WIDTHS),
+            neighbors=K, seed=0)
+        counts = launches()
+        check(tuple(y.shape) == (N_WIDTHS, m)
+              and bool(torch.isfinite(y).all())
+              and bool(torch.isfinite(losses).all()),
+              f"[widths] tsne_embed n_components={m}: bad output")
+        check(counts["B2"] == ITER_WIDTHS and counts["B5"] == ITER_WIDTHS,
+              f"[widths] tsne_embed n_components={m} launches {counts}")
+        print(f"[widths] tsne_embed n_components={m}: {N_WIDTHS} x {m}, "
+              f"finite; final KL {float(losses[-1]):.5f}; launches "
+              f"{json.dumps(counts)}")
+    for method in ("bruteforce", "project"):
+        reset_launches()
+        t0 = time.perf_counter()
+        # two refine cycles: the auto plan's at this N
+        y, losses = tsne_embed(x_np[:N_EMBED_DEEP], dataclasses.replace(
+            cfg, perplexity=K_DEEP / 3.0), neighbors=K_DEEP, seed=0,
+            knn_method=method, knn_refine=2 if method == "project" else None)
+        torch.cuda.synchronize()
+        counts = launches()
+        want = "B1" if method == "bruteforce" else "B6"
+        check(bool(torch.isfinite(y).all())
+              and bool(torch.isfinite(losses).all()) and counts[want] > 0,
+              f"[widths] tsne_embed k={K_DEEP} {method}: {counts}")
+        print(f"[widths] tsne_embed {N_EMBED_DEEP} x {x_np.shape[1]} k="
+              f"{K_DEEP} {method}: {time.perf_counter() - t0:.2f} s, finite; "
+              f"final KL {float(losses[-1]):.5f}; launches "
+              f"{json.dumps(counts)}")
+    # the limits left raise before the kNN stage: no kernel launches
+    for what, call in (
+            (f"k = {K_DEEP + 1}", lambda: tsne_embed(
+                x_np[:N_EMBED_DEEP], cfg, neighbors=K_DEEP + 1)),
+            ("n_components = 9", lambda: tsne_embed(
+                x_np[:N_WIDTHS], dataclasses.replace(cfg, n_components=9)))):
+        reset_launches()
+        try:
+            call()
+        except ValueError as e:
+            check(not any(launches().values()),
+                  f"[widths] {what}: kernels ran before the refusal")
+            print(f"[widths] {what} refused before the kNN stage: {e}")
+        else:
+            raise SmokeFailure(f"[widths] {what} was not refused")
+    return errs
+
+
 def fft_split(y, cfg):
     """CUDA-event ms of one FFT repulsion call on ``y`` and its parts:
     (spread = stencil + sorted segment sum, the FFTs with the spectral Z,
@@ -1221,11 +1642,12 @@ def auto_crossover(d, eff_exact, eff_hybrid, k=K):
 
 def phase_large(xc_np, labels, z_latent, y_60k, b2_ms_60k, b6_chunk_ms):
     """The 1.3M-cell shape with the hybrid kNN and FFT repulsion.  Returns
-    the run's B6 launches."""
+    the run's launches, and B4's and B5's times, bounds and errors on its
+    attraction pass."""
     import torch
     from tsne_flink_tpu_torch import TsneConfig
-    from tsne_flink_tpu_torch.models.tsne import (_edge_forces,
-                                                  _without_padding)
+    from tsne_flink_tpu_torch.models.tsne import _without_padding
+    from tsne_flink_tpu_torch.ops import attraction_cuda as att
     from tsne_flink_tpu_torch.ops.affinities import affinity_blocks
     from tsne_flink_tpu_torch.ops.knn import pick_knn_refine, pick_knn_rounds
     from tsne_flink_tpu_torch.ops.knn_cuda import knn_sweep_cuda
@@ -1257,16 +1679,17 @@ def phase_large(xc_np, labels, z_latent, y_60k, b2_ms_60k, b6_chunk_ms):
           f"graph {t_b1:.3f} s; recall@{K_CELLS} {recall:.4f} (bar 0.90)")
     check(recall >= 0.90, f"[large] recall {recall} < 0.90")
     refine_split("large", stats, counts["B6"], b6_chunk_ms)
-    # the blocks layout the run optimized: B5 over the forward block and
-    # the reverse edges' segment sum, as in [blocks]
+    # the blocks layout the run optimized: its attraction pass held and
+    # timed as in [blocks]
     _, fwd_val, rev = affinity_blocks(graph[0], graph[1], PERPLEXITY_CELLS)
-    b5 = b5_times(y, graph[0], fwd_val)
-    rsrc, rdst, rval = _without_padding(rev)
-    lengths = torch.bincount(rsrc.long(), minlength=n)
-    rev_ms = cuda_ms(lambda: _edge_forces(y, y, rsrc, rdst, rval, 1.0,
-                                          lengths), 20)
-    rval_n = int(rval.shape[0])
-    del graph[:], fwd_val, rev, rsrc, rdst, rval, lengths
+    rag = att.ragged_edges(*_without_padding(rev), n)
+    z = torch.tensor(float(n) * n, device=y.device)
+    errs = hold_pass(f"large {n} x W={K_CELLS} + reverse", embedding_like(
+        n, 1), graph[0], fwd_val, rag, z)
+    against_f64("large", y, graph[0], fwd_val, rag, z)
+    del rag
+    times, bounds = pass_times("large", y, graph[0], fwd_val, rev)
+    del graph[:], fwd_val, rev
     # B1 at this shape, warm (the graph above was its first launch)
     b1_ms = [cuda_ms(lambda: knn_sweep_cuda(x, K_CELLS, False), 1, 0)
              for _ in range(3)]
@@ -1292,23 +1715,21 @@ def phase_large(xc_np, labels, z_latent, y_60k, b2_ms_60k, b6_chunk_ms):
           f"{sp:.4f}, FFTs {ff:.4f}, gather {ga:.4f}); at N={N_FULL} "
           f"{whole6:.4f} ms (spread {sp6:.4f}, FFTs {ff6:.4f}, gather "
           f"{ga6:.4f}); per iteration {it_ms:.4f} ms")
-    ms, plain_ms, bms, by, b4 = b5
-    print(f"[large] B5 at W={K_CELLS} over {n} rows: {ms:.4f} ms (plain "
-          f"{plain_ms:.4f} ms, bound {bms:.4f} ms by {by}) x{counts['B5']} "
-          f"launches; B4 {b4:.4f} ms")
+    b5, b4 = times["B5"][0], times["B4"][0]
     print(f"[large] per iteration {it_ms:.4f} ms: FFT repulsion {whole:.4f}, "
-          f"B5 {ms:.4f}, B4/10 {b4 / 10:.4f}, reverse-edge segment sum "
-          f"{rev_ms:.4f} ({rval_n} edges), the rest "
-          f"{it_ms - whole - ms - b4 / 10 - rev_ms:.4f} (by difference)")
+          f"B5 (forward + reverse) {b5:.4f} x{counts['B5']}, B4/10 "
+          f"{b4 / 10:.4f}, the rest {it_ms - whole - b5 - b4 / 10:.4f} (by "
+          f"difference)")
     # B2 grows as N², the FFT as c0 + c1·N: the N where they cross
     a = b2_ms_60k / N_FULL ** 2
     c1 = (whole - whole6) / (n - N_FULL)
     c0 = whole6 - c1 * N_FULL
     cross = (c1 + math.sqrt(c1 * c1 + 4 * a * c0)) / (2 * a)
+    b2_bound = bound(20.0 * n * n, n * 2 * 4 * 2 + n * 4)
     print(f"[large] B2 exact repulsion: {b2_ms_60k:.4f} ms at N={N_FULL}, "
-          f"{b2_large:.4f} ms at N={n}; exact/FFT crossover at N ~ "
-          f"{cross:.0f}")
-    return counts["B6"]
+          f"{b2_large:.4f} ms at N={n} (bound {b2_bound[0]:.4f} ms by "
+          f"{b2_bound[1]}); exact/FFT crossover at N ~ {cross:.0f}")
+    return counts, times, bounds, errs
 
 
 def phase_determinism(x_np, xl_np):
@@ -1364,16 +1785,23 @@ def main() -> int:
         xc_np, labels_c, z_cells = make_cells()
         errs, csr, rows, blocks = phase_kernels(x_np, xl_np, xc_np)
         errs["B6"], b6_shapes = phase_b6(x_np, xc_np)
+        for kid, e in phase_widths(x_np, xc_np).items():
+            errs[kid] = max(errs[kid], e)
         kernels, csr_kl, y_60k, b1_ms, b2_ms = phase_full(x_np, labels,
                                                           errs, csr)
-        kernels.append(phase_rows(xl_np, labels_l, z_latent, rows, errs))
+        phase_rows(xl_np, labels_l, z_latent, rows, errs)
         phase_blocks(x_np, labels, blocks, csr_kl)
         phase_project(x_np, labels, b1_ms, b6_shapes)
         (times, bnd, _), = [v for key, v in b6_shapes.items()
                             if key[0] == "cells"]
-        b6_count = phase_large(xc_np, labels_c, z_cells, y_60k, b2_ms,
-                               times[0])
-        kernels.append(kernel_record("B6", *KERNEL_META["B6"], b6_count,
+        counts, pass_t, pass_b, (e5, e4) = phase_large(
+            xc_np, labels_c, z_cells, y_60k, b2_ms, times[0])
+        errs["B5"], errs["B4"] = max(errs["B5"], e5), max(errs["B4"], e4)
+        for kid in ("B4", "B5"):
+            kernels.append(kernel_record(kid, *KERNEL_META[kid], counts[kid],
+                                         errs[kid], pass_t[kid],
+                                         pass_b[kid]))
+        kernels.append(kernel_record("B6", *KERNEL_META["B6"], counts["B6"],
                                      errs["B6"], times, bnd))
         phase_determinism(x_np, xl_np)
     except SmokeFailure as e:

@@ -9,13 +9,18 @@ JAX, so the card's machine runs them without the JAX test harness:
 
 The main-path shapes are checked by chip_smoke.py; these cover the edges:
 tiny and ragged N, k = N - 1, exact ties, every metric, B1 at the large
-run's width (F = 50 padded to 64, k = 150) and at k = K_MAX against the
-float64 graph, m = 3, row shards with validity masks, B2 below one tile
+run's width (F = 50 padded to 64, k = 150), at k = 256, 300 and K_MAX =
+1,024 (its deep class) against the float64 graph, every embedding width
+m = 1 .. 8 in B2-B5, row shards with validity masks, B2 below one tile
 and at ragged N, two launches bit-identical, B5 from one slot to wide
-rows, B5 as the fused step's head, B6's fused refine stages at every
-width class (exact ties bit-equal to the plain stages; rows with fewer
-candidates than a stage keeps), the kNN methods launching B1 and B6 on
-CUDA tensors, FFT repulsion on the card, and launch counting.
+rows, B5 and B4 over a row block and a ragged edge part (a hub row, a
+row with no edges, the last row owning padding; no row block at all),
+B5 as the fused step's head and as its tail, the optimize loop on every
+layout without a segment sum, B6's fused refine stages at every width
+class and at k = 600 and 1,024 (exact ties bit-equal to the plain
+stages; rows with fewer candidates than a stage keeps), the kNN methods
+launching B1 and B6 on CUDA tensors, FFT repulsion on the card, the
+wrappers refusing what the kernels do not take, and launch counting.
 """
 
 import numpy as np
@@ -127,7 +132,9 @@ def _b1_gates(x, k, metric):
 
 @pytest.mark.parametrize("data,n,f,k,metric", [
     ("cells", 6000, 50, 150, "sqeuclidean"),    # the large run's width
-    ("blobs", 3000, 784, K_MAX, "sqeuclidean"),  # the 1-buffer class
+    ("blobs", 3000, 784, 256, "sqeuclidean"),   # the 1-buffer class
+    ("cells", 4000, 50, 300, "sqeuclidean"),    # the deep class
+    ("blobs", 3000, 784, K_MAX, "sqeuclidean"),  # the deep class's top
     ("blobs", 2500, 784, 140, "euclidean"),      # the 2-stage class
     ("blobs", 2000, 784, 90, "cosine"),
     ("blobs", 1111, 100, 33, "sqeuclidean"),     # N, F off every tile edge
@@ -153,21 +160,32 @@ def test_knn_distances_are_the_three_pass_split_products(dev):
 
 
 def test_knn_configs_fit_and_launches_repeat_bitwise(dev):
-    """Each k class's (stages, buffers) fit the block's shared memory, and
-    two launches give the same bits."""
+    """Each k class's (rows, stages, buffers) fit the block's shared
+    memory, and two launches give the same bits, in every class."""
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     configs = {k: knn_config(k) for k in (1, 90, 128, 129, 150, 160, 161,
-                                          K_MAX)}
-    assert configs[90][:2] == (3, 2) and configs[150][:2] == (2, 2)
-    assert configs[K_MAX][:2] == (2, 1)
-    assert all(smem <= limit for _, _, smem in configs.values())
+                                          256, 257, 600, K_MAX)}
+    assert configs[90][:3] == (64, 3, 2) and configs[150][:3] == (64, 2, 2)
+    assert configs[256][:3] == (64, 2, 1)
+    assert configs[257][:3] == (16, 3, 2) and configs[K_MAX][:3] == (16, 3, 2)
+    assert all(smem <= limit for *_, smem in configs.values())
     x = torch.from_numpy(_blobs(1500, 784, 1)).to(dev)
-    a = knn_sweep_cuda(x, 90, False)
-    b = knn_sweep_cuda(x, 90, False)
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    for k in (90, 700):
+        a = knn_sweep_cuda(x, k, False)
+        b = knn_sweep_cuda(x, k, False)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
-@pytest.mark.parametrize("n,m", [(97, 2), (530, 2), (257, 3)])
+def test_knn_refuses_k_past_its_deep_class(dev):
+    x = torch.from_numpy(_blobs(1500, 64, 1)).to(dev)
+    before = KERNELS["B1"].launches
+    with pytest.raises(ValueError, match="B1"):
+        knn_sweep_cuda(x, K_MAX + 1, False)
+    assert KERNELS["B1"].launches == before
+
+
+@pytest.mark.parametrize("n,m", [(97, 2), (530, 2), (257, 3), (97, 1),
+                                 (530, 4), (257, 5), (300, 8)])
 def test_repulsion_matches_plain(dev, n, m):
     rng = np.random.default_rng(0)
     y = torch.from_numpy((rng.standard_normal((n, m)) * 3).astype(
@@ -203,7 +221,8 @@ def _close_scaled(a, b, rtol=2e-5):
 
 
 @pytest.mark.parametrize("n,m", [(100, 2), (100, 3), (3001, 2),
-                                 (20_011, 3), (20_011, 2)])
+                                 (20_011, 3), (20_011, 2), (3001, 1),
+                                 (20_011, 4), (3001, 7), (20_011, 8)])
 def test_repulsion_below_a_tile_and_ragged(dev, n, m):
     """N below one 512-row block; N off every multiple of the block's
     rows and of the column splits (20,011 rows take S > 1)."""
@@ -239,7 +258,7 @@ def test_repulsion_shards_validity_and_bitwise_repeat(dev):
         assert torch.equal(again[0], rk) and torch.equal(again[1], zk)
 
 
-@pytest.mark.parametrize("m", [2, 3])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 6, 8])
 def test_fused_step_and_loss_match_plain(dev, m):
     rng = np.random.default_rng(m)
     n, w = 300, 40
@@ -287,7 +306,7 @@ def _rows(dev, n, w, m, seed):
     return y, jidx, t(jval)
 
 
-@pytest.mark.parametrize("m", [2, 3])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("w", [1, 40, 3466])
 def test_forces_match_plain_at_any_width(dev, m, w):
     """B5 takes every width: one slot, a CSR-head width, and the width of
@@ -333,17 +352,179 @@ def test_forces_are_the_fused_steps_head(dev):
 
 def test_forces_wrapper_refuses_what_b5_does_not_take(dev):
     y, jidx, jval = _rows(dev, 50, 8, 2, 0)
+    _, _, _, rag = _ragged_problem(dev, 50, 8, 2, 0)
     before = KERNELS["B5"].launches
     att.attraction_forces(y, y, jidx, jval, 1.0)
     att.attraction_forces(y.cpu(), y.cpu(), jidx.cpu(), jval.cpu(), 1.0)
     assert KERNELS["B5"].launches == before + 1
+    y9 = torch.zeros((50, 9), device=dev)
     for bad in (dict(y_local=y.double(), y_full=y.double()),
-                dict(jidx=jidx.long()), dict(jval=jval[:, :4])):
+                dict(jidx=jidx.long()), dict(jval=jval[:, :4]),
+                dict(y_local=y9, y_full=y9),
+                dict(ragged=rag._replace(rowptr=rag.rowptr.int())),
+                dict(ragged=rag._replace(dst=rag.dst.long())),
+                dict(ragged=rag._replace(rowptr=rag.rowptr[:-1]))):
         kw = dict(y_local=y, y_full=y, jidx=jidx, jval=jval, exag=1.0)
         kw.update(bad)
         with pytest.raises(ValueError, match="B5"):
             att.attraction_forces(**kw)
+    with pytest.raises(ValueError, match="B4"):
+        att.attraction_loss(y9, y9, jidx, jval, 1.0, 1.0)
+    with pytest.raises(ValueError, match="B3"):
+        att.fused_step_update(y9, y9, jidx, jval, 1.0, y9, y9, None, y9, y9,
+                              0.5, eta=1.0, min_gain=0.01)
+    with pytest.raises(ValueError, match="B2"):
+        cuda_exact_repulsion(y9)
     assert KERNELS["B5"].launches == before + 1
+
+
+def _ragged_problem(dev, n, w, m, seed):
+    """y [n, m], a row block [n, w] (30% padding; None when w = 0) and a
+    src-sorted edge list in its Ragged form: row 0 a hub of 3,000 edges,
+    row 1 with none, the others 0-11, then 700 padding edges (value 0)
+    owned by the last row."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dtype=np.float32):
+        return torch.from_numpy(np.asarray(a, dtype)).to(dev)
+
+    y = t(rng.standard_normal((n, m)) * 3)
+    jidx = jval = None
+    if w:
+        jidx = t(rng.integers(0, n, (n, w)), np.int32)
+        v = rng.random((n, w)) * 1e-3
+        v[rng.random((n, w)) < 0.3] = 0.0
+        jval = t(v)
+    deg = rng.integers(0, 12, n)
+    deg[0], deg[1] = 3000, 0
+    src = np.concatenate([np.repeat(np.arange(n), deg), np.full(700, n - 1)])
+    dst = np.concatenate([rng.integers(0, n, int(deg.sum())),
+                          np.zeros(700, np.int64)])
+    val = np.concatenate([rng.random(int(deg.sum())) * 1e-3, np.zeros(700)])
+    rag = att.ragged_edges(t(src, np.int32), t(dst, np.int32), t(val), n)
+    return y, jidx, jval, rag
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("w", [0, 90, 150])
+def test_forces_and_loss_with_a_ragged_part_match_plain(dev, m, w):
+    """B5 and B4 over a row block and a ragged edge part in one launch
+    (the blocks layout, a CSR head + tail) or over the edges alone (the
+    edges layout, w = 0), against forward + ragged in plain PyTorch; two
+    launches bit-identical; the hub row, the row with no edges and the
+    last row with its padding among them."""
+    y, jidx, jval, rag = _ragged_problem(dev, 700, w, m, 10 * m + w)
+    ak = att.attraction_forces(y, y, jidx, jval, 4.0, ragged=rag)
+    ap = att.attraction_forces_plain(y, y, jidx, jval, 4.0, ragged=rag)
+    _close_scaled(ak, ap)
+    assert torch.equal(ak, att.attraction_forces(y, y, jidx, jval, 4.0,
+                                                 ragged=rag))
+    z = torch.tensor(321.0, device=dev)
+    lk = att.attraction_loss(y, y, jidx, jval, 1.0, z, ragged=rag)
+    lp = att.attraction_loss_plain(y, y, jidx, jval, 1.0, z, ragged=rag)
+    _close_scaled(lk, lp)
+    assert abs(float(lk.sum()) - float(lp.sum())) <= 2e-5 * float(
+        lp.abs().sum())
+    assert torch.equal(lk, att.attraction_loss(y, y, jidx, jval, 1.0, z,
+                                               ragged=rag))
+    # a shard of rows against the full embedding, with its own segments
+    sl = slice(300, 500)
+    sub = att.ragged_edges(*(a[int(rag.rowptr[300]):int(rag.rowptr[500])]
+                             for a in (rag.src - 300, rag.dst, rag.val)),
+                           200)
+    blk = (None, None) if jidx is None else (jidx[sl], jval[sl])
+    _close_scaled(att.attraction_forces(y[sl], y, *blk, 1.0, ragged=sub),
+                  att.attraction_forces_plain(y[sl], y, *blk, 1.0,
+                                              ragged=sub))
+
+
+def test_forces_with_a_ragged_part_are_the_sum_of_its_parts(dev):
+    """One launch over head + tail gives the bits of the head's launch
+    plus the tail's, added in f32: the unfused CSR step and the fused one
+    (B3 with B5's tail) see the same forces."""
+    y, jidx, jval, rag = _ragged_problem(dev, 900, 64, 2, 3)
+    both = att.attraction_forces(y, y, jidx, jval, 4.0, ragged=rag)
+    head = att.attraction_forces(y, y, jidx, jval, 4.0)
+    tail = att.attraction_forces(y, y, None, None, 4.0, ragged=rag)
+    assert torch.equal(both, head + tail)
+    z = torch.tensor(55.0, device=dev)
+    assert torch.equal(
+        att.attraction_loss(y, y, jidx, jval, 1.0, z, ragged=rag),
+        att.attraction_loss(y, y, jidx, jval, 1.0, z)
+        + att.attraction_loss(y, y, None, None, 1.0, z, ragged=rag))
+
+
+def test_fused_csr_step_with_its_b5_tail_equals_the_unfused_step(dev):
+    """B3 over the head with B5's tail against B5 over head + tail and the
+    vdM update in PyTorch, on tie-free inputs: the gains exactly equal, y
+    and update to rtol 1e-4 (bit-equal on this card)."""
+    y, hidx, hval, rag = _ragged_problem(dev, 900, 64, 2, 4)
+    forces = att.attraction_forces(y, y, hidx, hval, 4.0, ragged=rag)
+    rng = np.random.default_rng(11)
+    sign = torch.from_numpy(rng.choice([-1.0, 1.0], y.shape).astype(
+        np.float32)).to(dev)
+    mag = forces.abs() + 1e-3 * forces.abs().max()
+    repz = forces - sign * mag  # every grad is ±(|att| + margin)
+    upd = 1e-2 * torch.randn(y.shape, device=dev)
+    gains = 1.0 + torch.rand(y.shape, device=dev)
+    tail = att.attraction_forces(y, y, None, None, 4.0, ragged=rag)
+    yk, uk, gk, _ = att.fused_step_update(y, y, hidx, hval, 4.0, tail, repz,
+                                          None, upd, gains, 0.8, eta=200.0,
+                                          min_gain=0.01)
+    grad = forces - repz
+    same = (grad > 0.0) == (upd > 0.0)
+    g = torch.clamp(torch.where(same, gains * 0.8, gains + 0.2), min=0.01)
+    u = 0.8 * upd - 200.0 * g * grad
+    assert torch.equal(gk, g)
+    torch.testing.assert_close(uk, u, rtol=1e-4, atol=1e-6)
+    torch.testing.assert_close(yk, y + u, rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.parametrize("layout", ["csr", "rows", "edges", "blocks"])
+def test_optimize_runs_each_layout_without_a_segment_sum(dev, layout,
+                                                         monkeypatch):
+    """A short optimize on every layout launches B5 each iteration and B4
+    every tenth, calls no torch.segment_reduce on a CUDA tensor, and
+    reports the KL its plain run on the CPU reports (rtol 1e-3, at
+    iterations 10 and 20)."""
+    from tsne_flink_tpu_torch.models.tsne import (TsneConfig,
+                                                  _plan_layout,
+                                                  init_working_set,
+                                                  optimize)
+    from tsne_flink_tpu_torch.utils.artifacts import prepare
+    real = torch.segment_reduce
+
+    def refuse(data, *a, **kw):
+        assert not data.is_cuda, "segment_reduce on a CUDA tensor"
+        return real(data, *a, **kw)
+
+    x = _blobs(1500, 32, 5)
+    ends = {}
+    for d in ("cpu", dev):
+        prep = prepare(x, neighbors=30, perplexity=10.0,
+                       assembly="blocks" if layout == "blocks" else "auto",
+                       device=d)
+        cfg = TsneConfig(perplexity=10.0, iterations=20,
+                         attraction="auto" if layout == "blocks" else layout)
+        if layout == "blocks":
+            edges, csr = prep.extra_edges, None
+        else:
+            edges, csr = _plan_layout(prep.jidx, prep.jval, cfg)
+        st = init_working_set(None, 1500, 2, torch.float32, d,
+                              y0=np.random.default_rng(0).standard_normal(
+                                  (1500, 2)) * 1e-2)
+        monkeypatch.setattr(torch, "segment_reduce", refuse)
+        reset_launches()
+        st, losses = optimize(st, prep.jidx, prep.jval, cfg, edges=edges,
+                              edges_extra=layout == "blocks", csr=csr)
+        monkeypatch.setattr(torch, "segment_reduce", real)
+        assert bool(torch.isfinite(st.y).all())
+        ends[str(d)] = losses.cpu()
+        if d != "cpu":
+            assert KERNELS["B5"].launches == 20
+            assert KERNELS["B4"].launches == 2
+            assert KERNELS["B3"].launches == (20 if layout == "csr" else 0)
+    torch.testing.assert_close(ends["cuda"], ends["cpu"], rtol=1e-3, atol=0)
 
 
 def test_launches_count_kernel_launches_only(dev):
@@ -434,6 +615,7 @@ def _hold_keep(args, kw, exact):
     (64, 40, "euclidean", False),     # the first warp-per-candidate F
     (16, 20, "sqeuclidean", True),    # exact ties, by id
     (16, 20, "euclidean", True),      # ties after the sqrt
+    (50, 600, "sqeuclidean", False),  # past k = 512: 2k = 1,200 sort keys
 ])
 def test_refine_first_exact_stage_matches_plain(dev, f, k, metric, lattice):
     """A chunk whose first stage is the exact one (no funnel): candidates
@@ -461,6 +643,21 @@ def test_refine_keep_then_exact_stage_matches_plain(dev, lattice):
                       lattice)
     _hold_final(("sqeuclidean", x, sq, 0, kept, graph[:200], dist[:200]),
                 {}, lattice)
+
+
+@pytest.mark.parametrize("keep", [3 * K_MAX, 5 * K_MAX])
+def test_refine_funnel_at_the_deep_k_matches_plain(dev, keep):
+    """k = K_MAX on a funnel: a first keep stage keeping the cascade's 3k
+    (F = 128) or the JL stage's 5k (8,192 sort keys), then the exact
+    stage merging 2k keys (F = 784)."""
+    n, k, ke = 2000, K_MAX, K_MAX // 2
+    x, sq, graph, dist, gates = _refine_problem(dev, n, 784, k, 64, 12)
+    proj = (x[:, :128] * 2.0).contiguous()
+    psq = torch.sum(proj * proj, dim=1)
+    kept = _hold_keep((proj, psq, 0, gates, keep), dict(graph=graph, ke=ke),
+                      False)
+    _hold_final(("sqeuclidean", x, sq, 0, kept, graph[:64], dist[:64]), {},
+                False)
 
 
 def test_refine_edge_chunks_match_plain(dev):
@@ -502,6 +699,11 @@ def test_refine_wrapper_refuses_what_b6_does_not_take(dev):
                      dist[:4], graph=graph, ke=6)
     with pytest.raises(ValueError, match="CPU"):
         cand_sqdist(x, sq, torch.arange(4, device=dev), gates)
+    # 16 gateways x (1 + 1,900) candidates: their hash set alone is past
+    # the block's shared memory
+    xb, sqb, graph_b, _, gates_b = _refine_problem(dev, 2000, 8, 1900, 4, 9)
+    with pytest.raises(ValueError, match="shared memory"):
+        refine_keep(xb, sqb, 0, gates_b, 20, graph=graph_b, ke=1900)
     assert KERNELS["B6"].launches == before
 
 

@@ -1,0 +1,292 @@
+"""PyTorch port, the kernels' widened shapes vs the JAX package, and the
+limits that remain.
+
+The card's kernels take every embedding width m = 1 .. 8 (B2-B5, the JAX
+package's MPAD), k up to 1,024 (B1's deep class, B6's sort capacity).
+Here their plain versions are held at those shapes against the JAX
+package — its Pallas kernels in interpret mode (``pallas_interpret``) or
+its XLA twins — on the same seeded numpy inputs, and the requests past
+the kernels' limits are refused before the kNN stage runs, on the CPU as
+on the card.
+"""
+
+from dataclasses import replace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tsne_flink_tpu.ops import attraction_pallas as jatt
+from tsne_flink_tpu.ops import knn as jknn
+from tsne_flink_tpu.ops import knn_tiles as jtiles
+from tsne_flink_tpu.ops.knn import knn_bruteforce as jax_knn_bruteforce
+from tsne_flink_tpu.ops.knn_pallas import fused_knn as jax_fused_knn
+from tsne_flink_tpu.ops.repulsion_pallas import pallas_exact_repulsion
+from tsne_flink_tpu_torch import TsneConfig, tsne_embed
+from tsne_flink_tpu_torch.ops import attraction_cuda as tatt
+from tsne_flink_tpu_torch.ops import knn as tknn
+from tsne_flink_tpu_torch.ops import knn_cuda as tkc
+from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
+from tsne_flink_tpu_torch.utils.artifacts import prepare
+
+pytestmark = pytest.mark.fast
+
+WIDTHS = [1, 4, 8]
+
+
+@pytest.fixture
+def pallas_interpret(monkeypatch):
+    """Let the JAX package's Pallas kernels run in interpret mode: jax 0.9's
+    ``pallas_call`` takes only int ``CostEstimate`` fields and the package
+    passes floats, so they are rounded while the test runs, and what was
+    traced under the patch is dropped afterwards."""
+    from jax.experimental import pallas as pl
+    orig = pl.CostEstimate
+    monkeypatch.setattr(pl, "CostEstimate", lambda **kw: orig(
+        **{k: int(v) for k, v in kw.items()}))
+    yield
+    monkeypatch.undo()
+    jax.clear_caches()
+
+
+@pytest.fixture(params=["pallas-interpret", "xla"])
+def jax_kind(request):
+    if request.param == "pallas-interpret":
+        request.getfixturevalue("pallas_interpret")
+    return request.param
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+# ---- B2-B5 at m = 1, 4, 8 ---------------------------------------------------
+
+@pytest.mark.parametrize("m", WIDTHS)
+def test_plain_repulsion_matches_jax_pallas_at_every_width(m):
+    """B2's plain version against the Pallas kernel (interpret mode), which
+    pads m to its MPAD = 8: rtol 2e-5, on a masked row shard too."""
+    rng = np.random.default_rng(m)
+    n = 300
+    y = (rng.standard_normal((n, m)) * 3.0).astype(np.float32)
+    rep0, z0 = pallas_exact_repulsion(jnp.asarray(y), interpret=True,
+                                      tile=128)
+    rep1, z1 = cuda_exact_repulsion(torch.from_numpy(y))
+    np.testing.assert_allclose(rep1.numpy(), np.asarray(rep0), rtol=2e-5,
+                               atol=2e-5)
+    np.testing.assert_allclose(float(z1), float(z0), rtol=2e-5)
+    valid = np.arange(n) < n - 40
+    want = pallas_exact_repulsion(
+        jnp.asarray(y[128:256]), jnp.asarray(y), row_offset=128,
+        col_valid=jnp.asarray(valid), interpret=True, tile=128, row_z=True)
+    got = cuda_exact_repulsion(_t(y[128:256]), _t(y), row_offset=128,
+                               col_valid=_t(valid), row_z=True)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=2e-5,
+                                   atol=2e-5)
+
+
+def _csr_problem(m, seed=4, n=150, w=16):
+    rng = np.random.default_rng(seed + m)
+    f32 = np.float32
+    y = rng.standard_normal((n, m)).astype(f32)
+    hidx = rng.integers(0, n, (n, w)).astype(np.int32)
+    hval = (rng.random((n, w)) * 1e-3).astype(f32)
+    hval[rng.random((n, w)) < 0.2] = 0.0
+    tail = (1e-3 * rng.standard_normal((n, m))).astype(f32)
+    repz = (1e-3 * rng.standard_normal((n, m))).astype(f32)
+    upd = (1e-2 * rng.standard_normal((n, m))).astype(f32)
+    gains = (1.0 + rng.random((n, m))).astype(f32)
+    return y, hidx, hval, tail, repz, upd, gains
+
+
+@pytest.mark.parametrize("m", WIDTHS)
+def test_plain_attraction_kernels_match_jax_at_every_width(jax_kind, m):
+    """B3 (the fused step), B4 (the KL) and B5 (the forces): the port's
+    index-gathering wrappers on the CPU against the JAX package's, f32."""
+    y, hidx, hval, tail, repz, upd, gains = _csr_problem(m)
+    valid = np.arange(y.shape[0]) < 140
+    j = jnp.asarray
+    want = jatt.fused_step_update(
+        j(y), j(y), j(hidx), j(hval), jnp.float32(4.0), j(tail), j(repz),
+        j(valid), j(upd), j(gains), jnp.float32(0.8), eta=1000.0,
+        min_gain=0.01, row_chunk=64, kernel=jax_kind)
+    t = torch.from_numpy
+    got = tatt.fused_step_update(t(y), t(y), t(hidx), t(hval), 4.0, t(tail),
+                                 t(repz), t(valid), t(upd), t(gains), 0.8,
+                                 eta=1000.0, min_gain=0.01, row_chunk=48)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    for a, b in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,
+                                   atol=1e-4)
+    lw = np.asarray(jatt.attraction_loss(
+        j(y), j(y), j(hidx), j(hval), jnp.float32(1.0), jnp.float32(2.5e3),
+        row_chunk=64, kernel=jax_kind))
+    lg = tatt.attraction_loss(t(y), t(y), t(hidx), t(hval), 1.0,
+                              torch.tensor(2.5e3), row_chunk=48).numpy()
+    np.testing.assert_allclose(lg, lw, rtol=2e-5, atol=1e-9)
+    fw = np.asarray(jatt.attraction_forces(
+        j(y), j(y), j(hidx), j(hval), jnp.float32(4.0), row_chunk=64,
+        kernel=jax_kind))
+    fg = tatt.attraction_forces(t(y), t(y), t(hidx), t(hval), 4.0,
+                                row_chunk=48).numpy()
+    np.testing.assert_allclose(fg, fw, rtol=2e-5,
+                               atol=2e-5 * np.abs(fw).max())
+
+
+# ---- B1 past k = 256 --------------------------------------------------------
+
+def test_plain_knn_sweep_matches_jax_at_k300(pallas_interpret):
+    """B1's plain sweep at k = 300, in the kernel's deep class, against the
+    Pallas kernel in interpret mode (k padded to 384) and the XLA tiles."""
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((420, 16)).astype(np.float32)
+    pi, pd = tknn.knn_bruteforce(torch.from_numpy(x), 300)
+    for ji, jd in (jax_fused_knn(jnp.asarray(x), 300, "sqeuclidean",
+                                 interpret=True),
+                   jax_knn_bruteforce(jnp.asarray(x), 300, "sqeuclidean",
+                                      kernel="xla")):
+        np.testing.assert_array_equal(pi.numpy(), np.asarray(ji))
+        np.testing.assert_allclose(pd.numpy(), np.asarray(jd), rtol=2e-5,
+                                   atol=1e-6)
+
+
+# ---- the hybrid kNN past k = 512 ---------------------------------------------
+
+def _blobs(n, d, clusters=8, seed=0, spread=0.6):
+    rng = np.random.default_rng(seed)
+    centers = rng.standard_normal((clusters, d)) * 2.0
+    return centers[rng.integers(0, clusters, n)] + spread * \
+        rng.standard_normal((n, d))
+
+
+def _jax_refine_draw(key, plan, n, k, dim):
+    """One knn_refine round's draws, from its own key schedule."""
+    _, gkey, vkey, fkey, ckey = jax.random.split(key, 5)
+    scale = jnp.sqrt(jnp.asarray(dim, jnp.float64))
+
+    def gauss(kk, width):
+        return _t(jax.random.normal(kk, (dim, width), jnp.float64) / scale)
+
+    return tknn.RefineDraw(
+        gate=(_t(jax.random.uniform(gkey, (n, k), jnp.float64))
+              if plan.s < k else None),
+        rev=_t(jax.random.permutation(vkey, n * k)),
+        filt=gauss(fkey, plan.filter_dims) if plan.filter_dims else None,
+        casc=gauss(ckey, plan.cascade_dims) if plan.cascade_dims else None)
+
+
+@pytest.mark.parametrize("d,k", [(40, 600), (300, 520)])
+def test_refine_round_past_k512_matches_jax_with_its_draws(d, k):
+    """One refine round at k > 512 (2k sort keys past the old 1,024; at
+    d = 300 the cascade keeps 3k) with the JAX draws injected: the same
+    ids, distances to rtol 1e-10 (f64)."""
+    n = 800
+    x = _blobs(n, d, seed=5)
+    fd = jknn.pick_knn_filter(d)
+    ke = (k + 1) // 2 if fd else None
+    ti0, td0 = tknn.knn_project(_t(x), k, "sqeuclidean", 1, block=32)
+    tiles = replace(jtiles.pick_knn_tiles(n, d, k, "cpu"), kernel="xla",
+                    refine_chunk=64)
+    key = jax.random.key(13)
+    ri, rd = jknn.knn_refine(jnp.asarray(x), jnp.asarray(ti0.numpy()),
+                             jnp.asarray(td0.numpy()), "sqeuclidean",
+                             rounds=1, key=key, filter_dims=fd, expand_k=ke,
+                             tiles=tiles)
+    plan = tknn._refine_plan(d, k, filter_dims=fd, expand_k=ke)
+    assert (plan.cascade_dims is not None) == (d == 300)
+    qi, qd = tknn.knn_refine(_t(x), ti0, td0, "sqeuclidean", rounds=1,
+                             filter_dims=fd, expand_k=ke, row_chunk=64,
+                             draws=[_jax_refine_draw(key, plan, n, k, d)])
+    np.testing.assert_array_equal(qi.numpy(), np.asarray(ri))
+    np.testing.assert_allclose(qd.numpy(), np.asarray(rd), rtol=1e-10,
+                               atol=1e-12)
+
+
+@pytest.mark.parametrize("d", [16, 50, 128, 200, 784, tkc.CAND_F_MAX])
+def test_every_k_the_kernels_take_fits_the_refine_kernel(d):
+    """With k <= K_MAX and d <= CAND_F_MAX every stage of the refine plan
+    fits B6's shared memory and sort capacity, so those two are all that
+    the pre-kNN check has to refuse."""
+    fd = tknn.pick_knn_filter(d)
+    for k in (1, 90, 150, 300, 512, 513, 600, 1000, tkc.K_MAX):
+        plan = tknn._refine_plan(d, k, filter_dims=fd,
+                                 expand_k=(k + 1) // 2 if fd else None)
+        w = 2 * plan.s
+        stages = []
+        first = True
+        if plan.filter_dims:
+            stages.append((plan.filter_dims, plan.keep, False, first))
+            first = False
+        if plan.cascade_dims:
+            stages.append((plan.cascade_dims, plan.keep2, False, first))
+            first = False
+        stages.append((d, 0, True, first))
+        width = w
+        for f, keep, final, build in stages:
+            keep = min(keep, width * (1 + plan.ke) if build else width)
+            assert keep <= tkc.REFINE_SORT_MAX
+            need = tkc.refine_smem_bytes(f, width, plan.ke if build else 0,
+                                         keep, k, build, final)
+            assert need <= tkc.REFINE_SMEM_MAX, (d, k, f, need)
+            width = keep
+
+
+# ---- the limits that remain raise before the kNN stage ------------------------
+
+@pytest.fixture
+def no_knn(monkeypatch):
+    """Fail the test if the kNN stage starts."""
+    def refuse(*a, **kw):
+        raise AssertionError("the kNN stage ran")
+    monkeypatch.setattr(tknn, "knn", refuse)
+
+
+@pytest.mark.parametrize("m", [0, 9])
+def test_embedding_width_past_the_kernels_raises_first(no_knn, m):
+    x = np.random.default_rng(0).standard_normal((50, 4))
+    with pytest.raises(ValueError, match="n_components"):
+        tsne_embed(x, TsneConfig(n_components=m, iterations=10),
+                   neighbors=5, device="cpu")
+
+
+@pytest.mark.parametrize("method", ["bruteforce", "partition", "project",
+                                    "auto"])
+def test_k_past_k_max_raises_before_the_knn_stage(no_knn, method):
+    x = np.random.default_rng(1).standard_normal((1100, 4))
+    with pytest.raises(ValueError, match="K_MAX"):
+        prepare(x, neighbors=tkc.K_MAX + 1, knn_method=method,
+                perplexity=30.0, device="cpu")
+    with pytest.raises(ValueError, match="K_MAX"):
+        tsne_embed(x, TsneConfig(perplexity=342.0, iterations=10),
+                   knn_method=method, device="cpu")
+
+
+def test_features_past_cand_f_max_raise_before_a_refining_plan(no_knn):
+    x = np.zeros((40, tkc.CAND_F_MAX + 1), np.float32)
+    with pytest.raises(ValueError, match="CAND_F_MAX"):
+        prepare(x, neighbors=5, knn_method="project", knn_refine=1,
+                perplexity=2.0, device="cpu")
+    # the same width without a refine cycle, or exact, is not refused
+    tknn.check_knn_limits(40, tkc.CAND_F_MAX + 1, 5, "project", 0)
+    tknn.check_knn_limits(40, tkc.CAND_F_MAX + 1, 5, "bruteforce", None)
+
+
+def test_k_is_clamped_before_the_check():
+    """k past N − 1 clamps (the reference's first(k)); only the clamped k
+    meets the limit."""
+    tknn.check_knn_limits(600, 8, 5000, "bruteforce", None)
+    with pytest.raises(ValueError, match="K_MAX"):
+        tknn.check_knn_limits(5000, 8, 5000, "bruteforce", None)
+
+
+@pytest.mark.parametrize("m", [1, 5, 8])
+def test_embed_runs_at_every_kernel_width(m):
+    """tsne_embed takes every width the kernels take (a short CPU run)."""
+    x = np.random.default_rng(m).standard_normal((120, 6))
+    y, losses = tsne_embed(x, TsneConfig(n_components=m, perplexity=5.0,
+                                         iterations=20), device="cpu")
+    assert tuple(y.shape) == (120, m)
+    assert bool(torch.isfinite(y).all()) and bool(torch.isfinite(losses).all())

@@ -1,47 +1,70 @@
 // B3 — the fused CSR-head attraction + gains/momentum step,
-// B4 — the per-row KL pass over the same head, and
-// B5 — the attraction forces alone over any row layout.
+// B4 — the per-row KL over a row block and a ragged edge part, and
+// B5 — the attraction forces over a row block and a ragged edge part.
 //
 // B3 replaces tsne_flink_tpu/ops/attraction_pallas.py::_fused_kernel
 // (launched by _run_fused, driven by fused_step_update); B4 replaces
 // ::_loss_kernel (launched by _run_loss, driven by attraction_loss); B5
 // replaces ::_forces_kernel (launched by _run_forces, driven by
-// attraction_forces: the rows layout, the blocks layout's forward block and
-// the unfused CSR step).
+// attraction_forces).  B4 and B5 also take over what the JAX package
+// leaves to XLA beside them: the segment sums of a src-sorted edge list
+// (tsne_flink_tpu/models/tsne.py, jax.ops.segment_sum) — the blocks
+// layout's reverse edges, the edges layout's whole list and the CSR tail.
+// Row i's forces are F_i = Σ_j P_ij q_ij (y_i − y_j) over the row's
+// forward slots (jidx/jval [nloc, W], W may be 0) and its ragged segment
+// (dst/val [E] from rowptr[i] to rowptr[i + 1]); B5 writes
+// att_i = forward + ragged in that grouping, B4 the KL the same way.
 //
 // What bounds them on an H100: bytes.  Each row reads its W slots (int32
-// index + f32 value: N·W·8 bytes) and a few [N, m] state planes; the ~20
-// operations per slot are far below the card's rate.  The neighbour rows
-// y_full[j] are gathered from a [N, m] array that stays in the 50 MB L2.
+// index + f32 value: N·W·8 bytes), its E_i edges (8 bytes each), the row
+// pointer and a few [N, m] state planes; the ~20 operations a slot are far
+// below the card's rate.  Each neighbour row y_full[j] is gathered from a
+// [N, m] array that stays in the 50 MB L2, one 32-byte sector a gather.
 //
-// Design: one warp per row.  Lanes stride the row's W slots with
-// coalesced index/value loads and gather y_full[jidx] inside the kernel —
-// the TPU wrapper materialises that [c, W, m] gather in device memory
-// first, the port does not.  Any W runs: a wide row (the rows layout of a
-// hub-heavy graph, W in the thousands) only makes each lane loop longer,
-// where the TPU kernel had to hand wide rows to XLA for want of VMEM.
-// The lane partials are combined by a butterfly shuffle (a fixed order).
-// The arithmetic mirrors the TPU kernels operation for operation:
-// norm-trick distances clamped at 0, att = y_i·Σw − Σw·y_j, and grad =
-// ((att + tail) − rep/Z) · mask in that grouping.  The distances, att and
-// B3's epilogue round each product and sum on their own (__fmul_rn /
-// __fadd_rn: nothing is contracted into an FMA), in the order the plain
-// PyTorch versions evaluate them: the norm-trick d² cancels for a spread
-// embedding, and an FMA there alone moved forces by more than 2e-5.  B3
-// and B5 share one head routine, so B5's forces are the bits B3 computes
-// inside its step, and the unfused step (B5 + tail + the vdM update in
-// PyTorch) reproduces B3's output bit for bit.  B3
-// writes y, update and gains to fresh buffers, B5 its forces: other warps
-// are still gathering from y_full, so an in-place y would race.  B4 reads
-// the global Z from device memory (no host round trip) and writes per-row
-// partials only; their sum is a fixed-order torch.sum outside.  No
-// kernel here uses atomics.
+// Design: one warp per row, the lanes taking slot lane + 32·u.  A lane
+// walks its slots U at a time and, before any arithmetic, issues the U
+// value loads of the forward part and the U index and value loads of the
+// ragged part together, then the forward part's index loads where a value
+// is set, then the 2·U gathers together (each neighbour one 8- or 16-byte
+// load where m allows), so a batch of a row costs three memory latencies
+// in sequence (two on an edge list) rather than three a slot; padding
+// slots (value 0) predicate their index and gather off and add exactly 0,
+// with no branch.  A hub row, whose reverse segment runs to thousands of
+// edges, loops longer in its own warp while the other warps of the SM go
+// on.  The lane partials are combined by a butterfly shuffle (a fixed
+// order), and a lane meets its slots in increasing order, so two launches
+// give the same bits.  The TPU wrapper materialises the [c, W, m] gather
+// in device memory first; the port does not.
+//
+// The arithmetic mirrors the plain versions operation for operation.  The
+// forward part: norm-trick distances clamped at 0, att = y_i·Σw − Σw·y_j,
+// each product and sum rounded on its own (__fmul_rn / __fadd_rn: nothing
+// contracted into an FMA), in the plain version's order — the norm-trick
+// d² cancels for a spread embedding, and an FMA there alone moved forces
+// by more than 2e-5.  The ragged part: d² = Σ(y_i − y_j)² and Σ w·(y_i −
+// y_j), as the plain edge-list sum computes it.  B3 and B5 share the
+// forward routine (pair_q and walk_row), so B5's forward sum is the bits
+// B3 computes inside its step, and B5 over the ragged part alone gives
+// the bits of B5's ragged sum beside a forward block: the unfused CSR
+// step (B5 over head + tail, then the vdM update in PyTorch) reproduces
+// the fused one (B3 over the head with B5's tail) bit for bit.  B3 writes
+// y, update and gains to fresh buffers, B5 its forces: other warps are
+// still gathering from y_full, so an in-place y would race.  B4 reads the
+// global Z from device memory (no host round trip) and writes per-row
+// partials only; their sum is a fixed-order torch.sum outside.  No kernel
+// here uses atomics.  Every m from 1 to 8 (the JAX package's MPAD) is a
+// template instance.
 #include "common.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
 constexpr int ROWS_PER_BLOCK = THREADS / 32;
+
+// slots a lane walks a batch, per part: registers for the gathered points
+// grow with m
+template <int M>
+__host__ __device__ constexpr int batch_for() { return M <= 4 ? 4 : 2; }
 
 template <int M>
 __device__ __forceinline__ void load_row(const float* __restrict__ y_loc,
@@ -54,18 +77,49 @@ __device__ __forceinline__ void load_row(const float* __restrict__ y_loc,
   }
 }
 
-// gathers yj = y_full[j] and returns the Student-t q = 1/(1 + max(d², 0))
-// with d² = (|y_i|² + |y_j|²) − 2 y_i·y_j: every product and sum rounded
-// on its own, in the plain version's order, so d² — which cancels badly
-// for a spread embedding — carries the plain version's bits
+// y_full[j] into p when `take`, else zeros: one load for m = 1, 2 and 4,
+// two for m = 8, 16-byte or 8-byte vectors where m allows (y_full's rows
+// are then aligned: the wrapper checks the base)
 template <int M>
-__device__ __forceinline__ float pair_q(const float* __restrict__ y_full,
-                                        int j, const float (&yc)[M],
-                                        float rr, float (&yj)[M]) {
+__device__ __forceinline__ void gather(bool take,
+                                       const float* __restrict__ y_full,
+                                       int j, float (&p)[M]) {
+#pragma unroll
+  for (int d = 0; d < M; ++d) p[d] = 0.f;
+  if (!take) return;
+  const float* src = y_full + (size_t)j * M;
+  if constexpr (M % 4 == 0) {
+#pragma unroll
+    for (int v = 0; v < M / 4; ++v) {
+      const float4 t = __ldg(reinterpret_cast<const float4*>(src) + v);
+      p[4 * v] = t.x;
+      p[4 * v + 1] = t.y;
+      p[4 * v + 2] = t.z;
+      p[4 * v + 3] = t.w;
+    }
+  } else if constexpr (M % 2 == 0) {
+#pragma unroll
+    for (int v = 0; v < M / 2; ++v) {
+      const float2 t = __ldg(reinterpret_cast<const float2*>(src) + v);
+      p[2 * v] = t.x;
+      p[2 * v + 1] = t.y;
+    }
+  } else {
+#pragma unroll
+    for (int d = 0; d < M; ++d) p[d] = __ldg(src + d);
+  }
+}
+
+// the Student-t q = 1/(1 + max(d², 0)) of a forward slot, d² = (|y_i|² +
+// |y_j|²) − 2 y_i·y_j: every product and sum rounded on its own, in the
+// plain version's order, so d² — which cancels badly for a spread
+// embedding — carries the plain version's bits
+template <int M>
+__device__ __forceinline__ float pair_q(const float (&yc)[M], float rr,
+                                        const float (&yj)[M]) {
   float rc = 0.f, g = 0.f;
 #pragma unroll
   for (int d = 0; d < M; ++d) {
-    yj[d] = y_full[(size_t)j * M + d];
     rc = __fadd_rn(rc, __fmul_rn(yj[d], yj[d]));
     g = __fadd_rn(g, __fmul_rn(yc[d], yj[d]));
   }
@@ -74,43 +128,118 @@ __device__ __forceinline__ float pair_q(const float* __restrict__ y_full,
   return __frcp_rn(__fadd_rn(1.f, d2));
 }
 
-// lane-partial Σw and Σw·y_j over row i's head slots; the caller reduces
+// the q = 1/(1 + Σ(y_i − y_j)²) of a ragged edge and its differences
 template <int M>
-__device__ __forceinline__ void head_pass(const float* __restrict__ y_full,
-                                          const int* __restrict__ ir,
-                                          const float* __restrict__ vr, int w,
-                                          const float (&yc)[M], float rr,
-                                          float exag, int lane, float& sw,
-                                          float (&swy)[M]) {
-  for (int c = lane; c < w; c += 32) {
-    const float v = vr[c];
-    if (!(v > 0.f)) continue;  // padding slots add exactly 0
-    float yj[M];
-    const float q = pair_q<M>(y_full, ir[c], yc, rr, yj);
-    const float wt = v * exag * q;
-    sw += wt;
+__device__ __forceinline__ float edge_q(const float (&yc)[M],
+                                        const float (&yj)[M],
+                                        float (&diff)[M]) {
+  float d2 = 0.f;
 #pragma unroll
-    for (int d = 0; d < M; ++d) swy[d] = fmaf(wt, yj[d], swy[d]);
+  for (int d = 0; d < M; ++d) {
+    diff[d] = __fsub_rn(yc[d], yj[d]);
+    d2 = __fadd_rn(d2, __fmul_rn(diff[d], diff[d]));
+  }
+  return __frcp_rn(__fadd_rn(1.f, d2));
+}
+
+// Walks row i's forward slots [0, w) of ir/vr (FWD) and its ragged edges
+// [e0, e1) of dst/val (RAG), 32·U slots of each part a batch: every lane
+// loads its U values and ids of both parts (a forward id only where its
+// value is set), then gathers their points, then hands each (value,
+// point) to fwd / rag in slot order.  A slot past a part's end has value
+// 0, like padding: its gather is skipped and the callbacks add exactly 0
+// for it.
+template <int M, bool FWD, bool RAG, class Fwd, class Rag>
+__device__ __forceinline__ void walk_row(const float* __restrict__ y_full,
+                                         const int* __restrict__ ir,
+                                         const float* __restrict__ vr, int w,
+                                         const int* __restrict__ dst,
+                                         const float* __restrict__ val,
+                                         long long e0, long long e1, int lane,
+                                         Fwd&& fwd, Rag&& rag) {
+  constexpr int U = batch_for<M>();
+  const long long len = RAG ? e1 - e0 : 0;
+  const long long span = FWD && w > len ? (long long)w : len;
+  for (long long at = 0; at < span; at += 32 * U) {
+    int fj[U], rj[U];
+    float fv[U], rv[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long c = at + lane + 32 * u;
+      if constexpr (FWD) fv[u] = c < w ? vr[c] : 0.f;
+      if constexpr (RAG) {
+        const bool in = c < len;
+        rv[u] = in ? val[e0 + c] : 0.f;
+        rj[u] = in ? dst[e0 + c] : 0;
+      }
+    }
+    // a row block's index only where its value is set: a padded layout
+    // (the [N, S] rows of a hub-heavy graph, ~4% filled) reads no index
+    // for a padding slot; an edge list carries no padding by the time
+    // it arrives here, so its index loads with its value
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long c = at + lane + 32 * u;
+      if constexpr (FWD) fj[u] = fv[u] > 0.f ? ir[c] : 0;
+    }
+    float fy[U][M], ry[U][M];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if constexpr (FWD) gather<M>(fv[u] > 0.f, y_full, fj[u], fy[u]);
+      if constexpr (RAG) gather<M>(rv[u] > 0.f, y_full, rj[u], ry[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if constexpr (FWD) fwd(fv[u], fy[u]);
+      if constexpr (RAG) rag(rv[u], ry[u]);
+    }
   }
 }
 
-// row i's head forces att = y_i·Σw − Σw·y_j, the same value in every lane
-template <int M>
-__device__ __forceinline__ void head_forces(const float* __restrict__ y_full,
-                                            const int* __restrict__ ir,
-                                            const float* __restrict__ vr,
-                                            int w, const float (&yc)[M],
-                                            float rr, float exag, int lane,
-                                            float (&att)[M]) {
-  float sw = 0.f;
-  float swy[M];
+// Row i's forces: the forward part att = y_i·Σw − Σw·y_j (w = v·exag·q)
+// and the ragged part Σ w·(y_i − y_j), the same values in every lane.
+template <int M, bool FWD, bool RAG>
+__device__ __forceinline__ void row_forces(
+    const float* __restrict__ y_full, const int* __restrict__ ir,
+    const float* __restrict__ vr, int w, const int* __restrict__ dst,
+    const float* __restrict__ val, long long e0, long long e1,
+    const float (&yc)[M], float rr, float exag, int lane, float (&fwd)[M],
+    float (&rag)[M]) {
+  float sw = 0.f, swy[M];
 #pragma unroll
-  for (int d = 0; d < M; ++d) swy[d] = 0.f;
-  head_pass<M>(y_full, ir, vr, w, yc, rr, exag, lane, sw, swy);
-  sw = tsne::warp_sum(sw);
+  for (int d = 0; d < M; ++d) swy[d] = rag[d] = 0.f;
+  walk_row<M, FWD, RAG>(
+      y_full, ir, vr, w, dst, val, e0, e1, lane,
+      [&](float v, const float (&yj)[M]) {
+        const float wt = v * exag * pair_q<M>(yc, rr, yj);
+        sw += wt;
 #pragma unroll
-  for (int d = 0; d < M; ++d)
-    att[d] = __fsub_rn(__fmul_rn(yc[d], sw), tsne::warp_sum(swy[d]));
+        for (int d = 0; d < M; ++d) swy[d] = fmaf(wt, yj[d], swy[d]);
+      },
+      [&](float v, const float (&yj)[M]) {
+        float diff[M];
+        const float wt = __fmul_rn(__fmul_rn(v, exag), edge_q<M>(yc, yj, diff));
+#pragma unroll
+        for (int d = 0; d < M; ++d)
+          rag[d] = __fadd_rn(rag[d], __fmul_rn(wt, diff[d]));
+      });
+  if constexpr (FWD) {
+    sw = tsne::warp_sum(sw);
+#pragma unroll
+    for (int d = 0; d < M; ++d)
+      fwd[d] = __fsub_rn(__fmul_rn(yc[d], sw), tsne::warp_sum(swy[d]));
+  }
+  if constexpr (RAG) {
+#pragma unroll
+    for (int d = 0; d < M; ++d) rag[d] = tsne::warp_sum(rag[d]);
+  }
+}
+
+// pe·log(pe·Z/q) of one slot, 0 for padding
+__device__ __forceinline__ float kl_term(float v, float exag, float z,
+                                         float q) {
+  const float pe = v * exag;
+  return v > 0.f ? pe * logf(pe * z / q) : 0.f;
 }
 
 template <int M>
@@ -129,10 +258,11 @@ fused_step_kernel(const float* __restrict__ y_loc,
   const int i = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (i >= nloc) return;  // whole warp
-  float yc[M], rr, att[M];
+  float yc[M], rr, att[M], none[M];
   load_row<M>(y_loc, i, yc, rr);
-  head_forces<M>(y_full, hidx + (size_t)i * w, hval + (size_t)i * w, w, yc,
-                 rr, exag, lane, att);
+  row_forces<M, true, false>(y_full, hidx + (size_t)i * w,
+                             hval + (size_t)i * w, w, nullptr, nullptr, 0, 0,
+                             yc, rr, exag, lane, att, none);
   if (lane != 0) return;
   const float mk = mask != nullptr ? mask[i] : 1.f;
   float gsq = 0.f;
@@ -156,29 +286,37 @@ fused_step_kernel(const float* __restrict__ y_loc,
   gsq_out[i] = gsq;
 }
 
-template <int M>
+template <int M, bool FWD, bool RAG>
 __global__ void __launch_bounds__(THREADS)
 forces_kernel(const float* __restrict__ y_loc,
               const float* __restrict__ y_full,
               const int* __restrict__ jidx, const float* __restrict__ jval,
-              int nloc, int w, float exag, float* __restrict__ att_out) {
+              int nloc, int w, const long long* __restrict__ rowptr,
+              const int* __restrict__ dst, const float* __restrict__ val,
+              float exag, float* __restrict__ att_out) {
   const int i = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (i >= nloc) return;  // whole warp
-  float yc[M], rr, att[M];
+  float yc[M], rr, fwd[M], rag[M];
   load_row<M>(y_loc, i, yc, rr);
-  head_forces<M>(y_full, jidx + (size_t)i * w, jval + (size_t)i * w, w, yc,
-                 rr, exag, lane, att);
+  const long long e0 = RAG ? rowptr[i] : 0, e1 = RAG ? rowptr[i + 1] : 0;
+  row_forces<M, FWD, RAG>(y_full, jidx + (size_t)i * w, jval + (size_t)i * w,
+                          w, dst, val, e0, e1, yc, rr, exag, lane, fwd, rag);
   if (lane != 0) return;
 #pragma unroll
-  for (int d = 0; d < M; ++d) att_out[(size_t)i * M + d] = att[d];
+  for (int d = 0; d < M; ++d)
+    att_out[(size_t)i * M + d] = FWD && RAG ? __fadd_rn(fwd[d], rag[d])
+                                 : FWD      ? fwd[d]
+                                            : rag[d];
 }
 
-template <int M>
+template <int M, bool FWD, bool RAG>
 __global__ void __launch_bounds__(THREADS)
 loss_kernel(const float* __restrict__ y_loc, const float* __restrict__ y_full,
-            const int* __restrict__ hidx, const float* __restrict__ hval,
-            int nloc, int w, float exag, const float* __restrict__ z_ptr,
+            const int* __restrict__ jidx, const float* __restrict__ jval,
+            int nloc, int w, const long long* __restrict__ rowptr,
+            const int* __restrict__ dst, const float* __restrict__ val,
+            float exag, const float* __restrict__ z_ptr,
             float* __restrict__ loss_rows) {
   const int i = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
@@ -186,28 +324,48 @@ loss_kernel(const float* __restrict__ y_loc, const float* __restrict__ y_full,
   float yc[M], rr;
   load_row<M>(y_loc, i, yc, rr);
   const float z = *z_ptr;
-  const int* ir = hidx + (size_t)i * w;
-  const float* vr = hval + (size_t)i * w;
-  float acc = 0.f;
-  for (int c = lane; c < w; c += 32) {
-    const float v = vr[c];
-    if (!(v > 0.f)) continue;  // padding slots add exactly 0
-    float yj[M];
-    const float q = pair_q<M>(y_full, ir[c], yc, rr, yj);
-    const float pe = v * exag;
-    acc += pe * logf(pe * z / q);
-  }
-  acc = tsne::warp_sum(acc);
-  if (lane == 0) loss_rows[i] = acc;
+  const long long e0 = RAG ? rowptr[i] : 0, e1 = RAG ? rowptr[i + 1] : 0;
+  float fwd = 0.f, rag = 0.f;
+  walk_row<M, FWD, RAG>(
+      y_full, jidx + (size_t)i * w, jval + (size_t)i * w, w, dst, val, e0,
+      e1, lane,
+      [&](float v, const float (&yj)[M]) {
+        fwd += kl_term(v, exag, z, pair_q<M>(yc, rr, yj));
+      },
+      [&](float v, const float (&yj)[M]) {
+        float diff[M];
+        rag += kl_term(v, exag, z, edge_q<M>(yc, yj, diff));
+      });
+  fwd = tsne::warp_sum(fwd);
+  rag = tsne::warp_sum(rag);
+  if (lane == 0)
+    loss_rows[i] = FWD && RAG ? fwd + rag : FWD ? fwd : rag;
 }
 
 int grid_for(int nloc) { return (nloc + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK; }
+
+// the instance for the parts a launch has: the forward block when w > 0 or
+// there is no ragged part, the ragged part when rowptr is given
+template <int M>
+auto forces_for(int w, const long long* rowptr) {
+  return rowptr == nullptr ? forces_kernel<M, true, false>
+         : w == 0          ? forces_kernel<M, false, true>
+                           : forces_kernel<M, true, true>;
+}
+
+template <int M>
+auto loss_for(int w, const long long* rowptr) {
+  return rowptr == nullptr ? loss_kernel<M, true, false>
+         : w == 0          ? loss_kernel<M, false, true>
+                           : loss_kernel<M, true, true>;
+}
 
 }  // namespace
 
 // y_loc [nloc, m] (rows of y_full [*, m]), hidx/hval [nloc, w] int32/f32,
 // tail/repz/upd/gains [nloc, m] f32, mask [nloc] f32 or null; writes
 // y_out/upd_out/gains_out [nloc, m] and gsq_out [nloc] (fresh buffers).
+// 1 <= m <= 8.
 TSNE_API int tsne_fused_step_f32(const float* y_loc, const float* y_full,
                                  const int* hidx, const float* hval, int nloc,
                                  int w, int m, const float* tail,
@@ -218,53 +376,54 @@ TSNE_API int tsne_fused_step_f32(const float* y_loc, const float* y_full,
                                  float* gains_out, float* gsq_out,
                                  void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (m == 2)
-    fused_step_kernel<2><<<grid_for(nloc), THREADS, 0, s>>>(
-        y_loc, y_full, hidx, hval, nloc, w, tail, repz, mask, upd, gains, exag,
-        momentum, eta, min_gain, y_out, upd_out, gains_out, gsq_out);
-  else if (m == 3)
-    fused_step_kernel<3><<<grid_for(nloc), THREADS, 0, s>>>(
-        y_loc, y_full, hidx, hval, nloc, w, tail, repz, mask, upd, gains, exag,
-        momentum, eta, min_gain, y_out, upd_out, gains_out, gsq_out);
-  else
-    return (int)cudaErrorInvalidValue;
-  return tsne::launch_status();
+  return tsne::with_m(m, [&](auto mc) {
+    constexpr int M = decltype(mc)::value;
+    fused_step_kernel<M><<<grid_for(nloc), THREADS, 0, s>>>(
+        y_loc, y_full, hidx, hval, nloc, w, tail, repz, mask, upd, gains,
+        exag, momentum, eta, min_gain, y_out, upd_out, gains_out, gsq_out);
+    return tsne::launch_status();
+  });
 }
 
-// same head inputs; z_ptr -> the global Z (one f32 in device memory);
-// writes the per-row partial KL loss_rows [nloc].
+// y_loc [nloc, m] (rows of y_full [*, m]); the forward block jidx/jval
+// [nloc, w] int32/f32 (w may be 0); the ragged part, or null: rowptr
+// [nloc + 1] int64 into dst/val [E] int32/f32, row i's edges from
+// rowptr[i] to rowptr[i + 1]; z_ptr -> the global Z (one f32 in device
+// memory).  Writes the per-row partial KL loss_rows [nloc]: forward +
+// ragged.  1 <= m <= 8.
 TSNE_API int tsne_attraction_loss_f32(const float* y_loc, const float* y_full,
-                                      const int* hidx, const float* hval,
-                                      int nloc, int w, int m, float exag,
-                                      const float* z_ptr, float* loss_rows,
-                                      void* stream) {
+                                      const int* jidx, const float* jval,
+                                      int nloc, int w, const long long* rowptr,
+                                      const int* dst, const float* val, int m,
+                                      float exag, const float* z_ptr,
+                                      float* loss_rows, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (m == 2)
-    loss_kernel<2><<<grid_for(nloc), THREADS, 0, s>>>(
-        y_loc, y_full, hidx, hval, nloc, w, exag, z_ptr, loss_rows);
-  else if (m == 3)
-    loss_kernel<3><<<grid_for(nloc), THREADS, 0, s>>>(
-        y_loc, y_full, hidx, hval, nloc, w, exag, z_ptr, loss_rows);
-  else
-    return (int)cudaErrorInvalidValue;
-  return tsne::launch_status();
+  return tsne::with_m(m, [&](auto mc) {
+    constexpr int M = decltype(mc)::value;
+    const auto kern = loss_for<M>(w, rowptr);
+    kern<<<grid_for(nloc), THREADS, 0, s>>>(y_loc, y_full, jidx, jval, nloc,
+                                            w, rowptr, dst, val, exag, z_ptr,
+                                            loss_rows);
+    return tsne::launch_status();
+  });
 }
 
-// y_loc [nloc, m] (rows of y_full [*, m]), jidx/jval [nloc, w] int32/f32;
-// writes the attraction forces att [nloc, m] (a fresh buffer).
+// The same operands as tsne_attraction_loss_f32, without Z; writes the
+// attraction forces att [nloc, m] (a fresh buffer): forward + ragged.
+// 1 <= m <= 8.
 TSNE_API int tsne_attraction_forces_f32(const float* y_loc,
                                         const float* y_full, const int* jidx,
                                         const float* jval, int nloc, int w,
+                                        const long long* rowptr,
+                                        const int* dst, const float* val,
                                         int m, float exag, float* att,
                                         void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (m == 2)
-    forces_kernel<2><<<grid_for(nloc), THREADS, 0, s>>>(
-        y_loc, y_full, jidx, jval, nloc, w, exag, att);
-  else if (m == 3)
-    forces_kernel<3><<<grid_for(nloc), THREADS, 0, s>>>(
-        y_loc, y_full, jidx, jval, nloc, w, exag, att);
-  else
-    return (int)cudaErrorInvalidValue;
-  return tsne::launch_status();
+  return tsne::with_m(m, [&](auto mc) {
+    constexpr int M = decltype(mc)::value;
+    const auto kern = forces_for<M>(w, rowptr);
+    kern<<<grid_for(nloc), THREADS, 0, s>>>(y_loc, y_full, jidx, jval, nloc,
+                                            w, rowptr, dst, val, exag, att);
+    return tsne::launch_status();
+  });
 }

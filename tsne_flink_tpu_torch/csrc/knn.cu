@@ -48,6 +48,12 @@
 //   k-lists (64·k·8 bytes) share the 227 KB a block may have, so the stage
 //   and buffer counts are templated on k's class (tsne_knn_config):
 //   k <= 128: 3 stages, 2 buffers; k <= 160: 2 and 2; k <= 256: 2 and 1.
+// - Past k = 256 the lists of 64 rows no longer fit (64·k·8 bytes), so the
+//   deep class (k <= 1,024) gives a block 16 rows: four compute warps of
+//   16 x 32 outputs, one merge warp holding a row's list in 32 slots a
+//   lane (16·k·8 = 128 KB at k = 1,024), a 3-stage ring (22 KB a stage)
+//   and 2 Dt buffers (9 KB each).  Every column tile is then read by four
+//   times as many blocks; the k <= 256 classes keep their shape and code.
 //
 // Precision ("3xTF32"): each x splits into hi = tf32(x) and lo = tf32(x -
 // hi) (ops/knn_cuda.tf32_split states the same split); each slice
@@ -64,19 +70,33 @@
 
 namespace {
 
-constexpr int TR = 64;                 // rows a block owns
 constexpr int TC = 128;                // columns a tile sweeps
 constexpr int BK = 32;                 // features a stage holds
 constexpr int LDS = BK + 4;            // padded smem row stride (floats)
 constexpr int DSTRIDE = TC + 8;        // Dt row stride (floats)
-constexpr int COMPUTE = 256;           // compute threads (8 warps)
-constexpr int MERGE_WARPS = 4;         // 16 rows each
-constexpr int MROWS = TR / MERGE_WARPS;
-constexpr int THREADS = COMPUTE + 32 * MERGE_WARPS;
-constexpr int OPER_FLOATS = (TR + TC) * LDS;   // row tile, then column tile
-constexpr int STAGE_FLOATS = OPER_FLOATS + 2 * TC;  // + the columns' norms
-constexpr int DT_FLOATS = TR * DSTRIDE;
-constexpr int KREG = 8;                // k-list slots a merge lane holds
+constexpr int MROWS = 16;              // rows a merge warp owns
+
+// A block's shape, by k's class: MI m16 row tiles a compute warp owns, WM
+// compute warps down the rows (four across the columns), KREG k-list slots
+// a merge lane holds (k <= 32·KREG).
+template <int MI_, int WM_, int KREG_>
+struct Shape {
+  static constexpr int MI = MI_, WM = WM_, KREG = KREG_;
+  static constexpr int TR = 16 * MI * WM;            // rows a block owns
+  static constexpr int COMPUTE = 128 * WM;           // compute threads
+  static constexpr int MERGE_WARPS = TR / MROWS;
+  static constexpr int THREADS = COMPUTE + 32 * MERGE_WARPS;
+  static constexpr int OPER_FLOATS = (TR + TC) * LDS;  // row tile, column tile
+  static constexpr int STAGE_FLOATS = OPER_FLOATS + 2 * TC;  // + col norms
+  static constexpr int DT_FLOATS = TR * DSTRIDE;
+};
+// k <= 256: 64 rows a block, 8 compute warps of 32 x 32 outputs, 4 merge
+// warps; k <= 1,024: 16 rows a block (the k-lists of 64 rows would not fit
+// in shared memory), 4 compute warps of 16 x 32, 1 merge warp
+using Wide = Shape<2, 2, 8>;
+using Deep = Shape<1, 1, 32>;
+constexpr int K_MAX = 32 * Deep::KREG;
+
 // named barriers: 0 is __syncthreads
 constexpr int BAR_COMPUTE = 1;
 constexpr int BAR_FULL = 2;            // + buffer
@@ -158,6 +178,7 @@ __device__ __forceinline__ u64 warp_max(u64 v) {
 }
 
 // a lane's largest held key and its register slot
+template <int KREG>
 __device__ __forceinline__ void lane_max(const u64 (&reg)[KREG], u64& lm,
                                          int& ls) {
   lm = 0;
@@ -170,6 +191,7 @@ __device__ __forceinline__ void lane_max(const u64 (&reg)[KREG], u64& lm,
     }
 }
 
+template <int KREG>
 __device__ __forceinline__ void reg_set(u64 (&reg)[KREG], int slot, u64 v) {
 #pragma unroll
   for (int s = 0; s < KREG; ++s)
@@ -183,11 +205,15 @@ __device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
   e = (a - (s - bp)) + (b - bp);
 }
 
-template <int STAGES, int DTB>
-__global__ void __launch_bounds__(THREADS, 1)
+template <class T, int STAGES, int DTB>
+__global__ void __launch_bounds__(T::THREADS, 1)
 knn_kernel(const float* __restrict__ x, const float* __restrict__ norms,
            int n, int f, int k, int cosine, float* __restrict__ out_d,
            int* __restrict__ out_i) {
+  constexpr int MI = T::MI, KREG = T::KREG, TR = T::TR;
+  constexpr int COMPUTE = T::COMPUTE, MERGE_WARPS = T::MERGE_WARPS;
+  constexpr int THREADS = T::THREADS, OPER_FLOATS = T::OPER_FLOATS;
+  constexpr int STAGE_FLOATS = T::STAGE_FLOATS, DT_FLOATS = T::DT_FLOATS;
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;                                  // [STAGES][STAGE_FLOATS]
   float* dt = ring + STAGES * STAGE_FLOATS;            // [DTB][TR][DSTRIDE]
@@ -241,21 +267,21 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ norms,
       }
     };
 
-    // this thread's 4 rows (m-tile i, half h) and their norms
-    float nah[2][2], nal[2][2];
+    // this thread's 2·MI rows (m-tile i, half h) and their norms
+    float nah[MI][2], nal[MI][2];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int gr = row0 + wm * 32 + i * 16 + g + 8 * h;
+        const int gr = row0 + wm * 16 * MI + i * 16 + g + 8 * h;
         const bool ok = gr < n && !cosine;
         nah[i][h] = ok ? norms[2 * (size_t)gr] : 0.f;
         nal[i][h] = ok ? norms[2 * (size_t)gr + 1] : 0.f;
       }
 
-    float acc[2][4][4], sh[2][4][4], sl[2][4][4];
+    float acc[MI][4][4], sh[MI][4][4], sl[MI][4][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < MI; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -279,10 +305,10 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ norms,
       const float* bs = as + TR * LDS;
 #pragma unroll
       for (int kb = 0; kb < BK; kb += 8) {
-        unsigned ah[2][4], al[2][4], bh[4][2], bl[4][2];
+        unsigned ah[MI][4], al[MI][4], bh[4][2], bl[4][2];
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int o0 = (wm * 32 + i * 16 + g) * LDS + kb + tq;
+        for (int i = 0; i < MI; ++i) {
+          const int o0 = (wm * 16 * MI + i * 16 + g) * LDS + kb + tq;
           const int o1 = o0 + 8 * LDS;
           split_tf32(as[o0], ah[i][0], al[i][0]);
           split_tf32(as[o1], ah[i][1], al[i][1]);
@@ -298,15 +324,15 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ norms,
         // pass-major: eight independent products between two that share
         // an accumulator; each output still sums lo·hi, hi·lo, hi·hi
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < MI; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], al[i], bh[j]);
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < MI; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], ah[i], bl[j]);
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < MI; ++i)
 #pragma unroll
           for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], ah[i], bh[j]);
       }
@@ -314,7 +340,7 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ norms,
       // flush the stage's FP32 sums (32 features) into the double-float
       // totals
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -342,10 +368,10 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ norms,
                                  : *reinterpret_cast<const float4*>(nb_tile + 2 * c);
         const float nbh[2] = {nb.x, nb.z}, nbl[2] = {nb.y, nb.w};
 #pragma unroll
-        for (int i = 0; i < 2; ++i)
+        for (int i = 0; i < MI; ++i)
 #pragma unroll
           for (int h = 0; h < 2; ++h) {
-            const int r = wm * 32 + i * 16 + g + 8 * h;
+            const int r = wm * 16 * MI + i * 16 + g + 8 * h;
             const int gr = row0 + r;
             const float bar = thr[r];
             float v[2];
@@ -374,14 +400,17 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ norms,
       }
       live = __reduce_or_sync(tsne::kFullMask, live);
       if (lane == 0) {
-        // merge warp w owns rows [16w, 16w + 16): words wm*2 and wm*2 + 1
-        unsigned* word = rowmask + buf * MERGE_WARPS + wm * 2;
-        if (live & 0xffffu) atomicOr(word, live & 0xffffu);
-        if (live >> 16) atomicOr(word + 1, live >> 16);
+        // merge warp w owns rows [16w, 16w + 16): words wm·MI + i
+        unsigned* word = rowmask + buf * MERGE_WARPS + wm * MI;
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          const unsigned bits = (live >> (16 * i)) & 0xffffu;
+          if (bits) atomicOr(word + i, bits);
+        }
       }
       bar_arrive(BAR_FULL + buf, THREADS);
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+      for (int i = 0; i < MI; ++i)
 #pragma unroll
         for (int j = 0; j < 4; ++j)
 #pragma unroll
@@ -461,54 +490,78 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ norms,
   }
 }
 
-// the (stages, Dt buffers) of k's class and the dynamic shared memory
-size_t config(int k, int* stages, int* bufs) {
-  *stages = k <= 128 ? 3 : 2;
-  *bufs = k <= 160 ? 2 : 1;
-  return sizeof(float) * ((size_t)*stages * STAGE_FLOATS + (size_t)*bufs * DT_FLOATS) +
-         sizeof(u64) * ((size_t)TR * k + TR) + sizeof(int) * 2 * TR +
-         sizeof(unsigned) * (size_t)*bufs * MERGE_WARPS;
+// k's class: its shape, ring stages, Dt buffers and dynamic shared memory
+struct Config {
+  int rows, stages, bufs;
+  size_t smem;
+};
+
+template <class T>
+size_t smem_for(int stages, int bufs, int k) {
+  return sizeof(float) * ((size_t)stages * T::STAGE_FLOATS +
+                          (size_t)bufs * T::DT_FLOATS) +
+         sizeof(u64) * ((size_t)T::TR * k + T::TR) + sizeof(int) * 2 * T::TR +
+         sizeof(unsigned) * (size_t)bufs * T::MERGE_WARPS;
 }
 
-template <int STAGES, int DTB>
+// k <= 128: 3 stages, 2 buffers; k <= 160: 2 and 2; k <= 256: 2 and 1 (64
+// rows a block); k <= 1,024: 3 and 2 (16 rows a block)
+Config config(int k) {
+  if (k > 256) return {Deep::TR, 3, 2, smem_for<Deep>(3, 2, k)};
+  const int stages = k <= 128 ? 3 : 2, bufs = k <= 160 ? 2 : 1;
+  return {Wide::TR, stages, bufs, smem_for<Wide>(stages, bufs, k)};
+}
+
+template <class T, int STAGES, int DTB>
 int launch(const float* x, const float* norms, int n, int f, int k,
            int cosine, float* out_d, int* out_i, size_t smem,
            cudaStream_t stream) {
-  auto kern = knn_kernel<STAGES, DTB>;
+  auto kern = knn_kernel<T, STAGES, DTB>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + TR - 1) / TR;
-  kern<<<blocks, THREADS, smem, stream>>>(x, norms, n, f, k, cosine, out_d,
-                                          out_i);
+  const int blocks = (n + T::TR - 1) / T::TR;
+  kern<<<blocks, T::THREADS, smem, stream>>>(x, norms, n, f, k, cosine,
+                                             out_d, out_i);
   return tsne::launch_status();
 }
 
 }  // namespace
 
-// B1's configuration for k: writes the ring's stage count and the Dt
-// buffer count, returns the dynamic shared memory in bytes.
-TSNE_API int tsne_knn_config(int k, int* stages, int* bufs) {
-  return (int)config(k, stages, bufs);
+// B1's configuration for k: writes the rows a block owns, the ring's stage
+// count and the Dt buffer count, returns the dynamic shared memory in
+// bytes.
+TSNE_API int tsne_knn_config(int k, int* rows, int* stages, int* bufs) {
+  const Config c = config(k);
+  *rows = c.rows;
+  *stages = c.stages;
+  *bufs = c.bufs;
+  return (int)c.smem;
 }
 
 // x [n, f] f32 (f a multiple of 16, 16-byte aligned rows); norms [n + 1,
 // 2] f32: each row's squared norm as a (hi, lo) pair, then a zero row, 16-
 // byte aligned (unused for cosine);
 // out_d/out_i [n, k]: each row's k nearest columns, unordered.  Requires
-// 1 <= k <= min(256, n - 1).
+// 1 <= k <= min(1024, n - 1).
 TSNE_API int tsne_knn_f32(const float* x, const float* norms, int n, int f,
                           int k, int cosine, float* out_d, int* out_i,
                           void* stream) {
-  if (k < 1 || k > 32 * KREG || k > n - 1 || f % 16) return (int)cudaErrorInvalidValue;
-  int stages, bufs;
-  const size_t smem = config(k, &stages, &bufs);
+  if (k < 1 || k > K_MAX || k > n - 1 || f % 16)
+    return (int)cudaErrorInvalidValue;
+  const Config c = config(k);
   cudaStream_t s = (cudaStream_t)stream;
-  if (stages == 3)
-    return launch<3, 2>(x, norms, n, f, k, cosine, out_d, out_i, smem, s);
-  if (bufs == 2)
-    return launch<2, 2>(x, norms, n, f, k, cosine, out_d, out_i, smem, s);
-  return launch<2, 1>(x, norms, n, f, k, cosine, out_d, out_i, smem, s);
+  if (c.rows == Deep::TR)
+    return launch<Deep, 3, 2>(x, norms, n, f, k, cosine, out_d, out_i,
+                              c.smem, s);
+  if (c.stages == 3)
+    return launch<Wide, 3, 2>(x, norms, n, f, k, cosine, out_d, out_i,
+                              c.smem, s);
+  if (c.bufs == 2)
+    return launch<Wide, 2, 2>(x, norms, n, f, k, cosine, out_d, out_i,
+                              c.smem, s);
+  return launch<Wide, 2, 1>(x, norms, n, f, k, cosine, out_d, out_i, c.smem,
+                            s);
 }
 
 TSNE_API const char* tsne_error_string(int code) {

@@ -52,8 +52,9 @@
 // __match_any_sync), one byte of the key a pass, stopping as soon as the
 // chosen bin holds exactly the keys still wanted; the survivors are
 // compacted (one atomicAdd a warp) and sorted by a bitonic sort of at
-// most 1,024 keys.  The merge looks each new id up in the old list (in
-// shared memory) and sorts old ∪ new by (d, id).  The hash set's slots
+// most 8,192 keys (a keep stage's 5k at k = 1,024 rounds up to it).  The
+// merge looks each new id up in the old list (in shared memory) and sorts
+// old ∪ new by (d, id).  The hash set's slots
 // and, after it, the sort buffer and the scores share one region.  Keys
 // are unique (ids or ranks), so the result does not depend on the order
 // in which threads insert or compact: every output is written once, and
@@ -70,7 +71,7 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WIDE_F = 64;          // from this F on, a warp scores one candidate
 constexpr int NARROW_LANES = 8;     // lanes a candidate below WIDE_F
-constexpr int SORT_MAX = 1024;      // keys a row sorts: keep, or 2k in FINAL mode
+constexpr int SORT_MAX = 8192;      // keys a row sorts: keep, or 2k in FINAL mode
 constexpr int BINS = 256;           // radix-select digit: one byte
 constexpr unsigned long long KEY_NONE = ~0ull;
 constexpr size_t SMEM_MAX = 232448; // what a block may opt in to on sm_90
@@ -463,9 +464,10 @@ int launch_width(const Params& p, cudaStream_t stream) {
 // ids are proposed.  Otherwise cand [c, w] is a list, -1 for none.
 // KEEP mode when old_i is null: out_i [c, keep].  FINAL mode otherwise:
 // old_i/old_d [c, k] the rows' lists, out_i/out_d [c, k] the new ones,
-// euclid != 0 for euclidean distances.  Needs c, w >= 1, keep <= 1,024
-// (KEEP) or 2k <= 1,024 (FINAL), and the block's shared memory (a few
-// words a candidate, 2·w·(1 + ke) hash slots) within 227 KB.
+// euclid != 0 for euclidean distances.  Needs c, w >= 1, keep <= 8,192
+// (KEEP) or 2k <= 8,192 (FINAL), and the block's shared memory (a few
+// words a candidate, 2·w·(1 + ke) hash slots, 8 bytes a sorted key) within
+// 227 KB: ops/knn_cuda.refine_smem_bytes states the same layout.
 TSNE_API int tsne_refine_chunk_f32(const float* base, const float* sq, int n,
                                    int f, int row0, int c, const int* cand,
                                    int w, const int* graph, int kg, int ke,

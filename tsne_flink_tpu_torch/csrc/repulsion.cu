@@ -12,15 +12,17 @@
 // and one reciprocal.  Counted as 20·N² operations at 67 TFLOP/s that is
 // 1.07 ms at N = 60,000; the FP32 pipe at ~9 ops a pair and the MUFU pipe
 // at 16 reciprocals a clock per SM (~0.9 ms) both sit near it.  The bytes
-// (y once, rep and Z out) are under a megabyte.  m is 2 or 3, so a tensor
-// core would waste most of its depth: this is FP32 and SFU work.
+// (y once, rep and Z out) are under a megabyte.  m is small (1 to 8, the
+// JAX package's MPAD), so a tensor core would waste most of its depth:
+// this is FP32 and SFU work.
 //
 // Design:
 // - Register blocking: each thread owns R = 4 rows (strided by the block
 //   size, so loads coalesce), holds their coordinates and R·(m+1)
 //   accumulators in registers, and reuses every y_j it reads from shared
-//   memory (one float4 broadcast: x, y, z and the column's 0/1 weight)
-//   across its R rows: one shared-memory load per R pairs.
+//   memory (for m <= 3 one float4 broadcast: x, y, z and the column's 0/1
+//   weight; for m >= 4 two or three float4s, the weight last) across its
+//   R rows: one shared-memory staging per R pairs.
 // - One MUFU op a pair: q = rcp.approx.ftz(1 + d²) (1 + d² >= 1, so
 //   flushing denormals costs nothing; at most ~1 ulp).
 // - Masks out of the inner loop: the sweep is templated on whether
@@ -43,6 +45,11 @@ constexpr int R = 4;                       // rows a thread owns
 constexpr int ROWS = THREADS * R;          // rows a block owns
 constexpr int TJ = 512;                    // columns a tile stages
 
+// a staged column: its M coordinates, zeros, and its 0/1 weight last, in
+// V float4s (one for m <= 3, as x, y, z, w)
+template <int M>
+__host__ __device__ constexpr int vecs_for() { return M <= 3 ? 1 : (M + 1 + 3) / 4; }
+
 __device__ __forceinline__ float rcp_approx(float x) {
   float r;
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
@@ -54,10 +61,18 @@ __device__ __forceinline__ void sweep(const float4* __restrict__ ys, int cnt,
                                       int j0, const float (&yi)[R][M],
                                       const int (&gi)[R],
                                       float (&tacc)[R][M + 1]) {
+  constexpr int V = vecs_for<M>();
 #pragma unroll 2
   for (int jj = 0; jj < cnt; ++jj) {
-    const float4 p = ys[jj];
-    const float pj[3] = {p.x, p.y, p.z};
+    float pj[4 * V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const float4 p = ys[jj * V + v];
+      pj[4 * v] = p.x;
+      pj[4 * v + 1] = p.y;
+      pj[4 * v + 2] = p.z;
+      pj[4 * v + 3] = p.w;
+    }
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       float diff[M];
@@ -68,7 +83,7 @@ __device__ __forceinline__ void sweep(const float4* __restrict__ ys, int cnt,
         d2 = fmaf(diff[d], diff[d], d2);
       }
       float q = rcp_approx(1.f + d2);
-      if (VALID) q *= p.w;
+      if (VALID) q *= pj[4 * V - 1];
       if (DIAG) q = (j0 + jj == gi[r]) ? 0.f : q;
       tacc[r][M] += q;
       const float q2 = q * q;
@@ -84,7 +99,8 @@ repulsion_kernel(const float* __restrict__ y_loc,
                  const float* __restrict__ y_full,
                  const unsigned char* __restrict__ valid, int nloc, int nfull,
                  int row_offset, int col_span, float* __restrict__ part) {
-  __shared__ float4 ys[TJ];
+  constexpr int V = vecs_for<M>();
+  __shared__ float4 ys[TJ * V];
 
   const int t = threadIdx.x;
   const int row0 = blockIdx.x * ROWS;
@@ -110,8 +126,14 @@ repulsion_kernel(const float* __restrict__ y_loc,
     __syncthreads();
     for (int e = t; e < cnt; e += THREADS) {
       const float* src = y_full + (size_t)(j0 + e) * M;
-      ys[e] = make_float4(src[0], src[1], M == 3 ? src[M - 1] : 0.f,
-                          VALID ? (valid[j0 + e] ? 1.f : 0.f) : 1.f);
+      float c[4 * V];
+#pragma unroll
+      for (int d = 0; d < 4 * V - 1; ++d) c[d] = d < M ? src[d] : 0.f;
+      c[4 * V - 1] = VALID ? (valid[j0 + e] ? 1.f : 0.f) : 1.f;
+#pragma unroll
+      for (int v = 0; v < V; ++v)
+        ys[e * V + v] = make_float4(c[4 * v], c[4 * v + 1], c[4 * v + 2],
+                                    c[4 * v + 3]);
     }
     __syncthreads();
 
@@ -161,7 +183,7 @@ int launch(const float* y_loc, const float* y_full, const unsigned char* valid,
 }  // namespace
 
 // y_loc [nloc, m] = rows [row_offset, row_offset + nloc) of y_full
-// [nfull, m] (m = 2 or 3, f32), valid [nfull] uint8 or null (all valid);
+// [nfull, m] (1 <= m <= 8, f32), valid [nfull] uint8 or null (all valid);
 // the columns split into `splits` equal ranges, one per grid row; writes
 // part [splits, nloc, m + 1]: per split, each row's partial rep and Z.
 TSNE_API int tsne_repulsion_f32(const float* y_loc, const float* y_full,
@@ -170,11 +192,8 @@ TSNE_API int tsne_repulsion_f32(const float* y_loc, const float* y_full,
                                 float* part, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (splits < 1 || splits > 65535) return (int)cudaErrorInvalidValue;
-  if (m == 2)
-    return launch<2>(y_loc, y_full, valid, nloc, nfull, row_offset, splits,
-                     part, s);
-  if (m == 3)
-    return launch<3>(y_loc, y_full, valid, nloc, nfull, row_offset, splits,
-                     part, s);
-  return (int)cudaErrorInvalidValue;
+  return tsne::with_m(m, [&](auto mc) {
+    return launch<decltype(mc)::value>(y_loc, y_full, valid, nloc, nfull,
+                                       row_offset, splits, part, s);
+  });
 }

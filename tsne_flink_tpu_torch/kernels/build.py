@@ -43,9 +43,10 @@ SIGNATURES = {
     "tsne_repulsion_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
     "tsne_fused_step_f32": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
                             _F, _F, _F, _F, _P, _P, _P, _P, _P],
-    "tsne_attraction_loss_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P,
-                                 _P],
-    "tsne_attraction_forces_f32": [_P, _P, _P, _P, _I, _I, _I, _F, _P, _P],
+    "tsne_attraction_loss_f32": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I,
+                                 _F, _P, _P, _P],
+    "tsne_attraction_forces_f32": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I,
+                                   _F, _P, _P],
     "tsne_refine_chunk_f32": [_P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _I,
                               _I, _P, _P, _I, _I, _P, _P, _P],
 }
@@ -128,7 +129,7 @@ def library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.tsne_knn_config.argtypes = [_I, _P, _P]
+    lib.tsne_knn_config.argtypes = [_I, _P, _P, _P]
     lib.tsne_knn_config.restype = ctypes.c_int
     lib.tsne_error_string.argtypes = [ctypes.c_int]
     lib.tsne_error_string.restype = ctypes.c_char_p

@@ -7,15 +7,15 @@ every attraction layout:
 * every iteration — the repulsion (exact, kernel B2; or FFT, with the
   grid geometry built once per run and the spectral Z used as the global
   Z), then either the fused
-  CSR step (the CSR tail forces by a deterministic sorted segment sum,
-  then the head step, kernel B3) or the unfused step: the attraction
-  forces of the armed layout (kernel B5 over the [N, S] rows, the blocks
-  layout's forward block or a CSR head; sorted segment sums over an edge
-  list, the blocks layout's reverse block or a CSR tail), grad = att −
-  rep/Z, the vdM update; then centering;
-* every ``LOSS_EVERY``-th iteration — the KL pass (kernel B4 over the row
-  part + the edge part's share), written into a loss trace that stays on
-  the device.
+  CSR step (the CSR tail's forces by kernel B5 over the tail alone, then
+  the head step, kernel B3) or the unfused step: the attraction forces
+  of the armed layout in one launch of kernel B5 over its row part (the
+  [N, S] rows, the blocks layout's forward block or a CSR head) and its
+  edge part (the flat edge list, the blocks layout's reverse block or a
+  CSR tail), grad = att − rep/Z, the vdM update; then centering;
+* every ``LOSS_EVERY``-th iteration — the KL pass (one launch of kernel
+  B4 over both parts), written into a loss trace that stays on the
+  device.
 
 The loop is a Python loop with no per-iteration host sync: the phase
 gates (momentum, exaggeration, the KL report) depend on the iteration
@@ -39,7 +39,6 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tsne_flink_tpu_torch.ops.metrics import metric_fn
 from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
 from tsne_flink_tpu_torch.utils.device import resolve_device, timed_stage
 
@@ -111,51 +110,14 @@ def init_working_set(generator: torch.Generator | None, n: int,
                      gains=torch.ones_like(y))
 
 
-def _segment_sum(data, lengths):
-    """Sorted segment sum: segment i owns the next ``lengths[i]`` rows of
-    ``data``.  Each segment is reduced by one thread in order — no atomic
-    scatter, so the result is the same on every run."""
-    return torch.segment_reduce(data, "sum", lengths=lengths, axis=0)
-
-
 def _without_padding(edges):
     """An edge list without its padding entries (val = 0; they add exactly
-    nothing).  The padding all lands in row n-1's segment, and a sorted
-    segment sum walks each segment in one thread: the blocks layout's
-    1.7M padding slots at N = 60,000 cost 110 ms an iteration on an H100.
-    One host sync, once per run."""
+    nothing).  The padding all lands in row n-1's segment, and a kernel
+    walks each segment in one warp: the blocks layout's 1.7M padding slots
+    at N = 60,000 would all fall to one row.  One host sync, once per
+    run."""
     keep = edges[2] > 0
     return tuple(a[keep] for a in edges)
-
-
-def _edge_forces(y_local, y_full, src, dst, val, exag, lengths=None):
-    """Attraction forces of a flat edge list sorted by ``src`` (the CSR
-    tail): Σ_e val·exag·q (y_src − y_dst) per source row."""
-    if lengths is None:
-        lengths = torch.bincount(src.long(), minlength=y_local.shape[0])
-    f = metric_fn("sqeuclidean")
-    yi = y_local[src.long()]
-    yj = y_full[dst.long()]
-    q = 1.0 / (1.0 + f(yi, yj))
-    w = val * exag * q
-    return _segment_sum(w[:, None] * (yi - yj), lengths)
-
-
-def _edge_loss(y_local, y_full, src, dst, val, exag, z, lengths=None):
-    """Per-row partial KL of a sorted edge list (zero-valued padding
-    edges add exactly 0)."""
-    if lengths is None:
-        lengths = torch.bincount(src.long(), minlength=y_local.shape[0])
-    f = metric_fn("sqeuclidean")
-    yi = y_local[src.long()]
-    yj = y_full[dst.long()]
-    q = 1.0 / (1.0 + f(yi, yj))
-    pe = val * exag
-    mask = val > 0
-    pe_safe = torch.where(mask, pe, 1.0)
-    q_safe = torch.where(mask, q, 1.0)
-    terms = torch.where(mask, pe * torch.log(pe_safe * z / q_safe), 0.0)
-    return _segment_sum(terms, lengths)
 
 
 def _repulsion_scratch(cfg: TsneConfig, m: int, dtype, device):
@@ -189,72 +151,55 @@ def _repulsion(y_local, y_full, cfg: TsneConfig, row_offset=0,
     return rep, torch.sum(zrow)
 
 
-def _attraction_forces(y_local, y_full, jidx, jval, cfg: TsneConfig, exag,
-                       edges=None, edges_extra=False, csr=None,
-                       edge_len=None):
-    """F_attr_i = Σ_j P_ij q_ij (y_i − y_j) over the armed layout: the
-    CSR head (kernel B5) + tail, the split-blocks pair (B5 over the
-    forward block + the reverse edges), the flat edge list, or the padded
-    [N, S] rows (B5).  ``edge_len`` is the per-row length of the edge
-    part, computed once per run.  Cast to the state dtype."""
+def _attraction_forces(y_local, y_full, fidx, fval, cfg: TsneConfig, exag,
+                       ragged=None):
+    """F_attr_i = Σ_j P_ij q_ij (y_i − y_j) over the armed layout, one
+    launch of kernel B5: its row block ``(fidx, fval)`` — the CSR head,
+    the blocks layout's forward block, the padded [N, S] rows, or None —
+    and its ``ragged`` part (``ops/attraction_cuda.Ragged``) — the CSR
+    tail, the blocks layout's reverse edges, the flat edge list, or None.
+    Cast to the state dtype."""
     from tsne_flink_tpu_torch.ops.attraction_cuda import attraction_forces
-    if csr is not None:
-        hidx, hval, tsrc, tdst, tval = csr
-        att = (attraction_forces(y_local, y_full, hidx, hval, exag,
-                                 row_chunk=cfg.row_chunk)
-               + _edge_forces(y_local, y_full, tsrc, tdst, tval, exag,
-                              edge_len))
-    elif edges is not None and edges_extra:
-        att = (attraction_forces(y_local, y_full, jidx, jval, exag,
-                                 row_chunk=cfg.row_chunk)
-               + _edge_forces(y_local, y_full, *edges, exag, edge_len))
-    elif edges is not None:
-        att = _edge_forces(y_local, y_full, *edges, exag, edge_len)
-    else:
-        att = attraction_forces(y_local, y_full, jidx, jval, exag,
-                                row_chunk=cfg.row_chunk)
-    return att.to(y_local.dtype)
+    return attraction_forces(y_local, y_full, fidx, fval, exag,
+                             ragged=ragged,
+                             row_chunk=cfg.row_chunk).to(y_local.dtype)
 
 
-def _attraction_loss(y_local, y_full, jidx, jval, cfg: TsneConfig, exag, z,
-                     edges=None, edges_extra=False, csr=None, edge_len=None):
-    """Per-row partial KL Σ p log(p/(q/Z)) [nloc] over the armed layout
-    (kernel B4 over the row part), cast to the state dtype."""
+def _attraction_loss(y_local, y_full, fidx, fval, cfg: TsneConfig, exag, z,
+                     ragged=None):
+    """Per-row partial KL Σ p log(p/(q/Z)) [nloc] over the same parts, one
+    launch of kernel B4, cast to the state dtype."""
     from tsne_flink_tpu_torch.ops.attraction_cuda import attraction_loss
-    if csr is not None:
-        hidx, hval, tsrc, tdst, tval = csr
-        loss = (attraction_loss(y_local, y_full, hidx, hval, exag, z,
-                                row_chunk=cfg.row_chunk)
-                + _edge_loss(y_local, y_full, tsrc, tdst, tval, exag, z,
-                             edge_len))
-    elif edges is not None and edges_extra:
-        loss = (attraction_loss(y_local, y_full, jidx, jval, exag, z,
-                                row_chunk=cfg.row_chunk)
-                + _edge_loss(y_local, y_full, *edges, exag, z, edge_len))
-    elif edges is not None:
-        loss = _edge_loss(y_local, y_full, *edges, exag, z, edge_len)
-    else:
-        loss = attraction_loss(y_local, y_full, jidx, jval, exag, z,
-                               row_chunk=cfg.row_chunk)
-    return loss.to(y_local.dtype)
+    return attraction_loss(y_local, y_full, fidx, fval, exag, z,
+                           ragged=ragged,
+                           row_chunk=cfg.row_chunk).to(y_local.dtype)
 
 
-def _gradient(y_local, jidx, jval, cfg: TsneConfig, exag, valid_full=None,
-              edges=None, edges_extra=False, csr=None, want_loss=True,
-              edge_len=None, rep_scratch=None):
+def _gradient(y_local, fidx, fval, cfg: TsneConfig, exag, valid_full=None,
+              ragged=None, want_loss=True, rep_scratch=None):
     """``(grad, loss)``: grad_i = F_attr_i − F_rep_i / Z
     (TsneHelpers.scala:311-317), and the KL as a 0-d tensor when
     ``want_loss``, else None (the KL pass does not run)."""
     rep, z = _repulsion(y_local, y_local, cfg, valid_full=valid_full,
                         rep_scratch=rep_scratch)
-    layout = dict(edges=edges, edges_extra=edges_extra, csr=csr,
-                  edge_len=edge_len)
-    att = _attraction_forces(y_local, y_local, jidx, jval, cfg, exag,
-                             **layout)
-    loss = (torch.sum(_attraction_loss(y_local, y_local, jidx, jval, cfg,
-                                       exag, z, **layout))
+    att = _attraction_forces(y_local, y_local, fidx, fval, cfg, exag, ragged)
+    loss = (torch.sum(_attraction_loss(y_local, y_local, fidx, fval, cfg,
+                                       exag, z, ragged))
             if want_loss else None)
     return att - rep / z, loss
+
+
+def _layout_parts(jidx, jval, n: int, edges, edges_extra: bool, csr):
+    """The armed layout as B4/B5 take it, built once per run: ``(fidx,
+    fval, ragged)`` — the row block (None for the flat edge list) and the
+    edge part without its padding (None for the padded rows)."""
+    from tsne_flink_tpu_torch.ops.attraction_cuda import ragged_edges
+    if csr is not None:
+        return csr[0], csr[1], ragged_edges(*_without_padding(csr[2:]), n)
+    if edges is None:
+        return jidx, jval, None
+    ragged = ragged_edges(*_without_padding(edges), n)
+    return (jidx, jval, ragged) if edges_extra else (None, None, ragged)
 
 
 def _update_embedding(state: TsneState, grad, momentum, cfg: TsneConfig):
@@ -317,17 +262,8 @@ def optimize(state: TsneState, jidx, jval, cfg: TsneConfig, *,
     from tsne_flink_tpu_torch.ops.attraction_cuda import fused_step_update
 
     fused = csr is not None and fused_step is not False
-    n = state.y.shape[0]
-    if csr is not None:
-        csr = csr[:2] + _without_padding(csr[2:])
-    elif edges is not None:
-        edges = _without_padding(edges)
-    # the edge part's per-row lengths, for its sorted segment sums
-    esrc = csr[2] if csr is not None else None if edges is None else edges[0]
-    edge_len = (None if esrc is None
-                else torch.bincount(esrc.long(), minlength=n))
-    layout = dict(edges=edges, edges_extra=edges_extra, csr=csr,
-                  edge_len=edge_len)
+    fidx, fval, ragged = _layout_parts(jidx, jval, state.y.shape[0], edges,
+                                       edges_extra, csr)
     scratch = _repulsion_scratch(cfg, state.y.shape[1], state.y.dtype,
                                  state.y.device)
     n_slots = max(cfg.n_loss_slots, 1)
@@ -346,19 +282,19 @@ def optimize(state: TsneState, jidx, jval, cfg: TsneConfig, *,
                                 rep_scratch=scratch)
             if record:
                 losses[loss_slot(i, n_slots)] = torch.sum(_attraction_loss(
-                    st.y, st.y, jidx, jval, cfg, exag, z, **layout))
-            hidx, hval, tsrc, tdst, tval = csr
-            tail = _edge_forces(st.y, st.y, tsrc, tdst, tval, exag,
-                                edge_len).to(st.y.dtype)
+                    st.y, st.y, fidx, fval, cfg, exag, z, ragged))
+            # the tail's forces: B5 over the ragged part alone
+            tail = _attraction_forces(st.y, st.y, None, None, cfg, exag,
+                                      ragged)
             y2, u2, g2, _gsq = fused_step_update(
-                st.y, st.y, hidx, hval, exag, tail, rep / z, valid,
+                st.y, st.y, fidx, fval, exag, tail, rep / z, valid,
                 st.update, st.gains, momentum, eta=cfg.learning_rate,
                 min_gain=cfg.min_gain, row_chunk=cfg.row_chunk)
             st = TsneState(y=y2, update=u2, gains=g2)
         else:
-            grad, loss = _gradient(st.y, jidx, jval, cfg, exag,
-                                   valid_full=valid, want_loss=record,
-                                   rep_scratch=scratch, **layout)
+            grad, loss = _gradient(st.y, fidx, fval, cfg, exag,
+                                   valid_full=valid, ragged=ragged,
+                                   want_loss=record, rep_scratch=scratch)
             if record:
                 losses[loss_slot(i, n_slots)] = loss
             if valid is not None:
@@ -424,6 +360,12 @@ def tsne_embed(x, cfg: TsneConfig | None = None, *,
     the labels of the resolved ``assembly`` and attraction ``layout``
     (csr | edges | rows | blocks)."""
     cfg = cfg or TsneConfig()
+    from tsne_flink_tpu_torch.ops.attraction_cuda import M_MAX
+    if not 1 <= cfg.n_components <= M_MAX:
+        raise ValueError(
+            f"n_components = {cfg.n_components} is outside 1..{M_MAX}: the "
+            f"repulsion and attraction kernels (B2-B5) are built for every "
+            f"embedding width up to the JAX package's MPAD = {M_MAX}")
     device = resolve_device(device)
     x = torch.as_tensor(x, device=device)
     n = x.shape[0]

@@ -11,32 +11,62 @@ Port of ``tsne_flink_tpu/ops/attraction_pallas.py``:
   forces, the tail/repulsion combine, vdM gains, momentum and the y
   update in one pass per row, plus per-row ‖grad‖².
 * :func:`attraction_loss` (B4, replaces ``::_loss_kernel``): per-row KL
-  partials Σ pe·log(pe·Z/q) over the head.
+  partials Σ pe·log(pe·Z/q) over a row block and a ragged edge part.
 * :func:`attraction_forces` (B5, replaces ``::_forces_kernel``): the
-  forces y_i·Σw − Σw·y_j alone, over any row layout — the [N, S] rows,
-  the blocks layout's forward block or a CSR head in the unfused step.
+  forces of a row's whole attraction pass — over a row block of any width
+  (the [N, S] rows, the blocks layout's forward block, a CSR head; W may
+  be 0) and a ragged part (:class:`Ragged`: the blocks layout's reverse
+  edges, the edges layout's list, a CSR tail), y_i·Σw − Σw·y_j and
+  Σ w·(y_i − y_j), added as forward + ragged.
 
 The kernels are ``csrc/attraction.cu``; its header says what bounds them
-on an H100 (bytes) and how they gather ``y_full[hidx]`` inside the kernel
-instead of materialising it.  On CPU tensors the wrappers run
-:func:`fused_step_plain` / :func:`attraction_loss_plain` /
-:func:`attraction_forces_plain`, which mirror the JAX package's XLA twins
-(``_xla_fused`` / ``_xla_loss`` / ``_xla_forces``) operation for
-operation, the fused one through the same head math as the forces; on
-CUDA tensors they launch the kernels or raise.
+on an H100 (bytes) and how one warp walks a row's slots of both parts,
+gathering ``y_full[j]`` inside the kernel instead of materialising it.
+On CPU tensors the wrappers run :func:`fused_step_plain` /
+:func:`attraction_loss_plain` / :func:`attraction_forces_plain`, which
+mirror the JAX package's XLA twins (``_xla_fused`` / ``_xla_loss`` /
+``_xla_forces``) operation for operation, the fused one through the same
+head math as the forces, and its segment sums over an edge list
+(:func:`edge_forces_plain`, :func:`edge_loss_plain`); on CUDA tensors
+they launch the kernels or raise.  The kernels take every m from 1 to
+:data:`M_MAX`.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from tsne_flink_tpu_torch.kernels.build import KERNELS
+from tsne_flink_tpu_torch.ops.metrics import metric_fn
 
 #: padding multiple of the CSR tail edge list
 TAIL_MULTIPLE = 1024
+#: the widest embedding the kernels take (the JAX package's MPAD)
+M_MAX = 8
+
+
+class Ragged(NamedTuple):
+    """A src-sorted edge list as B4 and B5 take it: row i's edges are
+    ``dst``/``val`` [rowptr[i], rowptr[i + 1]).  ``src`` [E] is kept for
+    the plain versions' segment sums."""
+
+    rowptr: torch.Tensor  # int64 [nloc + 1]
+    src: torch.Tensor
+    dst: torch.Tensor
+    val: torch.Tensor
+
+
+def ragged_edges(src, dst, val, nloc: int) -> Ragged:
+    """The :class:`Ragged` form of a src-sorted edge list over ``nloc``
+    rows (built once per run)."""
+    rowptr = torch.zeros(nloc + 1, dtype=torch.int64, device=src.device)
+    torch.cumsum(torch.bincount(src.long(), minlength=nloc), 0,
+                 out=rowptr[1:])
+    return Ragged(rowptr, src, dst, val)
 
 
 # ---- CSR cap policy + one-time build ---------------------------------------
@@ -152,44 +182,116 @@ def fused_step_plain(y_local, y_full, jidx, jval, exag, tail_att, repz,
     return tuple(torch.cat(parts) for parts in zip(*outs))
 
 
+def _segment_sum(data, lengths):
+    """Sorted segment sum: segment i owns the next ``lengths[i]`` rows of
+    ``data``.  Each segment is reduced by one thread in order — no atomic
+    scatter, so the result is the same on every run."""
+    return torch.segment_reduce(data, "sum", lengths=lengths, axis=0)
+
+
+def edge_forces_plain(y_local, y_full, src, dst, val, exag, lengths=None):
+    """Attraction forces of a flat edge list sorted by ``src``:
+    Σ_e val·exag·q (y_src − y_dst) per source row."""
+    if lengths is None:
+        lengths = torch.bincount(src.long(), minlength=y_local.shape[0])
+    f = metric_fn("sqeuclidean")
+    yi = y_local[src.long()]
+    yj = y_full[dst.long()]
+    q = 1.0 / (1.0 + f(yi, yj))
+    w = val * exag * q
+    return _segment_sum(w[:, None] * (yi - yj), lengths)
+
+
+def edge_loss_plain(y_local, y_full, src, dst, val, exag, z, lengths=None):
+    """Per-row partial KL of a sorted edge list (zero-valued padding
+    edges add exactly 0)."""
+    if lengths is None:
+        lengths = torch.bincount(src.long(), minlength=y_local.shape[0])
+    f = metric_fn("sqeuclidean")
+    yi = y_local[src.long()]
+    yj = y_full[dst.long()]
+    q = 1.0 / (1.0 + f(yi, yj))
+    pe = val * exag
+    mask = val > 0
+    pe_safe = torch.where(mask, pe, 1.0)
+    q_safe = torch.where(mask, q, 1.0)
+    terms = torch.where(mask, pe * torch.log(pe_safe * z / q_safe), 0.0)
+    return _segment_sum(terms, lengths)
+
+
+def _has_block(jidx, ragged) -> bool:
+    """Whether a call has a row-block part: W > 0, or no ragged part (the
+    kernels' rule, csrc/attraction.cu)."""
+    return ragged is None or (jidx is not None and jidx.shape[1] > 0)
+
+
 def attraction_forces_plain(y_local, y_full, jidx, jval, exag, *,
+                            ragged: Ragged | None = None,
                             row_chunk: int = 4096):
-    """Plain version of B5: forces [nloc, m], chunked over rows."""
-    return torch.cat([
-        _plain_forces(y_local[s:s + row_chunk],
-                      y_full[jidx[s:s + row_chunk].long()],
-                      jval[s:s + row_chunk], exag)
-        for s in range(0, y_local.shape[0], row_chunk)])
+    """Plain version of B5: forces [nloc, m] — the row block's, chunked
+    over rows, + the ragged part's sorted segment sum."""
+    att = None
+    if _has_block(jidx, ragged):
+        att = torch.cat([
+            _plain_forces(y_local[s:s + row_chunk],
+                          y_full[jidx[s:s + row_chunk].long()],
+                          jval[s:s + row_chunk], exag)
+            for s in range(0, y_local.shape[0], row_chunk)])
+    if ragged is None:
+        return att
+    rag = edge_forces_plain(y_local, y_full, ragged.src, ragged.dst,
+                            ragged.val, exag, torch.diff(ragged.rowptr))
+    return rag if att is None else att + rag
 
 
 def attraction_loss_plain(y_local, y_full, jidx, jval, exag, z, *,
+                          ragged: Ragged | None = None,
                           row_chunk: int = 4096):
-    """Plain version of B4: per-row partial KL [nloc]."""
-    return torch.cat([
-        _plain_loss(y_local[s:s + row_chunk],
-                    y_full[jidx[s:s + row_chunk].long()],
-                    jval[s:s + row_chunk], exag, z)
-        for s in range(0, y_local.shape[0], row_chunk)])
+    """Plain version of B4: per-row partial KL [nloc] — the row block's +
+    the ragged part's."""
+    loss = None
+    if _has_block(jidx, ragged):
+        loss = torch.cat([
+            _plain_loss(y_local[s:s + row_chunk],
+                        y_full[jidx[s:s + row_chunk].long()],
+                        jval[s:s + row_chunk], exag, z)
+            for s in range(0, y_local.shape[0], row_chunk)])
+    if ragged is None:
+        return loss
+    rag = edge_loss_plain(y_local, y_full, ragged.src, ragged.dst,
+                          ragged.val, exag, z, torch.diff(ragged.rowptr))
+    return rag if loss is None else loss + rag
 
 
 # ---- wrappers ---------------------------------------------------------------
 
-def _check_cuda(name, y_local, y_full, jidx, jval, planes=()):
+def _check_cuda(name, y_local, y_full, jidx, jval, planes=(), ragged=None):
     """Device, dtype, shape and contiguity of a head kernel's operands;
-    ``planes`` are [nloc, m] f32 state planes."""
+    ``planes`` are [nloc, m] f32 state planes, ``ragged`` a
+    :class:`Ragged` part.  Returns the block's width W (0 without one)."""
     dev = y_local.device
     if not y_local.is_cuda:
         raise ValueError(f"{name} kernel takes CUDA tensors, got {dev}")
     nloc, m = y_local.shape
-    if m not in (2, 3) or y_full.dim() != 2 or y_full.shape[1] != m:
-        raise ValueError(f"{name} kernel takes [N, m] embeddings with m = 2 "
-                         f"or 3; got {tuple(y_local.shape)} and "
+    if not 1 <= m <= M_MAX or y_full.dim() != 2 or y_full.shape[1] != m:
+        raise ValueError(f"{name} kernel takes [N, m] embeddings with 1 <= "
+                         f"m <= {M_MAX}; got {tuple(y_local.shape)} and "
                          f"{tuple(y_full.shape)}")
-    w = jidx.shape[1]
+    if y_full.data_ptr() % 16:
+        raise ValueError(f"{name} kernel gathers y_full's rows as vectors: "
+                         "it needs a 16-byte aligned base")
     want = [(y_local, torch.float32, (nloc, m)),
-            (y_full, torch.float32, tuple(y_full.shape)),
-            (jidx, torch.int32, (nloc, w)), (jval, torch.float32, (nloc, w))]
+            (y_full, torch.float32, tuple(y_full.shape))]
+    w = 0 if jidx is None else jidx.shape[1]
+    if jidx is not None:
+        want += [(jidx, torch.int32, (nloc, w)),
+                 (jval, torch.float32, (nloc, w))]
     want += [(p, torch.float32, (nloc, m)) for p in planes]
+    if ragged is not None:
+        e = ragged.dst.shape[0]
+        want += [(ragged.rowptr, torch.int64, (nloc + 1,)),
+                 (ragged.dst, torch.int32, (e,)),
+                 (ragged.val, torch.float32, (e,))]
     for t, dtype, shape in want:
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"{name} kernel: expected {dtype} {shape} on "
@@ -197,6 +299,21 @@ def _check_cuda(name, y_local, y_full, jidx, jval, planes=()):
                              f"{t.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} kernel takes contiguous tensors")
+    return w
+
+
+def _launch_rows(kernel, y_local, y_full, jidx, jval, w, ragged, *args):
+    """Launch B4 or B5 over ``y_local``'s rows: the row block (null
+    pointers when W = 0), the ragged part (null without one), then
+    ``args``."""
+    if y_local.shape[0] == 0:
+        return
+    blk = (None, None) if w == 0 else (jidx.data_ptr(), jval.data_ptr())
+    rag = ((None, None, None) if ragged is None else
+           (ragged.rowptr.data_ptr(), ragged.dst.data_ptr(),
+            ragged.val.data_ptr()))
+    kernel(y_local.data_ptr(), y_full.data_ptr(), *blk, y_local.shape[0], w,
+           *rag, y_local.shape[1], *args)
 
 
 def fused_step_update(y_local, y_full, jidx, jval, exag, tail_att, repz,
@@ -236,37 +353,35 @@ def fused_step_update(y_local, y_full, jidx, jval, exag, tail_att, repz,
 
 
 def attraction_loss(y_local, y_full, jidx, jval, exag, z, *,
-                    row_chunk: int = 4096):
-    """Per-row partial KL over a CSR head: [nloc] (sum it for the
-    scalar).  ``z`` is the global Z — a 0-d tensor (read on the device by
-    the kernel, no host sync) or a float."""
+                    ragged: Ragged | None = None, row_chunk: int = 4096):
+    """Per-row partial KL [nloc] (sum it for the scalar) over a row block
+    ``(jidx, jval)`` [nloc, W] (None or W = 0: none) and a ``ragged``
+    part: forward + ragged.  ``z`` is the global Z — a 0-d tensor (read on
+    the device by the kernel, no host sync) or a float."""
     if y_local.device.type == "cpu":
         return attraction_loss_plain(y_local, y_full, jidx, jval, exag, z,
-                                     row_chunk=row_chunk)
-    _check_cuda("B4", y_local, y_full, jidx, jval)
+                                     ragged=ragged, row_chunk=row_chunk)
+    w = _check_cuda("B4", y_local, y_full, jidx, jval, ragged=ragged)
     z = torch.as_tensor(z, dtype=torch.float32,
                         device=y_local.device).reshape(1).contiguous()
-    nloc = y_local.shape[0]
-    loss = torch.empty(nloc, device=y_local.device, dtype=torch.float32)
-    if nloc:
-        KERNELS["B4"](y_local.data_ptr(), y_full.data_ptr(), jidx.data_ptr(),
-                      jval.data_ptr(), nloc, jidx.shape[1], y_local.shape[1],
-                      float(exag), z.data_ptr(), loss.data_ptr())
+    loss = torch.empty(y_local.shape[0], device=y_local.device,
+                       dtype=torch.float32)
+    _launch_rows(KERNELS["B4"], y_local, y_full, jidx, jval, w, ragged,
+                 float(exag), z.data_ptr(), loss.data_ptr())
     return loss
 
 
 def attraction_forces(y_local, y_full, jidx, jval, exag, *,
-                      row_chunk: int = 4096):
-    """Attraction forces over a row block ``(jidx, jval)`` [nloc, W] of
-    any width: [nloc, m], a new tensor.  ``exag`` is a host float."""
+                      ragged: Ragged | None = None, row_chunk: int = 4096):
+    """Attraction forces [nloc, m], a new tensor, over a row block
+    ``(jidx, jval)`` [nloc, W] of any width (None or W = 0: none) and a
+    ``ragged`` part (:class:`Ragged`, None: none): forward + ragged.
+    ``exag`` is a host float."""
     if y_local.device.type == "cpu":
         return attraction_forces_plain(y_local, y_full, jidx, jval, exag,
-                                       row_chunk=row_chunk)
-    _check_cuda("B5", y_local, y_full, jidx, jval)
-    nloc = y_local.shape[0]
+                                       ragged=ragged, row_chunk=row_chunk)
+    w = _check_cuda("B5", y_local, y_full, jidx, jval, ragged=ragged)
     att = torch.empty_like(y_local)
-    if nloc:
-        KERNELS["B5"](y_local.data_ptr(), y_full.data_ptr(), jidx.data_ptr(),
-                      jval.data_ptr(), nloc, jidx.shape[1], y_local.shape[1],
-                      float(exag), att.data_ptr())
+    _launch_rows(KERNELS["B5"], y_local, y_full, jidx, jval, w, ragged,
+                 float(exag), att.data_ptr())
     return att

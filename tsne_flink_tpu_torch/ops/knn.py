@@ -32,8 +32,8 @@ from dataclasses import dataclass
 
 import torch
 
-from tsne_flink_tpu_torch.ops.knn_cuda import (fused_knn, refine_final,
-                                               refine_keep)
+from tsne_flink_tpu_torch.ops.knn_cuda import (CAND_F_MAX, K_MAX, fused_knn,
+                                               refine_final, refine_keep)
 from tsne_flink_tpu_torch.ops.metrics import pairwise
 from tsne_flink_tpu_torch.ops.zorder import zorder_permutation
 from tsne_flink_tpu_torch.utils.device import timed_stage
@@ -176,6 +176,36 @@ def resolve_knn_plan(n: int, d: int, method: str, rounds, refine, k=None,
         if refine is None:
             refine = pick_knn_refine(n, d)
     return method, rounds, refine
+
+
+def check_knn_limits(n: int, d: int, k: int, method: str,
+                     refine: int | None) -> None:
+    """Refuse, before any kNN work, a request that the card's kernels do
+    not take; the same check runs on every device, so that a CPU run
+    refuses what a card run would.  ``method``/``refine`` are the resolved
+    plan's (:func:`resolve_knn_plan`).
+
+    * k (clamped to N − 1) <= ``K_MAX`` = 1,024: kernel B1 keeps each
+      row's k-list in shared memory (16·k·8 bytes a block in its deep
+      class), and the refine kernel B6 builds, hashes and sorts a row's
+      candidates there (2s(1 + k) of them; up to 5k sorted keys);
+    * a refining ``project`` plan needs d <= ``CAND_F_MAX`` = 12,288: B6
+      keeps the chunk row's vector in shared memory beside them."""
+    k = _clamp_k(k, n)
+    if k > K_MAX:
+        raise ValueError(
+            f"k = {k} neighbours is past the kNN kernels' limit K_MAX = "
+            f"{K_MAX}: kernel B1 keeps each row's k-list in shared memory "
+            f"(16·k·8 bytes a block) and the refine kernel B6 its candidates "
+            f"and sort keys; use k <= {K_MAX} (perplexity <= "
+            f"{K_MAX // 3} with k = 3·perplexity)")
+    if method == "project" and refine and d > CAND_F_MAX:
+        raise ValueError(
+            f"d = {d} features is past the refine kernel's limit CAND_F_MAX "
+            f"= {CAND_F_MAX}: kernel B6 keeps the chunk row's vector in "
+            f"shared memory (F·4 bytes) beside its candidates; reduce the "
+            f"features (e.g. to principal components) or use knn_method="
+            f"'bruteforce'")
 
 
 # ---- exact methods ----------------------------------------------------------

@@ -49,8 +49,9 @@ from tsne_flink_tpu_torch.ops.metrics import metric_fn, pairwise
 FEATURE_MULTIPLE = 16
 #: the mantissa bits a float32 has beyond TF32's 10
 TF32_DROPPED_BITS = 13
-#: the kernel keeps each row's k-list in shared memory: 64·k·8 bytes
-K_MAX = 256
+#: the kernel keeps each row's k-list in shared memory: 64·k·8 bytes a
+#: block up to k = 256, 16·k·8 bytes in its deep class up to this k
+K_MAX = 1024
 #: rows per distance block of the plain sweep
 PLAIN_ROW_CHUNK = 1024
 
@@ -115,15 +116,16 @@ def norm_pairs(base: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(pairs, (0, 0, 0, 1)).contiguous()
 
 
-def knn_config(k: int) -> tuple[int, int, int]:
-    """B1's configuration for ``k`` as the kernel chooses it: (ring
-    stages, distance-tile buffers, dynamic shared memory bytes)."""
+def knn_config(k: int) -> tuple[int, int, int, int]:
+    """B1's configuration for ``k`` as the kernel chooses it: (rows a
+    block, ring stages, distance-tile buffers, dynamic shared memory
+    bytes)."""
     import ctypes
     from tsne_flink_tpu_torch.kernels.build import library
-    stages, bufs = ctypes.c_int(), ctypes.c_int()
-    smem = library().tsne_knn_config(k, ctypes.byref(stages),
-                                     ctypes.byref(bufs))
-    return stages.value, bufs.value, smem
+    rows, stages, bufs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    smem = library().tsne_knn_config(k, ctypes.byref(rows),
+                                     ctypes.byref(stages), ctypes.byref(bufs))
+    return rows.value, stages.value, bufs.value, smem
 
 
 def _check_cuda(base: torch.Tensor, k: int) -> None:
@@ -190,8 +192,31 @@ def fused_knn(x: torch.Tensor, k: int, metric: str = "sqeuclidean"):
 #: the kernel keeps a chunk row's vector in shared memory (F·4 bytes)
 CAND_F_MAX = 12_288
 #: keys the kernel sorts a row: a keep stage's survivors, or the exact
-#: stage's old + new lists (2k)
-REFINE_SORT_MAX = 1024
+#: stage's old + new lists (2k); a keep stage's 5k at k = K_MAX rounds up
+#: to it
+REFINE_SORT_MAX = 8192
+#: the dynamic shared memory a block may opt in to on sm_90 (SMEM_MAX in
+#: csrc/knn_cand.cu)
+REFINE_SMEM_MAX = 232_448
+
+
+def refine_smem_bytes(f: int, w: int, ke: int, keep: int, k: int,
+                      build: bool, final: bool) -> int:
+    """The dynamic shared memory of one B6 block, as ``Layout`` in
+    ``csrc/knn_cand.cu`` lays it out: the row's vector (F floats), the
+    candidate ids, a histogram, the gateways (a first stage), the old
+    list (the exact stage), and one region that holds the hash set (2
+    slots a candidate) and then the sort keys (a power of two, 8 bytes
+    each) with the scores."""
+    def a16(b):
+        return (b + 15) // 16 * 16
+    zcap = w * (1 + ke) if build else w
+    sortcap = 1 << ((2 * k if final else keep) - 1).bit_length()
+    at = a16(4 * f) + a16(4 * zcap) + a16(4 * 256) + a16(4 * 8)
+    at += a16(4 * w) if build else 0
+    at += 2 * a16(4 * k) if final else 0
+    table = 4 * 2 * zcap if build else 0
+    return at + a16(max(table, 8 * sortcap + 4 * zcap))
 
 
 def _compact_gather(base: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
@@ -335,7 +360,7 @@ def refine_final_plain(metric: str, base, cache, row0: int, cand, old_i,
                            torch.cat([old_d, dd], dim=1), k)
 
 
-def _check_refine(base, sq, row0, cand, graph, ke, old) -> None:
+def _check_refine(base, sq, row0, cand, graph, ke, old, keep) -> None:
     named = [("base", base, torch.float32, 2), ("sq", sq, torch.float32, 1),
              ("cand", cand, torch.int32, 2)]
     if graph is not None:
@@ -366,20 +391,29 @@ def _check_refine(base, sq, row0, cand, graph, ke, old) -> None:
                          f"be [{c}, k], k <= {REFINE_SORT_MAX // 2}")
     if not 1 <= f <= CAND_F_MAX:
         raise ValueError(f"B6 kernel takes 1 <= F <= {CAND_F_MAX}; got {f}")
+    w = cand.shape[1]
+    k = 0 if old is None else old[0].shape[1]
+    need = refine_smem_bytes(f, w, ke if graph is not None else 0, keep, k,
+                             graph is not None, old is not None)
+    if need > REFINE_SMEM_MAX:
+        raise ValueError(f"B6 kernel: a row's candidates, hash set and sort "
+                         f"keys need {need} bytes of shared memory, more "
+                         f"than the {REFINE_SMEM_MAX} a block may have")
 
 
 def _refine_launch(base, sq, row0, cand, graph, ke, *, keep=0, old=None,
                    euclid=False):
     """Launch B6 on one stage of rows row0 .. row0 + c − 1; allocates only
     its outputs: ids [c, keep] (keep mode) or the new lists [c, k]."""
-    _check_refine(base, sq, row0, cand, graph, ke, old)
     (n, f), (c, w) = base.shape, cand.shape
-    dev = base.device
     if old is None:
         keep = min(keep, w * (1 + ke) if graph is not None else w)
         if not 1 <= keep <= REFINE_SORT_MAX:
             raise ValueError(f"B6 kernel keeps 1..{REFINE_SORT_MAX} a row; "
                              f"got {keep}")
+    _check_refine(base, sq, row0, cand, graph, ke, old, keep)
+    dev = base.device
+    if old is None:
         out_i = torch.empty((c, keep), dtype=torch.int32, device=dev)
         out_d, k = None, 0
     else:

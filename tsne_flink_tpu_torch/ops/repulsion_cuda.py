@@ -30,6 +30,8 @@ COLS_PER_TILE = 512
 BLOCKS_PER_SM = 16
 #: waves of blocks the column splits aim for
 WAVES = 2
+#: the widest embedding the kernel takes (the JAX package's MPAD)
+M_MAX = 8
 
 
 def column_splits(nloc: int, nfull: int, sms: int) -> int:
@@ -49,9 +51,10 @@ def _check_cuda(y, y_full, col_valid, row_offset):
         if t.dim() != 2 or not t.is_contiguous():
             raise ValueError(f"B2 kernel takes a contiguous [N, m] {name}")
     m = y.shape[1]
-    if m not in (2, 3) or y_full.shape[1] != m:
-        raise ValueError(f"B2 kernel takes m = 2 or 3 on both operands; got "
-                         f"{tuple(y.shape)} and {tuple(y_full.shape)}")
+    if not 1 <= m <= M_MAX or y_full.shape[1] != m:
+        raise ValueError(f"B2 kernel takes 1 <= m <= {M_MAX} on both "
+                         f"operands; got {tuple(y.shape)} and "
+                         f"{tuple(y_full.shape)}")
     if not 0 <= row_offset <= y_full.shape[0] - y.shape[0]:
         raise ValueError(f"row_offset {row_offset} puts {y.shape[0]} rows "
                          f"outside y_full's {y_full.shape[0]}")

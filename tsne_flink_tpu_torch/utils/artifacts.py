@@ -15,7 +15,7 @@ import torch
 
 # resolve_knn_plan lives with the policies it applies; it is importable
 # from here as from the JAX package's utils/artifacts
-from tsne_flink_tpu_torch.ops.knn import resolve_knn_plan  # noqa: F401
+from tsne_flink_tpu_torch.ops.knn import resolve_knn_plan
 from tsne_flink_tpu_torch.utils.device import resolve_device, timed_stage
 
 
@@ -50,9 +50,11 @@ def prepare(x=None, *, knn=None, neighbors: int,
     The kNN plan resolves through ``ops/knn.resolve_knn_plan``
     (``knn_rounds``/``knn_refine`` None = the auto policies); the hybrid
     plan draws from ``generator`` (None: the kNN functions' seeded
-    defaults)."""
+    defaults).  A plan past the kernels' limits raises before the kNN
+    stage runs (``ops/knn.check_knn_limits``), on every device."""
     from tsne_flink_tpu_torch.ops import affinities as aff
-    from tsne_flink_tpu_torch.ops.knn import knn as knn_dispatch
+    from tsne_flink_tpu_torch.ops.knn import (backend_of, check_knn_limits,
+                                              knn as knn_dispatch)
 
     if assembly not in ("auto", "sorted", "split", "blocks"):
         raise ValueError(f"assembly '{assembly}' not defined "
@@ -63,8 +65,14 @@ def prepare(x=None, *, knn=None, neighbors: int,
     if knn is not None:
         idx, dist = (torch.as_tensor(a, device=device) for a in knn)
     else:
+        x = torch.as_tensor(x, device=device)
+        n, d = x.shape
+        method, _, refine = resolve_knn_plan(
+            n, d, knn_method, knn_rounds, knn_refine, k=int(neighbors),
+            backend=backend_of(x))
+        check_knn_limits(n, d, int(neighbors), method, refine)
         subs = {}
-        idx, dist = knn_dispatch(torch.as_tensor(x, device=device),
+        idx, dist = knn_dispatch(x,
                                  int(neighbors), knn_method, metric,
                                  blocks=knn_blocks, rounds=knn_rounds,
                                  refine=knn_refine, generator=generator,
