@@ -18,7 +18,13 @@ Phases, in order; any failure exits non-zero before the result line:
    agreement >= 0.999 and >= the plain FP32 version's own) and to its
    plain version (distances rtol 1e-4, neighbour sets >= 0.999), two
    launches bit-identical; B2 at 60,000 rows (m = 2 and 3, a masked row
-   shard, two launches bit-identical), B3, B4 at 60,000 rows; B5 and B4,
+   shard, two launches bit-identical); the blobs' CSR layout built on the
+   card (``build_csr``) equal to the host build bit for bit, with its
+   seconds and the memory it adds; B3, one launch over the CSR head and
+   tail at 60,000 rows, against its plain version (gains exactly equal,
+   y and update rtol 1e-4), against the unfused step (B5 over head +
+   tail, att − rep/Z, the vdM update) bit for bit, and with its rows in
+   each visit order bit for bit as in index order; B4 there; B5 and B4,
    each one launch over a row block and a ragged edge part, at the
    widths below, on the CSR run's head + tail, on its tail alone, on
    the blobs' blocks layout (forward block + reverse edges), on the flat
@@ -34,9 +40,7 @@ Phases, in order; any failure exits non-zero before the result line:
    old one, to rtol 2e-5, neighbour sets >= 0.999, the k-th distance to
    rtol 2e-5, ids distinct, self absent, rows ordered by (d, id), two
    launches bit-identical; each stage timed over the first 32 chunks of
-   a refine round in sequence, as the round runs them; and one CSR step
-   fused (B3 with B5's tail) against unfused (B5 over head + tail + the
-   vdM update);
+   a refine round in sequence, as the round runs them;
 4. widths  — the kernels at the limits they were widened to: B2-B5 at
    m = 1, 4 and 8 on 4,000 rows, B1 at k = 300 and k = 1,024 on a cut of
    the blobs (its first 256 slots bit for bit the k = 256 class's list,
@@ -48,8 +52,13 @@ Phases, in order; any failure exits non-zero before the result line:
    (k past 1,024, m past 8) refused before the kNN stage starts;
 5. full    — ``tsne_embed`` on 60,000 x 784 MNIST-like blobs (perplexity
    30, k = 90, exact repulsion, CSR attraction, 300 iterations): stage
-   seconds, the launches of each kernel in that run (counted from 0 just
-   before it), each kernel's CUDA-event time at the run's shapes beside its
+   seconds (the plan stage on its own line), the launches of each kernel
+   in that run (counted from 0 just before it: B3 every iteration, no
+   B5), B3 at the run's final y with its rows in index order and in
+   each visit order (hubs first, as optimize runs it; a Z-order of y;
+   both), in turns, beside each order's cost, the per-iteration split
+   (B2, B3, the order, B4/10, the rest), each kernel's
+   CUDA-event time at the run's shapes beside its
    plain version's and its bound (B1 and its library yardstick each the
    median of 3 warm launches taken in turns, B1's bound that of 3xTF32 on
    the tensor cores beside one FP32 pass), peak memory, the loss trace,
@@ -227,17 +236,18 @@ def b1_bounds(n, f, k):
             bound(2.0 * n * n * f, nbytes))
 
 
-def alternated_ms(fns, order):
-    """CUDA-event ms of single launches taken in turns: one warm-up of
-    each function, then one timed launch per name in ``order`` (e.g.
-    kernel, library, library, kernel, ...).  Returns {name: [ms, ...]}."""
+def alternated_ms(fns, order, reps=1):
+    """CUDA-event ms of launches taken in turns: one warm-up of each
+    function, then per name in ``order`` (e.g. kernel, library, library,
+    kernel, ...) the mean of ``reps`` launches in a row.  Returns
+    {name: [ms, ...]}."""
     import torch
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
     out = {name: [] for name in fns}
     for name in order:
-        out[name].append(cuda_ms(fns[name], 1, 0))
+        out[name].append(cuda_ms(fns[name], reps, 0))
     return out
 
 
@@ -408,6 +418,30 @@ def edge_problem(y, w, seed):
                                               dst.astype(np.int32),
                                               val.astype(np.float32))]
     return jidx, torch.from_numpy(v).cuda(), att.ragged_edges(*t, n)
+
+
+#: the visit order optimize gives B3 (ops/attraction_cuda.visit_order)
+PATH_ORDER = "hubs first"
+
+
+def visit_orders(y, rag, only=None):
+    """B3's visit orders, {name: int32 permutation}: the rows with the
+    longest tails first (``att.visit_order``, what optimize runs), a
+    Z-order of y, and the hubs first with the rest in that Z-order;
+    ``only`` builds just the one named."""
+    import torch
+    from tsne_flink_tpu_torch.ops import attraction_cuda as att
+    from tsne_flink_tpu_torch.ops.zorder import zorder_permutation
+    build = {
+        PATH_ORDER: lambda: att.visit_order(rag),
+        "in a Z-order of y": lambda: zorder_permutation(y[:, :3]),
+        "hubs first, then a Z-order of y": lambda: (lambda z: z[
+            torch.argsort(torch.diff(rag.rowptr)[z], descending=True,
+                          stable=True)].to(torch.int32))(
+            zorder_permutation(y[:, :3]).long())}
+    if only is not None:
+        return build[only]()
+    return {name: fn() for name, fn in build.items()}
 
 
 def phase_device():
@@ -642,96 +676,106 @@ def phase_kernels(x_np, xl_np, xc_np):
     errs["B1"] = max(b1_gates("blobs", x_np[:N_B1_CHECK], K),
                      b1_gates("cells", xc_np[:N_B1_CHECK], K_CELLS))
 
-    y, rp, zp, errs["B2"] = b2_gates()
+    y, _, zp, errs["B2"] = b2_gates()
 
-    # B3 / B4 at 60,000 x W of the real CSR
+    # the CSR layout of the blobs, built on the card, against the host
+    # build of the same rows (the build's peak above what was held)
     prep = prepare(x_np, neighbors=K, perplexity=PERPLEXITY)
     cfg = TsneConfig(perplexity=PERPLEXITY, attraction="csr")
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
     _, csr = _plan_layout(prep.jidx, prep.jval, cfg)
+    torch.cuda.synchronize()
+    t_card = time.perf_counter() - t0
+    extra = torch.cuda.max_memory_allocated() - held
     hidx, hval, _, _, tval = csr
+    t0 = time.perf_counter()
+    host = att.build_csr(prep.jidx.cpu(), prep.jval.cpu(), hidx.shape[1])
+    t_host = time.perf_counter() - t0
+    check(all(a.device == prep.jidx.device and a.dtype == b.dtype
+              and torch.equal(a.cpu(), b)
+              for a, b in zip(csr, host[0] + host[1])),
+          "build_csr on the card differs from the host build")
+    del host
+    print(f"[kernels] build_csr {N_FULL} x S={prep.jidx.shape[1]} -> W="
+          f"{hidx.shape[1]} + {int((tval > 0).sum())} tail edges: on the "
+          f"card {t_card:.4f} s (peak {extra / 2**30:.3f} GiB above what "
+          f"was held), the same function on the host {t_host:.3f} s; the "
+          f"card's head and tail equal the host's bit for bit")
+
+    # B3 / B4 at 60,000 rows over the real CSR head + tail
+    tail_rag = att.ragged_edges(*_without_padding(csr[2:]), N_FULL)
+    z = torch.sum(zp)
     exag, momentum = 1.0, 0.8
-    repz = (rp / torch.sum(zp)).contiguous()
-    att_p = att.attraction_forces_plain(y, y, hidx, hval, exag)
-    # tie-free inputs: tail makes every grad (att + tail) - repz sit at
+    both = att.attraction_forces(y, y, hidx, hval, exag, ragged=tail_rag)
+    both_p = att.attraction_forces_plain(y, y, hidx, hval, exag,
+                                         ragged=tail_rag)
+    # tie-free inputs: rep puts every grad (head + tail) − rep/Z at
     # s·(|att| + 1e-3·max|att|), so the gains ladder's sign test has a
     # margin far above rounding while att still shapes grad
     rng = np.random.default_rng(2)
     sign = torch.from_numpy(rng.choice([-1.0, 1.0], y.shape).astype(
         np.float32)).cuda()
-    mag = torch.abs(att_p) + 1e-3 * torch.max(torch.abs(att_p))
-    tail = (repz - att_p + sign * mag).contiguous()
+    mag = torch.abs(both_p) + 1e-3 * torch.max(torch.abs(both_p))
+    rep = ((both_p - sign * mag) * z).contiguous()
     upd = (1e-2 * torch.from_numpy(rng.standard_normal(y.shape).astype(
         np.float32)).cuda()).contiguous()
     gains = (1.0 + torch.from_numpy(rng.random(y.shape).astype(
         np.float32)).cuda()).contiguous()
-    args = (y, y, hidx, hval, exag, tail, repz, None, upd, gains, momentum)
-    kw = dict(eta=1000.0, min_gain=0.01)
+    args = (y, y, hidx, hval, exag, rep, z, None, upd, gains, momentum)
+    kw = dict(eta=1000.0, min_gain=0.01, ragged=tail_rag)
     out_k = att.fused_step_update(*args, **kw)
     out_p = att.fused_step_plain(*args, **kw)
     check(torch.equal(out_k[2], out_p[2]), "B3 gains not exactly equal")
     errs["B3"] = max(rel_close(out_k[0], out_p[0], 1e-4, "B3 y"),
                      rel_close(out_k[1], out_p[1], 1e-4, "B3 update"))
-    z = torch.sum(zp)
+    again = att.fused_step_update(*args, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(out_k, again)),
+          "B3: two launches differ")
     lk = att.attraction_loss(y, y, hidx, hval, exag, z)
     lp = att.attraction_loss_plain(y, y, hidx, hval, exag, z)
     errs["B4"] = rel_close(lk, lp, 2e-5, "B4 per-row loss")
     check(abs(float(lk.sum()) - float(lp.sum()))
           <= 2e-5 * abs(float(lp.sum())), "B4 total loss")
-    print(f"[kernels] B3/B4 {N_FULL}x{hidx.shape[1]} (S="
-          f"{prep.jidx.shape[1]}, {int((hval > 0).sum())} head and "
-          f"{int((tval > 0).sum())} tail edges): gains equal, max |y/upd "
-          f"err| {errs['B3']:.3e}, max |loss err| {errs['B4']:.3e}")
+    print(f"[kernels] B3 (one launch over head + tail) {N_FULL}x"
+          f"{hidx.shape[1]} + {int(tail_rag.dst.shape[0])} tail edges: "
+          f"gains equal, max |y/upd err| {errs['B3']:.3e}; two launches "
+          f"bit-identical; B4 over the head: max |loss err| "
+          f"{errs['B4']:.3e}")
 
-    # the same CSR step unfused: B5's forces + tail, then the vdM update
-    forces = att.attraction_forces(y, y, hidx, hval, exag)
-    unfused = _update_embedding(TsneState(y, upd, gains),
-                                (forces + tail) - repz, momentum,
+    # the same CSR step unfused: B5 over head + tail, att − rep/Z, then the
+    # vdM update in PyTorch — the same bits
+    unfused = _update_embedding(TsneState(y, upd, gains), both - rep / z,
+                                momentum,
                                 TsneConfig(learning_rate=kw["eta"],
                                            min_gain=kw["min_gain"]))
-    check(torch.equal(out_k[2], unfused.gains),
-          "fused vs unfused step: gains not exactly equal")
-    diff = max(rel_close(out_k[0], unfused.y, 1e-4, "fused vs unfused y"),
-               rel_close(out_k[1], unfused.update, 1e-4,
-                         "fused vs unfused update"))
-    bits = (torch.equal(out_k[0], unfused.y)
-            and torch.equal(out_k[1], unfused.update))
-    print(f"[kernels] CSR step fused (B3) vs unfused (B5 + tail + update): "
-          f"gains equal, max |y/upd diff| {diff:.3e}, bits equal: {bits}")
+    check(all(torch.equal(a, b) for a, b in zip(out_k[:3], unfused)),
+          "B3's one launch vs the unfused step (B5 over head + tail, "
+          "att - rep/Z, vdM update): bits differ")
+    # the visit orders move no bit
+    for name, order in visit_orders(y, tail_rag).items():
+        out_o = att.fused_step_update(*args, order=order, **kw)
+        check(all(torch.equal(a, b) for a, b in zip(out_k, out_o)),
+              f"B3 with its rows {name} differs from B3 in index order")
+    print("[kernels] CSR step: B3's one launch equals the unfused step (B5 "
+          "over head + tail, att - rep/Z, vdM update) bit for bit, and B3 "
+          "with its rows hubs first, in a Z-order of y, or both equals B3 "
+          "in index order bit for bit")
 
-    # B5 and B4 over the real CSR head + tail, its tail alone (the fused
-    # step's tail), and one launch over both = the head's + the tail's
-    tail_rag = att.ragged_edges(*_without_padding(csr[2:]), N_FULL)
+    # B5 and B4 over the real CSR head + tail, its tail alone, and one
+    # launch over both = the head's + the tail's
     for tag, blk in (("CSR head + tail", (hidx, hval)),
                      ("CSR tail alone (W = 0)", (None, None))):
         e5, e4 = hold_pass(f"{N_FULL} x {tag}", y, *blk, tail_rag, z)
         errs["B5"] = max(errs.get("B5", 0.0), e5)
         errs["B4"] = max(errs["B4"], e4)
-    both = att.attraction_forces(y, y, hidx, hval, exag, ragged=tail_rag)
     parts = (att.attraction_forces(y, y, hidx, hval, exag)
              + att.attraction_forces(y, y, None, None, exag,
                                      ragged=tail_rag))
     check(torch.equal(both, parts), "B5 over head + tail is not the head's "
           "launch + the tail's, bit for bit")
-    # the fused step as optimize runs it (B5's tail into B3) against the
-    # unfused one (B5 over head + tail, then the vdM update), tie-free
-    margin = torch.abs(both) + 1e-3 * torch.max(torch.abs(both))
-    repz_t = (both - sign * margin).contiguous()
-    tail_k = att.attraction_forces(y, y, None, None, exag, ragged=tail_rag)
-    fused = att.fused_step_update(y, y, hidx, hval, exag, tail_k, repz_t,
-                                  None, upd, gains, momentum, **kw)
-    unf = _update_embedding(TsneState(y, upd, gains), both - repz_t,
-                            momentum, TsneConfig(learning_rate=kw["eta"],
-                                                 min_gain=kw["min_gain"]))
-    check(torch.equal(fused[2], unf.gains),
-          "fused (B5 tail) vs unfused (B5 head + tail): gains differ")
-    diff = max(rel_close(fused[0], unf.y, 1e-4, "fused vs unfused y (tail)"),
-               rel_close(fused[1], unf.update, 1e-4,
-                         "fused vs unfused update (tail)"))
-    bits = (torch.equal(fused[0], unf.y)
-            and torch.equal(fused[1], unf.update))
-    print(f"[kernels] CSR step with the real tail, fused (B3 + B5's tail) vs "
-          f"unfused (B5 over head + tail + update): gains equal, max |y/upd "
-          f"diff| {diff:.3e}, bits equal: {bits}")
 
     # B5 and B4 at the three widths of the new paths
     prep_l = prepare(xl_np, neighbors=K, perplexity=PERPLEXITY)
@@ -862,17 +906,18 @@ def quality(tag, y, losses, labels, cfg, min_agree):
 
 
 def want_launches(b3, b1=1, b2=None, b6=0):
-    """Launches of one run: B2 every iteration unless given, B5 every
-    iteration (the whole attraction pass of the unfused step; the CSR
-    tail of the fused one), B4 every 10th (the KL over both parts), B3
-    every iteration of a fused CSR run (``b3``)."""
+    """Launches of one run: B2 every iteration unless given, B3 every
+    iteration of a fused CSR run (``b3``: the whole step, head and tail),
+    B5 every iteration of any other (the unfused step's attraction
+    pass), B4 every 10th (the KL over both parts)."""
     return {"B1": b1, "B2": ITERATIONS if b2 is None else b2, "B3": b3,
-            "B4": ITERATIONS // 10, "B5": ITERATIONS, "B6": b6}
+            "B4": ITERATIONS // 10, "B5": ITERATIONS - b3, "B6": b6}
 
 
 def layout_launches(layout, **kw):
     """The launches of a run whose attraction layout resolved to
-    ``layout``: B3 runs the CSR step, B5 and B4 every layout."""
+    ``layout``: B3 alone runs the CSR step, B5 every other layout's, B4
+    every layout's KL."""
     return want_launches(b3=ITERATIONS if layout == "csr" else 0, **kw)
 
 
@@ -957,19 +1002,39 @@ def phase_full(x_np, labels, errs, csr):
     check(stats["layout"] == "csr", f"[full] layout {stats['layout']}")
     final_kl = quality("full", y, losses, labels, cfg, 0.9)
 
+    staged = sum(stats[k] for k in ("knn", "affinities", "plan", "optimize"))
+    print(f"[full] plan stage (build_csr on the card) {stats['plan']:.4f} "
+          f"s of {staged:.4f} s in stages")
     # each kernel at the run's shapes: the final embedding and the real CSR
     x = torch.from_numpy(x_np).cuda()
     hidx, hval, tsrc, tdst, tval = csr
     n, w, m = N_FULL, hidx.shape[1], 2
     rep, zrow = cuda_exact_repulsion(y, row_z=True)
     z = torch.sum(zrow)
-    repz = (rep / z).contiguous()
-    # the tail as optimize runs it (without its padding), through B5
+    # the tail as optimize runs it (without its padding)
     tail_rag = att.ragged_edges(*_without_padding((tsrc, tdst, tval)), n)
-    tail = att.attraction_forces(y, y, None, None, 1.0, ragged=tail_rag)
     upd, gains = torch.zeros_like(y), torch.ones_like(y)
-    step = (y, y, hidx, hval, 1.0, tail, repz, None, upd, gains, 0.8)
-    kw = dict(eta=cfg.learning_rate, min_gain=cfg.min_gain)
+    step = (y, y, hidx, hval, 1.0, rep, z, None, upd, gains, 0.8)
+    kw = dict(eta=cfg.learning_rate, min_gain=cfg.min_gain, ragged=tail_rag)
+    # B3 with its rows in each visit order and in index order, in turns,
+    # at the run's final y; each order's cost beside it (the hubs-first
+    # order is built once a run, a Z-order of y would be refreshed every
+    # 10th iteration)
+    orders = visit_orders(y, tail_rag)
+    fns = {"index order": lambda: att.fused_step_update(*step, **kw)}
+    for name, order in orders.items():
+        fns[name] = (lambda o: lambda: att.fused_step_update(
+            *step, order=o, **kw))(order)
+    b3 = alternated_ms(fns, [*fns, *reversed(fns)] * 3, reps=20)
+    build = {name: cuda_ms(lambda: visit_orders(y, tail_rag, name), 20)
+             for name in orders}
+    for name, ms in b3.items():
+        extra = ("" if name == "index order" else
+                 f"; building the order {build[name]:.4f} ms")
+        print(f"[full] B3 one launch at the run's final y, W={w} + "
+              f"{int(tail_rag.dst.shape[0])} tail edges, rows {name}: "
+              f"{spread(ms)}{extra}")
+    b3_ms = statistics.median(b3[PATH_ORDER])
     # B1 and its one-call yardstick in turns, after a warm-up of each
     b1 = alternated_ms({"kernel": lambda: knn_sweep_cuda(x, K, False),
                         "library": lambda: library_knn(x, K)},
@@ -981,16 +1046,12 @@ def phase_full(x_np, labels, errs, csr):
                statistics.median(b1["library"])),
         "B2": (cuda_ms(lambda: cuda_exact_repulsion(y, row_z=True), 20),
                cuda_ms(lambda: exact_repulsion(y, row_z=True), 3), None),
-        "B3": (cuda_ms(lambda: att.fused_step_update(*step, **kw), 50),
-               cuda_ms(lambda: att.fused_step_plain(*step, **kw), 5), None),
+        "B3": (b3_ms, cuda_ms(lambda: att.fused_step_plain(*step, **kw), 5),
+               None),
         "B4": (cuda_ms(lambda: att.attraction_loss(
                    y, y, hidx, hval, 1.0, z, ragged=tail_rag), 50),
                cuda_ms(lambda: att.attraction_loss_plain(
                    y, y, hidx, hval, 1.0, z, ragged=tail_rag), 5), None),
-        "B5": (cuda_ms(lambda: att.attraction_forces(
-                   y, y, None, None, 1.0, ragged=tail_rag), 50),
-               cuda_ms(lambda: att.attraction_forces_plain(
-                   y, y, None, None, 1.0, ragged=tail_rag), 5), None),
     }
     nnz, head_bytes = head_need(hval)
     b1_tf32, b1_fp32 = b1_bounds(n, F_FULL, K)
@@ -1003,16 +1064,19 @@ def phase_full(x_np, labels, errs, csr):
     bounds = {
         "B1": b1_tf32,
         "B2": bound(20.0 * n * n, n * m * 4 * 2 + n * 4),
-        "B3": bound(20.0 * nnz, head_bytes + 8 * n * m * 4 + n * 4),
+        # head + tail, y, rep, update, gains read and y, update, gains
+        # written, gsq and the order
+        "B3": bound(20.0 * (nnz + e_tail),
+                    head_bytes + tail_bytes + 7 * n * m * 4 + 2 * n * 4),
         "B4": bound(25.0 * (nnz + e_tail),
                     head_bytes + tail_bytes + n * m * 4 + n * 4),
-        "B5": bound(20.0 * e_tail, tail_bytes + 2 * n * m * 4),
     }
     kernels = []
     for kid, (ms, plain_ms, lib_ms) in t.items():
         name, src, repl = KERNEL_META[kid]
         bms, by = bounds[kid]
-        what = {"B4": " (head + tail)", "B5": " (the tail, W = 0)"}
+        what = {"B3": f" (head + tail, rows {PATH_ORDER})",
+                "B4": " (head + tail)"}
         print(f"[full] {kid} {name}{what.get(kid, '')}: {ms:.4f} ms (plain "
               f"{plain_ms:.4f} ms, library "
               f"{'-' if lib_ms is None else f'{lib_ms:.4f}'} ms, bound "
@@ -1021,12 +1085,12 @@ def phase_full(x_np, labels, errs, csr):
             kernels.append(kernel_record(kid, name, src, repl, counts[kid],
                                          errs[kid], t[kid], bounds[kid]))
     it_ms = stats["optimize"] / ITERATIONS * 1e3
-    rest = (it_ms - t["B2"][0] - t["B3"][0] - t["B4"][0] / 10
-            - t["B5"][0])
+    order_ms = build[PATH_ORDER] / ITERATIONS  # built once a run
+    rest = (it_ms - t["B2"][0] - t["B3"][0] - order_ms - t["B4"][0] / 10)
     print(f"[full] per iteration {it_ms:.4f} ms: B2 {t['B2'][0]:.4f}, B3 "
-          f"{t['B3'][0]:.4f}, B5 (tail, {e_tail} edges) {t['B5'][0]:.4f}, "
-          f"B4/10 {t['B4'][0] / 10:.4f}, the rest {rest:.4f} (by "
-          f"difference)")
+          f"(one launch, head + {e_tail} tail edges) {t['B3'][0]:.4f}, the "
+          f"visit order (built once, /{ITERATIONS}) {order_ms:.4f}, B4/10 "
+          f"{t['B4'][0] / 10:.4f}, the rest {rest:.4f} (by difference)")
     return kernels, final_kl, y, t["B1"][0], t["B2"][0]
 
 
@@ -1464,18 +1528,18 @@ def phase_widths(x_np, xc_np):
               f"B2 m={m}: two launches differ")
         jidx, jval, rag = edge_problem(y, 64, m)
         e5, e4 = hold_pass(f"m={m}", y, jidx, jval, rag, torch.sum(zp))
-        # B3 on tie-free inputs: every grad sits at ±(|att| + a margin)
-        forces = att.attraction_forces(y, y, jidx, jval, 4.0)
+        # B3 over head + tail on tie-free inputs: every grad sits at
+        # ±(|att| + a margin)
+        forces = att.attraction_forces(y, y, jidx, jval, 4.0, ragged=rag)
         sign = torch.from_numpy(rng.choice([-1.0, 1.0], y.shape).astype(
             np.float32)).cuda()
-        tail = att.attraction_forces(y, y, None, None, 4.0, ragged=rag)
-        margin = torch.abs(forces + tail) + 1e-3 * torch.max(
-            torch.abs(forces + tail))
-        repz = ((forces + tail) - sign * margin).contiguous()
+        margin = torch.abs(forces) + 1e-3 * torch.max(torch.abs(forces))
+        rep = (forces - sign * margin).contiguous()
         upd = (1e-2 * torch.randn(y.shape, device="cuda")).contiguous()
         gains = (1.0 + torch.rand(y.shape, device="cuda")).contiguous()
-        args = (y, y, jidx, jval, 4.0, tail, repz, None, upd, gains, 0.8)
-        kw = dict(eta=200.0, min_gain=0.01)
+        args = (y, y, jidx, jval, 4.0, rep, torch.ones((), device="cuda"),
+                None, upd, gains, 0.8)
+        kw = dict(eta=200.0, min_gain=0.01, ragged=rag)
         out_k = att.fused_step_update(*args, **kw)
         out_p = att.fused_step_plain(*args, **kw)
         check(torch.equal(out_k[2], out_p[2]), f"B3 m={m}: gains differ")
@@ -1514,7 +1578,9 @@ def phase_widths(x_np, xc_np):
               and bool(torch.isfinite(y).all())
               and bool(torch.isfinite(losses).all()),
               f"[widths] tsne_embed n_components={m}: bad output")
-        check(counts["B2"] == ITER_WIDTHS and counts["B5"] == ITER_WIDTHS,
+        # each iteration one step: B3 (a fused CSR run) or B5, not both
+        check(counts["B2"] == ITER_WIDTHS
+              and sorted((counts["B3"], counts["B5"])) == [0, ITER_WIDTHS],
               f"[widths] tsne_embed n_components={m} launches {counts}")
         print(f"[widths] tsne_embed n_components={m}: {N_WIDTHS} x {m}, "
               f"finite; final KL {float(losses[-1]):.5f}; launches "

@@ -1,9 +1,15 @@
-"""The kernels of the main paths that a change must not slow down, timed on
-the card for one tree: B1 at 60,000 x 784 (k = 90) and at 1,306,127 x 50
-(k = 150), B2 at 60,000 x 2, B3 over the 60k CSR run's head (W = 256) and
-B5 over the latent blobs' [N, S] rows (S = 146) — the shapes of
-``chip_smoke.py``'s ``[full]``, ``[large]`` and ``[rows]`` runs — and B5
-over the blobs' padded [N, S] rows (S = 3,474, 4% filled).
+"""The kernels and stages of the main paths that a change must not slow
+down, timed on the card for one tree: B1 at 60,000 x 784 (k = 90) and at
+1,306,127 x 50 (k = 150), B2 at 60,000 x 2, B5 over the latent blobs'
+[N, S] rows (S = 146) and the blobs' padded [N, S] rows (S = 3,474, 4%
+filled) — the shapes of ``chip_smoke.py``'s ``[full]``, ``[large]`` and
+``[rows]`` runs — and the CSR path: its plan stage (``build_csr``), the
+``[full]`` and ``[project]`` runs end to end (stage seconds, peak memory,
+a digest of the final embedding), and the CSR step at ``[full]``'s final
+y as the tree's ``optimize`` runs it — one launch of B3 over head + tail
+(rows in index order and in each of ``chip_smoke.visit_orders``, beside
+the cost of building each), or, in a tree from before that launch, B5
+over the tail + rep / Z + B3 over the head.
 
 Run from the repository root on a machine with an sm_90a card and nvcc:
 
@@ -12,16 +18,21 @@ Run from the repository root on a machine with an sm_90a card and nvcc:
 ``--root`` imports the port (and its chip_smoke.py's data makers) from
 another tree, e.g. an unpacked earlier commit; run the two trees in turns
 in one call (parent, change, change, parent) to compare them on one card.
-B1 is timed as the median (min-max) of 3 warm launches, the others as the
-mean of 20-50 launches in a row, each after one warm-up (CUDA events).
-The card's name and power limit head the output.
+B1 is timed as the median (min-max) of 3 warm launches, the CSR step as
+the median (min-max) of 6 means of 20 launches (CUDA events), the others
+as the mean of 20-50 launches in a row, each after one warm-up; the plan
+stage as the median of 3 host-clock calls ending in a synchronize.  The
+card's name and power limit head the output.
 """
 
 import argparse
+import hashlib
+import inspect
 import os
 import statistics
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -33,6 +44,76 @@ def parse():
     ap.add_argument("--root", default=HERE,
                     help="tree to import tsne_flink_tpu_torch from")
     return ap.parse_args()
+
+
+def spread(ms):
+    return (f"{statistics.median(ms):.4f} ms (min-max {min(ms):.4f}-"
+            f"{max(ms):.4f})")
+
+
+def embed(tag, x_np, cfg, **kw):
+    """One ``tsne_embed`` of the tree: its stage seconds, peak memory and a
+    digest of its final embedding; returns the embedding."""
+    from tsne_flink_tpu_torch import tsne_embed
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stats = {}
+    t0 = time.perf_counter()
+    y, losses = tsne_embed(x_np, cfg, neighbors=90, seed=0, stats=stats, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    digest = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]
+    print(f"[regress] {tag}: {wall:.3f} s end to end, layout "
+          f"{stats['layout']}; stages s: knn {stats['knn']:.4f}, affinities "
+          f"{stats['affinities']:.4f}, plan {stats['plan']:.4f}, optimize "
+          f"{stats['optimize']:.4f} "
+          f"({stats['optimize'] / cfg.iterations * 1e3:.4f} ms/iter); peak {torch.cuda.max_memory_allocated() / 2**30:.3f} "
+          f"GiB; final KL {float(losses[-1]):.6f}; y digest {digest}")
+    return y
+
+
+def csr_step(cs, att, y, csr):
+    """The CSR step at ``y`` as this tree's optimize runs it, timed."""
+    from tsne_flink_tpu_torch.models.tsne import _without_padding
+    from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
+    hidx, hval = csr[:2]
+    n = y.shape[0]
+    rag = att.ragged_edges(*_without_padding(csr[2:]), n)
+    rep, zrow = cuda_exact_repulsion(y, row_z=True)
+    z = torch.sum(zrow)
+    upd, gains = torch.zeros_like(y), torch.ones_like(y)
+    kw = dict(eta=1000.0, min_gain=0.01)
+    if "ragged" in inspect.signature(att.fused_step_update).parameters:
+        args = (y, y, hidx, hval, 1.0, rep, z, None, upd, gains, 0.8)
+        fns = {"B3 one launch, index order": lambda: att.fused_step_update(
+            *args, ragged=rag, **kw)}
+        for name, order in cs.visit_orders(y, rag).items():
+            fns[f"B3 one launch, rows {name}"] = (
+                lambda o: lambda: att.fused_step_update(
+                    *args, ragged=rag, order=o, **kw))(order)
+            fns[f"building the order {name}"] = (
+                lambda n: lambda: cs.visit_orders(y, rag, n))(name)
+    else:
+        def step():
+            tail = att.attraction_forces(y, y, None, None, 1.0, ragged=rag)
+            return att.fused_step_update(y, y, hidx, hval, 1.0, tail, rep / z,
+                                         None, upd, gains, 0.8, **kw)
+        tail = att.attraction_forces(y, y, None, None, 1.0, ragged=rag)
+        repz = rep / z
+        fns = {
+            "B5 tail + rep/Z + B3 head": step,
+            "B3 head alone": lambda: att.fused_step_update(
+                y, y, hidx, hval, 1.0, tail, repz, None, upd, gains, 0.8,
+                **kw)}
+    for fn in fns.values():
+        fn()
+    times = {name: [] for name in fns}
+    for _ in range(3):
+        for name in [*fns, *reversed(fns)]:
+            times[name].append(cs.cuda_ms(fns[name], 20, 0))
+    for name, ms in times.items():
+        print(f"[regress] CSR step at [full]'s final y, W={hidx.shape[1]} + "
+              f"{int(rag.dst.shape[0])} tail edges: {name} {spread(ms)}")
 
 
 def main():
@@ -57,10 +138,15 @@ def main():
         knn_sweep_cuda(x, k, False)
         ms = [cs.cuda_ms(lambda: knn_sweep_cuda(x, k, False), 1, 0)
               for _ in range(3)]
-        return (f"{statistics.median(ms):.4f} ms (min-max {min(ms):.4f}-"
-                f"{max(ms):.4f})")
+        return spread(ms)
 
     x_np, _ = cs.make_data()
+    cfg = TsneConfig(perplexity=30.0, iterations=300, repulsion="exact",
+                     attraction="csr")
+    y_full = embed("[full] 60000x784 CSR", x_np, cfg)
+    embed("[project] 60000x784 project", x_np,
+          TsneConfig(perplexity=30.0, iterations=300, repulsion="exact"),
+          knn_method="project")
     x = torch.from_numpy(x_np).cuda()
     print(f"[regress] B1 60000x784 k=90: {b1(x, 90)}")
     y = cs.embedding_like(x.shape[0], 1)
@@ -68,21 +154,23 @@ def main():
           f"{cs.cuda_ms(lambda: cuda_exact_repulsion(y, row_z=True), 20):.4f}"
           f" ms")
     prep = prepare(x_np, neighbors=90, perplexity=30.0)
-    _, csr = _plan_layout(prep.jidx, prep.jval,
-                          TsneConfig(perplexity=30.0, attraction="csr"))
-    hidx, hval = csr[:2]
-    zeros = torch.zeros_like(y)
-    ones = torch.ones_like(y)
-    step = (y, y, hidx, hval, 1.0, zeros, zeros, None, zeros, ones, 0.8)
-    print(f"[regress] B3 60000 x W={hidx.shape[1]}: "
-          f"{cs.cuda_ms(lambda: att.fused_step_update(*step, eta=1000.0, min_gain=0.01), 50):.4f}"
-          f" ms")
+    plan = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, csr = _plan_layout(prep.jidx, prep.jval, cfg)
+        torch.cuda.synchronize()
+        plan.append(time.perf_counter() - t0)
+    print(f"[regress] plan stage (build_csr) 60000 x S={prep.jidx.shape[1]}"
+          f" -> W={csr[0].shape[1]}: {statistics.median(plan):.4f} s "
+          f"(min-max {min(plan):.4f}-{max(plan):.4f})")
+    csr_step(cs, att, y_full, csr)
     ji, jv = prep.jidx, prep.jval
     print(f"[regress] B5 60000 x W={ji.shape[1]} (blobs rows, "
           f"{float((jv > 0).float().mean()):.3f} filled): "
           f"{cs.cuda_ms(lambda: att.attraction_forces(y, y, ji, jv, 1.0), 50):.4f}"
           f" ms")
-    del x, prep, csr, hidx, hval, ji, jv
+    del x, prep, csr, ji, jv
     xl_np, _, _ = cs.make_latent_blobs()
     prep = prepare(xl_np, neighbors=90, perplexity=30.0)
     ji, jv = prep.jidx, prep.jval

@@ -101,34 +101,55 @@ def test_loss_tile_matches_jax(jax_kind):
 
 
 def _csr_problem(seed=4, n=150, w=16, m=2):
+    """A CSR head [n, w], a src-sorted tail (row 0 a hub of 40 edges, the
+    others 0-3) and the step's planes: rep [n, m] and Z = 37.5."""
     rng = np.random.default_rng(seed)
     f32 = np.float32
     y = rng.standard_normal((n, m)).astype(f32)
     hidx = rng.integers(0, n, (n, w)).astype(np.int32)
     hval = (rng.random((n, w)) * 1e-3).astype(f32)
     hval[rng.random((n, w)) < 0.2] = 0.0
-    tail = (1e-3 * rng.standard_normal((n, m))).astype(f32)
-    repz = (1e-3 * rng.standard_normal((n, m))).astype(f32)
+    deg = rng.integers(0, 4, n)
+    deg[0] = 40
+    tsrc = np.repeat(np.arange(n), deg).astype(np.int32)
+    tdst = rng.integers(0, n, tsrc.shape[0]).astype(np.int32)
+    tval = (rng.random(tsrc.shape[0]) * 1e-3).astype(f32)
+    rep = (37.5e-3 * rng.standard_normal((n, m))).astype(f32)
     upd = (1e-2 * rng.standard_normal((n, m))).astype(f32)
     gains = (1.0 + rng.random((n, m))).astype(f32)
-    return y, hidx, hval, tail, repz, upd, gains
+    return y, hidx, hval, (tsrc, tdst, tval), rep, upd, gains
+
+
+def _jax_step_planes(y, tail, rep, z=37.5, exag=4.0):
+    """The JAX step's precomputed operands: the tail's forces
+    (``models/tsne._edge_forces``) and rep / Z."""
+    from tsne_flink_tpu.models.tsne import _edge_forces
+    j = jnp.asarray
+    tail_att = _edge_forces(j(y), j(y), *map(j, tail), jnp.asarray(
+        exag, y.dtype))
+    return tail_att, j(rep) / jnp.asarray(z, rep.dtype)
 
 
 def test_index_gathering_step_matches_jax_fused_step_update(jax_kind):
-    """The port's wrapper gathers y_full[hidx] itself; the JAX wrapper
-    gathers outside its kernel.  Same step, row-chunked differently."""
-    y, hidx, hval, tail, repz, upd, gains = _csr_problem()
+    """The port's wrapper gathers y_full[hidx] itself and computes the
+    tail's forces and rep / Z inside the step; the JAX wrapper takes them
+    precomputed and gathers outside its kernel.  Same step, row-chunked
+    differently."""
+    y, hidx, hval, tail, rep, upd, gains = _csr_problem()
     valid = np.arange(y.shape[0]) < 140
+    tail_att, repz = _jax_step_planes(y, tail, rep)
     want = jatt.fused_step_update(
         jnp.asarray(y), jnp.asarray(y), jnp.asarray(hidx), jnp.asarray(hval),
-        jnp.float32(4.0), jnp.asarray(tail), jnp.asarray(repz),
+        jnp.float32(4.0), tail_att, repz,
         jnp.asarray(valid), jnp.asarray(upd), jnp.asarray(gains),
         jnp.float32(0.8), eta=1000.0, min_gain=0.01, row_chunk=64,
         kernel=jax_kind)
     t = torch.from_numpy
-    got = tatt.fused_step_update(t(y), t(y), t(hidx), t(hval), 4.0, t(tail),
-                                 t(repz), t(valid), t(upd), t(gains), 0.8,
-                                 eta=1000.0, min_gain=0.01, row_chunk=48)
+    rag = tatt.ragged_edges(*map(t, tail), y.shape[0])
+    got = tatt.fused_step_update(t(y), t(y), t(hidx), t(hval), 4.0, t(rep),
+                                 torch.tensor(37.5), t(valid), t(upd),
+                                 t(gains), 0.8, eta=1000.0, min_gain=0.01,
+                                 ragged=rag, row_chunk=48)
     y_j, u_j, g_j, q_j = map(np.asarray, want)
     np.testing.assert_array_equal(got[2].numpy(), g_j)
     np.testing.assert_allclose(got[0].numpy(), y_j, rtol=1e-4, atol=1e-4)
@@ -192,15 +213,20 @@ def test_index_gathering_forces_match_jax_attraction_forces(jax_kind, w):
 
 
 def test_fused_head_is_the_forces():
-    """The plain fused step runs the plain forces' head math: its gradient
-    is (forces + tail − rep/Z) bit for bit."""
-    y, hidx, hval, tail, repz, upd, gains = map(torch.from_numpy,
-                                                _csr_problem())
-    att = tatt.attraction_forces(y, y, hidx, hval, 4.0, row_chunk=48)
-    _, _, _, gsq = tatt.fused_step_update(y, y, hidx, hval, 4.0, tail, repz,
+    """The plain fused step runs the plain forces' head and tail math: its
+    gradient is (forces over head + tail) − rep/Z bit for bit."""
+    y, hidx, hval, tail, rep, upd, gains = _csr_problem()
+    y, hidx, hval, rep, upd, gains = map(torch.from_numpy,
+                                         (y, hidx, hval, rep, upd, gains))
+    rag = tatt.ragged_edges(*map(torch.from_numpy, tail), y.shape[0])
+    z = torch.tensor(37.5)
+    att = tatt.attraction_forces(y, y, hidx, hval, 4.0, ragged=rag,
+                                 row_chunk=48)
+    _, _, _, gsq = tatt.fused_step_update(y, y, hidx, hval, 4.0, rep, z,
                                           None, upd, gains, 0.8, eta=1000.0,
-                                          min_gain=0.01, row_chunk=48)
-    grad = (att + tail) - repz
+                                          min_gain=0.01, ragged=rag,
+                                          row_chunk=48)
+    grad = att - rep / z
     assert torch.equal(gsq, torch.sum(grad * grad, dim=1))
 
 

@@ -15,8 +15,11 @@ m = 1 .. 8 in B2-B5, row shards with validity masks, B2 below one tile
 and at ragged N, two launches bit-identical, B5 from one slot to wide
 rows, B5 and B4 over a row block and a ragged edge part (a hub row, a
 row with no edges, the last row owning padding; no row block at all),
-B5 as the fused step's head and as its tail, the optimize loop on every
-layout without a segment sum, B6's fused refine stages at every width
+B3's one launch over head + tail bit for bit the unfused step (at every
+m, with a mask, without a head block) and in any visit order,
+``build_csr`` on the card equal to the CPU build, the fused CSR loop
+launching B3 alone, the optimize loop on every layout without a segment
+sum, B6's fused refine stages at every width
 class and at k = 600 and 1,024 (exact ties bit-equal to the plain
 stages; rows with fewer candidates than a stage keeps), the kNN methods
 launching B1 and B6 on CUDA tensors, FFT repulsion on the card, the
@@ -260,31 +263,29 @@ def test_repulsion_shards_validity_and_bitwise_repeat(dev):
 
 @pytest.mark.parametrize("m", [1, 2, 3, 4, 6, 8])
 def test_fused_step_and_loss_match_plain(dev, m):
+    """B3 over a head block and a ragged tail (a hub row, an empty row,
+    padding), with a padded-row mask, against its plain version; B4 over
+    the head."""
+    y, hidx, hval, rag = _ragged_problem(dev, 300, 40, m, 50 + m)
+    n = y.shape[0]
     rng = np.random.default_rng(m)
-    n, w = 300, 40
 
     def t(a, dtype=np.float32):
         return torch.from_numpy(np.asarray(a, dtype)).to(dev)
 
-    y = t(rng.standard_normal((n, m)))
-    hidx = t(rng.integers(0, n, (n, w)), np.int32)
-    hval = rng.random((n, w)) * 1e-3
-    hval[rng.random((n, w)) < 0.3] = 0.0
-    hval = t(hval)
-    tail = t(1e-3 * rng.standard_normal((n, m)))
-    repz = t(1e-3 * rng.standard_normal((n, m)))
+    rep = t(0.1 * rng.standard_normal((n, m)))
+    z = torch.tensor(123.0, device=dev)
     upd = t(1e-2 * rng.standard_normal((n, m)))
     gains = t(1.0 + rng.random((n, m)))
     valid = torch.arange(n, device=dev) < n - 7
-    args = (y, y, hidx, hval, 4.0, tail, repz, valid, upd, gains, 0.5)
-    kw = dict(eta=200.0, min_gain=0.01)
+    args = (y, y, hidx, hval, 4.0, rep, z, valid, upd, gains, 0.5)
+    kw = dict(eta=200.0, min_gain=0.01, ragged=rag)
     ok = att.fused_step_update(*args, **kw)
     op = att.fused_step_plain(*args, **kw)
     assert torch.equal(ok[2], op[2])
     for a, b in zip(ok[:2], op[:2]):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-6)
     torch.testing.assert_close(ok[3], op[3], rtol=1e-4, atol=1e-12)
-    z = torch.tensor(123.0, device=dev)
     lk = att.attraction_loss(y, y, hidx, hval, 4.0, z)
     lp = att.attraction_loss_plain(y, y, hidx, hval, 4.0, z)
     # a row's KL terms take both signs and partly cancel: the absolute
@@ -325,29 +326,33 @@ def test_forces_match_plain_at_any_width(dev, m, w):
                                atol=2e-5 * float(ap.abs().max()))
 
 
-def test_forces_are_the_fused_steps_head(dev):
-    """The unfused step from B5's forces against B3 on tie-free inputs:
-    the gains ladder agrees exactly, y and update to rtol 1e-4."""
-    y, hidx, hval = _rows(dev, 500, 64, 2, 9)
-    forces = att.attraction_forces(y, y, hidx, hval, 4.0)
-    rng = np.random.default_rng(10)
-    sign = torch.from_numpy(rng.choice([-1.0, 1.0], y.shape).astype(
-        np.float32)).to(dev)
-    repz = 1e-3 * torch.randn(y.shape, device=dev)
-    mag = forces.abs() + 1e-3 * forces.abs().max()
-    tail = repz - forces + sign * mag  # every grad is ±(|att| + margin)
-    upd = 1e-2 * torch.randn(y.shape, device=dev)
-    gains = 1.0 + torch.rand(y.shape, device=dev)
-    yk, uk, gk, _ = att.fused_step_update(y, y, hidx, hval, 4.0, tail, repz,
-                                          None, upd, gains, 0.8, eta=200.0,
-                                          min_gain=0.01)
-    grad = (forces + tail) - repz
+def _unfused_step(y, forces, rep, z, upd, gains, momentum, eta, valid=None):
+    """The unfused step in PyTorch: grad = forces − rep / z (masked), then
+    the vdM update (models/tsne._update_embedding's operations)."""
+    grad = forces - rep / z
+    if valid is not None:
+        grad = grad * valid[:, None].to(grad.dtype)
     same = (grad > 0.0) == (upd > 0.0)
     g = torch.clamp(torch.where(same, gains * 0.8, gains + 0.2), min=0.01)
-    u = 0.8 * upd - 200.0 * g * grad
-    assert torch.equal(gk, g)
-    torch.testing.assert_close(uk, u, rtol=1e-4, atol=1e-6)
-    torch.testing.assert_close(yk, y + u, rtol=1e-4, atol=1e-6)
+    u = momentum * upd - eta * g * grad
+    return y + u, u, g
+
+
+def test_forces_are_the_fused_steps_head(dev):
+    """B3 over a head block alone against B5's forces over it and the
+    unfused step in PyTorch: the same bits."""
+    y, hidx, hval = _rows(dev, 500, 64, 2, 9)
+    forces = att.attraction_forces(y, y, hidx, hval, 4.0)
+    rep = 1e-1 * torch.randn(y.shape, device=dev)
+    z = torch.tensor(37.0, device=dev)
+    upd = 1e-2 * torch.randn(y.shape, device=dev)
+    gains = 1.0 + torch.rand(y.shape, device=dev)
+    yk, uk, gk, _ = att.fused_step_update(y, y, hidx, hval, 4.0, rep, z,
+                                          None, upd, gains, 0.8, eta=200.0,
+                                          min_gain=0.01)
+    want = _unfused_step(y, forces, rep, z, upd, gains, 0.8, 200.0)
+    for got, w in zip((yk, uk, gk), want):
+        assert torch.equal(got, w)
 
 
 def test_forces_wrapper_refuses_what_b5_does_not_take(dev):
@@ -371,8 +376,15 @@ def test_forces_wrapper_refuses_what_b5_does_not_take(dev):
     with pytest.raises(ValueError, match="B4"):
         att.attraction_loss(y9, y9, jidx, jval, 1.0, 1.0)
     with pytest.raises(ValueError, match="B3"):
-        att.fused_step_update(y9, y9, jidx, jval, 1.0, y9, y9, None, y9, y9,
+        att.fused_step_update(y9, y9, jidx, jval, 1.0, y9, 1.0, None, y9, y9,
                               0.5, eta=1.0, min_gain=0.01)
+    planes = (y, torch.tensor(1.0, device=dev), None, y, y, 0.5)
+    for bad in (dict(order=torch.arange(50, device=dev)),
+                dict(order=torch.arange(49, device=dev, dtype=torch.int32)),
+                dict(ragged=rag._replace(dst=rag.dst.long()))):
+        with pytest.raises(ValueError, match="B3"):
+            att.fused_step_update(y, y, jidx, jval, 1.0, *planes, eta=1.0,
+                                  min_gain=0.01, **bad)
     with pytest.raises(ValueError, match="B2"):
         cuda_exact_repulsion(y9)
     assert KERNELS["B5"].launches == before + 1
@@ -441,7 +453,7 @@ def test_forces_and_loss_with_a_ragged_part_match_plain(dev, m, w):
 def test_forces_with_a_ragged_part_are_the_sum_of_its_parts(dev):
     """One launch over head + tail gives the bits of the head's launch
     plus the tail's, added in f32: the unfused CSR step and the fused one
-    (B3 with B5's tail) see the same forces."""
+    (B3, which walks the head and then the tail) see the same forces."""
     y, jidx, jval, rag = _ragged_problem(dev, 900, 64, 2, 3)
     both = att.attraction_forces(y, y, jidx, jval, 4.0, ragged=rag)
     head = att.attraction_forces(y, y, jidx, jval, 4.0)
@@ -455,36 +467,114 @@ def test_forces_with_a_ragged_part_are_the_sum_of_its_parts(dev):
 
 
 def test_fused_csr_step_with_its_b5_tail_equals_the_unfused_step(dev):
-    """B3 over the head with B5's tail against B5 over head + tail and the
-    vdM update in PyTorch, on tie-free inputs: the gains exactly equal, y
-    and update to rtol 1e-4 (bit-equal on this card)."""
+    """B3 over the head and the tail in one launch against B5 over head +
+    tail and the vdM update in PyTorch: the same bits."""
     y, hidx, hval, rag = _ragged_problem(dev, 900, 64, 2, 4)
     forces = att.attraction_forces(y, y, hidx, hval, 4.0, ragged=rag)
-    rng = np.random.default_rng(11)
-    sign = torch.from_numpy(rng.choice([-1.0, 1.0], y.shape).astype(
-        np.float32)).to(dev)
-    mag = forces.abs() + 1e-3 * forces.abs().max()
-    repz = forces - sign * mag  # every grad is ±(|att| + margin)
+    rep = 1e-1 * torch.randn(y.shape, device=dev)
+    z = torch.tensor(3.7, device=dev)
     upd = 1e-2 * torch.randn(y.shape, device=dev)
     gains = 1.0 + torch.rand(y.shape, device=dev)
-    tail = att.attraction_forces(y, y, None, None, 4.0, ragged=rag)
-    yk, uk, gk, _ = att.fused_step_update(y, y, hidx, hval, 4.0, tail, repz,
+    yk, uk, gk, _ = att.fused_step_update(y, y, hidx, hval, 4.0, rep, z,
                                           None, upd, gains, 0.8, eta=200.0,
-                                          min_gain=0.01)
-    grad = forces - repz
-    same = (grad > 0.0) == (upd > 0.0)
-    g = torch.clamp(torch.where(same, gains * 0.8, gains + 0.2), min=0.01)
-    u = 0.8 * upd - 200.0 * g * grad
-    assert torch.equal(gk, g)
-    torch.testing.assert_close(uk, u, rtol=1e-4, atol=1e-6)
-    torch.testing.assert_close(yk, y + u, rtol=1e-4, atol=1e-6)
+                                          min_gain=0.01, ragged=rag)
+    want = _unfused_step(y, forces, rep, z, upd, gains, 0.8, 200.0)
+    for got, w in zip((yk, uk, gk), want):
+        assert torch.equal(got, w)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8])
+@pytest.mark.parametrize("masked", [False, True])
+def test_one_launch_equals_the_unfused_step_bit_for_bit(dev, m, masked):
+    """B3's one launch over a CSR head and tail (row 0 a hub of 3,000
+    tail edges, row 1 with none, the last row owning padding) against B5
+    over head + tail, att − rep/Z and the vdM update: the same bits, at
+    every m; and with the tail alone (W = 0), as B5 selects its instance."""
+    y, hidx, hval, rag = _ragged_problem(dev, 700, 48, m, 70 + m)
+    n = y.shape[0]
+    rep = 1e-1 * torch.randn(y.shape, device=dev)
+    z = torch.tensor(1.0 + 0.37 * m, device=dev)
+    upd = 1e-2 * torch.randn(y.shape, device=dev)
+    gains = 1.0 + torch.rand(y.shape, device=dev)
+    valid = (torch.arange(n, device=dev) % 9 != 4) if masked else None
+    for blk in ((hidx, hval), (None, None)):
+        got = att.fused_step_update(y, y, *blk, 4.0, rep, z, valid, upd,
+                                    gains, 0.5, eta=200.0, min_gain=0.01,
+                                    ragged=rag)
+        forces = att.attraction_forces(y, y, *blk, 4.0, ragged=rag)
+        want = _unfused_step(y, forces, rep, z, upd, gains, 0.5, 200.0,
+                             valid)
+        for a, b in zip(got[:3], want):
+            assert torch.equal(a, b)
+
+
+def test_visit_order_moves_no_bit_on_the_card(dev):
+    """B3 with its rows visited hubs first (and in a random order) gives
+    the bits of the launch in index order."""
+    y, hidx, hval, rag = _ragged_problem(dev, 2000, 64, 2, 12)
+    rep = 1e-1 * torch.randn(y.shape, device=dev)
+    z = torch.tensor(5.0, device=dev)
+    upd = 1e-2 * torch.randn(y.shape, device=dev)
+    gains = 1.0 + torch.rand(y.shape, device=dev)
+    args = (y, y, hidx, hval, 4.0, rep, z, None, upd, gains, 0.8)
+    kw = dict(eta=200.0, min_gain=0.01, ragged=rag)
+    base = att.fused_step_update(*args, **kw)
+    shuffled = torch.randperm(y.shape[0], device=dev).to(torch.int32)
+    for order in (att.visit_order(rag), shuffled):
+        for a, b in zip(att.fused_step_update(*args, order=order, **kw),
+                        base):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("width", [8, 16, 48, 64])
+def test_build_csr_on_the_card_equals_the_cpu_build(dev, width):
+    """``build_csr`` on CUDA tensors gives the CPU build's arrays: the same
+    head, the same padded tail, the same order within each row."""
+    rng = np.random.default_rng(width)
+    n, s = 3000, 48
+    jidx = torch.from_numpy(rng.integers(0, n, (n, s)).astype(np.int32))
+    v = rng.random((n, s)).astype(np.float32)
+    v[rng.random((n, s)) < 0.6] = 0.0
+    v[::50, :] = np.where(v[::50, :] > 0, v[::50, :], 1e-3)  # hubs
+    v[7] = 0.0  # a row with no entry
+    jval = torch.from_numpy(v)
+    cpu = att.build_csr(jidx, jval, width)
+    card = att.build_csr(jidx.to(dev), jval.to(dev), width)
+    for a, b in zip(card[0] + card[1], cpu[0] + cpu[1]):
+        assert a.is_cuda and a.dtype == b.dtype
+        assert torch.equal(a.cpu(), b)
+
+
+def test_fused_csr_optimize_launches_b3_alone(dev):
+    """A fused CSR optimize is one B3 launch an iteration (no B5), B4
+    every tenth, B2 every iteration."""
+    from tsne_flink_tpu_torch.models.tsne import (TsneConfig,
+                                                  _plan_layout,
+                                                  init_working_set,
+                                                  optimize)
+    from tsne_flink_tpu_torch.utils.artifacts import prepare
+    x = _blobs(1200, 32, 3)
+    prep = prepare(x, neighbors=30, perplexity=10.0, device=dev)
+    cfg = TsneConfig(perplexity=10.0, iterations=30, attraction="csr")
+    _, csr = _plan_layout(prep.jidx, prep.jval, cfg)
+    st = init_working_set(None, 1200, 2, torch.float32, dev,
+                          y0=np.random.default_rng(1).standard_normal(
+                              (1200, 2)) * 1e-2)
+    reset_launches()
+    st, _ = optimize(st, prep.jidx, prep.jval, cfg, csr=csr)
+    assert bool(torch.isfinite(st.y).all())
+    assert KERNELS["B3"].launches == 30
+    assert KERNELS["B5"].launches == 0
+    assert KERNELS["B4"].launches == 3
+    assert KERNELS["B2"].launches == 30
 
 
 @pytest.mark.parametrize("layout", ["csr", "rows", "edges", "blocks"])
 def test_optimize_runs_each_layout_without_a_segment_sum(dev, layout,
                                                          monkeypatch):
-    """A short optimize on every layout launches B5 each iteration and B4
-    every tenth, calls no torch.segment_reduce on a CUDA tensor, and
+    """A short optimize on every layout launches B5 (B3 on the fused CSR
+    layout) each iteration and B4 every tenth, calls no
+    torch.segment_reduce on a CUDA tensor, and
     reports the KL its plain run on the CPU reports (rtol 1e-3, at
     iterations 10 and 20)."""
     from tsne_flink_tpu_torch.models.tsne import (TsneConfig,
@@ -521,7 +611,7 @@ def test_optimize_runs_each_layout_without_a_segment_sum(dev, layout,
         assert bool(torch.isfinite(st.y).all())
         ends[str(d)] = losses.cpu()
         if d != "cpu":
-            assert KERNELS["B5"].launches == 20
+            assert KERNELS["B5"].launches == (0 if layout == "csr" else 20)
             assert KERNELS["B4"].launches == 2
             assert KERNELS["B3"].launches == (20 if layout == "csr" else 0)
     torch.testing.assert_close(ends["cuda"], ends["cpu"], rtol=1e-3, atol=0)

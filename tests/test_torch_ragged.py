@@ -111,7 +111,8 @@ def test_one_iteration_runs_through_the_one_call(problem, layout,
     jst, jloss = run(jtsne.TsneState(*map(jnp.asarray, (y0, upd0, g0))),
                      jidx, jval, start_iter=149, **jkw)
     calls = []
-    for name in ("attraction_forces", "attraction_loss"):
+    for name in ("attraction_forces", "attraction_loss",
+                 "fused_step_update"):
         real = getattr(tatt, name)
 
         def spy(*a, _real=real, _name=name, **kw):
@@ -139,12 +140,14 @@ def test_one_iteration_runs_through_the_one_call(problem, layout,
     np.testing.assert_allclose(tloss.numpy(), np.asarray(jloss), rtol=1e-9,
                                atol=1e-12)
     assert tloss[14] > 0
-    # one forces call (the fused CSR step's: its tail) and one KL call,
-    # each with the edge list, whose plain sums run inside them only
-    assert sorted(calls) == [("attraction_forces", True),
-                             ("attraction_loss", True),
-                             ("edge_forces_plain", None),
-                             ("edge_loss_plain", None)]
+    # one forces call (on the CSR layout the fused step, which takes the
+    # tail itself) and one KL call, each with the edge list, whose plain
+    # sums run inside them only
+    step = "fused_step_update" if layout == "csr" else "attraction_forces"
+    assert sorted(calls) == sorted([(step, True),
+                                    ("attraction_loss", True),
+                                    ("edge_forces_plain", None),
+                                    ("edge_loss_plain", None)])
 
 
 def test_ragged_edges_row_pointer():

@@ -89,34 +89,46 @@ def test_plain_repulsion_matches_jax_pallas_at_every_width(m):
 
 
 def _csr_problem(m, seed=4, n=150, w=16):
+    """A CSR head [n, w], a src-sorted tail (row 0 a hub of 40 edges, the
+    others 0-3) and the step's planes: rep [n, m] (Z = 37.5)."""
     rng = np.random.default_rng(seed + m)
     f32 = np.float32
     y = rng.standard_normal((n, m)).astype(f32)
     hidx = rng.integers(0, n, (n, w)).astype(np.int32)
     hval = (rng.random((n, w)) * 1e-3).astype(f32)
     hval[rng.random((n, w)) < 0.2] = 0.0
-    tail = (1e-3 * rng.standard_normal((n, m))).astype(f32)
-    repz = (1e-3 * rng.standard_normal((n, m))).astype(f32)
+    deg = rng.integers(0, 4, n)
+    deg[0] = 40
+    tsrc = np.repeat(np.arange(n), deg).astype(np.int32)
+    tdst = rng.integers(0, n, tsrc.shape[0]).astype(np.int32)
+    tval = (rng.random(tsrc.shape[0]) * 1e-3).astype(f32)
+    rep = (37.5e-3 * rng.standard_normal((n, m))).astype(f32)
     upd = (1e-2 * rng.standard_normal((n, m))).astype(f32)
     gains = (1.0 + rng.random((n, m))).astype(f32)
-    return y, hidx, hval, tail, repz, upd, gains
+    return y, hidx, hval, (tsrc, tdst, tval), rep, upd, gains
 
 
 @pytest.mark.parametrize("m", WIDTHS)
 def test_plain_attraction_kernels_match_jax_at_every_width(jax_kind, m):
-    """B3 (the fused step), B4 (the KL) and B5 (the forces): the port's
-    index-gathering wrappers on the CPU against the JAX package's, f32."""
-    y, hidx, hval, tail, repz, upd, gains = _csr_problem(m)
+    """B3 (the CSR step over head + tail), B4 (the KL) and B5 (the
+    forces): the port's index-gathering wrappers on the CPU against the
+    JAX package's, f32 (the JAX step fed its own tail forces and rep/Z)."""
+    from tsne_flink_tpu.models.tsne import _edge_forces
+    y, hidx, hval, tail, rep, upd, gains = _csr_problem(m)
     valid = np.arange(y.shape[0]) < 140
     j = jnp.asarray
+    tail_att = _edge_forces(j(y), j(y), *map(j, tail), jnp.float32(4.0))
     want = jatt.fused_step_update(
-        j(y), j(y), j(hidx), j(hval), jnp.float32(4.0), j(tail), j(repz),
-        j(valid), j(upd), j(gains), jnp.float32(0.8), eta=1000.0,
-        min_gain=0.01, row_chunk=64, kernel=jax_kind)
+        j(y), j(y), j(hidx), j(hval), jnp.float32(4.0), tail_att,
+        j(rep) / jnp.float32(37.5), j(valid), j(upd), j(gains),
+        jnp.float32(0.8), eta=1000.0, min_gain=0.01, row_chunk=64,
+        kernel=jax_kind)
     t = torch.from_numpy
-    got = tatt.fused_step_update(t(y), t(y), t(hidx), t(hval), 4.0, t(tail),
-                                 t(repz), t(valid), t(upd), t(gains), 0.8,
-                                 eta=1000.0, min_gain=0.01, row_chunk=48)
+    rag = tatt.ragged_edges(*map(t, tail), y.shape[0])
+    got = tatt.fused_step_update(t(y), t(y), t(hidx), t(hval), 4.0, t(rep),
+                                 torch.tensor(37.5), t(valid), t(upd),
+                                 t(gains), 0.8, eta=1000.0, min_gain=0.01,
+                                 ragged=rag, row_chunk=48)
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
     for a, b in zip(got[:2], want[:2]):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4,

@@ -1,4 +1,5 @@
-// B3 — the fused CSR-head attraction + gains/momentum step,
+// B3 — the CSR step: a row's head and tail forces, rep/Z, the vdM gains,
+//      the momentum update and y += update, in one launch,
 // B4 — the per-row KL over a row block and a ragged edge part, and
 // B5 — the attraction forces over a row block and a ragged edge part.
 //
@@ -6,20 +7,24 @@
 // (launched by _run_fused, driven by fused_step_update); B4 replaces
 // ::_loss_kernel (launched by _run_loss, driven by attraction_loss); B5
 // replaces ::_forces_kernel (launched by _run_forces, driven by
-// attraction_forces).  B4 and B5 also take over what the JAX package
+// attraction_forces).  The three also take over what the JAX package
 // leaves to XLA beside them: the segment sums of a src-sorted edge list
 // (tsne_flink_tpu/models/tsne.py, jax.ops.segment_sum) — the blocks
-// layout's reverse edges, the edges layout's whole list and the CSR tail.
+// layout's reverse edges, the edges layout's whole list and the CSR tail
+// — and, in B3, the rep/Z division the JAX step does before its kernel.
 // Row i's forces are F_i = Σ_j P_ij q_ij (y_i − y_j) over the row's
 // forward slots (jidx/jval [nloc, W], W may be 0) and its ragged segment
 // (dst/val [E] from rowptr[i] to rowptr[i + 1]); B5 writes
-// att_i = forward + ragged in that grouping, B4 the KL the same way.
+// att_i = forward + ragged in that grouping, B4 the KL the same way, and
+// B3 goes on to grad_i = (att_i − rep_i / Z)·mask_i and the update.
 //
 // What bounds them on an H100: bytes.  Each row reads its W slots (int32
 // index + f32 value: N·W·8 bytes), its E_i edges (8 bytes each), the row
 // pointer and a few [N, m] state planes; the ~20 operations a slot are far
 // below the card's rate.  Each neighbour row y_full[j] is gathered from a
-// [N, m] array that stays in the 50 MB L2, one 32-byte sector a gather.
+// [N, m] array that stays in the 50 MB L2, one 32-byte sector a gather:
+// at the 60k CSR head those sectors (~245 MB) outweigh the streams, and
+// they run at the L2's rate.
 //
 // Design: one warp per row, the lanes taking slot lane + 32·u.  A lane
 // walks its slots U at a time and, before any arithmetic, issues the U
@@ -36,24 +41,34 @@
 // give the same bits.  The TPU wrapper materialises the [c, W, m] gather
 // in device memory first; the port does not.
 //
+// B3 may visit its rows in a given order (a permutation: warp s of the
+// grid takes row order[s]).  Each row's arithmetic is its own — per-row
+// outputs, a fixed lane order — so the order moves no bit; it decides
+// when a row runs.  A CSR tail is hub rows' overflow, thousands of edges
+// walked by one warp each, and in index order some hubs start in the
+// grid's last wave and run on alone after it; the wrapper's order puts
+// the rows with the longest tails first, so they run beside the rest.
+//
 // The arithmetic mirrors the plain versions operation for operation.  The
 // forward part: norm-trick distances clamped at 0, att = y_i·Σw − Σw·y_j,
 // each product and sum rounded on its own (__fmul_rn / __fadd_rn: nothing
 // contracted into an FMA), in the plain version's order — the norm-trick
 // d² cancels for a spread embedding, and an FMA there alone moved forces
 // by more than 2e-5.  The ragged part: d² = Σ(y_i − y_j)² and Σ w·(y_i −
-// y_j), as the plain edge-list sum computes it.  B3 and B5 share the
-// forward routine (pair_q and walk_row), so B5's forward sum is the bits
-// B3 computes inside its step, and B5 over the ragged part alone gives
-// the bits of B5's ragged sum beside a forward block: the unfused CSR
-// step (B5 over head + tail, then the vdM update in PyTorch) reproduces
-// the fused one (B3 over the head with B5's tail) bit for bit.  B3 writes
-// y, update and gains to fresh buffers, B5 its forces: other warps are
-// still gathering from y_full, so an in-place y would race.  B4 reads the
-// global Z from device memory (no host round trip) and writes per-row
-// partials only; their sum is a fixed-order torch.sum outside.  No kernel
-// here uses atomics.  Every m from 1 to 8 (the JAX package's MPAD) is a
-// template instance.
+// y_j), as the plain edge-list sum computes it.  B3 and B5 share the walk
+// (pair_q, edge_q, walk_row, row_forces) and the instance rule, so B3's
+// att_i is the bits of B5 over the same parts, and rep/Z is an IEEE
+// division (__fdiv_rn, as PyTorch divides by a 0-d device tensor; the
+// build has no fast-math): the fused CSR step (B3 over head + tail)
+// reproduces the unfused one (B5 over head + tail, att − rep/Z, the vdM
+// update in PyTorch) bit for bit.  Each part keeps its own accumulators
+// and lane order, so one walk over both parts is the head's sum plus the
+// tail's, bit for bit.  B3 writes y, update and gains to fresh buffers,
+// B5 its forces: other warps are still gathering from y_full, so an
+// in-place y would race.  B3 and B4 read the global Z from device memory
+// (no host round trip); B4 writes per-row partials only, their sum a
+// fixed-order torch.sum outside.  No kernel here uses atomics.  Every m
+// from 1 to 8 (the JAX package's MPAD) is a template instance.
 #include "common.cuh"
 
 namespace {
@@ -242,35 +257,55 @@ __device__ __forceinline__ float kl_term(float v, float exag, float z,
   return v > 0.f ? pe * logf(pe * z / q) : 0.f;
 }
 
-template <int M>
+// B3: row order[s] (row s without an order) — its forces over the head
+// block and then its ragged tail, grad = (att − rep/Z)·mask with att =
+// fwd + rag as B5 adds them, then the vdM gains, the momentum update and
+// y += update, and ‖grad‖² — all written by lane 0.
+template <int M, bool FWD, bool RAG>
 __global__ void __launch_bounds__(THREADS)
 fused_step_kernel(const float* __restrict__ y_loc,
                   const float* __restrict__ y_full,
                   const int* __restrict__ hidx, const float* __restrict__ hval,
-                  int nloc, int w, const float* __restrict__ tail,
-                  const float* __restrict__ repz,
+                  int nloc, int w, const long long* __restrict__ rowptr,
+                  const int* __restrict__ dst, const float* __restrict__ val,
+                  const int* __restrict__ order,
+                  const float* __restrict__ rep,
+                  const float* __restrict__ z_ptr,
                   const float* __restrict__ mask,
                   const float* __restrict__ upd,
                   const float* __restrict__ gains, float exag, float momentum,
                   float eta, float min_gain, float* __restrict__ y_out,
                   float* __restrict__ upd_out, float* __restrict__ gains_out,
                   float* __restrict__ gsq_out) {
-  const int i = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
+  const int s = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
-  if (i >= nloc) return;  // whole warp
-  float yc[M], rr, att[M], none[M];
+  if (s >= nloc) return;  // whole warp
+  const int i = order != nullptr ? order[s] : s;
+  float yc[M], rr, fwd[M], rag[M], unused[M];
   load_row<M>(y_loc, i, yc, rr);
-  row_forces<M, true, false>(y_full, hidx + (size_t)i * w,
-                             hval + (size_t)i * w, w, nullptr, nullptr, 0, 0,
-                             yc, rr, exag, lane, att, none);
+  // the head's walk, then the tail's: each part's sums keep their own
+  // order, so this is B5's interleaved walk bit for bit, and a part's
+  // batch holds only its own loads — 40 registers a thread at m = 2
+  // rather than the interleaved walk's 64, so 6 blocks an SM, not 4
+  if constexpr (FWD)
+    row_forces<M, true, false>(y_full, hidx + (size_t)i * w,
+                               hval + (size_t)i * w, w, nullptr, nullptr, 0,
+                               0, yc, rr, exag, lane, fwd, unused);
+  if constexpr (RAG)
+    row_forces<M, false, true>(y_full, nullptr, nullptr, 0, dst, val,
+                               rowptr[i], rowptr[i + 1], yc, rr, exag, lane,
+                               unused, rag);
   if (lane != 0) return;
+  const float z = *z_ptr;
   const float mk = mask != nullptr ? mask[i] : 1.f;
   float gsq = 0.f;
 #pragma unroll
   for (int d = 0; d < M; ++d) {
     const size_t o = (size_t)i * M + d;
-    const float grad = __fmul_rn(__fsub_rn(__fadd_rn(att[d], tail[o]),
-                                           repz[o]), mk);
+    const float att = FWD && RAG ? __fadd_rn(fwd[d], rag[d])
+                      : FWD      ? fwd[d]
+                                 : rag[d];
+    const float grad = __fmul_rn(__fsub_rn(att, __fdiv_rn(rep[o], z)), mk);
     const float u = upd[o];
     const float g0 = gains[o];
     const float g = fmaxf((grad > 0.f) == (u > 0.f) ? __fmul_rn(g0, 0.8f)
@@ -354,6 +389,13 @@ auto forces_for(int w, const long long* rowptr) {
 }
 
 template <int M>
+auto fused_for(int w, const long long* rowptr) {
+  return rowptr == nullptr ? fused_step_kernel<M, true, false>
+         : w == 0          ? fused_step_kernel<M, false, true>
+                           : fused_step_kernel<M, true, true>;
+}
+
+template <int M>
 auto loss_for(int w, const long long* rowptr) {
   return rowptr == nullptr ? loss_kernel<M, true, false>
          : w == 0          ? loss_kernel<M, false, true>
@@ -362,14 +404,19 @@ auto loss_for(int w, const long long* rowptr) {
 
 }  // namespace
 
-// y_loc [nloc, m] (rows of y_full [*, m]), hidx/hval [nloc, w] int32/f32,
-// tail/repz/upd/gains [nloc, m] f32, mask [nloc] f32 or null; writes
-// y_out/upd_out/gains_out [nloc, m] and gsq_out [nloc] (fresh buffers).
-// 1 <= m <= 8.
+// y_loc [nloc, m] (rows of y_full [*, m]); the head block hidx/hval
+// [nloc, w] int32/f32 (w may be 0); the ragged tail, or null: rowptr
+// [nloc + 1] int64 into dst/val [E] int32/f32; order [nloc] int32, a
+// permutation of the rows to visit them in, or null (index order);
+// rep/upd/gains [nloc, m] f32; z_ptr -> the global Z (one f32 in device
+// memory); mask [nloc] f32 or null.  Writes y_out/upd_out/gains_out
+// [nloc, m] and gsq_out [nloc] (fresh buffers).  1 <= m <= 8.
 TSNE_API int tsne_fused_step_f32(const float* y_loc, const float* y_full,
                                  const int* hidx, const float* hval, int nloc,
-                                 int w, int m, const float* tail,
-                                 const float* repz, const float* mask,
+                                 int w, const long long* rowptr,
+                                 const int* dst, const float* val, int m,
+                                 const int* order, const float* rep,
+                                 const float* z_ptr, const float* mask,
                                  const float* upd, const float* gains,
                                  float exag, float momentum, float eta,
                                  float min_gain, float* y_out, float* upd_out,
@@ -378,9 +425,11 @@ TSNE_API int tsne_fused_step_f32(const float* y_loc, const float* y_full,
   cudaStream_t s = (cudaStream_t)stream;
   return tsne::with_m(m, [&](auto mc) {
     constexpr int M = decltype(mc)::value;
-    fused_step_kernel<M><<<grid_for(nloc), THREADS, 0, s>>>(
-        y_loc, y_full, hidx, hval, nloc, w, tail, repz, mask, upd, gains,
-        exag, momentum, eta, min_gain, y_out, upd_out, gains_out, gsq_out);
+    const auto kern = fused_for<M>(w, rowptr);
+    kern<<<grid_for(nloc), THREADS, 0, s>>>(
+        y_loc, y_full, hidx, hval, nloc, w, rowptr, dst, val, order, rep,
+        z_ptr, mask, upd, gains, exag, momentum, eta, min_gain, y_out,
+        upd_out, gains_out, gsq_out);
     return tsne::launch_status();
   });
 }

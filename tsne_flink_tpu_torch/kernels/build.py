@@ -41,8 +41,9 @@ _F = ctypes.c_float
 SIGNATURES = {
     "tsne_knn_f32": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "tsne_repulsion_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
-    "tsne_fused_step_f32": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
-                            _F, _F, _F, _F, _P, _P, _P, _P, _P],
+    "tsne_fused_step_f32": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P,
+                            _P, _P, _P, _P, _F, _F, _F, _F, _P, _P, _P, _P,
+                            _P],
     "tsne_attraction_loss_f32": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I,
                                  _F, _P, _P, _P],
     "tsne_attraction_forces_f32": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I,

@@ -6,10 +6,10 @@ every attraction layout:
 
 * every iteration — the repulsion (exact, kernel B2; or FFT, with the
   grid geometry built once per run and the spectral Z used as the global
-  Z), then either the fused
-  CSR step (the CSR tail's forces by kernel B5 over the tail alone, then
-  the head step, kernel B3) or the unfused step: the attraction forces
-  of the armed layout in one launch of kernel B5 over its row part (the
+  Z), then either the fused CSR step (one launch of kernel B3: the head
+  and tail forces, rep/Z and the vdM update, the rows with the longest
+  tails visited first) or the unfused step: the attraction forces of
+  the armed layout in one launch of kernel B5 over its row part (the
   [N, S] rows, the blocks layout's forward block or a CSR head) and its
   edge part (the flat edge list, the blocks layout's reverse block or a
   CSR tail), grad = att − rep/Z, the vdM update; then centering;
@@ -249,8 +249,8 @@ def optimize(state: TsneState, jidx, jval, cfg: TsneConfig, *,
     or with ``edges_extra`` the blocks layout's reverse block beside the
     forward rows ``(jidx, jval)``; neither = the padded [N, S] rows
     ``(jidx, jval)``.  ``fused_step`` (None means on) runs the CSR layout
-    through the fused step, kernel B3; ``False``, and every other layout,
-    takes the unfused step."""
+    through the fused step, one launch of kernel B3 over head and tail;
+    ``False``, and every other layout, takes the unfused step."""
     if axis_name is not None:
         raise NotImplementedError("mesh sharding is not ported yet "
                                   "(ROADMAP queue A14)")
@@ -259,11 +259,14 @@ def optimize(state: TsneState, jidx, jval, cfg: TsneConfig, *,
         raise NotImplementedError(
             "repulsion_stride, autopilot, the health sentinel and telemetry "
             "are not ported yet (ROADMAP queue A10)")
-    from tsne_flink_tpu_torch.ops.attraction_cuda import fused_step_update
+    from tsne_flink_tpu_torch.ops.attraction_cuda import (fused_step_update,
+                                                          visit_order)
 
     fused = csr is not None and fused_step is not False
     fidx, fval, ragged = _layout_parts(jidx, jval, state.y.shape[0], edges,
                                        edges_extra, csr)
+    # the hubs first: B3's longest warps start with the launch (no bit moves)
+    order = visit_order(ragged) if fused else None
     scratch = _repulsion_scratch(cfg, state.y.shape[1], state.y.dtype,
                                  state.y.device)
     n_slots = max(cfg.n_loss_slots, 1)
@@ -283,13 +286,11 @@ def optimize(state: TsneState, jidx, jval, cfg: TsneConfig, *,
             if record:
                 losses[loss_slot(i, n_slots)] = torch.sum(_attraction_loss(
                     st.y, st.y, fidx, fval, cfg, exag, z, ragged))
-            # the tail's forces: B5 over the ragged part alone
-            tail = _attraction_forces(st.y, st.y, None, None, cfg, exag,
-                                      ragged)
             y2, u2, g2, _gsq = fused_step_update(
-                st.y, st.y, fidx, fval, exag, tail, rep / z, valid,
-                st.update, st.gains, momentum, eta=cfg.learning_rate,
-                min_gain=cfg.min_gain, row_chunk=cfg.row_chunk)
+                st.y, st.y, fidx, fval, exag, rep, z, valid, st.update,
+                st.gains, momentum, eta=cfg.learning_rate,
+                min_gain=cfg.min_gain, ragged=ragged, order=order,
+                row_chunk=cfg.row_chunk)
             st = TsneState(y=y2, update=u2, gains=g2)
         else:
             grad, loss = _gradient(st.y, fidx, fval, cfg, exag,

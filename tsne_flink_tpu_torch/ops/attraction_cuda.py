@@ -1,15 +1,17 @@
-"""B3, B4 and B5: the fused CSR-head step, the KL pass and the forces alone,
-plus the CSR layout.
+"""B3, B4 and B5: the CSR step, the KL pass and the forces alone, plus the
+CSR layout.
 
 Port of ``tsne_flink_tpu/ops/attraction_pallas.py``:
 
 * :func:`pick_csr_width`, :func:`csr_tail_pad` and :func:`build_csr` —
   the capped-width CSR head ``[N, W]`` + the flat overflow tail, built once
-  per run on the host in numpy (a copy of the JAX package's code; the
-  port imports nothing from it).
-* :func:`fused_step_update` (B3, replaces ``::_fused_kernel``): head
-  forces, the tail/repulsion combine, vdM gains, momentum and the y
-  update in one pass per row, plus per-row ‖grad‖².
+  per run as tensor code on its input's device (the JAX package builds it
+  on the host in numpy; the two give the same arrays).
+* :func:`fused_step_update` (B3, replaces ``::_fused_kernel``): the CSR
+  step of a row in one pass — head and tail forces, rep/Z, vdM gains,
+  momentum and the y update, plus per-row ‖grad‖²; optionally visiting
+  the rows in a given order (:func:`visit_order`: the hubs first), which
+  moves no bit.
 * :func:`attraction_loss` (B4, replaces ``::_loss_kernel``): per-row KL
   partials Σ pe·log(pe·Z/q) over a row block and a ragged edge part.
 * :func:`attraction_forces` (B5, replaces ``::_forces_kernel``): the
@@ -37,7 +39,6 @@ from __future__ import annotations
 import math
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from tsne_flink_tpu_torch.kernels.build import KERNELS
@@ -85,42 +86,67 @@ def csr_tail_pad(n_tail: int) -> int:
 
 
 def build_csr(jidx, jval, width: int):
-    """Padded rows ``[N, S]`` -> (head ``[N, W]`` idx/val, tail COO).
+    """Padded rows ``[N, S]`` -> (head ``[N, W]`` idx/val, tail COO), on
+    ``jidx``'s device.
 
-    One host-side numpy pass.  Each row's valid entries keep their order:
-    the first ``W`` fill the head (missing slots carry val = 0), the rest
-    become a (src, dst, val) tail sorted by src, padded with (n-1, 0, 0).
-    Tensors come back on ``jidx``'s device."""
-    device = jidx.device
-    ji = jidx.cpu().numpy()
-    jv = jval.cpu().numpy()
-    n, s = ji.shape
+    Each row's set entries (val > 0) keep their order: the first ``W``
+    fill the head (missing slots carry idx = val = 0), the rest become a
+    (src, dst, val) tail sorted by src, padded with (n-1, 0, 0) to
+    :func:`csr_tail_pad`.  Tensor code: a global rank plane of the set
+    slots (int32 cumulative sums, the one [N, S] temporary that lives
+    through the build), then each head slot and tail entry finds its
+    source slot by a binary search of that plane, and the values are
+    gathered — so they are copies, the same bits as the JAX package's
+    numpy build.  One host sync, for the tail's length."""
+    n, s = jidx.shape
     w = int(min(width, s))
-    flat = np.flatnonzero((jv > 0).ravel())
-    rows = (flat // s).astype(np.int64)
-    deg = np.bincount(rows, minlength=n)
-    row_start = np.zeros(n + 1, np.int64)
-    np.cumsum(deg, out=row_start[1:])
-    rank = np.arange(len(flat), dtype=np.int64) - row_start[rows]
-    jif = ji.ravel()[flat]
-    jvf = jv.ravel()[flat]
-    head = rank < w
-    hidx = np.zeros((n, w), np.int32)
-    hval = np.zeros((n, w), jv.dtype)
-    pos = rows[head] * w + rank[head]
-    hidx.ravel()[pos] = jif[head]
-    hval.ravel()[pos] = jvf[head]
-    tail = ~head
-    n_tail = int(tail.sum())
+    dev = jidx.device
+    # rank[r, c] = the number of set slots up to and including (r, c), in
+    # row-major order: row r's j-th set slot is where rank first reaches
+    # row_start[r] + j + 1.  The per-row counts are summed in blocks of
+    # rows, so no [N, S] mask or cast copy (a bool sum widens to int64)
+    # lives beside the plane.
+    rank = torch.empty((n, s), dtype=torch.int32, device=dev)
+    rows = max(1, (1 << 24) // max(s, 1))
+    for r0 in range(0, n, rows):
+        torch.cumsum(jval[r0:r0 + rows] > 0, 1, dtype=torch.int32,
+                     out=rank[r0:r0 + rows])
+    deg = rank[:, -1].long()
+    row_start = torch.cumsum(deg, 0) - deg
+    rank += row_start[:, None].to(torch.int32)
+    want = (row_start[:, None]
+            + torch.arange(1, w + 1, device=dev)).to(torch.int32)
+    col = torch.searchsorted(rank, want).clamp_(max=max(s - 1, 0))
+    has = torch.arange(w, device=dev)[None, :] < deg[:, None]
+    hidx = torch.where(has, torch.gather(jidx, 1, col), 0).to(torch.int32)
+    hval = torch.where(has, torch.gather(jval, 1, col), 0)
+    n_over = torch.clamp(deg - w, min=0)
+    over_end = torch.cumsum(n_over, 0)
+    n_tail = int(over_end[-1]) if n else 0  # the one host sync
     e_pad = csr_tail_pad(n_tail)
-    tsrc = np.full((e_pad,), n - 1, np.int32)
-    tdst = np.zeros((e_pad,), np.int32)
-    tval = np.zeros((e_pad,), jv.dtype)
-    tsrc[:n_tail] = rows[tail]
-    tdst[:n_tail] = jif[tail]
-    tval[:n_tail] = jvf[tail]
-    return (tuple(torch.from_numpy(a).to(device) for a in (hidx, hval)),
-            tuple(torch.from_numpy(a).to(device) for a in (tsrc, tdst, tval)))
+    e = torch.arange(n_tail, device=dev)
+    src = torch.searchsorted(over_end, e, right=True)
+    # entry e is its row's (w + e − first)-th set slot, 0-based
+    want = (row_start[src] + w + (e - (over_end[src] - n_over[src]))
+            + 1).to(torch.int32)
+    at = torch.searchsorted(rank.view(-1), want)
+    tsrc = torch.full((e_pad,), n - 1, dtype=torch.int32, device=dev)
+    tdst = torch.zeros((e_pad,), dtype=torch.int32, device=dev)
+    tval = torch.zeros((e_pad,), dtype=jval.dtype, device=dev)
+    tsrc[:n_tail] = src.to(torch.int32)
+    tdst[:n_tail] = jidx.reshape(-1)[at].to(torch.int32)
+    tval[:n_tail] = jval.reshape(-1)[at]
+    return (hidx.contiguous(), hval.contiguous()), (tsrc, tdst, tval)
+
+
+def visit_order(ragged: Ragged) -> torch.Tensor:
+    """B3's visit order over the rows of a ``ragged`` tail: the int32
+    permutation that puts the rows with the longest tails first (index
+    order among equals).  A hub's tail is walked by one warp, the
+    launch's longest; started first, it runs beside the other rows
+    instead of after them.  Built once per run: the tail is fixed."""
+    return torch.argsort(torch.diff(ragged.rowptr), descending=True,
+                         stable=True).to(torch.int32)
 
 
 # ---- plain versions (the JAX package's XLA twins) ---------------------------
@@ -166,17 +192,34 @@ def _mask_of(valid, y_local):
             if valid is None else valid.to(y_local.dtype))
 
 
-def fused_step_plain(y_local, y_full, jidx, jval, exag, tail_att, repz,
-                     valid, update, gains, momentum, *, eta, min_gain,
+def fused_step_plain(y_local, y_full, jidx, jval, exag, rep, z, valid,
+                     update, gains, momentum, *, eta, min_gain,
+                     ragged: Ragged | None = None, order=None,
                      row_chunk: int = 4096):
-    """Plain version of B3, chunked over rows: ``(y, update, gains,
-    gsq)``.  Per-row math only, so any chunking gives the same bits."""
+    """Plain version of B3: ``(y, update, gains, gsq)``.  The tail's forces
+    are the ragged part's sorted segment sum (:func:`edge_forces_plain`),
+    then per row chunk the head forces, ``(head + tail) − rep / z``, the
+    mask and the vdM update (the JAX package's ``_xla_fused``).  Per-row
+    math only, so any chunking gives the same bits; ``order`` cannot
+    change a result and is not read."""
+    del order
     maskv = _mask_of(valid, y_local)
+    if not torch.is_tensor(z):
+        z = torch.tensor(z, dtype=rep.dtype)
+    repz = rep / z
+    tail = (torch.zeros_like(y_local) if ragged is None else
+            edge_forces_plain(y_local, y_full, ragged.src, ragged.dst,
+                              ragged.val, exag, torch.diff(ragged.rowptr)))
+    if jidx is None:  # no head block: zero head forces
+        jidx = torch.zeros((y_local.shape[0], 0), dtype=torch.int32,
+                           device=y_local.device)
+        jval = torch.zeros((y_local.shape[0], 0), dtype=y_local.dtype,
+                           device=y_local.device)
     outs = []
     for s in range(0, y_local.shape[0], row_chunk):
         sl = slice(s, s + row_chunk)
         yj = y_full[jidx[sl].long()]
-        outs.append(_plain_fused(y_local[sl], yj, jval[sl], tail_att[sl],
+        outs.append(_plain_fused(y_local[sl], yj, jval[sl], tail[sl],
                                  repz[sl], maskv[sl], update[sl], gains[sl],
                                  exag, momentum, eta, min_gain))
     return tuple(torch.cat(parts) for parts in zip(*outs))
@@ -303,7 +346,7 @@ def _check_cuda(name, y_local, y_full, jidx, jval, planes=(), ragged=None):
 
 
 def _launch_rows(kernel, y_local, y_full, jidx, jval, w, ragged, *args):
-    """Launch B4 or B5 over ``y_local``'s rows: the row block (null
+    """Launch B3, B4 or B5 over ``y_local``'s rows: the row block (null
     pointers when W = 0), the ragged part (null without one), then
     ``args``."""
     if y_local.shape[0] == 0:
@@ -316,39 +359,51 @@ def _launch_rows(kernel, y_local, y_full, jidx, jval, w, ragged, *args):
            *rag, y_local.shape[1], *args)
 
 
-def fused_step_update(y_local, y_full, jidx, jval, exag, tail_att, repz,
-                      valid, update, gains, momentum, *, eta, min_gain,
+def fused_step_update(y_local, y_full, jidx, jval, exag, rep, z, valid,
+                      update, gains, momentum, *, eta, min_gain,
+                      ragged: Ragged | None = None, order=None,
                       row_chunk: int = 4096):
-    """THE fused attraction + integration step over a CSR head
-    ``(jidx, jval)`` [nloc, W]: ``(y, update, gains, gsq)`` — new tensors,
-    the inputs are left untouched.  ``repz`` is rep/Z, ``valid`` the
-    padded-row mask or None; ``exag``/``momentum``/``eta``/``min_gain``
+    """THE CSR step, one launch of B3: over a head block ``(jidx, jval)``
+    [nloc, W] (None or W = 0: none) and a ``ragged`` tail
+    (:class:`Ragged`, None: none), grad = ((head + tail) − rep / z)·valid,
+    then the vdM gains, momentum and y update.  Returns ``(y, update,
+    gains, gsq)`` — new tensors, the inputs are left untouched.  ``z`` is
+    the global Z, a 0-d tensor (read on the device by the kernel, no host
+    sync) or a float; ``valid`` the padded-row mask or None; ``order`` an
+    int32 permutation of the rows to visit them in (:func:`visit_order`)
+    or None — it moves no bit.  ``exag``/``momentum``/``eta``/``min_gain``
     are host floats."""
     if y_local.device.type == "cpu":
-        return fused_step_plain(y_local, y_full, jidx, jval, exag, tail_att,
-                                repz, valid, update, gains, momentum,
-                                eta=eta, min_gain=min_gain,
-                                row_chunk=row_chunk)
+        return fused_step_plain(y_local, y_full, jidx, jval, exag, rep, z,
+                                valid, update, gains, momentum, eta=eta,
+                                min_gain=min_gain, ragged=ragged,
+                                order=order, row_chunk=row_chunk)
     nloc = y_local.shape[0]
-    _check_cuda("B3", y_local, y_full, jidx, jval,
-                (tail_att, repz, update, gains))
+    w = _check_cuda("B3", y_local, y_full, jidx, jval,
+                    (rep, update, gains), ragged=ragged)
+    dev = y_local.device
     mask = None
     if valid is not None:
-        if valid.shape != (nloc,) or valid.device != y_local.device:
-            raise ValueError(f"B3 kernel: valid must be [{nloc}] on "
-                             f"{y_local.device}")
+        if valid.shape != (nloc,) or valid.device != dev:
+            raise ValueError(f"B3 kernel: valid must be [{nloc}] on {dev}")
         mask = valid.to(torch.float32).contiguous()
+    if order is not None and (order.dtype != torch.int32
+                              or order.shape != (nloc,)
+                              or order.device != dev
+                              or not order.is_contiguous()):
+        raise ValueError(f"B3 kernel: order must be a contiguous int32 "
+                         f"[{nloc}] permutation on {dev}")
+    z = torch.as_tensor(z, dtype=torch.float32,
+                        device=dev).reshape(1).contiguous()
     y2, u2, g2 = (torch.empty_like(y_local) for _ in range(3))
-    gsq = torch.empty(nloc, device=y_local.device, dtype=torch.float32)
-    if nloc:
-        KERNELS["B3"](y_local.data_ptr(), y_full.data_ptr(), jidx.data_ptr(),
-                      jval.data_ptr(), nloc, jidx.shape[1], y_local.shape[1],
-                      tail_att.data_ptr(), repz.data_ptr(),
-                      None if mask is None else mask.data_ptr(),
-                      update.data_ptr(), gains.data_ptr(), float(exag),
-                      float(momentum), float(eta), float(min_gain),
-                      y2.data_ptr(), u2.data_ptr(), g2.data_ptr(),
-                      gsq.data_ptr())
+    gsq = torch.empty(nloc, device=dev, dtype=torch.float32)
+    _launch_rows(KERNELS["B3"], y_local, y_full, jidx, jval, w, ragged,
+                 None if order is None else order.data_ptr(),
+                 rep.data_ptr(), z.data_ptr(),
+                 None if mask is None else mask.data_ptr(),
+                 update.data_ptr(), gains.data_ptr(), float(exag),
+                 float(momentum), float(eta), float(min_gain), y2.data_ptr(),
+                 u2.data_ptr(), g2.data_ptr(), gsq.data_ptr())
     return y2, u2, g2, gsq
 
 
