@@ -114,6 +114,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -882,6 +883,7 @@ def run_embed(tag, x_np, cfg, want, neighbors=K, knn_method="bruteforce",
     print(f"[{tag}] peak memory {peak / 2**30:.3f} GiB ({held / 2**30:.3f} "
           "GiB of it held by this script before the run)")
     check(counts == want, f"[{tag}] launch counts {counts} != {want}")
+    stats["peak_bytes"] = peak
     return y, losses, stats, counts
 
 
@@ -985,7 +987,7 @@ def kernel_record(kid, name, src, repl, launches, err, times, bnd):
 
 def phase_full(x_np, labels, errs, csr):
     """The CSR run; returns the records of B1-B3, its final KL, its final
-    embedding, and B1's and B2's ms at its shapes."""
+    embedding and launches, and B1's and B2's ms at its shapes."""
     import torch
     from tsne_flink_tpu_torch import TsneConfig
     from tsne_flink_tpu_torch.models.tsne import _without_padding
@@ -1091,7 +1093,7 @@ def phase_full(x_np, labels, errs, csr):
           f"(one launch, head + {e_tail} tail edges) {t['B3'][0]:.4f}, the "
           f"visit order (built once, /{ITERATIONS}) {order_ms:.4f}, B4/10 "
           f"{t['B4'][0] / 10:.4f}, the rest {rest:.4f} (by difference)")
-    return kernels, final_kl, y, t["B1"][0], t["B2"][0]
+    return kernels, final_kl, (y, counts), t["B1"][0], t["B2"][0]
 
 
 def b5_times(y, jidx, jval):
@@ -1177,7 +1179,8 @@ def pass_times(tag, y, fidx, fval, rev):
 
 def phase_rows(xl_np, labels, z_latent, rows, errs):
     """The default configuration on the latent blobs: auto must take the
-    rows layout; B5 and B4 timed at its [N, S] rows."""
+    rows layout; B5 and B4 timed at its [N, S] rows.  Returns its final
+    embedding and launches."""
     import torch
     from tsne_flink_tpu_torch import TsneConfig
     from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
@@ -1203,6 +1206,7 @@ def phase_rows(xl_np, labels, z_latent, rows, errs):
           f"{b4:.4f} ms")
     print(f"[rows] per iteration {it_ms:.4f} ms: B2 {b2:.4f}, B5 {ms:.4f}, "
           f"B4/10 {b4 / 10:.4f}, the rest {rest:.4f} (by difference)")
+    return y, counts
 
 
 def phase_blocks(x_np, labels, blocks, csr_kl):
@@ -1643,7 +1647,8 @@ def fft_split(y, cfg):
 
 def phase_project(x_np, labels, b1_ms, b6_shapes):
     """The blobs with the hybrid kNN: exact launch counts, substages,
-    recall@90 against B1's exact graph, the checks of phase 4."""
+    recall@90 against B1's exact graph, the checks of phase 4.  Returns
+    its final embedding, launches and peak memory."""
     import torch
     from tsne_flink_tpu_torch import TsneConfig
     from tsne_flink_tpu_torch.ops.knn import pick_knn_refine
@@ -1672,6 +1677,252 @@ def phase_project(x_np, labels, b1_ms, b6_shapes):
           f"exact sweep {t_b1:.3f} s here ({b1_ms / 1e3:.3f} s in [full])")
     refine_split("project", stats, counts["B6"] // len(per),
                  sum(v[0][0] for v in per.values()))
+    return y, counts, stats["peak_bytes"]
+
+
+def _digits(a, width):
+    """[n, width] ASCII digits of the non-negative int64 ``a`` and the mask
+    of those that print (no leading zeros; a lone 0 prints)."""
+    powers = 10 ** np.arange(width - 1, -1, -1, dtype=np.int64)
+    digits = (a[:, None] // powers) % 10 + ord("0")
+    return digits.astype(np.uint8), (a[:, None] >= powers) | (powers == 1)
+
+
+#: "00".."99" as [100, 2] ASCII
+_PAIRS = np.array([[ord(a), ord(b)] for a in "0123456789"
+                   for b in "0123456789"], np.uint8)
+
+
+def coo_text(x, r0=0):
+    """The non-zero entries of ``x`` (values in [0, 1e15)) as
+    ``point,feature,value`` lines, built in a uint8 buffer with numpy: the
+    value is a 15-digit integer mantissa and a negative power of ten, which
+    reads back (correctly rounded to float64, then cast) as the same
+    float32.  Points are numbered from ``r0``."""
+    rows, cols = np.nonzero(x)
+    v = x[rows, cols].astype(np.float64)
+    check(bool((v >= 0).all() and (v < 1e15).all()),
+          "[cli] coo_text takes values in [0, 1e15)")
+    e = 14 - np.floor(np.log10(v)).astype(np.int64)  # 15 digits before e-
+    mant = np.rint(v * 10.0 ** e).astype(np.int64)   # 1e14 <= mant <= 1e15
+    digits = np.empty((len(v), 16), np.uint8)
+    rest = mant
+    for j in range(7, -1, -1):  # two digits a step, from the right
+        rest, pair = np.divmod(rest, 100)
+        digits[:, 2 * j:2 * j + 2] = _PAIRS[pair]
+    lead = np.ones((len(v), 16), bool)
+    lead[:, 0] = mant >= 10 ** 15
+
+    def lit(text):
+        chars = np.frombuffer(text.encode(), np.uint8)
+        return (np.broadcast_to(chars, (len(v), len(chars))),
+                np.ones((len(v), len(chars)), bool))
+
+    def table(a, lo, hi, width):  # the digits of a in [lo, hi) by lookup
+        d, m = _digits(np.arange(lo, hi, dtype=np.int64), width)
+        return d[a - lo], m[a - lo]
+
+    pieces = (table(rows + r0, r0, r0 + x.shape[0], 7), lit(","),
+              table(cols, 0, x.shape[1], 5), lit(","), (digits, lead),
+              lit("e-"), table(e, 0, 1000, 3), lit("\n"))
+    chars = np.concatenate([c for c, _ in pieces], 1)
+    return chars[np.concatenate([m for _, m in pieces], 1)].tobytes()
+
+
+def write_coo(path, x, rows_per_block=1000):
+    """``x``'s non-zero entries as a COO CSV, blocks of rows built on a
+    few threads (numpy releases the GIL) and written in order."""
+    from concurrent.futures import ThreadPoolExecutor
+    starts = range(0, x.shape[0], rows_per_block)
+    with open(path, "wb") as f, ThreadPoolExecutor(
+            min(8, os.cpu_count() or 1)) as pool:
+        for text in pool.map(
+                lambda r0: coo_text(x[r0:r0 + rows_per_block], r0), starts):
+            f.write(text)
+
+
+def run_cli(tag, argv):
+    """The port's CLI in this process, its launches counted from 0 just
+    before it.  Returns (the embedding it wrote, launches, stage seconds
+    from its '# stages s:' line, its stderr)."""
+    import io as _io
+
+    import torch
+    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
+    from tsne_flink_tpu_torch.utils import native
+    from tsne_flink_tpu_torch.utils.cli import main as cli_main
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    err = _io.StringIO()
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli_main(argv)
+    wall = time.perf_counter() - t0
+    counts = launches()
+    check(rc == 0, f"[cli] {tag}: exit {rc}")
+    text = err.getvalue()
+    for line in text.splitlines():
+        print(f"[cli] {tag}: {line}")
+    stages = {}
+    for line in text.splitlines():
+        if line.startswith("# stages s: "):
+            stages = {kv.split("=")[0]: float(kv.split("=")[1])
+                      for kv in line[len("# stages s: "):].split()}
+    out = native.load_coo(argv[argv.index("--output") + 1])
+    check(np.array_equal(out[:, 0], np.arange(out.shape[0])),
+          f"[cli] {tag}: the embedding's ids are not 0..N-1")
+    y = out[:, 1:].astype(np.float32)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[cli] {tag}: {wall:.3f} s end to end, launches "
+          f"{json.dumps(counts)}, peak memory {peak / 2**30:.3f} GiB, "
+          f"y digest {hashlib.sha256(y.tobytes()).hexdigest()[:16]}")
+    return y, counts, stages, text
+
+
+def same_bits(a, b):
+    return a.shape == b.shape and np.array_equal(
+        np.ascontiguousarray(a).view(np.uint32),
+        np.ascontiguousarray(b).view(np.uint32))
+
+
+def phase_cli(x_np, xl_np, full, rows, project):
+    """The batch job's front door at 60,000 x 784: config 2's command line
+    through the port's ``main`` from a COO CSV (gate 1), a warm artifact
+    cache (gate 2), a fat-checkpoint resume (gate 3), the estimator
+    (gate 4).  ``full``, ``rows``, ``project``: (y, launches[, peak]) of
+    those phases."""
+    import shutil
+    import tempfile
+
+    import torch
+    from tsne_flink_tpu_torch import TSNE
+    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
+    from tsne_flink_tpu_torch.utils import checkpoint as ckpt
+    from tsne_flink_tpu_torch.utils import io as tio
+    from tsne_flink_tpu_torch.utils import native
+    from tsne_flink_tpu_torch.utils.cli import EXACT_N_MAX, pick_repulsion
+
+    tmp = tempfile.mkdtemp(prefix="tsne_cli_")
+    try:
+        n, f = x_np.shape
+        coo = os.path.join(tmp, "mnist60k.csv")
+        t0 = time.perf_counter()
+        write_coo(coo, x_np)
+        size = os.path.getsize(coo)
+        nnz = int(np.count_nonzero(x_np))
+        print(f"[cli] wrote {nnz} point,feature,value lines ({size / 1e9:.3f}"
+              f" GB) in {time.perf_counter() - t0:.2f} s (not part of a run)")
+        t0 = time.perf_counter()
+        ids, x_back = tio.read_input(coo, f)
+        t_read = time.perf_counter() - t0
+        check(np.array_equal(ids, np.arange(n))
+              and same_bits(x_back.astype(np.float32), x_np),
+              "[cli] the COO file does not read back as x bit for bit")
+        del x_back
+        # the native parser against numpy's on the first 2,000 rows' lines
+        head = os.path.join(tmp, "head.csv")
+        with open(head, "wb") as fh:
+            fh.write(coo_text(x_np[:2000]))
+        lines = int(np.count_nonzero(x_np[:2000]))
+        t0 = time.perf_counter()
+        got = native.load_coo(head)
+        t_nat = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref = np.loadtxt(head, delimiter=",", dtype=np.float64, ndmin=2)
+        t_np = time.perf_counter() - t0
+        check(np.array_equal(got, ref), "[cli] native parse != numpy's")
+        print(f"[cli] read_input of the whole file {t_read:.3f} s; on "
+              f"{lines} lines the native parser {t_nat:.4f} s "
+              f"({lines / t_nat / 1e6:.2f} M lines/s), numpy.loadtxt "
+              f"{t_np:.4f} s ({lines / t_np / 1e6:.3f} M lines/s): "
+              f"{t_np / t_nat:.1f}x")
+        rep = pick_repulsion("auto", 0.5, n, 2, theta_explicit=True)
+        print(f"[cli] pick_repulsion('auto', theta 0.5 explicit, N={n}) -> "
+              f"{rep} (EXACT_N_MAX['cuda'] = {EXACT_N_MAX['cuda']})")
+        check(rep == "exact", f"[cli] auto resolved to {rep} at N={n}")
+
+        def argv(out, *extra):
+            return ["--input", coo, "--output", os.path.join(tmp, out),
+                    "--loss", os.path.join(tmp, out + ".loss"),
+                    "--dimension", str(f), "--perplexity", str(PERPLEXITY),
+                    "--iterations", str(ITERATIONS), "--randomState", "0",
+                    *extra]
+
+        # gate 1: config 2's command line is the tsne_embed it wraps
+        y_p, counts_p, peak_p = project
+        config2 = ("--knnMethod", "project", "--theta", "0.5")
+        y, counts, st, _ = run_cli("config 2", argv("c2.csv", *config2,
+                                                    "--noCache"))
+        print("[cli] config 2 stages s: " + ", ".join(
+            f"{k}={v:.4f}" for k, v in st.items())
+            + f" (the [project] run's peak {peak_p / 2**30:.3f} GiB)")
+        check(same_bits(y, y_p.cpu().numpy()),
+              "[cli] gate 1: config 2's embedding != [project]'s")
+        check(counts == counts_p, f"[cli] gate 1: launches {counts} != "
+              f"[project]'s {counts_p}")
+
+        # gate 2: a warm artifact cache runs no kNN and gives the same bits
+        cache = ("--cacheDir", os.path.join(tmp, "cache"))
+        y_c, counts_c, st_c, _ = run_cli("cache cold", argv(
+            "cold.csv", *config2, *cache))
+        y_w, counts_w, st_w, err_w = run_cli("cache warm", argv(
+            "warm.csv", *config2, *cache))
+        print(f"[cli] prepare (knn + affinities) cold "
+              f"{st_c['knn'] + st_c['affinities']:.4f} s, warm "
+              f"{st_w['knn'] + st_w['affinities']:.4f} s")
+        check("(warm)" in err_w and "(cold)" not in err_w,
+              "[cli] gate 2: the rerun did not load both stages warm")
+        check(counts_w["B6"] == 0 and counts_c == counts_p,
+              f"[cli] gate 2: launches cold {counts_c}, warm {counts_w}")
+        check(same_bits(y_c, y_p.cpu().numpy())
+              and same_bits(y_w, y_p.cpu().numpy()),
+              "[cli] gate 2: the cached runs' embeddings differ")
+        shutil.rmtree(cache[1])
+
+        # gate 3: a fat checkpoint resumes bit for bit, with no kNN
+        y_f, counts_f = full
+        ck = os.path.join(tmp, "c")
+        brute = ("--knnMethod", "bruteforce", "--noCache")
+        y_u, counts_u, st_u, _ = run_cli("checkpointed", argv(
+            "u.csv", *brute, "--checkpoint", ck, "--checkpointEvery", "100",
+            "--fatCheckpoint"))
+        check(same_bits(y_u, y_f.cpu().numpy()) and counts_u == counts_f,
+              "[cli] gate 3: the checkpointed run != [full]")
+        _, nxt, _ = ckpt.load(ck + ".1")
+        print(f"[cli] {ck}.1 holds iteration {nxt} (checkpoint files "
+              f"{os.path.getsize(ck) / 1e9:.3f} GB; "
+              f"{st_u.get('checkpoint', 0.0):.3f} s writing three)")
+        check(nxt == 200, f"[cli] gate 3: c.1 holds iteration {nxt}")
+        y_r, counts_r, st_r, _ = run_cli("resumed", argv(
+            "r.csv", *brute, "--resume", ck + ".1"))
+        print(f"[cli] the resume: checkpoint read and verified "
+              f"{st_r['resume']:.4f} s, prepare (payload check + upload) "
+              f"{st_r['knn'] + st_r['affinities']:.4f} s")
+        check(counts_r["B1"] == 0 and counts_r["B6"] == 0
+              and counts_r["B2"] == ITERATIONS - 200,
+              f"[cli] gate 3: the resume launched {counts_r}")
+        check(same_bits(y_r, y_u), "[cli] gate 3: resumed != uninterrupted")
+        for path in (ck, ck + ".1"):
+            os.remove(path)
+
+        # gate 4: the estimator is the [rows] run
+        y_rows, counts_rows = rows
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        est = TSNE(random_state=0).fit(xl_np)
+        torch.cuda.synchronize()
+        counts_e = launches()
+        print(f"[cli] TSNE(random_state=0).fit on the latent blobs: "
+              f"{time.perf_counter() - t0:.3f} s, launches "
+              f"{json.dumps(counts_e)}, final KL {est.kl_divergence_:.6f}")
+        check(same_bits(est.embedding_, y_rows.cpu().numpy())
+              and counts_e == counts_rows,
+              "[cli] gate 4: TSNE().fit != [rows]")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
 
 
 def refine_split(tag, stats, chunks, chunk_ms):
@@ -1853,11 +2104,13 @@ def main() -> int:
         errs["B6"], b6_shapes = phase_b6(x_np, xc_np)
         for kid, e in phase_widths(x_np, xc_np).items():
             errs[kid] = max(errs[kid], e)
-        kernels, csr_kl, y_60k, b1_ms, b2_ms = phase_full(x_np, labels,
-                                                          errs, csr)
-        phase_rows(xl_np, labels_l, z_latent, rows, errs)
+        kernels, csr_kl, full, b1_ms, b2_ms = phase_full(x_np, labels,
+                                                         errs, csr)
+        y_60k = full[0]
+        rows_run = phase_rows(xl_np, labels_l, z_latent, rows, errs)
         phase_blocks(x_np, labels, blocks, csr_kl)
-        phase_project(x_np, labels, b1_ms, b6_shapes)
+        project = phase_project(x_np, labels, b1_ms, b6_shapes)
+        phase_cli(x_np, xl_np, full, rows_run, project)
         (times, bnd, _), = [v for key, v in b6_shapes.items()
                             if key[0] == "cells"]
         counts, pass_t, pass_b, (e5, e4) = phase_large(

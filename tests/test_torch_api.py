@@ -1,0 +1,151 @@
+"""The port's estimator and kNN autotune against the JAX package's.
+
+* ``TSNE``'s keyword arguments are the JAX estimator's, with the same
+  defaults, plus ``device``;
+* ``fit`` equals the port's ``tsne_embed`` bit for bit and ends within
+  ``KL_GUARDRAIL_TOL`` of the JAX estimator; ``transform`` raises naming
+  ROADMAP queue A13, and arguments of parts not ported yet raise naming
+  theirs before the input is touched;
+* ``autotune_knn_tiles`` returns a refine chunk from its candidates, and
+  the refine result is bit-identical at every candidate chunk (the port's
+  form of ``test_refine_row_chunk_invariant``).
+"""
+
+import inspect
+
+import numpy as np
+import pytest
+import torch
+
+from tsne_flink_tpu.models.api import TSNE as JaxTSNE
+from tsne_flink_tpu.models.autopilot import KL_GUARDRAIL_TOL
+from tsne_flink_tpu_torch import TSNE, TsneConfig, tsne_embed
+from tsne_flink_tpu_torch.ops import knn as tknn
+from tsne_flink_tpu_torch.ops import knn_tiles
+
+pytestmark = pytest.mark.fast
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Test workers share the host; many small ops run far slower with
+    contending intra-op thread pools."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _blobs(n=600, d=8, seed=0):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0.0, 10.0, (12, d))
+    return centers[rng.integers(0, 12, n)] + rng.normal(0.0, 0.5, (n, d))
+
+
+def test_kwargs_are_the_jax_estimators_plus_device():
+    port = inspect.signature(TSNE.__init__).parameters
+    ref = inspect.signature(JaxTSNE.__init__).parameters
+    assert list(port) == list(ref) + ["device"]
+    for name, p in ref.items():
+        assert port[name].default == p.default, name
+        assert port[name].kind == p.kind, name
+    assert port["device"].default is None
+
+
+@pytest.mark.parametrize("method", ["bruteforce", "project"])
+def test_fit_is_tsne_embed(method):
+    x = _blobs().astype(np.float32)
+    est = TSNE(perplexity=8.0, n_iter=150, knn_method=method,
+               random_state=3, device="cpu").fit(x)
+    y, losses = tsne_embed(x, TsneConfig(perplexity=8.0, iterations=150),
+                           knn_method=method, seed=3, device="cpu")
+    np.testing.assert_array_equal(est.embedding_, y.numpy())
+    np.testing.assert_array_equal(est.kl_trace_, losses.numpy())
+    assert est.kl_divergence_ == float(losses[-1])
+    assert est.embedding_.dtype == np.float32
+    np.testing.assert_array_equal(
+        TSNE(perplexity=8.0, n_iter=150, knn_method=method, random_state=3,
+             device="cpu").fit_transform(x), est.embedding_)
+
+
+def test_fit_within_guardrail_of_jax_and_keeps_f64_on_cpu():
+    x = _blobs()
+    est = TSNE(perplexity=8.0, device="cpu").fit(x)
+    assert est.embedding_.dtype == np.float64
+    ref = JaxTSNE(perplexity=8.0).fit(x)
+    assert abs(est.kl_divergence_ - ref.kl_divergence_) <= KL_GUARDRAIL_TOL
+
+
+def test_cache_dir_warm_fit_bit_identical(tmp_path, monkeypatch):
+    x = _blobs(300).astype(np.float32)
+    kw = dict(perplexity=8.0, n_iter=40, knn_method="project",
+              cache_dir=str(tmp_path), device="cpu")
+    cold = TSNE(**kw).fit(x).embedding_
+    assert sorted(p.name.split("-")[0] for p in tmp_path.iterdir()) == [
+        "affinity", "knn"]
+
+    def boom(*a, **k):
+        raise AssertionError("the kNN stage ran on a warm cache")
+
+    monkeypatch.setattr(tknn, "knn", boom)
+    np.testing.assert_array_equal(TSNE(**kw).fit(x).embedding_, cold)
+
+
+class _Untouchable:
+    def __len__(self):
+        raise AssertionError("the input was read")
+
+    def __array__(self, *a, **k):
+        raise AssertionError("the input was read")
+
+
+@pytest.mark.parametrize("kw,item", [
+    ({"health_check": True}, "A10"), ({"telemetry": True}, "A10"),
+    ({"autopilot": True}, "A10"), ({"spmd": True}, "A14"),
+    ({"devices": 2}, "A14"), ({"mesh": 1}, "A14"),
+    ({"sym_mode": "alltoall"}, "A14"), ({"sym_slack": 4}, "A14"),
+    ({"sym_strict": True}, "A14"), ({"mesh_reduce": "psum"}, "A14"),
+    ({"aot_cache": True}, "A15"), ({"dtype": "bfloat16"}, "§C")])
+def test_unported_kwargs_refused_before_the_input(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        TSNE(device="cpu", **kw).fit(_Untouchable())
+
+
+def test_auto_bh_and_transform_refused(monkeypatch):
+    from tsne_flink_tpu_torch.utils import cli
+    monkeypatch.setattr(cli, "EXACT_N_MAX", {"cpu": 10})
+    with pytest.raises(NotImplementedError, match="A12"):
+        TSNE(theta=0.5, device="cpu").fit(_blobs(20))
+    est = TSNE(device="cpu")
+    for call in (lambda: est.transform(_blobs(5)), est.frozen_model):
+        with pytest.raises(NotImplementedError, match="A13"):
+            call()
+    with pytest.raises(ValueError, match="not defined"):
+        TSNE(attraction="diagonal")
+
+
+def test_autotune_picks_a_candidate_and_refine_is_chunk_invariant():
+    n, d, k = 2_200, 16, 12
+    x = torch.from_numpy(_blobs(n, d, seed=5).astype(np.float32))
+    plan = knn_tiles.pick_knn_tiles(n, d, k, "cpu")
+    tuned = knn_tiles.autotune_knn_tiles(x, k, plan=plan)
+    cands = {plan.refine_chunk, max(knn_tiles.MIN_REFINE_CHUNK,
+                                    plan.refine_chunk // 2),
+             min(knn_tiles.MAX_REFINE_CHUNK, plan.refine_chunk * 2)}
+    assert tuned.refine_chunk in cands and len(cands) > 1
+    assert tuned.source == "autotune" and plan.source == "model"
+    assert (tuned.block, tuned.row_chunk) == (plan.block, plan.row_chunk)
+    assert tuned.as_record()["refine_chunk"] == tuned.refine_chunk
+    idx, dist = tknn.knn_project(x, k, rounds=1)
+    outs = []
+    for c in sorted(cands):
+        gen = torch.Generator()
+        gen.manual_seed(2)
+        outs.append(tknn.knn_refine(x, idx, dist, rounds=2, generator=gen,
+                                    row_chunk=c, filter_dims=8,
+                                    expand_k=(k + 1) // 2))
+    for i, dd in outs[1:]:
+        assert torch.equal(i, outs[0][0]) and torch.equal(dd, outs[0][1])
+    # a slice too small to probe keeps the model's plan
+    small = knn_tiles.autotune_knn_tiles(x[:1000], k, plan=plan)
+    assert small == plan

@@ -1,0 +1,234 @@
+"""The port's command line against the JAX package's.
+
+* the parser: the same flags, defaults and choices as
+  ``tsne_flink_tpu.utils.cli.build_parser``;
+* ``pick_repulsion(backend="cpu")`` equals the JAX function over a grid of
+  (mode, theta, explicit, n, m);
+* every flag of a part not ported yet raises ``NotImplementedError``
+  naming its ROADMAP queue item before the input is read (the input path
+  does not exist); ``auto`` resolving to Barnes-Hut is refused once N is
+  known, before any kNN work;
+* on a 600-point COO file (bruteforce, project, and the kNN graph as
+  ``--inputDistanceMatrix``) the port's final KL is within
+  ``KL_GUARDRAIL_TOL`` = 0.05 of the JAX CLI's program's
+  (``jax_cli_twin``: the JAX CLI's mesh path does not trace under jax
+  0.9, ROADMAP §C);
+* the output is ``tsne_embed``'s y bit for bit (f32);
+* a warm ``--cacheDir`` rerun runs no kNN and writes the same bytes.
+"""
+
+import argparse
+
+import numpy as np
+import pytest
+import torch
+
+import jax_cli_twin as twin
+from tsne_flink_tpu.models.autopilot import KL_GUARDRAIL_TOL
+from tsne_flink_tpu.utils import cli as jcli
+from tsne_flink_tpu_torch import TsneConfig, tsne_embed
+from tsne_flink_tpu_torch.utils import cli as tcli
+
+pytestmark = pytest.mark.fast
+
+N, D, PERPLEXITY = 600, 8, 8.0
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Test workers share the host; many small ops run far slower with
+    contending intra-op thread pools."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+def _blobs(n=N, d=D, seed=0):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0.0, 10.0, (12, d))
+    return centers[rng.integers(0, 12, n)] + rng.normal(0.0, 0.5, (n, d))
+
+
+@pytest.fixture(scope="module")
+def files(tmp_path_factory):
+    """The COO file of the blobs and their exact kNN graph as i,j,dist."""
+    tmp = tmp_path_factory.mktemp("cli")
+    x = _blobs()
+    coo = tmp / "in.csv"
+    with open(coo, "w") as f:
+        for i in range(N):
+            for j in range(D):
+                f.write(f"{i},{j},{float(x[i, j])!r}\n")
+    k = 3 * int(PERPLEXITY)
+    d2 = ((x[:, None, :] - x[None, :, :]) ** 2).sum(-1)
+    np.fill_diagonal(d2, np.inf)
+    nn = np.argsort(d2, axis=1, kind="stable")[:, :k]
+    dm = tmp / "knn.csv"
+    with open(dm, "w") as f:
+        for i in range(N):
+            for j in nn[i]:
+                f.write(f"{i},{j},{float(d2[i, j])!r}\n")
+    return {"coo": str(coo), "knn": str(dm), "x": x, "tmp": tmp}
+
+
+def _actions(parser):
+    return {a.dest if not a.option_strings else a.option_strings[0]:
+            (tuple(a.option_strings), a.dest, a.default,
+             None if a.choices is None else tuple(a.choices), a.required,
+             a.nargs, a.const, a.type, type(a).__name__)
+            for a in parser._actions if not isinstance(a,
+                                                       argparse._HelpAction)}
+
+
+def test_parser_matches_jax():
+    port, ref = _actions(tcli.build_parser()), _actions(jcli.build_parser())
+    assert sorted(port) == sorted(ref)
+    for flag in ref:
+        assert port[flag] == ref[flag], flag
+
+
+@pytest.mark.parametrize("mode", ["auto", "exact", "fft", "bh"])
+def test_pick_repulsion_cpu_matches_jax(mode):
+    for theta in (0.0, 0.25, 0.5):
+        for explicit in (False, True):
+            for n in (100, 32_768, 32_769, 99_999, 2_000_000):
+                for m in (1, 2, 3, 4):
+                    assert (tcli.pick_repulsion(mode, theta, n, m, explicit,
+                                                backend="cpu")
+                            == jcli.pick_repulsion(mode, theta, n, m,
+                                                   explicit, backend="cpu"))
+
+
+def test_pick_repulsion_cuda():
+    top = tcli.EXACT_N_MAX["cuda"]
+    assert tcli.pick_repulsion("auto", 0.5, 60_000, 2, True) == "exact"
+    assert tcli.pick_repulsion("auto", 0.25, top, 2) == "exact"
+    assert tcli.pick_repulsion("auto", 0.25, top + 1, 2) == "fft"
+    assert tcli.pick_repulsion("auto", 0.5, top + 1, 2, True) == "bh"
+    assert tcli.pick_repulsion("auto", 0.25, top + 1, 3) == "bh"
+    assert tcli.pick_repulsion("auto", 0.0, 10 * top, 2, True) == "exact"
+    assert tcli.pick_repulsion("auto", 0.25, 10 * top, 5) == "exact"
+
+
+REFUSED = [
+    (["--repulsion", "bh"], "A12"), (["--autopilot"], "A10"),
+    (["--healthCheck"], "A10"), (["--telemetry"], "A10"),
+    (["--transform", "q.csv", "--model", "m.npz"], "A13"),
+    (["--model", "m.npz"], "A13"), (["--mesh", "1"], "A14"),
+    (["--devices", "1"], "A14"), (["--spmd"], "A14"),
+    (["--symWidth", "64"], "A14"), (["--symMode", "alltoall"], "A14"),
+    (["--symSlack", "4"], "A14"), (["--symStrict"], "A14"),
+    (["--coordinator", "h:1", "--numProcesses", "2", "--processId", "0"],
+     "A14"),
+    (["--meshReduce", "psum"], "A14"), (["--trace"], "A15"),
+    (["--metricsOut", "m.json"], "A15"), (["--faultPlan", "oom@knn"], "A15"),
+    (["--jobTimeout", "10"], "A15"), (["--stageTimeout", "10"], "A15"),
+    (["--aotCache"], "A15"), (["--noAotCache"], "A15"),
+    (["--profile", "p"], "A15"), (["--auditPlan"], "A16"),
+    (["--executionPlan"], "A16"), (["--dtype", "bfloat16"], "§C"),
+]
+
+
+@pytest.mark.parametrize("extra,item", REFUSED,
+                         ids=[" ".join(e) for e, _ in REFUSED])
+def test_unported_flags_refused_before_the_input_is_read(tmp_path, extra,
+                                                         item):
+    argv = ["--input", str(tmp_path / "missing.csv"), "--output",
+            str(tmp_path / "o.csv"), "--dimension", "4", "--knnMethod",
+            "bruteforce", *extra]
+    with pytest.raises(NotImplementedError, match=item):
+        tcli.main(argv, device="cpu")
+    assert not (tmp_path / "o.csv").exists()
+
+
+def test_accepted_runtime_flags_change_nothing(files, tmp_path):
+    """--onOom/--maxRetries are accepted (no supervisor yet: an OOM
+    propagates) and give the same bytes."""
+    outs = []
+    for extra in ([], ["--onOom", "fail", "--maxRetries", "0"]):
+        out = tmp_path / f"o{len(outs)}.csv"
+        tcli.main(_argv(files, out, "bruteforce", iterations=30) + extra,
+                  device="cpu")
+        outs.append(out.read_bytes())
+    assert outs[0] == outs[1]
+
+
+def test_auto_bh_refused_before_knn(files, tmp_path, monkeypatch):
+    def boom(*a, **k):
+        raise AssertionError("the kNN stage ran")
+
+    from tsne_flink_tpu_torch.utils import artifacts
+    monkeypatch.setattr(artifacts, "prepare", boom)
+    monkeypatch.setattr(tcli, "EXACT_N_MAX", {"cpu": 100})
+    with pytest.raises(NotImplementedError, match="A12"):
+        tcli.main(_argv(files, tmp_path / "o.csv", "bruteforce")
+                  + ["--theta", "0.5"], device="cpu")
+
+
+def _argv(files, out, method, iterations=300, source="coo"):
+    argv = ["--input", files[source], "--output", str(out), "--dimension",
+            str(D), "--knnMethod", method, "--perplexity", str(PERPLEXITY),
+            "--iterations", str(iterations), "--randomState", "0",
+            "--loss", str(out) + ".loss", "--noCache"]
+    return argv + (["--inputDistanceMatrix"] if source == "knn" else [])
+
+
+def _read(out):
+    rows = np.loadtxt(out, delimiter=",", ndmin=2)
+    return rows[:, 0], rows[:, 1:]
+
+
+@pytest.mark.parametrize("method,source", [("bruteforce", "coo"),
+                                           ("project", "coo"),
+                                           ("bruteforce", "knn")])
+def test_final_kl_within_guardrail_of_jax(files, tmp_path, method, source):
+    out = tmp_path / "o.csv"
+    assert tcli.main(_argv(files, out, method, source=source),
+                     device="cpu") == 0
+    ids, y = _read(out)
+    np.testing.assert_array_equal(ids, np.arange(N))
+    assert np.isfinite(y).all()
+    loss = np.loadtxt(str(out) + ".loss", delimiter=",")
+    np.testing.assert_array_equal(loss[:, 0], np.arange(10, 310, 10))
+    _, loss_j = twin.embed_file(files[source], D, knn_method=method,
+                                perplexity=PERPLEXITY,
+                                distance_matrix=source == "knn")
+    assert abs(loss[-1, 1] - float(loss_j[-1])) <= KL_GUARDRAIL_TOL
+    assert loss[-1, 1] < loss[10, 1]  # fell after the exaggeration
+
+
+@pytest.mark.parametrize("method", ["bruteforce", "project"])
+def test_output_is_tsne_embed_bit_for_bit(files, tmp_path, method):
+    out = tmp_path / "o.csv"
+    tcli.main(_argv(files, out, method, iterations=120), device="cpu")
+    _, y_cli = _read(out)
+    y, losses = tsne_embed(files["x"].astype(np.float32),
+                           TsneConfig(perplexity=PERPLEXITY, iterations=120),
+                           knn_method=method, seed=0, device="cpu")
+    np.testing.assert_array_equal(y_cli.astype(np.float32), y.numpy())
+    loss = np.loadtxt(str(out) + ".loss", delimiter=",")
+    np.testing.assert_array_equal(loss[:, 1].astype(np.float32),
+                                  losses.numpy())
+
+
+def test_warm_cache_rerun_bit_identical_and_skips_knn(files, tmp_path,
+                                                      monkeypatch, capsys):
+    cache = str(tmp_path / "cache")
+    argv = [a for a in _argv(files, tmp_path / "cold.csv", "project",
+                             iterations=60) if a != "--noCache"]
+    tcli.main(argv + ["--cacheDir", cache], device="cpu")
+    assert "knn" in capsys.readouterr().err
+
+    def boom(*a, **k):
+        raise AssertionError("the kNN stage ran on a warm cache")
+
+    from tsne_flink_tpu_torch.ops import knn as tknn
+    monkeypatch.setattr(tknn, "knn", boom)
+    warm = [a if a != str(tmp_path / "cold.csv") else
+            str(tmp_path / "warm.csv") for a in argv]
+    tcli.main(warm + ["--cacheDir", cache], device="cpu")
+    err = capsys.readouterr().err
+    assert "(warm)" in err and "(cold)" not in err
+    assert ((tmp_path / "cold.csv").read_bytes()
+            == (tmp_path / "warm.csv").read_bytes())

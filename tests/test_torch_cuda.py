@@ -23,7 +23,9 @@ sum, B6's fused refine stages at every width
 class and at k = 600 and 1,024 (exact ties bit-equal to the plain
 stages; rows with fewer candidates than a stage keeps), the kNN methods
 launching B1 and B6 on CUDA tensors, FFT repulsion on the card, the
-wrappers refusing what the kernels do not take, and launch counting.
+wrappers refusing what the kernels do not take, launch counting, and the
+batch job on the card: a checkpoint round trip, a fat-checkpoint resume
+through the CLI with no kNN launch, and a warm artifact cache.
 """
 
 import numpy as np
@@ -837,3 +839,84 @@ def test_fft_repulsion_on_the_card(dev):
     torch.testing.assert_close(r1.double().cpu(), rr, rtol=1e-3,
                                atol=1e-3 * float(rr.abs().max()))
     assert abs(float(z1) - float(zr)) <= 1e-4 * float(zr)
+
+
+def test_checkpoint_round_trip_on_the_card(dev, tmp_path):
+    """save takes card tensors, load returns numpy, state_from_numpy puts
+    the same bits back on the card."""
+    from tsne_flink_tpu_torch.convert import state_from_numpy
+    from tsne_flink_tpu_torch.models.tsne import TsneState
+    from tsne_flink_tpu_torch.utils import checkpoint as ckpt
+    g = torch.Generator(device=dev).manual_seed(0)
+    st = TsneState(*(torch.randn((5000, 2), generator=g, device=dev)
+                     for _ in range(3)))
+    losses = torch.rand(30, generator=g, device=dev)
+    path = str(tmp_path / "c.npz")
+    ckpt.save(path, st, 120, losses, prepare={"label": "split-rows"})
+    got, nxt, ls = ckpt.load(path)
+    back = state_from_numpy(got.y, got.update, got.gains, device=dev)
+    assert nxt == 120 and ckpt.load_prepare(path) == {"label": "split-rows"}
+    for a, b in zip(back, st):
+        assert a.is_cuda and torch.equal(a, b)
+    assert torch.equal(torch.from_numpy(ls).to(dev), losses)
+
+
+def _coo_file(path, x):
+    with open(path, "w") as f:
+        for i in range(x.shape[0]):
+            for j in range(x.shape[1]):
+                f.write(f"{i},{j},{float(x[i, j])!r}\n")
+
+
+def test_cli_fat_resume_on_the_card(dev, tmp_path):
+    """The CLI on the card: a fat-checkpoint resume launches no kNN kernel
+    and gives the uninterrupted run's bytes; float64 is refused on the
+    card before the input is read."""
+    from tsne_flink_tpu_torch.kernels.build import launches
+    from tsne_flink_tpu_torch.utils.cli import main
+    rng = np.random.default_rng(6)
+    x = rng.standard_normal((1500, 12)) + 6.0 * rng.integers(0, 4, (1500, 1))
+    _coo_file(tmp_path / "in.csv", x)
+
+    def argv(out, *extra):
+        return ["--input", str(tmp_path / "in.csv"), "--output",
+                str(tmp_path / out), "--loss", str(tmp_path / (out + ".l")),
+                "--dimension", "12", "--knnMethod", "bruteforce",
+                "--perplexity", "10", "--iterations", "120", "--noCache",
+                *extra]
+
+    ck = str(tmp_path / "c.npz")
+    assert main(argv("u.csv", "--checkpoint", ck, "--checkpointEvery", "50",
+                     "--fatCheckpoint")) == 0
+    reset_launches()
+    assert main(argv("r.csv", "--resume", ck + ".1")) == 0
+    counts = launches()
+    assert counts["B1"] == 0 and counts["B6"] == 0 and counts["B2"] == 20
+    assert ((tmp_path / "r.csv").read_bytes()
+            == (tmp_path / "u.csv").read_bytes())
+    with pytest.raises(NotImplementedError, match="float64"):
+        main(argv("d.csv", "--dtype", "float64") + ["--input",
+                                                    "missing.csv"])
+
+
+def test_cache_warm_hit_on_the_card(dev, tmp_path):
+    """A warm artifact cache launches no kNN kernel and gives the cold
+    run's bits."""
+    from tsne_flink_tpu_torch import TsneConfig, tsne_embed
+    from tsne_flink_tpu_torch.kernels.build import launches
+    from tsne_flink_tpu_torch.utils.artifacts import ArtifactCache
+    rng = np.random.default_rng(7)
+    x = (rng.standard_normal((9000, 24)) + 5.0 * rng.integers(0, 6, (9000, 1))
+         ).astype(np.float32)
+    cfg = TsneConfig(perplexity=10.0, iterations=60)
+    runs = []
+    for _ in range(2):
+        reset_launches()
+        stats = {}
+        y, losses = tsne_embed(x, cfg, knn_method="project", seed=1,
+                               artifact_cache=ArtifactCache(str(tmp_path)),
+                               stats=stats)
+        runs.append((y, losses, launches()))
+    (y0, l0, c0), (y1, l1, c1) = runs
+    assert c0["B6"] > 0 and c1["B6"] == 0 and c1["B1"] == 0
+    assert torch.equal(y0, y1) and torch.equal(l0, l1)

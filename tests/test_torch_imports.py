@@ -52,14 +52,18 @@ def test_every_port_module_imports_without_a_toolkit():
 def test_entry_points_default_to_the_card():
     """With no device given, the entry points run on CUDA — and with no
     card they raise instead of falling back to the CPU."""
-    from tsne_flink_tpu_torch import convert, tsne_embed
+    from tsne_flink_tpu_torch import TSNE, convert, tsne_embed
     from tsne_flink_tpu_torch.utils.artifacts import prepare
+    from tsne_flink_tpu_torch.utils.cli import main
     from tsne_flink_tpu_torch.utils.device import resolve_device
 
     x = np.zeros((20, 3), np.float32)
     calls = [lambda: tsne_embed(x),
              lambda: prepare(x, neighbors=5, perplexity=2.0),
-             lambda: convert.state_from_numpy(x[:, :2])]
+             lambda: convert.state_from_numpy(x[:, :2]),
+             lambda: TSNE().fit(x),
+             lambda: main(["--input", "in.csv", "--output", "o.csv",
+                           "--dimension", "3", "--knnMethod", "auto"])]
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         assert convert.state_from_numpy(x[:, :2]).y.is_cuda

@@ -8,14 +8,18 @@ run on ``cuda`` unless the caller passes ``device="cpu"``; on CPU tensors
 every wrapper runs its plain version, on CUDA tensors it launches its
 kernel or raises.
 
-Ported so far: the single-device ``tsne_embed`` main path — exact kNN ->
-perplexity-calibrated affinities (sorted, split or blocks assembly) ->
-the attraction layout (capped-width CSR, padded rows, flat edge list or
-blocks) -> the optimize loop with exact repulsion, fused (CSR) or
-unfused.
+Ported so far: the single-device ``tsne_embed`` main path — kNN (exact,
+or the hybrid Z-order + refine plan) -> perplexity-calibrated affinities
+(sorted, split or blocks assembly) -> the attraction layout
+(capped-width CSR, padded rows, flat edge list or blocks) -> the optimize
+loop with exact or FFT repulsion, fused (CSR) or unfused — and the batch
+job around it: the :class:`TSNE` estimator and the command line
+(``python -m tsne_flink_tpu_torch.utils.cli``, the ``tsne-torch``
+script) with CSV ingest, checkpoints and the prepare-artifact cache.
 """
 
+from tsne_flink_tpu_torch.models.api import TSNE
 from tsne_flink_tpu_torch.models.tsne import (TsneConfig, TsneState,
                                               optimize, tsne_embed)
 
-__all__ = ["TsneConfig", "TsneState", "optimize", "tsne_embed"]
+__all__ = ["TSNE", "TsneConfig", "TsneState", "optimize", "tsne_embed"]

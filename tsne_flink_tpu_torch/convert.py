@@ -23,6 +23,14 @@ def config_from_jax(cfg) -> TsneConfig:
                          for f in fields(TsneConfig)})
 
 
+def to_numpy(a) -> np.ndarray:
+    """A numpy array of a tensor (copied to the host), an array or a
+    scalar."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
+
+
 def _tensor(a, device, dtype=None):
     # a copy: arrays handed over by JAX are read-only
     return torch.as_tensor(np.array(a), device=device, dtype=dtype)

@@ -1,0 +1,196 @@
+"""Estimator API: ``TSNE(...).fit_transform(X)`` (port of
+``tsne_flink_tpu/models/api.py``).
+
+The in-process twin of the CLI: the JAX estimator's keyword arguments and
+defaults, plus ``device`` (None: the card).  ``fit`` runs the port's
+``tsne_embed`` and sets ``embedding_``, ``kl_trace_`` (the KL at every
+10th iteration) and ``kl_divergence_`` (the last of them).  Arguments of
+parts not ported yet raise ``NotImplementedError`` naming their ROADMAP
+queue item when ``fit`` starts, before the input is touched; out-of-sample
+``transform`` is queue A13.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from tsne_flink_tpu_torch.models.tsne import TsneConfig, tsne_embed
+
+
+class TSNE:
+    """t-SNE estimator on the card (or ``device="cpu"``).
+
+    Parameters are :class:`TsneConfig`'s plus the kNN stage's, named as
+    in the JAX package (``n_iter``, ``random_state`` as in scikit-learn).
+    ``dtype`` None means float32 on the card (the kernels' type) and the
+    input's dtype on the CPU.  ``cache_dir`` enables the prepare-artifact
+    cache under that root (None: off; a library writes no file unasked).
+    """
+
+    def __init__(self, n_components: int = 2, perplexity: float = 30.0,
+                 early_exaggeration: float = 4.0, learning_rate: float = 1000.0,
+                 n_iter: int = 300, metric: str = "sqeuclidean",
+                 initial_momentum: float = 0.5, final_momentum: float = 0.8,
+                 theta: float | None = None, repulsion: str = "auto",
+                 knn_method: str = "bruteforce", neighbors: int | None = None,
+                 knn_blocks: int | None = None,
+                 knn_iterations: int | None = None,
+                 knn_refine: int | None = None, knn_autotune: bool = False,
+                 random_state: int = 0,
+                 spmd: bool = False, devices: int | None = None,
+                 mesh: int | None = None,
+                 sym_mode: str = "replicated", attraction: str = "auto",
+                 sym_width: int | None = None, sym_slack: int | None = None,
+                 sym_strict: bool = False, bh_gate: str = "vdm",
+                 dtype: str | None = None,
+                 affinity_assembly: str | None = None,
+                 cache_dir: str | None = None,
+                 max_retries: int = 2, on_oom: str = "ladder",
+                 health_check: bool = False,
+                 aot_cache: bool | None = None,
+                 telemetry: bool = False,
+                 autopilot: bool = False,
+                 mesh_reduce: str = "canonical", device=None):
+        from tsne_flink_tpu_torch.ops.affinities import ATTRACTION_MODES
+        from tsne_flink_tpu_torch.utils.cli import REPULSION_CHOICES
+
+        checks = (("bh_gate", bh_gate, ("vdm", "flink")),
+                  ("attraction", attraction, ATTRACTION_MODES),
+                  ("repulsion", repulsion, REPULSION_CHOICES),
+                  ("affinity_assembly", affinity_assembly,
+                   (None, "auto", "sorted", "split", "blocks")),
+                  ("on_oom", on_oom, ("ladder", "fail")),
+                  ("mesh_reduce", mesh_reduce, ("canonical", "psum")))
+        for name, value, allowed in checks:
+            if value not in allowed:
+                raise ValueError(f"{name} '{value}' not defined ("
+                                 + " | ".join(map(str, allowed)) + ")")
+        self.n_components = n_components
+        self.perplexity = perplexity
+        self.early_exaggeration = early_exaggeration
+        self.learning_rate = learning_rate
+        self.n_iter = n_iter
+        self.metric = metric
+        self.initial_momentum = initial_momentum
+        self.final_momentum = final_momentum
+        # None = defaulted (0.25, Tsne.scala:59); an explicit theta steers
+        # repulsion="auto" to Barnes-Hut above EXACT_N_MAX, as --theta does
+        self.theta_explicit_ = theta is not None
+        self.theta = 0.25 if theta is None else theta
+        self.repulsion = repulsion
+        self.knn_method = knn_method
+        self.neighbors = neighbors
+        self.knn_blocks = knn_blocks  # None: the device count (--knnBlocks)
+        self.knn_iterations = knn_iterations
+        self.knn_refine = knn_refine
+        self.knn_autotune = knn_autotune
+        self.random_state = random_state
+        self.spmd = spmd
+        self.devices = devices
+        self.mesh = mesh
+        self.sym_mode = sym_mode
+        self.attraction = attraction
+        self.sym_width = sym_width
+        self.sym_slack = sym_slack
+        self.sym_strict = sym_strict
+        self.bh_gate = bh_gate
+        self.dtype = dtype
+        self.affinity_assembly = affinity_assembly
+        self.cache_dir = cache_dir
+        # accepted: the port has no run supervisor yet (ROADMAP queue
+        # A15), so an out-of-memory error propagates under either policy
+        self.max_retries = max_retries
+        self.on_oom = on_oom
+        self.health_check = health_check
+        self.aot_cache = aot_cache
+        self.telemetry = telemetry
+        self.autopilot = autopilot
+        self.mesh_reduce = mesh_reduce
+        self.device = device
+        self.embedding_ = None
+        self.kl_divergence_ = None
+        self.kl_trace_ = None
+
+    def _refuse_unported(self, device: torch.device) -> None:
+        unported = (
+            ("health_check", self.health_check, "A10"),
+            ("telemetry", self.telemetry, "A10"),
+            ("autopilot", self.autopilot, "A10"),
+            ("spmd", self.spmd, "A14"),
+            ("devices", self.devices is not None, "A14"),
+            ("mesh", self.mesh is not None, "A14"),
+            ("sym_mode/sym_slack/sym_strict",
+             (self.sym_mode != "replicated" or self.sym_slack is not None
+              or self.sym_strict), "A14"),
+            ("mesh_reduce='psum'", self.mesh_reduce != "canonical", "A14"),
+            ("aot_cache", self.aot_cache is not None, "A15"))
+        for name, is_set, item in unported:
+            if is_set:
+                raise NotImplementedError(
+                    f"{name} is not ported yet (ROADMAP queue {item})")
+        if self.dtype == "bfloat16" or (self.dtype == "float64"
+                                        and device.type == "cuda"):
+            raise NotImplementedError(
+                f"dtype='{self.dtype}' is not ported: the kernels are "
+                "float32 and B1 runs 3xTF32, not bf16 operands (a limit of "
+                "ROADMAP §C)")
+
+    def _config(self, n: int, backend: str = "cuda") -> TsneConfig:
+        from tsne_flink_tpu_torch.utils.cli import pick_repulsion
+
+        repulsion = pick_repulsion(self.repulsion, self.theta, n,
+                                   self.n_components, self.theta_explicit_,
+                                   backend=backend)
+        if repulsion == "bh":
+            raise NotImplementedError(
+                f"repulsion '{self.repulsion}' resolves to bh at N = {n}; "
+                "Barnes-Hut is not ported yet (ROADMAP queue A12)")
+        return TsneConfig(
+            n_components=self.n_components, perplexity=self.perplexity,
+            early_exaggeration=self.early_exaggeration,
+            learning_rate=self.learning_rate, iterations=self.n_iter,
+            initial_momentum=self.initial_momentum,
+            final_momentum=self.final_momentum, theta=self.theta,
+            metric=self.metric, repulsion=repulsion,
+            attraction=self.attraction, bh_gate=self.bh_gate)
+
+    def fit(self, x, y=None) -> "TSNE":
+        from tsne_flink_tpu_torch.utils.artifacts import ArtifactCache
+        from tsne_flink_tpu_torch.utils.cli import _device_count
+        from tsne_flink_tpu_torch.utils.device import resolve_device
+
+        device = resolve_device(self.device)
+        self._refuse_unported(device)
+        cfg = self._config(len(x), device.type)
+        dtype = ({"float32": torch.float32, "float64": torch.float64}
+                 [self.dtype] if self.dtype is not None
+                 else torch.float32 if device.type == "cuda" else None)
+        x = torch.as_tensor(x, dtype=dtype, device=device)
+        y_emb, losses = tsne_embed(
+            x, cfg, neighbors=self.neighbors, knn_method=self.knn_method,
+            knn_blocks=(self.knn_blocks if self.knn_blocks is not None
+                        else _device_count(device)),
+            knn_iterations=self.knn_iterations, knn_refine=self.knn_refine,
+            knn_autotune=self.knn_autotune, seed=self.random_state,
+            sym_width=self.sym_width,
+            affinity_assembly=self.affinity_assembly, device=device,
+            artifact_cache=(ArtifactCache(self.cache_dir)
+                            if self.cache_dir is not None else None))
+        self.embedding_ = y_emb.cpu().numpy()
+        self.kl_trace_ = losses.cpu().numpy()
+        self.kl_divergence_ = (float(self.kl_trace_[-1])
+                               if self.kl_trace_.size else float("nan"))
+        return self
+
+    def fit_transform(self, x, y=None) -> np.ndarray:
+        return self.fit(x).embedding_
+
+    def frozen_model(self):
+        raise NotImplementedError("the frozen serving model is not ported "
+                                  "yet (ROADMAP queue A13)")
+
+    def transform(self, x, *, bucket: int | None = None,
+                  iters: int | None = None) -> np.ndarray:
+        raise NotImplementedError("out-of-sample transform is not ported "
+                                  "yet (ROADMAP queue A13)")

@@ -337,7 +337,8 @@ def tsne_embed(x, cfg: TsneConfig | None = None, *,
                knn_refine: int | None = None, knn_blocks: int = 8,
                seed: int = 0, sym_width: int | None = None,
                affinity_assembly: str | None = None, device=None, y0=None,
-               stats: dict | None = None):
+               stats: dict | None = None, artifact_cache=None,
+               knn_autotune: bool = False):
     """Single-device end to end: kNN -> β-calibrated affinities ->
     symmetrized P -> attraction layout -> init -> optimize.  Returns
     ``(embedding [N, m], loss trace)`` on ``device`` (default ``cuda``).
@@ -355,6 +356,9 @@ def tsne_embed(x, cfg: TsneConfig | None = None, *,
 
     ``seed`` seeds the ``torch.Generator`` of the init (``y0`` replaces
     the draw) and, through :func:`knn_generator`, the kNN stage's own.
+    ``artifact_cache`` (a ``utils/artifacts.ArtifactCache``) and
+    ``knn_autotune`` go to ``prepare``: a warm cache skips the kNN and
+    affinity stages with the same bits.
     ``stats``, when given, receives the stage seconds (``knn``,
     ``affinities``, ``plan``, ``optimize``), each measured to the end of
     the device's work, the kNN substage seconds (``knn_substages``), and
@@ -377,10 +381,10 @@ def tsne_embed(x, cfg: TsneConfig | None = None, *,
     from tsne_flink_tpu_torch.utils.artifacts import prepare
     prep = prepare(x, neighbors=k, knn_method=knn_method, metric=cfg.metric,
                    knn_rounds=knn_iterations, knn_refine=knn_refine,
-                   knn_blocks=knn_blocks,
-                   generator=knn_generator(seed, device),
+                   knn_blocks=knn_blocks, seed=seed,
                    perplexity=cfg.perplexity, assembly=assembly,
-                   sym_width=sym_width, device=device)
+                   sym_width=sym_width, device=device, cache=artifact_cache,
+                   knn_autotune=knn_autotune)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     state = init_working_set(gen, n, cfg.n_components, x.dtype, device, y0)

@@ -130,7 +130,12 @@ def pick_knn_refine(n: int, d: int | None = None) -> int:
 #: seed rounds + 5 cycles, each refine chunk's stages in the fused kernel
 #: B6) 7.68 s -> 6.49e11, each timed to the end of the device's work.
 #: With them the card's crossover at k = 90 sits near 832k points at
-#: d = 50 and 768k at d = 784 (``chip_smoke.auto_crossover``).
+#: d = 50 and 768k at d = 784 (``chip_smoke.auto_crossover``).  Checked
+#: near it on the same card (``scripts/exact_fft_crossover_cuda.py``,
+#: ``make_cells`` cut to 800,000 x 50, k = 90): B1 3.396 and 3.395 s, the
+#: hybrid plan (3 + 5 cycles, recall@90 0.9998) 3.324 and 3.330 s,
+#: against the model's 3.469 and 3.490 s: a 2% gap that the model calls
+#: the other way, as close to the crossover as its coarseness allows.
 KNN_EXACT_EFF = {"cpu": 55e9, "tpu": 2.0e13, "cuda": 1.9e13}
 KNN_HYBRID_EFF = {"cpu": 7e9, "tpu": 1.0e12, "cuda": 6.5e11}
 

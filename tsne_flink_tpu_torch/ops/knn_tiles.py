@@ -8,14 +8,19 @@ chunk never changes the graph (every refine operation is per row), so it
 is free to grow on the card, where fewer and fatter chunks mean fewer
 launches; the band block is a recall-bearing width and stays at the floor.
 
-The JAX package's empirical ``autotune_knn_tiles`` (a CLI/estimator flag)
-is ROADMAP queue A9, with the rest of the prepare stage's extras.
+:func:`autotune_knn_tiles` (the CLI's ``--knnAutotune``, the estimator's
+``knn_autotune=True``) times a few refine chunk widths around the
+model's on a row slice of the real input and keeps the fastest.  Tile
+sizes are not part of the prepare-artifact fingerprint
+(``utils/artifacts.knn_fingerprint``): the refine chunk never changes the
+graph, and the band block is pinned.
 """
 
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
+import time
+from dataclasses import asdict, dataclass, replace
 
 #: usable working-set budget per backend when the caller passes no
 #: ``hbm_bytes``.  ``cuda``: the H100's 80 GB less what the large-N kNN
@@ -47,6 +52,9 @@ MIN_REFINE_CHUNK = 64
 MAX_REFINE_CHUNK = 1024
 MAX_REFINE_CHUNK_CUDA = 8192
 
+#: rows of the slice :func:`autotune_knn_tiles` probes (the JAX package's)
+AUTOTUNE_ROWS = 8192
+
 #: the banded re-rank's stable sort holds the [b, band] f32 tile, its
 #: sorted copy and int64 positions: ~4x the tile that
 #: :func:`project_block_bytes` counts.
@@ -63,6 +71,13 @@ class KnnTilePlan:
     #: the route of the candidate scorer and the exact sweep: "cuda"
     #: (kernels B1/B6) or "plain" (their plain PyTorch versions, CPU)
     kernel: str = "plain"
+    #: how the plan was made: "model" (:func:`pick_knn_tiles`) or
+    #: "autotune" (:func:`autotune_knn_tiles`)
+    source: str = "model"
+
+    def as_record(self) -> dict:
+        """The plan as a JSON-safe dict."""
+        return asdict(self)
 
 
 def _pow2_at_most(v: float, lo: int, hi: int) -> int:
@@ -145,3 +160,59 @@ def pick_knn_tiles(n: int, d: int, k: int, backend: str = "cuda",
     return KnnTilePlan(row_chunk=row_chunk, block=block,
                        refine_chunk=refine_chunk,
                        kernel="cuda" if backend == "cuda" else "plain")
+
+
+def autotune_knn_tiles(x, k: int, metric: str = "sqeuclidean", *,
+                       plan: KnnTilePlan | None = None) -> KnnTilePlan:
+    """The model's plan with its refine chunk replaced by the fastest of
+    2-3 widths (half, the model's, double) measured on a row slice of
+    ``x``: one refine round over a one-round Z-order seed graph of the
+    first :data:`AUTOTUNE_ROWS` rows, each width run once to warm up and
+    once timed to the end of the device's work (host clock;
+    ``torch.cuda.synchronize`` on the card).  Labelled
+    ``source="autotune"``.  Every refine operation is per row, so the
+    chunk never changes the graph; the band block, which does, is never
+    probed.  The probe draws from its own generators, so the run's kNN
+    stage draws what it would without it.  A slice too small to probe
+    (fewer than 2 x MIN_BLOCK rows), or one that fits a single width,
+    returns ``plan``."""
+    import torch
+
+    from tsne_flink_tpu_torch.ops.knn import (backend_of, knn_project,
+                                              knn_refine, pick_knn_filter)
+    from tsne_flink_tpu_torch.utils.device import timed_stage
+
+    n, d = int(x.shape[0]), int(x.shape[1])
+    backend = backend_of(x)
+    if plan is None:
+        plan = pick_knn_tiles(n, d, k, backend)
+    ns = int(min(n, AUTOTUNE_ROWS))
+    if ns < 2 * MIN_BLOCK or ns <= k + 1:
+        return plan
+    xs = x[:ns].contiguous()
+
+    def gen():
+        return torch.Generator(device=x.device).manual_seed(0)
+
+    seed_i, seed_d = knn_project(xs, k, metric, rounds=1, generator=gen(),
+                                 block=plan.block)
+    fd = pick_knn_filter(d)  # the funnel knn_project_refined runs
+    funnel = dict(filter_dims=fd, expand_k=(k + 1) // 2 if fd else None)
+    cap = MAX_REFINE_CHUNK_CUDA if backend == "cuda" else MAX_REFINE_CHUNK
+    cands = sorted({plan.refine_chunk,
+                    max(MIN_REFINE_CHUNK, plan.refine_chunk // 2),
+                    min(cap, plan.refine_chunk * 2)})
+    cands = [c for c in cands if c <= ns]
+    if len(cands) < 2:
+        return plan
+    seconds = {}
+    for c in cands:
+        def probe(c=c):
+            return knn_refine(xs, seed_i, seed_d, metric, rounds=1,
+                              generator=gen(), row_chunk=c, **funnel)
+        probe()
+        t0 = time.perf_counter()
+        probe()
+        seconds[c] = timed_stage(x.device, t0)
+    return replace(plan, refine_chunk=min(seconds, key=seconds.get),
+                   source="autotune")

@@ -1,0 +1,465 @@
+"""The batch job's command line (port of ``tsne_flink_tpu/utils/cli.py``).
+
+The JAX package's flags, with their defaults and choices: read a COO CSV
+(or a precomputed neighbour graph, ``--inputDistanceMatrix``), prepare
+(kNN, affinities; the artifact cache and the kNN autotune), optimize in
+segments of ``--checkpointEvery`` with checkpoints and ``--resume``, and
+write the embedding CSV and the loss trace.  It runs on the card;
+``main(device="cpu")`` runs the plain PyTorch versions on the CPU.
+
+    python -m tsne_flink_tpu_torch.utils.cli --input in.csv --output \\
+        out.csv --dimension 784 --knnMethod project --theta 0.5
+
+Flags of parts not ported yet raise ``NotImplementedError`` naming their
+ROADMAP queue item before the input is read (:data:`UNPORTED`);
+``--repulsion auto`` resolving to Barnes-Hut is refused as soon as N is
+known, before any kNN work.  The port reads no ``TSNE_*`` environment
+variable.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+
+#: --repulsion auto: the largest N that runs exact repulsion (kernel B2)
+#: per backend.  cuda: the N at which one full iteration with FFT
+#: repulsion becomes cheaper than with B2, measured on an NVIDIA H100
+#: 80GB HBM3 at 700 W by scripts/exact_fft_crossover_cuda.py (104,823:
+#: B2 4.20 ms against FFT 4.70 ms at 100k, 6.09 against 4.52 at 120k;
+#: FFT's time moves by ±30% between calls), rounded down to a thousand.
+#: Every other backend keeps the JAX package's 32,768.
+EXACT_N_MAX = {"cuda": 104_000}
+EXACT_N_MAX_DEFAULT = 32_768
+
+REPULSION_CHOICES = ("auto", "exact", "bh", "fft")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The JAX package's parser: the same flags, defaults and choices."""
+    p = argparse.ArgumentParser(
+        prog="tsne-torch",
+        description="t-SNE on an NVIDIA GPU (PyTorch + CUDA port of "
+                    "tsne_flink_tpu)")
+    # --- the reference's flags (names, defaults: Tsne.scala:39-63) ---
+    p.add_argument("--input", required=True)
+    p.add_argument("--output", required=True)
+    p.add_argument("--dimension", type=int, required=True)
+    p.add_argument("--knnMethod", required=True,
+                   choices=["auto", "bruteforce", "partition", "project"])
+    p.add_argument("--inputDistanceMatrix", action="store_true",
+                   help="--input holds i,j,distance lines: the kNN graph")
+    p.add_argument("--executionPlan", action="store_true",
+                   help="not ported (ROADMAP queue A16)")
+    p.add_argument("--metric", default="sqeuclidean",
+                   choices=["sqeuclidean", "euclidean", "cosine"])
+    p.add_argument("--perplexity", type=float, default=30.0)
+    p.add_argument("--nComponents", type=int, default=2)
+    p.add_argument("--earlyExaggeration", type=float, default=4.0)
+    p.add_argument("--learningRate", type=float, default=1000.0)
+    p.add_argument("--iterations", type=int, default=300)
+    p.add_argument("--randomState", type=int, default=0,
+                   help="seeds the init and the hybrid kNN's draws")
+    p.add_argument("--neighbors", type=int, default=None,
+                   help="default: 3 * perplexity (Tsne.scala:55)")
+    p.add_argument("--initialMomentum", type=float, default=0.5)
+    p.add_argument("--finalMomentum", type=float, default=0.8)
+    p.add_argument("--theta", type=float, default=None,
+                   help="Barnes-Hut accuracy, default 0.25 (Tsne.scala:59); "
+                        "given explicitly, --repulsion auto takes "
+                        "Barnes-Hut above EXACT_N_MAX (not ported: ROADMAP "
+                        "queue A12); theta 0 always means exact")
+    p.add_argument("--loss", "--lossFile", dest="loss",
+                   default=os.path.join("results", "loss.txt"))
+    p.add_argument("--knnIterations", type=int, default=None,
+                   help="project kNN: Z-order seed rounds (default auto)")
+    p.add_argument("--knnRefine", type=int, default=None,
+                   help="project kNN: refine cycles (default auto)")
+    p.add_argument("--knnBlocks", type=int, default=None,
+                   help="partition kNN blocks; default: the device count "
+                        "(Tsne.scala:63)")
+    p.add_argument("--knnAutotune", action="store_true",
+                   help="time 2-3 refine chunk widths on a row slice before "
+                        "the kNN stage and keep the fastest "
+                        "(ops/knn_tiles.autotune_knn_tiles); the graph is "
+                        "the same")
+    p.add_argument("--repulsion", default="auto",
+                   choices=list(REPULSION_CHOICES),
+                   help="auto: exact when theta == 0 or N <= EXACT_N_MAX, "
+                        "else fft (bh: ROADMAP queue A12)")
+    p.add_argument("--attraction", default="auto",
+                   choices=["auto", "rows", "edges", "csr"],
+                   help="attraction layout: padded [N, S] rows, the flat "
+                        "edge list, or the capped-width CSR (fused step); "
+                        "auto picks csr on hub-heavy graphs, else rows")
+    p.add_argument("--affinityAssembly", default=None,
+                   choices=["auto", "sorted", "split", "blocks"],
+                   help="symmetrized-P builder; auto (default) builds rows "
+                        "when they fit, else blocks")
+    p.add_argument("--bhGate", default="vdm", choices=["vdm", "flink"],
+                   help="Barnes-Hut acceptance test (ROADMAP queue A12)")
+    p.add_argument("--dtype", default=None,
+                   choices=["float32", "float64", "bfloat16"],
+                   help="float32 (default; the kernels' type), float64 (the "
+                        "CPU only); bfloat16 is not ported (a ROADMAP §C "
+                        "limit)")
+    # --- multi-device (ROADMAP queue A14) ---
+    p.add_argument("--devices", type=int, default=None,
+                   help="not ported (ROADMAP queue A14)")
+    p.add_argument("--mesh", type=int, default=None,
+                   help="not ported (ROADMAP queue A14)")
+    p.add_argument("--symWidth", type=int, default=None,
+                   help="(--spmd only) not ported (ROADMAP queue A14)")
+    p.add_argument("--symMode", default="replicated",
+                   choices=["replicated", "alltoall"],
+                   help="(--spmd only) not ported (ROADMAP queue A14)")
+    p.add_argument("--symSlack", type=int, default=None,
+                   help="(--spmd only) not ported (ROADMAP queue A14)")
+    p.add_argument("--symStrict", action="store_true",
+                   help="(--spmd only) not ported (ROADMAP queue A14)")
+    p.add_argument("--spmd", action="store_true",
+                   help="not ported (ROADMAP queue A14)")
+    # --- checkpoints ---
+    p.add_argument("--checkpoint", default=None,
+                   help="path of the v2 checkpoint (y, update, gains, next "
+                        "iteration, losses, prepare payload), written at "
+                        "every --checkpointEvery boundary and at the end; "
+                        "the previous one is kept as <path>.1")
+    p.add_argument("--checkpointEvery", type=int, default=0)
+    p.add_argument("--resume", default=None,
+                   help="resume from this checkpoint (or its .1 when it is "
+                        "damaged)")
+    p.add_argument("--fatCheckpoint", action="store_true",
+                   help="embed the joint P in every checkpoint, so that "
+                        "--resume runs no kNN or affinity work")
+    p.add_argument("--model", default=None,
+                   help="not ported (ROADMAP queue A13)")
+    p.add_argument("--transform", default=None,
+                   help="not ported (ROADMAP queue A13)")
+    p.add_argument("--aotCache", dest="aotCache", action="store_true",
+                   default=None, help="not ported (ROADMAP queue A15)")
+    p.add_argument("--noAotCache", dest="aotCache", action="store_false",
+                   help="not ported (ROADMAP queue A15)")
+    p.add_argument("--cacheDir", default=None,
+                   help="prepare-artifact cache root (kNN graph + joint P, "
+                        "content-addressed .npz; utils/artifacts.py); "
+                        "default: the repository-local .tsne_artifacts")
+    p.add_argument("--noCache", action="store_true",
+                   help="disable the prepare-artifact cache")
+    # --- runtime (ROADMAP queue A15) ---
+    p.add_argument("--maxRetries", type=int, default=2,
+                   help="accepted; the port has no run supervisor yet "
+                        "(ROADMAP queue A15), so it changes nothing: an "
+                        "out-of-memory error propagates")
+    p.add_argument("--onOom", default="ladder", choices=["ladder", "fail"],
+                   help="accepted; the port has no degradation ladder yet "
+                        "(ROADMAP queue A15), so an out-of-memory error "
+                        "propagates under either value")
+    p.add_argument("--healthCheck", action="store_true",
+                   help="not ported (ROADMAP queue A10)")
+    p.add_argument("--faultPlan", default=None,
+                   help="not ported (ROADMAP queue A15)")
+    p.add_argument("--jobTimeout", type=float, default=None,
+                   help="not ported (ROADMAP queue A15)")
+    p.add_argument("--stageTimeout", type=float, default=None,
+                   help="not ported (ROADMAP queue A15)")
+    p.add_argument("--auditPlan", nargs="?", const="fail", default=None,
+                   choices=["fail", "warn"],
+                   help="not ported (ROADMAP queue A16)")
+    p.add_argument("--trace", nargs="?", const="default", default=None,
+                   help="not ported (ROADMAP queue A15)")
+    p.add_argument("--metricsOut", default=None,
+                   help="not ported (ROADMAP queue A15)")
+    p.add_argument("--telemetry", action="store_true",
+                   help="not ported (ROADMAP queue A10)")
+    p.add_argument("--autopilot", action="store_true",
+                   help="not ported (ROADMAP queue A10)")
+    p.add_argument("--meshReduce", default="canonical",
+                   choices=("canonical", "psum"),
+                   help="psum is not ported (ROADMAP queue A14)")
+    p.add_argument("--profile", default=None,
+                   help="not ported (ROADMAP queue A15)")
+    p.add_argument("--coordinator", default=None,
+                   help="not ported (ROADMAP queue A14)")
+    p.add_argument("--numProcesses", type=int, default=None,
+                   help="not ported (ROADMAP queue A14)")
+    p.add_argument("--processId", type=int, default=None,
+                   help="not ported (ROADMAP queue A14)")
+    return p
+
+
+#: (flag, is it set, ROADMAP queue item) of every part not ported yet
+UNPORTED = (
+    ("--repulsion bh", lambda a: a.repulsion == "bh", "A12"),
+    ("--autopilot", lambda a: a.autopilot, "A10"),
+    ("--healthCheck", lambda a: a.healthCheck, "A10"),
+    ("--telemetry", lambda a: a.telemetry, "A10"),
+    ("--transform/--model",
+     lambda a: a.transform is not None or a.model is not None, "A13"),
+    ("--mesh", lambda a: a.mesh is not None, "A14"),
+    ("--devices", lambda a: a.devices is not None, "A14"),
+    ("--spmd", lambda a: a.spmd, "A14"),
+    ("--symWidth/--symMode/--symSlack/--symStrict",
+     lambda a: (a.symWidth is not None or a.symMode != "replicated"
+                or a.symSlack is not None or a.symStrict), "A14"),
+    ("--coordinator/--numProcesses/--processId",
+     lambda a: (a.coordinator, a.numProcesses, a.processId)
+     != (None, None, None), "A14"),
+    ("--meshReduce psum", lambda a: a.meshReduce != "canonical", "A14"),
+    ("--trace", lambda a: a.trace is not None, "A15"),
+    ("--metricsOut", lambda a: a.metricsOut is not None, "A15"),
+    ("--faultPlan", lambda a: a.faultPlan is not None, "A15"),
+    ("--jobTimeout", lambda a: a.jobTimeout is not None, "A15"),
+    ("--stageTimeout", lambda a: a.stageTimeout is not None, "A15"),
+    ("--aotCache/--noAotCache", lambda a: a.aotCache is not None, "A15"),
+    ("--profile", lambda a: a.profile is not None, "A15"),
+    ("--auditPlan", lambda a: a.auditPlan is not None, "A16"),
+    ("--executionPlan", lambda a: a.executionPlan, "A16"),
+    ("--dtype bfloat16", lambda a: a.dtype == "bfloat16", "§C"),
+)
+
+
+def refuse_unported(args) -> None:
+    """Raise ``NotImplementedError`` naming the ROADMAP queue item of the
+    first flag set that the port does not run yet."""
+    for flag, is_set, item in UNPORTED:
+        if is_set(args):
+            where = ("a limit of ROADMAP §C: bf16 matmul operands are the "
+                     "TPU's contract, and kernel B1 runs 3xTF32"
+                     if item == "§C" else f"ROADMAP queue {item}")
+            raise NotImplementedError(f"{flag} is not ported yet ({where})")
+
+
+def pick_repulsion(mode: str, theta: float, n: int, n_components: int = 2,
+                   theta_explicit: bool = False,
+                   backend: str = "cuda") -> str:
+    """``auto``: exact for theta = 0 or N <= ``EXACT_N_MAX[backend]``;
+    above it FFT, or Barnes-Hut for an explicit theta (a request for
+    theta-gated semantics) or m = 3 (a 3-D grid cannot keep FFT accurate);
+    exact for m outside 2-3, which neither approximation takes.  Any other
+    mode is returned as it is.  ``backend``: ``cuda`` | ``cpu`` (the JAX
+    function's answers for ``cpu``)."""
+    if mode != "auto":
+        return mode
+    if theta == 0.0 or n <= EXACT_N_MAX.get(backend, EXACT_N_MAX_DEFAULT):
+        return "exact"
+    if n_components not in (2, 3):
+        return "exact"
+    if theta_explicit or n_components == 3:
+        return "bh"
+    return "fft"
+
+
+def _load_resume(path: str, n: int, dtype, device):
+    """``(start_iter, loss_carry, state, prepare payload)`` of a
+    checkpoint, the state cast to ``dtype`` on ``device``; a damaged file
+    falls back to its ``.1``."""
+    from tsne_flink_tpu_torch.convert import state_from_numpy
+    from tsne_flink_tpu_torch.utils import checkpoint as ckpt
+
+    st, start_iter, losses, payload, used = ckpt.load_resume(path)
+    if st.y.shape[0] != n:
+        raise ValueError(f"checkpoint {used} holds {st.y.shape[0]} points, "
+                         f"the input {n}")
+    state = state_from_numpy(st.y, st.update, st.gains, device=device,
+                             dtype=dtype)
+    print(f"resumed from {used} at iteration {start_iter}")
+    return (start_iter, torch.as_tensor(losses, dtype=dtype, device=device),
+            state, payload)
+
+
+def _fit_slots(losses, n_slots: int):
+    """A resumed loss trace padded with zeros or cut to ``n_slots``."""
+    if losses.shape[0] < n_slots:
+        return torch.cat([losses, losses.new_zeros(n_slots
+                                                   - losses.shape[0])])
+    return losses[:n_slots]
+
+
+def _device_count(device: torch.device) -> int:
+    return torch.cuda.device_count() if device.type == "cuda" else 1
+
+
+def main(argv=None, *, device=None) -> int:
+    """Parse ``argv`` and run the batch job on ``device`` (None: the
+    card).  Returns 0; every failure raises."""
+    from tsne_flink_tpu_torch.models.tsne import (TsneConfig, _plan_layout,
+                                                  init_working_set, optimize)
+    from tsne_flink_tpu_torch.utils import artifacts as art
+    from tsne_flink_tpu_torch.utils import checkpoint as ckpt
+    from tsne_flink_tpu_torch.utils import io as tio
+    from tsne_flink_tpu_torch.utils.device import resolve_device, timed_stage
+
+    args = build_parser().parse_args(argv)
+    refuse_unported(args)
+    device = resolve_device(device)
+    if args.dtype == "float64" and device.type == "cuda":
+        raise NotImplementedError(
+            "--dtype float64 runs on the CPU only: the kernels are float32 "
+            "(a limit of ROADMAP §C)")
+    dtype, np_dtype = ((torch.float64, np.float64) if args.dtype == "float64"
+                       else (torch.float32, np.float32))
+    theta_explicit = args.theta is not None
+    theta = args.theta if theta_explicit else 0.25  # Tsne.scala:59
+    assembly = args.affinityAssembly or "auto"
+    neighbors = (args.neighbors if args.neighbors is not None
+                 else 3 * int(args.perplexity))
+    cache = None if args.noCache else art.ArtifactCache(args.cacheDir)
+    secs = {}
+
+    t_run = t0 = time.perf_counter()
+    if args.inputDistanceMatrix:
+        ids, idx, dist = tio.read_distance_matrix(args.input)
+        neighbors = idx.shape[1]
+        data = {"knn": (idx, dist.astype(np_dtype))}
+        del idx, dist
+    else:
+        ids, x64 = tio.read_input(args.input, args.dimension)
+        # cast on the host, as the JAX CLI does, before the device copy
+        data = {"x": x64.astype(np_dtype)}
+        del x64
+    n = len(ids)
+    secs["ingest"] = time.perf_counter() - t0
+
+    repulsion = pick_repulsion(args.repulsion, theta, n, args.nComponents,
+                               theta_explicit, backend=device.type)
+    if repulsion == "bh":
+        raise NotImplementedError(
+            f"--repulsion auto resolves to bh at N = {n} (explicit --theta "
+            f"or m = 3 above EXACT_N_MAX); Barnes-Hut is not ported yet "
+            f"(ROADMAP queue A12): pass --repulsion exact or fft")
+    cfg = TsneConfig(
+        n_components=args.nComponents, perplexity=args.perplexity,
+        early_exaggeration=args.earlyExaggeration,
+        learning_rate=args.learningRate, iterations=args.iterations,
+        initial_momentum=args.initialMomentum,
+        final_momentum=args.finalMomentum, theta=theta, metric=args.metric,
+        repulsion=repulsion, attraction=args.attraction, bh_gate=args.bhGate)
+
+    start_iter, loss_carry, state, payload = 0, None, None, None
+    if args.resume:
+        t0 = time.perf_counter()
+        start_iter, loss_carry, state, payload = _load_resume(
+            args.resume, n, dtype, device)
+        secs["resume"] = timed_stage(device, t0)
+    prep_kwargs = dict(neighbors=neighbors, knn_method=args.knnMethod,
+                       metric=args.metric, knn_rounds=args.knnIterations,
+                       knn_refine=args.knnRefine, seed=args.randomState,
+                       perplexity=cfg.perplexity, assembly=assembly, **data)
+    del data
+
+    jidx = extra = label = affinity_fp = None
+    t0 = time.perf_counter()
+    if payload is not None and "jidx" in payload:
+        # a fat checkpoint: check its P against this run's data and plan,
+        # then skip the kNN and affinity stages
+        _, want_fp = art.prepare_fingerprints(**prep_kwargs, device=device)
+        have_fp = payload.get("affinity_fp")
+        if have_fp is not None and have_fp != want_fp:
+            print(f"WARNING: checkpoint prepare payload ({have_fp}) does "
+                  f"not match this run's data/plan ({want_fp}); "
+                  "recomputing prepare", file=sys.stderr)
+        else:
+            label = payload.get("label", "sorted")
+            jidx = torch.as_tensor(payload["jidx"], device=device)
+            jval = torch.as_tensor(payload["jval"], device=device)
+            if label == "blocks":
+                extra = tuple(torch.as_tensor(payload[nm], device=device)
+                              for nm in ("rsrc", "rdst", "rval"))
+            affinity_fp = have_fp or want_fp
+            secs.update(knn=0.0, affinities=timed_stage(device, t0))
+            print("# prepare: skipped (embedded in v2 checkpoint)",
+                  file=sys.stderr)
+    del payload
+    if jidx is None:
+        prep = art.prepare(**prep_kwargs,
+                           knn_blocks=args.knnBlocks or _device_count(device),
+                           device=device, cache=cache,
+                           knn_autotune=args.knnAutotune)
+        jidx, jval, extra, label = (prep.jidx, prep.jval, prep.extra_edges,
+                                    prep.label)
+        affinity_fp = prep.affinity_fp
+        secs.update(knn=prep.knn_seconds, affinities=prep.affinity_seconds)
+        print(f"# prepare: knn {prep.knn_seconds:.2f}s ({prep.knn_cache}) "
+              f"affinities {prep.affinity_seconds:.2f}s "
+              f"({prep.affinity_cache}) assembly={label}", file=sys.stderr)
+        if prep.knn_tiles is not None:
+            print(f"# knn tiles: {prep.knn_tiles}"
+                  + (f" substages={prep.knn_substages}"
+                     if prep.knn_substages else ""), file=sys.stderr)
+        del prep
+    if affinity_fp is None and args.checkpoint and args.fatCheckpoint:
+        _, affinity_fp = art.prepare_fingerprints(**prep_kwargs,
+                                                  device=device)
+    del prep_kwargs  # the host copy of the input goes before optimize
+
+    # v2 checkpoints carry the prepare provenance; --fatCheckpoint embeds
+    # the arrays themselves, so that a resume needs no cache or recompute
+    save_payload = {"label": label}
+    if affinity_fp is not None:
+        save_payload["affinity_fp"] = affinity_fp
+    if args.fatCheckpoint:
+        save_payload.update(jidx=jidx, jval=jval)
+        if extra is not None:
+            save_payload.update(rsrc=extra[0], rdst=extra[1], rval=extra[2])
+
+    t0 = time.perf_counter()
+    if extra is not None:
+        edges, csr = extra, None
+    else:
+        edges, csr = _plan_layout(jidx, jval, cfg)
+    secs["plan"] = timed_stage(device, t0)
+    if state is None:
+        gen = torch.Generator(device=device)
+        gen.manual_seed(args.randomState)
+        state = init_working_set(gen, n, cfg.n_components, dtype, device)
+
+    def save(next_iter):
+        t0 = time.perf_counter()
+        ckpt.save(args.checkpoint, state, next_iter, losses, save_payload)
+        secs["checkpoint"] = (secs.get("checkpoint", 0.0)
+                              + time.perf_counter() - t0)
+
+    n_slots = max(cfg.n_loss_slots, 1)
+    losses = (_fit_slots(loss_carry, n_slots) if loss_carry is not None
+              else torch.zeros(n_slots, dtype=dtype, device=device))
+    # segments of --checkpointEvery, each followed by a checkpoint but the
+    # last (parallel/mesh.py:733 in the JAX package); every gate of the
+    # schedule keys off the absolute iteration, so the bits are one run's
+    every = (args.checkpointEvery if args.checkpoint and args.checkpointEvery
+             > 0 else cfg.iterations)
+    secs["optimize"] = 0.0
+    it = start_iter
+    while it < cfg.iterations:
+        step = min(every, cfg.iterations - it)
+        t0 = time.perf_counter()
+        state, losses = optimize(state, jidx, jval, cfg, start_iter=it,
+                                 num_iters=step, loss_carry=losses,
+                                 edges=edges, edges_extra=extra is not None,
+                                 csr=csr)
+        secs["optimize"] += timed_stage(device, t0)
+        it += step
+        if args.checkpoint and it < cfg.iterations:
+            save(it)
+    if args.checkpoint:
+        save(cfg.iterations)
+
+    t0 = time.perf_counter()
+    tio.write_embedding(args.output, ids, state.y.cpu().numpy())
+    tio.write_loss(args.loss, losses.cpu().numpy())
+    secs["write"] = time.perf_counter() - t0
+    print("# stages s: " + " ".join(f"{k}={v:.4f}" for k, v in secs.items()),
+          file=sys.stderr)
+    print(f"embedded {n} points -> {args.output} "
+          f"({time.perf_counter() - t_run:.2f}s total, "
+          f"backend={device.type})")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
