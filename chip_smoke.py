@@ -83,6 +83,19 @@ Phases, in order; any failure exits non-zero before the result line:
    launches, the kNN substage seconds and the refine split, recall@90
    against B1's exact graph (>= 0.93), B6's time beside B1's, and the
    checks of phase 5;
+8b. bh — Barnes-Hut against B2 at phase 5's final y (θ = 0.5 and 0.25
+   with the vdm gate, held to force error < 2.5e-2 of max |rep| and Z
+   error < 1e-2; θ = 0.5 with the flink gate, reported) and at m = 3 on
+   the latent blobs' latent (θ = 0.25), two calls bit for bit, each
+   call's time and peak memory; then config 2 as BASELINE.json names it
+   (phase 8 with θ = 0.5 Barnes-Hut): no B2 launch, final KL within 0.05
+   of phase 8's, the checks of phase 5, the iteration split;
+8c. cli — the batch job (``utils/cli.main``) on the blobs as a COO CSV:
+   config 2's command line, a warm artifact cache, a fat-checkpoint
+   resume and ``TSNE().fit`` give their runs' bits; config 2 with
+   ``--repulsion bh`` gives phase 8b's y; ``--healthCheck --telemetry``
+   keeps phase 5's bits with finite telemetry rows; an ``--autopilot``
+   run resumed from its checkpoint gives the same y and pilot pair;
 9. large — ``tsne_embed`` at the shape of the 10x Genomics 1.3M mouse
    brain cells (1,306,127 x 50 principal components; a synthetic
    stand-in, see ``make_cells``): perplexity 50, k = 150, the hybrid kNN
@@ -99,8 +112,20 @@ Phases, in order; any failure exits non-zero before the result line:
    versions there too), the rest of an iteration, peak memory, and the
    quality checks (finite, falling KL, label agreement within 0.05 of
    the latent's own);
+9b. bh-large — one Barnes-Hut call at phase 9's final y, timed, its
+   force error on 256 rows against B2 (< 2.5e-2);
+9c. pilot — the autopilot: 10,000 blobs off against the autopilot with
+   the landmark schedule (|ΔKL| <= 0.05); the latent blobs under the
+   autopilot with the landmark schedule (engaged by auto; reported) and
+   with the stride alone (phase 6's label check); phase 9's P and init
+   through ``optimize`` with the autopilot (FFT stride and grid ladder);
+   each with its repulsion refreshes, transitions and host reads (at
+   most one a report boundary);
+9d. diverging — N = 2,000 at learning rate 1e30 with the sentinel: three
+   rollbacks, eta halved each time, then ``DivergenceError``;
 10. determinism — two runs at N = 2,000 give the same bits, on the CSR
-   path, the rows path, and the hybrid kNN + FFT path.
+   path, the rows path, the hybrid kNN + FFT path, the autopilot with
+   the landmark schedule, and Barnes-Hut.
 
 The widths at which B5 and B4 are held: the latent blobs' [N, S] rows
 (S ~ 146), the blobs' [N, S] rows (S ~ 3,466: what attraction="rows"
@@ -1192,7 +1217,7 @@ def phase_rows(xl_np, labels, z_latent, rows, errs):
                                          want_launches(0))
     check(stats["layout"] == "rows",
           f"[rows] auto resolved to {stats['layout']}, not rows")
-    quality("rows", y, losses, labels, cfg, agree_z - 0.05)
+    kl = quality("rows", y, losses, labels, cfg, agree_z - 0.05)
     jidx, jval = rows
     n, s = jidx.shape
     print(f"[rows] S={s}, {int((jval > 0).sum())} entries "
@@ -1206,7 +1231,7 @@ def phase_rows(xl_np, labels, z_latent, rows, errs):
           f"{b4:.4f} ms")
     print(f"[rows] per iteration {it_ms:.4f} ms: B2 {b2:.4f}, B5 {ms:.4f}, "
           f"B4/10 {b4 / 10:.4f}, the rest {rest:.4f} (by difference)")
-    return y, counts
+    return y, counts, kl, stats["optimize"]
 
 
 def phase_blocks(x_np, labels, blocks, csr_kl):
@@ -1677,7 +1702,7 @@ def phase_project(x_np, labels, b1_ms, b6_shapes):
           f"exact sweep {t_b1:.3f} s here ({b1_ms / 1e3:.3f} s in [full])")
     refine_split("project", stats, counts["B6"] // len(per),
                  sum(v[0][0] for v in per.values()))
-    return y, counts, stats["peak_bytes"]
+    return y, counts, stats["peak_bytes"], float(losses[-1])
 
 
 def _digits(a, width):
@@ -1786,12 +1811,14 @@ def same_bits(a, b):
         np.ascontiguousarray(b).view(np.uint32))
 
 
-def phase_cli(x_np, xl_np, full, rows, project):
+def phase_cli(x_np, xl_np, full, rows, project, y_bh):
     """The batch job's front door at 60,000 x 784: config 2's command line
     through the port's ``main`` from a COO CSV (gate 1), a warm artifact
     cache (gate 2), a fat-checkpoint resume (gate 3), the estimator
-    (gate 4).  ``full``, ``rows``, ``project``: (y, launches[, peak]) of
-    those phases."""
+    (gate 4); config 2 with ``--repulsion bh`` (gate 5), the sentinel and
+    telemetry on the checkpointed run (gate 6), an autopilot run resumed
+    from its checkpoint (gate 7).  ``full``, ``rows``, ``project``: (y,
+    launches[, peak, KL]) of those phases; ``y_bh`` [bh]'s config 2 y."""
     import shutil
     import tempfile
 
@@ -1850,7 +1877,7 @@ def phase_cli(x_np, xl_np, full, rows, project):
                     *extra]
 
         # gate 1: config 2's command line is the tsne_embed it wraps
-        y_p, counts_p, peak_p = project
+        y_p, counts_p, peak_p, _ = project
         config2 = ("--knnMethod", "project", "--theta", "0.5")
         y, counts, st, _ = run_cli("config 2", argv("c2.csv", *config2,
                                                     "--noCache"))
@@ -1904,6 +1931,48 @@ def phase_cli(x_np, xl_np, full, rows, project):
               f"[cli] gate 3: the resume launched {counts_r}")
         check(same_bits(y_r, y_u), "[cli] gate 3: resumed != uninterrupted")
         for path in (ck, ck + ".1"):
+            os.remove(path)
+
+        # gate 5: config 2 with Barnes-Hut is [bh]'s run
+        y_b, counts_b, st_b, _ = run_cli("config 2 bh", argv(
+            "bh.csv", *config2, "--repulsion", "bh", "--noCache"))
+        check(same_bits(y_b, y_bh.cpu().numpy()) and counts_b["B2"] == 0,
+              "[cli] gate 5: config 2 with --repulsion bh != [bh]'s run")
+
+        # gate 6: the sentinel and telemetry keep the checkpointed run's
+        # bits (the KL then runs every iteration: B4 x300)
+        hc = os.path.join(tmp, "h")
+        y_h, counts_h, _, err_h = run_cli("health + telemetry", argv(
+            "h.csv", *brute, "--checkpoint", hc, "--checkpointEvery", "100",
+            "--healthCheck", "--telemetry"))
+        check(same_bits(y_h, y_f.cpu().numpy())
+              and counts_h["B4"] == ITERATIONS,
+              f"[cli] gate 6: --healthCheck --telemetry changed the run "
+              f"(launches {counts_h})")
+        check("all finite True" in err_h and "# sentinel event" not in err_h,
+              "[cli] gate 6: telemetry rows not finite, or a rollback")
+        for path in (hc, hc + ".1"):
+            os.remove(path)
+
+        # gate 7: a resumed autopilot run makes the uninterrupted run's
+        # decisions: the same y and policy trace
+        pc = os.path.join(tmp, "p")
+        pilot = (*brute, "--autopilot", "--checkpointEvery", "100")
+        y_a, counts_a, st_a, err_a = run_cli("autopilot", argv(
+            "a.csv", *pilot, "--checkpoint", pc))
+        pc2 = os.path.join(tmp, "p2")
+        y_ar, counts_ar, _, _ = run_cli("autopilot resumed", argv(
+            "ar.csv", *pilot, "--checkpoint", pc2, "--resume", pc + ".1"))
+        pa, pb = ckpt.load_pilot(pc), ckpt.load_pilot(pc2)
+        print(f"[cli] autopilot: B2 x{counts_a['B2']} of {ITERATIONS} "
+              f"(optimize {st_a['optimize']:.4f} s against the "
+              f"checkpointed run's {st_u['optimize']:.4f} s); the resume "
+              f"from iteration 200: B2 x{counts_ar['B2']}")
+        check(same_bits(y_ar, y_a) and pa is not None and pb is not None
+              and np.array_equal(pa[0], pb[0])
+              and np.array_equal(pa[1], pb[1]),
+              "[cli] gate 7: the resumed autopilot run differs")
+        for path in (pc, pc + ".1", pc2):
             os.remove(path)
 
         # gate 4: the estimator is the [rows] run
@@ -1986,7 +2055,7 @@ def phase_large(xc_np, labels, z_latent, y_60k, b2_ms_60k, b6_chunk_ms):
                                        b6=b6_launches(n, d, K_CELLS,
                                                       cycles)),
             neighbors=K_CELLS, knn_method="project")
-    quality("large", y, losses, labels, cfg, agree_z - 0.05)
+    kl = quality("large", y, losses, labels, cfg, agree_z - 0.05)
     x = torch.from_numpy(xc_np).cuda()
     _, dist_e, t_b1 = timed_exact_graph(x, K_CELLS)
     recall = recall_at_k(graph[1], dist_e)
@@ -2006,6 +2075,8 @@ def phase_large(xc_np, labels, z_latent, y_60k, b2_ms_60k, b6_chunk_ms):
     against_f64("large", y, graph[0], fwd_val, rag, z)
     del rag
     times, bounds = pass_times("large", y, graph[0], fwd_val, rev)
+    # the run's P, its final y and KL, for [bh] and [pilot]
+    run = (y, kl, stats["optimize"], graph[0], fwd_val, rev, cfg)
     del graph[:], fwd_val, rev
     # B1 at this shape, warm (the graph above was its first launch)
     b1_ms = [cuda_ms(lambda: knn_sweep_cuda(x, K_CELLS, False), 1, 0)
@@ -2046,7 +2117,7 @@ def phase_large(xc_np, labels, z_latent, y_60k, b2_ms_60k, b6_chunk_ms):
     print(f"[large] B2 exact repulsion: {b2_ms_60k:.4f} ms at N={N_FULL}, "
           f"{b2_large:.4f} ms at N={n} (bound {b2_bound[0]:.4f} ms by "
           f"{b2_bound[1]}); exact/FFT crossover at N ~ {cross:.0f}")
-    return counts, times, bounds, errs
+    return counts, times, bounds, errs, run
 
 
 def phase_determinism(x_np, xl_np):
@@ -2079,6 +2150,333 @@ def phase_determinism(x_np, xl_np):
     print(f"[determinism] project + FFT N={N_DETERMINISM} (B6 x{b6}) two "
           f"runs bit-identical: {same}")
     check(same, f"two project + FFT runs at N={N_DETERMINISM} differ")
+    # the autopilot (with the landmark schedule) and Barnes-Hut
+    for name, cfg, kw in (
+            ("autopilot + landmark",
+             TsneConfig(perplexity=PERPLEXITY, iterations=ITERATIONS,
+                        autopilot=True), {"landmark": "on"}),
+            ("Barnes-Hut theta 0.5",
+             TsneConfig(perplexity=PERPLEXITY, iterations=ITERATIONS,
+                        repulsion="bh", theta=0.5), {})):
+        reset_launches()
+        runs = [tsne_embed(x_np[:N_DETERMINISM], cfg, neighbors=K, seed=0,
+                           **kw) for _ in range(2)]
+        same = all(torch.equal(a, b) for a, b in zip(*runs))
+        print(f"[determinism] {name} N={N_DETERMINISM} two runs "
+              f"bit-identical: {same} (launches {json.dumps(launches())})")
+        check(same, f"two {name} runs at N={N_DETERMINISM} differ")
+
+
+#: the Barnes-Hut error bars at theta = 0.5, vdm gate (tests/test_bh.py:167
+#: and :192): max |rep - exact| / max |exact| and |Z - Z_exact| / Z_exact
+BH_FORCE_BAR, BH_Z_BAR = 2.5e-2, 1e-2
+#: rows of the large shape on which BH's error is measured
+BH_SAMPLE = 256
+#: the autopilot guardrail's shape (bench.py make_data, seed 0)
+N_GUARDRAIL = 10_000
+
+
+@contextlib.contextmanager
+def record_plan():
+    """Keep the (edges, csr) the run's plan stage returns (the list
+    yielded gets them); the stage itself runs unchanged."""
+    from tsne_flink_tpu_torch.models import tsne as ttsne
+    real = ttsne._plan_layout
+    got = []
+
+    def recorded(*a, **kw):
+        out = real(*a, **kw)
+        got[:] = out
+        return out
+
+    ttsne._plan_layout = recorded
+    try:
+        yield got
+    finally:
+        ttsne._plan_layout = real
+
+
+def bh_errors(rep, z, rep_e, z_e):
+    """(max row error / max exact row norm, relative Z error)."""
+    import torch
+    den = float(torch.linalg.norm(rep_e.double(), dim=1).max())
+    err = float(torch.linalg.norm((rep - rep_e).double(), dim=1).max())
+    return err / den, abs(float(z) - float(z_e)) / float(z_e)
+
+
+def bh_hold(tag, y, theta, gate="vdm", gated=False):
+    """BH at ``y`` against B2: errors, levels, frontier, two calls bit for
+    bit, the median of 3 CUDA-event calls, the peak memory a call adds.
+    Returns (ms, force error, Z error)."""
+    import torch
+    from tsne_flink_tpu_torch.ops import repulsion_bh as bh
+    from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
+    n, m = y.shape
+    rep_e, z_e = cuda_exact_repulsion(y)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    r1, z1 = bh.bh_repulsion(y, theta=theta, gate=gate)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    r2, z2 = bh.bh_repulsion(y, theta=theta, gate=gate)
+    same = torch.equal(r1, r2) and torch.equal(z1, z2)
+    err, zerr = bh_errors(r1, z1, rep_e, z_e)
+    ms = statistics.median(cuda_ms(lambda: bh.bh_repulsion(
+        y, theta=theta, gate=gate), 1, 0) for _ in range(3))
+    levels = bh.default_levels(n, m)
+    front = bh.default_frontier(n, m, levels, theta)
+    print(f"[bh] {tag} {n}x{m} theta={theta} gate={gate}: levels {levels}, "
+          f"frontier {front}; max force error {err:.4e} of max |rep|, Z "
+          f"error {zerr:.4e}; {ms:.3f} ms a call (median of 3; B2 "
+          f"{cuda_ms(lambda: cuda_exact_repulsion(y, row_z=True), 3):.3f} "
+          f"ms); +{peak / 2**30:.3f} GiB peak; two calls bit-identical: "
+          f"{same}")
+    check(same, f"[bh] {tag} theta={theta} {gate}: two calls differ")
+    if gated:
+        check(err < BH_FORCE_BAR and zerr < BH_Z_BAR,
+              f"[bh] {tag} theta={theta}: force error {err} (bar "
+              f"{BH_FORCE_BAR}), Z error {zerr} (bar {BH_Z_BAR})")
+    return ms, err, zerr
+
+
+def phase_bh(x_np, labels, y_60k, z_latent, project):
+    """Barnes-Hut on the card: held against B2 at [full]'s final y (θ =
+    0.5 and 0.25, vdm; 0.5 flink) and at m = 3 on the latent blobs' 3-D
+    latent (θ = 0.25), then config 2 as BASELINE names it, end to end.
+    Returns the config 2 run's final y."""
+    import torch
+    from tsne_flink_tpu_torch import TsneConfig
+    from tsne_flink_tpu_torch.ops import attraction_cuda as att
+    from tsne_flink_tpu_torch.ops import repulsion_bh as bh
+
+    bh_hold("[full]'s final y", y_60k, 0.5, gated=True)
+    bh_hold("[full]'s final y", y_60k, 0.25, gated=True)
+    bh_hold("[full]'s final y", y_60k, 0.5, gate="flink")
+    z3 = torch.from_numpy(z_latent.astype(np.float32)).cuda()
+    bh_hold("the latent blobs' 3-D latent", z3, 0.25, gated=True)
+    del z3
+    # config 2 as BASELINE.json names it: theta 0.5 Barnes-Hut, project
+    y_p, _, _, kl_p = project
+    n, d = x_np.shape
+    from tsne_flink_tpu_torch.ops.knn import pick_knn_refine
+    cycles = pick_knn_refine(n, d)
+    cfg = TsneConfig(perplexity=PERPLEXITY, iterations=ITERATIONS,
+                     repulsion="bh", theta=0.5)
+    with record_plan() as plan:
+        y, losses, stats, counts = run_embed(
+            "bh", x_np, cfg,
+            lambda st: layout_launches(st["layout"], b1=0, b2=0,
+                                       b6=b6_launches(n, d, K, cycles)),
+            knn_method="project")
+    kl = quality("bh", y, losses, labels, cfg, 0.9)
+    print(f"[bh] config 2 final KL {kl:.6f} vs [project]'s {kl_p:.6f} (the "
+          f"same P, exact repulsion): gap {kl - kl_p:+.6f} (bar "
+          f"{KL_GUARDRAIL_TOL}); B2 launches {counts['B2']}")
+    check(abs(kl - kl_p) <= KL_GUARDRAIL_TOL,
+          f"[bh] config 2 final KL {kl} vs [project] {kl_p}")
+    check(counts["B2"] == 0, f"[bh] B2 launched {counts['B2']} times")
+    # the iteration split at the run's final y
+    _, csr = plan
+    check(csr is not None, "[bh] config 2 did not take the CSR layout")
+    fidx, fval, rag = (csr[0], csr[1],
+                       att.ragged_edges(*_unpadded(csr[2:]), n))
+    order = att.visit_order(rag)
+    rep, z = bh.bh_repulsion(y, theta=0.5)
+    t_bh = statistics.median(cuda_ms(lambda: bh.bh_repulsion(y, theta=0.5),
+                                     1, 0) for _ in range(3))
+    upd, gains = torch.zeros_like(y), torch.ones_like(y)
+    t_b3 = cuda_ms(lambda: att.fused_step_update(
+        y, y, fidx, fval, 1.0, rep, z, None, upd, gains, 0.8, eta=1000.0,
+        min_gain=0.01, ragged=rag, order=order), 20)
+    t_b4 = cuda_ms(lambda: att.attraction_loss(y, y, fidx, fval, 1.0, z,
+                                               ragged=rag), 20)
+    it_ms = stats["optimize"] / ITERATIONS * 1e3
+    rest = it_ms - t_bh - t_b3 - t_b4 / 10
+    print(f"[bh] config 2 per iteration {it_ms:.4f} ms: BH {t_bh:.4f} "
+          f"({100 * t_bh / it_ms:.1f}%), B3 {t_b3:.4f} x{counts['B3']}, "
+          f"B4/10 {t_b4 / 10:.4f}, the rest {rest:.4f} (by difference)")
+    del plan[:], fidx, fval, rag, order
+    torch.cuda.empty_cache()
+    return y
+
+
+def _unpadded(edges):
+    from tsne_flink_tpu_torch.models.tsne import _without_padding
+    return _without_padding(edges)
+
+
+def phase_bh_large(y_large):
+    """One BH call at [large]'s final y (θ = 0.5), timed, its error on
+    ``BH_SAMPLE`` rows against B2 over those rows and the whole y (the
+    rows put first, so B2's self-exclusion is by position)."""
+    import torch
+    from tsne_flink_tpu_torch.ops import repulsion_bh as bh
+    from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
+    n, m = y_large.shape
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rep, z = bh.bh_repulsion(y_large, theta=0.5)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    ms = statistics.median(cuda_ms(lambda: bh.bh_repulsion(
+        y_large, theta=0.5), 1, 0) for _ in range(3))
+    rng = np.random.default_rng(0)
+    pick = torch.from_numpy(rng.choice(n, BH_SAMPLE, replace=False)).cuda()
+    rest = torch.ones(n, dtype=torch.bool, device=y_large.device)
+    rest[pick] = False
+    y_perm = torch.cat([y_large[pick], y_large[rest]]).contiguous()
+    rep_e, _ = cuda_exact_repulsion(y_perm[:BH_SAMPLE], y_perm)
+    err, _ = bh_errors(rep[pick], torch.ones(()), rep_e, torch.ones(()))
+    levels = bh.default_levels(n, m)
+    print(f"[bh] [large]'s final y {n}x{m} theta=0.5: levels {levels}, "
+          f"frontier {bh.default_frontier(n, m, levels, 0.5)}; {ms:.3f} ms a "
+          f"call (median of 3), +{peak / 2**30:.3f} GiB peak; max force "
+          f"error on {BH_SAMPLE} rows {err:.4e} (bar {BH_FORCE_BAR})")
+    check(err < BH_FORCE_BAR, f"[bh] large: force error {err}")
+    return ms
+
+
+def pilot_run(tag, x_np, cfg, **kw):
+    """One ``tsne_embed`` under the autopilot: seconds, host reads,
+    refreshes, transitions.  Returns (y, losses, stats)."""
+    import torch
+    from tsne_flink_tpu_torch import tsne_embed
+    from tsne_flink_tpu_torch.models import autopilot as ap
+    stats = {}
+    torch.cuda.synchronize()
+    ap.reset_host_reads()
+    t0 = time.perf_counter()
+    y, losses = tsne_embed(x_np, cfg, seed=0, stats=stats, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reads = ap.host_reads()
+    pol = stats.get("policy", {})
+    refreshes = sum(int(p[0][2]) for p in stats.get("pilots", {}).values())
+    print(f"[pilot] {tag}: {wall:.3f} s end to end (optimize "
+          f"{stats['optimize']:.4f} s), layout {stats['layout']}, landmark "
+          f"{pol.get('landmark')} ({pol.get('n_landmark')} rows, "
+          f"{pol.get('landmark_iters')} + {pol.get('polish_iters')} "
+          f"iterations), repulsion refreshes {refreshes}, host reads "
+          f"{reads}; transitions {json.dumps(pol.get('transitions'))}")
+    check(reads <= ITERATIONS // 10,
+          f"[pilot] {tag}: {reads} host reads > one a report boundary")
+    return y, losses, stats
+
+
+def phase_pilot(xl_np, labels_l, z_latent, rows_stats, large):
+    """The autopilot on the card: the guardrail the JAX package pins (10k
+    blobs, exact, off against on with the landmark schedule), the latent
+    blobs as [rows] ran them, and [large]'s P and init through optimize
+    (the FFT stride and grid ladder)."""
+    import torch
+    from tsne_flink_tpu_torch import TsneConfig, tsne_embed
+    from tsne_flink_tpu_torch.models import autopilot as ap
+    from tsne_flink_tpu_torch.models.tsne import (init_working_set,
+                                                  optimize)
+
+    x10, _ = make_data(n=N_GUARDRAIL)
+    cfg = TsneConfig(perplexity=PERPLEXITY, iterations=ITERATIONS)
+    stats = {}
+    t0 = time.perf_counter()
+    _, loss_off = tsne_embed(x10, cfg, neighbors=K, seed=0, stats=stats)
+    torch.cuda.synchronize()
+    t_off = time.perf_counter() - t0
+    _, loss_on, st_on = pilot_run(
+        f"guardrail {N_GUARDRAIL} blobs, landmark on", x10,
+        dataclasses.replace(cfg, autopilot=True), neighbors=K, landmark="on")
+    gap = float(loss_on[-1]) - float(loss_off[-1])
+    print(f"[pilot] guardrail: final KL autopilot {float(loss_on[-1]):.6f} "
+          f"vs off {float(loss_off[-1]):.6f}: gap {gap:+.6f} (bar "
+          f"{ap.KL_GUARDRAIL_TOL}); optimize {st_on['optimize']:.4f} s vs "
+          f"{stats['optimize']:.4f} s off ({t_off:.3f} s end to end off)")
+    check(abs(gap) <= ap.KL_GUARDRAIL_TOL,
+          f"[pilot] guardrail: |KL gap| {abs(gap)} > {ap.KL_GUARDRAIL_TOL}")
+
+    # [rows]'s latent blobs: auto engages the landmark schedule there
+    # (rows layout, N >= 20k).  It loses neighbourhoods on these data (the
+    # JAX package's schedule, ported as it is: 10-NN label agreement
+    # ~0.82 against [rows]'s ~0.94, with the autopilot on or off;
+    # scripts/landmark_quality_cuda.py), so its quality is reported; the
+    # autopilot's stride alone (landmark off) is held to [rows]'s label
+    # check
+    y_rows, kl_rows, t_rows = rows_stats
+    agree_z = label_agreement(torch.from_numpy(z_latent).cuda(), labels_l)
+    y, losses, st = pilot_run("latent blobs (as [rows]), landmark auto",
+                              xl_np, dataclasses.replace(cfg,
+                                                         autopilot=True))
+    check(st["policy"]["landmark"], "[pilot] the landmark schedule did not "
+          "engage on the latent blobs")
+    kl = float(losses[-1])
+    check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(
+        losses).all()), "[pilot] landmark run: non-finite y or loss")
+    print(f"[pilot] latent blobs, landmark auto: optimize "
+          f"{st['optimize']:.4f} s vs [rows]'s {t_rows:.4f} s; final KL "
+          f"{kl:.6f} vs [rows]'s {kl_rows:.6f}: gap {kl - kl_rows:+.6f}; "
+          f"10-NN label agreement {label_agreement(y, labels_l):.4f} "
+          f"(reported; [rows]'s bar {agree_z - 0.05:.4f})")
+    y, losses, st = pilot_run("latent blobs (as [rows]), landmark off",
+                              xl_np, dataclasses.replace(cfg,
+                                                         autopilot=True),
+                              landmark="off")
+    kl = quality("pilot", y, losses, labels_l, cfg, agree_z - 0.05)
+    print(f"[pilot] latent blobs, landmark off: optimize "
+          f"{st['optimize']:.4f} s vs [rows]'s {t_rows:.4f} s; final KL "
+          f"{kl:.6f} vs [rows]'s {kl_rows:.6f}: gap {kl - kl_rows:+.6f}")
+
+    # [large]'s P and init: the FFT stride and grid ladder (blocks layout,
+    # so no landmark schedule)
+    y_l, kl_l, t_l, jidx, jval, rev, cfg_l = large
+    n = y_l.shape[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    state = init_working_set(gen, n, 2, torch.float32, "cuda")
+    cfg_ap = dataclasses.replace(cfg_l, autopilot=True)
+    torch.cuda.synchronize()
+    ap.reset_host_reads()
+    t0 = time.perf_counter()
+    st_l, loss_l, pilot = optimize(state, jidx, jval, cfg_ap, edges=rev,
+                                   edges_extra=True)
+    torch.cuda.synchronize()
+    t_ap = time.perf_counter() - t0
+    reads = ap.host_reads()
+    pol = ap.policy_report(cfg_ap, pilot)
+    gap = float(loss_l[-1]) - kl_l
+    print(f"[pilot] [large]'s P and init, FFT + autopilot: optimize "
+          f"{t_ap:.4f} s vs [large]'s {t_l:.4f} s; repulsion refreshes "
+          f"{pol['repulsion_refreshes']} of {ITERATIONS}, grid ladder "
+          f"{pol['grid_ladder']}, host reads {reads}; final KL "
+          f"{float(loss_l[-1]):.6f} vs [large]'s {kl_l:.6f}: gap "
+          f"{gap:+.6f} (reported, not gated); transitions "
+          f"{json.dumps(pol['transitions'])}")
+    check(bool(torch.isfinite(st_l.y).all()), "[pilot] large: non-finite y")
+    check(reads <= ITERATIONS // 10, f"[pilot] large: {reads} host reads")
+
+
+def phase_diverging(x_np):
+    """A run whose learning rate overflows f32 in its first segment: the
+    sentinel rolls back three times, halving eta each time, then raises
+    ``DivergenceError``."""
+    from tsne_flink_tpu_torch import TSNE
+    from tsne_flink_tpu_torch.runtime.health import DivergenceError
+    est = TSNE(perplexity=PERPLEXITY, learning_rate=1e30, health_check=True,
+               random_state=0)
+    raised = False
+    try:
+        est.fit(x_np[:N_DETERMINISM])
+    except DivergenceError as e:
+        raised = True
+        print(f"[diverging] N={N_DETERMINISM} learning rate 1e30: "
+              f"DivergenceError: {e}")
+    events = est.runtime_events_ or []
+    for ev in events:
+        print(f"[diverging] event {json.dumps(ev)}")
+    etas = [ev["eta_after"] for ev in events]
+    check(raised and len(events) == 3
+          and etas == [5e29, 2.5e29, 1.25e29]
+          and all(ev["segment_start"] == 0 for ev in events),
+          f"[diverging] raised {raised}, events {events}")
 
 
 def main() -> int:
@@ -2110,10 +2508,11 @@ def main() -> int:
         rows_run = phase_rows(xl_np, labels_l, z_latent, rows, errs)
         phase_blocks(x_np, labels, blocks, csr_kl)
         project = phase_project(x_np, labels, b1_ms, b6_shapes)
-        phase_cli(x_np, xl_np, full, rows_run, project)
+        y_bh = phase_bh(x_np, labels, y_60k, z_latent, project)
+        phase_cli(x_np, xl_np, full, rows_run[:2], project, y_bh)
         (times, bnd, _), = [v for key, v in b6_shapes.items()
                             if key[0] == "cells"]
-        counts, pass_t, pass_b, (e5, e4) = phase_large(
+        counts, pass_t, pass_b, (e5, e4), large = phase_large(
             xc_np, labels_c, z_cells, y_60k, b2_ms, times[0])
         errs["B5"], errs["B4"] = max(errs["B5"], e5), max(errs["B4"], e4)
         for kid in ("B4", "B5"):
@@ -2122,6 +2521,11 @@ def main() -> int:
                                          pass_b[kid]))
         kernels.append(kernel_record("B6", *KERNEL_META["B6"], counts["B6"],
                                      errs["B6"], times, bnd))
+        phase_bh_large(large[0])
+        phase_pilot(xl_np, labels_l, z_latent, (rows_run[0], rows_run[2],
+                                                rows_run[3]), large)
+        del large
+        phase_diverging(x_np)
         phase_determinism(x_np, xl_np)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)

@@ -1,5 +1,5 @@
-"""The two crossovers the batch job's auto policies rest on, measured on
-the card:
+"""The crossovers the batch job's auto policies rest on, measured on the
+card:
 
 1. ``--repulsion auto`` (``utils/cli.EXACT_N_MAX["cuda"]``): one full
    iteration of ``optimize`` with exact repulsion (kernel B2) and with FFT
@@ -20,10 +20,18 @@ the card:
    host-clock call ending in a synchronize, in turns (exact, hybrid,
    hybrid, exact), beside the cost model's predictions from
    ``KNN_EXACT_EFF``/``KNN_HYBRID_EFF["cuda"]`` and the hybrid's recall.
+3. The 3-D route (``utils/cli.EXACT_3D_N_MAX["cuda"]``): one full
+   iteration at m = 3 with exact repulsion (B2) and with Barnes-Hut at
+   θ = 0.25 (the defaulted θ a 3-D run gets), at N = 150,000, 300,000 and
+   600,000, timed as in 1 with R3 iterations (exact, bh, bh, exact); the
+   state is a spread 3-D layout (``embedding_like`` with a third axis).
+   B2 grows as N² and BH as N, so the crossover is where the fitted
+   a·N² and b·N (each fitted at the largest N) meet.
 
 Run from the repository root on a machine with an sm_90a card and nvcc:
 
-    python scripts/exact_fft_crossover_cuda.py [--skip-knn]
+    python scripts/exact_fft_crossover_cuda.py [--skip-2d] [--skip-knn]
+        [--skip-3d]
 
 The card's name and power limit head the output.
 """
@@ -41,10 +49,12 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 SIZES = (80_000, 100_000, 120_000, 140_000)
 R = 40
 N_KNN, K_KNN = 800_000, 90
+SIZES_3D = (150_000, 300_000, 600_000)
+R3 = 4
 
 
-def iteration_ms(state, jidx, jval, cfg, edges, csr):
-    """ms of one iteration: (2R iterations − R iterations) / R."""
+def iteration_ms(state, jidx, jval, cfg, edges, csr, r=R):
+    """ms of one iteration: (2r iterations − r iterations) / r."""
     from tsne_flink_tpu_torch.models.tsne import optimize
 
     def run(num):
@@ -58,7 +68,7 @@ def iteration_ms(state, jidx, jval, cfg, edges, csr):
         return a.elapsed_time(b)
 
     run(2)  # warm-up
-    return (run(2 * R) - run(R)) / R
+    return (run(2 * r) - run(r)) / r
 
 
 def repulsion_crossover():
@@ -109,6 +119,55 @@ def repulsion_crossover():
               f"= {int(cross) // 1000 * 1000}")
 
 
+def bh_3d_crossover():
+    import chip_smoke as cs
+    from dataclasses import replace
+
+    from tsne_flink_tpu_torch import TsneConfig
+    from tsne_flink_tpu_torch.models.tsne import TsneState, _plan_layout
+    from tsne_flink_tpu_torch.ops.repulsion_bh import (default_frontier,
+                                                       default_levels)
+    from tsne_flink_tpu_torch.utils.artifacts import prepare
+
+    xc, _, _ = cs.make_cells(n=max(SIZES_3D), d=cs.F_CELLS)
+    rows = []
+    for n in SIZES_3D:
+        x = torch.from_numpy(xc[:n]).cuda()
+        prep = prepare(x, neighbors=cs.K, knn_method="project", seed=0,
+                       perplexity=cs.PERPLEXITY)
+        cfg = TsneConfig(perplexity=cs.PERPLEXITY, n_components=3,
+                         theta=0.25)
+        edges, csr = _plan_layout(prep.jidx, prep.jval, cfg)
+        y2 = cs.embedding_like(n, seed=1)
+        z = cs.embedding_like(n, seed=2)[:, :1]
+        y = torch.cat([y2, z], dim=1).contiguous()
+        state = TsneState(y=y, update=torch.zeros_like(y),
+                          gains=torch.ones_like(y))
+        t = {"exact": [], "bh": []}
+        torch.cuda.reset_peak_memory_stats()
+        for rep in ("exact", "bh", "bh", "exact"):
+            t[rep].append(iteration_ms(state, prep.jidx, prep.jval,
+                                       replace(cfg, repulsion=rep), edges,
+                                       csr, r=R3))
+        e, b = statistics.median(t["exact"]), statistics.median(t["bh"])
+        print(f"[3d] N={n} m=3: one iteration exact {e:.4f} ms "
+              f"({', '.join(f'{v:.4f}' for v in t['exact'])}), bh "
+              f"theta=0.25 (levels {default_levels(n, 3)}, frontier "
+              f"{default_frontier(n, 3, None, 0.25)}) {b:.4f} ms "
+              f"({', '.join(f'{v:.4f}' for v in t['bh'])}); peak "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        rows.append((n, e, b))
+        del prep, edges, csr, state, x, y
+        torch.cuda.empty_cache()
+    n, e, b = rows[-1]
+    a, c = e / n ** 2, b / n
+    cross = c / a
+    faster = [f"{n0}: {'exact' if e0 < b0 else 'bh'}" for n0, e0, b0 in rows]
+    print(f"[3d] faster: {', '.join(faster)}; exact a·N² and bh b·N meet at "
+          f"N ~ {cross:.0f}; EXACT_3D_N_MAX['cuda'] = "
+          f"{int(cross) // 1000 * 1000}")
+
+
 def knn_crossover():
     import chip_smoke as cs
 
@@ -154,8 +213,12 @@ def knn_crossover():
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--skip-2d", action="store_true",
+                    help="skip the 2-D exact/FFT crossover")
     ap.add_argument("--skip-knn", action="store_true",
-                    help="time the repulsion crossover only")
+                    help="skip the exact/hybrid kNN crossover")
+    ap.add_argument("--skip-3d", action="store_true",
+                    help="skip the 3-D exact/Barnes-Hut crossover")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("exact_fft_crossover_cuda: no CUDA device", file=sys.stderr)
@@ -164,9 +227,12 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip())
-    repulsion_crossover()
+    if not args.skip_2d:
+        repulsion_crossover()
     if not args.skip_knn:
         knn_crossover()
+    if not args.skip_3d:
+        bh_3d_crossover()
     return 0
 
 

@@ -100,8 +100,7 @@ class _Untouchable:
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"health_check": True}, "A10"), ({"telemetry": True}, "A10"),
-    ({"autopilot": True}, "A10"), ({"spmd": True}, "A14"),
+    ({"spmd": True}, "A14"),
     ({"devices": 2}, "A14"), ({"mesh": 1}, "A14"),
     ({"sym_mode": "alltoall"}, "A14"), ({"sym_slack": 4}, "A14"),
     ({"sym_strict": True}, "A14"), ({"mesh_reduce": "psum"}, "A14"),
@@ -112,10 +111,22 @@ def test_unported_kwargs_refused_before_the_input(kw, item):
 
 
 def test_auto_bh_and_transform_refused(monkeypatch):
+    """An explicit theta past EXACT_N_MAX runs Barnes-Hut (A12 is
+    ported); the out-of-sample transform is still refused (A13)."""
+    from tsne_flink_tpu_torch.ops import repulsion_bh
     from tsne_flink_tpu_torch.utils import cli
     monkeypatch.setattr(cli, "EXACT_N_MAX", {"cpu": 10})
-    with pytest.raises(NotImplementedError, match="A12"):
-        TSNE(theta=0.5, device="cpu").fit(_blobs(20))
+    calls = []
+    real = repulsion_bh.bh_repulsion
+
+    def counted(*a, **k):
+        calls.append(k["theta"])
+        return real(*a, **k)
+
+    monkeypatch.setattr(repulsion_bh, "bh_repulsion", counted)
+    est = TSNE(theta=0.5, n_iter=20, perplexity=5.0, device="cpu")
+    est.fit(_blobs(40))
+    assert calls == [0.5] * 20 and np.isfinite(est.embedding_).all()
     est = TSNE(device="cpu")
     for call in (lambda: est.transform(_blobs(5)), est.frozen_model):
         with pytest.raises(NotImplementedError, match="A13"):

@@ -6,8 +6,8 @@
   (mode, theta, explicit, n, m);
 * every flag of a part not ported yet raises ``NotImplementedError``
   naming its ROADMAP queue item before the input is read (the input path
-  does not exist); ``auto`` resolving to Barnes-Hut is refused once N is
-  known, before any kNN work;
+  does not exist); ``auto`` with an explicit --theta past EXACT_N_MAX runs
+  Barnes-Hut;
 * on a 600-point COO file (bruteforce, project, and the kNN graph as
   ``--inputDistanceMatrix``) the port's final KL is within
   ``KL_GUARDRAIL_TOL`` = 0.05 of the JAX CLI's program's
@@ -106,14 +106,18 @@ def test_pick_repulsion_cuda():
     assert tcli.pick_repulsion("auto", 0.25, top, 2) == "exact"
     assert tcli.pick_repulsion("auto", 0.25, top + 1, 2) == "fft"
     assert tcli.pick_repulsion("auto", 0.5, top + 1, 2, True) == "bh"
-    assert tcli.pick_repulsion("auto", 0.25, top + 1, 3) == "bh"
+    # m = 3: a defaulted theta stays exact up to the card's measured
+    # exact/Barnes-Hut crossover; an explicit theta takes Barnes-Hut
+    top3 = tcli.EXACT_3D_N_MAX["cuda"]
+    assert tcli.pick_repulsion("auto", 0.25, top + 1, 3) == "exact"
+    assert tcli.pick_repulsion("auto", 0.25, top3, 3) == "exact"
+    assert tcli.pick_repulsion("auto", 0.25, top3 + 1, 3) == "bh"
+    assert tcli.pick_repulsion("auto", 0.25, top + 1, 3, True) == "bh"
     assert tcli.pick_repulsion("auto", 0.0, 10 * top, 2, True) == "exact"
     assert tcli.pick_repulsion("auto", 0.25, 10 * top, 5) == "exact"
 
 
 REFUSED = [
-    (["--repulsion", "bh"], "A12"), (["--autopilot"], "A10"),
-    (["--healthCheck"], "A10"), (["--telemetry"], "A10"),
     (["--transform", "q.csv", "--model", "m.npz"], "A13"),
     (["--model", "m.npz"], "A13"), (["--mesh", "1"], "A14"),
     (["--devices", "1"], "A14"), (["--spmd"], "A14"),
@@ -155,15 +159,22 @@ def test_accepted_runtime_flags_change_nothing(files, tmp_path):
 
 
 def test_auto_bh_refused_before_knn(files, tmp_path, monkeypatch):
-    def boom(*a, **k):
-        raise AssertionError("the kNN stage ran")
-
-    from tsne_flink_tpu_torch.utils import artifacts
-    monkeypatch.setattr(artifacts, "prepare", boom)
+    """``auto`` with an explicit --theta past EXACT_N_MAX runs Barnes-Hut
+    at that theta (A12 is ported; nothing is refused any more)."""
+    from tsne_flink_tpu_torch.ops import repulsion_bh
     monkeypatch.setattr(tcli, "EXACT_N_MAX", {"cpu": 100})
-    with pytest.raises(NotImplementedError, match="A12"):
-        tcli.main(_argv(files, tmp_path / "o.csv", "bruteforce")
-                  + ["--theta", "0.5"], device="cpu")
+    thetas = []
+    real = repulsion_bh.bh_repulsion
+
+    def counted(*a, **k):
+        thetas.append(k["theta"])
+        return real(*a, **k)
+
+    monkeypatch.setattr(repulsion_bh, "bh_repulsion", counted)
+    out = tmp_path / "o.csv"
+    tcli.main(_argv(files, out, "bruteforce", iterations=10)
+              + ["--theta", "0.5"], device="cpu")
+    assert thetas == [0.5] * 10 and out.exists()
 
 
 def _argv(files, out, method, iterations=300, source="coo"):

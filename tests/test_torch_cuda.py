@@ -25,7 +25,11 @@ stages; rows with fewer candidates than a stage keeps), the kNN methods
 launching B1 and B6 on CUDA tensors, FFT repulsion on the card, the
 wrappers refusing what the kernels do not take, launch counting, and the
 batch job on the card: a checkpoint round trip, a fat-checkpoint resume
-through the CLI with no kNN launch, and a warm artifact cache.
+through the CLI with no kNN launch, and a warm artifact cache; and the
+approximation policies: Barnes-Hut on CUDA tensors (bit for bit across
+calls, ties included; within the error bars), a stride launching B2
+only at its refreshes, the autopilot reading the host once a report
+boundary, the sentinel's flag and telemetry on the card.
 """
 
 import numpy as np
@@ -920,3 +924,83 @@ def test_cache_warm_hit_on_the_card(dev, tmp_path):
     (y0, l0, c0), (y1, l1, c1) = runs
     assert c0["B6"] > 0 and c1["B6"] == 0 and c1["B1"] == 0
     assert torch.equal(y0, y1) and torch.equal(l0, l1)
+
+
+def test_bh_repulsion_on_the_card(dev):
+    """Barnes-Hut on CUDA tensors: two calls bit for bit (the sorted
+    segment-sum tree, the stable frontier), on the card's device, within
+    the vdm bars of the exact sum, and close to an f64 CPU run (the same
+    frontier decisions but for f32 rounding at a gate's edge)."""
+    from tsne_flink_tpu_torch.ops.repulsion_bh import bh_repulsion
+    rng = np.random.default_rng(8)
+    centers = rng.standard_normal((10, 2)) * 30.0
+    y = centers[rng.integers(0, 10, 20_000)] + rng.standard_normal((20_000,
+                                                                   2))
+    yc = torch.from_numpy(y.astype(np.float32)).to(dev)
+    r1, z1 = bh_repulsion(yc, theta=0.5)
+    r2, z2 = bh_repulsion(yc, theta=0.5)
+    assert r1.is_cuda and z1.is_cuda
+    assert torch.equal(r1, r2) and torch.equal(z1, z2)
+    re, ze = cuda_exact_repulsion(yc)
+    den = float(torch.linalg.norm(re, dim=1).max())
+    assert float(torch.linalg.norm(r1 - re, dim=1).max()) / den < 3e-2
+    assert abs(float(z1 - ze)) / float(ze) < 1e-2
+    rc, zc = bh_repulsion(yc.double().cpu(), theta=0.5)
+    assert abs(float(z1) - float(zc)) <= 1e-3 * float(zc)
+    # a lattice: ties everywhere under frontier overflow, still one answer
+    g = np.stack(np.meshgrid(np.arange(64.0), np.arange(64.0)), -1)
+    lat = torch.from_numpy(g.reshape(-1, 2).astype(np.float32)).to(dev)
+    a = bh_repulsion(lat, theta=0.5, frontier=8)
+    b = bh_repulsion(lat, theta=0.5, frontier=8)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    # m = 3, shard + mask
+    y3 = torch.from_numpy(rng.standard_normal((3000, 3)).astype(np.float32)
+                          ).to(dev) * 5.0
+    valid = torch.arange(3000, device=dev) < 2990
+    r3, z3 = bh_repulsion(y3[100:400], y3, theta=0.25, levels=7,
+                          row_offset=100, col_valid=valid, row_z=True)
+    e3, f3 = cuda_exact_repulsion(y3[100:400], y3, row_offset=100,
+                                  col_valid=valid, row_z=True)
+    assert z3.shape == (300,)
+    den = float(torch.linalg.norm(e3, dim=1).max())
+    assert float(torch.linalg.norm(r3 - e3, dim=1).max()) / den < 3e-2
+
+
+def test_policies_on_the_card(dev):
+    """The stride, the autopilot and the sentinel on CUDA tensors: the
+    controller's level is read once a report boundary, the sentinel's flag
+    and the telemetry trace stay on the card, a stride launches B2 only at
+    its refreshes, and two autopilot runs give the same bits."""
+    from dataclasses import replace
+
+    from tsne_flink_tpu_torch import TsneConfig
+    from tsne_flink_tpu_torch.kernels.build import launches
+    from tsne_flink_tpu_torch.models import autopilot as ap
+    from tsne_flink_tpu_torch.models.tsne import (_plan_layout,
+                                                  init_working_set, optimize)
+    from tsne_flink_tpu_torch.utils.artifacts import prepare
+    rng = np.random.default_rng(9)
+    x = (rng.standard_normal((4000, 16)) + 5.0 * rng.integers(0, 5, (4000, 1))
+         ).astype(np.float32)
+    cfg = TsneConfig(perplexity=10.0, iterations=100)
+    prep = prepare(torch.from_numpy(x).to(dev), neighbors=30,
+                   perplexity=10.0, device=dev)
+    edges, csr = _plan_layout(prep.jidx, prep.jval, cfg)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    st = init_working_set(gen, 4000, 2, torch.float32, dev)
+    reset_launches()
+    optimize(st, prep.jidx, prep.jval, replace(cfg, repulsion_stride=4),
+             edges=edges, csr=csr)
+    assert launches()["B2"] == 25
+    runs = []
+    for _ in range(2):
+        ap.reset_host_reads()
+        out = optimize(st, prep.jidx, prep.jval, replace(cfg, autopilot=True),
+                       edges=edges, csr=csr, with_health=True,
+                       with_telemetry=True)
+        assert ap.host_reads() == 9
+        runs.append(out)
+    (s0, l0, t0, p0, ok0), (s1, l1, t1, p1, ok1) = runs
+    assert ok0.is_cuda and t0.is_cuda and p0[0].is_cuda and bool(ok0)
+    assert torch.equal(s0.y, s1.y) and torch.equal(p0[1], p1[1])
+    assert torch.isfinite(t0).all()

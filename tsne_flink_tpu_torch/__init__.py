@@ -12,10 +12,13 @@ Ported so far: the single-device ``tsne_embed`` main path — kNN (exact,
 or the hybrid Z-order + refine plan) -> perplexity-calibrated affinities
 (sorted, split or blocks assembly) -> the attraction layout
 (capped-width CSR, padded rows, flat edge list or blocks) -> the optimize
-loop with exact or FFT repulsion, fused (CSR) or unfused — and the batch
-job around it: the :class:`TSNE` estimator and the command line
-(``python -m tsne_flink_tpu_torch.utils.cli``, the ``tsne-torch``
-script) with CSV ingest, checkpoints and the prepare-artifact cache.
+loop with exact, FFT or Barnes-Hut repulsion, fused (CSR) or unfused,
+with the JAX package's approximation policies (the repulsion stride, the
+autopilot, the landmark schedule) and loop extras (the divergence
+sentinel, telemetry) — and the batch job around it: the :class:`TSNE`
+estimator and the command line (``python -m
+tsne_flink_tpu_torch.utils.cli``, the ``tsne-torch`` script) with CSV
+ingest, checkpoints and the prepare-artifact cache.
 """
 
 from tsne_flink_tpu_torch.models.api import TSNE

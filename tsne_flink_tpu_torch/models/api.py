@@ -4,10 +4,16 @@
 The in-process twin of the CLI: the JAX estimator's keyword arguments and
 defaults, plus ``device`` (None: the card).  ``fit`` runs the port's
 ``tsne_embed`` and sets ``embedding_``, ``kl_trace_`` (the KL at every
-10th iteration) and ``kl_divergence_`` (the last of them).  Arguments of
-parts not ported yet raise ``NotImplementedError`` naming their ROADMAP
-queue item when ``fit`` starts, before the input is touched; out-of-sample
-``transform`` is queue A13.
+10th iteration) and ``kl_divergence_`` (the last of them).  With
+``health_check``, ``telemetry`` or ``autopilot`` it takes the segmented
+path instead (``runtime/segments.segmented_embed``, as the JAX estimator
+takes its supervised one) and also sets ``runtime_events_`` (the
+sentinel's rollbacks), ``metrics_["telemetry"]`` and
+``metrics_["policy"]`` (the rest of the JAX ``metrics_`` is the obs
+snapshot of ROADMAP queue A15).  Arguments of parts not ported yet raise
+``NotImplementedError`` naming their ROADMAP queue item when ``fit``
+starts, before the input is touched; out-of-sample ``transform`` is
+queue A13.
 """
 
 from __future__ import annotations
@@ -111,12 +117,11 @@ class TSNE:
         self.embedding_ = None
         self.kl_divergence_ = None
         self.kl_trace_ = None
+        self.runtime_events_ = None
+        self.metrics_ = {}
 
     def _refuse_unported(self, device: torch.device) -> None:
         unported = (
-            ("health_check", self.health_check, "A10"),
-            ("telemetry", self.telemetry, "A10"),
-            ("autopilot", self.autopilot, "A10"),
             ("spmd", self.spmd, "A14"),
             ("devices", self.devices is not None, "A14"),
             ("mesh", self.mesh is not None, "A14"),
@@ -142,10 +147,6 @@ class TSNE:
         repulsion = pick_repulsion(self.repulsion, self.theta, n,
                                    self.n_components, self.theta_explicit_,
                                    backend=backend)
-        if repulsion == "bh":
-            raise NotImplementedError(
-                f"repulsion '{self.repulsion}' resolves to bh at N = {n}; "
-                "Barnes-Hut is not ported yet (ROADMAP queue A12)")
         return TsneConfig(
             n_components=self.n_components, perplexity=self.perplexity,
             early_exaggeration=self.early_exaggeration,
@@ -153,7 +154,8 @@ class TSNE:
             initial_momentum=self.initial_momentum,
             final_momentum=self.final_momentum, theta=self.theta,
             metric=self.metric, repulsion=repulsion,
-            attraction=self.attraction, bh_gate=self.bh_gate)
+            attraction=self.attraction, bh_gate=self.bh_gate,
+            autopilot=self.autopilot)
 
     def fit(self, x, y=None) -> "TSNE":
         from tsne_flink_tpu_torch.utils.artifacts import ArtifactCache
@@ -167,8 +169,8 @@ class TSNE:
                  [self.dtype] if self.dtype is not None
                  else torch.float32 if device.type == "cuda" else None)
         x = torch.as_tensor(x, dtype=dtype, device=device)
-        y_emb, losses = tsne_embed(
-            x, cfg, neighbors=self.neighbors, knn_method=self.knn_method,
+        embed_kwargs = dict(
+            neighbors=self.neighbors, knn_method=self.knn_method,
             knn_blocks=(self.knn_blocks if self.knn_blocks is not None
                         else _device_count(device)),
             knn_iterations=self.knn_iterations, knn_refine=self.knn_refine,
@@ -177,6 +179,26 @@ class TSNE:
             affinity_assembly=self.affinity_assembly, device=device,
             artifact_cache=(ArtifactCache(self.cache_dir)
                             if self.cache_dir is not None else None))
+        self.metrics_ = {}
+        if self.health_check or self.telemetry or self.autopilot:
+            from tsne_flink_tpu_torch.runtime.segments import segmented_embed
+            self.runtime_events_ = []
+            run = segmented_embed(x, cfg, health_check=self.health_check,
+                                  telemetry=self.telemetry,
+                                  events=self.runtime_events_,
+                                  **embed_kwargs)
+            y_emb, losses = run.state.y, run.losses
+            if run.telemetry is not None:
+                from tsne_flink_tpu_torch.models.tsne import TELEMETRY_FIELDS
+                self.metrics_["telemetry"] = {
+                    "fields": list(TELEMETRY_FIELDS),
+                    "trace": run.telemetry.cpu().numpy().tolist()}
+            if self.autopilot:
+                from tsne_flink_tpu_torch.models.autopilot import \
+                    policy_report
+                self.metrics_["policy"] = policy_report(run.cfg, run.pilot)
+        else:
+            y_emb, losses = tsne_embed(x, cfg, **embed_kwargs)
         self.embedding_ = y_emb.cpu().numpy()
         self.kl_trace_ = losses.cpu().numpy()
         self.kl_divergence_ = (float(self.kl_trace_[-1])

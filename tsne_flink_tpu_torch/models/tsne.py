@@ -24,10 +24,18 @@ number alone, and Z reaches the kernels as a device tensor.
 ``tsne_embed`` takes every kNN method of ``ops/knn`` (the hybrid
 ``project`` plan with its own ``torch.Generator``).
 
-Not ported yet, and raising ``NotImplementedError`` with their ROADMAP
-queue item: BH repulsion (A12), the repulsion stride,
-autopilot, health sentinel, telemetry and landmark schedule (A10), and
-mesh sharding (A14).
+The approximation policies and loop extras of the JAX ``optimize``:
+Barnes-Hut repulsion (``ops/repulsion_bh``); the repulsion stride,
+(rep, Z) refreshed every stride-th iteration and carried between; the
+autopilot (``models/autopilot``: a stride driven by the grad-norm trend,
+read on the host once a report boundary, and a coarse FFT grid during
+early exaggeration); the divergence sentinel's finiteness flag and the
+telemetry trace, both device tensors read once a segment
+(``runtime/segments``); and the landmark schedule
+(:func:`landmark_optimize`).
+
+Not ported yet, and raising ``NotImplementedError`` with its ROADMAP
+queue item: mesh sharding (A14).
 """
 
 from __future__ import annotations
@@ -43,6 +51,10 @@ from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
 from tsne_flink_tpu_torch.utils.device import resolve_device, timed_stage
 
 LOSS_EVERY = 10  # TsneHelpers.scala:297
+#: columns of the telemetry trace (``optimize(with_telemetry=True)``):
+#: one row a KL report slot
+TELEMETRY_FIELDS = ("grad_norm", "gains_mean", "gains_max", "y_min",
+                    "y_max")
 
 
 @dataclass(frozen=True)
@@ -59,7 +71,7 @@ class TsneConfig:
     theta: float = 0.25
     metric: str = "sqeuclidean"
     min_gain: float = 0.01
-    repulsion: str = "exact"  # exact | fft (ported) | bh
+    repulsion: str = "exact"  # exact | bh | fft
     exact_impl: str = "auto"  # the JAX package's kernel choice; the port
     # always runs kernel B2 on CUDA tensors and its plain version on CPU
     attraction: str = "auto"  # auto | rows | edges | csr
@@ -130,21 +142,35 @@ def _repulsion_scratch(cfg: TsneConfig, m: int, dtype, device):
     return None
 
 
+def _pilot_scratch(cfg: TsneConfig, m: int, dtype, device):
+    """The autopilot's FFT geometry ladder, built once per run: one
+    ``fft_geometry`` per grid of ``models/autopilot.grid_ladder``; () off
+    the FFT path."""
+    from tsne_flink_tpu_torch.models.autopilot import grid_ladder
+    from tsne_flink_tpu_torch.ops.repulsion_fft import fft_geometry
+    return tuple(fft_geometry(m, g, dtype, device)
+                 for g in grid_ladder(cfg, m))
+
+
 def _repulsion(y_local, y_full, cfg: TsneConfig, row_offset=0,
                valid_full=None, rep_scratch=None):
     """(rep [nloc, m], Z) with Z the global partition sum (a 0-d tensor):
-    kernel B2's per-row partials summed in one fixed order, or the FFT
-    backend's spectral Z, global already."""
+    kernel B2's or Barnes-Hut's per-row partials summed in one fixed
+    order, or the FFT backend's spectral Z, global already.  Barnes-Hut
+    sizes its chunks by its own byte budget, not ``cfg.row_chunk``."""
     if cfg.repulsion == "fft":
         from tsne_flink_tpu_torch.ops.repulsion_fft import fft_repulsion
         return fft_repulsion(y_local, y_full, grid=cfg.fft_grid,
                              interp=cfg.fft_interp, row_offset=row_offset,
                              col_valid=valid_full, geom=rep_scratch)
+    if cfg.repulsion == "bh":
+        from tsne_flink_tpu_torch.ops.repulsion_bh import bh_repulsion
+        return bh_repulsion(y_local, y_full, theta=cfg.theta,
+                            levels=cfg.bh_levels, frontier=cfg.bh_frontier,
+                            gate=cfg.bh_gate, row_offset=row_offset,
+                            col_valid=valid_full)
     if cfg.repulsion != "exact":
-        if cfg.repulsion != "bh":
-            raise ValueError(f"unknown repulsion backend '{cfg.repulsion}'")
-        raise NotImplementedError("repulsion='bh' is not ported yet "
-                                  "(ROADMAP queue A12)")
+        raise ValueError(f"unknown repulsion backend '{cfg.repulsion}'")
     rep, zrow = cuda_exact_repulsion(y_local, y_full, row_offset=row_offset,
                                      col_valid=valid_full, row_z=True,
                                      row_chunk=cfg.row_chunk)
@@ -173,20 +199,6 @@ def _attraction_loss(y_local, y_full, fidx, fval, cfg: TsneConfig, exag, z,
     return attraction_loss(y_local, y_full, fidx, fval, exag, z,
                            ragged=ragged,
                            row_chunk=cfg.row_chunk).to(y_local.dtype)
-
-
-def _gradient(y_local, fidx, fval, cfg: TsneConfig, exag, valid_full=None,
-              ragged=None, want_loss=True, rep_scratch=None):
-    """``(grad, loss)``: grad_i = F_attr_i − F_rep_i / Z
-    (TsneHelpers.scala:311-317), and the KL as a 0-d tensor when
-    ``want_loss``, else None (the KL pass does not run)."""
-    rep, z = _repulsion(y_local, y_local, cfg, valid_full=valid_full,
-                        rep_scratch=rep_scratch)
-    att = _attraction_forces(y_local, y_local, fidx, fval, cfg, exag, ragged)
-    loss = (torch.sum(_attraction_loss(y_local, y_local, fidx, fval, cfg,
-                                       exag, z, ragged))
-            if want_loss else None)
-    return att - rep / z, loss
 
 
 def _layout_parts(jidx, jval, n: int, edges, edges_extra: bool, csr):
@@ -230,15 +242,43 @@ def loss_slot(i: int, n_slots: int) -> int:
     return min((i + 1) // LOSS_EVERY - 1, n_slots - 1)
 
 
+def _telemetry_row(st: TsneState, grad, valid=None, gsq=None):
+    """One :data:`TELEMETRY_FIELDS` row from the post-update state: the
+    global grad L2 norm, the gains' mean and max, the embedding's min and
+    max, padded rows masked out.  ``grad`` is masked already; the fused
+    step passes its per-row ‖grad‖² as ``gsq`` instead (``grad`` None)."""
+    dt = st.y.dtype
+    if valid is None:
+        gcnt = torch.tensor(float(st.gains.numel()), dtype=dt,
+                            device=st.y.device)
+        gmax = torch.max(st.gains)
+        ymin, ymax = torch.min(st.y), torch.max(st.y)
+        gains_m = st.gains
+    else:
+        vm = valid[:, None]
+        w = valid.to(dt)
+        gcnt = torch.sum(w) * st.gains.shape[1]
+        gmax = torch.max(torch.where(vm, st.gains, -torch.inf))
+        ymin = torch.min(torch.where(vm, st.y, torch.inf))
+        ymax = torch.max(torch.where(vm, st.y, -torch.inf))
+        gains_m = st.gains * w[:, None]
+    gn2 = torch.sum(grad * grad) if gsq is None else torch.sum(gsq)
+    gsum = torch.sum(gains_m)
+    return torch.stack([torch.sqrt(gn2), gsum / gcnt, gmax, ymin,
+                        ymax]).to(dt)
+
+
 def optimize(state: TsneState, jidx, jval, cfg: TsneConfig, *,
              valid=None, start_iter: int = 0, num_iters: int | None = None,
              loss_carry=None, edges=None, edges_extra: bool = False,
              csr=None, fused_step=None, axis_name=None,
-             with_health: bool = False, with_telemetry: bool = False):
+             with_health: bool = False, with_telemetry: bool = False,
+             telemetry_carry=None, pilot_carry=None):
     """The 3-phase gradient descent over the armed attraction layout.
 
-    Returns ``(state, losses)``: ``losses[t]`` is the KL at 1-based
-    iteration 10·(t+1), a device tensor never read on the host here.
+    Returns ``(state, losses[, telemetry][, (pvec, trace)][, ok])``, the
+    JAX function's order: ``losses[t]`` is the KL at 1-based iteration
+    10·(t+1), a device tensor never read on the host here.
     ``start_iter``/``num_iters`` run a segment of the schedule (gates and
     slots key off the absolute iteration) and ``loss_carry`` threads the
     trace between segments.
@@ -250,59 +290,146 @@ def optimize(state: TsneState, jidx, jval, cfg: TsneConfig, *,
     forward rows ``(jidx, jval)``; neither = the padded [N, S] rows
     ``(jidx, jval)``.  ``fused_step`` (None means on) runs the CSR layout
     through the fused step, one launch of kernel B3 over head and tail;
-    ``False``, and every other layout, takes the unfused step."""
+    ``False``, and every other layout, takes the unfused step.
+
+    The extras, each off by default (then the loop is the plain one, bit
+    for bit):
+
+    * ``cfg.repulsion_stride`` > 1 refreshes (rep, Z) at the segment
+      start and at every stride-th absolute iteration and carries them
+      between;
+    * ``cfg.autopilot`` drives that stride from the controller
+      (``models/autopilot.pilot_update``), its level read on the host
+      once a report boundary, and on the FFT path selects the coarse grid
+      during early exaggeration (refreshing at the boundary);
+      ``pilot_carry`` resumes its ``(pvec, trace)`` pair, which is
+      returned; the autopilot together with a stride raises
+      ``ValueError``;
+    * ``with_telemetry`` writes a :func:`_telemetry_row` into a
+      ``[n_slots, 5]`` trace at every report iteration
+      (``telemetry_carry`` threads it);
+    * ``with_health`` folds the finiteness of y, the gains and the KL
+      (then computed every iteration) into a 0-d bool tensor."""
     if axis_name is not None:
         raise NotImplementedError("mesh sharding is not ported yet "
                                   "(ROADMAP queue A14)")
-    if (cfg.repulsion_stride != 1 or cfg.autopilot or with_health
-            or with_telemetry):
-        raise NotImplementedError(
-            "repulsion_stride, autopilot, the health sentinel and telemetry "
-            "are not ported yet (ROADMAP queue A10)")
+    stride = max(1, int(cfg.repulsion_stride))
+    ap = bool(cfg.autopilot)
+    if ap and stride > 1:
+        raise ValueError("autopilot supersedes repulsion_stride — arm one "
+                         "approximation policy, not both")
     from tsne_flink_tpu_torch.ops.attraction_cuda import (fused_step_update,
                                                           visit_order)
 
+    y0 = state.y
+    dt, dev, m = y0.dtype, y0.device, y0.shape[1]
     fused = csr is not None and fused_step is not False
-    fidx, fval, ragged = _layout_parts(jidx, jval, state.y.shape[0], edges,
+    fidx, fval, ragged = _layout_parts(jidx, jval, y0.shape[0], edges,
                                        edges_extra, csr)
     # the hubs first: B3's longest warps start with the launch (no bit moves)
     order = visit_order(ragged) if fused else None
-    scratch = _repulsion_scratch(cfg, state.y.shape[1], state.y.dtype,
-                                 state.y.device)
+    geoms = _pilot_scratch(cfg, m, dt, dev) if ap else ()
+    scratch = None if geoms else _repulsion_scratch(cfg, m, dt, dev)
     n_slots = max(cfg.n_loss_slots, 1)
     losses = (loss_carry.clone() if loss_carry is not None
-              else torch.zeros(n_slots, dtype=state.y.dtype,
-                               device=state.y.device))
+              else torch.zeros(n_slots, dtype=dt, device=dev))
+    tel = None
+    if with_telemetry:
+        tel = (torch.as_tensor(telemetry_carry, dtype=dt, device=dev).clone()
+               if telemetry_carry is not None
+               else torch.zeros((n_slots, len(TELEMETRY_FIELDS)), dtype=dt,
+                                device=dev))
+    ok = torch.ones((), dtype=torch.bool, device=dev) if with_health else None
+    if ap:
+        from tsne_flink_tpu_torch.models import autopilot as pilot
+        if pilot_carry is not None:
+            pvec = torch.as_tensor(pilot_carry[0], dtype=dt, device=dev)
+            ptr = torch.as_tensor(pilot_carry[1], dtype=dt, device=dev)
+            level = pilot.read_level(pvec)
+        else:
+            pvec, ptr = (pilot.pilot_init(cfg, dt, dev),
+                         pilot.trace_init(cfg, dt, dev))
+            level = 0
+    carried = ap or stride > 1
+    rep_c = z_c = None
     num = cfg.iterations if num_iters is None else num_iters
+    start, end = start_iter, start_iter + num
     st = state
-    for i in range(start_iter, start_iter + num):
+    for i in range(start, end):
         momentum = (cfg.initial_momentum if i < cfg.momentum_switch
                     else cfg.final_momentum)
         exag = (cfg.early_exaggeration if i < cfg.exaggeration_end else 1.0)
         record = (i + 1) % LOSS_EVERY == 0
+        # the sentinel reads the KL's finiteness every iteration
+        want_loss = with_health or record
+        refresh = True
+        geom = scratch
+        if carried:
+            if ap:
+                refresh = (i == start or i % pilot.stride_of(level) == 0
+                           or (bool(geoms) and i == cfg.exaggeration_end))
+                if geoms:
+                    geom = geoms[pilot.grid_phase(i, cfg)]
+            else:
+                refresh = i == start or i % stride == 0
+        if refresh:
+            rep_c, z_c = _repulsion(st.y, st.y, cfg, valid_full=valid,
+                                    rep_scratch=geom)
+        grad = gsq = loss = None
         if fused:
-            rep, z = _repulsion(st.y, st.y, cfg, valid_full=valid,
-                                rep_scratch=scratch)
-            if record:
-                losses[loss_slot(i, n_slots)] = torch.sum(_attraction_loss(
-                    st.y, st.y, fidx, fval, cfg, exag, z, ragged))
-            y2, u2, g2, _gsq = fused_step_update(
-                st.y, st.y, fidx, fval, exag, rep, z, valid, st.update,
+            if want_loss:
+                loss = torch.sum(_attraction_loss(st.y, st.y, fidx, fval, cfg,
+                                                  exag, z_c, ragged))
+            y2, u2, g2, gsq = fused_step_update(
+                st.y, st.y, fidx, fval, exag, rep_c, z_c, valid, st.update,
                 st.gains, momentum, eta=cfg.learning_rate,
                 min_gain=cfg.min_gain, ragged=ragged, order=order,
                 row_chunk=cfg.row_chunk)
             st = TsneState(y=y2, update=u2, gains=g2)
         else:
-            grad, loss = _gradient(st.y, fidx, fval, cfg, exag,
-                                   valid_full=valid, ragged=ragged,
-                                   want_loss=record, rep_scratch=scratch)
-            if record:
-                losses[loss_slot(i, n_slots)] = loss
+            att = _attraction_forces(st.y, st.y, fidx, fval, cfg, exag,
+                                     ragged)
+            if want_loss:
+                loss = torch.sum(_attraction_loss(st.y, st.y, fidx, fval, cfg,
+                                                  exag, z_c, ragged))
+            grad = att - rep_c / z_c
             if valid is not None:
                 grad = grad * valid[:, None].to(grad.dtype)
             st = _update_embedding(st, grad, momentum, cfg)
         st = _center(st, valid)
-    return st, losses
+        slot = loss_slot(i, n_slots)
+        row = None
+        if record:
+            losses[slot] = loss
+            if with_telemetry:
+                row = _telemetry_row(st, grad, valid, gsq)
+                tel[slot] = row
+        if with_health:
+            ok = (ok & torch.all(torch.isfinite(st.y))
+                  & torch.all(torch.isfinite(st.gains))
+                  & torch.isfinite(loss))
+        if ap:
+            gn = None
+            if record:
+                if row is not None:
+                    gn = row[0]
+                else:
+                    if gsq is None:
+                        gsq = torch.sum(grad * grad, dim=1)
+                    gn = torch.sqrt(torch.sum(gsq))
+            pvec, ptr = pilot.pilot_update(i, gn, pvec, ptr, refresh, slot,
+                                           record, cfg)
+            if record and i + 1 < end:
+                # the level moves only here: one host read a boundary
+                level = pilot.read_level(pvec)
+    res = [st, losses]
+    if with_telemetry:
+        res.append(tel)
+    if ap:
+        res.append((pvec, ptr))
+    if with_health:
+        res.append(ok)
+    return tuple(res)
 
 
 def _plan_layout(jidx, jval, cfg: TsneConfig):
@@ -321,6 +448,86 @@ def _plan_layout(jidx, jval, cfg: TsneConfig):
     return None, None
 
 
+def landmark_optimize(state: TsneState, jidx, jval, cfg: TsneConfig, *,
+                      seed: int = 0, fraction: float = 0.25, layout=None,
+                      pilots: dict | None = None):
+    """The landmark coarse-to-fine schedule, single-device, over one
+    absolute iteration axis (the JAX function's three phases):
+
+    1. landmark descent ``[0, tail_start)`` — the seeded subsample
+       (``models/autopilot.landmark_points``, ``fraction`` of the rows)
+       under its own joint P (``ops/affinities.subsample_affinities``)
+       and its own attraction plan, at the landmark FFT grid;
+    2. placement — every row at the affinity-weighted mean of its
+       landmark neighbours (``serve/transform.interpolation_init`` over
+       ``landmark_placement_rows``), the landmarks at their optimized
+       positions;
+    3. joint polish ``[tail_start, iterations)`` — the full-N optimize as
+       a segment, fresh update and gains, the landmark phase's KL in the
+       early loss slots.
+
+    ``layout`` is the full P's planned ``(edges, csr)`` (None: planned
+    here); ``pilots``, when given, receives the autopilot pair of each
+    phase (``landmark``, ``polish``).  Returns ``(y, losses, info)`` —
+    ``info`` the policy block's landmark dict — or None when the
+    schedule degenerates (too few iterations or points)."""
+    from dataclasses import replace
+
+    from tsne_flink_tpu_torch.models.autopilot import (landmark_fraction,
+                                                       landmark_grid,
+                                                       landmark_points,
+                                                       landmark_schedule)
+    from tsne_flink_tpu_torch.ops.affinities import (landmark_placement_rows,
+                                                     subsample_affinities)
+    from tsne_flink_tpu_torch.serve.transform import interpolation_init
+
+    n = state.y.shape[0]
+    land_iters, polish = landmark_schedule(cfg)
+    if land_iters < LOSS_EVERY or polish <= 0 or n < 16:
+        return None
+    lm = landmark_points(n, seed, fraction)
+    n_land = int(lm.shape[0])
+    if n_land < 8 or n_land >= n:
+        return None
+
+    sub_idx, sub_val = subsample_affinities(jidx, jval, lm)
+    cfg_land = replace(cfg, iterations=land_iters,
+                       fft_grid=landmark_grid(cfg, state.y.shape[1]))
+    edges_l, csr_l = _plan_layout(sub_idx, sub_val, cfg_land)
+    lm_t = torch.as_tensor(lm, device=state.y.device)
+    st_land = TsneState(y=state.y[lm_t], update=state.update[lm_t],
+                        gains=state.gains[lm_t])
+    out1 = optimize(st_land, sub_idx, sub_val, cfg_land, edges=edges_l,
+                    csr=csr_l)
+    y_land = out1[0].y
+
+    ridx, rval = landmark_placement_rows(jidx, jval, lm)
+    y_full = interpolation_init(rval, ridx, y_land)
+    y_full[lm_t] = y_land
+
+    st3 = TsneState(y=y_full, update=torch.zeros_like(y_full),
+                    gains=torch.ones_like(y_full))
+    edges_f, csr_f = (layout if layout is not None
+                      else _plan_layout(jidx, jval, cfg))
+    n_slots = max(cfg.n_loss_slots, 1)
+    loss_carry = torch.zeros(n_slots, dtype=state.y.dtype,
+                             device=state.y.device)
+    n1 = min(land_iters // LOSS_EVERY, n_slots)
+    if n1:
+        loss_carry[:n1] = out1[1][:n1]
+    out3 = optimize(st3, jidx, jval, cfg, edges=edges_f, csr=csr_f,
+                    start_iter=land_iters, num_iters=polish,
+                    loss_carry=loss_carry)
+    if pilots is not None and cfg.autopilot:
+        pilots.update(landmark=out1[2], polish=out3[2])
+    info = {"landmark": True,
+            "landmark_fraction": float(landmark_fraction(fraction)),
+            "n_landmark": n_land, "landmark_iters": land_iters,
+            "polish_iters": polish,
+            "landmark_grid": cfg_land.fft_grid}
+    return out3[0].y, out3[1], info
+
+
 def knn_generator(seed: int, device) -> torch.Generator:
     """The kNN stage's own ``torch.Generator``, separate from the init's:
     seeded from ``seed`` through a numpy ``SeedSequence`` spawn key, so the
@@ -331,47 +538,23 @@ def knn_generator(seed: int, device) -> torch.Generator:
     return gen
 
 
-def tsne_embed(x, cfg: TsneConfig | None = None, *,
-               neighbors: int | None = None, knn_method: str = "bruteforce",
-               knn_iterations: int | None = None,
-               knn_refine: int | None = None, knn_blocks: int = 8,
-               seed: int = 0, sym_width: int | None = None,
-               affinity_assembly: str | None = None, device=None, y0=None,
-               stats: dict | None = None, artifact_cache=None,
-               knn_autotune: bool = False):
-    """Single-device end to end: kNN -> β-calibrated affinities ->
-    symmetrized P -> attraction layout -> init -> optimize.  Returns
-    ``(embedding [N, m], loss trace)`` on ``device`` (default ``cuda``).
+class _Prepared(NamedTuple):
+    prep: object        # utils/artifacts.Prepared
+    state: TsneState    # the init
+    edges: tuple | None
+    csr: tuple | None
+    layout: str         # csr | edges | rows | blocks
+    plan_seconds: float
 
-    ``affinity_assembly``: ``auto`` (None means auto) | ``sorted`` |
-    ``split`` ([N, S] rows) | ``blocks`` (the forward rows + reverse edge
-    list, never the [N, S] rows).  ``auto`` with an explicit ``sym_width``
-    means ``sorted``.  Rows are then laid out by ``cfg.attraction``; the
-    blocks layout is optimized as it is.
 
-    ``knn_method``: bruteforce | partition | project | auto
-    (``ops/knn.knn``); ``knn_iterations`` and ``knn_refine`` are the
-    project plan's Z-order seed rounds and refine cycles (None = the auto
-    policies), ``knn_blocks`` the partition schedule's block count.
-
-    ``seed`` seeds the ``torch.Generator`` of the init (``y0`` replaces
-    the draw) and, through :func:`knn_generator`, the kNN stage's own.
-    ``artifact_cache`` (a ``utils/artifacts.ArtifactCache``) and
-    ``knn_autotune`` go to ``prepare``: a warm cache skips the kNN and
-    affinity stages with the same bits.
-    ``stats``, when given, receives the stage seconds (``knn``,
-    ``affinities``, ``plan``, ``optimize``), each measured to the end of
-    the device's work, the kNN substage seconds (``knn_substages``), and
-    the labels of the resolved ``assembly`` and attraction ``layout``
-    (csr | edges | rows | blocks)."""
-    cfg = cfg or TsneConfig()
-    from tsne_flink_tpu_torch.ops.attraction_cuda import M_MAX
-    if not 1 <= cfg.n_components <= M_MAX:
-        raise ValueError(
-            f"n_components = {cfg.n_components} is outside 1..{M_MAX}: the "
-            f"repulsion and attraction kernels (B2-B5) are built for every "
-            f"embedding width up to the JAX package's MPAD = {M_MAX}")
-    device = resolve_device(device)
+def _prepare_run(x, cfg: TsneConfig, *, neighbors, knn_method,
+                 knn_iterations, knn_refine, knn_blocks, seed, sym_width,
+                 affinity_assembly, device, y0=None, artifact_cache=None,
+                 knn_autotune=False) -> _Prepared:
+    """The stages before optimize, shared by :func:`tsne_embed` and the
+    segmented estimator path (``runtime/segments.segmented_embed``):
+    prepare (kNN, affinities), the init from ``seed`` (or ``y0``), and the
+    attraction layout's plan."""
     x = torch.as_tensor(x, device=device)
     n = x.shape[0]
     k = neighbors if neighbors is not None else 3 * int(cfg.perplexity)
@@ -396,12 +579,92 @@ def tsne_embed(x, cfg: TsneConfig | None = None, *,
         layout = ("csr" if csr is not None
                   else "rows" if edges is None else "edges")
     t_plan = timed_stage(device, t0)
+    return _Prepared(prep, state, edges, csr, layout, t_plan)
+
+
+def tsne_embed(x, cfg: TsneConfig | None = None, *,
+               neighbors: int | None = None, knn_method: str = "bruteforce",
+               knn_iterations: int | None = None,
+               knn_refine: int | None = None, knn_blocks: int = 8,
+               seed: int = 0, sym_width: int | None = None,
+               affinity_assembly: str | None = None, device=None, y0=None,
+               stats: dict | None = None, artifact_cache=None,
+               knn_autotune: bool = False, landmark: str = "auto",
+               landmark_fraction: float = 0.25):
+    """Single-device end to end: kNN -> β-calibrated affinities ->
+    symmetrized P -> attraction layout -> init -> optimize.  Returns
+    ``(embedding [N, m], loss trace)`` on ``device`` (default ``cuda``).
+
+    ``affinity_assembly``: ``auto`` (None means auto) | ``sorted`` |
+    ``split`` ([N, S] rows) | ``blocks`` (the forward rows + reverse edge
+    list, never the [N, S] rows).  ``auto`` with an explicit ``sym_width``
+    means ``sorted``.  Rows are then laid out by ``cfg.attraction``; the
+    blocks layout is optimized as it is.
+
+    ``knn_method``: bruteforce | partition | project | auto
+    (``ops/knn.knn``); ``knn_iterations`` and ``knn_refine`` are the
+    project plan's Z-order seed rounds and refine cycles (None = the auto
+    policies), ``knn_blocks`` the partition schedule's block count.
+
+    ``seed`` seeds the ``torch.Generator`` of the init (``y0`` replaces
+    the draw) and, through :func:`knn_generator`, the kNN stage's own.
+    ``artifact_cache`` (a ``utils/artifacts.ArtifactCache``) and
+    ``knn_autotune`` go to ``prepare``: a warm cache skips the kNN and
+    affinity stages with the same bits.
+    ``landmark`` (``auto`` | ``on`` | ``off``) and ``landmark_fraction``
+    steer the landmark schedule (:func:`landmark_optimize`; the JAX
+    package reads them from ``TSNE_LANDMARK`` and
+    ``TSNE_LANDMARK_FRACTION``): ``auto`` runs it under the autopilot
+    from 20,000 rows, never on the blocks layout.
+
+    ``stats``, when given, receives the stage seconds (``knn``,
+    ``affinities``, ``plan``, ``optimize``), each measured to the end of
+    the device's work, the kNN substage seconds (``knn_substages``), the
+    labels of the resolved ``assembly`` and attraction ``layout`` (csr |
+    edges | rows | blocks), and, under the autopilot or the landmark
+    schedule, the run's ``policy`` block (``models/autopilot
+    .policy_report``) and its autopilot pairs (``pilots``: ``run``, or
+    ``landmark`` and ``polish``)."""
+    cfg = cfg or TsneConfig()
+    from tsne_flink_tpu_torch.ops.attraction_cuda import M_MAX
+    if not 1 <= cfg.n_components <= M_MAX:
+        raise ValueError(
+            f"n_components = {cfg.n_components} is outside 1..{M_MAX}: the "
+            f"repulsion and attraction kernels (B2-B5) are built for every "
+            f"embedding width up to the JAX package's MPAD = {M_MAX}")
+    device = resolve_device(device)
+    run = _prepare_run(x, cfg, neighbors=neighbors, knn_method=knn_method,
+                       knn_iterations=knn_iterations, knn_refine=knn_refine,
+                       knn_blocks=knn_blocks, seed=seed, sym_width=sym_width,
+                       affinity_assembly=affinity_assembly, device=device,
+                       y0=y0, artifact_cache=artifact_cache,
+                       knn_autotune=knn_autotune)
+    prep, state, edges, csr, layout, t_plan = run
+    n = state.y.shape[0]
     t0 = time.perf_counter()
-    state, losses = optimize(state, prep.jidx, prep.jval, cfg, edges=edges,
-                             edges_extra=layout == "blocks", csr=csr)
+    from tsne_flink_tpu_torch.models.autopilot import (pick_landmark,
+                                                       policy_report)
+    got, pilots = None, {}
+    # the blocks layout has no row restriction: no landmark schedule
+    if layout != "blocks" and pick_landmark(cfg, n, landmark):
+        got = landmark_optimize(state, prep.jidx, prep.jval, cfg, seed=seed,
+                                fraction=landmark_fraction,
+                                layout=(edges, csr), pilots=pilots)
+    if got is not None:
+        y, losses, info = got
+    else:
+        out = optimize(state, prep.jidx, prep.jval, cfg, edges=edges,
+                       edges_extra=layout == "blocks", csr=csr)
+        y, losses, info = out[0].y, out[1], None
+        if cfg.autopilot:
+            pilots["run"] = out[2]
     t_opt = timed_stage(device, t0)
     if stats is not None:
         stats.update(knn=prep.knn_seconds, affinities=prep.affinity_seconds,
                      plan=t_plan, optimize=t_opt, assembly=prep.label,
                      layout=layout, knn_substages=prep.knn_substages)
-    return state.y, losses
+        if cfg.autopilot or info is not None:
+            stats.update(pilots=pilots,
+                         policy=policy_report(cfg, pilots.get("run"),
+                                              landmark=info))
+    return y, losses

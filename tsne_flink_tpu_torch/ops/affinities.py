@@ -15,6 +15,9 @@
   width-aware :func:`affinity_auto` that picks split rows or blocks.
 * the attraction-layout plan: :func:`edge_count`, :func:`assemble_edges`,
   :func:`edges_beneficial`, :func:`plan_edges`, :func:`plan_attraction`.
+* the landmark schedule's layouts: :func:`subsample_affinities` (the
+  landmarks' own joint P) and :func:`landmark_placement_rows` (each row's
+  conditional affinities onto the landmarks), tensor code on P's device.
 
 Data-dependent widths and counts are read on the host (preprocessing
 only), so widths and drop counts come back as Python ints.
@@ -449,3 +452,65 @@ def plan_attraction(jidx: torch.Tensor, jval: torch.Tensor,
         from tsne_flink_tpu_torch.ops.attraction_cuda import pick_csr_width
         return "csr", pick_csr_width(e_pad, n_rows, s)
     return "rows", 0
+
+
+def _compact_kept_rows(nbr, vals, keep):
+    """Stable left-compaction of the kept entries of a row layout into a
+    fresh ``[N, W]`` block, W the kept degree's maximum rounded up to a
+    multiple of 8 (at least 8; one host read).  Each kept entry lands at
+    its own slot, so the scatter is deterministic."""
+    n = keep.shape[0]
+    w = int(torch.max(torch.sum(keep, dim=1))) if n else 0
+    w = max(8, -(-w // 8) * 8)
+    pos = torch.cumsum(keep, dim=1) - 1
+    rr, cc = torch.nonzero(keep, as_tuple=True)
+    out_idx = torch.zeros((n, w), dtype=nbr.dtype, device=nbr.device)
+    out_val = torch.zeros((n, w), dtype=vals.dtype, device=vals.device)
+    out_idx[rr, pos[rr, cc]] = nbr[rr, cc]
+    out_val[rr, pos[rr, cc]] = vals[rr, cc]
+    return out_idx, out_val
+
+
+def _remap(n: int, landmarks, device):
+    """Row id -> landmark-local id (-1 off the landmark set), and the
+    landmark ids as a tensor."""
+    lm = torch.as_tensor(landmarks, dtype=torch.int64, device=device)
+    remap = torch.full((n,), -1, dtype=torch.int64, device=device)
+    remap[lm] = torch.arange(lm.shape[0], device=device)
+    return remap, lm
+
+
+def subsample_affinities(jidx: torch.Tensor, jval: torch.Tensor, landmarks):
+    """A symmetrized row layout restricted to the landmark set (sorted row
+    ids): the edges with both ends landmarks, ids remapped to [0, L),
+    each row left-compacted to the subset's own width, renormalized as
+    its own joint distribution (ΣP = 1, :data:`P_FLOOR` floor).  Returns
+    ``(sub_idx [L, W'] int32, sub_val [L, W'])``."""
+    remap, lm = _remap(jidx.shape[0], landmarks, jidx.device)
+    rows = remap[jidx[lm].long()]
+    vals = jval[lm]
+    keep = (vals > 0) & (rows >= 0)
+    sub_idx, sub_val = _compact_kept_rows(rows, vals, keep)
+    total = float(torch.sum(sub_val))
+    if total <= 0.0:
+        total = 1.0  # degenerate subset: all-zero rows stay all-zero
+    sub_val = torch.where(sub_val > 0,
+                          torch.clamp(sub_val / total, min=P_FLOOR), 0.0)
+    return sub_idx.to(torch.int32), sub_val.to(jval.dtype)
+
+
+def landmark_placement_rows(jidx: torch.Tensor, jval: torch.Tensor,
+                            landmarks):
+    """Each row's conditional affinities onto the landmarks, for the
+    interpolation init (``serve/transform.interpolation_init``): entries
+    whose neighbour is a landmark, ids remapped to [0, L), left-compacted,
+    each row normalized to sum 1 (a row with no landmark neighbour stays
+    zero).  Returns ``(ridx [N, W] int32, rval [N, W])``."""
+    remap, _ = _remap(jidx.shape[0], landmarks, jidx.device)
+    nbr = remap[jidx.long()]
+    keep = (jval > 0) & (nbr >= 0)
+    ridx, rval = _compact_kept_rows(nbr, jval, keep)
+    row_sum = torch.sum(rval, dim=1, keepdim=True)
+    rval = torch.where(row_sum > 0,
+                       rval / torch.clamp(row_sum, min=1e-300), 0.0)
+    return ridx.to(torch.int32), rval.to(jval.dtype)

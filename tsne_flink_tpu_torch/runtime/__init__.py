@@ -1,0 +1,1 @@
+"""runtime of the PyTorch port (mirrors tsne_flink_tpu/runtime)."""

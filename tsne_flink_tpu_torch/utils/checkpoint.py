@@ -13,8 +13,10 @@ it when the newest one is damaged.
 
 :func:`save` takes torch tensors (or numpy arrays) and writes numpy;
 :func:`load` returns numpy, which ``convert.state_from_numpy`` puts on
-the device.  The graftpilot controller pair (``load_pilot``) waits for
-ROADMAP queue A10 and the frozen-model read (``load_model``) for A13.
+the device.  The autopilot's controller pair rides along as
+``pilot_state``/``pilot_trace`` (``save(pilot=)``, :func:`load_pilot`),
+so a resumed autopilot run makes the uninterrupted run's decisions.  The
+frozen-model read (``load_model``) waits for ROADMAP queue A13.
 """
 
 from __future__ import annotations
@@ -76,17 +78,21 @@ def _content_hash(arrays: dict) -> str:
 
 
 def save(path: str, state: TsneState, next_iter: int, losses,
-         prepare: dict | None = None, keep: int = 2) -> None:
+         prepare: dict | None = None, keep: int = 2, pilot=None) -> None:
     """Atomic, verified, rotating write: the arrays and their content hash
     go to a tmp file; with ``keep=2`` the existing ``path`` moves to
     ``<path>.1``, then the tmp file becomes ``path``.  ``prepare`` is the
-    v2 payload, any subset of :data:`PREPARE_KEYS`."""
+    v2 payload, any subset of :data:`PREPARE_KEYS`; ``pilot`` the
+    autopilot's ``(state vector, policy trace)`` at this boundary."""
     extras = {}
     for k, v in (prepare or {}).items():
         if k not in PREPARE_KEYS:
             raise ValueError(f"unknown prepare payload key '{k}' "
                              f"({' | '.join(PREPARE_KEYS)})")
         extras["prep_" + k] = to_numpy(v)
+    if pilot is not None:
+        extras["pilot_state"] = to_numpy(pilot[0])
+        extras["pilot_trace"] = to_numpy(pilot[1])
     payload = {"magic": np.asarray(MAGIC), "y": to_numpy(state.y),
                "update": to_numpy(state.update),
                "gains": to_numpy(state.gains),
@@ -157,11 +163,17 @@ def load(path: str):
     return _state(path, _read_verified(path))
 
 
-def load_resume(path: str):
+def _pilot(arrays: dict):
+    if "pilot_state" not in arrays:
+        return None
+    return arrays["pilot_state"], arrays["pilot_trace"]
+
+
+def load_resume(path: str, with_pilot: bool = False):
     """``(state, next_iter, losses, prepare payload, used_path)`` in one
     verified read (a fat checkpoint's joint P is read and hashed once),
     falling back with a warning to the rotated ``<path>.1`` when ``path``
-    is damaged."""
+    is damaged.  ``with_pilot`` appends the autopilot pair (or None)."""
     try:
         arrays, used = _read_verified(path), path
     except CheckpointCorrupt as e:
@@ -171,7 +183,8 @@ def load_resume(path: str):
         print(f"WARNING: {e}; falling back to the previous checkpoint "
               f"{prev}", file=sys.stderr)
         arrays, used = _read_verified(prev), prev
-    return (*_state(used, arrays), _payload(arrays), used)
+    out = (*_state(used, arrays), _payload(arrays), used)
+    return (*out, _pilot(arrays)) if with_pilot else out
 
 
 def load_fallback(path: str):
@@ -186,3 +199,10 @@ def load_prepare(path: str) -> dict | None:
     ``label``, ``audit`` and ``events``, numpy arrays otherwise), or None
     for a file without one."""
     return _payload(_read_verified(path))
+
+
+def load_pilot(path: str):
+    """The autopilot's ``(state vector, policy trace)`` saved at this
+    boundary (numpy), or None when the file has none (autopilot off, or
+    an older file).  Feed it back as ``pilot_carry``."""
+    return _pilot(_read_verified(path))

@@ -10,11 +10,15 @@ write the embedding CSV and the loss trace.  It runs on the card;
     python -m tsne_flink_tpu_torch.utils.cli --input in.csv --output \\
         out.csv --dimension 784 --knnMethod project --theta 0.5
 
-Flags of parts not ported yet raise ``NotImplementedError`` naming their
-ROADMAP queue item before the input is read (:data:`UNPORTED`);
-``--repulsion auto`` resolving to Barnes-Hut is refused as soon as N is
-known, before any kNN work.  The port reads no ``TSNE_*`` environment
-variable.
+The optimize loop runs through ``runtime/segments.run_segments``, with
+the divergence sentinel (``--healthCheck``), the telemetry trace
+(``--telemetry``; its rows are summarized on stderr, ``--metricsOut`` is
+ROADMAP queue A15) and the autopilot (``--autopilot``, its controller
+pair saved in every checkpoint and threaded by ``--resume``).  An
+explicit ``--theta`` past ``EXACT_N_MAX`` runs Barnes-Hut.  Flags of
+parts not ported yet raise ``NotImplementedError`` naming their ROADMAP
+queue item before the input is read (:data:`UNPORTED`).  The port reads
+no ``TSNE_*`` environment variable.
 """
 
 from __future__ import annotations
@@ -36,6 +40,16 @@ import torch
 #: Every other backend keeps the JAX package's 32,768.
 EXACT_N_MAX = {"cuda": 104_000}
 EXACT_N_MAX_DEFAULT = 32_768
+#: --repulsion auto at m = 3 with a defaulted theta: the largest N that
+#: runs exact repulsion instead of Barnes-Hut, per backend (the JAX
+#: package keeps such runs exact on a TPU up to its memory bound).  cuda:
+#: one full iteration at m = 3 measured by
+#: scripts/exact_fft_crossover_cuda.py on an NVIDIA H100 80GB HBM3 at
+#: 700 W — B2 11.53 / 45.18 / 179.69 ms against Barnes-Hut at theta 0.25
+#: 1,169.8 / 2,331.8 / 4,653.0 ms at 150k / 300k / 600k; B2 grows as N²
+#: and Barnes-Hut as N, so the two meet near N = 15.5M (the fit at 600k),
+#: rounded down to a thousand.  No other backend has the clause.
+EXACT_3D_N_MAX = {"cuda": 15_536_000}
 
 REPULSION_CHOICES = ("auto", "exact", "bh", "fft")
 
@@ -72,8 +86,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--theta", type=float, default=None,
                    help="Barnes-Hut accuracy, default 0.25 (Tsne.scala:59); "
                         "given explicitly, --repulsion auto takes "
-                        "Barnes-Hut above EXACT_N_MAX (not ported: ROADMAP "
-                        "queue A12); theta 0 always means exact")
+                        "Barnes-Hut above EXACT_N_MAX; theta 0 always "
+                        "means exact")
     p.add_argument("--loss", "--lossFile", dest="loss",
                    default=os.path.join("results", "loss.txt"))
     p.add_argument("--knnIterations", type=int, default=None,
@@ -91,7 +105,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--repulsion", default="auto",
                    choices=list(REPULSION_CHOICES),
                    help="auto: exact when theta == 0 or N <= EXACT_N_MAX, "
-                        "else fft (bh: ROADMAP queue A12)")
+                        "else bh for an explicit --theta or "
+                        "--nComponents 3, else fft")
     p.add_argument("--attraction", default="auto",
                    choices=["auto", "rows", "edges", "csr"],
                    help="attraction layout: padded [N, S] rows, the flat "
@@ -102,7 +117,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="symmetrized-P builder; auto (default) builds rows "
                         "when they fit, else blocks")
     p.add_argument("--bhGate", default="vdm", choices=["vdm", "flink"],
-                   help="Barnes-Hut acceptance test (ROADMAP queue A12)")
+                   help="Barnes-Hut acceptance test: vdm (side/sqrt(D) < "
+                        "theta) or flink (the reference's halfwidth/D² < "
+                        "theta)")
     p.add_argument("--dtype", default=None,
                    choices=["float32", "float64", "bfloat16"],
                    help="float32 (default; the kernels' type), float64 (the "
@@ -161,7 +178,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "(ROADMAP queue A15), so an out-of-memory error "
                         "propagates under either value")
     p.add_argument("--healthCheck", action="store_true",
-                   help="not ported (ROADMAP queue A10)")
+                   help="divergence sentinel: a non-finite segment rolls "
+                        "back and retries with half the learning rate, at "
+                        "most 3 times (runtime/health.py)")
     p.add_argument("--faultPlan", default=None,
                    help="not ported (ROADMAP queue A15)")
     p.add_argument("--jobTimeout", type=float, default=None,
@@ -176,9 +195,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metricsOut", default=None,
                    help="not ported (ROADMAP queue A15)")
     p.add_argument("--telemetry", action="store_true",
-                   help="not ported (ROADMAP queue A10)")
+                   help="in-loop telemetry at every KL report (grad norm, "
+                        "gains mean/max, embedding bbox), summarized on "
+                        "stderr")
     p.add_argument("--autopilot", action="store_true",
-                   help="not ported (ROADMAP queue A10)")
+                   help="approximation autopilot (models/autopilot.py): "
+                        "the repulsion stride driven by the grad-norm "
+                        "trend, and a coarse FFT grid during early "
+                        "exaggeration")
     p.add_argument("--meshReduce", default="canonical",
                    choices=("canonical", "psum"),
                    help="psum is not ported (ROADMAP queue A14)")
@@ -195,10 +219,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 #: (flag, is it set, ROADMAP queue item) of every part not ported yet
 UNPORTED = (
-    ("--repulsion bh", lambda a: a.repulsion == "bh", "A12"),
-    ("--autopilot", lambda a: a.autopilot, "A10"),
-    ("--healthCheck", lambda a: a.healthCheck, "A10"),
-    ("--telemetry", lambda a: a.telemetry, "A10"),
     ("--transform/--model",
      lambda a: a.transform is not None or a.model is not None, "A13"),
     ("--mesh", lambda a: a.mesh is not None, "A14"),
@@ -240,8 +260,10 @@ def pick_repulsion(mode: str, theta: float, n: int, n_components: int = 2,
                    backend: str = "cuda") -> str:
     """``auto``: exact for theta = 0 or N <= ``EXACT_N_MAX[backend]``;
     above it FFT, or Barnes-Hut for an explicit theta (a request for
-    theta-gated semantics) or m = 3 (a 3-D grid cannot keep FFT accurate);
-    exact for m outside 2-3, which neither approximation takes.  Any other
+    theta-gated semantics) or m = 3 (a 3-D grid cannot keep FFT accurate),
+    save that a defaulted-theta m = 3 run stays exact up to
+    ``EXACT_3D_N_MAX[backend]``; exact for m outside 2-3, which neither
+    approximation takes.  Any other
     mode is returned as it is.  ``backend``: ``cuda`` | ``cpu`` (the JAX
     function's answers for ``cpu``)."""
     if mode != "auto":
@@ -250,19 +272,23 @@ def pick_repulsion(mode: str, theta: float, n: int, n_components: int = 2,
         return "exact"
     if n_components not in (2, 3):
         return "exact"
+    if (n_components == 3 and not theta_explicit
+            and n <= EXACT_3D_N_MAX.get(backend, 0)):
+        return "exact"
     if theta_explicit or n_components == 3:
         return "bh"
     return "fft"
 
 
 def _load_resume(path: str, n: int, dtype, device):
-    """``(start_iter, loss_carry, state, prepare payload)`` of a
-    checkpoint, the state cast to ``dtype`` on ``device``; a damaged file
-    falls back to its ``.1``."""
+    """``(start_iter, loss_carry, state, prepare payload, pilot pair)`` of
+    a checkpoint, the state cast to ``dtype`` on ``device``; a damaged
+    file falls back to its ``.1``."""
     from tsne_flink_tpu_torch.convert import state_from_numpy
     from tsne_flink_tpu_torch.utils import checkpoint as ckpt
 
-    st, start_iter, losses, payload, used = ckpt.load_resume(path)
+    st, start_iter, losses, payload, used, pilot = ckpt.load_resume(
+        path, with_pilot=True)
     if st.y.shape[0] != n:
         raise ValueError(f"checkpoint {used} holds {st.y.shape[0]} points, "
                          f"the input {n}")
@@ -270,15 +296,30 @@ def _load_resume(path: str, n: int, dtype, device):
                              dtype=dtype)
     print(f"resumed from {used} at iteration {start_iter}")
     return (start_iter, torch.as_tensor(losses, dtype=dtype, device=device),
-            state, payload)
+            state, payload, pilot)
 
 
-def _fit_slots(losses, n_slots: int):
-    """A resumed loss trace padded with zeros or cut to ``n_slots``."""
-    if losses.shape[0] < n_slots:
-        return torch.cat([losses, losses.new_zeros(n_slots
-                                                   - losses.shape[0])])
-    return losses[:n_slots]
+def _report_extras(run, events) -> None:
+    """The loop extras' summaries on stderr: each sentinel rollback, the
+    telemetry trace's last row and finiteness, the autopilot's policy."""
+    import json
+
+    from tsne_flink_tpu_torch.models.tsne import TELEMETRY_FIELDS
+    for ev in events:
+        print(f"# sentinel event: {json.dumps(ev)}", file=sys.stderr)
+    if run.telemetry is not None:
+        tel = run.telemetry.cpu().numpy()
+        print(f"# telemetry: {tel.shape[0]} rows, all finite "
+              f"{bool(np.isfinite(tel).all())}, last "
+              + " ".join(f"{f}={v!r}" for f, v in zip(TELEMETRY_FIELDS,
+                                                       tel[-1].tolist())),
+              file=sys.stderr)
+    if run.pilot is not None:
+        from tsne_flink_tpu_torch.models.autopilot import policy_report
+        pol = policy_report(run.cfg, run.pilot)
+        print(f"# policy: refreshes {pol['repulsion_refreshes']}, final "
+              f"stride {pol['final_stride']}, transitions "
+              f"{json.dumps(pol['transitions'])}", file=sys.stderr)
 
 
 def _device_count(device: torch.device) -> int:
@@ -289,7 +330,8 @@ def main(argv=None, *, device=None) -> int:
     """Parse ``argv`` and run the batch job on ``device`` (None: the
     card).  Returns 0; every failure raises."""
     from tsne_flink_tpu_torch.models.tsne import (TsneConfig, _plan_layout,
-                                                  init_working_set, optimize)
+                                                  init_working_set)
+    from tsne_flink_tpu_torch.runtime.segments import run_segments
     from tsne_flink_tpu_torch.utils import artifacts as art
     from tsne_flink_tpu_torch.utils import checkpoint as ckpt
     from tsne_flink_tpu_torch.utils import io as tio
@@ -328,23 +370,19 @@ def main(argv=None, *, device=None) -> int:
 
     repulsion = pick_repulsion(args.repulsion, theta, n, args.nComponents,
                                theta_explicit, backend=device.type)
-    if repulsion == "bh":
-        raise NotImplementedError(
-            f"--repulsion auto resolves to bh at N = {n} (explicit --theta "
-            f"or m = 3 above EXACT_N_MAX); Barnes-Hut is not ported yet "
-            f"(ROADMAP queue A12): pass --repulsion exact or fft")
     cfg = TsneConfig(
         n_components=args.nComponents, perplexity=args.perplexity,
         early_exaggeration=args.earlyExaggeration,
         learning_rate=args.learningRate, iterations=args.iterations,
         initial_momentum=args.initialMomentum,
         final_momentum=args.finalMomentum, theta=theta, metric=args.metric,
-        repulsion=repulsion, attraction=args.attraction, bh_gate=args.bhGate)
+        repulsion=repulsion, attraction=args.attraction, bh_gate=args.bhGate,
+        autopilot=args.autopilot)
 
-    start_iter, loss_carry, state, payload = 0, None, None, None
+    start_iter, loss_carry, state, payload, pilot = 0, None, None, None, None
     if args.resume:
         t0 = time.perf_counter()
-        start_iter, loss_carry, state, payload = _load_resume(
+        start_iter, loss_carry, state, payload, pilot = _load_resume(
             args.resume, n, dtype, device)
         secs["resume"] = timed_stage(device, t0)
     prep_kwargs = dict(neighbors=neighbors, knn_method=args.knnMethod,
@@ -419,35 +457,35 @@ def main(argv=None, *, device=None) -> int:
         gen.manual_seed(args.randomState)
         state = init_working_set(gen, n, cfg.n_components, dtype, device)
 
-    def save(next_iter):
+    def save(st, next_iter, losses, pilot):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)  # queued iterations: optimize's
         t0 = time.perf_counter()
-        ckpt.save(args.checkpoint, state, next_iter, losses, save_payload)
+        ckpt.save(args.checkpoint, st, next_iter, losses, save_payload,
+                  pilot=pilot)
         secs["checkpoint"] = (secs.get("checkpoint", 0.0)
                               + time.perf_counter() - t0)
 
-    n_slots = max(cfg.n_loss_slots, 1)
-    losses = (_fit_slots(loss_carry, n_slots) if loss_carry is not None
-              else torch.zeros(n_slots, dtype=dtype, device=device))
     # segments of --checkpointEvery, each followed by a checkpoint but the
     # last (parallel/mesh.py:733 in the JAX package); every gate of the
     # schedule keys off the absolute iteration, so the bits are one run's
     every = (args.checkpointEvery if args.checkpoint and args.checkpointEvery
-             > 0 else cfg.iterations)
-    secs["optimize"] = 0.0
-    it = start_iter
-    while it < cfg.iterations:
-        step = min(every, cfg.iterations - it)
-        t0 = time.perf_counter()
-        state, losses = optimize(state, jidx, jval, cfg, start_iter=it,
-                                 num_iters=step, loss_carry=losses,
-                                 edges=edges, edges_extra=extra is not None,
-                                 csr=csr)
-        secs["optimize"] += timed_stage(device, t0)
-        it += step
-        if args.checkpoint and it < cfg.iterations:
-            save(it)
+             > 0 else 0)
+    events = []
+    t0 = time.perf_counter()
+    run = run_segments(state, jidx, jval, cfg, start_iter=start_iter,
+                       every=every, loss_carry=loss_carry, edges=edges,
+                       edges_extra=extra is not None, csr=csr,
+                       health_check=args.healthCheck, events=events,
+                       telemetry=args.telemetry,
+                       pilot_carry=pilot if cfg.autopilot else None,
+                       on_boundary=save if args.checkpoint else None)
+    # the checkpoint writes inside the loop are timed on their own
+    secs["optimize"] = timed_stage(device, t0) - secs.get("checkpoint", 0.0)
+    state, losses = run.state, run.losses
     if args.checkpoint:
-        save(cfg.iterations)
+        save(state, cfg.iterations, losses, run.pilot)
+    _report_extras(run, events)
 
     t0 = time.perf_counter()
     tio.write_embedding(args.output, ids, state.y.cpu().numpy())
