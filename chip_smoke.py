@@ -121,7 +121,25 @@ Phases, in order; any failure exits non-zero before the result line:
    through ``optimize`` with the autopilot (FFT stride and grid ladder);
    each with its repulsion refreshes, transitions and host reads (at
    most one a report boundary);
-9d. diverging — N = 2,000 at learning rate 1e30 with the sentinel: three
+9d. serve — out-of-sample serving (``serve/``) on two frozen models:
+   phase 8's run written as a fat checkpoint and opened with
+   ``load_frozen`` (60,000 x 784, exact: B5 and B2 with the query rows
+   numbered past the base) and phase 9's embedding (1,306,127 x 50, fft:
+   B5 and the base field's gather).  For each: 256 base rows
+   self-transformed (bucket 256, 75 iterations, eta 0.5) and held to
+   the reference's serve-record bars (10-NN recall >= 0.35, drift over
+   the span: median <= 0.01, p95 <= 0.05); exact launches (B5 75 a
+   bucket, B2 75 or 0, nothing else); one bucket's knn / init /
+   optimize split (CUDA events) and its device busy share
+   (torch.profiler); B5 (and B2) at the bucket's shapes against their
+   plain versions (rtol 2e-5; B5's absolute part scaled by its
+   summands), two launches bit for bit, each timed beside its plain
+   version and bound; 1,024 new rows as 1 x 1,024, 4 x 256 and 16 x 64
+   bit for bit, with the peak memory beside ``transform_peak``; then a
+   scheduled ``ServeDaemon`` on the 60k model over 8 spooled requests of
+   64 / 256 / 1,024 rows: rows/s, p50/p99, batch fill, every answer
+   equal bit for bit to a direct transform;
+9e. diverging — N = 2,000 at learning rate 1e30 with the sentinel: three
    rollbacks, eta halved each time, then ``DivergenceError``;
 10. determinism — two runs at N = 2,000 give the same bits, on the CSR
    path, the rows path, the hybrid kNN + FFT path, the autopilot with
@@ -132,7 +150,10 @@ The widths at which B5 and B4 are held: the latent blobs' [N, S] rows
 runs there) and the blocks layout's forward block (W = k = 90).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-is the JSON record of every kernel.  The script imports nothing of JAX.
+is the JSON record of every kernel (B2's and B5's with their serving
+shapes under ``serve``, B5's at 1.3M under ``serve_large``, and every
+record's ``serve_launches``: the two self-transforms' launches).  The
+script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -1670,10 +1691,11 @@ def fft_split(y, cfg):
                                              interp=p), 10))
 
 
-def phase_project(x_np, labels, b1_ms, b6_shapes):
+def phase_project(x_np, labels, b1_ms, b6_shapes, ckpt_path):
     """The blobs with the hybrid kNN: exact launch counts, substages,
-    recall@90 against B1's exact graph, the checks of phase 4.  Returns
-    its final embedding, launches and peak memory."""
+    recall@90 against B1's exact graph, the checks of phase 4; the run is
+    written to ``ckpt_path`` as a fat checkpoint for [serve].  Returns
+    its final embedding, launches, peak memory and final KL."""
     import torch
     from tsne_flink_tpu_torch import TsneConfig
     from tsne_flink_tpu_torch.ops.knn import pick_knn_refine
@@ -1682,13 +1704,15 @@ def phase_project(x_np, labels, b1_ms, b6_shapes):
     cycles = pick_knn_refine(n, d)
     cfg = TsneConfig(perplexity=PERPLEXITY, iterations=ITERATIONS,
                      repulsion="exact")
-    with record_knn() as graph:
+    with record_knn() as graph, record_prepare() as prep:
         y, losses, stats, counts = run_embed(
             "project", x_np, cfg,
             lambda st: layout_launches(st["layout"], b1=0,
                                        b6=b6_launches(n, d, K, cycles)),
             knn_method="project")
     quality("project", y, losses, labels, cfg, 0.9)
+    write_fat_checkpoint(ckpt_path, y, losses, prep[0])
+    del prep[:]
     _, dist_e, t_b1 = timed_exact_graph(torch.from_numpy(x_np).cuda(), K)
     recall = recall_at_k(graph[1], dist_e)
     print(f"[project] recall@{K} against B1's exact graph {recall:.4f} "
@@ -2120,6 +2144,375 @@ def phase_large(xc_np, labels, z_latent, y_60k, b2_ms_60k, b6_chunk_ms):
     return counts, times, bounds, errs, run
 
 
+#: the serving path (the JAX package's defaults) and the reference's
+#: serve-record quality pins (tests/test_bench_contract.py:432-434)
+SERVE_BUCKET, SERVE_ITERS, SERVE_ETA = 256, 75, 0.5
+SERVE_SAMPLE, SERVE_KNN_K, SERVE_SPLIT = 256, 10, 1024
+SERVE_RECALL, SERVE_DRIFT_MEDIAN, SERVE_DRIFT_P95 = 0.35, 0.01, 0.05
+SERVE_DAEMON_ROWS = (64, 256, 1024, 64, 256, 1024, 64, 256)
+
+
+@contextlib.contextmanager
+def record_prepare():
+    """Keep what the run's prepare stage returns (the list yielded gets
+    it); the stage itself runs unchanged."""
+    from tsne_flink_tpu_torch.utils import artifacts
+    real = artifacts.prepare
+    got = []
+
+    def recorded(*a, **kw):
+        out = real(*a, **kw)
+        got[:] = [out]
+        return out
+
+    artifacts.prepare = recorded
+    try:
+        yield got
+    finally:
+        artifacts.prepare = real
+
+
+def write_fat_checkpoint(path, y, losses, prep):
+    """The run as ``--checkpoint --fatCheckpoint`` writes it: the state at
+    its last iteration and the joint P in the prepare payload."""
+    import torch
+    from tsne_flink_tpu_torch import TsneState
+    from tsne_flink_tpu_torch.utils import checkpoint as ckpt
+    payload = {"label": prep.label, "jidx": prep.jidx, "jval": prep.jval}
+    if prep.affinity_fp is not None:
+        payload["affinity_fp"] = prep.affinity_fp
+    if prep.extra_edges is not None:
+        payload.update(zip(("rsrc", "rdst", "rval"), prep.extra_edges))
+    t0 = time.perf_counter()
+    ckpt.save(path, TsneState(y=y, update=torch.zeros_like(y),
+                              gains=torch.ones_like(y)), ITERATIONS, losses,
+              payload)
+    print(f"[project] fat checkpoint ({prep.label}, P "
+          f"{tuple(prep.jidx.shape)}) written in "
+          f"{time.perf_counter() - t0:.3f} s: "
+          f"{os.path.getsize(path) / 2**20:.1f} MiB")
+
+
+def embedding_knn(y_base, q, k):
+    """Exact embedding-space kNN rows of ``q`` against ``y_base`` (the
+    serve record's oracle: scripts/serve_bench._knn_rows), ties by index."""
+    import torch
+    d2 = torch.cdist(q.double(), y_base.double()) ** 2
+    return torch.sort(d2, dim=1, stable=True).indices[:, :k].cpu().numpy()
+
+
+def serve_quality(tag, model, sample):
+    """scripts/serve_bench.py's quality block: self-transform ``sample``'s
+    base rows, the drift from their fitted positions over the embedding
+    span, and the recall of their embedding-space 10-NN (the row itself
+    dropped on both sides); gated on the reference's serve bars."""
+    import torch
+    from tsne_flink_tpu_torch.serve.transform import transform
+    yb = model.y
+    yq = transform(model, model.x[sample].cpu().numpy(), bucket=SERVE_BUCKET,
+                   iters=SERVE_ITERS, eta=SERVE_ETA)
+    check(yq.shape == (len(sample), yb.shape[1]) and np.isfinite(yq).all(),
+          f"[serve] {tag}: self-transform not finite [{len(sample)}, m]")
+    y_np = yb.cpu().numpy()
+    span = float(y_np.max(0).max() - y_np.min(0).min())
+    drift = np.linalg.norm(yq - y_np[sample], axis=1)
+    k = SERVE_KNN_K
+    nn_fit = embedding_knn(yb, yb[torch.from_numpy(sample).cuda()], k + 2)
+    nn_got = embedding_knn(yb, torch.from_numpy(yq).cuda(), k + 2)
+    recall = float(np.mean([
+        len(set(a[a != s][:k]) & set(b[b != s][:k])) / k
+        for s, a, b in zip(sample, nn_fit, nn_got)]))
+    med = float(np.median(drift)) / span
+    p95 = float(np.quantile(drift, 0.95)) / span
+    print(f"[serve] {tag}: self-transform of {len(sample)} base rows: "
+          f"knn_recall@{k} {recall:.4f} (bar {SERVE_RECALL}), "
+          f"drift_rel_median {med:.6f} (bar {SERVE_DRIFT_MEDIAN}), "
+          f"drift_rel_p95 {p95:.6f} (bar {SERVE_DRIFT_P95}), span "
+          f"{span:.3f}")
+    check(recall >= SERVE_RECALL, f"[serve] {tag}: recall {recall}")
+    check(med <= SERVE_DRIFT_MEDIAN, f"[serve] {tag}: drift median {med}")
+    check(p95 <= SERVE_DRIFT_P95, f"[serve] {tag}: drift p95 {p95}")
+    return yq
+
+
+def serve_launches(tag, model, buckets, fn):
+    """Run ``fn`` with the launches counted from 0 just before it and
+    check them: B5 once an iteration a bucket, B2 too on the exact path
+    (0 on the FFT field's), nothing else.  Returns (fn's result, counts)."""
+    import torch
+    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
+    torch.cuda.synchronize()
+    reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    counts = launches()
+    per = SERVE_ITERS * buckets
+    want = {"B1": 0, "B2": per if model.repulsion == "exact" else 0,
+            "B3": 0, "B4": 0, "B5": per, "B6": 0}
+    print(f"[serve] {tag}: launches {json.dumps(counts)}")
+    check(counts == want, f"[serve] {tag}: launches {counts} != {want}")
+    return out, counts
+
+
+def serve_split(model, q):
+    """ms of one bucket's knn / init / optimize stages (CUDA events, the
+    median of 5 buckets after a warm one)."""
+    import torch
+    from tsne_flink_tpu_torch.serve.transform import stage_cache
+    st = stage_cache(model, SERVE_BUCKET, SERVE_ITERS, SERVE_ETA)
+    ms = {"knn": [], "init": [], "optimize": []}
+    for rep in range(6):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        idx, dist = st.knn(q, model.x)
+        ev[1].record()
+        p, y0 = st.init(dist, idx, model.y)
+        ev[2].record()
+        st.optimize(y0, idx, p, model.y, model.field)
+        ev[3].record()
+        ev[3].synchronize()
+        if rep:
+            for i, name in enumerate(ms):
+                ms[name].append(ev[i].elapsed_time(ev[i + 1]))
+    return {k: statistics.median(v) for k, v in ms.items()}, idx, p, y0
+
+
+def serve_busy(model, q):
+    """(device ms, launches, wall ms) of one bucket under torch.profiler:
+    the kernels' summed device time against the bucket's CUDA-event time,
+    or None when the profiler sees no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from tsne_flink_tpu_torch.serve.transform import stage_cache
+    st = stage_cache(model, SERVE_BUCKET, SERVE_ITERS, SERVE_ETA)
+
+    def bucket():
+        idx, dist = st.knn(q, model.x)
+        p, y0 = st.init(dist, idx, model.y)
+        return st.optimize(y0, idx, p, model.y, model.field)
+    bucket()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        bucket()
+        b.record()
+        b.synchronize()
+    dev_us, kernels = 0.0, 0
+    for ev in prof.events():  # device-side events: kernels and copies
+        if str(ev.device_type).endswith("CUDA"):
+            dev_us += ev.time_range.elapsed_us()
+            kernels += 1
+    if not kernels:
+        return None
+    return dev_us / 1e3, kernels, a.elapsed_time(b)
+
+
+def serve_kernels(tag, model, idx, p, y0):
+    """B5 (and B2 on the exact path) at the serving shapes — the bucket's
+    query rows against the frozen base — against their plain versions
+    (rtol 2e-5), two launches bit for bit, each timed beside its plain
+    version and its bound.  Returns {kid: record}."""
+    import torch
+    from tsne_flink_tpu_torch.ops import attraction_cuda as att
+    from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
+    from tsne_flink_tpu_torch.ops.repulsion_exact import exact_repulsion
+    yb = model.y
+    n, m = yb.shape
+    b, k = idx.shape
+    got = att.attraction_forces(y0, yb, idx, p, 1.0)
+    plain = att.attraction_forces_plain(y0, yb, idx, p, 1.0)
+    # B5's forces are y_i·Σw − Σw·y_j: for a query among its neighbours
+    # (p sums to 1 a row) terms of the size of |y| cancel to the distance
+    # to them, so the absolute part of the tolerance is rtol x the size of
+    # what is summed, max_i Σ_a p_ia (|y_i| + |y_j|) (w = p·q <= p)
+    terms = float((p[..., None] * (y0.abs()[:, None, :]
+                                   + yb[idx.long()].abs())).sum(1).max())
+    err = torch.abs(got - plain)
+    bad = int(torch.sum(err > 2e-5 * torch.abs(plain) + 2e-5 * terms))
+    err5 = float(err.max())
+    check(bad == 0, f"[serve] {tag} B5: {bad} elements beyond rtol 2e-5 "
+          f"of their value + 2e-5 x {terms:.3f} (max abs err {err5:.3e})")
+    f64 = att.attraction_forces_plain(y0.double(), yb.double(), idx,
+                                      p.double(), 1.0)
+    print(f"[serve] {tag}: B5 against float64: kernel "
+          f"{float((got - f64).abs().max()):.3e}, plain "
+          f"{float((plain - f64).abs().max()):.3e} (the forces' largest "
+          f"{float(f64.abs().max()):.3e}, their summands' {terms:.3f})")
+    check(torch.equal(got, att.attraction_forces(y0, yb, idx, p, 1.0)),
+          f"[serve] {tag}: two B5 launches differ")
+    nnz = int((p > 0).sum())
+    out = {"B5": {"shape": f"[{b}, {k}] rows against [{n}, {m}]",
+                  "max_abs_err": err5,
+                  "ms": cuda_ms(lambda: att.attraction_forces(
+                      y0, yb, idx, p, 1.0), 50),
+                  "plain_ms": cuda_ms(lambda: att.attraction_forces_plain(
+                      y0, yb, idx, p, 1.0), 20)}}
+    # every value and index, the gathered rows, y read and forces written
+    out["B5"].update(zip(("bound_ms", "bound_by"), bound(
+        20.0 * nnz, b * k * 8 + nnz * m * 4 + 2 * b * m * 4)))
+    if model.repulsion == "exact":
+        r, z = cuda_exact_repulsion(y0, yb, row_offset=n, row_z=True)
+        rp, zp = exact_repulsion(y0, yb, row_offset=n, row_z=True)
+        err2 = max(rel_close(r, rp, 2e-5, f"[serve] {tag} B2 rep"),
+                   rel_close(z, zp, 2e-5, f"[serve] {tag} B2 Z"))
+        r2, z2 = cuda_exact_repulsion(y0, yb, row_offset=n, row_z=True)
+        check(torch.equal(r, r2) and torch.equal(z, z2),
+              f"[serve] {tag}: two B2 launches differ")
+        out["B2"] = {"shape": f"[{b}, {m}] rows past [{n}, {m}]",
+                     "max_abs_err": err2,
+                     "ms": cuda_ms(lambda: cuda_exact_repulsion(
+                         y0, yb, row_offset=n, row_z=True), 50),
+                     "plain_ms": cuda_ms(lambda: exact_repulsion(
+                         y0, yb, row_offset=n, row_z=True), 10)}
+        out["B2"].update(zip(("bound_ms", "bound_by"), bound(
+            20.0 * b * n, (n + b) * m * 4 + b * (m + 1) * 4)))
+    for kid, rec in out.items():
+        print(f"[serve] {tag}: {kid} at {rec['shape']}: {rec['ms']:.4f} ms "
+              f"(plain {rec['plain_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.6f} ms by {rec['bound_by']}), max abs err "
+              f"{rec['max_abs_err']:.3e}")
+    return out
+
+
+def serve_model(tag, model, rng):
+    """[serve] for one frozen model: quality, launches, the bucket split,
+    B2/B5 at the serving shapes, batch-split bit identity and peak
+    memory.  Returns (B2/B5 records, launches of the self-transform)."""
+    import torch
+    from tsne_flink_tpu_torch.serve.transform import transform
+    n = model.n
+    sample = rng.choice(n, SERVE_SAMPLE, replace=False)
+    # the first bucket builds nothing (the kernels are built): warm anyway
+    transform(model, model.x[:1].cpu().numpy(), bucket=SERVE_BUCKET,
+              iters=SERVE_ITERS, eta=SERVE_ETA)
+    _, counts = serve_launches(f"{tag} self-transform", model, 1,
+                               lambda: serve_quality(tag, model, sample))
+    q = model.x[torch.from_numpy(sample).cuda()]
+    split, idx, p, y0 = serve_split(model, q)
+    whole = sum(split.values())
+    print(f"[serve] {tag}: one bucket of {SERVE_BUCKET} rows, "
+          f"{SERVE_ITERS} iterations: {whole:.4f} ms (knn "
+          f"{split['knn']:.4f}, init {split['init']:.4f}, optimize "
+          f"{split['optimize']:.4f}: {split['optimize'] / SERVE_ITERS:.4f} "
+          f"an iteration); {SERVE_BUCKET / whole * 1e3:.0f} rows/s")
+    busy = serve_busy(model, q)
+    if busy is None:
+        print(f"[serve] {tag}: device busy share not measured (the "
+              "profiler saw no device time)")
+    else:
+        dev, kernels, wall = busy
+        print(f"[serve] {tag}: under torch.profiler one bucket runs "
+              f"{kernels} device operations, {dev:.4f} ms of device time "
+              f"in {wall:.4f} ms: the device idles {1 - dev / wall:.1%}")
+    recs = serve_kernels(tag, model, idx, p, y0)
+    # 1,024 new rows: base rows moved off the base by noise
+    pick = rng.choice(n, SERVE_SPLIT, replace=False)
+    xq = model.x[torch.from_numpy(pick).cuda()].cpu().numpy()
+    xq = xq + 0.1 * np.std(xq) * rng.standard_normal(xq.shape).astype(
+        xq.dtype)
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    whole_y, _ = serve_launches(
+        f"{tag} 1 x {SERVE_SPLIT}", model, SERVE_SPLIT // SERVE_BUCKET,
+        lambda: transform(model, xq, bucket=SERVE_BUCKET, iters=SERVE_ITERS,
+                          eta=SERVE_ETA))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - held
+    pred = model.transform_peak(SERVE_BUCKET)
+    print(f"[serve] {tag}: {SERVE_SPLIT} rows in {wall:.4f} s "
+          f"({SERVE_SPLIT / wall:.0f} rows/s, host clock); peak memory "
+          f"above the resident model {peak / 2**20:.1f} MiB; transform_peak "
+          f"predicts {pred / 2**20:.1f} MiB with the model")
+    for parts in (4, 16):
+        size = SERVE_SPLIT // parts
+        got, _ = serve_launches(
+            f"{tag} {parts} x {size}", model, parts,
+            lambda: np.concatenate([transform(
+                model, xq[s:s + size], bucket=SERVE_BUCKET,
+                iters=SERVE_ITERS, eta=SERVE_ETA)
+                for s in range(0, SERVE_SPLIT, size)]))
+        check(same_bits(got, whole_y), f"[serve] {tag}: {parts} x {size} "
+              f"differs from 1 x {SERVE_SPLIT}")
+    print(f"[serve] {tag}: 1 x {SERVE_SPLIT}, 4 x {SERVE_SPLIT // 4} and "
+          f"16 x {SERVE_SPLIT // 16} give the same bits")
+    return recs, counts
+
+
+def serve_daemon(model, tmp, rng):
+    """A scheduled ServeDaemon over a spool of 8 requests of 64 / 256 /
+    1,024 rows: rows/s, p50/p99, batch fill; every answer equal bit for
+    bit to a direct transform."""
+    from tsne_flink_tpu_torch.serve.daemon import (ServeDaemon, read_result,
+                                                   submit)
+    from tsne_flink_tpu_torch.serve.transform import transform
+    spool = os.path.join(tmp, "spool")
+    os.makedirs(spool)
+    reqs = {}
+    for i, rows in enumerate(SERVE_DAEMON_ROWS):
+        pick = rng.choice(model.n, rows, replace=False)
+        reqs[f"r{i}"] = model.x[pick].cpu().numpy()
+        submit(spool, reqs[f"r{i}"], f"r{i}")
+    d = ServeDaemon(model, spool, bucket=SERVE_BUCKET, iters=SERVE_ITERS,
+                    eta=SERVE_ETA, tick_s=0.001, sched="on",
+                    idle_exit_s=0.2)
+    t0 = time.perf_counter()
+    summary = d.serve_forever()
+    wall = time.perf_counter() - t0 - 0.2  # less the idle exit
+    rows = sum(SERVE_DAEMON_ROWS)
+    check(summary["served"] == len(reqs) and summary["failed"] == 0,
+          f"[serve] daemon: {summary['served']} served")
+    for rid, q in reqs.items():
+        check(same_bits(read_result(spool, rid), transform(
+            model, q, bucket=SERVE_BUCKET, iters=SERVE_ITERS,
+            eta=SERVE_ETA)), f"[serve] daemon: {rid} differs from a "
+            "direct transform")
+    print(f"[serve] daemon (sched on, bucket {SERVE_BUCKET}): "
+          f"{len(reqs)} requests, {rows} rows in {wall:.4f} s: "
+          f"{rows / wall:.0f} rows/s; p50 {summary['p50_ms']} ms, p99 "
+          f"{summary['p99_ms']} ms (from the spool's first scan); "
+          f"{summary['batches']} batches, fill {summary['batch_fill_mean']}"
+          "; every answer equals a direct transform bit for bit")
+
+
+def phase_serve(x_np, ckpt_path, large, xc_np, tmp):
+    """Out-of-sample serving on both model scales: [project]'s run opened
+    from its fat checkpoint (60,000 x 784, exact: B2 and B5), [large]'s
+    as arrays (1,306,127 x 50, fft: B5 and the field's gather), then a
+    scheduled daemon on the 60k model.  Returns the B2 and B5 records at
+    the serving shapes and the self-transforms' launches."""
+    import torch
+    from tsne_flink_tpu_torch.serve.model import (PlanConfig, from_arrays,
+                                                  load_frozen)
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    exact = load_frozen(ckpt_path, x_np, PlanConfig(
+        n=N_FULL, d=F_FULL, k=K, backend="cuda", name="project"),
+        perplexity=PERPLEXITY)
+    torch.cuda.synchronize()
+    print(f"[serve] 60k model {exact.model_id} ({exact.repulsion}) opened "
+          f"from the fat checkpoint in {time.perf_counter() - t0:.3f} s")
+    check(exact.repulsion == "exact", "[serve] the 60k model is not exact")
+    recs, counts = serve_model("60k exact", exact, rng)
+    serve_daemon(exact, tmp, rng)
+    del exact
+    t0 = time.perf_counter()
+    fft = from_arrays(xc_np, large[0].cpu().numpy(), PlanConfig(
+        n=N_CELLS, d=F_CELLS, k=K_CELLS, backend="cuda", name="large"),
+        perplexity=PERPLEXITY_CELLS)
+    torch.cuda.synchronize()
+    print(f"[serve] 1.3M model {fft.model_id} ({fft.repulsion}) built in "
+          f"{time.perf_counter() - t0:.3f} s (the base field: grid "
+          f"{fft.field.grid}, spacing {float(fft.field.h):.5f})")
+    check(fft.repulsion == "fft", "[serve] the 1.3M model is not fft")
+    recs_l, counts_l = serve_model("1.3M fft", fft, rng)
+    recs["B5_large"] = recs_l["B5"]
+    return recs, {kid: counts[kid] + counts_l[kid] for kid in counts}
+
+
 def phase_determinism(x_np, xl_np):
     import torch
     from tsne_flink_tpu_torch import TsneConfig, tsne_embed
@@ -2491,7 +2884,10 @@ def main() -> int:
         print(f"chip_smoke: the port is not beside this script ({e})",
               file=sys.stderr)
         return 1
+    import shutil
+    import tempfile
     t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tsne_smoke_")
     try:
         name, count = phase_device()
         phase_build()
@@ -2507,7 +2903,8 @@ def main() -> int:
         y_60k = full[0]
         rows_run = phase_rows(xl_np, labels_l, z_latent, rows, errs)
         phase_blocks(x_np, labels, blocks, csr_kl)
-        project = phase_project(x_np, labels, b1_ms, b6_shapes)
+        project = phase_project(x_np, labels, b1_ms, b6_shapes,
+                                os.path.join(tmp, "project.npz"))
         y_bh = phase_bh(x_np, labels, y_60k, z_latent, project)
         phase_cli(x_np, xl_np, full, rows_run[:2], project, y_bh)
         (times, bnd, _), = [v for key, v in b6_shapes.items()
@@ -2524,12 +2921,22 @@ def main() -> int:
         phase_bh_large(large[0])
         phase_pilot(xl_np, labels_l, z_latent, (rows_run[0], rows_run[2],
                                                 rows_run[3]), large)
+        serve, serve_counts = phase_serve(x_np, os.path.join(
+            tmp, "project.npz"), large, xc_np, tmp)
         del large
+        for rec in kernels:
+            kid = rec["name"].split()[0]
+            rec["serve_launches"] = serve_counts[kid]
+            rec["serve"] = serve.get(kid)
+        kernels[[r["name"].split()[0] for r in kernels].index("B5")][
+            "serve_large"] = serve["B5_large"]
         phase_diverging(x_np)
         phase_determinism(x_np, xl_np)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

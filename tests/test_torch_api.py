@@ -3,9 +3,9 @@
 * ``TSNE``'s keyword arguments are the JAX estimator's, with the same
   defaults, plus ``device``;
 * ``fit`` equals the port's ``tsne_embed`` bit for bit and ends within
-  ``KL_GUARDRAIL_TOL`` of the JAX estimator; ``transform`` raises naming
-  ROADMAP queue A13, and arguments of parts not ported yet raise naming
-  theirs before the input is touched;
+  ``KL_GUARDRAIL_TOL`` of the JAX estimator; ``transform`` raises before
+  a fit and serves after one, and arguments of parts not ported yet raise
+  naming theirs before the input is touched;
 * ``autotune_knn_tiles`` returns a refine chunk from its candidates, and
   the refine result is bit-identical at every candidate chunk (the port's
   form of ``test_refine_row_chunk_invariant``).
@@ -112,7 +112,8 @@ def test_unported_kwargs_refused_before_the_input(kw, item):
 
 def test_auto_bh_and_transform_refused(monkeypatch):
     """An explicit theta past EXACT_N_MAX runs Barnes-Hut (A12 is
-    ported); the out-of-sample transform is still refused (A13)."""
+    ported); transform is refused only before a fit (A13 is ported), and
+    its query loop runs no Barnes-Hut."""
     from tsne_flink_tpu_torch.ops import repulsion_bh
     from tsne_flink_tpu_torch.utils import cli
     monkeypatch.setattr(cli, "EXACT_N_MAX", {"cpu": 10})
@@ -125,12 +126,19 @@ def test_auto_bh_and_transform_refused(monkeypatch):
 
     monkeypatch.setattr(repulsion_bh, "bh_repulsion", counted)
     est = TSNE(theta=0.5, n_iter=20, perplexity=5.0, device="cpu")
-    est.fit(_blobs(40))
+    x = _blobs(40)
+    est.fit(x)
     assert calls == [0.5] * 20 and np.isfinite(est.embedding_).all()
-    est = TSNE(device="cpu")
-    for call in (lambda: est.transform(_blobs(5)), est.frozen_model):
-        with pytest.raises(NotImplementedError, match="A13"):
+    unfitted = TSNE(device="cpu")
+    for call in (lambda: unfitted.transform(_blobs(5)),
+                 unfitted.frozen_model):
+        with pytest.raises(RuntimeError, match="fit"):
             call()
+    # the frozen model serves exact repulsion (bh is demoted for queries)
+    assert est.frozen_model().repulsion == "exact"
+    yq = est.transform(x[:8], bucket=8, iters=20)
+    assert yq.shape == (8, 2) and np.isfinite(yq).all()
+    assert calls == [0.5] * 20  # no Barnes-Hut call on the query path
     with pytest.raises(ValueError, match="not defined"):
         TSNE(attraction="diagonal")
 

@@ -7,7 +7,8 @@
 * every flag of a part not ported yet raises ``NotImplementedError``
   naming its ROADMAP queue item before the input is read (the input path
   does not exist); ``auto`` with an explicit --theta past EXACT_N_MAX runs
-  Barnes-Hut;
+  Barnes-Hut; --model and --transform (the serve route) go together, and
+  a fat checkpoint serves query rows through them;
 * on a 600-point COO file (bruteforce, project, and the kNN graph as
   ``--inputDistanceMatrix``) the port's final KL is within
   ``KL_GUARDRAIL_TOL`` = 0.05 of the JAX CLI's program's
@@ -118,8 +119,7 @@ def test_pick_repulsion_cuda():
 
 
 REFUSED = [
-    (["--transform", "q.csv", "--model", "m.npz"], "A13"),
-    (["--model", "m.npz"], "A13"), (["--mesh", "1"], "A14"),
+    (["--mesh", "1"], "A14"),
     (["--devices", "1"], "A14"), (["--spmd"], "A14"),
     (["--symWidth", "64"], "A14"), (["--symMode", "alltoall"], "A14"),
     (["--symSlack", "4"], "A14"), (["--symStrict"], "A14"),
@@ -144,6 +144,59 @@ def test_unported_flags_refused_before_the_input_is_read(tmp_path, extra,
     with pytest.raises(NotImplementedError, match=item):
         tcli.main(argv, device="cpu")
     assert not (tmp_path / "o.csv").exists()
+
+
+@pytest.mark.parametrize("extra", [["--model", "m.npz"],
+                                   ["--transform", "q.csv"]],
+                         ids=["--model alone", "--transform alone"])
+def test_model_and_transform_go_together(tmp_path, extra):
+    """--model/--transform is the serve route (A13 is ported); either
+    flag alone is a usage error before the input is read."""
+    argv = ["--input", str(tmp_path / "missing.csv"), "--output",
+            str(tmp_path / "o.csv"), "--dimension", "4", "--knnMethod",
+            "bruteforce", *extra]
+    with pytest.raises(SystemExit):
+        tcli.main(argv, device="cpu")
+    assert not (tmp_path / "o.csv").exists()
+
+
+def test_fat_checkpoint_served_through_the_transform_route(files, tmp_path,
+                                                           capsys):
+    """Fit with --fatCheckpoint, then embed rows through --model/
+    --transform: the base rows land near their own fitted coordinates,
+    the rows equal ``serve/transform.transform`` of the same model, and
+    the checkpoint's bytes are unchanged."""
+    from tsne_flink_tpu_torch.serve.model import PlanConfig, load_frozen
+    from tsne_flink_tpu_torch.serve.transform import transform
+
+    ckpt = str(tmp_path / "model.npz")
+    fit = tmp_path / "fit.csv"
+    tcli.main(_argv(files, fit, "bruteforce", iterations=150)
+              + ["--checkpoint", ckpt, "--fatCheckpoint"], device="cpu")
+    before = open(ckpt, "rb").read()
+    rows = np.arange(0, N, 37)
+    qcsv = tmp_path / "q.csv"
+    with open(qcsv, "w") as f:
+        for a, i in enumerate(rows):
+            for j in range(D):
+                f.write(f"{a},{j},{float(files['x'][i, j])!r}\n")
+    out = tmp_path / "q_out.csv"
+    capsys.readouterr()
+    assert tcli.main(["--input", files["coo"], "--model", ckpt,
+                      "--transform", str(qcsv), "--output", str(out),
+                      "--dimension", str(D), "--knnMethod", "bruteforce",
+                      "--perplexity", str(PERPLEXITY)], device="cpu") == 0
+    assert "transformed 17 rows into frozen map" in capsys.readouterr().out
+    assert open(ckpt, "rb").read() == before
+    ids, yq = _read(out)
+    np.testing.assert_array_equal(ids, np.arange(len(rows)))
+    model = load_frozen(ckpt, files["x"], PlanConfig(
+        n=N, d=D, k=3 * int(PERPLEXITY), backend="cpu"),
+        perplexity=PERPLEXITY, device="cpu")
+    np.testing.assert_array_equal(yq, transform(model, files["x"][rows]))
+    _, y_fit = _read(fit)
+    span = np.ptp(y_fit, axis=0).max()
+    assert np.median(np.linalg.norm(yq - y_fit[rows], axis=1)) < 0.05 * span
 
 
 def test_accepted_runtime_flags_change_nothing(files, tmp_path):

@@ -29,7 +29,11 @@ through the CLI with no kNN launch, and a warm artifact cache; and the
 approximation policies: Barnes-Hut on CUDA tensors (bit for bit across
 calls, ties included; within the error bars), a stride launching B2
 only at its refreshes, the autopilot reading the host once a report
-boundary, the sentinel's flag and telemetry on the card.
+boundary, the sentinel's flag and telemetry on the card; and serving:
+B2 with 256 query rows past a 60,000-row base against its plain version
+(two launches bit for bit, a mask refused), the query loop launching B5
+and B2 once an iteration a bucket and giving the same bits across batch
+splits, and the daemon's answers equal to direct transforms.
 """
 
 import numpy as np
@@ -1004,3 +1008,94 @@ def test_policies_on_the_card(dev):
     assert ok0.is_cuda and t0.is_cuda and p0[0].is_cuda and bool(ok0)
     assert torch.equal(s0.y, s1.y) and torch.equal(p0[1], p1[1])
     assert torch.isfinite(t0).all()
+
+
+# ---- serving: B2 with its rows past the base, the query loop, the daemon ---
+
+@pytest.mark.parametrize("m", [2, 3])
+def test_repulsion_rows_past_the_base_match_plain(dev, m):
+    """The serving call (C2): 256 query rows numbered past a 60,000-row
+    base (row_offset = N, row_z), no pair masked; two launches bit for
+    bit."""
+    rng = np.random.default_rng(m)
+    yb = torch.from_numpy((rng.standard_normal((60_000, m)) * 20.0).astype(
+        np.float32)).to(dev)
+    yq = torch.from_numpy((rng.standard_normal((256, m)) * 20.0).astype(
+        np.float32)).to(dev)
+    rk, zk = cuda_exact_repulsion(yq, yb, row_offset=60_000, row_z=True)
+    rp, zp = exact_repulsion(yq, yb, row_offset=60_000, row_z=True)
+    _close_scaled(rk, rp)
+    _close_scaled(zk, zp)
+    again = cuda_exact_repulsion(yq, yb, row_offset=60_000, row_z=True)
+    assert torch.equal(again[0], rk) and torch.equal(again[1], zk)
+    valid = torch.ones(60_000, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="col_valid has no entry"):
+        cuda_exact_repulsion(yq, yb, row_offset=60_000, col_valid=valid)
+
+
+def _serve_model(dev, repulsion, n=3000, d=16):
+    from tsne_flink_tpu_torch.serve.model import PlanConfig, from_arrays
+    rng = np.random.default_rng(4)
+    x = (rng.standard_normal((n, d)) + 5.0 * rng.integers(0, 5, (n, 1))
+         ).astype(np.float32)
+    y = (rng.standard_normal((n, 2)) * 10.0).astype(np.float32)
+    return from_arrays(x, y, PlanConfig(n=n, d=d, k=30, backend="cuda",
+                                        repulsion=repulsion),
+                       perplexity=10.0, device=dev)
+
+
+@pytest.mark.parametrize("repulsion", ["exact", "fft"])
+def test_transform_on_the_card(dev, repulsion):
+    """The query loop launches B5 (and B2 on the exact path) once an
+    iteration a bucket; one batch equals its splits bit for bit; a few
+    iterations stay near the float64 CPU transform of the same model."""
+    from tsne_flink_tpu_torch.kernels.build import launches
+    from tsne_flink_tpu_torch.serve.model import from_arrays
+    from tsne_flink_tpu_torch.serve.transform import (dispatch_bucket,
+                                                      transform)
+    model = _serve_model(dev, repulsion)
+    assert model.repulsion == repulsion and model.y.is_cuda
+    assert model.y.data_ptr() % 16 == 0
+    rng = np.random.default_rng(5)
+    q = (model.x[:128].cpu().numpy()
+         + rng.standard_normal((128, 16)).astype(np.float32))
+    reset_launches()
+    whole = transform(model, q, bucket=32, iters=20)
+    got = {k: v for k, v in launches().items() if v}
+    assert got == ({"B2": 80, "B5": 80} if repulsion == "exact"
+                   else {"B5": 80})
+    for step in (32, 8):
+        parts = np.concatenate([transform(model, q[s:s + step], bucket=32,
+                                          iters=20)
+                                for s in range(0, 128, step)])
+        assert np.array_equal(parts, whole)
+    out = dispatch_bucket(model, q[:32], bucket=32, iters=20)
+    assert out.is_cuda and np.array_equal(out.cpu().numpy(), whole[:32])
+    ref = from_arrays(model.x.cpu().numpy().astype(np.float64),
+                      model.y.cpu().numpy().astype(np.float64), model.plan,
+                      perplexity=10.0, device="cpu")
+    few = transform(model, q, bucket=32, iters=3)
+    want = transform(ref, q.astype(np.float64), bucket=32, iters=3)
+    np.testing.assert_allclose(few, want, rtol=1e-3,
+                               atol=1e-3 * np.abs(want).max())
+
+
+def test_daemon_on_the_card(dev, tmp_path):
+    from tsne_flink_tpu_torch.serve.daemon import (ServeDaemon, read_result,
+                                                   submit)
+    from tsne_flink_tpu_torch.serve.transform import transform
+    model = _serve_model(dev, "exact")
+    rng = np.random.default_rng(6)
+    reqs = {f"r{i}": rng.standard_normal((rows, 16)).astype(np.float32)
+            for i, rows in enumerate((5, 32, 70))}
+    for rid, q in reqs.items():
+        submit(str(tmp_path), q, rid)
+    d = ServeDaemon(model, str(tmp_path), bucket=32, iters=10, tick_s=0.001,
+                    sched="on", idle_exit_s=0.05)
+    summary = d.serve_forever(max_ticks=50)
+    assert summary["served"] == 3
+    assert summary["admission"]["budget_bytes"] == torch.cuda \
+        .get_device_properties(dev).total_memory
+    for rid, q in reqs.items():
+        assert np.array_equal(read_result(str(tmp_path), rid),
+                              transform(model, q, bucket=32, iters=10))

@@ -57,13 +57,18 @@ def test_entry_points_default_to_the_card():
     from tsne_flink_tpu_torch.utils.cli import main
     from tsne_flink_tpu_torch.utils.device import resolve_device
 
+    from tsne_flink_tpu_torch.serve.model import PlanConfig, from_arrays
     x = np.zeros((20, 3), np.float32)
     calls = [lambda: tsne_embed(x),
+             lambda: from_arrays(x, x[:, :2], PlanConfig(n=20, d=3, k=5)),
              lambda: prepare(x, neighbors=5, perplexity=2.0),
              lambda: convert.state_from_numpy(x[:, :2]),
              lambda: TSNE().fit(x),
              lambda: main(["--input", "in.csv", "--output", "o.csv",
-                           "--dimension", "3", "--knnMethod", "auto"])]
+                           "--dimension", "3", "--knnMethod", "auto"]),
+             lambda: main(["--input", "in.csv", "--output", "o.csv",
+                           "--dimension", "3", "--knnMethod", "auto",
+                           "--model", "m.npz", "--transform", "q.csv"])]
     if torch.cuda.is_available():
         assert resolve_device().type == "cuda"
         assert convert.state_from_numpy(x[:, :2]).y.is_cuda

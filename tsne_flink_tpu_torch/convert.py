@@ -79,3 +79,28 @@ def blocks_from_numpy(jidx, jval, extra, *, device=None):
     edges_extra=True)``."""
     return (*rows_from_numpy(jidx, jval, device=device),
             edges_from_numpy(*extra, device=device))
+
+
+def frozen_from_jax(jm, *, device=None):
+    """The port's ``serve/model.FrozenModel`` of a JAX ``FrozenModel``:
+    the same base arrays, plan fields, identity and, for fft serving, the
+    JAX field's potentials, spacing and origin (so the port's gather can
+    be held to the JAX field)."""
+    from tsne_flink_tpu_torch.ops.repulsion_fft import FftField
+    from tsne_flink_tpu_torch.serve.model import FrozenModel, PlanConfig
+
+    device = resolve_device(device)
+    plan = PlanConfig(**{f.name: getattr(jm.plan, f.name)
+                         for f in fields(PlanConfig)})
+    x = _tensor(jm.x, device)
+    field = None
+    if jm.field is not None:
+        f = jm.field
+        field = FftField(pot=_tensor(f.pot, device), h=_tensor(f.h, device),
+                         origin=_tensor(f.origin, device), grid=int(f.grid),
+                         interp=int(f.interp))
+    return FrozenModel(x=x, y=_tensor(jm.y, device, x.dtype), plan=plan,
+                       perplexity=jm.perplexity,
+                       learning_rate=jm.learning_rate, metric=jm.metric,
+                       repulsion=jm.repulsion, model_id=jm.model_id,
+                       ckpt_hash=jm.ckpt_hash, field=field)

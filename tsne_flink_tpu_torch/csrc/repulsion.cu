@@ -5,7 +5,9 @@
 //
 // Per row i: q_ij = 1 / (1 + |y_i − y_j|²), zeroed at the global i == j
 // (row_offset) and at invalid columns; rep_i = Σ_j q_ij² (y_i − y_j) and
-// the per-row partial Z_i = Σ_j q_ij.  Invalid rows get zeros.
+// the per-row partial Z_i = Σ_j q_ij.  Invalid rows get zeros.  Without a
+// mask the rows may lie past y_full (row_offset >= nfull: query rows
+// against a frozen base), and then no tile holds a diagonal.
 //
 // What bounds it on an H100: the N² pairs, each ~9 FP32 operations (m
 // differences, m FMAs for d², 1 add, q², m FMAs of the force, 1 add of Z)

@@ -12,8 +12,9 @@ sentinel's rollbacks), ``metrics_["telemetry"]`` and
 ``metrics_["policy"]`` (the rest of the JAX ``metrics_`` is the obs
 snapshot of ROADMAP queue A15).  Arguments of parts not ported yet raise
 ``NotImplementedError`` naming their ROADMAP queue item when ``fit``
-starts, before the input is touched; out-of-sample ``transform`` is
-queue A13.
+starts, before the input is touched.  ``transform`` embeds new rows
+into the fitted map without moving it (``serve/transform.py``): the fit
+keeps its input, and ``frozen_model`` freezes the two on first use.
 """
 
 from __future__ import annotations
@@ -119,6 +120,7 @@ class TSNE:
         self.kl_trace_ = None
         self.runtime_events_ = None
         self.metrics_ = {}
+        self._fit_x = self._frozen = None
 
     def _refuse_unported(self, device: torch.device) -> None:
         unported = (
@@ -200,6 +202,10 @@ class TSNE:
         else:
             y_emb, losses = tsne_embed(x, cfg, **embed_kwargs)
         self.embedding_ = y_emb.cpu().numpy()
+        # the fit keeps its input (as the fit ran it) for transform()
+        self._fit_x = x.cpu().numpy()
+        self._fit_cfg, self._fit_device = cfg, device
+        self._frozen = None
         self.kl_trace_ = losses.cpu().numpy()
         self.kl_divergence_ = (float(self.kl_trace_[-1])
                                if self.kl_trace_.size else float("nan"))
@@ -209,10 +215,35 @@ class TSNE:
         return self.fit(x).embedding_
 
     def frozen_model(self):
-        raise NotImplementedError("the frozen serving model is not ported "
-                                  "yet (ROADMAP queue A13)")
+        """This fit as a ``serve/model.FrozenModel`` on the fit's device,
+        built on first use and kept: what ``transform`` and a serve daemon
+        answer queries from."""
+        if self._fit_x is None:
+            raise RuntimeError("transform() requires a fitted estimator — "
+                               "call fit() first")
+        if self._frozen is None:
+            from tsne_flink_tpu_torch.serve.model import PlanConfig, from_arrays
+            n, d = self._fit_x.shape
+            cfg = self._fit_cfg
+            k = (self.neighbors if self.neighbors is not None
+                 else 3 * int(cfg.perplexity))
+            plan = PlanConfig(n=n, d=d, k=k, n_components=cfg.n_components,
+                              backend=self._fit_device.type,
+                              repulsion=cfg.repulsion, theta=cfg.theta,
+                              row_chunk=cfg.row_chunk,
+                              name="estimator-serve")
+            self._frozen = from_arrays(
+                self._fit_x, self.embedding_, plan,
+                perplexity=cfg.perplexity, learning_rate=cfg.learning_rate,
+                metric=cfg.metric, device=self._fit_device)
+        return self._frozen
 
     def transform(self, x, *, bucket: int | None = None,
                   iters: int | None = None) -> np.ndarray:
-        raise NotImplementedError("out-of-sample transform is not ported "
-                                  "yet (ROADMAP queue A13)")
+        """Embed NEW rows into the fitted map without moving it: query→base
+        kNN, directed affinities at the trained perplexity, interpolation
+        init, then a fixed number of iterations over the query rows alone
+        against the frozen embedding.  Deterministic, and bit-identical
+        across batch splits.  ``bucket``/``iters`` default to 256 / 75."""
+        from tsne_flink_tpu_torch.serve.transform import transform
+        return transform(self.frozen_model(), x, bucket=bucket, iters=iters)

@@ -232,6 +232,39 @@ def knn_partition(x: torch.Tensor, k: int, metric: str = "sqeuclidean",
     return knn_bruteforce(x, k, metric)
 
 
+def knn_queries(q: torch.Tensor, x: torch.Tensor, k: int,
+                metric: str = "sqeuclidean"):
+    """Exact cross-set kNN: each QUERY row's k nearest BASE rows, the
+    serving path's sweep (``serve/transform.py``).  Queries are not base
+    points, so no self-pair is masked and ``k`` clamps to ``n_base``.
+    Row chunks of ``‖a‖² + ‖b‖² − 2abᵀ`` distance tiles (one FP32 matmul
+    each; TF32 is switched off for it on the card) and a stable sort per
+    row, so ties go to the lowest base index as ``lax.top_k``'s do; the
+    chunk comes from the tile plan (:func:`pick_knn_tiles`), which bounds
+    the [c, n_base] tile.  Plain tensor code: the JAX package runs this
+    sweep outside any Pallas kernel.  Returns ``(idx int32 [B, k], dist
+    [B, k])``, rows ascending by distance."""
+    nb, dim = x.shape
+    nq = q.shape[0]
+    k = int(min(k, nb))
+    row_chunk = _resolve_tiles(None, max(nq, 1), dim, k,
+                               backend_of(x)).row_chunk
+    idx, dist = [], []
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for s in range(0, nq, row_chunk):
+            d, i = _topk_smallest(pairwise(metric, q[s:s + row_chunk], x), k)
+            dist.append(d)
+            idx.append(i.to(torch.int32))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    if not idx:
+        return (torch.zeros((0, k), dtype=torch.int32, device=x.device),
+                x.new_zeros((0, k)))
+    return torch.cat(idx), torch.cat(dist)
+
+
 # ---- merging ----------------------------------------------------------------
 
 def _dedup_smallest(cat_i: torch.Tensor, cat_d: torch.Tensor, k: int):

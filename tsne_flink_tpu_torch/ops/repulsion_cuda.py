@@ -11,7 +11,9 @@ wrapper sums in a fixed order (no atomics, so a run is deterministic).
 :func:`cuda_exact_repulsion` is the wrapper: the plain
 ``ops/repulsion_exact.exact_repulsion`` on a CPU tensor, the kernel on a
 CUDA tensor (or it raises).  Same ``row_offset``/``col_valid``/``row_z``
-contract as the JAX function.
+contract as the JAX function.  Without ``col_valid`` the rows may lie
+past ``y_full`` (``row_offset >= len(y_full)``): the serving path's query
+rows against a frozen base, where no pair is a self-pair.
 """
 
 from __future__ import annotations
@@ -43,7 +45,22 @@ def column_splits(nloc: int, nfull: int, sms: int) -> int:
     return max(1, min(want, -(-nfull // COLS_PER_TILE)))
 
 
-def _check_cuda(y, y_full, col_valid, row_offset):
+def _check_rows(y, y_full, col_valid, row_offset):
+    """The row range and the mask, on either device."""
+    if row_offset < 0:
+        raise ValueError(f"row_offset {row_offset} is negative")
+    if col_valid is None:
+        return
+    if col_valid.shape != (y_full.shape[0],) or col_valid.device != y.device:
+        raise ValueError("col_valid must be a [N_full] mask on y's device")
+    # each row's own validity is read from the mask
+    if row_offset + y.shape[0] > y_full.shape[0]:
+        raise ValueError(f"row_offset {row_offset} puts {y.shape[0]} rows "
+                         f"outside y_full's {y_full.shape[0]}, where "
+                         "col_valid has no entry for them")
+
+
+def _check_cuda(y, y_full):
     for name, t in (("y", y), ("y_full", y_full)):
         if not t.is_cuda or t.dtype != torch.float32:
             raise TypeError(f"B2 kernel takes float32 CUDA tensors; {name} is "
@@ -55,14 +72,8 @@ def _check_cuda(y, y_full, col_valid, row_offset):
         raise ValueError(f"B2 kernel takes 1 <= m <= {M_MAX} on both "
                          f"operands; got {tuple(y.shape)} and "
                          f"{tuple(y_full.shape)}")
-    if not 0 <= row_offset <= y_full.shape[0] - y.shape[0]:
-        raise ValueError(f"row_offset {row_offset} puts {y.shape[0]} rows "
-                         f"outside y_full's {y_full.shape[0]}")
     if y.device != y_full.device:
         raise ValueError("y and y_full lie on different devices")
-    if col_valid is not None and (col_valid.shape != (y_full.shape[0],)
-                                  or col_valid.device != y.device):
-        raise ValueError("col_valid must be a [N_full] mask on y's device")
 
 
 def cuda_exact_repulsion(y: torch.Tensor, y_full: torch.Tensor | None = None,
@@ -72,11 +83,12 @@ def cuda_exact_repulsion(y: torch.Tensor, y_full: torch.Tensor | None = None,
     """(rep [len(y), m], Z) — Z summed, or per-row with ``row_z``."""
     if y_full is None:
         y_full = y
+    _check_rows(y, y_full, col_valid, row_offset)
     if y.device.type == "cpu":
         return exact_repulsion(y, y_full, row_offset=row_offset,
                                col_valid=col_valid, row_chunk=row_chunk,
                                row_z=row_z)
-    _check_cuda(y, y_full, col_valid, row_offset)
+    _check_cuda(y, y_full)
     nloc, m = y.shape
     nfull = y_full.shape[0]
     valid = (None if col_valid is None

@@ -27,8 +27,11 @@ by grid cell with a stable sort and each cell is summed in that order by
 ``torch.segment_reduce`` — not a scatter-add, whose atomics would change
 the grid's bits from run to run on the card.
 
-The serving half (``FftField``, ``fft_base_field``,
-``fft_field_repulsion``) is ROADMAP queue A13.
+The serving half: a frozen base fixes the bounding box, so the spread
+and the convolution of its charges are done once at model load
+(:func:`fft_base_field`, an :class:`FftField` of real-space potentials)
+and a query batch only gathers them at its positions
+(:func:`fft_field_repulsion`, with a per-row Z).
 """
 
 from __future__ import annotations
@@ -202,3 +205,65 @@ def fft_repulsion(y: torch.Tensor, y_full: torch.Tensor | None = None, *,
     rows = row_offset + torch.arange(nloc, device=y.device)
     rep = fft_gather(y, pot, st, g, rows, valid_w[rows])
     return rep, z
+
+
+class FftField(NamedTuple):
+    """The FROZEN base's repulsion field, precomputed once at model load
+    (``serve/model.py``).  ``pot`` holds ``2 + m`` real-space potential
+    volumes ``[2+m, G^m]``: row 0 is ``K1 ⊛ 1`` (the per-row partition
+    term ``Z_i = Σ_j K1(y_i − y_j)``; queries are not base points, so no
+    self-term), row 1 is ``K2 ⊛ 1`` and rows 2.. are ``K2 ⊛ y_d``."""
+
+    pot: torch.Tensor     # [2+m, G^m]
+    h: torch.Tensor       # node spacing (0-d)
+    origin: torch.Tensor  # [m] grid origin
+    grid: int
+    interp: int
+
+
+def fft_base_field(y_base: torch.Tensor, *, grid: int | None = None,
+                   interp: int = 3, geom: FftGeom | None = None) -> FftField:
+    """Spread + FFT-convolve the frozen base's charges once; returns the
+    gatherable :class:`FftField`.  The spectra are build-time transients:
+    only the real-space potentials persist."""
+    nfull, m = y_base.shape
+    if geom is None:
+        geom = fft_geometry(m, grid, y_base.dtype, y_base.device)
+    g, p = geom.grid, interp
+    st = fft_stencil(y_base, g, p)
+    ones = torch.ones(nfull, dtype=y_base.dtype, device=y_base.device)
+    gridf = fft_spread(y_base, st, g, ones)               # [1+m, G, ...]
+    k1 = 1.0 / (1.0 + (st.h * st.h) * geom.rho2)
+    axes = tuple(range(1, m + 1))
+    khat = torch.fft.rfftn(torch.stack([k1, k1 * k1]), dim=axes)
+    ghat = torch.fft.rfftn(torch.nn.functional.pad(gridf, (0, g) * m),
+                           dim=axes)
+    # the unit charge under K1, then every charge under K2
+    chat = torch.cat([ghat[:1] * khat[0], ghat * khat[1]])
+    conv = torch.fft.irfftn(chat, s=(2 * g,) * m, dim=axes)
+    sl = (slice(None),) + tuple(slice(0, g) for _ in range(m))
+    origin = torch.amin(y_base, dim=0) - ((p - 1) // 2) * st.h
+    return FftField(pot=conv[sl].reshape(2 + m, -1), h=st.h, origin=origin,
+                    grid=g, interp=p)
+
+
+def fft_field_repulsion(field: FftField, y: torch.Tensor):
+    """Repulsion of query rows ``y`` against the frozen base behind
+    ``field``: the order-p Lagrange gather of its potentials at the query
+    positions, O(B p^m), no FFT and no base traffic.  Returns ``(rep
+    [B, m], z_row [B])``, ``z_row`` the per-row partition term.  Positions
+    are clamped to the stencil-valid range BEFORE the floor, so a stray's
+    fractional offset stays in [0, 1) and it reads the boundary value
+    instead of extrapolating."""
+    g, p = field.grid, field.interp
+    half = (p - 1) // 2
+    u = torch.clamp((y - field.origin[None, :]) / field.h, min=float(half),
+                    max=g - p + half + 0.999999)
+    idx0 = torch.clamp(torch.floor(u).to(torch.int32), half, g - p + half)
+    st = FftStencil(base=(idx0 - half).long(),
+                    wdim=_lagrange_weights(u - idx0, p), h=field.h)
+    phi = torch.zeros((2 + y.shape[1], y.shape[0]), dtype=y.dtype,
+                      device=y.device)
+    for w, flat in _taps(st, g):
+        phi = phi + w[None, :] * field.pot[:, flat]
+    return y * phi[1][:, None] - phi[2:].T, phi[0]

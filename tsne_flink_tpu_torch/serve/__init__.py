@@ -1,1 +1,4 @@
-"""serve of the PyTorch port (mirrors tsne_flink_tpu/serve)."""
+"""Out-of-sample serving (port of ``tsne_flink_tpu/serve``): the frozen
+model (:mod:`serve.model`), the bucketed transform (:mod:`serve.transform`),
+the micro-batch scheduler (:mod:`serve.sched`) and the solo spool daemon
+(:mod:`serve.daemon`)."""

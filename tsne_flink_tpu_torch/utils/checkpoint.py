@@ -15,8 +15,8 @@ it when the newest one is damaged.
 :func:`load` returns numpy, which ``convert.state_from_numpy`` puts on
 the device.  The autopilot's controller pair rides along as
 ``pilot_state``/``pilot_trace`` (``save(pilot=)``, :func:`load_pilot`),
-so a resumed autopilot run makes the uninterrupted run's decisions.  The
-frozen-model read (``load_model``) waits for ROADMAP queue A13.
+so a resumed autopilot run makes the uninterrupted run's decisions.
+:func:`load_model` is the serving path's strict read of a frozen model.
 """
 
 from __future__ import annotations
@@ -114,8 +114,9 @@ def save(path: str, state: TsneState, next_iter: int, losses,
 
 
 def _read_verified(path: str) -> dict:
-    """Every array of a checkpoint, each read once, its magic and content
-    hash checked.  Foreign files raise :class:`NotACheckpoint`, damaged
+    """Every array of a checkpoint (``content_hash`` among them when the
+    file carries one), each read once, its magic and content hash
+    checked.  Foreign files raise :class:`NotACheckpoint`, damaged
     ones :class:`CheckpointCorrupt`."""
     try:
         z = np.load(path)
@@ -133,8 +134,10 @@ def _read_verified(path: str) -> dict:
                 zlib.error) as e:
             raise CheckpointCorrupt(path, detail=f"payload unreadable ({e})"
                                     ) from e
-    expected = arrays.pop("content_hash", None)
-    if expected is not None and _content_hash(arrays) != str(expected):
+    expected = arrays.get("content_hash")
+    if expected is not None and _content_hash(
+            {k: v for k, v in arrays.items() if k != "content_hash"}
+    ) != str(expected):
         raise CheckpointCorrupt(path, str(expected), "content hash mismatch")
     return arrays
 
@@ -206,3 +209,23 @@ def load_pilot(path: str):
     boundary (numpy), or None when the file has none (autopilot off, or
     an older file).  Feed it back as ``pilot_carry``."""
     return _pilot(_read_verified(path))
+
+
+def load_model(path: str):
+    """Strict frozen-model read for serving: one verified ``np.load``
+    returning ``(state, next_iter, losses, prepare, content_hash)``.
+    Read-only (no rotation, no tmp file: the directory is byte-identical
+    after a model load); a v1 file or one without a content hash is
+    refused with :class:`NotACheckpoint`, since a daemon answers queries
+    from this state for hours and must know exactly what it loaded (the
+    hash is part of ``serve/model.FrozenModel.model_id``)."""
+    arrays = _read_verified(path)
+    if str(arrays["magic"]) != MAGIC:
+        raise NotACheckpoint(
+            f"{path} is not a v2 checkpoint — serving requires the "
+            "content-verified fat format (re-save with the current writer)")
+    if "content_hash" not in arrays:
+        raise NotACheckpoint(f"{path} carries no content hash — refusing to "
+                             "serve an unverifiable model")
+    return (*_state(path, arrays), _payload(arrays),
+            str(arrays["content_hash"]))

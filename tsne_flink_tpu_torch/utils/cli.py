@@ -155,9 +155,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="embed the joint P in every checkpoint, so that "
                         "--resume runs no kNN or affinity work")
     p.add_argument("--model", default=None,
-                   help="not ported (ROADMAP queue A13)")
+                   help="a fat v2 checkpoint to serve as a frozen map "
+                        "(serve/model.py); pairs with --input (the base "
+                        "features it was fit on) and --transform")
     p.add_argument("--transform", default=None,
-                   help="not ported (ROADMAP queue A13)")
+                   help="COO CSV of query rows (same --dimension as "
+                        "--input) to embed into the frozen --model map "
+                        "instead of fitting; writes id,y0,y1 rows to "
+                        "--output")
     p.add_argument("--aotCache", dest="aotCache", action="store_true",
                    default=None, help="not ported (ROADMAP queue A15)")
     p.add_argument("--noAotCache", dest="aotCache", action="store_false",
@@ -219,8 +224,6 @@ def build_parser() -> argparse.ArgumentParser:
 
 #: (flag, is it set, ROADMAP queue item) of every part not ported yet
 UNPORTED = (
-    ("--transform/--model",
-     lambda a: a.transform is not None or a.model is not None, "A13"),
     ("--mesh", lambda a: a.mesh is not None, "A14"),
     ("--devices", lambda a: a.devices is not None, "A14"),
     ("--spmd", lambda a: a.spmd, "A14"),
@@ -326,6 +329,33 @@ def _device_count(device: torch.device) -> int:
     return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
+def _serve_transform(args, ids, x_np, neighbors: int, device) -> int:
+    """The ``--model``/``--transform`` route: open the frozen map
+    read-only, embed the query rows, write them; no fit, no checkpoint
+    write, no prepare stage."""
+    from tsne_flink_tpu_torch.models.tsne import TsneConfig
+    from tsne_flink_tpu_torch.serve.model import PlanConfig, load_frozen
+    from tsne_flink_tpu_torch.serve.transform import transform
+    from tsne_flink_tpu_torch.utils import io as tio
+
+    theta = args.theta if args.theta is not None else 0.25
+    plan = PlanConfig(n=len(ids), d=int(args.dimension), k=int(neighbors),
+                      n_components=args.nComponents, backend=device.type,
+                      repulsion=pick_repulsion(
+                          args.repulsion, theta, len(ids), args.nComponents,
+                          args.theta is not None, backend=device.type),
+                      theta=theta, row_chunk=TsneConfig.row_chunk,
+                      name="cli-launch")
+    model = load_frozen(args.model, x_np, plan, perplexity=args.perplexity,
+                        learning_rate=args.learningRate, metric=args.metric,
+                        device=device)
+    qids, q_np = tio.read_input(args.transform, args.dimension)
+    tio.write_embedding(args.output, qids, transform(model, q_np))
+    print(f"transformed {len(qids)} rows into frozen map {model.model_id} "
+          f"-> {args.output}")
+    return 0
+
+
 def main(argv=None, *, device=None) -> int:
     """Parse ``argv`` and run the batch job on ``device`` (None: the
     card).  Returns 0; every failure raises."""
@@ -337,8 +367,18 @@ def main(argv=None, *, device=None) -> int:
     from tsne_flink_tpu_torch.utils import io as tio
     from tsne_flink_tpu_torch.utils.device import resolve_device, timed_stage
 
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
     refuse_unported(args)
+    if args.transform or args.model:
+        if not (args.transform and args.model):
+            parser.error("--transform and --model go together: --model is "
+                         "the frozen map (fat v2 checkpoint), --transform "
+                         "the query rows to embed into it")
+        if args.inputDistanceMatrix:
+            parser.error("--transform needs raw base features via --input "
+                         "(a distance matrix carries no coordinates to run "
+                         "query kNN against)")
     device = resolve_device(device)
     if args.dtype == "float64" and device.type == "cuda":
         raise NotImplementedError(
@@ -362,6 +402,8 @@ def main(argv=None, *, device=None) -> int:
         del idx, dist
     else:
         ids, x64 = tio.read_input(args.input, args.dimension)
+        if args.transform:  # the JAX CLI serves the features as read
+            return _serve_transform(args, ids, x64, neighbors, device)
         # cast on the host, as the JAX CLI does, before the device copy
         data = {"x": x64.astype(np_dtype)}
         del x64

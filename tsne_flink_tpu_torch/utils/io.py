@@ -29,14 +29,16 @@ import numpy as np
 from tsne_flink_tpu_torch.utils import native
 
 
-def atomic_write(path: str, write_fn) -> None:
+def atomic_write(path: str, write_fn, *, tag: str | None = None) -> None:
     """tmp + rename: ``write_fn(tmp_path)`` writes the content, which then
     replaces ``path`` in one rename, so a kill mid-write never leaves a
     truncated file.  A ``write_fn`` that raises leaves ``path`` as it
-    was."""
+    was.  ``tag`` names the tmp (``.<tag>.out.tmp``: the serve daemon's
+    claim epoch)."""
     d = os.path.dirname(os.path.abspath(path)) or "."
     os.makedirs(d, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=d, suffix=".out.tmp")
+    fd, tmp = tempfile.mkstemp(dir=d, suffix=f".{tag}.out.tmp" if tag
+                               else ".out.tmp")
     os.close(fd)
     try:
         write_fn(tmp)
