@@ -135,7 +135,8 @@ Phases, in order; any failure exits non-zero before the result line:
    plain versions (rtol 2e-5; B5's absolute part scaled by its
    summands), two launches bit for bit, each timed beside its plain
    version and bound; 1,024 new rows as 1 x 1,024, 4 x 256 and 16 x 64
-   bit for bit, with the peak memory beside ``transform_peak``; then a
+   bit for bit, with the peak memory (the resident model included)
+   held between ``transform_peak`` / 2 and ``transform_peak``; then a
    scheduled ``ServeDaemon`` on the 60k model over 8 spooled requests of
    64 / 256 / 1,024 rows: rows/s, p50/p99, batch fill, every answer
    equal bit for bit to a direct transform;
@@ -143,7 +144,26 @@ Phases, in order; any failure exits non-zero before the result line:
    rollbacks, eta halved each time, then ``DivergenceError``;
 10. determinism — two runs at N = 2,000 give the same bits, on the CSR
    path, the rows path, the hybrid kNN + FFT path, the autopilot with
-   the landmark schedule, and Barnes-Hut.
+   the landmark schedule, and Barnes-Hut;
+11. runtime — the runtime and observability layers (queue A15): the
+   CUDA context a fresh process holds (B1, a matmul, an FFT); the memory
+   model (``analysis/audit/hbm.py``) against the card at ``[full]``,
+   ``[rows]``, ``[blocks]``, ``[project]`` and ``[large]``'s
+   configurations run stage by stage (allocated peak vs the model's
+   allocated terms, and footprint — reserved + context — vs its whole
+   peak, each within [1, 2]) and ``[serve]``'s two models; a real CUDA
+   OOM (a subprocess capped at 4 GiB by
+   ``set_per_process_memory_fraction`` runs the supervised ``[full]``
+   configuration: the affinity stage's [N, S] planes run out of memory,
+   the ladder takes the blocks assembly and the run equals blocks from
+   the start bit for bit); the fault rehearsals on 20,000 of the blobs
+   (``oom@knn``, ``kill@optimize:seg1`` then ``--resume``,
+   ``nan@optimize``, ``corrupt@checkpoint``, ``--stageTimeout`` -> 124);
+   three 60,000 x 784 fleet jobs under a budget that admits two, one
+   killed and retried, each equal to its solo run and within its
+   predicted footprint, against the three one at a time; config 2's
+   command line with and without ``--trace --metricsOut --profile``
+   (the same bits, launches and host reads; the JAX span names).
 
 The widths at which B5 and B4 are held: the latent blobs' [N, S] rows
 (S ~ 146), the blobs' [N, S] rows (S ~ 3,466: what attraction="rows"
@@ -161,6 +181,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import hashlib
+import io
 import json
 import math
 import os
@@ -2423,10 +2444,20 @@ def serve_model(tag, model, rng):
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() - held
     pred = model.transform_peak(SERVE_BUCKET)
+    resident = sum(t.numel() * t.element_size() for t in (
+        model.x, model.y, *((model.field.pot,) if model.field else ())))
+    measured = resident + peak
     print(f"[serve] {tag}: {SERVE_SPLIT} rows in {wall:.4f} s "
           f"({SERVE_SPLIT / wall:.0f} rows/s, host clock); peak memory "
-          f"above the resident model {peak / 2**20:.1f} MiB; transform_peak "
-          f"predicts {pred / 2**20:.1f} MiB with the model")
+          f"above the resident model {peak / 2**20:.1f} MiB, with the "
+          f"model ({resident / 2**20:.1f} MiB) {measured / 2**20:.1f} MiB; "
+          f"transform_peak predicts {pred / 2**20:.1f} MiB "
+          f"(ratio {pred / measured:.3f})")
+    # fault C3: the admission unit must cover what a bucket holds
+    check(measured <= pred <= 2 * measured,
+          f"[serve] {tag}: transform_peak {pred} outside [measured "
+          f"{measured}, 2 x measured]")
+    recs["memory"] = [(tag, pred, measured)]
     for parts in (4, 16):
         size = SERVE_SPLIT // parts
         got, _ = serve_launches(
@@ -2510,6 +2541,7 @@ def phase_serve(x_np, ckpt_path, large, xc_np, tmp):
     check(fft.repulsion == "fft", "[serve] the 1.3M model is not fft")
     recs_l, counts_l = serve_model("1.3M fft", fft, rng)
     recs["B5_large"] = recs_l["B5"]
+    recs["memory"] += recs_l["memory"]
     return recs, {kid: counts[kid] + counts_l[kid] for kid in counts}
 
 
@@ -2872,6 +2904,616 @@ def phase_diverging(x_np):
           f"[diverging] raised {raised}, events {events}")
 
 
+# ---- [runtime]: the memory model, the OOM ladder, faults, the fleet, ----
+# ---- tracing (queue A15) ------------------------------------------------
+
+#: the full-size runs whose peaks the memory model is held to: (data,
+#: neighbours, kNN method, affinity assembly, TsneConfig keywords)
+MEMORY_RUNS = {
+    "full": ("blobs", K, "bruteforce", None,
+             dict(repulsion="exact", attraction="csr")),
+    "rows": ("latent", K, "bruteforce", None, dict(repulsion="exact")),
+    "blocks": ("blobs", K, "bruteforce", "blocks", dict(repulsion="exact")),
+    "project": ("blobs", K, "project", None, dict(repulsion="exact")),
+    "large": ("cells", K_CELLS, "project", None,
+              dict(repulsion="fft", fft_grid=1024, fft_interp=3)),
+}
+
+
+class PeakTracker:
+    """Allocated and reserved peaks of the card's caching allocator over
+    marked intervals: :meth:`mark` folds the peak since the last mark into
+    a running maximum and resets the counters, so nested measurements
+    keep the enclosing interval's peak.  Both are counted above what the
+    process held at construction (after ``empty_cache``): the run's own
+    allocations, and its own growth of the cache — the segments earlier
+    work left pinned by a live tensor are not the run's."""
+
+    def __init__(self):
+        import torch
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        self.base = torch.cuda.memory_allocated()
+        self.base_reserved = torch.cuda.memory_reserved()
+        self.alloc = self.reserved = 0
+        torch.cuda.reset_peak_memory_stats()
+
+    def mark(self) -> tuple[int, int]:
+        """(allocated, reserved) peak since the last mark, above what was
+        held at construction."""
+        import torch
+        torch.cuda.synchronize()
+        a = torch.cuda.max_memory_allocated() - self.base
+        r = torch.cuda.max_memory_reserved() - self.base_reserved
+        torch.cuda.reset_peak_memory_stats()
+        self.alloc, self.reserved = max(self.alloc, a), max(self.reserved, r)
+        return a, r
+
+
+def memory_cfg(tag, n):
+    from tsne_flink_tpu_torch import TsneConfig
+    _, _, _, _, kw = MEMORY_RUNS[tag]
+    perp = PERPLEXITY_CELLS if tag == "large" else PERPLEXITY
+    lr = fitsne_learning_rate(n) if tag == "large" else 1000.0
+    return TsneConfig(perplexity=perp, iterations=ITERATIONS,
+                      learning_rate=lr, **kw)
+
+
+def memory_plan(tag, n, d, cfg, label, width):
+    """The run's plan as the memory model takes it, carrying what the run
+    resolved: the symmetrized width of its rows (or the blocks layout)."""
+    from tsne_flink_tpu_torch.analysis.audit.plan import PlanConfig
+    _, k, method, assembly, _ = MEMORY_RUNS[tag]
+    blocks = label == "blocks"
+    return PlanConfig(
+        n=n, d=d, k=k, backend="cuda", n_components=cfg.n_components,
+        iterations=cfg.iterations, knn_method=method,
+        repulsion=cfg.repulsion, theta=cfg.theta,
+        assembly="blocks" if blocks else (assembly or "auto"),
+        attraction=cfg.attraction, sym_width=None if blocks else width,
+        row_chunk=cfg.row_chunk, fft_grid=cfg.fft_grid, name=tag)
+
+
+def stage_peaks(tag, x_np, cfg, tracker_hook=None):
+    """One run of ``tag``'s configuration (prepare, plan, optimize; the
+    steps ``tsne_embed`` takes), each stage's allocated peak from a mark
+    at its start: ``({stage: (allocated, reserved)}, label, width, y)``.
+    ``tracker_hook(tracker)`` may install finer marks (the diagnosis
+    script's)."""
+    import torch
+    from tsne_flink_tpu_torch.models.tsne import (_plan_layout,
+                                                  init_working_set, optimize)
+    from tsne_flink_tpu_torch.utils.artifacts import prepare
+    _, k, method, assembly, _ = MEMORY_RUNS[tag]
+    torch.cuda.empty_cache()
+    tr = PeakTracker()
+    if tracker_hook is not None:
+        tracker_hook(tr)
+    peaks = {}
+    x = torch.as_tensor(x_np, device="cuda")
+
+    def on_stage(stage, secs, cache):
+        peaks[stage] = tr.mark()
+
+    prep = prepare(x, neighbors=k, knn_method=method, metric=cfg.metric,
+                   seed=0, perplexity=cfg.perplexity,
+                   assembly=assembly or "auto", device="cuda",
+                   on_stage=on_stage)
+    label, width = prep.label, int(prep.jidx.shape[1])
+    if prep.extra_edges is not None:
+        edges, csr = prep.extra_edges, None
+    else:
+        edges, csr = _plan_layout(prep.jidx, prep.jval, cfg)
+    peaks["plan"] = tr.mark()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    state = init_working_set(gen, x.shape[0], cfg.n_components, x.dtype,
+                             "cuda")
+    out = optimize(state, prep.jidx, prep.jval, cfg, edges=edges,
+                   edges_extra=label == "blocks", csr=csr)
+    peaks["optimize"] = tr.mark()
+    y = out[0].y
+    return peaks, label, width, y
+
+
+def runtime_memory(data, context, only=None):
+    """[runtime] 1: the memory model against the card at every full-size
+    run of the smoke (``analysis/audit/hbm.stage_terms`` of the run's
+    plan, carrying the width or layout the run resolved): each stage's
+    predicted and measured peak, and two gates on each run's peak, each
+    measured <= predicted <= 2 x measured: the model's allocated terms
+    against ``torch.cuda.max_memory_allocated``, and its whole peak (what
+    the fleet's admission charges: the allocator's reserve and the CUDA
+    context included) against the run's footprint on the card, its
+    ``torch.cuda.max_memory_reserved`` growth plus ``context`` (measured
+    by :func:`runtime_context`).  Returns {tag: (predicted peak, measured
+    allocated, measured footprint, plan)}."""
+    import torch
+    from tsne_flink_tpu_torch.analysis.audit.hbm import (allocated_peak,
+                                                         stage_terms)
+    out, misses = {}, []
+    for tag in only or MEMORY_RUNS:
+        x_np = data[MEMORY_RUNS[tag][0]]
+        n, d = x_np.shape
+        cfg = memory_cfg(tag, n)
+        t0 = time.perf_counter()
+        peaks, label, width, _ = stage_peaks(tag, x_np, cfg)
+        plan = memory_plan(tag, n, d, cfg, label, width)
+        terms = stage_terms(plan)
+        measured = {"knn": peaks["knn"], "affinities": peaks["affinities"],
+                    "optimize": (max(peaks["plan"][0], peaks["optimize"][0]),
+                                 max(peaks["plan"][1],
+                                     peaks["optimize"][1]))}
+        for st, (a, r) in measured.items():
+            pa = allocated_peak(terms[st])
+            print(f"[runtime] memory {tag} {st}: allocated predicted "
+                  f"{pa / 2**30:.3f} GiB, measured {a / 2**30:.3f} GiB "
+                  f"(ratio {pa / max(a, 1):.3f}); with the reserve and the "
+                  f"context predicted {terms[st]['peak'] / 2**30:.3f} GiB, "
+                  f"footprint {(r + context) / 2**30:.3f} GiB; terms "
+                  + json.dumps({t: (v if isinstance(v, str)
+                                    else round(v / 2**30, 4))
+                                for t, v in terms[st].items()}))
+        pa = max(allocated_peak(t) for t in terms.values())
+        pt = max(t["peak"] for t in terms.values())
+        alloc = max(a for a, _ in measured.values())
+        foot = max(r for _, r in measured.values()) + context
+        out[tag] = (pt, alloc, foot, plan)
+        ok = alloc <= pa <= 2 * alloc and foot <= pt <= 2 * foot
+        print(f"[runtime] memory {tag} ({label}, width {width}): run peak "
+              f"allocated predicted {pa / 2**30:.3f} GiB / measured "
+              f"{alloc / 2**30:.3f} GiB = {pa / alloc:.3f}; footprint "
+              f"predicted {pt / 2**30:.3f} GiB / measured "
+              f"{foot / 2**30:.3f} GiB = {pt / foot:.3f} "
+              f"{'(both within [1, 2])' if ok else 'MISS'}; "
+              f"{time.perf_counter() - t0:.1f} s")
+        if not ok:
+            misses.append(tag)
+        torch.cuda.empty_cache()
+    check(not misses, f"[runtime] the memory model misses {misses}: "
+          "predicted must lie in [measured, 2 x measured]")
+    return out
+
+
+CONTEXT_CHILD = r"""
+import json, sys, torch
+sys.path.insert(0, sys.argv[1])
+from tsne_flink_tpu_torch.ops.knn_cuda import fused_knn
+free0, total = torch.cuda.mem_get_info()
+x = torch.randn(4096, 64, device="cuda")
+fused_knn(x, 16)
+(x @ x.T).sum()
+torch.fft.rfft2(torch.randn(256, 256, device="cuda"))
+torch.cuda.synchronize()
+free, total = torch.cuda.mem_get_info()
+print(json.dumps({"used": total - free,
+                  "reserved": torch.cuda.memory_reserved()}))
+"""
+
+
+def runtime_context():
+    """The bytes one CUDA process holds on the card outside the caching
+    allocator (context, modules, library handles): a fresh process runs
+    B1, a matmul and an FFT, then reports the card's used bytes; less
+    what was used before it started and its own reserved cache."""
+    import subprocess
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free0, total = torch.cuda.mem_get_info()
+    got = subprocess.run([sys.executable, "-c", CONTEXT_CHILD, ROOT],
+                         capture_output=True, text=True, timeout=300)
+    check(got.returncode == 0, f"[runtime] context probe failed: "
+          f"{got.stderr[-2000:]}")
+    rec = json.loads(got.stdout.strip().splitlines()[-1])
+    ctx = rec["used"] - (total - free0) - rec["reserved"]
+    from tsne_flink_tpu_torch.analysis.audit.hbm import CUDA_CONTEXT_BYTES
+    print(f"[runtime] a CUDA process's context (outside the allocator, "
+          f"after B1, a matmul and an FFT): {ctx / 2**20:.1f} MiB (the "
+          f"model charges {CUDA_CONTEXT_BYTES / 2**20:.1f} MiB)")
+    return ctx
+
+
+#: [runtime] 2: the real OOM — the [full] configuration under a cap of
+#: the caching allocator (torch.cuda.set_per_process_memory_fraction)
+#: between the degraded plan's footprint and the default's
+OOM_RUN, OOM_CAP_GIB = "full", 4.0
+
+OOM_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+import chip_smoke as cs
+from tsne_flink_tpu_torch.runtime.supervisor import (Supervisor,
+    run_plan_from_fit, supervised_embed)
+cap = float(sys.argv[2])
+torch.cuda.set_per_process_memory_fraction(
+    cap / torch.cuda.get_device_properties(0).total_memory)
+x, _ = cs.make_data()
+tag = cs.OOM_RUN
+_, k, method, assembly, _ = cs.MEMORY_RUNS[tag]
+cfg = cs.memory_cfg(tag, x.shape[0])
+sup = Supervisor(run_plan_from_fit(x.shape[0], x.shape[1], k, cfg,
+                                   "auto", method), max_retries=2)
+marks = []
+t0 = time.perf_counter()
+run = supervised_embed(x, cfg, supervisor=sup, neighbors=k,
+                       knn_method=method, seed=0,
+                       on_stage=lambda st, s, c: marks.append(
+                           (st, time.perf_counter() - t0)))
+y = run.state.y.cpu().numpy()
+np.save(sys.argv[3], y)
+print(json.dumps({"seconds": time.perf_counter() - t0, "marks": marks,
+                  "events": sup.events, "degradations": sup.degradations,
+                  "releases": sup.releases,
+                  "peak_reserved": torch.cuda.max_memory_reserved()}))
+"""
+
+
+def runtime_real_oom(tmp):
+    """[runtime] 2: a real CUDA OOM recovered by the ladder.  A subprocess
+    caps its allocator at OOM_CAP_GIB and runs the supervised [full]
+    configuration: the split rows' [N, S] planes (8.4 GiB) do not fit, the
+    affinity stage runs out of memory for real, the ladder takes the
+    blocks assembly (rung 2; rung 1's tile budget holds nothing of the
+    stage on the card) and the relaunch completes.  Gate: the degradation
+    is recorded, and the embedding equals, bit for bit, a run given the
+    blocks assembly from the start."""
+    import torch
+    from tsne_flink_tpu_torch.runtime.supervisor import (Supervisor,
+                                                         supervised_embed)
+    out = os.path.join(tmp, "oom_y.npy")
+    t0 = time.perf_counter()
+    got = subprocess.run([sys.executable, "-c", OOM_CHILD, ROOT,
+                          str(OOM_CAP_GIB * 2**30), out],
+                         capture_output=True, text=True, timeout=600)
+    check(got.returncode == 0, f"[runtime] the capped run failed: "
+          f"{got.stderr[-3000:]}")
+    rec = json.loads(got.stdout.strip().splitlines()[-1])
+    acts = [d["action"] for d in rec["degradations"]]
+    ooms = [e for e in rec["events"] if e["type"] == "oom"]
+    print(f"[runtime] real OOM: cap {OOM_CAP_GIB} GiB; events "
+          f"{[e['type'] for e in rec['events']]}; degradations {acts}; "
+          f"the OOM: {ooms[0]['error'][:120] if ooms else None!r}")
+    print(f"[runtime] real OOM: stage marks (s from start) "
+          f"{json.dumps(rec['marks'])}; the run {rec['seconds']:.3f} s "
+          f"({time.perf_counter() - t0:.1f} s with the process); freed "
+          f"between attempts {[r['freed_bytes'] / 2**30 for r in rec['releases']]}"
+          f" GiB; peak reserved {rec['peak_reserved'] / 2**30:.3f} GiB")
+    check(acts == ["assembly-blocks"] and len(ooms) == 1
+          and ooms[0]["stage"] == "affinities",
+          f"[runtime] real OOM: ladder steps {acts}, OOMs {ooms}")
+    x, _ = make_data()
+    _, k, method, _, _ = MEMORY_RUNS[OOM_RUN]
+    cfg = memory_cfg(OOM_RUN, x.shape[0])
+    ref = supervised_embed(x, cfg, supervisor=Supervisor(None),
+                           neighbors=k, knn_method=method, seed=0,
+                           affinity_assembly="blocks")
+    check(same_bits(np.load(out), ref.state.y.cpu().numpy()),
+          "[runtime] real OOM: the recovered run differs from blocks from "
+          "the start")
+    del ref
+    torch.cuda.empty_cache()
+    print("[runtime] real OOM: recovered bit for bit as blocks from the "
+          "start")
+
+
+def _cli_argv(coo, d, out, tmp, *extra):
+    return ["--input", coo, "--output", os.path.join(tmp, out), "--loss",
+            os.path.join(tmp, out + ".loss"), "--dimension", str(d),
+            "--perplexity", str(PERPLEXITY), "--knnMethod", "bruteforce",
+            "--iterations", str(REHEARSAL_ITERS), "--noCache", *extra]
+
+
+def _cli_child(argv, timeout=600):
+    code = ("import sys; sys.path.insert(0, %r)\n"
+            "from tsne_flink_tpu_torch.utils.cli import main\n"
+            "main(%r)\n") % (ROOT, argv)
+    return subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=timeout)
+
+
+REHEARSAL_N, REHEARSAL_ITERS = 20_000, 100
+
+
+def runtime_rehearsals(x_np, tmp):
+    """[runtime] 3: the fault plans on the card, on 20,000 of the blobs:
+    ``oom@knn`` completes through the ladder with the clean run's bits;
+    ``kill@optimize:seg1`` in a subprocess, then ``--resume``, gives the
+    uninterrupted run's bits; ``nan@optimize`` is rolled back by the
+    sentinel; ``corrupt@checkpoint`` is caught with its path and hash; a
+    ``--stageTimeout`` too small exits 124."""
+    import torch
+    from tsne_flink_tpu_torch.runtime import faults
+    from tsne_flink_tpu_torch.runtime.supervisor import (Supervisor,
+                                                         supervised_embed)
+    from tsne_flink_tpu_torch.utils import checkpoint as ckpt
+    from tsne_flink_tpu_torch.utils.cli import main as cli_main
+    from tsne_flink_tpu_torch import TsneConfig
+    x = x_np[:REHEARSAL_N]
+    cfg = TsneConfig(perplexity=PERPLEXITY, iterations=REHEARSAL_ITERS)
+    t0 = time.perf_counter()
+    clean = supervised_embed(x, cfg, supervisor=Supervisor(None),
+                             neighbors=K, seed=0).state.y.cpu().numpy()
+    faults.activate("oom@knn")
+    try:
+        sup = Supervisor(run_plan_20k(x, cfg), retry_backoff=0.0)
+        y = supervised_embed(x, cfg, supervisor=sup, neighbors=K,
+                             seed=0).state.y.cpu().numpy()
+    finally:
+        faults.activate(None)
+    acts = [d["action"] for d in sup.degradations]
+    print(f"[runtime] oom@knn: {acts}, events "
+          f"{[e['type'] for e in sup.events]}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    check(acts == ["shrink-knn-tiles"] and same_bits(y, clean),
+          "[runtime] oom@knn: not recovered with the clean run's bits")
+    faults.activate("nan@optimize:seg2")
+    try:
+        sup = Supervisor(None, health_check=True)
+        run = supervised_embed(x, cfg, supervisor=sup, neighbors=K, seed=0)
+    finally:
+        faults.activate(None)
+    rb = [e for e in sup.events if e["type"] == "sentinel-rollback"]
+    print(f"[runtime] nan@optimize:seg2: rollbacks {json.dumps(rb)}")
+    check(len(rb) == 1 and bool(torch.isfinite(run.state.y).all()),
+          "[runtime] nan@optimize: not rolled back")
+    path = os.path.join(tmp, "corrupt.npz")
+    faults.activate("corrupt@checkpoint")
+    try:
+        ckpt.save(path, run.state, REHEARSAL_ITERS, run.losses)
+    finally:
+        faults.activate(None)
+    try:
+        ckpt.load(path)
+        caught = None
+    except ckpt.CheckpointCorrupt as e:
+        caught = str(e)
+    print(f"[runtime] corrupt@checkpoint: {caught}")
+    check(caught is not None and path in caught and "hash" in caught,
+          "[runtime] corrupt@checkpoint: not caught with path and hash")
+    coo = os.path.join(tmp, "blobs20k.csv")
+    write_coo(coo, x)
+    d = x.shape[1]
+    ck = os.path.join(tmp, "rehearsal.npz")
+    t1 = time.perf_counter()
+    got = _cli_child(_cli_argv(coo, d, "killed.csv", tmp, "--checkpoint",
+                               ck, "--checkpointEvery", "50",
+                               "--fatCheckpoint", "--faultPlan",
+                               "kill@optimize:seg1"))
+    print(f"[runtime] kill@optimize:seg1: exit {got.returncode} after "
+          f"{time.perf_counter() - t1:.1f} s")
+    check(got.returncode == -9 and os.path.exists(ck),
+          f"[runtime] kill@optimize:seg1: exit {got.returncode} "
+          f"{got.stderr[-1500:]}")
+    with contextlib.redirect_stderr(io.StringIO()):
+        cli_main(_cli_argv(coo, d, "resumed.csv", tmp, "--resume", ck))
+        cli_main(_cli_argv(coo, d, "whole.csv", tmp))
+    same = all(open(os.path.join(tmp, a), "rb").read()
+               == open(os.path.join(tmp, b), "rb").read()
+               for a, b in (("resumed.csv", "whole.csv"),
+                            ("resumed.csv.loss", "whole.csv.loss")))
+    print(f"[runtime] --resume after the kill equals the uninterrupted "
+          f"run: {same}")
+    check(same, "[runtime] the resumed run differs from the uninterrupted")
+    t1 = time.perf_counter()
+    got = _cli_child(_cli_argv(coo, d, "late.csv", tmp, "--stageTimeout",
+                               "0.01"))
+    print(f"[runtime] --stageTimeout 0.01: exit {got.returncode} after "
+          f"{time.perf_counter() - t1:.1f} s")
+    check(got.returncode == 124 and "watchdog" in got.stderr,
+          f"[runtime] --stageTimeout: exit {got.returncode}")
+    print(f"[runtime] rehearsals {time.perf_counter() - t0:.1f} s")
+
+
+def run_plan_20k(x, cfg):
+    from tsne_flink_tpu_torch.runtime.supervisor import run_plan_from_fit
+    return run_plan_from_fit(x.shape[0], x.shape[1], K, cfg, "auto",
+                             "bruteforce")
+
+
+FLEET_ITERS = 300
+
+
+def runtime_fleet(xl_np, tmp, context):
+    """[runtime] 4: three config-2-sized jobs (60,000 x 784 latent blobs,
+    bruteforce, 300 iterations, seeds 0-2) as fleet children on the one
+    card under a budget that admits two; job 1 carries ``kill@job:1`` and
+    retries.  Gates: every job completes; the third queued; the sum of
+    predicted peaks fits the budget at every admission; every job's
+    embedding equals its solo run bit for bit; every job's measured
+    footprint (its peak reserved bytes plus the measured context) is at
+    most its predicted peak.  Then the same three jobs one at a time."""
+    import torch
+    from tsne_flink_tpu_torch.runtime.admission import predicted_peak_bytes
+    from tsne_flink_tpu_torch.runtime.fleet import Fleet, JobSpec, job_plan
+    inp = os.path.join(tmp, "latent60k.npy")
+    np.save(inp, xl_np)
+    jobs = [JobSpec(name=f"job{i}", input=inp, iterations=FLEET_ITERS,
+                    perplexity=PERPLEXITY, seed=i) for i in range(3)]
+    peak = predicted_peak_bytes(job_plan(jobs[0]))
+    budget = 2 * peak + peak // 2
+    print(f"[runtime] fleet: each job predicted {peak / 2**30:.3f} GiB; "
+          f"budget {budget / 2**30:.3f} GiB (admits two)")
+    rec = Fleet(jobs, os.path.join(tmp, "fleet"), budget_bytes=budget,
+                fault_plan="kill@job:1", retries=1, backoff_base=0.0).run()
+    fl = rec["fleet"]
+    print(f"[runtime] fleet: {json.dumps(fl)}; admissions (job, in use, "
+          f"peak) {json.dumps(rec['admissions'])}")
+    check(fl["completed"] == 3 and fl["queue_depth_max"] >= 1
+          and fl["retries"] == 1 and fl["max_running"] == 2,
+          f"[runtime] fleet: {fl}")
+    check(all(u + p <= budget for _, u, p in rec["admissions"]),
+          "[runtime] fleet: an admission over the budget")
+    for job in rec["jobs"]:
+        r = job["record"]
+        mem = r["memory"]
+        foot = mem["peak_reserved"] + context
+        print(f"[runtime] fleet {job['name']}: attempts {job['attempts']}, "
+              f"{job['seconds']:.2f} s, stages {json.dumps(r['stages'])}; "
+              f"peak allocated {mem['peak_allocated'] / 2**30:.3f} GiB, "
+              f"reserved {mem['peak_reserved'] / 2**30:.3f} GiB, footprint "
+              f"with the context {foot / 2**30:.3f} GiB <= predicted "
+              f"{job['predicted_peak'] / 2**30:.3f} GiB "
+              f"({foot / job['predicted_peak']:.3f})")
+        check(foot <= job["predicted_peak"],
+              f"[runtime] fleet {job['name']}: footprint over its peak")
+    for spec, job in zip(jobs, rec["jobs"]):
+        solo = JobSpec.from_dict({**spec.as_dict(), "name": "solo",
+                                  "out": "", "record": ""})
+        y = np.load(job["out"])
+        check(same_bits(y, _solo_y(solo)),
+              f"[runtime] fleet {job['name']} differs from its solo run")
+    torch.cuda.empty_cache()
+    print("[runtime] fleet: every job equals its solo run bit for bit")
+    serial = Fleet([JobSpec.from_dict({**s.as_dict(), "name": s.name + "s",
+                                       "out": "", "record": ""})
+                    for s in jobs], os.path.join(tmp, "serial"),
+                   budget_bytes=budget, max_concurrent=1).run()["fleet"]
+    print(f"[runtime] fleet wall {fl['seconds']:.3f} s (3 jobs, 2 at once, "
+          f"one killed and retried) against {serial['seconds']:.3f} s for "
+          f"the three one at a time ({fl['seconds'] / serial['seconds']:.3f})")
+
+
+def _solo_y(spec):
+    from tsne_flink_tpu_torch.runtime.fleet import JobSpec, run_job
+    import tempfile
+    fd, out = tempfile.mkstemp(suffix=".npy")
+    os.close(fd)
+    try:
+        run_job(JobSpec.from_dict({**spec.as_dict(), "out": out}))
+        return np.load(out)
+    finally:
+        os.remove(out)
+
+
+class HostReads:
+    """Counts, over a ``with`` block, the port's reads of device state: a
+    synchronize, a scalar read, a truth test, a copy to the host — all of
+    them, and those made while the segment runner runs the optimize loop
+    (``loop``: the reads at report boundaries).  The profiler's own
+    synchronize when it stops (``--profile``) is not the port's and is
+    not counted."""
+
+    NAMES = (("cuda", "synchronize"), ("Tensor", "item"),
+             ("Tensor", "__bool__"), ("Tensor", "tolist"),
+             ("Tensor", "cpu"))
+
+    def __enter__(self):
+        import torch
+        from tsne_flink_tpu_torch.runtime import segments
+        self.count = self.loop = 0
+        self._in_loop = False
+        self._saved = []
+        for owner, name in self.NAMES:
+            obj = torch.cuda if owner == "cuda" else torch.Tensor
+            real = getattr(obj, name)
+            self._saved.append((obj, name, real))
+
+            def counted(*a, _real=real, **kw):
+                caller = sys._getframe(1).f_globals.get("__name__", "")
+                if not caller.startswith(("torch.profiler",
+                                          "torch.autograd")):
+                    self.count += 1
+                    self.loop += self._in_loop
+                return _real(*a, **kw)
+            setattr(obj, name, counted)
+        real_run = segments.run_segments
+        self._saved.append((segments, "run_segments", real_run))
+
+        def run(*a, **kw):
+            self._in_loop = True
+            try:
+                return real_run(*a, **kw)
+            finally:
+                self._in_loop = False
+        segments.run_segments = run
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, real in self._saved:
+            setattr(obj, name, real)
+        return False
+
+
+def runtime_tracing(x_np, tmp):
+    """[runtime] 5: config 2's command line (``--knnMethod project --theta
+    0.5``, 60,000 x 784 blobs from a COO CSV) plain, with ``--trace
+    --metricsOut``, with ``--profile`` as well, and plain again: the same
+    output bytes, the same launches and the same host reads (all, and in
+    the optimize loop); the trace holds the JAX package's span names for
+    the stages the port runs, the profile directory is not empty; each
+    one's wall time against the plain runs'."""
+    from tsne_flink_tpu_torch.models import autopilot as ap
+    coo = os.path.join(tmp, "mnist60k.csv")
+    write_coo(coo, x_np)
+    f = x_np.shape[1]
+
+    def argv(out, *extra):
+        return ["--input", coo, "--output", os.path.join(tmp, out),
+                "--loss", os.path.join(tmp, out + ".loss"), "--dimension",
+                str(f), "--perplexity", str(PERPLEXITY), "--iterations",
+                str(ITERATIONS), "--knnMethod", "project", "--theta", "0.5",
+                "--noCache", *extra]
+    trace, metrics = os.path.join(tmp, "t.json"), os.path.join(tmp, "m.json")
+    prof = os.path.join(tmp, "prof")
+    runs = {}
+    for tag, extra in (("plain", ()),
+                       ("traced", ("--trace", trace, "--metricsOut",
+                                   metrics)),
+                       ("profiled", ("--trace", trace, "--metricsOut",
+                                     metrics, "--profile", prof)),
+                       ("plain2", ())):
+        ap.reset_host_reads()
+        t0 = time.perf_counter()
+        with HostReads() as reads:
+            y, counts, stages, _ = run_cli(f"runtime {tag}", argv(
+                tag + ".csv", *extra))
+        runs[tag] = (y, counts, (reads.count, reads.loop, ap.host_reads()),
+                     time.perf_counter() - t0)
+        print(f"[runtime] tracing {tag}: {runs[tag][3]:.3f} s, host reads "
+              f"{reads.count} ({reads.loop} in the optimize loop, "
+              f"{ap.host_reads()} by the autopilot)")
+    plain = runs["plain"]
+    for tag in ("traced", "profiled", "plain2"):
+        y, counts, reads, _ = runs[tag]
+        check(same_bits(plain[0], y) and plain[1] == counts
+              and plain[2] == reads,
+              f"[runtime] tracing: {tag} changed the bits, launches or "
+              "host reads")
+    names = {e["name"] for e in json.load(open(trace))["traceEvents"]}
+    want = {"cli.run", "prepare.knn", "prepare.affinities",
+            "knn.zorder_seed", "knn.zorder_cycles", "knn.merge",
+            "knn.refine", "optimize.segment"}
+    snap = json.load(open(metrics))
+    base = (plain[3] + runs["plain2"][3]) / 2
+    print(f"[runtime] tracing: span names {sorted(names)}; metrics keys "
+          f"{sorted(snap)}; profile files {os.listdir(prof)}; wall against "
+          f"the plain runs' mean {base:.3f} s: --trace --metricsOut "
+          f"{runs['traced'][3] - base:+.3f} s, with --profile "
+          f"{runs['profiled'][3] - base:+.3f} s")
+    check(want <= names and os.listdir(prof),
+          f"[runtime] tracing: missing spans {want - names} or profile")
+
+
+def phase_runtime(x_np, xl_np, xc_np, tmp, serve_memory):
+    """[runtime]: the memory model, a real OOM, the fault rehearsals, the
+    fleet and tracing, on the card (queue A15)."""
+    t0 = time.perf_counter()
+    context = runtime_context()
+    for tag, pred, meas in serve_memory:
+        print(f"[runtime] memory serve {tag}: transform_peak "
+              f"{pred / 2**20:.1f} MiB, measured {meas / 2**20:.1f} MiB "
+              f"(resident model included), ratio {pred / meas:.3f}")
+    runtime_memory({"blobs": x_np, "latent": xl_np, "cells": xc_np},
+                   context)
+    runtime_real_oom(tmp)
+    runtime_rehearsals(x_np, tmp)
+    runtime_fleet(xl_np, tmp, context)
+    runtime_tracing(x_np, tmp)
+    print(f"[runtime] phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2932,6 +3574,7 @@ def main() -> int:
             "serve_large"] = serve["B5_large"]
         phase_diverging(x_np)
         phase_determinism(x_np, xl_np)
+        phase_runtime(x_np, xl_np, xc_np, tmp, serve["memory"])
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -1,7 +1,7 @@
 """The port's estimator and kNN autotune against the JAX package's.
 
 * ``TSNE``'s keyword arguments are the JAX estimator's, with the same
-  defaults, plus ``device``;
+  defaults, plus ``device`` and ``fault_plan``; ``aot_cache`` runs;
 * ``fit`` equals the port's ``tsne_embed`` bit for bit and ends within
   ``KL_GUARDRAIL_TOL`` of the JAX estimator; ``transform`` raises before
   a fit and serves after one, and arguments of parts not ported yet raise
@@ -45,11 +45,24 @@ def _blobs(n=600, d=8, seed=0):
 def test_kwargs_are_the_jax_estimators_plus_device():
     port = inspect.signature(TSNE.__init__).parameters
     ref = inspect.signature(JaxTSNE.__init__).parameters
-    assert list(port) == list(ref) + ["device"]
+    # fault_plan: the JAX estimator reads its plan from the environment
+    assert list(port) == list(ref) + ["device", "fault_plan"]
     for name, p in ref.items():
         assert port[name].default == p.default, name
         assert port[name].kind == p.kind, name
     assert port["device"].default is None
+    assert port["fault_plan"].default is None
+
+
+@pytest.mark.parametrize("aot_cache", [True, False])
+def test_aot_cache_runs(aot_cache):
+    from tsne_flink_tpu_torch.kernels.build import cache_enabled
+    x = _blobs(300).astype(np.float32)
+    est = TSNE(perplexity=8.0, n_iter=30, aot_cache=aot_cache,
+               device="cpu").fit(x)
+    ref = TSNE(perplexity=8.0, n_iter=30, device="cpu").fit(x)
+    np.testing.assert_array_equal(est.embedding_, ref.embedding_)
+    assert cache_enabled() is None  # the fit restored the setting
 
 
 @pytest.mark.parametrize("method", ["bruteforce", "project"])
@@ -104,7 +117,7 @@ class _Untouchable:
     ({"devices": 2}, "A14"), ({"mesh": 1}, "A14"),
     ({"sym_mode": "alltoall"}, "A14"), ({"sym_slack": 4}, "A14"),
     ({"sym_strict": True}, "A14"), ({"mesh_reduce": "psum"}, "A14"),
-    ({"aot_cache": True}, "A15"), ({"dtype": "bfloat16"}, "§C")])
+    ({"dtype": "bfloat16"}, "§C")])
 def test_unported_kwargs_refused_before_the_input(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         TSNE(device="cpu", **kw).fit(_Untouchable())

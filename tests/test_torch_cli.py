@@ -6,7 +6,7 @@
   (mode, theta, explicit, n, m);
 * every flag of a part not ported yet raises ``NotImplementedError``
   naming its ROADMAP queue item before the input is read (the input path
-  does not exist); ``auto`` with an explicit --theta past EXACT_N_MAX runs
+  does not exist); the runtime and observability flags run; ``auto`` with an explicit --theta past EXACT_N_MAX runs
   Barnes-Hut; --model and --transform (the serve route) go together, and
   a fat checkpoint serves query rows through them;
 * on a 600-point COO file (bruteforce, project, and the kNN graph as
@@ -125,11 +125,7 @@ REFUSED = [
     (["--symSlack", "4"], "A14"), (["--symStrict"], "A14"),
     (["--coordinator", "h:1", "--numProcesses", "2", "--processId", "0"],
      "A14"),
-    (["--meshReduce", "psum"], "A14"), (["--trace"], "A15"),
-    (["--metricsOut", "m.json"], "A15"), (["--faultPlan", "oom@knn"], "A15"),
-    (["--jobTimeout", "10"], "A15"), (["--stageTimeout", "10"], "A15"),
-    (["--aotCache"], "A15"), (["--noAotCache"], "A15"),
-    (["--profile", "p"], "A15"), (["--auditPlan"], "A16"),
+    (["--meshReduce", "psum"], "A14"), (["--auditPlan"], "A16"),
     (["--executionPlan"], "A16"), (["--dtype", "bfloat16"], "§C"),
 ]
 
@@ -144,6 +140,36 @@ def test_unported_flags_refused_before_the_input_is_read(tmp_path, extra,
     with pytest.raises(NotImplementedError, match=item):
         tcli.main(argv, device="cpu")
     assert not (tmp_path / "o.csv").exists()
+
+
+#: the runtime and observability flags (ported): each runs, and the
+#: file or record it promises appears
+RUNTIME_FLAGS = [
+    (["--trace", "{tmp}/t.json"], "t.json"),
+    (["--metricsOut", "{tmp}/m.json"], "m.json"),
+    (["--faultPlan", "oom@knn"], "events"),
+    (["--jobTimeout", "3600"], None), (["--stageTimeout", "3600"], None),
+    (["--aotCache"], None), (["--noAotCache"], None),
+    (["--profile", "{tmp}/prof"], "prof"),
+]
+
+
+@pytest.mark.parametrize("extra,made", RUNTIME_FLAGS,
+                         ids=[e[0] for e, _ in RUNTIME_FLAGS])
+def test_runtime_flags_run(tmp_path, files, capsys, extra, made):
+    out = tmp_path / "o.csv"
+    argv = ["--input", str(files["coo"]), "--output", str(out),
+            "--dimension", str(D), "--knnMethod", "bruteforce",
+            "--perplexity", str(PERPLEXITY), "--iterations", "20",
+            "--noCache", "--loss", str(tmp_path / "loss.txt"),
+            *[a.format(tmp=tmp_path) for a in extra]]
+    assert tcli.main(argv, device="cpu") == 0
+    assert out.exists()
+    err = capsys.readouterr().err
+    if made == "events":
+        assert "# runtime event:" in err and "shrink-knn-tiles" in err
+    elif made is not None:
+        assert (tmp_path / made).exists()
 
 
 @pytest.mark.parametrize("extra", [["--model", "m.npz"],

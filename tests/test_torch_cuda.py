@@ -1099,3 +1099,142 @@ def test_daemon_on_the_card(dev, tmp_path):
     for rid, q in reqs.items():
         assert np.array_equal(read_result(str(tmp_path), rid),
                               transform(model, q, bucket=32, iters=10))
+
+
+# ---- the runtime and observability layers (A15) ----------------------------
+
+def _blob_points(n=3000, d=64, seed=0):
+    rng = np.random.default_rng(seed)
+    c = rng.normal(size=(6, d)).astype(np.float32) * 4
+    return c[rng.integers(0, 6, n)] + rng.normal(size=(n, d)).astype(
+        np.float32)
+
+
+#: 40,000 hub-heavy blobs (chip_smoke.make_data's recipe at 40k rows):
+#: split rows wide enough that their [N, S] planes dwarf the blocks layout
+_HUB_BLOBS = """
+rng = np.random.default_rng(0)
+centers = rng.random((10, 784)).astype(np.float32)
+x = centers[rng.integers(0, 10, 40_000)] + 0.15 * rng.standard_normal(
+    (40_000, 784)).astype(np.float32)
+"""
+
+
+def test_memory_model_bounds_a_hub_heavy_run(dev):
+    """chip_smoke's [runtime] 1 at 40,000 points: the model's allocated
+    terms, given the width the run resolved, within [1, 2]x the run's
+    measured allocated peak."""
+    from tsne_flink_tpu_torch import TsneConfig
+    from tsne_flink_tpu_torch.analysis.audit.hbm import (allocated_peak,
+                                                         stage_terms)
+    from tsne_flink_tpu_torch.runtime.supervisor import (Supervisor,
+                                                         run_plan_from_fit,
+                                                         supervised_embed)
+    scope = {"np": np}
+    exec(_HUB_BLOBS, scope)
+    x = scope["x"]
+    cfg = TsneConfig(perplexity=30.0, iterations=30, repulsion="exact")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    widths = []
+    from tsne_flink_tpu_torch.utils import artifacts
+    real = artifacts.prepare
+
+    def recorded(*a, **kw):
+        out = real(*a, **kw)
+        widths.append(int(out.jidx.shape[1]))
+        return out
+    artifacts.prepare = recorded
+    try:
+        run = supervised_embed(x, cfg, supervisor=Supervisor(None),
+                               neighbors=90, seed=0)
+    finally:
+        artifacts.prepare = real
+    torch.cuda.synchronize()
+    got = torch.cuda.max_memory_allocated() - base
+    plan = run_plan_from_fit(40_000, 784, 90, cfg, "auto", "bruteforce",
+                             sym_width=widths[0])
+    pred = max(allocated_peak(t) for t in stage_terms(plan).values())
+    assert got <= pred <= 2 * got, (got, pred, widths)
+    assert torch.isfinite(run.state.y).all()
+
+
+_OOM_CHILD = r"""
+import json, sys
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+from tsne_flink_tpu_torch import TsneConfig
+from tsne_flink_tpu_torch.runtime.supervisor import (Supervisor,
+    run_plan_from_fit, supervised_embed)
+torch.cuda.set_per_process_memory_fraction(
+    float(sys.argv[2]) / torch.cuda.get_device_properties(0).total_memory)
+""" + _HUB_BLOBS + r"""
+cfg = TsneConfig(perplexity=30.0, iterations=30, repulsion="exact")
+sup = Supervisor(run_plan_from_fit(40_000, 784, 90, cfg, "auto",
+                                   "bruteforce"), max_retries=2)
+run = supervised_embed(x, cfg, supervisor=sup, neighbors=90,
+                       affinity_assembly=sys.argv[3], seed=0)
+np.save(sys.argv[4], run.state.y.cpu().numpy())
+print(json.dumps({"degradations": sup.degradations,
+                  "events": [e["type"] for e in sup.events]}))
+"""
+
+
+def test_real_oom_is_recovered_by_the_ladder(dev, tmp_path):
+    """chip_smoke's [runtime] 2 at 40,000 points: the split rows' [N, S]
+    planes run out of memory for real under an allocator capped at 3
+    GiB; the ladder takes the blocks rung, and the result equals an
+    uncapped run given blocks from the start."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = str(tmp_path / "y.npy")
+    got = subprocess.run([sys.executable, "-c", _OOM_CHILD, root,
+                          str(3 << 30), "auto", out],
+                         capture_output=True, text=True, timeout=600)
+    assert got.returncode == 0, got.stderr[-3000:]
+    rec = json.loads(got.stdout.strip().splitlines()[-1])
+    assert [d["action"] for d in rec["degradations"]] == ["assembly-blocks"]
+    ref = str(tmp_path / "ref.npy")
+    got = subprocess.run([sys.executable, "-c", _OOM_CHILD, root,
+                          str(60 << 30), "blocks", ref],
+                         capture_output=True, text=True, timeout=600)
+    assert got.returncode == 0, got.stderr[-3000:]
+    assert np.array_equal(np.load(out), np.load(ref))
+
+
+def test_tracing_changes_no_bit_and_no_launch(dev, tmp_path):
+    """chip_smoke's [runtime] 5 at 3,000 points: --trace/--metricsOut/
+    --profile leave the output bytes and the launch counts as they are."""
+    import json
+    import os
+    from tsne_flink_tpu_torch.kernels.build import launches
+    from tsne_flink_tpu_torch.utils.cli import main
+    x = _blob_points()
+    coo = tmp_path / "in.csv"
+    coo.write_text("".join(f"{i},{j},{float(x[i, j])!r}\n"
+                           for i in range(x.shape[0])
+                           for j in range(x.shape[1])))
+    counts = []
+    for tag, extra in (("plain", []),
+                       ("traced", ["--trace", str(tmp_path / "t.json"),
+                                   "--metricsOut", str(tmp_path / "m.json"),
+                                   "--profile", str(tmp_path / "prof")])):
+        reset_launches()
+        main(["--input", str(coo), "--output", str(tmp_path / f"{tag}.csv"),
+              "--loss", str(tmp_path / f"{tag}.loss"), "--dimension", "64",
+              "--knnMethod", "bruteforce", "--perplexity", "10",
+              "--iterations", "60", "--noCache", *extra])
+        torch.cuda.synchronize()
+        counts.append(launches())
+    assert counts[0] == counts[1] and counts[0]["B1"] == 1
+    assert ((tmp_path / "plain.csv").read_bytes()
+            == (tmp_path / "traced.csv").read_bytes())
+    names = {e["name"] for e in json.load(open(tmp_path / "t.json"))[
+        "traceEvents"]}
+    assert {"prepare.knn", "prepare.affinities", "optimize.segment"} <= names
+    assert os.listdir(tmp_path / "prof")

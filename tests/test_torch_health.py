@@ -219,7 +219,11 @@ def test_estimator_segmented_path():
     assert est.metrics_["policy"]["autopilot"]
     assert np.isfinite(est.embedding_).all()
     plain = TSNE(perplexity=8.0, n_iter=60, device="cpu").fit(x)
-    assert plain.metrics_ == {} and plain.runtime_events_ is None
+    # the fast path: the obs snapshot (ROADMAP A15), no loop extras, and
+    # the supervisor's empty record
+    assert set(plain.metrics_) == {"schema", "counters", "gauges",
+                                   "histograms"}
+    assert plain.runtime_events_ == [] and plain.degradations_ == []
     # the sentinel and telemetry alone keep tsne_embed's bits (no stride)
     est = TSNE(perplexity=8.0, n_iter=60, health_check=True, telemetry=True,
                device="cpu").fit(x)

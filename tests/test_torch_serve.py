@@ -10,7 +10,7 @@
 * ``model_id`` equal to JAX's from the same arrays and from the same
   JAX-written fat checkpoint; ``load_model`` leaves the directory
   byte-identical and refuses v1 and hash-less files; ``transform_peak``
-  equal to the JAX HBM model's;
+  equal to the JAX HBM model's plus the query kNN's sort (``query_sort``);
 * ``transform`` against JAX (exact and fft, f64 rtol 1e-9 at 1, 8 and
   75 iterations), through the port's own field and through the JAX
   field carried over by ``convert.frozen_from_jax``; bit-identical across
@@ -204,8 +204,12 @@ def test_model_id_matches_jax_from_arrays(repulsion):
     assert tm.repulsion == jm.repulsion == repulsion
     assert tm.model_id == jm.model_id and len(tm.model_id) == 16
     assert tm.k == jm.k == 12 and tm.n == jm.n
+    # the JAX value plus the port's query kNN sort, exactly (fault C3)
+    from tsne_flink_tpu_torch.analysis.audit.hbm import transform_terms
+    sort = transform_terms(tm.serve_plan(256))["query_sort"]
+    assert sort > 0
     assert tm.transform_peak(256) == int(
-        transform_peak_bytes(jm.serve_plan(256)))
+        transform_peak_bytes(jm.serve_plan(256)) + sort)
     with pytest.raises(NotImplementedError, match="A16"):
         tm.admission_report(256)
 

@@ -18,7 +18,11 @@ autopilot, the landmark schedule) and loop extras (the divergence
 sentinel, telemetry) — and the batch job around it: the :class:`TSNE`
 estimator and the command line (``python -m
 tsne_flink_tpu_torch.utils.cli``, the ``tsne-torch`` script) with CSV
-ingest, checkpoints and the prepare-artifact cache.
+ingest, checkpoints and the prepare-artifact cache; out-of-sample
+serving (``serve/``); and the runtime and observability layers
+(``runtime/``: the run supervisor with its OOM ladder, fault injection,
+the job fleet under a memory budget; ``obs/``: tracing, metrics, memory
+watermarks; ``analysis/audit``: the memory model they charge).
 """
 
 from tsne_flink_tpu_torch.models.api import TSNE

@@ -13,16 +13,27 @@ Each kernel is a :class:`Kernel`: it launches its C entry point on
 PyTorch's current stream, raises on a non-zero return (a refused launch
 never runs and ``torch.cuda.synchronize`` would not report it), and counts
 its launches, so a run can show that the main path went through it.
+
+The keyed library is the port's compiled-program cache across processes
+(the JAX package's ``--aotCache``).  Concurrent processes (fleet
+children) take a cross-process :class:`~tsne_flink_tpu_torch.utils.locks
+.FileLock` around the build, so the first builds and the others load its
+file.  :func:`set_cache` ``(False)`` (``--noAotCache``) builds into a
+directory of this process's own, removed at exit; :func:`cache_state`
+reports ``hit`` (a library already on disk was loaded), ``built`` (this
+process compiled it) or ``off`` (nothing built or loaded yet).
 """
 
 from __future__ import annotations
 
+import atexit
 import ctypes
 import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -53,11 +64,55 @@ SIGNATURES = {
 }
 
 
+#: seconds a process waits for another's build of the same library, and
+#: the age past which a build lock counts as left by a process that died
+#: while building
+BUILD_WAIT_S = 900.0
+BUILD_LOCK_STALE_S = 600.0
+
+_CACHE_ENABLED: bool | None = None  # None / True: the keyed library
+_PRIVATE_DIR: Path | None = None
+_STATE = "off"
+
+
 @dataclass(frozen=True)
 class BuildResult:
     path: Path
     seconds: float   # 0.0 when an identical build was already on disk
     log: str         # nvcc's output (the -Xptxas -v resource lines)
+
+
+def set_cache(enabled: bool | None) -> None:
+    """``True``/``None``: build into and reuse the keyed library under
+    ``kernels/build/``; ``False``: build into a directory of this
+    process's own, removed at exit (takes effect at the next build; a
+    library already loaded in this process stays loaded)."""
+    global _CACHE_ENABLED
+    _CACHE_ENABLED = enabled
+
+
+def cache_enabled() -> bool | None:
+    """The current :func:`set_cache` value (callers save and restore it
+    around a run, as ``utils/cli.main`` does)."""
+    return _CACHE_ENABLED
+
+
+def cache_state() -> str:
+    """``hit`` | ``built`` | ``off``: how this process got its kernel
+    library."""
+    return _STATE
+
+
+def _build_dir() -> Path:
+    global _PRIVATE_DIR
+    if _CACHE_ENABLED is not False:
+        return BUILD_DIR
+    if _PRIVATE_DIR is None:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        _PRIVATE_DIR = Path(tempfile.mkdtemp(prefix=f"private_{os.getpid()}_",
+                                             dir=BUILD_DIR))
+        atexit.register(shutil.rmtree, _PRIVATE_DIR, True)
+    return _PRIVATE_DIR
 
 
 def nvcc() -> str:
@@ -85,14 +140,41 @@ def _digest() -> str:
 
 def build() -> BuildResult:
     """Compile ``csrc/*.cu`` into the keyed library unless it exists: one
-    ``nvcc -c`` per source, all running at once, then one link."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    ``nvcc -c`` per source, all running at once, then one link.  The
+    build holds the library's cross-process lock; a process that finds the
+    library built while it waited loads that file."""
+    from tsne_flink_tpu_torch.obs import metrics
+    from tsne_flink_tpu_torch.utils.locks import FileLock
+
+    global _STATE
+    root = _build_dir()
+    root.mkdir(parents=True, exist_ok=True)
     digest = _digest()
-    out = BUILD_DIR / f"libtsne_kernels_{digest}.so"
+    out = root / f"libtsne_kernels_{digest}.so"
     if out.exists():
+        _STATE = "hit"
+        metrics.counter("kernels.library_hits").inc()
         return BuildResult(out, 0.0, "")
+    lock = FileLock(str(out) + ".lock", stale_s=BUILD_LOCK_STALE_S)
+    if not lock.acquire(timeout_s=BUILD_WAIT_S):
+        raise RuntimeError(f"timed out after {BUILD_WAIT_S:.0f} s waiting "
+                           f"for another process's build of {out}")
+    try:
+        if out.exists():
+            _STATE = "hit"
+            metrics.counter("kernels.library_hits").inc()
+            return BuildResult(out, 0.0, "")
+        got = _compile(root, digest, out)
+    finally:
+        lock.release()
+    _STATE = "built"
+    metrics.counter("kernels.library_builds").inc()
+    return got
+
+
+def _compile(root: Path, digest: str, out: Path) -> BuildResult:
     tag = f"{digest}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in sources()]
+    objs = [root / f"{src.stem}_{tag}.o" for src in sources()]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
     procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),

@@ -2,15 +2,21 @@
 ``tsne_flink_tpu/models/api.py``).
 
 The in-process twin of the CLI: the JAX estimator's keyword arguments and
-defaults, plus ``device`` (None: the card).  ``fit`` runs the port's
-``tsne_embed`` and sets ``embedding_``, ``kl_trace_`` (the KL at every
-10th iteration) and ``kl_divergence_`` (the last of them).  With
-``health_check``, ``telemetry`` or ``autopilot`` it takes the segmented
-path instead (``runtime/segments.segmented_embed``, as the JAX estimator
-takes its supervised one) and also sets ``runtime_events_`` (the
-sentinel's rollbacks), ``metrics_["telemetry"]`` and
-``metrics_["policy"]`` (the rest of the JAX ``metrics_`` is the obs
-snapshot of ROADMAP queue A15).  Arguments of parts not ported yet raise
+defaults, plus ``device`` (None: the card) and ``fault_plan`` (the CLI's
+``--faultPlan``; the JAX estimator reads it from the environment).
+``fit`` runs the port's ``tsne_embed`` and sets ``embedding_``,
+``kl_trace_`` (the KL at every 10th iteration) and ``kl_divergence_``
+(the last of them).  With ``health_check``, ``telemetry``, ``autopilot``
+or a fault plan it takes the supervised path instead
+(``runtime/supervisor.supervised_embed``, as the JAX estimator does);
+an out-of-memory error on the fast path refits through it under
+``on_oom="ladder"``.  Either way it sets ``runtime_events_`` and
+``degradations_`` (the supervisor's record), ``trace_`` (the fit's
+spans, recorded in an ``obs/trace.collecting`` scope) and ``metrics_``
+(the obs snapshot, with ``metrics_["telemetry"]`` and
+``metrics_["policy"]`` when those ran).  ``aot_cache`` False builds the
+kernel library into a directory of the process's own
+(``kernels/build.set_cache``).  Arguments of parts not ported yet raise
 ``NotImplementedError`` naming their ROADMAP queue item when ``fit``
 starts, before the input is touched.  ``transform`` embeds new rows
 into the fitted map without moving it (``serve/transform.py``): the fit
@@ -33,6 +39,8 @@ class TSNE:
     ``dtype`` None means float32 on the card (the kernels' type) and the
     input's dtype on the CPU.  ``cache_dir`` enables the prepare-artifact
     cache under that root (None: off; a library writes no file unasked).
+    ``fault_plan`` installs a fault plan for the fit (``runtime/faults``;
+    deactivated when the fit ends).
     """
 
     def __init__(self, n_components: int = 2, perplexity: float = 30.0,
@@ -58,7 +66,8 @@ class TSNE:
                  aot_cache: bool | None = None,
                  telemetry: bool = False,
                  autopilot: bool = False,
-                 mesh_reduce: str = "canonical", device=None):
+                 mesh_reduce: str = "canonical", device=None,
+                 fault_plan: str | None = None):
         from tsne_flink_tpu_torch.ops.affinities import ATTRACTION_MODES
         from tsne_flink_tpu_torch.utils.cli import REPULSION_CHOICES
 
@@ -105,8 +114,6 @@ class TSNE:
         self.dtype = dtype
         self.affinity_assembly = affinity_assembly
         self.cache_dir = cache_dir
-        # accepted: the port has no run supervisor yet (ROADMAP queue
-        # A15), so an out-of-memory error propagates under either policy
         self.max_retries = max_retries
         self.on_oom = on_oom
         self.health_check = health_check
@@ -115,10 +122,13 @@ class TSNE:
         self.autopilot = autopilot
         self.mesh_reduce = mesh_reduce
         self.device = device
+        self.fault_plan = fault_plan
         self.embedding_ = None
         self.kl_divergence_ = None
         self.kl_trace_ = None
         self.runtime_events_ = None
+        self.degradations_ = None
+        self.trace_ = None
         self.metrics_ = {}
         self._fit_x = self._frozen = None
 
@@ -130,8 +140,7 @@ class TSNE:
             ("sym_mode/sym_slack/sym_strict",
              (self.sym_mode != "replicated" or self.sym_slack is not None
               or self.sym_strict), "A14"),
-            ("mesh_reduce='psum'", self.mesh_reduce != "canonical", "A14"),
-            ("aot_cache", self.aot_cache is not None, "A15"))
+            ("mesh_reduce='psum'", self.mesh_reduce != "canonical", "A14"))
         for name, is_set, item in unported:
             if is_set:
                 raise NotImplementedError(
@@ -160,17 +169,59 @@ class TSNE:
             autopilot=self.autopilot)
 
     def fit(self, x, y=None) -> "TSNE":
-        from tsne_flink_tpu_torch.utils.artifacts import ArtifactCache
-        from tsne_flink_tpu_torch.utils.cli import _device_count
+        from tsne_flink_tpu_torch.kernels import build as kbuild
+        from tsne_flink_tpu_torch.obs import metrics as obmetrics
+        from tsne_flink_tpu_torch.obs import trace as obtrace
+        from tsne_flink_tpu_torch.runtime import faults
         from tsne_flink_tpu_torch.utils.device import resolve_device
 
         device = resolve_device(self.device)
         self._refuse_unported(device)
+        prev_cache = kbuild.cache_enabled()
+        if self.aot_cache is not None:
+            kbuild.set_cache(self.aot_cache)
+        if self.fault_plan:
+            faults.activate(self.fault_plan)
+        i0 = obtrace.event_count()
+        try:
+            # the fit's spans, without flipping process-global tracing
+            with obtrace.collecting():
+                self._fit_body(x, device)
+        finally:
+            kbuild.set_cache(prev_cache)
+            if self.fault_plan:
+                faults.activate(None)
+        self.trace_ = obtrace.events_since(i0)
+        extra = self.metrics_
+        self.metrics_ = obmetrics.snapshot()
+        self.metrics_.update(extra)
+        return self
+
+    def _fit_body(self, x, device) -> None:
+        from tsne_flink_tpu_torch.runtime import faults
+        from tsne_flink_tpu_torch.runtime.supervisor import (
+            Supervisor, is_oom, release_memory, run_plan_from_fit,
+            supervised_embed)
+        from tsne_flink_tpu_torch.utils.artifacts import ArtifactCache
+        from tsne_flink_tpu_torch.utils.cli import _device_count
+
         cfg = self._config(len(x), device.type)
         dtype = ({"float32": torch.float32, "float64": torch.float64}
                  [self.dtype] if self.dtype is not None
                  else torch.float32 if device.type == "cuda" else None)
         x = torch.as_tensor(x, dtype=dtype, device=device)
+        n, d = x.shape
+        k = (self.neighbors if self.neighbors is not None
+             else 3 * int(cfg.perplexity))
+        sup = Supervisor(
+            run_plan_from_fit(n, d, k, cfg, self.affinity_assembly or "auto",
+                              self.knn_method,
+                              knn_rounds=self.knn_iterations,
+                              knn_refine=self.knn_refine,
+                              sym_width=self.sym_width, name="estimator-fit",
+                              backend=device.type),
+            max_retries=self.max_retries, on_oom=self.on_oom,
+            health_check=self.health_check)
         embed_kwargs = dict(
             neighbors=self.neighbors, knn_method=self.knn_method,
             knn_blocks=(self.knn_blocks if self.knn_blocks is not None
@@ -182,13 +233,32 @@ class TSNE:
             artifact_cache=(ArtifactCache(self.cache_dir)
                             if self.cache_dir is not None else None))
         self.metrics_ = {}
-        if self.health_check or self.telemetry or self.autopilot:
-            from tsne_flink_tpu_torch.runtime.segments import segmented_embed
-            self.runtime_events_ = []
-            run = segmented_embed(x, cfg, health_check=self.health_check,
-                                  telemetry=self.telemetry,
-                                  events=self.runtime_events_,
-                                  **embed_kwargs)
+        # the supervisor's live record: a fit that raises (the sentinel's
+        # DivergenceError) still shows what led there
+        self.runtime_events_ = sup.events
+        self.degradations_ = []
+        run = None
+        if (self.health_check or self.telemetry or self.autopilot
+                or faults.injector() is not None):
+            run = supervised_embed(x, cfg, supervisor=sup,
+                                   telemetry=self.telemetry, **embed_kwargs)
+        else:
+            try:
+                # the unsupervised fast path: tsne_embed's own bits
+                y_emb, losses = tsne_embed(x, cfg, **embed_kwargs)
+            except Exception as e:  # noqa: BLE001 — re-raised unless an OOM
+                if self.on_oom != "ladder" or not is_oom(e):
+                    raise
+                sup.events.append({"type": "oom", "stage": "fit",
+                                   "error": str(e)[:200]})
+            if sup.events:
+                # refit through the supervised path, whose stage-granular
+                # ladder degrades the plan; the failed attempt's memory
+                # goes back first (its traceback is gone)
+                sup.releases.append({"stage": "fit", **release_memory()})
+                run = supervised_embed(x, cfg, supervisor=sup,
+                                       **embed_kwargs)
+        if run is not None:
             y_emb, losses = run.state.y, run.losses
             if run.telemetry is not None:
                 from tsne_flink_tpu_torch.models.tsne import TELEMETRY_FIELDS
@@ -199,8 +269,8 @@ class TSNE:
                 from tsne_flink_tpu_torch.models.autopilot import \
                     policy_report
                 self.metrics_["policy"] = policy_report(run.cfg, run.pilot)
-        else:
-            y_emb, losses = tsne_embed(x, cfg, **embed_kwargs)
+        self.runtime_events_ = list(sup.events)
+        self.degradations_ = sup.degradations
         self.embedding_ = y_emb.cpu().numpy()
         # the fit keeps its input (as the fit ran it) for transform()
         self._fit_x = x.cpu().numpy()
@@ -209,7 +279,6 @@ class TSNE:
         self.kl_trace_ = losses.cpu().numpy()
         self.kl_divergence_ = (float(self.kl_trace_[-1])
                                if self.kl_trace_.size else float("nan"))
-        return self
 
     def fit_transform(self, x, y=None) -> np.ndarray:
         return self.fit(x).embedding_

@@ -551,10 +551,10 @@ def _prepare_run(x, cfg: TsneConfig, *, neighbors, knn_method,
                  knn_iterations, knn_refine, knn_blocks, seed, sym_width,
                  affinity_assembly, device, y0=None, artifact_cache=None,
                  knn_autotune=False) -> _Prepared:
-    """The stages before optimize, shared by :func:`tsne_embed` and the
-    segmented estimator path (``runtime/segments.segmented_embed``):
-    prepare (kNN, affinities), the init from ``seed`` (or ``y0``), and the
-    attraction layout's plan."""
+    """The stages before optimize of :func:`tsne_embed`: prepare (kNN,
+    affinities), the init from ``seed`` (or ``y0``), and the attraction
+    layout's plan (``runtime/supervisor.supervised_embed`` takes the same
+    steps, with the same draws, under the run supervisor)."""
     x = torch.as_tensor(x, device=device)
     n = x.shape[0]
     k = neighbors if neighbors is not None else 3 * int(cfg.perplexity)

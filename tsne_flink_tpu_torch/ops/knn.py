@@ -32,6 +32,7 @@ from dataclasses import dataclass
 
 import torch
 
+from tsne_flink_tpu_torch.obs import trace as obtrace
 from tsne_flink_tpu_torch.ops.knn_cuda import (CAND_F_MAX, K_MAX, fused_knn,
                                                refine_final, refine_keep)
 from tsne_flink_tpu_torch.ops.metrics import pairwise
@@ -690,10 +691,13 @@ def knn_project_refined(x: torch.Tensor, k: int, metric: str = "sqeuclidean",
     subs: dict = {}
 
     def run(name, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        if on_substage is not None:
-            subs[name] = subs.get(name, 0.0) + timed_stage(x.device, t0)
+        # the span ends after the substage's sync when one is timed, and
+        # measures host time (no sync of its own) otherwise
+        with obtrace.span(f"knn.{name}", cat="knn"):
+            t0 = time.perf_counter()
+            out = fn()
+            if on_substage is not None:
+                subs[name] = subs.get(name, 0.0) + timed_stage(x.device, t0)
         return out
 
     idx, dist = run("zorder_seed", lambda: knn_project(
@@ -725,20 +729,22 @@ def knn(x: torch.Tensor, k: int, method: str, metric: str = "sqeuclidean",
     method, rounds, refine = resolve_knn_plan(n, d, method, rounds, refine,
                                               k=k, backend=backend_of(x))
     if method in ("bruteforce", "partition"):
-        t0 = time.perf_counter()
-        out = (knn_bruteforce(x, k, metric) if method == "bruteforce"
-               else knn_partition(x, k, metric, blocks))
-        if on_substage is not None:
-            on_substage({"exact_sweep": timed_stage(x.device, t0)})
+        with obtrace.span("knn.exact_sweep", cat="knn", method=method):
+            t0 = time.perf_counter()
+            out = (knn_bruteforce(x, k, metric) if method == "bruteforce"
+                   else knn_partition(x, k, metric, blocks))
+            if on_substage is not None:
+                on_substage({"exact_sweep": timed_stage(x.device, t0)})
         return out
     if method == "project":
         if refine > 0:
             return knn_project_refined(x, k, metric, rounds, refine,
                                        generator, tiles=tiles,
                                        on_substage=on_substage)
-        t0 = time.perf_counter()
-        out = knn_project(x, k, metric, rounds, generator, tiles=tiles)
-        if on_substage is not None:
-            on_substage({"zorder_seed": timed_stage(x.device, t0)})
+        with obtrace.span("knn.zorder_seed", cat="knn"):
+            t0 = time.perf_counter()
+            out = knn_project(x, k, metric, rounds, generator, tiles=tiles)
+            if on_substage is not None:
+                on_substage({"zorder_seed": timed_stage(x.device, t0)})
         return out
     raise ValueError(f"Knn method '{method}' not defined")

@@ -15,8 +15,17 @@ read once at its boundary; a non-finite segment is rolled back and
 retried by ``runtime/health``'s policy: the segment-start state, eta
 halved for the rest of the run, the momentum buffer zeroed, the
 autopilot collapsed, a :func:`~tsne_flink_tpu_torch.runtime.health
-.rollback_event` appended to ``events``; past ``health_retries``
-rollbacks in a run it raises ``DivergenceError``.
+.rollback_event` appended to ``events`` (and a ``sentinel.rollback``
+trace instant); past ``health_retries`` rollbacks in a run it raises
+``DivergenceError``.
+
+The ``optimize`` fault site (``runtime/faults.py``) fires here, as in
+the JAX loop: at each segment's start (``oom``; ``nan`` poisons a copy
+of the segment's input y on the device, so the rollback is exercised end
+to end with no host sync) and after each boundary's checkpoint hook
+(``kill``).  Each segment runs under an ``optimize.segment`` span, which
+ends after the sentinel's read when it is armed and measures host time
+otherwise: it adds no sync.
 """
 
 from __future__ import annotations
@@ -27,7 +36,9 @@ from typing import NamedTuple
 import torch
 
 from tsne_flink_tpu_torch.models import tsne
-from tsne_flink_tpu_torch.runtime import health
+from tsne_flink_tpu_torch.obs import metrics as obmetrics
+from tsne_flink_tpu_torch.obs import trace as obtrace
+from tsne_flink_tpu_torch.runtime import faults, health
 
 
 class SegmentsResult(NamedTuple):
@@ -75,29 +86,48 @@ def run_segments(state: tsne.TsneState, jidx, jval, cfg: tsne.TsneConfig,
     if cfg.autopilot and pilot_carry is not None:
         pilot = (torch.as_tensor(pilot_carry[0], dtype=dt, device=dev),
                  tensor(pilot_carry[1]))
+    inj = faults.injector()
     total = cfg.iterations
     seg = every if every > 0 else total - start_iter
     it = start_iter
+    seg_index = 0
     retries_left = health_retries
     while it < total:
         step = min(seg, total - it)
-        out = tsne.optimize(state, jidx, jval, cfg, start_iter=it,
-                            num_iters=step, loss_carry=losses, edges=edges,
-                            edges_extra=edges_extra, csr=csr,
-                            with_health=health_check,
-                            with_telemetry=telemetry, telemetry_carry=tel,
-                            pilot_carry=pilot)
-        new_state, new_losses = out[0], out[1]
-        nxt = 2
-        new_tel = new_pilot = None
-        if telemetry:
-            new_tel, nxt = out[nxt], nxt + 1
-        if cfg.autopilot:
-            new_pilot = out[nxt]
-        if health_check and not bool(out[-1]):  # one read a segment
+        seg_index += 1
+        run_state = state
+        if inj is not None:
+            f = inj.fire("optimize", seg=seg_index, point="start")
+            if f is not None and f.kind == "nan":
+                # poison a copy of the segment's input; the segment-start
+                # state stays clean for the sentinel's rollback
+                y = state.y.clone()
+                y[0, 0] = float("nan")
+                run_state = state._replace(y=y)
+        with obtrace.span("optimize.segment", cat="optimize",
+                          seg=seg_index, start_iter=int(it),
+                          num_iters=int(step)) as sp:
+            out = tsne.optimize(run_state, jidx, jval, cfg, start_iter=it,
+                                num_iters=step, loss_carry=losses,
+                                edges=edges, edges_extra=edges_extra,
+                                csr=csr, with_health=health_check,
+                                with_telemetry=telemetry,
+                                telemetry_carry=tel, pilot_carry=pilot)
+            new_state, new_losses = out[0], out[1]
+            nxt = 2
+            new_tel = new_pilot = None
+            if telemetry:
+                new_tel, nxt = out[nxt], nxt + 1
+            if cfg.autopilot:
+                new_pilot = out[nxt]
+            diverged = health_check and not bool(out[-1])  # one read
+            if diverged:
+                sp.set(rollback=True)
+        if diverged:
             if retries_left <= 0:
                 raise health.DivergenceError(it, health_retries)
             retries_left -= 1
+            seg_index -= 1  # the retry re-runs the segment
             eta = cfg.learning_rate
             cfg = health.halved_eta(cfg)
             state = health.fresh_momentum(state)
@@ -111,6 +141,9 @@ def run_segments(state: tsne.TsneState, jidx, jval, cfg: tsne.TsneConfig,
                                        retries_left=retries_left)
             if events is not None:
                 events.append(ev)
+            obmetrics.counter("runtime.rollback").inc()
+            obtrace.instant("sentinel.rollback", cat="runtime",
+                            **{k: v for k, v in ev.items() if k != "type"})
             print(f"# sentinel: non-finite segment at iteration {it}; "
                   f"rolled back, eta {eta} -> {cfg.learning_rate}, "
                   "retrying", file=sys.stderr)
@@ -119,35 +152,8 @@ def run_segments(state: tsne.TsneState, jidx, jval, cfg: tsne.TsneConfig,
         it += step
         if on_boundary is not None and it < total:
             on_boundary(state, it, losses, pilot)
+        if inj is not None:
+            # kill@optimize:segN — after the boundary's checkpoint, so the
+            # resume contract is what the kill exercises
+            inj.fire("optimize", seg=seg_index, point="boundary")
     return SegmentsResult(state, losses, tel, pilot, cfg)
-
-
-def segmented_embed(x, cfg: tsne.TsneConfig, *, neighbors=None,
-                    knn_method: str = "bruteforce", knn_iterations=None,
-                    knn_refine=None, knn_blocks: int = 8, seed: int = 0,
-                    sym_width=None, affinity_assembly=None, device=None,
-                    artifact_cache=None, knn_autotune: bool = False,
-                    health_check: bool = False, telemetry: bool = False,
-                    events: list | None = None) -> SegmentsResult:
-    """``tsne_embed``'s prepare, init and plan, then :func:`run_segments`
-    in the JAX estimator's segments (``max(10, min(50, iterations //
-    10))`` iterations; ``runtime/supervisor.supervised_embed``).  The
-    estimator takes this path when the sentinel, telemetry or the
-    autopilot is armed; like the JAX one it runs no landmark schedule."""
-    from tsne_flink_tpu_torch.utils.device import resolve_device
-    device = resolve_device(device)
-    run = tsne._prepare_run(x, cfg, neighbors=neighbors,
-                            knn_method=knn_method,
-                            knn_iterations=knn_iterations,
-                            knn_refine=knn_refine, knn_blocks=knn_blocks,
-                            seed=seed, sym_width=sym_width,
-                            affinity_assembly=affinity_assembly,
-                            device=device, artifact_cache=artifact_cache,
-                            knn_autotune=knn_autotune)
-    iters = cfg.iterations
-    every = max(tsne.LOSS_EVERY, min(50, iters // 10 or iters))
-    return run_segments(run.state, run.prep.jidx, run.prep.jval, cfg,
-                        every=every, edges=run.edges,
-                        edges_extra=run.layout == "blocks", csr=run.csr,
-                        health_check=health_check, events=events,
-                        telemetry=telemetry)

@@ -35,8 +35,10 @@ answers:
   (answered by ``<name>.swap.done.json``).  Requests bind their model at
   claim, so no response mixes models.
 
-Replica mode (heartbeats, claim stale-break by heartbeat, shedding) is
-ROADMAP queue A13b; the watchdog, fault sites and trace spans are A15.
+Replica mode (heartbeats, claim stale-break by heartbeat, shedding), the
+daemon's watchdog, its ``serve`` fault site and its trace spans are
+ROADMAP queue A13b (``runtime/faults.activate`` refuses a plan that names
+the ``serve`` site).
 The port reads no environment variable: every knob is an argument whose
 default is the JAX package's.
 """

@@ -14,10 +14,12 @@ v1 and hash-less files refused).  ``model_id`` is the JAX package's,
 computed with the same sha256 recipe over the same numpy bytes, so a
 request that pins a model id names the same model on both packages.
 
-:class:`PlanConfig` holds only the plan fields serving reads; the JAX
-package's full ``PlanConfig`` and its HBM report belong to the analysis
-tier (ROADMAP queue A16).  :meth:`FrozenModel.transform_peak` is the
-arithmetic of the JAX ``analysis/audit/hbm._transform_stage``.
+:class:`PlanConfig` is the memory model's (``analysis/audit/plan.py``,
+the JAX package's fields), and :meth:`FrozenModel.transform_peak` its
+transform stage (``analysis/audit/hbm.transform_peak_bytes``): the JAX
+arithmetic plus the query kNN's sort (``query_sort``), and on the card
+the port's own terms.  The full report of a serving plan
+(``admission_report``) belongs to the analysis tier (ROADMAP queue A16).
 """
 
 from __future__ import annotations
@@ -28,37 +30,12 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-#: the factor the JAX HBM model charges a pipelined transient tile
-#: (``analysis/audit/hbm.PIPELINE_FACTOR``)
-PIPELINE_FACTOR = 2
+from tsne_flink_tpu_torch.analysis.audit.hbm import (residency_report,
+                                                     transform_peak_bytes)
+from tsne_flink_tpu_torch.analysis.audit.plan import PlanConfig
 
-
-@dataclass(frozen=True)
-class PlanConfig:
-    """The fields of a run's plan that serving reads (the JAX
-    ``analysis/audit/plan.PlanConfig``'s names and defaults)."""
-
-    n: int
-    d: int
-    k: int = 90
-    n_components: int = 2
-    backend: str = "cuda"            # cuda | cpu
-    repulsion: str = "auto"          # auto resolves by pick_repulsion
-    theta: float = 0.25
-    theta_explicit: bool = False
-    row_chunk: int = 2048
-    itemsize: int = 4
-    fft_grid: int | None = None      # None: repulsion_fft.DEFAULT_GRID
-    serve_queries: int = 0           # rows a transform bucket holds
-    name: str = "plan"
-
-    def resolved_repulsion(self) -> str:
-        """The repulsion the optimizer would dispatch for this plan."""
-        from tsne_flink_tpu_torch.utils.cli import pick_repulsion
-        return pick_repulsion(self.repulsion or "auto", self.theta, self.n,
-                              self.n_components, self.theta_explicit,
-                              backend=self.backend)
-
+__all__ = ["FrozenModel", "PlanConfig", "from_arrays", "frozen_from_files",
+           "load_frozen", "residency_report", "serve_repulsion"]
 
 def _fingerprint(*arrays) -> str:
     """sha256 over (dtype, shape, bytes) of each array, in order (the JAX
@@ -77,55 +54,6 @@ def serve_repulsion(plan: PlanConfig) -> str:
     against a frozen base at bucket sizes; the fft field precomputes
     entirely)."""
     return "fft" if plan.resolved_repulsion() == "fft" else "exact"
-
-
-def _transform_stage(plan: PlanConfig) -> dict:
-    """The serving process's steady state in bytes: the frozen model
-    resident (base X and Y, the [N, k] graph of a fat checkpoint, the FFT
-    potentials when fft serves) plus one bucket of ``serve_queries`` rows'
-    transients (the [c, N] query sweep, the query working set, the
-    attraction and repulsion tiles)."""
-    n, d, k, m, isz = (plan.n, plan.d, plan.k, plan.n_components,
-                       plan.itemsize)
-    b = int(plan.serve_queries)
-    rep = plan.resolved_repulsion()
-    terms: dict = {"repulsion": rep}
-    model = float(n * d * isz + n * m * isz + n * k * (4 + isz))
-    if rep == "fft":
-        from tsne_flink_tpu_torch.ops.repulsion_fft import DEFAULT_GRID
-        g = plan.fft_grid or DEFAULT_GRID.get(m, 1024)
-        model += float((2 + m) * g ** m * isz)
-    terms["model"] = model
-    from tsne_flink_tpu_torch.ops.knn_tiles import pick_knn_tiles
-    tiles = pick_knn_tiles(max(b, 1), d, k, plan.backend)
-    c = min(tiles.row_chunk, max(b, 1))
-    terms["knn_tile"] = PIPELINE_FACTOR * c * n * isz
-    terms["queries"] = float(b * d * isz + 3.0 * b * m * isz
-                             + b * k * (4 + 2.0 * isz))
-    rows = min(plan.row_chunk, max(b, 1))
-    attr = PIPELINE_FACTOR * rows * k * (m * isz + 4.0 * isz)
-    rep_tile = 0.0 if rep == "fft" else PIPELINE_FACTOR * rows * n * isz
-    terms["attraction"] = attr
-    terms["repulsion_tile"] = rep_tile
-    terms["peak"] = (model + terms["knn_tile"] + terms["queries"] + attr
-                     + rep_tile)
-    return terms
-
-
-def residency_report(plans) -> dict:
-    """Several resident models: their arrays all at once, plus at most
-    two buckets' transients (the double-buffered tick), beside the
-    conservative sum the admission gate charges."""
-    stages = [_transform_stage(p) for p in plans]
-    resident = float(sum(s["model"] for s in stages))
-    transient = max((float(s["peak"]) - float(s["model"]) for s in stages),
-                    default=0.0)
-    return {"models": len(stages),
-            "resident_bytes": int(resident),
-            "transient_bytes": int(transient),
-            "peak_bytes": int(resident + 2.0 * transient),
-            "conservative_sum_bytes": int(sum(float(s["peak"])
-                                              for s in stages))}
 
 
 @dataclass(frozen=True)
@@ -171,7 +99,7 @@ class FrozenModel:
     def transform_peak(self, bucket: int) -> int:
         """Predicted peak bytes of this model serving ``bucket``-row
         buckets: the unit the daemon's residency admission sums."""
-        return int(_transform_stage(self.serve_plan(int(bucket)))["peak"])
+        return transform_peak_bytes(self.serve_plan(int(bucket)))
 
 
 def from_arrays(x, y, plan: PlanConfig, *, perplexity: float = 30.0,

@@ -28,8 +28,9 @@ per-row independence, the result is bit-identical across batch splits
 padded, never trimmed.
 
 The stages of one (model, bucket, iters, eta) are built once and cached
-(:func:`stage_cache`); ``cache_states()`` reports ``"off"``, as there is
-no persistent executable cache (ROADMAP queue A15).  On the card,
+(:func:`stage_cache`); ``cache_states()`` reports how the process got
+the compiled kernels the stages launch (``kernels/build.cache_state``:
+``hit`` | ``built``; ``off`` on the CPU or before any launch).  On the card,
 :func:`dispatch_bucket` returns the result tensor without a host sync:
 the loop reads nothing back, and the query rows reach the card through a
 pinned buffer.  The port reads no environment variable: the pickers take
@@ -96,7 +97,8 @@ class _Stages:
         self.optimize = optimize
 
     def cache_states(self) -> tuple:
-        return ("off", "off", "off")
+        from tsne_flink_tpu_torch.kernels.build import cache_state
+        return (cache_state(),) * 3
 
 
 def _momentum_switch(iters: int) -> int:

@@ -17,8 +17,15 @@ Tile sizes are not fingerprinted (as in the JAX package): the refine
 chunk never changes the graph and the band block is pinned
 (``ops/knn_tiles``), so an autotuned chunk never splits the cache.
 
-The JAX function's AOT executables, trace spans and fault hooks are
-ROADMAP queue A15.
+As in the JAX package, each stage runs under a trace span
+(``prepare.knn``, ``prepare.affinities``) that ends after the stage's
+closing device sync, starts with its fault site (``fire("knn")``,
+``fire("affinities")``, ``runtime/faults.py``), and ends with a memory
+watermark sample (``obs/memory.py``) and the caller's ``on_stage`` hook
+(the supervisor's stage tracking, the fleet's watchdog heartbeat).
+Cache writes take a cross-process :class:`~tsne_flink_tpu_torch.utils
+.locks.FileLock` per entry, so concurrent fleet jobs preparing the same
+key do not interleave.
 """
 
 from __future__ import annotations
@@ -36,6 +43,8 @@ import torch
 # resolve_knn_plan lives with the policies it applies; it is importable
 # from here as from the JAX package's utils/artifacts
 from tsne_flink_tpu_torch.convert import to_numpy
+from tsne_flink_tpu_torch.obs import memory as obmem
+from tsne_flink_tpu_torch.obs import trace as obtrace
 from tsne_flink_tpu_torch.ops.knn import resolve_knn_plan
 from tsne_flink_tpu_torch.utils.device import resolve_device, timed_stage
 
@@ -105,7 +114,8 @@ class ArtifactCache:
 
     :meth:`load` checks the magic, the embedded fingerprint and the
     required array names; a damaged, foreign or mismatched file is deleted
-    and reported as a miss.  :meth:`save` is atomic (tmp + rename)."""
+    and reported as a miss.  :meth:`save` is atomic (tmp + rename) under
+    the entry's cross-process lock."""
 
     def __init__(self, root: str | None = None):
         self.root = root or default_root()
@@ -144,22 +154,36 @@ class ArtifactCache:
 
     def save(self, kind: str, fp: str, arrays: dict) -> bool:
         """Write the entry; False (and no file) when the root is not
-        writable."""
+        writable or another process holds the entry's lock past the
+        bounded wait (it is writing these same content-addressed bytes)."""
+        from tsne_flink_tpu_torch.utils.locks import FileLock
+
         arrays = {k: to_numpy(v) for k, v in arrays.items()}
+        path = self.path(kind, fp)
         try:
             os.makedirs(self.root, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(dir=self.root, suffix=".artifact.tmp")
         except OSError:
+            return False
+        lock = FileLock(path + ".lock")
+        if not lock.acquire():
             return False
         try:
-            with os.fdopen(fd, "wb") as f:
-                np.savez(f, magic=MAGIC, fingerprint=fp, **arrays)
-            os.replace(tmp, self.path(kind, fp))
-        except OSError:
-            return False
+            try:
+                fd, tmp = tempfile.mkstemp(dir=self.root,
+                                           suffix=".artifact.tmp")
+            except OSError:
+                return False
+            try:
+                with os.fdopen(fd, "wb") as f:
+                    np.savez(f, magic=MAGIC, fingerprint=fp, **arrays)
+                os.replace(tmp, path)
+            except OSError:
+                return False
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
         finally:
-            if os.path.exists(tmp):
-                os.unlink(tmp)
+            lock.release()
         return True
 
 
@@ -184,6 +208,7 @@ class PrepareResult:
     knn_fp: str | None = None
     affinity_fp: str | None = None
     knn_tiles: dict | None = None  # the tile plan the kNN ran with
+    memory: dict | None = None     # {stage: obs/memory sample} at stage end
 
 
 def prepare_fingerprints(x=None, knn=None, *, neighbors: int,
@@ -224,7 +249,8 @@ def prepare(x=None, *, knn=None, neighbors: int,
             seed: int | None = None, perplexity: float,
             assembly: str = "auto", sym_width: int | None = None,
             device=None, cache: ArtifactCache | None = None,
-            knn_tiles=None, knn_autotune: bool = False) -> PrepareResult:
+            knn_tiles=None, knn_autotune: bool = False,
+            on_stage=None) -> PrepareResult:
     """kNN (or the given ``knn=(idx, dist)``), then the symmetrized P by
     ``assembly``: ``auto`` (``affinity_auto``: split rows, or blocks when
     the rows would not fit), ``blocks`` (``affinity_blocks``), or
@@ -243,21 +269,23 @@ def prepare(x=None, *, knn=None, neighbors: int,
     the tile shapes; ``knn_autotune`` replaces the model's refine chunk
     by the fastest measured (``autotune_knn_tiles``) when the graph is
     computed by a refining plan.  The plan used lands in
-    ``PrepareResult.knn_tiles``."""
-    from tsne_flink_tpu_torch.ops import affinities as aff
-    from tsne_flink_tpu_torch.ops.knn import (backend_of, check_knn_limits,
-                                              knn as knn_dispatch)
+    ``PrepareResult.knn_tiles``.
+
+    ``on_stage(stage, seconds, cache_state)`` is called after each stage
+    (``knn``, then ``affinities``); it changes no bit of the result."""
+    from tsne_flink_tpu_torch.ops.knn import backend_of, check_knn_limits
+    from tsne_flink_tpu_torch.runtime import faults
 
     if assembly not in ("auto", "sorted", "split", "blocks"):
         raise ValueError(f"assembly '{assembly}' not defined "
                          "(auto | sorted | split | blocks)")
+    inj = faults.injector()  # None (one check) without a fault plan
     device = resolve_device(device)
     k = int(neighbors)
     t0 = time.perf_counter()
     given = x if knn is None else knn  # hashed as given: no device copy
-    if knn is not None:
-        idx, dist = (torch.as_tensor(a, device=device) for a in knn)
-    else:
+    method = refine = None
+    if knn is None:
         x = torch.as_tensor(x, device=device)
         n, d = x.shape
         method, rounds, refine = resolve_knn_plan(
@@ -278,36 +306,95 @@ def prepare(x=None, *, knn=None, neighbors: int,
             knn_rounds=knn_rounds, knn_refine=knn_refine, seed=seed,
             perplexity=perplexity, assembly=assembly, sym_width=sym_width,
             device=device)
-    subs = tiles_rec = None
-    if knn is not None:
-        knn_cache = "input"
-    else:
-        got = (cache.load(KIND_KNN, knn_fp, ("idx", "dist"))
-               if cache is not None else None)
-        if got is not None:
-            idx, dist = (torch.as_tensor(got[nm], device=device)
-                         for nm in ("idx", "dist"))
-            knn_cache = "warm"
-        else:
-            from tsne_flink_tpu_torch.ops.knn_tiles import (
-                autotune_knn_tiles, pick_knn_tiles)
-            tiles = knn_tiles or pick_knn_tiles(n, d, k, backend_of(x))
-            if (knn_autotune and knn_tiles is None and method == "project"
-                    and refine):
-                tiles = autotune_knn_tiles(x, k, metric, plan=tiles)
-            tiles_rec = tiles.as_record()
-            subs = {}
-            idx, dist = knn_dispatch(x, k, knn_method, metric,
-                                     blocks=knn_blocks, rounds=knn_rounds,
-                                     refine=knn_refine, generator=generator,
-                                     tiles=tiles, on_substage=subs.update)
-            knn_cache = "off"
-            if cache is not None:
-                cache.save(KIND_KNN, knn_fp, {"idx": idx, "dist": dist})
-                knn_cache = "cold"
-    t_knn = timed_stage(device, t0)
 
+    # ---- kNN graph: the span ends after the stage's closing sync, and
+    # the try/finally keeps the span stack clean when the stage raises (an
+    # out-of-memory error unwinds to the supervisor, which relaunches)
+    subs = tiles_rec = None
+    sp_knn = obtrace.begin("prepare.knn", cat="prepare")
+    try:
+        if inj is not None:
+            inj.fire("knn")
+        if knn is not None:
+            idx, dist = (torch.as_tensor(a, device=device) for a in knn)
+            knn_cache = "input"
+        else:
+            got = (cache.load(KIND_KNN, knn_fp, ("idx", "dist"))
+                   if cache is not None else None)
+            if got is not None:
+                idx, dist = (torch.as_tensor(got[nm], device=device)
+                             for nm in ("idx", "dist"))
+                knn_cache = "warm"
+            else:
+                idx, dist, subs, tiles_rec = _compute_knn(
+                    x, k, knn_method, metric, method, refine,
+                    knn_rounds=knn_rounds, knn_refine=knn_refine,
+                    knn_blocks=knn_blocks, generator=generator,
+                    knn_tiles=knn_tiles, knn_autotune=knn_autotune)
+                knn_cache = "off"
+                if cache is not None:
+                    cache.save(KIND_KNN, knn_fp, {"idx": idx, "dist": dist})
+                    knn_cache = "cold"
+        t_knn = timed_stage(device, t0)
+        sp_knn.set(cache=knn_cache)
+    finally:
+        sp_knn.end()
+    mem_knn = obmem.sample("knn", device)
+    if on_stage is not None:
+        on_stage("knn", t_knn, knn_cache)
+
+    # ---- affinities: beta search + symmetrized assembly ----
     t0 = time.perf_counter()
+    sp_aff = obtrace.begin("prepare.affinities", cat="prepare")
+    try:
+        if inj is not None:
+            inj.fire("affinities")
+        jidx, jval, extra, label, affinity_cache = _affinity_stage(
+            idx, dist, perplexity=perplexity, assembly=assembly,
+            sym_width=sym_width, cache=cache, affinity_fp=affinity_fp,
+            device=device)
+        t_aff = timed_stage(device, t0)
+        sp_aff.set(cache=affinity_cache, assembly=label)
+    finally:
+        sp_aff.end()
+    mem_aff = obmem.sample("affinities", device)
+    if on_stage is not None:
+        on_stage("affinities", t_aff, affinity_cache)
+    return PrepareResult(idx=idx, dist=dist, jidx=jidx, jval=jval,
+                         extra_edges=extra, label=label, knn_seconds=t_knn,
+                         affinity_seconds=t_aff, knn_substages=subs,
+                         knn_cache=knn_cache, affinity_cache=affinity_cache,
+                         knn_fp=knn_fp, affinity_fp=affinity_fp,
+                         knn_tiles=tiles_rec,
+                         memory={"knn": mem_knn, "affinities": mem_aff})
+
+
+def _compute_knn(x, k, knn_method, metric, method, refine, *, knn_rounds,
+                 knn_refine, knn_blocks, generator, knn_tiles,
+                 knn_autotune):
+    """The kNN graph computed: ``(idx, dist, substage seconds, the tile
+    plan's record)``."""
+    from tsne_flink_tpu_torch.ops.knn import backend_of, knn as knn_dispatch
+    from tsne_flink_tpu_torch.ops.knn_tiles import (autotune_knn_tiles,
+                                                    pick_knn_tiles)
+    n, d = x.shape
+    tiles = knn_tiles or pick_knn_tiles(n, d, k, backend_of(x))
+    if knn_autotune and knn_tiles is None and method == "project" and refine:
+        tiles = autotune_knn_tiles(x, k, metric, plan=tiles)
+    subs = {}
+    idx, dist = knn_dispatch(x, k, knn_method, metric, blocks=knn_blocks,
+                             rounds=knn_rounds, refine=knn_refine,
+                             generator=generator, tiles=tiles,
+                             on_substage=subs.update)
+    return idx, dist, subs, tiles.as_record()
+
+
+def _affinity_stage(idx, dist, *, perplexity, assembly, sym_width, cache,
+                    affinity_fp, device):
+    """The joint P, loaded or computed: ``(jidx, jval, extra, label,
+    cache state)``."""
+    from tsne_flink_tpu_torch.ops import affinities as aff
+
     got = (cache.load(KIND_AFFINITY, affinity_fp, ("label", "jidx", "jval"))
            if cache is not None else None)
     label = str(got["label"]) if got is not None else None
@@ -320,29 +407,21 @@ def prepare(x=None, *, knn=None, neighbors: int,
         extra = (tuple(torch.as_tensor(got[nm], device=device)
                        for nm in ("rsrc", "rdst", "rval"))
                  if label == "blocks" else None)
-        affinity_cache = "warm"
+        return jidx, jval, extra, label, "warm"
+    if assembly == "auto":
+        jidx, jval, extra, label = aff.affinity_auto(idx, dist, perplexity)
+    elif assembly == "blocks":
+        jidx, jval, extra = aff.affinity_blocks(idx, dist, perplexity)
+        label = "blocks"
     else:
-        if assembly == "auto":
-            jidx, jval, extra, label = aff.affinity_auto(idx, dist,
-                                                         perplexity)
-        elif assembly == "blocks":
-            jidx, jval, extra = aff.affinity_blocks(idx, dist, perplexity)
-            label = "blocks"
-        else:
-            jidx, jval = aff.affinity_pipeline(idx, dist, perplexity,
-                                               sym_width, assembly=assembly)
-            extra, label = None, assembly
-        affinity_cache = "off"
-        if cache is not None:
-            arrays = {"label": label, "jidx": jidx, "jval": jval}
-            if extra is not None:
-                arrays.update(rsrc=extra[0], rdst=extra[1], rval=extra[2])
-            cache.save(KIND_AFFINITY, affinity_fp, arrays)
-            affinity_cache = "cold"
-    t_aff = timed_stage(device, t0)
-    return PrepareResult(idx=idx, dist=dist, jidx=jidx, jval=jval,
-                         extra_edges=extra, label=label, knn_seconds=t_knn,
-                         affinity_seconds=t_aff, knn_substages=subs,
-                         knn_cache=knn_cache, affinity_cache=affinity_cache,
-                         knn_fp=knn_fp, affinity_fp=affinity_fp,
-                         knn_tiles=tiles_rec)
+        jidx, jval = aff.affinity_pipeline(idx, dist, perplexity, sym_width,
+                                           assembly=assembly)
+        extra, label = None, assembly
+    state = "off"
+    if cache is not None:
+        arrays = {"label": label, "jidx": jidx, "jval": jval}
+        if extra is not None:
+            arrays.update(rsrc=extra[0], rdst=extra[1], rval=extra[2])
+        cache.save(KIND_AFFINITY, affinity_fp, arrays)
+        state = "cold"
+    return jidx, jval, extra, label, state

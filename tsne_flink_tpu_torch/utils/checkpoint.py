@@ -83,7 +83,8 @@ def save(path: str, state: TsneState, next_iter: int, losses,
     go to a tmp file; with ``keep=2`` the existing ``path`` moves to
     ``<path>.1``, then the tmp file becomes ``path``.  ``prepare`` is the
     v2 payload, any subset of :data:`PREPARE_KEYS`; ``pilot`` the
-    autopilot's ``(state vector, policy trace)`` at this boundary."""
+    autopilot's ``(state vector, policy trace)`` at this boundary.  The
+    ``checkpoint`` fault site fires after the write."""
     extras = {}
     for k, v in (prepare or {}).items():
         if k not in PREPARE_KEYS:
@@ -111,6 +112,22 @@ def save(path: str, state: TsneState, next_iter: int, losses,
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
+    # the checkpoint fault site: corrupt@checkpoint flips a bit of the file
+    # just written (runtime/faults.py); loading it raises CheckpointCorrupt
+    from tsne_flink_tpu_torch.runtime import faults
+    inj = faults.injector()
+    if inj is not None:
+        inj.fire("checkpoint", path=path, point="boundary")
+
+
+def _stored_hash(z) -> str | None:
+    """The content hash a damaged file still names, when its own entry
+    reads back (the zip's CRC of another entry caught the damage)."""
+    try:
+        return str(z["content_hash"])
+    except (ValueError, KeyError, OSError, EOFError, zipfile.BadZipFile,
+            zlib.error):
+        return None
 
 
 def _read_verified(path: str) -> dict:
@@ -132,8 +149,8 @@ def _read_verified(path: str) -> dict:
             raise
         except (ValueError, KeyError, OSError, EOFError, zipfile.BadZipFile,
                 zlib.error) as e:
-            raise CheckpointCorrupt(path, detail=f"payload unreadable ({e})"
-                                    ) from e
+            raise CheckpointCorrupt(path, _stored_hash(z),
+                                    f"payload unreadable ({e})") from e
     expected = arrays.get("content_hash")
     if expected is not None and _content_hash(
             {k: v for k, v in arrays.items() if k != "content_hash"}

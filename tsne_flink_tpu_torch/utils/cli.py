@@ -10,15 +10,27 @@ write the embedding CSV and the loss trace.  It runs on the card;
     python -m tsne_flink_tpu_torch.utils.cli --input in.csv --output \\
         out.csv --dimension 784 --knnMethod project --theta 0.5
 
-The optimize loop runs through ``runtime/segments.run_segments``, with
-the divergence sentinel (``--healthCheck``), the telemetry trace
-(``--telemetry``; its rows are summarized on stderr, ``--metricsOut`` is
-ROADMAP queue A15) and the autopilot (``--autopilot``, its controller
-pair saved in every checkpoint and threaded by ``--resume``).  An
-explicit ``--theta`` past ``EXACT_N_MAX`` runs Barnes-Hut.  Flags of
-parts not ported yet raise ``NotImplementedError`` naming their ROADMAP
-queue item before the input is read (:data:`UNPORTED`).  The port reads
-no ``TSNE_*`` environment variable.
+The run goes through the run supervisor (``runtime/supervisor.py``), as
+in the JAX CLI: prepare and the segmented optimize loop
+(``runtime/segments.run_segments``) with the OOM degradation ladder
+(``--onOom ladder``, ``--maxRetries``), the divergence sentinel
+(``--healthCheck``), the telemetry trace (``--telemetry``; its rows are
+summarized on stderr and its last row rides ``--metricsOut``) and the
+autopilot (``--autopilot``, its controller pair saved in every
+checkpoint and threaded by ``--resume``).  ``--faultPlan`` installs a
+fault plan (``runtime/faults.py``); ``--jobTimeout`` / ``--stageTimeout``
+arm the watchdog (``runtime/fleet.Watchdog``: exit code 124; stage
+heartbeats come at prepare's stage ends and at segment boundaries, so
+give ``--checkpointEvery`` for beats inside optimize); ``--trace[=path]``
+writes the span trace (``obs/trace.py``, Chrome format, or JSONL for a
+``.jsonl`` path), ``--metricsOut`` the metrics snapshot, ``--profile
+dir`` a ``torch.profiler`` Chrome trace of the optimize stage;
+``--noAotCache`` builds the kernel library into a directory of the
+process's own (``kernels/build.set_cache``).  An explicit ``--theta``
+past ``EXACT_N_MAX`` runs Barnes-Hut.  Flags of parts not ported yet
+raise ``NotImplementedError`` naming their ROADMAP queue item before the
+input is read (:data:`UNPORTED`).  The port reads no ``TSNE_*``
+environment variable.
 """
 
 from __future__ import annotations
@@ -164,41 +176,52 @@ def build_parser() -> argparse.ArgumentParser:
                         "instead of fitting; writes id,y0,y1 rows to "
                         "--output")
     p.add_argument("--aotCache", dest="aotCache", action="store_true",
-                   default=None, help="not ported (ROADMAP queue A15)")
+                   default=None,
+                   help="keep and reuse the compiled kernel library across "
+                        "processes (the default: kernels/build/, keyed by "
+                        "the sources' hash)")
     p.add_argument("--noAotCache", dest="aotCache", action="store_false",
-                   help="not ported (ROADMAP queue A15)")
+                   help="build the kernel library into a directory of this "
+                        "process's own, removed at exit")
     p.add_argument("--cacheDir", default=None,
                    help="prepare-artifact cache root (kNN graph + joint P, "
                         "content-addressed .npz; utils/artifacts.py); "
                         "default: the repository-local .tsne_artifacts")
     p.add_argument("--noCache", action="store_true",
                    help="disable the prepare-artifact cache")
-    # --- runtime (ROADMAP queue A15) ---
+    # --- runtime (runtime/, obs/) ---
     p.add_argument("--maxRetries", type=int, default=2,
-                   help="accepted; the port has no run supervisor yet "
-                        "(ROADMAP queue A15), so it changes nothing: an "
-                        "out-of-memory error propagates")
+                   help="OOM-ladder relaunches per phase (runtime/"
+                        "supervisor.py)")
     p.add_argument("--onOom", default="ladder", choices=["ladder", "fail"],
-                   help="accepted; the port has no degradation ladder yet "
-                        "(ROADMAP queue A15), so an out-of-memory error "
-                        "propagates under either value")
+                   help="ladder: on a device out-of-memory error degrade the "
+                        "plan (kNN tiles, blocks assembly, repulsion) and "
+                        "relaunch the failed stage; fail: propagate it")
     p.add_argument("--healthCheck", action="store_true",
                    help="divergence sentinel: a non-finite segment rolls "
                         "back and retries with half the learning rate, at "
                         "most 3 times (runtime/health.py)")
     p.add_argument("--faultPlan", default=None,
-                   help="not ported (ROADMAP queue A15)")
+                   help="fault injection plan, kind@site[:trigger] clauses "
+                        "(runtime/faults.py), e.g. oom@knn or "
+                        "kill@optimize:seg2")
     p.add_argument("--jobTimeout", type=float, default=None,
-                   help="not ported (ROADMAP queue A15)")
+                   help="wall-clock seconds the run may take; past them the "
+                        "watchdog ends the process with exit code 124")
     p.add_argument("--stageTimeout", type=float, default=None,
-                   help="not ported (ROADMAP queue A15)")
+                   help="seconds between heartbeats (prepare stage ends, "
+                        "segment boundaries); past them the watchdog ends "
+                        "the process with exit code 124")
     p.add_argument("--auditPlan", nargs="?", const="fail", default=None,
                    choices=["fail", "warn"],
                    help="not ported (ROADMAP queue A16)")
     p.add_argument("--trace", nargs="?", const="default", default=None,
-                   help="not ported (ROADMAP queue A15)")
+                   help="record the run's spans and write them as a Chrome "
+                        "trace (results/trace.json, or the path given; "
+                        "a .jsonl path gets the event log)")
     p.add_argument("--metricsOut", default=None,
-                   help="not ported (ROADMAP queue A15)")
+                   help="write the metrics snapshot (obs/metrics.py) as "
+                        "JSON to this path")
     p.add_argument("--telemetry", action="store_true",
                    help="in-loop telemetry at every KL report (grad norm, "
                         "gains mean/max, embedding bbox), summarized on "
@@ -212,7 +235,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=("canonical", "psum"),
                    help="psum is not ported (ROADMAP queue A14)")
     p.add_argument("--profile", default=None,
-                   help="not ported (ROADMAP queue A15)")
+                   help="run the optimize stage under torch.profiler and "
+                        "write its Chrome trace into this directory")
     p.add_argument("--coordinator", default=None,
                    help="not ported (ROADMAP queue A14)")
     p.add_argument("--numProcesses", type=int, default=None,
@@ -234,13 +258,6 @@ UNPORTED = (
      lambda a: (a.coordinator, a.numProcesses, a.processId)
      != (None, None, None), "A14"),
     ("--meshReduce psum", lambda a: a.meshReduce != "canonical", "A14"),
-    ("--trace", lambda a: a.trace is not None, "A15"),
-    ("--metricsOut", lambda a: a.metricsOut is not None, "A15"),
-    ("--faultPlan", lambda a: a.faultPlan is not None, "A15"),
-    ("--jobTimeout", lambda a: a.jobTimeout is not None, "A15"),
-    ("--stageTimeout", lambda a: a.stageTimeout is not None, "A15"),
-    ("--aotCache/--noAotCache", lambda a: a.aotCache is not None, "A15"),
-    ("--profile", lambda a: a.profile is not None, "A15"),
     ("--auditPlan", lambda a: a.auditPlan is not None, "A16"),
     ("--executionPlan", lambda a: a.executionPlan, "A16"),
     ("--dtype bfloat16", lambda a: a.dtype == "bfloat16", "§C"),
@@ -303,13 +320,16 @@ def _load_resume(path: str, n: int, dtype, device):
 
 
 def _report_extras(run, events) -> None:
-    """The loop extras' summaries on stderr: each sentinel rollback, the
-    telemetry trace's last row and finiteness, the autopilot's policy."""
+    """The loop extras' summaries on stderr: each sentinel rollback and
+    other runtime event, the telemetry trace's last row and finiteness,
+    the autopilot's policy."""
     import json
 
     from tsne_flink_tpu_torch.models.tsne import TELEMETRY_FIELDS
     for ev in events:
-        print(f"# sentinel event: {json.dumps(ev)}", file=sys.stderr)
+        kind = ("sentinel" if ev.get("type") == "sentinel-rollback"
+                else "runtime")
+        print(f"# {kind} event: {json.dumps(ev)}", file=sys.stderr)
     if run.telemetry is not None:
         tel = run.telemetry.cpu().numpy()
         print(f"# telemetry: {tel.shape[0]} rows, all finite "
@@ -323,6 +343,43 @@ def _report_extras(run, events) -> None:
         print(f"# policy: refreshes {pol['repulsion_refreshes']}, final "
               f"stride {pol['final_stride']}, transitions "
               f"{json.dumps(pol['transitions'])}", file=sys.stderr)
+
+
+def _write_obs_outputs(trace_path, metrics_path, telemetry=None) -> None:
+    """End-of-run obs export: the trace (``--trace``), the metrics
+    snapshot (``--metricsOut``) and, when telemetry ran, its last row as
+    ``telemetry.*`` gauges in the snapshot."""
+    from tsne_flink_tpu_torch.models.tsne import TELEMETRY_FIELDS
+    from tsne_flink_tpu_torch.obs import metrics as obmetrics
+    from tsne_flink_tpu_torch.obs import trace as obtrace
+    if telemetry is not None and len(telemetry):
+        for f, v in zip(TELEMETRY_FIELDS, telemetry[-1].tolist()):
+            obmetrics.gauge(f"telemetry.{f}").set(float(v))
+    if trace_path:
+        obtrace.write(trace_path)
+        print(f"# obs trace written to {trace_path} (load in Perfetto / "
+              "chrome://tracing)", file=sys.stderr)
+    if metrics_path:
+        obmetrics.write_snapshot(metrics_path)
+        print(f"# obs metrics snapshot written to {metrics_path}",
+              file=sys.stderr)
+
+
+def run_plan(args, cfg, n: int, d: int, assembly: str, neighbors: int,
+             backend: str):
+    """This invocation as the memory model's PlanConfig (the supervisor's
+    ladder input: the same resolved repulsion and assembly)."""
+    from tsne_flink_tpu_torch.analysis.audit import PlanConfig
+    return PlanConfig(
+        n=n, d=int(d), k=int(neighbors), backend=backend,
+        dtype=args.dtype or "float32", n_components=cfg.n_components,
+        iterations=cfg.iterations,
+        knn_method=("precomputed" if args.inputDistanceMatrix
+                    else args.knnMethod),
+        knn_rounds=args.knnIterations, knn_refine=args.knnRefine,
+        repulsion=cfg.repulsion, theta=cfg.theta, assembly=assembly,
+        attraction=cfg.attraction, row_chunk=cfg.row_chunk,
+        autopilot=bool(cfg.autopilot), name="cli-launch")
 
 
 def _device_count(device: torch.device) -> int:
@@ -358,10 +415,37 @@ def _serve_transform(args, ids, x_np, neighbors: int, device) -> int:
 
 def main(argv=None, *, device=None) -> int:
     """Parse ``argv`` and run the batch job on ``device`` (None: the
-    card).  Returns 0; every failure raises."""
+    card).  Returns 0; every failure raises.  The process state a run
+    sets — the tracer switch, the fault plan, the kernel cache setting,
+    the watchdog — is restored or stopped on every exit, so an
+    in-process caller inherits none of it."""
+    from tsne_flink_tpu_torch.kernels import build as kbuild
+    from tsne_flink_tpu_torch.obs import trace as obtrace
+    from tsne_flink_tpu_torch.runtime import faults
+
+    prev_trace = obtrace.enabled_override()
+    prev_cache = kbuild.cache_enabled()
+    state = {"watchdog": None}
+    sp_run = obtrace.begin("cli.run", cat="cli")
+    try:
+        return _main(argv, device, sp_run, state)
+    finally:
+        sp_run.end()
+        if state["watchdog"] is not None:
+            state["watchdog"].stop()
+        faults.activate(None)
+        kbuild.set_cache(prev_cache)
+        obtrace.set_enabled(prev_trace)
+
+
+def _main(argv, device, sp_run, state) -> int:
+    from tsne_flink_tpu_torch.kernels import build as kbuild
     from tsne_flink_tpu_torch.models.tsne import (TsneConfig, _plan_layout,
                                                   init_working_set)
-    from tsne_flink_tpu_torch.runtime.segments import run_segments
+    from tsne_flink_tpu_torch.obs import trace as obtrace
+    from tsne_flink_tpu_torch.runtime import faults
+    from tsne_flink_tpu_torch.runtime.fleet import Watchdog
+    from tsne_flink_tpu_torch.runtime.supervisor import Supervisor
     from tsne_flink_tpu_torch.utils import artifacts as art
     from tsne_flink_tpu_torch.utils import checkpoint as ckpt
     from tsne_flink_tpu_torch.utils import io as tio
@@ -379,6 +463,17 @@ def main(argv=None, *, device=None) -> int:
             parser.error("--transform needs raw base features via --input "
                          "(a distance matrix carries no coordinates to run "
                          "query kNN against)")
+    trace_path = (os.path.join("results", "trace.json")
+                  if args.trace == "default" else args.trace)
+    if trace_path:
+        obtrace.set_enabled(True)
+    kbuild.set_cache(args.aotCache)
+    # the fault plan goes in before any instrumented site runs
+    faults.activate(args.faultPlan)
+    if args.jobTimeout or args.stageTimeout:
+        state["watchdog"] = Watchdog(args.jobTimeout, args.stageTimeout,
+                                     label="cli.run").start()
+    wd = state["watchdog"]
     device = resolve_device(device)
     if args.dtype == "float64" and device.type == "cuda":
         raise NotImplementedError(
@@ -394,7 +489,7 @@ def main(argv=None, *, device=None) -> int:
     cache = None if args.noCache else art.ArtifactCache(args.cacheDir)
     secs = {}
 
-    t_run = t0 = time.perf_counter()
+    t0 = time.perf_counter()
     if args.inputDistanceMatrix:
         ids, idx, dist = tio.read_distance_matrix(args.input)
         neighbors = idx.shape[1]
@@ -403,7 +498,9 @@ def main(argv=None, *, device=None) -> int:
     else:
         ids, x64 = tio.read_input(args.input, args.dimension)
         if args.transform:  # the JAX CLI serves the features as read
-            return _serve_transform(args, ids, x64, neighbors, device)
+            out = _serve_transform(args, ids, x64, neighbors, device)
+            _write_obs_outputs(trace_path, args.metricsOut)
+            return out
         # cast on the host, as the JAX CLI does, before the device copy
         data = {"x": x64.astype(np_dtype)}
         del x64
@@ -420,13 +517,26 @@ def main(argv=None, *, device=None) -> int:
         final_momentum=args.finalMomentum, theta=theta, metric=args.metric,
         repulsion=repulsion, attraction=args.attraction, bh_gate=args.bhGate,
         autopilot=args.autopilot)
+    supervisor = Supervisor(
+        run_plan(args, cfg, n, args.dimension, assembly, neighbors,
+                 device.type),
+        max_retries=args.maxRetries, on_oom=args.onOom,
+        health_check=args.healthCheck)
 
-    start_iter, loss_carry, state, payload, pilot = 0, None, None, None, None
+    start_iter, loss_carry, state0, payload, pilot = 0, None, None, None, None
+    prior_events = None
     if args.resume:
         t0 = time.perf_counter()
-        start_iter, loss_carry, state, payload, pilot = _load_resume(
+        start_iter, loss_carry, state0, payload, pilot = _load_resume(
             args.resume, n, dtype, device)
         secs["resume"] = timed_stage(device, t0)
+        raw = (payload or {}).get("events")
+        if raw:
+            import json
+            try:
+                prior_events = json.loads(str(raw))
+            except ValueError:
+                prior_events = None
     prep_kwargs = dict(neighbors=neighbors, knn_method=args.knnMethod,
                        metric=args.metric, knn_rounds=args.knnIterations,
                        knn_refine=args.knnRefine, seed=args.randomState,
@@ -457,10 +567,15 @@ def main(argv=None, *, device=None) -> int:
                   file=sys.stderr)
     del payload
     if jidx is None:
-        prep = art.prepare(**prep_kwargs,
-                           knn_blocks=args.knnBlocks or _device_count(device),
-                           device=device, cache=cache,
-                           knn_autotune=args.knnAutotune)
+        # the supervisor relaunches the failed stage on an OOM with the
+        # ladder's overrides (knn_tiles, assembly)
+        prep = supervisor.run_prepare(
+            lambda on_stage, **ov: art.prepare(
+                **{**prep_kwargs, **ov},
+                knn_blocks=args.knnBlocks or _device_count(device),
+                device=device, cache=cache, knn_autotune=args.knnAutotune,
+                on_stage=on_stage),
+            on_stage=(lambda st, s_, c_: wd.beat(st)) if wd else None)
         jidx, jval, extra, label = (prep.jidx, prep.jval, prep.extra_edges,
                                     prep.label)
         affinity_fp = prep.affinity_fp
@@ -488,57 +603,115 @@ def main(argv=None, *, device=None) -> int:
         if extra is not None:
             save_payload.update(rsrc=extra[0], rdst=extra[1], rval=extra[2])
 
-    t0 = time.perf_counter()
-    if extra is not None:
-        edges, csr = extra, None
-    else:
-        edges, csr = _plan_layout(jidx, jval, cfg)
-    secs["plan"] = timed_stage(device, t0)
-    if state is None:
+    def layout():
+        # the optimize stage's first step: on the card the CSR build is
+        # part of its memory, so an OOM here is the optimize stage's
+        t0 = time.perf_counter()
+        if extra is not None:
+            got = (extra, True, None)
+        else:
+            edges, csr = _plan_layout(jidx, jval, cfg)
+            got = (edges, False, csr)
+        secs["plan"] = timed_stage(device, t0)
+        return got
+
+    if state0 is None:
         gen = torch.Generator(device=device)
         gen.manual_seed(args.randomState)
-        state = init_working_set(gen, n, cfg.n_components, dtype, device)
+        state0 = init_working_set(gen, n, cfg.n_components, dtype, device)
 
     def save(st, next_iter, losses, pilot):
         if device.type == "cuda":
             torch.cuda.synchronize(device)  # queued iterations: optimize's
         t0 = time.perf_counter()
-        ckpt.save(args.checkpoint, st, next_iter, losses, save_payload,
-                  pilot=pilot)
+        ckpt.save(args.checkpoint, st, next_iter, losses,
+                  _payload_with_events(save_payload, supervisor,
+                                       prior_events), pilot=pilot)
         secs["checkpoint"] = (secs.get("checkpoint", 0.0)
                               + time.perf_counter() - t0)
+
+    def boundary(st, next_iter, losses, pilot):
+        if wd is not None:
+            wd.beat("optimize")
+        if args.checkpoint:
+            save(st, next_iter, losses, pilot)
 
     # segments of --checkpointEvery, each followed by a checkpoint but the
     # last (parallel/mesh.py:733 in the JAX package); every gate of the
     # schedule keys off the absolute iteration, so the bits are one run's
-    every = (args.checkpointEvery if args.checkpoint and args.checkpointEvery
-             > 0 else 0)
-    events = []
+    every = (args.checkpointEvery if (args.checkpoint or wd is not None)
+             and args.checkpointEvery > 0 else 0)
     t0 = time.perf_counter()
-    run = run_segments(state, jidx, jval, cfg, start_iter=start_iter,
-                       every=every, loss_carry=loss_carry, edges=edges,
-                       edges_extra=extra is not None, csr=csr,
-                       health_check=args.healthCheck, events=events,
-                       telemetry=args.telemetry,
-                       pilot_carry=pilot if cfg.autopilot else None,
-                       on_boundary=save if args.checkpoint else None)
-    # the checkpoint writes inside the loop are timed on their own
-    secs["optimize"] = timed_stage(device, t0) - secs.get("checkpoint", 0.0)
-    state, losses = run.state, run.losses
+    with _profiled(args.profile, device):
+        run = supervisor.run_optimize(
+            cfg, state0, jidx, jval, layout=layout, start_iter=start_iter,
+            loss_carry=loss_carry, every=every,
+            on_boundary=boundary if (args.checkpoint or wd) else None,
+            telemetry=args.telemetry,
+            pilot_carry=pilot if cfg.autopilot else None)
+        # the checkpoint writes inside the loop are timed on their own
+        secs["optimize"] = (timed_stage(device, t0) - secs.get("plan", 0.0)
+                            - secs.get("checkpoint", 0.0))
+    state1, losses = run.state, run.losses
     if args.checkpoint:
-        save(state, cfg.iterations, losses, run.pilot)
-    _report_extras(run, events)
+        save(state1, cfg.iterations, losses, run.pilot)
+    _report_extras(run, supervisor.events)
 
     t0 = time.perf_counter()
-    tio.write_embedding(args.output, ids, state.y.cpu().numpy())
+    tio.write_embedding(args.output, ids, state1.y.cpu().numpy())
     tio.write_loss(args.loss, losses.cpu().numpy())
     secs["write"] = time.perf_counter() - t0
     print("# stages s: " + " ".join(f"{k}={v:.4f}" for k, v in secs.items()),
           file=sys.stderr)
+    sp_run.end()
+    _write_obs_outputs(trace_path, args.metricsOut,
+                       run.telemetry if args.telemetry else None)
     print(f"embedded {n} points -> {args.output} "
-          f"({time.perf_counter() - t_run:.2f}s total, "
-          f"backend={device.type})")
+          f"({sp_run.seconds:.2f}s total, backend={device.type})")
     return 0
+
+
+def _payload_with_events(payload, supervisor, prior):
+    """The checkpoint payload with the supervisor's event and degradation
+    history serialized in at save time (a resumed run's history chains
+    through ``prior``), as the JAX CLI writes it."""
+    import json
+    out = dict(payload or {})
+    summary = supervisor.summary()
+    if prior:
+        summary["prior"] = prior
+    out["events"] = json.dumps(summary)
+    return out
+
+
+class _profiled:
+    """``--profile dir``: the optimize stage under ``torch.profiler``
+    (the CPU, and the card's activity on ``cuda``), its Chrome trace
+    written into ``dir`` on a clean exit; a no-op without a directory."""
+
+    def __init__(self, path, device):
+        self.path, self.device, self.prof = path, device, None
+
+    def __enter__(self):
+        if self.path:
+            from torch.profiler import ProfilerActivity, profile
+            acts = [ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(ProfilerActivity.CUDA)
+            self.prof = profile(activities=acts)
+            self.prof.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        if self.prof is None:
+            return False
+        self.prof.__exit__(exc_type, exc, tb)
+        if exc_type is None:
+            os.makedirs(self.path, exist_ok=True)
+            out = os.path.join(self.path, "optimize_trace.json")
+            self.prof.export_chrome_trace(out)
+            print(f"# profile written to {out}", file=sys.stderr)
+        return False
 
 
 if __name__ == "__main__":
