@@ -2959,30 +2959,42 @@ def memory_cfg(tag, n):
                       learning_rate=lr, **kw)
 
 
-def memory_plan(tag, n, d, cfg, label, width):
-    """The run's plan as the memory model takes it, carrying what the run
-    resolved: the symmetrized width of its rows (or the blocks layout)."""
+def memory_plan(tag, n, d, cfg, width=None):
+    """The run's plan as the fleet's admission takes it: its own assembly
+    and, once the kNN graph exists, the graph's row-width bound
+    (``ops/affinities.width_bound``; None before it)."""
     from tsne_flink_tpu_torch.analysis.audit.plan import PlanConfig
     _, k, method, assembly, _ = MEMORY_RUNS[tag]
-    blocks = label == "blocks"
     return PlanConfig(
         n=n, d=d, k=k, backend="cuda", n_components=cfg.n_components,
         iterations=cfg.iterations, knn_method=method,
         repulsion=cfg.repulsion, theta=cfg.theta,
-        assembly="blocks" if blocks else (assembly or "auto"),
-        attraction=cfg.attraction, sym_width=None if blocks else width,
-        row_chunk=cfg.row_chunk, fft_grid=cfg.fft_grid, name=tag)
+        assembly=assembly or "auto", attraction=cfg.attraction,
+        sym_width=width, row_chunk=cfg.row_chunk, fft_grid=cfg.fft_grid,
+        name=tag)
+
+
+def charged_plan(plan):
+    """The plan whose peak admission charges (``analysis/audit/hbm
+    .charged_plans``: the widest rows the run may build)."""
+    from tsne_flink_tpu_torch.analysis.audit.hbm import (charged_plans,
+                                                         plan_hbm_report)
+    return max(charged_plans(plan),
+               key=lambda p: plan_hbm_report(p)["peak_hbm_est"])
 
 
 def stage_peaks(tag, x_np, cfg, tracker_hook=None):
     """One run of ``tag``'s configuration (prepare, plan, optimize; the
     steps ``tsne_embed`` takes), each stage's allocated peak from a mark
-    at its start: ``({stage: (allocated, reserved)}, label, width, y)``.
+    at its start: ``({stage: (allocated, reserved)}, label, width, y,
+    bound)`` — ``width`` the rows' width the run built, ``bound`` the kNN
+    graph's row-width bound (read after the last mark).
     ``tracker_hook(tracker)`` may install finer marks (the diagnosis
     script's)."""
     import torch
     from tsne_flink_tpu_torch.models.tsne import (_plan_layout,
                                                   init_working_set, optimize)
+    from tsne_flink_tpu_torch.ops.affinities import width_bound
     from tsne_flink_tpu_torch.utils.artifacts import prepare
     _, k, method, assembly, _ = MEMORY_RUNS[tag]
     torch.cuda.empty_cache()
@@ -3013,23 +3025,27 @@ def stage_peaks(tag, x_np, cfg, tracker_hook=None):
                    edges_extra=label == "blocks", csr=csr)
     peaks["optimize"] = tr.mark()
     y = out[0].y
-    return peaks, label, width, y
+    return peaks, label, width, y, width_bound(prep.idx)
 
 
 def runtime_memory(data, context, only=None):
     """[runtime] 1: the memory model against the card at every full-size
-    run of the smoke (``analysis/audit/hbm.stage_terms`` of the run's
-    plan, carrying the width or layout the run resolved): each stage's
-    predicted and measured peak, and two gates on each run's peak, each
-    measured <= predicted <= 2 x measured: the model's allocated terms
-    against ``torch.cuda.max_memory_allocated``, and its whole peak (what
-    the fleet's admission charges: the allocator's reserve and the CUDA
-    context included) against the run's footprint on the card, its
-    ``torch.cuda.max_memory_reserved`` growth plus ``context`` (measured
-    by :func:`runtime_context`).  Returns {tag: (predicted peak, measured
+    run of the smoke, as the fleet's admission charges it once the run's
+    kNN graph exists: ``analysis/audit/hbm.stage_terms`` of the charged
+    plan (:func:`charged_plan`) at the graph's row-width bound, not at the
+    width the affinity stage went on to build.  Each stage's predicted and
+    measured peak, and two gates on each run's peak, each measured <=
+    predicted <= 2 x measured: the model's allocated terms against
+    ``torch.cuda.max_memory_allocated``, and its whole peak (the
+    allocator's reserve and the CUDA context included) against the run's
+    footprint on the card, its ``torch.cuda.max_memory_reserved`` growth
+    plus ``context`` (measured by :func:`runtime_context`).  The charge
+    before the graph exists (the widest rows the plan allows) is printed
+    beside it, ungated.  Returns {tag: (predicted peak, measured
     allocated, measured footprint, plan)}."""
     import torch
     from tsne_flink_tpu_torch.analysis.audit.hbm import (allocated_peak,
+                                                         charged_peak_bytes,
                                                          stage_terms)
     out, misses = {}, []
     for tag in only or MEMORY_RUNS:
@@ -3037,9 +3053,10 @@ def runtime_memory(data, context, only=None):
         n, d = x_np.shape
         cfg = memory_cfg(tag, n)
         t0 = time.perf_counter()
-        peaks, label, width, _ = stage_peaks(tag, x_np, cfg)
-        plan = memory_plan(tag, n, d, cfg, label, width)
+        peaks, label, width, _, bound = stage_peaks(tag, x_np, cfg)
+        plan = charged_plan(memory_plan(tag, n, d, cfg, bound))
         terms = stage_terms(plan)
+        before = charged_peak_bytes(memory_plan(tag, n, d, cfg))
         measured = {"knn": peaks["knn"], "affinities": peaks["affinities"],
                     "optimize": (max(peaks["plan"][0], peaks["optimize"][0]),
                                  max(peaks["plan"][1],
@@ -3060,18 +3077,26 @@ def runtime_memory(data, context, only=None):
         foot = max(r for _, r in measured.values()) + context
         out[tag] = (pt, alloc, foot, plan)
         ok = alloc <= pa <= 2 * alloc and foot <= pt <= 2 * foot
-        print(f"[runtime] memory {tag} ({label}, width {width}): run peak "
-              f"allocated predicted {pa / 2**30:.3f} GiB / measured "
-              f"{alloc / 2**30:.3f} GiB = {pa / alloc:.3f}; footprint "
-              f"predicted {pt / 2**30:.3f} GiB / measured "
-              f"{foot / 2**30:.3f} GiB = {pt / foot:.3f} "
-              f"{'(both within [1, 2])' if ok else 'MISS'}; "
-              f"{time.perf_counter() - t0:.1f} s")
-        if not ok:
-            misses.append(tag)
+        print(f"[runtime] memory {tag} ({label}, width {width}; the "
+              f"graph's bound {bound}, charged as {plan.assembly} at "
+              f"{plan.sym_width}): run peak allocated predicted "
+              f"{pa / 2**30:.3f} GiB / measured {alloc / 2**30:.3f} GiB = "
+              f"{pa / alloc:.3f}; footprint predicted {pt / 2**30:.3f} GiB "
+              f"/ measured {foot / 2**30:.3f} GiB = {pt / foot:.3f} "
+              f"{'(both within [1, 2])' if ok else 'MISS'}; charged before "
+              f"the graph {before / 2**30:.3f} GiB ({before / foot:.3f} x "
+              f"the footprint); {time.perf_counter() - t0:.1f} s")
+        # every stage's allocated peak within its prediction too: a stage
+        # that misses is a term the model lacks
+        short = [st for st, (a, _) in measured.items()
+                 if a > allocated_peak(terms[st])]
+        if not ok or short or width > bound or before < int(pt):
+            misses.append((tag, short))
         torch.cuda.empty_cache()
     check(not misses, f"[runtime] the memory model misses {misses}: "
-          "predicted must lie in [measured, 2 x measured]")
+          "predicted must lie in [measured, 2 x measured] for the run and "
+          "above the measured for each stage, the built width within the "
+          "graph's bound, the charge before the graph above")
     return out
 
 
@@ -3086,8 +3111,10 @@ fused_knn(x, 16)
 torch.fft.rfft2(torch.randn(256, 256, device="cuda"))
 torch.cuda.synchronize()
 free, total = torch.cuda.mem_get_info()
+del x
 print(json.dumps({"used": total - free,
-                  "reserved": torch.cuda.memory_reserved()}))
+                  "reserved": torch.cuda.memory_reserved(),
+                  "libraries": torch.cuda.memory_allocated()}))
 """
 
 
@@ -3107,10 +3134,14 @@ def runtime_context():
           f"{got.stderr[-2000:]}")
     rec = json.loads(got.stdout.strip().splitlines()[-1])
     ctx = rec["used"] - (total - free0) - rec["reserved"]
-    from tsne_flink_tpu_torch.analysis.audit.hbm import CUDA_CONTEXT_BYTES
+    from tsne_flink_tpu_torch.analysis.audit.hbm import (
+        CUDA_CONTEXT_BYTES, LIBRARY_WORKSPACE_BYTES)
     print(f"[runtime] a CUDA process's context (outside the allocator, "
           f"after B1, a matmul and an FFT): {ctx / 2**20:.1f} MiB (the "
-          f"model charges {CUDA_CONTEXT_BYTES / 2**20:.1f} MiB)")
+          f"model charges {CUDA_CONTEXT_BYTES / 2**20:.1f} MiB); its "
+          f"libraries' workspaces (allocated, no tensor of its own alive): "
+          f"{rec['libraries'] / 2**20:.1f} MiB (the model charges "
+          f"{LIBRARY_WORKSPACE_BYTES / 2**20:.1f} MiB)")
     return ctx
 
 
@@ -3315,49 +3346,69 @@ def run_plan_20k(x, cfg):
 FLEET_ITERS = 300
 
 
-def runtime_fleet(xl_np, tmp, context):
-    """[runtime] 4: three config-2-sized jobs (60,000 x 784 latent blobs,
+def runtime_fleet(x_np, data, tmp, context, serial=False):
+    """[runtime] 4: three config-2-sized jobs (60,000 x 784 ``data`` blobs,
     bruteforce, 300 iterations, seeds 0-2) as fleet children on the one
-    card under a budget that admits two; job 1 carries ``kill@job:1`` and
-    retries.  Gates: every job completes; the third queued; the sum of
-    predicted peaks fits the budget at every admission; every job's
-    embedding equals its solo run bit for bit; every job's measured
-    footprint (its peak reserved bytes plus the measured context) is at
-    most its predicted peak.  Then the same three jobs one at a time."""
+    card; job 1 carries ``kill@job:1`` and retries.  Each job is admitted
+    at the widest rows its plan allows (its kNN graph does not exist yet)
+    and re-admitted at its graph's row-width bound once the child reports
+    it.  The budget admits two jobs at the first charge and neither the
+    third nor its blocks degrade, so the third queues until a charge falls
+    or a job ends.  Gates: every job completes; the third queued; the sum
+    of the charges fits the budget at every admission and re-admission,
+    and no re-admission raises a charge; every job's embedding equals its
+    solo run bit for bit; every job's measured footprint (its peak
+    reserved bytes plus the measured context) is at most its charge.
+    With ``serial``, the same three jobs one at a time."""
     import torch
+    from dataclasses import replace
+    from tsne_flink_tpu_torch.analysis.audit.hbm import ALLOCATOR_RESERVE_FRACTION
     from tsne_flink_tpu_torch.runtime.admission import predicted_peak_bytes
     from tsne_flink_tpu_torch.runtime.fleet import Fleet, JobSpec, job_plan
-    inp = os.path.join(tmp, "latent60k.npy")
-    np.save(inp, xl_np)
-    jobs = [JobSpec(name=f"job{i}", input=inp, iterations=FLEET_ITERS,
+    inp = os.path.join(tmp, f"{data}60k.npy")
+    np.save(inp, x_np)
+    jobs = [JobSpec(name=f"{data}{i}", input=inp, iterations=FLEET_ITERS,
                     perplexity=PERPLEXITY, seed=i) for i in range(3)]
-    peak = predicted_peak_bytes(job_plan(jobs[0]))
-    budget = 2 * peak + peak // 2
-    print(f"[runtime] fleet: each job predicted {peak / 2**30:.3f} GiB; "
+    plan = job_plan(jobs[0])
+    peak = predicted_peak_bytes(plan)
+    blocks = predicted_peak_bytes(replace(plan, assembly="blocks"))
+    budget = 2 * peak + blocks // 2
+    print(f"[runtime] fleet {data}: each job charged {peak / 2**30:.3f} GiB "
+          f"before its graph exists ({blocks / 2**30:.3f} GiB as blocks); "
           f"budget {budget / 2**30:.3f} GiB (admits two)")
-    rec = Fleet(jobs, os.path.join(tmp, "fleet"), budget_bytes=budget,
+    rec = Fleet(jobs, os.path.join(tmp, f"fleet_{data}"), budget_bytes=budget,
                 fault_plan="kill@job:1", retries=1, backoff_base=0.0).run()
     fl = rec["fleet"]
-    print(f"[runtime] fleet: {json.dumps(fl)}; admissions (job, in use, "
-          f"peak) {json.dumps(rec['admissions'])}")
+    print(f"[runtime] fleet {data}: {json.dumps(fl)}; admissions (job, in "
+          f"use, charge) {json.dumps(rec['admissions'])}; re-admissions "
+          f"{json.dumps(rec['readmissions'])}")
     check(fl["completed"] == 3 and fl["queue_depth_max"] >= 1
-          and fl["retries"] == 1 and fl["max_running"] == 2,
-          f"[runtime] fleet: {fl}")
+          and fl["retries"] == 1 and fl["max_running"] >= 2,
+          f"[runtime] fleet {data}: {fl}")
     check(all(u + p <= budget for _, u, p in rec["admissions"]),
-          "[runtime] fleet: an admission over the budget")
+          f"[runtime] fleet {data}: an admission over the budget")
+    check(all(r["after"] <= r["before"] and r["in_use"] <= budget
+              for r in rec["readmissions"])
+          and {r["job"] for r in rec["readmissions"]} == {
+              j.name for j in jobs},
+          f"[runtime] fleet {data}: re-admissions {rec['readmissions']}")
     for job in rec["jobs"]:
         r = job["record"]
         mem = r["memory"]
         foot = mem["peak_reserved"] + context
         print(f"[runtime] fleet {job['name']}: attempts {job['attempts']}, "
-              f"{job['seconds']:.2f} s, stages {json.dumps(r['stages'])}; "
-              f"peak allocated {mem['peak_allocated'] / 2**30:.3f} GiB, "
-              f"reserved {mem['peak_reserved'] / 2**30:.3f} GiB, footprint "
-              f"with the context {foot / 2**30:.3f} GiB <= predicted "
+              f"{job['seconds']:.2f} s, width bound {r['width_bound']}, "
+              f"stages {json.dumps(r['stages'])}; peak allocated "
+              f"{mem['peak_allocated'] / 2**30:.3f} GiB, reserved "
+              f"{mem['peak_reserved'] / 2**30:.3f} GiB (the allocator's "
+              f"reserve {mem['peak_reserved'] / mem['peak_allocated'] - 1:.3f}"
+              f" of the allocated peak; the model charges "
+              f"{ALLOCATOR_RESERVE_FRACTION}), footprint with the context "
+              f"{foot / 2**30:.3f} GiB <= charged "
               f"{job['predicted_peak'] / 2**30:.3f} GiB "
               f"({foot / job['predicted_peak']:.3f})")
         check(foot <= job["predicted_peak"],
-              f"[runtime] fleet {job['name']}: footprint over its peak")
+              f"[runtime] fleet {job['name']}: footprint over its charge")
     for spec, job in zip(jobs, rec["jobs"]):
         solo = JobSpec.from_dict({**spec.as_dict(), "name": "solo",
                                   "out": "", "record": ""})
@@ -3365,14 +3416,18 @@ def runtime_fleet(xl_np, tmp, context):
         check(same_bits(y, _solo_y(solo)),
               f"[runtime] fleet {job['name']} differs from its solo run")
     torch.cuda.empty_cache()
-    print("[runtime] fleet: every job equals its solo run bit for bit")
-    serial = Fleet([JobSpec.from_dict({**s.as_dict(), "name": s.name + "s",
-                                       "out": "", "record": ""})
-                    for s in jobs], os.path.join(tmp, "serial"),
-                   budget_bytes=budget, max_concurrent=1).run()["fleet"]
-    print(f"[runtime] fleet wall {fl['seconds']:.3f} s (3 jobs, 2 at once, "
-          f"one killed and retried) against {serial['seconds']:.3f} s for "
-          f"the three one at a time ({fl['seconds'] / serial['seconds']:.3f})")
+    print(f"[runtime] fleet {data}: every job equals its solo run bit for "
+          "bit")
+    if not serial:
+        return
+    one = Fleet([JobSpec.from_dict({**s.as_dict(), "name": s.name + "s",
+                                    "out": "", "record": ""})
+                 for s in jobs], os.path.join(tmp, f"serial_{data}"),
+                budget_bytes=budget, max_concurrent=1).run()["fleet"]
+    print(f"[runtime] fleet {data} wall {fl['seconds']:.3f} s (3 jobs, up to "
+          f"{fl['max_running']} at once, one killed and retried) against "
+          f"{one['seconds']:.3f} s for the three one at a time "
+          f"({fl['seconds'] / one['seconds']:.3f})")
 
 
 def _solo_y(spec):
@@ -3494,6 +3549,28 @@ def runtime_tracing(x_np, tmp):
           f"{runs['profiled'][3] - base:+.3f} s")
     check(want <= names and os.listdir(prof),
           f"[runtime] tracing: missing spans {want - names} or profile")
+    # the profiler's wall cost in a process of its own, as a user pays it:
+    # the in-process runs above share a profiler that [serve] started
+    fresh = {}
+    for tag, extra in (("fresh", ()),
+                       ("fresh_profiled", ("--profile",
+                                           os.path.join(tmp, "prof2")))):
+        t0 = time.perf_counter()
+        got = _cli_child(argv(tag + ".csv", *extra))
+        fresh[tag] = time.perf_counter() - t0
+        check(got.returncode == 0, f"[runtime] tracing {tag}: exit "
+              f"{got.returncode} {got.stderr[-1500:]}")
+        stages = [ln for ln in got.stderr.splitlines()
+                  if ln.startswith("# stages s:")]
+        print(f"[runtime] tracing {tag} (a process of its own): "
+              f"{fresh[tag]:.3f} s with the process's start; "
+              f"{stages[-1] if stages else 'no stage line'}")
+    same = (open(os.path.join(tmp, "fresh.csv"), "rb").read()
+            == open(os.path.join(tmp, "fresh_profiled.csv"), "rb").read())
+    print(f"[runtime] tracing: --profile in a process of its own "
+          f"{fresh['fresh_profiled'] - fresh['fresh']:+.3f} s; the same "
+          f"output bytes: {same}")
+    check(same, "[runtime] tracing: --profile changed the output")
 
 
 def phase_runtime(x_np, xl_np, xc_np, tmp, serve_memory):
@@ -3509,7 +3586,8 @@ def phase_runtime(x_np, xl_np, xc_np, tmp, serve_memory):
                    context)
     runtime_real_oom(tmp)
     runtime_rehearsals(x_np, tmp)
-    runtime_fleet(xl_np, tmp, context)
+    runtime_fleet(xl_np, "latent", tmp, context, serial=True)
+    runtime_fleet(x_np, "blobs", tmp, context)
     runtime_tracing(x_np, tmp)
     print(f"[runtime] phase {time.perf_counter() - t0:.1f} s")
 

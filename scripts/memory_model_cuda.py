@@ -30,6 +30,10 @@ WRAPPED = (
     ("tsne_flink_tpu_torch.ops.knn", "knn_bruteforce"),
     ("tsne_flink_tpu_torch.ops.knn", "knn_project"),
     ("tsne_flink_tpu_torch.ops.knn", "merge_rounds"),
+    ("tsne_flink_tpu_torch.ops.knn", "_project_round"),
+    ("tsne_flink_tpu_torch.ops.knn", "pairwise"),
+    ("tsne_flink_tpu_torch.ops.knn", "_topk_smallest"),
+    ("tsne_flink_tpu_torch.ops.knn", "_dedup_smallest"),
     ("tsne_flink_tpu_torch.ops.knn", "_reverse_sample"),
     ("tsne_flink_tpu_torch.ops.knn", "knn_refine"),
     ("tsne_flink_tpu_torch.ops.affinities", "pairwise_affinities"),
@@ -77,7 +81,7 @@ def main() -> int:
 
         x_np = data[cs.MEMORY_RUNS[tag][0]]
         try:
-            peaks, label, width, _ = cs.stage_peaks(
+            peaks, label, width, _, _ = cs.stage_peaks(
                 tag, x_np, cs.memory_cfg(tag, x_np.shape[0]), hook)
         finally:
             for mod, name, real in reals:

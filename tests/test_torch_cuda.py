@@ -1122,10 +1122,13 @@ x = centers[rng.integers(0, 10, 40_000)] + 0.15 * rng.standard_normal(
 
 def test_memory_model_bounds_a_hub_heavy_run(dev):
     """chip_smoke's [runtime] 1 at 40,000 points: the model's allocated
-    terms, given the width the run resolved, within [1, 2]x the run's
-    measured allocated peak."""
+    terms, at the kNN graph's width bound the supervisor read (what the
+    fleet re-admits a job at), within [1, 2]x the run's measured
+    allocated peak; the rows the run built are no wider than the bound."""
     from tsne_flink_tpu_torch import TsneConfig
     from tsne_flink_tpu_torch.analysis.audit.hbm import (allocated_peak,
+                                                         charged_plans,
+                                                         plan_hbm_report,
                                                          stage_terms)
     from tsne_flink_tpu_torch.runtime.supervisor import (Supervisor,
                                                          run_plan_from_fit,
@@ -1147,17 +1150,21 @@ def test_memory_model_bounds_a_hub_heavy_run(dev):
         widths.append(int(out.jidx.shape[1]))
         return out
     artifacts.prepare = recorded
+    plan = run_plan_from_fit(40_000, 784, 90, cfg, "auto", "bruteforce")
+    sup = Supervisor(plan)
     try:
-        run = supervised_embed(x, cfg, supervisor=Supervisor(None),
-                               neighbors=90, seed=0)
+        run = supervised_embed(x, cfg, supervisor=sup, neighbors=90,
+                               seed=0)
     finally:
         artifacts.prepare = real
     torch.cuda.synchronize()
     got = torch.cuda.max_memory_allocated() - base
-    plan = run_plan_from_fit(40_000, 784, 90, cfg, "auto", "bruteforce",
-                             sym_width=widths[0])
-    pred = max(allocated_peak(t) for t in stage_terms(plan).values())
-    assert got <= pred <= 2 * got, (got, pred, widths)
+    at = type(plan)(**{**plan.as_dict(), "sym_width": sup.width_bound})
+    charged = max(charged_plans(at),
+                  key=lambda p: plan_hbm_report(p)["peak_hbm_est"])
+    pred = max(allocated_peak(t) for t in stage_terms(charged).values())
+    assert widths[0] <= sup.width_bound, (widths, sup.width_bound)
+    assert got <= pred <= 2 * got, (got, pred, widths, sup.width_bound)
     assert torch.isfinite(run.state.y).all()
 
 

@@ -2,10 +2,13 @@
 
 * three tiny jobs under a budget that admits two: the third queues, the
   sum of the predicted peaks stays within the budget at every admission,
-  and every job's embedding equals its solo run (a fresh process of the
-  same entry point) bit for bit;
+  every job is re-admitted once at its graph's width bound with a charge
+  that falls, and every job's embedding equals its solo run (a fresh
+  process of the same entry point) bit for bit;
 * ``kill@job:1`` SIGKILLs job 1's first attempt, which retries once and
   ends with the solo run's bits; the fleet record counts it;
+* a job that would fit only degraded waits while a running job's charge
+  may still fall, then runs whole;
 * ``--serve`` / ``--serve-fleet`` raise naming ROADMAP queue A13b, and a
   JobSpec round-trips through JSON with its ``fleet`` and ``device``;
 * two processes building the kernel library at once with a stand-in
@@ -70,10 +73,20 @@ def test_fleet_queues_over_budget_and_retries_a_killed_job(tmp_path):
     fl = rec["fleet"]
     assert fl["backend"] == "cpu" and fl["budget_bytes"] == budget
     assert fl["completed"] == 3 and fl["failed"] == 0
-    assert fl["max_running"] == 2 and fl["queue_depth_max"] >= 1
+    # two at the first charge; the third joins once a charge falls to its
+    # graph's width bound or a job ends
+    assert fl["max_running"] >= 2 and fl["queue_depth_max"] >= 1
     assert fl["admission_rejections"] >= 1 and fl["retries"] == 1
     for _, in_use, p in rec["admissions"]:
         assert in_use + p <= budget
+    # one re-admission a job: the killed job's retry is admitted at the
+    # width its first attempt reported
+    readmit = rec["readmissions"]
+    assert sorted(r["job"] for r in readmit) == ["j0", "j1", "j2"]
+    assert fl["readmissions"] == 3
+    for r in readmit:
+        assert r["attempt"] == 1 and r["after"] < r["before"] == peak
+        assert r["in_use"] <= budget
     by = {j["name"]: j for j in rec["jobs"]}
     assert by["j1"]["attempts"] == 2 and by["j0"]["attempts"] == 1
     assert rec["chaos"] == [{"clause": "kill@job:1", "job": "j1",
@@ -81,6 +94,11 @@ def test_fleet_queues_over_budget_and_retries_a_killed_job(tmp_path):
                              "injected": "kill@optimize:seg1"}]
     r1 = by["j1"]["record"]
     assert r1["status"] == "ok" and r1["fleet"]["attempt"] == 2
+    # the retry reports nothing, and its graph gives the same bound
+    widths = {r["job"]: r["sym_width"] for r in readmit}
+    assert r1["fleet"]["width_path"] == ""
+    assert r1["width_bound"] == widths["j1"]
+    assert by["j0"]["record"]["width_bound"] == widths["j0"]
     assert r1["faults_fired"] == [] and r1["backend"] == "cpu"
     assert rec["metrics"]["counters"]["fleet.retries"] >= 1
     assert "fleet.queue_depth" in rec["metrics"]["gauges"]
@@ -89,6 +107,28 @@ def test_fleet_queues_over_budget_and_retries_a_killed_job(tmp_path):
         spec = next(j for j in jobs if j.name == name)
         np.testing.assert_array_equal(np.load(by[name]["out"]),
                                       _solo(tmp_path, spec))
+
+
+def test_a_job_waits_for_readmissions_rather_than_degrade(tmp_path):
+    from dataclasses import replace
+    inp = _input(tmp_path, n=200)
+    jobs = _jobs(inp)
+    plan = tfleet.job_plan(jobs[0])
+    peak = predicted_peak_bytes(plan)
+    blocks = predicted_peak_bytes(replace(plan, assembly="blocks"))
+    # the third fits degraded beside two first charges, and whole once
+    # they fall
+    budget = 2 * peak + blocks
+    rec = tfleet.Fleet(jobs, str(tmp_path / "fleet"), budget_bytes=budget,
+                       backoff_base=0.0).run()
+    # the record counts this run only, whatever ran before it
+    assert rec["fleet"]["completed"] == 3 and rec["fleet"]["retries"] == 0
+    assert [j["decision"]["action"] for j in rec["jobs"]] == ["admit"] * 3
+    assert all(j["record"]["degradations"] == [] for j in rec["jobs"])
+    assert sorted(r["job"] for r in rec["readmissions"]) == [
+        "j0", "j1", "j2"]
+    for _, in_use, p in rec["admissions"]:
+        assert in_use + p <= budget
 
 
 def test_fleet_refuses_an_unschedulable_job(tmp_path):

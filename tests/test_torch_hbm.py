@@ -8,8 +8,14 @@
 * ``transform_peak`` / ``transform_peak_bytes`` and ``residency_report``
   equal JAX's plus the query kNN's ``query_sort`` term, exactly;
 * at ``backend="cuda"``: B1 and B2 hold no JAX tile, B6 no gather chunk,
-  every stage carries the allocator's reserve and the CUDA context, and
-  the blocks rung predicts less than the rows it replaces.
+  every stage carries the libraries' workspaces, the allocator's
+  rounding and reserve and the CUDA context, and the blocks rung predicts less than the rows
+  it replaces;
+* the charge (``charged_plans`` / ``charged_peak_bytes``): the widest rows
+  a run may build, capped by ``auto``'s byte gate with the blocks layout
+  beside them past it, never below the report at any width up to the
+  plan's; ``width_bound`` of a kNN graph is at least the width every
+  assembly builds from it.
 """
 
 import itertools
@@ -32,7 +38,8 @@ PORT_TERMS = {
     "optimize": {"plan_count"},
     "transform": {"query_sort"},
 }
-CARD_TERMS = {"allocator_reserve", "cuda_context"}
+CARD_TERMS = {"allocator_reserve", "cuda_context", "library_workspaces",
+              "allocator_rounding"}
 
 GRID = [dict(n=n, d=d, k=k, knn_method=meth, assembly=asm,
              attraction=att, repulsion=rep)
@@ -145,6 +152,8 @@ def test_cuda_terms():
     for terms in st.values():
         assert CARD_TERMS <= set(terms)
         assert terms["cuda_context"] == thbm.CUDA_CONTEXT_BYTES
+        assert terms["library_workspaces"] == thbm.LIBRARY_WORKSPACE_BYTES
+        assert terms["allocator_rounding"] == thbm.ALLOCATOR_ROUNDING_BYTES
         alloc = thbm.allocated_peak(terms)
         assert _close(terms["allocator_reserve"],
                       thbm.ALLOCATOR_RESERVE_FRACTION * alloc)
@@ -176,3 +185,69 @@ def test_serving_plan_on_the_card_holds_no_graph_nor_b2_tile():
     assert rep["peak_bytes"] == int(
         thbm.CUDA_CONTEXT_BYTES + (1 + thbm.ALLOCATOR_RESERVE_FRACTION)
         * (rep["resident_bytes"] + 2 * rep["transient_bytes"]))
+
+
+# ---- the charge: the widest rows a run may build ---------------------------
+
+CHARGE_PLANS = [dict(n=60_000, d=784, k=90, knn_method="bruteforce"),
+                dict(n=60_000, d=784, k=90, knn_method="project",
+                     repulsion="exact", attraction="csr"),
+                dict(n=1_306_127, d=50, k=150, knn_method="project",
+                     repulsion="fft"),
+                dict(n=3000, d=64, k=30, knn_method="bruteforce"),
+                dict(n=3000, d=64, k=30, assembly="sorted"),
+                dict(n=3000, d=64, k=30, assembly="blocks")]
+
+
+@pytest.mark.parametrize("backend", ["cpu", "cuda"])
+@pytest.mark.parametrize("kw", CHARGE_PLANS, ids=str)
+def test_charge_covers_every_width_the_run_may_build(kw, backend):
+    from tsne_flink_tpu_torch.ops.affinities import (ROWS_BYTES_MAX,
+                                                     row_width_bound)
+    plan = PlanConfig(backend=backend, **kw)
+    n, k = plan.n, plan.k
+    cap = ROWS_BYTES_MAX // (n * (4 + plan.itemsize))
+    got = [(p.assembly, p.sym_width) for p in thbm.charged_plans(plan)]
+    if plan.assembly == "blocks":
+        assert got == [("blocks", None)]
+    elif plan.assembly == "sorted":
+        assert got == [("sorted", row_width_bound(k, n))]
+    else:
+        widest = min(row_width_bound(k, n), cap)
+        assert got[0] == ("auto", widest)
+        assert (("blocks", None) in got) == (row_width_bound(k, n) > cap)
+    unknown = thbm.charged_peak_bytes(plan)
+    for width in (8 * ((2 * k + 7) // 8), 4 * k + 8, 3474):
+        if width > row_width_bound(k, n):
+            continue  # no graph of n points reaches it
+        at = PlanConfig(**{**plan.as_dict(), "sym_width": width})
+        charged = thbm.charged_peak_bytes(at)
+        assert unknown >= charged
+        # a bound charges at least what the run builds at that width, and
+        # the layout ``auto`` picks there
+        want = thbm.plan_hbm_report(at)["peak_hbm_est"]
+        assert charged >= want or at.resolved_assembly() == "blocks"
+        if plan.assembly == "auto" and width <= cap:
+            assert charged == want
+
+
+@pytest.mark.parametrize("n,k,hubs", [(400, 10, 0), (400, 10, 3),
+                                      (1500, 30, 1), (1500, 30, 40)])
+def test_width_bound_covers_every_assembly(n, k, hubs):
+    import torch
+
+    from tsne_flink_tpu_torch.ops import affinities as aff
+    g = torch.Generator().manual_seed(n + k + hubs)
+    scores = torch.rand(n, n, generator=g)
+    scores[:, :hubs] -= 1.0          # every row lists the hubs first
+    scores.fill_diagonal_(math.inf)
+    idx = torch.argsort(scores, dim=1)[:, :k].to(torch.int32)
+    dist = torch.sort(torch.rand(n, k, generator=g), dim=1).values
+    p = aff.pairwise_affinities(dist, 5.0)
+    bound = aff.width_bound(idx)
+    assert bound >= aff.split_width(idx, p)
+    assert bound >= aff.symmetrized_width(idx, p)
+    jidx, _ = aff.joint_distribution_split(idx, p)
+    assert bound >= jidx.shape[1]
+    in_deg = int(torch.bincount(idx.reshape(-1).long(), minlength=n).max())
+    assert bound == aff.row_width_bound(k, in_deg)

@@ -8,7 +8,8 @@ JAX package (CPU).
 * ``is_oom`` knows a CUDA out-of-memory error, cuBLAS's allocation
   failure and the injected one, and refuses a sticky CUDA error;
 * the supervisor: ``oom@knn`` completes through the ladder with the kNN
-  stage relaunched and no other stage; an affinity OOM takes the blocks
+  stage relaunched and no other stage; the kNN graph's width bound
+  reaches the ladder's records and the fleet's hook; an affinity OOM takes the blocks
   rung and equals a run given blocks from the start, bit for bit;
   ``on_oom="fail"`` propagates; past the last rung ``LadderExhausted``;
   a clean supervised run, a traced one and ``tsne_embed`` give the same
@@ -291,6 +292,47 @@ def test_clean_supervised_run_is_tsne_embeds_bits_traced_or_not():
     assert {"prepare.knn", "prepare.affinities", "knn.exact_sweep",
             "optimize.segment"} <= names
     np.testing.assert_array_equal(traced.state.y.numpy(), y0.numpy())
+
+
+def test_the_supervisor_charges_the_graphs_width_bound():
+    from tsne_flink_tpu_torch.analysis.audit.hbm import charged_peak_bytes
+    from tsne_flink_tpu_torch.ops.affinities import width_bound
+    from tsne_flink_tpu_torch.ops.knn import knn
+    x, cfg = problem(), small_cfg()
+    seen = []
+    faults.activate("oom@affinities:1")
+    plan = tsup.run_plan_from_fit(N, D, 24, cfg, "auto", "bruteforce",
+                                  backend="cpu")
+    sup = tsup.Supervisor(plan, retry_backoff=0.0, on_width=seen.append)
+    try:
+        tsup.supervised_embed(torch.as_tensor(x), cfg, supervisor=sup,
+                              neighbors=24, seed=0, device="cpu")
+    finally:
+        faults.activate(None)
+    want = width_bound(knn(torch.as_tensor(x), 24, "bruteforce")[0])
+    # reported once a kNN stage ends: the relaunch reports it again
+    assert sup.width_bound == want and seen == [want, want]
+    assert sup.ladder.width == want and sup.ladder.plan.sym_width is None
+    (deg,) = sup.degradations
+    at = PlanConfig(**{**plan.as_dict(), "sym_width": want})
+    assert deg["peak_hbm_before"] == charged_peak_bytes(at)
+    assert deg["peak_hbm_after"] == charged_peak_bytes(
+        PlanConfig(**{**plan.as_dict(), "assembly": "blocks"}))
+    # nothing asks for the bound: nothing is read
+    bare = tsup.Supervisor(None)
+    tsup.supervised_embed(torch.as_tensor(x), cfg, supervisor=bare,
+                          neighbors=24, seed=0, device="cpu")
+    assert bare.width_bound is None
+
+
+def test_a_pinned_width_plans_the_sorted_layout():
+    cfg = small_cfg()
+    plan = tsup.run_plan_from_fit(N, D, 24, cfg, "auto", "bruteforce",
+                                  sym_width=64, backend="cpu")
+    assert (plan.assembly, plan.sym_width) == ("sorted", 64)
+    free = tsup.run_plan_from_fit(N, D, 24, cfg, "auto", "bruteforce",
+                                  backend="cpu")
+    assert (free.assembly, free.sym_width) == ("auto", None)
 
 
 def test_nan_at_optimize_is_rolled_back_by_the_sentinel():

@@ -8,7 +8,10 @@ graph, assembled P, optimizer state) plus the stage's dominant transients,
 per stage and per term, so an over-budget verdict names the line that
 blew it.  The OOM ladder (``runtime/ladder.py``), the fleet's admission
 (``runtime/admission.py``) and the serve daemon's residency gate
-(``serve/model.FrozenModel.transform_peak``) all charge it.
+(``serve/model.FrozenModel.transform_peak``) all charge it; a batch run's
+charge (:func:`charged_peak_bytes`) takes the widest rows its data may
+give it, since the hub-widened width is known only once the kNN graph
+is.
 
 Every JAX term keeps the JAX arithmetic.  The port's own working set
 adds NEW terms, reckoned from the port's code (:func:`_port_knn`,
@@ -44,6 +47,24 @@ PIPELINE_FACTOR = 2
 #: .mem_get_info`` used bytes less ``torch.cuda.memory_reserved`` in a
 #: fresh process after B1, a matmul and an FFT), rounded up to a MiB.
 CUDA_CONTEXT_BYTES = 692 << 20
+
+#: bytes a process's libraries keep allocated through the caching
+#: allocator once used — cuBLAS's workspace, cuFFT's plan cache — which
+#: ``torch.cuda.max_memory_allocated`` counts in the stage of a process
+#: that first calls them: 32.0 MiB measured on an NVIDIA H100 80GB HBM3
+#: (700 W) by chip_smoke.runtime_context (``torch.cuda.memory_allocated``
+#: of a fresh process after B1, a matmul and an FFT, every tensor of its
+#: own dropped; PyTorch 2.11, CUDA 12.8).
+LIBRARY_WORKSPACE_BYTES = 32 << 20
+
+#: the caching allocator's rounding of the live tensors: it hands a
+#: request a whole cached block when the rest would be under 1 MiB
+#: (``kSmallSize``: a block is split only when more remains), so every
+#: live tensor over 1 MiB may count up to 1 MiB more than its bytes; the
+#: port's largest live sets hold at most 16 such tensors (the band
+#: group's: x, the two gathers, ``pairwise``'s four tiles, six held
+#: graph arrays, the round's two outputs)
+ALLOCATOR_ROUNDING_BYTES = 16 << 20
 
 #: the caching allocator's reserve above its allocated peak, as a fraction
 #: of the allocated peak (``max_memory_reserved / max_memory_allocated -
@@ -369,10 +390,22 @@ def _port_knn(plan: PlanConfig, terms: dict) -> None:
         terms["band_group"] = max(gathers + 4.0 * tile * isz,
                                   tile * (3.0 * isz + 1.0 + 8.0))
         # the seed's earlier rounds; in a refine cycle, the graph, the
-        # last cycle's rounds (bound until the new ones return) and the
-        # cycle's earlier rounds
-        graphs = max(rounds - 1, ZORDER_PER_CYCLE + 1 if refine else 0)
-        held = graphs * n * k * (4 + isz)
+        # last cycle's merged rounds (bound until the new ones return) and
+        # the cycle's earlier rounds.  A merge's distances are a view of
+        # its sorted [n, rounds·k] candidates (``_topk_smallest``), which
+        # the view keeps whole: the seed graph's in the first cycle, the
+        # last cycle's rounds' in the later ones
+        g1 = n * k * (4 + isz)
+
+        def merged(r):
+            return n * k * 4 + n * (r if r > 1 else 1) * k * isz
+        held = max(rounds - 1, 0) * g1
+        if refine:
+            held = max(held, merged(rounds)
+                       + (ZORDER_PER_CYCLE - 1) * g1)
+        if refine > 1:
+            held = max(held, g1 + merged(ZORDER_PER_CYCLE)
+                       + (ZORDER_PER_CYCLE - 1) * g1)
         live = (x + n * (3 * isz + 2 * 4) + (nb * b + 2 * k) * 8.0 + held
                 + nb * b * k * (isz + 8.0) + terms["band_group"])
         terms["peak"] = max(terms["peak"], live)
@@ -432,8 +465,12 @@ def _port_optimize(plan: PlanConfig, terms: dict) -> None:
 
 
 def _cuda_process(terms: dict) -> None:
-    """What the card holds for the stage beyond the allocator's tensors:
+    """What the card holds for the stage beyond the stage's tensors: the
+    libraries' workspaces and the allocator's rounding (both allocated),
     the caching allocator's reserve and the process's CUDA context."""
+    terms["library_workspaces"] = float(LIBRARY_WORKSPACE_BYTES)
+    terms["allocator_rounding"] = float(ALLOCATOR_ROUNDING_BYTES)
+    terms["peak"] += LIBRARY_WORKSPACE_BYTES + ALLOCATOR_ROUNDING_BYTES
     reserve = ALLOCATOR_RESERVE_FRACTION * terms["peak"]
     terms["allocator_reserve"] = reserve
     terms["cuda_context"] = float(CUDA_CONTEXT_BYTES)
@@ -454,9 +491,9 @@ def _cuda_transform(plan: PlanConfig, terms: dict) -> None:
 
 
 def allocated_peak(terms: dict) -> float:
-    """A stage's peak without the process terms (the allocator's reserve
-    and the CUDA context): what ``torch.cuda.max_memory_allocated``
-    counts."""
+    """A stage's peak without the allocator's reserve and the CUDA
+    context: what ``torch.cuda.max_memory_allocated`` counts (the
+    libraries' workspaces and the allocator's rounding included)."""
     return (terms["peak"] - terms.get("allocator_reserve", 0.0)
             - terms.get("cuda_context", 0.0))
 
@@ -511,6 +548,43 @@ def residency_report(plans) -> dict:
             "peak_bytes": int(context + grow * (resident + 2.0 * transient)),
             "conservative_sum_bytes": int(
                 context + grow * sum(float(s["peak"]) for s in stages))}
+
+
+def charged_plans(plan: PlanConfig) -> list:
+    """The plans a run of ``plan`` may turn out to be, whatever its data.
+    The run learns its rows' width from the kNN graph, and the model's
+    terms grow with the width, so the charge takes the widest rows the run
+    may build: a plan without ``sym_width`` (the graph not built yet)
+    stands for every width its assembly allows, a plan with one (pinned,
+    or ``ops/affinities.width_bound`` of the graph) for every width up to
+    it.  ``auto`` builds rows only while they fit the byte gate that picks
+    them (``ops/affinities.ROWS_BYTES_MAX``), else the blocks layout: its
+    widest rows are capped there, and the blocks layout joins them when
+    the width may pass the gate.  ``sorted`` / ``split`` without a width
+    may reach a row of every point (``row_width_bound(k, n)``)."""
+    if plan.assembly == "blocks":
+        return [plan]
+    from dataclasses import replace
+
+    from tsne_flink_tpu_torch.ops.affinities import (ROWS_BYTES_MAX,
+                                                     row_width_bound)
+    s = (row_width_bound(plan.k, plan.n) if plan.sym_width is None
+         else int(plan.sym_width))
+    if plan.assembly != "auto":
+        return [replace(plan, sym_width=s)]
+    cap = ROWS_BYTES_MAX // (plan.n * (4 + plan.itemsize))
+    plans = [replace(plan, sym_width=min(s, cap))] if cap >= plan.k else []
+    if s > cap:
+        plans.append(replace(plan, assembly="blocks", sym_width=None))
+    return plans
+
+
+def charged_peak_bytes(plan: PlanConfig) -> int:
+    """What a run of ``plan`` is charged — by the fleet's admission and
+    the OOM ladder's records: the largest ``peak_hbm_est`` of
+    :func:`charged_plans`."""
+    return max(int(plan_hbm_report(p)["peak_hbm_est"])
+               for p in charged_plans(plan))
 
 
 def plan_hbm_report(plan: PlanConfig) -> dict:

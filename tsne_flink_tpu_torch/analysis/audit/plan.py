@@ -12,9 +12,12 @@ Every resolver calls the SAME policy function the port's pipeline calls
 launched one.  Plans are JSON-serializable.
 
 ``sym_width`` is the hub-widened symmetrized row width when known (it is
-data-dependent); ``None`` falls back to the lossless lower bound ``2k``
-(rounded to 8), an underestimate on hub-heavy graphs — plans for
-workloads with measured widths should carry them.
+data-dependent); ``None`` falls back, as in the JAX model, to the
+lossless lower bound ``2k`` (rounded to 8), an underestimate on hub-heavy
+graphs.  What a run is charged does not rest on it:
+``hbm.charged_peak_bytes`` takes the widest rows the run may build, and
+the run supervisor narrows that to ``ops/affinities.width_bound`` of the
+kNN graph once the graph exists.
 """
 
 from __future__ import annotations

@@ -541,20 +541,24 @@ def knn_generator(seed: int, device) -> torch.Generator:
 class _Prepared(NamedTuple):
     prep: object        # utils/artifacts.Prepared
     state: TsneState    # the init
-    edges: tuple | None
-    csr: tuple | None
-    layout: str         # csr | edges | rows | blocks
-    plan_seconds: float
+    layout: object      # () -> (edges, csr, label): the layout's plan
 
 
 def _prepare_run(x, cfg: TsneConfig, *, neighbors, knn_method,
                  knn_iterations, knn_refine, knn_blocks, seed, sym_width,
                  affinity_assembly, device, y0=None, artifact_cache=None,
-                 knn_autotune=False) -> _Prepared:
-    """The stages before optimize of :func:`tsne_embed`: prepare (kNN,
-    affinities), the init from ``seed`` (or ``y0``), and the attraction
-    layout's plan (``runtime/supervisor.supervised_embed`` takes the same
-    steps, with the same draws, under the run supervisor)."""
+                 knn_autotune=False, supervise=None,
+                 on_stage=None) -> _Prepared:
+    """The stages before optimize of :func:`tsne_embed` and of
+    ``runtime/supervisor.supervised_embed``: prepare (kNN, affinities),
+    the init from ``seed`` (or ``y0``), and the attraction layout's plan,
+    deferred — ``layout()`` plans it and returns ``(edges, csr, label)``
+    with label csr | edges | rows | blocks.
+
+    ``supervise(fn, on_stage=...)`` (the run supervisor's
+    ``run_prepare``) runs prepare as ``fn(on_stage=..., **overrides)`` and
+    relaunches it with the OOM ladder's overrides; without it prepare runs
+    once.  ``on_stage`` is prepare's progress hook."""
     x = torch.as_tensor(x, device=device)
     n = x.shape[0]
     k = neighbors if neighbors is not None else 3 * int(cfg.perplexity)
@@ -562,24 +566,31 @@ def _prepare_run(x, cfg: TsneConfig, *, neighbors, knn_method,
     if assembly == "auto" and sym_width is not None:
         assembly = "sorted"  # a pinned width is a row-layout request
     from tsne_flink_tpu_torch.utils.artifacts import prepare
-    prep = prepare(x, neighbors=k, knn_method=knn_method, metric=cfg.metric,
-                   knn_rounds=knn_iterations, knn_refine=knn_refine,
-                   knn_blocks=knn_blocks, seed=seed,
-                   perplexity=cfg.perplexity, assembly=assembly,
-                   sym_width=sym_width, device=device, cache=artifact_cache,
-                   knn_autotune=knn_autotune)
+
+    def run_prepare(on_stage=None, assembly=assembly, knn_tiles=None,
+                    on_graph=None):
+        return prepare(x, neighbors=k, knn_method=knn_method,
+                       metric=cfg.metric, knn_rounds=knn_iterations,
+                       knn_refine=knn_refine, knn_blocks=knn_blocks,
+                       seed=seed, perplexity=cfg.perplexity,
+                       assembly=assembly, sym_width=sym_width, device=device,
+                       cache=artifact_cache, knn_tiles=knn_tiles,
+                       knn_autotune=knn_autotune, on_stage=on_stage,
+                       on_graph=on_graph)
+
+    prep = (run_prepare(on_stage=on_stage) if supervise is None
+            else supervise(run_prepare, on_stage=on_stage))
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     state = init_working_set(gen, n, cfg.n_components, x.dtype, device, y0)
-    t0 = time.perf_counter()
-    if prep.extra_edges is not None:
-        edges, csr, layout = prep.extra_edges, None, "blocks"
-    else:
+
+    def layout():
+        if prep.extra_edges is not None:
+            return prep.extra_edges, None, "blocks"
         edges, csr = _plan_layout(prep.jidx, prep.jval, cfg)
-        layout = ("csr" if csr is not None
-                  else "rows" if edges is None else "edges")
-    t_plan = timed_stage(device, t0)
-    return _Prepared(prep, state, edges, csr, layout, t_plan)
+        return edges, csr, ("csr" if csr is not None
+                            else "rows" if edges is None else "edges")
+    return _Prepared(prep, state, layout)
 
 
 def tsne_embed(x, cfg: TsneConfig | None = None, *,
@@ -639,7 +650,10 @@ def tsne_embed(x, cfg: TsneConfig | None = None, *,
                        affinity_assembly=affinity_assembly, device=device,
                        y0=y0, artifact_cache=artifact_cache,
                        knn_autotune=knn_autotune)
-    prep, state, edges, csr, layout, t_plan = run
+    prep, state, plan_layout = run
+    t0 = time.perf_counter()
+    edges, csr, layout = plan_layout()
+    t_plan = timed_stage(device, t0)
     n = state.y.shape[0]
     t0 = time.perf_counter()
     from tsne_flink_tpu_torch.models.autopilot import (pick_landmark,

@@ -187,6 +187,28 @@ def symmetrized_width(idx: torch.Tensor, p: torch.Tensor) -> int:
     return max(8, (max_deg + 7) // 8 * 8)
 
 
+def row_width_bound(k: int, in_degree: int) -> int:
+    """The widest symmetrized row a point with k out-neighbours and
+    ``in_degree`` in-neighbours can have, rounded as :func:`split_width`
+    (k + a multiple of 8) and :func:`symmetrized_width` (a multiple of 8,
+    at least 8) round."""
+    c = int(in_degree)
+    return max(8, k + (c + 7) // 8 * 8, (k + c + 7) // 8 * 8)
+
+
+def width_bound(idx: torch.Tensor) -> int:
+    """An upper bound, from the kNN graph alone, of the symmetrized row
+    width every assembly builds from it: :func:`row_width_bound` at the
+    largest in-degree.  One bincount over the N·k ids and one host read:
+    what the memory model charges for a run's rows before the affinity
+    stage builds them.  Ids outside [0, N) are not edges."""
+    n, k = idx.shape
+    ids = idx.reshape(-1)
+    ids = torch.where((ids >= 0) & (ids < n), ids, n)
+    return row_width_bound(
+        k, int(torch.max(torch.bincount(ids, minlength=n + 1)[:n])))
+
+
 def assemble_rows(ii: torch.Tensor, jj: torch.Tensor, vv: torch.Tensor,
                   n_rows: int, sym_width: int | None = None,
                   return_dropped: bool = False, return_needed: bool = False,

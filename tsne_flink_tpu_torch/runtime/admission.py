@@ -7,7 +7,8 @@ A fleet job is admitted only while
         <= the fleet budget,
 
 each job's peak being ``plan_hbm_report(plan)["peak_hbm_est"]`` over its
-:class:`~tsne_flink_tpu_torch.analysis.audit.plan.PlanConfig` — the max
+:class:`~tsne_flink_tpu_torch.analysis.audit.plan.PlanConfig` at the
+widest rows its run may build (:func:`predicted_peak_bytes`) — the max
 over its stages, so the sum is a safe co-residency bound.  On the card
 each job's peak carries the caching allocator's reserve and the process's
 CUDA context (``analysis/audit/hbm.py``): what the other processes on the
@@ -52,10 +53,14 @@ class Decision:
 
 
 def predicted_peak_bytes(plan) -> int:
-    """The memory model's plan-level peak (max over stage peaks) — the
-    number one running job is charged against the budget."""
-    from tsne_flink_tpu_torch.analysis.audit.hbm import plan_hbm_report
-    return int(plan_hbm_report(plan)["peak_hbm_est"])
+    """The memory model's plan-level peak (max over stage peaks) at the
+    widest rows the plan's run may build (``analysis/audit/hbm
+    .charged_peak_bytes``) — the number one running job is charged
+    against the budget.  A job admitted before its kNN graph exists is
+    charged the widest its assembly allows; the fleet re-admits it at the
+    graph's width bound once the job reports it."""
+    from tsne_flink_tpu_torch.analysis.audit.hbm import charged_peak_bytes
+    return int(charged_peak_bytes(plan))
 
 
 def default_budget(backend: str, budget_bytes: int | None = None,

@@ -9,6 +9,15 @@ Many embed jobs share one card under one memory budget:
   CUDA context: what the other processes see); a job that does not fit
   is statically degraded (blocks assembly) when that makes it fit, else
   queued FIFO until a running job releases its reservation;
+* **re-admission at the graph's width**: a job is admitted before its kNN
+  graph exists, so it is charged the widest rows its assembly allows;
+  once its kNN stage ends the child reports the graph's row-width bound
+  (``ops/affinities.width_bound``) in a file the fleet names
+  (``JobSpec.fleet["width_path"]``), and the fleet lowers the job's
+  charge to the plan at that width — a charge only ever falls, so the
+  budget is never over-committed — which may admit a queued job; while a
+  running job's charge may still fall, a job that fits only degraded
+  waits instead;
 * **isolation**: every job is its own OS process (``python -m
   tsne_flink_tpu_torch.runtime.fleet --job spec.json``, started with
   ``subprocess``, never a fork of a process that holds a CUDA context),
@@ -50,14 +59,16 @@ import subprocess
 import sys
 import threading
 import time
-from dataclasses import asdict, dataclass, field
+from dataclasses import asdict, dataclass, field, replace
 
 from tsne_flink_tpu_torch.obs import metrics as obmetrics
 from tsne_flink_tpu_torch.obs import trace as obtrace
 from tsne_flink_tpu_torch.obs.trace import walltime
 from tsne_flink_tpu_torch.runtime import faults
-from tsne_flink_tpu_torch.runtime.admission import (AdmissionController,
-                                                    QUEUE, default_budget)
+from tsne_flink_tpu_torch.runtime.admission import (DEGRADE, QUEUE,
+                                                    AdmissionController,
+                                                    default_budget,
+                                                    predicted_peak_bytes)
 from tsne_flink_tpu_torch.runtime.supervisor import backoff_seconds
 
 #: exit code of a watchdog-ended (job/stage timeout) process — the
@@ -249,6 +260,23 @@ def _memory_record(device) -> dict | None:
 
 # ---- the child: one job, one process ---------------------------------------
 
+def _width_reporter(spec: JobSpec):
+    """The child's half of re-admission: write the kNN graph's row-width
+    bound where the fleet looks for it (None outside a fleet)."""
+    path = (spec.fleet or {}).get("width_path")
+    if not path:
+        return None
+
+    def report(width: int) -> None:
+        from tsne_flink_tpu_torch.utils.io import atomic_write
+
+        def write(tmp):
+            with open(tmp, "w") as f:
+                json.dump({"sym_width": int(width)}, f)
+        atomic_write(path, write)
+    return report
+
+
 def run_job(spec: JobSpec) -> dict:
     """Run one embed job in THIS process and return its record (the
     subprocess entry point below also writes it to ``spec.record``).
@@ -284,7 +312,8 @@ def run_job(spec: JobSpec) -> dict:
         dtype = torch.float64 if spec.x64 else torch.float32
         cfg = _job_cfg(spec, x.shape[0], device.type)
         sup = Supervisor(job_plan(spec, device.type),
-                         max_retries=int(spec.max_retries))
+                         max_retries=int(spec.max_retries),
+                         on_width=_width_reporter(spec))
         stages: dict = {}
 
         def on_stage(stage, secs, cache_state):
@@ -313,7 +342,7 @@ def run_job(spec: JobSpec) -> dict:
         inj = faults.injector()
         record.update(
             stages=stages, degradations=sup.degradations, events=sup.events,
-            releases=sup.releases,
+            releases=sup.releases, width_bound=sup.width_bound,
             faults_fired=[list(t) for t in (inj.log if inj else [])],
             final_loss=float(run.losses[-1]), backend=device.type)
     except BaseException as e:
@@ -383,6 +412,7 @@ class _JobState:
     failure: str | None = None   # error | killed | timeout
     counted_reject: bool = False
     log_path: str = ""
+    width_path: str = ""         # the attempt's width report (re-admission)
 
     def record_path(self) -> str:
         return self.spec.record
@@ -457,6 +487,9 @@ class Fleet:
         self.chaos_log: list = []
         #: (job, in-use bytes before, the job's peak) at every admission
         self.admissions: list = []
+        #: every charge lowered to a reported width bound
+        self.readmissions: list = []
+        self._counters0: dict = {}
 
     # ---- child launch ------------------------------------------------------
 
@@ -480,12 +513,18 @@ class Fleet:
         spec_path = os.path.join(
             self.workdir,
             f"{job.spec.name}.attempt{job.attempts + 1}.json")
+        job.width_path = ""
+        if job.plan.sym_width is None and job.spec.assembly != "blocks":
+            job.width_path = os.path.join(
+                self.workdir,
+                f"{job.spec.name}.attempt{job.attempts + 1}.width.json")
         spec = JobSpec.from_dict({
             **job.spec.as_dict(), "fault_plan": self._attempt_fault_plan(job),
             "fleet": {"name": job.spec.name, "index": job.index,
                       "attempt": job.attempts + 1,
                       "budget_bytes": self.budget_bytes,
-                      "predicted_peak": job.peak}})
+                      "predicted_peak": job.peak,
+                      "width_path": job.width_path}})
         spec.save(spec_path)
         env = dict(os.environ)
         env.update(self.env)
@@ -529,12 +568,21 @@ class Fleet:
             if decision.action == QUEUE:
                 self._count_reject(job, decision.reason)
                 continue
+            if decision.action == DEGRADE and any(
+                    j.width_path for j in self._running()):
+                # a running job's charge may still fall to its graph's
+                # width: wait for it rather than degrade this job for good
+                self._count_reject(job, "waiting for a running job's "
+                                   "re-admission before degrading")
+                continue
             job.decision = decision.as_dict()
             job.peak = decision.predicted_peak
             job.counted_reject = False
             self.admissions.append((job.spec.name, in_use, job.peak))
             if decision.overrides.get("assembly"):
                 job.spec.assembly = decision.overrides["assembly"]
+                job.plan = replace(job.plan,
+                                   assembly=decision.overrides["assembly"])
             obtrace.instant("fleet.admit", cat="fleet", job=job.spec.name,
                             action=decision.action,
                             predicted_peak=decision.predicted_peak,
@@ -556,10 +604,37 @@ class Fleet:
         obtrace.instant("fleet.reject", cat="fleet", job=job.spec.name,
                         reason=reason)
 
-    def _poll_pass(self, elapsed: float) -> bool:
-        """Reap finished children, kill deadline overruns; True when any
-        job changed state (capacity may have freed)."""
+    def _readmit_pass(self) -> bool:
+        """Lower a running job's charge to its plan at the row-width bound
+        its child reported; True when a charge changed.  The plan keeps
+        the width, so a retry is admitted at it."""
         changed = False
+        for job in self._running():
+            if not job.width_path or not os.path.exists(job.width_path):
+                continue
+            try:
+                with open(job.width_path, encoding="utf-8") as f:
+                    width = int(json.load(f)["sym_width"])
+            except (OSError, ValueError, KeyError):
+                continue
+            job.width_path = ""
+            job.plan = replace(job.plan, sym_width=width)
+            before, job.peak = job.peak, predicted_peak_bytes(job.plan)
+            self.readmissions.append(
+                {"job": job.spec.name, "attempt": job.attempts,
+                 "sym_width": width, "before": before, "after": job.peak,
+                 "in_use": self._in_use()})
+            obmetrics.counter("fleet.readmissions").inc()
+            obtrace.instant("fleet.readmit", cat="fleet", job=job.spec.name,
+                            sym_width=width, before=before, after=job.peak)
+            changed = True
+        return changed
+
+    def _poll_pass(self, elapsed: float) -> bool:
+        """Reap finished children, kill deadline overruns, re-admit at
+        reported widths; True when any job changed state or charge
+        (capacity may have freed)."""
+        changed = self._readmit_pass()
         for job in self._running():
             rc = job.proc.poll()
             if rc is None:
@@ -615,7 +690,9 @@ class Fleet:
     def run(self) -> dict:
         """Schedule every job to completion; returns the fleet record.
         Every child still running when the loop ends (an exception here)
-        is killed."""
+        is killed.  The record's counts are this run's: the registry's
+        counters less what they held when it began."""
+        self._counters0 = dict(obmetrics.snapshot()["counters"])
         sp = obtrace.begin("fleet.run", cat="fleet",
                            jobs=len(self.jobs), budget=self.budget_bytes)
         try:
@@ -659,7 +736,9 @@ class Fleet:
                 "seconds": job.seconds, "predicted_peak": job.peak,
                 "decision": job.decision, "out": job.spec.out,
                 "record": rec})
-        counters = obmetrics.snapshot()["counters"]
+        before = self._counters0
+        counters = {k: v - before.get(k, 0)
+                    for k, v in obmetrics.snapshot()["counters"].items()}
         return {
             "fleet": {
                 "backend": self.backend,
@@ -673,10 +752,12 @@ class Fleet:
                     int(counters.get("fleet.admission_rejections", 0)),
                 "preemptions": int(counters.get("fleet.preemptions", 0)),
                 "retries": int(counters.get("fleet.retries", 0)),
+                "readmissions": len(self.readmissions),
                 "seconds": round(seconds, 3),
             },
             "chaos": self.chaos_log,
             "admissions": [list(a) for a in self.admissions],
+            "readmissions": list(self.readmissions),
             "jobs": jobs,
             "metrics": obmetrics.snapshot(),
         }

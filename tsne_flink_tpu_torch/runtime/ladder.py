@@ -53,12 +53,15 @@ class Degradation:
 
 
 def _predicted_peak(plan) -> int | None:
-    """Plan-level peak estimate from the memory model; None when the model
-    cannot evaluate the plan.  The warning is no fallback on the device
-    path: the estimate only fills the record."""
+    """Plan-level peak estimate from the memory model — what admission
+    charges for the plan (``analysis/audit/hbm.charged_peak_bytes``: the
+    widest rows its run may build); None when the model cannot evaluate
+    the plan.  The warning is no fallback on the device path: the
+    estimate only fills the record."""
     try:
-        from tsne_flink_tpu_torch.analysis.audit.hbm import plan_hbm_report
-        return int(plan_hbm_report(plan)["peak_hbm_est"])
+        from tsne_flink_tpu_torch.analysis.audit.hbm import \
+            charged_peak_bytes
+        return int(charged_peak_bytes(plan))
     except Exception as e:
         import sys
         print(f"WARNING: HBM model unavailable for the ladder "
@@ -83,7 +86,22 @@ class OomLadder:
         self.knn_tiles = None        # KnnTilePlan override, rung 1
         self.assembly = None         # "blocks" once rung 2 fires
         self.repulsion = None        # demoted backend once rung 3 fires
+        #: the kNN graph's row-width bound, once observed
+        self.width = None
         self.degradations: list[Degradation] = []
+
+    def observe_width(self, width: int) -> None:
+        """The kNN graph's row-width bound (``ops/affinities
+        .width_bound``): later records' predicted peaks charge it where the
+        plan pins no width.  The rungs' choices stay the plan's, as the
+        JAX ladder makes them."""
+        self.width = int(width)
+
+    def _peak(self) -> int | None:
+        plan = self.plan
+        if self.width is not None and plan.sym_width is None:
+            plan = replace(plan, sym_width=self.width)
+        return _predicted_peak(plan)
 
     # ---- rungs -------------------------------------------------------------
 
@@ -115,26 +133,26 @@ class OomLadder:
         cur = self.plan.resolved_assembly()
         if cur == "blocks":
             return None  # already memory-flat; nothing cheaper on this rung
-        peak0 = _predicted_peak(self.plan)
+        peak0 = self._peak()
         self.plan = replace(self.plan, assembly="blocks")
         self.assembly = "blocks"
         return Degradation(
             seq=len(self.degradations), stage=stage,
             action="assembly-blocks", before=cur, after="blocks",
-            peak_hbm_before=peak0, peak_hbm_after=_predicted_peak(self.plan))
+            peak_hbm_before=peak0, peak_hbm_after=self._peak())
 
     def _repulsion_demote(self, stage: str) -> Degradation | None:
         cur = self.repulsion or self.plan.resolved_repulsion()
         nxt = REPULSION_DEMOTION.get(cur)
         if nxt is None:
             return None
-        peak0 = _predicted_peak(self.plan)
+        peak0 = self._peak()
         self.plan = replace(self.plan, repulsion=nxt)
         self.repulsion = nxt
         return Degradation(
             seq=len(self.degradations), stage=stage,
             action="repulsion-demote", before=cur, after=nxt,
-            peak_hbm_before=peak0, peak_hbm_after=_predicted_peak(self.plan))
+            peak_hbm_before=peak0, peak_hbm_after=self._peak())
 
     # ---- public ------------------------------------------------------------
 

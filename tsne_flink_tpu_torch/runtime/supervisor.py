@@ -122,7 +122,7 @@ class Supervisor:
                  on_oom: str = "ladder", health_check: bool = False,
                  health_retries: int = 3, events: list | None = None,
                  retry_backoff: float | None = None,
-                 retry_backoff_cap: float | None = None):
+                 retry_backoff_cap: float | None = None, on_width=None):
         if on_oom not in ("ladder", "fail"):
             raise ValueError(f"on_oom '{on_oom}' not defined (ladder | fail)")
         self.ladder = OomLadder(plan) if plan is not None else None
@@ -140,6 +140,9 @@ class Supervisor:
         self.last_telemetry = None
         #: the autopilot (pvec, trace) pair of the last run
         self.last_pilot = None
+        #: the kNN graph's row-width bound, once the kNN stage has run
+        self.width_bound = None
+        self.on_width = on_width
 
     # ---- shared ladder plumbing -------------------------------------------
 
@@ -196,14 +199,35 @@ class Supervisor:
         return {"events": list(self.events),
                 "degradations": self.degradations}
 
+    def observe_graph(self, idx) -> None:
+        """Once the kNN stage has built ``idx``: the rows' width bound
+        (``ops/affinities.width_bound``, one host read) goes to the ladder,
+        whose records then charge the width the affinity stage can build
+        instead of the widest the plan allows, and to ``on_width`` (a
+        fleet job reports it for re-admission).  Read once a run, and only
+        when one of them needs it."""
+        lad = self.ladder
+        need = (lad is not None and lad.plan.sym_width is None
+                and lad.width is None)
+        if self.on_width is None and not need:
+            return
+        from tsne_flink_tpu_torch.ops.affinities import width_bound
+        self.width_bound = width_bound(idx)
+        obmetrics.gauge("runtime.width_bound").set(self.width_bound)
+        if need:
+            lad.observe_width(self.width_bound)
+        if self.on_width is not None:
+            self.on_width(self.width_bound)
+
     # ---- prepare ----------------------------------------------------------
 
     def run_prepare(self, fn, on_stage=None):
         """Run the prepare stage with ladder recovery.
 
-        ``fn(on_stage=..., **overrides)`` runs the stage (a lambda over
-        ``utils/artifacts.prepare``); overrides are the ladder's
-        accumulated ``knn_tiles`` / ``assembly``.  The failed stage is the
+        ``fn(on_stage=..., on_graph=..., **overrides)`` runs the stage (a
+        lambda over ``utils/artifacts.prepare``; ``on_graph`` is
+        :meth:`observe_graph`); overrides are the ladder's accumulated
+        ``knn_tiles`` / ``assembly``.  The failed stage is the
         first one whose ``on_stage`` completion did not arrive; with an
         artifact cache the relaunch recomputes only that stage."""
         for attempt in range(self.max_retries + 1):
@@ -217,7 +241,8 @@ class Supervisor:
             overrides = (self.ladder.overrides()
                          if self.ladder is not None else {})
             try:
-                return fn(on_stage=track, **overrides)
+                return fn(on_stage=track, on_graph=self.observe_graph,
+                          **overrides)
             except Exception as e:  # noqa: BLE001 — re-raised unless an OOM
                 stage = "affinities" if "knn" in done else "knn"
                 self._handle_oom(stage, e, attempt)
@@ -298,8 +323,12 @@ def run_plan_from_fit(n: int, d: int, k: int, cfg, assembly: str,
                       sym_width=None, mesh: int = 1, name: str = "fit",
                       backend: str = "cuda"):
     """The memory model's PlanConfig for an in-process fit (the ladder's
-    input); ``backend`` is the run's device type."""
+    input); ``backend`` is the run's device type.  A pinned ``sym_width``
+    under ``auto`` is the sorted layout at that width, as the run takes
+    it."""
     from tsne_flink_tpu_torch.analysis.audit import PlanConfig
+    if assembly == "auto" and sym_width is not None:
+        assembly = "sorted"
     return PlanConfig(
         n=int(n), d=int(d), k=int(k), backend=backend,
         n_components=cfg.n_components, iterations=cfg.iterations,
@@ -326,52 +355,32 @@ def supervised_embed(x, cfg, *, supervisor: Supervisor,
                      telemetry: bool = False, on_stage=None,
                      checkpoint_cb=None, every: int | None = None):
     """Supervised single-device pipeline: ``models/tsne.tsne_embed``'s
-    prepare, init and layout with the supervisor around prepare and a
-    segmented optimize (the sentinel needs segment boundaries to roll back
-    to).  The same draws as ``tsne_embed`` (``seed`` seeds the init and,
-    through ``knn_generator``, the kNN stage), so a clean run gives its
-    bits; like the JAX function it runs no landmark schedule.
+    prepare, init and layout (its ``_prepare_run``) with the supervisor
+    around prepare and a segmented optimize (the sentinel needs segment
+    boundaries to roll back to).  The same draws as ``tsne_embed``
+    (``seed`` seeds the init and, through ``knn_generator``, the kNN
+    stage), so a clean run gives its bits; like the JAX function it runs
+    no landmark schedule.
 
     ``on_stage(name, seconds, cache_state)`` / ``checkpoint_cb(state,
     next_iter, losses, pilot)`` are progress hooks at prepare-stage
     completions and segment boundaries (the fleet's watchdog heartbeats);
     they change no bit.  ``every`` defaults to :func:`segment_every`.
     Returns the ``runtime/segments.SegmentsResult``."""
-    import torch
-
-    from tsne_flink_tpu_torch.models.tsne import (_plan_layout,
-                                                  init_working_set)
-    from tsne_flink_tpu_torch.utils.artifacts import prepare
+    from tsne_flink_tpu_torch.models.tsne import _prepare_run
     from tsne_flink_tpu_torch.utils.device import resolve_device
 
-    device = resolve_device(device)
-    x = torch.as_tensor(x, device=device)
-    n = x.shape[0]
-    k = neighbors if neighbors is not None else 3 * int(cfg.perplexity)
-    assembly = affinity_assembly or "auto"
-    if assembly == "auto" and sym_width is not None:
-        assembly = "sorted"  # a pinned width is a row-layout request
-
-    def run_prepare(on_stage, assembly=assembly, knn_tiles=None):
-        return prepare(x, neighbors=k, knn_method=knn_method,
-                       metric=cfg.metric, knn_rounds=knn_iterations,
-                       knn_refine=knn_refine, knn_blocks=knn_blocks,
-                       seed=seed, perplexity=cfg.perplexity,
-                       assembly=assembly, sym_width=sym_width,
-                       device=device, cache=artifact_cache,
-                       knn_tiles=knn_tiles, knn_autotune=knn_autotune,
-                       on_stage=on_stage)
-
-    prep = supervisor.run_prepare(run_prepare, on_stage=on_stage)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
-    state = init_working_set(gen, n, cfg.n_components, x.dtype, device)
+    prep, state, plan_layout = _prepare_run(
+        x, cfg, neighbors=neighbors, knn_method=knn_method,
+        knn_iterations=knn_iterations, knn_refine=knn_refine,
+        knn_blocks=knn_blocks, seed=seed, sym_width=sym_width,
+        affinity_assembly=affinity_assembly, device=resolve_device(device),
+        artifact_cache=artifact_cache, knn_autotune=knn_autotune,
+        supervise=supervisor.run_prepare, on_stage=on_stage)
 
     def layout():
-        if prep.extra_edges is not None:
-            return prep.extra_edges, True, None
-        edges, csr = _plan_layout(prep.jidx, prep.jval, cfg)
-        return edges, False, csr
+        edges, csr, label = plan_layout()
+        return edges, label == "blocks", csr
 
     return supervisor.run_optimize(
         cfg, state, prep.jidx, prep.jval, layout=layout,

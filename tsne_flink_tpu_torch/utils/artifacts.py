@@ -250,7 +250,7 @@ def prepare(x=None, *, knn=None, neighbors: int,
             assembly: str = "auto", sym_width: int | None = None,
             device=None, cache: ArtifactCache | None = None,
             knn_tiles=None, knn_autotune: bool = False,
-            on_stage=None) -> PrepareResult:
+            on_stage=None, on_graph=None) -> PrepareResult:
     """kNN (or the given ``knn=(idx, dist)``), then the symmetrized P by
     ``assembly``: ``auto`` (``affinity_auto``: split rows, or blocks when
     the rows would not fit), ``blocks`` (``affinity_blocks``), or
@@ -272,7 +272,9 @@ def prepare(x=None, *, knn=None, neighbors: int,
     ``PrepareResult.knn_tiles``.
 
     ``on_stage(stage, seconds, cache_state)`` is called after each stage
-    (``knn``, then ``affinities``); it changes no bit of the result."""
+    (``knn``, then ``affinities``), and ``on_graph(idx)`` with the kNN
+    graph once its stage ends (the run supervisor's width bound); neither
+    changes a bit of the result."""
     from tsne_flink_tpu_torch.ops.knn import backend_of, check_knn_limits
     from tsne_flink_tpu_torch.runtime import faults
 
@@ -342,6 +344,8 @@ def prepare(x=None, *, knn=None, neighbors: int,
     mem_knn = obmem.sample("knn", device)
     if on_stage is not None:
         on_stage("knn", t_knn, knn_cache)
+    if on_graph is not None:
+        on_graph(idx)
 
     # ---- affinities: beta search + symmetrized assembly ----
     t0 = time.perf_counter()
