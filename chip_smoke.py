@@ -140,6 +140,25 @@ Phases, in order; any failure exits non-zero before the result line:
    scheduled ``ServeDaemon`` on the 60k model over 8 spooled requests of
    64 / 256 / 1,024 rows: rows/s, p50/p99, batch fill, every answer
    equal bit for bit to a direct transform;
+9f. quorum — replicated serving (queue A13b): ``runtime/fleet
+   .run_serve_fleet`` runs ``python -m tsne_flink_tpu_torch.runtime.fleet
+   --serve`` replica processes over one spool on the card, on phase 8's
+   60k exact model (its fat checkpoint, the base features as .npy), each
+   answer held bit for bit to this process's own transform, every
+   request to exactly one terminal and the drained spool to terminals
+   only: (1) clean, two replicas, the 8 requests of phase 9d landing once
+   both are warm: rows/s and p50/p99 beside phase 9d's daemon, each
+   replica's start-up (spawn to warm) and its launches, B5 and B2 75 a
+   bucket and nothing else; (6) memory, each replica's peak reserved
+   plus the measured CUDA context against the gate's charge
+   (``transform_peak`` with the allocator's reserve, and the context
+   once), within [1, 2]; then at once, each over its own spool, (2)
+   ``kill@serve:seg0`` on both replicas (re-dispatched requests carry
+   epoch >= 2), (3) ``hang@serve:2`` on one replica under a 3 s
+   heartbeat bound (a ``sigkill-hung`` event, re-dispatch), (4)
+   ``delay@serve:2`` past a replica's stage timeout (its watchdog ends
+   it with exit 124; relaunched clean) and (5) shedding at depth 1 (bulk
+   refused with ``retry_after_ms`` > 0, express served);
 9e. diverging — N = 2,000 at learning rate 1e30 with the sentinel: three
    rollbacks, eta halved each time, then ``DivergenceError``;
 10. determinism — two runs at N = 2,000 give the same bits, on the CSR
@@ -2507,6 +2526,8 @@ def serve_daemon(model, tmp, rng):
           f"{summary['p99_ms']} ms (from the spool's first scan); "
           f"{summary['batches']} batches, fill {summary['batch_fill_mean']}"
           "; every answer equals a direct transform bit for bit")
+    return {"rows_s": rows / wall, "p50_ms": summary["p50_ms"],
+            "p99_ms": summary["p99_ms"]}
 
 
 def phase_serve(x_np, ckpt_path, large, xc_np, tmp):
@@ -2528,7 +2549,7 @@ def phase_serve(x_np, ckpt_path, large, xc_np, tmp):
           f"from the fat checkpoint in {time.perf_counter() - t0:.3f} s")
     check(exact.repulsion == "exact", "[serve] the 60k model is not exact")
     recs, counts = serve_model("60k exact", exact, rng)
-    serve_daemon(exact, tmp, rng)
+    recs["daemon"] = serve_daemon(exact, tmp, rng)
     del exact
     t0 = time.perf_counter()
     fft = from_arrays(xc_np, large[0].cpu().numpy(), PlanConfig(
@@ -2543,6 +2564,327 @@ def phase_serve(x_np, ckpt_path, large, xc_np, tmp):
     recs["B5_large"] = recs_l["B5"]
     recs["memory"] += recs_l["memory"]
     return recs, {kid: counts[kid] + counts_l[kid] for kid in counts}
+
+
+#: [quorum]: replicated serving on the 60k model — each replica's claim
+#: horizon (16 x max_batch rows: two buckets, so the replicas share a
+#: backlog), the hung triage's heartbeat bound, the watchdog case's stage
+#: timeout and the delay past it, the idle exit that lets both replicas of
+#: the clean case start before its requests land, and every fleet's
+#: deadline
+QUORUM_MAX_BATCH = 32
+QUORUM_STALE_MS = 3000.0
+QUORUM_STAGE_TIMEOUT_S, QUORUM_DELAY_S = 4.0, 8.0
+QUORUM_IDLE_CLEAN_S, QUORUM_RUN_S = 4.0, 240.0
+#: [quorum] 5: the shed case's bulk (past one bucket) and express
+#: requests (rows)
+QUORUM_SHED = {"b0": 1024, "b1": 1024, "b2": 1024, "e0": 64, "e1": 256}
+
+
+def quorum_spec(tag, tmp, ckpt_path, x_path, replicas, *, serve=None,
+                **kw):
+    """A ServeFleetSpec of ``replicas`` daemons of the 60k exact model (the
+    checkpoint [project] wrote, its base features as .npy) at the serving
+    defaults, over a spool of its own."""
+    from tsne_flink_tpu_torch.runtime.fleet import ServeFleetSpec
+    template = {"model": ckpt_path, "input": x_path,
+                "perplexity": PERPLEXITY, "neighbors": K,
+                "bucket": SERVE_BUCKET, "iters": SERVE_ITERS,
+                "eta": SERVE_ETA, "tick_s": 0.001, "poll_max_ms": 200.0,
+                "idle_exit_s": 0.5, "max_batch": QUORUM_MAX_BATCH,
+                **(serve or {})}
+    spool = os.path.join(tmp, f"quorum_{tag}_spool")
+    os.makedirs(spool)
+    kw.setdefault("stale_ms", 60_000.0)
+    return ServeFleetSpec(name=tag, spool=spool,
+                          workdir=os.path.join(tmp, f"quorum_{tag}"),
+                          serve=template, replicas=replicas,
+                          run_s=QUORUM_RUN_S, backoff_base=0.05,
+                          backoff_cap=0.5, **kw)
+
+
+def quorum_thread(spec, out):
+    """Run the fleet's supervisor in a thread of this process (it is
+    process and file plumbing); its record, or its error, lands in
+    ``out``."""
+    import threading
+    from tsne_flink_tpu_torch.runtime.fleet import run_serve_fleet
+
+    def target():
+        try:
+            out[spec.name] = run_serve_fleet(spec)
+        except BaseException as e:  # re-raised by quorum_join
+            out[spec.name] = e
+    th = threading.Thread(target=target, name=f"quorum-{spec.name}")
+    th.start()
+    return th
+
+
+def quorum_join(th, spec, out):
+    th.join(QUORUM_RUN_S + 60.0)
+    check(not th.is_alive(), f"[quorum] {spec.name}: the supervisor did not "
+          "return")
+    rec = out[spec.name]
+    if isinstance(rec, BaseException):
+        raise SmokeFailure(f"[quorum] {spec.name}: {rec!r}")
+    check(not rec["deadline_hit"], f"[quorum] {spec.name}: deadline hit; "
+          f"events {json.dumps(rec['events'])[-3000:]}")
+    return rec
+
+
+def quorum_answers(tag, spec, want, extra=()):
+    """Every request of ``want`` has exactly one terminal, bit for bit the
+    smoke process's transform, and the spool holds terminals only (no
+    torn or epoch-tagged tmp, no lock, no sidecar, no beat)."""
+    from tsne_flink_tpu_torch.serve.daemon import read_result
+    for rid, y in want.items():
+        check(same_bits(read_result(spec.spool, rid), y),
+              f"[quorum] {tag}: {rid} differs from this process's "
+              "transform")
+    names = sorted(os.listdir(spec.spool))
+    expect = sorted([f"{rid}{suf}" for rid in want
+                     for suf in (".lat.json", ".res.npz")] + list(extra))
+    check(names == expect, f"[quorum] {tag}: the spool holds {names}")
+
+
+def quorum_lat(spec, rid):
+    with open(os.path.join(spec.spool, rid + ".lat.json")) as f:
+        return json.load(f)
+
+
+def quorum_startup(rec):
+    """Each replica attempt's start-up seconds: spawn to warm (its model
+    loaded and one bucket run)."""
+    spawns = {}
+    for e in rec["events"]:
+        if e["event"] == "spawn":
+            spawns.setdefault(e["replica"], []).append(e["t"])
+    out = {}
+    for name, sub in rec["replica_records"].items():
+        if sub and sub.get("t_warm"):
+            out[name] = sub["t_warm"] - max(t for t in spawns[name]
+                                            if t <= sub["t_warm"])
+    return out
+
+
+def quorum_submit(spec, queries):
+    from tsne_flink_tpu_torch.serve.daemon import submit
+    for rid, q in queries.items():
+        submit(spec.spool, q, rid)
+
+
+def quorum_clean(ckpt_path, x_path, tmp, queries, want, solo,
+                 cold_build=False):
+    """[quorum] 1: two replicas; the requests land once both are warm, so
+    the wall from submission to the last result is the fleet's serving
+    alone.  Returns the replicas' records."""
+    from tsne_flink_tpu_torch.kernels import build as kbuild
+    from tsne_flink_tpu_torch.serve import replicas as quorum
+    if cold_build:
+        import shutil
+        shutil.rmtree(kbuild.BUILD_DIR, ignore_errors=True)
+        print(f"[quorum] {kbuild.BUILD_DIR} removed: the replicas build "
+              "the kernel library themselves, under its cross-process lock")
+    out = {}
+    clean = quorum_spec("clean", tmp, ckpt_path, x_path, 2,
+                        serve={"idle_exit_s": QUORUM_IDLE_CLEAN_S})
+    th = quorum_thread(clean, out)
+    names = [f"clean-r{i}" for i in range(2)]
+    t_wait = time.time()
+    while not all(quorum.read_beat(clean.spool, n) for n in names):
+        check(th.is_alive() and time.time() - t_wait < QUORUM_RUN_S,
+              f"[quorum] clean: the replicas did not start; "
+              f"{json.dumps(out.get('clean'), default=repr)[-3000:]}")
+        time.sleep(0.005)
+    t0 = time.time()
+    quorum_submit(clean, queries)
+    res = [os.path.join(clean.spool, rid + ".res.npz") for rid in queries]
+    while not all(os.path.exists(p) for p in res):
+        check(th.is_alive(), "[quorum] clean: the fleet ended early")
+        time.sleep(0.001)
+    wall = time.time() - t0
+    rec = quorum_join(th, clean, out)
+    quorum_answers("clean", clean, want)
+    subs = rec["replica_records"]
+    check(all(sub and sub["status"] == "ok" for sub in subs.values())
+          and rec["relaunches"] == 0 and rec["redispatched"] == [],
+          f"[quorum] clean: {json.dumps(rec)[-3000:]}")
+    rows = sum(len(q) for q in queries.values())
+    lat = sorted(quorum_lat(clean, rid)["seconds"] for rid in queries)
+    p50 = lat[int(round(0.5 * (len(lat) - 1)))] * 1e3
+    p99 = lat[int(round(0.99 * (len(lat) - 1)))] * 1e3
+    served = {n: sub["served"] for n, sub in subs.items()}
+    startup = quorum_startup(rec)
+    print(f"[quorum] clean: 2 replicas, {len(queries)} requests, {rows} "
+          f"rows in {wall:.4f} s from submission to the last result: "
+          f"{rows / wall:.0f} rows/s (the in-process daemon of [serve], "
+          f"this run: {solo['rows_s']:.0f} rows/s); p50 {p50:.3f} ms, p99 "
+          f"{p99:.3f} ms from claim to result ([serve]: {solo['p50_ms']} / "
+          f"{solo['p99_ms']} ms); requests served a replica {served}; "
+          "start-up (spawn to warm) "
+          + ", ".join(f"{n} {s:.3f} s" for n, s in startup.items())
+          + "; kernel library " + ", ".join(
+              f"{n} {sub['kernel_cache']}" for n, sub in subs.items())
+          + "; every answer equals this process's transform bit for bit")
+    for n, sub in subs.items():
+        launches, b = sub["launches"], sub["batches"]
+        check(b > 0 and launches["B5"] == SERVE_ITERS * b
+              and launches["B2"] == SERVE_ITERS * b
+              and sum(launches.values()) == 2 * SERVE_ITERS * b,
+              f"[quorum] clean {n}: launches {launches} over {b} buckets")
+        print(f"[quorum] clean {n}: {b} buckets, launches {launches}: B2 "
+              f"{launches['B2'] // b} and B5 {launches['B5'] // b} a bucket")
+    return subs
+
+
+def quorum_memory(subs, context, total):
+    """[quorum] 6: each replica's footprint (peak reserved + the measured
+    context) against the gate's charge (transform_peak with its reserve,
+    and the context once), within [1, 2]."""
+    feet = 0
+    for n, sub in subs.items():
+        mem, adm = sub["memory"], sub["admission"]
+        foot = mem["peak_reserved"] + context
+        feet += foot
+        ratio = adm["charged_bytes"] / foot
+        print(f"[quorum] memory {n}: peak allocated "
+              f"{mem['peak_allocated'] / 2**20:.1f} MiB, reserved "
+              f"{mem['peak_reserved'] / 2**20:.1f} MiB, + context "
+              f"{context / 2**20:.1f} MiB = footprint {foot / 2**20:.1f} "
+              f"MiB; the gate charges {adm['charged_bytes'] / 2**20:.1f} MiB "
+              f"(transform_peak {adm['peak_bytes'] / 2**20:.1f} MiB, its "
+              f"reserve and the context): {ratio:.3f} x the footprint")
+        check(1.0 <= ratio <= 2.0, f"[quorum] memory {n}: the charge is "
+              f"{ratio:.3f} x the footprint, outside [1, 2]")
+    print(f"[quorum] memory: {len(subs)} replicas hold "
+          f"{feet / 2**30:.3f} GiB of the card's {total / 2**30:.3f} GiB")
+
+
+def quorum_chaos(ckpt_path, x_path, tmp, queries, want, shed_q, want_e):
+    """[quorum] 2-5 at once, each fleet over a spool of its own: both
+    replicas killed at their first request's boundary; one replica hung
+    at its second tick; one ended by its watchdog; bulk shed before
+    express."""
+    out = {}
+    kill = quorum_spec("kill", tmp, ckpt_path, x_path, 2, fault_plans={
+        "0": "kill@serve:seg0", "1": "kill@serve:seg0"})
+    hang = quorum_spec("hang", tmp, ckpt_path, x_path, 1,
+                       fault_plans={"0": "hang@serve:2"},
+                       stale_ms=QUORUM_STALE_MS)
+    dog = quorum_spec("watchdog", tmp, ckpt_path, x_path, 1,
+                      fault_plans={"0": "delay@serve:2"},
+                      serve={"stage_timeout": QUORUM_STAGE_TIMEOUT_S,
+                             "fault_delay_s": QUORUM_DELAY_S})
+    shed = quorum_spec("shed", tmp, ckpt_path, x_path, 1, shed_depth=1)
+    for spec in (kill, hang, dog):
+        quorum_submit(spec, queries)
+    quorum_submit(shed, shed_q)
+    t0 = time.perf_counter()
+    threads = [(quorum_thread(spec, out), spec)
+               for spec in (kill, hang, dog, shed)]
+    recs = {spec.name: quorum_join(th, spec, out) for th, spec in threads}
+    print(f"[quorum] kill, hang, watchdog and shed fleets at once: "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    rec = recs["kill"]
+    quorum_answers("kill", kill, want)
+    exits = [e for e in rec["events"] if e["event"] == "exit"]
+    epochs = {rid: quorum_lat(kill, rid)["epoch"]
+              for rid in rec["redispatched"]}
+    check(rec["redispatched"] and all(e >= 2 for e in epochs.values())
+          and rec["relaunches"] >= 1
+          and any(e["rc"] == -9 for e in exits)
+          and all(sub and sub["status"] == "ok"
+                  for sub in rec["replica_records"].values()),
+          f"[quorum] kill: {json.dumps(rec)[-3000:]}")
+    delays = [e["delay_ms"] for e in rec["events"]
+              if e["event"] == "relaunch-scheduled"]
+    print(f"[quorum] kill: exits {[e['rc'] for e in exits]}, "
+          f"re-dispatched {epochs} (epoch on the .lat.json), relaunches "
+          f"{rec['relaunches']} after backoffs {delays} ms, relaunched "
+          f"start-up {json.dumps(quorum_startup(rec))} s; every request one "
+          "terminal, bit for bit")
+
+    rec = recs["hang"]
+    quorum_answers("hang", hang, want)
+    hung = [e for e in rec["events"] if e["event"] == "sigkill-hung"]
+    sub = rec["replica_records"]["hang-r0"]
+    check(len(hung) == 1 and rec["sigkills"] == 1 and rec["redispatched"]
+          and sub and sub["status"] == "ok" and sub["redispatched"] >= 1,
+          f"[quorum] hang: {json.dumps(rec)[-3000:]}")
+    print(f"[quorum] hang: sigkill-hung at a beat age of "
+          f"{hung[0]['beat_age_ms']} ms (stale bound {QUORUM_STALE_MS} "
+          f"ms), re-dispatched {rec['redispatched']}, attempts "
+          f"{rec['attempts']}; every request one terminal, bit for bit")
+
+    rec = recs["watchdog"]
+    quorum_answers("watchdog", dog, want)
+    exits = [e["rc"] for e in rec["events"] if e["event"] == "exit"]
+    check(exits == [124, 0] and rec["sigkills"] == 0
+          and rec["replica_records"]["watchdog-r0"]["status"] == "ok",
+          f"[quorum] watchdog: {json.dumps(rec)[-3000:]}")
+    print(f"[quorum] watchdog: delay@serve:2 ({QUORUM_DELAY_S} s) past the "
+          f"stage timeout ({QUORUM_STAGE_TIMEOUT_S} s): exits {exits}, "
+          f"re-dispatched {rec['redispatched']}, relaunched clean; no torn "
+          "result, every request one terminal, bit for bit")
+
+    rec = recs["shed"]
+    bulk = [rid for rid in shed_q if rid not in want_e]
+    quorum_answers("shed", shed, want_e,
+                   extra=[rid + ".err.json" for rid in bulk])
+    errs = {}
+    for rid in bulk:
+        with open(os.path.join(shed.spool, rid + ".err.json")) as f:
+            errs[rid] = json.load(f)
+    sub = rec["replica_records"]["shed-r0"]
+    check(all(e["shed"] is True and e["retry_after_ms"] > 0
+              for e in errs.values())
+          and sub["shed"] == len(bulk) and sub["served"] == len(want_e),
+          f"[quorum] shed: {errs}, {json.dumps(sub)[-2000:]}")
+    print(f"[quorum] shed: depth 1, bulk refused with retry_after_ms "
+          f"{[e['retry_after_ms'] for e in errs.values()]}, express served "
+          "bit for bit")
+
+
+def phase_quorum(x_np, ckpt_path, tmp, solo, cold_build=False):
+    """[quorum]: N ``--serve`` replica processes over one spool on the
+    card, on the 60k exact model [project] wrote (queue A13b); every
+    answer held bit for bit to this process's own transform.  Returns the
+    CUDA context measured here (``runtime_context``), which [runtime]
+    reuses."""
+    import torch
+    from tsne_flink_tpu_torch.serve.model import PlanConfig, load_frozen
+    from tsne_flink_tpu_torch.serve.transform import transform
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    x_path = os.path.join(tmp, "quorum_x.npy")
+    np.save(x_path, x_np)
+    model = load_frozen(ckpt_path, x_np, PlanConfig(
+        n=N_FULL, d=F_FULL, k=K, backend="cuda", name="quorum"),
+        perplexity=PERPLEXITY)
+    rng = np.random.default_rng(12)
+    n = x_np.shape[0]
+    queries = {f"q{i}": x_np[rng.choice(n, rows, replace=False)]
+               for i, rows in enumerate(SERVE_DAEMON_ROWS)}
+    shed_q = {rid: x_np[rng.choice(n, rows, replace=False)]
+              for rid, rows in QUORUM_SHED.items()}
+
+    def direct(q):
+        return transform(model, q, bucket=SERVE_BUCKET, iters=SERVE_ITERS,
+                         eta=SERVE_ETA)
+    want = {rid: direct(q) for rid, q in queries.items()}
+    want_e = {rid: direct(q) for rid, q in shed_q.items()
+              if len(q) <= SERVE_BUCKET}
+    del model
+    torch.cuda.empty_cache()
+    subs = quorum_clean(ckpt_path, x_path, tmp, queries, want, solo,
+                        cold_build)
+    context = runtime_context()
+    quorum_memory(subs, context,
+                  torch.cuda.get_device_properties(0).total_memory)
+    quorum_chaos(ckpt_path, x_path, tmp, queries, want, shed_q, want_e)
+    print(f"[quorum] phase {time.perf_counter() - t_phase:.1f} s")
+    return context
 
 
 def phase_determinism(x_np, xl_np):
@@ -3573,11 +3915,13 @@ def runtime_tracing(x_np, tmp):
     check(same, "[runtime] tracing: --profile changed the output")
 
 
-def phase_runtime(x_np, xl_np, xc_np, tmp, serve_memory):
+def phase_runtime(x_np, xl_np, xc_np, tmp, serve_memory, context=None):
     """[runtime]: the memory model, a real OOM, the fault rehearsals, the
-    fleet and tracing, on the card (queue A15)."""
+    fleet and tracing, on the card (queue A15).  ``context`` is the CUDA
+    context [quorum] measured, else measured here."""
     t0 = time.perf_counter()
-    context = runtime_context()
+    if context is None:
+        context = runtime_context()
     for tag, pred, meas in serve_memory:
         print(f"[runtime] memory serve {tag}: transform_peak "
               f"{pred / 2**20:.1f} MiB, measured {meas / 2**20:.1f} MiB "
@@ -3650,9 +3994,12 @@ def main() -> int:
             rec["serve"] = serve.get(kid)
         kernels[[r["name"].split()[0] for r in kernels].index("B5")][
             "serve_large"] = serve["B5_large"]
+        context = phase_quorum(x_np, os.path.join(tmp, "project.npz"),
+                               tmp, serve["daemon"])
         phase_diverging(x_np)
         phase_determinism(x_np, xl_np)
-        phase_runtime(x_np, xl_np, xc_np, tmp, serve["memory"])
+        phase_runtime(x_np, xl_np, xc_np, tmp, serve["memory"],
+                      context=context)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -33,7 +33,9 @@ boundary, the sentinel's flag and telemetry on the card; and serving:
 B2 with 256 query rows past a 60,000-row base against its plain version
 (two launches bit for bit, a mask refused), the query loop launching B5
 and B2 once an iteration a bucket and giving the same bits across batch
-splits, and the daemon's answers equal to direct transforms.
+splits, and the daemon's answers equal to direct transforms; and a
+fleet of two replica processes over one spool, one killed, answering bit
+for bit as this process does.
 """
 
 import numpy as np
@@ -1245,3 +1247,61 @@ def test_tracing_changes_no_bit_and_no_launch(dev, tmp_path):
         "traceEvents"]}
     assert {"prepare.knn", "prepare.affinities", "optimize.segment"} <= names
     assert os.listdir(tmp_path / "prof")
+
+
+# ---- replicated serving (A13b) ----------------------------------------------
+
+def test_serve_fleet_on_the_card(dev, tmp_path):
+    """Two ``--serve`` replica processes on the card over one spool, one
+    of them killed at its first request's boundary: every request gets
+    exactly one terminal, bit for bit this process's transform; each
+    replica's record carries its measured memory and its charge, and its
+    buckets launch B5 and B2 once an iteration."""
+    import json
+    import os
+    from tsne_flink_tpu_torch.models.tsne import TsneState
+    from tsne_flink_tpu_torch.runtime.fleet import (ServeFleetSpec,
+                                                    run_serve_fleet)
+    from tsne_flink_tpu_torch.serve.daemon import read_result, submit
+    from tsne_flink_tpu_torch.serve.model import PlanConfig, load_frozen
+    from tsne_flink_tpu_torch.serve.transform import transform
+    from tsne_flink_tpu_torch.utils import checkpoint as ckpt
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((2000, 16)).astype(np.float32)
+    y = torch.from_numpy(rng.standard_normal((2000, 2)).astype(np.float32))
+    ckpt.save(str(tmp_path / "m.npz"), TsneState(
+        y=y, update=torch.zeros_like(y), gains=torch.ones_like(y)), 10,
+        np.asarray([0.5]))
+    np.save(tmp_path / "x.npy", x)
+    spool = str(tmp_path / "spool")
+    os.makedirs(spool)
+    reqs = {f"r{i}": rng.standard_normal((rows, 16)).astype(np.float32)
+            for i, rows in enumerate((5, 32, 70, 9))}
+    for rid, q in reqs.items():
+        submit(spool, q, rid)
+    rec = run_serve_fleet(ServeFleetSpec(
+        name="card", spool=spool, workdir=str(tmp_path / "work"),
+        serve={"model": str(tmp_path / "m.npz"),
+               "input": str(tmp_path / "x.npy"), "perplexity": 5.0,
+               "neighbors": 15, "repulsion": "exact", "bucket": 32,
+               "iters": 10, "tick_s": 0.001, "idle_exit_s": 0.5},
+        replicas=2, stale_ms=30000.0, run_s=300.0, backoff_base=0.05,
+        fault_plans={"0": "kill@serve:seg0"}))
+    assert rec["deadline_hit"] is False and rec["relaunches"] >= 1
+    model = load_frozen(str(tmp_path / "m.npz"), x, PlanConfig(
+        n=2000, d=16, k=15, backend="cuda", repulsion="exact"),
+        perplexity=5.0)
+    for rid, q in reqs.items():
+        assert np.array_equal(read_result(spool, rid),
+                              transform(model, q, bucket=32, iters=10))
+    names = sorted(os.listdir(spool))
+    assert names == sorted(f"{rid}{s}" for rid in reqs
+                           for s in (".lat.json", ".res.npz"))
+    for name, sub in rec["replica_records"].items():
+        assert sub["status"] == "ok", json.dumps(sub)[:2000]
+        mem, adm = sub["memory"], sub["admission"]
+        assert 0 < mem["peak_allocated"] <= mem["peak_reserved"]
+        assert adm["charged_bytes"] > adm["peak_bytes"]   # the process
+        if sub["batches"]:
+            assert sub["launches"]["B5"] == 10 * sub["batches"]
+            assert sub["launches"]["B2"] == 10 * sub["batches"]

@@ -7,7 +7,8 @@
 * ``FaultInjector.fire`` makes JAX's decisions over the same call
   sequences (occurrence counts, segment triggers, start and boundary
   points, one fire each), and ``corrupt`` flips the same bit;
-* ``activate`` refuses the ``serve`` site, naming ROADMAP queue A13b;
+* ``activate`` takes the serve daemon's ``serve`` site (tick starts, and
+  the request boundary a ``kill@serve:segN`` matches);
 * ``delay`` sleeps inside a ``fault.delay`` span.
 """
 
@@ -88,6 +89,11 @@ SEQUENCES = [
      [("knn", None, "start"), ("affinities", None, "start"),
       ("knn", None, "start"), ("optimize", 1, "start"),
       ("optimize", 1, "boundary")]),
+    # the serve daemon's site: tick starts count, request boundaries carry
+    # the requests served so far
+    ("oom@serve:2,kill@serve:seg3",
+     [("serve", None, "start"), ("serve", 0, "boundary"),
+      ("serve", 1, "boundary"), ("serve", None, "start")]),
 ]
 
 
@@ -132,11 +138,13 @@ def test_corrupt_flips_the_same_bit_as_jax(tmp_path):
     assert sum(a != b for a, b in zip(paths[0], payload)) == 1
 
 
-def test_activate_refuses_the_serve_site_naming_a13b():
-    assert tfaults.parse_plan("hang@serve")  # the grammar takes it
-    with pytest.raises(NotImplementedError, match="A13b"):
-        tfaults.activate("oom@knn,hang@serve")
-    assert tfaults.injector() is None
+def test_activate_takes_the_serve_site():
+    inj = tfaults.activate("oom@knn,hang@serve:2,kill@serve:seg0")
+    assert tfaults.injector() is inj
+    assert _triples(inj.faults) == _triples(
+        jfaults.parse_plan("oom@knn,hang@serve:2,kill@serve:seg0"))
+    # a kill waits for its boundary: tick starts never fire it
+    assert inj.fire("serve") is None and not inj.log
     inj = tfaults.activate("oom@knn")
     assert tfaults.injector() is inj
     assert tfaults.activate(None) is None and tfaults.injector() is None

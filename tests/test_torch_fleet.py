@@ -9,8 +9,9 @@
   ends with the solo run's bits; the fleet record counts it;
 * a job that would fit only degraded waits while a running job's charge
   may still fall, then runs whole;
-* ``--serve`` / ``--serve-fleet`` raise naming ROADMAP queue A13b, and a
-  JobSpec round-trips through JSON with its ``fleet`` and ``device``;
+* ``main`` takes exactly one of ``--job`` / ``--serve`` /
+  ``--serve-fleet`` (the serve modes: tests/test_torch_replicas.py), and
+  a JobSpec round-trips through JSON with its ``fleet`` and ``device``;
 * two processes building the kernel library at once with a stand-in
   compiler: one builds, both load the same file.
 """
@@ -140,13 +141,22 @@ def test_fleet_refuses_an_unschedulable_job(tmp_path):
     assert rec["fleet"]["failed"] == 1
 
 
-def test_serve_modes_raise_naming_a13b():
-    with pytest.raises(NotImplementedError, match="A13b"):
-        tfleet.main(["--serve", "spec.json"])
-    with pytest.raises(NotImplementedError, match="A13b"):
-        tfleet.main(["--serve-fleet", "spec.json"])
+def test_main_takes_exactly_one_mode(tmp_path):
     with pytest.raises(SystemExit):
         tfleet.main([])
+    with pytest.raises(SystemExit):
+        tfleet.main(["--serve", "a.json", "--serve-fleet", "b.json"])
+    # --serve-fleet runs a fleet: one replica, an empty spool, an idle exit
+    spec = tfleet.ServeFleetSpec(
+        name="idle", spool=str(tmp_path / "spool"),
+        workdir=str(tmp_path / "work"), replicas=1, run_s=0.3,
+        serve={"model": "missing.npz", "input": "missing.npy",
+               "device": "cpu"},
+        max_attempts=1, record=str(tmp_path / "rec.json"))
+    assert tfleet.main(["--serve-fleet", spec.save(
+        str(tmp_path / "spec.json"))]) == 0
+    rec = json.load(open(tmp_path / "rec.json"))
+    assert rec["replicas"] == ["idle-r0"]
 
 
 def test_jobspec_round_trip(tmp_path):

@@ -11,6 +11,10 @@
   every stage carries the libraries' workspaces, the allocator's
   rounding and reserve and the CUDA context, and the blocks rung predicts less than the rows
   it replaces;
+* the serve daemon's gate: on the card a model is charged its transform
+  peak with the allocator's reserve and the process its CUDA context,
+  once (a replica is a process of its own); on the CPU the peaks alone,
+  the JAX gate's decisions;
 * the charge (``charged_plans`` / ``charged_peak_bytes``): the widest rows
   a run may build, capped by ``auto``'s byte gate with the blocks layout
   beside them past it, never below the report at any width up to the
@@ -185,6 +189,81 @@ def test_serving_plan_on_the_card_holds_no_graph_nor_b2_tile():
     assert rep["peak_bytes"] == int(
         thbm.CUDA_CONTEXT_BYTES + (1 + thbm.ALLOCATOR_RESERVE_FRACTION)
         * (rep["resident_bytes"] + 2 * rep["transient_bytes"]))
+
+
+# ---- the serve daemon's gate -------------------------------------------------
+
+@pytest.mark.parametrize("n,d,k,rep", [(60_000, 784, 90, "exact"),
+                                       (1_306_127, 50, 150, "fft"),
+                                       (500, 8, 12, "exact")])
+def test_serving_gate_charges_the_process_once_on_the_card(n, d, k, rep):
+    """On the card the gate charges each model's transform peak grown by
+    the allocator's reserve and, once a process, the CUDA context: a
+    replica's charge is residency_report's conservative sum.  On the CPU
+    it charges the peaks alone, the JAX gate's terms."""
+    from tsne_flink_tpu.runtime.admission import \
+        decide_residency as jdecide
+    from tsne_flink_tpu_torch.runtime.admission import (ADMIT, QUEUE,
+                                                        decide_residency)
+    plans = {be: [PlanConfig(n=n_i, d=d, k=k, backend=be, repulsion=rep,
+                             serve_queries=256, name=f"m{i}")
+                  for i, n_i in enumerate((n, n // 2))]
+             for be in ("cpu", "cuda")}
+    peaks = {be: [thbm.transform_peak_bytes(p) for p in ps]
+             for be, ps in plans.items()}
+    card = peaks["cuda"]
+    grow = 1 + thbm.ALLOCATOR_RESERVE_FRACTION
+    assert thbm.serving_process_bytes("cuda") == thbm.CUDA_CONTEXT_BYTES
+    assert thbm.serving_process_bytes("cpu") == 0
+    charged = [thbm.serving_charge(p, "cuda") for p in card]
+    assert charged == [int(grow * p) for p in card]
+    conservative = thbm.residency_report(plans["cuda"])[
+        "conservative_sum_bytes"]
+    total = sum(charged) + thbm.serving_process_bytes("cuda")
+    assert abs(total - conservative) <= len(card)
+    # the context is charged once: a budget that fits the models with
+    # their reserve but not the context refuses the second model
+    first = {"m0": charged[0]}
+    budget = charged[0] + charged[1]
+    assert decide_residency(first, "m1", charged[1], budget).action == ADMIT
+    d2 = decide_residency(first, "m1", charged[1], budget,
+                          process_bytes=thbm.serving_process_bytes("cuda"))
+    assert d2.action == QUEUE and d2.predicted_peak == total
+    # the CPU gate: the peaks themselves, and the JAX decision
+    cpu = peaks["cpu"]
+    assert [thbm.serving_charge(p, "cpu") for p in cpu] == cpu
+    for budget in (sum(cpu) - 1, sum(cpu)):
+        got = decide_residency({"m0": cpu[0]}, "m1", cpu[1], budget,
+                               process_bytes=thbm.serving_process_bytes(
+                                   "cpu"))
+        want = jdecide({"m0": cpu[0]}, "m1", cpu[1], budget)
+        assert got.as_dict() == want.as_dict()
+        assert _close(got.predicted_peak, want.predicted_peak)
+
+
+def test_serving_daemon_gate_on_the_cpu_is_the_jax_gate(tmp_path):
+    """A CPU daemon charges its model's transform peak alone (``charged``
+    equals the peak) and refuses a second model exactly where the JAX
+    arithmetic does."""
+    import numpy as np
+
+    from tsne_flink_tpu_torch.serve.daemon import ServeDaemon
+    from tsne_flink_tpu_torch.serve.model import from_arrays
+    rng = np.random.default_rng(0)
+    x, y = rng.standard_normal((80, 5)), rng.standard_normal((80, 2))
+    models = [from_arrays(x, y + i, PlanConfig(n=80, d=5, k=10,
+                                               backend="cpu",
+                                               repulsion="exact"),
+                          perplexity=3.0, device="cpu") for i in range(2)]
+    peak = models[0].transform_peak(16)
+    d = ServeDaemon(models[0], str(tmp_path), bucket=16,
+                    budget_bytes=2 * peak - 1)
+    assert d.admission["charged_bytes"] == d.admission["peak_bytes"] == peak
+    assert d.load_model(models[1], warm=False)["action"] == "queue"
+    d = ServeDaemon(models[0], str(tmp_path), bucket=16,
+                    budget_bytes=2 * peak)
+    assert d.load_model(models[1], warm=False)["action"] == "admit"
+    assert d.summary()["residency"]["charged_sum"] == 2 * peak
 
 
 # ---- the charge: the widest rows a run may build ---------------------------

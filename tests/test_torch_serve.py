@@ -10,7 +10,8 @@
 * ``model_id`` equal to JAX's from the same arrays and from the same
   JAX-written fat checkpoint; ``load_model`` leaves the directory
   byte-identical and refuses v1 and hash-less files; ``transform_peak``
-  equal to the JAX HBM model's plus the query kNN's sort (``query_sort``);
+  equal to the JAX HBM model's plus the query kNN's sort (``query_sort``),
+  and ``admission_report`` the whole report, with the JAX report's stages;
 * ``transform`` against JAX (exact and fft, f64 rtol 1e-9 at 1, 8 and
   75 iterations), through the port's own field and through the JAX
   field carried over by ``convert.frozen_from_jax``; bit-identical across
@@ -210,8 +211,11 @@ def test_model_id_matches_jax_from_arrays(repulsion):
     assert sort > 0
     assert tm.transform_peak(256) == int(
         transform_peak_bytes(jm.serve_plan(256)) + sort)
-    with pytest.raises(NotImplementedError, match="A16"):
-        tm.admission_report(256)
+    # the whole report: the JAX report's stages, its transform stage the
+    # admission unit above
+    rep, jrep = tm.admission_report(256), jm.admission_report(256)
+    assert set(rep["stages"]) == set(jrep["stages"])
+    assert rep["peak_hbm_est"] >= tm.transform_peak(256)
 
 
 def _jax_fat_checkpoint(tmp_path, n=64, seed=3):
@@ -459,8 +463,8 @@ def test_daemon_refusals(tmp_path):
     _, tm = _models("exact", n=64)
     with pytest.raises(RuntimeError, match="serve admission"):
         tdaemon.ServeDaemon(tm, str(tmp_path), bucket=8, budget_bytes=1)
-    with pytest.raises(NotImplementedError, match="A13b"):
-        tdaemon.ServeDaemon(tm, str(tmp_path), replica="r0")
+    with pytest.raises(ValueError, match="shed depth"):
+        tdaemon.ServeDaemon(tm, str(tmp_path), shed_depth=-1)
     with pytest.raises(ValueError, match="spool"):
         tdaemon.ServeDaemon(tm, None)
     with pytest.raises(ValueError, match="request must be"):

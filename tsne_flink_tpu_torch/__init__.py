@@ -22,11 +22,34 @@ ingest, checkpoints and the prepare-artifact cache; out-of-sample
 serving (``serve/``); and the runtime and observability layers
 (``runtime/``: the run supervisor with its OOM ladder, fault injection,
 the job fleet under a memory budget; ``obs/``: tracing, metrics, memory
-watermarks; ``analysis/audit``: the memory model they charge).
+watermarks; ``analysis/audit``: the memory model they charge); and the
+serve fleet (``serve/replicas``: N daemon processes over one spool).
+
+The public names are imported on first use (PEP 562), so the parts that
+need no torch — the serve fleet's supervisor process above all — import
+none: ``from tsne_flink_tpu_torch import TSNE`` works as before.
 """
 
-from tsne_flink_tpu_torch.models.api import TSNE
-from tsne_flink_tpu_torch.models.tsne import (TsneConfig, TsneState,
-                                              optimize, tsne_embed)
+import importlib
 
-__all__ = ["TSNE", "TsneConfig", "TsneState", "optimize", "tsne_embed"]
+_PUBLIC = {
+    "TSNE": "tsne_flink_tpu_torch.models.api",
+    "TsneConfig": "tsne_flink_tpu_torch.models.tsne",
+    "TsneState": "tsne_flink_tpu_torch.models.tsne",
+    "optimize": "tsne_flink_tpu_torch.models.tsne",
+    "tsne_embed": "tsne_flink_tpu_torch.models.tsne",
+}
+
+__all__ = sorted(_PUBLIC)
+
+
+def __getattr__(name):
+    if name in _PUBLIC:
+        value = getattr(importlib.import_module(_PUBLIC[name]), name)
+        globals()[name] = value
+        return value
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(set(globals()) | set(_PUBLIC))

@@ -550,6 +550,24 @@ def residency_report(plans) -> dict:
                 context + grow * sum(float(s["peak"]) for s in stages))}
 
 
+def serving_charge(peak: int, backend: str) -> int:
+    """One resident model's charge at the serve daemon's gate: its
+    transform peak (:func:`transform_peak_bytes`), on the card grown by
+    the caching allocator's reserve.  The CPU charges the peak alone, the
+    JAX gate."""
+    if backend == "cuda":
+        return int((1.0 + ALLOCATOR_RESERVE_FRACTION) * int(peak))
+    return int(peak)
+
+
+def serving_process_bytes(backend: str) -> int:
+    """What a serving process adds to its models' charges, once: on the
+    card its CUDA context, which a replica, a process of its own, pays
+    beside every other; nothing on the CPU.  The gate's total is
+    :func:`residency_report`'s ``conservative_sum_bytes``."""
+    return int(CUDA_CONTEXT_BYTES) if backend == "cuda" else 0
+
+
 def charged_plans(plan: PlanConfig) -> list:
     """The plans a run of ``plan`` may turn out to be, whatever its data.
     The run learns its rows' width from the kNN graph, and the model's

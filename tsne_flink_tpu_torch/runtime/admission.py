@@ -77,14 +77,18 @@ def default_budget(backend: str, budget_bytes: int | None = None,
 
 
 def decide_residency(resident_peaks, model_id: str, peak_bytes: int,
-                     budget_bytes: int | None) -> Decision:
+                     budget_bytes: int | None, *,
+                     process_bytes: int = 0) -> Decision:
     """Admit a new model only while the sum of every resident model's
     transform peak plus its own fits ``budget_bytes``.  Each term is the
     model's full peak (arrays plus its per-bucket transients), so the sum
     is conservative: the daemon's double-buffered tick holds at most two
-    buckets in flight.  No degrade rung: a refused model leaves the
-    resident set unchanged."""
-    in_use = int(sum(int(v) for v in resident_peaks.values()))
+    buckets in flight.  ``process_bytes`` is charged once beside the
+    models (on the card the daemon process's CUDA context; 0 on the CPU,
+    the JAX gate).  No degrade rung: a refused model leaves the resident
+    set unchanged."""
+    in_use = int(sum(int(v) for v in resident_peaks.values())
+                 + int(process_bytes))
     total = in_use + int(peak_bytes)
     if budget_bytes is None or total <= int(budget_bytes):
         return Decision(ADMIT, total, {},

@@ -19,10 +19,14 @@ corrupt ``corrupt@checkpoint``  bit-flip the just-written file
 nan     ``nan@optimize:seg1``   poison the segment's input y with NaN on
                                 the device (the caller applies it — see
                                 :meth:`FaultInjector.fire`); no host sync
-delay   ``delay@knn``           sleep :data:`DELAY_S` seconds at the site
+delay   ``delay@knn``           sleep :data:`DELAY_S` seconds (or the
+                                injector's ``delay_s``) at the site
                                 entry (a ``fault.delay`` span)
-hang    ``hang@knn``            block forever at the site entry (a
-                                ``fault.hang`` span that never ends)
+hang    ``hang@serve``          block forever at the site entry (a
+                                ``fault.hang`` span that never ends): the
+                                pid lives and makes no progress, so a
+                                replica's heartbeat goes stale — what the
+                                serve fleet's hung triage catches
 ======= ======================= =========================================
 
 Triggers: a bare integer is the Nth call of that site (1-based, default
@@ -32,17 +36,19 @@ most once, and the whole plan is a pure function of the call sequence.
 Instrumented sites: ``knn`` and ``affinities`` (stage entries in
 ``utils/artifacts.prepare``), ``optimize`` (segment start for
 oom/nan/delay/hang, segment boundary for kill —
-``runtime/segments.run_segments``), and ``checkpoint`` (after the atomic
-write in ``utils/checkpoint.save``).  Each hook is one :func:`injector`
-read — None when no plan is active.
+``runtime/segments.run_segments``), ``checkpoint`` (after the atomic
+write in ``utils/checkpoint.save``) and ``serve`` (the serve daemon:
+tick start for oom/delay/hang, the boundary between computing a request
+and writing its result for ``kill@serve:segN``, N the requests the
+daemon has served).  Each hook is one :func:`injector` read — None when
+no plan is active.
 
 **Fleet site** (``runtime/fleet.py``): ``job`` is scheduler-level — the
 trigger is the JOB INDEX, and the fleet translates the clause into the
 targeted job's own plan for its FIRST attempt only
 (:data:`FLEET_KIND_PLAN`); :func:`split_fleet_plan` separates the two
-levels.  The ``serve`` site belongs to the serve daemon's replica mode
-(ROADMAP queue A13b): the grammar parses it, and :func:`activate`
-refuses a plan that names it.
+levels.  A serve fleet's chaos rides each replica's own spec
+(``runtime/fleet.ServeFleetSpec.fault_plans``), first attempt only.
 """
 
 from __future__ import annotations
@@ -155,14 +161,13 @@ def split_fleet_plan(spec: str | None) -> dict[int, list[Fault]]:
     return by_job
 
 
-def _sleep_delay(site: str) -> None:
-    """The ``delay@site`` payload: sleep :data:`DELAY_S` seconds, wrapped
-    in an obs span so the injected latency is attributable in the
-    trace."""
+def _sleep_delay(site: str, secs: float) -> None:
+    """The ``delay@site`` payload: sleep ``secs`` seconds, wrapped in an
+    obs span so the injected latency is attributable in the trace."""
     import time
 
     from tsne_flink_tpu_torch.obs import trace as obtrace
-    secs = float(DELAY_S)
+    secs = float(secs)
     with obtrace.span("fault.delay", cat="fault", site=site, seconds=secs):
         time.sleep(secs)
 
@@ -198,11 +203,13 @@ def _flip_bit(path: str) -> None:
 @dataclass
 class FaultInjector:
     """Stateful injector over one parsed plan; site-call counters make
-    integer triggers deterministic."""
+    integer triggers deterministic.  ``delay_s`` is a ``delay`` clause's
+    sleep (None: :data:`DELAY_S`)."""
 
     faults: list[Fault] = field(default_factory=list)
     counts: dict = field(default_factory=dict)
     log: list = field(default_factory=list)  # fired (kind, site, trigger)
+    delay_s: float | None = None
 
     def fire(self, site: str, *, seg: int | None = None,
              path: str | None = None, point: str = "start"):
@@ -231,7 +238,8 @@ class FaultInjector:
             if f.kind == "corrupt" and path is not None:
                 _flip_bit(path)
             if f.kind == "delay":
-                _sleep_delay(site)
+                _sleep_delay(site, DELAY_S if self.delay_s is None
+                             else self.delay_s)
             if f.kind == "hang":
                 _hang(site)
             if f.kind == "nan":
@@ -248,15 +256,12 @@ def injector() -> FaultInjector | None:
     return _INJECTOR
 
 
-def activate(spec: str | None) -> FaultInjector | None:
-    """Install a fault plan (None or "" deactivates).  A plan naming the
-    ``serve`` site is refused: the serve daemon's fault sites are ROADMAP
-    queue A13b."""
+def activate(spec: str | None,
+             delay_s: float | None = None) -> FaultInjector | None:
+    """Install a fault plan (None or "" deactivates); ``delay_s`` sets its
+    ``delay`` clauses' sleep (a serve replica's ``ServeSpec
+    .fault_delay_s``)."""
     global _INJECTOR
-    faults = parse_plan(spec) if spec else []
-    if any(f.site == "serve" for f in faults):
-        raise NotImplementedError(
-            "the 'serve' fault site is not ported yet (ROADMAP queue A13b: "
-            "the serve daemon's watchdog, fault sites and trace spans)")
-    _INJECTOR = FaultInjector(faults) if spec else None
+    _INJECTOR = (FaultInjector(parse_plan(spec), delay_s=delay_s) if spec
+                 else None)
     return _INJECTOR

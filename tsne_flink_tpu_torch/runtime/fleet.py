@@ -43,12 +43,18 @@ Many embed jobs share one card under one memory budget:
   faults, metrics and measured memory) and :meth:`Fleet.run` returns the
   fleet record embedding them all.
 
+The same entry point runs the serve daemon's two process modes:
+``--serve spec.json`` (:class:`ServeSpec`, :func:`run_serve`: one daemon,
+a replica when the spec names one) and ``--serve-fleet spec.json``
+(:class:`ServeFleetSpec`, :func:`run_serve_fleet`: N replicas over one
+spool under ``serve/replicas.ServeFleet``, whose process imports no
+torch).
+
 The fleet context the JAX package passes in ``TSNE_FLEET_JOB`` is the
-``JobSpec.fleet`` field here; the port reads no environment variable.
-Jobs run on the card unless ``JobSpec.device`` (or the fleet's
-``device``) says ``"cpu"``.  The serve daemon's modes (``--serve``,
-``--serve-fleet``: ``ServeSpec``, ``ServeFleetSpec``) are ROADMAP queue
-A13b.
+``JobSpec.fleet`` field here, and the knobs a JAX serve child reads from
+its environment are :class:`ServeSpec` fields; the port reads no
+environment variable.  Jobs and daemons run on the card unless their
+spec's ``device`` (or the fleet's) says ``"cpu"``.
 """
 
 from __future__ import annotations
@@ -82,8 +88,14 @@ PENDING, RUNNING, DONE, FAILED = "pending", "running", "done", "failed"
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-_A13B = ("the serve daemon's fleet modes (--serve, --serve-fleet) are not "
-         "ported yet (ROADMAP queue A13b)")
+def child_env(extra: dict | None = None) -> dict:
+    """A fleet child's environment: this process's, with ``extra`` and the
+    package's root first on the import path."""
+    env = dict(os.environ)
+    env.update(extra or {})
+    env["PYTHONPATH"] = os.pathsep.join(
+        p for p in (_ROOT, env.get("PYTHONPATH")) if p)
+    return env
 
 
 class Watchdog:
@@ -277,6 +289,21 @@ def _width_reporter(spec: JobSpec):
     return report
 
 
+def _write_record(path: str, record: dict) -> None:
+    """Write a process's record atomically at ``path`` (none when empty)."""
+    if not path:
+        return
+    try:
+        from tsne_flink_tpu_torch.utils.io import atomic_write
+
+        def write(tmp):
+            with open(tmp, "w") as f:
+                json.dump(record, f, indent=2)
+        atomic_write(path, write)
+    except OSError:
+        pass  # the record is evidence, not a result
+
+
 def run_job(spec: JobSpec) -> dict:
     """Run one embed job in THIS process and return its record (the
     subprocess entry point below also writes it to ``spec.record``).
@@ -356,37 +383,285 @@ def run_job(spec: JobSpec) -> dict:
             record["memory"] = _memory_record(device)
         wd.stop()
         faults.activate(None)
-        if spec.record:
-            try:
-                from tsne_flink_tpu_torch.utils.io import atomic_write
+        _write_record(spec.record, record)
+    return record
 
-                def write(tmp):
-                    with open(tmp, "w") as f:
-                        json.dump(record, f, indent=2)
-                atomic_write(spec.record, write)
-            except OSError:
-                pass  # the record is evidence, not a result
+
+# ---- the serve daemon's process modes ---------------------------------------
+
+@dataclass
+class ServeSpec:
+    """One serve daemon, JSON-serializable (the fleet<->daemon contract).
+    The knobs a JAX child reads from its environment are fields here, with
+    the JAX defaults: ``tick_s`` (``TSNE_SERVE_TICK_S``), ``idle_exit_s``
+    (``TSNE_SERVE_IDLE_EXIT_S``; None: run until killed), ``lock_stale_s``
+    (``TSNE_LOCK_STALE_S``), ``max_batch`` (``TSNE_SERVE_MAX_BATCH``),
+    ``fault_delay_s`` (``TSNE_FAULT_DELAY_S``) and ``device`` (None: the
+    card; ``"cpu"`` for ``TSNE_FORCE_CPU``)."""
+
+    name: str
+    model: str                     # fat v2 checkpoint (the frozen map)
+    input: str                     # [n, d] base features, .npy
+    spool: str                     # request spool directory
+    record: str = ""               # serving-summary JSON (written at exit)
+    perplexity: float = 10.0
+    learning_rate: float = 1000.0
+    metric: str = "sqeuclidean"
+    neighbors: int | None = None   # default 3 * perplexity
+    repulsion: str = "auto"
+    bucket: int | None = None
+    iters: int | None = None
+    eta: float | None = None
+    max_ticks: int | None = None   # None: until idle exit or a kill
+    x64: bool = False              # float64 (the CPU only)
+    fault_plan: str | None = None
+    job_timeout: float | None = None
+    stage_timeout: float | None = None
+    sched: str | None = None       # on | off (None: on)
+    deadline_ms: float | None = None
+    starve_ms: float | None = None
+    poll_max_ms: float | None = None
+    replica: str | None = None     # replica name (None: a solo daemon)
+    shed_depth: int | None = None  # None: 0, no shedding
+    stale_ms: float | None = None  # None: 5,000 ms
+    models: list | None = None     # extra resident models: [{"model":
+    #   ckpt, "input": npy, "perplexity"?, "learning_rate"?, "metric"?,
+    #   "neighbors"?, "repulsion"?, "activate"?: bool}, ...]
+    tick_s: float | None = None    # None: 0.05 s
+    idle_exit_s: float | None = None
+    lock_stale_s: float | None = None  # None: 60 s
+    max_batch: int | None = None   # None: 1,024 rows
+    fault_delay_s: float | None = None  # None: faults.DELAY_S
+    device: str | None = None      # None: the card; "cpu"
+
+    def k(self) -> int:
+        return (int(self.neighbors) if self.neighbors is not None
+                else 3 * int(self.perplexity))
+
+    def as_dict(self) -> dict:
+        return asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ServeSpec":
+        known = {f for f in cls.__dataclass_fields__}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+    def save(self, path: str) -> str:
+        with open(path, "w") as f:
+            json.dump(self.as_dict(), f, indent=2)
+        return path
+
+    @classmethod
+    def load(cls, path: str) -> "ServeSpec":
+        with open(path, encoding="utf-8") as f:
+            return cls.from_dict(json.load(f))
+
+
+def run_serve(spec: ServeSpec) -> dict:
+    """The daemon process: load the frozen model once, run one bucket so
+    that the first request pays no start-up (the record's ``t_warm``),
+    drain the spool until the idle exit, ``max_ticks`` or a watchdog
+    ending (exit 124 on a wedged tick).  The fault plan is active before
+    any site; the record (the daemon's summary, start-up seconds, this
+    process's kernel launches and measured memory) is written atomically
+    at exit."""
+    import numpy as np
+    import torch
+
+    from tsne_flink_tpu_torch.analysis.audit.plan import PlanConfig
+    from tsne_flink_tpu_torch.kernels import build as kbuild
+    from tsne_flink_tpu_torch.serve.daemon import ServeDaemon
+    from tsne_flink_tpu_torch.serve.model import (frozen_from_files,
+                                                  load_frozen)
+    from tsne_flink_tpu_torch.serve.transform import warm_stages
+    from tsne_flink_tpu_torch.utils.device import resolve_device
+
+    faults.activate(spec.fault_plan, delay_s=spec.fault_delay_s)
+    sp = obtrace.begin("fleet.serve", cat="fleet", job=spec.name)
+    record = {"name": spec.name, "status": "ok", "pid": os.getpid()}
+    wd = Watchdog(spec.job_timeout, spec.stage_timeout,
+                  label=f"serve-{spec.name}")
+    device = None
+    try:
+        device = resolve_device(spec.device)
+        if spec.x64 and device.type == "cuda":
+            raise NotImplementedError(
+                "x64 runs on the CPU only: the kernels are float32 (a limit "
+                "of ROADMAP §C)")
+        x = np.load(spec.input)
+        if spec.x64:
+            x = x.astype(np.float64)
+        plan = PlanConfig(n=int(x.shape[0]), d=int(x.shape[1]), k=spec.k(),
+                          backend=device.type, repulsion=spec.repulsion,
+                          name=f"fleet-serve-{spec.name}")
+        model = load_frozen(spec.model, x, plan,
+                            perplexity=float(spec.perplexity),
+                            learning_rate=float(spec.learning_rate),
+                            metric=spec.metric, device=device)
+        daemon = ServeDaemon(model, spec.spool, bucket=spec.bucket,
+                             iters=spec.iters, eta=spec.eta,
+                             tick_s=spec.tick_s, max_batch=spec.max_batch,
+                             idle_exit_s=spec.idle_exit_s, watchdog=wd,
+                             sched=spec.sched, deadline_ms=spec.deadline_ms,
+                             starve_ms=spec.starve_ms,
+                             poll_max_ms=spec.poll_max_ms,
+                             replica=spec.replica,
+                             shed_depth=spec.shed_depth,
+                             stale_ms=spec.stale_ms,
+                             lock_stale_s=spec.lock_stale_s)
+        for extra in (spec.models or []):
+            daemon.load_model(
+                frozen_from_files(
+                    extra["model"], extra["input"],
+                    perplexity=float(extra.get("perplexity",
+                                               spec.perplexity)),
+                    learning_rate=float(extra.get("learning_rate",
+                                                  spec.learning_rate)),
+                    metric=extra.get("metric", spec.metric),
+                    neighbors=extra.get("neighbors", spec.neighbors),
+                    repulsion=extra.get("repulsion", spec.repulsion),
+                    name=spec.name, device=device),
+                activate=bool(extra.get("activate", False)))
+        warm_stages(model, bucket=daemon.bucket, iters=daemon.iters,
+                    eta=daemon.eta)
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        record.update(warm_s=round(sp.elapsed(), 3), t_warm=walltime(),
+                      kernel_cache=kbuild.cache_state())
+        kbuild.reset_launches()   # the serving loop's launches alone
+        record.update(daemon.serve_forever(max_ticks=spec.max_ticks))
+        record["launches"] = kbuild.launches()
+    except BaseException as e:
+        record.update(status="error", error=f"{type(e).__name__}: {e}")
+        raise
+    finally:
+        sp.end()
+        record["seconds"] = round(sp.seconds, 3)
+        inj = faults.injector()
+        record["faults_fired"] = [list(t) for t in (inj.log if inj else [])]
+        if device is not None:
+            record["memory"] = _memory_record(device)
+        faults.activate(None)
+        _write_record(spec.record, record)
+    return record
+
+
+@dataclass
+class ServeFleetSpec:
+    """N replica daemons over ONE spool, JSON-serializable (the
+    ``serve/replicas.ServeFleet`` contract).  ``serve`` is a
+    :class:`ServeSpec` template (model, input, bucket, scheduler knobs,
+    device); the supervisor stamps each replica's ``name``, ``replica``,
+    ``spool`` and ``record`` onto it and writes two spec files a replica:
+    the chaos one (its ``fault_plans`` entry, keyed by index or name;
+    first attempt) and the clean one (every relaunch)."""
+
+    name: str
+    spool: str
+    workdir: str                   # replicas' specs, logs and records
+    serve: dict = field(default_factory=dict)
+    replicas: int | None = None    # None: 2
+    stale_ms: float | None = None  # None: 5,000 ms
+    shed_depth: int | None = None  # None: 0
+    run_s: float = 120.0           # the supervisor's deadline
+    poll_s: float = 0.05
+    max_attempts: int = 3          # spawns a replica, the first included
+    backoff_base: float | None = None
+    backoff_cap: float | None = None
+    fault_plans: dict = field(default_factory=dict)  # {"0"|name: plan}
+    env: dict = field(default_factory=dict)          # extra child env
+    record: str = ""               # the fleet record (written at exit)
+
+    def as_dict(self) -> dict:
+        return asdict(self)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "ServeFleetSpec":
+        known = {f for f in cls.__dataclass_fields__}
+        return cls(**{k: v for k, v in d.items() if k in known})
+
+    def save(self, path: str) -> str:
+        with open(path, "w") as f:
+            json.dump(self.as_dict(), f, indent=2)
+        return path
+
+    @classmethod
+    def load(cls, path: str) -> "ServeFleetSpec":
+        with open(path, encoding="utf-8") as f:
+            return cls.from_dict(json.load(f))
+
+
+def run_serve_fleet(spec: ServeFleetSpec) -> dict:
+    """The replica supervisor: write each replica's chaos and clean
+    :class:`ServeSpec` files, spawn N ``--serve`` children over the shared
+    spool, and run the heartbeat triage, re-dispatch and relaunch loop
+    until the spool drains or ``run_s`` passes.  Imports no torch."""
+    from tsne_flink_tpu_torch.serve import replicas as quorum
+
+    os.makedirs(spec.workdir, exist_ok=True)
+    os.makedirs(spec.spool, exist_ok=True)
+    n = quorum.pick_serve_replicas(spec.replicas)
+    members = []
+    for i in range(n):
+        name = f"{spec.name}-r{i}"
+        plan = spec.fault_plans.get(str(i)) or spec.fault_plans.get(name)
+        base = dict(spec.serve)
+        base.update(name=name, spool=spec.spool, replica=name,
+                    shed_depth=spec.shed_depth, stale_ms=spec.stale_ms,
+                    record=os.path.join(spec.workdir,
+                                        name + ".record.json"))
+        clean = ServeSpec.from_dict({**base, "fault_plan": None})
+        clean_path = clean.save(
+            os.path.join(spec.workdir, name + ".clean.spec.json"))
+        chaos_path = clean_path
+        if plan:
+            chaos = ServeSpec.from_dict({**base, "fault_plan": str(plan)})
+            chaos_path = chaos.save(
+                os.path.join(spec.workdir, name + ".spec.json"))
+        members.append(quorum._Replica(
+            name, chaos_path, clean_spec_path=clean_path,
+            log_path=os.path.join(spec.workdir, name + ".log")))
+    fleet = quorum.ServeFleet(spec.spool, members, stale_ms=spec.stale_ms,
+                              poll_s=spec.poll_s,
+                              max_attempts=spec.max_attempts, env=spec.env,
+                              backoff_base=spec.backoff_base,
+                              backoff_cap=spec.backoff_cap)
+    record = {"name": spec.name, "spool": spec.spool,
+              "fault_plans": dict(spec.fault_plans)}
+    record.update(fleet.run(spec.run_s))
+    summaries = {}
+    for rep in members:
+        try:
+            with open(os.path.join(spec.workdir, rep.name + ".record.json"),
+                      encoding="utf-8") as f:
+                summaries[rep.name] = json.load(f)
+        except (OSError, ValueError):
+            summaries[rep.name] = None   # died before its record landed
+    record["replica_records"] = summaries
+    _write_record(spec.record, record)
     return record
 
 
 def main(argv=None) -> int:
     """Subprocess entry: ``python -m tsne_flink_tpu_torch.runtime.fleet
-    --job spec.json`` (one embed job); ``--serve`` / ``--serve-fleet``
-    (the serve daemon's modes) raise ``NotImplementedError`` naming
-    ROADMAP queue A13b."""
+    --job spec.json`` (one embed job), ``--serve spec.json`` (one serve
+    daemon) or ``--serve-fleet spec.json`` (the replica supervisor)."""
     import argparse
     p = argparse.ArgumentParser(prog="tsne-torch-fleet-job")
     p.add_argument("--job", help="JobSpec JSON path")
-    p.add_argument("--serve", help="not ported (ROADMAP queue A13b)")
+    p.add_argument("--serve", help="ServeSpec JSON path (one daemon)")
     p.add_argument("--serve-fleet", dest="serve_fleet",
-                   help="not ported (ROADMAP queue A13b)")
+                   help="ServeFleetSpec JSON path (replica supervisor)")
     args = p.parse_args(argv)
     if sum(map(bool, (args.job, args.serve, args.serve_fleet))) != 1:
         p.error("exactly one of --job / --serve / --serve-fleet "
                 "is required")
-    if args.serve or args.serve_fleet:
-        raise NotImplementedError(_A13B)
-    run_job(JobSpec.load(args.job))
+    if args.serve:
+        run_serve(ServeSpec.load(args.serve))
+    elif args.serve_fleet:
+        run_serve_fleet(ServeFleetSpec.load(args.serve_fleet))
+    else:
+        run_job(JobSpec.load(args.job))
     return 0
 
 
@@ -526,10 +801,7 @@ class Fleet:
                       "predicted_peak": job.peak,
                       "width_path": job.width_path}})
         spec.save(spec_path)
-        env = dict(os.environ)
-        env.update(self.env)
-        env["PYTHONPATH"] = os.pathsep.join(
-            p for p in (_ROOT, env.get("PYTHONPATH")) if p)
+        env = child_env(self.env)
         job.log_path = os.path.join(
             self.workdir, f"{job.spec.name}.attempt{job.attempts + 1}.log")
         with open(job.log_path, "wb") as logf:

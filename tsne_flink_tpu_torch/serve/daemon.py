@@ -35,12 +35,26 @@ answers:
   (answered by ``<name>.swap.done.json``).  Requests bind their model at
   claim, so no response mixes models.
 
-Replica mode (heartbeats, claim stale-break by heartbeat, shedding), the
-daemon's watchdog, its ``serve`` fault site and its trace spans are
-ROADMAP queue A13b (``runtime/faults.activate`` refuses a plan that names
-the ``serve`` site).
-The port reads no environment variable: every knob is an argument whose
-default is the JAX package's.
+The fleet's watchdog (``runtime/fleet.Watchdog``, when given) beats
+once a tick, so a wedged transform ends the process (exit 124) instead of
+wedging the spool; the ``serve`` fault site fires at tick start (oom /
+delay / hang) and at the boundary between computing a request and
+writing its result (``kill@serve:segN``, N the requests served so far).
+
+**Replica mode** (``serve/replicas.py``): a daemon given a ``replica``
+name runs as one of N over a shared spool.  It writes a
+``<replica>.beat.json`` heartbeat before every tick and names itself in
+each claim lock; the claim stale-break folds in the holder's pid and
+heartbeat (dead: break now; alive and beating: never; anonymous: the age
+rule); past ``shed_depth`` pending requests, bulk requests are refused
+with a ``retry_after_ms`` hint, and express is never shed before bulk.
+The claim epochs and the rename guard above keep a re-dispatched request
+exactly-once.
+
+The beat, the watchdog and the spans read nothing back from the card:
+:func:`~tsne_flink_tpu_torch.serve.transform.dispatch_bucket` stays free
+of host syncs.  The port reads no environment variable: every knob is an
+argument whose default is the JAX package's.
 """
 
 from __future__ import annotations
@@ -51,10 +65,16 @@ import time
 
 import numpy as np
 
-from tsne_flink_tpu_torch.runtime.admission import (ADMIT,
+from tsne_flink_tpu_torch.analysis.audit.hbm import (serving_charge,
+                                                     serving_process_bytes)
+from tsne_flink_tpu_torch.obs import trace as obtrace
+from tsne_flink_tpu_torch.runtime import faults
+from tsne_flink_tpu_torch.runtime.admission import (ADMIT, SHED,
                                                     bounded_claim_rows,
                                                     decide_residency,
+                                                    decide_shed,
                                                     default_budget)
+from tsne_flink_tpu_torch.serve import replicas as quorum
 from tsne_flink_tpu_torch.serve.model import residency_report
 from tsne_flink_tpu_torch.serve.sched import (MicroBatcher, Request,
                                               pick_poll_max_ms,
@@ -67,7 +87,8 @@ from tsne_flink_tpu_torch.serve.transform import (dispatch_bucket,
                                                   pick_transform_iters,
                                                   transform, warm_stages)
 from tsne_flink_tpu_torch.utils.io import atomic_write
-from tsne_flink_tpu_torch.utils.locks import FileLock, read_lock_payload
+from tsne_flink_tpu_torch.utils.locks import (DEFAULT_STALE_S, FileLock,
+                                              read_lock_payload)
 
 REQ_SUFFIX = ".req.npz"
 RES_SUFFIX = ".res.npz"
@@ -75,7 +96,6 @@ LAT_SUFFIX = ".lat.json"
 ERR_SUFFIX = ".err.json"
 SWAP_SUFFIX = ".swap.json"
 SWAP_DONE_SUFFIX = ".swap.done.json"
-EPOCH_SUFFIX = ".epoch.json"
 
 #: the JAX package's defaults (TSNE_SERVE_TICK_S, TSNE_SERVE_MAX_BATCH)
 DEFAULT_TICK_S = 0.05
@@ -128,53 +148,6 @@ def _write_json(path: str, obj: dict) -> None:
     atomic_write(path, write)
 
 
-# ---- claim epochs: the <id>.epoch.json sidecar -----------------------------
-
-def _epoch_path(spool: str, rid: str) -> str:
-    return os.path.join(spool, rid + EPOCH_SUFFIX)
-
-
-def _bump_epoch(spool: str, rid: str) -> int:
-    """Advance and return the claim epoch of ``rid``; called with its
-    claim lock held, which serializes the read-modify-write."""
-    try:
-        with open(_epoch_path(spool, rid), encoding="utf-8") as f:
-            epoch = int(json.load(f).get("epoch", 0)) + 1
-    except (OSError, ValueError):
-        epoch = 1
-    _write_json(_epoch_path(spool, rid), {"req": rid, "epoch": epoch})
-    return epoch
-
-
-def _clear_epoch(spool: str, rid: str) -> None:
-    """Drop the sidecar once the request has its terminal file."""
-    try:
-        os.remove(_epoch_path(spool, rid))
-    except OSError:
-        pass
-
-
-def _pid_alive(pid: int) -> bool:
-    if pid <= 0:
-        return False
-    try:
-        os.kill(pid, 0)
-    except ProcessLookupError:
-        return False
-    except OSError:
-        return True  # EPERM: it exists
-    return True
-
-
-def _claim_stale(path: str, age: float):
-    """A claim whose holder pid is gone breaks at once; otherwise the age
-    rule decides (a solo daemon has no heartbeats)."""
-    pid = str(read_lock_payload(path).get("pid", ""))
-    if pid.isdigit() and not _pid_alive(int(pid)):
-        return True
-    return None
-
-
 class StaleClaim(Exception):
     """Raised inside a result writer when the claim lock no longer names
     this pid and epoch: the tmp file is dropped, the terminal never
@@ -191,21 +164,26 @@ class ServeDaemon:
     """The warm process: models resident, stages built, spool polled
     (with adaptive backoff) until ``max_ticks`` or ``idle_exit_s`` of an
     empty spool.  ``model`` is a ``serve/model.FrozenModel``; the daemon
-    serves on its device."""
+    serves on its device.  ``watchdog`` (a ``runtime/fleet.Watchdog``)
+    beats once a tick; ``replica`` names the daemon as one of a fleet's
+    (heartbeats, claims that name it); ``stale_ms`` bounds the heartbeat's
+    age for the claim stale-break; ``shed_depth`` is the brownout
+    threshold (0: no shedding); ``lock_stale_s`` is the age past which an
+    anonymous claim counts as abandoned."""
 
     def __init__(self, model, spool: str | None = None, *,
                  bucket: int | None = None, iters: int | None = None,
                  eta: float | None = None, tick_s: float | None = None,
                  max_batch: int | None = None,
-                 idle_exit_s: float | None = None, budget_bytes=None,
-                 sched: str | None = None, deadline_ms: float | None = None,
+                 idle_exit_s: float | None = None, watchdog=None,
+                 budget_bytes=None, sched: str | None = None,
+                 deadline_ms: float | None = None,
                  starve_ms: float | None = None,
                  poll_max_ms: float | None = None,
-                 replica: str | None = None):
-        if replica:
-            raise NotImplementedError("replica mode (heartbeats, claim "
-                                      "epochs across daemons, shedding) is "
-                                      "not ported yet (ROADMAP queue A13b)")
+                 replica: str | None = None,
+                 shed_depth: int | None = None,
+                 stale_ms: float | None = None,
+                 lock_stale_s: float | None = None):
         self.models = {model.model_id: model}
         self.active_id = model.model_id
         self.spool = pick_spool(spool)
@@ -215,6 +193,7 @@ class ServeDaemon:
         self.tick_s = float(tick_s) if tick_s is not None else DEFAULT_TICK_S
         self.max_batch = int(max_batch) if max_batch else DEFAULT_MAX_BATCH
         self.idle_exit_s = float(idle_exit_s) if idle_exit_s else None
+        self.watchdog = watchdog
         self.sched = pick_serve_sched(sched)
         self.deadline_ms = pick_serve_deadline_ms(deadline_ms)
         self.starve_ms = pick_serve_starve_ms(starve_ms)
@@ -242,6 +221,15 @@ class ServeDaemon:
         self.claim_rows = bounded_claim_rows(
             16 * self.max_batch, self.bucket,
             self.admission["peak_bytes"], self.admission["budget_bytes"])
+        # replica mode: identity (None: a solo daemon, no beats), the
+        # heartbeat bound of the claim stale-break, the brownout threshold
+        self.replica = str(replica) if replica else None
+        self.stale_ms = quorum.pick_replica_stale_ms(stale_ms)
+        self.shed_depth = quorum.pick_shed_depth(shed_depth)
+        self.lock_stale_s = (float(lock_stale_s) if lock_stale_s
+                             else DEFAULT_STALE_S)
+        self._beat_seq = 0
+        self.shed = 0
 
     @property
     def model(self):
@@ -252,18 +240,26 @@ class ServeDaemon:
     # ---- admission / residency ---------------------------------------------
 
     def _admit(self, budget_bytes) -> dict:
-        """The model's predicted transform peak must fit the budget (the
-        explicit one, else the card's memory) before the daemon goes warm."""
+        """The model's charge must fit the budget (the explicit one, else
+        the card's memory) before the daemon goes warm: its predicted
+        transform peak, and on the card the allocator's reserve over it
+        and the process's CUDA context (``analysis/audit/hbm
+        .serving_charge``; the CPU charges the peak, as the JAX gate)."""
         dev = self.model.x.device
+        self._backend = dev.type
         budget = default_budget(dev.type, budget_bytes, dev)
         peak = self.model.transform_peak(self.bucket)
         self._peaks = {self.active_id: peak}
-        if budget is not None and peak > budget:
+        charged = (serving_charge(peak, dev.type)
+                   + serving_process_bytes(dev.type))
+        if budget is not None and charged > budget:
             raise RuntimeError(
-                f"serve admission: predicted peak {peak} bytes exceeds "
-                f"budget {budget} for bucket={self.bucket} "
-                f"(model n={self.model.n}); use a smaller bucket")
-        return {"peak_bytes": peak, "budget_bytes": budget}
+                f"serve admission: predicted peak {peak} bytes (charged "
+                f"{charged} with the process) exceeds budget {budget} for "
+                f"bucket={self.bucket} (model n={self.model.n}); use a "
+                "smaller bucket")
+        return {"peak_bytes": peak, "charged_bytes": charged,
+                "budget_bytes": budget}
 
     def load_model(self, model, *, activate: bool = False,
                    warm: bool = True) -> dict:
@@ -278,8 +274,12 @@ class ServeDaemon:
                      "reason": "already resident"}
         else:
             peak = model.transform_peak(self.bucket)
-            decision = decide_residency(self._peaks, mid, peak,
-                                        self.admission["budget_bytes"])
+            bt = self._backend
+            decision = decide_residency(
+                {m: serving_charge(p, bt) for m, p in self._peaks.items()},
+                mid, serving_charge(peak, bt),
+                self.admission["budget_bytes"],
+                process_bytes=serving_process_bytes(bt))
             event = {"op": "load", "model_id": mid,
                      "action": decision.action,
                      "predicted_peak": int(decision.predicted_peak),
@@ -292,6 +292,8 @@ class ServeDaemon:
                         model, bucket=self.bucket, iters=self.iters,
                         eta=self.eta))
         self.residency_events.append(event)
+        obtrace.instant("serve.load_model", cat="serve", model=mid,
+                        action=event["action"])
         if activate and mid in self.models:
             event["activated_from"] = self.activate(mid)
         return event
@@ -307,6 +309,8 @@ class ServeDaemon:
             self.residency_events.append(
                 {"op": "activate", "model_id": self.active_id,
                  "from": prev})
+            obtrace.instant("serve.swap", cat="serve", model=self.active_id,
+                            prev=prev)
         return prev
 
     def evict(self, model_id: str) -> None:
@@ -327,6 +331,33 @@ class ServeDaemon:
         return sorted(os.path.join(self.spool, n) for n in names
                       if n.endswith(REQ_SUFFIX))
 
+    def _beat(self) -> None:
+        """One heartbeat a tick, written BEFORE the tick body: a tick that
+        hangs leaves a beat that ages past ``stale_ms`` while the pid
+        lives, the evidence the supervisor's hung triage and the claims'
+        stale verdict key on.  A solo daemon writes none."""
+        if not self.replica:
+            return
+        self._beat_seq += 1
+        quorum.write_beat(self.spool, self.replica, self._beat_seq,
+                          [r.rid for r in self._claimed.values()])
+
+    def _req_lock(self, req_path: str) -> FileLock:
+        """A request's claim lock: its body names this replica (the
+        supervisor's sweep key; the epoch is stamped after acquisition),
+        and its stale-break is :func:`~tsne_flink_tpu_torch.serve.replicas
+        .claim_stale_verdict` — a dead holder's claim breaks at once, a
+        live beating holder's never, an anonymous one's by age."""
+        spool, stale_s = self.spool, self.stale_ms / 1e3
+
+        def stale(path, age):
+            return quorum.claim_stale_verdict(path, age, spool=spool,
+                                              replica_stale_s=stale_s)
+        payload = ({"replica": self.replica} if self.replica
+                   else {"claim": "serve"})
+        return FileLock(req_path + ".lock", stale_s=self.lock_stale_s,
+                        payload=payload, stale_fn=stale)
+
     def _claim(self, req_path: str):
         """``(lock, x, model_id, epoch)`` if we now hold the request's
         claim and it is unserved, else None.  The lock outlives this call
@@ -338,14 +369,15 @@ class ServeDaemon:
                 os.remove(req_path)
             except OSError:
                 pass
-            _clear_epoch(self.spool, rid)
+            quorum.clear_epoch(self.spool, rid)
             return None
-        lock = FileLock(req_path + ".lock", payload={"claim": "serve"},
-                        stale_fn=_claim_stale)
+        lock = self._req_lock(req_path)
         if not lock.acquire(timeout_s=0.0):
             return None
         try:
-            epoch = _bump_epoch(self.spool, rid)
+            # the claim generation, bumped under the lock and stamped into
+            # its body: the writers' rename guard compares the two
+            epoch = quorum.bump_epoch(self.spool, rid, lock)
             lock.write_payload({"epoch": epoch})
             if epoch > 1:
                 self.redispatched += 1  # an earlier claim never finished
@@ -365,18 +397,25 @@ class ServeDaemon:
             os.remove(req_path)
         except OSError:
             pass
-        _clear_epoch(self.spool, _req_id(req_path))
+        quorum.clear_epoch(self.spool, _req_id(req_path))
         lock.release()
 
     def _fail(self, req_path: str, lock: FileLock, reason: str, *,
-              epoch: int = 0) -> None:
-        """Refuse one request: an atomic ``.err.json`` so the client stops
-        waiting; the request is deleted."""
+              epoch: int = 0, shed: bool = False,
+              retry_after_ms: float | None = None) -> None:
+        """Refuse one request (unknown model, wrong width, or a shed
+        verdict, which adds ``shed`` and ``retry_after_ms``): an atomic
+        ``.err.json`` so the client stops waiting; the request is
+        deleted.  The rename guard rides the refusal too."""
         rid = _req_id(req_path)
 
         def write_err(tmp):
+            out = {"req": rid, "error": reason}
+            if shed:
+                out["shed"] = True
+                out["retry_after_ms"] = float(retry_after_ms or 0.0)
             with open(tmp, "w") as f:
-                json.dump({"req": rid, "error": reason}, f)
+                json.dump(out, f)
             if epoch and not _claim_current(lock, epoch):
                 raise StaleClaim(rid)
         try:
@@ -386,7 +425,25 @@ class ServeDaemon:
             lock.release()
             return
         self._terminal(req_path, lock, epoch)
-        self.failed += 1
+        if shed:
+            self.shed += 1
+        else:
+            self.failed += 1
+
+    def _shed(self, req_path: str, lock: FileLock, rows: int, epoch: int,
+              backlog: int) -> bool:
+        """Refuse a bulk request under brownout (``runtime/admission
+        .decide_shed`` on the spool's backlog); True when shed."""
+        verdict = decide_shed(backlog, rows, self.bucket, self.shed_depth,
+                              self.deadline_ms)
+        if verdict.action != SHED:
+            return False
+        self._fail(req_path, lock, verdict.reason, epoch=epoch, shed=True,
+                   retry_after_ms=verdict.retry_after_ms)
+        obtrace.instant("serve.shed", cat="serve", req=_req_id(req_path),
+                        rows=rows, backlog=backlog,
+                        retry_after_ms=verdict.retry_after_ms)
+        return True
 
     def _write_result(self, rid: str, lock: FileLock, epoch: int,
                       y: np.ndarray) -> bool:
@@ -415,7 +472,7 @@ class ServeDaemon:
                      "seconds": round(float(seconds), 6),
                      "bucket": self.bucket, "iters": self.iters,
                      "eta": self.eta, "model_id": model_id,
-                     "epoch": int(epoch), "replica": None})
+                     "epoch": int(epoch), "replica": self.replica})
         self._terminal(req_path, lock, epoch)
         self.latencies_s.append(float(seconds))
         self.served += 1
@@ -494,16 +551,23 @@ class ServeDaemon:
         """One serial tick: claim pending requests up to ``max_batch``
         rows, one coalesced transform per bound model, write the results.
         Returns the requests completed."""
+        inj = faults.injector()
+        if inj:
+            inj.fire("serve")  # oom / delay / hang at tick start
         self._control_pass()
         claimed = []
         rows = 0
-        for req_path in self._pending():
+        pending = self._pending()
+        backlog = len(pending)   # the fleet-wide shed signal: the spool
+        for req_path in pending:
             if rows >= self.max_batch:
                 break
             got = self._claim(req_path)
             if got is None:
                 continue
             lock, x, mid, epoch = got
+            if self._shed(req_path, lock, int(x.shape[0]), epoch, backlog):
+                continue
             bound = self._bind(req_path, lock, x, mid, epoch)
             if bound is None:
                 continue
@@ -513,17 +577,23 @@ class ServeDaemon:
             return 0
         done = 0
         try:
-            t0 = time.perf_counter()
-            ys, offs = {}, {}
-            for mid in dict.fromkeys(c[3] for c in claimed):
-                xs = np.concatenate([x for _, _, x, m, _ in claimed
-                                     if m == mid])
-                ys[mid] = transform(self.models[mid], xs, bucket=self.bucket,
-                                    iters=self.iters, eta=self.eta)
-                offs[mid] = 0
-            per_req = (time.perf_counter() - t0) / len(claimed)
+            with obtrace.span("serve.drain", cat="serve",
+                              requests=len(claimed), rows=rows) as sp:
+                ys, offs = {}, {}
+                for mid in dict.fromkeys(c[3] for c in claimed):
+                    xs = np.concatenate([x for _, _, x, m, _ in claimed
+                                         if m == mid])
+                    ys[mid] = transform(self.models[mid], xs,
+                                        bucket=self.bucket, iters=self.iters,
+                                        eta=self.eta)
+                    offs[mid] = 0
+            per_req = sp.seconds / len(claimed)
             for req_path, lock, x, mid, epoch in claimed:
                 b, off = int(x.shape[0]), offs[mid]
+                if inj:
+                    # kill@serve: after compute, before this request's
+                    # result write; its file stays for the next claimant
+                    inj.fire("serve", seg=self.served, point="boundary")
                 self._finish(req_path, lock, ys[mid][off:off + b], per_req,
                              model_id=mid, epoch=epoch)
                 offs[mid] = off + b
@@ -541,7 +611,9 @@ class ServeDaemon:
         until the pending backlog reaches the claim horizon; runs while
         earlier buckets compute on the card."""
         new = 0
-        for req_path in self._pending():
+        pending = self._pending()
+        backlog = len(pending)   # the fleet-wide shed signal: the spool
+        for req_path in pending:
             if req_path in self._claimed:
                 continue
             if self.batcher.pending_rows() >= self.claim_rows:
@@ -550,6 +622,8 @@ class ServeDaemon:
             if got is None:
                 continue
             lock, x, mid, epoch = got
+            if self._shed(req_path, lock, int(x.shape[0]), epoch, backlog):
+                continue
             bound = self._bind(req_path, lock, x, mid, epoch)
             if bound is None:
                 continue
@@ -564,7 +638,11 @@ class ServeDaemon:
                           poll_ms=self._poll_s * 1e3, epoch=epoch)
             self._claimed[req_path] = req
             if req.rows == 0:
+                # an empty request: finished without a batch
                 req.first_dispatch = req.compute_done = req.arrival
+                inj = faults.injector()
+                if inj:
+                    inj.fire("serve", seg=self.served, point="boundary")
                 self._finish_sched(req)
             else:
                 self.batcher.add(req)
@@ -588,13 +666,19 @@ class ServeDaemon:
         self.inflight.append(batch)
         self._batches += 1
         self._fills.append(batch.fill)
+        obtrace.instant("serve.dispatch", cat="serve", rows=batch.rows,
+                        fill=round(batch.fill, 3), model=batch.model_id,
+                        inflight=len(self.inflight))
 
     def _resolve(self, batch) -> int:
         """Wait for one batch (later ones keep computing behind it) and
         scatter its rows back; completed requests write out."""
-        y = batch.handle.cpu().numpy()
+        with obtrace.span("serve.resolve", cat="serve", rows=batch.rows,
+                          fill=round(batch.fill, 3), model=batch.model_id):
+            y = batch.handle.cpu().numpy()
         batch.handle = None
         t_done = time.time()
+        inj = faults.injector()
         done = 0
         for req, start, nrow, off in batch.parts:
             req.out[start:start + nrow] = y[off:off + nrow]
@@ -603,6 +687,9 @@ class ServeDaemon:
             req.fills.append(batch.fill)
             if req.complete():
                 req.compute_done = t_done
+                if inj:
+                    # kill@serve: after compute, before the result write
+                    inj.fire("serve", seg=self.served, point="boundary")
                 self._finish_sched(req)
                 done += 1
         return done
@@ -631,7 +718,7 @@ class ServeDaemon:
             "write_ms": round(write_ms, 3),
             "deadline_ms": self.deadline_ms, "starve_ms": self.starve_ms,
             "poll_ms": round(req.poll_ms, 3), "epoch": int(req.epoch),
-            "replica": None})
+            "replica": self.replica})
         self._terminal(req.path, req.lock, req.epoch)
         self._claimed.pop(req.path, None)
         self.latencies_s.append(float(seconds))
@@ -642,6 +729,9 @@ class ServeDaemon:
         in-flight compute), dispatch up to ``depth`` batches, then wait
         for the OLDEST in-flight one, whose writes overlap the compute of
         the batch behind it.  Returns requests completed."""
+        inj = faults.injector()
+        if inj:
+            inj.fire("serve")  # oom / delay / hang at tick start
         progress = bool(self._control_pass())
         progress = bool(self._claim_pass()) or progress
         now = time.time()
@@ -678,20 +768,27 @@ class ServeDaemon:
 
     def serve_forever(self, max_ticks: int | None = None) -> dict:
         """Poll the spool until ``max_ticks`` or ``idle_exit_s`` of idling;
-        returns :meth:`summary`.  The poll interval doubles on every empty
-        scan up to ``poll_max_ms`` and snaps back to ``tick_s`` on any
-        progress."""
+        returns :meth:`summary`.  A replica beats before every tick; the
+        watchdog (when given) is beaten after it, so a wedged tick stops
+        its beat and the watchdog ends the process.  The poll interval
+        doubles on every empty scan up to ``poll_max_ms`` and snaps back
+        to ``tick_s`` on any progress."""
+        if self.watchdog is not None:
+            self.watchdog.start()
         last_work = time.time()
         ticks = 0
         poll = self.tick_s
         try:
             while max_ticks is None or ticks < max_ticks:
                 ticks += 1
+                self._beat()   # before the tick, which may hang
                 if self.sched == "on":
                     self._sched_tick()
                     progress = self._progress
                 else:
                     progress = self.drain_once() > 0
+                if self.watchdog is not None:
+                    self.watchdog.beat("serve")
                 now = time.time()
                 if progress:
                     last_work = now
@@ -710,8 +807,12 @@ class ServeDaemon:
                     poll = min(poll * 2.0, self.poll_max_s)
                 self._poll_s = poll
         finally:
-            if self.sched == "on":
-                self._shutdown_flush()
+            try:
+                if self.sched == "on":
+                    self._shutdown_flush()
+            finally:
+                if self.watchdog is not None:
+                    self.watchdog.stop()
         return self.summary()
 
     run = serve_forever  # the JAX package's name above, and the short one
@@ -736,10 +837,16 @@ class ServeDaemon:
                                     if self._fills else None),
                 "promotions": self.batcher.promotions,
                 "swaps": self._swaps, "failed": self.failed,
-                "replica": None, "redispatched": self.redispatched,
+                "replica": self.replica, "stale_ms": self.stale_ms,
+                "shed": self.shed, "shed_depth": self.shed_depth,
+                "redispatched": self.redispatched,
                 "residency": {
                     "resident": list(self.models), "active": self.active_id,
                     "resident_peak_sum": int(sum(self._peaks.values())),
+                    "charged_sum": int(
+                        sum(serving_charge(p, self._backend)
+                            for p in self._peaks.values())
+                        + serving_process_bytes(self._backend)),
                     "budget_bytes": self.admission["budget_bytes"],
                     "report": residency_report(
                         [m.serve_plan(self.bucket)

@@ -18,8 +18,8 @@ request that pins a model id names the same model on both packages.
 the JAX package's fields), and :meth:`FrozenModel.transform_peak` its
 transform stage (``analysis/audit/hbm.transform_peak_bytes``): the JAX
 arithmetic plus the query kNN's sort (``query_sort``), and on the card
-the port's own terms.  The full report of a serving plan
-(``admission_report``) belongs to the analysis tier (ROADMAP queue A16).
+the port's own terms; :meth:`FrozenModel.admission_report` is the
+plan's whole report (``plan_hbm_report``).
 """
 
 from __future__ import annotations
@@ -30,7 +30,8 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
-from tsne_flink_tpu_torch.analysis.audit.hbm import (residency_report,
+from tsne_flink_tpu_torch.analysis.audit.hbm import (plan_hbm_report,
+                                                     residency_report,
                                                      transform_peak_bytes)
 from tsne_flink_tpu_torch.analysis.audit.plan import PlanConfig
 
@@ -92,9 +93,10 @@ class FrozenModel:
                        name=f"serve-{self.plan.name}")
 
     def admission_report(self, bucket: int) -> dict:
-        raise NotImplementedError("the full HBM report of a serving plan is "
-                                  "the analysis tier (ROADMAP queue A16); "
-                                  "transform_peak gives its admission unit")
+        """The memory model's report of this model serving ``bucket``-row
+        buckets, the frozen model counted as resident (the ``transform``
+        stage of ``analysis/audit/hbm.py``)."""
+        return plan_hbm_report(self.serve_plan(bucket))
 
     def transform_peak(self, bucket: int) -> int:
         """Predicted peak bytes of this model serving ``bucket``-row
