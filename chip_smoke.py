@@ -159,6 +159,26 @@ Phases, in order; any failure exits non-zero before the result line:
    ``delay@serve:2`` past a replica's stage timeout (its watchdog ends
    it with exit 124; relaunched clean) and (5) shedding at depth 1 (bulk
    refused with ``retry_after_ms`` > 0, express served);
+9g. mesh — the single-controller point mesh (queue A14a,
+   ``parallel/mesh.ShardedOptimizer``) on the test mesh, the one card
+   listed once a shard (run after 9d, before 9f): [full]'s configuration
+   at mesh 1, 2 and 4 (y, update, gains and the loss trace equal bit for
+   bit across widths; launches exactly D x (B2 300, B3 300, B4 30); mesh
+   1 against [full]'s plain run within 0.05 KL with its label gate, max
+   |dy| printed; mesh 1's run peak within [1, 2]x the memory model, each
+   width's optimize peak / D beside the per-device charge, not gated),
+   the latent blobs on the rows layout at mesh 1 and 2 (bits; D x (B2,
+   B5 300, B4 30)) and a fat checkpoint written there at iteration 150,
+   mesh 1, resumed at mesh 2 with the uninterrupted run's bits, 60,001
+   blobs (a padded, masked tail) at mesh 1 and 4 (bits), phase 9's P on
+   blocks + FFT at mesh 1 and 2 (bits; D x (B5 300, B4 30); s/iter of
+   each: one card time-slicing the shards, not a multi-GPU speed), and
+   B2 at a shard's shape of mesh 2, 4 and 8 with the canonical column
+   splits (the rows of the mesh-1 launch bit for bit) beside its own;
+   in 8c, the CLI's mesh flags on config 2's file: ``--mesh 1`` equal to
+   ``TSNE(mesh=1)`` bit for bit, ``--mesh 2`` refused on one card before
+   the input is read, naming the visible count, and ``--meshReduce
+   psum`` on a test mesh of 2 within 0.05 KL of the canonical run;
 9e. diverging — N = 2,000 at learning rate 1e30 with the sentinel: three
    rollbacks, eta halved each time, then ``DivergenceError``;
 10. determinism — two runs at N = 2,000 give the same bits, on the CSR
@@ -190,9 +210,11 @@ runs there) and the blocks layout's forward block (W = k = 90).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is the JSON record of every kernel (B2's and B5's with their serving
-shapes under ``serve``, B5's at 1.3M under ``serve_large``, and every
-record's ``serve_launches``: the two self-transforms' launches).  The
-script imports nothing of JAX.
+shapes under ``serve``, B5's at 1.3M under ``serve_large``, every
+record's ``serve_launches``: the two self-transforms' launches, and
+``mesh_launches_per_shard``: a shard's launches in 9g's csr, rows and
+blocks runs; B2's ``mesh_shard_ms`` at a shard's shape).  The script
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -1830,10 +1852,11 @@ def write_coo(path, x, rows_per_block=1000):
             f.write(text)
 
 
-def run_cli(tag, argv):
-    """The port's CLI in this process, its launches counted from 0 just
-    before it.  Returns (the embedding it wrote, launches, stage seconds
-    from its '# stages s:' line, its stderr)."""
+def run_cli(tag, argv, mesh_devices=None):
+    """The port's CLI in this process (on the test mesh ``mesh_devices``
+    when given), its launches counted from 0 just before it.  Returns
+    (the embedding it wrote, launches, stage seconds from its '# stages
+    s:' line, its stderr)."""
     import io as _io
 
     import torch
@@ -1846,7 +1869,7 @@ def run_cli(tag, argv):
     reset_launches()
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(err):
-        rc = cli_main(argv)
+        rc = cli_main(argv, mesh_devices=mesh_devices)
     wall = time.perf_counter() - t0
     counts = launches()
     check(rc == 0, f"[cli] {tag}: exit {rc}")
@@ -1952,6 +1975,9 @@ def phase_cli(x_np, xl_np, full, rows, project, y_bh):
               "[cli] gate 1: config 2's embedding != [project]'s")
         check(counts == counts_p, f"[cli] gate 1: launches {counts} != "
               f"[project]'s {counts_p}")
+
+        # gate 8: the mesh flags (queue A14a) on the same command line
+        mesh_cli_gates(x_np, argv, run_cli, config2)
 
         # gate 2: a warm artifact cache runs no kNN and gives the same bits
         cache = ("--cacheDir", os.path.join(tmp, "cache"))
@@ -3246,6 +3272,327 @@ def phase_diverging(x_np):
           f"[diverging] raised {raised}, events {events}")
 
 
+# ---- [mesh]: the single-controller point mesh (queue A14a) ---------------
+
+#: the test mesh: the one card listed once a shard
+def test_mesh(d):
+    return ["cuda:0"] * d
+
+
+def mesh_run(tag, cfg, jidx, jval, d, extra=None, state0=None, **kw):
+    """One ``parallel/mesh.ShardedOptimizer`` run on the test mesh of ``d``
+    shards from ``state0`` (None: ``tsne_embed``'s init, seed 0), its
+    launches counted from 0 just before it.  ``kw`` goes to the call
+    (checkpoints, resume).
+    Returns (state, losses, launches, seconds, layout); the seconds
+    include the layout's plan on the padded rows."""
+    import torch
+    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
+    from tsne_flink_tpu_torch.models.tsne import init_working_set
+    from tsne_flink_tpu_torch.parallel.mesh import ShardedOptimizer
+    n = int(jidx.shape[0])
+    if state0 is None:
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        state0 = init_working_set(gen, n, cfg.n_components, torch.float32,
+                                  "cuda")
+    opt = ShardedOptimizer(cfg, n, devices=test_mesh(d))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    st, losses = opt(state0, jidx, jval, extra_edges=extra, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    iters = cfg.iterations - kw.get("start_iter", 0)
+    print(f"[mesh] {tag}, mesh {d} ({opt.n_padded} padded rows, {opt.n_local}"
+          f" a shard): layout {opt.layout}, {wall:.3f} s, "
+          f"{wall / iters:.6f} s/iter, launches {json.dumps(counts)}")
+    return st, losses, counts, wall, opt.layout
+
+
+def mesh_same(tag, runs):
+    """Every width's state and loss trace bit for bit mesh 1's."""
+    st1, l1 = runs[1][:2]
+    for d, (st, losses, *_) in runs.items():
+        same = all(torch_equal(a, b) for a, b in zip(st, st1))
+        check(same and torch_equal(losses, l1),
+              f"[mesh] {tag}: mesh {d} differs from mesh 1")
+    print(f"[mesh] {tag}: y, update, gains and the loss trace of mesh "
+          f"{', '.join(map(str, runs))} equal bit for bit")
+
+
+def torch_equal(a, b):
+    import torch
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
+def shard_launches(tag, runs, want1):
+    """Each width's launches are exactly D x mesh 1's ``want1``."""
+    for d, run in runs.items():
+        want = {k: v * d for k, v in want1.items()}
+        check(run[2] == want, f"[mesh] {tag}: mesh {d} launches {run[2]} "
+              f"!= {want}")
+
+
+def mesh_b2_shapes(y):
+    """B2 on one shard of a D-wide mesh at 60,000 rows, with the column
+    splits of the quantum-wide local size (what the sharded optimizer
+    launches) beside the shard's own count (what a plain launch of that
+    many rows takes): the rows' bits against the mesh-1 launch, and the
+    time of each.  Returns {D: (canonical ms, own ms)}."""
+    import torch
+    from tsne_flink_tpu_torch.ops.repulsion_cuda import (column_splits,
+                                                         cuda_exact_repulsion)
+    from tsne_flink_tpu_torch.parallel.mesh import PAD_QUANTUM
+    n = y.shape[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split_rows = n // PAD_QUANTUM
+    whole, zw = cuda_exact_repulsion(y, row_z=True, split_rows=split_rows)
+    full_ms = cuda_ms(lambda: cuda_exact_repulsion(y, row_z=True), 20)
+    print(f"[mesh] B2 at {n} rows: its own {column_splits(n, n, sms)} column"
+          f" splits {full_ms:.4f} ms")
+    out = {}
+    for d in (2, 4, 8):
+        nl = n // d
+        ys = y[:nl].contiguous()
+        rep, z = cuda_exact_repulsion(ys, y, row_z=True,
+                                      split_rows=split_rows)
+        check(torch.equal(rep, whole[:nl]) and torch.equal(z, zw[:nl]),
+              f"[mesh] B2 at a shard of {d}: not the mesh-1 launch's bits")
+        can = cuda_ms(lambda: cuda_exact_repulsion(
+            ys, y, row_z=True, split_rows=split_rows), 20)
+        own = cuda_ms(lambda: cuda_exact_repulsion(ys, y, row_z=True), 20)
+        out[d] = (can, own)
+        print(f"[mesh] B2 at a shard of mesh {d} ({nl} x {n}): canonical "
+              f"{column_splits(split_rows, n, sms)} splits {can:.4f} ms, "
+              f"the shard's own {column_splits(nl, n, sms)} splits "
+              f"{own:.4f} ms; the canonical rows equal the mesh-1 "
+              "launch's bit for bit")
+    return out
+
+
+def mesh_blobs(x_np, labels, cfg, full, csr_kl):
+    """[full]'s configuration (config 2's shape, the CSR fused path: B2,
+    B3, B4) through the sharded optimizer at mesh 1, 2 and 4, stage by
+    stage as ``[runtime]`` measures memory: bits equal across widths,
+    launches D x mesh 1's, mesh 1 against [full]'s plain run (final KL
+    within 0.05, its label gate, max |dy| printed), mesh 1's run peak
+    within the memory model's [1, 2]x (allocated), and each width's
+    optimize-stage peak on the one card divided by D beside the model's
+    per-device charge at that width (reported, not gated: D shards share
+    the card).  Returns the launches a shard makes."""
+    import torch
+    from tsne_flink_tpu_torch.analysis.audit.hbm import (allocated_peak,
+                                                         stage_terms)
+    from tsne_flink_tpu_torch.ops.affinities import width_bound
+    from tsne_flink_tpu_torch.utils.artifacts import prepare
+    n, d = x_np.shape
+    torch.cuda.empty_cache()
+    tr = PeakTracker()
+    peaks = {}
+    prep = prepare(torch.as_tensor(x_np, device="cuda"), neighbors=K,
+                   seed=0, perplexity=cfg.perplexity, device="cuda",
+                   on_stage=lambda st, *a: peaks.__setitem__(st, tr.mark()))
+    bound_w = width_bound(prep.idx)
+    plan1 = dataclasses.replace(
+        charged_plan(memory_plan("full", n, d, cfg, bound_w)), mesh=1)
+    runs = {}
+    for width in (1, 2, 4):
+        tr.mark()
+        runs[width] = mesh_run(f"blobs {n} x {d} CSR", cfg, prep.jidx,
+                               prep.jval, width)
+        a = tr.mark()[0]
+        if width == 1:
+            peaks["optimize"] = (a, 0)
+            alloc = max(v for v, _ in peaks.values())
+            pa = max(allocated_peak(t) for t in stage_terms(plan1).values())
+            print(f"[mesh] memory mesh 1 ({prep.label}, the graph's bound "
+                  f"{bound_w}): run peak allocated predicted "
+                  f"{pa / 2**30:.3f} GiB / measured {alloc / 2**30:.3f} GiB "
+                  f"= {pa / alloc:.3f} (stages "
+                  + ", ".join(f"{k} {v / 2**30:.3f}" for k, (v, _)
+                              in peaks.items()) + " GiB)")
+            check(alloc <= pa <= 2 * alloc, f"[mesh] memory mesh 1: "
+                  f"predicted {pa} outside [1, 2] x measured {alloc}")
+        else:
+            per = allocated_peak(stage_terms(dataclasses.replace(
+                plan1, mesh=width))["optimize"])
+            print(f"[mesh] memory mesh {width} on one card: optimize-stage "
+                  f"peak {a / 2**30:.3f} GiB, / {width} = "
+                  f"{a / width / 2**30:.3f} GiB beside the model's "
+                  f"per-device charge {per / 2**30:.3f} GiB (not gated)")
+    del prep
+    check(runs[1][4] == "csr", f"[mesh] blobs: layout {runs[1][4]}")
+    mesh_same("blobs CSR", runs)
+    want = {"B1": 0, "B2": ITERATIONS, "B3": ITERATIONS,
+            "B4": ITERATIONS // 10, "B5": 0, "B6": 0}
+    shard_launches("blobs CSR", runs, want)
+    y1 = runs[1][0].y
+    kl1 = quality("mesh", y1, runs[1][1], labels, cfg, 0.9)
+    dy = float(torch.max(torch.abs(y1 - full[0])))
+    print(f"[mesh] blobs CSR mesh 1 against [full]'s plain run: final KL "
+          f"{kl1:.6f} vs {csr_kl:.6f} (gap {kl1 - csr_kl:+.6f}, bar "
+          f"{KL_GUARDRAIL_TOL}); max |dy| {dy:.4e} (not bits: B2's column "
+          f"splits are the quantum-wide local size's)")
+    check(abs(kl1 - csr_kl) <= KL_GUARDRAIL_TOL,
+          f"[mesh] mesh 1 KL {kl1} vs [full]'s {csr_kl}")
+    del runs
+    torch.cuda.empty_cache()
+    return want
+
+
+def mesh_checkpoint(tag, cfg, jidx, jval, uninterrupted, tmp):
+    """A fat checkpoint written at iteration 150 of a mesh-1 run, read
+    back and resumed on a test mesh of 2: the uninterrupted run's state
+    and loss trace bit for bit."""
+    import torch
+    from tsne_flink_tpu_torch.utils import checkpoint as ckpt
+    path = os.path.join(tmp, "mesh.npz")
+    payload = {"label": "sorted", "jidx": jidx, "jval": jval}
+    half = cfg.iterations // 2
+    mesh_run(f"{tag}, fat checkpoint at {half}", cfg, jidx, jval, 1,
+             checkpoint_every=half,
+             checkpoint_cb=lambda st, it, ls: ckpt.save(path, st, it, ls,
+                                                        payload))
+    st, it, losses, pl, _ = ckpt.load_resume(path)
+    check(it == half, f"[mesh] checkpoint at {it}, not {half}")
+    from tsne_flink_tpu_torch.convert import state_from_numpy
+    st = state_from_numpy(st.y, st.update, st.gains, device="cuda",
+                          dtype=torch.float32)
+    ji = torch.as_tensor(pl["jidx"], device="cuda")
+    jv = torch.as_tensor(pl["jval"], device="cuda")
+    res = mesh_run(f"{tag}, resumed from {half}", cfg, ji, jv, 2, state0=st,
+                   start_iter=half,
+                   loss_carry=torch.as_tensor(losses, device="cuda"))
+    same = (all(torch_equal(a, b) for a, b in zip(res[0], uninterrupted[0]))
+            and torch_equal(res[1], uninterrupted[1]))
+    check(same, f"[mesh] {tag}: the mesh-2 resume of a mesh-1 checkpoint is "
+          "not the uninterrupted run's bits")
+    print(f"[mesh] {tag}: the fat checkpoint written at mesh 1, iteration "
+          f"{half}, resumed at mesh 2 gives the uninterrupted run's state "
+          "and loss trace bit for bit")
+
+
+def phase_mesh(x_np, labels, full, csr_kl, latent_rows, large, tmp):
+    """[mesh]: the sharded optimizer (``parallel/mesh``) at full width on
+    the test mesh.  Config 2's shape on the CSR fused path at mesh 1, 2,
+    4 (bits equal across widths, launches D x mesh 1's; mesh 1 against
+    [full]'s plain run within 0.05 KL with its label gate), the latent
+    blobs on the rows layout and [large]'s P on blocks + FFT at mesh 1
+    and 2 (bits), n = 60,001 (a padded, masked tail) at mesh 1 and 4, a
+    mesh-1 fat checkpoint resumed at mesh 2, B2 at shard shapes, and the
+    memory model (:func:`mesh_blobs`).  The CLI's mesh gates run in
+    [cli] (:func:`mesh_cli_gates`), where config 2's COO file is.
+    Returns each kernel's launches per shard and B2's shard times for the
+    kernels line."""
+    import torch
+    from tsne_flink_tpu_torch import TsneConfig
+    from tsne_flink_tpu_torch.utils.artifacts import prepare
+    t_phase = time.perf_counter()
+    per_shard = {}
+
+    # config 2's shape, CSR fused (B2, B3, B4), with the memory model
+    cfg = TsneConfig(perplexity=PERPLEXITY, iterations=ITERATIONS,
+                     repulsion="exact", attraction="csr")
+    per_shard["csr"] = mesh_blobs(x_np, labels, cfg, full, csr_kl)
+    b2_shard = mesh_b2_shapes(full[0])
+
+    # the latent blobs on the rows layout (B2, B5, B4), and a fat
+    # checkpoint across widths
+    cfg_r = TsneConfig(perplexity=PERPLEXITY, iterations=ITERATIONS)
+    ji, jv = latent_rows
+    runs = {d: mesh_run("latent blobs rows", cfg_r, ji, jv, d)
+            for d in (1, 2)}
+    check(runs[1][4] == "rows", f"[mesh] latent blobs: layout {runs[1][4]}")
+    mesh_same("latent blobs rows", runs)
+    want = {"B1": 0, "B2": ITERATIONS, "B3": 0, "B4": ITERATIONS // 10,
+            "B5": ITERATIONS, "B6": 0}
+    shard_launches("latent blobs rows", runs, want)
+    per_shard["rows"] = want
+    mesh_checkpoint("latent blobs rows", cfg_r, ji, jv, runs[1], tmp)
+    del runs
+
+    # n = 60,001: the last shard padded and masked
+    x1, lab1 = make_data(n=N_FULL + 1)
+    prep = prepare(torch.as_tensor(x1, device="cuda"), neighbors=K,
+                   seed=0, perplexity=PERPLEXITY, device="cuda")
+    runs = {d: mesh_run(f"blobs {N_FULL + 1} x 784 CSR", cfg, prep.jidx,
+                        prep.jval, d) for d in (1, 4)}
+    mesh_same(f"blobs {N_FULL + 1} CSR (padded tail)", runs)
+    quality("mesh", runs[1][0].y, runs[1][1], lab1, cfg, 0.9)
+    del runs, prep, x1
+
+    # [large]'s P on blocks + FFT (B5, B4, the FFT gather)
+    y_l, kl_l, t_l, jidx_l, jval_l, rev, cfg_l = large
+    runs = {d: mesh_run(f"[large]'s P {y_l.shape[0]} x 50 blocks + FFT",
+                        cfg_l, jidx_l, jval_l, d, extra=rev)
+            for d in (1, 2)}
+    check(runs[1][4] == "blocks", f"[mesh] large: layout {runs[1][4]}")
+    mesh_same("large blocks + FFT", runs)
+    want = {"B1": 0, "B2": 0, "B3": 0, "B4": ITERATIONS // 10,
+            "B5": ITERATIONS, "B6": 0}
+    shard_launches("large blocks + FFT", runs, want)
+    per_shard["blocks"] = want
+    print(f"[mesh] large: s/iter mesh 1 {runs[1][3] / ITERATIONS:.6f}, mesh "
+          f"2 {runs[2][3] / ITERATIONS:.6f} (one card time-slicing two "
+          f"shards, each computing the FFT field: not a multi-GPU speed); "
+          f"[large]'s plain optimize {t_l / ITERATIONS:.6f}; final KL mesh "
+          f"1 {float(runs[1][1][-1]):.6f} vs [large]'s {kl_l:.6f}")
+    del runs
+
+    print(f"[mesh] phase {time.perf_counter() - t_phase:.1f} s")
+    return per_shard, b2_shard
+
+
+def mesh_cli_gates(x_np, argv, run_cli_fn, config2):
+    """The mesh flags through the batch job, on config 2's COO file:
+    ``--mesh 1`` gives the estimator's mesh-1 bits (``TSNE(mesh=1)``);
+    ``--mesh 2`` on a one-card machine raises, naming the visible count,
+    before the input is read; ``--meshReduce psum`` on a test mesh of 2
+    ends within 0.05 KL of the canonical mesh-1 run."""
+    import torch
+    from tsne_flink_tpu_torch import TSNE
+    from tsne_flink_tpu_torch.utils.cli import main as cli_main
+
+    def final_kl(out):
+        path = argv(out)[argv(out).index("--loss") + 1]
+        return float(np.loadtxt(path, delimiter=",", ndmin=2)[-1, 1])
+
+    y_m, counts_m, _, _ = run_cli_fn("config 2 --mesh 1", argv(
+        "m1.csv", *config2, "--noCache", "--mesh", "1"))
+    est = TSNE(mesh=1, knn_method="project", theta=0.5,
+               perplexity=PERPLEXITY, n_iter=ITERATIONS, random_state=0)
+    y_e = est.fit_transform(x_np)
+    check(same_bits(y_m, y_e), "[mesh] --mesh 1 != TSNE(mesh=1)'s bits")
+    print("[mesh] cli: config 2 --mesh 1 equals TSNE(mesh=1).fit bit for "
+          "bit")
+    if torch.cuda.device_count() == 1:
+        out = argv("m2.csv", *config2, "--noCache", "--mesh", "2")
+        t0 = time.perf_counter()
+        msg = ""
+        try:
+            cli_main(out)
+        except ValueError as e:
+            msg = str(e)
+        secs = time.perf_counter() - t0
+        made = os.path.exists(out[out.index("--output") + 1])
+        print(f"[mesh] cli: --mesh 2 on one card refused in {secs:.3f} s: "
+              f"{msg}")
+        check("1 is visible" in msg and not made and secs < 5.0,
+              "[mesh] --mesh 2 was not refused before the input was read")
+    y_p, _, _, _ = run_cli_fn("config 2 --meshReduce psum, test mesh of 2",
+                              argv("p2.csv", *config2, "--noCache",
+                                   "--meshReduce", "psum"),
+                              mesh_devices=test_mesh(2))
+    kl_c, kl_p = final_kl("m1.csv"), final_kl("p2.csv")
+    print(f"[mesh] cli: --meshReduce psum at mesh 2 final KL {kl_p:.6f} vs "
+          f"canonical mesh 1 {kl_c:.6f} (gap {kl_p - kl_c:+.6f}, bar "
+          f"{KL_GUARDRAIL_TOL}); bits equal: {same_bits(y_p, y_m)}")
+    check(abs(kl_p - kl_c) <= KL_GUARDRAIL_TOL,
+          f"[mesh] psum KL {kl_p} vs canonical {kl_c}")
+
+
 # ---- [runtime]: the memory model, the OOM ladder, faults, the fleet, ----
 # ---- tracing (queue A15) ------------------------------------------------
 
@@ -3987,7 +4334,17 @@ def main() -> int:
                                                 rows_run[3]), large)
         serve, serve_counts = phase_serve(x_np, os.path.join(
             tmp, "project.npz"), large, xc_np, tmp)
+        mesh_counts, b2_shard = phase_mesh(x_np, labels, full, csr_kl, rows,
+                                           large, tmp)
         del large
+        for rec in kernels:
+            kid = rec["name"].split()[0]
+            rec["mesh_launches_per_shard"] = {
+                cfg_: c[kid] for cfg_, c in mesh_counts.items()}
+        kernels[[r["name"].split()[0] for r in kernels].index("B2")][
+            "mesh_shard_ms"] = {f"mesh {d}": {"canonical_splits": c,
+                                              "own_splits": o}
+                                for d, (c, o) in b2_shard.items()}
         for rec in kernels:
             kid = rec["name"].split()[0]
             rec["serve_launches"] = serve_counts[kid]

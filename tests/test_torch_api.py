@@ -113,14 +113,39 @@ class _Untouchable:
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"spmd": True}, "A14"),
-    ({"devices": 2}, "A14"), ({"mesh": 1}, "A14"),
-    ({"sym_mode": "alltoall"}, "A14"), ({"sym_slack": 4}, "A14"),
-    ({"sym_strict": True}, "A14"), ({"mesh_reduce": "psum"}, "A14"),
+    ({"sym_mode": "alltoall"}, "A14b"), ({"sym_slack": 4}, "A14b"),
+    ({"sym_strict": True}, "A14b"),
     ({"dtype": "bfloat16"}, "§C")])
 def test_unported_kwargs_refused_before_the_input(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         TSNE(device="cpu", **kw).fit(_Untouchable())
+
+
+@pytest.mark.parametrize("kw,width", [
+    ({"spmd": True}, 1), ({"devices": 2}, 2), ({"mesh": 1}, 1),
+    ({"mesh": 2, "mesh_reduce": "psum"}, 2)],
+    ids=["spmd", "devices", "mesh", "mesh_reduce"])
+def test_mesh_kwargs_run(monkeypatch, kw, width):
+    """The mesh keywords (ported): the fit's optimize stage runs on a
+    point mesh of CPU shards of the asked width and reduction."""
+    import warnings
+
+    from tsne_flink_tpu_torch.parallel import mesh as tmesh
+    seen = []
+    real = tmesh.ShardedOptimizer.segment
+
+    def segment(self, *a, **k):
+        seen.append((self.n_devices, self.mesh_reduce))
+        return real(self, *a, **k)
+
+    monkeypatch.setattr(tmesh.ShardedOptimizer, "segment", segment)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        est = TSNE(device="cpu", perplexity=5.0, n_iter=30,
+                   knn_method="bruteforce", **kw)
+    y = est.fit_transform(_blobs(120, 6))
+    assert y.shape == (120, 2) and np.isfinite(y).all()
+    assert set(seen) == {(width, kw.get("mesh_reduce", "canonical"))}
 
 
 def test_auto_bh_and_transform_refused(monkeypatch):

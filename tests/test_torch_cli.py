@@ -119,13 +119,11 @@ def test_pick_repulsion_cuda():
 
 
 REFUSED = [
-    (["--mesh", "1"], "A14"),
-    (["--devices", "1"], "A14"), (["--spmd"], "A14"),
-    (["--symWidth", "64"], "A14"), (["--symMode", "alltoall"], "A14"),
-    (["--symSlack", "4"], "A14"), (["--symStrict"], "A14"),
+    (["--symWidth", "64"], "A14b"), (["--symMode", "alltoall"], "A14b"),
+    (["--symSlack", "4"], "A14b"), (["--symStrict"], "A14b"),
     (["--coordinator", "h:1", "--numProcesses", "2", "--processId", "0"],
-     "A14"),
-    (["--meshReduce", "psum"], "A14"), (["--auditPlan"], "A16"),
+     "A14b"),
+    (["--auditPlan"], "A16"),
     (["--executionPlan"], "A16"), (["--dtype", "bfloat16"], "§C"),
 ]
 
@@ -140,6 +138,38 @@ def test_unported_flags_refused_before_the_input_is_read(tmp_path, extra,
     with pytest.raises(NotImplementedError, match=item):
         tcli.main(argv, device="cpu")
     assert not (tmp_path / "o.csv").exists()
+
+
+#: the mesh flags (the single-controller mesh is ported): each runs the
+#: optimize stage on a point mesh of CPU shards
+MESH_FLAGS = [["--mesh", "1"], ["--devices", "1"], ["--spmd"],
+              ["--mesh", "2", "--meshReduce", "psum"]]
+
+
+@pytest.mark.parametrize("extra", MESH_FLAGS,
+                         ids=[" ".join(e) for e in MESH_FLAGS])
+def test_mesh_flags_run(tmp_path, files, capsys, monkeypatch, extra):
+    from tsne_flink_tpu_torch.parallel import mesh as tmesh
+    widths = []
+    real = tmesh.ShardedOptimizer.shard_inputs
+
+    def shard_inputs(self, *a, **kw):
+        widths.append((self.n_devices, self.mesh_reduce))
+        return real(self, *a, **kw)
+
+    monkeypatch.setattr(tmesh.ShardedOptimizer, "shard_inputs",
+                        shard_inputs)
+    out = tmp_path / "o.csv"
+    argv = ["--input", str(files["coo"]), "--output", str(out),
+            "--dimension", str(D), "--knnMethod", "bruteforce",
+            "--perplexity", str(PERPLEXITY), "--iterations", "20",
+            "--noCache", "--loss", str(tmp_path / "loss.txt"), *extra]
+    assert tcli.main(argv, device="cpu") == 0
+    y = np.loadtxt(out, delimiter=",", ndmin=2)
+    assert y.shape == (N, 3) and np.isfinite(y).all()
+    want = (2, "psum") if "psum" in extra else (1, "canonical")
+    assert widths == [want]
+    assert ("deprecated" in capsys.readouterr().err) == ("--spmd" in extra)
 
 
 #: the runtime and observability flags (ported): each runs, and the

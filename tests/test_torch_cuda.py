@@ -1305,3 +1305,63 @@ def test_serve_fleet_on_the_card(dev, tmp_path):
         if sub["batches"]:
             assert sub["launches"]["B5"] == 10 * sub["batches"]
             assert sub["launches"]["B2"] == 10 * sub["batches"]
+
+
+@pytest.mark.parametrize("n,d", [(60_000, 8), (20_003, 2), (60_001, 4),
+                                 (1_001, 8)])
+def test_repulsion_canonical_splits_on_a_shard_are_mesh_1_bits(dev, n, d):
+    """B2 on one shard of a D-wide mesh, with the column splits of the
+    quantum-wide local size, gives the same rows' bits as the mesh-1
+    launch over all rows with that split count (a masked padded tail
+    included); the shard's own split count would not."""
+    from tsne_flink_tpu_torch.parallel.mesh import (PAD_QUANTUM,
+                                                    padded_rows_for)
+    npad = padded_rows_for(n, d)
+    rng = np.random.default_rng(n)
+    y = torch.from_numpy(rng.standard_normal((npad, 2)).astype(np.float32)
+                         * 20).to(dev)
+    valid = torch.arange(npad, device=dev) < n
+    split_rows = npad // PAD_QUANTUM
+    rep1, z1 = cuda_exact_repulsion(y, y, col_valid=valid, row_z=True,
+                                    split_rows=split_rows)
+    nl = npad // d
+    for r in (0, d - 1):
+        rows = slice(r * nl, (r + 1) * nl)
+        rep, z = cuda_exact_repulsion(y[rows].contiguous(), y,
+                                      row_offset=r * nl, col_valid=valid,
+                                      row_z=True, split_rows=split_rows)
+        assert torch.equal(rep, rep1[rows]) and torch.equal(z, z1[rows])
+
+
+def test_mesh_on_the_test_mesh_equals_mesh_1(dev):
+    """The sharded optimizer with 1, 2 and 4 shards on the card (the test
+    mesh: the one card listed once a shard): the CSR, rows and blocks
+    layouts give mesh 1's bits, and each shard launches its kernels."""
+    from tsne_flink_tpu_torch.kernels.build import launches
+    from tsne_flink_tpu_torch.models.tsne import TsneConfig, init_working_set
+    from tsne_flink_tpu_torch.parallel.mesh import ShardedOptimizer
+    from tsne_flink_tpu_torch.utils.artifacts import prepare
+    rng = np.random.default_rng(0)
+    centers = rng.normal(0.0, 10.0, (12, 16))
+    x = torch.from_numpy((centers[rng.integers(0, 12, 3001)]
+                          + rng.normal(0.0, 0.5, (3001, 16)))
+                         .astype(np.float32)).to(dev)
+    for assembly, attraction in (("sorted", "csr"), ("sorted", "rows"),
+                                 ("blocks", "auto")):
+        prep = prepare(x, neighbors=30, knn_method="bruteforce",
+                       perplexity=10.0, assembly=assembly, device=dev)
+        cfg = TsneConfig(perplexity=10.0, iterations=60,
+                         attraction=attraction)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        st0 = init_working_set(gen, 3001, 2, torch.float32, dev)
+        outs = {}
+        for d in (1, 2, 4):
+            reset_launches()
+            st, losses = ShardedOptimizer(cfg, 3001, devices=[dev] * d)(
+                st0, prep.jidx, prep.jval, extra_edges=prep.extra_edges)
+            got = launches()
+            outs[d] = (st.y.cpu().numpy(), losses.cpu().numpy())
+            assert got["B2"] == 60 * d and got["B4"] == 6 * d
+        for d in (2, 4):
+            np.testing.assert_array_equal(outs[d][0], outs[1][0])
+            np.testing.assert_array_equal(outs[d][1], outs[1][1])

@@ -384,7 +384,7 @@ def test_sharded_refine_is_a14():
     i, d = tknn.knn_project(x, 5, rounds=1)
     for kw in ({"x_full": x}, {"idx_full": i}, {"row_offset": 3},
                {"n_valid": 40}):
-        with pytest.raises(NotImplementedError, match="A14"):
+        with pytest.raises(NotImplementedError, match="A14b"):
             tknn.knn_refine(x, i, d, **kw)
 
 

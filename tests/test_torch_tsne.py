@@ -328,16 +328,22 @@ def test_prepare_assemblies_match_jax(problem):
 
 
 def test_unported_branches_raise(problem):
-    """Mesh sharding (A14) is the one refusal left in ``optimize``; the
-    branches of A10 and A12 run and return the JAX function's tuple."""
+    """``optimize`` refuses no branch: a mesh axis (A14a) runs it as one
+    shard's program, and the branches of A10 and A12 run and return the
+    JAX function's tuple."""
+    from tsne_flink_tpu_torch.parallel.mesh import run_shards
     x, cfg, prep = problem
     tcfg = convert.config_from_jax(cfg)
     jidx, jval = convert.rows_from_numpy(prep.jidx, prep.jval, device="cpu")
     _, csr = ttsne._plan_layout(jidx, jval, tcfg)
     st = convert.state_from_numpy(np.zeros((SPEC["n"], 2)), device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        ttsne.optimize(st, jidx, jval, tcfg, csr=csr, axis_name="x",
-                       num_iters=1)
+    # a one-shard axis over all rows: the plain loop's bits
+    plain = ttsne.optimize(st, jidx, jval, tcfg, csr=csr, num_iters=1)
+    meshed, = run_shards(["cpu"], lambda axis: ttsne.optimize(
+        st, jidx, jval, tcfg, csr=csr, axis_name=axis, num_iters=1))
+    assert len(meshed) == len(plain) == 2
+    np.testing.assert_array_equal(meshed[0].y.numpy(), plain[0].y.numpy())
+    np.testing.assert_array_equal(meshed[1].numpy(), plain[1].numpy())
     cases = [({"with_telemetry": True}, tcfg, 3),
              ({}, replace(tcfg, repulsion_stride=2), 2),
              ({"with_health": True}, tcfg, 3),

@@ -22,8 +22,10 @@ ingest, checkpoints and the prepare-artifact cache; out-of-sample
 serving (``serve/``); and the runtime and observability layers
 (``runtime/``: the run supervisor with its OOM ladder, fault injection,
 the job fleet under a memory budget; ``obs/``: tracing, metrics, memory
-watermarks; ``analysis/audit``: the memory model they charge); and the
-serve fleet (``serve/replicas``: N daemon processes over one spool).
+watermarks; ``analysis/audit``: the memory model they charge); the
+serve fleet (``serve/replicas``: N daemon processes over one spool); and
+the single-controller point mesh (``parallel/mesh``: the optimize stage
+sharded over D devices, bit for bit the one-device run).
 
 The public names are imported on first use (PEP 562), so the parts that
 need no torch — the serve fleet's supervisor process above all — import

@@ -61,8 +61,9 @@ class PlanConfig:
     sym_width: int | None = None     # measured hub width when known
     row_chunk: int = 2048            # optimizer tile rows (TsneConfig)
     knn_padding: str = "index-space"
-    #: width of the point mesh the optimize loop runs on; the port runs
-    #: one device (multi-GPU is ROADMAP queue A14)
+    #: width of the point mesh the optimize loop runs on (the run's
+    #: ``--mesh`` / ``TSNE(mesh=)``; 1 on the single-device path): the
+    #: optimize stage's row terms are one device's share, ``n_local`` rows
     mesh: int = 1
     #: pinned FFT grid (None = repulsion_fft.DEFAULT_GRID)
     fft_grid: int | None = None

@@ -33,8 +33,10 @@
 //   block's global rows (row_offset) take the path that zeroes i == j.
 // - Filling the card: a second grid dimension splits the columns into S
 //   ranges (the wrapper picks S for at least two waves of blocks); each
-//   block writes its rows' partial rep and Z to part[S, nloc, m + 1], and
-//   the wrapper sums over S in a fixed order.  No float atomics: a run is
+//   block writes its rows' partial rep and Z to part[S, part_rows, m + 1]
+//   (part_rows >= nloc: the wrapper rounds the slab up to a multiple of 4
+//   rows, so that the sum over S takes the same order whatever the row
+//   count), and the wrapper sums over S in a fixed order.  No float atomics: a run is
 //   deterministic.  d² is computed directly as Σ(y_i − y_j)², and each
 //   thread sums a tile into a partial before adding it to its running
 //   total (two-level summation).
@@ -100,7 +102,8 @@ __global__ void __launch_bounds__(THREADS)
 repulsion_kernel(const float* __restrict__ y_loc,
                  const float* __restrict__ y_full,
                  const unsigned char* __restrict__ valid, int nloc, int nfull,
-                 int row_offset, int col_span, float* __restrict__ part) {
+                 int row_offset, int col_span, int part_rows,
+                 float* __restrict__ part) {
   constexpr int V = vecs_for<M>();
   __shared__ float4 ys[TJ * V];
 
@@ -155,7 +158,7 @@ repulsion_kernel(const float* __restrict__ y_loc,
       for (int d = 0; d <= M; ++d) acc[r][d] += tacc[r][d];
   }
 
-  float* out = part + (size_t)blockIdx.y * nloc * (M + 1);
+  float* out = part + (size_t)blockIdx.y * part_rows * (M + 1);
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int i = row0 + r * THREADS + t;
@@ -169,16 +172,18 @@ repulsion_kernel(const float* __restrict__ y_loc,
 
 template <int M>
 int launch(const float* y_loc, const float* y_full, const unsigned char* valid,
-           int nloc, int nfull, int row_offset, int splits, float* part,
-           cudaStream_t s) {
+           int nloc, int nfull, int row_offset, int splits, int part_rows,
+           float* part, cudaStream_t s) {
   const int col_span = (nfull + splits - 1) / splits;
   const dim3 grid((nloc + ROWS - 1) / ROWS, splits);
   if (valid != nullptr)
     repulsion_kernel<M, true><<<grid, THREADS, 0, s>>>(
-        y_loc, y_full, valid, nloc, nfull, row_offset, col_span, part);
+        y_loc, y_full, valid, nloc, nfull, row_offset, col_span, part_rows,
+        part);
   else
     repulsion_kernel<M, false><<<grid, THREADS, 0, s>>>(
-        y_loc, y_full, valid, nloc, nfull, row_offset, col_span, part);
+        y_loc, y_full, valid, nloc, nfull, row_offset, col_span, part_rows,
+        part);
   return tsne::launch_status();
 }
 
@@ -187,15 +192,18 @@ int launch(const float* y_loc, const float* y_full, const unsigned char* valid,
 // y_loc [nloc, m] = rows [row_offset, row_offset + nloc) of y_full
 // [nfull, m] (1 <= m <= 8, f32), valid [nfull] uint8 or null (all valid);
 // the columns split into `splits` equal ranges, one per grid row; writes
-// part [splits, nloc, m + 1]: per split, each row's partial rep and Z.
+// part [splits, part_rows, m + 1] (part_rows >= nloc; rows past nloc are
+// left untouched): per split, each row's partial rep and Z.
 TSNE_API int tsne_repulsion_f32(const float* y_loc, const float* y_full,
                                 const unsigned char* valid, int nloc,
                                 int nfull, int m, int row_offset, int splits,
-                                float* part, void* stream) {
+                                int part_rows, float* part, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (splits < 1 || splits > 65535) return (int)cudaErrorInvalidValue;
+  if (splits < 1 || splits > 65535 || part_rows < nloc)
+    return (int)cudaErrorInvalidValue;
   return tsne::with_m(m, [&](auto mc) {
     return launch<decltype(mc)::value>(y_loc, y_full, valid, nloc, nfull,
-                                       row_offset, splits, part, s);
+                                       row_offset, splits, part_rows, part,
+                                       s);
   });
 }

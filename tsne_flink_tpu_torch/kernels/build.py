@@ -34,6 +34,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from dataclasses import dataclass
 from pathlib import Path
@@ -51,7 +52,7 @@ _F = ctypes.c_float
 #: C entry point -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
     "tsne_knn_f32": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
-    "tsne_repulsion_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+    "tsne_repulsion_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "tsne_fused_step_f32": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P,
                             _P, _P, _P, _P, _F, _F, _F, _F, _P, _P, _P, _P,
                             _P],
@@ -204,9 +205,18 @@ def _compile(root: Path, digest: str, out: Path) -> BuildResult:
     return BuildResult(out, time.perf_counter() - t0, log)
 
 
-@functools.cache
+_LIBRARY_LOCK = threading.Lock()
+
+
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use)."""
+    """The loaded kernel library (built on first use, once a process:
+    a mesh's shard threads may ask for it together)."""
+    with _LIBRARY_LOCK:
+        return _library()
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(build().path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -220,11 +230,13 @@ def library() -> ctypes.CDLL:
 
 
 class Kernel:
-    """One hand-written kernel: its C entry point and its launch count."""
+    """One hand-written kernel: its C entry point and its launch count
+    (counted under a lock: a mesh's shards launch from their threads)."""
 
     def __init__(self, symbol: str):
         self.symbol = symbol
         self.launches = 0
+        self._lock = threading.Lock()
 
     def __call__(self, *args) -> None:
         import torch
@@ -236,7 +248,8 @@ class Kernel:
             msg = lib.tsne_error_string(rc).decode()
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
                                f"{rc} ({msg})")
-        self.launches += 1
+        with self._lock:
+            self.launches += 1
 
 
 #: the port's kernels by the id of the TPU kernel each replaces

@@ -6,9 +6,12 @@ defaults, plus ``device`` (None: the card) and ``fault_plan`` (the CLI's
 ``--faultPlan``; the JAX estimator reads it from the environment).
 ``fit`` runs the port's ``tsne_embed`` and sets ``embedding_``,
 ``kl_trace_`` (the KL at every 10th iteration) and ``kl_divergence_``
-(the last of them).  With ``health_check``, ``telemetry``, ``autopilot``
-or a fault plan it takes the supervised path instead
-(``runtime/supervisor.supervised_embed``, as the JAX estimator does);
+(the last of them).  With ``health_check``, ``telemetry``, ``autopilot``,
+a fault plan or a mesh (``mesh=N``, or the deprecated ``spmd=True`` over
+``devices`` or all visible devices) it takes the supervised path instead
+(``runtime/supervisor.supervised_embed``, as the JAX estimator does; the
+mesh runs the optimize stage on ``parallel/mesh.ShardedOptimizer`` with
+``mesh_reduce``);
 an out-of-memory error on the fast path refits through it under
 ``on_oom="ladder"``.  Either way it sets ``runtime_events_`` and
 ``degradations_`` (the supervisor's record), ``trace_`` (the fit's
@@ -40,7 +43,9 @@ class TSNE:
     input's dtype on the CPU.  ``cache_dir`` enables the prepare-artifact
     cache under that root (None: off; a library writes no file unasked).
     ``fault_plan`` installs a fault plan for the fit (``runtime/faults``;
-    deactivated when the fit ends).
+    deactivated when the fit ends).  ``mesh`` is a width (N distinct
+    devices) or an explicit device list (the test mesh: one card listed
+    once a shard).
     """
 
     def __init__(self, n_components: int = 2, perplexity: float = 30.0,
@@ -54,7 +59,7 @@ class TSNE:
                  knn_refine: int | None = None, knn_autotune: bool = False,
                  random_state: int = 0,
                  spmd: bool = False, devices: int | None = None,
-                 mesh: int | None = None,
+                 mesh=None,
                  sym_mode: str = "replicated", attraction: str = "auto",
                  sym_width: int | None = None, sym_slack: int | None = None,
                  sym_strict: bool = False, bh_gate: str = "vdm",
@@ -102,6 +107,11 @@ class TSNE:
         self.knn_refine = knn_refine
         self.knn_autotune = knn_autotune
         self.random_state = random_state
+        if spmd:
+            import warnings
+            warnings.warn("TSNE(spmd=True) is deprecated — the pipeline is "
+                          "mesh-parametric (graftmesh); use TSNE(mesh=N) "
+                          "instead", DeprecationWarning, stacklevel=2)
         self.spmd = spmd
         self.devices = devices
         self.mesh = mesh
@@ -134,13 +144,9 @@ class TSNE:
 
     def _refuse_unported(self, device: torch.device) -> None:
         unported = (
-            ("spmd", self.spmd, "A14"),
-            ("devices", self.devices is not None, "A14"),
-            ("mesh", self.mesh is not None, "A14"),
             ("sym_mode/sym_slack/sym_strict",
              (self.sym_mode != "replicated" or self.sym_slack is not None
-              or self.sym_strict), "A14"),
-            ("mesh_reduce='psum'", self.mesh_reduce != "canonical", "A14"))
+              or self.sym_strict), "A14b"),)
         for name, is_set, item in unported:
             if is_set:
                 raise NotImplementedError(
@@ -151,6 +157,19 @@ class TSNE:
                 f"dtype='{self.dtype}' is not ported: the kernels are "
                 "float32 and B1 runs 3xTF32, not bf16 operands (a limit of "
                 "ROADMAP §C)")
+
+    def _mesh(self, device: torch.device):
+        """The optimize stage's mesh devices (``parallel/mesh.make_mesh``:
+        a width past the visible devices raises here, before the input
+        is read), or None for the single-device path.  ``devices`` alone
+        is a width too, as the CLI's ``--devices``."""
+        if self.mesh is None and self.devices is None and not self.spmd:
+            return None
+        from tsne_flink_tpu_torch.parallel.mesh import make_mesh
+        if isinstance(self.mesh, (list, tuple)):
+            return make_mesh(list(self.mesh))
+        width = self.mesh if self.mesh is not None else self.devices
+        return make_mesh(width, device)
 
     def _config(self, n: int, backend: str = "cuda") -> TsneConfig:
         from tsne_flink_tpu_torch.utils.cli import pick_repulsion
@@ -177,6 +196,7 @@ class TSNE:
 
         device = resolve_device(self.device)
         self._refuse_unported(device)
+        mesh = self._mesh(device)
         prev_cache = kbuild.cache_enabled()
         if self.aot_cache is not None:
             kbuild.set_cache(self.aot_cache)
@@ -186,7 +206,7 @@ class TSNE:
         try:
             # the fit's spans, without flipping process-global tracing
             with obtrace.collecting():
-                self._fit_body(x, device)
+                self._fit_body(x, device, mesh)
         finally:
             kbuild.set_cache(prev_cache)
             if self.fault_plan:
@@ -197,7 +217,7 @@ class TSNE:
         self.metrics_.update(extra)
         return self
 
-    def _fit_body(self, x, device) -> None:
+    def _fit_body(self, x, device, mesh=None) -> None:
         from tsne_flink_tpu_torch.runtime import faults
         from tsne_flink_tpu_torch.runtime.supervisor import (
             Supervisor, is_oom, release_memory, run_plan_from_fit,
@@ -218,8 +238,9 @@ class TSNE:
                               self.knn_method,
                               knn_rounds=self.knn_iterations,
                               knn_refine=self.knn_refine,
-                              sym_width=self.sym_width, name="estimator-fit",
-                              backend=device.type),
+                              sym_width=self.sym_width,
+                              mesh=1 if mesh is None else len(mesh),
+                              name="estimator-fit", backend=device.type),
             max_retries=self.max_retries, on_oom=self.on_oom,
             health_check=self.health_check)
         embed_kwargs = dict(
@@ -239,9 +260,11 @@ class TSNE:
         self.degradations_ = []
         run = None
         if (self.health_check or self.telemetry or self.autopilot
-                or faults.injector() is not None):
+                or faults.injector() is not None or mesh is not None):
             run = supervised_embed(x, cfg, supervisor=sup,
-                                   telemetry=self.telemetry, **embed_kwargs)
+                                   telemetry=self.telemetry, mesh=mesh,
+                                   mesh_reduce=self.mesh_reduce,
+                                   **embed_kwargs)
         else:
             try:
                 # the unsupervised fast path: tsne_embed's own bits

@@ -31,6 +31,8 @@ registry's defaults (``"auto"``, 0.25).
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import torch
 
@@ -60,6 +62,7 @@ PILOT_TRIGGERS = ("hold", "raise", "collapse-rough", "collapse-tail",
 PILOT_STATE_FIELDS = ("stride_level", "grad_norm_prev", "refreshes")
 
 _READS = [0]
+_READS_LOCK = threading.Lock()  # mesh shards read from their threads
 
 
 def host_reads() -> int:
@@ -75,7 +78,8 @@ def reset_host_reads() -> None:
 def read_level(pvec) -> int:
     """The stride level of the controller state, on the host (one device
     read, counted)."""
-    _READS[0] += 1
+    with _READS_LOCK:
+        _READS[0] += 1
     return int(pvec[0].item())
 
 

@@ -34,8 +34,16 @@ telemetry trace, both device tensors read once a segment
 (``runtime/segments``); and the landmark schedule
 (:func:`landmark_optimize`).
 
-Not ported yet, and raising ``NotImplementedError`` with its ROADMAP
-queue item: mesh sharding (A14).
+Under a point mesh (``parallel/mesh.ShardedOptimizer``) the same
+``optimize`` is the per-shard program: ``axis_name`` is the shard's
+collectives handle (``parallel/mesh.MeshAxis``), ``row_offset`` its
+first global row and ``valid`` its rows' mask.  Each iteration gathers
+y; Z, the KL, the telemetry sums and the grad norm are mesh-canonical
+(:func:`_mesh_sum`: the gathered ``[N_padded]`` per-row vector reduced
+in one fixed order), the centering mean sums the gathered masked rows,
+and counts, minima and maxima combine exactly (:func:`_psum`,
+:func:`_pmin`, :func:`_pmax`), so every mesh width that shares the
+padding quantum gives the same bits.
 """
 
 from __future__ import annotations
@@ -152,29 +160,71 @@ def _pilot_scratch(cfg: TsneConfig, m: int, dtype, device):
                  for g in grid_ladder(cfg, m))
 
 
+def _psum(x, axis_name):
+    """Sum of a per-shard value over the mesh (exact for the integer
+    counts it is used for); ``x`` itself off a mesh."""
+    return x if axis_name is None else axis_name.psum(x)
+
+
+def _pmax(x, axis_name):
+    return x if axis_name is None else axis_name.pmax(x)
+
+
+def _pmin(x, axis_name):
+    return x if axis_name is None else axis_name.pmin(x)
+
+
+def _mesh_sum(per_row, axis_name):
+    """Global sum of a per-row partial.  Under a mesh it is
+    mesh-canonical: the ``[N_padded]`` per-row vector is gathered —
+    the same content and shape on every mesh width that shares the
+    padding quantum (``parallel/mesh.PAD_QUANTUM``) — and reduced in one
+    fixed order, the reduction that mesh D == mesh 1 bit for bit rides
+    on.  A mesh armed with ``mesh_reduce="psum"`` sums each shard's rows
+    and combines the D scalars in shard order instead: less traffic, but
+    the per-shard partials regroup with the width, so not bit-identical
+    across widths (the JAX package guards it within the 0.05 KL
+    guardrail).  Off a mesh, the plain sum."""
+    if axis_name is None:
+        return torch.sum(per_row)
+    if axis_name.mesh_reduce == "psum":
+        return axis_name.psum(torch.sum(per_row))
+    return torch.sum(axis_name.all_gather(per_row))
+
+
 def _repulsion(y_local, y_full, cfg: TsneConfig, row_offset=0,
-               valid_full=None, rep_scratch=None):
+               valid_full=None, rep_scratch=None, axis_name=None):
     """(rep [nloc, m], Z) with Z the global partition sum (a 0-d tensor):
     kernel B2's or Barnes-Hut's per-row partials summed in one fixed
-    order, or the FFT backend's spectral Z, global already.  Barnes-Hut
-    sizes its chunks by its own byte budget, not ``cfg.row_chunk``."""
+    order (:func:`_mesh_sum`), or the FFT backend's spectral Z, global
+    and replicated already (its grid is built from the gathered y).
+    Barnes-Hut sizes its chunks by its own byte budget, not
+    ``cfg.row_chunk``.  Under a mesh the per-row bits must not depend on
+    the shard's row count: B2 takes the column-split count of the
+    quantum-wide local size and Barnes-Hut restarts its chunks at every
+    multiple of it (``axis_name.split_rows``)."""
     if cfg.repulsion == "fft":
         from tsne_flink_tpu_torch.ops.repulsion_fft import fft_repulsion
         return fft_repulsion(y_local, y_full, grid=cfg.fft_grid,
                              interp=cfg.fft_interp, row_offset=row_offset,
                              col_valid=valid_full, geom=rep_scratch)
+    split_rows = None if axis_name is None else axis_name.split_rows
     if cfg.repulsion == "bh":
         from tsne_flink_tpu_torch.ops.repulsion_bh import bh_repulsion
-        return bh_repulsion(y_local, y_full, theta=cfg.theta,
-                            levels=cfg.bh_levels, frontier=cfg.bh_frontier,
-                            gate=cfg.bh_gate, row_offset=row_offset,
-                            col_valid=valid_full)
+        rep, sq = bh_repulsion(y_local, y_full, theta=cfg.theta,
+                               levels=cfg.bh_levels,
+                               frontier=cfg.bh_frontier, gate=cfg.bh_gate,
+                               row_offset=row_offset, col_valid=valid_full,
+                               row_z=axis_name is not None,
+                               row_block=split_rows)
+        return rep, (sq if axis_name is None else _mesh_sum(sq, axis_name))
     if cfg.repulsion != "exact":
         raise ValueError(f"unknown repulsion backend '{cfg.repulsion}'")
     rep, zrow = cuda_exact_repulsion(y_local, y_full, row_offset=row_offset,
                                      col_valid=valid_full, row_z=True,
-                                     row_chunk=cfg.row_chunk)
-    return rep, torch.sum(zrow)
+                                     row_chunk=cfg.row_chunk,
+                                     split_rows=split_rows)
+    return rep, _mesh_sum(zrow, axis_name)
 
 
 def _attraction_forces(y_local, y_full, fidx, fval, cfg: TsneConfig, exag,
@@ -223,17 +273,44 @@ def _update_embedding(state: TsneState, grad, momentum, cfg: TsneConfig):
     return TsneState(y=state.y + update, update=update, gains=gains)
 
 
-def _global_mean(x, valid=None):
-    """Mean over the point axis, ignoring padded rows."""
+def _mesh_count(x, valid, axis_name):
+    """The global count of valid rows, as ``x``'s dtype: a sum of exact
+    integers, so any reduction order gives the same bits."""
     if valid is None:
-        return torch.sum(x, dim=0) / x.shape[0]
-    w = valid.to(x.dtype)
-    return torch.sum(x * w[:, None], dim=0) / torch.sum(w)
+        return _psum(torch.tensor(float(x.shape[0]), dtype=x.dtype,
+                                  device=x.device), axis_name)
+    return _psum(torch.sum(valid.to(x.dtype)), axis_name)
 
 
-def _center(state: TsneState, valid=None) -> TsneState:
-    """Subtract the mean each iteration (TsneHelpers.scala:320-329)."""
-    return state._replace(y=state.y - _global_mean(state.y, valid))
+def _global_mean(x, valid=None, axis_name=None, count=None):
+    """Mean over the (global) point axis, ignoring padded rows.  Under a
+    mesh the total is mesh-canonical: the masked ``[N_padded, m]`` rows
+    are gathered and the same array is reduced on every width; ``count``
+    is :func:`_mesh_count` (computed here when not given)."""
+    if axis_name is None:
+        if valid is None:
+            return torch.sum(x, dim=0) / x.shape[0]
+        w = valid.to(x.dtype)
+        return torch.sum(x * w[:, None], dim=0) / torch.sum(w)
+    xm = x if valid is None else x * valid.to(x.dtype)[:, None]
+    total = torch.sum(axis_name.all_gather(xm), dim=0)
+    if count is None:
+        count = _mesh_count(x, valid, axis_name)
+    return total / count
+
+
+def _center(state: TsneState, valid=None, axis_name=None,
+            count=None) -> TsneState:
+    """Subtract the (global) mean each iteration
+    (TsneHelpers.scala:320-329)."""
+    return state._replace(
+        y=state.y - _global_mean(state.y, valid, axis_name, count))
+
+
+def center_input(x: torch.Tensor, axis_name=None, valid=None):
+    """Subtract the global mean from an input point set (the reference's
+    ``centerInput``, TsneHelpers.scala:331-339)."""
+    return x - _global_mean(x, valid, axis_name)
 
 
 def loss_slot(i: int, n_slots: int) -> int:
@@ -242,28 +319,40 @@ def loss_slot(i: int, n_slots: int) -> int:
     return min((i + 1) // LOSS_EVERY - 1, n_slots - 1)
 
 
-def _telemetry_row(st: TsneState, grad, valid=None, gsq=None):
+def _telemetry_row(st: TsneState, grad, valid=None, gsq=None,
+                   axis_name=None):
     """One :data:`TELEMETRY_FIELDS` row from the post-update state: the
     global grad L2 norm, the gains' mean and max, the embedding's min and
     max, padded rows masked out.  ``grad`` is masked already; the fused
-    step passes its per-row ‖grad‖² as ``gsq`` instead (``grad`` None)."""
+    step passes its per-row ‖grad‖² as ``gsq`` instead (``grad`` None).
+    Under a mesh the floating sums are mesh-canonical (:func:`_mesh_sum`)
+    and the count, minima and maxima combine exactly, so the row is the
+    same on every shard and every mesh width."""
     dt = st.y.dtype
     if valid is None:
-        gcnt = torch.tensor(float(st.gains.numel()), dtype=dt,
-                            device=st.y.device)
-        gmax = torch.max(st.gains)
-        ymin, ymax = torch.min(st.y), torch.max(st.y)
+        gcnt = _psum(torch.tensor(float(st.gains.numel()), dtype=dt,
+                                  device=st.y.device), axis_name)
+        gmax = _pmax(torch.max(st.gains), axis_name)
+        ymin = _pmin(torch.min(st.y), axis_name)
+        ymax = _pmax(torch.max(st.y), axis_name)
         gains_m = st.gains
     else:
         vm = valid[:, None]
         w = valid.to(dt)
-        gcnt = torch.sum(w) * st.gains.shape[1]
-        gmax = torch.max(torch.where(vm, st.gains, -torch.inf))
-        ymin = torch.min(torch.where(vm, st.y, torch.inf))
-        ymax = torch.max(torch.where(vm, st.y, -torch.inf))
+        gcnt = _psum(torch.sum(w), axis_name) * st.gains.shape[1]
+        gmax = _pmax(torch.max(torch.where(vm, st.gains, -torch.inf)),
+                     axis_name)
+        ymin = _pmin(torch.min(torch.where(vm, st.y, torch.inf)), axis_name)
+        ymax = _pmax(torch.max(torch.where(vm, st.y, -torch.inf)),
+                     axis_name)
         gains_m = st.gains * w[:, None]
-    gn2 = torch.sum(grad * grad) if gsq is None else torch.sum(gsq)
-    gsum = torch.sum(gains_m)
+    if axis_name is None:
+        gn2 = torch.sum(grad * grad) if gsq is None else torch.sum(gsq)
+        gsum = torch.sum(gains_m)
+    else:
+        gn2 = _mesh_sum(torch.sum(grad * grad, dim=1) if gsq is None
+                        else gsq, axis_name)
+        gsum = _mesh_sum(torch.sum(gains_m, dim=1), axis_name)
     return torch.stack([torch.sqrt(gn2), gsum / gcnt, gmax, ymin,
                         ymax]).to(dt)
 
@@ -271,7 +360,7 @@ def _telemetry_row(st: TsneState, grad, valid=None, gsq=None):
 def optimize(state: TsneState, jidx, jval, cfg: TsneConfig, *,
              valid=None, start_iter: int = 0, num_iters: int | None = None,
              loss_carry=None, edges=None, edges_extra: bool = False,
-             csr=None, fused_step=None, axis_name=None,
+             csr=None, fused_step=None, axis_name=None, row_offset: int = 0,
              with_health: bool = False, with_telemetry: bool = False,
              telemetry_carry=None, pilot_carry=None):
     """The 3-phase gradient descent over the armed attraction layout.
@@ -309,10 +398,16 @@ def optimize(state: TsneState, jidx, jval, cfg: TsneConfig, *,
       ``[n_slots, 5]`` trace at every report iteration
       (``telemetry_carry`` threads it);
     * ``with_health`` folds the finiteness of y, the gains and the KL
-      (then computed every iteration) into a 0-d bool tensor."""
-    if axis_name is not None:
-        raise NotImplementedError("mesh sharding is not ported yet "
-                                  "(ROADMAP queue A14)")
+      (then computed every iteration) into a 0-d bool tensor.
+
+    Under a mesh (``axis_name``: a ``parallel/mesh.MeshAxis``) this is one
+    shard's program: ``state``, ``jidx``/``jval``, the layout and
+    ``valid`` hold the shard's rows (global column ids; a CSR tail or
+    edge list with local sources), ``row_offset`` is its first global
+    row, and every returned value but the state is replicated.  The
+    shards meet at each iteration's collectives; with ``with_health`` the
+    flag is combined over the shards once, after the loop."""
+    mesh = axis_name
     stride = max(1, int(cfg.repulsion_stride))
     ap = bool(cfg.autopilot)
     if ap and stride > 1:
@@ -326,6 +421,10 @@ def optimize(state: TsneState, jidx, jval, cfg: TsneConfig, *,
     fused = csr is not None and fused_step is not False
     fidx, fval, ragged = _layout_parts(jidx, jval, y0.shape[0], edges,
                                        edges_extra, csr)
+    # loop-invariant: the global validity mask and row count, gathered once
+    valid_full = (valid if mesh is None or valid is None
+                  else mesh.all_gather(valid))
+    count = None if mesh is None else _mesh_count(y0, valid, mesh)
     # the hubs first: B3's longest warps start with the launch (no bit moves)
     order = visit_order(ragged) if fused else None
     geoms = _pilot_scratch(cfg, m, dt, dev) if ap else ()
@@ -372,37 +471,40 @@ def optimize(state: TsneState, jidx, jval, cfg: TsneConfig, *,
                     geom = geoms[pilot.grid_phase(i, cfg)]
             else:
                 refresh = i == start or i % stride == 0
+        y_full = st.y if mesh is None else mesh.all_gather(st.y)
         if refresh:
-            rep_c, z_c = _repulsion(st.y, st.y, cfg, valid_full=valid,
-                                    rep_scratch=geom)
+            rep_c, z_c = _repulsion(st.y, y_full, cfg, row_offset,
+                                    valid_full, geom, mesh)
         grad = gsq = loss = None
         if fused:
             if want_loss:
-                loss = torch.sum(_attraction_loss(st.y, st.y, fidx, fval, cfg,
-                                                  exag, z_c, ragged))
+                loss = _mesh_sum(_attraction_loss(st.y, y_full, fidx, fval,
+                                                  cfg, exag, z_c, ragged),
+                                 mesh)
             y2, u2, g2, gsq = fused_step_update(
-                st.y, st.y, fidx, fval, exag, rep_c, z_c, valid, st.update,
+                st.y, y_full, fidx, fval, exag, rep_c, z_c, valid, st.update,
                 st.gains, momentum, eta=cfg.learning_rate,
                 min_gain=cfg.min_gain, ragged=ragged, order=order,
                 row_chunk=cfg.row_chunk)
             st = TsneState(y=y2, update=u2, gains=g2)
         else:
-            att = _attraction_forces(st.y, st.y, fidx, fval, cfg, exag,
+            att = _attraction_forces(st.y, y_full, fidx, fval, cfg, exag,
                                      ragged)
             if want_loss:
-                loss = torch.sum(_attraction_loss(st.y, st.y, fidx, fval, cfg,
-                                                  exag, z_c, ragged))
+                loss = _mesh_sum(_attraction_loss(st.y, y_full, fidx, fval,
+                                                  cfg, exag, z_c, ragged),
+                                 mesh)
             grad = att - rep_c / z_c
             if valid is not None:
                 grad = grad * valid[:, None].to(grad.dtype)
             st = _update_embedding(st, grad, momentum, cfg)
-        st = _center(st, valid)
+        st = _center(st, valid, mesh, count)
         slot = loss_slot(i, n_slots)
         row = None
         if record:
             losses[slot] = loss
             if with_telemetry:
-                row = _telemetry_row(st, grad, valid, gsq)
+                row = _telemetry_row(st, grad, valid, gsq, mesh)
                 tel[slot] = row
         if with_health:
             ok = (ok & torch.all(torch.isfinite(st.y))
@@ -416,11 +518,12 @@ def optimize(state: TsneState, jidx, jval, cfg: TsneConfig, *,
                 else:
                     if gsq is None:
                         gsq = torch.sum(grad * grad, dim=1)
-                    gn = torch.sqrt(torch.sum(gsq))
+                    gn = torch.sqrt(_mesh_sum(gsq, mesh))
             pvec, ptr = pilot.pilot_update(i, gn, pvec, ptr, refresh, slot,
                                            record, cfg)
             if record and i + 1 < end:
                 # the level moves only here: one host read a boundary
+                # (under a mesh, one a shard of the replicated value)
                 level = pilot.read_level(pvec)
     res = [st, losses]
     if with_telemetry:
@@ -428,6 +531,9 @@ def optimize(state: TsneState, jidx, jval, cfg: TsneConfig, *,
     if ap:
         res.append((pvec, ptr))
     if with_health:
+        if mesh is not None:
+            # one collective after the loop makes the flag global
+            ok = _psum((~ok).to(torch.int32), mesh) == 0
         res.append(ok)
     return tuple(res)
 

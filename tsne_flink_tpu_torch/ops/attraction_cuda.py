@@ -31,7 +31,11 @@ mirror the JAX package's XLA twins (``_xla_fused`` / ``_xla_loss`` /
 head math as the forces, and its segment sums over an edge list
 (:func:`edge_forces_plain`, :func:`edge_loss_plain`); on CUDA tensors
 they launch the kernels or raise.  The kernels take every m from 1 to
-:data:`M_MAX`.
+:data:`M_MAX`.  On a mesh shard (``parallel/mesh``) they take the
+shard's rows — ``y_local``, its head or row block, its ragged part with
+local sources and global destinations — against the gathered
+``y_full``; one warp walks one row, so a row's bits do not depend on the
+launch's row count (held on the card by ``chip_smoke.py``'s ``[mesh]``).
 """
 
 from __future__ import annotations

@@ -483,12 +483,12 @@ def knn_refine(x: torch.Tensor, idx: torch.Tensor, dist: torch.Tensor,
     gathers through ``ops/knn_cuda._compact_gather``; on the card B6
     gathers in the kernel and the option is moot.  The sharded form
     (``x_full``, ``idx_full``, ``row_offset``, ``n_valid``) is ROADMAP
-    queue A14."""
+    queue A14b."""
     if (x_full is not None or idx_full is not None or row_offset
             or n_valid is not None):
         raise NotImplementedError(
             "the sharded refine (x_full, idx_full, row_offset, n_valid) is "
-            "not ported yet (ROADMAP queue A14)")
+            "not ported yet (ROADMAP queue A14b)")
     x = x.contiguous()
     idx, dist = idx.contiguous(), dist.contiguous()
     nloc, k = idx.shape

@@ -206,7 +206,8 @@ def bh_repulsion(y: torch.Tensor, y_full: torch.Tensor | None = None, *,
                  frontier: int | None = None, gate: str = "vdm",
                  row_offset: int = 0,
                  col_valid: torch.Tensor | None = None,
-                 row_chunk: int | None = None, row_z: bool = False):
+                 row_chunk: int | None = None, row_z: bool = False,
+                 row_block: int | None = None):
     """θ-gated repulsive forces, ``exact_repulsion``'s contract: ``(rep
     [len(y), m] unnormalized, Z)`` — Z a 0-d tensor, or the per-row
     partials ``[len(y)]`` with ``row_z``.  ``y`` are rows [row_offset,
@@ -214,7 +215,10 @@ def bh_repulsion(y: torch.Tensor, y_full: torch.Tensor | None = None, *,
     out of the tree and the output.  ``levels``/``frontier`` None resolve
     through :func:`default_levels`/:func:`default_frontier`.
     ``row_chunk`` caps the rows a batched walk takes (None: the byte
-    budget's :func:`chunk_rows`); no result depends on it."""
+    budget's :func:`chunk_rows`).  ``row_block`` restarts the chunks at
+    every multiple of it (a sharded optimizer passes its quantum-wide
+    local size, so that every mesh width walks chunks of the same shapes:
+    a reduction's order on the card may follow its row count)."""
     if gate not in ("vdm", "flink"):
         raise ValueError(f"unknown bh gate '{gate}'")
     if y_full is None:
@@ -233,12 +237,16 @@ def bh_repulsion(y: torch.Tensor, y_full: torch.Tensor | None = None, *,
     c = chunk_rows(frontier, m)
     if row_chunk is not None:
         c = min(c, row_chunk)
+    block = nloc if row_block is None else max(1, int(row_block))
     reps, sqs = [], []
-    for s in range(0, nloc, c):
-        r, q = _walk(y[s:s + c], own_leaves[s:s + c], tables, side, levels,
-                     frontier, theta, gate)
-        reps.append(r)
-        sqs.append(q)
+    for b0 in range(0, nloc, block):
+        b1 = min(b0 + block, nloc)
+        for s in range(b0, b1, c):
+            e = min(s + c, b1)
+            r, q = _walk(y[s:e], own_leaves[s:e], tables, side, levels,
+                         frontier, theta, gate)
+            reps.append(r)
+            sqs.append(q)
     rep = torch.cat(reps) if reps else y.new_zeros((0, m))
     sq = torch.cat(sqs) if sqs else y.new_zeros((0,))
     if row_ok is not None:

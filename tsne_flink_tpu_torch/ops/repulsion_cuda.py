@@ -7,6 +7,11 @@ reciprocal per pair, N² pairs) and how its design fills the card: rows
 register-blocked per thread, and the columns split over a second grid
 dimension into :func:`column_splits` ranges whose partial rep and Z the
 wrapper sums in a fixed order (no atomics, so a run is deterministic).
+The partials' slab is rounded up to a multiple of :data:`PART_ROW_MULTIPLE`
+rows: on the card PyTorch's sum over the splits takes another order for
+a row count whose outputs do not fill its 4-wide vectors, and a mesh
+shard's rows must get the bits of the same rows in a launch over all of
+them.
 
 :func:`cuda_exact_repulsion` is the wrapper: the plain
 ``ops/repulsion_exact.exact_repulsion`` on a CPU tensor, the kernel on a
@@ -34,6 +39,8 @@ BLOCKS_PER_SM = 16
 WAVES = 2
 #: the widest embedding the kernel takes (the JAX package's MPAD)
 M_MAX = 8
+#: the partials' slab rows are a multiple of this (see the module text)
+PART_ROW_MULTIPLE = 4
 
 
 def column_splits(nloc: int, nfull: int, sms: int) -> int:
@@ -79,8 +86,15 @@ def _check_cuda(y, y_full):
 def cuda_exact_repulsion(y: torch.Tensor, y_full: torch.Tensor | None = None,
                          *, row_offset: int = 0,
                          col_valid: torch.Tensor | None = None,
-                         row_z: bool = False, row_chunk: int = 2048):
-    """(rep [len(y), m], Z) — Z summed, or per-row with ``row_z``."""
+                         row_z: bool = False, row_chunk: int = 2048,
+                         split_rows: int | None = None):
+    """(rep [len(y), m], Z) — Z summed, or per-row with ``row_z``.
+
+    ``split_rows`` (None: ``len(y)``) is the row count the column-split
+    count is computed for.  A row's sums depend on the split count, so a
+    sharded optimizer passes the quantum-wide local size
+    (``parallel/mesh``: ``n_padded // PAD_QUANTUM``) for every mesh width,
+    and a shard's rows get the same bits as in the mesh-1 launch."""
     if y_full is None:
         y_full = y
     _check_rows(y, y_full, col_valid, row_offset)
@@ -97,12 +111,15 @@ def cuda_exact_repulsion(y: torch.Tensor, y_full: torch.Tensor | None = None,
         return y.new_zeros((0, m)), (y.new_zeros((0,)) if row_z
                                      else y.new_zeros(()))
     sms = torch.cuda.get_device_properties(y.device).multi_processor_count
-    splits = column_splits(nloc, nfull, sms)
-    part = torch.empty((splits, nloc, m + 1), device=y.device,
+    splits = column_splits(nloc if split_rows is None else split_rows,
+                           nfull, sms)
+    rows = -(-nloc // PART_ROW_MULTIPLE) * PART_ROW_MULTIPLE
+    part = torch.empty((splits, rows, m + 1), device=y.device,
                        dtype=torch.float32)
     KERNELS["B2"](y.data_ptr(), y_full.data_ptr(),
                   None if valid is None else valid.data_ptr(), nloc, nfull,
-                  m, row_offset, splits, part.data_ptr())
-    total = torch.sum(part, dim=0)  # fixed order for a fixed shape
+                  m, row_offset, splits, rows, part.data_ptr())
+    # a fixed order for a fixed split count (rows past nloc are dropped)
+    total = torch.sum(part, dim=0)[:nloc]
     zrow = total[:, m].contiguous()
     return total[:, :m].contiguous(), (zrow if row_z else torch.sum(zrow))

@@ -1,8 +1,13 @@
 """The segment runner: ``optimize`` in segments, with the divergence
-sentinel's rollback, shared by the command line and the estimator.
+sentinel's rollback, shared by the command line, the estimator and the
+sharded optimizer.
 
-The single-device counterpart of the JAX package's
-``parallel/mesh.ShardedOptimizer.__call__`` loop.  It runs iterations
+The counterpart of the JAX package's
+``parallel/mesh.ShardedOptimizer.__call__`` loop.  A segment runs
+``models/tsne.optimize`` on one device, or, given a ``runner`` (a
+``parallel/mesh.ShardedOptimizer`` whose rows are placed), its
+``segment`` over every shard of the mesh; the rollback, the fault site
+and the span below work once a run, not once a shard.  It runs iterations
 [start_iter, cfg.iterations) in segments of ``every``, threading the
 loss trace, the telemetry trace and the autopilot pair across them, and
 calls ``on_boundary`` after each segment but the last (the checkpoint
@@ -63,12 +68,15 @@ def run_segments(state: tsne.TsneState, jidx, jval, cfg: tsne.TsneConfig,
                  health_check: bool = False, health_retries: int = 3,
                  events: list | None = None, telemetry: bool = False,
                  telemetry_carry=None, pilot_carry=None,
-                 on_boundary=None) -> SegmentsResult:
+                 on_boundary=None, runner=None) -> SegmentsResult:
     """Run [start_iter, cfg.iterations) in segments of ``every`` (0: one
     segment).  ``on_boundary(state, next_iter, losses, pilot)`` fires
     after every segment but the last.  Carries (``loss_carry``,
     ``telemetry_carry``, ``pilot_carry``) may be numpy arrays or tensors;
-    a trace of another length is padded or cut to this schedule's."""
+    a trace of another length is padded or cut to this schedule's.
+    ``runner`` (a sharded optimizer) runs each segment over its mesh in
+    place of ``optimize`` on ``jidx``/``jval`` and the layout, which it
+    then ignores."""
     dt, dev = state.y.dtype, state.y.device
     n_slots = max(cfg.n_loss_slots, 1)
 
@@ -107,12 +115,20 @@ def run_segments(state: tsne.TsneState, jidx, jval, cfg: tsne.TsneConfig,
         with obtrace.span("optimize.segment", cat="optimize",
                           seg=seg_index, start_iter=int(it),
                           num_iters=int(step)) as sp:
-            out = tsne.optimize(run_state, jidx, jval, cfg, start_iter=it,
-                                num_iters=step, loss_carry=losses,
-                                edges=edges, edges_extra=edges_extra,
-                                csr=csr, with_health=health_check,
-                                with_telemetry=telemetry,
-                                telemetry_carry=tel, pilot_carry=pilot)
+            if runner is not None:
+                out = runner.segment(run_state, cfg, start_iter=it,
+                                     num_iters=step, loss_carry=losses,
+                                     with_health=health_check,
+                                     with_telemetry=telemetry,
+                                     telemetry_carry=tel, pilot_carry=pilot)
+            else:
+                out = tsne.optimize(run_state, jidx, jval, cfg,
+                                    start_iter=it, num_iters=step,
+                                    loss_carry=losses, edges=edges,
+                                    edges_extra=edges_extra, csr=csr,
+                                    with_health=health_check,
+                                    with_telemetry=telemetry,
+                                    telemetry_carry=tel, pilot_carry=pilot)
             new_state, new_losses = out[0], out[1]
             nxt = 2
             new_tel = new_pilot = None

@@ -12,7 +12,10 @@ and ``degradations_``).
 
 Consumed by ``utils/cli.py`` (``--maxRetries`` / ``--onOom`` /
 ``--healthCheck``), ``runtime/fleet.run_job`` and ``models/api.py`` (the
-estimator keywords of the same names).
+estimator keywords of the same names).  The optimize stage runs on one
+device or, given a sharded optimizer, over its point mesh
+(``parallel/mesh``): the ladder and the sentinel work the same way on
+both.
 
 Before a relaunch the failed attempt's memory is given back: the
 exception and its traceback (whose frames hold the attempt's tensors) are
@@ -261,7 +264,7 @@ class Supervisor:
     def run_optimize(self, cfg, state, jidx, jval, *, layout=None,
                      start_iter: int = 0, loss_carry=None, every: int = 0,
                      on_boundary=None, telemetry: bool = False,
-                     pilot_carry=None):
+                     pilot_carry=None, mesh=None):
         """Segmented optimize (``runtime/segments.run_segments``) with
         OOM-ladder relaunch and the sentinel.
 
@@ -272,7 +275,13 @@ class Supervisor:
         snapshot, so a repulsion demotion relaunches from the last segment
         boundary, not from iteration 0.  Returns the ``SegmentsResult``;
         its telemetry and pilot pair also land in ``last_telemetry`` /
-        ``last_pilot``."""
+        ``last_pilot``.
+
+        ``mesh`` (a ``parallel/mesh.ShardedOptimizer``) runs the segments
+        over its point mesh; ``layout()`` then places the mesh's rows
+        (:meth:`~tsne_flink_tpu_torch.parallel.mesh.ShardedOptimizer
+        .shard_inputs`, which plans the layout on the padded rows) and
+        returns ``(None, False, None)``."""
         from tsne_flink_tpu_torch.runtime.segments import run_segments
 
         self._last = {"state": state, "it": start_iter,
@@ -302,7 +311,7 @@ class Supervisor:
                     health_check=self.health_check,
                     health_retries=self.health_retries, events=self.events,
                     telemetry=telemetry, pilot_carry=self._last["pilot"],
-                    on_boundary=boundary)
+                    on_boundary=boundary, runner=mesh)
                 self.last_telemetry = run.telemetry
                 self.last_pilot = run.pilot
                 return run
@@ -353,14 +362,21 @@ def supervised_embed(x, cfg, *, supervisor: Supervisor,
                      sym_width=None, affinity_assembly=None, device=None,
                      artifact_cache=None, knn_autotune: bool = False,
                      telemetry: bool = False, on_stage=None,
-                     checkpoint_cb=None, every: int | None = None):
-    """Supervised single-device pipeline: ``models/tsne.tsne_embed``'s
-    prepare, init and layout (its ``_prepare_run``) with the supervisor
-    around prepare and a segmented optimize (the sentinel needs segment
-    boundaries to roll back to).  The same draws as ``tsne_embed``
-    (``seed`` seeds the init and, through ``knn_generator``, the kNN
-    stage), so a clean run gives its bits; like the JAX function it runs
-    no landmark schedule.
+                     checkpoint_cb=None, every: int | None = None,
+                     mesh=None, mesh_reduce: str = "canonical"):
+    """Supervised pipeline: ``models/tsne.tsne_embed``'s prepare, init and
+    layout (its ``_prepare_run``) with the supervisor around prepare and a
+    segmented optimize (the sentinel needs segment boundaries to roll back
+    to).  The same draws as ``tsne_embed`` (``seed`` seeds the init and,
+    through ``knn_generator``, the kNN stage), so a clean single-device
+    run gives its bits; like the JAX function it runs no landmark
+    schedule.
+
+    ``mesh`` (a width, or a device list: ``parallel/mesh.make_mesh``; the
+    JAX function's ``mesh_devices``) runs the optimize stage on a
+    ``parallel/mesh.ShardedOptimizer`` with ``mesh_reduce``; None is the
+    single-device path.  Prepare runs on ``device`` either way, and a
+    width past the visible devices raises before it.
 
     ``on_stage(name, seconds, cache_state)`` / ``checkpoint_cb(state,
     next_iter, losses, pilot)`` are progress hooks at prepare-stage
@@ -370,19 +386,30 @@ def supervised_embed(x, cfg, *, supervisor: Supervisor,
     from tsne_flink_tpu_torch.models.tsne import _prepare_run
     from tsne_flink_tpu_torch.utils.device import resolve_device
 
+    device = resolve_device(device)
+    runner = None
+    if mesh is not None:
+        from tsne_flink_tpu_torch.parallel.mesh import ShardedOptimizer
+        width = mesh if isinstance(mesh, int) else None
+        devices = None if width is not None else list(mesh)
+        runner = ShardedOptimizer(cfg, len(x), width, devices=devices,
+                                  device=device, mesh_reduce=mesh_reduce)
     prep, state, plan_layout = _prepare_run(
         x, cfg, neighbors=neighbors, knn_method=knn_method,
         knn_iterations=knn_iterations, knn_refine=knn_refine,
         knn_blocks=knn_blocks, seed=seed, sym_width=sym_width,
-        affinity_assembly=affinity_assembly, device=resolve_device(device),
+        affinity_assembly=affinity_assembly, device=device,
         artifact_cache=artifact_cache, knn_autotune=knn_autotune,
         supervise=supervisor.run_prepare, on_stage=on_stage)
 
     def layout():
+        if runner is not None:  # the mesh plans on its padded rows
+            runner.shard_inputs(prep.jidx, prep.jval, prep.extra_edges)
+            return None, False, None
         edges, csr, label = plan_layout()
         return edges, label == "blocks", csr
 
     return supervisor.run_optimize(
         cfg, state, prep.jidx, prep.jval, layout=layout,
         every=segment_every(cfg.iterations) if every is None else every,
-        on_boundary=checkpoint_cb, telemetry=telemetry)
+        on_boundary=checkpoint_cb, telemetry=telemetry, mesh=runner)

@@ -26,7 +26,12 @@ writes the span trace (``obs/trace.py``, Chrome format, or JSONL for a
 ``.jsonl`` path), ``--metricsOut`` the metrics snapshot, ``--profile
 dir`` a ``torch.profiler`` Chrome trace of the optimize stage;
 ``--noAotCache`` builds the kernel library into a directory of the
-process's own (``kernels/build.set_cache``).  An explicit ``--theta``
+process's own (``kernels/build.set_cache``).  ``--mesh N`` (or
+``--devices N``; ``--spmd``, deprecated, over all visible devices) runs
+the optimize stage on an N-wide point mesh (``parallel/mesh
+.ShardedOptimizer``, with ``--meshReduce``): N distinct CUDA devices, or
+a width past the visible count raises before the input is read; without
+any of them the run takes the single-device path.  An explicit ``--theta``
 past ``EXACT_N_MAX`` runs Barnes-Hut.  Flags of parts not ported yet
 raise ``NotImplementedError`` naming their ROADMAP queue item before the
 input is read (:data:`UNPORTED`).  The port reads no ``TSNE_*``
@@ -137,22 +142,30 @@ def build_parser() -> argparse.ArgumentParser:
                    help="float32 (default; the kernels' type), float64 (the "
                         "CPU only); bfloat16 is not ported (a ROADMAP §C "
                         "limit)")
-    # --- multi-device (ROADMAP queue A14) ---
+    # --- multi-device (parallel/mesh) ---
     p.add_argument("--devices", type=int, default=None,
-                   help="not ported (ROADMAP queue A14)")
+                   help="mesh size over the point axis (as --mesh)")
     p.add_argument("--mesh", type=int, default=None,
-                   help="not ported (ROADMAP queue A14)")
+                   help="run the optimize stage on an N-wide point mesh "
+                        "(parallel/mesh; 1 = the trivial mesh, and widths "
+                        "sharing the padding quantum give the same bits, so "
+                        "a checkpoint written at --mesh 1 resumes at --mesh "
+                        "4 and back).  N distinct CUDA devices; more than "
+                        "are visible raises.  Default: one device, the "
+                        "single-device path")
     p.add_argument("--symWidth", type=int, default=None,
-                   help="(--spmd only) not ported (ROADMAP queue A14)")
+                   help="(--spmd only) not ported (ROADMAP queue A14b)")
     p.add_argument("--symMode", default="replicated",
                    choices=["replicated", "alltoall"],
-                   help="(--spmd only) not ported (ROADMAP queue A14)")
+                   help="(--spmd only) not ported (ROADMAP queue A14b)")
     p.add_argument("--symSlack", type=int, default=None,
-                   help="(--spmd only) not ported (ROADMAP queue A14)")
+                   help="(--spmd only) not ported (ROADMAP queue A14b)")
     p.add_argument("--symStrict", action="store_true",
-                   help="(--spmd only) not ported (ROADMAP queue A14)")
+                   help="(--spmd only) not ported (ROADMAP queue A14b)")
     p.add_argument("--spmd", action="store_true",
-                   help="not ported (ROADMAP queue A14)")
+                   help="DEPRECATED alias of --mesh N: runs the mesh over "
+                        "--devices (or all visible) devices, with a "
+                        "warning")
     # --- checkpoints ---
     p.add_argument("--checkpoint", default=None,
                    help="path of the v2 checkpoint (y, update, gains, next "
@@ -233,31 +246,31 @@ def build_parser() -> argparse.ArgumentParser:
                         "exaggeration")
     p.add_argument("--meshReduce", default="canonical",
                    choices=("canonical", "psum"),
-                   help="psum is not ported (ROADMAP queue A14)")
+                   help="the mesh's global sums (models/tsne._mesh_sum): "
+                        "canonical (default) gathers the per-row partials "
+                        "and sums them in one order, bit-identical across "
+                        "mesh widths; psum sums each shard and combines the "
+                        "scalars, not bit-identical across widths")
     p.add_argument("--profile", default=None,
                    help="run the optimize stage under torch.profiler and "
                         "write its Chrome trace into this directory")
     p.add_argument("--coordinator", default=None,
-                   help="not ported (ROADMAP queue A14)")
+                   help="not ported (ROADMAP queue A14b)")
     p.add_argument("--numProcesses", type=int, default=None,
-                   help="not ported (ROADMAP queue A14)")
+                   help="not ported (ROADMAP queue A14b)")
     p.add_argument("--processId", type=int, default=None,
-                   help="not ported (ROADMAP queue A14)")
+                   help="not ported (ROADMAP queue A14b)")
     return p
 
 
 #: (flag, is it set, ROADMAP queue item) of every part not ported yet
 UNPORTED = (
-    ("--mesh", lambda a: a.mesh is not None, "A14"),
-    ("--devices", lambda a: a.devices is not None, "A14"),
-    ("--spmd", lambda a: a.spmd, "A14"),
     ("--symWidth/--symMode/--symSlack/--symStrict",
      lambda a: (a.symWidth is not None or a.symMode != "replicated"
-                or a.symSlack is not None or a.symStrict), "A14"),
+                or a.symSlack is not None or a.symStrict), "A14b"),
     ("--coordinator/--numProcesses/--processId",
      lambda a: (a.coordinator, a.numProcesses, a.processId)
-     != (None, None, None), "A14"),
-    ("--meshReduce psum", lambda a: a.meshReduce != "canonical", "A14"),
+     != (None, None, None), "A14b"),
     ("--auditPlan", lambda a: a.auditPlan is not None, "A16"),
     ("--executionPlan", lambda a: a.executionPlan, "A16"),
     ("--dtype bfloat16", lambda a: a.dtype == "bfloat16", "§C"),
@@ -366,9 +379,10 @@ def _write_obs_outputs(trace_path, metrics_path, telemetry=None) -> None:
 
 
 def run_plan(args, cfg, n: int, d: int, assembly: str, neighbors: int,
-             backend: str):
+             backend: str, mesh: int = 1):
     """This invocation as the memory model's PlanConfig (the supervisor's
-    ladder input: the same resolved repulsion and assembly)."""
+    ladder input: the same resolved repulsion and assembly; ``mesh`` the
+    optimize stage's width, whose row terms are one device's share)."""
     from tsne_flink_tpu_torch.analysis.audit import PlanConfig
     return PlanConfig(
         n=n, d=int(d), k=int(neighbors), backend=backend,
@@ -379,7 +393,32 @@ def run_plan(args, cfg, n: int, d: int, assembly: str, neighbors: int,
         knn_rounds=args.knnIterations, knn_refine=args.knnRefine,
         repulsion=cfg.repulsion, theta=cfg.theta, assembly=assembly,
         attraction=cfg.attraction, row_chunk=cfg.row_chunk,
-        autopilot=bool(cfg.autopilot), name="cli-launch")
+        mesh=int(mesh), autopilot=bool(cfg.autopilot), name="cli-launch")
+
+
+def resolve_mesh(args, device, mesh_devices=None):
+    """The optimize stage's mesh devices, or None for the single-device
+    path (neither --mesh, --devices nor --spmd).  ``mesh_devices`` is an
+    explicit device list (the test mesh; --mesh, when given, must match
+    its length).  Raises, naming the visible device count, for a width
+    the machine does not have — before the input is read."""
+    from tsne_flink_tpu_torch.parallel.mesh import make_mesh
+    width = args.mesh if args.mesh is not None else args.devices
+    if args.spmd:
+        print("WARNING: --spmd is deprecated — the pipeline is "
+              "mesh-parametric (graftmesh); use --mesh N instead. "
+              "Aliasing to --mesh over "
+              + (f"{args.devices}" if args.devices else "all")
+              + " device(s); --symMode/--symSlack/--symStrict only apply "
+              "to multi-controller jobs now", file=sys.stderr)
+    if mesh_devices is not None:
+        if width is not None and width != len(mesh_devices):
+            raise ValueError(f"--mesh {width} against a mesh of "
+                             f"{len(mesh_devices)} devices")
+        return make_mesh(list(mesh_devices))
+    if width is None and not args.spmd:
+        return None
+    return make_mesh(width, device)
 
 
 def _device_count(device: torch.device) -> int:
@@ -413,9 +452,11 @@ def _serve_transform(args, ids, x_np, neighbors: int, device) -> int:
     return 0
 
 
-def main(argv=None, *, device=None) -> int:
+def main(argv=None, *, device=None, mesh_devices=None) -> int:
     """Parse ``argv`` and run the batch job on ``device`` (None: the
-    card).  Returns 0; every failure raises.  The process state a run
+    card); ``mesh_devices``, a device list, is the optimize stage's mesh
+    in place of ``--mesh N``'s N first devices (the test mesh: one card
+    listed once a shard).  Returns 0; every failure raises.  The process state a run
     sets — the tracer switch, the fault plan, the kernel cache setting,
     the watchdog — is restored or stopped on every exit, so an
     in-process caller inherits none of it."""
@@ -428,7 +469,7 @@ def main(argv=None, *, device=None) -> int:
     state = {"watchdog": None}
     sp_run = obtrace.begin("cli.run", cat="cli")
     try:
-        return _main(argv, device, sp_run, state)
+        return _main(argv, device, sp_run, state, mesh_devices)
     finally:
         sp_run.end()
         if state["watchdog"] is not None:
@@ -438,7 +479,7 @@ def main(argv=None, *, device=None) -> int:
         obtrace.set_enabled(prev_trace)
 
 
-def _main(argv, device, sp_run, state) -> int:
+def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
     from tsne_flink_tpu_torch.kernels import build as kbuild
     from tsne_flink_tpu_torch.models.tsne import (TsneConfig, _plan_layout,
                                                   init_working_set)
@@ -481,6 +522,7 @@ def _main(argv, device, sp_run, state) -> int:
             "(a limit of ROADMAP §C)")
     dtype, np_dtype = ((torch.float64, np.float64) if args.dtype == "float64"
                        else (torch.float32, np.float32))
+    mesh = resolve_mesh(args, device, mesh_devices)
     theta_explicit = args.theta is not None
     theta = args.theta if theta_explicit else 0.25  # Tsne.scala:59
     assembly = args.affinityAssembly or "auto"
@@ -517,9 +559,14 @@ def _main(argv, device, sp_run, state) -> int:
         final_momentum=args.finalMomentum, theta=theta, metric=args.metric,
         repulsion=repulsion, attraction=args.attraction, bh_gate=args.bhGate,
         autopilot=args.autopilot)
+    runner = None
+    if mesh is not None:
+        from tsne_flink_tpu_torch.parallel.mesh import ShardedOptimizer
+        runner = ShardedOptimizer(cfg, n, devices=mesh,
+                                  mesh_reduce=args.meshReduce)
     supervisor = Supervisor(
         run_plan(args, cfg, n, args.dimension, assembly, neighbors,
-                 device.type),
+                 device.type, 1 if mesh is None else len(mesh)),
         max_retries=args.maxRetries, on_oom=args.onOom,
         health_check=args.healthCheck)
 
@@ -607,7 +654,11 @@ def _main(argv, device, sp_run, state) -> int:
         # the optimize stage's first step: on the card the CSR build is
         # part of its memory, so an OOM here is the optimize stage's
         t0 = time.perf_counter()
-        if extra is not None:
+        if runner is not None:
+            # the mesh plans its layout on its padded rows
+            runner.shard_inputs(jidx, jval, extra)
+            got = (None, False, None)
+        elif extra is not None:
             got = (extra, True, None)
         else:
             edges, csr = _plan_layout(jidx, jval, cfg)
@@ -648,7 +699,7 @@ def _main(argv, device, sp_run, state) -> int:
             loss_carry=loss_carry, every=every,
             on_boundary=boundary if (args.checkpoint or wd) else None,
             telemetry=args.telemetry,
-            pilot_carry=pilot if cfg.autopilot else None)
+            pilot_carry=pilot if cfg.autopilot else None, mesh=runner)
         # the checkpoint writes inside the loop are timed on their own
         secs["optimize"] = (timed_stage(device, t0) - secs.get("plan", 0.0)
                             - secs.get("checkpoint", 0.0))
