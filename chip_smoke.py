@@ -179,6 +179,24 @@ Phases, in order; any failure exits non-zero before the result line:
    ``TSNE(mesh=1)`` bit for bit, ``--mesh 2`` refused on one card before
    the input is read, naming the visible count, and ``--meshReduce
    psum`` on a test mesh of 2 within 0.05 KL of the canonical run;
+9h. spmd — the multi-controller job (queue A14b, ``parallel/pipeline
+   .SpmdPipeline``; run after 9g): the ring (``parallel/knn.ring_knn``)
+   on the test mesh at D = 2 and 4 equal to ``fused_knn``'s graph bit for
+   bit with exactly D B1 launches a shard, B1's cross sweep per hop
+   (30,000 and 15,000 rows a block) beside the single sweep over as many
+   rows and its 3xTF32 bound, and held to its plain version at the
+   two-process hop; B6 with ``n_valid`` on the blobs' first funnel stage
+   against its plain version; the in-process job at mesh 1 and 2 (bit
+   for bit); the NCCL route at world size 1 (a group this phase opens)
+   with mesh 1's bits; two ``python -m tsne_flink_tpu_torch.utils.cli
+   --spmd --coordinator --numProcesses 2 --processId r`` processes on the
+   one card (gloo) equal to the in-process job bit for bit, only rank 0
+   writing, final KL within 0.01 of [full]'s; the project kNN over two
+   processes (recall@90 >= 0.93 against B1's graph, B6 launches of the
+   reference's refine cycles a rank) and the alltoall job (P ids equal
+   to replicated's, values rtol 1e-6; final KL within 0.01); and
+   ``--symStrict`` over a dropping symmetrization ending both ranks
+   non-zero;
 9e. diverging — N = 2,000 at learning rate 1e30 with the sentinel: three
    rollbacks, eta halved each time, then ``DivergenceError``;
 10. determinism — two runs at N = 2,000 give the same bits, on the CSR
@@ -213,7 +231,10 @@ is the JSON record of every kernel (B2's and B5's with their serving
 shapes under ``serve``, B5's at 1.3M under ``serve_large``, every
 record's ``serve_launches``: the two self-transforms' launches, and
 ``mesh_launches_per_shard``: a shard's launches in 9g's csr, rows and
-blocks runs; B2's ``mesh_shard_ms`` at a shard's shape).  The script
+blocks runs; B2's ``mesh_shard_ms`` at a shard's shape), then the records
+of 9h's B1 cross sweep (``B1 knn cross``, at the two-process job's hop,
+its launches that job's) and B6 with ``n_valid`` (``B6 refine_chunk
+n_valid``, its launches the two-process project kNN's).  The script
 imports nothing of JAX.
 """
 
@@ -1437,7 +1458,8 @@ def stage_candidates(kind, args, kwargs):
     cand = args[3] if kind == "keep" else args[4]
     if kwargs.get("graph") is not None:
         ids, bad = refine_candidates_plain(int(rows[0]), cand,
-                                           kwargs["graph"], kwargs["ke"])
+                                           kwargs["graph"], kwargs["ke"],
+                                           kwargs.get("n_valid"))
         ids = torch.where(bad, -1, ids)
     else:
         ids = cand.long()
@@ -3609,6 +3631,441 @@ MEMORY_RUNS = {
 }
 
 
+# ---- [spmd]: the multi-controller job (queue A14b) -------------------------
+
+#: the ring's widths on the test mesh, the job's process count, and the
+#: process group's collective timeout in its jobs
+SPMD_RING_WIDTHS = (2, 4)
+SPMD_PROCESSES = 2
+SPMD_TIMEOUT_S = 120
+#: the blobs' rows the --symStrict job reads
+SPMD_STRICT_ROWS = 6_000
+
+#: one rank of a pipeline job (torch and the port only): the sharded
+#: project kNN of its rows, then the alltoall job (its prepare's gathered
+#: P, then the whole job), each with its launches from 0
+SPMD_WORKER = r"""
+import json, sys, time
+import numpy as np, torch
+from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
+from tsne_flink_tpu_torch.models.tsne import TsneConfig
+from tsne_flink_tpu_torch.ops.knn import pick_knn_refine, pick_knn_rounds
+from tsne_flink_tpu_torch.parallel.knn import project_knn_sharded
+from tsne_flink_tpu_torch.parallel.mesh import (distributed_init,
+                                                padded_rows_for,
+                                                process_axis)
+from tsne_flink_tpu_torch.parallel.pipeline import SpmdPipeline
+spec = json.loads(sys.argv[1])
+r, out = spec["rank"], spec["out"]
+distributed_init(spec["coordinator"], spec["world"], r,
+                 timeout_s=spec["timeout_s"])
+x = torch.from_numpy(np.load(spec["x"]))
+n, d = x.shape
+k = spec["k"]
+axis = process_axis()
+rec = {"rank": r, "backend": axis.backend, "staged": axis.staged}
+nl = padded_rows_for(n, axis.size) // axis.size
+xp = torch.nn.functional.pad(x, (0, 0, 0, nl * axis.size - n))
+gen = torch.Generator(device="cuda")
+gen.manual_seed(0)
+torch.cuda.synchronize()
+reset_launches()
+t0 = time.perf_counter()
+idx, dist = project_knn_sharded(
+    xp[r * nl:(r + 1) * nl].cuda(), k, n, rounds=pick_knn_rounds(n),
+    generator=gen, axis=axis, refine_rounds=pick_knn_refine(n, d))
+torch.cuda.synchronize()
+rec["project"] = {"seconds": time.perf_counter() - t0,
+                  "launches": launches()}
+np.save(f"{out}/project_{r}.npy", np.concatenate(
+    [idx.cpu().numpy().astype(np.float64), dist.cpu().numpy()], axis=1))
+del idx, dist
+cfg = TsneConfig(**spec["cfg"])
+pipe = SpmdPipeline(cfg, n, d, k, sym_mode="alltoall")
+jidx, jval, _ = pipe.prepare(x, 0)
+if r == 0:
+    np.save(f"{out}/a2a_jidx.npy", jidx.cpu().numpy())
+    np.save(f"{out}/a2a_jval.npy", jval.cpu().numpy())
+rec["a2a_width"] = pipe.sym_width
+del jidx, jval
+torch.cuda.synchronize()
+reset_launches()
+t0 = time.perf_counter()
+y, losses = pipe(x, 0)
+torch.cuda.synchronize()
+rec["a2a"] = {"seconds": time.perf_counter() - t0, "launches": launches(),
+              "layout": pipe._runner.layout,
+              "kl": float(losses[-1])}
+if r == 0:
+    np.save(f"{out}/a2a_y.npy", y.cpu().numpy())
+print("SPMD_RECORD " + json.dumps(rec))
+"""
+
+
+def spmd_cfg_kw():
+    """The command line's defaults as ``TsneConfig`` keywords at 60k
+    (``utils/cli.py``: theta 0.25, auto repulsion exact below
+    EXACT_N_MAX)."""
+    return dict(n_components=2, perplexity=PERPLEXITY,
+                early_exaggeration=4.0, learning_rate=1000.0,
+                iterations=ITERATIONS, initial_momentum=0.5,
+                final_momentum=0.8, theta=0.25, metric="sqeuclidean",
+                repulsion="exact", attraction="auto", bh_gate="vdm",
+                autopilot=False)
+
+
+def free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def spmd_job(tag, argvs, timeout=600):
+    """Run one process a rank (``argvs[r]``, each a full command line; the
+    string ``{coord}`` becomes the job's rendezvous) from the repository
+    root; returns (exit codes, seconds, outputs)."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    coord = f"127.0.0.1:{free_port()}"
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([a.replace("{coord}", coord) for a in argv],
+                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for argv in argvs]
+    outs, rcs = [], []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=timeout)
+            outs.append(out)
+            rcs.append(p.returncode)
+    finally:
+        for p in procs:  # stop every process this job started
+            p.kill()
+            p.wait()
+    secs = time.perf_counter() - t0
+    print(f"[spmd] {tag}: {len(argvs)} processes, exit codes {rcs}, "
+          f"{secs:.1f} s")
+    return rcs, secs, outs
+
+
+def spmd_ring(x, want, b1_ms):
+    """The ring on the test mesh at each width in SPMD_RING_WIDTHS: the
+    graph ``fused_knn``'s bit for bit, B1 launched D times a shard; the
+    cross sweep's per-hop time beside the single sweep's at each hop
+    shape, with its bound.  Returns the hop records' inputs at the
+    2-process job's hop shape."""
+    import torch
+    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
+    from tsne_flink_tpu_torch.ops.knn_cuda import (_fused_final,
+                                                   knn_cross_cuda,
+                                                   knn_cross_plain,
+                                                   knn_sweep_cuda,
+                                                   norm_pairs)
+    from tsne_flink_tpu_torch.parallel.knn import ring_knn
+    from tsne_flink_tpu_torch.parallel.mesh import run_shards
+    n, f = x.shape
+    hops = {}
+    for d in SPMD_RING_WIDTHS:
+        nl = n // d
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        outs = run_shards(test_mesh(d), lambda ax: ring_knn(
+            x[ax.index * nl:(ax.index + 1) * nl], K, n, axis=ax))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches()
+        gi = torch.cat([o[0] for o in outs])
+        gd = torch.cat([o[1] for o in outs])
+        check(counts["B1"] == d * d and sum(counts.values()) == d * d,
+              f"[spmd] ring mesh {d}: launches {counts}, want B1 {d * d}")
+        check(torch.equal(gi, want[0]) and torch.equal(gd, want[1]),
+              f"[spmd] ring mesh {d}: the graph differs from fused_knn's")
+        rows, cols = x[:nl].contiguous(), x[nl:2 * nl].contiguous()
+        nr, nc = norm_pairs(rows), norm_pairs(cols)
+        t = alternated_ms(
+            {"cross": lambda: knn_cross_cuda(rows, cols, K, False, 0, nl, n,
+                                             nr, nc),
+             "single": lambda: knn_sweep_cuda(rows, K, False)},
+            ["cross", "single", "single", "cross", "cross", "single"])
+        bnd = bound(3 * 2.0 * nl * nl * f, 2 * nl * f * 4 + nl * K * 8,
+                    PEAK_TF32_FLOPS)
+        hops[d] = (rows, cols, nr, nc, t, bnd)
+        print(f"[spmd] ring mesh {d} on the test mesh ({nl} rows a shard): "
+              f"{wall:.3f} s, launches {json.dumps(counts)} ({d} B1 a "
+              f"shard), the graph fused_knn's bit for bit; B1 cross hop "
+              f"{nl}x{nl}: {spread(t['cross'])}; single sweep over {nl} "
+              f"rows {spread(t['single'])}; [full]'s sweep / {d * d} "
+              f"{b1_ms / (d * d):.4f} ms; bound a hop {bnd[0]:.4f} ms by "
+              f"{bnd[1]} (3xTF32 at 495 TFLOP/s)")
+    # the record at the 2-process job's hop: kernel against plain
+    rows, cols, nr, nc, t, bnd = hops[SPMD_PROCESSES]
+    nl = rows.shape[0]
+    kd, ki = knn_cross_cuda(rows, cols, K, False, 0, nl, n, nr, nc)
+    ki, kd = _fused_final(kd, ki, "sqeuclidean")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pd, pi = knn_cross_plain(rows, cols, K, False, 0, nl, n)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    sets = set_agreement(ki.long(), pi.long())
+    err = float(torch.max(torch.abs(kd - pd)))
+    check(sets >= 0.999, f"[spmd] B1 cross: set agreement {sets}")
+    check(bool(torch.allclose(kd, pd, rtol=1e-4,
+                              atol=1e-4 * float(pd.max()))),
+          "[spmd] B1 cross: distances off its plain version (rtol 1e-4)")
+
+    def library():
+        d2 = (torch.sum(rows * rows, 1)[:, None]
+              + torch.sum(cols * cols, 1)[None, :] - 2.0 * (rows @ cols.T))
+        return torch.topk(d2, K, dim=1, largest=False)
+
+    lib = statistics.median(alternated_ms({"library": library},
+                                          ["library"] * 3)["library"])
+    print(f"[spmd] B1 cross hop {nl}x{nl} against its plain version: sets "
+          f"{sets:.6f}, max |d| err {err:.3e}; plain {plain_ms:.1f} ms "
+          f"(host clock), library (matmul + topk) {lib:.4f} ms")
+    return (statistics.median(t["cross"]), plain_ms, lib), bnd, err
+
+
+def spmd_b6_n_valid(x, n_valid):
+    """B6 with ``n_valid`` on the blobs' first funnel stage (the cascade
+    at F = 128, the gateways' candidates built in the kernel) of a refine
+    round's first chunks: against its plain version with the same
+    ``n_valid``, no kept id at or past it, timed over the chunks in
+    sequence.  Returns (times, bound, max err)."""
+    import torch
+    chunks = capture_refine_chunks(x, K, B6_TIMED_CHUNKS)
+    stages = []
+    for chunk in chunks:
+        kind, args, kwargs = chunk[0]
+        stages.append((kind, args, dict(kwargs, n_valid=n_valid)))
+    kind, args, kwargs = stages[0]
+    e, sets = hold_stage("n_valid first stage", kind, args, kwargs)
+    got = stage_call(kind, args, kwargs)
+    ids = got[0] if isinstance(got, tuple) else got
+    check(not bool((ids >= n_valid).any()),
+          f"[spmd] B6 kept an id at or past n_valid = {n_valid}")
+    times = (chunks_ms(stages), chunks_ms(stages, plain=True), None)
+    per = [stage_bound(*st, stage_call(*st)) for st in stages]
+    bnd = (statistics.mean(b[0][0] for b in per), per[0][0][1])
+    print(f"[spmd] B6 {kind} stage F={args[0].shape[1]} with n_valid "
+          f"{n_valid} of {x.shape[0]} (ids past it dropped): max err "
+          f"{e:.3e}, sets {sets:.6f}, {times[0]:.4f} ms a chunk over "
+          f"{len(stages)} chunks (plain {times[1]:.4f} ms, bound "
+          f"{bnd[0]:.4f} ms by {bnd[1]})")
+    del chunks
+    return times, bnd, e
+
+
+def spmd_in_process(x_np, d):
+    """``SpmdPipeline`` in this process at mesh ``d`` (the test mesh), the
+    command line's configuration: (y, losses, seconds)."""
+    import torch
+    from tsne_flink_tpu_torch import TsneConfig
+    from tsne_flink_tpu_torch.parallel.pipeline import SpmdPipeline
+    n, f = x_np.shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pipe = SpmdPipeline(TsneConfig(**spmd_cfg_kw()), n, f, K,
+                        devices=test_mesh(d))
+    y, losses = pipe(torch.from_numpy(x_np), 0)
+    torch.cuda.synchronize()
+    return y.cpu().numpy(), losses, time.perf_counter() - t0, pipe
+
+
+def spmd_nccl(x_np, y1):
+    """The NCCL route at world size 1: a process group this phase opens,
+    the job through it (every collective an NCCL call), mesh 1's bits."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:"
+                            f"{free_port()}", world_size=1, rank=0,
+                            timeout=datetime.timedelta(
+                                seconds=SPMD_TIMEOUT_S))
+    try:
+        y, _, secs, pipe = spmd_in_process(x_np, 1)
+        check(pipe.axis is not None and pipe.axis.backend == "nccl",
+              "[spmd] the NCCL group was not the pipeline's axis")
+    finally:
+        dist.destroy_process_group()
+    check(same_bits(y, y1), "[spmd] NCCL world size 1 differs from mesh 1")
+    print(f"[spmd] NCCL route, world size 1 (the pipeline on its process "
+          f"axis): {secs:.2f} s, y equal to mesh 1 bit for bit")
+
+
+def phase_spmd(x_np, labels, csr_kl, b1_ms):
+    """[spmd]: the multi-controller job (queue A14b) at full width.  The
+    ring on the test mesh (graph bits, launches, hop times), the command
+    line's two-process job on the one card (gloo) against the in-process
+    job at mesh 1 and 2, the NCCL route at world size 1, the project kNN
+    and the alltoall symmetrization over two processes, and --symStrict
+    ending both ranks.  Returns the records of B1's cross sweep and B6
+    with n_valid."""
+    import shutil
+    import tempfile
+
+    import torch
+    from tsne_flink_tpu_torch import TsneConfig
+    from tsne_flink_tpu_torch.ops.knn import pick_knn_refine
+    from tsne_flink_tpu_torch.ops.knn_cuda import fused_knn
+    from tsne_flink_tpu_torch.parallel.pipeline import SpmdPipeline
+    t_phase = time.perf_counter()
+    n, f = x_np.shape
+    x = torch.from_numpy(x_np).cuda()
+    want = fused_knn(x, K)
+    hop_t, hop_bnd, hop_err = spmd_ring(x, want, b1_ms)
+    b6_t, b6_bnd, b6_err = spmd_b6_n_valid(x, n - 64)
+    del x
+
+    y1, l1, s1, _ = spmd_in_process(x_np, 1)
+    y2, l2, s2, _ = spmd_in_process(x_np, 2)
+    check(same_bits(y1, y2), "[spmd] in-process mesh 2 differs from mesh 1")
+    print(f"[spmd] in-process SpmdPipeline: mesh 1 {s1:.2f} s, mesh 2 (the "
+          f"test mesh) {s2:.2f} s, y equal bit for bit, final KL "
+          f"{float(l1[-1]):.6f}")
+    spmd_nccl(x_np, y1)
+
+    tmp = tempfile.mkdtemp(prefix="tsne_spmd_")
+    try:
+        coo = os.path.join(tmp, "mnist60k.csv")
+        write_coo(coo, x_np)
+        cli = [sys.executable, "-m", "tsne_flink_tpu_torch.utils.cli",
+               "--input", coo, "--dimension", str(f), "--knnMethod",
+               "bruteforce", "--noCache", "--spmd", "--coordinator",
+               "{coord}", "--numProcesses", str(SPMD_PROCESSES)]
+
+        def argv(r, *extra):
+            return cli + ["--processId", str(r), "--output",
+                          os.path.join(tmp, f"y{r}.csv"), "--loss",
+                          os.path.join(tmp, f"loss{r}.txt"), *extra]
+
+        rcs, secs, outs = spmd_job("the command line, replicated", [
+            argv(r) for r in range(SPMD_PROCESSES)])
+        check(rcs == [0] * SPMD_PROCESSES,
+              f"[spmd] CLI job failed: {outs[0][-2000:]}")
+        check(not any(os.path.exists(os.path.join(tmp, f"{name}{r}.{ext}"))
+                      for r in range(1, SPMD_PROCESSES)
+                      for name, ext in (("y", "csv"), ("loss", "txt"))),
+              "[spmd] a rank other than 0 wrote an output")
+        from tsne_flink_tpu_torch.utils import native
+        y_cli = native.load_coo(os.path.join(tmp, "y0.csv"))[:, 1:].astype(
+            np.float32)
+        check(same_bits(y_cli, y1) and same_bits(y_cli, y2),
+              "[spmd] the 2-process job differs from the in-process job")
+        kl_cli = float(np.loadtxt(os.path.join(tmp, "loss0.txt"),
+                                  delimiter=",")[-1, 1])
+        check(abs(kl_cli - csr_kl) <= 0.01,
+              f"[spmd] final KL {kl_cli} vs [full]'s {csr_kl}")
+        agree = label_agreement(torch.from_numpy(y_cli).cuda(), labels)
+        print(f"[spmd] the 2-process job (gloo, both ranks on the card, "
+              f"tensors staged through host memory): y equal to the "
+              f"in-process job at mesh 1 and 2 bit for bit, only rank 0 "
+              f"wrote, final KL {kl_cli:.6f} ([full] {csr_kl:.6f}), 10-NN "
+              f"label agreement {agree:.4f}; {secs:.1f} s end to end "
+              f"(process start, a 1 GB COO read a rank, kernel library "
+              f"load)")
+        for out in outs:
+            for line in out.splitlines():
+                if line.startswith(("embedded", "# sym_width")):
+                    print(f"[spmd]   {line}")
+
+        np.save(os.path.join(tmp, "x.npy"), x_np)
+        spec = dict(x=os.path.join(tmp, "x.npy"), out=tmp, k=K,
+                    world=SPMD_PROCESSES, coordinator="{coord}",
+                    timeout_s=SPMD_TIMEOUT_S, cfg=spmd_cfg_kw())
+        rcs, secs, outs = spmd_job("project kNN + alltoall job", [
+            [sys.executable, "-c", SPMD_WORKER, json.dumps(dict(spec,
+                                                                rank=r))]
+            for r in range(SPMD_PROCESSES)])
+        check(rcs == [0] * SPMD_PROCESSES,
+              f"[spmd] worker job failed: {outs[0][-3000:]}")
+        recs = [json.loads(line.split(" ", 1)[1]) for out in outs
+                for line in out.splitlines()
+                if line.startswith("SPMD_RECORD ")]
+        check(len(recs) == SPMD_PROCESSES, "[spmd] a rank gave no record")
+        cycles = pick_knn_refine(n, f)
+        nl = n // SPMD_PROCESSES
+        graph = np.concatenate([np.load(os.path.join(tmp, f"project_{r}.npy"))
+                                for r in range(SPMD_PROCESSES)])[:n]
+        recall = recall_at_k(torch.from_numpy(graph[:, K:]).cuda(),
+                             want[1])
+        b6 = [rec["project"]["launches"]["B6"] for rec in recs]
+        from tsne_flink_tpu_torch.ops import knn as tknn
+        from tsne_flink_tpu_torch.ops.knn_tiles import pick_knn_tiles
+        fd = tknn.pick_knn_filter(f)
+        plan = tknn._refine_plan(f, K, filter_dims=fd,
+                                 expand_k=(K + 1) // 2 if fd else None)
+        stages = 1 + bool(plan.filter_dims) + bool(plan.cascade_dims)
+        chunk = pick_knn_tiles(n, f, K, "cuda").refine_chunk
+        want_b6 = cycles * math.ceil(nl / min(chunk, nl)) * stages
+        check(all(c == want_b6 for c in b6),
+              f"[spmd] project: B6 {b6} a rank, want {want_b6}")
+        check(recall >= 0.93, f"[spmd] project recall {recall} < 0.93")
+        print(f"[spmd] project kNN over {SPMD_PROCESSES} processes "
+              f"({recs[0]['backend']}, staged {recs[0]['staged']}): "
+              f"recall@{K} {recall:.4f} against B1's graph (bar 0.93), "
+              f"{cycles} refine cycles, B6 {b6} a rank (n_valid {n}), "
+              f"{[round(r_['project']['seconds'], 3) for r_ in recs]} s")
+        # alltoall against replicated: P and the final KL
+        pipe = SpmdPipeline(TsneConfig(**spmd_cfg_kw()), n, f, K,
+                            devices=test_mesh(SPMD_PROCESSES))
+        ji, jv, _ = pipe.prepare(torch.from_numpy(x_np), 0)
+        ai = np.load(os.path.join(tmp, "a2a_jidx.npy"))
+        av = np.load(os.path.join(tmp, "a2a_jval.npy"))
+        ji, jv = ji.cpu().numpy(), jv.cpu().numpy()
+        check(ai.shape == ji.shape and np.array_equal(ai, ji),
+              "[spmd] alltoall P's ids differ from replicated's")
+        rel = float(np.max(np.abs(av - jv) / np.maximum(np.abs(jv), 1e-30)))
+        check(rel <= 1e-6, f"[spmd] alltoall P off replicated by {rel}")
+        kl_a = recs[0]["a2a"]["kl"]
+        check(abs(kl_a - float(l1[-1])) <= 0.01,
+              f"[spmd] alltoall final KL {kl_a} vs replicated {l1[-1]}")
+        print(f"[spmd] alltoall over {SPMD_PROCESSES} processes: P "
+              f"(width {recs[0]['a2a_width']}) ids equal to replicated's, "
+              f"values within rtol {rel:.3e}; the job: layout "
+              f"{recs[0]['a2a']['layout']}, final KL {kl_a:.6f} "
+              f"(replicated {float(l1[-1]):.6f}), launches a rank "
+              f"{[r_['a2a']['launches'] for r_ in recs]}, "
+              f"{[round(r_['a2a']['seconds'], 2) for r_ in recs]} s")
+        b1_cross = sum(r_["a2a"]["launches"]["B1"] for r_ in recs)
+        check(b1_cross == SPMD_PROCESSES * SPMD_PROCESSES,
+              f"[spmd] the alltoall job launched B1 {b1_cross} times")
+
+        # --symStrict: both ranks end non-zero, no hang (on a cut of the
+        # blobs: the gate is the job's ending, not its size)
+        cut = os.path.join(tmp, "cut.csv")
+        write_coo(cut, x_np[:SPMD_STRICT_ROWS])
+        rcs, secs, outs = spmd_job("--symStrict", [
+            [a if a != coo else cut for a in argv(r)]
+            + ["--symMode", "alltoall", "--symSlack", "1", "--symWidth", "8",
+               "--symStrict"] for r in range(SPMD_PROCESSES)],
+            timeout=SPMD_TIMEOUT_S + 120)
+        check(all(rc != 0 for rc in rcs)
+              and all("--symStrict set" in out for out in outs),
+              f"[spmd] --symStrict: exit codes {rcs}")
+        print(f"[spmd] --symMode alltoall --symSlack 1 --symWidth 8 "
+              f"--symStrict on {SPMD_STRICT_ROWS} of the blobs: every rank "
+              f"exits non-zero ({rcs}) in {secs:.1f} s (group timeout "
+              f"{SPMD_TIMEOUT_S} s)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[spmd] phase {time.perf_counter() - t_phase:.1f} s")
+    name, src, repl = KERNEL_META["B1"]
+    b6_name, b6_src, b6_repl = KERNEL_META["B6"]
+    return [kernel_record("B1", f"{name} cross", src, repl, b1_cross,
+                          hop_err, hop_t, hop_bnd),
+            kernel_record("B6", f"{b6_name} n_valid", b6_src, b6_repl,
+                          sum(b6), b6_err, b6_t, b6_bnd)]
+
+
+
 class PeakTracker:
     """Allocated and reserved peaks of the card's caching allocator over
     marked intervals: :meth:`mark` folds the peak since the last mark into
@@ -4351,6 +4808,7 @@ def main() -> int:
             rec["serve"] = serve.get(kid)
         kernels[[r["name"].split()[0] for r in kernels].index("B5")][
             "serve_large"] = serve["B5_large"]
+        kernels += phase_spmd(x_np, labels, csr_kl, b1_ms)
         context = phase_quorum(x_np, os.path.join(tmp, "project.npz"),
                                tmp, serve["daemon"])
         phase_diverging(x_np)

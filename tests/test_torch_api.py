@@ -112,10 +112,7 @@ class _Untouchable:
         raise AssertionError("the input was read")
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"sym_mode": "alltoall"}, "A14b"), ({"sym_slack": 4}, "A14b"),
-    ({"sym_strict": True}, "A14b"),
-    ({"dtype": "bfloat16"}, "§C")])
+@pytest.mark.parametrize("kw,item", [({"dtype": "bfloat16"}, "§C")])
 def test_unported_kwargs_refused_before_the_input(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         TSNE(device="cpu", **kw).fit(_Untouchable())
@@ -146,6 +143,21 @@ def test_mesh_kwargs_run(monkeypatch, kw, width):
     y = est.fit_transform(_blobs(120, 6))
     assert y.shape == (120, 2) and np.isfinite(y).all()
     assert set(seen) == {(width, kw.get("mesh_reduce", "canonical"))}
+
+
+@pytest.mark.parametrize("kw", [{"sym_mode": "alltoall"}, {"sym_slack": 4},
+                                {"sym_strict": True}],
+                         ids=["sym_mode", "sym_slack", "sym_strict"])
+def test_sym_kwargs_run(kw):
+    """The symmetrization keywords (ported): a fit outside a
+    multi-controller job takes them and keeps its single-controller bits,
+    as the JAX estimator does (they shape ``spmd=True`` under a process
+    group: tests/test_torch_multiprocess.py)."""
+    x = _blobs(120, 6)
+    base = dict(device="cpu", perplexity=5.0, n_iter=30,
+                knn_method="bruteforce")
+    y = TSNE(**base, **kw).fit_transform(x)
+    assert np.array_equal(y, TSNE(**base).fit_transform(x))
 
 
 def test_auto_bh_and_transform_refused(monkeypatch):

@@ -119,10 +119,6 @@ def test_pick_repulsion_cuda():
 
 
 REFUSED = [
-    (["--symWidth", "64"], "A14b"), (["--symMode", "alltoall"], "A14b"),
-    (["--symSlack", "4"], "A14b"), (["--symStrict"], "A14b"),
-    (["--coordinator", "h:1", "--numProcesses", "2", "--processId", "0"],
-     "A14b"),
     (["--auditPlan"], "A16"),
     (["--executionPlan"], "A16"), (["--dtype", "bfloat16"], "§C"),
 ]
@@ -138,6 +134,52 @@ def test_unported_flags_refused_before_the_input_is_read(tmp_path, extra,
     with pytest.raises(NotImplementedError, match=item):
         tcli.main(argv, device="cpu")
     assert not (tmp_path / "o.csv").exists()
+
+
+#: misuses of the multi-host flags, each refused by the parser (exit code
+#: 2) with the JAX CLI's message, before the input is read
+MULTIHOST_MISUSE = [
+    (["--spmd", "--coordinator", "h:1", "--numProcesses", "2"], "together"),
+    (["--coordinator", "h:1", "--numProcesses", "2", "--processId", "0"],
+     "require --spmd"),
+    (["--spmd", "--coordinator", "h:1", "--numProcesses", "1",
+      "--processId", "0"], "must be >= 2"),
+]
+
+
+@pytest.mark.parametrize("extra,msg", MULTIHOST_MISUSE,
+                         ids=["all-or-none", "needs-spmd", "two-or-more"])
+def test_multihost_flags_checked_before_the_input_is_read(tmp_path, capsys,
+                                                          extra, msg):
+    argv = ["--input", str(tmp_path / "missing.csv"), "--output",
+            str(tmp_path / "o.csv"), "--dimension", "4", "--knnMethod",
+            "bruteforce", *extra]
+    with pytest.raises(SystemExit) as e:
+        tcli.main(argv, device="cpu")
+    assert e.value.code == 2 and msg in capsys.readouterr().err
+    assert not (tmp_path / "o.csv").exists()
+
+
+#: the symmetrization flags (ported): a single-controller run takes them
+#: and ignores them, as the JAX CLI does (they shape multi-controller
+#: jobs: tests/test_torch_multiprocess.py)
+SYM_FLAGS = [["--symWidth", "64"], ["--symMode", "alltoall"],
+             ["--symSlack", "4"], ["--symStrict"]]
+
+
+@pytest.mark.parametrize("extra", SYM_FLAGS,
+                         ids=[" ".join(e) for e in SYM_FLAGS])
+def test_sym_flags_run(tmp_path, files, extra):
+    outs = []
+    for flags in ([], extra):
+        out = tmp_path / f"o{len(outs)}.csv"
+        argv = ["--input", str(files["coo"]), "--output", str(out),
+                "--dimension", str(D), "--knnMethod", "bruteforce",
+                "--perplexity", str(PERPLEXITY), "--iterations", "20",
+                "--noCache", "--loss", str(tmp_path / "loss.txt"), *flags]
+        assert tcli.main(argv, device="cpu") == 0
+        outs.append(np.loadtxt(out, delimiter=","))
+    np.testing.assert_array_equal(outs[0], outs[1])
 
 
 #: the mesh flags (the single-controller mesh is ported): each runs the

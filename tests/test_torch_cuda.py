@@ -35,7 +35,11 @@ B2 with 256 query rows past a 60,000-row base against its plain version
 and B2 once an iteration a bucket and giving the same bits across batch
 splits, and the daemon's answers equal to direct transforms; and a
 fleet of two replica processes over one spool, one killed, answering bit
-for bit as this process does.
+for bit as this process does; and the multi-controller job's kernels:
+B1's cross sweep (the ring's hop) against its plain version and the ring
+on the test mesh equal to the single sweep bit for bit, B6 with
+``n_valid`` against its plain version, and a shard of two gloo processes
+on the one card equal to the mesh-1 rows.
 """
 
 import numpy as np
@@ -1286,7 +1290,10 @@ def test_serve_fleet_on_the_card(dev, tmp_path):
                "neighbors": 15, "repulsion": "exact", "bucket": 32,
                "iters": 10, "tick_s": 0.001, "idle_exit_s": 0.5},
         replicas=2, stale_ms=30000.0, run_s=300.0, backoff_base=0.05,
-        fault_plans={"0": "kill@serve:seg0"}))
+        # whichever replica claims first is killed at its first request's
+        # boundary (a plan fires on a replica's first attempt only): with
+        # one replica's plan, the other could claim every request
+        fault_plans={"0": "kill@serve:seg0", "1": "kill@serve:seg0"}))
     assert rec["deadline_hit"] is False and rec["relaunches"] >= 1
     model = load_frozen(str(tmp_path / "m.npz"), x, PlanConfig(
         n=2000, d=16, k=15, backend="cuda", repulsion="exact"),
@@ -1365,3 +1372,126 @@ def test_mesh_on_the_test_mesh_equals_mesh_1(dev):
         for d in (2, 4):
             np.testing.assert_array_equal(outs[d][0], outs[1][0])
             np.testing.assert_array_equal(outs[d][1], outs[1][1])
+
+
+# ---- the multi-controller job ------------------------------------------------
+
+def _ring_on_the_card(x, d, k, metric):
+    from tsne_flink_tpu_torch.parallel.knn import ring_knn
+    from tsne_flink_tpu_torch.parallel.mesh import (padded_rows_for,
+                                                    run_shards)
+    n = x.shape[0]
+    npad = padded_rows_for(n, d)
+    xp = torch.nn.functional.pad(x, (0, 0, 0, npad - n))
+    nl = npad // d
+    outs = run_shards([x.device] * d, lambda ax: ring_knn(
+        xp[ax.index * nl:(ax.index + 1) * nl], k, n, metric, axis=ax))
+    return (torch.cat([o[0] for o in outs])[:n],
+            torch.cat([o[1] for o in outs])[:n])
+
+
+@pytest.mark.parametrize("n,f,k,metric", [(3001, 50, 90, "sqeuclidean"),
+                                          (2000, 784, 30, "sqeuclidean"),
+                                          (1500, 20, 150, "cosine"),
+                                          (800, 16, 300, "euclidean")])
+def test_knn_cross_sweep_matches_plain_and_the_ring_the_single_sweep(
+        dev, n, f, k, metric):
+    """B1's cross sweep on a row block against column blocks (padding
+    columns and self masked by global id) against its plain version, and
+    the ring over 2 and 4 shards of the card giving ``fused_knn``'s graph
+    bit for bit, B1 launched once a hop."""
+    from tsne_flink_tpu_torch.ops.knn_cuda import (fused_knn,
+                                                   knn_cross_cuda,
+                                                   knn_cross_plain)
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.standard_normal((n, f)).astype(np.float32)
+                         ).to(dev)
+    base = cosine_zbase(x) if metric == "cosine" else x
+    cos = metric == "cosine"
+    n_global = n - 7
+    rows = base[100:700].contiguous()
+    for c0, c1 in ((0, 600), (600, n), (300, 900)):
+        cols = base[c0:c1].contiguous()
+        kd, ki = knn_cross_cuda(rows, cols, k, cos, 100, c0, n_global)
+        pd, pi = knn_cross_plain(rows, cols, k, cos, 100, c0, n_global)
+        ki, kd = _fused_final(kd, ki, "sqeuclidean")
+        held = ki >= 0
+        assert torch.equal(held, pi >= 0)
+        assert not bool(((ki >= n_global) | (ki == torch.arange(
+            100, 700, device=dev)[:, None])).any())
+        assert _set_agreement(ki.long(), pi.long()) >= 0.999
+        torch.testing.assert_close(kd[held], pd[held], rtol=1e-4,
+                                   atol=1e-4 * float(pd[held].max()))
+    want_i, want_d = fused_knn(x, k, metric)
+    for d in (2, 4):
+        before = KERNELS["B1"].launches
+        gi, gd = _ring_on_the_card(x, d, k, metric)
+        assert KERNELS["B1"].launches == before + d * d
+        assert torch.equal(gi, want_i) and torch.equal(gd, want_d)
+
+
+def test_refine_n_valid_matches_plain(dev):
+    """B6's first stage drops candidates at or past n_valid (a mesh's
+    padding rows): every list id below it, against its plain version."""
+    x, sq, graph, dist, gates = _refine_problem(dev, 3000, 50, 40, 300, 5)
+    n_valid = 2900
+    for row0 in (0, 2500):
+        args = ("sqeuclidean", x, sq, row0, gates, graph[row0:row0 + 300],
+                dist[row0:row0 + 300])
+        kw = dict(graph=graph, ke=40, n_valid=n_valid)
+        _hold_final(args, kw, False)
+        gi, _ = refine_final(*args, **kw)
+        old = graph[row0:row0 + 300]
+        # a new id never crosses n_valid; old entries past it stay
+        assert not bool(((gi >= n_valid) & ~(gi[:, :, None] == old[:, None, :])
+                         .any(dim=2)).any())
+        keep_i = _hold_keep((x, sq, row0, gates, 200), kw, False)
+        assert not bool((keep_i >= n_valid).any())
+
+
+def test_two_processes_on_the_card_equal_mesh_1(dev, tmp_path):
+    """Two gloo ranks on the one card (CUDA tensors staged through host
+    memory): the multi-controller job's embedding equals the in-process
+    job at mesh 1 bit for bit, the ring launching B1 twice a rank."""
+    import socket
+    import subprocess
+    import sys
+    from tsne_flink_tpu_torch.models.tsne import TsneConfig
+    from tsne_flink_tpu_torch.parallel.pipeline import SpmdPipeline
+    rng = np.random.default_rng(2)
+    centers = rng.normal(0.0, 10.0, (12, 16))
+    x = (centers[rng.integers(0, 12, 2001)]
+         + rng.normal(0.0, 0.5, (2001, 16))).astype(np.float32)
+    np.save(tmp_path / "x.npy", x)
+    cfg = TsneConfig(perplexity=10.0, iterations=60)
+    y1, _ = SpmdPipeline(cfg, 2001, 16, 30, n_devices=1)(torch.from_numpy(x))
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    code = f"""
+import numpy as np, torch
+from tsne_flink_tpu_torch.kernels.build import KERNELS
+from tsne_flink_tpu_torch.models.tsne import TsneConfig
+from tsne_flink_tpu_torch.parallel.mesh import distributed_init
+from tsne_flink_tpu_torch.parallel.pipeline import SpmdPipeline
+import sys
+r = int(sys.argv[1])
+distributed_init("127.0.0.1:{port}", 2, r, timeout_s=120)
+x = torch.from_numpy(np.load(r"{tmp_path / 'x.npy'}"))
+pipe = SpmdPipeline(TsneConfig(perplexity=10.0, iterations=60), 2001, 16, 30)
+assert pipe.axis.backend == "gloo" and pipe.axis.staged
+y, _ = pipe(x)
+assert KERNELS["B1"].launches == 2
+np.save(r"{tmp_path}/y%d.npy" % r, y.cpu().numpy())
+"""
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)], env=env,
+                              cwd=root) for r in range(2)]
+    assert [p.wait(timeout=600) for p in procs] == [0, 0]
+    for r in range(2):
+        assert np.array_equal(np.load(tmp_path / f"y{r}.npy"),
+                              y1.cpu().numpy())

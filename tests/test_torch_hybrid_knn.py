@@ -380,12 +380,20 @@ def test_refine_plan_is_the_flop_models():
 
 
 def test_sharded_refine_is_a14():
+    """The sharded refine (queue A14b, ported): over the whole set as one
+    shard (x_full = x, idx_full = the graph, row_offset 0, n_valid = N)
+    it gives the unsharded round's bits; its gathers and its reverse
+    sample read the global arrays (tests/test_torch_spmd.py holds it to
+    the JAX function on a shard)."""
     x = _t(_blobs(50, 4))
-    i, d = tknn.knn_project(x, 5, rounds=1)
-    for kw in ({"x_full": x}, {"idx_full": i}, {"row_offset": 3},
-               {"n_valid": 40}):
-        with pytest.raises(NotImplementedError, match="A14b"):
-            tknn.knn_refine(x, i, d, **kw)
+    i, d = tknn.knn_project(x, 5, rounds=1, block=16)
+    plain = tknn.knn_refine(x, i, d, generator=torch.Generator()
+                            .manual_seed(4))
+    sharded = tknn.knn_refine(x, i, d, x_full=x, idx_full=i, row_offset=0,
+                              n_valid=50, generator=torch.Generator()
+                              .manual_seed(4))
+    assert torch.equal(plain[0], sharded[0])
+    assert torch.equal(plain[1], sharded[1])
 
 
 def test_prepare_runs_the_hybrid_plan():

@@ -25,7 +25,9 @@ the job fleet under a memory budget; ``obs/``: tracing, metrics, memory
 watermarks; ``analysis/audit``: the memory model they charge); the
 serve fleet (``serve/replicas``: N daemon processes over one spool); and
 the single-controller point mesh (``parallel/mesh``: the optimize stage
-sharded over D devices, bit for bit the one-device run).
+sharded over D devices, bit for bit the one-device run); and the
+multi-controller job (``parallel/pipeline``: N processes, one rank each,
+over ``torch.distributed``, the sharded prepare and optimize).
 
 The public names are imported on first use (PEP 562), so the parts that
 need no torch — the serve fleet's supervisor process above all — import

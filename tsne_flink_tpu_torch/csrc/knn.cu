@@ -4,6 +4,17 @@
 // Replaces tsne_flink_tpu/ops/knn_pallas.py::_fused_kernel (launched by
 // _fused_sweep, driven by fused_knn).
 //
+// One kernel serves two sweeps.  The single sweep takes x as its rows and
+// its columns.  The cross sweep (the multi-controller ring's hop,
+// parallel/knn.ring_knn, as the TPU kernel's _fused_sweep(rows, cols, nv))
+// takes a row block and a column block, each with the global id of its
+// first point: columns at or past n_global (mesh padding) and each row's
+// own global id are masked, and the keys carry global column ids.  A
+// pair's distance is computed the same way in both (the same K-loop, the
+// same norm pairs of its two points), so the ring's merged top-k is the
+// single sweep's, bit for bit.  A row with fewer than k unmasked columns
+// in the block gets (inf, -1) in its empty slots.
+//
 // What bounds it on an H100: the N²·F multiply-adds of the distance tiles.
 // They run as three TF32 tensor-core passes (see Precision), 3·2·N²·F
 // operations at 495 TFLOP/s: 34 ms at N = 60,000, F = 784, against 84 ms
@@ -205,11 +216,23 @@ __device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
   e = (a - (s - bp)) + (b - bp);
 }
 
+// the two operands of a sweep: rows [nr, f] and columns [nc, f] (the same
+// array in the single sweep), each with its norm pairs [n + 1, 2] and the
+// global id of its first point; columns with global id >= n_global are
+// masked
+struct Sweep {
+  const float* xr;
+  const float* nr_pairs;
+  int nr, r_off;
+  const float* xc;
+  const float* nc_pairs;
+  int nc, c_off, n_global;
+};
+
 template <class T, int STAGES, int DTB>
 __global__ void __launch_bounds__(T::THREADS, 1)
-knn_kernel(const float* __restrict__ x, const float* __restrict__ norms,
-           int n, int f, int k, int cosine, float* __restrict__ out_d,
-           int* __restrict__ out_i) {
+knn_kernel(const Sweep sw, int f, int k, int cosine,
+           float* __restrict__ out_d, int* __restrict__ out_i) {
   constexpr int MI = T::MI, KREG = T::KREG, TR = T::TR;
   constexpr int COMPUTE = T::COMPUTE, MERGE_WARPS = T::MERGE_WARPS;
   constexpr int THREADS = T::THREADS, OPER_FLOATS = T::OPER_FLOATS;
@@ -228,7 +251,7 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ norms,
   const int lane = tid & 31;
   const int row0 = blockIdx.x * TR;
   const int ks_per_tile = (f + BK - 1) / BK;
-  const int tiles = (n + TC - 1) / TC;
+  const int tiles = (sw.nc + TC - 1) / TC;
   const int total = tiles * ks_per_tile;
 
   for (int r = tid; r < TR; r += THREADS) {
@@ -252,18 +275,21 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ norms,
       float* st = ring + buf * STAGE_FLOATS;
       for (int c = tid; c < (TR + TC) * (BK / 4); c += COMPUTE) {
         const int row = c / (BK / 4), q = c % (BK / 4);
-        const int gr = row < TR ? row0 + row : col0 + row - TR;
+        const bool is_row = row < TR;
+        const int gr = is_row ? row0 + row : col0 + row - TR;
+        const float* src = is_row ? sw.xr : sw.xc;
         const int fk = k0 + q * 4;
-        const bool valid = gr < n && fk < f;
+        const bool valid = gr < (is_row ? sw.nr : sw.nc) && fk < f;
         cp_async16(st + row * LDS + q * 4,
-                   x + (valid ? (size_t)gr * f + fk : 0), valid);
+                   src + (valid ? (size_t)gr * f + fk : 0), valid);
       }
       // the tile's last stage also brings its columns' norm pairs (16
-      // bytes = two columns a copy; norms has a zero row past n)
+      // bytes = two columns a copy; the pairs have a zero row past nc)
       if (kk == ks_per_tile - 1 && !cosine && tid < TC / 2) {
-        const bool valid = col0 + 2 * tid < n;
+        const bool valid = col0 + 2 * tid < sw.nc;
         cp_async16(st + OPER_FLOATS + 4 * tid,
-                   norms + (valid ? 2 * ((size_t)col0 + 2 * tid) : 0), valid);
+                   sw.nc_pairs + (valid ? 2 * ((size_t)col0 + 2 * tid) : 0),
+                   valid);
       }
     };
 
@@ -274,9 +300,9 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ norms,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int gr = row0 + wm * 16 * MI + i * 16 + g + 8 * h;
-        const bool ok = gr < n && !cosine;
-        nah[i][h] = ok ? norms[2 * (size_t)gr] : 0.f;
-        nal[i][h] = ok ? norms[2 * (size_t)gr + 1] : 0.f;
+        const bool ok = gr < sw.nr && !cosine;
+        nah[i][h] = ok ? sw.nr_pairs[2 * (size_t)gr] : 0.f;
+        nal[i][h] = ok ? sw.nr_pairs[2 * (size_t)gr + 1] : 0.f;
       }
 
     float acc[MI][4][4], sh[MI][4][4], sl[MI][4][4];
@@ -390,7 +416,10 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ norms,
               }
               d = d + 0.f;  // -0 -> +0, so the key order is the value order
               const int gc = col0 + c + e;
-              const bool keep = gr < n && gc < n && gc != gr && d <= bar;
+              const int gid = sw.c_off + gc;  // the column's global id
+              const bool keep = gr < sw.nr && gc < sw.nc &&
+                                gid != sw.r_off + gr && gid < sw.n_global &&
+                                d <= bar;
               v[e] = keep ? d : INFINITY;
               if (keep) live |= 1u << (i * 16 + g + 8 * h);
             }
@@ -444,7 +473,7 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ norms,
 #pragma unroll
         for (int h = 0; h < TC; h += 32) {
           const float d = d_tile[r * DSTRIDE + h + lane];
-          const u64 key = make_key(d, col0 + h + lane);
+          const u64 key = make_key(d, sw.c_off + col0 + h + lane);
           unsigned cand = __ballot_sync(tsne::kFullMask, d < INFINITY && key < wk);
           while (cand) {
             const int src = __ffs(cand) - 1;
@@ -482,10 +511,13 @@ knn_kernel(const float* __restrict__ x, const float* __restrict__ norms,
 
   for (int e = tid; e < TR * k; e += THREADS) {
     const int g = row0 + e / k;
-    if (g < n) {
+    if (g < sw.nr) {
+      // a cross-sweep row may have fewer than k unmasked columns
+      const bool held = e % k < fill[e / k];
       const u64 v = lists[e];
-      out_d[(size_t)g * k + e % k] = key_dist(v);
-      out_i[(size_t)g * k + e % k] = static_cast<int>(v & 0xffffffffu);
+      out_d[(size_t)g * k + e % k] = held ? key_dist(v) : INFINITY;
+      out_i[(size_t)g * k + e % k] =
+          held ? static_cast<int>(v & 0xffffffffu) : -1;
     }
   }
 }
@@ -513,17 +545,27 @@ Config config(int k) {
 }
 
 template <class T, int STAGES, int DTB>
-int launch(const float* x, const float* norms, int n, int f, int k,
-           int cosine, float* out_d, int* out_i, size_t smem,
-           cudaStream_t stream) {
+int launch(const Sweep& sw, int f, int k, int cosine, float* out_d,
+           int* out_i, size_t smem, cudaStream_t stream) {
   auto kern = knn_kernel<T, STAGES, DTB>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int blocks = (n + T::TR - 1) / T::TR;
-  kern<<<blocks, T::THREADS, smem, stream>>>(x, norms, n, f, k, cosine,
-                                             out_d, out_i);
+  const int blocks = (sw.nr + T::TR - 1) / T::TR;
+  kern<<<blocks, T::THREADS, smem, stream>>>(sw, f, k, cosine, out_d, out_i);
   return tsne::launch_status();
+}
+
+int sweep(const Sweep& sw, int f, int k, int cosine, float* out_d,
+          int* out_i, cudaStream_t s) {
+  const Config c = config(k);
+  if (c.rows == Deep::TR)
+    return launch<Deep, 3, 2>(sw, f, k, cosine, out_d, out_i, c.smem, s);
+  if (c.stages == 3)
+    return launch<Wide, 3, 2>(sw, f, k, cosine, out_d, out_i, c.smem, s);
+  if (c.bufs == 2)
+    return launch<Wide, 2, 2>(sw, f, k, cosine, out_d, out_i, c.smem, s);
+  return launch<Wide, 2, 1>(sw, f, k, cosine, out_d, out_i, c.smem, s);
 }
 
 }  // namespace
@@ -549,19 +591,27 @@ TSNE_API int tsne_knn_f32(const float* x, const float* norms, int n, int f,
                           void* stream) {
   if (k < 1 || k > K_MAX || k > n - 1 || f % 16)
     return (int)cudaErrorInvalidValue;
-  const Config c = config(k);
-  cudaStream_t s = (cudaStream_t)stream;
-  if (c.rows == Deep::TR)
-    return launch<Deep, 3, 2>(x, norms, n, f, k, cosine, out_d, out_i,
-                              c.smem, s);
-  if (c.stages == 3)
-    return launch<Wide, 3, 2>(x, norms, n, f, k, cosine, out_d, out_i,
-                              c.smem, s);
-  if (c.bufs == 2)
-    return launch<Wide, 2, 2>(x, norms, n, f, k, cosine, out_d, out_i,
-                              c.smem, s);
-  return launch<Wide, 2, 1>(x, norms, n, f, k, cosine, out_d, out_i, c.smem,
-                            s);
+  const Sweep sw{x, norms, n, 0, x, norms, n, 0, n};
+  return sweep(sw, f, k, cosine, out_d, out_i, (cudaStream_t)stream);
+}
+
+// The cross sweep: rows xr [nr, f] (global ids r_off ..) against columns
+// xc [nc, f] (global ids c_off ..), each with its norm pairs [n + 1, 2]
+// as tsne_knn_f32 takes them; columns with global id >= n_global and each
+// row's own id are masked.  out_d/out_i [nr, k]: each row's k nearest
+// columns by (distance, global id), unordered, global ids, (inf, -1) in
+// slots past a row's unmasked columns.  Requires 1 <= k <= 1024, nr, nc
+// >= 1.
+TSNE_API int tsne_knn_cross_f32(const float* xr, const float* norms_r,
+                                int nr, int r_off, const float* xc,
+                                const float* norms_c, int nc, int c_off,
+                                int n_global, int f, int k, int cosine,
+                                float* out_d, int* out_i, void* stream) {
+  if (k < 1 || k > K_MAX || nr < 1 || nc < 1 || r_off < 0 || c_off < 0 ||
+      f % 16)
+    return (int)cudaErrorInvalidValue;
+  const Sweep sw{xr, norms_r, nr, r_off, xc, norms_c, nc, c_off, n_global};
+  return sweep(sw, f, k, cosine, out_d, out_i, (cudaStream_t)stream);
 }
 
 TSNE_API const char* tsne_error_string(int code) {

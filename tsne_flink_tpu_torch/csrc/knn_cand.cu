@@ -12,8 +12,9 @@
 // Computes, for chunk row r (point i = row0 + r), one block each:
 // 1. its candidate ids.  BUILD (a chunk's first stage): the row's 2s
 //    gateways (deduped by the caller) and the first ke ids of each
-//    gateway's list in the graph [n, kg], less i itself, deduped in a
-//    shared-memory hash set.  Otherwise a list [c, w] from the previous
+//    gateway's list in the graph [n, kg], less i itself and any id at or
+//    past n_valid (a mesh's padding rows: the sharded refine's base is the
+//    gathered [n_padded, f] points), deduped in a shared-memory hash set.  Otherwise a list [c, w] from the previous
 //    stage, in rank order, -1 where a row had fewer candidates.
 // 2. their scores, d² = max((sq_i + sq_j) − 2·Σ_f base_i·base_j, 0) (the
 //    TPU kernel's norm trick; sqrt for euclidean in the exact stage).
@@ -88,6 +89,7 @@ struct Params {
   const int* old_i;   // FINAL mode: [c, k]
   const float* old_d;
   int k, euclid;
+  int n_valid;        // BUILD: ids >= n_valid are no candidates
   int* out_i;         // KEEP: [c, keep]; FINAL: [c, k]
   float* out_d;       // FINAL: [c, k]
 };
@@ -292,7 +294,7 @@ __global__ void __launch_bounds__(THREADS) refine_kernel(const Params p) {
         id = __ldg(p.graph + (size_t)gates[g] * p.kg + (e - g * p.ke));
       }
       bool fresh = false;
-      if (id >= 0 && id != i) {
+      if (id >= 0 && id != i && id < p.n_valid) {
         unsigned h = __umulhi((unsigned)id * 0x9E3779B1u, (unsigned)L.hsize);
         while (true) {
           const int prev = atomicCAS(&table[h], -1, id);
@@ -458,7 +460,8 @@ int launch_width(const Params& p, cudaStream_t stream) {
 
 }  // namespace
 
-// One funnel stage of rows row0 .. row0 + c − 1 (every id in [0, n)).
+// One funnel stage of rows row0 .. row0 + c − 1 (every id in [0, n); a
+// BUILD stage drops ids >= n_valid, n_valid <= n).
 // base [n, f] f32, sq [n] f32.  BUILD when graph is non-null: cand holds
 // the gateways [c, w] and graph [n, kg] the lists, of which the first ke
 // ids are proposed.  Otherwise cand [c, w] is a list, -1 for none.
@@ -473,15 +476,17 @@ TSNE_API int tsne_refine_chunk_f32(const float* base, const float* sq, int n,
                                    int w, const int* graph, int kg, int ke,
                                    int keep, const int* old_i,
                                    const float* old_d, int k, int euclid,
-                                   int* out_i, float* out_d, void* stream) {
+                                   int n_valid, int* out_i, float* out_d,
+                                   void* stream) {
   const bool build = graph != nullptr;
   const bool fin = old_i != nullptr;
   if (c < 1 || w < 1 || f < 1 || row0 < 0 || row0 + c > n ||
+      n_valid < 1 || n_valid > n ||
       (build && (ke < 1 || ke > kg)) ||
       (fin ? (k < 1 || 2 * k > SORT_MAX) : (keep < 1 || keep > SORT_MAX)))
     return (int)cudaErrorInvalidValue;
   const Params p{base, sq, n, f, row0, c, cand, w, graph, kg, ke, keep,
-                 old_i, old_d, k, euclid, out_i, out_d};
+                 old_i, old_d, k, euclid, n_valid, out_i, out_d};
   const cudaStream_t s = (cudaStream_t)stream;
   if (build) return fin ? launch_width<true, true>(p, s)
                         : launch_width<true, false>(p, s);

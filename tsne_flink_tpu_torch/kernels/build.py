@@ -52,6 +52,8 @@ _F = ctypes.c_float
 #: C entry point -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
     "tsne_knn_f32": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "tsne_knn_cross_f32": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _P, _P, _P],
     "tsne_repulsion_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "tsne_fused_step_f32": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P,
                             _P, _P, _P, _P, _F, _F, _F, _F, _P, _P, _P, _P,
@@ -61,7 +63,7 @@ SIGNATURES = {
     "tsne_attraction_forces_f32": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I,
                                    _F, _P, _P],
     "tsne_refine_chunk_f32": [_P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _I,
-                              _I, _P, _P, _I, _I, _P, _P, _P],
+                              _I, _P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 
@@ -231,7 +233,9 @@ def _library() -> ctypes.CDLL:
 
 class Kernel:
     """One hand-written kernel: its C entry point and its launch count
-    (counted under a lock: a mesh's shards launch from their threads)."""
+    (counted under a lock: a mesh's shards launch from their threads).
+    ``entry`` calls another C entry point of the same kernel (B1's cross
+    sweep), counted as a launch of it."""
 
     def __init__(self, symbol: str):
         self.symbol = symbol
@@ -239,14 +243,17 @@ class Kernel:
         self._lock = threading.Lock()
 
     def __call__(self, *args) -> None:
+        self.entry(self.symbol, *args)
+
+    def entry(self, symbol: str, *args) -> None:
         import torch
 
         lib = library()
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, self.symbol)(*args, stream)
+        rc = getattr(lib, symbol)(*args, stream)
         if rc != 0:
             msg = lib.tsne_error_string(rc).decode()
-            raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
+            raise RuntimeError(f"{symbol} launch failed: CUDA error "
                                f"{rc} ({msg})")
         with self._lock:
             self.launches += 1

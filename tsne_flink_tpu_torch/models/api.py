@@ -11,7 +11,12 @@ a fault plan or a mesh (``mesh=N``, or the deprecated ``spmd=True`` over
 ``devices`` or all visible devices) it takes the supervised path instead
 (``runtime/supervisor.supervised_embed``, as the JAX estimator does; the
 mesh runs the optimize stage on ``parallel/mesh.ShardedOptimizer`` with
-``mesh_reduce``);
+``mesh_reduce``); ``spmd=True`` in a process of a multi-controller job
+(a ``torch.distributed`` group of more than one rank, opened by
+``parallel/mesh.distributed_init``) runs this rank's shard of
+``parallel/pipeline.SpmdPipeline`` instead, with ``sym_width``,
+``sym_mode``, ``sym_slack`` and ``sym_strict``, and every rank gets the
+embedding;
 an out-of-memory error on the fast path refits through it under
 ``on_oom="ladder"``.  Either way it sets ``runtime_events_`` and
 ``degradations_`` (the supervisor's record), ``trace_`` (the fit's
@@ -32,6 +37,15 @@ import numpy as np
 import torch
 
 from tsne_flink_tpu_torch.models.tsne import TsneConfig, tsne_embed
+
+
+def _group_size() -> int:
+    """The ranks of the open ``torch.distributed`` process group (1 with
+    none)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
 
 
 class TSNE:
@@ -143,14 +157,6 @@ class TSNE:
         self._fit_x = self._frozen = None
 
     def _refuse_unported(self, device: torch.device) -> None:
-        unported = (
-            ("sym_mode/sym_slack/sym_strict",
-             (self.sym_mode != "replicated" or self.sym_slack is not None
-              or self.sym_strict), "A14b"),)
-        for name, is_set, item in unported:
-            if is_set:
-                raise NotImplementedError(
-                    f"{name} is not ported yet (ROADMAP queue {item})")
         if self.dtype == "bfloat16" or (self.dtype == "float64"
                                         and device.type == "cuda"):
             raise NotImplementedError(
@@ -196,7 +202,8 @@ class TSNE:
 
         device = resolve_device(self.device)
         self._refuse_unported(device)
-        mesh = self._mesh(device)
+        spmd_job = self.spmd and _group_size() > 1
+        mesh = None if spmd_job else self._mesh(device)
         prev_cache = kbuild.cache_enabled()
         if self.aot_cache is not None:
             kbuild.set_cache(self.aot_cache)
@@ -206,7 +213,10 @@ class TSNE:
         try:
             # the fit's spans, without flipping process-global tracing
             with obtrace.collecting():
-                self._fit_body(x, device, mesh)
+                if spmd_job:
+                    self._fit_spmd(x, device)
+                else:
+                    self._fit_body(x, device, mesh)
         finally:
             kbuild.set_cache(prev_cache)
             if self.fault_plan:
@@ -217,6 +227,59 @@ class TSNE:
         self.metrics_.update(extra)
         return self
 
+    def _fit_spmd(self, x, device) -> None:
+        """This rank's shard of the multi-controller job (the JAX
+        estimator's ``SpmdPipeline`` branch)."""
+        from tsne_flink_tpu_torch.ops.knn import resolve_knn_plan
+        from tsne_flink_tpu_torch.parallel.pipeline import SpmdPipeline
+        from tsne_flink_tpu_torch.utils.artifacts import ArtifactCache
+
+        cfg = self._config(len(x), device.type)
+        x = torch.as_tensor(x, dtype=self._torch_dtype(device))
+        n, d = x.shape
+        k = (self.neighbors if self.neighbors is not None
+             else 3 * int(cfg.perplexity))
+        knn_method, _, _ = resolve_knn_plan(
+            n, d, self.knn_method, self.knn_iterations, self.knn_refine,
+            k=k, backend=device.type)
+        pipe = SpmdPipeline(
+            cfg, n, d, k, knn_method=knn_method,
+            knn_rounds=self.knn_iterations, knn_refine=self.knn_refine,
+            sym_width=self.sym_width, sym_mode=self.sym_mode,
+            sym_slack=self.sym_slack, sym_strict=self.sym_strict,
+            n_devices=self.devices,
+            artifact_cache=(ArtifactCache(self.cache_dir)
+                            if self.cache_dir is not None else None),
+            device=device, mesh_reduce=self.mesh_reduce)
+        self.metrics_ = {}
+        self.runtime_events_ = []
+        self.degradations_ = []
+        state, losses = pipe.run_checkpointable(
+            x, self.random_state, health_check=self.health_check,
+            events=self.runtime_events_, telemetry=self.telemetry)
+        tel = pipe._runner.telemetry_
+        if self.telemetry and tel is not None:
+            from tsne_flink_tpu_torch.models.tsne import TELEMETRY_FIELDS
+            self.metrics_["telemetry"] = {"fields": list(TELEMETRY_FIELDS),
+                                          "trace": tel.tolist()}
+        self._keep_fit(x, state.y[:n], losses, cfg, device)
+
+    def _torch_dtype(self, device):
+        return ({"float32": torch.float32, "float64": torch.float64}
+                [self.dtype] if self.dtype is not None
+                else torch.float32 if device.type == "cuda" else None)
+
+    def _keep_fit(self, x, y, losses, cfg, device) -> None:
+        """The fit's results, and its input (as the fit ran it) for
+        transform()."""
+        self.embedding_ = y.cpu().numpy()
+        self._fit_x = x.cpu().numpy()
+        self._fit_cfg, self._fit_device = cfg, device
+        self._frozen = None
+        self.kl_trace_ = losses.cpu().numpy()
+        self.kl_divergence_ = (float(self.kl_trace_[-1])
+                               if self.kl_trace_.size else float("nan"))
+
     def _fit_body(self, x, device, mesh=None) -> None:
         from tsne_flink_tpu_torch.runtime import faults
         from tsne_flink_tpu_torch.runtime.supervisor import (
@@ -226,10 +289,7 @@ class TSNE:
         from tsne_flink_tpu_torch.utils.cli import _device_count
 
         cfg = self._config(len(x), device.type)
-        dtype = ({"float32": torch.float32, "float64": torch.float64}
-                 [self.dtype] if self.dtype is not None
-                 else torch.float32 if device.type == "cuda" else None)
-        x = torch.as_tensor(x, dtype=dtype, device=device)
+        x = torch.as_tensor(x, dtype=self._torch_dtype(device), device=device)
         n, d = x.shape
         k = (self.neighbors if self.neighbors is not None
              else 3 * int(cfg.perplexity))
@@ -294,14 +354,7 @@ class TSNE:
                 self.metrics_["policy"] = policy_report(run.cfg, run.pilot)
         self.runtime_events_ = list(sup.events)
         self.degradations_ = sup.degradations
-        self.embedding_ = y_emb.cpu().numpy()
-        # the fit keeps its input (as the fit ran it) for transform()
-        self._fit_x = x.cpu().numpy()
-        self._fit_cfg, self._fit_device = cfg, device
-        self._frozen = None
-        self.kl_trace_ = losses.cpu().numpy()
-        self.kl_divergence_ = (float(self.kl_trace_[-1])
-                               if self.kl_trace_.size else float("nan"))
+        self._keep_fit(x, y_emb, losses, cfg, device)
 
     def fit_transform(self, x, y=None) -> np.ndarray:
         return self.fit(x).embedding_

@@ -423,12 +423,16 @@ def _refine_plan(dim: int, k: int, *, sample: int = 8,
 
 
 def draw_refine(gen: torch.Generator, plan: RefinePlan, n: int, k: int,
-                dim: int, dtype, device) -> RefineDraw:
-    """Draw one refine round's gateway scores, reverse-sample order and
-    projections from ``gen``."""
+                dim: int, dtype, device, n_graph: int | None = None
+                ) -> RefineDraw:
+    """Draw one refine round's gateway scores ([n, k]: the refined rows),
+    reverse-sample order (of the ``n_graph`` x k edges of the graph the
+    sample is drawn from, default ``n``; the sharded refine's is the
+    gathered global graph) and projections from ``gen``."""
     gate = (torch.rand((n, k), generator=gen, dtype=dtype, device=device)
             if plan.s < k else None)
-    rev = torch.randperm(n * k, generator=gen, device=device)
+    rev = torch.randperm((n if n_graph is None else n_graph) * k,
+                         generator=gen, device=device)
     filt = (_gaussian(gen, dim, plan.filter_dims, dtype, device)
             if plan.filter_dims else None)
     casc = (_gaussian(gen, dim, plan.cascade_dims, dtype, device)
@@ -481,60 +485,66 @@ def knn_refine(x: torch.Tensor, idx: torch.Tensor, dist: torch.Tensor,
     ``generator`` (default: a generator seeded 7).  ``dedup_gather``
     (True | False | "auto" = False) routes the plain scorers' vector
     gathers through ``ops/knn_cuda._compact_gather``; on the card B6
-    gathers in the kernel and the option is moot.  The sharded form
-    (``x_full``, ``idx_full``, ``row_offset``, ``n_valid``) is ROADMAP
-    queue A14b."""
-    if (x_full is not None or idx_full is not None or row_offset
-            or n_valid is not None):
-        raise NotImplementedError(
-            "the sharded refine (x_full, idx_full, row_offset, n_valid) is "
-            "not ported yet (ROADMAP queue A14b)")
-    x = x.contiguous()
+    gathers in the kernel and the option is moot.
+
+    The sharded form (``parallel/knn.project_knn_sharded``): ``x``,
+    ``idx``/``dist`` are the LOCAL row shard (global ids ``row_offset``
+    ..), ``x_full``/``idx_full`` the gathered global points and graph,
+    which the gathers, the candidate lists and the reverse sample read;
+    candidates at or past ``n_valid`` (mesh padding rows) are dropped.
+    The draws then take the local shape (the gateway scores [nloc, k],
+    drawn alike on every shard as the JAX function draws them) and the
+    reverse order the global graph's."""
+    xf = (x if x_full is None else x_full).contiguous()
     idx, dist = idx.contiguous(), dist.contiguous()
+    gidx = idx if idx_full is None else idx_full.contiguous()
     nloc, k = idx.shape
-    dim = x.shape[1]
-    dev = x.device
+    dim = xf.shape[1]
+    dev = xf.device
     plan = _refine_plan(dim, k, sample=sample, expand_k=expand_k,
                         filter_dims=filter_dims, filter_keep=filter_keep,
                         cascade_dims=cascade_dims, cascade_keep=cascade_keep)
     s, ke = plan.s, plan.ke
     if row_chunk is None:
         row_chunk = _resolve_tiles(tiles, nloc, dim, k,
-                                   backend_of(x)).refine_chunk
+                                   backend_of(xf)).refine_chunk
     compact = False if dedup_gather == "auto" else bool(dedup_gather)
     c = min(row_chunk, nloc)
     if draws is None:
         generator = _generator(generator, dev, 7)
-    rows_g = torch.arange(nloc, device=dev)
+    rows_g = row_offset + torch.arange(nloc, device=dev)
     staged = plan.filter_dims or plan.cascade_dims
     if staged and metric == "cosine":
-        fbase = x / torch.clamp(torch.linalg.norm(x, dim=1, keepdim=True),
-                                min=1e-12)
+        fbase = xf / torch.clamp(torch.linalg.norm(xf, dim=1, keepdim=True),
+                                 min=1e-12)
     else:
-        fbase = x
+        fbase = xf
     if metric == "cosine":
-        xcache = torch.clamp(torch.linalg.norm(x, dim=1), min=1e-12)
+        xcache = torch.clamp(torch.linalg.norm(xf, dim=1), min=1e-12)
     else:
-        xcache = torch.sum(x * x, dim=1)
+        xcache = torch.sum(xf * xf, dim=1)
 
     for rnd in range(max(0, rounds)):
         dr = (draws[rnd] if draws is not None else
-              draw_refine(generator, plan, nloc, k, dim, x.dtype, dev))
+              draw_refine(generator, plan, nloc, k, dim, xf.dtype, dev,
+                          n_graph=gidx.shape[0]))
         if plan.filter_dims:
             proj = (fbase @ dr.filt).contiguous()
             psq = torch.sum(proj * proj, dim=1)
         if plan.cascade_dims:
             proj2 = (fbase @ dr.casc).contiguous()
             p2sq = torch.sum(proj2 * proj2, dim=1)
-        gidx = idx.long()
+        gidx_loc = gidx[rows_g].long()
         if s < k:
             score = dr.gate.clone()
             score[:, :max(1, s // 2)] = -math.inf  # the nearest half
             _, gsel = _topk_smallest(score, s)
-            gate = torch.gather(gidx, 1, gsel)
+            gate = torch.gather(gidx_loc, 1, gsel)
         else:
-            gate = gidx[:, :s]
-        rev = _reverse_sample(idx, s, perm=dr.rev).long()
+            gate = gidx_loc[:, :s]
+        # the edge sort is global (in-neighbours of local rows come from
+        # anywhere); only the rows are sliced
+        rev = _reverse_sample(gidx, s, perm=dr.rev)[rows_g].long()
         rev = torch.where(rev < 0, rows_g[:, None], rev)
         # gateway dedup: a duplicate becomes the row's own id (self-masked
         # at ranking; its expansion re-proposes the row's own neighbours)
@@ -542,31 +552,38 @@ def knn_refine(x: torch.Tensor, idx: torch.Tensor, dist: torch.Tensor,
         dupu = torch.zeros_like(us, dtype=torch.bool)
         dupu[:, 1:] = us[:, 1:] == us[:, :-1]
         u_loc = torch.where(dupu, rows_g[:, None], us)
-        del gate, rev, us, dupu
+        del gate, rev, us, dupu, gidx_loc
 
-        if x.is_cuda:
+        graph = gidx
+        if xf.is_cuda:
             u_loc = u_loc.to(torch.int32)  # kernel B6's gateway operand
+            graph = graph.to(torch.int32)
 
         new_i = torch.empty_like(idx)
         new_d = torch.empty_like(dist)
         for c0 in range(0, nloc, c):
             # the chunk's first stage builds its candidates: the gateways
-            # and the first ke ids of each gateway's list
-            cand, bad, first = u_loc[c0:c0 + c], None, dict(graph=idx, ke=ke)
+            # and the first ke ids of each gateway's list; its rows are
+            # global ids row0 .. of the (gathered) base
+            row0 = row_offset + c0
+            cand, bad = u_loc[c0:c0 + c], None
+            first = dict(graph=graph, ke=ke, n_valid=n_valid)
             if plan.filter_dims:
-                cand, bad = refine_keep(proj, psq, c0, cand, plan.keep,
+                cand, bad = refine_keep(proj, psq, row0, cand, plan.keep,
                                         bad=bad, compact=compact, **first)
                 first = {}
             if plan.cascade_dims:
-                cand, bad = refine_keep(proj2, p2sq, c0, cand, plan.keep2,
+                cand, bad = refine_keep(proj2, p2sq, row0, cand, plan.keep2,
                                         bad=bad, compact=compact, **first)
                 first = {}
-            ni, nd = refine_final(metric, x, xcache, c0, cand,
+            ni, nd = refine_final(metric, xf, xcache, row0, cand,
                                   idx[c0:c0 + c], dist[c0:c0 + c], bad=bad,
                                   compact=compact, **first)
             new_i[c0:c0 + c] = ni
             new_d[c0:c0 + c] = nd
         idx, dist = new_i, new_d
+        if idx_full is None:
+            gidx = idx  # one device: the next round sees the refined graph
     return idx, dist
 
 

@@ -18,6 +18,16 @@ each value into TF32 parts as :func:`tf32_split` states in PyTorch.  Both
 sweeps return each row's k nearest squared (or cosine) distances;
 :func:`_fused_final` orders them and takes the sqrt for ``euclidean``.
 
+B1's cross sweep (:func:`knn_cross`) is the same kernel over a row block
+and a column block, each with the global id of its first point, masking
+columns past ``n_global`` and each row's own id: the hop of the
+multi-controller ring (``parallel/knn.ring_knn``), as the TPU kernel's
+``_fused_sweep(rows, cols, nv)`` is.  Its plain version
+(:func:`knn_cross_plain`) sums each pair's products in one order whatever
+the blocks' shapes, so a ring on the CPU gives the same graph at every
+mesh width; on the card the kernel gives each pair the single sweep's
+bits.
+
 B6 replaces ``tsne_flink_tpu/ops/knn_pallas.py::_cand_kernel`` (driven
 by ``cand_sqdist_fused``) together with the glue of the JAX package's
 refine chunk around it.  The kernel is ``csrc/knn_cand.cu``: one launch
@@ -175,6 +185,126 @@ def _fused_final(dist: torch.Tensor, idx: torch.Tensor, metric: str):
     return idx.to(torch.int32), dist
 
 
+#: elements of the [rows, cols, F] product block of the plain cross sweep
+#: (the chunking changes no bit): on the CPU, and on the card
+CROSS_PLAIN_ELEMS = {"cpu": 1 << 24, "cuda": 1 << 28}
+
+
+def knn_cross_plain(rows: torch.Tensor, cols: torch.Tensor, k: int,
+                    cosine: bool, row_off: int, col_off: int,
+                    n_global: int):
+    """Plain version of B1's cross sweep: (dist [nr, k], idx [nr, k]
+    int32 global column ids), each row's k nearest unmasked columns by
+    (distance, global id), ascending; (inf, -1) past a row's unmasked
+    columns.  Masked: columns with global id >= ``n_global`` and the row's
+    own id (``row_off + r``).  Each pair's dot product is one sum over F
+    of elementwise products, whatever the blocks' sizes (a matmul's
+    blocking would follow the shapes), so every mesh width gives one
+    graph.  Distances are squared euclidean (|a|² + |b|² − 2g, clamped at
+    0) or 1 − g on normalised rows."""
+    nr, f = rows.shape
+    nc = cols.shape[0]
+    dev = rows.device
+    cid = col_off + torch.arange(nc, device=dev)
+    rb = torch.sum(cols * cols, dim=1)
+    step = max(1, CROSS_PLAIN_ELEMS[dev.type] // max(1, nc * f))
+    kk = min(k, nc)
+    ds, ids = [], []
+    for s0 in range(0, nr, step):
+        a = rows[s0:s0 + step]
+        g = torch.sum(a[:, None, :] * cols[None, :, :], dim=-1)
+        if cosine:
+            d = 1.0 - g
+        else:
+            ra = torch.sum(a * a, dim=1)
+            d = torch.clamp(ra[:, None] + rb[None, :] - 2.0 * g, min=0.0)
+        rid = row_off + s0 + torch.arange(a.shape[0], device=dev)
+        bad = (rid[:, None] == cid[None, :]) | (cid >= n_global)[None, :]
+        # columns arrive in ascending global id: a stable sort by distance
+        # is the (distance, id) order
+        dv, order = torch.sort(d.masked_fill(bad, math.inf), dim=1,
+                               stable=True)
+        dv, order = dv[:, :kk], order[:, :kk]
+        held = ~torch.gather(bad, 1, order)
+        ds.append(torch.where(held, dv, math.inf))
+        ids.append(torch.where(held, cid[order], -1).to(torch.int32))
+    dist, idx = torch.cat(ds), torch.cat(ids)
+    if kk < k:
+        dist = torch.nn.functional.pad(dist, (0, k - kk), value=math.inf)
+        idx = torch.nn.functional.pad(idx, (0, k - kk), value=-1)
+    return dist, idx
+
+
+def _padded_operand(base: torch.Tensor) -> torch.Tensor:
+    pad = -base.shape[1] % FEATURE_MULTIPLE
+    if pad:
+        base = torch.nn.functional.pad(base, (0, pad))
+    return base.contiguous()
+
+
+def knn_cross_cuda(rows: torch.Tensor, cols: torch.Tensor, k: int,
+                   cosine: bool, row_off: int, col_off: int, n_global: int,
+                   norms_r=None, norms_c=None):
+    """Launch B1's cross sweep: (dist [nr, k], idx [nr, k] int32), each
+    row's k nearest in no particular order.  ``norms_r``/``norms_c`` are
+    the blocks' :func:`norm_pairs` (of the feature-padded operands),
+    computed here when None."""
+    rows, cols = _padded_operand(rows), _padded_operand(cols)
+    for name, t in (("rows", rows), ("cols", cols)):
+        if t.device != rows.device:
+            raise ValueError(f"B1 cross sweep takes one device; {name} is "
+                             f"on {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"B1 kernel takes float32 points, got {t.dtype}")
+        if not t.is_cuda or t.data_ptr() % 16:
+            raise ValueError("B1 kernel takes 16-byte aligned CUDA rows")
+    nr, f = rows.shape
+    nc = cols.shape[0]
+    if cols.shape[1] != f or nr < 1 or nc < 1 or not 1 <= k <= K_MAX:
+        raise ValueError(f"B1 cross sweep needs rows [nr, F], cols [nc, F] "
+                         f"and 1 <= k <= {K_MAX}; got {tuple(rows.shape)}, "
+                         f"{tuple(cols.shape)}, k={k}")
+    if not (0 <= row_off and 0 <= col_off and row_off + nr < 2 ** 31
+            and col_off + nc < 2 ** 31):
+        raise ValueError("B1 cross sweep: global ids must fit int32")
+    if cosine:
+        norms_r = norms_c = torch.zeros((1, 2), device=rows.device)
+    else:
+        norms_r = norm_pairs(rows) if norms_r is None else norms_r
+        norms_c = norm_pairs(cols) if norms_c is None else norms_c
+        for t, m in ((norms_r, nr), (norms_c, nc)):
+            if t.shape != (m + 1, 2) or not t.is_contiguous():
+                raise ValueError("B1 cross sweep: norm pairs must be "
+                                 "norm_pairs(block)")
+    dist = torch.empty((nr, k), device=rows.device, dtype=torch.float32)
+    idx = torch.empty((nr, k), device=rows.device, dtype=torch.int32)
+    KERNELS["B1"].entry("tsne_knn_cross_f32", rows.data_ptr(),
+                        norms_r.data_ptr(), nr, int(row_off), cols.data_ptr(),
+                        norms_c.data_ptr(), nc, int(col_off), int(n_global),
+                        f, k, int(cosine), dist.data_ptr(), idx.data_ptr())
+    return dist, idx
+
+
+def knn_cross(rows: torch.Tensor, cols: torch.Tensor, k: int, cosine: bool,
+              row_off: int, col_off: int, n_global: int, norms_r=None,
+              norms_c=None):
+    """One hop of the ring: each of ``rows``' (global ids ``row_off`` ..)
+    k nearest among ``cols`` (global ids ``col_off`` ..), masking columns
+    at or past ``n_global`` and the row's own id -> (idx int32 [nr, k],
+    dist [nr, k]) ascending by (distance, id), squared euclidean or 1 −
+    â·b̂ on the (normalised, for cosine) operands given; (inf, -1) in
+    slots past a row's unmasked columns.  Kernel B1 on CUDA tensors
+    (``norms_*`` its norm pairs, :func:`knn_cross_cuda`), its plain
+    version on CPU tensors."""
+    if rows.device.type == "cpu":
+        dist, idx = knn_cross_plain(rows, cols, k, cosine, row_off, col_off,
+                                    n_global)
+    else:
+        dist, idx = knn_cross_cuda(rows, cols, k, cosine, row_off, col_off,
+                                   n_global, norms_r, norms_c)
+    return _fused_final(dist, idx, "sqeuclidean")
+
+
 def fused_knn(x: torch.Tensor, k: int, metric: str = "sqeuclidean"):
     """Exact kNN of ``x`` against itself: (idx int32 [N, k], dist [N, k]),
     rows ascending.  ``k`` must already be clamped to N − 1."""
@@ -299,10 +429,12 @@ def _chunk_rows(row0: int, cand: torch.Tensor) -> torch.Tensor:
 
 
 def refine_candidates_plain(row0: int, gates: torch.Tensor,
-                            graph: torch.Tensor, ke: int):
+                            graph: torch.Tensor, ke: int,
+                            n_valid: int | None = None):
     """A chunk's candidates: its rows' gateways [c, 2s] and the first
     ``ke`` ids of each gateway's list in ``graph``, sorted by id ->
-    (cand [c, 2s(1 + ke)] int64, bad: self or an in-row duplicate)."""
+    (cand [c, 2s(1 + ke)] int64, bad: self, an in-row duplicate, or an
+    id at or past ``n_valid``, a mesh's padding row)."""
     cc = gates.shape[0]
     rc = _chunk_rows(row0, gates)
     mine = gates.long()
@@ -311,15 +443,17 @@ def refine_candidates_plain(row0: int, gates: torch.Tensor,
     cand = torch.sort(cand, dim=1).values
     bad = cand == rc[:, None]                     # self
     bad[:, 1:] |= cand[:, 1:] == cand[:, :-1]     # in-row duplicates
+    if n_valid is not None:
+        bad |= cand >= n_valid                    # mesh padding rows
     return cand, bad
 
 
-def _stage_input(row0, cand, bad, graph, ke):
+def _stage_input(row0, cand, bad, graph, ke, n_valid=None):
     """(cand, bad) of a plain stage: built from the gateways (``graph``
     given), a kernel stage's list (``bad`` None: -1 marks no candidate),
     or a plain stage's output as it is."""
     if graph is not None:
-        return refine_candidates_plain(row0, cand, graph, ke)
+        return refine_candidates_plain(row0, cand, graph, ke, n_valid)
     if bad is None:
         bad = cand < 0
         cand = torch.where(bad, _chunk_rows(row0, cand)[:, None],
@@ -328,12 +462,13 @@ def _stage_input(row0, cand, bad, graph, ke):
 
 
 def refine_keep_plain(base, sq, row0: int, cand, keep: int, *, bad=None,
-                      graph=None, ke: int = 0, compact: bool = False):
+                      graph=None, ke: int = 0, compact: bool = False,
+                      n_valid: int | None = None):
     """Plain version of a keep stage (the JL filter or the cascade): the
     ``keep`` best-scored candidates of each row, ascending, ties by the
     lowest slot (``lax.top_k(-score, keep)``) -> (cand, bad)."""
     from tsne_flink_tpu_torch.ops.knn import _topk_smallest
-    cand, bad = _stage_input(row0, cand, bad, graph, ke)
+    cand, bad = _stage_input(row0, cand, bad, graph, ke, n_valid)
     ad = cand_sqdist_plain(base, sq, _chunk_rows(row0, cand), cand, compact)
     _, sel = _topk_smallest(ad.masked_fill(bad, math.inf), keep)
     return torch.gather(cand, 1, sel), torch.gather(bad, 1, sel)
@@ -341,13 +476,13 @@ def refine_keep_plain(base, sq, row0: int, cand, keep: int, *, bad=None,
 
 def refine_final_plain(metric: str, base, cache, row0: int, cand, old_i,
                        old_d, *, bad=None, graph=None, ke: int = 0,
-                       compact: bool = False):
+                       compact: bool = False, n_valid: int | None = None):
     """Plain version of the exact stage: exact CLI-metric distances, the
     lossless pre-top-k to k, and the merge into the rows' lists
     ``old_i``/``old_d`` [c, k] (each id's smallest distance, ordered by
     (distance, id)) -> (new_i, new_d)."""
     from tsne_flink_tpu_torch.ops.knn import _dedup_smallest, _topk_smallest
-    cand, bad = _stage_input(row0, cand, bad, graph, ke)
+    cand, bad = _stage_input(row0, cand, bad, graph, ke, n_valid)
     dd = cand_exact_plain(metric, base, cache, _chunk_rows(row0, cand), cand,
                           compact).masked_fill(bad, math.inf)
     k = old_i.shape[1]
@@ -360,7 +495,8 @@ def refine_final_plain(metric: str, base, cache, row0: int, cand, old_i,
                            torch.cat([old_d, dd], dim=1), k)
 
 
-def _check_refine(base, sq, row0, cand, graph, ke, old, keep) -> None:
+def _check_refine(base, sq, row0, cand, graph, ke, old, keep,
+                  n_valid) -> None:
     named = [("base", base, torch.float32, 2), ("sq", sq, torch.float32, 1),
              ("cand", cand, torch.int32, 2)]
     if graph is not None:
@@ -391,6 +527,8 @@ def _check_refine(base, sq, row0, cand, graph, ke, old, keep) -> None:
                          f"be [{c}, k], k <= {REFINE_SORT_MAX // 2}")
     if not 1 <= f <= CAND_F_MAX:
         raise ValueError(f"B6 kernel takes 1 <= F <= {CAND_F_MAX}; got {f}")
+    if not 1 <= n_valid <= n:
+        raise ValueError(f"B6 kernel: n_valid {n_valid} must be in 1..{n}")
     w = cand.shape[1]
     k = 0 if old is None else old[0].shape[1]
     need = refine_smem_bytes(f, w, ke if graph is not None else 0, keep, k,
@@ -402,7 +540,7 @@ def _check_refine(base, sq, row0, cand, graph, ke, old, keep) -> None:
 
 
 def _refine_launch(base, sq, row0, cand, graph, ke, *, keep=0, old=None,
-                   euclid=False):
+                   euclid=False, n_valid=None):
     """Launch B6 on one stage of rows row0 .. row0 + c − 1; allocates only
     its outputs: ids [c, keep] (keep mode) or the new lists [c, k]."""
     (n, f), (c, w) = base.shape, cand.shape
@@ -411,7 +549,8 @@ def _refine_launch(base, sq, row0, cand, graph, ke, *, keep=0, old=None,
         if not 1 <= keep <= REFINE_SORT_MAX:
             raise ValueError(f"B6 kernel keeps 1..{REFINE_SORT_MAX} a row; "
                              f"got {keep}")
-    _check_refine(base, sq, row0, cand, graph, ke, old, keep)
+    n_valid = n if n_valid is None else int(n_valid)
+    _check_refine(base, sq, row0, cand, graph, ke, old, keep, n_valid)
     dev = base.device
     if old is None:
         out_i = torch.empty((c, keep), dtype=torch.int32, device=dev)
@@ -426,13 +565,15 @@ def _refine_launch(base, sq, row0, cand, graph, ke, *, keep=0, old=None,
                   0 if graph is None else graph.shape[1], ke, keep,
                   None if old is None else old[0].data_ptr(),
                   None if old is None else old[1].data_ptr(), k, int(euclid),
-                  out_i.data_ptr(), None if out_d is None else out_d.data_ptr())
+                  n_valid, out_i.data_ptr(),
+                  None if out_d is None else out_d.data_ptr())
     return out_i if old is None else (out_i, out_d)
 
 
 def refine_keep(base: torch.Tensor, sq: torch.Tensor, row0: int,
                 cand: torch.Tensor, keep: int, *, bad=None, graph=None,
-                ke: int = 0, compact: bool = False):
+                ke: int = 0, compact: bool = False,
+                n_valid: int | None = None):
     """One keep stage of the refine funnel over chunk rows row0 .. row0 +
     c − 1, scored by squared distances in ``base`` (a projection; ``sq``
     its squared norms): each row's ``keep`` best candidates in rank order.
@@ -440,25 +581,29 @@ def refine_keep(base: torch.Tensor, sq: torch.Tensor, row0: int,
     With ``graph`` [N, k] (a chunk's first stage) ``cand`` holds the rows'
     gateways [c, 2s] and the stage builds the candidates from them and the
     first ``ke`` ids of each gateway's list; otherwise ``cand`` is the
-    previous stage's output.  Returns (cand, bad): on a CPU tensor the
-    plain version's (ids, self/duplicate mask); on a CUDA tensor kernel
-    B6's int32 ids, -1 where a row had fewer candidates, and None."""
+    previous stage's output.  A first stage drops candidates at or past
+    ``n_valid`` (the sharded refine's mesh padding rows).  Returns (cand,
+    bad): on a CPU tensor the plain version's (ids, self/duplicate/padding
+    mask); on a CUDA tensor kernel B6's int32 ids, -1 where a row had
+    fewer candidates, and None."""
     if base.device.type == "cpu":
         return refine_keep_plain(base, sq, row0, cand, keep, bad=bad,
-                                 graph=graph, ke=ke, compact=compact)
-    return _refine_launch(base, sq, row0, cand, graph, ke, keep=keep), None
+                                 graph=graph, ke=ke, compact=compact,
+                                 n_valid=n_valid)
+    return _refine_launch(base, sq, row0, cand, graph, ke, keep=keep,
+                          n_valid=n_valid), None
 
 
 def refine_final(metric: str, base: torch.Tensor, cache: torch.Tensor,
                  row0: int, cand: torch.Tensor, old_i: torch.Tensor,
                  old_d: torch.Tensor, *, bad=None, graph=None, ke: int = 0,
-                 compact: bool = False):
+                 compact: bool = False, n_valid: int | None = None):
     """The exact stage of the refine funnel over chunk rows row0 .. row0 +
     c − 1: exact ``metric`` distances in ``base`` (``cache`` its squared
     norms, or its norms for cosine), the k nearest candidates merged into
     the rows' lists ``old_i``/``old_d`` [c, k] -> (new_i, new_d), each id
     at its smallest distance, rows ordered by (distance, id).  ``cand``,
-    ``bad``, ``graph`` and ``ke`` as :func:`refine_keep`'s.
+    ``bad``, ``graph``, ``ke`` and ``n_valid`` as :func:`refine_keep`'s.
 
     Kernel B6 on a CUDA tensor for sqeuclidean and euclidean; the plain
     version on a CPU tensor, and for cosine, whose exact stage is plain
@@ -466,8 +611,9 @@ def refine_final(metric: str, base: torch.Tensor, cache: torch.Tensor,
     if base.device.type == "cpu" or metric == "cosine":
         return refine_final_plain(metric, base, cache, row0, cand, old_i,
                                   old_d, bad=bad, graph=graph, ke=ke,
-                                  compact=compact)
+                                  compact=compact, n_valid=n_valid)
     if metric not in ("sqeuclidean", "euclidean"):
         raise ValueError(f"Metric '{metric}' not defined")
     return _refine_launch(base, cache, row0, cand, graph, ke,
-                          old=(old_i, old_d), euclid=metric == "euclidean")
+                          old=(old_i, old_d), euclid=metric == "euclidean",
+                          n_valid=n_valid)

@@ -37,12 +37,26 @@ bit-identical to the 1-device run.  The portable checkpoint rides on this.
 One device (``devices=1``) is the trivial mesh: the same program, run in
 the calling thread.  A mesh may list one device several times (the test
 mesh: D shards on ``cuda:0``, or on the CPU), as the JAX tests run eight
-virtual CPU devices.  The multi-controller job (``distributed_init``,
-``parallel/pipeline``) is ROADMAP queue A14b.
+virtual CPU devices.
+
+The multi-controller job runs the same per-shard program with one
+process a shard.  :func:`distributed_init` opens the
+``torch.distributed`` process group (``tcp://<coordinator>``, a finite
+timeout, :data:`PROCESS_GROUP_TIMEOUT_S`), and a :class:`ProcessAxis`
+gives this process's rank the methods of :class:`MeshAxis`.  The backend
+follows from the devices, with no flag of its own
+(:func:`process_backend`): NCCL when every rank has a CUDA device of its
+own (rank r takes ``cuda:(r % device_count)``, all ranks on one host),
+gloo otherwise — on the CPU, or two ranks sharing one card, whose CUDA
+tensors a collective then stages through host memory (the work stays on
+the card).  ``psum``/``pmin``/``pmax`` combine the all-gathered parts in
+rank order on every rank, never by ``all_reduce`` (NCCL fixes no order
+for its sums), so every rank, thread or process, holds the same bits.
 """
 
 from __future__ import annotations
 
+import datetime
 import math
 import threading
 from dataclasses import dataclass, replace
@@ -62,6 +76,12 @@ AXIS = "points"
 PAD_QUANTUM = 8
 
 MESH_REDUCE_MODES = ("canonical", "psum")
+
+#: seconds a rank of a multi-controller job waits in a collective for its
+#: peers: a rank that raises ends (its peers' next collective then fails
+#: at once on the closed connection, or after this timeout), so no job
+#: hangs
+PROCESS_GROUP_TIMEOUT_S = 300.0
 
 
 def padded_rows_for(n: int, n_devices: int) -> int:
@@ -142,6 +162,57 @@ def make_mesh(devices=None, device=None) -> list[torch.device]:
     return [torch.device("cuda", i) for i in range(want)]
 
 
+def rank_device(process_id: int, device=None) -> torch.device:
+    """The device of rank ``process_id``: ``cuda:(process_id %
+    device_count)`` on the card (every rank on one host), the CPU for
+    ``device="cpu"``."""
+    base = torch.device("cuda" if device is None else device)
+    if base.type == "cpu":
+        return base
+    if base.type != "cuda":
+        raise ValueError(f"unsupported device '{base}' (cuda | cpu)")
+    count = visible_devices()
+    if count == 0:
+        raise RuntimeError("a rank on the card needs a CUDA device and none "
+                           "is visible; pass device='cpu' for a CPU job")
+    return torch.device("cuda", int(process_id) % count)
+
+
+def process_backend(device: torch.device, num_processes: int) -> str:
+    """The process group's backend: ``nccl`` when every rank has a CUDA
+    device of its own (``device_count >= num_processes``), else ``gloo``
+    (the CPU, or ranks sharing a card, whose collectives then stage
+    their CUDA tensors through host memory; NCCL refuses two ranks on one
+    device)."""
+    device = torch.device(device)
+    if device.type == "cuda" and visible_devices() >= int(num_processes):
+        return "nccl"
+    return "gloo"
+
+
+def distributed_init(coordinator: str | None = None,
+                     num_processes: int | None = None,
+                     process_id: int | None = None, *, device=None,
+                     timeout_s: float = PROCESS_GROUP_TIMEOUT_S):
+    """Multi-process bring-up: open the ``torch.distributed`` process group
+    of ``num_processes`` ranks at ``tcp://<coordinator>`` (``host:port``)
+    as rank ``process_id``, with the backend of :func:`process_backend`
+    and a collective timeout of ``timeout_s``, and make the rank's device
+    current.  Returns the rank's device; does nothing (returns None) for
+    ``num_processes`` <= 1, as the JAX function."""
+    if num_processes is None or int(num_processes) <= 1:
+        return None
+    import torch.distributed as dist
+    dev = rank_device(process_id, device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        process_backend(dev, num_processes),
+        init_method=f"tcp://{coordinator}", world_size=int(num_processes),
+        rank=int(process_id), timeout=datetime.timedelta(seconds=timeout_s))
+    return dev
+
+
 def pad_rows(a: torch.Tensor, n_pad: int, fill=0) -> torch.Tensor:
     """``a`` with ``n_pad`` rows of ``fill`` appended."""
     if n_pad == 0:
@@ -219,6 +290,98 @@ class MeshAxis:
     def pmin(self, x: torch.Tensor) -> torch.Tensor:
         return torch.amin(self._stacked(x), dim=0)
 
+    def ppermute(self, x: torch.Tensor) -> torch.Tensor:
+        """The next shard's ``x`` (a ring step: every shard sends its
+        tensor to the one before it)."""
+        parts = self._rv.exchange(self.index, x)
+        return parts[(self.index + 1) % self.size]
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` [size, ...]: row r goes to shard r; returns [size, ...]
+        whose row r came from shard r (the JAX ``all_to_all`` with split
+        and concat axis 0, tiled)."""
+        parts = self._rv.exchange(self.index, x)
+        return torch.stack([p[self.index] for p in parts])
+
+
+class ProcessAxis:
+    """This process's rank of the ``torch.distributed`` process group as a
+    mesh axis: :class:`MeshAxis`'s methods over the group's collectives.
+    Every shard's tensor has one shape (equal shards).  Under gloo a CUDA
+    tensor is staged through host memory for the collective and its
+    result copied back to ``device``."""
+
+    def __init__(self, device=None, *, group=None,
+                 mesh_reduce: str = "canonical", split_rows: int = 1):
+        import torch.distributed as dist
+        self.group = group
+        self.index = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
+        self.device = (rank_device(self.index) if device is None
+                       else torch.device(device))
+        self.backend = str(dist.get_backend(group))
+        self.staged = self.backend == "gloo" and self.device.type == "cuda"
+        self.mesh_reduce = mesh_reduce
+        self.split_rows = split_rows
+
+    def _out(self, t: torch.Tensor) -> torch.Tensor:
+        return t.cpu().contiguous() if self.staged else t.contiguous()
+
+    def _back(self, t: torch.Tensor) -> torch.Tensor:
+        return t.to(self.device) if self.staged else t
+
+    def _parts(self, x: torch.Tensor) -> list:
+        # a group of one rank still runs its collectives (the NCCL route
+        # on a one-GPU machine)
+        import torch.distributed as dist
+        h = self._out(x.reshape(1) if x.dim() == 0 else x)
+        parts = [torch.empty_like(h) for _ in range(self.size)]
+        dist.all_gather(parts, h, group=self.group)
+        return [self._back(p).reshape(x.shape) for p in parts]
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        parts = self._parts(x)
+        return parts[0] if len(parts) == 1 else torch.cat(parts)
+
+    def psum(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.sum(torch.stack(self._parts(x)), dim=0)
+
+    def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.amax(torch.stack(self._parts(x)), dim=0)
+
+    def pmin(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.amin(torch.stack(self._parts(x)), dim=0)
+
+    def ppermute(self, x: torch.Tensor) -> torch.Tensor:
+        if self.size == 1:
+            return x
+        import torch.distributed as dist
+        h = self._out(x)
+        got = torch.empty_like(h)
+        ops = [dist.P2POp(dist.isend, h, (self.index - 1) % self.size,
+                          group=self.group),
+               dist.P2POp(dist.irecv, got, (self.index + 1) % self.size,
+                          group=self.group)]
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+        return self._back(got)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        import torch.distributed as dist
+        h = self._out(x)
+        got = torch.empty_like(h)
+        dist.all_to_all_single(got, h, group=self.group)
+        return self._back(got)
+
+
+def process_axis(device=None) -> ProcessAxis | None:
+    """This process's :class:`ProcessAxis` when a process group is open
+    (of any size: the NCCL route runs at world size 1 too), else None."""
+    import torch.distributed as dist
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    return ProcessAxis(device)
+
 
 def run_shards(devices, fn, *, mesh_reduce: str = "canonical",
                split_rows: int = 1) -> list:
@@ -289,27 +452,45 @@ class ShardedOptimizer:
     unpadded state, the sentinel's rollback, telemetry, the autopilot
     pair).  The supervisor and the command line drive it the same way:
     :meth:`shard_inputs` once, then :meth:`segment` a segment.
+
+    ``axis`` (a :class:`ProcessAxis`) makes it one rank of the
+    multi-controller job: this process runs its own shard and the
+    segments meet through the process group; every rank holds the
+    (tiny) global state between segments.  The JAX class's
+    multi-controller call is ``pre_padded_valid`` (the padded rows'
+    mask), ``unpad=False`` (return the padded state) and ``edge_pad``
+    (the measured per-shard edge count): the layout is then the rows or
+    the flat edge list assembled on each shard (:meth:`shard_local`),
+    in-process on a thread mesh alike, so a job's ranks give the same
+    bits as threads or processes.
     """
 
     def __init__(self, cfg: TsneConfig, n: int, n_devices: int | None = None,
                  *, mesh: MeshPlan | None = None, devices=None, device=None,
+                 axis: ProcessAxis | None = None,
                  mesh_reduce: str = "canonical", fused_step=None):
         if mesh_reduce not in MESH_REDUCE_MODES:
             raise ValueError(f"mesh_reduce '{mesh_reduce}' not defined "
                              f"({' | '.join(MESH_REDUCE_MODES)})")
         self.n = int(n)
-        if devices is not None:
+        if axis is not None:
+            self.devices = [axis.device]
+            self.plan = MeshPlan(devices=axis.size)
+        elif devices is not None:
             self.devices = make_mesh(list(devices))
             self.plan = MeshPlan(devices=len(self.devices))
         else:
             self.plan = mesh if mesh is not None else MeshPlan(n_devices)
             self.devices = make_mesh(self.plan.devices, device)
-        self.n_devices = len(self.devices)
+        self.n_devices = axis.size if axis is not None else len(self.devices)
         self.n_padded = padded_rows_for(self.n, self.n_devices)
         self.n_local = self.n_padded // self.n_devices
         #: the quantum-wide local size (B2's split rows, BH's chunk block)
         self.split_rows = max(1, self.n_padded // PAD_QUANTUM)
         self.mesh_reduce = mesh_reduce
+        self.axis = (None if axis is None else ProcessAxis(
+            axis.device, group=axis.group, mesh_reduce=mesh_reduce,
+            split_rows=self.split_rows))
         self.fused_step = fused_step
         self.cfg = self.clamp(cfg)
         self._shards: list | None = None
@@ -491,6 +672,57 @@ class ShardedOptimizer:
                 edges_extra=extra_edges is not None, csr=c_sh))
         self._shards = shards
 
+    def prepadded_layout(self, s: int, edge_pad) -> str:
+        """The layout of a pre-padded (multi-controller) run, the JAX
+        class's rule on global counts: the flat edge list when
+        ``edge_pad`` (the largest shard's edge count) is given and the
+        mode asks for it or :func:`edges_beneficial` holds on a shard's
+        rows, else the rows (the CSR layout needs the global rows' tail,
+        which no rank holds)."""
+        from tsne_flink_tpu_torch.ops.affinities import edges_beneficial
+        mode = self.cfg.attraction
+        if (mode != "rows" and edge_pad and self.n_local * s < 2 ** 31
+                and (mode == "edges"
+                     or edges_beneficial(edge_pad, self.n_local, s))):
+            return "edges"
+        if mode == "edges":
+            import sys
+            print("WARNING: attraction='edges' needs the measured edge_pad "
+                  "in multi-controller runs (none given, or the per-shard "
+                  "conversion would overflow int32 slots); running the rows "
+                  "layout", file=sys.stderr)
+        return "rows"
+
+    def shard_local(self, jidx, jval, valid, edge_pad=None) -> None:
+        """Place pre-padded P rows: on a thread mesh the padded global rows
+        ``[n_padded, S]``; under a process axis this rank's
+        ``[n_local, S]`` (or the global rows, sliced).  ``valid`` is the
+        padded rows' mask ``[n_padded]``.  The layout is
+        :meth:`prepadded_layout`'s, the flat edge list assembled from each
+        shard's own rows with ``edge_pad`` slots."""
+        from tsne_flink_tpu_torch.ops.affinities import assemble_edges
+        jidx, jval = torch.as_tensor(jidx), torch.as_tensor(jval)
+        valid = torch.as_tensor(valid)
+        layout = self.prepadded_layout(int(jidx.shape[1]), edge_pad)
+        nl = self.n_local
+        ranks = ([self.axis.index] if self.axis is not None
+                 else range(self.n_devices))
+        shards = []
+        for i, r in enumerate(ranks):
+            dev = self.devices[i]
+            rows = (slice(0, nl) if jidx.shape[0] == nl
+                    and self.axis is not None else slice(r * nl,
+                                                         (r + 1) * nl))
+            ji, jv = jidx[rows].to(dev), jval[rows].to(dev)
+            va = valid[r * nl:(r + 1) * nl].to(dev)
+            if layout == "edges":
+                shards.append(_Shard(None, None, va,
+                                     assemble_edges(ji, jv, int(edge_pad)),
+                                     False, None))
+            else:
+                shards.append(_Shard(ji, jv, va, None, False, None))
+        self._shards = shards
+
     @property
     def layout(self) -> str:
         """The armed layout: csr | edges | rows | blocks (after
@@ -520,9 +752,9 @@ class ShardedOptimizer:
         def on(dev, a):
             return None if a is None else torch.as_tensor(a).to(dev)
 
-        def shard_fn(axis: MeshAxis):
+        def shard_fn(axis):
             r, dev = axis.index, axis.device
-            sh = self._shards[r]
+            sh = self._shards[0 if self.axis is not None else r]
             st = TsneState(*(t[r * nl:(r + 1) * nl].to(dev) for t in padded))
             pilot = (None if pilot_carry is None
                      else tuple(on(dev, p) for p in pilot_carry))
@@ -537,6 +769,10 @@ class ShardedOptimizer:
                             telemetry_carry=on(dev, telemetry_carry),
                             pilot_carry=pilot)
 
+        if self.axis is not None:
+            out = shard_fn(self.axis)
+            st = TsneState(*(self.axis.all_gather(t) for t in out[0]))
+            return (self._unpad(st),) + tuple(out[1:])
         outs = run_shards(self.devices, shard_fn,
                           mesh_reduce=self.mesh_reduce,
                           split_rows=self.split_rows)
@@ -548,24 +784,43 @@ class ShardedOptimizer:
     def __call__(self, state: TsneState, jidx, jval, *, start_iter: int = 0,
                  loss_carry=None, checkpoint_every: int = 0,
                  checkpoint_cb=None, extra_edges=None,
+                 pre_padded_valid=None, unpad: bool = True,
+                 edge_pad: int | None = None,
                  health_check: bool = False, health_retries: int = 3,
                  events: list | None = None, telemetry: bool = False,
                  telemetry_carry=None, pilot_carry=None):
         """Run iterations [start_iter, cfg.iterations); with
         ``checkpoint_every`` and ``checkpoint_cb``,
         ``checkpoint_cb(state, next_iter, losses)`` fires at each segment
-        boundary but the last with the UNPADDED state.  Returns ``(state,
-        losses)``; a sentinel rollback halves ``self.cfg``'s eta as in the
-        JAX class."""
+        boundary but the last with the UNPADDED state (the padded one with
+        ``unpad=False``).  Returns ``(state, losses)``; a sentinel
+        rollback halves ``self.cfg``'s eta as in the JAX class.
+        ``pre_padded_valid``/``edge_pad`` take the multi-controller
+        layout (:meth:`shard_local`); ``state`` may then be padded (its
+        padded rows restart at the origin each segment, as always)."""
         from tsne_flink_tpu_torch.runtime.segments import run_segments
-        self.shard_inputs(jidx, jval, extra_edges)
+        if pre_padded_valid is not None:
+            if extra_edges is not None:
+                raise NotImplementedError(
+                    "split-blocks attraction is single-controller: no rank "
+                    "holds the global reverse block")
+            self.shard_local(jidx, jval, pre_padded_valid, edge_pad)
+            state = TsneState(*(t[:self.n] for t in state))
+        else:
+            if self.axis is not None:
+                raise ValueError("a rank of a multi-controller job takes "
+                                 "pre-padded P rows (pre_padded_valid)")
+            self.shard_inputs(jidx, jval, extra_edges)
         every = (checkpoint_every if checkpoint_every and checkpoint_cb
                  is not None else 0)
+
+        def out(st):
+            return st if unpad else self._pad_inputs(st, None, None)[0]
 
         def boundary(st, next_iter, losses, pilot):
             if pilot is not None:
                 self.pilot_ = tuple(p.cpu().numpy() for p in pilot)
-            checkpoint_cb(st, next_iter, losses)
+            checkpoint_cb(out(st), next_iter, losses)
 
         run = run_segments(state, None, None, self.cfg,
                            start_iter=start_iter, every=every,
@@ -581,7 +836,7 @@ class ShardedOptimizer:
             self.telemetry_ = run.telemetry.cpu().numpy()
         if run.pilot is not None:
             self.pilot_ = tuple(np.asarray(p.cpu()) for p in run.pilot)
-        return run.state, run.losses
+        return out(run.state), run.losses
 
 
 def shard_pipeline(cfg: TsneConfig, n: int, n_devices: int | None = None,

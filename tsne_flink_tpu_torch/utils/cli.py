@@ -32,10 +32,20 @@ the optimize stage on an N-wide point mesh (``parallel/mesh
 .ShardedOptimizer``, with ``--meshReduce``): N distinct CUDA devices, or
 a width past the visible count raises before the input is read; without
 any of them the run takes the single-device path.  An explicit ``--theta``
-past ``EXACT_N_MAX`` runs Barnes-Hut.  Flags of parts not ported yet
-raise ``NotImplementedError`` naming their ROADMAP queue item before the
-input is read (:data:`UNPORTED`).  The port reads no ``TSNE_*``
-environment variable.
+past ``EXACT_N_MAX`` runs Barnes-Hut.
+
+A multi-controller job is N processes, each given ``--spmd
+--coordinator host:port --numProcesses N --processId r`` (all three
+flags or none; ``--numProcesses`` >= 2): each opens the process group
+(``parallel/mesh.distributed_init``: NCCL when every rank has a card of
+its own, else gloo), runs its row shard of the sharded prepare and the
+optimize stage (``parallel/pipeline.SpmdPipeline``, with ``--symWidth``,
+``--symMode``, ``--symSlack``, ``--symStrict``), and rank 0 alone writes
+the embedding, the loss, the checkpoints, ``--trace`` and
+``--metricsOut``.  ``main(device="cpu")`` runs such a rank on the CPU.
+Flags of parts not ported yet raise ``NotImplementedError`` naming their
+ROADMAP queue item before the input is read (:data:`UNPORTED`).  The
+port reads no ``TSNE_*`` environment variable.
 """
 
 from __future__ import annotations
@@ -154,14 +164,27 @@ def build_parser() -> argparse.ArgumentParser:
                         "are visible raises.  Default: one device, the "
                         "single-device path")
     p.add_argument("--symWidth", type=int, default=None,
-                   help="(--spmd only) not ported (ROADMAP queue A14b)")
+                   help="(multi-controller jobs) static symmetrized P-row "
+                        "width; default auto (2*neighbors, escalated to the "
+                        "measured width on overflow).  An explicit value "
+                        "drops a wider row's largest-id entries (warns, or "
+                        "fails with --symStrict)")
     p.add_argument("--symMode", default="replicated",
                    choices=["replicated", "alltoall"],
-                   help="(--spmd only) not ported (ROADMAP queue A14b)")
+                   help="(multi-controller jobs) symmetrization: replicated "
+                        "sort of the gathered kNN graph, or all_to_all-"
+                        "routed transpose edges (footprint independent of "
+                        "the process count)")
     p.add_argument("--symSlack", type=int, default=None,
-                   help="(--spmd only) not ported (ROADMAP queue A14b)")
+                   help="(--symMode alltoall) per-destination capacity "
+                        "headroom factor; default auto (starts at 4, "
+                        "doubles and reruns on overflow).  An explicit value "
+                        "pins it: overflow then warns (or fails, "
+                        "--symStrict)")
     p.add_argument("--symStrict", action="store_true",
-                   help="(--spmd only) not ported (ROADMAP queue A14b)")
+                   help="(multi-controller jobs) fail the run if the "
+                        "symmetrization drops any edge (capacity cap or "
+                        "width overflow) instead of warning")
     p.add_argument("--spmd", action="store_true",
                    help="DEPRECATED alias of --mesh N: runs the mesh over "
                         "--devices (or all visible) devices, with a "
@@ -255,22 +278,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the optimize stage under torch.profiler and "
                         "write its Chrome trace into this directory")
     p.add_argument("--coordinator", default=None,
-                   help="not ported (ROADMAP queue A14b)")
+                   help="multi-controller job: host:port of the process "
+                        "group's rendezvous (rank 0 listens there), with "
+                        "--numProcesses and --processId and --spmd")
     p.add_argument("--numProcesses", type=int, default=None,
-                   help="not ported (ROADMAP queue A14b)")
+                   help="multi-controller job: the number of processes "
+                        "(ranks), >= 2")
     p.add_argument("--processId", type=int, default=None,
-                   help="not ported (ROADMAP queue A14b)")
+                   help="multi-controller job: this process's rank")
     return p
 
 
 #: (flag, is it set, ROADMAP queue item) of every part not ported yet
 UNPORTED = (
-    ("--symWidth/--symMode/--symSlack/--symStrict",
-     lambda a: (a.symWidth is not None or a.symMode != "replicated"
-                or a.symSlack is not None or a.symStrict), "A14b"),
-    ("--coordinator/--numProcesses/--processId",
-     lambda a: (a.coordinator, a.numProcesses, a.processId)
-     != (None, None, None), "A14b"),
     ("--auditPlan", lambda a: a.auditPlan is not None, "A16"),
     ("--executionPlan", lambda a: a.executionPlan, "A16"),
     ("--dtype bfloat16", lambda a: a.dtype == "bfloat16", "§C"),
@@ -378,6 +398,25 @@ def _write_obs_outputs(trace_path, metrics_path, telemetry=None) -> None:
               file=sys.stderr)
 
 
+def run_config(args, n: int, device) -> "TsneConfig":
+    """This invocation's ``TsneConfig`` for ``n`` points on ``device``
+    (theta defaults to 0.25, ``Tsne.scala:59``; the repulsion resolved by
+    :func:`pick_repulsion`)."""
+    from tsne_flink_tpu_torch.models.tsne import TsneConfig
+    theta = args.theta if args.theta is not None else 0.25
+    return TsneConfig(
+        n_components=args.nComponents, perplexity=args.perplexity,
+        early_exaggeration=args.earlyExaggeration,
+        learning_rate=args.learningRate, iterations=args.iterations,
+        initial_momentum=args.initialMomentum,
+        final_momentum=args.finalMomentum, theta=theta, metric=args.metric,
+        repulsion=pick_repulsion(args.repulsion, theta, n, args.nComponents,
+                                 args.theta is not None,
+                                 backend=device.type),
+        attraction=args.attraction, bh_gate=args.bhGate,
+        autopilot=args.autopilot)
+
+
 def run_plan(args, cfg, n: int, d: int, assembly: str, neighbors: int,
              backend: str, mesh: int = 1):
     """This invocation as the memory model's PlanConfig (the supervisor's
@@ -394,6 +433,27 @@ def run_plan(args, cfg, n: int, d: int, assembly: str, neighbors: int,
         repulsion=cfg.repulsion, theta=cfg.theta, assembly=assembly,
         attraction=cfg.attraction, row_chunk=cfg.row_chunk,
         mesh=int(mesh), autopilot=bool(cfg.autopilot), name="cli-launch")
+
+
+def check_multihost(args, parser) -> bool:
+    """The JAX CLI's checks of the multi-host flags (exit 2 on a misuse);
+    True for a multi-controller job."""
+    multihost = (args.coordinator, args.numProcesses, args.processId)
+    if all(v is None for v in multihost):
+        return False
+    if any(v is None for v in multihost):
+        parser.error(
+            "--coordinator, --numProcesses and --processId must be given "
+            "together (on every process of the job) or not at all")
+    if not args.spmd:
+        parser.error(
+            "multi-host flags (--coordinator/--numProcesses/--processId) "
+            "require --spmd: the host-staged pipeline is single-controller")
+    if args.numProcesses < 2:
+        parser.error(
+            "--numProcesses must be >= 2 for a multi-host job; drop the "
+            "multi-host flags entirely for single-process runs")
+    return True
 
 
 def resolve_mesh(args, device, mesh_devices=None):
@@ -466,7 +526,7 @@ def main(argv=None, *, device=None, mesh_devices=None) -> int:
 
     prev_trace = obtrace.enabled_override()
     prev_cache = kbuild.cache_enabled()
-    state = {"watchdog": None}
+    state = {"watchdog": None, "group": False}
     sp_run = obtrace.begin("cli.run", cat="cli")
     try:
         return _main(argv, device, sp_run, state, mesh_devices)
@@ -474,6 +534,10 @@ def main(argv=None, *, device=None, mesh_devices=None) -> int:
         sp_run.end()
         if state["watchdog"] is not None:
             state["watchdog"].stop()
+        if state["group"]:
+            import torch.distributed as dist
+            if dist.is_initialized():
+                dist.destroy_process_group()
         faults.activate(None)
         kbuild.set_cache(prev_cache)
         obtrace.set_enabled(prev_trace)
@@ -481,7 +545,7 @@ def main(argv=None, *, device=None, mesh_devices=None) -> int:
 
 def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
     from tsne_flink_tpu_torch.kernels import build as kbuild
-    from tsne_flink_tpu_torch.models.tsne import (TsneConfig, _plan_layout,
+    from tsne_flink_tpu_torch.models.tsne import (_plan_layout,
                                                   init_working_set)
     from tsne_flink_tpu_torch.obs import trace as obtrace
     from tsne_flink_tpu_torch.runtime import faults
@@ -495,6 +559,7 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
     refuse_unported(args)
+    multi_controller = check_multihost(args, parser)
     if args.transform or args.model:
         if not (args.transform and args.model):
             parser.error("--transform and --model go together: --model is "
@@ -522,9 +587,14 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
             "(a limit of ROADMAP §C)")
     dtype, np_dtype = ((torch.float64, np.float64) if args.dtype == "float64"
                        else (torch.float32, np.float32))
+    if multi_controller:
+        from tsne_flink_tpu_torch.parallel.mesh import distributed_init
+        state["group"] = True
+        distributed_init(args.coordinator, args.numProcesses, args.processId,
+                         device=device)
+        return _spmd_job(args, device, sp_run, wd, trace_path, dtype,
+                         np_dtype)
     mesh = resolve_mesh(args, device, mesh_devices)
-    theta_explicit = args.theta is not None
-    theta = args.theta if theta_explicit else 0.25  # Tsne.scala:59
     assembly = args.affinityAssembly or "auto"
     neighbors = (args.neighbors if args.neighbors is not None
                  else 3 * int(args.perplexity))
@@ -549,16 +619,7 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
     n = len(ids)
     secs["ingest"] = time.perf_counter() - t0
 
-    repulsion = pick_repulsion(args.repulsion, theta, n, args.nComponents,
-                               theta_explicit, backend=device.type)
-    cfg = TsneConfig(
-        n_components=args.nComponents, perplexity=args.perplexity,
-        early_exaggeration=args.earlyExaggeration,
-        learning_rate=args.learningRate, iterations=args.iterations,
-        initial_momentum=args.initialMomentum,
-        final_momentum=args.finalMomentum, theta=theta, metric=args.metric,
-        repulsion=repulsion, attraction=args.attraction, bh_gate=args.bhGate,
-        autopilot=args.autopilot)
+    cfg = run_config(args, n, device)
     runner = None
     if mesh is not None:
         from tsne_flink_tpu_torch.parallel.mesh import ShardedOptimizer
@@ -719,6 +780,113 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
                        run.telemetry if args.telemetry else None)
     print(f"embedded {n} points -> {args.output} "
           f"({sp_run.seconds:.2f}s total, backend={device.type})")
+    return 0
+
+
+def _spmd_job(args, device, sp_run, wd, trace_path, dtype, np_dtype) -> int:
+    """The multi-controller route (the JAX CLI's ``multi_controller``
+    branch): this rank's shard of ``parallel/pipeline.SpmdPipeline``;
+    rank 0 alone writes."""
+    import json
+
+    from tsne_flink_tpu_torch.ops.knn import resolve_knn_plan
+    from tsne_flink_tpu_torch.parallel.pipeline import SpmdPipeline
+    from tsne_flink_tpu_torch.runtime.supervisor import Supervisor
+    from tsne_flink_tpu_torch.utils import artifacts as art
+    from tsne_flink_tpu_torch.utils import checkpoint as ckpt
+    from tsne_flink_tpu_torch.utils import io as tio
+
+    assembly = args.affinityAssembly or "auto"
+    if assembly in ("sorted", "split"):
+        print(f"# --affinityAssembly {assembly} is ignored in "
+              "multi-controller jobs (symmetrization is chosen by "
+              "--symMode)", file=sys.stderr)
+        assembly = "auto"
+    if assembly == "blocks":
+        raise SystemExit("--affinityAssembly blocks is single-controller "
+                         "(the host re-slices the reverse block per shard, "
+                         "which no rank of a multi-controller job holds); "
+                         "it runs on any single-controller mesh width")
+    if args.transform or args.model:
+        raise SystemExit("--model/--transform serve a frozen map in one "
+                         "process; drop the multi-host flags")
+    neighbors = (args.neighbors if args.neighbors is not None
+                 else 3 * int(args.perplexity))
+    cache = None if args.noCache else art.ArtifactCache(args.cacheDir)
+    if args.inputDistanceMatrix:
+        ids, idx, dist = tio.read_distance_matrix(args.input)
+        n = len(ids)
+        neighbors = int(idx.shape[1])
+        data = (torch.as_tensor(idx), torch.as_tensor(dist.astype(np_dtype)))
+        knn_method = "precomputed"
+    else:
+        ids, x64 = tio.read_input(args.input, args.dimension)
+        n = len(ids)
+        data = torch.as_tensor(x64.astype(np_dtype))
+        del x64
+        knn_method, _, _ = resolve_knn_plan(
+            n, int(args.dimension), args.knnMethod, args.knnIterations,
+            args.knnRefine, k=neighbors, backend=device.type)
+    cfg = run_config(args, n, device)
+    supervisor = Supervisor(
+        run_plan(args, cfg, n, args.dimension, assembly, neighbors,
+                 device.type, args.numProcesses),
+        max_retries=args.maxRetries, on_oom=args.onOom,
+        health_check=args.healthCheck)
+    width = args.mesh if args.mesh is not None else args.devices
+    pipe = SpmdPipeline(cfg, n, args.dimension, neighbors,
+                        knn_method=knn_method, knn_rounds=args.knnIterations,
+                        knn_refine=args.knnRefine, sym_width=args.symWidth,
+                        sym_mode=args.symMode, sym_slack=args.symSlack,
+                        sym_strict=args.symStrict, n_devices=width,
+                        artifact_cache=cache, device=device,
+                        mesh_reduce=args.meshReduce)
+    lead = pipe.rank == 0
+    with _profiled(args.profile if lead else None, device):
+        if (args.resume or args.checkpoint or args.healthCheck
+                or args.telemetry):
+            # the segmented form: the sentinel's flag and the telemetry
+            # trace are read at segment boundaries
+            start_iter, loss_carry, resume_state, prior = 0, None, None, None
+            if args.resume:
+                start_iter, loss_carry, resume_state, payload, _ = \
+                    _load_resume(args.resume, n, dtype, device)
+                raw = (payload or {}).get("events")
+                prior = json.loads(str(raw)) if raw else None
+
+            def save(st, next_iter, losses):
+                if wd is not None:
+                    wd.beat("optimize")
+                if args.checkpoint:
+                    ckpt.save(args.checkpoint, st, next_iter, losses,
+                              _payload_with_events({}, supervisor, prior))
+
+            every = (args.checkpointEvery if (args.checkpoint or wd)
+                     and args.checkpointEvery > 0 else 0)
+            state1, losses = pipe.run_checkpointable(
+                data, args.randomState, start_iter=start_iter,
+                loss_carry=loss_carry, resume_state=resume_state,
+                checkpoint_every=every, checkpoint_cb=save,
+                health_check=args.healthCheck, events=supervisor.events,
+                telemetry=args.telemetry)
+            y = state1.y[:n]
+            if args.checkpoint and lead:
+                ckpt.save(args.checkpoint,
+                          type(state1)(*(t[:n] for t in state1)),
+                          cfg.iterations, losses,
+                          _payload_with_events({}, supervisor, prior))
+        else:
+            y, losses = pipe(data, args.randomState)
+    if not lead:
+        return 0
+    tio.write_embedding(args.output, ids, y.cpu().numpy())
+    tio.write_loss(args.loss, losses.cpu().numpy())
+    sp_run.end()
+    _write_obs_outputs(trace_path, args.metricsOut,
+                       pipe._runner.telemetry_ if args.telemetry else None)
+    print(f"embedded {n} points -> {args.output} ({sp_run.seconds:.2f}s "
+          f"total, spmd over {pipe.n_devices} process(es), "
+          f"backend={device.type})")
     return 0
 
 
