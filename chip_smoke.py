@@ -222,6 +222,16 @@ Phases, in order; any failure exits non-zero before the result line:
    command line with and without ``--trace --metricsOut --profile``
    (the same bits, launches and host reads; the JAX span names).
 
+Inside phase 8c, after its gate 1, ``[analysis]`` (queue A16): config
+2's command line with ``--auditPlan`` at the kNN graph's width bound
+(the gate's report and seconds, the predicted peak within [1, 2]x of
+the measured one, the same bits and launches) and as users give it (its
+predicted / measured peak printed, not gated), a plan the memory model
+puts above the card (1M x 2 points, k = 1,024, sorted) refused with the
+JAX message before any launch, ``--executionPlan`` at 60k (the JSON, no
+CSV, B2 and B3 on the iteration, B4 on the KL pass), and the analysis
+entry point's ``--audit`` on the card, clean.
+
 The widths at which B5 and B4 are held: the latent blobs' [N, S] rows
 (S ~ 146), the blobs' [N, S] rows (S ~ 3,466: what attraction="rows"
 runs there) and the blocks layout's forward block (W = k = 90).
@@ -1998,6 +2008,9 @@ def phase_cli(x_np, xl_np, full, rows, project, y_bh):
         check(counts == counts_p, f"[cli] gate 1: launches {counts} != "
               f"[project]'s {counts_p}")
 
+        # [analysis] (queue A16) on this command line and input
+        phase_analysis(x_np, argv, config2, y, counts, tmp)
+
         # gate 8: the mesh flags (queue A14a) on the same command line
         mesh_cli_gates(x_np, argv, run_cli, config2)
 
@@ -2104,6 +2117,184 @@ def phase_cli(x_np, xl_np, full, rows, project, y_bh):
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
+
+
+def _cli_captured(argv, cwd=None):
+    """``utils/cli.main(argv)`` with its stdout and stderr captured and
+    echoed, its launches counted from 0 just before it: (exit code or the
+    SystemExit message, stdout, launches, seconds, allocated peak less
+    what was allocated before)."""
+    import io as _io
+
+    import torch
+    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
+    from tsne_flink_tpu_torch.utils.cli import main as cli_main
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out, err = _io.StringIO(), _io.StringIO()
+    here = os.getcwd()
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        if cwd is not None:
+            os.chdir(cwd)
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = cli_main(argv)
+    except SystemExit as e:
+        rc = str(e)
+    finally:
+        os.chdir(here)
+    secs = time.perf_counter() - t0
+    counts = launches()
+    peak = torch.cuda.max_memory_allocated() - before
+    for line in (out.getvalue() + err.getvalue()).splitlines():
+        print(f"[analysis]   {line}")
+    return rc, out.getvalue(), counts, secs, peak
+
+
+def phase_analysis(x_np, argv, config2, y_c2, counts_c2, tmp):
+    """[analysis] (queue A16): the analysis tier on the card.
+    1. ``--auditPlan`` on config 2's command line at the kNN graph's row
+       width bound (``--symWidth``): its report, the predicted peak within
+       [1, 2]x of the measured one, the bits and launches of the run
+       without the flag (``y_c2``, ``counts_c2``), the gate's seconds;
+       then on the command line as users give it (no ``--symWidth``: the
+       model takes rows of 2k), its predicted / measured peak printed,
+       not gated, and its bits and launches held as well;
+    2. a plan the model puts above the card (1M x 2 points, ``--neighbors
+       1024 --affinityAssembly sorted``): refused with the JAX message,
+       no kernel launched;
+    3. ``--executionPlan`` at 60k: the JSON, no CSV, its ops B2 and B3 on
+       the iteration, then B4 on the KL pass;
+    4. ``python -m tsne_flink_tpu_torch.analysis --audit``'s entry point
+       on the card, in this process: clean, its seconds."""
+    import re
+
+    import torch
+    from tsne_flink_tpu_torch.analysis.audit.record import kernel_steps
+    from tsne_flink_tpu_torch.ops.affinities import width_bound
+    from tsne_flink_tpu_torch.utils.artifacts import prepare
+
+    t_phase = time.perf_counter()
+    # 1: the gate at the width the run's graph bounds
+    prep = prepare(torch.as_tensor(x_np, device="cuda"), neighbors=K,
+                   knn_method="project", seed=0, perplexity=PERPLEXITY,
+                   device="cuda")
+    w = width_bound(prep.idx)
+    del prep
+    torch.cuda.empty_cache()
+    rc, out, counts, secs, peak = _cli_captured(argv(
+        "audit.csv", *config2, "--noCache", "--auditPlan", "--symWidth",
+        str(w)))
+    check(rc == 0, f"[analysis] the audited run: {rc}")
+    got = re.search(r"# auditPlan: peak HBM est ([0-9.]+) GiB in '(\w+)' "
+                    r"vs ([0-9.]+) GiB budget", out)
+    gate = re.search(r"# auditPlan: gate ([0-9.]+) s", out)
+    check(got is not None and gate is not None,
+          "[analysis] the gate's report lines are missing")
+    for key in ("# auditPlan:   knn:", "# auditPlan:   affinities:",
+                "# auditPlan:   optimize:", "# auditPlan: determinism: 0 "
+                "unblessed", "# auditPlan: comms: mode canonical"):
+        check(key in out, f"[analysis] the gate printed no '{key}'")
+    pred = float(got.group(1)) * 2**30
+    ratio = pred / peak
+    y_a = native_embedding(argv("audit.csv")[3])
+    print(f"[analysis] 1. --auditPlan at width bound {w}: gate "
+          f"{float(gate.group(1)):.3f} s, predicted {pred / 2**30:.3f} GiB "
+          f"in '{got.group(2)}' vs measured {peak / 2**30:.3f} GiB "
+          f"allocated (x{ratio:.3f}); run {secs:.3f} s, launches "
+          f"{json.dumps(counts)}")
+    check(1.0 <= ratio <= 2.0,
+          f"[analysis] predicted / measured peak {ratio:.3f} outside [1, 2]")
+    check(same_bits(y_a, y_c2) and counts == counts_c2,
+          "[analysis] --auditPlan changed the run's bits or launches")
+    # 1b: the same command line as given: the model's default row width
+    rc, out, counts, secs, peak = _cli_captured(argv(
+        "audit_given.csv", *config2, "--noCache", "--auditPlan"))
+    check(rc == 0, f"[analysis] the audited run as given: {rc}")
+    got = re.search(r"# auditPlan: peak HBM est ([0-9.]+) GiB in '(\w+)' "
+                    r"vs ([0-9.]+) GiB budget", out)
+    gate = re.search(r"# auditPlan: gate ([0-9.]+) s", out)
+    check(got is not None and gate is not None,
+          "[analysis] the gate's report lines are missing (as given)")
+    pred = float(got.group(1)) * 2**30
+    y_a = native_embedding(argv("audit_given.csv")[3])
+    print(f"[analysis] 1b. --auditPlan as given (rows of 2k): gate "
+          f"{float(gate.group(1)):.3f} s, predicted {pred / 2**30:.3f} GiB "
+          f"in '{got.group(2)}' vs measured {peak / 2**30:.3f} GiB "
+          f"allocated (x{pred / peak:.3f}, not gated); run {secs:.3f} s")
+    check(same_bits(y_a, y_c2) and counts == counts_c2,
+          "[analysis] --auditPlan as given changed the run's bits or "
+          "launches")
+
+    # 2: a predicted OOM, refused before any launch
+    rng = np.random.default_rng(5)
+    big = os.path.join(tmp, "big.csv")
+    write_coo(big, (rng.random((1_000_000, 2)) * 100.0).astype(np.float32))
+    rc, out, counts, secs, _ = _cli_captured([
+        "--input", big, "--output", os.path.join(tmp, "big_out.csv"),
+        "--dimension", "2", "--knnMethod", "bruteforce", "--neighbors",
+        "1024", "--affinityAssembly", "sorted", "--noCache", "--auditPlan"])
+    print(f"[analysis] 2. 1M x 2, k = 1024, sorted: refused in {secs:.3f} "
+          f"s, launches {json.dumps(counts)}")
+    check(isinstance(rc, str) and rc.startswith("plan predicted to OOM")
+          and "--auditPlan=warn" in rc,
+          f"[analysis] the predicted OOM was not refused: {rc}")
+    check(not any(counts.values()), "[analysis] the refused plan launched")
+    check(not os.path.exists(os.path.join(tmp, "big_out.csv")),
+          "[analysis] the refused plan wrote its output")
+    os.remove(big)
+
+    # 3: the execution plan at 60k
+    rc, out, counts, secs, _ = _cli_captured(
+        argv("plan.csv", "--knnMethod", "bruteforce", "--noCache",
+             "--executionPlan"), cwd=tmp)
+    path = os.path.join(tmp, "tsne_executionPlan.json")
+    check(rc == 0 and os.path.exists(path),
+          f"[analysis] --executionPlan: {rc}")
+    with open(path) as f:
+        plan = json.load(f)
+    steps = kernel_steps(plan["ops"])
+    it = kernel_steps([r for r in plan["ops"] if r["section"] == "iteration"])
+    kl = kernel_steps([r for r in plan["ops"] if r["section"] == "kl_pass"])
+    print(f"[analysis] 3. --executionPlan: {os.path.getsize(path)} bytes, "
+          f"{len(plan['ops'])} ops, program {plan['program']} on "
+          f"{plan['backend']} x{plan['devices']}, kernel steps: iteration "
+          f"{it}, KL pass {kl}; {secs:.3f} s")
+    check(it == ["B2", "B3"] and kl[-1:] == ["B4"]
+          and steps.index("B4") > steps.index("B3"),
+          f"[analysis] the plan's kernel steps {steps}")
+    check(plan["backend"] == "cuda" and not os.path.exists(
+        os.path.join(tmp, "plan.csv")), "[analysis] --executionPlan wrote "
+          "the output CSV, or names another backend")
+
+    # 4: the audit tier on the card: ``python -m
+    # tsne_flink_tpu_torch.analysis --audit``'s main, in this process (the
+    # process start and PyTorch's lazy imports are paid already)
+    import io as _io
+    from tsne_flink_tpu_torch.analysis.__main__ import main as analysis_main
+    out = _io.StringIO()
+    here = os.getcwd()
+    t0 = time.perf_counter()
+    try:
+        os.chdir(ROOT)
+        with contextlib.redirect_stdout(out):
+            rc = analysis_main(["--audit"])
+    finally:
+        os.chdir(here)
+    secs = time.perf_counter() - t0
+    for line in out.getvalue().splitlines()[-12:]:
+        print(f"[analysis]   {line}")
+    print(f"[analysis] 4. --audit on the card: exit {rc}, {secs:.1f} s")
+    check(rc == 0, "[analysis] --audit on the card: "
+          + out.getvalue()[-2000:])
+    print(f"[analysis] {time.perf_counter() - t_phase:.1f} s")
+
+
+def native_embedding(path):
+    from tsne_flink_tpu_torch.utils import native
+    return native.load_coo(path)[:, 1:].astype(np.float32)
 
 
 def refine_split(tag, stats, chunks, chunk_ms):

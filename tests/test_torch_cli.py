@@ -4,9 +4,10 @@
   ``tsne_flink_tpu.utils.cli.build_parser``;
 * ``pick_repulsion(backend="cpu")`` equals the JAX function over a grid of
   (mode, theta, explicit, n, m);
-* every flag of a part not ported yet raises ``NotImplementedError``
-  naming its ROADMAP queue item before the input is read (the input path
-  does not exist); the runtime and observability flags run; ``auto`` with an explicit --theta past EXACT_N_MAX runs
+* every flag of a part not ported raises ``NotImplementedError`` naming
+  its ROADMAP item before the input is read (the input path does not
+  exist); the analysis flags (``--auditPlan``, ``--executionPlan``), the
+  runtime and the observability flags run; ``auto`` with an explicit --theta past EXACT_N_MAX runs
   Barnes-Hut; --model and --transform (the serve route) go together, and
   a fat checkpoint serves query rows through them;
 * on a 600-point COO file (bruteforce, project, and the kNN graph as
@@ -118,10 +119,7 @@ def test_pick_repulsion_cuda():
     assert tcli.pick_repulsion("auto", 0.25, 10 * top, 5) == "exact"
 
 
-REFUSED = [
-    (["--auditPlan"], "A16"),
-    (["--executionPlan"], "A16"), (["--dtype", "bfloat16"], "§C"),
-]
+REFUSED = [(["--dtype", "bfloat16"], "§C")]
 
 
 @pytest.mark.parametrize("extra,item", REFUSED,
@@ -134,6 +132,32 @@ def test_unported_flags_refused_before_the_input_is_read(tmp_path, extra,
     with pytest.raises(NotImplementedError, match=item):
         tcli.main(argv, device="cpu")
     assert not (tmp_path / "o.csv").exists()
+
+
+#: the analysis flags (ported, queue A16): each runs, and before the kNN
+#: stage on the plan it refuses (the JAX CLI's messages)
+ANALYSIS_FLAGS = [["--auditPlan"], ["--executionPlan"]]
+
+
+@pytest.mark.parametrize("extra", ANALYSIS_FLAGS,
+                         ids=[" ".join(e) for e in ANALYSIS_FLAGS])
+def test_analysis_flags_run(files, tmp_path, monkeypatch, capsys, extra):
+    monkeypatch.chdir(tmp_path)
+    argv = ["--input", str(files["coo"]), "--output", str(tmp_path / "o.csv"),
+            "--dimension", str(D), "--knnMethod", "bruteforce",
+            "--perplexity", str(PERPLEXITY), "--iterations", "30",
+            "--noCache", "--loss", str(tmp_path / "loss.txt"), *extra]
+    assert tcli.main(argv, device="cpu") == 0
+    out = capsys.readouterr().out
+    if extra == ["--auditPlan"]:
+        assert "# auditPlan: peak HBM est" in out
+        assert (tmp_path / "o.csv").exists()
+    else:
+        assert "execution plan written to tsne_executionPlan.json" in out
+        assert (tmp_path / "tsne_executionPlan.json").exists()
+        assert not (tmp_path / "o.csv").exists()
+        with pytest.raises(SystemExit, match="does not lower an execution"):
+            tcli.main(argv + ["--affinityAssembly", "blocks"], device="cpu")
 
 
 #: misuses of the multi-host flags, each refused by the parser (exit code

@@ -11,7 +11,9 @@ JAX), against the same job in-process on the thread mesh.
 * the command line: only rank 0 writes; a two-process checkpoint at
   iteration 5, resumed by two processes, equals the uninterrupted run bit
   for bit (the JAX ``tests/test_multiprocess.py``); ``--symSlack 1
-  --symStrict`` ends both ranks non-zero;
+  --symStrict`` ends both ranks non-zero; ``--auditPlan`` refuses a
+  predicted OOM on both ranks, rank 0 alone reports, and the summary
+  rides the checkpoint;
 * a rank that raises ends the other within the group's timeout.
 """
 
@@ -221,6 +223,39 @@ def test_cli_sym_strict_ends_both_ranks(tmp_path):
     assert all(rc != 0 for rc in rcs), logs
     assert all("--symStrict set" in log for log in logs), logs
     assert not os.path.exists(tmp_path / "out0.csv")
+
+
+def test_cli_audit_plan_across_processes(tmp_path):
+    """--auditPlan on the multi-controller route: with the budget pinned
+    to 1 byte in each rank (the tiny job's peak is kilobytes), both ranks refuse the predicted OOM with the
+    JAX message and write nothing; under no budget rank 0 alone prints
+    the report, and the plan's summary rides rank 0's checkpoint."""
+    from tsne_flink_tpu_torch.utils import checkpoint as ckpt
+    x = _blobs()
+    _write_coo(tmp_path / "x.csv", x)
+    rcs, _, logs = _job(2, dict(kind="cli", hbm_budget=1), argvs=[
+        _cli_argv(tmp_path, r, "--auditPlan") for r in range(2)])
+    assert all(rc != 0 for rc in rcs), logs
+    for log in logs:
+        assert "plan predicted to OOM: peak HBM estimate" in log, log
+        assert "--auditPlan=warn" in log, log
+    assert "# auditPlan: peak HBM est" in logs[0]
+    assert "# auditPlan:" not in logs[1]
+    assert not os.path.exists(tmp_path / "out0.csv")
+    ck = str(tmp_path / "ck.npz")
+    rcs, _, logs = _job(2, dict(kind="cli"), argvs=[
+        _cli_argv(tmp_path, r, "--auditPlan", "--checkpoint", ck)
+        for r in range(2)])
+    assert rcs == [0, 0], logs
+    for key in ("# auditPlan: plan: knn_method=bruteforce",
+                "mesh=2", "# auditPlan: determinism: 0 unblessed",
+                "# auditPlan: comms: mode canonical"):
+        assert key in logs[0], (key, logs[0])
+    assert "# auditPlan:" not in logs[1]
+    summary = json.loads(str(ckpt.load_resume(ck)[3]["audit"]))
+    assert {"peak_hbm_est", "peak_stage", "hbm_budget", "ok",
+            "compile_count", "determinism", "comms"} == set(summary)
+    assert summary["ok"] is True and summary["comms"]["mesh"] == 2
 
 
 def test_a_raising_rank_ends_the_other(tmp_path):

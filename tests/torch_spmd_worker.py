@@ -10,7 +10,8 @@
   (``[method, sym_mode, attraction]``), saving ``y_<arm>_<rank>.npy`` and
   the runner's layout, then, given ``estimator`` (keywords),
   ``TSNE(spmd=True, ...)`` (``y_est_<rank>.npy``);
-* ``cli`` — ``utils/cli.main(argv, device="cpu")`` with ``argv``;
+* ``cli`` — ``utils/cli.main(argv, device="cpu")`` with ``argv`` (given
+  ``hbm_budget``, the memory model's device budget is that many bytes);
 * ``raise`` — rank ``fail`` raises before its first collective, the other
   ranks run the ``pipeline`` kind.
 """
@@ -59,6 +60,9 @@ def main():
     torch.set_num_threads(1)
     if spec["kind"] == "cli":
         from tsne_flink_tpu_torch.utils.cli import main as cli_main
+        if spec.get("hbm_budget"):  # the memory model's budget, pinned
+            from tsne_flink_tpu_torch.analysis.audit.plan import PlanConfig
+            PlanConfig.hbm_budget = lambda self: spec["hbm_budget"]
         return cli_main(spec["argv"], device="cpu")
     from tsne_flink_tpu_torch.parallel.mesh import distributed_init
     distributed_init(spec["coordinator"], spec["world"], spec["rank"],

@@ -36,6 +36,9 @@ from __future__ import annotations
 import math
 
 from tsne_flink_tpu_torch.analysis.audit.plan import PlanConfig
+from tsne_flink_tpu_torch.analysis.core import Finding
+
+RULE = "hbm-footprint"
 
 #: the factor the JAX model charges a pipelined transient tile
 PIPELINE_FACTOR = 2
@@ -625,3 +628,23 @@ def plan_hbm_report(plan: PlanConfig) -> dict:
         "hbm_budget": budget,
         "ok": budget is None or peak <= budget,
     }
+
+
+def audit_hbm(plans) -> tuple[list[Finding], dict]:
+    """Run the memory model over ``plans``; an over-budget plan is a
+    finding (the OOM gate ``--auditPlan`` enforces), with the JAX
+    package's message."""
+    findings, reports = [], {}
+    for plan in plans:
+        rep = plan_hbm_report(plan)
+        reports[plan.name] = rep
+        if not rep["ok"]:
+            findings.append(Finding(
+                RULE, f"plan:{plan.name}", 1, 0,
+                f"predicted peak HBM {rep['peak_hbm_est_gib']} GiB in the "
+                f"'{rep['peak_stage']}' stage exceeds the "
+                f"{_gib(rep['hbm_budget'])} GiB {plan.backend} budget — "
+                "this plan is predicted to OOM (shrink the footprint: "
+                "assembly=blocks, a narrower sym_width, or shard the point "
+                "axis)"))
+    return findings, reports

@@ -152,3 +152,12 @@ class PlanConfig:
     def from_json(cls, path: str) -> "PlanConfig":
         with open(path, encoding="utf-8") as f:
             return cls.from_dict(json.load(f))
+
+
+def bench_plan(n: int = 60_000, d: int = 784, k: int = 90,
+               backend: str = "cuda", **kw) -> PlanConfig:
+    """The headline workload (the smoke's 60k x 784 blobs, config 2's
+    shape) as a PlanConfig."""
+    return PlanConfig(n=n, d=d, k=k, backend=backend,
+                      name=kw.pop("name", f"bench-{n // 1000}k-{backend}"),
+                      **kw)

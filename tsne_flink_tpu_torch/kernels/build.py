@@ -35,9 +35,10 @@ import shutil
 import subprocess
 import tempfile
 import threading
-import time
 from dataclasses import dataclass
 from pathlib import Path
+
+from tsne_flink_tpu_torch.obs import trace as obtrace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -179,7 +180,7 @@ def _compile(root: Path, digest: str, out: Path) -> BuildResult:
     tag = f"{digest}.{os.getpid()}"
     objs = [root / f"{src.stem}_{tag}.o" for src in sources()]
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    t0 = time.perf_counter()
+    sp = obtrace.begin("kernels.build", cat="build")
     procs = [subprocess.Popen([nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
                                str(src)], stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
@@ -204,7 +205,8 @@ def _compile(root: Path, digest: str, out: Path) -> BuildResult:
             proc.wait()
         for path in (*objs, tmp):
             path.unlink(missing_ok=True)
-    return BuildResult(out, time.perf_counter() - t0, log)
+        sp.end()
+    return BuildResult(out, sp.seconds, log)
 
 
 _LIBRARY_LOCK = threading.Lock()
@@ -237,8 +239,9 @@ class Kernel:
     ``entry`` calls another C entry point of the same kernel (B1's cross
     sweep), counted as a launch of it."""
 
-    def __init__(self, symbol: str):
+    def __init__(self, symbol: str, kid: str = ""):
         self.symbol = symbol
+        self.kid = kid
         self.launches = 0
         self._lock = threading.Lock()
 
@@ -257,16 +260,22 @@ class Kernel:
                                f"{rc} ({msg})")
         with self._lock:
             self.launches += 1
+        for hook in LAUNCH_HOOKS:
+            hook(self, symbol, args)
 
+
+#: callables ``(kernel, symbol, args)`` told of every counted launch
+#: (``analysis/audit/record``'s hook); empty, at no cost, otherwise
+LAUNCH_HOOKS: list = []
 
 #: the port's kernels by the id of the TPU kernel each replaces
 KERNELS = {
-    "B1": Kernel("tsne_knn_f32"),
-    "B2": Kernel("tsne_repulsion_f32"),
-    "B3": Kernel("tsne_fused_step_f32"),
-    "B4": Kernel("tsne_attraction_loss_f32"),
-    "B5": Kernel("tsne_attraction_forces_f32"),
-    "B6": Kernel("tsne_refine_chunk_f32"),
+    "B1": Kernel("tsne_knn_f32", "B1"),
+    "B2": Kernel("tsne_repulsion_f32", "B2"),
+    "B3": Kernel("tsne_fused_step_f32", "B3"),
+    "B4": Kernel("tsne_attraction_loss_f32", "B4"),
+    "B5": Kernel("tsne_attraction_forces_f32", "B5"),
+    "B6": Kernel("tsne_refine_chunk_f32", "B6"),
 }
 
 

@@ -42,10 +42,8 @@ from tsne_flink_tpu_torch.models.tsne import TsneConfig, tsne_embed
 def _group_size() -> int:
     """The ranks of the open ``torch.distributed`` process group (1 with
     none)."""
-    import torch.distributed as dist
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+    from tsne_flink_tpu_torch.parallel.mesh import group_size
+    return group_size()
 
 
 class TSNE:

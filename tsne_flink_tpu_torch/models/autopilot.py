@@ -90,6 +90,9 @@ def tail_start(cfg: TsneConfig) -> int:
                                        cfg.iterations // 5))
 
 
+# graftlint: disable=policy-recorded -- the port has no bench record;
+# the decision lands in policy_report's landmark block (the run's
+# stats['policy'], TSNE.policy_)
 def pick_landmark(cfg: TsneConfig, n: int, mode: str = "auto") -> bool:
     """Does the landmark schedule run?  ``mode`` ``on``/``off`` forces it;
     ``auto`` runs it under the autopilot from :data:`LANDMARK_MIN_N`."""

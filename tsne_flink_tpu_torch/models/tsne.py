@@ -48,13 +48,13 @@ padding quantum gives the same bits.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from tsne_flink_tpu_torch.obs import trace as obtrace
 from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
 from tsne_flink_tpu_torch.utils.device import resolve_device, timed_stage
 
@@ -444,6 +444,8 @@ def optimize(state: TsneState, jidx, jval, cfg: TsneConfig, *,
         if pilot_carry is not None:
             pvec = torch.as_tensor(pilot_carry[0], dtype=dt, device=dev)
             ptr = torch.as_tensor(pilot_carry[1], dtype=dt, device=dev)
+            # graftlint: disable=host-sync -- the resumed controller's stride
+            # level, read once before the loop (the level a resume starts at)
             level = pilot.read_level(pvec)
         else:
             pvec, ptr = (pilot.pilot_init(cfg, dt, dev),
@@ -522,6 +524,9 @@ def optimize(state: TsneState, jidx, jval, cfg: TsneConfig, *,
             pvec, ptr = pilot.pilot_update(i, gn, pvec, ptr, refresh, slot,
                                            record, cfg)
             if record and i + 1 < end:
+                # graftlint: disable=host-sync -- the step's one host read: the
+                # autopilot's stride level at a report boundary (every 10th
+                # iteration), which picks the next refreshes on the host
                 # the level moves only here: one host read a boundary
                 # (under a mesh, one a shard of the replicated value)
                 level = pilot.read_level(pvec)
@@ -757,11 +762,11 @@ def tsne_embed(x, cfg: TsneConfig | None = None, *,
                        y0=y0, artifact_cache=artifact_cache,
                        knn_autotune=knn_autotune)
     prep, state, plan_layout = run
-    t0 = time.perf_counter()
-    edges, csr, layout = plan_layout()
-    t_plan = timed_stage(device, t0)
+    with obtrace.span("embed.plan", cat="optimize") as sp:
+        edges, csr, layout = plan_layout()
+        t_plan = timed_stage(device, sp)
     n = state.y.shape[0]
-    t0 = time.perf_counter()
+    sp_opt = obtrace.begin("embed.optimize", cat="optimize")
     from tsne_flink_tpu_torch.models.autopilot import (pick_landmark,
                                                        policy_report)
     got, pilots = None, {}
@@ -778,7 +783,8 @@ def tsne_embed(x, cfg: TsneConfig | None = None, *,
         y, losses, info = out[0].y, out[1], None
         if cfg.autopilot:
             pilots["run"] = out[2]
-    t_opt = timed_stage(device, t0)
+    t_opt = timed_stage(device, sp_opt)
+    sp_opt.end()
     if stats is not None:
         stats.update(knn=prep.knn_seconds, affinities=prep.affinity_seconds,
                      plan=t_plan, optimize=t_opt, assembly=prep.label,

@@ -123,6 +123,8 @@ def split_width(idx: torch.Tensor, p: torch.Tensor, return_rev: bool = False):
     emit = (p > 0) & (rev == 0)
     rev_deg = torch.bincount(torch.where(emit, idx.long(), n).reshape(-1),
                              minlength=n + 1)[:n]
+    # graftlint: disable=host-sync -- a data-dependent width: the host
+    # sizes the allocation from it (prepare, once a run)
     c = int(torch.max(rev_deg))
     w = k + (c + 7) // 8 * 8
     return (w, rev) if return_rev else w
@@ -148,6 +150,8 @@ def joint_distribution_split(idx: torch.Tensor, p: torch.Tensor,
         t_s, torch.arange(n + 1, device=idx.device, dtype=t_s.dtype))
     starts, ends = bounds[:n], bounds[1:]
     rev_deg = ends - starts
+    # graftlint: disable=host-sync -- a data-dependent width: the host
+    # sizes the allocation from it (prepare, once a run)
     needed = k + (int(torch.max(rev_deg)) + 7) // 8 * 8
     s = needed if sym_width is None else int(sym_width)
     c = max(0, s - k)
@@ -165,8 +169,11 @@ def joint_distribution_split(idx: torch.Tensor, p: torch.Tensor,
     jidx = torch.where(valid, jidx, 0)
     out = [jidx, jval]
     if return_dropped:
+        # graftlint: disable=host-sync -- the dropped-edge count the caller
+        # reports (prepare, once a run)
         dropped = int(torch.sum(torch.clamp(rev_deg - c, min=0)))
         if s < k:  # forward slots past S are sliced off above
+            # graftlint: disable=host-sync -- the same count, its overflow part
             dropped += int(torch.sum(present[:, s:]))
         out.append(dropped)
     if return_needed:
@@ -183,6 +190,8 @@ def symmetrized_width(idx: torch.Tensor, p: torch.Tensor) -> int:
     n = idx.shape[0]
     present = p > 0
     in_deg = torch.bincount(idx[present].long(), minlength=n)
+    # graftlint: disable=host-sync -- a data-dependent width: the host
+    # sizes the allocation from it (prepare, once a run)
     max_deg = int(torch.max(torch.sum(present, dim=1) + in_deg))
     return max(8, (max_deg + 7) // 8 * 8)
 
@@ -206,6 +215,8 @@ def width_bound(idx: torch.Tensor) -> int:
     ids = idx.reshape(-1)
     ids = torch.where((ids >= 0) & (ids < n), ids, n)
     return row_width_bound(
+        # graftlint: disable=host-sync -- a data-dependent width: the host
+        # sizes the allocation from it (prepare, once a run)
         k, int(torch.max(torch.bincount(ids, minlength=n + 1)[:n])))
 
 
@@ -230,6 +241,8 @@ def assemble_rows(ii: torch.Tensor, jj: torch.Tensor, vv: torch.Tensor,
     dev = vv.device
     ii, jj = ii.long(), jj.long()
     e = ii.shape[0]
+    # graftlint: disable=host-sync -- a data-dependent width: the host
+    # sizes the allocation from it (prepare, once a run)
     span = int(torch.max(jj)) + 1 if e else 1
     _, order = torch.sort(ii * span + jj, stable=True)
     ii, jj, vv = ii[order], jj[order], vv[order]
@@ -248,6 +261,8 @@ def assemble_rows(ii: torch.Tensor, jj: torch.Tensor, vv: torch.Tensor,
     col = run - row_start_run
 
     valid = ii < n_rows
+    # graftlint: disable=host-sync -- a data-dependent width: the host
+    # sizes the allocation from it (prepare, once a run)
     max_deg = int(torch.max(torch.where(first & valid, col, -1))) + 1 \
         if e else 0
     needed = max(8, (max_deg + 7) // 8 * 8)
@@ -260,6 +275,8 @@ def assemble_rows(ii: torch.Tensor, jj: torch.Tensor, vv: torch.Tensor,
     jval[ii[keep], col[keep]] = run_val[keep]
     out = [jidx, jval]
     if return_dropped:
+        # graftlint: disable=host-sync -- the per-band widths of the blocks
+        # layout: each sizes one block's allocation (prepare)
         out.append(int(torch.sum(first & (col >= s) & valid)))
     if return_needed:
         out.append(needed)
@@ -403,6 +420,8 @@ def affinity_auto(idx: torch.Tensor, dist: torch.Tensor, perplexity: float,
 def edge_count(jval: torch.Tensor, multiple: int = 1024) -> int:
     """Count of valid entries of a padded row layout, rounded up to
     ``multiple`` (a host sync; preprocessing only)."""
+    # graftlint: disable=host-sync -- the edge count sizes the flat edge
+    # list (the attraction plan, once a run)
     nnz = int(torch.sum(jval > 0))
     return max(multiple, (nnz + multiple - 1) // multiple * multiple)
 
@@ -482,6 +501,8 @@ def _compact_kept_rows(nbr, vals, keep):
     multiple of 8 (at least 8; one host read).  Each kept entry lands at
     its own slot, so the scatter is deterministic."""
     n = keep.shape[0]
+    # graftlint: disable=host-sync -- a data-dependent width: the host
+    # sizes the allocation from it (prepare, once a run)
     w = int(torch.max(torch.sum(keep, dim=1))) if n else 0
     w = max(8, -(-w // 8) * 8)
     pos = torch.cumsum(keep, dim=1) - 1
@@ -513,6 +534,8 @@ def subsample_affinities(jidx: torch.Tensor, jval: torch.Tensor, landmarks):
     vals = jval[lm]
     keep = (vals > 0) & (rows >= 0)
     sub_idx, sub_val = _compact_kept_rows(rows, vals, keep)
+    # graftlint: disable=host-sync -- the landmark subsample's mass, read
+    # once to renormalize (the landmark schedule's set-up)
     total = float(torch.sum(sub_val))
     if total <= 0.0:
         total = 1.0  # degenerate subset: all-zero rows stay all-zero

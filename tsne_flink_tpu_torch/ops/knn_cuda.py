@@ -120,8 +120,12 @@ def norm_pairs(base: torch.Tensor) -> torch.Tensor:
     """[N + 1, 2] float32: each row's squared norm, summed in float64, as a
     (hi, lo) pair with hi + lo = the float64 value to ~2^-48, then a zero
     row (the kernel copies the pairs two columns at a time)."""
+    # graftlint: disable=dtype-drift -- deliberate: the norms are summed
+    # in float64 and split into an exact (hi, lo) float32 pair (B1's
+    # 3xTF32 contract); nothing float64 leaves this function
     n64 = torch.sum(base.double() ** 2, dim=1)
     hi = n64.float()
+    # graftlint: disable=dtype-drift -- the lo half of the same pair
     pairs = torch.stack([hi, (n64 - hi.double()).float()], dim=1)
     return torch.nn.functional.pad(pairs, (0, 0, 0, 1)).contiguous()
 

@@ -19,7 +19,6 @@ graph, and the band block is pinned.
 from __future__ import annotations
 
 import math
-import time
 from dataclasses import asdict, dataclass, replace
 
 #: usable working-set budget per backend when the caller passes no
@@ -139,6 +138,8 @@ def project_block_group(b: int, d: int, k: int, backend: str,
     return max(1, int(_tile_budget(backend, hbm_bytes) // per))
 
 
+# graftlint: disable=policy-recorded -- the resolved plan is printed by
+# the CLI ('# knn tiles:') and returned by prepare (knn_tiles)
 def pick_knn_tiles(n: int, d: int, k: int, backend: str = "cuda",
                    hbm_bytes: int | None = None) -> KnnTilePlan:
     """Analytic tile plan for the kNN stage on ``backend`` (``cuda`` or
@@ -178,6 +179,7 @@ def autotune_knn_tiles(x, k: int, metric: str = "sqeuclidean", *,
     returns ``plan``."""
     import torch
 
+    from tsne_flink_tpu_torch.obs import trace as obtrace
     from tsne_flink_tpu_torch.ops.knn import (backend_of, knn_project,
                                               knn_refine, pick_knn_filter)
     from tsne_flink_tpu_torch.utils.device import timed_stage
@@ -211,8 +213,11 @@ def autotune_knn_tiles(x, k: int, metric: str = "sqeuclidean", *,
             return knn_refine(xs, seed_i, seed_d, metric, rounds=1,
                               generator=gen(), row_chunk=c, **funnel)
         probe()
-        t0 = time.perf_counter()
-        probe()
-        seconds[c] = timed_stage(x.device, t0)
+        with obtrace.span("knn.autotune_probe", cat="knn",
+                          refine_chunk=c) as sp:
+            probe()
+            # graftlint: disable=host-sync -- deliberate: the autotuner IS a
+            # timing probe (off by default: --knnAutotune)
+            seconds[c] = timed_stage(x.device, sp)
     return replace(plan, refine_chunk=min(seconds, key=seconds.get),
                    source="autotune")

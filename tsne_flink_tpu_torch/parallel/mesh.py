@@ -56,6 +56,7 @@ for its sums), so every rank, thread or process, holds the same bits.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import math
 import threading
@@ -82,6 +83,24 @@ MESH_REDUCE_MODES = ("canonical", "psum")
 #: at once on the closed connection, or after this timeout), so no job
 #: hangs
 PROCESS_GROUP_TIMEOUT_S = 300.0
+
+#: callables ``(kind, axis, x)`` told of every collective a shard issues
+#: (``analysis/audit/record``'s hook); empty, at no cost, otherwise
+COLLECTIVE_HOOKS: list = []
+#: context factories ``(shard index) -> context manager`` each shard
+#: thread enters around its work (the recorder's per-thread dispatch
+#: mode: PyTorch's modes are per thread); empty otherwise
+SHARD_CONTEXTS: list = []
+
+
+def _note(kind: str, axis, x) -> None:
+    for hook in COLLECTIVE_HOOKS:
+        hook(kind, axis, x)
+
+
+class CollectiveMismatch(RuntimeError):
+    """A shard issued a collective after another shard had ended: the
+    shards' sequences of collectives differ."""
 
 
 def padded_rows_for(n: int, n_devices: int) -> int:
@@ -213,6 +232,21 @@ def distributed_init(coordinator: str | None = None,
     return dev
 
 
+def group_size() -> int:
+    """The ranks of the open process group (1 with none)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def close_group() -> None:
+    """Close this process's process group, if one is open."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+
+
 def pad_rows(a: torch.Tensor, n_pad: int, fill=0) -> torch.Tensor:
     """``a`` with ``n_pad`` rows of ``fill`` appended."""
     if n_pad == 0:
@@ -231,9 +265,35 @@ class _Rendezvous:
         self._barrier = threading.Barrier(self.size)
         self._slots = ([None] * self.size, [None] * self.size)
         self._count = [0] * self.size  # each shard's exchanges so far
+        # a shard that ends while another has entered an exchange it will
+        # never join breaks the barrier, so shards whose collectives
+        # differ raise instead of hanging
+        self._state = threading.Lock()
+        self._done: set = set()
 
     def abort(self) -> None:
         self._barrier.abort()
+
+    def depart(self, rank: int) -> None:
+        """Shard ``rank`` has ended after its exchanges: a shard that has
+        entered a later exchange can no longer meet all the others."""
+        with self._state:
+            self._done.add(rank)
+            stranded = max(self._count) > self._count[rank]
+        if stranded:
+            self._barrier.abort()
+
+    def _check_ended(self, rank: int) -> None:
+        """Raise :class:`CollectiveMismatch` when a shard has ended with
+        fewer exchanges than ``rank`` has entered."""
+        with self._state:
+            ended = sorted(d for d in self._done
+                           if self._count[d] < self._count[rank])
+        if ended:
+            self._barrier.abort()
+            raise CollectiveMismatch(
+                f"shard {rank} issued exchange {self._count[rank]} after "
+                f"shard(s) {ended} had ended with fewer")
 
     def exchange(self, rank: int, t: torch.Tensor) -> list:
         """Every shard's ``t``, in shard order, on shard ``rank``'s
@@ -244,10 +304,16 @@ class _Rendezvous:
         if t.is_cuda:
             ev = torch.cuda.Event()
             ev.record(torch.cuda.current_stream(t.device))
-        slots = self._slots[self._count[rank] % 2]
-        self._count[rank] += 1
+        with self._state:
+            slots = self._slots[self._count[rank] % 2]
+            self._count[rank] += 1
         slots[rank] = (t, ev)
-        self._barrier.wait()
+        self._check_ended(rank)
+        try:
+            self._barrier.wait()
+        except threading.BrokenBarrierError:
+            self._check_ended(rank)
+            raise
         dev = self.devices[rank]
         parts = []
         for src, src_ev in slots:
@@ -275,6 +341,7 @@ class MeshAxis:
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
         """Every shard's rows, concatenated in shard order (tiled)."""
+        _note("all_gather", self, x)
         parts = self._rv.exchange(self.index, x)
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
@@ -282,17 +349,21 @@ class MeshAxis:
         return torch.stack(self._rv.exchange(self.index, x))
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
+        _note("psum", self, x)
         return torch.sum(self._stacked(x), dim=0)
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        _note("pmax", self, x)
         return torch.amax(self._stacked(x), dim=0)
 
     def pmin(self, x: torch.Tensor) -> torch.Tensor:
+        _note("pmin", self, x)
         return torch.amin(self._stacked(x), dim=0)
 
     def ppermute(self, x: torch.Tensor) -> torch.Tensor:
         """The next shard's ``x`` (a ring step: every shard sends its
         tensor to the one before it)."""
+        _note("ppermute", self, x)
         parts = self._rv.exchange(self.index, x)
         return parts[(self.index + 1) % self.size]
 
@@ -300,6 +371,7 @@ class MeshAxis:
         """``x`` [size, ...]: row r goes to shard r; returns [size, ...]
         whose row r came from shard r (the JAX ``all_to_all`` with split
         and concat axis 0, tiled)."""
+        _note("all_to_all", self, x)
         parts = self._rv.exchange(self.index, x)
         return torch.stack([p[self.index] for p in parts])
 
@@ -340,19 +412,24 @@ class ProcessAxis:
         return [self._back(p).reshape(x.shape) for p in parts]
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        _note("all_gather", self, x)
         parts = self._parts(x)
         return parts[0] if len(parts) == 1 else torch.cat(parts)
 
     def psum(self, x: torch.Tensor) -> torch.Tensor:
+        _note("psum", self, x)
         return torch.sum(torch.stack(self._parts(x)), dim=0)
 
     def pmax(self, x: torch.Tensor) -> torch.Tensor:
+        _note("pmax", self, x)
         return torch.amax(torch.stack(self._parts(x)), dim=0)
 
     def pmin(self, x: torch.Tensor) -> torch.Tensor:
+        _note("pmin", self, x)
         return torch.amin(torch.stack(self._parts(x)), dim=0)
 
     def ppermute(self, x: torch.Tensor) -> torch.Tensor:
+        _note("ppermute", self, x)
         if self.size == 1:
             return x
         import torch.distributed as dist
@@ -367,6 +444,7 @@ class ProcessAxis:
         return self._back(got)
 
     def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        _note("all_to_all", self, x)
         import torch.distributed as dist
         h = self._out(x)
         got = torch.empty_like(h)
@@ -383,6 +461,14 @@ def process_axis(device=None) -> ProcessAxis | None:
     return ProcessAxis(device)
 
 
+def _shard_context(index: int):
+    """The :data:`SHARD_CONTEXTS` of shard ``index``, entered together."""
+    stack = contextlib.ExitStack()
+    for make in SHARD_CONTEXTS:
+        stack.enter_context(make(index))
+    return stack
+
+
 def run_shards(devices, fn, *, mesh_reduce: str = "canonical",
                split_rows: int = 1) -> list:
     """``[fn(axis) for each shard]``: one thread a shard (the calling
@@ -393,7 +479,8 @@ def run_shards(devices, fn, *, mesh_reduce: str = "canonical",
     axes = [MeshAxis(rv, r, mesh_reduce=mesh_reduce, split_rows=split_rows)
             for r in range(rv.size)]
     if rv.size == 1:
-        return [fn(axes[0])]
+        with _shard_context(0):
+            return [fn(axes[0])]
     results = [None] * rv.size
     errors: list = []
     lock = threading.Lock()
@@ -402,7 +489,9 @@ def run_shards(devices, fn, *, mesh_reduce: str = "canonical",
         try:
             if rv.devices[r].type == "cuda":
                 torch.cuda.set_device(rv.devices[r])
-            results[r] = fn(axes[r])
+            with _shard_context(r):
+                results[r] = fn(axes[r])
+            rv.depart(r)
         except BaseException as e:  # noqa: BLE001 — re-raised below
             with lock:
                 errors.append(e)

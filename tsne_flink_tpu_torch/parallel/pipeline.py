@@ -413,9 +413,28 @@ class SpmdPipeline:
                             health_retries=health_retries, events=events,
                             telemetry=telemetry)
 
-    def lower(self, x, seed: int = 0):
-        raise NotImplementedError("--executionPlan is not ported yet "
-                                  "(ROADMAP queue A16)")
+    def lower(self, x, seed: int = 0) -> dict:
+        """``--executionPlan`` of the job: the sharded prepare and one
+        optimize iteration run on this rank (every rank: the collectives
+        pair up) under the analysis recorder; returns the plan
+        (``program``, ``backend``, ``devices``, ``ops``), which the
+        caller's rank 0 alone writes.  The job's configuration and state
+        are left as they were."""
+        from dataclasses import replace
+
+        from tsne_flink_tpu_torch.analysis.audit.record import (Recorder,
+                                                                op_list)
+        saved = self.cfg, self._runner
+        self.cfg, self._runner = replace(self.cfg, iterations=1), None
+        try:
+            with Recorder() as rec:
+                self.run_checkpointable(x, seed)
+        finally:
+            self.cfg, self._runner = saved
+        return {"program": "tsne_spmd_pipeline",
+                "backend": self.devices[0].type,
+                "devices": int(self.n_devices), "rank": int(self.rank),
+                "ops": op_list(rec.events)}
 
     def __call__(self, x, seed: int = 0, *, y0=None, knn_draws=None):
         """The whole job: :meth:`run_checkpointable` without checkpoints.

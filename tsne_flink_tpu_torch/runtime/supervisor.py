@@ -246,6 +246,9 @@ class Supervisor:
             try:
                 return fn(on_stage=track, on_graph=self.observe_graph,
                           **overrides)
+            # graftlint: disable=exception-hygiene -- not a swallow:
+            # _handle_oom re-raises everything that is not a
+            # ladder-eligible device OOM (and logs the step it takes)
             except Exception as e:  # noqa: BLE001 — re-raised unless an OOM
                 stage = "affinities" if "knn" in done else "knn"
                 self._handle_oom(stage, e, attempt)
@@ -315,6 +318,9 @@ class Supervisor:
                 self.last_telemetry = run.telemetry
                 self.last_pilot = run.pilot
                 return run
+            # graftlint: disable=exception-hygiene -- not a swallow:
+            # _handle_oom re-raises everything that is not a
+            # ladder-eligible device OOM (and logs the step it takes)
             except Exception as e:  # noqa: BLE001 — re-raised unless an OOM
                 self._handle_oom("optimize", e, attempt)
             self.events.append(

@@ -68,6 +68,7 @@ import numpy as np
 from tsne_flink_tpu_torch.analysis.audit.hbm import (serving_charge,
                                                      serving_process_bytes)
 from tsne_flink_tpu_torch.obs import trace as obtrace
+from tsne_flink_tpu_torch.obs.trace import walltime
 from tsne_flink_tpu_torch.runtime import faults
 from tsne_flink_tpu_torch.runtime.admission import (ADMIT, SHED,
                                                     bounded_claim_rows,
@@ -372,6 +373,12 @@ class ServeDaemon:
             quorum.clear_epoch(self.spool, rid)
             return None
         lock = self._req_lock(req_path)
+        # graftlint: disable=resource-hygiene -- claim hand-off: the
+        # lock deliberately OUTLIVES this function (held claim-to-result
+        # is the spool crash story); it is returned to the caller, every
+        # error path below releases, and abandoned claims are released
+        # by the drain's finally or broken by the stale-lock timeout
+        # after a SIGKILL.
         if not lock.acquire(timeout_s=0.0):
             return None
         try:
@@ -445,6 +452,9 @@ class ServeDaemon:
                         retry_after_ms=verdict.retry_after_ms)
         return True
 
+    # graftlint: disable=conc-tick-protocol -- a helper of _finish,
+    # which deletes the request and releases the claim (_terminal)
+    # once this returns True; on a stale claim it releases here
     def _write_result(self, rid: str, lock: FileLock, epoch: int,
                       y: np.ndarray) -> bool:
         """The ``.res.npz``, renamed into place only while the claim still
@@ -520,6 +530,13 @@ class ServeDaemon:
                     continue   # torn or gone: not ours this tick
                 out = {"op": "swap", "status": "ok"}
                 try:
+                    # graftlint: disable=conc-lock-blocking -- declared
+                    # site: the swap lock SHOULD cover the model load —
+                    # it serializes concurrent swap requests for the same
+                    # control file (last-writer-wins on the done file
+                    # would otherwise ack a swap that lost the race), and
+                    # request claims use per-request locks, so serving is
+                    # never behind this hold.
                     model = frozen_from_files(
                         spec["model"], spec["input"],
                         perplexity=float(spec.get("perplexity", 10.0)),
@@ -630,7 +647,7 @@ class ServeDaemon:
             model = self.models[bound]
             req = Request(_req_id(req_path), req_path, lock,
                           np.ascontiguousarray(x, dtype=model.np_dtype),
-                          bound, arrival=time.time(),
+                          bound, arrival=walltime(),
                           deadline_s=self.deadline_ms / 1e3,
                           seq=self.batcher.next_seq(), bucket=self.bucket,
                           out_width=int(model.y.shape[1]),
@@ -659,7 +676,7 @@ class ServeDaemon:
             qp[off:off + nrow] = req.x[start:start + nrow]
         batch.handle = dispatch_bucket(model, qp, bucket=self.bucket,
                                        iters=self.iters, eta=self.eta)
-        batch.t_dispatch = time.time()
+        batch.t_dispatch = walltime()
         for req, _, _, _ in batch.parts:
             if req.first_dispatch is None:
                 req.first_dispatch = batch.t_dispatch
@@ -677,7 +694,7 @@ class ServeDaemon:
                           fill=round(batch.fill, 3), model=batch.model_id):
             y = batch.handle.cpu().numpy()
         batch.handle = None
-        t_done = time.time()
+        t_done = walltime()
         inj = faults.injector()
         done = 0
         for req, start, nrow, off in batch.parts:
@@ -697,14 +714,14 @@ class ServeDaemon:
     def _finish_sched(self, req: Request) -> None:
         """One scheduled request's result and its extended latency record
         (queue / compute / write split, lane, fill)."""
-        t_w0 = time.time()
+        t_w0 = walltime()
         if not self._write_result(req.rid, req.lock, req.epoch, req.out):
             self._claimed.pop(req.path, None)
             return
-        write_ms = (time.time() - t_w0) * 1e3
+        write_ms = (walltime() - t_w0) * 1e3
         first = req.first_dispatch if req.first_dispatch else req.arrival
         comp = req.compute_done if req.compute_done else first
-        seconds = time.time() - req.arrival
+        seconds = walltime() - req.arrival
         _write_json(os.path.join(self.spool, req.rid + LAT_SUFFIX), {
             "req": req.rid, "rows": req.rows,
             "seconds": round(float(seconds), 6),
@@ -734,7 +751,7 @@ class ServeDaemon:
             inj.fire("serve")  # oom / delay / hang at tick start
         progress = bool(self._control_pass())
         progress = bool(self._claim_pass()) or progress
-        now = time.time()
+        now = walltime()
         while (len(self.inflight) < self.depth
                and self.batcher.ready(now, device_idle=not self.inflight)):
             batch = self.batcher.next_batch(now)
@@ -742,7 +759,7 @@ class ServeDaemon:
                 break
             self._dispatch(batch)
             progress = True
-            now = time.time()
+            now = walltime()
         done = 0
         if self.inflight:
             done = self._resolve(self.inflight.pop(0))
@@ -775,7 +792,7 @@ class ServeDaemon:
         to ``tick_s`` on any progress."""
         if self.watchdog is not None:
             self.watchdog.start()
-        last_work = time.time()
+        last_work = walltime()
         ticks = 0
         poll = self.tick_s
         try:
@@ -789,7 +806,7 @@ class ServeDaemon:
                     progress = self.drain_once() > 0
                 if self.watchdog is not None:
                     self.watchdog.beat("serve")
-                now = time.time()
+                now = walltime()
                 if progress:
                     last_work = now
                     poll = self.tick_s

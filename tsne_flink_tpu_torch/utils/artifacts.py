@@ -33,7 +33,6 @@ from __future__ import annotations
 import hashlib
 import os
 import tempfile
-import time
 import zipfile
 from dataclasses import dataclass
 
@@ -284,30 +283,35 @@ def prepare(x=None, *, knn=None, neighbors: int,
     inj = faults.injector()  # None (one check) without a fault plan
     device = resolve_device(device)
     k = int(neighbors)
-    t0 = time.perf_counter()
-    given = x if knn is None else knn  # hashed as given: no device copy
-    method = refine = None
-    if knn is None:
-        x = torch.as_tensor(x, device=device)
-        n, d = x.shape
-        method, rounds, refine = resolve_knn_plan(
-            n, d, knn_method, knn_rounds, knn_refine, k=k,
-            backend=backend_of(x))
-        check_knn_limits(n, d, k, method, refine)
-        if generator is None and seed is not None:
-            from tsne_flink_tpu_torch.models.tsne import knn_generator
-            generator = knn_generator(seed, device)
-    knn_fp = affinity_fp = None
-    if cache is not None:
-        if knn is None and method == "project" and seed is None:
-            raise ValueError("a cached hybrid kNN needs seed= (the "
-                             "fingerprint names its draws by their seed)")
-        knn_fp, affinity_fp = prepare_fingerprints(
-            *((given, None) if knn is None else (None, given)),
-            neighbors=k, knn_method=knn_method, metric=metric,
-            knn_rounds=knn_rounds, knn_refine=knn_refine, seed=seed,
-            perplexity=perplexity, assembly=assembly, sym_width=sym_width,
-            device=device)
+    # the kNN stage's seconds include the plan resolution and the
+    # fingerprints (hashing the input)
+    sp_setup = obtrace.begin("prepare.setup", cat="prepare")
+    try:
+        given = x if knn is None else knn  # hashed as given: no device copy
+        method = refine = None
+        if knn is None:
+            x = torch.as_tensor(x, device=device)
+            n, d = x.shape
+            method, rounds, refine = resolve_knn_plan(
+                n, d, knn_method, knn_rounds, knn_refine, k=k,
+                backend=backend_of(x))
+            check_knn_limits(n, d, k, method, refine)
+            if generator is None and seed is not None:
+                from tsne_flink_tpu_torch.models.tsne import knn_generator
+                generator = knn_generator(seed, device)
+        knn_fp = affinity_fp = None
+        if cache is not None:
+            if knn is None and method == "project" and seed is None:
+                raise ValueError("a cached hybrid kNN needs seed= (the "
+                                 "fingerprint names its draws by their seed)")
+            knn_fp, affinity_fp = prepare_fingerprints(
+                *((given, None) if knn is None else (None, given)),
+                neighbors=k, knn_method=knn_method, metric=metric,
+                knn_rounds=knn_rounds, knn_refine=knn_refine, seed=seed,
+                perplexity=perplexity, assembly=assembly, sym_width=sym_width,
+                device=device)
+    finally:
+        sp_setup.end()
 
     # ---- kNN graph: the span ends after the stage's closing sync, and
     # the try/finally keeps the span stack clean when the stage raises (an
@@ -337,7 +341,7 @@ def prepare(x=None, *, knn=None, neighbors: int,
                 if cache is not None:
                     cache.save(KIND_KNN, knn_fp, {"idx": idx, "dist": dist})
                     knn_cache = "cold"
-        t_knn = timed_stage(device, t0)
+        t_knn = sp_setup.seconds + timed_stage(device, sp_knn)
         sp_knn.set(cache=knn_cache)
     finally:
         sp_knn.end()
@@ -348,7 +352,6 @@ def prepare(x=None, *, knn=None, neighbors: int,
         on_graph(idx)
 
     # ---- affinities: beta search + symmetrized assembly ----
-    t0 = time.perf_counter()
     sp_aff = obtrace.begin("prepare.affinities", cat="prepare")
     try:
         if inj is not None:
@@ -357,7 +360,7 @@ def prepare(x=None, *, knn=None, neighbors: int,
             idx, dist, perplexity=perplexity, assembly=assembly,
             sym_width=sym_width, cache=cache, affinity_fp=affinity_fp,
             device=device)
-        t_aff = timed_stage(device, t0)
+        t_aff = timed_stage(device, sp_aff)
         sp_aff.set(cache=affinity_cache, assembly=label)
     finally:
         sp_aff.end()

@@ -43,9 +43,15 @@ optimize stage (``parallel/pipeline.SpmdPipeline``, with ``--symWidth``,
 ``--symMode``, ``--symSlack``, ``--symStrict``), and rank 0 alone writes
 the embedding, the loss, the checkpoints, ``--trace`` and
 ``--metricsOut``.  ``main(device="cpu")`` runs such a rank on the CPU.
-Flags of parts not ported yet raise ``NotImplementedError`` naming their
-ROADMAP queue item before the input is read (:data:`UNPORTED`).  The
-port reads no ``TSNE_*`` environment variable.
+
+``--auditPlan[=warn]`` runs the plan audit (:func:`audit_gate`: the
+memory model, a determinism and a comms cross-section) after the input
+is read and before the kNN stage, and refuses a predicted OOM;
+``--executionPlan`` writes ``tsne_executionPlan.json`` after prepare
+(:func:`execution_plan`, the recorded ops of one iteration and one KL
+pass) and no output.  A flag of a part not ported raises
+``NotImplementedError`` naming its ROADMAP item before the input is read
+(:data:`UNPORTED`).  The port reads no ``TSNE_*`` environment variable.
 """
 
 from __future__ import annotations
@@ -53,7 +59,6 @@ from __future__ import annotations
 import argparse
 import os
 import sys
-import time
 
 import numpy as np
 import torch
@@ -96,7 +101,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--inputDistanceMatrix", action="store_true",
                    help="--input holds i,j,distance lines: the kNN graph")
     p.add_argument("--executionPlan", action="store_true",
-                   help="not ported (ROADMAP queue A16)")
+                   help="after prepare, write tsne_executionPlan.json (the "
+                        "program, the backend, the devices and ``ops``: the "
+                        "recorded kernels and aten ops of one optimize "
+                        "iteration and one KL pass) instead of running; no "
+                        "output CSV")
     p.add_argument("--metric", default="sqeuclidean",
                    choices=["sqeuclidean", "euclidean", "cosine"])
     p.add_argument("--perplexity", type=float, default=30.0)
@@ -168,7 +177,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "width; default auto (2*neighbors, escalated to the "
                         "measured width on overflow).  An explicit value "
                         "drops a wider row's largest-id entries (warns, or "
-                        "fails with --symStrict)")
+                        "fails with --symStrict).  Any run: the plan audit "
+                        "(--auditPlan) models the rows at this width")
     p.add_argument("--symMode", default="replicated",
                    choices=["replicated", "alltoall"],
                    help="(multi-controller jobs) symmetrization: replicated "
@@ -250,7 +260,13 @@ def build_parser() -> argparse.ArgumentParser:
                         "the process with exit code 124")
     p.add_argument("--auditPlan", nargs="?", const="fail", default=None,
                    choices=["fail", "warn"],
-                   help="not ported (ROADMAP queue A16)")
+                   help="run the plan audit (the memory model's per-stage "
+                        "peak, tsne_flink_tpu_torch/analysis/audit/) after "
+                        "the input is read and REFUSE a run predicted to "
+                        "exceed the card's memory; --auditPlan=warn prints "
+                        "the same report but launches anyway.  The result "
+                        "is embedded in v2 checkpoints so a resume can "
+                        "detect a config whose predicted footprint drifted")
     p.add_argument("--trace", nargs="?", const="default", default=None,
                    help="record the run's spans and write them as a Chrome "
                         "trace (results/trace.json, or the path given; "
@@ -289,10 +305,8 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-#: (flag, is it set, ROADMAP queue item) of every part not ported yet
+#: (flag, is it set, ROADMAP item) of every part not ported
 UNPORTED = (
-    ("--auditPlan", lambda a: a.auditPlan is not None, "A16"),
-    ("--executionPlan", lambda a: a.executionPlan, "A16"),
     ("--dtype bfloat16", lambda a: a.dtype == "bfloat16", "§C"),
 )
 
@@ -308,6 +322,9 @@ def refuse_unported(args) -> None:
             raise NotImplementedError(f"{flag} is not ported yet ({where})")
 
 
+# graftlint: disable=policy-recorded -- the resolved repulsion is the
+# run's TsneConfig.repulsion and PlanConfig.repulsion, which
+# --auditPlan prints
 def pick_repulsion(mode: str, theta: float, n: int, n_components: int = 2,
                    theta_explicit: bool = False,
                    backend: str = "cuda") -> str:
@@ -421,7 +438,9 @@ def run_plan(args, cfg, n: int, d: int, assembly: str, neighbors: int,
              backend: str, mesh: int = 1):
     """This invocation as the memory model's PlanConfig (the supervisor's
     ladder input: the same resolved repulsion and assembly; ``mesh`` the
-    optimize stage's width, whose row terms are one device's share)."""
+    optimize stage's width, whose row terms are one device's share;
+    ``--symWidth``, as in the JAX CLI, the rows' width when the caller
+    knows it — a single-controller run's bits do not depend on it)."""
     from tsne_flink_tpu_torch.analysis.audit import PlanConfig
     return PlanConfig(
         n=n, d=int(d), k=int(neighbors), backend=backend,
@@ -431,8 +450,205 @@ def run_plan(args, cfg, n: int, d: int, assembly: str, neighbors: int,
                     else args.knnMethod),
         knn_rounds=args.knnIterations, knn_refine=args.knnRefine,
         repulsion=cfg.repulsion, theta=cfg.theta, assembly=assembly,
-        attraction=cfg.attraction, row_chunk=cfg.row_chunk,
-        mesh=int(mesh), autopilot=bool(cfg.autopilot), name="cli-launch")
+        attraction=cfg.attraction, sym_width=args.symWidth,
+        row_chunk=cfg.row_chunk, mesh=int(mesh),
+        autopilot=bool(cfg.autopilot), name="cli-launch")
+
+
+def _plan_audit_summary(plan) -> dict:
+    """The compact audit record a checkpoint carries (the JAX keys)."""
+    from tsne_flink_tpu_torch.analysis.audit.compile import \
+        plan_compile_count
+    from tsne_flink_tpu_torch.analysis.audit.hbm import plan_hbm_report
+    rep = plan_hbm_report(plan)
+    return {"peak_hbm_est": rep["peak_hbm_est"],
+            "peak_stage": rep["peak_stage"],
+            "hbm_budget": rep["hbm_budget"], "ok": rep["ok"],
+            "compile_count": plan_compile_count(plan)}
+
+
+def _determinism_summary() -> dict:
+    """The launch gate's determinism cross-section: the tiny case's
+    optimize at mesh 1 recorded on the CPU (the tensor code is the card's;
+    the kernels hold no atomics) and scanned for unblessed
+    order-sensitive reductions (recorded once a process).  The full sweep
+    is ``--audit``'s.  Never raises: the gate's job is the OOM refusal."""
+    try:
+        from tsne_flink_tpu_torch.analysis.audit import cases
+        from tsne_flink_tpu_torch.analysis.audit import determinism as det
+        findings, blessed = det.scan_events(
+            det.optimize_events("cpu", cases.VARIANTS[0], 1),
+            "optimize[mesh1]")
+        return {"unblessed": len(findings), "blessed_sites": blessed,
+                "findings": [f.format() for f in findings]}
+    except Exception as e:  # noqa: BLE001 — advisory line, never fatal
+        return {"error": f"{type(e).__name__}: {e}"}
+
+
+def _comms_summary(plan, mode: str) -> dict:
+    """The launch gate's comms cross-section: this launch's optimize
+    collectives under ``--meshReduce`` at the plan's mesh width (recorded
+    on the CPU's tiny case, extrapolated to the plan), priced under the
+    card's NVLink model.  Never raises."""
+    if int(plan.mesh) <= 1:  # one device: nothing crosses a link
+        return {"mode": mode, "mesh": 1, "unblessed": 0, "collectives": 0,
+                "per_iter_bytes": 0, "per_iter_reduce_bytes": 0,
+                "per_iter_seconds": 0.0}
+    try:
+        from tsne_flink_tpu_torch.analysis.audit import comms
+        rep = comms.plan_comms_report(plan, mode, "cpu")
+        rows = rep["collectives"]
+        return {"mode": mode, "mesh": rep["mesh"],
+                "unblessed": sum(1 for r in rows if r["blessed"] is None),
+                "collectives": len(rows),
+                "per_iter_bytes": rep["per_iter_bytes"],
+                "per_iter_reduce_bytes": rep["per_iter_reduce_bytes"],
+                "per_iter_seconds": rep["per_iter_seconds"]}
+    except Exception as e:  # noqa: BLE001 — advisory line, never fatal
+        return {"error": f"{type(e).__name__}: {e}"}
+
+
+def audit_gate(args, plan, report: bool = True) -> dict:
+    """``--auditPlan``: print the plan audit and refuse a predicted OOM
+    (``--auditPlan=warn`` launches anyway).  Runs before the kNN stage
+    and launches no kernel.  Returns the summary for the checkpoint.
+    ``report=False`` (a multi-controller job's ranks but the first)
+    prints nothing and skips the determinism and comms cross-sections,
+    but refuses as the reporting rank does."""
+    from tsne_flink_tpu_torch.analysis.audit.hbm import plan_hbm_report
+    from tsne_flink_tpu_torch.obs import trace as obtrace
+    sp = obtrace.begin("cli.audit_plan", cat="cli")
+    rep = plan_hbm_report(plan)
+    summary = _plan_audit_summary(plan)
+    gib = 1 << 30
+    if report:
+        _print_gate(args, plan, rep, summary)
+        print(f"# auditPlan: gate {sp.end().seconds:.3f} s")
+    sp.end()
+    if not rep["ok"]:
+        msg = (f"plan predicted to OOM: peak HBM estimate "
+               f"{rep['peak_hbm_est_gib']} GiB in the '{rep['peak_stage']}' "
+               f"stage exceeds the {rep['hbm_budget'] / gib:.2f} GiB "
+               "device budget")
+        if args.auditPlan == "warn":
+            if report:
+                print(f"WARNING: {msg} — launching anyway (--auditPlan=warn)",
+                      file=sys.stderr)
+        else:
+            raise SystemExit(
+                f"{msg}; shrink the footprint (--affinityAssembly blocks, "
+                "a narrower --symWidth, --spmd sharding) or override with "
+                "--auditPlan=warn")
+    return summary
+
+
+def _print_gate(args, plan, rep, summary) -> None:
+    """The gate's ``# auditPlan:`` lines; adds the determinism and comms
+    cross-sections to ``summary``."""
+    gib = 1 << 30
+    print(f"# auditPlan: peak HBM est {rep['peak_hbm_est_gib']} GiB in "
+          f"'{rep['peak_stage']}' "
+          + ("(no device budget on this backend)" if rep["hbm_budget"]
+             is None else f"vs {rep['hbm_budget'] / gib:.2f} GiB budget")
+          + f"; ~{summary['compile_count']} compiled programs")
+    for stage, terms in rep["stages"].items():
+        print(f"# auditPlan:   {stage}: "
+              + " ".join(f"{t}={v}" for t, v in terms.items()))
+    rounds, refine = plan.resolved_knn()
+    print(f"# auditPlan: plan: knn_method={plan.resolved_method()} "
+          f"knn_rounds={rounds} knn_refine={refine} "
+          f"repulsion={plan.resolved_repulsion()} "
+          f"assembly={plan.resolved_assembly()} mesh={plan.mesh}")
+    det = _determinism_summary()
+    summary["determinism"] = det
+    if "error" in det:
+        print(f"# auditPlan: determinism: audit unavailable ({det['error']})")
+    else:
+        print(f"# auditPlan: determinism: {det['unblessed']} unblessed "
+              "reduction(s) in optimize[mesh1]; blessed sites: "
+              + (", ".join(det["blessed_sites"]) or "none"))
+        for line in det["findings"]:
+            print(f"# auditPlan:   {line}")
+    com = _comms_summary(plan, args.meshReduce)
+    summary["comms"] = com
+    if "error" in com:
+        print(f"# auditPlan: comms: audit unavailable ({com['error']})")
+    else:
+        secs = com["per_iter_seconds"]
+        print(f"# auditPlan: comms: mode {com['mode']}: "
+              f"{com['per_iter_bytes']} B/iter sent/device over mesh "
+              f"{com['mesh']} (reduce slice "
+              f"{com['per_iter_reduce_bytes']} B); "
+              f"{com['unblessed']} unblessed collective(s)"
+              + ("" if not secs else
+                 f"; ~{secs * 1e6:.1f} us/iter on NVLink"))
+
+
+def check_resumed_audit(args, plan, payload) -> None:
+    """A v2 checkpoint carries the original run's plan audit: recompute
+    the prediction for THIS run's config and warn on a drifted footprint
+    (the resume may be on another device, assembly or width)."""
+    import json
+    raw = (payload or {}).get("audit")
+    if not raw:
+        return
+    try:
+        prev = json.loads(str(raw))
+    except ValueError:
+        return
+    cur = _plan_audit_summary(plan)
+    old_peak = float(prev.get("peak_hbm_est") or 0)
+    new_peak = float(cur["peak_hbm_est"])
+    ratio = new_peak / old_peak if old_peak > 0 else float("inf")
+    if prev.get("ok") is not False and cur["ok"] is False:
+        print("WARNING: resumed config's predicted footprint "
+              f"({new_peak / 2**30:.3g} GiB) now exceeds the device budget "
+              "although the original run's did not — the resume is not the "
+              "run that was checkpointed", file=sys.stderr)
+    elif ratio > 1.5 or ratio < 1 / 1.5:
+        print(f"WARNING: resumed config's predicted peak HBM "
+              f"({new_peak / 2**30:.3g} GiB) differs {ratio:.2f}x from the "
+              f"checkpointed run's ({old_peak / 2**30:.3g} GiB) — config "
+              "drift between save and resume", file=sys.stderr)
+
+
+def plan_assembly(assembly: str) -> str:
+    """``--executionPlan``'s assembly: ``auto`` resolves to ``sorted``
+    now (its choice is data-dependent), ``blocks`` is refused — the JAX
+    CLI's messages."""
+    if assembly == "auto":
+        print("# --executionPlan: assembly auto resolves to sorted (the "
+              "blocks layout has no lowered-plan form)", file=sys.stderr)
+        return "sorted"
+    if assembly == "blocks":
+        raise SystemExit("--affinityAssembly blocks does not lower an "
+                         "execution plan; use sorted or split for "
+                         "--executionPlan")
+    return assembly
+
+
+def execution_plan(cfg, state, jidx, jval, edges, csr, device) -> dict:
+    """``--executionPlan``'s JSON: one optimize iteration and one KL pass
+    (Z, then the per-row KL summed) recorded, as ``ops`` — kernels by id
+    and aten ops, each with its shapes and dtypes (``section``
+    ``iteration`` or ``kl_pass``).  Advances no run state."""
+    from tsne_flink_tpu_torch.analysis.audit.record import Recorder, op_list
+    from tsne_flink_tpu_torch.models import tsne as mt
+
+    with Recorder() as rec_it:
+        out = mt.optimize(state, jidx, jval, cfg, start_iter=0, num_iters=1,
+                          edges=edges, edges_extra=False, csr=csr)
+    st = out[0]
+    fidx, fval, ragged = mt._layout_parts(jidx, jval, st.y.shape[0], edges,
+                                          False, csr)
+    with Recorder() as rec_kl:
+        _rep, z = mt._repulsion(st.y, st.y, cfg)
+        mt._mesh_sum(mt._attraction_loss(st.y, st.y, fidx, fval, cfg, 1.0,
+                                         z, ragged), None)
+    ops = ([{**r, "section": "iteration"} for r in op_list(rec_it.events)]
+           + [{**r, "section": "kl_pass"} for r in op_list(rec_kl.events)])
+    return {"program": "tsne_optimize", "backend": device.type,
+            "devices": 1, "ops": ops}
 
 
 def check_multihost(args, parser) -> bool:
@@ -535,9 +751,8 @@ def main(argv=None, *, device=None, mesh_devices=None) -> int:
         if state["watchdog"] is not None:
             state["watchdog"].stop()
         if state["group"]:
-            import torch.distributed as dist
-            if dist.is_initialized():
-                dist.destroy_process_group()
+            from tsne_flink_tpu_torch.parallel.mesh import close_group
+            close_group()
         faults.activate(None)
         kbuild.set_cache(prev_cache)
         obtrace.set_enabled(prev_trace)
@@ -596,12 +811,14 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
                          np_dtype)
     mesh = resolve_mesh(args, device, mesh_devices)
     assembly = args.affinityAssembly or "auto"
+    if args.executionPlan:
+        assembly = plan_assembly(assembly)
     neighbors = (args.neighbors if args.neighbors is not None
                  else 3 * int(args.perplexity))
     cache = None if args.noCache else art.ArtifactCache(args.cacheDir)
     secs = {}
 
-    t0 = time.perf_counter()
+    sp = obtrace.begin("cli.ingest", cat="cli")
     if args.inputDistanceMatrix:
         ids, idx, dist = tio.read_distance_matrix(args.input)
         neighbors = idx.shape[1]
@@ -610,6 +827,7 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
     else:
         ids, x64 = tio.read_input(args.input, args.dimension)
         if args.transform:  # the JAX CLI serves the features as read
+            sp.end()
             out = _serve_transform(args, ids, x64, neighbors, device)
             _write_obs_outputs(trace_path, args.metricsOut)
             return out
@@ -617,27 +835,31 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
         data = {"x": x64.astype(np_dtype)}
         del x64
     n = len(ids)
-    secs["ingest"] = time.perf_counter() - t0
+    secs["ingest"] = sp.end().seconds
 
     cfg = run_config(args, n, device)
+    plan = run_plan(args, cfg, n, args.dimension, assembly, neighbors,
+                    device.type, 1 if mesh is None else len(mesh))
+    # the plan audit BEFORE any expensive stage: a predicted OOM is
+    # refused in seconds, before the kNN stage launches anything
+    audit_summary = audit_gate(args, plan) if args.auditPlan else None
     runner = None
     if mesh is not None:
         from tsne_flink_tpu_torch.parallel.mesh import ShardedOptimizer
         runner = ShardedOptimizer(cfg, n, devices=mesh,
                                   mesh_reduce=args.meshReduce)
-    supervisor = Supervisor(
-        run_plan(args, cfg, n, args.dimension, assembly, neighbors,
-                 device.type, 1 if mesh is None else len(mesh)),
-        max_retries=args.maxRetries, on_oom=args.onOom,
-        health_check=args.healthCheck)
+    supervisor = Supervisor(plan, max_retries=args.maxRetries,
+                            on_oom=args.onOom, health_check=args.healthCheck)
 
     start_iter, loss_carry, state0, payload, pilot = 0, None, None, None, None
     prior_events = None
     if args.resume:
-        t0 = time.perf_counter()
+        sp = obtrace.begin("cli.resume", cat="cli")
         start_iter, loss_carry, state0, payload, pilot = _load_resume(
             args.resume, n, dtype, device)
-        secs["resume"] = timed_stage(device, t0)
+        secs["resume"] = timed_stage(device, sp)
+        sp.end()
+        check_resumed_audit(args, plan, payload)
         raw = (payload or {}).get("events")
         if raw:
             import json
@@ -652,7 +874,7 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
     del data
 
     jidx = extra = label = affinity_fp = None
-    t0 = time.perf_counter()
+    sp = obtrace.begin("cli.payload", cat="cli")
     if payload is not None and "jidx" in payload:
         # a fat checkpoint: check its P against this run's data and plan,
         # then skip the kNN and affinity stages
@@ -670,10 +892,11 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
                 extra = tuple(torch.as_tensor(payload[nm], device=device)
                               for nm in ("rsrc", "rdst", "rval"))
             affinity_fp = have_fp or want_fp
-            secs.update(knn=0.0, affinities=timed_stage(device, t0))
+            secs.update(knn=0.0, affinities=timed_stage(device, sp))
             print("# prepare: skipped (embedded in v2 checkpoint)",
                   file=sys.stderr)
     del payload
+    sp.end()
     if jidx is None:
         # the supervisor relaunches the failed stage on an OOM with the
         # ladder's overrides (knn_tiles, assembly)
@@ -704,6 +927,9 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
     # v2 checkpoints carry the prepare provenance; --fatCheckpoint embeds
     # the arrays themselves, so that a resume needs no cache or recompute
     save_payload = {"label": label}
+    if audit_summary is not None:
+        import json
+        save_payload["audit"] = json.dumps(audit_summary)
     if affinity_fp is not None:
         save_payload["affinity_fp"] = affinity_fp
     if args.fatCheckpoint:
@@ -714,7 +940,7 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
     def layout():
         # the optimize stage's first step: on the card the CSR build is
         # part of its memory, so an OOM here is the optimize stage's
-        t0 = time.perf_counter()
+        sp = obtrace.begin("cli.plan", cat="cli")
         if runner is not None:
             # the mesh plans its layout on its padded rows
             runner.shard_inputs(jidx, jval, extra)
@@ -724,7 +950,8 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
         else:
             edges, csr = _plan_layout(jidx, jval, cfg)
             got = (edges, False, csr)
-        secs["plan"] = timed_stage(device, t0)
+        secs["plan"] = timed_stage(device, sp)
+        sp.end()
         return got
 
     if state0 is None:
@@ -732,15 +959,18 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
         gen.manual_seed(args.randomState)
         state0 = init_working_set(gen, n, cfg.n_components, dtype, device)
 
+    if args.executionPlan:
+        return _write_execution_plan(cfg, state0, jidx, jval, layout,
+                                     runner, device)
+
     def save(st, next_iter, losses, pilot):
         if device.type == "cuda":
             torch.cuda.synchronize(device)  # queued iterations: optimize's
-        t0 = time.perf_counter()
-        ckpt.save(args.checkpoint, st, next_iter, losses,
-                  _payload_with_events(save_payload, supervisor,
-                                       prior_events), pilot=pilot)
-        secs["checkpoint"] = (secs.get("checkpoint", 0.0)
-                              + time.perf_counter() - t0)
+        with obtrace.span("cli.checkpoint", cat="cli") as sp:
+            ckpt.save(args.checkpoint, st, next_iter, losses,
+                      _payload_with_events(save_payload, supervisor,
+                                           prior_events), pilot=pilot)
+        secs["checkpoint"] = secs.get("checkpoint", 0.0) + sp.seconds
 
     def boundary(st, next_iter, losses, pilot):
         if wd is not None:
@@ -753,7 +983,7 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
     # schedule keys off the absolute iteration, so the bits are one run's
     every = (args.checkpointEvery if (args.checkpoint or wd is not None)
              and args.checkpointEvery > 0 else 0)
-    t0 = time.perf_counter()
+    sp_opt = obtrace.begin("cli.optimize", cat="cli")
     with _profiled(args.profile, device):
         run = supervisor.run_optimize(
             cfg, state0, jidx, jval, layout=layout, start_iter=start_iter,
@@ -762,17 +992,19 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
             telemetry=args.telemetry,
             pilot_carry=pilot if cfg.autopilot else None, mesh=runner)
         # the checkpoint writes inside the loop are timed on their own
-        secs["optimize"] = (timed_stage(device, t0) - secs.get("plan", 0.0)
+        secs["optimize"] = (timed_stage(device, sp_opt)
+                            - secs.get("plan", 0.0)
                             - secs.get("checkpoint", 0.0))
+    sp_opt.end()
     state1, losses = run.state, run.losses
     if args.checkpoint:
         save(state1, cfg.iterations, losses, run.pilot)
     _report_extras(run, supervisor.events)
 
-    t0 = time.perf_counter()
-    tio.write_embedding(args.output, ids, state1.y.cpu().numpy())
-    tio.write_loss(args.loss, losses.cpu().numpy())
-    secs["write"] = time.perf_counter() - t0
+    with obtrace.span("cli.write", cat="cli") as sp:
+        tio.write_embedding(args.output, ids, state1.y.cpu().numpy())
+        tio.write_loss(args.loss, losses.cpu().numpy())
+    secs["write"] = sp.seconds
     print("# stages s: " + " ".join(f"{k}={v:.4f}" for k, v in secs.items()),
           file=sys.stderr)
     sp_run.end()
@@ -780,6 +1012,36 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
                        run.telemetry if args.telemetry else None)
     print(f"embedded {n} points -> {args.output} "
           f"({sp_run.seconds:.2f}s total, backend={device.type})")
+    return 0
+
+
+def _write_execution_plan(cfg, state0, jidx, jval, layout, runner,
+                          device) -> int:
+    """``--executionPlan`` after prepare: the recorded plan JSON, no
+    output CSV, no checkpoint."""
+    from tsne_flink_tpu_torch.analysis.audit.record import Recorder, op_list
+    edges, edges_extra, csr = layout()
+    if runner is not None:
+        with Recorder() as rec:
+            runner.segment(state0, cfg, start_iter=0, num_iters=1)
+        plan = {"program": "tsne_optimize", "backend": device.type,
+                "devices": len(runner.devices),
+                "ops": [{**r, "section": "iteration"}
+                        for r in op_list(rec.events)]}
+    else:
+        plan = execution_plan(cfg, state0, jidx, jval,
+                              None if edges_extra else edges, csr, device)
+    return _dump_execution_plan(plan)
+
+
+def _dump_execution_plan(plan: dict, lead: bool = True) -> int:
+    """Write ``tsne_executionPlan.json`` (``lead``: one writer in a
+    multi-process job); the route's exit code."""
+    import json
+    if lead:
+        with open("tsne_executionPlan.json", "w") as f:
+            json.dump(plan, f)
+        print("execution plan written to tsne_executionPlan.json")
     return 0
 
 
@@ -828,11 +1090,17 @@ def _spmd_job(args, device, sp_run, wd, trace_path, dtype, np_dtype) -> int:
             n, int(args.dimension), args.knnMethod, args.knnIterations,
             args.knnRefine, k=neighbors, backend=device.type)
     cfg = run_config(args, n, device)
-    supervisor = Supervisor(
-        run_plan(args, cfg, n, args.dimension, assembly, neighbors,
-                 device.type, args.numProcesses),
-        max_retries=args.maxRetries, on_oom=args.onOom,
-        health_check=args.healthCheck)
+    plan = run_plan(args, cfg, n, args.dimension, assembly, neighbors,
+                    device.type, args.numProcesses)
+    lead = args.processId == 0
+    # the plan audit before the sharded prepare: every rank refuses a
+    # predicted OOM, rank 0 alone prints the report
+    save_payload = {}
+    if args.auditPlan:
+        save_payload["audit"] = json.dumps(
+            audit_gate(args, plan, report=lead))
+    supervisor = Supervisor(plan, max_retries=args.maxRetries,
+                            on_oom=args.onOom, health_check=args.healthCheck)
     width = args.mesh if args.mesh is not None else args.devices
     pipe = SpmdPipeline(cfg, n, args.dimension, neighbors,
                         knn_method=knn_method, knn_rounds=args.knnIterations,
@@ -841,7 +1109,8 @@ def _spmd_job(args, device, sp_run, wd, trace_path, dtype, np_dtype) -> int:
                         sym_strict=args.symStrict, n_devices=width,
                         artifact_cache=cache, device=device,
                         mesh_reduce=args.meshReduce)
-    lead = pipe.rank == 0
+    if args.executionPlan:
+        return _dump_execution_plan(pipe.lower(data, args.randomState), lead)
     with _profiled(args.profile if lead else None, device):
         if (args.resume or args.checkpoint or args.healthCheck
                 or args.telemetry):
@@ -851,6 +1120,8 @@ def _spmd_job(args, device, sp_run, wd, trace_path, dtype, np_dtype) -> int:
             if args.resume:
                 start_iter, loss_carry, resume_state, payload, _ = \
                     _load_resume(args.resume, n, dtype, device)
+                if lead:
+                    check_resumed_audit(args, plan, payload)
                 raw = (payload or {}).get("events")
                 prior = json.loads(str(raw)) if raw else None
 
@@ -859,7 +1130,8 @@ def _spmd_job(args, device, sp_run, wd, trace_path, dtype, np_dtype) -> int:
                     wd.beat("optimize")
                 if args.checkpoint:
                     ckpt.save(args.checkpoint, st, next_iter, losses,
-                              _payload_with_events({}, supervisor, prior))
+                              _payload_with_events(save_payload, supervisor,
+                                                   prior))
 
             every = (args.checkpointEvery if (args.checkpoint or wd)
                      and args.checkpointEvery > 0 else 0)
@@ -874,7 +1146,8 @@ def _spmd_job(args, device, sp_run, wd, trace_path, dtype, np_dtype) -> int:
                 ckpt.save(args.checkpoint,
                           type(state1)(*(t[:n] for t in state1)),
                           cfg.iterations, losses,
-                          _payload_with_events({}, supervisor, prior))
+                          _payload_with_events(save_payload, supervisor,
+                                               prior))
         else:
             y, losses = pipe(data, args.randomState)
     if not lead:

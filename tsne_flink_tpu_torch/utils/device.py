@@ -7,8 +7,6 @@ only when the caller asks for it (the parity tests do).
 
 from __future__ import annotations
 
-import time
-
 import torch
 
 
@@ -25,8 +23,9 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
-def timed_stage(device: torch.device, t0: float) -> float:
-    """Seconds since ``t0`` after the device has finished its queue."""
+def timed_stage(device: torch.device, span) -> float:
+    """Seconds since ``span`` (an ``obs/trace`` span) started, after the
+    device has finished its queue; the span stays open."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    return time.perf_counter() - t0
+    return span.elapsed()

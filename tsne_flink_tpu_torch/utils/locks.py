@@ -21,6 +21,8 @@ from __future__ import annotations
 import os
 import time
 
+from tsne_flink_tpu_torch.obs.trace import walltime
+
 #: default bounded wait of :meth:`FileLock.acquire` (seconds)
 DEFAULT_TIMEOUT_S = 5.0
 #: age (seconds) past which a lock counts as abandoned
@@ -96,7 +98,7 @@ class FileLock:
 
     def _break_if_stale(self) -> None:
         try:
-            age = time.time() - os.path.getmtime(self.path)
+            age = walltime() - os.path.getmtime(self.path)
         except OSError:
             return  # released between our attempt and the stat
         verdict = (None if self.stale_fn is None
@@ -112,13 +114,13 @@ class FileLock:
     def acquire(self, timeout_s: float | None = None) -> bool:
         """True when the lock is held; False after ``timeout_s`` of
         polling (the holder is alive and working)."""
-        deadline = time.time() + (DEFAULT_TIMEOUT_S if timeout_s is None
+        deadline = walltime() + (DEFAULT_TIMEOUT_S if timeout_s is None
                                   else float(timeout_s))
         while True:
             if self._try_once():
                 return True
             self._break_if_stale()
-            if time.time() >= deadline:
+            if walltime() >= deadline:
                 return False
             time.sleep(self.poll_s)
 
