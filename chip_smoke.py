@@ -50,6 +50,19 @@ Phases, in order; any failure exits non-zero before the result line:
    each against its plain version with the bars above; ``tsne_embed`` at n_components 1, 4 and 8, and
    at k = 1,024 on the bruteforce and project paths; and the limits left
    (k past 1,024, m past 8) refused before the kNN stage starts;
+4b. bf16   — mixed precision (``--dtype bfloat16``): B1's bf16 form
+   (``KERNELS["B1_bf16"]``) against its plain version run on float64
+   copies (distances within rtol 1e-5 of the norm trick's terms, ids
+   equal outside ties, two launches bit-identical) at 60,000 x 784 (k =
+   90, every row) and on 4,096 rows of 1,306,127 x 50 (k = 150); at 60k
+   its recall@90 and slot-wise agreement against the float64 graph
+   beside 3xTF32's and the plain FP32 sweep's, its time beside 3xTF32's
+   and its library yardstick (chunked bf16 matmul with float32 output +
+   topk) in turns, with its bound (bf16 at 989 TFLOP/s); at 1.3M one
+   launch of each form; after phase 5, ``TSNE(dtype="bfloat16")`` at
+   [full]'s configuration: B1's bf16 form once and the 3xTF32 form
+   never, the rest [full]'s launches, final KL within 0.05 of [full]'s
+   float32 run (its label agreement printed);
 5. full    — ``tsne_embed`` on 60,000 x 784 MNIST-like blobs (perplexity
    30, k = 90, exact repulsion, CSR attraction, 300 iterations): stage
    seconds (the plan stage on its own line), the launches of each kernel
@@ -96,6 +109,9 @@ Phases, in order; any failure exits non-zero before the result line:
    ``--repulsion bh`` gives phase 8b's y; ``--healthCheck --telemetry``
    keeps phase 5's bits with finite telemetry rows; an ``--autopilot``
    run resumed from its checkpoint gives the same y and pilot pair;
+   config 2 with ``--dtype bfloat16`` and the warm cache's directory
+   reads none of the float32 entries and ends within 0.05 KL of its
+   float32 run;
 9. large — ``tsne_embed`` at the shape of the 10x Genomics 1.3M mouse
    brain cells (1,306,127 x 50 principal components; a synthetic
    stand-in, see ``make_cells``): perplexity 50, k = 150, the hybrid kNN
@@ -185,7 +201,9 @@ Phases, in order; any failure exits non-zero before the result line:
    bit with exactly D B1 launches a shard, B1's cross sweep per hop
    (30,000 and 15,000 rows a block) beside the single sweep over as many
    rows and its 3xTF32 bound, and held to its plain version at the
-   two-process hop; B6 with ``n_valid`` on the blobs' first funnel stage
+   two-process hop; the bf16 ring at D = 2 and 4 equal to the bf16
+   single sweep's graph bit for bit, B1's bf16 form D times a shard;
+   B6 with ``n_valid`` on the blobs' first funnel stage
    against its plain version; the in-process job at mesh 1 and 2 (bit
    for bit); the NCCL route at world size 1 (a group this phase opens)
    with mesh 1's bits; two ``python -m tsne_flink_tpu_torch.utils.cli
@@ -225,8 +243,10 @@ Phases, in order; any failure exits non-zero before the result line:
 Inside phase 8c, after its gate 1, ``[analysis]`` (queue A16): config
 2's command line with ``--auditPlan`` at the kNN graph's width bound
 (the gate's report and seconds, the predicted peak within [1, 2]x of
-the measured one, the same bits and launches) and as users give it (its
-predicted / measured peak printed, not gated), a plan the memory model
+the measured one, the same bits and launches) and as users give it (the
+pre-read gate's predicted / measured peak printed, not gated; the
+re-check after the kNN stage at the graph's width bound within [1, 2]),
+a plan the memory model
 puts above the card (1M x 2 points, k = 1,024, sorted) refused with the
 JAX message before any launch, ``--executionPlan`` at 60k (the JSON, no
 CSV, B2 and B3 on the iteration, B4 on the KL pass), and the analysis
@@ -293,6 +313,8 @@ KL_GUARDRAIL_TOL = 0.05
 KERNEL_META = {
     "B1": ("knn", "tsne_flink_tpu_torch/csrc/knn.cu",
            "tsne_flink_tpu/ops/knn_pallas.py:73"),
+    "B1_bf16": ("knn_bf16", "tsne_flink_tpu_torch/csrc/knn.cu",
+                "tsne_flink_tpu/ops/knn_pallas.py:73"),
     "B2": ("exact_repulsion", "tsne_flink_tpu_torch/csrc/repulsion.cu",
            "tsne_flink_tpu/ops/repulsion_pallas.py:33"),
     "B3": ("fused_step", "tsne_flink_tpu_torch/csrc/attraction.cu",
@@ -754,6 +776,237 @@ def b1_deep_gates(tag, x_np, k):
     return rel_close(dk, dp, 1e-4, f"B1 {tag} distances")
 
 
+#: H100 SXM dense bf16 tensor-core peak at 700 W (NVIDIA data sheet)
+PEAK_BF16_FLOPS = 989e12
+#: B1's bf16 form against its plain version: the rows of the 1.3M check
+#: (a seeded sample: the plain sweep sorts every column of each row)
+N_BF16_ROWS_LARGE = 4_096
+
+
+def b1_bf16_bound(n, f, k):
+    """B1's bf16 bound: one pass of 2·N²·F at the bf16 tensor-core peak,
+    x read once (float32) and [N, k] distances and ids written once."""
+    return bound(2.0 * n * n * f, n * f * 4 + n * k * 8, PEAK_BF16_FLOPS)
+
+
+def mm_out_dtype(device) -> bool:
+    """Whether this PyTorch's ``torch.mm`` takes ``out_dtype`` (a bf16
+    product with float32 output) on ``device``."""
+    import torch
+    a = torch.ones((2, 2), dtype=torch.bfloat16, device=device)
+    try:
+        torch.mm(a, a, out_dtype=torch.float32)
+        return True
+    except (TypeError, NotImplementedError, RuntimeError):
+        return False
+
+
+def library_knn_bf16(x, k, chunk=1024):
+    """The one-call yardstick of B1's bf16 form: chunked bf16 matmul with
+    float32 output (``torch.mm(..., out_dtype=)`` where this PyTorch has
+    it, else the bf16 product widened) + topk."""
+    import torch
+    xb = x.to(torch.bfloat16)
+    r = torch.sum(x * x, 1)
+    n = x.shape[0]
+    out = []
+    out_dtype = mm_out_dtype(x.device)
+    for s in range(0, n, chunk):
+        g = (torch.mm(xb[s:s + chunk], xb.T, out_dtype=torch.float32)
+             if out_dtype else (xb[s:s + chunk] @ xb.T).float())
+        d = r[s:s + chunk, None] + r[None, :] - 2.0 * g
+        d[torch.arange(d.shape[0]), torch.arange(s, s + d.shape[0])] = \
+            float("inf")
+        out.append(torch.topk(d, k, dim=1, largest=False))
+    return out
+
+
+def b1_bf16_gates(tag, x, k, rows=None):
+    """B1's bf16 form against its plain version on the card, that plain
+    version run on float64 copies of the same inputs (the rounded
+    operands' products and sums exact there): distances within rtol 1e-5
+    of the norm trick's terms, ``|d| + ‖a‖² + ‖b‖²`` (the scale an FP32
+    accumulation of a·b is accurate to: the cells' nearest neighbours
+    cancel up to ~900x, where no FP32 sum holds 1e-5 of d itself); ids
+    equal outside ties (a slot whose plain distance lies within that
+    tolerance of a neighbouring slot's, the (k+1)-th included); two
+    launches bit-identical.  The error against rtol 1e-5 of each distance
+    plus of the largest (``rel_close``'s form) is printed beside it, not
+    gated.  ``rows`` (ids) restricts the plain sweep to those rows.
+    Returns (max |distance error|, kernel ids and distances of the checked
+    rows, both ordered)."""
+    import torch
+    from tsne_flink_tpu_torch.ops.knn_cuda import (_fused_final,
+                                                   knn_sweep_cuda,
+                                                   knn_sweep_plain)
+    bf = torch.bfloat16
+    raw = knn_sweep_cuda(x, k, False, bf)
+    again = knn_sweep_cuda(x, k, False, bf)
+    check(torch.equal(raw[0], again[0]) and torch.equal(raw[1], again[1]),
+          f"[bf16] B1 {tag}: two launches differ")
+    ik, dk = _fused_final(*raw, "sqeuclidean")
+    del raw, again
+    if rows is not None:
+        ik, dk = ik[rows], dk[rows]
+    x64 = x.double()
+    dp, ip = knn_sweep_plain(x64, k + 1, False,
+                             row_chunk=256 if rows is not None else 1024,
+                             matmul_dtype=bf, rows=rows)
+    torch.cuda.synchronize()
+    r = torch.sum(x64 * x64, 1)
+    ra = r[rows if rows is not None else slice(None)][:, None]
+    tol = 1e-5 * (torch.abs(dp) + ra + r[ip.long()])
+    diff = torch.abs(dk.double() - dp[:, :k])
+    err = float(diff.max())
+    beyond = int(torch.sum(diff > tol[:, :k]))
+    strict = 1e-5 * (torch.abs(dp[:, :k]) + torch.max(torch.abs(dp[:, :k])))
+    print(f"[bf16] B1 {tag}: |d err| beyond rtol 1e-5 of the norm trick's "
+          f"terms: {beyond}; beyond rtol 1e-5 of each distance plus of the "
+          f"largest: {int(torch.sum(diff > strict))} of {diff.numel()} "
+          f"(not gated); max relative to d "
+          f"{float(torch.max(diff / torch.clamp(dp[:, :k], min=1e-30))):.3e}")
+    check(beyond == 0, f"[bf16] B1 {tag}: {beyond} distances beyond rtol "
+          "1e-5 of the norm trick's terms")
+    gap = dp[:, 1:] - dp[:, :-1]                  # [rows, k]
+    tied = gap[:, :k] <= tol[:, :k]               # ties with the next slot
+    tied[:, 1:] |= gap[:, :k - 1] <= tol[:, 1:k]  # ... or with the previous
+    same = ik.long() == ip[:, :k].long()
+    off = int(torch.sum(~same & ~tied))
+    # the same count with ties at rtol 1e-5 of each distance plus of the
+    # largest (printed: the narrower ties of the narrower tolerance)
+    near = gap[:, :k] <= strict
+    near[:, 1:] |= gap[:, :k - 1] <= strict[:, 1:]
+    m = ik.shape[0]
+    print(f"[bf16] B1 {tag} {x.shape[0]}x{x.shape[1]} k={k} ({m} rows "
+          f"checked): max |d err| vs the plain version (float64) "
+          f"{err:.3e}; ids equal {float(torch.mean(same.float())):.6f}, "
+          f"tied slots {float(torch.mean(tied.float())):.6f}, ids off "
+          f"outside ties {off} (outside the narrower ties "
+          f"{int(torch.sum(~same & ~near))}, not gated); two launches "
+          "bit-identical")
+    check(off == 0, f"[bf16] B1 {tag}: {off} ids differ outside ties")
+    return err, ik, dk
+
+
+def phase_bf16(x_np, xc_np):
+    """[bf16] (mixed precision, ``--dtype bfloat16``): B1's bf16 form
+    (``KERNELS["B1_bf16"]``) against its plain version at [full]'s shape
+    (60,000 x 784, k = 90, every row) and [large]'s (1,306,127 x 50, k =
+    150, a seeded sample of rows), with ``b1_bf16_gates``' bars; at 60k
+    its recall@90 and slot-wise agreement against the float64 graph of
+    the unrounded x beside 3xTF32's and the plain FP32 sweep's; its time
+    beside 3xTF32's and its library yardstick, in turns, with its bound;
+    at 1.3M one launch of each form in turns.  Returns (the kernel's ms,
+    plain ms, library ms), its bound and its max error at 60k."""
+    import torch
+    from tsne_flink_tpu_torch.ops.knn_cuda import (_fused_final,
+                                                   knn_sweep_cuda,
+                                                   knn_sweep_plain)
+    bf = torch.bfloat16
+    t_phase = time.perf_counter()
+    x = torch.from_numpy(x_np).cuda()
+    n, f = x_np.shape
+    err, ik, dk = b1_bf16_gates("full", x, K)
+    # quality against the float64 graph of the unrounded points
+    i64, d64 = _fused_final(*knn_sweep_plain(x.double(), K, False),
+                            "sqeuclidean")
+    it, _ = _fused_final(*knn_sweep_cuda(x, K, False), "sqeuclidean")
+    ip, _ = _fused_final(*knn_sweep_plain(x, K, False), "sqeuclidean")
+    x64 = x.double()
+    r64 = torch.sum(x64 * x64, 1)
+
+    def true_d(ids):
+        return torch.cat([torch.clamp(
+            r64[s:s + 4096, None] + r64[ids[s:s + 4096].long()]
+            - 2.0 * torch.einsum("rf,rkf->rk", x64[s:s + 4096],
+                                 x64[ids[s:s + 4096].long()]), min=0.0)
+            for s in range(0, n, 4096)])
+    kth = d64[:, -1:] * (1 + 1e-5) + 1e-5
+    rec = {name: (float(torch.mean((true_d(ids) <= kth).double())),
+                  float(torch.mean((ids == i64).double())))
+           for name, ids in (("bf16", ik), ("3xTF32", it),
+                             ("plain FP32", ip))}
+    print("[bf16] recall@90 against the float64 graph (true distances "
+          "within its k-th), slot-wise agreement: " + "; ".join(
+              f"{name} {r:.6f}, {a:.6f}" for name, (r, a) in rec.items()))
+    del i64, d64, it, ip, x64, r64
+    t = alternated_ms({"bf16": lambda: knn_sweep_cuda(x, K, False, bf),
+                       "3xTF32": lambda: knn_sweep_cuda(x, K, False),
+                       "library": lambda: library_knn_bf16(x, K)},
+                      ["bf16", "3xTF32", "library", "library", "3xTF32",
+                       "bf16", "bf16", "3xTF32", "library"])
+    plain_ms = cuda_ms(lambda: knn_sweep_plain(x, K, False, matmul_dtype=bf),
+                       1, 0)
+    bnd = b1_bf16_bound(n, f, K)
+    form = ("torch.mm(out_dtype=float32)" if mm_out_dtype(x.device)
+            else "the bf16 product widened")
+    print(f"[bf16] B1 bf16 {n}x{f} k={K}: {spread(t['bf16'])}; 3xTF32 "
+          f"{spread(t['3xTF32'])}; library (chunked bf16 matmul, float32 "
+          f"out by {form}, + topk) {spread(t['library'])}; plain "
+          f"{plain_ms:.4f} ms; "
+          f"bound {bnd[0]:.4f} ms by {bnd[1]} (bf16 at 989 TFLOP/s)")
+    times = (statistics.median(t["bf16"]), plain_ms,
+             statistics.median(t["library"]))
+    del x, ik, dk
+    torch.cuda.empty_cache()
+    # [large]'s shape: a seeded sample of rows against every column
+    xc = torch.from_numpy(xc_np).cuda()
+    nc, fc = xc_np.shape
+    rows = torch.from_numpy(np.sort(np.random.default_rng(11).choice(
+        nc, N_BF16_ROWS_LARGE, replace=False))).cuda()
+    b1_bf16_gates("large", xc, K_CELLS, rows)
+    torch.cuda.empty_cache()
+    t_l = alternated_ms({"bf16": lambda: knn_sweep_cuda(xc, K_CELLS, False,
+                                                        bf),
+                         "3xTF32": lambda: knn_sweep_cuda(xc, K_CELLS,
+                                                          False)},
+                        ["bf16", "3xTF32"])
+    bnd_l = b1_bf16_bound(nc, fc, K_CELLS)
+    print(f"[bf16] B1 bf16 {nc}x{fc} k={K_CELLS}: {t_l['bf16'][0]:.4f} ms "
+          f"(one warm launch), 3xTF32 {t_l['3xTF32'][0]:.4f} ms; bound "
+          f"{bnd_l[0]:.4f} ms by {bnd_l[1]}; library not timed at this "
+          f"shape")
+    del xc
+    torch.cuda.empty_cache()
+    print(f"[bf16] {time.perf_counter() - t_phase:.1f} s")
+    return times, bnd, err
+
+
+def bf16_embed_gate(x_np, labels, csr_kl):
+    """``TSNE(dtype="bfloat16")`` at [full]'s configuration (bruteforce,
+    CSR, exact repulsion), its launches counted from 0 just before it:
+    B1's bf16 form once, the 3xTF32 B1 never, the rest as [full]'s;
+    final KL within KL_GUARDRAIL_TOL of [full]'s float32 run, a float32
+    embedding; its 10-NN label agreement printed.  Returns the
+    launches."""
+    import torch
+    from tsne_flink_tpu_torch import TSNE
+    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    est = TSNE(perplexity=PERPLEXITY, n_iter=ITERATIONS, repulsion="exact",
+               attraction="csr", random_state=0, dtype="bfloat16").fit(x_np)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    want = want_launches(ITERATIONS, b1=0, b1_bf16=1)
+    kl = est.kl_divergence_
+    agree = label_agreement(torch.from_numpy(est.embedding_).cuda(), labels)
+    print(f"[bf16] TSNE(dtype='bfloat16') at [full]'s configuration: "
+          f"{wall:.3f} s, launches {json.dumps(counts)}, final KL {kl:.6f} "
+          f"([full] float32 {csr_kl:.6f}, |dKL| {abs(kl - csr_kl):.6f}), "
+          f"10-NN label agreement {agree:.4f}, embedding "
+          f"{est.embedding_.dtype}")
+    check(counts == want, f"[bf16] launches {counts} != {want}")
+    check(est.embedding_.dtype == np.float32
+          and np.isfinite(est.embedding_).all(),
+          "[bf16] the embedding is not finite float32")
+    check(abs(kl - csr_kl) <= KL_GUARDRAIL_TOL,
+          f"[bf16] final KL {kl} vs [full]'s {csr_kl}")
+    return counts
+
+
 def b2_gates():
     """B2 against its plain version at 60,000 x 2 (rep, row Z and global Z
     within rtol 2e-5; two launches bit-identical), at m = 3, and on a
@@ -1046,12 +1299,14 @@ def quality(tag, y, losses, labels, cfg, min_agree):
     return float(lh[-1])
 
 
-def want_launches(b3, b1=1, b2=None, b6=0):
+def want_launches(b3, b1=1, b2=None, b6=0, b1_bf16=0):
     """Launches of one run: B2 every iteration unless given, B3 every
     iteration of a fused CSR run (``b3``: the whole step, head and tail),
     B5 every iteration of any other (the unfused step's attraction
-    pass), B4 every 10th (the KL over both parts)."""
-    return {"B1": b1, "B2": ITERATIONS if b2 is None else b2, "B3": b3,
+    pass), B4 every 10th (the KL over both parts); B1's bf16 form only in
+    a bf16-operand run."""
+    return {"B1": b1, "B1_bf16": b1_bf16,
+            "B2": ITERATIONS if b2 is None else b2, "B3": b3,
             "B4": ITERATIONS // 10, "B5": ITERATIONS - b3, "B6": b6}
 
 
@@ -2030,6 +2285,24 @@ def phase_cli(x_np, xl_np, full, rows, project, y_bh):
         check(same_bits(y_c, y_p.cpu().numpy())
               and same_bits(y_w, y_p.cpu().numpy()),
               "[cli] gate 2: the cached runs' embeddings differ")
+
+        # gate 9: config 2 under --dtype bfloat16 reads none of the warm
+        # float32 cache, and ends within KL_GUARDRAIL_TOL of its f32 run
+        y_16, counts_16, _, err_16 = run_cli("config 2 bfloat16", argv(
+            "bf16.csv", *config2, *cache, "--dtype", "bfloat16"))
+        kl_32 = float(np.loadtxt(os.path.join(tmp, "c2.csv.loss"),
+                                 delimiter=",", ndmin=2)[-1, 1])
+        kl_16 = float(np.loadtxt(os.path.join(tmp, "bf16.csv.loss"),
+                                 delimiter=",", ndmin=2)[-1, 1])
+        print(f"[cli] gate 9: config 2 --dtype bfloat16: final KL "
+              f"{kl_16:.6f} against float32 {kl_32:.6f} (|dKL| "
+              f"{abs(kl_16 - kl_32):.6f}); launches {json.dumps(counts_16)}; "
+              f"the warm float32 cache not read")
+        check("(warm)" not in err_16 and counts_16["B6"] > 0,
+              "[cli] gate 9: the bf16 run read the float32 cache")
+        check(np.isfinite(y_16).all() and abs(kl_16 - kl_32)
+              <= KL_GUARDRAIL_TOL, f"[cli] gate 9: bf16 KL {kl_16} vs "
+              f"float32 {kl_32}")
         shutil.rmtree(cache[1])
 
         # gate 3: a fat checkpoint resumes bit for bit, with no kNN
@@ -2160,8 +2433,10 @@ def phase_analysis(x_np, argv, config2, y_c2, counts_c2, tmp):
        [1, 2]x of the measured one, the bits and launches of the run
        without the flag (``y_c2``, ``counts_c2``), the gate's seconds;
        then on the command line as users give it (no ``--symWidth``: the
-       model takes rows of 2k), its predicted / measured peak printed,
-       not gated, and its bits and launches held as well;
+       pre-read gate takes rows of 2k, printed, not gated; the re-check
+       after the kNN stage charges the graph's width bound, its predicted
+       / measured peak within [1, 2]), its bits and launches held as
+       well;
     2. a plan the model puts above the card (1M x 2 points, ``--neighbors
        1024 --affinityAssembly sorted``): refused with the JAX message,
        no kernel launched;
@@ -2219,11 +2494,22 @@ def phase_analysis(x_np, argv, config2, y_c2, counts_c2, tmp):
     check(got is not None and gate is not None,
           "[analysis] the gate's report lines are missing (as given)")
     pred = float(got.group(1)) * 2**30
+    again = re.search(r"# auditPlan: after kNN: width bound (\d+): peak "
+                      r"HBM est ([0-9.]+) GiB in '(\w+)'", out)
+    check(again is not None, "[analysis] 1b: no re-check after the kNN "
+          "stage without --symWidth")
+    pred2 = float(again.group(2)) * 2**30
     y_a = native_embedding(argv("audit_given.csv")[3])
     print(f"[analysis] 1b. --auditPlan as given (rows of 2k): gate "
           f"{float(gate.group(1)):.3f} s, predicted {pred / 2**30:.3f} GiB "
           f"in '{got.group(2)}' vs measured {peak / 2**30:.3f} GiB "
-          f"allocated (x{pred / peak:.3f}, not gated); run {secs:.3f} s")
+          f"allocated (x{pred / peak:.3f}, not gated); re-checked after "
+          f"the kNN stage at width bound {again.group(1)}: "
+          f"{pred2 / 2**30:.3f} GiB in '{again.group(3)}' "
+          f"(x{pred2 / peak:.3f}); run {secs:.3f} s")
+    check(int(again.group(1)) == w and 1.0 <= pred2 / peak <= 2.0,
+          f"[analysis] 1b: the re-check at width {again.group(1)} (bound "
+          f"{w}) reads x{pred2 / peak:.3f}, outside [1, 2]")
     check(same_bits(y_a, y_c2) and counts == counts_c2,
           "[analysis] --auditPlan as given changed the run's bits or "
           "launches")
@@ -2526,7 +2812,8 @@ def serve_launches(tag, model, buckets, fn):
     torch.cuda.synchronize()
     counts = launches()
     per = SERVE_ITERS * buckets
-    want = {"B1": 0, "B2": per if model.repulsion == "exact" else 0,
+    want = {"B1": 0, "B1_bf16": 0,
+            "B2": per if model.repulsion == "exact" else 0,
             "B3": 0, "B4": 0, "B5": per, "B6": 0}
     print(f"[serve] {tag}: launches {json.dumps(counts)}")
     check(counts == want, f"[serve] {tag}: launches {counts} != {want}")
@@ -3638,7 +3925,7 @@ def mesh_blobs(x_np, labels, cfg, full, csr_kl):
     del prep
     check(runs[1][4] == "csr", f"[mesh] blobs: layout {runs[1][4]}")
     mesh_same("blobs CSR", runs)
-    want = {"B1": 0, "B2": ITERATIONS, "B3": ITERATIONS,
+    want = {"B1": 0, "B1_bf16": 0, "B2": ITERATIONS, "B3": ITERATIONS,
             "B4": ITERATIONS // 10, "B5": 0, "B6": 0}
     shard_launches("blobs CSR", runs, want)
     y1 = runs[1][0].y
@@ -3719,8 +4006,8 @@ def phase_mesh(x_np, labels, full, csr_kl, latent_rows, large, tmp):
             for d in (1, 2)}
     check(runs[1][4] == "rows", f"[mesh] latent blobs: layout {runs[1][4]}")
     mesh_same("latent blobs rows", runs)
-    want = {"B1": 0, "B2": ITERATIONS, "B3": 0, "B4": ITERATIONS // 10,
-            "B5": ITERATIONS, "B6": 0}
+    want = {"B1": 0, "B1_bf16": 0, "B2": ITERATIONS, "B3": 0,
+            "B4": ITERATIONS // 10, "B5": ITERATIONS, "B6": 0}
     shard_launches("latent blobs rows", runs, want)
     per_shard["rows"] = want
     mesh_checkpoint("latent blobs rows", cfg_r, ji, jv, runs[1], tmp)
@@ -3743,8 +4030,8 @@ def phase_mesh(x_np, labels, full, csr_kl, latent_rows, large, tmp):
             for d in (1, 2)}
     check(runs[1][4] == "blocks", f"[mesh] large: layout {runs[1][4]}")
     mesh_same("large blocks + FFT", runs)
-    want = {"B1": 0, "B2": 0, "B3": 0, "B4": ITERATIONS // 10,
-            "B5": ITERATIONS, "B6": 0}
+    want = {"B1": 0, "B1_bf16": 0, "B2": 0, "B3": 0,
+            "B4": ITERATIONS // 10, "B5": ITERATIONS, "B6": 0}
     shard_launches("large blocks + FFT", runs, want)
     per_shard["blocks"] = want
     print(f"[mesh] large: s/iter mesh 1 {runs[1][3] / ITERATIONS:.6f}, mesh "
@@ -4022,6 +4309,40 @@ def spmd_ring(x, want, b1_ms):
     return (statistics.median(t["cross"]), plain_ms, lib), bnd, err
 
 
+def spmd_ring_bf16(x):
+    """The bf16 ring (``--dtype bfloat16`` on the multi-controller route)
+    on the test mesh at each width in SPMD_RING_WIDTHS: the graph of
+    ``fused_knn``'s bf16 form bit for bit, B1's bf16 form launched D times
+    a shard and no other kernel."""
+    import torch
+    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
+    from tsne_flink_tpu_torch.ops.knn_cuda import fused_knn
+    from tsne_flink_tpu_torch.parallel.knn import ring_knn
+    from tsne_flink_tpu_torch.parallel.mesh import run_shards
+    bf = torch.bfloat16
+    n = x.shape[0]
+    want = fused_knn(x, K, matmul_dtype=bf)
+    for d in SPMD_RING_WIDTHS:
+        nl = n // d
+        torch.cuda.synchronize()
+        reset_launches()
+        outs = run_shards(test_mesh(d), lambda ax: ring_knn(
+            x[ax.index * nl:(ax.index + 1) * nl], K, n, axis=ax,
+            matmul_dtype=bf))
+        torch.cuda.synchronize()
+        counts = launches()
+        gi = torch.cat([o[0] for o in outs])
+        gd = torch.cat([o[1] for o in outs])
+        print(f"[spmd] bf16 ring mesh {d} on the test mesh: launches "
+              f"{json.dumps(counts)}; the graph the bf16 single sweep's bit "
+              f"for bit: {torch.equal(gi, want[0]) and torch.equal(gd, want[1])}")
+        check(counts["B1_bf16"] == d * d and sum(counts.values()) == d * d,
+              f"[spmd] bf16 ring mesh {d}: launches {counts}")
+        check(torch.equal(gi, want[0]) and torch.equal(gd, want[1]),
+              f"[spmd] bf16 ring mesh {d}: the graph differs from the "
+              "bf16 single sweep's")
+
+
 def spmd_b6_n_valid(x, n_valid):
     """B6 with ``n_valid`` on the blobs' first funnel stage (the cascade
     at F = 128, the gateways' candidates built in the kernel) of a refine
@@ -4112,6 +4433,7 @@ def phase_spmd(x_np, labels, csr_kl, b1_ms):
     x = torch.from_numpy(x_np).cuda()
     want = fused_knn(x, K)
     hop_t, hop_bnd, hop_err = spmd_ring(x, want, b1_ms)
+    spmd_ring_bf16(x)
     b6_t, b6_bnd, b6_err = spmd_b6_n_valid(x, n - 64)
     del x
 
@@ -4956,9 +5278,14 @@ def main() -> int:
         errs, csr, rows, blocks = phase_kernels(x_np, xl_np, xc_np)
         errs["B6"], b6_shapes = phase_b6(x_np, xc_np)
         for kid, e in phase_widths(x_np, xc_np).items():
-            errs[kid] = max(errs[kid], e)
+            errs[kid] = max(errs.get(kid, 0.0), e)
+        bf16_times, bf16_bnd, bf16_err = phase_bf16(x_np, xc_np)
         kernels, csr_kl, full, b1_ms, b2_ms = phase_full(x_np, labels,
                                                          errs, csr)
+        bf16_counts = bf16_embed_gate(x_np, labels, csr_kl)
+        kernels.insert(1, kernel_record(
+            "B1_bf16", *KERNEL_META["B1_bf16"], bf16_counts["B1_bf16"],
+            bf16_err, bf16_times, bf16_bnd))
         y_60k = full[0]
         rows_run = phase_rows(xl_np, labels_l, z_latent, rows, errs)
         phase_blocks(x_np, labels, blocks, csr_kl)

@@ -4,8 +4,9 @@
   defaults, plus ``device`` and ``fault_plan``; ``aot_cache`` runs;
 * ``fit`` equals the port's ``tsne_embed`` bit for bit and ends within
   ``KL_GUARDRAIL_TOL`` of the JAX estimator; ``transform`` raises before
-  a fit and serves after one, and arguments of parts not ported yet raise
-  naming theirs before the input is touched;
+  a fit and serves after one; ``dtype="bfloat16"`` (mixed precision) fits
+  with float32 state, as ``tsne_embed`` under bf16 operands, bit for
+  bit;
 * ``autotune_knn_tiles`` returns a refine chunk from its candidates, and
   the refine result is bit-identical at every candidate chunk (the port's
   form of ``test_refine_row_chunk_invariant``).
@@ -104,18 +105,19 @@ def test_cache_dir_warm_fit_bit_identical(tmp_path, monkeypatch):
     np.testing.assert_array_equal(TSNE(**kw).fit(x).embedding_, cold)
 
 
-class _Untouchable:
-    def __len__(self):
-        raise AssertionError("the input was read")
-
-    def __array__(self, *a, **k):
-        raise AssertionError("the input was read")
-
-
-@pytest.mark.parametrize("kw,item", [({"dtype": "bfloat16"}, "§C")])
-def test_unported_kwargs_refused_before_the_input(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        TSNE(device="cpu", **kw).fit(_Untouchable())
+@pytest.mark.parametrize("method", ["bruteforce", "project"])
+def test_bfloat16_fits_with_float32_state(method):
+    """``dtype="bfloat16"`` runs on the CPU: a float32 embedding (from a
+    float64 input), ``tsne_embed``'s under bf16 operands bit for bit."""
+    x = _blobs(300)
+    est = TSNE(perplexity=8.0, n_iter=60, knn_method=method, random_state=3,
+               dtype="bfloat16", device="cpu").fit(x)
+    assert est.embedding_.dtype == np.float32
+    y, _ = tsne_embed(x.astype(np.float32),
+                      TsneConfig(perplexity=8.0, iterations=60),
+                      knn_method=method, seed=3, device="cpu",
+                      matmul_dtype=torch.bfloat16)
+    np.testing.assert_array_equal(est.embedding_, y.numpy())
 
 
 @pytest.mark.parametrize("kw,width", [

@@ -132,6 +132,43 @@ def test_dtype_scans_fire_on_a_seeded_run():
     assert "float64" in found[0].message and "bfloat16" in found[1].message
 
 
+def _bf16_fixture(leak: bool, widen: bool = False):
+    """A seeded product op for the bf16 pass: ``leak`` multiplies one
+    operand that bypassed ``ops/metrics.matmul_operands``; ``widen``
+    returns the bf16 copy itself (bf16 leaking out of the op)."""
+    from tsne_flink_tpu_torch.ops.metrics import matmul_operands
+
+    def make(device, matmul_dtype=None):
+        g = torch.Generator().manual_seed(4)
+        x = torch.randn((32, 12), generator=g).to(device)
+
+        def fn(a, b):
+            am, bm = matmul_operands(a, b, matmul_dtype)
+            if widen and matmul_dtype is not None:
+                return a.to(matmul_dtype)
+            return am @ (b if leak else bm).T
+        return fn, (x[:8], x)
+    return contracts.OpContract("fx.bf16", "fx.py", ("float32",), make,
+                                matmul_dim=12)
+
+
+def test_dtype_bf16_pass_finds_a_leak_and_a_widened_output():
+    """The JAX bf16-leak case: under bf16 operands a float32 product over
+    the feature axis whose operand bypassed matmul_operands is found; a
+    bf16 output is an output dtype change and bf16 off the blessed cast;
+    the clean op passes, and its f32 run holds no bf16 at all."""
+    found, rep = dtype.audit_contract(_bf16_fixture(leak=False), "cpu")
+    assert found == [] and rep["bf16_checked"]
+    assert rep["bf16_products"] == 1
+    found, _ = dtype.audit_contract(_bf16_fixture(leak=True), "cpu")
+    assert len(found) == 1 and "off the bf16 grid" in found[0].message
+    found, _ = dtype.audit_contract(_bf16_fixture(leak=False, widen=True),
+                                    "cpu")
+    msgs = " | ".join(f.message for f in found)
+    assert "output dtypes change" in msgs
+    assert "outside ops/metrics.matmul_operands" in msgs
+
+
 def test_compile_counts_no_library_on_the_cpu():
     found, report = comp.audit_compile(
         [PlanConfig(n=60_000, d=784, name="card"),

@@ -4,7 +4,10 @@
   per-stage terms, determinism, comms) and carries the JAX summary keys
   in the v2 checkpoint's ``audit``; a predicted OOM (the budget patched
   to 1 MiB) is refused with the JAX message before the kNN stage, and
-  ``=warn`` launches; a resumed run's drifted prediction warns;
+  ``=warn`` launches; without ``--symWidth`` a hub-heavy plan the
+  pre-read gate passes is re-checked at the graph's width bound after
+  the kNN stage and refused before the affinities, on both routes; a
+  resumed run's drifted prediction warns;
 * ``--executionPlan`` writes ``tsne_executionPlan.json`` (program,
   backend, devices, ``ops``: the CSR run's B2 and B3, then B4 on the KL
   pass) and no CSV nor checkpoint, and refuses ``blocks``;
@@ -95,6 +98,104 @@ def test_audit_plan_refuses_a_predicted_oom_before_the_knn(coo, tmp_path,
                      device="cpu") == 0
     assert "launching anyway (--auditPlan=warn)" in capsys.readouterr().err
     assert (tmp_path / "o.csv").exists()
+
+
+#: the hub-and-spoke points of the width re-check (C5): unit spokes in 64
+#: dimensions, the hub at the origin the nearest point of every spoke
+N_HUB, D_HUB, K_HUB = 600, 64, 18
+
+
+def _hub_points():
+    rng = np.random.default_rng(0)
+    x = rng.normal(size=(N_HUB, D_HUB))
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    x[0] = 0.0
+    return x.astype(np.float32)
+
+
+def _hub_budget(mesh: int = 1):
+    """(budget, width bound): a budget the pre-read gate's plan (rows of
+    2k) fits and the plan at the graph's width bound does not."""
+    from dataclasses import replace
+
+    from tsne_flink_tpu_torch.analysis.audit.hbm import plan_hbm_report
+    from tsne_flink_tpu_torch.ops.affinities import width_bound
+    from tsne_flink_tpu_torch.ops.knn import knn
+    w = width_bound(knn(torch.from_numpy(_hub_points()), K_HUB,
+                        "bruteforce")[0])
+    plan = PlanConfig(n=N_HUB, d=D_HUB, k=K_HUB, backend="cpu",
+                      knn_method="bruteforce", mesh=mesh)
+    given = plan_hbm_report(plan)["peak_hbm_est"]
+    at_w = plan_hbm_report(replace(plan, sym_width=w))
+    assert at_w["peak_stage"] == "affinities" and at_w["peak_hbm_est"] > \
+        2 * given
+    return (given + at_w["peak_hbm_est"]) // 2, w
+
+
+def test_audit_plan_rechecks_at_the_width_bound_after_the_knn(
+        tmp_path, monkeypatch, capsys):
+    """C5: without --symWidth the pre-read gate charges rows of 2k, so a
+    hub-heavy plan passes it; once the kNN stage ends the plan is charged
+    at the graph's width bound, the width printed, and refused before any
+    affinity work.  A pinned --symWidth runs no re-check."""
+    from tsne_flink_tpu_torch.ops import affinities as aff
+    budget, w = _hub_budget()
+    assert w > 2 * K_HUB
+    x = _hub_points()
+    coo = tmp_path / "hub.csv"
+    with open(coo, "w") as f:
+        f.writelines(f"{i},{j},{float(x[i, j])!r}\n" for i in range(N_HUB)
+                     for j in range(D_HUB))
+    argv = ["--input", str(coo), "--output", str(tmp_path / "o.csv"),
+            "--dimension", str(D_HUB), "--knnMethod", "bruteforce",
+            "--perplexity", str(K_HUB // 3), "--iterations", "30",
+            "--noCache", "--loss", str(tmp_path / "loss.txt")]
+    monkeypatch.setattr(PlanConfig, "hbm_budget", lambda self: budget)
+
+    def no_affinities(*a, **k):
+        raise AssertionError("the affinities stage ran")
+    for name in ("affinity_auto", "affinity_blocks", "affinity_pipeline"):
+        monkeypatch.setattr(aff, name, no_affinities)
+    with pytest.raises(SystemExit, match="plan predicted to OOM: peak HBM "
+                       "estimate .* in the 'affinities' stage exceeds .*"
+                       "--auditPlan=warn"):
+        tcli.main([*argv, "--auditPlan"], device="cpu")
+    out = capsys.readouterr().out
+    assert "# auditPlan: gate" in out  # the pre-read gate let it through
+    assert f"# auditPlan: after kNN: width bound {w}: peak HBM est" in out
+    assert not (tmp_path / "o.csv").exists()
+    # a pinned width: no re-check, and the run goes on
+    monkeypatch.undo()
+    monkeypatch.setattr(PlanConfig, "hbm_budget", lambda self: budget)
+    assert tcli.main([*argv, "--auditPlan", "--symWidth", str(2 * K_HUB)],
+                     device="cpu") == 0
+    assert "after kNN" not in capsys.readouterr().out
+
+
+def test_spmd_recheck_refuses_on_every_shard(monkeypatch, capsys):
+    """The multi-controller route's re-check: each shard gathers the
+    global graph's width bound once the ring ends and refuses before the
+    affinities."""
+    import argparse
+
+    from tsne_flink_tpu_torch.analysis.audit import cases
+    from tsne_flink_tpu_torch.parallel import pipeline as pl
+    budget, w = _hub_budget(mesh=2)
+    monkeypatch.setattr(PlanConfig, "hbm_budget", lambda self: budget)
+
+    def no_affinities(*a, **k):
+        raise AssertionError("the affinities stage ran")
+    monkeypatch.setattr(pl, "pairwise_affinities", no_affinities)
+    plan = PlanConfig(n=N_HUB, d=D_HUB, k=K_HUB, backend="cpu",
+                      knn_method="bruteforce", mesh=2)
+    pipe = pl.SpmdPipeline(
+        cases.config(iterations=30), N_HUB, D_HUB, K_HUB,
+        knn_method="bruteforce", devices=["cpu"] * 2,
+        on_graph=tcli._spmd_recheck(argparse.Namespace(auditPlan=True),
+                                    plan, True))
+    with pytest.raises(SystemExit, match="plan predicted to OOM"):
+        pipe.prepare(torch.from_numpy(_hub_points()))
+    assert f"after kNN: width bound {w}:" in capsys.readouterr().out
 
 
 def test_resumed_drift_warns(capsys):

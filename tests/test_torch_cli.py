@@ -4,10 +4,9 @@
   ``tsne_flink_tpu.utils.cli.build_parser``;
 * ``pick_repulsion(backend="cpu")`` equals the JAX function over a grid of
   (mode, theta, explicit, n, m);
-* every flag of a part not ported raises ``NotImplementedError`` naming
-  its ROADMAP item before the input is read (the input path does not
-  exist); the analysis flags (``--auditPlan``, ``--executionPlan``), the
-  runtime and the observability flags run; ``auto`` with an explicit --theta past EXACT_N_MAX runs
+* ``--dtype bfloat16`` (mixed precision) runs on the exact and the
+  project kNN with float32 state; the analysis flags (``--auditPlan``,
+  ``--executionPlan``), the runtime and the observability flags run; ``auto`` with an explicit --theta past EXACT_N_MAX runs
   Barnes-Hut; --model and --transform (the serve route) go together, and
   a fat checkpoint serves query rows through them;
 * on a 600-point COO file (bruteforce, project, and the kNN graph as
@@ -119,19 +118,29 @@ def test_pick_repulsion_cuda():
     assert tcli.pick_repulsion("auto", 0.25, 10 * top, 5) == "exact"
 
 
-REFUSED = [(["--dtype", "bfloat16"], "§C")]
+@pytest.mark.parametrize("method", ["bruteforce", "project"])
+def test_dtype_bfloat16_runs_with_float32_state(files, tmp_path,
+                                                monkeypatch, method):
+    """``--dtype bfloat16`` runs (it was refused before the port had B1's
+    bf16 form): the embedding it writes is float32."""
+    from tsne_flink_tpu_torch.utils import io as tio
+    written = {}
+    real = tio.write_embedding
 
+    def keep(path, ids, y):
+        written["y"] = y
+        real(path, ids, y)
 
-@pytest.mark.parametrize("extra,item", REFUSED,
-                         ids=[" ".join(e) for e, _ in REFUSED])
-def test_unported_flags_refused_before_the_input_is_read(tmp_path, extra,
-                                                         item):
-    argv = ["--input", str(tmp_path / "missing.csv"), "--output",
-            str(tmp_path / "o.csv"), "--dimension", "4", "--knnMethod",
-            "bruteforce", *extra]
-    with pytest.raises(NotImplementedError, match=item):
-        tcli.main(argv, device="cpu")
-    assert not (tmp_path / "o.csv").exists()
+    monkeypatch.setattr(tio, "write_embedding", keep)
+    out = tmp_path / "o.csv"
+    argv = ["--input", str(files["coo"]), "--output", str(out),
+            "--dimension", str(D), "--knnMethod", method, "--perplexity",
+            str(PERPLEXITY), "--iterations", "30", "--noCache", "--loss",
+            str(tmp_path / "loss.txt"), "--dtype", "bfloat16"]
+    assert tcli.main(argv, device="cpu") == 0
+    assert written["y"].dtype == np.float32 and written["y"].shape == (N, 2)
+    rows = np.loadtxt(out, delimiter=",", ndmin=2)
+    assert rows.shape == (N, 3) and np.isfinite(rows).all()
 
 
 #: the analysis flags (ported, queue A16): each runs, and before the kNN

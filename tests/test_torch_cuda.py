@@ -39,7 +39,9 @@ for bit as this process does; and the multi-controller job's kernels:
 B1's cross sweep (the ring's hop) against its plain version and the ring
 on the test mesh equal to the single sweep bit for bit, B6 with
 ``n_valid`` against its plain version, and a shard of two gloo processes
-on the one card equal to the mesh-1 rows.
+on the one card equal to the mesh-1 rows; B1's bf16-operand form against
+its plain version (float64), its ring and a shard equal to its single
+sweep bit for bit, and float64 refused on the card.
 """
 
 import numpy as np
@@ -1376,7 +1378,7 @@ def test_mesh_on_the_test_mesh_equals_mesh_1(dev):
 
 # ---- the multi-controller job ------------------------------------------------
 
-def _ring_on_the_card(x, d, k, metric):
+def _ring_on_the_card(x, d, k, metric, matmul_dtype=None):
     from tsne_flink_tpu_torch.parallel.knn import ring_knn
     from tsne_flink_tpu_torch.parallel.mesh import (padded_rows_for,
                                                     run_shards)
@@ -1385,7 +1387,8 @@ def _ring_on_the_card(x, d, k, metric):
     xp = torch.nn.functional.pad(x, (0, 0, 0, npad - n))
     nl = npad // d
     outs = run_shards([x.device] * d, lambda ax: ring_knn(
-        xp[ax.index * nl:(ax.index + 1) * nl], k, n, metric, axis=ax))
+        xp[ax.index * nl:(ax.index + 1) * nl], k, n, metric, axis=ax,
+        matmul_dtype=matmul_dtype))
     return (torch.cat([o[0] for o in outs])[:n],
             torch.cat([o[1] for o in outs])[:n])
 
@@ -1495,3 +1498,69 @@ np.save(r"{tmp_path}/y%d.npy" % r, y.cpu().numpy())
     for r in range(2):
         assert np.array_equal(np.load(tmp_path / f"y{r}.npy"),
                               y1.cpu().numpy())
+
+
+# ---- B1's bf16-operand form (mixed precision, --dtype bfloat16) ------------
+
+@pytest.mark.parametrize("n,f,k,data", [(4096, 784, 90, "blobs"),
+                                        (4096, 50, 150, "cells"),
+                                        (700, 33, 17, "blobs"),
+                                        (300, 16, 299, "blobs")])
+def test_knn_bf16_matches_plain(dev, n, f, k, data):
+    """B1's bf16 form against its plain version run on float64 copies of
+    the same points (the rounded operands' products exact there):
+    distances within rtol 1e-5 of each plus 1e-5 of the largest, ids equal
+    outside ties, two launches bit-identical, one launch counted a sweep
+    under its own name and none under the 3xTF32 form's."""
+    bf = torch.bfloat16
+    src = _blobs(n, f, 2) if data == "blobs" else _cells(n, f, 2)
+    x = torch.from_numpy(src).to(dev)
+    before = (KERNELS["B1"].launches, KERNELS["B1_bf16"].launches)
+    raw = knn_sweep_cuda(x, k, False, bf)
+    again = knn_sweep_cuda(x, k, False, bf)
+    assert (KERNELS["B1"].launches, KERNELS["B1_bf16"].launches) == (
+        before[0], before[1] + 2)
+    assert torch.equal(raw[0], again[0]) and torch.equal(raw[1], again[1])
+    ik, dk = _fused_final(*raw, "sqeuclidean")
+    kk = min(k + 1, n - 1)
+    dp, ip = knn_sweep_plain(x.double(), kk, False, matmul_dtype=bf)
+    tol = 1e-5 * (dp.abs() + dp[:, :k].abs().max())
+    assert bool(((dk.double() - dp[:, :k]).abs() <= tol[:, :k]).all())
+    gap = dp[:, 1:] - dp[:, :-1]
+    tied = torch.zeros_like(ik, dtype=torch.bool)
+    tied[:, :gap.shape[1]] |= gap[:, :k] <= tol[:, :gap.shape[1]]
+    tied[:, 1:] |= gap[:, :k - 1] <= tol[:, 1:k]
+    assert bool(((ik.long() == ip[:, :k].long()) | tied).all())
+
+
+def test_knn_bf16_cross_equals_single_and_a_shard_the_mesh_1_rows(dev):
+    """The bf16 ring at D = 2 and 4 on the test mesh gives the bf16
+    single sweep's graph bit for bit (one K-loop order for both sweeps),
+    and a shard's cross sweep against every column gives the mesh-1 rows
+    bit for bit."""
+    from tsne_flink_tpu_torch.ops.knn_cuda import fused_knn, knn_cross
+    bf = torch.bfloat16
+    x = torch.from_numpy(_blobs(3001, 784, 3)).to(dev)
+    want_i, want_d = fused_knn(x, 30, matmul_dtype=bf)
+    for d in (2, 4):
+        before = KERNELS["B1_bf16"].launches
+        gi, gd = _ring_on_the_card(x, d, 30, "sqeuclidean", bf)
+        assert KERNELS["B1_bf16"].launches == before + d * d
+        assert torch.equal(gi, want_i) and torch.equal(gd, want_d)
+    rows = x[1000:2000].contiguous()
+    si, sd = knn_cross(rows, x, 30, False, 1000, 0, 3001, matmul_dtype=bf)
+    assert torch.equal(si, want_i[1000:2000])
+    assert torch.equal(sd, want_d[1000:2000])
+
+
+def test_float64_is_refused_on_the_card(dev, tmp_path):
+    """float64 stays a CPU-only dtype (ROADMAP §C): the estimator and the
+    CLI refuse it on the card before the input is touched."""
+    from tsne_flink_tpu_torch import TSNE
+    from tsne_flink_tpu_torch.utils import cli as tcli
+    with pytest.raises(NotImplementedError, match="§C"):
+        TSNE(dtype="float64").fit(np.zeros((10, 3)))
+    with pytest.raises(NotImplementedError, match="§C"):
+        tcli.main(["--input", str(tmp_path / "missing.csv"), "--output",
+                   str(tmp_path / "o.csv"), "--dimension", "3",
+                   "--knnMethod", "bruteforce", "--dtype", "float64"])

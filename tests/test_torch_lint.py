@@ -93,7 +93,7 @@ def test_unchanged_rule_gives_the_jax_findings(rule):
 IDIOM = {
     "env-registry": ["fx_env_registry.py"],
     "host-sync": ["ops/fx_host_sync.py"],
-    "dtype-drift": ["ops/fx_dtype_drift.py"],
+    "dtype-drift": ["ops/fx_dtype_drift.py", "ops/metrics.py"],
     "mesh-hygiene": ["tsne_flink_tpu_torch/fx_mesh_hygiene.py"],
     "audit-contract": ["ops/fx_audit_contract.py", "models/tsne.py"],
 }

@@ -10,3 +10,10 @@ def f(x):
     g = torch.tensor(3)  # clean: an integer literal
     h = x.double()  # graftlint: disable=dtype-drift -- the suppressed twin
     return a, b, c, d, e, g, h
+
+
+def g(x, matmul_dtype=None):
+    a = x.to(torch.bfloat16)  # VIOLATION
+    b = x.bfloat16()  # VIOLATION
+    c = x.to(matmul_dtype)  # clean: the threaded operand dtype
+    return a, b, c

@@ -11,11 +11,16 @@ enumerates them):
   registry's representative float32 inputs (the deployment case: the
   kernels are float32; float64 runs are the CPU's reference);
 * ``make(device)`` — ``(fn, args)``: a call of the op on tiny seeded
-  inputs on ``device``.  A kernel's launcher is held through the public
-  wrapper the main path calls (``fused_knn`` for ``knn_sweep_cuda``,
-  ``knn_cross`` for ``knn_cross_cuda``, ``knn_refine`` for B6's
-  ``_refine_launch``): on the card that launches the kernel, on the CPU
-  its plain version.
+  inputs on ``device``;
+* ``matmul_dim`` — when set, the op's distance or projection products
+  contract over this feature width, and ``make(device,
+  matmul_dtype=torch.bfloat16)`` makes the same call under bf16 operands
+  (the dtype audit's bf16 pass, as the JAX registry's ``matmul_dim``).
+
+A kernel's launcher is held through the public wrapper the main path
+calls (``fused_knn`` for ``knn_sweep_cuda``, ``knn_cross`` for
+``knn_cross_cuda``, ``knn_refine`` for B6's ``_refine_launch``): on the
+card that launches the kernel, on the CPU its plain version.
 
 Declarations are plain ``contract(...)`` calls so the lint rule can read
 them with ``ast`` alone; this module is imported by the audit tier only.
@@ -35,14 +40,16 @@ class OpContract:
     name: str        # dotted registry key; last segment = def name
     path: str        # repo-relative file, for findings
     out: tuple       # expected output dtypes (flattened, in order)
-    make: object     # (device) -> (fn, args)
+    make: object     # (device[, matmul_dtype]) -> (fn, args)
+    matmul_dim: int | None = None  # the products' feature width
 
 
 REGISTRY: dict[str, OpContract] = {}
 
 
-def contract(name: str, path: str, out: tuple, make) -> None:
-    REGISTRY[name] = OpContract(name, path, tuple(out), make)
+def contract(name: str, path: str, out: tuple, make,
+             matmul_dim: int | None = None) -> None:
+    REGISTRY[name] = OpContract(name, path, tuple(out), make, matmul_dim)
 
 
 def declared_names() -> set:
@@ -99,43 +106,89 @@ _KNN = "tsne_flink_tpu_torch/ops/knn.py"
 _KC = "tsne_flink_tpu_torch/ops/knn_cuda.py"
 
 
-def _mk_knn(device):
+#: the feature width of the refine funnel's case: past 2·CASCADE_DIMS, so
+#: its JL filter and cascade projections run
+D_FUNNEL = 300
+
+
+def _mk_knn(device, matmul_dtype=None):
     from tsne_flink_tpu_torch.ops.knn import knn
-    return (lambda x: knn(x, K, "bruteforce")), (_x(device),)
+    return (lambda x: knn(x, K, "bruteforce", matmul_dtype=matmul_dtype),
+            (_x(device),))
 
 
-def _mk_sweep(device):
+def _mk_sweep(device, matmul_dtype=None):
     from tsne_flink_tpu_torch.ops.knn_cuda import fused_knn
-    return (lambda x: fused_knn(x, K)), (_x(device),)
+    return (lambda x: fused_knn(x, K, matmul_dtype=matmul_dtype),
+            (_x(device),))
 
 
-def _mk_cross(device):
+def _mk_cross(device, matmul_dtype=None):
     from tsne_flink_tpu_torch.ops.knn_cuda import knn_cross
     x = _x(device)
     half = N // 2
-    return (lambda a, b: knn_cross(a, b, K, False, 0, half, N),
+    return (lambda a, b: knn_cross(a, b, K, False, 0, half, N,
+                                   matmul_dtype=matmul_dtype),
             (x[:half].contiguous(), x[half:].contiguous()))
 
 
-def _mk_refine(device):
+def _mk_refine(device, matmul_dtype=None):
     import torch
 
     from tsne_flink_tpu_torch.ops.knn import knn_project, knn_refine
 
     def fn(x):
         gen = torch.Generator(device=x.device).manual_seed(0)
-        idx, dist = knn_project(x, K, rounds=1, generator=gen)
-        return knn_refine(x, idx, dist, rounds=1, generator=gen)
+        idx, dist = knn_project(x, K, rounds=1, generator=gen,
+                                matmul_dtype=matmul_dtype)
+        return knn_refine(x, idx, dist, rounds=1, generator=gen,
+                          matmul_dtype=matmul_dtype)
     return fn, (_x(device),)
 
 
-contract("ops.knn.knn", _KNN, ("int32", "float32"), _mk_knn)
+def _mk_funnel(device, matmul_dtype=None):
+    """The refine round's JL filter + cascade funnel (d = 300)."""
+    import torch
+
+    from tsne_flink_tpu_torch.ops.knn import knn_project, knn_refine
+
+    def fn(x):
+        gen = torch.Generator(device=x.device).manual_seed(0)
+        idx, dist = knn_project(x, K, rounds=1, generator=gen,
+                                matmul_dtype=matmul_dtype)
+        return knn_refine(x, idx, dist, rounds=1, generator=gen,
+                          filter_dims=32, expand_k=K // 2,
+                          matmul_dtype=matmul_dtype)
+    return fn, (_x(device, d=D_FUNNEL),)
+
+
+def _mk_queries(device, matmul_dtype=None):
+    from tsne_flink_tpu_torch.ops.knn import knn_queries
+    x = _x(device)
+    return (lambda q, b: knn_queries(q, b, K, matmul_dtype=matmul_dtype),
+            (x[:16].contiguous(), x))
+
+
+def _mk_pairwise(device, matmul_dtype=None):
+    from tsne_flink_tpu_torch.ops.metrics import pairwise
+    x = _x(device)
+    return (lambda a, b: pairwise("sqeuclidean", a, b, matmul_dtype),
+            (x[:16].contiguous(), x))
+
+
+contract("ops.knn.knn", _KNN, ("int32", "float32"), _mk_knn, matmul_dim=D)
 contract("ops.knn_cuda.knn_sweep_cuda", _KC, ("int32", "float32"),
-         _mk_sweep)
+         _mk_sweep, matmul_dim=D)
 contract("ops.knn_cuda.knn_cross_cuda", _KC, ("int32", "float32"),
-         _mk_cross)
+         _mk_cross, matmul_dim=D)
 contract("ops.knn_cuda._refine_launch", _KC, ("int32", "float32"),
-         _mk_refine)
+         _mk_refine, matmul_dim=D)
+contract("ops.knn.knn_refine", _KNN, ("int32", "float32"), _mk_funnel,
+         matmul_dim=D_FUNNEL)
+contract("ops.knn.knn_queries", _KNN, ("int32", "float32"), _mk_queries,
+         matmul_dim=D)
+contract("ops.metrics.pairwise", "tsne_flink_tpu_torch/ops/metrics.py",
+         ("float32",), _mk_pairwise, matmul_dim=D)
 
 
 # ---- ops/affinities.py ------------------------------------------------------

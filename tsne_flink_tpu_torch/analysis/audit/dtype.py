@@ -10,9 +10,18 @@ device:
 2. **f64 scan** — no aten op recorded in the float32 run may produce a
    float64 tensor, off :data:`F64_BLESSED` (a float64 value inside a
    float32 run is a silent upcast, or a CPU-only path);
-3. **bf16** — no op may produce a bfloat16 tensor at all: the port's
-   kernels are float32 and B1 runs 3xTF32 (bf16 operands are a ROADMAP
-   §C limit).
+3. **bf16** — in the float32 run no op may produce a bfloat16 tensor:
+   bf16 values exist only under bf16 operands, and there only where
+   ``ops/metrics.matmul_operands`` rounds (or B1's bf16 form allocates
+   the copy its kernel rounds into).  For entries with ``matmul_dim``
+   set, the case is recorded again under bf16 operands (``make(device,
+   matmul_dtype=torch.bfloat16)``; port of the JAX check,
+   ``tsne_flink_tpu/analysis/audit/dtype.py:121-151``), and fails on any
+   matrix product that contracts over the ``matmul_dim``-wide feature
+   axis with an operand that holds values off the bf16 grid (an operand
+   that bypassed ``matmul_operands``: a float32 leak into the bf16
+   path), and on any output dtype change (bf16 leaking out past the
+   float32 accumulation).
 """
 
 from __future__ import annotations
@@ -58,8 +67,23 @@ def _f64_blessed(frames) -> bool:
                for (bf, bp) in F64_BLESSED)
 
 
-def scan_events(events, name: str, path: str) -> list:
-    """The f64 and bf16 findings of one recorded float32 run."""
+#: where a bf16 tensor may appear under bf16 operands: the blessed cast
+#: and the bf16 copy B1's bf16 form rounds into (function, file suffix)
+BF16_BLESSED = {("matmul_operands", "ops/metrics.py"),
+                ("_operand_scratch", "ops/knn_cuda.py")}
+
+
+def _bf16_blessed(frames) -> bool:
+    return any(func == bf and path.endswith(bp)
+               for path, _l, func in frames or ()
+               for (bf, bp) in BF16_BLESSED)
+
+
+def scan_events(events, name: str, path: str,
+                bf16_operands: bool = False) -> list:
+    """The f64 and bf16 findings of one recorded run (float32 inputs;
+    ``bf16_operands``: recorded under bf16 operands, where the blessed
+    sites may hold bf16 values)."""
     findings = []
     f64 = sorted({e["name"] for e in events if e["kind"] == "aten"
                   and any(dt == "float64" for _s, dt in e.get("out", ()))
@@ -70,13 +94,34 @@ def scan_events(events, name: str, path: str) -> list:
             f"{name}: float64 values appear in a float32 run (ops: "
             f"{f64[:4]}) — an upcast; thread the computation dtype"))
     bf16 = sorted({e["name"] for e in events if e["kind"] == "aten"
-                   and any(dt == "bfloat16" for _s, dt in e.get("out", ()))})
+                   and any(dt == "bfloat16" for _s, dt in e.get("out", ()))
+                   and not (bf16_operands and _bf16_blessed(e.get("frames")))})
     if bf16:
         findings.append(Finding(
             RULE, path, 1, 0,
-            f"{name}: bfloat16 values appear (ops: {bf16[:4]}) — the "
-            "port's kernels are float32, bf16 operands are not ported"))
+            f"{name}: bfloat16 values appear (ops: {bf16[:4]}) outside "
+            "ops/metrics.matmul_operands"
+            + (" — bf16 exists under bf16 operands only, where that cast "
+               "rounds" if not bf16_operands else "")))
     return findings
+
+
+def feature_leaks(events, matmul_dim: int) -> list:
+    """The matrix products of a run recorded with operand values
+    (``Recorder(operand_values=True)``) that contract over a
+    ``matmul_dim``-wide axis with an operand off the bf16 grid."""
+    from tsne_flink_tpu_torch.analysis.audit.record import PRODUCT_OPS
+    leaks = []
+    for e in events:
+        pos = PRODUCT_OPS.get(e.get("name"))
+        if e["kind"] != "aten" or pos is None or "rounded" not in e:
+            continue
+        ins = e["in"]
+        if len(ins) <= pos or not ins[pos][0]:
+            continue
+        if ins[pos][0][-1] == matmul_dim and not all(e["rounded"]):
+            leaks.append(e)
+    return leaks
 
 
 def audit_contract(c: OpContract, device) -> tuple[list, dict]:
@@ -95,8 +140,47 @@ def audit_contract(c: OpContract, device) -> tuple[list, dict]:
     findings.extend(scan_events(rec.events, c.name, c.path))
     launched = sorted({e["name"] for e in rec.events
                        if e["kind"] == "kernel"})
-    return findings, {"out": list(got), "ops": len(rec.events),
-                      "kernels": launched}
+    rep = {"out": list(got), "ops": len(rec.events), "kernels": launched,
+           "bf16_checked": False}
+    if c.matmul_dim is not None:
+        findings.extend(_bf16_pass(c, device, rep))
+    return findings, rep
+
+
+def _bf16_pass(c: OpContract, device, rep: dict) -> list:
+    """The entry recorded again under bf16 operands: leaks into the bf16
+    path, bf16 off the blessed sites, and output dtype changes."""
+    import torch
+
+    from tsne_flink_tpu_torch.analysis.audit.record import Recorder
+    fn, args = c.make(device, matmul_dtype=torch.bfloat16)
+    with Recorder(operand_values=True) as rec:
+        out = fn(*args)
+    findings = []
+    leaks = feature_leaks(rec.events, c.matmul_dim)
+    if leaks:
+        sites = sorted({f"{e['site'][2]} ({e['site'][0]}:{e['site'][1]})"
+                        for e in leaks if e.get("site")})
+        findings.append(Finding(
+            RULE, c.path, 1, 0,
+            f"{c.name}: {len(leaks)} product(s) contract over the "
+            f"{c.matmul_dim}-wide feature axis with an operand off the bf16 "
+            f"grid under bf16 operands (at {sites[:3]}) — a float32 leak "
+            "into the bf16 path (route operands through "
+            "ops/metrics.matmul_operands)"))
+    findings.extend(scan_events(rec.events, c.name, c.path,
+                                bf16_operands=True))
+    got16 = tuple(flat_dtypes(out))
+    if got16 != tuple(c.out):
+        findings.append(Finding(
+            RULE, c.path, 1, 0,
+            f"{c.name}: output dtypes change to {got16} under bf16 "
+            "operands — accumulations must stay at the contract dtypes"))
+    rep["bf16_checked"] = True
+    rep["bf16_products"] = sum(1 for e in rec.events if "rounded" in e)
+    rep["bf16_kernels"] = sorted({e["name"] for e in rec.events
+                                  if e["kind"] == "kernel"})
+    return findings
 
 
 def audit_dtype(device, names=None) -> tuple[list, dict]:

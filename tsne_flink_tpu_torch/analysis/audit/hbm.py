@@ -348,13 +348,24 @@ def _port_knn(plan: PlanConfig, terms: dict) -> None:
     column ranks, the keep mask and the scatter's three index tensors and
     its int32 values (94 B an edge) — more than its argsort (64 B with the
     card's sort scratch).  On the card B6 runs a refine chunk's funnel in
-    shared memory (``refine_chunk`` replaces the JAX chunk's gathers)."""
+    shared memory (``refine_chunk`` replaces the JAX chunk's gathers).
+
+    Under bf16 operands (``plan.matmul_dtype``) B1's bf16 form rounds x
+    into a bf16 copy it streams (``b1_operands``: 2 bytes a feature, F
+    padded to 16), and a band group's product takes rounded float32
+    copies of its gathered rows and columns (``ops/metrics
+    .matmul_operands``), held while its distance tiles form."""
     n, d, k, isz = plan.n, plan.d, plan.k, plan.itemsize
     x, graph = terms["input"], terms["graph"]
+    bf16 = plan.matmul_dtype == "bfloat16"
     if "exact_tile" in terms and plan.backend == "cuda":
         terms["b1_norms"] = 2.0 * n * d * 8
         terms["exact_tile"] = 0.0
         terms["peak"] = x + graph + terms["b1_norms"]
+        if bf16:
+            terms["b1_operands"] = 2.0 * n * (d + (-d % 16))
+            terms["peak"] = max(terms["peak"],
+                                x + graph + terms["b1_operands"])
         return
     if "refine" in terms:
         from tsne_flink_tpu_torch.ops.knn import (pick_knn_cascade,
@@ -392,6 +403,10 @@ def _port_knn(plan: PlanConfig, terms: dict) -> None:
         gathers = g * (b + band) * d * isz
         terms["band_group"] = max(gathers + 4.0 * tile * isz,
                                   tile * (3.0 * isz + 1.0 + 8.0))
+        if bf16:
+            # pairwise holds the rounded copies while its tiles form
+            terms["band_group"] = max(terms["band_group"],
+                                      2.0 * gathers + 4.0 * tile * isz)
         # the seed's earlier rounds; in a refine cycle, the graph, the
         # last cycle's merged rounds (bound until the new ones return) and
         # the cycle's earlier rounds.  A merge's distances are a view of

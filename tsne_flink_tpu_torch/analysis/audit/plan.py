@@ -72,6 +72,10 @@ class PlanConfig:
     #: query rows per transform bucket when this plan describes a SERVING
     #: process (0 = batch fit, no transform stage)
     serve_queries: int = 0
+    #: the kNN products' operand dtype of a mixed-precision run
+    #: (``bfloat16``; None: the array's own).  ``dtype`` stays the state's
+    #: (float32), as the JAX CLI's plan takes it
+    matmul_dtype: str | None = None
     name: str = "plan"
 
     def __post_init__(self):

@@ -14,6 +14,11 @@ it issues, in order:
 * every collective, by a hook on ``parallel/mesh.MeshAxis`` /
   ``ProcessAxis``, with its kind, shape, dtype, payload bytes and shard.
 
+``Recorder(operand_values=True)`` (the dtype audit's bf16 pass) also
+notes, for every matrix product (:data:`PRODUCT_OPS`), whether each
+floating operand holds bf16 values only (``rounded``): what an operand
+that passed through ``ops/metrics.matmul_operands`` holds.
+
 Dispatch modes are per thread, so a :class:`Recorder` also registers a
 shard context with ``parallel/mesh.SHARD_CONTEXTS``: each shard thread of
 the thread mesh enters the recorder itself, and its events carry its
@@ -34,6 +39,12 @@ PLAIN_OF = {
     "attraction_loss_plain": "B4", "attraction_forces_plain": "B5",
     "refine_keep_plain": "B6", "refine_final_plain": "B6",
 }
+
+#: aten matrix products -> the position of the input whose last axis is
+#: the contraction
+PRODUCT_OPS = {"aten.mm": 0, "aten.bmm": 0, "aten.mv": 0, "aten.dot": 0,
+               "aten.vdot": 0, "aten.addmm": 1, "aten.baddbmm": 1,
+               "aten.addmv": 1, "aten.addbmm": 1}
 
 _PKG = "tsne_flink_tpu_torch/"
 _SKIP = ("tsne_flink_tpu_torch/analysis/",)
@@ -71,6 +82,13 @@ def _frames(limit: int = 12) -> tuple[list, int | None]:
     return out, it
 
 
+def _bf16_valued(t) -> bool:
+    """Every value of ``t`` is a bf16 value (NaN included)."""
+    import torch
+    r = t.to(torch.bfloat16).to(t.dtype)
+    return bool(torch.all((r == t) | torch.isnan(t)))
+
+
 def _meta(x):
     """[[shape, dtype], ...] of the tensors in ``x`` (nested)."""
     import torch
@@ -93,7 +111,8 @@ class Recorder:
     """``with Recorder() as rec:`` records what the block issues on this
     thread and on every shard thread it starts (:attr:`events`)."""
 
-    def __init__(self):
+    def __init__(self, operand_values: bool = False):
+        self.operand_values = operand_values
         self.events: list[dict] = []
         self._lock = threading.Lock()
         self._tls = threading.local()
@@ -155,6 +174,7 @@ class Recorder:
         return _Ctx()
 
     def _new_mode(self):
+        import torch
         from torch.utils._python_dispatch import TorchDispatchMode
         rec = self
 
@@ -177,6 +197,10 @@ class Recorder:
                     acc = args[pos] if len(args) > pos else False
                 if acc is True:
                     ev["accumulate"] = True
+                if rec.operand_values and ev["name"] in PRODUCT_OPS:
+                    ev["rounded"] = [_bf16_valued(a) for a in args
+                                     if isinstance(a, torch.Tensor)
+                                     and a.is_floating_point()]
                 rec._add(ev)
                 return out
 

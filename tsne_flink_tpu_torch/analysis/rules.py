@@ -19,7 +19,9 @@ applicable (ROADMAP §A16 names the reasons):
     functions, and a call there to a helper outside that scope whose own
     body reads the device (one level);
   - ``dtype-drift``: ``torch.float64``, ``.double()`` and a dtype-less
-    ``torch.tensor`` of float literals in ``ops/``;
+    ``torch.tensor`` of float literals in ``ops/``, and ``torch.bfloat16``
+    or ``.bfloat16()`` there outside ``ops/metrics.py``, the operand
+    policy whose ``matmul_operands`` is the one blessed bf16 cast;
   - ``mesh-hygiene``: ``torch.distributed`` calls and ``MeshAxis`` /
     ``ProcessAxis`` construction outside ``parallel/``;
   - ``audit-contract``: every function of ``ops/`` that launches a kernel
@@ -447,16 +449,31 @@ def _has_float_literal(node) -> bool:
                for sub in ast.walk(node))
 
 
+#: the operand policy module: its ``matmul_operands`` is the one blessed
+#: bf16 cast, and it alone names the bf16 dtype
+OPERAND_POLICY_SUFFIX = "ops/metrics.py"
+
+
 @rule("dtype-drift",
       "torch.float64, .double() and dtype-less torch.tensor of float "
-      "literals in ops/ (the kernels' contract is float32)")
+      "literals in ops/ (the kernels' contract is float32), and bf16 "
+      "outside ops/metrics.matmul_operands")
 def dtype_drift(project: Project):
     findings = []
     for mod in project.modules:
         if not _in_dir(_norm(mod), "ops"):
             continue
         torch_names = _torch_aliases(mod.tree)
+        policy = _norm(mod).endswith(OPERAND_POLICY_SUFFIX)
         for node in ast.walk(mod.tree):
+            if (not policy and isinstance(node, ast.Attribute)
+                    and node.attr == "bfloat16"
+                    and _is_name_in(node.value, torch_names)):
+                findings.append(mod.finding(
+                    "dtype-drift", node,
+                    "torch.bfloat16 in ops/: bf16 operands come from "
+                    "ops/metrics.matmul_operands alone; thread "
+                    "matmul_dtype= to the product"))
             if (isinstance(node, ast.Attribute)
                     and node.attr in ("float64", "double")
                     and _is_name_in(node.value, torch_names)):
@@ -468,6 +485,14 @@ def dtype_drift(project: Project):
             if not isinstance(node, ast.Call):
                 continue
             func = node.func
+            if (not policy and isinstance(func, ast.Attribute)
+                    and func.attr == "bfloat16" and not node.args
+                    and not _is_name_in(func.value, torch_names)):
+                findings.append(mod.finding(
+                    "dtype-drift", node,
+                    ".bfloat16() in ops/: bf16 operands come from "
+                    "ops/metrics.matmul_operands alone; thread "
+                    "matmul_dtype= to the product"))
             if (isinstance(func, ast.Attribute) and func.attr == "double"
                     and not node.args
                     and not _is_name_in(func.value, torch_names)):

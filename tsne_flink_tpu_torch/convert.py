@@ -90,8 +90,10 @@ def frozen_from_jax(jm, *, device=None):
     from tsne_flink_tpu_torch.serve.model import FrozenModel, PlanConfig
 
     device = resolve_device(device)
+    # the port's own fields (the bf16 operand dtype) keep their defaults
     plan = PlanConfig(**{f.name: getattr(jm.plan, f.name)
-                         for f in fields(PlanConfig)})
+                         for f in fields(PlanConfig)
+                         if hasattr(jm.plan, f.name)})
     x = _tensor(jm.x, device)
     field = None
     if jm.field is not None:

@@ -77,13 +77,28 @@
 // |a|² + |b|² − 2g in double-float from row norms the wrapper passes as
 // (hi, lo) pairs of their float64 values, clamped at 0; cosine
 // (L2-normalised rows) takes 1 − g.
+//
+// The bf16-operand form (mixed precision, ``--dtype bfloat16``; the TPU
+// kernel's ``cast_dtype``, knn_pallas.py:81-84) is the same kernel with
+// the template flag BF16: the C entry first rounds x into a bf16 copy the
+// wrapper allocates (cvt.rn.bf16.f32, one pass over x), the ring stages
+// bf16 tiles (a stage's 144-byte rows hold BK = 64 features instead of
+// 32, so a column tile takes half the stages and barriers), and each
+// 16-feature step is one mma.sync.m16n8k16 bf16 in place of the three
+// TF32 passes.  A product of two bf16 values is exact in FP32, so the
+// flush into double-float sums, the norms (of the unrounded x, as the
+// TPU kernel's rr/rc) and everything after the product are the 3xTF32
+// form's.  What bounds it: 2·N²·F at the bf16 rate (989 TFLOP/s), 5.7 ms
+// at 60,000 x 784; the top-k merge does not shrink with the operands.
+#include <cuda_bf16.h>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int TC = 128;                // columns a tile sweeps
-constexpr int BK = 32;                 // features a stage holds
-constexpr int LDS = BK + 4;            // padded smem row stride (floats)
+constexpr int BK = 32;                 // 32-bit words of a staged row
+constexpr int LDS = BK + 4;            // padded smem row stride (words)
 constexpr int DSTRIDE = TC + 8;        // Dt row stride (floats)
 constexpr int MROWS = 16;              // rows a merge warp owns
 
@@ -123,7 +138,7 @@ __device__ __forceinline__ void bar_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+__device__ __forceinline__ void cp_async16(float* dst, const void* src,
                                            bool valid) {
   const unsigned saddr =
       static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -160,6 +175,34 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const unsigned (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// bf16 operands (two a 32-bit register, the lower index in the low half),
+// FP32 accumulate: one pass, exact products
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x -> its bf16 rounding (nearest, ties to even), n values
+__global__ void cast_bf16_kernel(const float* __restrict__ x,
+                                 __nv_bfloat16* __restrict__ out, size_t n) {
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    out[i] = __float2bfloat16_rn(x[i]);
+}
+
+int cast_bf16(const float* x, void* out, size_t n, cudaStream_t stream) {
+  const int threads = 256;
+  const size_t want = (n + threads - 1) / threads;
+  const int blocks = (int)(want < 4096 ? (want > 0 ? want : 1) : 4096);
+  cast_bf16_kernel<<<blocks, threads, 0, stream>>>(
+      x, static_cast<__nv_bfloat16*>(out), n);
+  return tsne::launch_status();
 }
 
 // (distance, column) -> a key whose unsigned order is the lexicographic one
@@ -217,19 +260,19 @@ __device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
 }
 
 // the two operands of a sweep: rows [nr, f] and columns [nc, f] (the same
-// array in the single sweep), each with its norm pairs [n + 1, 2] and the
-// global id of its first point; columns with global id >= n_global are
-// masked
+// array in the single sweep; f32, or bf16 in the BF16 form), each with its
+// norm pairs [n + 1, 2] and the global id of its first point; columns
+// with global id >= n_global are masked
 struct Sweep {
-  const float* xr;
+  const void* xr;
   const float* nr_pairs;
   int nr, r_off;
-  const float* xc;
+  const void* xc;
   const float* nc_pairs;
   int nc, c_off, n_global;
 };
 
-template <class T, int STAGES, int DTB>
+template <class T, int STAGES, int DTB, bool BF16>
 __global__ void __launch_bounds__(T::THREADS, 1)
 knn_kernel(const Sweep sw, int f, int k, int cosine,
            float* __restrict__ out_d, int* __restrict__ out_i) {
@@ -247,10 +290,12 @@ knn_kernel(const Sweep sw, int f, int k, int cosine,
   unsigned* rowmask = reinterpret_cast<unsigned*>(fill + 2 * TR);
   // rowmask [DTB][MERGE_WARPS]: the rows of a Dt buffer with survivors
 
+  // a 16-byte copy carries EPC features; a stage holds BKF of a row
+  constexpr int ESZ = BF16 ? 2 : 4, EPC = 16 / ESZ, BKF = BK * 4 / ESZ;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int row0 = blockIdx.x * TR;
-  const int ks_per_tile = (f + BK - 1) / BK;
+  const int ks_per_tile = (f + BKF - 1) / BKF;
   const int tiles = (sw.nc + TC - 1) / TC;
   const int total = tiles * ks_per_tile;
 
@@ -271,17 +316,17 @@ knn_kernel(const Sweep sw, int f, int k, int cosine,
     auto load_stage = [&](int s, int buf) {
       const int col0 = (s / ks_per_tile) * TC;
       const int kk = s % ks_per_tile;
-      const int k0 = kk * BK;
+      const int k0 = kk * BKF;
       float* st = ring + buf * STAGE_FLOATS;
       for (int c = tid; c < (TR + TC) * (BK / 4); c += COMPUTE) {
         const int row = c / (BK / 4), q = c % (BK / 4);
         const bool is_row = row < TR;
         const int gr = is_row ? row0 + row : col0 + row - TR;
-        const float* src = is_row ? sw.xr : sw.xc;
-        const int fk = k0 + q * 4;
+        const char* src = static_cast<const char*>(is_row ? sw.xr : sw.xc);
+        const int fk = k0 + q * EPC;
         const bool valid = gr < (is_row ? sw.nr : sw.nc) && fk < f;
         cp_async16(st + row * LDS + q * 4,
-                   src + (valid ? (size_t)gr * f + fk : 0), valid);
+                   src + (valid ? ((size_t)gr * f + fk) * ESZ : 0), valid);
       }
       // the tile's last stage also brings its columns' norm pairs (16
       // bytes = two columns a copy; the pairs have a zero row past nc)
@@ -329,41 +374,71 @@ knn_kernel(const Sweep sw, int f, int k, int cosine,
       }
       const float* as = ring + (s % STAGES) * STAGE_FLOATS;
       const float* bs = as + TR * LDS;
+      if constexpr (BF16) {
+        // each 32-bit word holds two features: a step of 8 words is one
+        // m16n8k16 product, the fragments at the TF32 form's offsets
+        const unsigned* au = reinterpret_cast<const unsigned*>(as);
+        const unsigned* bu = reinterpret_cast<const unsigned*>(bs);
 #pragma unroll
-      for (int kb = 0; kb < BK; kb += 8) {
-        unsigned ah[MI][4], al[MI][4], bh[4][2], bl[4][2];
+        for (int kb = 0; kb < BK; kb += 8) {
+          unsigned a[MI][4], b[4][2];
 #pragma unroll
-        for (int i = 0; i < MI; ++i) {
-          const int o0 = (wm * 16 * MI + i * 16 + g) * LDS + kb + tq;
-          const int o1 = o0 + 8 * LDS;
-          split_tf32(as[o0], ah[i][0], al[i][0]);
-          split_tf32(as[o1], ah[i][1], al[i][1]);
-          split_tf32(as[o0 + 4], ah[i][2], al[i][2]);
-          split_tf32(as[o1 + 4], ah[i][3], al[i][3]);
+          for (int i = 0; i < MI; ++i) {
+            const int o0 = (wm * 16 * MI + i * 16 + g) * LDS + kb + tq;
+            const int o1 = o0 + 8 * LDS;
+            a[i][0] = au[o0];
+            a[i][1] = au[o1];
+            a[i][2] = au[o0 + 4];
+            a[i][3] = au[o1 + 4];
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int o = (wn * 32 + j * 8 + g) * LDS + kb + tq;
+            b[j][0] = bu[o];
+            b[j][1] = bu[o + 4];
+          }
+#pragma unroll
+          for (int i = 0; i < MI; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], a[i], b[j]);
         }
+      } else {
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int o = (wn * 32 + j * 8 + g) * LDS + kb + tq;
-          split_tf32(bs[o], bh[j][0], bl[j][0]);
-          split_tf32(bs[o + 4], bh[j][1], bl[j][1]);
+        for (int kb = 0; kb < BK; kb += 8) {
+          unsigned ah[MI][4], al[MI][4], bh[4][2], bl[4][2];
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            const int o0 = (wm * 16 * MI + i * 16 + g) * LDS + kb + tq;
+            const int o1 = o0 + 8 * LDS;
+            split_tf32(as[o0], ah[i][0], al[i][0]);
+            split_tf32(as[o1], ah[i][1], al[i][1]);
+            split_tf32(as[o0 + 4], ah[i][2], al[i][2]);
+            split_tf32(as[o1 + 4], ah[i][3], al[i][3]);
+          }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int o = (wn * 32 + j * 8 + g) * LDS + kb + tq;
+            split_tf32(bs[o], bh[j][0], bl[j][0]);
+            split_tf32(bs[o + 4], bh[j][1], bl[j][1]);
+          }
+          // pass-major: eight independent products between two that share
+          // an accumulator; each output still sums lo·hi, hi·lo, hi·hi
+#pragma unroll
+          for (int i = 0; i < MI; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], al[i], bh[j]);
+#pragma unroll
+          for (int i = 0; i < MI; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], ah[i], bl[j]);
+#pragma unroll
+          for (int i = 0; i < MI; ++i)
+#pragma unroll
+            for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], ah[i], bh[j]);
         }
-        // pass-major: eight independent products between two that share
-        // an accumulator; each output still sums lo·hi, hi·lo, hi·hi
-#pragma unroll
-        for (int i = 0; i < MI; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], al[i], bh[j]);
-#pragma unroll
-        for (int i = 0; i < MI; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], ah[i], bl[j]);
-#pragma unroll
-        for (int i = 0; i < MI; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) mma_tf32(acc[i][j], ah[i], bh[j]);
       }
 
-      // flush the stage's FP32 sums (32 features) into the double-float
+      // flush the stage's FP32 sums (BKF features) into the double-float
       // totals
 #pragma unroll
       for (int i = 0; i < MI; ++i)
@@ -544,10 +619,10 @@ Config config(int k) {
   return {Wide::TR, stages, bufs, smem_for<Wide>(stages, bufs, k)};
 }
 
-template <class T, int STAGES, int DTB>
+template <class T, int STAGES, int DTB, bool BF16>
 int launch(const Sweep& sw, int f, int k, int cosine, float* out_d,
            int* out_i, size_t smem, cudaStream_t stream) {
-  auto kern = knn_kernel<T, STAGES, DTB>;
+  auto kern = knn_kernel<T, STAGES, DTB, BF16>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -556,16 +631,20 @@ int launch(const Sweep& sw, int f, int k, int cosine, float* out_d,
   return tsne::launch_status();
 }
 
+template <bool BF16>
 int sweep(const Sweep& sw, int f, int k, int cosine, float* out_d,
           int* out_i, cudaStream_t s) {
   const Config c = config(k);
   if (c.rows == Deep::TR)
-    return launch<Deep, 3, 2>(sw, f, k, cosine, out_d, out_i, c.smem, s);
+    return launch<Deep, 3, 2, BF16>(sw, f, k, cosine, out_d, out_i, c.smem,
+                                    s);
   if (c.stages == 3)
-    return launch<Wide, 3, 2>(sw, f, k, cosine, out_d, out_i, c.smem, s);
+    return launch<Wide, 3, 2, BF16>(sw, f, k, cosine, out_d, out_i, c.smem,
+                                    s);
   if (c.bufs == 2)
-    return launch<Wide, 2, 2>(sw, f, k, cosine, out_d, out_i, c.smem, s);
-  return launch<Wide, 2, 1>(sw, f, k, cosine, out_d, out_i, c.smem, s);
+    return launch<Wide, 2, 2, BF16>(sw, f, k, cosine, out_d, out_i, c.smem,
+                                    s);
+  return launch<Wide, 2, 1, BF16>(sw, f, k, cosine, out_d, out_i, c.smem, s);
 }
 
 }  // namespace
@@ -592,7 +671,22 @@ TSNE_API int tsne_knn_f32(const float* x, const float* norms, int n, int f,
   if (k < 1 || k > K_MAX || k > n - 1 || f % 16)
     return (int)cudaErrorInvalidValue;
   const Sweep sw{x, norms, n, 0, x, norms, n, 0, n};
-  return sweep(sw, f, k, cosine, out_d, out_i, (cudaStream_t)stream);
+  return sweep<false>(sw, f, k, cosine, out_d, out_i, (cudaStream_t)stream);
+}
+
+// The bf16-operand form of tsne_knn_f32: x is first rounded into xb [n,
+// f] (bf16, 16-byte aligned, the wrapper's scratch), which the sweep
+// streams; the norms are x's, unrounded.
+TSNE_API int tsne_knn_bf16(const float* x, const float* norms, void* xb,
+                           int n, int f, int k, int cosine, float* out_d,
+                           int* out_i, void* stream) {
+  if (k < 1 || k > K_MAX || k > n - 1 || f % 16)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  const int rc = cast_bf16(x, xb, (size_t)n * f, s);
+  if (rc) return rc;
+  const Sweep sw{xb, norms, n, 0, xb, norms, n, 0, n};
+  return sweep<true>(sw, f, k, cosine, out_d, out_i, s);
 }
 
 // The cross sweep: rows xr [nr, f] (global ids r_off ..) against columns
@@ -611,7 +705,28 @@ TSNE_API int tsne_knn_cross_f32(const float* xr, const float* norms_r,
       f % 16)
     return (int)cudaErrorInvalidValue;
   const Sweep sw{xr, norms_r, nr, r_off, xc, norms_c, nc, c_off, n_global};
-  return sweep(sw, f, k, cosine, out_d, out_i, (cudaStream_t)stream);
+  return sweep<false>(sw, f, k, cosine, out_d, out_i, (cudaStream_t)stream);
+}
+
+// The bf16-operand form of tsne_knn_cross_f32: the blocks are first
+// rounded into xbr [nr, f] and xbc [nc, f] (bf16 scratch); the norm pairs
+// are the unrounded blocks'.
+TSNE_API int tsne_knn_cross_bf16(const float* xr, const float* norms_r,
+                                 void* xbr, int nr, int r_off,
+                                 const float* xc, const float* norms_c,
+                                 void* xbc, int nc, int c_off, int n_global,
+                                 int f, int k, int cosine, float* out_d,
+                                 int* out_i, void* stream) {
+  if (k < 1 || k > K_MAX || nr < 1 || nc < 1 || r_off < 0 || c_off < 0 ||
+      f % 16)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  int rc = cast_bf16(xr, xbr, (size_t)nr * f, s);
+  if (rc) return rc;
+  rc = cast_bf16(xc, xbc, (size_t)nc * f, s);
+  if (rc) return rc;
+  const Sweep sw{xbr, norms_r, nr, r_off, xbc, norms_c, nc, c_off, n_global};
+  return sweep<true>(sw, f, k, cosine, out_d, out_i, s);
 }
 
 TSNE_API const char* tsne_error_string(int code) {

@@ -55,6 +55,9 @@ SIGNATURES = {
     "tsne_knn_f32": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
     "tsne_knn_cross_f32": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
                            _P, _P, _P],
+    "tsne_knn_bf16": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "tsne_knn_cross_bf16": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _P, _P, _P],
     "tsne_repulsion_f32": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "tsne_fused_step_f32": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P,
                             _P, _P, _P, _P, _F, _F, _F, _F, _P, _P, _P, _P,
@@ -268,9 +271,12 @@ class Kernel:
 #: (``analysis/audit/record``'s hook); empty, at no cost, otherwise
 LAUNCH_HOOKS: list = []
 
-#: the port's kernels by the id of the TPU kernel each replaces
+#: the port's kernels by the id of the TPU kernel each replaces; B1's
+#: bf16-operand form (mixed precision) counts under a name of its own, so
+#: a run's launches tell the two forms apart
 KERNELS = {
     "B1": Kernel("tsne_knn_f32", "B1"),
+    "B1_bf16": Kernel("tsne_knn_bf16", "B1_bf16"),
     "B2": Kernel("tsne_repulsion_f32", "B2"),
     "B3": Kernel("tsne_fused_step_f32", "B3"),
     "B4": Kernel("tsne_attraction_loss_f32", "B4"),

@@ -24,9 +24,9 @@ spans, recorded in an ``obs/trace.collecting`` scope) and ``metrics_``
 (the obs snapshot, with ``metrics_["telemetry"]`` and
 ``metrics_["policy"]`` when those ran).  ``aot_cache`` False builds the
 kernel library into a directory of the process's own
-(``kernels/build.set_cache``).  Arguments of parts not ported yet raise
-``NotImplementedError`` naming their ROADMAP queue item when ``fit``
-starts, before the input is touched.  ``transform`` embeds new rows
+(``kernels/build.set_cache``).  ``dtype="float64"`` on the card raises
+``NotImplementedError`` naming ROADMAP §C when ``fit`` starts, before
+the input is touched.  ``transform`` embeds new rows
 into the fitted map without moving it (``serve/transform.py``): the fit
 keeps its input, and ``frozen_model`` freezes the two on first use.
 """
@@ -52,7 +52,10 @@ class TSNE:
     Parameters are :class:`TsneConfig`'s plus the kNN stage's, named as
     in the JAX package (``n_iter``, ``random_state`` as in scikit-learn).
     ``dtype`` None means float32 on the card (the kernels' type) and the
-    input's dtype on the CPU.  ``cache_dir`` enables the prepare-artifact
+    input's dtype on the CPU; ``bfloat16`` is mixed precision, as in the
+    JAX package: float32 state with bf16 operands in the kNN stage's
+    distance and projection products (B1's bf16 form on the card), for
+    ``fit`` alone (``transform`` runs float32 operands).  ``cache_dir`` enables the prepare-artifact
     cache under that root (None: off; a library writes no file unasked).
     ``fault_plan`` installs a fault plan for the fit (``runtime/faults``;
     deactivated when the fit ends).  ``mesh`` is a width (N distinct
@@ -155,12 +158,18 @@ class TSNE:
         self._fit_x = self._frozen = None
 
     def _refuse_unported(self, device: torch.device) -> None:
-        if self.dtype == "bfloat16" or (self.dtype == "float64"
-                                        and device.type == "cuda"):
+        if self.dtype == "float64" and device.type == "cuda":
             raise NotImplementedError(
-                f"dtype='{self.dtype}' is not ported: the kernels are "
-                "float32 and B1 runs 3xTF32, not bf16 operands (a limit of "
-                "ROADMAP §C)")
+                "dtype='float64' runs on the CPU only: the kernels are "
+                "float32 (a limit of ROADMAP §C)")
+
+    @property
+    def _matmul_dtype(self):
+        """The kNN products' operand dtype: bf16 under
+        ``dtype="bfloat16"``, else None (the card's default stays 3xTF32:
+        ``ops/metrics.default_matmul_dtype``)."""
+        from tsne_flink_tpu_torch.ops.metrics import resolve_matmul_dtype
+        return resolve_matmul_dtype(self.dtype)[1]
 
     def _mesh(self, device: torch.device):
         """The optimize stage's mesh devices (``parallel/mesh.make_mesh``:
@@ -248,7 +257,8 @@ class TSNE:
             n_devices=self.devices,
             artifact_cache=(ArtifactCache(self.cache_dir)
                             if self.cache_dir is not None else None),
-            device=device, mesh_reduce=self.mesh_reduce)
+            device=device, mesh_reduce=self.mesh_reduce,
+            matmul_dtype=self._matmul_dtype)
         self.metrics_ = {}
         self.runtime_events_ = []
         self.degradations_ = []
@@ -263,8 +273,10 @@ class TSNE:
         self._keep_fit(x, state.y[:n], losses, cfg, device)
 
     def _torch_dtype(self, device):
+        from tsne_flink_tpu_torch.ops.metrics import resolve_matmul_dtype
+        dtype = resolve_matmul_dtype(self.dtype)[0]
         return ({"float32": torch.float32, "float64": torch.float64}
-                [self.dtype] if self.dtype is not None
+                [dtype] if dtype is not None
                 else torch.float32 if device.type == "cuda" else None)
 
     def _keep_fit(self, x, y, losses, cfg, device) -> None:
@@ -298,7 +310,8 @@ class TSNE:
                               knn_refine=self.knn_refine,
                               sym_width=self.sym_width,
                               mesh=1 if mesh is None else len(mesh),
-                              name="estimator-fit", backend=device.type),
+                              name="estimator-fit", backend=device.type,
+                              matmul_dtype=self._matmul_dtype),
             max_retries=self.max_retries, on_oom=self.on_oom,
             health_check=self.health_check)
         embed_kwargs = dict(
@@ -310,7 +323,8 @@ class TSNE:
             sym_width=self.sym_width,
             affinity_assembly=self.affinity_assembly, device=device,
             artifact_cache=(ArtifactCache(self.cache_dir)
-                            if self.cache_dir is not None else None))
+                            if self.cache_dir is not None else None),
+            matmul_dtype=self._matmul_dtype)
         self.metrics_ = {}
         # the supervisor's live record: a fit that raises (the sentinel's
         # DivergenceError) still shows what led there

@@ -659,7 +659,7 @@ def _prepare_run(x, cfg: TsneConfig, *, neighbors, knn_method,
                  knn_iterations, knn_refine, knn_blocks, seed, sym_width,
                  affinity_assembly, device, y0=None, artifact_cache=None,
                  knn_autotune=False, supervise=None,
-                 on_stage=None) -> _Prepared:
+                 on_stage=None, matmul_dtype=None) -> _Prepared:
     """The stages before optimize of :func:`tsne_embed` and of
     ``runtime/supervisor.supervised_embed``: prepare (kNN, affinities),
     the init from ``seed`` (or ``y0``), and the attraction layout's plan,
@@ -687,7 +687,7 @@ def _prepare_run(x, cfg: TsneConfig, *, neighbors, knn_method,
                        assembly=assembly, sym_width=sym_width, device=device,
                        cache=artifact_cache, knn_tiles=knn_tiles,
                        knn_autotune=knn_autotune, on_stage=on_stage,
-                       on_graph=on_graph)
+                       on_graph=on_graph, matmul_dtype=matmul_dtype)
 
     prep = (run_prepare(on_stage=on_stage) if supervise is None
             else supervise(run_prepare, on_stage=on_stage))
@@ -712,7 +712,7 @@ def tsne_embed(x, cfg: TsneConfig | None = None, *,
                affinity_assembly: str | None = None, device=None, y0=None,
                stats: dict | None = None, artifact_cache=None,
                knn_autotune: bool = False, landmark: str = "auto",
-               landmark_fraction: float = 0.25):
+               landmark_fraction: float = 0.25, matmul_dtype=None):
     """Single-device end to end: kNN -> β-calibrated affinities ->
     symmetrized P -> attraction layout -> init -> optimize.  Returns
     ``(embedding [N, m], loss trace)`` on ``device`` (default ``cuda``).
@@ -727,6 +727,11 @@ def tsne_embed(x, cfg: TsneConfig | None = None, *,
     (``ops/knn.knn``); ``knn_iterations`` and ``knn_refine`` are the
     project plan's Z-order seed rounds and refine cycles (None = the auto
     policies), ``knn_blocks`` the partition schedule's block count.
+
+    ``matmul_dtype`` (None, or ``torch.bfloat16``: mixed precision, the
+    JAX package's ``set_matmul_dtype``) is the operand dtype of the kNN
+    stage's distance and projection products (``ops/knn``); ``x``, the
+    affinities and the optimizer keep their own dtype.
 
     ``seed`` seeds the ``torch.Generator`` of the init (``y0`` replaces
     the draw) and, through :func:`knn_generator`, the kNN stage's own.
@@ -760,7 +765,7 @@ def tsne_embed(x, cfg: TsneConfig | None = None, *,
                        knn_blocks=knn_blocks, seed=seed, sym_width=sym_width,
                        affinity_assembly=affinity_assembly, device=device,
                        y0=y0, artifact_cache=artifact_cache,
-                       knn_autotune=knn_autotune)
+                       knn_autotune=knn_autotune, matmul_dtype=matmul_dtype)
     prep, state, plan_layout = run
     with obtrace.span("embed.plan", cat="optimize") as sp:
         edges, csr, layout = plan_layout()

@@ -13,7 +13,12 @@
   ``utils/flops.knn_flops``.
 
 Every method returns ``(neighbor_idx int32 [N, k], neighbor_dist [N, k])``
-with rows ascending by distance.  Entries a project round could not fill
+with rows ascending by distance.  ``matmul_dtype`` (None, or
+``torch.bfloat16`` under ``--dtype bfloat16``) is the operand dtype of
+every distance and projection product the JAX package routes through
+``matmul_operands``: B1's sweep, the Z-order projections and banded
+re-rank, the refine funnel's projections (not its scores: B6 keeps its
+float32 bits, ``ops/knn_cuda``) and the query sweep.  Entries a project round could not fill
 carry ``dist == +inf``.
 
 Randomness: every draw of the hybrid plan is made by :func:`draw_project`
@@ -34,7 +39,7 @@ import torch
 from tsne_flink_tpu_torch.obs import trace as obtrace
 from tsne_flink_tpu_torch.ops.knn_cuda import (CAND_F_MAX, K_MAX, fused_knn,
                                                refine_final, refine_keep)
-from tsne_flink_tpu_torch.ops.metrics import pairwise
+from tsne_flink_tpu_torch.ops.metrics import matmul_operands, pairwise
 from tsne_flink_tpu_torch.ops.zorder import zorder_permutation
 from tsne_flink_tpu_torch.utils.device import timed_stage
 
@@ -227,25 +232,26 @@ def check_knn_limits(n: int, d: int, k: int, method: str,
 
 # ---- exact methods ----------------------------------------------------------
 
-def knn_bruteforce(x: torch.Tensor, k: int, metric: str = "sqeuclidean"):
+def knn_bruteforce(x: torch.Tensor, k: int, metric: str = "sqeuclidean",
+                   matmul_dtype=None):
     """Exact kNN by the full N x N sweep of kernel B1 (its plain version
-    on a CPU tensor)."""
-    return fused_knn(x, _clamp_k(k, x.shape[0]), metric)
+    on a CPU tensor; B1's bf16 form under bf16 operands)."""
+    return fused_knn(x, _clamp_k(k, x.shape[0]), metric, matmul_dtype)
 
 
 def knn_partition(x: torch.Tensor, k: int, metric: str = "sqeuclidean",
-                  blocks: int = 8):
+                  blocks: int = 8, matmul_dtype=None):
     """Exact kNN under the reference's block-cross schedule
     (``TsneHelpers.scala:61-91``).  ``blocks`` bounded the working-set
     width there; B1 streams column tiles through shared memory and never
     builds a [c, N] block, so its sweep IS the memory-bounded form and the
     result is :func:`knn_bruteforce`'s exact graph."""
     del blocks  # the kernel's tiling bounds the working set
-    return knn_bruteforce(x, k, metric)
+    return knn_bruteforce(x, k, metric, matmul_dtype)
 
 
 def knn_queries(q: torch.Tensor, x: torch.Tensor, k: int,
-                metric: str = "sqeuclidean"):
+                metric: str = "sqeuclidean", matmul_dtype=None):
     """Exact cross-set kNN: each QUERY row's k nearest BASE rows, the
     serving path's sweep (``serve/transform.py``).  Queries are not base
     points, so no self-pair is masked and ``k`` clamps to ``n_base``.
@@ -254,8 +260,9 @@ def knn_queries(q: torch.Tensor, x: torch.Tensor, k: int,
     row, so ties go to the lowest base index as ``lax.top_k``'s do; the
     chunk comes from the tile plan (:func:`pick_knn_tiles`), which bounds
     the [c, n_base] tile.  Plain tensor code: the JAX package runs this
-    sweep outside any Pallas kernel.  Returns ``(idx int32 [B, k], dist
-    [B, k])``, rows ascending by distance."""
+    sweep outside any Pallas kernel.  ``matmul_dtype``: the products'
+    operand dtype (:func:`~.metrics.pairwise`).  Returns ``(idx int32 [B,
+    k], dist [B, k])``, rows ascending by distance."""
     nb, dim = x.shape
     nq = q.shape[0]
     k = int(min(k, nb))
@@ -266,7 +273,8 @@ def knn_queries(q: torch.Tensor, x: torch.Tensor, k: int,
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         for s in range(0, nq, row_chunk):
-            d, i = _topk_smallest(pairwise(metric, q[s:s + row_chunk], x), k)
+            d, i = _topk_smallest(pairwise(metric, q[s:s + row_chunk], x,
+                                           matmul_dtype), k)
             dist.append(d)
             idx.append(i.to(torch.int32))
     finally:
@@ -473,7 +481,8 @@ def knn_refine(x: torch.Tensor, idx: torch.Tensor, dist: torch.Tensor,
                cascade_dims: int | str | None = "auto",
                cascade_keep: int = CASCADE_KEEP,
                expand_k: int | None = None,
-               dedup_gather: bool | str = "auto", tiles=None):
+               dedup_gather: bool | str = "auto", tiles=None,
+               matmul_dtype=None):
     """Neighbour-of-neighbour refinement of an approximate kNN graph (the
     fixed-shape form of NN-descent's local join), ``rounds`` rounds.
 
@@ -496,7 +505,11 @@ def knn_refine(x: torch.Tensor, idx: torch.Tensor, dist: torch.Tensor,
     ``generator`` (default: a generator seeded 7).  ``dedup_gather``
     (True | False | "auto" = False) routes the plain scorers' vector
     gathers through ``ops/knn_cuda._compact_gather``; on the card B6
-    gathers in the kernel and the option is moot.
+    gathers in the kernel and the option is moot.  ``matmul_dtype``
+    rounds the operands of the JL and cascade projections and of the
+    cosine exact stage's product on the card (the JAX package's
+    ``knn.py:723-736``, ``:539-544``); the funnel's squared-distance
+    scores keep the array's dtype, as the TPU route's Pallas scorer does.
 
     The sharded form (``parallel/knn.project_knn_sharded``): ``x``,
     ``idx``/``dist`` are the LOCAL row shard (global ids ``row_offset``
@@ -540,10 +553,14 @@ def knn_refine(x: torch.Tensor, idx: torch.Tensor, dist: torch.Tensor,
               draw_refine(generator, plan, nloc, k, dim, xf.dtype, dev,
                           n_graph=gidx.shape[0]))
         if plan.filter_dims:
-            proj = (fbase @ dr.filt).contiguous()
+            fm, rm = matmul_operands(fbase, dr.filt, matmul_dtype)
+            proj = (fm @ rm).contiguous()
+            del fm, rm
             psq = torch.sum(proj * proj, dim=1)
         if plan.cascade_dims:
-            proj2 = (fbase @ dr.casc).contiguous()
+            fm, rm = matmul_operands(fbase, dr.casc, matmul_dtype)
+            proj2 = (fm @ rm).contiguous()
+            del fm, rm
             p2sq = torch.sum(proj2 * proj2, dim=1)
         gidx_loc = gidx[rows_g].long()
         if s < k:
@@ -589,7 +606,8 @@ def knn_refine(x: torch.Tensor, idx: torch.Tensor, dist: torch.Tensor,
                 first = {}
             ni, nd = refine_final(metric, xf, xcache, row0, cand,
                                   idx[c0:c0 + c], dist[c0:c0 + c], bad=bad,
-                                  compact=compact, **first)
+                                  compact=compact, matmul_dtype=matmul_dtype,
+                                  **first)
             new_i[c0:c0 + c] = ni
             new_d[c0:c0 + c] = nd
         idx, dist = new_i, new_d
@@ -599,13 +617,19 @@ def knn_refine(x: torch.Tensor, idx: torch.Tensor, dist: torch.Tensor,
 
 
 def _project_round(x, zbase, k: int, metric: str, dr: ProjectDraw, b: int,
-                   group: int):
+                   group: int, matmul_dtype=None):
     """One Z-order round: project, shift, sort along the curve, and
     exact-rank each sorted block of ``b`` rows against its contiguous band
-    of b + 2k columns, ``group`` blocks per batched product."""
+    of b + 2k columns, ``group`` blocks per batched product; both
+    products over operands rounded to ``matmul_dtype``."""
     n = x.shape[0]
     dev = x.device
-    z = zbase @ dr.proj if dr.proj is not None else zbase
+    if dr.proj is not None:
+        zb, rm = matmul_operands(zbase, dr.proj, matmul_dtype)
+        z = zb @ rm
+        del zb, rm
+    else:
+        z = zbase
     if dr.shift is not None:  # every round but the unshifted first
         span = torch.amax(z, dim=0) - torch.amin(z, dim=0)
         z = z + dr.shift * span
@@ -626,7 +650,8 @@ def _project_round(x, zbase, k: int, metric: str, dr: ProjectDraw, b: int,
         starts = torch.arange(g0, min(g0 + group, nb), device=dev) * b
         rpos = starts[:, None] + r_off                    # [G, b] sorted pos
         cpos = starts[:, None] - k + c_off                # [G, band]
-        d = pairwise(metric, x[perm_pad[rpos + k]], x[perm_pad[cpos + k]])
+        d = pairwise(metric, x[perm_pad[rpos + k]], x[perm_pad[cpos + k]],
+                     matmul_dtype)
         bad = (((cpos < 0) | (cpos >= n))[:, None, :]
                | (rpos[:, :, None] == cpos[:, None, :])
                | (rpos >= n)[:, :, None])
@@ -647,7 +672,8 @@ def _project_round(x, zbase, k: int, metric: str, dr: ProjectDraw, b: int,
 def knn_project(x: torch.Tensor, k: int, metric: str = "sqeuclidean",
                 rounds: int = 3, generator: torch.Generator | None = None,
                 *, draws: list | None = None, proj_dims: int = 3,
-                block: int | None = None, start_round: int = 0, tiles=None):
+                block: int | None = None, start_round: int = 0, tiles=None,
+                matmul_dtype=None):
     """Approximate kNN via random-shift Z-order rounds + exact banded
     re-rank (reference ``projectKnn``, ``TsneHelpers.scala:93-160``).
 
@@ -661,7 +687,8 @@ def knn_project(x: torch.Tensor, k: int, metric: str = "sqeuclidean",
     merge by per-row id dedup (:func:`merge_rounds`).
 
     ``draws`` (one :class:`ProjectDraw` per round) replaces the draws from
-    ``generator`` (default: a generator seeded 0)."""
+    ``generator`` (default: a generator seeded 0).  ``matmul_dtype``: the
+    projection's and the re-rank's operand dtype."""
     x = x.contiguous()
     n, dim = x.shape
     k = _clamp_k(k, n)
@@ -679,7 +706,8 @@ def knn_project(x: torch.Tensor, k: int, metric: str = "sqeuclidean",
     group = project_block_group(b, dim, k, backend)
     dists, idxs = [], []
     for dr in draws:
-        d, i = _project_round(x, zbase, k, metric, dr, b, group)
+        d, i = _project_round(x, zbase, k, metric, dr, b, group,
+                              matmul_dtype)
         dists.append(d)
         idxs.append(i)
     return merge_rounds(dists, idxs, k)
@@ -697,7 +725,8 @@ def knn_project_refined(x: torch.Tensor, k: int, metric: str = "sqeuclidean",
                         filter_dims: int | str | None = "auto",
                         expand_k: int | str | None = "auto",
                         z_per_cycle: int | None = None, tiles=None,
-                        on_substage=None, **refine_kwargs):
+                        on_substage=None, matmul_dtype=None,
+                        **refine_kwargs):
     """The hybrid high-recall plan: a Z-order seed graph, then ``cycles``
     of (``z_per_cycle`` fresh Z-order rounds merged in + 1 refine round).
 
@@ -731,17 +760,18 @@ def knn_project_refined(x: torch.Tensor, k: int, metric: str = "sqeuclidean",
         return out
 
     idx, dist = run("zorder_seed", lambda: knn_project(
-        x, k, metric, seed_rounds, gen, tiles=tiles))
+        x, k, metric, seed_rounds, gen, tiles=tiles,
+        matmul_dtype=matmul_dtype))
     for cyc in range(max(0, cycles)):
         iz, dz = run("zorder_cycles", lambda: knn_project(
             x, k, metric, zpc, gen, start_round=seed_rounds + cyc * zpc,
-            tiles=tiles))
+            tiles=tiles, matmul_dtype=matmul_dtype))
         idx, dist = run("merge", lambda: merge_rounds([dist, dz], [idx, iz],
                                                       k))
         idx, dist = run("refine", lambda: knn_refine(
             x, idx, dist, metric, rounds=1, generator=gen,
             filter_dims=filter_dims, expand_k=expand_k, tiles=tiles,
-            **refine_kwargs))
+            matmul_dtype=matmul_dtype, **refine_kwargs))
     if on_substage is not None:
         on_substage(dict(subs))
     return idx, dist
@@ -750,19 +780,21 @@ def knn_project_refined(x: torch.Tensor, k: int, metric: str = "sqeuclidean",
 def knn(x: torch.Tensor, k: int, method: str, metric: str = "sqeuclidean",
         *, blocks: int = 8, rounds: int | None = None,
         refine: int | None = None, generator: torch.Generator | None = None,
-        tiles=None, on_substage=None):
+        tiles=None, on_substage=None, matmul_dtype=None):
     """Dispatch on the kNN method (``Tsne.scala:74-79``), resolved by
     :func:`resolve_knn_plan` for the tensor's device.  ``on_substage``
     receives the substage seconds, each measured to the end of the
-    device's work (``exact_sweep`` for the exact methods)."""
+    device's work (``exact_sweep`` for the exact methods).
+    ``matmul_dtype``: the products' operand dtype (module docstring)."""
     n, d = x.shape
     method, rounds, refine = resolve_knn_plan(n, d, method, rounds, refine,
                                               k=k, backend=backend_of(x))
     if method in ("bruteforce", "partition"):
         with obtrace.span("knn.exact_sweep", cat="knn",
                           method=method) as sp:
-            out = (knn_bruteforce(x, k, metric) if method == "bruteforce"
-                   else knn_partition(x, k, metric, blocks))
+            out = (knn_bruteforce(x, k, metric, matmul_dtype)
+                   if method == "bruteforce"
+                   else knn_partition(x, k, metric, blocks, matmul_dtype))
             if on_substage is not None:
                 # graftlint: disable=host-sync -- deliberate: substage timing
                 # ends at the device's end of work (on_substage asks for it)
@@ -772,9 +804,11 @@ def knn(x: torch.Tensor, k: int, method: str, metric: str = "sqeuclidean",
         if refine > 0:
             return knn_project_refined(x, k, metric, rounds, refine,
                                        generator, tiles=tiles,
-                                       on_substage=on_substage)
+                                       on_substage=on_substage,
+                                       matmul_dtype=matmul_dtype)
         with obtrace.span("knn.zorder_seed", cat="knn") as sp:
-            out = knn_project(x, k, metric, rounds, generator, tiles=tiles)
+            out = knn_project(x, k, metric, rounds, generator, tiles=tiles,
+                              matmul_dtype=matmul_dtype)
             if on_substage is not None:
                 # graftlint: disable=host-sync -- deliberate: substage timing
                 # ends at the device's end of work (on_substage asks for it)

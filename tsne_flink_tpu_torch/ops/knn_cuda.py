@@ -18,6 +18,15 @@ each value into TF32 parts as :func:`tf32_split` states in PyTorch.  Both
 sweeps return each row's k nearest squared (or cosine) distances;
 :func:`_fused_final` orders them and takes the sqrt for ``euclidean``.
 
+Under bf16 operands (``matmul_dtype=torch.bfloat16``, the mixed
+precision of ``--dtype bfloat16``) both sweeps take B1's bf16 form, the
+TPU kernel's ``cast_dtype`` path (``knn_pallas.py:81-84``): counted as
+``KERNELS["B1_bf16"]``, the kernel rounds x into a bf16 scratch the
+wrapper allocates and runs one bf16 tensor-core pass a step, with the
+norm pairs of the unrounded x.  Its plain version is the plain sweep with
+:func:`~.metrics.matmul_operands` (the rounded operands, products exact
+in float32 or float64).
+
 B1's cross sweep (:func:`knn_cross`) is the same kernel over a row block
 and a column block, each with the global id of its first point, masking
 columns past ``n_global`` and each row's own id: the hop of the
@@ -43,6 +52,20 @@ their plain versions (:func:`refine_keep_plain`,
 CPU tensor, the kernel on a CUDA tensor, or they raise.
 :func:`cand_sqdist_plain` is the TPU kernel's formula, which the plain
 stages score with.
+
+B6 under bf16 operands: on its accelerator the JAX package scores the
+refine funnel through the tile plan's ``kernel``, ``pallas`` on a TPU
+(``ops/knn_tiles.pick_knn_tiles`` via ``knn_pallas.pick_knn_kernel``,
+read by ``ops/knn._kernel_of``, ``knn.py:150-156``), so ``_cand_sqdist``
+(``knn.py:513-517``) takes the Pallas ``_cand_kernel``
+(``knn_pallas.py:264-272``), which casts nothing: every keep stage and
+the sqeuclidean / euclidean exact stage score in the array's dtype.  B6
+therefore keeps its float32 bits in a bf16 run and takes no operand
+flag.  The one cast of that route is the cosine exact stage
+(``_cand_exact``, ``knn.py:539-544``: its product takes
+``matmul_operands``), which the port runs as plain tensor code on the
+card (:func:`cand_exact_plain`), rounding its operands there too; on the
+CPU both packages take the elementwise metric, which casts nothing.
 """
 
 from __future__ import annotations
@@ -52,7 +75,9 @@ import math
 import torch
 
 from tsne_flink_tpu_torch.kernels.build import KERNELS
-from tsne_flink_tpu_torch.ops.metrics import metric_fn, pairwise
+from tsne_flink_tpu_torch.ops.metrics import (check_matmul_dtype,
+                                              matmul_operands, metric_fn,
+                                              pairwise)
 
 #: feature axis padded (with zeros) to this multiple for the kernel's
 #: 16-wide shared-memory slices and 16-byte row loads
@@ -76,20 +101,27 @@ def _base(x: torch.Tensor, metric: str) -> torch.Tensor:
 
 
 def knn_sweep_plain(base: torch.Tensor, k: int, cosine: bool,
-                    row_chunk: int = PLAIN_ROW_CHUNK):
+                    row_chunk: int = PLAIN_ROW_CHUNK, matmul_dtype=None,
+                    rows: torch.Tensor | None = None):
     """Plain version of the kernel: (dist [N, k], idx [N, k] int32), each
     row's k smallest by (distance, column), ascending.  Distances are
-    squared euclidean (norm trick, clamped at 0) or 1 − â·b̂."""
+    squared euclidean (norm trick, clamped at 0) or 1 − â·b̂, the product
+    over :func:`~.metrics.matmul_operands` of ``matmul_dtype``.  ``rows``
+    (int64 ids) restricts the sweep to those rows, in that order (every
+    column still swept)."""
     n = base.shape[0]
     cols = torch.arange(n, device=base.device)
+    if rows is None:
+        rows = cols
     ds, ids = [], []
-    for s in range(0, n, row_chunk):
-        rows = base[s:s + row_chunk]
+    for s in range(0, rows.shape[0], row_chunk):
+        rid = rows[s:s + row_chunk]
+        part = base[rid]
         if cosine:
-            d = 1.0 - rows @ base.T
+            pm, bm = matmul_operands(part, base, matmul_dtype)
+            d = 1.0 - pm @ bm.T
         else:
-            d = pairwise("sqeuclidean", rows, base)
-        rid = torch.arange(s, s + rows.shape[0], device=base.device)
+            d = pairwise("sqeuclidean", part, base, matmul_dtype)
         d = d.masked_fill(rid[:, None] == cols[None, :], float("inf"))
         # columns arrive in ascending order, so a stable sort by distance
         # is the lexicographic (distance, column) order
@@ -157,9 +189,18 @@ def _check_cuda(base: torch.Tensor, k: int) -> None:
                          f"got k={k}, N={n}")
 
 
-def knn_sweep_cuda(base: torch.Tensor, k: int, cosine: bool):
-    """Launch B1: (dist [N, k], idx [N, k] int32), each row's k nearest
-    in no particular order."""
+def _operand_scratch(t: torch.Tensor, matmul_dtype) -> torch.Tensor:
+    """The bf16 copy of ``t`` that B1's bf16 form rounds into and streams
+    (allocated here, written by the kernel)."""
+    return torch.empty(t.shape, dtype=matmul_dtype, device=t.device)
+
+
+def knn_sweep_cuda(base: torch.Tensor, k: int, cosine: bool,
+                   matmul_dtype=None):
+    """Launch B1 (3xTF32), or its bf16 form under ``matmul_dtype``:
+    (dist [N, k], idx [N, k] int32), each row's k nearest in no
+    particular order."""
+    check_matmul_dtype(matmul_dtype)
     pad = -base.shape[1] % FEATURE_MULTIPLE
     if pad:
         base = torch.nn.functional.pad(base, (0, pad))
@@ -170,8 +211,14 @@ def knn_sweep_cuda(base: torch.Tensor, k: int, cosine: bool):
              else norm_pairs(base))
     dist = torch.empty((n, k), device=base.device, dtype=torch.float32)
     idx = torch.empty((n, k), device=base.device, dtype=torch.int32)
-    KERNELS["B1"](base.data_ptr(), norms.data_ptr(), n, f, k, int(cosine),
-                  dist.data_ptr(), idx.data_ptr())
+    if matmul_dtype is None:
+        KERNELS["B1"](base.data_ptr(), norms.data_ptr(), n, f, k,
+                      int(cosine), dist.data_ptr(), idx.data_ptr())
+    else:
+        xb = _operand_scratch(base, matmul_dtype)
+        KERNELS["B1_bf16"](base.data_ptr(), norms.data_ptr(), xb.data_ptr(),
+                           n, f, k, int(cosine), dist.data_ptr(),
+                           idx.data_ptr())
     return dist, idx
 
 
@@ -196,7 +243,7 @@ CROSS_PLAIN_ELEMS = {"cpu": 1 << 24, "cuda": 1 << 28}
 
 def knn_cross_plain(rows: torch.Tensor, cols: torch.Tensor, k: int,
                     cosine: bool, row_off: int, col_off: int,
-                    n_global: int):
+                    n_global: int, matmul_dtype=None):
     """Plain version of B1's cross sweep: (dist [nr, k], idx [nr, k]
     int32 global column ids), each row's k nearest unmasked columns by
     (distance, global id), ascending; (inf, -1) past a row's unmasked
@@ -205,18 +252,22 @@ def knn_cross_plain(rows: torch.Tensor, cols: torch.Tensor, k: int,
     of elementwise products, whatever the blocks' sizes (a matmul's
     blocking would follow the shapes), so every mesh width gives one
     graph.  Distances are squared euclidean (|a|² + |b|² − 2g, clamped at
-    0) or 1 − g on normalised rows."""
+    0) or 1 − g on normalised rows; g over the operands rounded to
+    ``matmul_dtype`` (:func:`~.metrics.matmul_operands`), the norms the
+    unrounded rows'."""
     nr, f = rows.shape
     nc = cols.shape[0]
     dev = rows.device
     cid = col_off + torch.arange(nc, device=dev)
     rb = torch.sum(cols * cols, dim=1)
+    rows_m, cols_m = matmul_operands(rows, cols, matmul_dtype)
     step = max(1, CROSS_PLAIN_ELEMS[dev.type] // max(1, nc * f))
     kk = min(k, nc)
     ds, ids = [], []
     for s0 in range(0, nr, step):
         a = rows[s0:s0 + step]
-        g = torch.sum(a[:, None, :] * cols[None, :, :], dim=-1)
+        g = torch.sum(rows_m[s0:s0 + step, None, :] * cols_m[None, :, :],
+                      dim=-1)
         if cosine:
             d = 1.0 - g
         else:
@@ -248,11 +299,13 @@ def _padded_operand(base: torch.Tensor) -> torch.Tensor:
 
 def knn_cross_cuda(rows: torch.Tensor, cols: torch.Tensor, k: int,
                    cosine: bool, row_off: int, col_off: int, n_global: int,
-                   norms_r=None, norms_c=None):
-    """Launch B1's cross sweep: (dist [nr, k], idx [nr, k] int32), each
-    row's k nearest in no particular order.  ``norms_r``/``norms_c`` are
-    the blocks' :func:`norm_pairs` (of the feature-padded operands),
-    computed here when None."""
+                   norms_r=None, norms_c=None, matmul_dtype=None):
+    """Launch B1's cross sweep (3xTF32, or its bf16 form under
+    ``matmul_dtype``): (dist [nr, k], idx [nr, k] int32), each row's k
+    nearest in no particular order.  ``norms_r``/``norms_c`` are the
+    blocks' :func:`norm_pairs` (of the feature-padded, unrounded
+    operands), computed here when None."""
+    check_matmul_dtype(matmul_dtype)
     rows, cols = _padded_operand(rows), _padded_operand(cols)
     for name, t in (("rows", rows), ("cols", cols)):
         if t.device != rows.device:
@@ -282,42 +335,58 @@ def knn_cross_cuda(rows: torch.Tensor, cols: torch.Tensor, k: int,
                                  "norm_pairs(block)")
     dist = torch.empty((nr, k), device=rows.device, dtype=torch.float32)
     idx = torch.empty((nr, k), device=rows.device, dtype=torch.int32)
-    KERNELS["B1"].entry("tsne_knn_cross_f32", rows.data_ptr(),
-                        norms_r.data_ptr(), nr, int(row_off), cols.data_ptr(),
-                        norms_c.data_ptr(), nc, int(col_off), int(n_global),
-                        f, k, int(cosine), dist.data_ptr(), idx.data_ptr())
+    if matmul_dtype is None:
+        KERNELS["B1"].entry("tsne_knn_cross_f32", rows.data_ptr(),
+                            norms_r.data_ptr(), nr, int(row_off),
+                            cols.data_ptr(), norms_c.data_ptr(), nc,
+                            int(col_off), int(n_global), f, k, int(cosine),
+                            dist.data_ptr(), idx.data_ptr())
+    else:
+        xbr = _operand_scratch(rows, matmul_dtype)
+        xbc = _operand_scratch(cols, matmul_dtype)
+        KERNELS["B1_bf16"].entry(
+            "tsne_knn_cross_bf16", rows.data_ptr(), norms_r.data_ptr(),
+            xbr.data_ptr(), nr, int(row_off), cols.data_ptr(),
+            norms_c.data_ptr(), xbc.data_ptr(), nc, int(col_off),
+            int(n_global), f, k, int(cosine), dist.data_ptr(),
+            idx.data_ptr())
     return dist, idx
 
 
 def knn_cross(rows: torch.Tensor, cols: torch.Tensor, k: int, cosine: bool,
               row_off: int, col_off: int, n_global: int, norms_r=None,
-              norms_c=None):
+              norms_c=None, matmul_dtype=None):
     """One hop of the ring: each of ``rows``' (global ids ``row_off`` ..)
     k nearest among ``cols`` (global ids ``col_off`` ..), masking columns
     at or past ``n_global`` and the row's own id -> (idx int32 [nr, k],
     dist [nr, k]) ascending by (distance, id), squared euclidean or 1 −
     â·b̂ on the (normalised, for cosine) operands given; (inf, -1) in
-    slots past a row's unmasked columns.  Kernel B1 on CUDA tensors
-    (``norms_*`` its norm pairs, :func:`knn_cross_cuda`), its plain
-    version on CPU tensors."""
+    slots past a row's unmasked columns; the products over operands
+    rounded to ``matmul_dtype``.  Kernel B1 on CUDA tensors (``norms_*``
+    its norm pairs, :func:`knn_cross_cuda`), its plain version on CPU
+    tensors."""
     if rows.device.type == "cpu":
         dist, idx = knn_cross_plain(rows, cols, k, cosine, row_off, col_off,
-                                    n_global)
+                                    n_global, matmul_dtype)
     else:
         dist, idx = knn_cross_cuda(rows, cols, k, cosine, row_off, col_off,
-                                   n_global, norms_r, norms_c)
+                                   n_global, norms_r, norms_c, matmul_dtype)
     return _fused_final(dist, idx, "sqeuclidean")
 
 
-def fused_knn(x: torch.Tensor, k: int, metric: str = "sqeuclidean"):
+def fused_knn(x: torch.Tensor, k: int, metric: str = "sqeuclidean",
+              matmul_dtype=None):
     """Exact kNN of ``x`` against itself: (idx int32 [N, k], dist [N, k]),
-    rows ascending.  ``k`` must already be clamped to N − 1."""
+    rows ascending.  ``k`` must already be clamped to N − 1.  Under
+    ``matmul_dtype`` (bf16 operands) the products take the rounded
+    operands: B1's bf16 form on the card."""
     cosine = metric == "cosine"
     base = _base(x, metric)
     if base.device.type == "cpu":
-        dist, idx = knn_sweep_plain(base, k, cosine)
+        dist, idx = knn_sweep_plain(base, k, cosine,
+                                    matmul_dtype=matmul_dtype)
     else:
-        dist, idx = knn_sweep_cuda(base, k, cosine)
+        dist, idx = knn_sweep_cuda(base, k, cosine, matmul_dtype)
     return _fused_final(dist, idx, metric)
 
 
@@ -411,15 +480,18 @@ def cand_sqdist(base: torch.Tensor, sq: torch.Tensor, rows: torch.Tensor,
 
 def cand_exact_plain(metric: str, xf: torch.Tensor, cache: torch.Tensor,
                      rows: torch.Tensor, cand: torch.Tensor,
-                     compact: bool = False) -> torch.Tensor:
+                     compact: bool = False,
+                     matmul_dtype=None) -> torch.Tensor:
     """Exact CLI-metric distances row -> candidates.  ``cache`` holds the
     squared norms (sqeuclidean/euclidean) or the norms (cosine).  Cosine
-    is a plain batched product on the card and the elementwise metric on
-    the CPU, as the JAX package's accelerator and CPU forms."""
+    is a plain batched product on the card (over operands rounded to
+    ``matmul_dtype``) and the elementwise metric on the CPU, as the JAX
+    package's accelerator and CPU forms."""
     if metric == "cosine":
         pr = xf[rows.long()]
         pc = _cand_vectors(xf, cand, compact)
         if xf.is_cuda:
+            pr, pc = matmul_operands(pr, pc, matmul_dtype)
             g = torch.einsum("cf,czf->cz", pr, pc)
             return 1.0 - g / (cache[rows.long()][:, None]
                               * cache[cand.long()])
@@ -480,7 +552,8 @@ def refine_keep_plain(base, sq, row0: int, cand, keep: int, *, bad=None,
 
 def refine_final_plain(metric: str, base, cache, row0: int, cand, old_i,
                        old_d, *, bad=None, graph=None, ke: int = 0,
-                       compact: bool = False, n_valid: int | None = None):
+                       compact: bool = False, n_valid: int | None = None,
+                       matmul_dtype=None):
     """Plain version of the exact stage: exact CLI-metric distances, the
     lossless pre-top-k to k, and the merge into the rows' lists
     ``old_i``/``old_d`` [c, k] (each id's smallest distance, ordered by
@@ -488,7 +561,7 @@ def refine_final_plain(metric: str, base, cache, row0: int, cand, old_i,
     from tsne_flink_tpu_torch.ops.knn import _dedup_smallest, _topk_smallest
     cand, bad = _stage_input(row0, cand, bad, graph, ke, n_valid)
     dd = cand_exact_plain(metric, base, cache, _chunk_rows(row0, cand), cand,
-                          compact).masked_fill(bad, math.inf)
+                          compact, matmul_dtype).masked_fill(bad, math.inf)
     k = old_i.shape[1]
     if dd.shape[1] > k:
         # lossless pre-top-k: candidates are per-row unique, so any id of
@@ -601,7 +674,8 @@ def refine_keep(base: torch.Tensor, sq: torch.Tensor, row0: int,
 def refine_final(metric: str, base: torch.Tensor, cache: torch.Tensor,
                  row0: int, cand: torch.Tensor, old_i: torch.Tensor,
                  old_d: torch.Tensor, *, bad=None, graph=None, ke: int = 0,
-                 compact: bool = False, n_valid: int | None = None):
+                 compact: bool = False, n_valid: int | None = None,
+                 matmul_dtype=None):
     """The exact stage of the refine funnel over chunk rows row0 .. row0 +
     c − 1: exact ``metric`` distances in ``base`` (``cache`` its squared
     norms, or its norms for cosine), the k nearest candidates merged into
@@ -611,11 +685,14 @@ def refine_final(metric: str, base: torch.Tensor, cache: torch.Tensor,
 
     Kernel B6 on a CUDA tensor for sqeuclidean and euclidean; the plain
     version on a CPU tensor, and for cosine, whose exact stage is plain
-    PyTorch on the card too (the JAX package has no kernel for it)."""
+    PyTorch on the card too (the JAX package has no kernel for it); its
+    product alone takes ``matmul_dtype`` (the module docstring: B6 keeps
+    its float32 bits under bf16 operands)."""
     if base.device.type == "cpu" or metric == "cosine":
         return refine_final_plain(metric, base, cache, row0, cand, old_i,
                                   old_d, bad=bad, graph=graph, ke=ke,
-                                  compact=compact, n_valid=n_valid)
+                                  compact=compact, n_valid=n_valid,
+                                  matmul_dtype=matmul_dtype)
     if metric not in ("sqeuclidean", "euclidean"):
         raise ValueError(f"Metric '{metric}' not defined")
     return _refine_launch(base, cache, row0, cand, graph, ke,

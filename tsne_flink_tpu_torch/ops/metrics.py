@@ -1,4 +1,5 @@
-"""Distance metrics (port of ``tsne_flink_tpu/ops/metrics.py``).
+"""Distance metrics and the matmul operand policy (port of
+``tsne_flink_tpu/ops/metrics.py``).
 
 * :func:`metric_fn` — an elementwise pair metric over the trailing axis;
   always ``"sqeuclidean"`` for the embedding-space Student-t q_ij.
@@ -6,9 +7,23 @@
   around one matmul (``‖a‖² + ‖b‖² − 2 a·bᵀ``), batched over leading
   dimensions.
 
-Operands stay in their own dtype: this slice has no bf16 operand policy,
-and float32 products run in full float32 (callers on the card keep
-``torch.backends.cuda.matmul.allow_tf32`` False, its default).
+Mixed precision (``--dtype bfloat16``, ``TSNE(dtype="bfloat16")``): the
+distance and projection products take bf16 operands while every norm,
+accumulation, affinity and optimizer value stays float32 — the JAX
+package's ``set_matmul_dtype`` contract.  The port threads the setting
+as an argument (``matmul_dtype``: None or ``torch.bfloat16``) from the
+entry points down instead of a process-wide setting: the thread mesh
+runs one Python thread a shard, and a global would leak across
+concurrent estimators.
+
+:func:`matmul_operands` rounds both operands to bf16 (round to nearest,
+ties to even, as ``astype(jnp.bfloat16)`` and ``cvt.rn.bf16.f32`` do)
+and hands them back in their own dtype.  The product of two bf16 values
+is exact in float32, so the plain product of the rounded operands (TF32
+off) is a bf16-operand, float32-accumulate product up to summation
+order, and no product returns a bf16 tensor.  Kernel B1's bf16 form
+(``ops/knn_cuda``) rounds its operands the same way on the card.
+Float64 operands round through float32, as both frameworks do.
 """
 
 from __future__ import annotations
@@ -16,6 +31,62 @@ from __future__ import annotations
 import torch
 
 METRICS = ("sqeuclidean", "euclidean", "cosine")
+
+#: the operand dtypes a mixed-precision run may feed the products
+MATMUL_DTYPES = (torch.bfloat16,)
+
+
+def check_matmul_dtype(dtype) -> None:
+    """Raise on an operand dtype the products do not take (None: the
+    operands' own dtype)."""
+    if dtype is not None and dtype not in MATMUL_DTYPES:
+        raise ValueError(f"matmul operand dtype {dtype} not supported "
+                         f"(None or one of {MATMUL_DTYPES})")
+
+
+def resolve_matmul_dtype(dtype: str | None):
+    """A run's ``--dtype`` / ``TSNE(dtype=)`` -> ``(compute dtype name,
+    matmul operand dtype)``: ``bfloat16`` is mixed precision (float32
+    state, bf16 operands), any other value its own compute dtype with
+    operands in it."""
+    if dtype == "bfloat16":
+        return "float32", torch.bfloat16
+    return dtype, None
+
+
+def matmul_dtype_name(dtype) -> str | None:
+    """``torch.bfloat16`` -> ``"bfloat16"`` (None stays None): the name a
+    plan or a record carries."""
+    return None if dtype is None else str(dtype).removeprefix("torch.")
+
+
+def default_matmul_dtype(backend: str, compute_dtype=None):
+    """The operand default of a run that names no dtype: the JAX package
+    feeds bf16 operands by default on a TPU only.  On ``cuda`` and
+    ``cpu`` it is None: the card's default stays B1's 3xTF32 (whether
+    bf16 operands should become the card's default is ROADMAP §D's
+    decision, from the bench)."""
+    if backend != "tpu":
+        return None
+    if compute_dtype is not None and compute_dtype != torch.float32:
+        return None
+    return torch.bfloat16
+
+
+def matmul_operands(a: torch.Tensor, b: torch.Tensor, dtype=None):
+    """The two operands of a distance or projection product under the
+    operand dtype ``dtype``: rounded to it and back to their own dtype
+    (None: unchanged)."""
+    check_matmul_dtype(dtype)
+    if dtype is None:
+        return a, b
+    return a.to(dtype).to(a.dtype), b.to(dtype).to(b.dtype)
+
+
+def acc_dtype(a: torch.Tensor):
+    """Accumulation dtype: the ORIGINAL array dtype, never the operand
+    cast."""
+    return a.dtype
 
 
 def _check(metric: str) -> None:
@@ -49,11 +120,15 @@ def metric_fn(metric: str):
     return f
 
 
-def pairwise(metric: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def pairwise(metric: str, a: torch.Tensor, b: torch.Tensor,
+             matmul_dtype=None) -> torch.Tensor:
     """Distance matrix [..., Na, Nb] via one (batched) matmul; leading
-    dimensions of ``a`` [..., Na, d] and ``b`` [..., Nb, d] are a batch."""
+    dimensions of ``a`` [..., Na, d] and ``b`` [..., Nb, d] are a batch.
+    The product takes :func:`matmul_operands`; the norms come from the
+    unrounded operands."""
     _check(metric)
-    g = a @ b.transpose(-1, -2)
+    am, bm = matmul_operands(a, b, matmul_dtype)
+    g = am @ bm.transpose(-1, -2)
     if metric == "cosine":
         na = torch.linalg.norm(a, dim=-1)
         nb = torch.linalg.norm(b, dim=-1)

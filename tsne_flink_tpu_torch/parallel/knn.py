@@ -25,6 +25,15 @@ mesh, ``ProcessAxis`` in a multi-process job).  Every shard holds
   seeded alike on every shard, or are injected (``draws=``): the refine's
   gateway scores take the local shape, as the JAX function draws them, so
   a project graph depends on the mesh width, as the reference's does.
+
+Both take ``matmul_dtype`` (None, or ``torch.bfloat16`` under ``--dtype
+bfloat16``): the ring's hop then runs B1's bf16 form, and the sharded
+project rounds the operands of its Z-order projection, banded re-rank
+and refine projections (``ops/metrics.matmul_operands``).  The JAX
+sharded Z-order round multiplies its projection in the array's dtype
+(``parallel/knn.py:203``); the port rounds it as the single-device round
+(``ops/knn.py:907-911``) does, so every full-width feature product of a
+bf16 run takes one operand policy.
 """
 
 from __future__ import annotations
@@ -42,7 +51,7 @@ from tsne_flink_tpu_torch.ops.knn import (ZORDER_PER_CYCLE, ProjectDraw,
                                           merge_rounds, pick_knn_filter)
 from tsne_flink_tpu_torch.ops.knn_cuda import (FEATURE_MULTIPLE, knn_cross,
                                                norm_pairs)
-from tsne_flink_tpu_torch.ops.metrics import pairwise
+from tsne_flink_tpu_torch.ops.metrics import matmul_operands, pairwise
 from tsne_flink_tpu_torch.ops.zorder import BITS_FOR_DIMS, morton_keys
 
 
@@ -58,14 +67,14 @@ def _merge_by_dist_id(d1, i1, d2, i2, k: int):
 
 
 def ring_knn(x_local: torch.Tensor, k: int, n_global: int,
-             metric: str = "sqeuclidean", *, axis):
+             metric: str = "sqeuclidean", *, axis, matmul_dtype=None):
     """Exact kNN of the local row shard against the global point set.
 
     ``axis`` is the shard's collectives handle (its ``index`` and
     ``size``; every shard padded to the same ``n_local``).  Returns
     ``(idx [n_local, k] int32 global ids, dist [n_local, k])``, rows
     ascending by (distance, id).  B1 launches once a hop on the card:
-    ``axis.size`` times a shard."""
+    ``axis.size`` times a shard (its bf16 form under ``matmul_dtype``)."""
     n_local = x_local.shape[0]
     k = _clamp_k(k, n_global)
     cosine = metric == "cosine"
@@ -86,7 +95,7 @@ def ring_knn(x_local: torch.Tensor, k: int, n_global: int,
     for t in range(d_):
         owner = (me + t) % d_
         hi, hd = knn_cross(base, blk, k, cosine, row_off, owner * n_local,
-                           n_global, norms, blk_norms)
+                           n_global, norms, blk_norms, matmul_dtype)
         if best_d is None:
             best_d, best_i = hd, hi
         else:
@@ -127,13 +136,15 @@ def project_knn_sharded(x_local: torch.Tensor, k: int, n_global: int,
                         generator: torch.Generator | None = None, *, axis,
                         draws: list | None = None, proj_dims: int = 3,
                         block: int | None = None, refine_rounds: int = 0,
-                        refine_sample: int = 8, tiles=None):
+                        refine_sample: int = 8, tiles=None,
+                        matmul_dtype=None):
     """Sharded approximate kNN: random-shift Morton rounds + banded
     re-rank, the band work split across the mesh by sorted block range,
     then ``refine_rounds`` hybrid cycles (2 fresh sharded Z-order rounds
     merged in, one sharded NN-descent round).  ``draws`` (the list
     :func:`project_draws` makes) replaces the draws from ``generator``
-    (default: seeded 0).  Returns ``(idx [n_local, k] int32, dist)``."""
+    (default: seeded 0).  ``matmul_dtype``: the products' operand dtype
+    (the module docstring).  Returns ``(idx [n_local, k] int32, dist)``."""
     n_local, dim = x_local.shape
     k = _clamp_k(k, n_global)
     dev, dtype = x_local.device, x_local.dtype
@@ -165,7 +176,12 @@ def project_knn_sharded(x_local: torch.Tensor, k: int, n_global: int,
     def round_perm(it, dr: ProjectDraw):
         """The replicated Z-order permutation of the padded global points;
         padding rows sort last."""
-        z = zbase @ dr.proj if dr.proj is not None else zbase
+        if dr.proj is not None:
+            zb, rm = matmul_operands(zbase, dr.proj, matmul_dtype)
+            z = zb @ rm
+            del zb, rm
+        else:
+            z = zbase
         # masked min-max quantize; the shift moves the quantization grid
         lo = torch.amin(torch.where(valid_col, z, math.inf), dim=0,
                         keepdim=True)
@@ -197,7 +213,7 @@ def project_knn_sharded(x_local: torch.Tensor, k: int, n_global: int,
             cpos = starts[:, None] - k + c_off                # [G, band]
             rows = x_full[perm[torch.clamp(rpos, 0, npts - 1)]]
             cols = x_full[perm[torch.clamp(cpos, 0, npts - 1)]]
-            d = pairwise(metric, rows, cols)
+            d = pairwise(metric, rows, cols, matmul_dtype)
             csrc = perm[torch.clamp(cpos, 0, npts - 1)]
             bad = (((cpos < 0) | (cpos >= npts) | (csrc >= n_global))
                    [:, None, :] | (rpos[:, :, None] == cpos[:, None, :]))
@@ -240,5 +256,6 @@ def project_knn_sharded(x_local: torch.Tensor, k: int, n_global: int,
                                x_full=x_full, idx_full=idx_full,
                                row_offset=row_offset, n_valid=n_global,
                                filter_dims=fd, tiles=tiles,
-                               expand_k=(k + 1) // 2 if fd else None)
+                               expand_k=(k + 1) // 2 if fd else None,
+                               matmul_dtype=matmul_dtype)
     return idx.to(torch.int32), dist

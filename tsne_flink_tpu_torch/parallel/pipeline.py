@@ -88,7 +88,11 @@ class SpmdPipeline:
     shards of ``parallel/mesh.make_mesh`` on ``device``, one thread each.
     ``artifact_cache`` (``utils/artifacts.ArtifactCache``) keys
     :meth:`prepare`'s outputs, single-controller only, as in the JAX
-    class."""
+    class.  ``matmul_dtype`` (None, or ``torch.bfloat16``: mixed
+    precision) is the kNN products' operand dtype (``parallel/knn``).
+    ``on_graph(axis, idx, valid)``, when given, is called on every shard
+    once its kNN stage ends, before the affinities (the CLI's plan
+    re-check at the graph's width bound)."""
 
     def __init__(self, cfg: TsneConfig, n: int, dim: int, k: int,
                  knn_method: str = "bruteforce", knn_rounds: int | None = None,
@@ -96,7 +100,8 @@ class SpmdPipeline:
                  sym_width: int | None = None, sym_mode: str = "replicated",
                  sym_slack: int | None = None, sym_strict: bool = False,
                  n_devices: int | None = None, artifact_cache=None, *,
-                 devices=None, device=None, mesh_reduce: str = "canonical"):
+                 devices=None, device=None, mesh_reduce: str = "canonical",
+                 matmul_dtype=None, on_graph=None):
         if sym_mode not in SYM_MODES:
             raise ValueError(f"sym_mode '{sym_mode}' not defined")
         if knn_method not in KNN_METHODS:
@@ -122,6 +127,10 @@ class SpmdPipeline:
                           else max(8, (2 * self.k + 7) // 8 * 8))
         self._escalations = 0
         self.mesh_reduce = mesh_reduce
+        from tsne_flink_tpu_torch.ops.metrics import check_matmul_dtype
+        check_matmul_dtype(matmul_dtype)
+        self.matmul_dtype = matmul_dtype
+        self.on_graph = on_graph
         self.axis = process_axis(device)
         if self.axis is not None:
             if n_devices is not None and int(n_devices) != self.axis.size:
@@ -195,7 +204,8 @@ class SpmdPipeline:
             x_local = data[0][rows].to(dev)
             if self.knn_method in ("bruteforce", "partition"):
                 idx, dist = ring_knn(x_local, self.k, self.n, cfg.metric,
-                                     axis=axis)
+                                     axis=axis,
+                                     matmul_dtype=self.matmul_dtype)
             else:
                 gen = None
                 if knn_draws is None:
@@ -204,7 +214,10 @@ class SpmdPipeline:
                 idx, dist = project_knn_sharded(
                     x_local, self.k, self.n, cfg.metric,
                     rounds=self.knn_rounds, generator=gen, axis=axis,
-                    draws=knn_draws, refine_rounds=self.knn_refine)
+                    draws=knn_draws, refine_rounds=self.knn_refine,
+                    matmul_dtype=self.matmul_dtype)
+        if self.on_graph is not None:
+            self.on_graph(axis, idx, valid)
         # padding rows contribute no affinity mass
         dist = torch.where(valid[:, None], dist, math.inf)
         p = pairwise_affinities(dist, cfg.perplexity)
@@ -307,7 +320,9 @@ class SpmdPipeline:
             "sym_width": self.sym_width if self._sym_width_pinned else None,
             "sym_slack": self.sym_slack if self._sym_slack_pinned else None,
             "sym_strict": self.sym_strict, "devices": self.n_devices,
-            "seed": int(seed), "dtype": str(self._dtype(x))},
+            "seed": int(seed), "dtype": str(self._dtype(x)),
+            **({} if self.matmul_dtype is None
+               else {"matmul_dtype": str(self.matmul_dtype)})},
             self.devices[0])
 
     def prepare(self, x, seed: int = 0, *, y0=None, knn_draws=None):

@@ -336,12 +336,14 @@ class Supervisor:
 def run_plan_from_fit(n: int, d: int, k: int, cfg, assembly: str,
                       knn_method: str, knn_rounds=None, knn_refine=None,
                       sym_width=None, mesh: int = 1, name: str = "fit",
-                      backend: str = "cuda"):
+                      backend: str = "cuda", matmul_dtype=None):
     """The memory model's PlanConfig for an in-process fit (the ladder's
     input); ``backend`` is the run's device type.  A pinned ``sym_width``
     under ``auto`` is the sorted layout at that width, as the run takes
-    it."""
+    it; ``matmul_dtype`` the kNN products' operand dtype (B1's bf16 form
+    stages a bf16 copy of x)."""
     from tsne_flink_tpu_torch.analysis.audit import PlanConfig
+    from tsne_flink_tpu_torch.ops.metrics import matmul_dtype_name
     if assembly == "auto" and sym_width is not None:
         assembly = "sorted"
     return PlanConfig(
@@ -351,7 +353,8 @@ def run_plan_from_fit(n: int, d: int, k: int, cfg, assembly: str,
         repulsion=cfg.repulsion, theta=cfg.theta, assembly=assembly,
         attraction=cfg.attraction, sym_width=sym_width,
         row_chunk=cfg.row_chunk, mesh=int(mesh),
-        fft_grid=cfg.fft_grid, autopilot=bool(cfg.autopilot), name=name)
+        fft_grid=cfg.fft_grid, autopilot=bool(cfg.autopilot), name=name,
+        matmul_dtype=matmul_dtype_name(matmul_dtype))
 
 
 def segment_every(iterations: int) -> int:
@@ -369,7 +372,8 @@ def supervised_embed(x, cfg, *, supervisor: Supervisor,
                      artifact_cache=None, knn_autotune: bool = False,
                      telemetry: bool = False, on_stage=None,
                      checkpoint_cb=None, every: int | None = None,
-                     mesh=None, mesh_reduce: str = "canonical"):
+                     mesh=None, mesh_reduce: str = "canonical",
+                     matmul_dtype=None):
     """Supervised pipeline: ``models/tsne.tsne_embed``'s prepare, init and
     layout (its ``_prepare_run``) with the supervisor around prepare and a
     segmented optimize (the sentinel needs segment boundaries to roll back
@@ -388,6 +392,7 @@ def supervised_embed(x, cfg, *, supervisor: Supervisor,
     next_iter, losses, pilot)`` are progress hooks at prepare-stage
     completions and segment boundaries (the fleet's watchdog heartbeats);
     they change no bit.  ``every`` defaults to :func:`segment_every`.
+    ``matmul_dtype`` is the kNN products' operand dtype (``tsne_embed``'s).
     Returns the ``runtime/segments.SegmentsResult``."""
     from tsne_flink_tpu_torch.models.tsne import _prepare_run
     from tsne_flink_tpu_torch.utils.device import resolve_device
@@ -406,7 +411,8 @@ def supervised_embed(x, cfg, *, supervisor: Supervisor,
         knn_blocks=knn_blocks, seed=seed, sym_width=sym_width,
         affinity_assembly=affinity_assembly, device=device,
         artifact_cache=artifact_cache, knn_autotune=knn_autotune,
-        supervise=supervisor.run_prepare, on_stage=on_stage)
+        supervise=supervisor.run_prepare, on_stage=on_stage,
+        matmul_dtype=matmul_dtype)
 
     def layout():
         if runner is not None:  # the mesh plans on its padded rows

@@ -118,7 +118,8 @@ def _momentum_switch(iters: int) -> int:
     return TsneConfig(iterations=iters).momentum_switch
 
 
-def _build_stages(model, bucket: int, iters: int, eta: float) -> _Stages:
+def _build_stages(model, bucket: int, iters: int, eta: float,
+                  matmul_dtype=None) -> _Stages:
     from tsne_flink_tpu_torch.models.tsne import TsneConfig
     from tsne_flink_tpu_torch.ops.affinities import pairwise_affinities
     from tsne_flink_tpu_torch.ops.attraction_cuda import attraction_forces
@@ -132,7 +133,7 @@ def _build_stages(model, bucket: int, iters: int, eta: float) -> _Stages:
     mom_switch = _momentum_switch(iters)
 
     def knn(q, xb):
-        return knn_queries(q, xb, k, metric)
+        return knn_queries(q, xb, k, metric, matmul_dtype)
 
     def init(dist, idx, yb):
         tf32 = torch.backends.cuda.matmul.allow_tf32
@@ -169,13 +170,17 @@ def _build_stages(model, bucket: int, iters: int, eta: float) -> _Stages:
     return _Stages(knn=knn, init=init, optimize=optimize)
 
 
-def stage_cache(model, bucket: int, iters: int, eta: float) -> _Stages:
-    """The stages of ``model`` at this (bucket, iters, eta), built on
-    first use and kept for the process."""
+def stage_cache(model, bucket: int, iters: int, eta: float,
+                matmul_dtype=None) -> _Stages:
+    """The stages of ``model`` at this (bucket, iters, eta) and query-kNN
+    operand dtype, built on first use and kept for the process."""
     key = (model.model_id, int(bucket), int(iters), float(eta))
+    if matmul_dtype is not None:
+        key += (str(matmul_dtype),)
     got = _STAGES.get(key)
     if got is None:
-        got = _STAGES[key] = _build_stages(model, bucket, iters, eta)
+        got = _STAGES[key] = _build_stages(model, bucket, iters, eta,
+                                           matmul_dtype)
     return got
 
 
@@ -228,16 +233,18 @@ def warm_stages(model, *, bucket: int | None = None,
 
 
 def transform(model, x_new, *, bucket: int | None = None,
-              iters: int | None = None, eta: float | None = None
-              ) -> np.ndarray:
+              iters: int | None = None, eta: float | None = None,
+              matmul_dtype=None) -> np.ndarray:
     """Embed ``x_new`` into the frozen map; returns ``[B, m]`` numpy.
     Deterministic: no random draw anywhere (the init is the affinity
     interpolation), so the same (model, queries) pair gives the same bits
-    across processes, restarts and batch splits."""
+    across processes, restarts and batch splits.  ``matmul_dtype`` (the
+    CLI's ``--transform`` under ``--dtype bfloat16``) rounds the query
+    sweep's operands (``ops/knn.knn_queries``)."""
     bucket = pick_serve_bucket(bucket)
     iters = pick_transform_iters(iters)
     eta = pick_transform_eta(eta)
-    stages = stage_cache(model, bucket, iters, eta)
+    stages = stage_cache(model, bucket, iters, eta, matmul_dtype)
     d = model.x.shape[1]
     xq = np.asarray(x_new)
     if xq.ndim != 2 or xq.shape[1] != d:

@@ -7,8 +7,9 @@ seconds of each stage measured to the end of the device's work.  With an
 ``.npz`` files keyed by a sha256 fingerprint of everything they are a
 deterministic function of: the input's bytes as the kNN sees them (dtype,
 shape, data), the resolved kNN plan, k, the metric, the seed of the
-hybrid plan's draws, the perplexity, the assembly and its width.  The
-fingerprint also names the port, the torch version, the device type and
+hybrid plan's draws, the matmul operand dtype of a mixed-precision run
+(a bf16 prepare never serves a float32 run, nor the reverse), the
+perplexity, the assembly and its width.  The fingerprint also names the port, the torch version, the device type and
 :data:`FORMAT_VERSION`, so the port's entries and the JAX package's never
 collide.  A warm hit loads the cold run's own arrays: bit-identical.
 Damaged, foreign or mismatched files are removed and count as a miss.
@@ -83,20 +84,25 @@ def fingerprint(parts: dict, device) -> str:
 
 
 def knn_fingerprint(data_fp: str, *, n: int, d: int, k: int, method: str,
-                    metric: str, rounds, refine, seed, device) -> str:
+                    metric: str, rounds, refine, seed, device,
+                    matmul_dtype=None) -> str:
     """Fingerprint of the kNN graph (``data_fp`` names the input's dtype,
     shape and bytes).  ``method``/``rounds``/``refine`` are
     the RESOLVED plan (``resolve_knn_plan``), so an explicit value equal to
     the auto policy hits the same entry; only the hybrid plan draws, so
     the seed and its rounds are normalized out of the exact methods (whose
-    graphs are one and the same)."""
+    graphs are one and the same).  ``matmul_dtype`` (bf16 operands) is
+    named as the JAX key names it (``matmul_dtype``); a float32 run's key
+    keeps its form, so its entries stay warm."""
     if method != "project":
         rounds = refine = seed = None
         method = "exact"
-    return fingerprint({"kind": KIND_KNN, "data": data_fp, "n": n, "d": d,
-                        "k": k, "method": method, "metric": metric,
-                        "rounds": rounds, "refine": refine, "seed": seed},
-                       device)
+    parts = {"kind": KIND_KNN, "data": data_fp, "n": n, "d": d, "k": k,
+             "method": method, "metric": metric, "rounds": rounds,
+             "refine": refine, "seed": seed}
+    if matmul_dtype is not None:
+        parts["matmul_dtype"] = str(matmul_dtype)
+    return fingerprint(parts, device)
 
 
 def affinity_fingerprint(knn_fp: str, *, perplexity: float, assembly: str,
@@ -215,7 +221,8 @@ def prepare_fingerprints(x=None, knn=None, *, neighbors: int,
                          metric: str = "sqeuclidean", knn_rounds=None,
                          knn_refine=None, seed: int | None = None,
                          perplexity: float, assembly: str = "auto",
-                         sym_width: int | None = None, device=None):
+                         sym_width: int | None = None, device=None,
+                         matmul_dtype=None):
     """``(knn_fp, affinity_fp)`` of these prepare inputs: what
     :func:`prepare` keys its artifacts by.  ``x`` (or the ``knn=(idx,
     dist)`` graph) is hashed as given: pass it in the dtype the kNN runs
@@ -235,7 +242,7 @@ def prepare_fingerprints(x=None, knn=None, *, neighbors: int,
         knn_fp = knn_fingerprint(
             data_fingerprint(x), n=n, d=d, k=k, method=method,
             metric=metric, rounds=rounds, refine=refine, seed=seed,
-            device=device)
+            device=device, matmul_dtype=matmul_dtype)
     return knn_fp, affinity_fingerprint(knn_fp, perplexity=perplexity,
                                         assembly=assembly,
                                         sym_width=sym_width, device=device)
@@ -249,7 +256,8 @@ def prepare(x=None, *, knn=None, neighbors: int,
             assembly: str = "auto", sym_width: int | None = None,
             device=None, cache: ArtifactCache | None = None,
             knn_tiles=None, knn_autotune: bool = False,
-            on_stage=None, on_graph=None) -> PrepareResult:
+            on_stage=None, on_graph=None,
+            matmul_dtype=None) -> PrepareResult:
     """kNN (or the given ``knn=(idx, dist)``), then the symmetrized P by
     ``assembly``: ``auto`` (``affinity_auto``: split rows, or blocks when
     the rows would not fit), ``blocks`` (``affinity_blocks``), or
@@ -273,7 +281,9 @@ def prepare(x=None, *, knn=None, neighbors: int,
     ``on_stage(stage, seconds, cache_state)`` is called after each stage
     (``knn``, then ``affinities``), and ``on_graph(idx)`` with the kNN
     graph once its stage ends (the run supervisor's width bound); neither
-    changes a bit of the result."""
+    changes a bit of the result.  ``matmul_dtype`` (None, or
+    ``torch.bfloat16``: mixed precision) is the kNN products' operand
+    dtype (``ops/knn``), named in the kNN fingerprint."""
     from tsne_flink_tpu_torch.ops.knn import backend_of, check_knn_limits
     from tsne_flink_tpu_torch.runtime import faults
 
@@ -309,7 +319,7 @@ def prepare(x=None, *, knn=None, neighbors: int,
                 neighbors=k, knn_method=knn_method, metric=metric,
                 knn_rounds=knn_rounds, knn_refine=knn_refine, seed=seed,
                 perplexity=perplexity, assembly=assembly, sym_width=sym_width,
-                device=device)
+                device=device, matmul_dtype=matmul_dtype)
     finally:
         sp_setup.end()
 
@@ -336,7 +346,8 @@ def prepare(x=None, *, knn=None, neighbors: int,
                     x, k, knn_method, metric, method, refine,
                     knn_rounds=knn_rounds, knn_refine=knn_refine,
                     knn_blocks=knn_blocks, generator=generator,
-                    knn_tiles=knn_tiles, knn_autotune=knn_autotune)
+                    knn_tiles=knn_tiles, knn_autotune=knn_autotune,
+                    matmul_dtype=matmul_dtype)
                 knn_cache = "off"
                 if cache is not None:
                     cache.save(KIND_KNN, knn_fp, {"idx": idx, "dist": dist})
@@ -378,7 +389,7 @@ def prepare(x=None, *, knn=None, neighbors: int,
 
 def _compute_knn(x, k, knn_method, metric, method, refine, *, knn_rounds,
                  knn_refine, knn_blocks, generator, knn_tiles,
-                 knn_autotune):
+                 knn_autotune, matmul_dtype=None):
     """The kNN graph computed: ``(idx, dist, substage seconds, the tile
     plan's record)``."""
     from tsne_flink_tpu_torch.ops.knn import backend_of, knn as knn_dispatch
@@ -392,7 +403,8 @@ def _compute_knn(x, k, knn_method, metric, method, refine, *, knn_rounds,
     idx, dist = knn_dispatch(x, k, knn_method, metric, blocks=knn_blocks,
                              rounds=knn_rounds, refine=knn_refine,
                              generator=generator, tiles=tiles,
-                             on_substage=subs.update)
+                             on_substage=subs.update,
+                             matmul_dtype=matmul_dtype)
     return idx, dist, subs, tiles.as_record()
 
 

@@ -46,12 +46,19 @@ the embedding, the loss, the checkpoints, ``--trace`` and
 
 ``--auditPlan[=warn]`` runs the plan audit (:func:`audit_gate`: the
 memory model, a determinism and a comms cross-section) after the input
-is read and before the kNN stage, and refuses a predicted OOM;
-``--executionPlan`` writes ``tsne_executionPlan.json`` after prepare
-(:func:`execution_plan`, the recorded ops of one iteration and one KL
-pass) and no output.  A flag of a part not ported raises
-``NotImplementedError`` naming its ROADMAP item before the input is read
-(:data:`UNPORTED`).  The port reads no ``TSNE_*`` environment variable.
+is read and before the kNN stage, and refuses a predicted OOM; without
+``--symWidth`` it checks the plan again once the kNN stage ends, at the
+graph's row-width bound (:func:`audit_recheck`), and refuses before the
+affinities stage.  ``--executionPlan`` writes ``tsne_executionPlan.json``
+after prepare (:func:`execution_plan`, the recorded ops of one iteration
+and one KL pass) and no output.
+
+``--dtype bfloat16`` is mixed precision, as in the JAX CLI: the state
+stays float32 and the kNN stage's distance and projection products take
+bf16 operands (``ops/metrics.matmul_operands``; kernel B1's bf16 form on
+the card), on both routes and in ``--transform``'s query sweep.
+``--dtype float64`` runs on the CPU only.  The port reads no ``TSNE_*``
+environment variable.
 """
 
 from __future__ import annotations
@@ -159,8 +166,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", default=None,
                    choices=["float32", "float64", "bfloat16"],
                    help="float32 (default; the kernels' type), float64 (the "
-                        "CPU only); bfloat16 is not ported (a ROADMAP §C "
-                        "limit)")
+                        "CPU only), or bfloat16: mixed precision, float32 "
+                        "state with bf16 operands in the kNN stage's "
+                        "distance and projection products")
     # --- multi-device (parallel/mesh) ---
     p.add_argument("--devices", type=int, default=None,
                    help="mesh size over the point axis (as --mesh)")
@@ -305,23 +313,6 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-#: (flag, is it set, ROADMAP item) of every part not ported
-UNPORTED = (
-    ("--dtype bfloat16", lambda a: a.dtype == "bfloat16", "§C"),
-)
-
-
-def refuse_unported(args) -> None:
-    """Raise ``NotImplementedError`` naming the ROADMAP queue item of the
-    first flag set that the port does not run yet."""
-    for flag, is_set, item in UNPORTED:
-        if is_set(args):
-            where = ("a limit of ROADMAP §C: bf16 matmul operands are the "
-                     "TPU's contract, and kernel B1 runs 3xTF32"
-                     if item == "§C" else f"ROADMAP queue {item}")
-            raise NotImplementedError(f"{flag} is not ported yet ({where})")
-
-
 # graftlint: disable=policy-recorded -- the resolved repulsion is the
 # run's TsneConfig.repulsion and PlanConfig.repulsion, which
 # --auditPlan prints
@@ -440,11 +431,16 @@ def run_plan(args, cfg, n: int, d: int, assembly: str, neighbors: int,
     ladder input: the same resolved repulsion and assembly; ``mesh`` the
     optimize stage's width, whose row terms are one device's share;
     ``--symWidth``, as in the JAX CLI, the rows' width when the caller
-    knows it — a single-controller run's bits do not depend on it)."""
+    knows it — a single-controller run's bits do not depend on it).  A
+    ``--dtype bfloat16`` run is planned as float32 state, as the JAX
+    CLI's plan (its ``_run_plan``), with bf16 operands."""
     from tsne_flink_tpu_torch.analysis.audit import PlanConfig
+    from tsne_flink_tpu_torch.ops.metrics import (matmul_dtype_name,
+                                                  resolve_matmul_dtype)
+    dtype, operands = resolve_matmul_dtype(args.dtype)
     return PlanConfig(
         n=n, d=int(d), k=int(neighbors), backend=backend,
-        dtype=args.dtype or "float32", n_components=cfg.n_components,
+        dtype=dtype or "float32", n_components=cfg.n_components,
         iterations=cfg.iterations,
         knn_method=("precomputed" if args.inputDistanceMatrix
                     else args.knnMethod),
@@ -452,7 +448,8 @@ def run_plan(args, cfg, n: int, d: int, assembly: str, neighbors: int,
         repulsion=cfg.repulsion, theta=cfg.theta, assembly=assembly,
         attraction=cfg.attraction, sym_width=args.symWidth,
         row_chunk=cfg.row_chunk, mesh=int(mesh),
-        autopilot=bool(cfg.autopilot), name="cli-launch")
+        autopilot=bool(cfg.autopilot),
+        matmul_dtype=matmul_dtype_name(operands), name="cli-launch")
 
 
 def _plan_audit_summary(plan) -> dict:
@@ -520,26 +517,54 @@ def audit_gate(args, plan, report: bool = True) -> dict:
     sp = obtrace.begin("cli.audit_plan", cat="cli")
     rep = plan_hbm_report(plan)
     summary = _plan_audit_summary(plan)
-    gib = 1 << 30
     if report:
         _print_gate(args, plan, rep, summary)
         print(f"# auditPlan: gate {sp.end().seconds:.3f} s")
     sp.end()
     if not rep["ok"]:
-        msg = (f"plan predicted to OOM: peak HBM estimate "
-               f"{rep['peak_hbm_est_gib']} GiB in the '{rep['peak_stage']}' "
-               f"stage exceeds the {rep['hbm_budget'] / gib:.2f} GiB "
-               "device budget")
-        if args.auditPlan == "warn":
-            if report:
-                print(f"WARNING: {msg} — launching anyway (--auditPlan=warn)",
-                      file=sys.stderr)
-        else:
-            raise SystemExit(
-                f"{msg}; shrink the footprint (--affinityAssembly blocks, "
-                "a narrower --symWidth, --spmd sharding) or override with "
-                "--auditPlan=warn")
+        _refuse_oom(args, rep, report)
     return summary
+
+
+def _refuse_oom(args, rep, report: bool) -> None:
+    """The JAX gate's refusal of a predicted OOM (``--auditPlan=warn``
+    warns and launches)."""
+    gib = 1 << 30
+    msg = (f"plan predicted to OOM: peak HBM estimate "
+           f"{rep['peak_hbm_est_gib']} GiB in the '{rep['peak_stage']}' "
+           f"stage exceeds the {rep['hbm_budget'] / gib:.2f} GiB "
+           "device budget")
+    if args.auditPlan == "warn":
+        if report:
+            print(f"WARNING: {msg} — launching anyway (--auditPlan=warn)",
+                  file=sys.stderr)
+        return
+    raise SystemExit(
+        f"{msg}; shrink the footprint (--affinityAssembly blocks, "
+        "a narrower --symWidth, --spmd sharding) or override with "
+        "--auditPlan=warn")
+
+
+def audit_recheck(args, plan, width: int, report: bool = True) -> dict:
+    """``--auditPlan`` without ``--symWidth``, once the kNN stage has
+    built the graph: the plan charged at the graph's row-width bound
+    (``ops/affinities.width_bound``) instead of the pre-read gate's rows
+    of 2k, the width and the peak printed, and a predicted OOM refused
+    before the affinities stage (the JAX message).  Returns the report."""
+    from dataclasses import replace
+
+    from tsne_flink_tpu_torch.analysis.audit.hbm import plan_hbm_report
+    rep = plan_hbm_report(replace(plan, sym_width=int(width)))
+    if report:
+        gib = 1 << 30
+        print(f"# auditPlan: after kNN: width bound {int(width)}: peak HBM "
+              f"est {rep['peak_hbm_est_gib']} GiB in '{rep['peak_stage']}' "
+              + ("(no device budget on this backend)" if rep["hbm_budget"]
+                 is None else f"vs {rep['hbm_budget'] / gib:.2f} GiB "
+                 "budget"))
+    if not rep["ok"]:
+        _refuse_oom(args, rep, report)
+    return rep
 
 
 def _print_gate(args, plan, rep, summary) -> None:
@@ -701,9 +726,11 @@ def _device_count(device: torch.device) -> int:
     return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
-def _serve_transform(args, ids, x_np, neighbors: int, device) -> int:
+def _serve_transform(args, ids, x_np, neighbors: int, device,
+                     operands=None) -> int:
     """The ``--model``/``--transform`` route: open the frozen map
-    read-only, embed the query rows, write them; no fit, no checkpoint
+    read-only, embed the query rows (their kNN over ``operands``, the
+    run's matmul operand dtype), write them; no fit, no checkpoint
     write, no prepare stage."""
     from tsne_flink_tpu_torch.models.tsne import TsneConfig
     from tsne_flink_tpu_torch.serve.model import PlanConfig, load_frozen
@@ -722,7 +749,8 @@ def _serve_transform(args, ids, x_np, neighbors: int, device) -> int:
                         learning_rate=args.learningRate, metric=args.metric,
                         device=device)
     qids, q_np = tio.read_input(args.transform, args.dimension)
-    tio.write_embedding(args.output, qids, transform(model, q_np))
+    tio.write_embedding(args.output, qids,
+                        transform(model, q_np, matmul_dtype=operands))
     print(f"transformed {len(qids)} rows into frozen map {model.model_id} "
           f"-> {args.output}")
     return 0
@@ -773,7 +801,6 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
 
     parser = build_parser()
     args = parser.parse_args(argv)
-    refuse_unported(args)
     multi_controller = check_multihost(args, parser)
     if args.transform or args.model:
         if not (args.transform and args.model):
@@ -800,7 +827,10 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
         raise NotImplementedError(
             "--dtype float64 runs on the CPU only: the kernels are float32 "
             "(a limit of ROADMAP §C)")
-    dtype, np_dtype = ((torch.float64, np.float64) if args.dtype == "float64"
+    from tsne_flink_tpu_torch.ops.metrics import resolve_matmul_dtype
+    state_dtype, operands = resolve_matmul_dtype(args.dtype)
+    dtype, np_dtype = ((torch.float64, np.float64)
+                       if state_dtype == "float64"
                        else (torch.float32, np.float32))
     if multi_controller:
         from tsne_flink_tpu_torch.parallel.mesh import distributed_init
@@ -808,7 +838,7 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
         distributed_init(args.coordinator, args.numProcesses, args.processId,
                          device=device)
         return _spmd_job(args, device, sp_run, wd, trace_path, dtype,
-                         np_dtype)
+                         np_dtype, operands)
     mesh = resolve_mesh(args, device, mesh_devices)
     assembly = args.affinityAssembly or "auto"
     if args.executionPlan:
@@ -828,7 +858,8 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
         ids, x64 = tio.read_input(args.input, args.dimension)
         if args.transform:  # the JAX CLI serves the features as read
             sp.end()
-            out = _serve_transform(args, ids, x64, neighbors, device)
+            out = _serve_transform(args, ids, x64, neighbors, device,
+                                   operands)
             _write_obs_outputs(trace_path, args.metricsOut)
             return out
         # cast on the host, as the JAX CLI does, before the device copy
@@ -870,7 +901,8 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
     prep_kwargs = dict(neighbors=neighbors, knn_method=args.knnMethod,
                        metric=args.metric, knn_rounds=args.knnIterations,
                        knn_refine=args.knnRefine, seed=args.randomState,
-                       perplexity=cfg.perplexity, assembly=assembly, **data)
+                       perplexity=cfg.perplexity, assembly=assembly,
+                       matmul_dtype=operands, **data)
     del data
 
     jidx = extra = label = affinity_fp = None
@@ -898,14 +930,29 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
     del payload
     sp.end()
     if jidx is None:
+        def with_recheck(observe):
+            # the supervisor's width bound, then (--auditPlan without
+            # --symWidth) the plan's re-check at it, before the affinities
+            if not (args.auditPlan and args.symWidth is None):
+                return observe
+
+            def both(idx):
+                from tsne_flink_tpu_torch.ops.affinities import width_bound
+                if observe is not None:
+                    observe(idx)
+                audit_recheck(args, plan, supervisor.width_bound
+                              if supervisor.width_bound is not None
+                              else width_bound(idx))
+            return both
+
         # the supervisor relaunches the failed stage on an OOM with the
         # ladder's overrides (knn_tiles, assembly)
         prep = supervisor.run_prepare(
-            lambda on_stage, **ov: art.prepare(
+            lambda on_stage, on_graph=None, **ov: art.prepare(
                 **{**prep_kwargs, **ov},
                 knn_blocks=args.knnBlocks or _device_count(device),
                 device=device, cache=cache, knn_autotune=args.knnAutotune,
-                on_stage=on_stage),
+                on_stage=on_stage, on_graph=with_recheck(on_graph)),
             on_stage=(lambda st, s_, c_: wd.beat(st)) if wd else None)
         jidx, jval, extra, label = (prep.jidx, prep.jval, prep.extra_edges,
                                     prep.label)
@@ -1045,10 +1092,13 @@ def _dump_execution_plan(plan: dict, lead: bool = True) -> int:
     return 0
 
 
-def _spmd_job(args, device, sp_run, wd, trace_path, dtype, np_dtype) -> int:
+def _spmd_job(args, device, sp_run, wd, trace_path, dtype, np_dtype,
+              operands=None) -> int:
     """The multi-controller route (the JAX CLI's ``multi_controller``
-    branch): this rank's shard of ``parallel/pipeline.SpmdPipeline``;
-    rank 0 alone writes."""
+    branch): this rank's shard of ``parallel/pipeline.SpmdPipeline``
+    (``operands``: the kNN products' operand dtype); rank 0 alone writes.
+    ``--auditPlan`` without ``--symWidth`` re-checks the plan on every
+    rank once the sharded kNN stage ends (:func:`_spmd_recheck`)."""
     import json
 
     from tsne_flink_tpu_torch.ops.knn import resolve_knn_plan
@@ -1108,7 +1158,10 @@ def _spmd_job(args, device, sp_run, wd, trace_path, dtype, np_dtype) -> int:
                         sym_mode=args.symMode, sym_slack=args.symSlack,
                         sym_strict=args.symStrict, n_devices=width,
                         artifact_cache=cache, device=device,
-                        mesh_reduce=args.meshReduce)
+                        mesh_reduce=args.meshReduce, matmul_dtype=operands,
+                        on_graph=(_spmd_recheck(args, plan, lead)
+                                  if args.auditPlan and args.symWidth is None
+                                  else None))
     if args.executionPlan:
         return _dump_execution_plan(pipe.lower(data, args.randomState), lead)
     with _profiled(args.profile if lead else None, device):
@@ -1161,6 +1214,20 @@ def _spmd_job(args, device, sp_run, wd, trace_path, dtype, np_dtype) -> int:
           f"total, spmd over {pipe.n_devices} process(es), "
           f"backend={device.type})")
     return 0
+
+
+def _spmd_recheck(args, plan, lead: bool):
+    """The multi-controller route's ``on_graph`` hook: the global graph's
+    width bound (each rank gathers the shards' graphs, padding rows
+    dropped), then :func:`audit_recheck` on every rank, rank 0 alone
+    printing."""
+    def hook(axis, idx, valid):
+        from tsne_flink_tpu_torch.ops.affinities import width_bound
+        mine = torch.where(valid[:, None], idx.to(torch.int64), -1)
+        audit_recheck(args, plan,
+                      width_bound(axis.all_gather(mine.contiguous())),
+                      report=lead)
+    return hook
 
 
 def _payload_with_events(payload, supervisor, prior):
