@@ -63,6 +63,28 @@ Phases, in order; any failure exits non-zero before the result line:
    [full]'s configuration: B1's bf16 form once and the 3xTF32 form
    never, the rest [full]'s launches, final KL within 0.05 of [full]'s
    float32 run (its label agreement printed);
+4c. f64    — float64 on the card (``--dtype float64``): B1_f64 (FP64
+   tensor cores, ``KERNELS["B1_f64"]``) against its plain version on the
+   same float64 points (each distance within 1e-12 of |d| + ‖a‖² + ‖b‖²,
+   ids equal outside ties) at 60,000 x 784 (k = 90, every row, two
+   launches bit for bit, timed beside its library yardstick, chunked
+   float64 matmul + topk, in turns, with its FP64 tensor-core bound) and
+   on 4,096 rows of 1,306,127 x 50 (k = 150, one timed full launch);
+   B2_f64-B5_f64 at m = 1..8 on 4,000 rows (an edge problem: a hub row,
+   an empty row, padding) against their plain versions at rtol 1e-12
+   (gains exactly equal; B3_f64 the unfused float64 step bit for bit);
+   after phase 5, ``TSNE(dtype="float64")`` at [full]'s configuration
+   (B1_f64 1, B2_f64 / B3_f64 300, B4_f64 30, no float32 or bf16 form;
+   final KL within 0.05 of [full]'s, label agreement >= 0.9; the same fit
+   on the test mesh of 2 shards bit for bit), B2_f64 and B3_f64 at its
+   final y and [full]'s CSR (W = 256 + the tail) against plain (rtol
+   1e-12), timed with their FP64 bounds; the rows (latent blobs), blocks
+   and FFT routes at float64 with their launches; after phase 9, B5_f64
+   and B4_f64 on [large]'s pass in float64 (rtol 1e-12, timed after an L2
+   flush), then the card against the CPU at 2,500 x 50 (BASELINE config
+   1's size; the CPU's half a process of its own since phase 2): kNN ids
+   equal, P within ±1e-12, y after one iteration within ±1e-9, the final
+   KL after 1,000 iterations within 0.05;
 5. full    — ``tsne_embed`` on 60,000 x 784 MNIST-like blobs (perplexity
    30, k = 90, exact repulsion, CSR attraction, 300 iterations): stage
    seconds (the plan stage on its own line), the launches of each kernel
@@ -111,7 +133,10 @@ Phases, in order; any failure exits non-zero before the result line:
    run resumed from its checkpoint gives the same y and pilot pair;
    config 2 with ``--dtype bfloat16`` and the warm cache's directory
    reads none of the float32 entries and ends within 0.05 KL of its
-   float32 run;
+   float32 run; config 2 with ``--dtype float64 --knnMethod bruteforce``
+   runs on the float64 forms alone within 0.05 KL of config 2's float32
+   run, and config 2 itself at ``--dtype float64`` (project) is refused
+   before the kNN stage naming §C and B6, nothing launched;
 9. large — ``tsne_embed`` at the shape of the 10x Genomics 1.3M mouse
    brain cells (1,306,127 x 50 principal components; a synthetic
    stand-in, see ``make_cells``): perplexity 50, k = 150, the hybrid kNN
@@ -155,7 +180,9 @@ Phases, in order; any failure exits non-zero before the result line:
    held between ``transform_peak`` / 2 and ``transform_peak``; then a
    scheduled ``ServeDaemon`` on the 60k model over 8 spooled requests of
    64 / 256 / 1,024 rows: rows/s, p50/p99, batch fill, every answer
-   equal bit for bit to a direct transform;
+   equal bit for bit to a direct transform; and the 60k checkpoint
+   opened as a float64 model (float64 on the card), held as the first
+   (B5_f64 and B2_f64 75 a bucket);
 9f. quorum — replicated serving (queue A13b): ``runtime/fleet
    .run_serve_fleet`` runs ``python -m tsne_flink_tpu_torch.runtime.fleet
    --serve`` replica processes over one spool on the card, on phase 8's
@@ -224,7 +251,7 @@ Phases, in order; any failure exits non-zero before the result line:
    CUDA context a fresh process holds (B1, a matmul, an FFT); the memory
    model (``analysis/audit/hbm.py``) against the card at ``[full]``,
    ``[rows]``, ``[blocks]``, ``[project]`` and ``[large]``'s
-   configurations run stage by stage (allocated peak vs the model's
+   configurations and ``[full]``'s at float64 run stage by stage (allocated peak vs the model's
    allocated terms, and footprint — reserved + context — vs its whole
    peak, each within [1, 2]) and ``[serve]``'s two models; a real CUDA
    OOM (a subprocess capped at 4 GiB by
@@ -264,8 +291,11 @@ record's ``serve_launches``: the two self-transforms' launches, and
 blocks runs; B2's ``mesh_shard_ms`` at a shard's shape), then the records
 of 9h's B1 cross sweep (``B1 knn cross``, at the two-process job's hop,
 its launches that job's) and B6 with ``n_valid`` (``B6 refine_chunk
-n_valid``, its launches the two-process project kNN's).  The script
-imports nothing of JAX.
+n_valid``, its launches the two-process project kNN's).  The float64
+forms' records (B1_f64-B5_f64) sit after B6's: their launches from the
+float64 ``[full]`` fit (B5_f64's from the float64 rows run), their
+times at 60k (B1_f64), [full]'s shapes (B2_f64, B3_f64) and [large]'s
+pass (B4_f64, B5_f64).  The script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -309,6 +339,11 @@ N_EMBED_DEEP, ITER_WIDTHS, K_DEEP = 12_000, 100, 1024
 KL_GUARDRAIL_TOL = 0.05
 
 
+#: the float64 forms' launch counts in a run that launches none of them
+NO_F64 = {kid: 0 for kid in ("B1_f64", "B2_f64", "B3_f64", "B4_f64",
+                             "B5_f64")}
+
+
 #: kernel id -> (name, source, the TPU kernel it replaces)
 KERNEL_META = {
     "B1": ("knn", "tsne_flink_tpu_torch/csrc/knn.cu",
@@ -325,6 +360,19 @@ KERNEL_META = {
            "tsne_flink_tpu/ops/attraction_pallas.py:140"),
     "B6": ("refine_chunk", "tsne_flink_tpu_torch/csrc/knn_cand.cu",
            "tsne_flink_tpu/ops/knn_pallas.py:264"),
+    "B1_f64": ("knn_f64", "tsne_flink_tpu_torch/csrc/knn.cu",
+               "tsne_flink_tpu/ops/knn_pallas.py:73"),
+    "B2_f64": ("exact_repulsion_f64",
+               "tsne_flink_tpu_torch/csrc/repulsion.cu",
+               "tsne_flink_tpu/ops/repulsion_pallas.py:33"),
+    "B3_f64": ("fused_step_f64", "tsne_flink_tpu_torch/csrc/attraction.cu",
+               "tsne_flink_tpu/ops/attraction_pallas.py:313"),
+    "B4_f64": ("attraction_loss_f64",
+               "tsne_flink_tpu_torch/csrc/attraction.cu",
+               "tsne_flink_tpu/ops/attraction_pallas.py:156"),
+    "B5_f64": ("attraction_forces_f64",
+               "tsne_flink_tpu_torch/csrc/attraction.cu",
+               "tsne_flink_tpu/ops/attraction_pallas.py:140"),
 }
 
 
@@ -494,26 +542,27 @@ def flushed_ms(fn, reps=10):
     return statistics.median(out), out
 
 
-def hold_pass(tag, y, fidx, fval, rag, z, exag=4.0):
+def hold_pass(tag, y, fidx, fval, rag, z, exag=4.0, rtol=2e-5):
     """B5 and B4, one launch each over a row block ``(fidx, fval)`` (None:
     none) and a ragged part ``rag``, against their plain versions (forward
-    + ragged) on the card: rtol 2e-5 with an absolute part of
-    rtol·max|value|, the total KL to rtol 2e-5, two launches
-    bit-identical.  Returns (max force error, max KL error)."""
+    + ragged) on the card: ``rtol`` (2e-5; 1e-12 for the float64 forms)
+    with an absolute part of rtol·max|value|, the total KL to ``rtol``,
+    two launches bit-identical.  Returns (max force error, max KL
+    error)."""
     import torch
     from tsne_flink_tpu_torch.ops import attraction_cuda as att
     fk = att.attraction_forces(y, y, fidx, fval, exag, ragged=rag)
     again = att.attraction_forces(y, y, fidx, fval, exag, ragged=rag)
     fp = att.attraction_forces_plain(y, y, fidx, fval, exag, ragged=rag)
-    e5 = rel_close(fk, fp, 2e-5, f"B5 {tag}")
+    e5 = rel_close(fk, fp, rtol, f"B5 {tag}")
     check(torch.equal(fk, again), f"B5 {tag}: two launches differ")
     lk = att.attraction_loss(y, y, fidx, fval, 1.0, z, ragged=rag)
     lagain = att.attraction_loss(y, y, fidx, fval, 1.0, z, ragged=rag)
     lp = att.attraction_loss_plain(y, y, fidx, fval, 1.0, z, ragged=rag)
-    e4 = rel_close(lk, lp, 2e-5, f"B4 {tag}")
+    e4 = rel_close(lk, lp, rtol, f"B4 {tag}")
     check(torch.equal(lk, lagain), f"B4 {tag}: two launches differ")
     check(abs(float(lk.sum()) - float(lp.sum()))
-          <= 2e-5 * float(lp.abs().sum()), f"B4 {tag} total loss")
+          <= rtol * float(lp.abs().sum()), f"B4 {tag} total loss")
     w = 0 if fidx is None else fidx.shape[1]
     print(f"[kernels] B5/B4 {tag}: {y.shape[0]} rows, W={w}, "
           f"{0 if rag is None else rag.dst.shape[0]} ragged edges: max "
@@ -1007,6 +1056,506 @@ def bf16_embed_gate(x_np, labels, csr_kl):
     return counts
 
 
+# ---- [f64]: float64 on the card (B1-B5's float64 forms) --------------------
+
+#: H100 SXM dense FP64 peaks at 700 W (NVIDIA data sheet): the tensor
+#: cores (B1_f64's DMMA) and the FP64 pipe outside them (B2-B5)
+PEAK_FP64_TC_FLOPS = 67e12
+PEAK_FP64_FLOPS = 34e12
+#: the FP64 operations counted for one IEEE reciprocal (__drcp_rn: a
+#: MUFU.RCP64H seed, two Newton steps of two DFMAs and a rounding fix-up)
+RCP64_OPS = 8
+#: [f64]: the rows of the 1.3M check; the card-against-CPU run (BASELINE
+#: config 1's 2,500 x 50) and its iterations
+N_F64_ROWS_LARGE = 4_096
+N_F64_CPU, F_F64_CPU, ITER_F64_CPU = 2_500, 50, 1_000
+#: [f64]: the golden tolerances (ROADMAP "Parity") the card is held to
+#: against the CPU, and the float64 forms' bar against their plain versions
+F64_P_ATOL, F64_Y1_ATOL, F64_RTOL = 1e-12, 1e-9, 1e-12
+
+
+def f64_launches(want):
+    """``want``'s launches moved onto the float64 forms: B1-B5 under their
+    ``_f64`` names, the float32 and bf16 forms at 0 (B6 has no float64
+    form; a float64 run that would launch it is refused)."""
+    out = {kid: 0 for kid in want}
+    for kid, v in want.items():
+        if kid in ("B1", "B2", "B3", "B4", "B5"):
+            out[kid + "_f64"] = v
+        elif kid == "B6":
+            out[kid] = v
+    return out
+
+
+def b1_f64_bound(n, f, k):
+    """B1_f64's bound: 2·N²·F at the FP64 tensor-core peak; x read once
+    and [N, k] float64 distances and int32 ids written once."""
+    return bound(2.0 * n * n * f, n * f * 8 + n * k * 12, PEAK_FP64_TC_FLOPS)
+
+
+def b1_f64_gates(tag, x, k, rows=None, twice=True):
+    """B1_f64 against its plain version on the same float64 points (every
+    row, or ``rows``): each distance within 1e-12 of |d| + ‖a‖² + ‖b‖²,
+    ids equal outside ties (neighbours within that tolerance of each
+    other); two launches bit for bit when ``twice``.  Returns (max |d|
+    error, the first launch's CUDA-event ms)."""
+    import torch
+    from tsne_flink_tpu_torch.ops.knn_cuda import (_fused_final,
+                                                   knn_sweep_cuda,
+                                                   knn_sweep_plain)
+    n = x.shape[0]
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    a.record()
+    raw = knn_sweep_cuda(x, k, False)
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b)
+    if twice:
+        again = knn_sweep_cuda(x, k, False)
+        check(torch.equal(raw[0], again[0]) and torch.equal(raw[1],
+                                                            again[1]),
+              f"[f64] B1_f64 {tag}: two launches differ")
+        del again
+    ik, dk = _fused_final(*raw, "sqeuclidean")
+    del raw
+    if rows is not None:
+        ik, dk = ik[rows], dk[rows]
+    kk = min(k + 1, n - 1)
+    # a sample of rows against 1.3M columns: 256-row float64 tiles (the
+    # sweep's own 1,024 hold ~11 GB a temporary there)
+    dp, ip = knn_sweep_plain(x, kk, False, rows=rows,
+                             **({} if rows is None else {"row_chunk": 256}))
+    nrm = torch.sum(x * x, dim=1)
+    r = rows if rows is not None else torch.arange(n, device=x.device)
+    tol = F64_RTOL * (dp.abs() + nrm[r][:, None] + nrm[ip.long()])
+    err = (dk - dp[:, :k]).abs()
+    beyond = int((err > tol[:, :k]).sum())
+    gap = dp[:, 1:] - dp[:, :-1]
+    tied = torch.zeros_like(ik, dtype=torch.bool)
+    tied[:, :gap.shape[1]] |= gap[:, :k] <= tol[:, :gap.shape[1]]
+    tied[:, 1:] |= gap[:, :k - 1] <= tol[:, 1:k]
+    off = int((~((ik.long() == ip[:, :k].long()) | tied)).sum())
+    m = dk.shape[0]
+    print(f"[f64] B1_f64 {tag} {n}x{x.shape[1]} k={k} ({m} rows held): max "
+          f"|d err| {float(err.max()):.3e}, {beyond} beyond 1e-12 of |d| + "
+          f"|a|^2 + |b|^2; ids off outside ties {off}; the launch "
+          f"{ms:.4f} ms" + ("; two launches bit-identical" if twice else ""))
+    check(dk.dtype == torch.float64 and beyond == 0,
+          f"[f64] B1_f64 {tag}: {beyond} distances beyond 1e-12")
+    check(off == 0, f"[f64] B1_f64 {tag}: {off} ids differ outside ties")
+    return float(err.max()), ms
+
+
+def b3_f64_gate(tag, y, hidx, hval, rag, rep, z, upd, gains, valid=None):
+    """B3_f64's one launch over a head block and a ragged tail against its
+    plain version (gains exactly equal; y, update and ‖grad‖² within
+    rtol 1e-12 of each plus of the largest) and against the unfused
+    float64 step (B5_f64 over head + tail, att − rep/Z and the vdM update
+    in PyTorch) bit for bit.  Returns the max error."""
+    import torch
+    from tsne_flink_tpu_torch.ops import attraction_cuda as att
+    args = (y, y, hidx, hval, 4.0, rep, z, valid, upd, gains, 0.8)
+    kw = dict(eta=200.0, min_gain=0.01, ragged=rag)
+    ok = att.fused_step_update(*args, **kw)
+    op = att.fused_step_plain(*args, **kw)
+    check(torch.equal(ok[2], op[2]), f"[f64] B3_f64 {tag}: gains differ")
+    err = max(rel_close(a, b, F64_RTOL, f"[f64] B3_f64 {tag} {what}")
+              for a, b, what in zip(ok, op, ("y", "update", "gains",
+                                             "|grad|^2")))
+    forces = att.attraction_forces(y, y, hidx, hval, 4.0, ragged=rag)
+    grad = forces - rep / z
+    if valid is not None:
+        grad = grad * valid[:, None].to(grad.dtype)
+    same = (grad > 0.0) == (upd > 0.0)
+    g = torch.clamp(torch.where(same, gains * 0.8, gains + 0.2), min=0.01)
+    u = 0.8 * upd - 200.0 * g * grad
+    check(all(torch.equal(a, b) for a, b in zip(ok[:3], (y + u, u, g))),
+          f"[f64] B3_f64 {tag}: the fused step differs from the unfused")
+    print(f"[f64] B3_f64 {tag}: {y.shape[0]} rows, max err {err:.3e}; "
+          f"gains equal; the unfused float64 step's bits")
+    return err
+
+
+def phase_f64(x_np, xc_np):
+    """[f64] (``--dtype float64``): B1_f64 against its plain version at
+    [full]'s shape (60,000 x 784, k = 90, every row; two launches bit for
+    bit) and on a seeded sample of [large]'s rows (1,306,127 x 50, k =
+    150; one timed full launch), timed at 60k beside its library
+    yardstick (chunked float64 matmul + topk) in turns; B2_f64-B5_f64 at
+    m = 1..8 on [widths]' cut shapes (an edge problem: a hub row, an
+    empty row, padding) against their plain versions at rtol 1e-12.
+    Returns ({kid: max error}, B1_f64's (ms, plain ms, library ms), its
+    bound, its 1.3M launch ms)."""
+    import torch
+    from tsne_flink_tpu_torch.ops import attraction_cuda as att
+    from tsne_flink_tpu_torch.ops.knn_cuda import (knn_sweep_cuda,
+                                                   knn_sweep_plain)
+    from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
+    from tsne_flink_tpu_torch.ops.repulsion_exact import exact_repulsion
+    t_phase = time.perf_counter()
+    errs = {}
+    x = torch.from_numpy(x_np.astype(np.float64)).cuda()
+    n, f = x.shape
+    errs["B1_f64"], _ = b1_f64_gates("full", x, K)
+    t = alternated_ms({"f64": lambda: knn_sweep_cuda(x, K, False),
+                       "library": lambda: library_knn(x, K)},
+                      ["f64", "library", "library", "f64", "f64", "library"])
+    plain_ms = cuda_ms(lambda: knn_sweep_plain(x, K, False), 1, 0)
+    bnd = b1_f64_bound(n, f, K)
+    print(f"[f64] B1_f64 {n}x{f} k={K}: {spread(t['f64'])}; library "
+          f"(chunked float64 matmul + topk) {spread(t['library'])}; plain "
+          f"{plain_ms:.4f} ms; bound {bnd[0]:.4f} ms by {bnd[1]} (FP64 "
+          f"tensor cores at 67 TFLOP/s)")
+    times = (statistics.median(t["f64"]), plain_ms,
+             statistics.median(t["library"]))
+    del x
+    torch.cuda.empty_cache()
+    xc = torch.from_numpy(xc_np.astype(np.float64)).cuda()
+    rows = torch.from_numpy(np.sort(np.random.default_rng(11).choice(
+        xc.shape[0], N_F64_ROWS_LARGE, replace=False))).cuda()
+    e_l, ms_l = b1_f64_gates("large", xc, K_CELLS, rows, twice=False)
+    errs["B1_f64"] = max(errs["B1_f64"], e_l)
+    bnd_l = b1_f64_bound(*xc.shape, K_CELLS)
+    print(f"[f64] B1_f64 {xc.shape[0]}x{xc.shape[1]} k={K_CELLS}: "
+          f"{ms_l:.4f} ms (one launch); bound {bnd_l[0]:.4f} ms by "
+          f"{bnd_l[1]}")
+    del xc
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(17)
+    for m in range(1, 9):
+        y = torch.from_numpy(10.0 * rng.standard_normal((N_WIDTHS, m))
+                             ).cuda()
+        rk, zk = cuda_exact_repulsion(y, row_z=True)
+        rp, zp = exact_repulsion(y, row_z=True)
+        e2 = max(rel_close(rk, rp, F64_RTOL, f"[f64] B2_f64 m={m} rep"),
+                 rel_close(zk, zp, F64_RTOL, f"[f64] B2_f64 m={m} row Z"))
+        again = cuda_exact_repulsion(y, row_z=True)
+        check(torch.equal(again[0], rk) and torch.equal(again[1], zk),
+              f"[f64] B2_f64 m={m}: two launches differ")
+        fidx, fval, rag = edge_problem(y, 48, 40 + m)
+        fval = fval.double()
+        rag = rag._replace(val=rag.val.double())
+        z = torch.sum(zp)
+        e5, e4 = hold_pass(f"f64 m={m}", y, fidx, fval, rag, z,
+                           rtol=F64_RTOL)
+        rep = 0.1 * torch.from_numpy(rng.standard_normal((N_WIDTHS, m))
+                                     ).cuda()
+        upd = 1e-2 * torch.from_numpy(rng.standard_normal((N_WIDTHS, m))
+                                      ).cuda()
+        gains = 1.0 + torch.from_numpy(rng.random((N_WIDTHS, m))).cuda()
+        valid = torch.arange(N_WIDTHS, device="cuda") % 9 != 4
+        e3 = b3_f64_gate(f"m={m}", y, fidx, fval, rag, rep, z, upd, gains,
+                         valid)
+        for kid, e in (("B2_f64", e2), ("B3_f64", e3), ("B4_f64", e4),
+                       ("B5_f64", e5)):
+            errs[kid] = max(errs.get(kid, 0.0), e)
+        print(f"[f64] m={m}: B2_f64 {e2:.3e}, B3_f64 {e3:.3e}, B4_f64 "
+              f"{e4:.3e}, B5_f64 {e5:.3e} (max abs err; rtol 1e-12)")
+    print(f"[f64] kernels {time.perf_counter() - t_phase:.1f} s")
+    return errs, times, bnd, ms_l
+
+
+def f64_full_kernels(y, csr, z_scale=None):
+    """B2_f64 and B3_f64 at [full]'s shapes: the float64 run's final y
+    against itself and [full]'s CSR layout (W = 256 head + the tail) in
+    float64, each against its plain version (rtol 1e-12), timed beside it
+    (CUDA events) with its bound.  Returns ({kid: (ms, plain ms, None)},
+    {kid: bound}, {kid: max error})."""
+    import torch
+    from tsne_flink_tpu_torch.models.tsne import _without_padding
+    from tsne_flink_tpu_torch.ops import attraction_cuda as att
+    from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
+    from tsne_flink_tpu_torch.ops.repulsion_exact import exact_repulsion
+    n, m = y.shape
+    rk, zk = cuda_exact_repulsion(y, row_z=True)
+    rp, zp = exact_repulsion(y, row_z=True)
+    errs = {"B2_f64": max(rel_close(rk, rp, F64_RTOL, "[f64] B2_f64 full"),
+                          rel_close(zk, zp, F64_RTOL,
+                                    "[f64] B2_f64 full row Z"))}
+    hidx, hval = csr[0], csr[1].double()
+    tsrc, tdst, tval = _without_padding(csr[2:])
+    rag = att.ragged_edges(tsrc, tdst, tval.double(), n)
+    z = torch.sum(zk)
+    rng = np.random.default_rng(21)
+    upd = 1e-2 * torch.from_numpy(rng.standard_normal((n, m))).cuda()
+    gains = 1.0 + torch.from_numpy(rng.random((n, m))).cuda()
+    errs["B3_f64"] = b3_f64_gate("full", y, hidx, hval, rag, rk, z, upd,
+                                 gains)
+    order = att.visit_order(rag)
+
+    def b3():
+        return att.fused_step_update(y, y, hidx, hval, 1.0, rk, z, None,
+                                     upd, gains, 0.8, eta=200.0,
+                                     min_gain=0.01, ragged=rag, order=order)
+
+    def b3_plain():
+        return att.fused_step_plain(y, y, hidx, hval, 1.0, rk, z, None, upd,
+                                    gains, 0.8, eta=200.0, min_gain=0.01,
+                                    ragged=rag)
+    t = {"B2_f64": (cuda_ms(lambda: cuda_exact_repulsion(y), 20),
+                    cuda_ms(lambda: exact_repulsion(y), 1, 0), None),
+         "B3_f64": (cuda_ms(b3, 50), cuda_ms(b3_plain, 3), None)}
+    nnz, head_bytes = head_need(hval)
+    head_bytes = hval.numel() * 8 + nnz * 4
+    e_tail = int(tval.shape[0])
+    tail_bytes = 12.0 * e_tail + 8.0 * (n + 1)
+    bounds = {
+        "B2_f64": bound((20.0 + RCP64_OPS) * n * n, n * m * 8 * 2
+                        + n * (m + 1) * 8, PEAK_FP64_FLOPS),
+        "B3_f64": bound(20.0 * (nnz + e_tail), head_bytes + tail_bytes
+                        + 7 * n * m * 8 + n * 8 + n * 4, PEAK_FP64_FLOPS),
+    }
+    for kid, (ms, pms, _) in t.items():
+        print(f"[f64] {kid} at [full]'s shapes ({n} x {m}"
+              + (f", W={hidx.shape[1]} + {e_tail} tail edges, rows "
+                 f"{PATH_ORDER}" if kid == "B3_f64" else "")
+              + f"): {ms:.4f} ms (plain {pms:.4f} ms, bound "
+              f"{bounds[kid][0]:.4f} ms by {bounds[kid][1]})")
+    return t, bounds, errs
+
+
+def f64_large_pass(large):
+    """B5_f64 and B4_f64 at [large]'s pass (the blocks layout's forward
+    block + reverse edges, float64 copies at the run's final y): one launch
+    each against its plain version (rtol 1e-12), timed after an L2 flush
+    beside the plain versions, with the bytes bound of the pass at 8-byte
+    values.  Returns ({kid: (ms, plain ms, None)}, {kid: bound},
+    {kid: max error})."""
+    import torch
+    from tsne_flink_tpu_torch.models.tsne import _without_padding
+    from tsne_flink_tpu_torch.ops import attraction_cuda as att
+    y_l, _, _, jidx_l, jval_l, rev, _ = large
+    y = y_l.double().contiguous()
+    n, m = y.shape
+    fval = jval_l.double()
+    rsrc, rdst, rval = _without_padding(rev)
+    rag = att.ragged_edges(rsrc, rdst, rval.double(), n)
+    z = torch.tensor(float(n) * n, dtype=torch.float64, device="cuda")
+    e5, e4 = hold_pass("f64 [large]", y, jidx_l, fval, rag, z,
+                       rtol=F64_RTOL)
+    t = {"B5_f64": (flushed_ms(lambda: att.attraction_forces(
+            y, y, jidx_l, fval, 1.0, ragged=rag))[0],
+            cuda_ms(lambda: att.attraction_forces_plain(
+                y, y, jidx_l, fval, 1.0, ragged=rag), 1, 0), None),
+         "B4_f64": (flushed_ms(lambda: att.attraction_loss(
+            y, y, jidx_l, fval, 1.0, z, ragged=rag))[0],
+            cuda_ms(lambda: att.attraction_loss_plain(
+                y, y, jidx_l, fval, 1.0, z, ragged=rag), 1, 0), None)}
+    nnz = int((fval > 0).sum())
+    fwd_bytes = fval.numel() * 8 + nnz * 4
+    e = int(rval.shape[0])
+    rev_bytes = 12.0 * e + 8.0 * (n + 1)
+    bounds = {"B5_f64": bound(20.0 * (nnz + e), fwd_bytes + rev_bytes
+                              + 2 * n * m * 8, PEAK_FP64_FLOPS),
+              "B4_f64": bound(25.0 * (nnz + e), fwd_bytes + rev_bytes
+                              + n * m * 8 + n * 8, PEAK_FP64_FLOPS)}
+    for kid, (ms, pms, _) in t.items():
+        print(f"[f64] {kid} at [large]'s pass (W={jidx_l.shape[1]} + {e} "
+              f"reverse edges, after an L2 flush): {ms:.4f} ms (plain "
+              f"{pms:.4f} ms, bound {bounds[kid][0]:.4f} ms by "
+              f"{bounds[kid][1]})")
+    return t, bounds, {"B5_f64": e5, "B4_f64": e4}
+
+
+def f64_embed_gate(x_np, labels, csr_kl):
+    """``TSNE(dtype="float64")`` at [full]'s configuration (bruteforce,
+    CSR, exact repulsion), its launches counted from 0 just before it:
+    B1_f64 once, B2_f64 and B3_f64 every iteration, B4_f64 every 10th,
+    no float32 or bf16 form; a finite float64 embedding, final KL within
+    KL_GUARDRAIL_TOL of [full]'s float32 run, label agreement >= 0.9;
+    then the same fit on the test mesh of two shards gives the bits of
+    the mesh of one (the sharded optimizer's canonical sums).
+    Returns (launches, the final y on the card, the fit's seconds)."""
+    import torch
+    from tsne_flink_tpu_torch import TSNE
+    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
+    kw = dict(perplexity=PERPLEXITY, n_iter=ITERATIONS, repulsion="exact",
+              attraction="csr", random_state=0, dtype="float64")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    est = TSNE(**kw).fit(x_np)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    want = f64_launches(want_launches(ITERATIONS))
+    kl = est.kl_divergence_
+    y = torch.from_numpy(est.embedding_).cuda()
+    agree = label_agreement(y, labels)
+    print(f"[f64] TSNE(dtype='float64') at [full]'s configuration: "
+          f"{wall:.3f} s, launches {json.dumps(counts)}, final KL {kl:.6f} "
+          f"([full] float32 {csr_kl:.6f}, |dKL| {abs(kl - csr_kl):.6f}), "
+          f"10-NN label agreement {agree:.4f}, embedding "
+          f"{est.embedding_.dtype}")
+    check(counts == want, f"[f64] launches {counts} != {want}")
+    check(est.embedding_.dtype == np.float64
+          and np.isfinite(est.embedding_).all(),
+          "[f64] the embedding is not finite float64")
+    check(abs(kl - csr_kl) <= KL_GUARDRAIL_TOL and agree >= 0.9,
+          f"[f64] final KL {kl} vs [full]'s {csr_kl}, agreement {agree}")
+    # the sharded optimizer at float64: mesh 2 on the test mesh against
+    # mesh 1 (its mesh-canonical sums, not the single-device path's)
+    fits = {}
+    for d in (1, 2):
+        reset_launches()
+        t0 = time.perf_counter()
+        fits[d] = TSNE(mesh=["cuda:0"] * d, **kw).fit(x_np).embedding_
+        got = launches()
+        print(f"[f64] the same fit on the test mesh of {d} shard(s): "
+              f"{time.perf_counter() - t0:.3f} s, launches "
+              f"{json.dumps(got)}")
+        check(got["B2_f64"] == d * ITERATIONS and got["B2"] == 0,
+              f"[f64] mesh {d} launches {got}")
+    check(np.array_equal(fits[2].view(np.uint64), fits[1].view(np.uint64)),
+          "[f64] mesh 2 differs from mesh 1")
+    print("[f64] mesh 2 equals mesh 1 bit for bit")
+    return counts, y, wall
+
+
+def f64_routes(x_np, xl_np, labels, labels_l, csr_kl):
+    """The other routes at float64 on the card, each a full-size run with
+    its launches (the float64 forms only): the default configuration on
+    the latent blobs (rows layout: B5_f64 every iteration), the blocks
+    assembly on the blobs (B5_f64 + B4_f64 over the forward block and the
+    reverse edges) and FFT repulsion on the blobs (no B2_f64).  Each
+    finite, falling KL, label agreement (the rows run's within 0.05 of
+    its latent's bar), the blobs' runs within KL_GUARDRAIL_TOL of [full].
+    Returns the rows run's launches."""
+    import torch
+    from tsne_flink_tpu_torch import TsneConfig
+    x64 = x_np.astype(np.float64)
+    cfg_r = TsneConfig(perplexity=PERPLEXITY, iterations=ITERATIONS)
+    y, losses, st, counts_r = run_embed(
+        "f64 rows", xl_np.astype(np.float64), cfg_r,
+        lambda s: f64_launches(layout_launches(s["layout"])))
+    check(st["layout"] == "rows" and bool(torch.isfinite(y).all())
+          and bool(torch.isfinite(losses).all()),
+          f"[f64] latent blobs: layout {st['layout']}, or not finite")
+    print(f"[f64 rows] final KL {float(losses[-1]):.6f}")
+    for tag, cfg, kw, want in (
+            ("f64 blocks", TsneConfig(perplexity=PERPLEXITY,
+                                      iterations=ITERATIONS),
+             {"affinity_assembly": "blocks"},
+             f64_launches(want_launches(0))),
+            ("f64 fft", TsneConfig(perplexity=PERPLEXITY,
+                                   iterations=ITERATIONS, repulsion="fft",
+                                   attraction="csr"),
+             {}, f64_launches(want_launches(ITERATIONS, b2=0)))):
+        y, losses, st, _ = run_embed(tag, x64, cfg, want, **kw)
+        kl = quality(tag, y, losses, labels, cfg, 0.9)
+        print(f"[{tag}] final KL {kl:.6f} against [full]'s float32 "
+              f"{csr_kl:.6f}")
+        check(abs(kl - csr_kl) <= KL_GUARDRAIL_TOL,
+              f"[{tag}] final KL {kl} vs [full]'s {csr_kl}")
+    return counts_r
+
+
+#: the CPU's half of the card-against-CPU check: a process of its own on
+#: a few of the host's cores, started after [build] and read after
+#: [large], so that its 1,000 CPU iterations (~4 minutes) overlap the
+#: card's work; writes the kNN graph, P, y after one iteration and the
+#: loss trace of the long run to an npz
+F64_CPU_CHILD = r"""
+import sys, time
+t0 = time.perf_counter()
+import numpy as np, torch
+sys.path.insert(0, sys.argv[1])
+torch.set_num_threads(int(sys.argv[3]))
+from tsne_flink_tpu_torch import TsneConfig, tsne_embed
+from tsne_flink_tpu_torch.utils.artifacts import prepare
+data = np.load(sys.argv[2])
+x, y0 = data["x"], data["y0"]
+perp, k, iters = float(data["perplexity"]), int(data["k"]), int(data["iters"])
+prep = prepare(torch.as_tensor(x), neighbors=k, perplexity=perp,
+               device="cpu")
+y1, _ = tsne_embed(x, TsneConfig(perplexity=perp, iterations=1,
+                                 repulsion="exact"), neighbors=k,
+                   device="cpu", y0=y0)
+_, losses = tsne_embed(x, TsneConfig(perplexity=perp, iterations=iters,
+                                     repulsion="exact"), neighbors=k,
+                       device="cpu", y0=y0)
+np.savez(sys.argv[2] + ".out.npz", idx=prep.idx.numpy(),
+         jidx=prep.jidx.numpy(), jval=prep.jval.numpy(), y1=y1.numpy(),
+         losses=losses.numpy())
+print(time.perf_counter() - t0)
+"""
+#: host threads the CPU child takes (the card's driving process keeps the
+#: rest of the card machine's 8 cores)
+F64_CPU_THREADS = 4
+
+
+def f64_cpu_start(tmp):
+    """Start the CPU's half of :func:`f64_card_vs_cpu` (BASELINE config
+    1's 2,500 x 50 blobs at float64, its seeded initial y) in a process of
+    its own.  Returns (the process, its input path)."""
+    x_np, _ = make_data(n=N_F64_CPU, d=F_F64_CPU)
+    path = os.path.join(tmp, "f64_cpu.npz")
+    np.savez(path, x=x_np.astype(np.float64),
+             y0=np.random.default_rng(5).standard_normal((N_F64_CPU, 2))
+             * 1e-4, perplexity=PERPLEXITY, k=K, iters=ITER_F64_CPU)
+    proc = subprocess.Popen([sys.executable, "-c", F64_CPU_CHILD, ROOT,
+                             path, str(F64_CPU_THREADS)],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, path
+
+
+def f64_card_vs_cpu(cpu):
+    """The card against the CPU at float64 (BASELINE config 1's size,
+    2,500 x 50 blobs, perplexity 30, k = 90, exact repulsion): the kNN
+    graph's ids equal, P within ±1e-12, y after one iteration from the
+    same initial y within ±1e-9, and the final KL after 1,000 iterations
+    within 0.05 (the golden tolerances, ROADMAP "Parity").  ``cpu`` is
+    :func:`f64_cpu_start`'s (process, path): the card's runs go here,
+    then this waits for the CPU's."""
+    import torch
+    from tsne_flink_tpu_torch import TsneConfig, tsne_embed
+    from tsne_flink_tpu_torch.utils.artifacts import prepare
+    proc, path = cpu
+    t0 = time.perf_counter()
+    data = np.load(path)
+    x, y0 = data["x"], data["y0"]
+    g = prepare(torch.as_tensor(x, device="cuda"), neighbors=K,
+                perplexity=PERPLEXITY, device="cuda")
+    y1, _ = tsne_embed(x, TsneConfig(perplexity=PERPLEXITY, iterations=1,
+                                     repulsion="exact"), neighbors=K,
+                       y0=y0)
+    _, losses = tsne_embed(x, TsneConfig(perplexity=PERPLEXITY,
+                                         iterations=ITER_F64_CPU,
+                                         repulsion="exact"), neighbors=K,
+                           y0=y0)
+    t_card = time.perf_counter() - t0
+    try:
+        out, err = proc.communicate(timeout=900)
+    finally:
+        proc.kill()
+        proc.wait()
+    t_wait = time.perf_counter() - t0 - t_card
+    check(proc.returncode == 0, f"[f64] the CPU run failed: {err[-2000:]}")
+    c = np.load(path + ".out.npz")
+    same_ids = (np.array_equal(g.idx.cpu().numpy(), c["idx"])
+                and np.array_equal(g.jidx.cpu().numpy(), c["jidx"]))
+    p_err = float(np.abs(g.jval.cpu().numpy() - c["jval"]).max())
+    y1_err = float(np.abs(y1.cpu().numpy() - c["y1"]).max())
+    kl_g, kl_c = float(losses[-1]), float(c["losses"][-1])
+    print(f"[f64] card vs CPU at {N_F64_CPU}x{F_F64_CPU} (float64): kNN ids "
+          f"equal {same_ids}; P max |err| {p_err:.3e} (bar "
+          f"{F64_P_ATOL:g}); y after 1 iteration max |err| {y1_err:.3e} "
+          f"(bar {F64_Y1_ATOL:g}); final KL after {ITER_F64_CPU} iterations "
+          f"card {kl_g:.6f}, CPU {kl_c:.6f} (|dKL| {abs(kl_g - kl_c):.6f}); "
+          f"the card's runs {t_card:.1f} s, then {t_wait:.1f} s waiting "
+          f"for the CPU's ({F64_CPU_THREADS} threads, "
+          f"{float(out.split()[-1]):.1f} s in all, beside the phases since "
+          "[build])")
+    check(same_ids, "[f64] card vs CPU: the kNN ids differ")
+    check(p_err <= F64_P_ATOL, f"[f64] card vs CPU: P err {p_err}")
+    check(y1_err <= F64_Y1_ATOL, f"[f64] card vs CPU: y after one "
+          f"iteration err {y1_err}")
+    check(abs(kl_g - kl_c) <= KL_GUARDRAIL_TOL,
+          f"[f64] card vs CPU: final KL {kl_g} vs {kl_c}")
+
+
 def b2_gates():
     """B2 against its plain version at 60,000 x 2 (rep, row Z and global Z
     within rtol 2e-5; two launches bit-identical), at m = 3, and on a
@@ -1305,7 +1854,7 @@ def want_launches(b3, b1=1, b2=None, b6=0, b1_bf16=0):
     B5 every iteration of any other (the unfused step's attraction
     pass), B4 every 10th (the KL over both parts); B1's bf16 form only in
     a bf16-operand run."""
-    return {"B1": b1, "B1_bf16": b1_bf16,
+    return {"B1": b1, "B1_bf16": b1_bf16, **NO_F64,
             "B2": ITERATIONS if b2 is None else b2, "B3": b3,
             "B4": ITERATIONS // 10, "B5": ITERATIONS - b3, "B6": b6}
 
@@ -2185,6 +2734,52 @@ def same_bits(a, b):
         np.ascontiguousarray(b).view(np.uint32))
 
 
+def cli_f64_gate(argv, config2, kl_32, tmp):
+    """[cli] gate 10: config 2's command line (``argv``, ``config2``) at
+    ``--dtype float64`` with the exact kNN runs on the float64 forms and
+    ends within KL_GUARDRAIL_TOL of config 2's float32 run (``kl_32``);
+    with its own project kNN it is refused before the kNN stage (B6 has no
+    float64 form; the refine count needs N, so after the input is read),
+    nothing launched and no output written."""
+    import io as _io
+
+    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
+    from tsne_flink_tpu_torch.utils.cli import main as cli_main
+    f64_line = ("--knnMethod", "bruteforce", "--theta", "0.5",
+                "--noCache", "--dtype", "float64")
+    y_64, counts_64, _, _ = run_cli("config 2 float64 bruteforce",
+                                    argv("f64.csv", *f64_line))
+    kl_64 = float(np.loadtxt(os.path.join(tmp, "f64.csv.loss"),
+                             delimiter=",", ndmin=2)[-1, 1])
+    print(f"[cli] gate 10: config 2 --dtype float64 --knnMethod "
+          f"bruteforce: final KL {kl_64:.6f} against config 2's float32 "
+          f"{kl_32:.6f} (|dKL| {abs(kl_64 - kl_32):.6f})")
+    check(counts_64["B1_f64"] == 1 and counts_64["B2_f64"] == ITERATIONS
+          and not any(v for kid, v in counts_64.items()
+                      if not kid.endswith("_f64")),
+          f"[cli] gate 10: float64 launches {counts_64}")
+    check(np.isfinite(y_64).all() and abs(kl_64 - kl_32)
+          <= KL_GUARDRAIL_TOL, f"[cli] gate 10: float64 KL {kl_64} vs "
+          f"float32 {kl_32}")
+    reset_launches()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stderr(_io.StringIO()):
+            cli_main(argv("f64p.csv", *config2, "--noCache", "--dtype",
+                          "float64"))
+        refused = ""
+    except NotImplementedError as e:
+        refused = str(e)
+    print(f"[cli] gate 10: config 2 --dtype float64 (project): refused "
+          f"after {time.perf_counter() - t0:.3f} s (the input read): "
+          f"{refused}")
+    check("§C" in refused and "B6" in refused
+          and not any(launches().values())
+          and not os.path.exists(os.path.join(tmp, "f64p.csv")),
+          "[cli] gate 10: float64 with a refining plan was not refused "
+          "before the kNN stage")
+
+
 def phase_cli(x_np, xl_np, full, rows, project, y_bh):
     """The batch job's front door at 60,000 x 784: config 2's command line
     through the port's ``main`` from a COO CSV (gate 1), a warm artifact
@@ -2304,6 +2899,9 @@ def phase_cli(x_np, xl_np, full, rows, project, y_bh):
               <= KL_GUARDRAIL_TOL, f"[cli] gate 9: bf16 KL {kl_16} vs "
               f"float32 {kl_32}")
         shutil.rmtree(cache[1])
+
+        # gate 10: --dtype float64 on config 2's command line
+        cli_f64_gate(argv, config2, kl_32, tmp)
 
         # gate 3: a fat checkpoint resumes bit for bit, with no kNN
         y_f, counts_f = full
@@ -2812,9 +3410,11 @@ def serve_launches(tag, model, buckets, fn):
     torch.cuda.synchronize()
     counts = launches()
     per = SERVE_ITERS * buckets
-    want = {"B1": 0, "B1_bf16": 0,
-            "B2": per if model.repulsion == "exact" else 0,
-            "B3": 0, "B4": 0, "B5": per, "B6": 0}
+    # a float64 model serves through the float64 forms
+    sfx = "_f64" if model.x.dtype == torch.float64 else ""
+    want = {kid: 0 for kid in counts}
+    want["B2" + sfx] = per if model.repulsion == "exact" else 0
+    want["B5" + sfx] = per
     print(f"[serve] {tag}: launches {json.dumps(counts)}")
     check(counts == want, f"[serve] {tag}: launches {counts} != {want}")
     return out, counts
@@ -3077,6 +3677,17 @@ def phase_serve(x_np, ckpt_path, large, xc_np, tmp):
     recs, counts = serve_model("60k exact", exact, rng)
     recs["daemon"] = serve_daemon(exact, tmp, rng)
     del exact
+    # the same checkpoint as a float64 model: its own dtype on the card
+    exact64 = load_frozen(ckpt_path, x_np, PlanConfig(
+        n=N_FULL, d=F_FULL, k=K, backend="cuda", dtype="float64",
+        name="project-f64"), perplexity=PERPLEXITY, dtype=torch.float64)
+    check(exact64.x.dtype == exact64.y.dtype == torch.float64,
+          "[serve] the float64 model is not float64 on the card")
+    recs64, counts64 = serve_model("60k exact f64", exact64,
+                                   np.random.default_rng(64))
+    recs["B2_f64"], recs["B5_f64"] = recs64["B2"], recs64["B5"]
+    recs["memory"] += recs64["memory"]
+    del exact64
     t0 = time.perf_counter()
     fft = from_arrays(xc_np, large[0].cpu().numpy(), PlanConfig(
         n=N_CELLS, d=F_CELLS, k=K_CELLS, backend="cuda", name="large"),
@@ -3089,7 +3700,8 @@ def phase_serve(x_np, ckpt_path, large, xc_np, tmp):
     recs_l, counts_l = serve_model("1.3M fft", fft, rng)
     recs["B5_large"] = recs_l["B5"]
     recs["memory"] += recs_l["memory"]
-    return recs, {kid: counts[kid] + counts_l[kid] for kid in counts}
+    return recs, {kid: counts[kid] + counts_l[kid] + counts64[kid]
+                  for kid in counts}
 
 
 #: [quorum]: replicated serving on the 60k model — each replica's claim
@@ -3925,8 +4537,8 @@ def mesh_blobs(x_np, labels, cfg, full, csr_kl):
     del prep
     check(runs[1][4] == "csr", f"[mesh] blobs: layout {runs[1][4]}")
     mesh_same("blobs CSR", runs)
-    want = {"B1": 0, "B1_bf16": 0, "B2": ITERATIONS, "B3": ITERATIONS,
-            "B4": ITERATIONS // 10, "B5": 0, "B6": 0}
+    want = {"B1": 0, "B1_bf16": 0, **NO_F64, "B2": ITERATIONS,
+            "B3": ITERATIONS, "B4": ITERATIONS // 10, "B5": 0, "B6": 0}
     shard_launches("blobs CSR", runs, want)
     y1 = runs[1][0].y
     kl1 = quality("mesh", y1, runs[1][1], labels, cfg, 0.9)
@@ -4006,7 +4618,7 @@ def phase_mesh(x_np, labels, full, csr_kl, latent_rows, large, tmp):
             for d in (1, 2)}
     check(runs[1][4] == "rows", f"[mesh] latent blobs: layout {runs[1][4]}")
     mesh_same("latent blobs rows", runs)
-    want = {"B1": 0, "B1_bf16": 0, "B2": ITERATIONS, "B3": 0,
+    want = {"B1": 0, "B1_bf16": 0, **NO_F64, "B2": ITERATIONS, "B3": 0,
             "B4": ITERATIONS // 10, "B5": ITERATIONS, "B6": 0}
     shard_launches("latent blobs rows", runs, want)
     per_shard["rows"] = want
@@ -4030,7 +4642,7 @@ def phase_mesh(x_np, labels, full, csr_kl, latent_rows, large, tmp):
             for d in (1, 2)}
     check(runs[1][4] == "blocks", f"[mesh] large: layout {runs[1][4]}")
     mesh_same("large blocks + FFT", runs)
-    want = {"B1": 0, "B1_bf16": 0, "B2": 0, "B3": 0,
+    want = {"B1": 0, "B1_bf16": 0, **NO_F64, "B2": 0, "B3": 0,
             "B4": ITERATIONS // 10, "B5": ITERATIONS, "B6": 0}
     shard_launches("large blocks + FFT", runs, want)
     per_shard["blocks"] = want
@@ -4106,6 +4718,9 @@ MEMORY_RUNS = {
     "project": ("blobs", K, "project", None, dict(repulsion="exact")),
     "large": ("cells", K_CELLS, "project", None,
               dict(repulsion="fft", fft_grid=1024, fft_interp=3)),
+    # [full] at float64: B1-B5's float64 forms
+    "full_f64": ("blobs64", K, "bruteforce", None,
+                 dict(repulsion="exact", attraction="csr")),
 }
 
 
@@ -4623,9 +5238,11 @@ def memory_plan(tag, n, d, cfg, width=None):
     and, once the kNN graph exists, the graph's row-width bound
     (``ops/affinities.width_bound``; None before it)."""
     from tsne_flink_tpu_torch.analysis.audit.plan import PlanConfig
-    _, k, method, assembly, _ = MEMORY_RUNS[tag]
+    data, k, method, assembly, _ = MEMORY_RUNS[tag]
     return PlanConfig(
-        n=n, d=d, k=k, backend="cuda", n_components=cfg.n_components,
+        n=n, d=d, k=k, backend="cuda",
+        dtype="float64" if data.endswith("64") else "float32",
+        n_components=cfg.n_components,
         iterations=cfg.iterations, knn_method=method,
         repulsion=cfg.repulsion, theta=cfg.theta,
         assembly=assembly or "auto", attraction=cfg.attraction,
@@ -5243,8 +5860,8 @@ def phase_runtime(x_np, xl_np, xc_np, tmp, serve_memory, context=None):
         print(f"[runtime] memory serve {tag}: transform_peak "
               f"{pred / 2**20:.1f} MiB, measured {meas / 2**20:.1f} MiB "
               f"(resident model included), ratio {pred / meas:.3f}")
-    runtime_memory({"blobs": x_np, "latent": xl_np, "cells": xc_np},
-                   context)
+    runtime_memory({"blobs": x_np, "latent": xl_np, "cells": xc_np,
+                    "blobs64": x_np.astype(np.float64)}, context)
     runtime_real_oom(tmp)
     runtime_rehearsals(x_np, tmp)
     runtime_fleet(xl_np, "latent", tmp, context, serial=True)
@@ -5269,9 +5886,12 @@ def main() -> int:
     import tempfile
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="tsne_smoke_")
+    f64_cpu = None
     try:
         name, count = phase_device()
         phase_build()
+        # [f64]'s CPU reference runs beside the phases up to [f64]'s check
+        f64_cpu = f64_cpu_start(tmp)
         x_np, labels = make_data()
         xl_np, labels_l, z_latent = make_latent_blobs()
         xc_np, labels_c, z_cells = make_cells()
@@ -5280,12 +5900,20 @@ def main() -> int:
         for kid, e in phase_widths(x_np, xc_np).items():
             errs[kid] = max(errs.get(kid, 0.0), e)
         bf16_times, bf16_bnd, bf16_err = phase_bf16(x_np, xc_np)
+        f64_errs, b1f_times, b1f_bnd, _ = phase_f64(x_np, xc_np)
         kernels, csr_kl, full, b1_ms, b2_ms = phase_full(x_np, labels,
                                                          errs, csr)
         bf16_counts = bf16_embed_gate(x_np, labels, csr_kl)
         kernels.insert(1, kernel_record(
             "B1_bf16", *KERNEL_META["B1_bf16"], bf16_counts["B1_bf16"],
             bf16_err, bf16_times, bf16_bnd))
+        t_f64 = time.perf_counter()
+        f64_counts, y64, _ = f64_embed_gate(x_np, labels, csr_kl)
+        f64_t, f64_b, e_full64 = f64_full_kernels(y64, csr)
+        del y64
+        f64_rows = f64_routes(x_np, xl_np, labels, labels_l, csr_kl)
+        print(f"[f64] the fits and routes {time.perf_counter() - t_f64:.1f} "
+              "s")
         y_60k = full[0]
         rows_run = phase_rows(xl_np, labels_l, z_latent, rows, errs)
         phase_blocks(x_np, labels, blocks, csr_kl)
@@ -5304,6 +5932,17 @@ def main() -> int:
                                          pass_b[kid]))
         kernels.append(kernel_record("B6", *KERNEL_META["B6"], counts["B6"],
                                      errs["B6"], times, bnd))
+        t_l64, b_l64, e_l64 = f64_large_pass(large)
+        f64_t.update(t_l64)
+        f64_b.update(b_l64)
+        f64_t["B1_f64"], f64_b["B1_f64"] = b1f_times, b1f_bnd
+        f64_n = {**f64_counts, "B5_f64": f64_rows["B5_f64"]}
+        for kid in ("B1_f64", "B2_f64", "B3_f64", "B4_f64", "B5_f64"):
+            err = max(f64_errs.get(kid, 0.0), e_full64.get(kid, 0.0),
+                      e_l64.get(kid, 0.0))
+            kernels.append(kernel_record(kid, *KERNEL_META[kid], f64_n[kid],
+                                         err, f64_t[kid], f64_b[kid]))
+        f64_card_vs_cpu(f64_cpu)
         phase_bh_large(large[0])
         phase_pilot(xl_np, labels_l, z_latent, (rows_run[0], rows_run[2],
                                                 rows_run[3]), large)
@@ -5337,6 +5976,9 @@ def main() -> int:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     finally:
+        if f64_cpu is not None:
+            f64_cpu[0].kill()
+            f64_cpu[0].wait()
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))

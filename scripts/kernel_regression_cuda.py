@@ -22,7 +22,11 @@ B1 is timed as the median (min-max) of 3 warm launches, the CSR step as
 the median (min-max) of 6 means of 20 launches (CUDA events), the others
 as the mean of 20-50 launches in a row, each after one warm-up; the plan
 stage as the median of 3 host-clock calls ending in a synchronize.  The
-card's name and power limit head the output.
+card's name and power limit head the output.  Each float32 kernel's
+output at those shapes is printed as a digest of its bytes (``out``): B1
+and B1's bf16 form (60k), B2, B3's step, B4 over the CSR head + tail, B5
+over both row layouts, B1 at 1.3M, and B6 through the ``[project]`` run's
+y digest; two trees whose digests match give the same bits.
 """
 
 import argparse
@@ -44,6 +48,14 @@ def parse():
     ap.add_argument("--root", default=HERE,
                     help="tree to import tsne_flink_tpu_torch from")
     return ap.parse_args()
+
+
+def digest(*ts):
+    """The first 16 hex digits of the sha256 of tensors' bytes."""
+    h = hashlib.sha256()
+    for t in ts:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def spread(ms):
@@ -105,8 +117,17 @@ def csr_step(cs, att, y, csr):
             "B3 head alone": lambda: att.fused_step_update(
                 y, y, hidx, hval, 1.0, tail, repz, None, upd, gains, 0.8,
                 **kw)}
-    for fn in fns.values():
-        fn()
+    for name, fn in fns.items():
+        out = fn()
+        if name.startswith("B3 one launch, index") or name.startswith("B5"):
+            print(f"[regress] CSR step at [full]'s final y: {name} out "
+                  f"{digest(*out)}")
+    loss = att.attraction_loss(y, y, hidx, hval, 1.0, z, ragged=rag) if (
+        "ragged" in inspect.signature(att.attraction_loss).parameters) \
+        else None
+    if loss is not None:
+        print(f"[regress] B4 at [full]'s final y over the head + tail: out "
+              f"{digest(loss)}")
     times = {name: [] for name in fns}
     for _ in range(3):
         for name in [*fns, *reversed(fns)]:
@@ -134,11 +155,11 @@ def main():
     print(f"[tree] {root}")
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    def b1(x, k):
-        knn_sweep_cuda(x, k, False)
-        ms = [cs.cuda_ms(lambda: knn_sweep_cuda(x, k, False), 1, 0)
-              for _ in range(3)]
-        return spread(ms)
+    def b1(x, k, *operands):
+        out = knn_sweep_cuda(x, k, False, *operands)
+        ms = [cs.cuda_ms(lambda: knn_sweep_cuda(x, k, False, *operands), 1,
+                         0) for _ in range(3)]
+        return f"{spread(ms)}; out {digest(*out)}"
 
     x_np, _ = cs.make_data()
     cfg = TsneConfig(perplexity=30.0, iterations=300, repulsion="exact",
@@ -149,10 +170,12 @@ def main():
           knn_method="project")
     x = torch.from_numpy(x_np).cuda()
     print(f"[regress] B1 60000x784 k=90: {b1(x, 90)}")
+    print(f"[regress] B1 bf16 form 60000x784 k=90: "
+          f"{b1(x, 90, torch.bfloat16)}")
     y = cs.embedding_like(x.shape[0], 1)
     print(f"[regress] B2 60000x2: "
           f"{cs.cuda_ms(lambda: cuda_exact_repulsion(y, row_z=True), 20):.4f}"
-          f" ms")
+          f" ms; out {digest(*cuda_exact_repulsion(y, row_z=True))}")
     prep = prepare(x_np, neighbors=90, perplexity=30.0)
     plan = []
     for _ in range(3):
@@ -169,14 +192,14 @@ def main():
     print(f"[regress] B5 60000 x W={ji.shape[1]} (blobs rows, "
           f"{float((jv > 0).float().mean()):.3f} filled): "
           f"{cs.cuda_ms(lambda: att.attraction_forces(y, y, ji, jv, 1.0), 50):.4f}"
-          f" ms")
+          f" ms; out {digest(att.attraction_forces(y, y, ji, jv, 1.0))}")
     del x, prep, csr, ji, jv
     xl_np, _, _ = cs.make_latent_blobs()
     prep = prepare(xl_np, neighbors=90, perplexity=30.0)
     ji, jv = prep.jidx, prep.jval
     print(f"[regress] B5 60000 x W={ji.shape[1]} (latent-blobs rows): "
           f"{cs.cuda_ms(lambda: att.attraction_forces(y, y, ji, jv, 1.0), 50):.4f}"
-          f" ms")
+          f" ms; out {digest(att.attraction_forces(y, y, ji, jv, 1.0))}")
     del prep, ji, jv, y
     xc_np, _, _ = cs.make_cells()
     xc = torch.from_numpy(xc_np).cuda()

@@ -60,6 +60,8 @@ def main() -> int:
         data["latent"] = cs.make_latent_blobs()[0]
     if "cells" in need:
         data["cells"] = cs.make_cells()[0]
+    if "blobs64" in need:
+        data["blobs64"] = cs.make_data()[0].astype(cs.np.float64)
     for tag in tags:
         rec = {}
         reals = []

@@ -41,7 +41,14 @@ on the test mesh equal to the single sweep bit for bit, B6 with
 ``n_valid`` against its plain version, and a shard of two gloo processes
 on the one card equal to the mesh-1 rows; B1's bf16-operand form against
 its plain version (float64), its ring and a shard equal to its single
-sweep bit for bit, and float64 refused on the card.
+sweep bit for bit; and the float64 forms: B1_f64 against its plain
+version (within 1e-12 of |d| + ‖a‖² + ‖b‖², ids equal outside ties; exact
+ties bit for bit), its ring and a shard equal to its single sweep bit for
+bit, B2_f64-B5_f64 at every m against their plain versions (rtol 1e-12,
+gains equal), B3_f64's one launch the unfused float64 step bit for bit,
+mesh 2 equal to mesh 1 at float64, float64 through the estimator (with
+transform), the CLI and a fleet job on the card, and float64 with a
+refining kNN plan refused before the kNN stage.
 """
 
 import numpy as np
@@ -641,8 +648,12 @@ def test_launches_count_kernel_launches_only(dev):
     cuda_exact_repulsion(y)
     cuda_exact_repulsion(y.cpu())  # the plain version: not a launch
     assert KERNELS["B2"].launches == before + 1
+    before64 = KERNELS["B2_f64"].launches
+    cuda_exact_repulsion(y.double())  # float64: its own form, counted so
+    assert KERNELS["B2"].launches == before + 1
+    assert KERNELS["B2_f64"].launches == before64 + 1
     with pytest.raises(TypeError):
-        cuda_exact_repulsion(y.double())  # no fallback on a CUDA tensor
+        cuda_exact_repulsion(y.half())  # no fallback on a CUDA tensor
 
 
 def _refine_problem(dev, n, f, k, c, seed, lattice=False):
@@ -886,8 +897,8 @@ def _coo_file(path, x):
 
 def test_cli_fat_resume_on_the_card(dev, tmp_path):
     """The CLI on the card: a fat-checkpoint resume launches no kNN kernel
-    and gives the uninterrupted run's bytes; float64 is refused on the
-    card before the input is read."""
+    and gives the uninterrupted run's bytes; float64 on a refining kNN
+    plan is refused on the card before the kNN stage, nothing launched."""
     from tsne_flink_tpu_torch.kernels.build import launches
     from tsne_flink_tpu_torch.utils.cli import main
     rng = np.random.default_rng(6)
@@ -910,9 +921,12 @@ def test_cli_fat_resume_on_the_card(dev, tmp_path):
     assert counts["B1"] == 0 and counts["B6"] == 0 and counts["B2"] == 20
     assert ((tmp_path / "r.csv").read_bytes()
             == (tmp_path / "u.csv").read_bytes())
+    reset_launches()
     with pytest.raises(NotImplementedError, match="float64"):
-        main(argv("d.csv", "--dtype", "float64") + ["--input",
-                                                    "missing.csv"])
+        main(argv("d.csv", "--dtype", "float64", "--knnMethod", "project",
+                  "--knnRefine", "2"))
+    assert not any(launches().values())
+    assert not (tmp_path / "d.csv").exists()
 
 
 def test_cache_warm_hit_on_the_card(dev, tmp_path):
@@ -1553,14 +1567,310 @@ def test_knn_bf16_cross_equals_single_and_a_shard_the_mesh_1_rows(dev):
     assert torch.equal(sd, want_d[1000:2000])
 
 
-def test_float64_is_refused_on_the_card(dev, tmp_path):
-    """float64 stays a CPU-only dtype (ROADMAP §C): the estimator and the
-    CLI refuse it on the card before the input is touched."""
+# ---- the float64 forms of B1-B5 ---------------------------------------------
+
+def _f64(*ts):
+    """float64 copies of the float tensors among ``ts`` (others as they
+    are; None stays None)."""
+    return tuple(t.double() if t is not None and t.is_floating_point()
+                 else t for t in ts)
+
+
+def _b1_f64_gate(x, k, metric):
+    """B1's float64 form against its plain version on the same float64
+    points: each distance within 1e-12 of |d| + ‖a‖² + ‖b‖², ids equal
+    outside ties (within that tolerance of a neighbour's distance)."""
+    cos = metric == "cosine"
+    base = cosine_zbase(x) if cos else x
+    ik, dk = _fused_final(*knn_sweep_cuda(base, k, cos), "sqeuclidean")
+    n = base.shape[0]
+    kk = min(k + 1, n - 1)
+    dp, ip = knn_sweep_plain(base, kk, cos)
+    nrm = torch.sum(base * base, dim=1)
+    scale = dp.abs() + nrm[:, None] + torch.gather(
+        nrm, 0, ip.long().reshape(-1)).reshape(ip.shape)
+    tol = 1e-12 * scale
+    assert dk.dtype == torch.float64
+    assert bool(((dk - dp[:, :k]).abs() <= tol[:, :k]).all())
+    gap = dp[:, 1:] - dp[:, :-1]
+    tied = torch.zeros_like(ik, dtype=torch.bool)
+    tied[:, :gap.shape[1]] |= gap[:, :k] <= tol[:, :gap.shape[1]]
+    tied[:, 1:] |= gap[:, :k - 1] <= tol[:, 1:k]
+    assert bool(((ik.long() == ip[:, :k].long()) | tied).all())
+    return ik, dk
+
+
+@pytest.mark.parametrize("data,n,f,k,metric", [
+    ("blobs", 3001, 784, 90, "sqeuclidean"),
+    ("cells", 4096, 50, 150, "sqeuclidean"),
+    ("blobs", 2000, 784, 300, "sqeuclidean"),   # the k <= 1,024 registers
+    ("blobs", 1500, 784, K_MAX, "sqeuclidean"),
+    ("blobs", 1111, 100, 33, "euclidean"),     # N, F off every tile edge
+    ("blobs", 2000, 784, 90, "cosine"),
+    ("cells", 300, 16, 299, "sqeuclidean"),    # k = N - 1
+])
+def test_knn_f64_matches_plain(dev, data, n, f, k, metric):
+    """B1_f64 against its plain version at float64, one launch a sweep
+    under its own name (none under the float32 forms'), two launches bit
+    for bit."""
+    src = (_cells if data == "cells" else _blobs)(n, f, k)
+    x = torch.from_numpy(src.astype(np.float64)).to(dev)
+    before = {name: KERNELS[name].launches for name in
+              ("B1", "B1_bf16", "B1_f64")}
+    ik, dk = _b1_f64_gate(x, k, metric)
+    again = knn_sweep_cuda(x, k, False) if metric != "cosine" else None
+    got = {name: KERNELS[name].launches - before[name] for name in before}
+    assert got == {"B1": 0, "B1_bf16": 0,
+                   "B1_f64": 1 if again is None else 2}
+    if again is not None:
+        raw = knn_sweep_cuda(x, k, False)
+        assert torch.equal(raw[0], again[0]) and torch.equal(raw[1],
+                                                             again[1])
+
+
+@pytest.mark.parametrize("n,f,k", [(5, 3, 4), (70, 16, 9), (200, 50, 90),
+                                   (1000, 33, 17)])
+def test_knn_f64_exact_ties_match_plain(dev, n, f, k):
+    """Small-integer points: every distance is exact in float64, so the
+    float64 form and its plain version agree bit for bit, ties broken by
+    the lowest column."""
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.integers(0, 3, (n, f)).astype(np.float64))
+    x = x.to(dev)
+    ik, dk = _fused_final(*knn_sweep_cuda(x, k, False), "sqeuclidean")
+    ip, dp = _fused_final(*knn_sweep_plain(x, k, False), "sqeuclidean")
+    assert torch.equal(dk, dp) and torch.equal(ik, ip)
+
+
+def test_knn_f64_ring_and_a_shard_equal_the_single_sweep(dev):
+    """The float64 ring at D = 2 and 4 on the test mesh gives the float64
+    single sweep's graph bit for bit (one K-loop order for both sweeps),
+    D launches a shard of B1_f64, and a shard's cross sweep against every
+    column gives the mesh-1 rows bit for bit."""
+    from tsne_flink_tpu_torch.ops.knn_cuda import fused_knn, knn_cross
+    x = torch.from_numpy(_blobs(3001, 784, 3).astype(np.float64)).to(dev)
+    want_i, want_d = fused_knn(x, 30)
+    for d in (2, 4):
+        before = KERNELS["B1_f64"].launches
+        gi, gd = _ring_on_the_card(x, d, 30, "sqeuclidean")
+        assert KERNELS["B1_f64"].launches == before + d * d
+        assert torch.equal(gi, want_i) and torch.equal(gd, want_d)
+    rows = x[1000:2000].contiguous()
+    si, sd = knn_cross(rows, x, 30, False, 1000, 0, 3001)
+    assert torch.equal(si, want_i[1000:2000])
+    assert torch.equal(sd, want_d[1000:2000])
+
+
+def test_knn_f64_refuses_mixed_operands(dev):
+    x = torch.from_numpy(_blobs(500, 64, 1).astype(np.float64)).to(dev)
+    with pytest.raises(TypeError, match="float64"):
+        knn_sweep_cuda(x, 10, False, torch.bfloat16)
+    from tsne_flink_tpu_torch.ops.knn_cuda import knn_cross_cuda
+    with pytest.raises(TypeError, match="one dtype"):
+        knn_cross_cuda(x, x.float(), 10, False, 0, 0, 500)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_repulsion_f64_matches_plain(dev, m):
+    """B2_f64 against its plain version at rtol 1e-12 (of each value plus
+    the largest: a sum over N columns cancels), at N off every block and
+    split edge, on shards with a validity mask and on serving rows past
+    the base; two launches bit for bit; B2 (float32) not launched."""
+    rng = np.random.default_rng(m)
+    y = torch.from_numpy(rng.standard_normal((20_011, m)) * 20.0).to(dev)
+    before = (KERNELS["B2"].launches, KERNELS["B2_f64"].launches)
+    rk, zk = cuda_exact_repulsion(y, row_z=True)
+    rp, zp = exact_repulsion(y, row_z=True)
+    assert rk.dtype == torch.float64
+    _close_scaled(rk, rp, 1e-12)
+    _close_scaled(zk, zp, 1e-12)
+    again = cuda_exact_repulsion(y, row_z=True)
+    assert torch.equal(again[0], rk) and torch.equal(again[1], zk)
+    assert (KERNELS["B2"].launches, KERNELS["B2_f64"].launches) == (
+        before[0], before[1] + 2)
+    valid = torch.arange(20_011, device=dev) < 19_000
+    for off in (0, 7001):
+        shard = y[off:off + 4000].contiguous()
+        rk, zk = cuda_exact_repulsion(shard, y, row_offset=off,
+                                      col_valid=valid, row_z=True)
+        rp, zp = exact_repulsion(shard, y, row_offset=off, col_valid=valid,
+                                 row_z=True)
+        _close_scaled(rk, rp, 1e-12)
+        _close_scaled(zk, zp, 1e-12)
+    yq = y[:256] + 0.5
+    rk, zk = cuda_exact_repulsion(yq, y, row_offset=20_011, row_z=True)
+    rp, zp = exact_repulsion(yq, y, row_offset=20_011, row_z=True)
+    _close_scaled(rk, rp, 1e-12)
+    _close_scaled(zk, zp, 1e-12)
+
+
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 6, 7, 8])
+def test_attraction_f64_matches_plain(dev, m):
+    """B3_f64 over a head block and a ragged tail (a hub row, an empty
+    row, padding) with a mask against its plain version (gains exactly
+    equal; y, update, ‖grad‖² rtol 1e-12), B4_f64 and B5_f64 over the
+    head and the ragged part (rtol 1e-12 of each plus the largest), and
+    only the float64 forms launched."""
+    y, hidx, hval, rag = _ragged_problem(dev, 300, 40, m, 50 + m)
+    y, hval = _f64(y, hval)
+    rag = att.Ragged(rag.rowptr, rag.src, rag.dst, rag.val.double())
+    n = y.shape[0]
+    rng = np.random.default_rng(m)
+    rep = torch.from_numpy(0.1 * rng.standard_normal((n, m))).to(dev)
+    z = torch.tensor(123.0, dtype=torch.float64, device=dev)
+    upd = torch.from_numpy(1e-2 * rng.standard_normal((n, m))).to(dev)
+    gains = torch.from_numpy(1.0 + rng.random((n, m))).to(dev)
+    valid = torch.arange(n, device=dev) < n - 7
+    args = (y, y, hidx, hval, 4.0, rep, z, valid, upd, gains, 0.5)
+    kw = dict(eta=200.0, min_gain=0.01, ragged=rag)
+    reset_launches()
+    ok = att.fused_step_update(*args, **kw)
+    op = att.fused_step_plain(*args, **kw)
+    assert torch.equal(ok[2], op[2])
+    for a, b in zip((ok[0], ok[1], ok[3]), (op[0], op[1], op[3])):
+        assert a.dtype == torch.float64
+        _close_scaled(a, b, 1e-12)
+    for blk in ((hidx, hval), (None, None)):
+        fk = att.attraction_forces(y, y, *blk, 4.0, ragged=rag)
+        fp = att.attraction_forces_plain(y, y, *blk, 4.0, ragged=rag)
+        _close_scaled(fk, fp, 1e-12)
+        lk = att.attraction_loss(y, y, *blk, 4.0, z, ragged=rag)
+        lp = att.attraction_loss_plain(y, y, *blk, 4.0, z, ragged=rag)
+        _close_scaled(lk, lp, 1e-12)
+    from tsne_flink_tpu_torch.kernels.build import launches
+    got = {k: v for k, v in launches().items() if v}
+    assert got == {"B3_f64": 1, "B4_f64": 2, "B5_f64": 2}
+
+
+@pytest.mark.parametrize("m", [1, 2, 5, 8])
+@pytest.mark.parametrize("masked", [False, True])
+def test_one_launch_f64_equals_the_unfused_step_bit_for_bit(dev, m, masked):
+    """B3_f64's one launch over a CSR head and tail against B5_f64 over
+    head + tail, att − rep/Z and the vdM update in PyTorch at float64:
+    the same bits, with a head block and without (W = 0)."""
+    y, hidx, hval, rag = _ragged_problem(dev, 700, 48, m, 70 + m)
+    y, hval = _f64(y, hval)
+    rag = att.Ragged(rag.rowptr, rag.src, rag.dst, rag.val.double())
+    n = y.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(m)
+    rep = 1e-1 * torch.randn(y.shape, device=dev, dtype=torch.float64,
+                             generator=gen)
+    z = torch.tensor(1.0 + 0.37 * m, dtype=torch.float64, device=dev)
+    upd = 1e-2 * torch.randn(y.shape, device=dev, dtype=torch.float64,
+                             generator=gen)
+    gains = 1.0 + torch.rand(y.shape, device=dev, dtype=torch.float64,
+                             generator=gen)
+    valid = (torch.arange(n, device=dev) % 9 != 4) if masked else None
+    for blk in ((hidx, hval), (None, None)):
+        got = att.fused_step_update(y, y, *blk, 4.0, rep, z, valid, upd,
+                                    gains, 0.5, eta=200.0, min_gain=0.01,
+                                    ragged=rag)
+        forces = att.attraction_forces(y, y, *blk, 4.0, ragged=rag)
+        want = _unfused_step(y, forces, rep, z, upd, gains, 0.5, 200.0,
+                             valid)
+        for a, b in zip(got[:3], want):
+            assert torch.equal(a, b)
+
+
+def test_attraction_f64_refuses_mixed_dtypes(dev):
+    y, hidx, hval, _ = _ragged_problem(dev, 100, 8, 2, 1)
+    with pytest.raises(ValueError, match="B5 kernel"):
+        att.attraction_forces(y.double(), y.double(), hidx, hval, 4.0)
+    with pytest.raises(TypeError, match="one dtype"):
+        cuda_exact_repulsion(y.double(), y)
+
+
+def _f64_blobs(dev, n=3001, d=16, seed=0):
+    rng = np.random.default_rng(seed)
+    centers = rng.normal(0.0, 10.0, (12, d))
+    return (centers[rng.integers(0, 12, n)]
+            + rng.normal(0.0, 0.5, (n, d))), rng.integers(0, 12, n)
+
+
+def test_mesh_f64_equals_mesh_1(dev):
+    """The sharded optimizer at float64 with 2 shards on the card (the
+    test mesh) gives mesh 1's bits on the CSR and rows layouts, each
+    shard launching the float64 forms."""
+    from tsne_flink_tpu_torch.kernels.build import launches
+    from tsne_flink_tpu_torch.models.tsne import TsneConfig, init_working_set
+    from tsne_flink_tpu_torch.parallel.mesh import ShardedOptimizer
+    from tsne_flink_tpu_torch.utils.artifacts import prepare
+    x = torch.from_numpy(_f64_blobs(dev)[0]).to(dev)
+    for attraction in ("csr", "rows"):
+        prep = prepare(x, neighbors=30, knn_method="bruteforce",
+                       perplexity=10.0, device=dev)
+        assert prep.jval.dtype == torch.float64
+        cfg = TsneConfig(perplexity=10.0, iterations=60,
+                         attraction=attraction)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        st0 = init_working_set(gen, 3001, 2, torch.float64, dev)
+        outs = {}
+        for d in (1, 2):
+            reset_launches()
+            st, losses = ShardedOptimizer(cfg, 3001, devices=[dev] * d)(
+                st0, prep.jidx, prep.jval, extra_edges=prep.extra_edges)
+            got = launches()
+            outs[d] = (st.y.cpu().numpy(), losses.cpu().numpy())
+            assert got["B2_f64"] == 60 * d and got["B4_f64"] == 6 * d
+            assert got["B2"] == got["B3"] == got["B4"] == got["B5"] == 0
+        np.testing.assert_array_equal(outs[2][0], outs[1][0])
+        np.testing.assert_array_equal(outs[2][1], outs[1][1])
+
+
+def test_float64_runs_on_the_card(dev, tmp_path):
+    """float64 runs on the card through B1-B5's float64 forms: the
+    estimator's fit (only the float64 forms launched) and its
+    transform() on a float64 frozen model, the CLI's bruteforce line, and
+    a fleet job spec with x64."""
     from tsne_flink_tpu_torch import TSNE
+    from tsne_flink_tpu_torch.kernels.build import launches
+    from tsne_flink_tpu_torch.runtime.fleet import JobSpec, run_job
     from tsne_flink_tpu_torch.utils import cli as tcli
-    with pytest.raises(NotImplementedError, match="§C"):
-        TSNE(dtype="float64").fit(np.zeros((10, 3)))
-    with pytest.raises(NotImplementedError, match="§C"):
-        tcli.main(["--input", str(tmp_path / "missing.csv"), "--output",
-                   str(tmp_path / "o.csv"), "--dimension", "3",
-                   "--knnMethod", "bruteforce", "--dtype", "float64"])
+    x, _ = _f64_blobs(dev, n=1500)
+    reset_launches()
+    est = TSNE(dtype="float64", knn_method="bruteforce", perplexity=10.0,
+               n_iter=60, random_state=0).fit(x)
+    got = {k: v for k, v in launches().items() if v}
+    assert set(got) <= {"B1_f64", "B2_f64", "B3_f64", "B4_f64", "B5_f64"}
+    assert got["B1_f64"] == 1 and got["B2_f64"] == 60
+    assert got.get("B3_f64", 0) + got.get("B5_f64", 0) == 60
+    assert est.embedding_.dtype == np.float64
+    assert np.isfinite(est.kl_divergence_)
+    assert est.frozen_model().x.dtype == torch.float64
+    q = est.transform(x[:40] + 0.01)
+    assert q.shape == (40, 2) and np.isfinite(q).all()
+    path = tmp_path / "in.csv"
+    with open(path, "w") as fh:
+        for i in range(600):
+            for j in range(x.shape[1]):
+                fh.write(f"{i},{j},{float(x[i, j])!r}\n")
+    reset_launches()
+    assert tcli.main(["--input", str(path), "--output",
+                      str(tmp_path / "o.csv"), "--dimension", "16",
+                      "--knnMethod", "bruteforce", "--perplexity", "8",
+                      "--iterations", "50", "--dtype", "float64",
+                      "--noCache"]) == 0
+    assert launches()["B1_f64"] == 1 and launches()["B1"] == 0
+    np.save(tmp_path / "x.npy", x[:800])
+    reset_launches()
+    rec = run_job(JobSpec(name="f64", input=str(tmp_path / "x.npy"),
+                          iterations=40, perplexity=8, x64=True))
+    assert rec["status"] == "ok", rec
+    assert launches()["B2_f64"] == 40 and launches()["B2"] == 0
+
+
+def test_float64_project_is_refused_on_the_card(dev, tmp_path):
+    """A float64 run on the card whose kNN plan refines is refused before
+    the kNN stage, naming §C and B6: no kernel launches."""
+    from tsne_flink_tpu_torch import TSNE
+    from tsne_flink_tpu_torch.kernels.build import launches
+    from tsne_flink_tpu_torch.utils.artifacts import prepare
+    x = torch.from_numpy(_f64_blobs(dev, n=9000)[0]).to(dev)
+    reset_launches()
+    with pytest.raises(NotImplementedError, match="B6.*§C"):
+        prepare(x, neighbors=30, knn_method="project", perplexity=10.0,
+                device=dev)
+    with pytest.raises(NotImplementedError, match="B6"):
+        TSNE(dtype="float64", knn_method="project", perplexity=10.0,
+             n_iter=10).fit(x.cpu().numpy())
+    assert not any(launches().values())

@@ -8,8 +8,9 @@ the dtype-contract auditor holds it to (the ``audit-contract`` lint rule
 enumerates them):
 
 * ``out`` — the dtypes of the op's flattened tensor outputs when fed the
-  registry's representative float32 inputs (the deployment case: the
-  kernels are float32; float64 runs are the CPU's reference);
+  registry's representative float32 inputs (the deployment case; the
+  kernels' float64 forms keep a float64 run in float64, as the CPU's
+  plain versions do);
 * ``make(device)`` — ``(fn, args)``: a call of the op on tiny seeded
   inputs on ``device``;
 * ``matmul_dim`` — when set, the op's distance or projection products

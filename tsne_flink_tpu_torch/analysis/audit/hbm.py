@@ -332,8 +332,10 @@ def _transform_stage(plan: PlanConfig) -> dict:
 
 def _port_knn(plan: PlanConfig, terms: dict) -> None:
     """B1's wrapper sums each row's squared norm in float64
-    (``ops/knn_cuda.norm_pairs``: a float64 copy of x and its square),
-    and B1 streams column tiles through shared memory (no [c, N] tile).
+    (``ops/knn_cuda.norm_pairs``: a float64 copy of x and its square; at
+    float64 ``norms_f64``'s one product, no (hi, lo) pairs and no copy),
+    and B1 streams column tiles through shared memory (no [c, N] tile;
+    its float64 form keeps the k-lists in its [N, k] outputs).
     A Z-order round (``ops/knn._project_round``) batches ``g`` band
     blocks (``ops/knn_tiles.project_block_group``) into one product: the
     gathered rows and band columns beside ``pairwise``'s four [g, b, band]
@@ -359,7 +361,8 @@ def _port_knn(plan: PlanConfig, terms: dict) -> None:
     x, graph = terms["input"], terms["graph"]
     bf16 = plan.matmul_dtype == "bfloat16"
     if "exact_tile" in terms and plan.backend == "cuda":
-        terms["b1_norms"] = 2.0 * n * d * 8
+        terms["b1_norms"] = (1.0 if plan.dtype == "float64" else 2.0) * (
+            n * d * 8)
         terms["exact_tile"] = 0.0
         terms["peak"] = x + graph + terms["b1_norms"]
         if bf16:
@@ -435,23 +438,25 @@ def _port_affinity(plan: PlanConfig, terms: dict) -> None:
     ids, the hit mask, the gathered p and the select (9 B per [chunk, k,
     k] element); ``_split_edge_parts`` sorts the forward edges holding the
     present/emit masks, the merged values, the int64 targets, the int32
-    sources, the values, the sorted targets and the int64 order (38 B an
-    edge, plus the card's sort scratch); the split rows build [N, S]
-    planes from the parts (21 B an edge): int64 positions and their clamp,
-    the valid mask, the two gathered planes, the concatenated jidx and
-    jval, the validity mask, and the normalization's clamp and select
-    (42 B a slot)."""
+    sources, the values, the sorted targets and the int64 order (30 B an
+    edge and two values: 38 B at float32; plus the card's sort scratch);
+    the split rows build [N, S] planes from the parts (21 B an edge):
+    int64 positions and their clamp, the valid mask, the two gathered
+    planes, the concatenated jidx and jval, the validity mask, and the
+    normalization's clamp and select (26 B a slot and four values: 42 B
+    at float32)."""
     n, k, isz = plan.n, plan.k, plan.itemsize
     e = float(n * k)
     base = terms["input"] + terms["graph"] + terms["p_cond"]
     kk_chunk = min(n * k * k, 2 ** 27)
     terms["reverse_merge_gather"] = kk_chunk * 9.0 + e * (8.0 + isz)
-    terms["edge_parts"] = e * 38.0 + sort_scratch_bytes(1, n * k, 8,
-                                                        plan.backend)
+    terms["edge_parts"] = e * (30.0 + 2.0 * isz) + sort_scratch_bytes(
+        1, n * k, 8, plan.backend)
     live = max(terms["reverse_merge_gather"],
                e * isz + terms["edge_parts"])
     if terms["assembly"] in ("split-rows", "split"):
-        terms["row_planes"] = e * 21.0 + n * plan.sym_width_est() * 42.0
+        terms["row_planes"] = e * 21.0 + n * plan.sym_width_est() * (
+            26.0 + 4.0 * isz)
         live = max(live, e * isz + terms["row_planes"])
     terms["peak"] = max(terms["peak"], base + live)
 

@@ -23,7 +23,9 @@ Dispatch modes are per thread, so a :class:`Recorder` also registers a
 shard context with ``parallel/mesh.SHARD_CONTEXTS``: each shard thread of
 the thread mesh enters the recorder itself, and its events carry its
 shard index.  On the CPU the kernels' wrappers run their plain versions;
-an aten op issued inside one carries ``plain_of`` (the kernel id), so an
+an aten op issued inside one carries ``plain_of`` (the kernel id: the
+float64 form's, ``B1_f64`` .. ``B5_f64``, when the plain version's first
+argument is a float64 tensor, as the wrappers choose on the card), so an
 op list names the kernel steps on either device.
 """
 
@@ -39,6 +41,8 @@ PLAIN_OF = {
     "attraction_loss_plain": "B4", "attraction_forces_plain": "B5",
     "refine_keep_plain": "B6", "refine_final_plain": "B6",
 }
+#: the kernels with a float64 form (``kernels/build.KERNELS[id + "_f64"]``)
+F64_FORMS = ("B1", "B2", "B3", "B4", "B5")
 
 #: aten matrix products -> the position of the input whose last axis is
 #: the contraction
@@ -58,13 +62,29 @@ _ACCUMULATE_ARG = {"aten.index_put": 3, "aten.index_put_": 3,
                    "aten.put": 3}
 
 
-def _frames(limit: int = 12) -> tuple[list, int | None]:
+def _plain_form(f) -> str:
+    """The kernel id a plain version's frame stands in for: its float64
+    form's when the frame's first argument is a float64 tensor."""
+    import torch
+    kid = PLAIN_OF[f.f_code.co_name]
+    code = f.f_code
+    first = f.f_locals.get(code.co_varnames[0]) if code.co_argcount else None
+    if (kid in F64_FORMS and isinstance(first, torch.Tensor)
+            and first.dtype == torch.float64):
+        return kid + "_f64"
+    return kid
+
+
+def _frames(limit: int = 12) -> tuple[list, int | None, str | None]:
     """(the port's frames innermost first as (path, line, function), the
-    optimize loop's iteration ``i`` when a frame is in it)."""
-    out, it = [], None
+    optimize loop's iteration ``i`` when a frame is in it, the kernel id
+    of the innermost plain version on the stack or None)."""
+    out, it, plain = [], None, None
     f = sys._getframe(2)
     while f is not None and len(out) < limit:
         path = f.f_code.co_filename.replace("\\", "/")
+        if plain is None and f.f_code.co_name in PLAIN_OF and _PKG in path:
+            plain = _plain_form(f)
         if _PKG in path:
             rel = _PKG + path.split(_PKG, 1)[1]
             plumbing = (rel.endswith("parallel/mesh.py")
@@ -79,7 +99,7 @@ def _frames(limit: int = 12) -> tuple[list, int | None]:
             out.append(("tests/" + path.split("/tests/", 1)[1], f.f_lineno,
                         f.f_code.co_name))
         f = f.f_back
-    return out, it
+    return out, it, plain
 
 
 def _bf16_valued(t) -> bool:
@@ -122,12 +142,10 @@ class Recorder:
 
     def _add(self, ev: dict) -> None:
         ev["shard"] = getattr(self._tls, "shard", None)
-        frames, it = _frames()
+        frames, it, plain = _frames()
         ev["frames"] = frames
         ev["site"] = frames[0] if frames else None
         ev["iteration"] = it
-        plain = next((PLAIN_OF[fn] for _, _, fn in frames
-                      if fn in PLAIN_OF), None)
         if plain is not None and ev["kind"] == "aten":
             ev["plain_of"] = plain
         with self._lock:

@@ -452,12 +452,23 @@ def _has_float_literal(node) -> bool:
 #: the operand policy module: its ``matmul_operands`` is the one blessed
 #: bf16 cast, and it alone names the bf16 dtype
 OPERAND_POLICY_SUFFIX = "ops/metrics.py"
+#: the policy module's one function that may name float64: the test the
+#: kernel wrappers dispatch their float64 forms on
+FLOAT64_POLICY_FN = "kernel_float64"
+
+
+def _fn_lines(tree, name: str) -> set[int]:
+    """The source lines of the top-level function ``name`` in ``tree``."""
+    for node in tree.body:
+        if isinstance(node, ast.FunctionDef) and node.name == name:
+            return set(range(node.lineno, node.end_lineno + 1))
+    return set()
 
 
 @rule("dtype-drift",
-      "torch.float64, .double() and dtype-less torch.tensor of float "
-      "literals in ops/ (the kernels' contract is float32), and bf16 "
-      "outside ops/metrics.matmul_operands")
+      "torch.float64 (outside ops/metrics.kernel_float64), .double() and "
+      "dtype-less torch.tensor of float literals in ops/ (a run computes "
+      "in its own dtype), and bf16 outside ops/metrics.matmul_operands")
 def dtype_drift(project: Project):
     findings = []
     for mod in project.modules:
@@ -465,6 +476,8 @@ def dtype_drift(project: Project):
             continue
         torch_names = _torch_aliases(mod.tree)
         policy = _norm(mod).endswith(OPERAND_POLICY_SUFFIX)
+        blessed = (_fn_lines(mod.tree, FLOAT64_POLICY_FN) if policy
+                   else set())
         for node in ast.walk(mod.tree):
             if (not policy and isinstance(node, ast.Attribute)
                     and node.attr == "bfloat16"
@@ -476,7 +489,8 @@ def dtype_drift(project: Project):
                     "matmul_dtype= to the product"))
             if (isinstance(node, ast.Attribute)
                     and node.attr in ("float64", "double")
-                    and _is_name_in(node.value, torch_names)):
+                    and _is_name_in(node.value, torch_names)
+                    and node.lineno not in blessed):
                 findings.append(mod.finding(
                     "dtype-drift", node,
                     f"torch.{node.attr} in ops/: a float64 value in a "

@@ -69,6 +69,13 @@
 // (no host round trip); B4 writes per-row partials only, their sum a
 // fixed-order torch.sum outside.  No kernel here uses atomics.  Every m
 // from 1 to 8 (the JAX package's MPAD) is a template instance.
+//
+// The float64 forms (B3_f64, B4_f64, B5_f64: the C entries ending in _f64)
+// are the same templates over the scalar type: tsne::Num<double> gives
+// each separately rounded operation its __d*_rn counterpart (the
+// reciprocal __drcp_rn, rep/Z __ddiv_rn), and the gathers load 16-byte
+// double2 vectors where m is even.  What bounds them is still bytes, with
+// 8-byte values and planes.
 #include "common.cuh"
 
 namespace {
@@ -81,29 +88,42 @@ constexpr int ROWS_PER_BLOCK = THREADS / 32;
 template <int M>
 __host__ __device__ constexpr int batch_for() { return M <= 4 ? 4 : 2; }
 
-template <int M>
-__device__ __forceinline__ void load_row(const float* __restrict__ y_loc,
-                                         int i, float (&yc)[M], float& rr) {
-  rr = 0.f;
+template <class T, int M>
+__device__ __forceinline__ void load_row(const T* __restrict__ y_loc, int i,
+                                         T (&yc)[M], T& rr) {
+  using N = tsne::Num<T>;
+  rr = T(0);
 #pragma unroll
   for (int d = 0; d < M; ++d) {
     yc[d] = y_loc[(size_t)i * M + d];
-    rr = __fadd_rn(rr, __fmul_rn(yc[d], yc[d]));
+    rr = N::add(rr, N::mul(yc[d], yc[d]));
   }
 }
 
 // y_full[j] into p when `take`, else zeros: one load for m = 1, 2 and 4,
 // two for m = 8, 16-byte or 8-byte vectors where m allows (y_full's rows
-// are then aligned: the wrapper checks the base)
-template <int M>
-__device__ __forceinline__ void gather(bool take,
-                                       const float* __restrict__ y_full,
-                                       int j, float (&p)[M]) {
+// are then aligned: the wrapper checks the base); at float64 16-byte
+// double2 vectors for an even m
+template <class T, int M>
+__device__ __forceinline__ void gather(bool take, const T* __restrict__ y_full,
+                                       int j, T (&p)[M]) {
 #pragma unroll
-  for (int d = 0; d < M; ++d) p[d] = 0.f;
+  for (int d = 0; d < M; ++d) p[d] = T(0);
   if (!take) return;
-  const float* src = y_full + (size_t)j * M;
-  if constexpr (M % 4 == 0) {
+  const T* src = y_full + (size_t)j * M;
+  if constexpr (std::is_same_v<T, double>) {
+    if constexpr (M % 2 == 0) {
+#pragma unroll
+      for (int v = 0; v < M / 2; ++v) {
+        const double2 t = __ldg(reinterpret_cast<const double2*>(src) + v);
+        p[2 * v] = t.x;
+        p[2 * v + 1] = t.y;
+      }
+    } else {
+#pragma unroll
+      for (int d = 0; d < M; ++d) p[d] = __ldg(src + d);
+    }
+  } else if constexpr (M % 4 == 0) {
 #pragma unroll
     for (int v = 0; v < M / 4; ++v) {
       const float4 t = __ldg(reinterpret_cast<const float4*>(src) + v);
@@ -129,32 +149,31 @@ __device__ __forceinline__ void gather(bool take,
 // |y_j|²) − 2 y_i·y_j: every product and sum rounded on its own, in the
 // plain version's order, so d² — which cancels badly for a spread
 // embedding — carries the plain version's bits
-template <int M>
-__device__ __forceinline__ float pair_q(const float (&yc)[M], float rr,
-                                        const float (&yj)[M]) {
-  float rc = 0.f, g = 0.f;
+template <class T, int M>
+__device__ __forceinline__ T pair_q(const T (&yc)[M], T rr, const T (&yj)[M]) {
+  using N = tsne::Num<T>;
+  T rc = T(0), g = T(0);
 #pragma unroll
   for (int d = 0; d < M; ++d) {
-    rc = __fadd_rn(rc, __fmul_rn(yj[d], yj[d]));
-    g = __fadd_rn(g, __fmul_rn(yc[d], yj[d]));
+    rc = N::add(rc, N::mul(yj[d], yj[d]));
+    g = N::add(g, N::mul(yc[d], yj[d]));
   }
-  const float d2 = fmaxf(__fsub_rn(__fadd_rn(rr, rc), __fmul_rn(2.f, g)),
-                         0.f);
-  return __frcp_rn(__fadd_rn(1.f, d2));
+  const T d2 = N::max(N::sub(N::add(rr, rc), N::mul(T(2), g)), T(0));
+  return N::rcp(N::add(T(1), d2));
 }
 
 // the q = 1/(1 + Σ(y_i − y_j)²) of a ragged edge and its differences
-template <int M>
-__device__ __forceinline__ float edge_q(const float (&yc)[M],
-                                        const float (&yj)[M],
-                                        float (&diff)[M]) {
-  float d2 = 0.f;
+template <class T, int M>
+__device__ __forceinline__ T edge_q(const T (&yc)[M], const T (&yj)[M],
+                                    T (&diff)[M]) {
+  using N = tsne::Num<T>;
+  T d2 = T(0);
 #pragma unroll
   for (int d = 0; d < M; ++d) {
-    diff[d] = __fsub_rn(yc[d], yj[d]);
-    d2 = __fadd_rn(d2, __fmul_rn(diff[d], diff[d]));
+    diff[d] = N::sub(yc[d], yj[d]);
+    d2 = N::add(d2, N::mul(diff[d], diff[d]));
   }
-  return __frcp_rn(__fadd_rn(1.f, d2));
+  return N::rcp(N::add(T(1), d2));
 }
 
 // Walks row i's forward slots [0, w) of ir/vr (FWD) and its ragged edges
@@ -164,12 +183,12 @@ __device__ __forceinline__ float edge_q(const float (&yc)[M],
 // point) to fwd / rag in slot order.  A slot past a part's end has value
 // 0, like padding: its gather is skipped and the callbacks add exactly 0
 // for it.
-template <int M, bool FWD, bool RAG, class Fwd, class Rag>
-__device__ __forceinline__ void walk_row(const float* __restrict__ y_full,
+template <class T, int M, bool FWD, bool RAG, class Fwd, class Rag>
+__device__ __forceinline__ void walk_row(const T* __restrict__ y_full,
                                          const int* __restrict__ ir,
-                                         const float* __restrict__ vr, int w,
+                                         const T* __restrict__ vr, int w,
                                          const int* __restrict__ dst,
-                                         const float* __restrict__ val,
+                                         const T* __restrict__ val,
                                          long long e0, long long e1, int lane,
                                          Fwd&& fwd, Rag&& rag) {
   constexpr int U = batch_for<M>();
@@ -177,14 +196,14 @@ __device__ __forceinline__ void walk_row(const float* __restrict__ y_full,
   const long long span = FWD && w > len ? (long long)w : len;
   for (long long at = 0; at < span; at += 32 * U) {
     int fj[U], rj[U];
-    float fv[U], rv[U];
+    T fv[U], rv[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const long long c = at + lane + 32 * u;
-      if constexpr (FWD) fv[u] = c < w ? vr[c] : 0.f;
+      if constexpr (FWD) fv[u] = c < w ? vr[c] : T(0);
       if constexpr (RAG) {
         const bool in = c < len;
-        rv[u] = in ? val[e0 + c] : 0.f;
+        rv[u] = in ? val[e0 + c] : T(0);
         rj[u] = in ? dst[e0 + c] : 0;
       }
     }
@@ -195,13 +214,13 @@ __device__ __forceinline__ void walk_row(const float* __restrict__ y_full,
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       const long long c = at + lane + 32 * u;
-      if constexpr (FWD) fj[u] = fv[u] > 0.f ? ir[c] : 0;
+      if constexpr (FWD) fj[u] = fv[u] > T(0) ? ir[c] : 0;
     }
-    float fy[U][M], ry[U][M];
+    T fy[U][M], ry[U][M];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      if constexpr (FWD) gather<M>(fv[u] > 0.f, y_full, fj[u], fy[u]);
-      if constexpr (RAG) gather<M>(rv[u] > 0.f, y_full, rj[u], ry[u]);
+      if constexpr (FWD) gather<T, M>(fv[u] > T(0), y_full, fj[u], fy[u]);
+      if constexpr (RAG) gather<T, M>(rv[u] > T(0), y_full, rj[u], ry[u]);
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -213,36 +232,35 @@ __device__ __forceinline__ void walk_row(const float* __restrict__ y_full,
 
 // Row i's forces: the forward part att = y_i·Σw − Σw·y_j (w = v·exag·q)
 // and the ragged part Σ w·(y_i − y_j), the same values in every lane.
-template <int M, bool FWD, bool RAG>
+template <class T, int M, bool FWD, bool RAG>
 __device__ __forceinline__ void row_forces(
-    const float* __restrict__ y_full, const int* __restrict__ ir,
-    const float* __restrict__ vr, int w, const int* __restrict__ dst,
-    const float* __restrict__ val, long long e0, long long e1,
-    const float (&yc)[M], float rr, float exag, int lane, float (&fwd)[M],
-    float (&rag)[M]) {
-  float sw = 0.f, swy[M];
+    const T* __restrict__ y_full, const int* __restrict__ ir,
+    const T* __restrict__ vr, int w, const int* __restrict__ dst,
+    const T* __restrict__ val, long long e0, long long e1, const T (&yc)[M],
+    T rr, T exag, int lane, T (&fwd)[M], T (&rag)[M]) {
+  using N = tsne::Num<T>;
+  T sw = T(0), swy[M];
 #pragma unroll
-  for (int d = 0; d < M; ++d) swy[d] = rag[d] = 0.f;
-  walk_row<M, FWD, RAG>(
+  for (int d = 0; d < M; ++d) swy[d] = rag[d] = T(0);
+  walk_row<T, M, FWD, RAG>(
       y_full, ir, vr, w, dst, val, e0, e1, lane,
-      [&](float v, const float (&yj)[M]) {
-        const float wt = v * exag * pair_q<M>(yc, rr, yj);
+      [&](T v, const T (&yj)[M]) {
+        const T wt = v * exag * pair_q<T, M>(yc, rr, yj);
         sw += wt;
 #pragma unroll
-        for (int d = 0; d < M; ++d) swy[d] = fmaf(wt, yj[d], swy[d]);
+        for (int d = 0; d < M; ++d) swy[d] = N::fma(wt, yj[d], swy[d]);
       },
-      [&](float v, const float (&yj)[M]) {
-        float diff[M];
-        const float wt = __fmul_rn(__fmul_rn(v, exag), edge_q<M>(yc, yj, diff));
+      [&](T v, const T (&yj)[M]) {
+        T diff[M];
+        const T wt = N::mul(N::mul(v, exag), edge_q<T, M>(yc, yj, diff));
 #pragma unroll
-        for (int d = 0; d < M; ++d)
-          rag[d] = __fadd_rn(rag[d], __fmul_rn(wt, diff[d]));
+        for (int d = 0; d < M; ++d) rag[d] = N::add(rag[d], N::mul(wt, diff[d]));
       });
   if constexpr (FWD) {
     sw = tsne::warp_sum(sw);
 #pragma unroll
     for (int d = 0; d < M; ++d)
-      fwd[d] = __fsub_rn(__fmul_rn(yc[d], sw), tsne::warp_sum(swy[d]));
+      fwd[d] = N::sub(N::mul(yc[d], sw), tsne::warp_sum(swy[d]));
   }
   if constexpr (RAG) {
 #pragma unroll
@@ -251,155 +269,210 @@ __device__ __forceinline__ void row_forces(
 }
 
 // pe·log(pe·Z/q) of one slot, 0 for padding
-__device__ __forceinline__ float kl_term(float v, float exag, float z,
-                                         float q) {
-  const float pe = v * exag;
-  return v > 0.f ? pe * logf(pe * z / q) : 0.f;
+template <class T>
+__device__ __forceinline__ T kl_term(T v, T exag, T z, T q) {
+  const T pe = v * exag;
+  return v > T(0) ? pe * tsne::Num<T>::log(pe * z / q) : T(0);
 }
+
+// the vdM gain rule's constants in the scalar type
+template <class T>
+struct Gain;
+template <>
+struct Gain<float> {
+  static constexpr float down = 0.8f, up = 0.2f;
+};
+template <>
+struct Gain<double> {
+  static constexpr double down = 0.8, up = 0.2;
+};
 
 // B3: row order[s] (row s without an order) — its forces over the head
 // block and then its ragged tail, grad = (att − rep/Z)·mask with att =
 // fwd + rag as B5 adds them, then the vdM gains, the momentum update and
 // y += update, and ‖grad‖² — all written by lane 0.
-template <int M, bool FWD, bool RAG>
+template <class T, int M, bool FWD, bool RAG>
 __global__ void __launch_bounds__(THREADS)
-fused_step_kernel(const float* __restrict__ y_loc,
-                  const float* __restrict__ y_full,
-                  const int* __restrict__ hidx, const float* __restrict__ hval,
+fused_step_kernel(const T* __restrict__ y_loc, const T* __restrict__ y_full,
+                  const int* __restrict__ hidx, const T* __restrict__ hval,
                   int nloc, int w, const long long* __restrict__ rowptr,
-                  const int* __restrict__ dst, const float* __restrict__ val,
-                  const int* __restrict__ order,
-                  const float* __restrict__ rep,
-                  const float* __restrict__ z_ptr,
-                  const float* __restrict__ mask,
-                  const float* __restrict__ upd,
-                  const float* __restrict__ gains, float exag, float momentum,
-                  float eta, float min_gain, float* __restrict__ y_out,
-                  float* __restrict__ upd_out, float* __restrict__ gains_out,
-                  float* __restrict__ gsq_out) {
+                  const int* __restrict__ dst, const T* __restrict__ val,
+                  const int* __restrict__ order, const T* __restrict__ rep,
+                  const T* __restrict__ z_ptr, const T* __restrict__ mask,
+                  const T* __restrict__ upd, const T* __restrict__ gains,
+                  T exag, T momentum, T eta, T min_gain, T* __restrict__ y_out,
+                  T* __restrict__ upd_out, T* __restrict__ gains_out,
+                  T* __restrict__ gsq_out) {
+  using N = tsne::Num<T>;
   const int s = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (s >= nloc) return;  // whole warp
   const int i = order != nullptr ? order[s] : s;
-  float yc[M], rr, fwd[M], rag[M], unused[M];
-  load_row<M>(y_loc, i, yc, rr);
+  T yc[M], rr, fwd[M], rag[M], unused[M];
+  load_row<T, M>(y_loc, i, yc, rr);
   // the head's walk, then the tail's: each part's sums keep their own
   // order, so this is B5's interleaved walk bit for bit, and a part's
   // batch holds only its own loads — 40 registers a thread at m = 2
   // rather than the interleaved walk's 64, so 6 blocks an SM, not 4
   if constexpr (FWD)
-    row_forces<M, true, false>(y_full, hidx + (size_t)i * w,
-                               hval + (size_t)i * w, w, nullptr, nullptr, 0,
-                               0, yc, rr, exag, lane, fwd, unused);
+    row_forces<T, M, true, false>(y_full, hidx + (size_t)i * w,
+                                  hval + (size_t)i * w, w, nullptr, nullptr,
+                                  0, 0, yc, rr, exag, lane, fwd, unused);
   if constexpr (RAG)
-    row_forces<M, false, true>(y_full, nullptr, nullptr, 0, dst, val,
-                               rowptr[i], rowptr[i + 1], yc, rr, exag, lane,
-                               unused, rag);
+    row_forces<T, M, false, true>(y_full, nullptr, nullptr, 0, dst, val,
+                                  rowptr[i], rowptr[i + 1], yc, rr, exag,
+                                  lane, unused, rag);
   if (lane != 0) return;
-  const float z = *z_ptr;
-  const float mk = mask != nullptr ? mask[i] : 1.f;
-  float gsq = 0.f;
+  const T z = *z_ptr;
+  const T mk = mask != nullptr ? mask[i] : T(1);
+  T gsq = T(0);
 #pragma unroll
   for (int d = 0; d < M; ++d) {
     const size_t o = (size_t)i * M + d;
-    const float att = FWD && RAG ? __fadd_rn(fwd[d], rag[d])
-                      : FWD      ? fwd[d]
-                                 : rag[d];
-    const float grad = __fmul_rn(__fsub_rn(att, __fdiv_rn(rep[o], z)), mk);
-    const float u = upd[o];
-    const float g0 = gains[o];
-    const float g = fmaxf((grad > 0.f) == (u > 0.f) ? __fmul_rn(g0, 0.8f)
-                                                     : __fadd_rn(g0, 0.2f),
-                          min_gain);
-    const float un = __fsub_rn(__fmul_rn(momentum, u),
-                               __fmul_rn(__fmul_rn(eta, g), grad));
-    y_out[o] = __fadd_rn(yc[d], un);
+    const T att = FWD && RAG ? N::add(fwd[d], rag[d]) : FWD ? fwd[d] : rag[d];
+    const T grad = N::mul(N::sub(att, N::div(rep[o], z)), mk);
+    const T u = upd[o];
+    const T g0 = gains[o];
+    const T g = N::max((grad > T(0)) == (u > T(0)) ? N::mul(g0, Gain<T>::down)
+                                                   : N::add(g0, Gain<T>::up),
+                       min_gain);
+    const T un = N::sub(N::mul(momentum, u), N::mul(N::mul(eta, g), grad));
+    y_out[o] = N::add(yc[d], un);
     upd_out[o] = un;
     gains_out[o] = g;
-    gsq = fmaf(grad, grad, gsq);
+    gsq = N::fma(grad, grad, gsq);
   }
   gsq_out[i] = gsq;
 }
 
-template <int M, bool FWD, bool RAG>
+template <class T, int M, bool FWD, bool RAG>
 __global__ void __launch_bounds__(THREADS)
-forces_kernel(const float* __restrict__ y_loc,
-              const float* __restrict__ y_full,
-              const int* __restrict__ jidx, const float* __restrict__ jval,
+forces_kernel(const T* __restrict__ y_loc, const T* __restrict__ y_full,
+              const int* __restrict__ jidx, const T* __restrict__ jval,
               int nloc, int w, const long long* __restrict__ rowptr,
-              const int* __restrict__ dst, const float* __restrict__ val,
-              float exag, float* __restrict__ att_out) {
+              const int* __restrict__ dst, const T* __restrict__ val, T exag,
+              T* __restrict__ att_out) {
+  using N = tsne::Num<T>;
   const int i = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (i >= nloc) return;  // whole warp
-  float yc[M], rr, fwd[M], rag[M];
-  load_row<M>(y_loc, i, yc, rr);
+  T yc[M], rr, fwd[M], rag[M];
+  load_row<T, M>(y_loc, i, yc, rr);
   const long long e0 = RAG ? rowptr[i] : 0, e1 = RAG ? rowptr[i + 1] : 0;
-  row_forces<M, FWD, RAG>(y_full, jidx + (size_t)i * w, jval + (size_t)i * w,
-                          w, dst, val, e0, e1, yc, rr, exag, lane, fwd, rag);
+  row_forces<T, M, FWD, RAG>(y_full, jidx + (size_t)i * w,
+                             jval + (size_t)i * w, w, dst, val, e0, e1, yc,
+                             rr, exag, lane, fwd, rag);
   if (lane != 0) return;
 #pragma unroll
   for (int d = 0; d < M; ++d)
-    att_out[(size_t)i * M + d] = FWD && RAG ? __fadd_rn(fwd[d], rag[d])
+    att_out[(size_t)i * M + d] = FWD && RAG ? N::add(fwd[d], rag[d])
                                  : FWD      ? fwd[d]
                                             : rag[d];
 }
 
-template <int M, bool FWD, bool RAG>
+template <class T, int M, bool FWD, bool RAG>
 __global__ void __launch_bounds__(THREADS)
-loss_kernel(const float* __restrict__ y_loc, const float* __restrict__ y_full,
-            const int* __restrict__ jidx, const float* __restrict__ jval,
+loss_kernel(const T* __restrict__ y_loc, const T* __restrict__ y_full,
+            const int* __restrict__ jidx, const T* __restrict__ jval,
             int nloc, int w, const long long* __restrict__ rowptr,
-            const int* __restrict__ dst, const float* __restrict__ val,
-            float exag, const float* __restrict__ z_ptr,
-            float* __restrict__ loss_rows) {
+            const int* __restrict__ dst, const T* __restrict__ val, T exag,
+            const T* __restrict__ z_ptr, T* __restrict__ loss_rows) {
   const int i = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (i >= nloc) return;
-  float yc[M], rr;
-  load_row<M>(y_loc, i, yc, rr);
-  const float z = *z_ptr;
+  T yc[M], rr;
+  load_row<T, M>(y_loc, i, yc, rr);
+  const T z = *z_ptr;
   const long long e0 = RAG ? rowptr[i] : 0, e1 = RAG ? rowptr[i + 1] : 0;
-  float fwd = 0.f, rag = 0.f;
-  walk_row<M, FWD, RAG>(
+  T fwd = T(0), rag = T(0);
+  walk_row<T, M, FWD, RAG>(
       y_full, jidx + (size_t)i * w, jval + (size_t)i * w, w, dst, val, e0,
       e1, lane,
-      [&](float v, const float (&yj)[M]) {
-        fwd += kl_term(v, exag, z, pair_q<M>(yc, rr, yj));
+      [&](T v, const T (&yj)[M]) {
+        fwd += kl_term<T>(v, exag, z, pair_q<T, M>(yc, rr, yj));
       },
-      [&](float v, const float (&yj)[M]) {
-        float diff[M];
-        rag += kl_term(v, exag, z, edge_q<M>(yc, yj, diff));
+      [&](T v, const T (&yj)[M]) {
+        T diff[M];
+        rag += kl_term<T>(v, exag, z, edge_q<T, M>(yc, yj, diff));
       });
   fwd = tsne::warp_sum(fwd);
   rag = tsne::warp_sum(rag);
-  if (lane == 0)
-    loss_rows[i] = FWD && RAG ? fwd + rag : FWD ? fwd : rag;
+  if (lane == 0) loss_rows[i] = FWD && RAG ? fwd + rag : FWD ? fwd : rag;
 }
 
 int grid_for(int nloc) { return (nloc + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK; }
 
 // the instance for the parts a launch has: the forward block when w > 0 or
 // there is no ragged part, the ragged part when rowptr is given
-template <int M>
+template <class T, int M>
 auto forces_for(int w, const long long* rowptr) {
-  return rowptr == nullptr ? forces_kernel<M, true, false>
-         : w == 0          ? forces_kernel<M, false, true>
-                           : forces_kernel<M, true, true>;
+  return rowptr == nullptr ? forces_kernel<T, M, true, false>
+         : w == 0          ? forces_kernel<T, M, false, true>
+                           : forces_kernel<T, M, true, true>;
 }
 
-template <int M>
+template <class T, int M>
 auto fused_for(int w, const long long* rowptr) {
-  return rowptr == nullptr ? fused_step_kernel<M, true, false>
-         : w == 0          ? fused_step_kernel<M, false, true>
-                           : fused_step_kernel<M, true, true>;
+  return rowptr == nullptr ? fused_step_kernel<T, M, true, false>
+         : w == 0          ? fused_step_kernel<T, M, false, true>
+                           : fused_step_kernel<T, M, true, true>;
 }
 
-template <int M>
+template <class T, int M>
 auto loss_for(int w, const long long* rowptr) {
-  return rowptr == nullptr ? loss_kernel<M, true, false>
-         : w == 0          ? loss_kernel<M, false, true>
-                           : loss_kernel<M, true, true>;
+  return rowptr == nullptr ? loss_kernel<T, M, true, false>
+         : w == 0          ? loss_kernel<T, M, false, true>
+                           : loss_kernel<T, M, true, true>;
+}
+
+template <class T>
+int fused_step(const T* y_loc, const T* y_full, const int* hidx,
+               const T* hval, int nloc, int w, const long long* rowptr,
+               const int* dst, const T* val, int m, const int* order,
+               const T* rep, const T* z_ptr, const T* mask, const T* upd,
+               const T* gains, T exag, T momentum, T eta, T min_gain,
+               T* y_out, T* upd_out, T* gains_out, T* gsq_out, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return tsne::with_m(m, [&](auto mc) {
+    constexpr int M = decltype(mc)::value;
+    const auto kern = fused_for<T, M>(w, rowptr);
+    kern<<<grid_for(nloc), THREADS, 0, s>>>(
+        y_loc, y_full, hidx, hval, nloc, w, rowptr, dst, val, order, rep,
+        z_ptr, mask, upd, gains, exag, momentum, eta, min_gain, y_out,
+        upd_out, gains_out, gsq_out);
+    return tsne::launch_status();
+  });
+}
+
+template <class T>
+int attraction_loss(const T* y_loc, const T* y_full, const int* jidx,
+                    const T* jval, int nloc, int w, const long long* rowptr,
+                    const int* dst, const T* val, int m, T exag,
+                    const T* z_ptr, T* loss_rows, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return tsne::with_m(m, [&](auto mc) {
+    constexpr int M = decltype(mc)::value;
+    const auto kern = loss_for<T, M>(w, rowptr);
+    kern<<<grid_for(nloc), THREADS, 0, s>>>(y_loc, y_full, jidx, jval, nloc,
+                                            w, rowptr, dst, val, exag, z_ptr,
+                                            loss_rows);
+    return tsne::launch_status();
+  });
+}
+
+template <class T>
+int attraction_forces(const T* y_loc, const T* y_full, const int* jidx,
+                      const T* jval, int nloc, int w, const long long* rowptr,
+                      const int* dst, const T* val, int m, T exag, T* att,
+                      void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return tsne::with_m(m, [&](auto mc) {
+    constexpr int M = decltype(mc)::value;
+    const auto kern = forces_for<T, M>(w, rowptr);
+    kern<<<grid_for(nloc), THREADS, 0, s>>>(y_loc, y_full, jidx, jval, nloc,
+                                            w, rowptr, dst, val, exag, att);
+    return tsne::launch_status();
+  });
 }
 
 }  // namespace
@@ -422,16 +495,29 @@ TSNE_API int tsne_fused_step_f32(const float* y_loc, const float* y_full,
                                  float min_gain, float* y_out, float* upd_out,
                                  float* gains_out, float* gsq_out,
                                  void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  return tsne::with_m(m, [&](auto mc) {
-    constexpr int M = decltype(mc)::value;
-    const auto kern = fused_for<M>(w, rowptr);
-    kern<<<grid_for(nloc), THREADS, 0, s>>>(
-        y_loc, y_full, hidx, hval, nloc, w, rowptr, dst, val, order, rep,
-        z_ptr, mask, upd, gains, exag, momentum, eta, min_gain, y_out,
-        upd_out, gains_out, gsq_out);
-    return tsne::launch_status();
-  });
+  return fused_step<float>(y_loc, y_full, hidx, hval, nloc, w, rowptr, dst,
+                           val, m, order, rep, z_ptr, mask, upd, gains, exag,
+                           momentum, eta, min_gain, y_out, upd_out, gains_out,
+                           gsq_out, stream);
+}
+
+// The float64 form of tsne_fused_step_f32: every value, plane and scalar
+// float64 (the ids, the row pointer and the order as there).
+TSNE_API int tsne_fused_step_f64(const double* y_loc, const double* y_full,
+                                 const int* hidx, const double* hval,
+                                 int nloc, int w, const long long* rowptr,
+                                 const int* dst, const double* val, int m,
+                                 const int* order, const double* rep,
+                                 const double* z_ptr, const double* mask,
+                                 const double* upd, const double* gains,
+                                 double exag, double momentum, double eta,
+                                 double min_gain, double* y_out,
+                                 double* upd_out, double* gains_out,
+                                 double* gsq_out, void* stream) {
+  return fused_step<double>(y_loc, y_full, hidx, hval, nloc, w, rowptr, dst,
+                            val, m, order, rep, z_ptr, mask, upd, gains,
+                            exag, momentum, eta, min_gain, y_out, upd_out,
+                            gains_out, gsq_out, stream);
 }
 
 // y_loc [nloc, m] (rows of y_full [*, m]); the forward block jidx/jval
@@ -446,15 +532,20 @@ TSNE_API int tsne_attraction_loss_f32(const float* y_loc, const float* y_full,
                                       const int* dst, const float* val, int m,
                                       float exag, const float* z_ptr,
                                       float* loss_rows, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  return tsne::with_m(m, [&](auto mc) {
-    constexpr int M = decltype(mc)::value;
-    const auto kern = loss_for<M>(w, rowptr);
-    kern<<<grid_for(nloc), THREADS, 0, s>>>(y_loc, y_full, jidx, jval, nloc,
-                                            w, rowptr, dst, val, exag, z_ptr,
-                                            loss_rows);
-    return tsne::launch_status();
-  });
+  return attraction_loss<float>(y_loc, y_full, jidx, jval, nloc, w, rowptr,
+                                dst, val, m, exag, z_ptr, loss_rows, stream);
+}
+
+// The float64 form of tsne_attraction_loss_f32.
+TSNE_API int tsne_attraction_loss_f64(const double* y_loc,
+                                      const double* y_full, const int* jidx,
+                                      const double* jval, int nloc, int w,
+                                      const long long* rowptr, const int* dst,
+                                      const double* val, int m, double exag,
+                                      const double* z_ptr, double* loss_rows,
+                                      void* stream) {
+  return attraction_loss<double>(y_loc, y_full, jidx, jval, nloc, w, rowptr,
+                                 dst, val, m, exag, z_ptr, loss_rows, stream);
 }
 
 // The same operands as tsne_attraction_loss_f32, without Z; writes the
@@ -467,12 +558,18 @@ TSNE_API int tsne_attraction_forces_f32(const float* y_loc,
                                         const int* dst, const float* val,
                                         int m, float exag, float* att,
                                         void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  return tsne::with_m(m, [&](auto mc) {
-    constexpr int M = decltype(mc)::value;
-    const auto kern = forces_for<M>(w, rowptr);
-    kern<<<grid_for(nloc), THREADS, 0, s>>>(y_loc, y_full, jidx, jval, nloc,
-                                            w, rowptr, dst, val, exag, att);
-    return tsne::launch_status();
-  });
+  return attraction_forces<float>(y_loc, y_full, jidx, jval, nloc, w, rowptr,
+                                  dst, val, m, exag, att, stream);
+}
+
+// The float64 form of tsne_attraction_forces_f32.
+TSNE_API int tsne_attraction_forces_f64(const double* y_loc,
+                                        const double* y_full, const int* jidx,
+                                        const double* jval, int nloc, int w,
+                                        const long long* rowptr,
+                                        const int* dst, const double* val,
+                                        int m, double exag, double* att,
+                                        void* stream) {
+  return attraction_forces<double>(y_loc, y_full, jidx, jval, nloc, w,
+                                   rowptr, dst, val, m, exag, att, stream);
 }

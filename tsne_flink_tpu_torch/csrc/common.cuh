@@ -40,12 +40,43 @@ int with_m(int m, F&& f) {
   }
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
+template <class T>
+__device__ __forceinline__ T warp_sum(T v) {
   // butterfly: every lane ends with the same sum, in a fixed order
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFullMask, v, off);
   return v;
 }
+
+// The scalar type's separately rounded operations (nothing contracted into
+// an FMA unless asked for), so one template gives a kernel's float32 and
+// float64 forms the same operation order.
+template <class T>
+struct Num;
+
+template <>
+struct Num<float> {
+  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+  static __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+  static __device__ __forceinline__ float div(float a, float b) { return __fdiv_rn(a, b); }
+  static __device__ __forceinline__ float rcp(float a) { return __frcp_rn(a); }
+  static __device__ __forceinline__ float fma(float a, float b, float c) { return fmaf(a, b, c); }
+  static __device__ __forceinline__ float max(float a, float b) { return fmaxf(a, b); }
+  static __device__ __forceinline__ float log(float a) { return logf(a); }
+};
+
+template <>
+struct Num<double> {
+  static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+  static __device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+  static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+  static __device__ __forceinline__ double div(double a, double b) { return __ddiv_rn(a, b); }
+  static __device__ __forceinline__ double rcp(double a) { return __drcp_rn(a); }
+  static __device__ __forceinline__ double fma(double a, double b, double c) { return ::fma(a, b, c); }
+  static __device__ __forceinline__ double max(double a, double b) { return fmax(a, b); }
+  static __device__ __forceinline__ double log(double a) { return ::log(a); }
+};
 
 inline int launch_status() { return static_cast<int>(cudaGetLastError()); }
 

@@ -729,6 +729,453 @@ TSNE_API int tsne_knn_cross_bf16(const float* xr, const float* norms_r,
   return sweep<true>(sw, f, k, cosine, out_d, out_i, s);
 }
 
+// ---------------------------------------------------------------------------
+// The float64 form (B1_f64).  Its own kernel, beside the one above: it
+// shares the cp.async ring, the named barriers, the Dt hand-over and the
+// flagged-row merge, but three of that kernel's choices do not carry over.
+// - Products: FP64 tensor cores, mma.sync.m16n8k8 .f64 (sm_90), each
+//   output accumulated in FP64 over all of F: no split, no double-float
+//   flush, and the norms are plain float64 sums (one double a point, a
+//   zero after the last).  d = (|a|² + |b|²) − 2g is formed in float64
+//   and clamped at 0; cosine takes 1 − g.  The A/B fragments sit at the
+//   TF32 m16n8k8 offsets, one double a register pair.
+// - Keys: a float64 distance fills 64 bits, so a k-list entry is a pair
+//   (order-preserving distance bits, column), compared lexicographically:
+//   ties still go to the lower column.
+// - Shared memory: pair keys (12 bytes) for 64 rows would take 64·k·12
+//   bytes — 69 KB at k = 90, 196 KB at k = 256 — beside float64 stages and
+//   float64 Dt buffers (70 KB each).  So the k-lists live in the outputs
+//   themselves (out_d holds the key bits, out_i the columns, [nr, k]); a
+//   merge warp loads a flagged row's list into its registers, merges the
+//   tile, and stores it back (coalesced, L2-resident for the rows a block
+//   owns).  Every k up to 1,024 then has the k <= 256 class's shape: 64
+//   rows, eight compute warps of 32 x 32, four merge warps, a 2-stage
+//   ring of 16 doubles a row (stride 20 doubles: the fragments' 64-bit
+//   loads are conflict-free), two Dt buffers; only the registers a merge
+//   lane holds (KREG slots) differ: k <= 256 and k <= 1,024.
+// What bounds it: 2·N²·F at the FP64 tensor-core rate, 67 TFLOP/s: 84.25
+// ms at 60,000 x 784.
+
+namespace {
+
+namespace f64 {
+
+constexpr int TR = 64, MI = 2, WM = 2;
+constexpr int COMPUTE = 128 * WM;                   // 8 compute warps
+constexpr int MERGE_WARPS = TR / MROWS;             // 4
+constexpr int THREADS = COMPUTE + 32 * MERGE_WARPS;  // 384
+constexpr int BKD = 16;                             // doubles a staged row
+constexpr int LDD = BKD + 4;                        // its stride (doubles)
+constexpr int OPER_D = (TR + TC) * LDD;
+constexpr int STAGE_D = OPER_D + TC;                // + the columns' norms
+constexpr int DSD = TC + 8;                         // Dt row stride (doubles)
+constexpr int DT_D = TR * DSD;
+constexpr int STAGES = 2, DTB = 2;
+
+size_t smem_bytes() {
+  return sizeof(double) * ((size_t)STAGES * STAGE_D + (size_t)DTB * DT_D) +
+         (sizeof(u64) + sizeof(double) + 2 * sizeof(int)) * TR +
+         sizeof(unsigned) * DTB * MERGE_WARPS;
+}
+
+__device__ __forceinline__ void cp_async16d(double* dst, const void* src,
+                                            bool valid) {
+  cp_async16(reinterpret_cast<float*>(dst), src, valid);
+}
+
+// D = A·B + D, 16 x 8 x 8 in FP64 on the tensor cores
+__device__ __forceinline__ void mma_f64(double (&c)[4], const double (&a)[4],
+                                        const double (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// a float64 distance -> bits whose unsigned order is the value order
+__device__ __forceinline__ u64 dkey(double d) {
+  const u64 bits = static_cast<u64>(__double_as_longlong(d));
+  return (bits >> 63) ? ~bits : (bits | 0x8000000000000000ull);
+}
+
+__device__ __forceinline__ double key_dist(u64 key) {
+  const u64 bits = (key >> 63) ? (key & 0x7fffffffffffffffull) : ~key;
+  return __longlong_as_double(static_cast<long long>(bits));
+}
+
+// the lexicographic (distance key, column) order
+__device__ __forceinline__ bool less(u64 a, unsigned ac, u64 b, unsigned bc) {
+  return a < b || (a == b && ac < bc);
+}
+
+// the largest (key, column) pair over the warp
+__device__ __forceinline__ void warp_max(u64 v, unsigned c, u64& mv,
+                                         unsigned& mc) {
+  const unsigned hi = static_cast<unsigned>(v >> 32);
+  const unsigned mhi = __reduce_max_sync(tsne::kFullMask, hi);
+  const unsigned lo = hi == mhi ? static_cast<unsigned>(v) : 0u;
+  const unsigned mlo = __reduce_max_sync(tsne::kFullMask, lo);
+  mv = (static_cast<u64>(mhi) << 32) | mlo;
+  mc = __reduce_max_sync(tsne::kFullMask, v == mv ? c : 0u);
+}
+
+template <int KREG>
+__device__ __forceinline__ void lane_max(const u64 (&reg)[KREG],
+                                         const unsigned (&col)[KREG], u64& lm,
+                                         unsigned& lc, int& ls) {
+  lm = 0;
+  lc = 0;
+  ls = 0;
+#pragma unroll
+  for (int s = 0; s < KREG; ++s)
+    if (less(lm, lc, reg[s], col[s])) {
+      lm = reg[s];
+      lc = col[s];
+      ls = s;
+    }
+}
+
+template <int KREG>
+__device__ __forceinline__ void reg_set(u64 (&reg)[KREG],
+                                        unsigned (&col)[KREG], int slot, u64 v,
+                                        unsigned c) {
+#pragma unroll
+  for (int s = 0; s < KREG; ++s)
+    if (s == slot) {
+      reg[s] = v;
+      col[s] = c;
+    }
+}
+
+// the two operands of a float64 sweep, as Sweep (norms: [n + 1] doubles)
+struct Sweep64 {
+  const double* xr;
+  const double* nr_norms;
+  int nr, r_off;
+  const double* xc;
+  const double* nc_norms;
+  int nc, c_off, n_global;
+};
+
+template <int KREG>
+__global__ void __launch_bounds__(THREADS, 1)
+knn_f64_kernel(const Sweep64 sw, int f, int k, int cosine, double* out_d,
+               int* out_i) {
+  extern __shared__ __align__(16) double smem64[];
+  double* ring = smem64;                               // [STAGES][STAGE_D]
+  double* dt = ring + STAGES * STAGE_D;                // [DTB][TR][DSD]
+  u64* wkey = reinterpret_cast<u64*>(dt + DTB * DT_D);  // [TR] worst key
+  volatile double* thr = reinterpret_cast<double*>(wkey + TR);  // [TR]
+  unsigned* wcol = reinterpret_cast<unsigned*>(
+      const_cast<double*>(thr) + TR);                  // [TR] worst column
+  int* fill = reinterpret_cast<int*>(wcol + TR);       // [TR]
+  unsigned* rowmask = reinterpret_cast<unsigned*>(fill + TR);
+  // the k-lists: out_d's words hold the key bits until the last pass
+  u64* lists = reinterpret_cast<u64*>(out_d);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int row0 = blockIdx.x * TR;
+  const int ks_per_tile = (f + BKD - 1) / BKD;
+  const int tiles = (sw.nc + TC - 1) / TC;
+  const int total = tiles * ks_per_tile;
+
+  for (int r = tid; r < TR; r += THREADS) {
+    wkey[r] = ~0ull;
+    wcol[r] = ~0u;
+    fill[r] = 0;
+    thr[r] = INFINITY;
+  }
+  for (int e = tid; e < DTB * MERGE_WARPS; e += THREADS) rowmask[e] = 0;
+  __syncthreads();
+
+  if (tid < COMPUTE) {
+    const int warp = tid >> 5;
+    const int wm = warp >> 2, wn = warp & 3;
+    const int g = lane >> 2, tq = lane & 3;
+
+    auto load_stage = [&](int s, int buf) {
+      const int col0 = (s / ks_per_tile) * TC;
+      const int kk = s % ks_per_tile;
+      const int k0 = kk * BKD;
+      double* st = ring + buf * STAGE_D;
+      for (int c = tid; c < (TR + TC) * (BKD / 2); c += COMPUTE) {
+        const int row = c / (BKD / 2), q = c % (BKD / 2);
+        const bool is_row = row < TR;
+        const int gr = is_row ? row0 + row : col0 + row - TR;
+        const double* src = is_row ? sw.xr : sw.xc;
+        const int fk = k0 + 2 * q;
+        const bool valid = gr < (is_row ? sw.nr : sw.nc) && fk < f;
+        cp_async16d(st + row * LDD + 2 * q,
+                    src + (valid ? (size_t)gr * f + fk : 0), valid);
+      }
+      // the tile's last stage also brings its columns' norms (two a
+      // copy; the norms have a zero past nc)
+      if (kk == ks_per_tile - 1 && !cosine && tid < TC / 2) {
+        const bool valid = col0 + 2 * tid < sw.nc;
+        cp_async16d(st + OPER_D + 2 * tid,
+                    sw.nc_norms + (valid ? (size_t)col0 + 2 * tid : 0), valid);
+      }
+    };
+
+    double na[MI][2];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int gr = row0 + wm * 16 * MI + i * 16 + g + 8 * h;
+        na[i][h] = gr < sw.nr && !cosine ? sw.nr_norms[gr] : 0.0;
+      }
+
+    double acc[MI][4][4];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0;
+
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < total) load_stage(s, s);
+      cp_async_commit();
+    }
+
+    for (int s = 0; s < total; ++s) {
+      cp_async_wait<STAGES - 2>();
+      bar_sync(BAR_COMPUTE, COMPUTE);
+      {
+        const int nx = s + STAGES - 1;
+        if (nx < total) load_stage(nx, nx % STAGES);
+        cp_async_commit();
+      }
+      const double* as = ring + (s % STAGES) * STAGE_D;
+      const double* bs = as + TR * LDD;
+#pragma unroll
+      for (int kb = 0; kb < BKD; kb += 8) {
+        double a[MI][4], b[4][2];
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          const int o0 = (wm * 16 * MI + i * 16 + g) * LDD + kb + tq;
+          const int o1 = o0 + 8 * LDD;
+          a[i][0] = as[o0];
+          a[i][1] = as[o1];
+          a[i][2] = as[o0 + 4];
+          a[i][3] = as[o1 + 4];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int o = (wn * 32 + j * 8 + g) * LDD + kb + tq;
+          b[j][0] = bs[o];
+          b[j][1] = bs[o + 4];
+        }
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) mma_f64(acc[i][j], a[i], b[j]);
+      }
+      if (s % ks_per_tile != ks_per_tile - 1) continue;
+
+      // ---- epilogue of column tile t: filter into Dt, hand it over
+      const int t = s / ks_per_tile;
+      const int col0 = t * TC;
+      const int buf = t % DTB;
+      if (t >= DTB) bar_sync(BAR_EMPTY + buf, THREADS);
+      double* d_tile = dt + buf * DT_D;
+      const double* nb_tile = as + OPER_D;  // [TC], staged above
+      unsigned live = 0;  // bit i*16 + g + 8h: row (i, h) kept an entry
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = wn * 32 + j * 8 + 2 * tq;
+        const double2 nb = cosine ? make_double2(0.0, 0.0)
+                                  : *reinterpret_cast<const double2*>(nb_tile + c);
+        const double nbv[2] = {nb.x, nb.y};
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = wm * 16 * MI + i * 16 + g + 8 * h;
+            const int gr = row0 + r;
+            const double bar = thr[r];
+            double v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const double gv = acc[i][j][2 * h + e];
+              double d = cosine ? __dsub_rn(1.0, gv)
+                                : fmax(__dsub_rn(__dadd_rn(na[i][h], nbv[e]),
+                                                 __dmul_rn(2.0, gv)),
+                                       0.0);
+              d = d + 0.0;  // -0 -> +0, so the key order is the value order
+              const int gc = col0 + c + e;
+              const int gid = sw.c_off + gc;
+              const bool keep = gr < sw.nr && gc < sw.nc &&
+                                gid != sw.r_off + gr && gid < sw.n_global &&
+                                d <= bar;
+              v[e] = keep ? d : INFINITY;
+              if (keep) live |= 1u << (i * 16 + g + 8 * h);
+            }
+            *reinterpret_cast<double2*>(d_tile + r * DSD + c) =
+                make_double2(v[0], v[1]);
+          }
+      }
+      live = __reduce_or_sync(tsne::kFullMask, live);
+      if (lane == 0) {
+        unsigned* word = rowmask + buf * MERGE_WARPS + wm * MI;
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {
+          const unsigned bits = (live >> (16 * i)) & 0xffffu;
+          if (bits) atomicOr(word + i, bits);
+        }
+      }
+      bar_arrive(BAR_FULL + buf, THREADS);
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0;
+    }
+  } else {
+    // ---------------- merge warps: fold each filtered tile into the k-lists
+    const int mw = (tid - COMPUTE) >> 5;
+    for (int t = 0; t < tiles; ++t) {
+      const int buf = t % DTB;
+      const int col0 = t * TC;
+      bar_sync(BAR_FULL + buf, THREADS);
+      const double* d_tile = dt + buf * DT_D;
+      unsigned rows = rowmask[buf * MERGE_WARPS + mw];
+      while (rows) {
+        const int r = mw * MROWS + __ffs(rows) - 1;
+        rows &= rows - 1;
+        const size_t base = (size_t)(row0 + r) * k;
+        u64 wk = wkey[r];
+        unsigned wc = wcol[r];
+        int cnt = fill[r];
+        u64 reg[KREG];
+        unsigned col[KREG];
+#pragma unroll
+        for (int s = 0; s < KREG; ++s) {
+          const int slot = s * 32 + lane;
+          const bool held = slot < cnt;
+          reg[s] = held ? lists[base + slot] : 0ull;
+          col[s] = held ? static_cast<unsigned>(out_i[base + slot]) : 0u;
+        }
+        u64 lm;
+        unsigned lc;
+        int ls;
+        lane_max(reg, col, lm, lc, ls);
+#pragma unroll
+        for (int h = 0; h < TC; h += 32) {
+          const double d = d_tile[r * DSD + h + lane];
+          const u64 key = dkey(d);
+          const unsigned cid = static_cast<unsigned>(sw.c_off + col0 + h + lane);
+          unsigned cand =
+              __ballot_sync(tsne::kFullMask, d < INFINITY && less(key, cid, wk, wc));
+          while (cand) {
+            const int src = __ffs(cand) - 1;
+            cand &= cand - 1;
+            const u64 ck = shfl64(key, src);
+            const unsigned cc = __shfl_sync(tsne::kFullMask, cid, src);
+            if (!less(ck, cc, wk, wc)) continue;  // warp-uniform
+            if (cnt < k) {
+              if (lane == (cnt & 31)) reg_set(reg, col, cnt >> 5, ck, cc);
+              if (++cnt < k) continue;
+              lane_max(reg, col, lm, lc, ls);
+            } else if (lm == wk && lc == wc) {  // the lane holding the worst
+              reg_set(reg, col, ls, ck, cc);
+              lane_max(reg, col, lm, lc, ls);
+            }
+            warp_max(lm, lc, wk, wc);
+          }
+        }
+#pragma unroll
+        for (int s = 0; s < KREG; ++s) {
+          const int slot = s * 32 + lane;
+          if (slot < cnt) {
+            lists[base + slot] = reg[s];
+            out_i[base + slot] = static_cast<int>(col[s]);
+          }
+        }
+        if (lane == 0) {
+          wkey[r] = wk;
+          wcol[r] = wc;
+          fill[r] = cnt;
+          thr[r] = cnt == k ? key_dist(wk) : INFINITY;
+        }
+      }
+      __syncwarp();
+      if (lane == 0) rowmask[buf * MERGE_WARPS + mw] = 0;
+      if (t + DTB < tiles) bar_arrive(BAR_EMPTY + buf, THREADS);
+    }
+  }
+  __syncthreads();
+
+  // the key bits become distances; (inf, -1) past a row's held slots
+  for (int e = tid; e < TR * k; e += THREADS) {
+    const int r = e / k, slot = e % k;
+    const int g = row0 + r;
+    if (g < sw.nr) {
+      const size_t o = (size_t)g * k + slot;
+      const bool held = slot < fill[r];
+      const double d = held ? key_dist(lists[o]) : INFINITY;
+      lists[o] = static_cast<u64>(__double_as_longlong(d));
+      if (!held) out_i[o] = -1;
+    }
+  }
+}
+
+template <int KREG>
+int launch_f64(const Sweep64& sw, int f, int k, int cosine, double* out_d,
+               int* out_i, cudaStream_t stream) {
+  auto kern = knn_f64_kernel<KREG>;
+  const size_t smem = smem_bytes();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int blocks = (sw.nr + TR - 1) / TR;
+  kern<<<blocks, THREADS, smem, stream>>>(sw, f, k, cosine, out_d, out_i);
+  return tsne::launch_status();
+}
+
+int sweep(const Sweep64& sw, int f, int k, int cosine, double* out_d,
+          int* out_i, cudaStream_t s) {
+  return k <= 256 ? launch_f64<8>(sw, f, k, cosine, out_d, out_i, s)
+                  : launch_f64<32>(sw, f, k, cosine, out_d, out_i, s);
+}
+
+}  // namespace f64
+
+}  // namespace
+
+// The float64 form of tsne_knn_f32: x [n, f] f64 (f a multiple of 16,
+// 16-byte aligned rows); norms [n + 1] f64: each row's squared norm, then
+// a zero, 16-byte aligned (unused for cosine); out_d [n, k] f64, out_i
+// [n, k] int32: each row's k nearest columns, unordered.  Requires 1 <= k
+// <= min(1024, n - 1).
+TSNE_API int tsne_knn_f64(const double* x, const double* norms, int n, int f,
+                          int k, int cosine, double* out_d, int* out_i,
+                          void* stream) {
+  if (k < 1 || k > K_MAX || k > n - 1 || f % 16)
+    return (int)cudaErrorInvalidValue;
+  const f64::Sweep64 sw{x, norms, n, 0, x, norms, n, 0, n};
+  return f64::sweep(sw, f, k, cosine, out_d, out_i, (cudaStream_t)stream);
+}
+
+// The float64 form of tsne_knn_cross_f32 (norms as tsne_knn_f64 takes
+// them; out_d f64).
+TSNE_API int tsne_knn_cross_f64(const double* xr, const double* norms_r,
+                                int nr, int r_off, const double* xc,
+                                const double* norms_c, int nc, int c_off,
+                                int n_global, int f, int k, int cosine,
+                                double* out_d, int* out_i, void* stream) {
+  if (k < 1 || k > K_MAX || nr < 1 || nc < 1 || r_off < 0 || c_off < 0 ||
+      f % 16)
+    return (int)cudaErrorInvalidValue;
+  const f64::Sweep64 sw{xr, norms_r, nr, r_off, xc, norms_c, nc, c_off,
+                        n_global};
+  return f64::sweep(sw, f, k, cosine, out_d, out_i, (cudaStream_t)stream);
+}
+
 TSNE_API const char* tsne_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }

@@ -40,6 +40,13 @@
 //   deterministic.  d² is computed directly as Σ(y_i − y_j)², and each
 //   thread sums a tile into a partial before adding it to its running
 //   total (two-level summation).
+//
+// The float64 form (B2_f64, tsne_repulsion_f64) is the same template over
+// the scalar type.  A column is staged as 16-byte double2 pieces (the
+// coordinates, zeros, the weight last), and q = 1 / (1 + d²) is an IEEE
+// reciprocal (__drcp_rn, the plain version's division: the FP64 units have
+// no approximate reciprocal at full precision), so every operation runs on
+// the FP64 pipe, 34 TFLOP/s on an H100 outside the tensor cores.
 #include "common.cuh"
 
 namespace {
@@ -49,63 +56,91 @@ constexpr int R = 4;                       // rows a thread owns
 constexpr int ROWS = THREADS * R;          // rows a block owns
 constexpr int TJ = 512;                    // columns a tile stages
 
-// a staged column: its M coordinates, zeros, and its 0/1 weight last, in
-// V float4s (one for m <= 3, as x, y, z, w)
-template <int M>
-__host__ __device__ constexpr int vecs_for() { return M <= 3 ? 1 : (M + 1 + 3) / 4; }
+// a staged column is V 16-byte pieces of L values each: float4 at float32,
+// double2 at float64
+template <class T>
+struct Piece;
+template <>
+struct Piece<float> {
+  using type = float4;
+  static constexpr int L = 4;
+  static __device__ __forceinline__ void get(const float4& p, float* out) {
+    out[0] = p.x;
+    out[1] = p.y;
+    out[2] = p.z;
+    out[3] = p.w;
+  }
+  static __device__ __forceinline__ float4 make(const float* c) {
+    return make_float4(c[0], c[1], c[2], c[3]);
+  }
+};
+template <>
+struct Piece<double> {
+  using type = double2;
+  static constexpr int L = 2;
+  static __device__ __forceinline__ void get(const double2& p, double* out) {
+    out[0] = p.x;
+    out[1] = p.y;
+  }
+  static __device__ __forceinline__ double2 make(const double* c) {
+    return make_double2(c[0], c[1]);
+  }
+};
 
-__device__ __forceinline__ float rcp_approx(float x) {
+// a staged column: its M coordinates, zeros, and its 0/1 weight last, in
+// V pieces (one float4 for m <= 3 at float32, as x, y, z, w)
+template <class T, int M>
+__host__ __device__ constexpr int vecs_for() {
+  return (M + 1 + Piece<T>::L - 1) / Piece<T>::L;
+}
+
+__device__ __forceinline__ float inv(float x) {
   float r;
   asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
   return r;
 }
 
-template <int M, bool VALID, bool DIAG>
-__device__ __forceinline__ void sweep(const float4* __restrict__ ys, int cnt,
-                                      int j0, const float (&yi)[R][M],
-                                      const int (&gi)[R],
-                                      float (&tacc)[R][M + 1]) {
-  constexpr int V = vecs_for<M>();
+__device__ __forceinline__ double inv(double x) { return __drcp_rn(x); }
+
+template <class T, int M, bool VALID, bool DIAG>
+__device__ __forceinline__ void sweep(
+    const typename Piece<T>::type* __restrict__ ys, int cnt, int j0,
+    const T (&yi)[R][M], const int (&gi)[R], T (&tacc)[R][M + 1]) {
+  constexpr int V = vecs_for<T, M>(), L = Piece<T>::L;
+  using N = tsne::Num<T>;
 #pragma unroll 2
   for (int jj = 0; jj < cnt; ++jj) {
-    float pj[4 * V];
+    T pj[L * V];
 #pragma unroll
-    for (int v = 0; v < V; ++v) {
-      const float4 p = ys[jj * V + v];
-      pj[4 * v] = p.x;
-      pj[4 * v + 1] = p.y;
-      pj[4 * v + 2] = p.z;
-      pj[4 * v + 3] = p.w;
-    }
+    for (int v = 0; v < V; ++v) Piece<T>::get(ys[jj * V + v], pj + L * v);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
-      float diff[M];
-      float d2 = 0.f;
+      T diff[M];
+      T d2 = T(0);
 #pragma unroll
       for (int d = 0; d < M; ++d) {
         diff[d] = yi[r][d] - pj[d];
-        d2 = fmaf(diff[d], diff[d], d2);
+        d2 = N::fma(diff[d], diff[d], d2);
       }
-      float q = rcp_approx(1.f + d2);
-      if (VALID) q *= pj[4 * V - 1];
-      if (DIAG) q = (j0 + jj == gi[r]) ? 0.f : q;
+      T q = inv(T(1) + d2);
+      if (VALID) q *= pj[L * V - 1];
+      if (DIAG) q = (j0 + jj == gi[r]) ? T(0) : q;
       tacc[r][M] += q;
-      const float q2 = q * q;
+      const T q2 = q * q;
 #pragma unroll
-      for (int d = 0; d < M; ++d) tacc[r][d] = fmaf(q2, diff[d], tacc[r][d]);
+      for (int d = 0; d < M; ++d) tacc[r][d] = N::fma(q2, diff[d], tacc[r][d]);
     }
   }
 }
 
-template <int M, bool VALID>
+template <class T, int M, bool VALID>
 __global__ void __launch_bounds__(THREADS)
-repulsion_kernel(const float* __restrict__ y_loc,
-                 const float* __restrict__ y_full,
+repulsion_kernel(const T* __restrict__ y_loc, const T* __restrict__ y_full,
                  const unsigned char* __restrict__ valid, int nloc, int nfull,
                  int row_offset, int col_span, int part_rows,
-                 float* __restrict__ part) {
-  constexpr int V = vecs_for<M>();
-  __shared__ float4 ys[TJ * V];
+                 T* __restrict__ part) {
+  constexpr int V = vecs_for<T, M>(), L = Piece<T>::L;
+  __shared__ typename Piece<T>::type ys[TJ * V];
 
   const int t = threadIdx.x;
   const int row0 = blockIdx.x * ROWS;
@@ -113,52 +148,50 @@ repulsion_kernel(const float* __restrict__ y_loc,
   const int c_begin = blockIdx.y * col_span;
   const int c_end = min(nfull, c_begin + col_span);
 
-  float yi[R][M];
+  T yi[R][M];
   int gi[R];
-  float acc[R][M + 1];
+  T acc[R][M + 1];
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int i = row0 + r * THREADS + t;
     gi[r] = row_offset + i;
 #pragma unroll
-    for (int d = 0; d < M; ++d) yi[r][d] = i < nloc ? y_loc[(size_t)i * M + d] : 0.f;
+    for (int d = 0; d < M; ++d) yi[r][d] = i < nloc ? y_loc[(size_t)i * M + d] : T(0);
 #pragma unroll
-    for (int d = 0; d <= M; ++d) acc[r][d] = 0.f;
+    for (int d = 0; d <= M; ++d) acc[r][d] = T(0);
   }
 
   for (int j0 = c_begin; j0 < c_end; j0 += TJ) {
     const int cnt = min(TJ, c_end - j0);
     __syncthreads();
     for (int e = t; e < cnt; e += THREADS) {
-      const float* src = y_full + (size_t)(j0 + e) * M;
-      float c[4 * V];
+      const T* src = y_full + (size_t)(j0 + e) * M;
+      T c[L * V];
 #pragma unroll
-      for (int d = 0; d < 4 * V - 1; ++d) c[d] = d < M ? src[d] : 0.f;
-      c[4 * V - 1] = VALID ? (valid[j0 + e] ? 1.f : 0.f) : 1.f;
+      for (int d = 0; d < L * V - 1; ++d) c[d] = d < M ? src[d] : T(0);
+      c[L * V - 1] = VALID ? (valid[j0 + e] ? T(1) : T(0)) : T(1);
 #pragma unroll
-      for (int v = 0; v < V; ++v)
-        ys[e * V + v] = make_float4(c[4 * v], c[4 * v + 1], c[4 * v + 2],
-                                    c[4 * v + 3]);
+      for (int v = 0; v < V; ++v) ys[e * V + v] = Piece<T>::make(c + L * v);
     }
     __syncthreads();
 
-    float tacc[R][M + 1];
+    T tacc[R][M + 1];
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
-      for (int d = 0; d <= M; ++d) tacc[r][d] = 0.f;
+      for (int d = 0; d <= M; ++d) tacc[r][d] = T(0);
     // block-uniform: does this tile hold one of the block's diagonals?
     if (j0 < grow0 + ROWS && grow0 < j0 + cnt)
-      sweep<M, VALID, true>(ys, cnt, j0, yi, gi, tacc);
+      sweep<T, M, VALID, true>(ys, cnt, j0, yi, gi, tacc);
     else
-      sweep<M, VALID, false>(ys, cnt, j0, yi, gi, tacc);
+      sweep<T, M, VALID, false>(ys, cnt, j0, yi, gi, tacc);
 #pragma unroll
     for (int r = 0; r < R; ++r)
 #pragma unroll
       for (int d = 0; d <= M; ++d) acc[r][d] += tacc[r][d];
   }
 
-  float* out = part + (size_t)blockIdx.y * part_rows * (M + 1);
+  T* out = part + (size_t)blockIdx.y * part_rows * (M + 1);
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     const int i = row0 + r * THREADS + t;
@@ -166,25 +199,39 @@ repulsion_kernel(const float* __restrict__ y_loc,
     const bool row_ok = !VALID || valid[gi[r]];
 #pragma unroll
     for (int d = 0; d <= M; ++d)
-      out[(size_t)i * (M + 1) + d] = row_ok ? acc[r][d] : 0.f;
+      out[(size_t)i * (M + 1) + d] = row_ok ? acc[r][d] : T(0);
   }
 }
 
-template <int M>
-int launch(const float* y_loc, const float* y_full, const unsigned char* valid,
+template <class T, int M>
+int launch(const T* y_loc, const T* y_full, const unsigned char* valid,
            int nloc, int nfull, int row_offset, int splits, int part_rows,
-           float* part, cudaStream_t s) {
+           T* part, cudaStream_t s) {
   const int col_span = (nfull + splits - 1) / splits;
   const dim3 grid((nloc + ROWS - 1) / ROWS, splits);
   if (valid != nullptr)
-    repulsion_kernel<M, true><<<grid, THREADS, 0, s>>>(
+    repulsion_kernel<T, M, true><<<grid, THREADS, 0, s>>>(
         y_loc, y_full, valid, nloc, nfull, row_offset, col_span, part_rows,
         part);
   else
-    repulsion_kernel<M, false><<<grid, THREADS, 0, s>>>(
+    repulsion_kernel<T, M, false><<<grid, THREADS, 0, s>>>(
         y_loc, y_full, valid, nloc, nfull, row_offset, col_span, part_rows,
         part);
   return tsne::launch_status();
+}
+
+template <class T>
+int repulsion(const T* y_loc, const T* y_full, const unsigned char* valid,
+              int nloc, int nfull, int m, int row_offset, int splits,
+              int part_rows, T* part, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (splits < 1 || splits > 65535 || part_rows < nloc)
+    return (int)cudaErrorInvalidValue;
+  return tsne::with_m(m, [&](auto mc) {
+    return launch<T, decltype(mc)::value>(y_loc, y_full, valid, nloc, nfull,
+                                          row_offset, splits, part_rows, part,
+                                          s);
+  });
 }
 
 }  // namespace
@@ -198,12 +245,15 @@ TSNE_API int tsne_repulsion_f32(const float* y_loc, const float* y_full,
                                 const unsigned char* valid, int nloc,
                                 int nfull, int m, int row_offset, int splits,
                                 int part_rows, float* part, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  if (splits < 1 || splits > 65535 || part_rows < nloc)
-    return (int)cudaErrorInvalidValue;
-  return tsne::with_m(m, [&](auto mc) {
-    return launch<decltype(mc)::value>(y_loc, y_full, valid, nloc, nfull,
-                                       row_offset, splits, part_rows, part,
-                                       s);
-  });
+  return repulsion<float>(y_loc, y_full, valid, nloc, nfull, m, row_offset,
+                          splits, part_rows, part, stream);
+}
+
+// The float64 form of tsne_repulsion_f32: y_loc, y_full and part float64.
+TSNE_API int tsne_repulsion_f64(const double* y_loc, const double* y_full,
+                                const unsigned char* valid, int nloc,
+                                int nfull, int m, int row_offset, int splits,
+                                int part_rows, double* part, void* stream) {
+  return repulsion<double>(y_loc, y_full, valid, nloc, nfull, m, row_offset,
+                           splits, part_rows, part, stream);
 }

@@ -49,6 +49,7 @@ NVCC_FLAGS = ARCH_FLAGS + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 
 #: C entry point -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
@@ -68,6 +69,18 @@ SIGNATURES = {
                                    _F, _P, _P],
     "tsne_refine_chunk_f32": [_P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _I,
                               _I, _P, _P, _I, _I, _I, _P, _P, _P],
+    # the float64 forms: the same operands, float64 values and scalars
+    "tsne_knn_f64": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "tsne_knn_cross_f64": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _P, _P, _P],
+    "tsne_repulsion_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
+    "tsne_fused_step_f64": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P,
+                            _P, _P, _P, _P, _D, _D, _D, _D, _P, _P, _P, _P,
+                            _P],
+    "tsne_attraction_loss_f64": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I,
+                                 _D, _P, _P, _P],
+    "tsne_attraction_forces_f64": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I,
+                                   _D, _P, _P],
 }
 
 
@@ -272,15 +285,21 @@ class Kernel:
 LAUNCH_HOOKS: list = []
 
 #: the port's kernels by the id of the TPU kernel each replaces; B1's
-#: bf16-operand form (mixed precision) counts under a name of its own, so
-#: a run's launches tell the two forms apart
+#: bf16-operand form (mixed precision) and the float64 forms of B1-B5
+#: count under names of their own, so a run's launches tell the forms
+#: apart
 KERNELS = {
     "B1": Kernel("tsne_knn_f32", "B1"),
     "B1_bf16": Kernel("tsne_knn_bf16", "B1_bf16"),
+    "B1_f64": Kernel("tsne_knn_f64", "B1_f64"),
     "B2": Kernel("tsne_repulsion_f32", "B2"),
+    "B2_f64": Kernel("tsne_repulsion_f64", "B2_f64"),
     "B3": Kernel("tsne_fused_step_f32", "B3"),
+    "B3_f64": Kernel("tsne_fused_step_f64", "B3_f64"),
     "B4": Kernel("tsne_attraction_loss_f32", "B4"),
+    "B4_f64": Kernel("tsne_attraction_loss_f64", "B4_f64"),
     "B5": Kernel("tsne_attraction_forces_f32", "B5"),
+    "B5_f64": Kernel("tsne_attraction_forces_f64", "B5_f64"),
     "B6": Kernel("tsne_refine_chunk_f32", "B6"),
 }
 

@@ -24,9 +24,10 @@ spans, recorded in an ``obs/trace.collecting`` scope) and ``metrics_``
 (the obs snapshot, with ``metrics_["telemetry"]`` and
 ``metrics_["policy"]`` when those ran).  ``aot_cache`` False builds the
 kernel library into a directory of the process's own
-(``kernels/build.set_cache``).  ``dtype="float64"`` on the card raises
-``NotImplementedError`` naming ROADMAP §C when ``fit`` starts, before
-the input is touched.  ``transform`` embeds new rows
+(``kernels/build.set_cache``).  ``dtype="float64"`` runs on the card
+through the kernels' float64 forms (a refining ``project`` kNN plan
+raises ``NotImplementedError`` naming ROADMAP §C before the kNN stage).
+``transform`` embeds new rows
 into the fitted map without moving it (``serve/transform.py``): the fit
 keeps its input, and ``frozen_model`` freezes the two on first use.
 """
@@ -157,12 +158,6 @@ class TSNE:
         self.metrics_ = {}
         self._fit_x = self._frozen = None
 
-    def _refuse_unported(self, device: torch.device) -> None:
-        if self.dtype == "float64" and device.type == "cuda":
-            raise NotImplementedError(
-                "dtype='float64' runs on the CPU only: the kernels are "
-                "float32 (a limit of ROADMAP §C)")
-
     @property
     def _matmul_dtype(self):
         """The kNN products' operand dtype: bf16 under
@@ -208,7 +203,6 @@ class TSNE:
         from tsne_flink_tpu_torch.utils.device import resolve_device
 
         device = resolve_device(self.device)
-        self._refuse_unported(device)
         spmd_job = self.spmd and _group_size() > 1
         mesh = None if spmd_job else self._mesh(device)
         prev_cache = kbuild.cache_enabled()
@@ -392,7 +386,8 @@ class TSNE:
             self._frozen = from_arrays(
                 self._fit_x, self.embedding_, plan,
                 perplexity=cfg.perplexity, learning_rate=cfg.learning_rate,
-                metric=cfg.metric, device=self._fit_device)
+                metric=cfg.metric, device=self._fit_device,
+                dtype=self._torch_dtype(self._fit_device))
         return self._frozen
 
     def transform(self, x, *, bucket: int | None = None,

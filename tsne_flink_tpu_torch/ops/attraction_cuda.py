@@ -36,6 +36,11 @@ shard's rows — ``y_local``, its head or row block, its ragged part with
 local sources and global destinations — against the gathered
 ``y_full``; one warp walks one row, so a row's bits do not depend on the
 launch's row count (held on the card by ``chip_smoke.py``'s ``[mesh]``).
+
+Each kernel takes float32 or float64 values with every value operand of
+one dtype (ids int32, the row pointer int64) and launches the matching
+form — ``KERNELS["B3_f64"]`` etc. at float64, the same templates over
+the scalar type — casting nothing on the way in.
 """
 
 from __future__ import annotations
@@ -46,7 +51,7 @@ from typing import NamedTuple
 import torch
 
 from tsne_flink_tpu_torch.kernels.build import KERNELS
-from tsne_flink_tpu_torch.ops.metrics import metric_fn
+from tsne_flink_tpu_torch.ops.metrics import kernel_float64, metric_fn
 
 #: padding multiple of the CSR tail edge list
 TAIL_MULTIPLE = 1024
@@ -319,11 +324,13 @@ def attraction_loss_plain(y_local, y_full, jidx, jval, exag, z, *,
 
 def _check_cuda(name, y_local, y_full, jidx, jval, planes=(), ragged=None):
     """Device, dtype, shape and contiguity of a head kernel's operands;
-    ``planes`` are [nloc, m] f32 state planes, ``ragged`` a
+    ``planes`` are [nloc, m] state planes of the value dtype, ``ragged`` a
     :class:`Ragged` part.  Returns the block's width W (0 without one)."""
     dev = y_local.device
     if not y_local.is_cuda:
         raise ValueError(f"{name} kernel takes CUDA tensors, got {dev}")
+    kernel_float64(y_local)  # float32 or float64, every value alike
+    vt = y_local.dtype
     nloc, m = y_local.shape
     if not 1 <= m <= M_MAX or y_full.dim() != 2 or y_full.shape[1] != m:
         raise ValueError(f"{name} kernel takes [N, m] embeddings with 1 <= "
@@ -332,18 +339,16 @@ def _check_cuda(name, y_local, y_full, jidx, jval, planes=(), ragged=None):
     if y_full.data_ptr() % 16:
         raise ValueError(f"{name} kernel gathers y_full's rows as vectors: "
                          "it needs a 16-byte aligned base")
-    want = [(y_local, torch.float32, (nloc, m)),
-            (y_full, torch.float32, tuple(y_full.shape))]
+    want = [(y_local, vt, (nloc, m)), (y_full, vt, tuple(y_full.shape))]
     w = 0 if jidx is None else jidx.shape[1]
     if jidx is not None:
-        want += [(jidx, torch.int32, (nloc, w)),
-                 (jval, torch.float32, (nloc, w))]
-    want += [(p, torch.float32, (nloc, m)) for p in planes]
+        want += [(jidx, torch.int32, (nloc, w)), (jval, vt, (nloc, w))]
+    want += [(p, vt, (nloc, m)) for p in planes]
     if ragged is not None:
         e = ragged.dst.shape[0]
         want += [(ragged.rowptr, torch.int64, (nloc + 1,)),
                  (ragged.dst, torch.int32, (e,)),
-                 (ragged.val, torch.float32, (e,))]
+                 (ragged.val, vt, (e,))]
     for t, dtype, shape in want:
         if t.device != dev or t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"{name} kernel: expected {dtype} {shape} on "
@@ -395,18 +400,19 @@ def fused_step_update(y_local, y_full, jidx, jval, exag, rep, z, valid,
     if valid is not None:
         if valid.shape != (nloc,) or valid.device != dev:
             raise ValueError(f"B3 kernel: valid must be [{nloc}] on {dev}")
-        mask = valid.to(torch.float32).contiguous()
+        mask = valid.to(y_local.dtype).contiguous()
     if order is not None and (order.dtype != torch.int32
                               or order.shape != (nloc,)
                               or order.device != dev
                               or not order.is_contiguous()):
         raise ValueError(f"B3 kernel: order must be a contiguous int32 "
                          f"[{nloc}] permutation on {dev}")
-    z = torch.as_tensor(z, dtype=torch.float32,
+    z = torch.as_tensor(z, dtype=y_local.dtype,
                         device=dev).reshape(1).contiguous()
     y2, u2, g2 = (torch.empty_like(y_local) for _ in range(3))
-    gsq = torch.empty(nloc, device=dev, dtype=torch.float32)
-    _launch_rows(KERNELS["B3"], y_local, y_full, jidx, jval, w, ragged,
+    gsq = torch.empty(nloc, device=dev, dtype=y_local.dtype)
+    _launch_rows(KERNELS["B3_f64"] if kernel_float64(y_local)
+                 else KERNELS["B3"], y_local, y_full, jidx, jval, w, ragged,
                  None if order is None else order.data_ptr(),
                  rep.data_ptr(), z.data_ptr(),
                  None if mask is None else mask.data_ptr(),
@@ -426,11 +432,12 @@ def attraction_loss(y_local, y_full, jidx, jval, exag, z, *,
         return attraction_loss_plain(y_local, y_full, jidx, jval, exag, z,
                                      ragged=ragged, row_chunk=row_chunk)
     w = _check_cuda("B4", y_local, y_full, jidx, jval, ragged=ragged)
-    z = torch.as_tensor(z, dtype=torch.float32,
+    z = torch.as_tensor(z, dtype=y_local.dtype,
                         device=y_local.device).reshape(1).contiguous()
     loss = torch.empty(y_local.shape[0], device=y_local.device,
-                       dtype=torch.float32)
-    _launch_rows(KERNELS["B4"], y_local, y_full, jidx, jval, w, ragged,
+                       dtype=y_local.dtype)
+    _launch_rows(KERNELS["B4_f64"] if kernel_float64(y_local)
+                 else KERNELS["B4"], y_local, y_full, jidx, jval, w, ragged,
                  float(exag), z.data_ptr(), loss.data_ptr())
     return loss
 
@@ -446,6 +453,7 @@ def attraction_forces(y_local, y_full, jidx, jval, exag, *,
                                        ragged=ragged, row_chunk=row_chunk)
     w = _check_cuda("B5", y_local, y_full, jidx, jval, ragged=ragged)
     att = torch.empty_like(y_local)
-    _launch_rows(KERNELS["B5"], y_local, y_full, jidx, jval, w, ragged,
+    _launch_rows(KERNELS["B5_f64"] if kernel_float64(y_local)
+                 else KERNELS["B5"], y_local, y_full, jidx, jval, w, ragged,
                  float(exag), att.data_ptr())
     return att

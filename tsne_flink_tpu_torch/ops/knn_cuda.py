@@ -27,6 +27,12 @@ norm pairs of the unrounded x.  Its plain version is the plain sweep with
 :func:`~.metrics.matmul_operands` (the rounded operands, products exact
 in float32 or float64).
 
+At float64 both sweeps take B1's float64 form (``KERNELS["B1_f64"]``,
+``csrc/knn.cu``'s ``knn_f64_kernel``): FP64 tensor-core products over
+plain float64 norms (:func:`norms_f64`), float64 distances out.  The
+wrappers take float32 or float64 points and cast nothing;
+:func:`sweep_norms` is the norms each form takes.
+
 B1's cross sweep (:func:`knn_cross`) is the same kernel over a row block
 and a column block, each with the global id of its first point, masking
 columns past ``n_global`` and each row's own id: the hop of the
@@ -76,6 +82,7 @@ import torch
 
 from tsne_flink_tpu_torch.kernels.build import KERNELS
 from tsne_flink_tpu_torch.ops.metrics import (check_matmul_dtype,
+                                              kernel_float64,
                                               matmul_operands, metric_fn,
                                               pairwise)
 
@@ -85,7 +92,8 @@ FEATURE_MULTIPLE = 16
 #: the mantissa bits a float32 has beyond TF32's 10
 TF32_DROPPED_BITS = 13
 #: the kernel keeps each row's k-list in shared memory: 64·k·8 bytes a
-#: block up to k = 256, 16·k·8 bytes in its deep class up to this k
+#: block up to k = 256, 16·k·8 bytes in its deep class up to this k (the
+#: float64 form keeps them in its outputs, to the same k)
 K_MAX = 1024
 #: rows per distance block of the plain sweep
 PLAIN_ROW_CHUNK = 1024
@@ -162,6 +170,19 @@ def norm_pairs(base: torch.Tensor) -> torch.Tensor:
     return torch.nn.functional.pad(pairs, (0, 0, 0, 1)).contiguous()
 
 
+def norms_f64(base: torch.Tensor) -> torch.Tensor:
+    """[N + 1] float64: each row's squared norm, then a zero (B1's float64
+    form copies the norms two columns at a time)."""
+    return torch.nn.functional.pad(torch.sum(base * base, dim=1),
+                                   (0, 1)).contiguous()
+
+
+def sweep_norms(base: torch.Tensor) -> torch.Tensor:
+    """The norms B1 takes for ``base``'s dtype: :func:`norm_pairs` at
+    float32, :func:`norms_f64` at float64."""
+    return norms_f64(base) if kernel_float64(base) else norm_pairs(base)
+
+
 def knn_config(k: int) -> tuple[int, int, int, int]:
     """B1's configuration for ``k`` as the kernel chooses it: (rows a
     block, ring stages, distance-tile buffers, dynamic shared memory
@@ -174,11 +195,18 @@ def knn_config(k: int) -> tuple[int, int, int, int]:
     return rows.value, stages.value, bufs.value, smem
 
 
-def _check_cuda(base: torch.Tensor, k: int) -> None:
+def _check_points(t: torch.Tensor, matmul_dtype) -> None:
+    """B1 takes float32 points (bf16 operands an option) or float64
+    points (no operand rounding)."""
+    if kernel_float64(t) and matmul_dtype is not None:
+        raise TypeError("B1's float64 form rounds no operand: matmul_dtype "
+                        "must be None for float64 points")
+
+
+def _check_cuda(base: torch.Tensor, k: int, matmul_dtype=None) -> None:
     if not base.is_cuda:
         raise ValueError(f"B1 kernel takes a CUDA tensor, got {base.device}")
-    if base.dtype != torch.float32:
-        raise TypeError(f"B1 kernel takes float32 points, got {base.dtype}")
+    _check_points(base, matmul_dtype)
     if base.dim() != 2 or not base.is_contiguous():
         raise ValueError("B1 kernel takes a contiguous [N, F] tensor")
     if base.shape[1] % FEATURE_MULTIPLE or base.data_ptr() % 16:
@@ -197,21 +225,24 @@ def _operand_scratch(t: torch.Tensor, matmul_dtype) -> torch.Tensor:
 
 def knn_sweep_cuda(base: torch.Tensor, k: int, cosine: bool,
                    matmul_dtype=None):
-    """Launch B1 (3xTF32), or its bf16 form under ``matmul_dtype``:
-    (dist [N, k], idx [N, k] int32), each row's k nearest in no
-    particular order."""
+    """Launch B1 (3xTF32), its bf16 form under ``matmul_dtype``, or its
+    float64 form on float64 points: (dist [N, k] in the points' dtype,
+    idx [N, k] int32), each row's k nearest in no particular order."""
     check_matmul_dtype(matmul_dtype)
     pad = -base.shape[1] % FEATURE_MULTIPLE
     if pad:
         base = torch.nn.functional.pad(base, (0, pad))
     base = base.contiguous()
-    _check_cuda(base, k)
+    _check_cuda(base, k, matmul_dtype)
     n, f = base.shape
     norms = (torch.zeros((1, 2), device=base.device) if cosine
-             else norm_pairs(base))
-    dist = torch.empty((n, k), device=base.device, dtype=torch.float32)
+             else sweep_norms(base))
+    dist = torch.empty((n, k), device=base.device, dtype=base.dtype)
     idx = torch.empty((n, k), device=base.device, dtype=torch.int32)
-    if matmul_dtype is None:
+    if kernel_float64(base):
+        KERNELS["B1_f64"](base.data_ptr(), norms.data_ptr(), n, f, k,
+                          int(cosine), dist.data_ptr(), idx.data_ptr())
+    elif matmul_dtype is None:
         KERNELS["B1"](base.data_ptr(), norms.data_ptr(), n, f, k,
                       int(cosine), dist.data_ptr(), idx.data_ptr())
     else:
@@ -300,19 +331,22 @@ def _padded_operand(base: torch.Tensor) -> torch.Tensor:
 def knn_cross_cuda(rows: torch.Tensor, cols: torch.Tensor, k: int,
                    cosine: bool, row_off: int, col_off: int, n_global: int,
                    norms_r=None, norms_c=None, matmul_dtype=None):
-    """Launch B1's cross sweep (3xTF32, or its bf16 form under
-    ``matmul_dtype``): (dist [nr, k], idx [nr, k] int32), each row's k
-    nearest in no particular order.  ``norms_r``/``norms_c`` are the
-    blocks' :func:`norm_pairs` (of the feature-padded, unrounded
-    operands), computed here when None."""
+    """Launch B1's cross sweep (3xTF32, its bf16 form under
+    ``matmul_dtype``, or its float64 form on float64 blocks): (dist [nr,
+    k] in the blocks' dtype, idx [nr, k] int32), each row's k nearest in
+    no particular order.  ``norms_r``/``norms_c`` are the blocks'
+    :func:`sweep_norms` (of the feature-padded, unrounded operands),
+    computed here when None."""
     check_matmul_dtype(matmul_dtype)
     rows, cols = _padded_operand(rows), _padded_operand(cols)
     for name, t in (("rows", rows), ("cols", cols)):
         if t.device != rows.device:
             raise ValueError(f"B1 cross sweep takes one device; {name} is "
                              f"on {t.device}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"B1 kernel takes float32 points, got {t.dtype}")
+        _check_points(t, matmul_dtype)
+        if t.dtype != rows.dtype:
+            raise TypeError(f"B1 cross sweep takes one dtype; {name} is "
+                            f"{t.dtype}, rows {rows.dtype}")
         if not t.is_cuda or t.data_ptr() % 16:
             raise ValueError("B1 kernel takes 16-byte aligned CUDA rows")
     nr, f = rows.shape
@@ -324,18 +358,27 @@ def knn_cross_cuda(rows: torch.Tensor, cols: torch.Tensor, k: int,
     if not (0 <= row_off and 0 <= col_off and row_off + nr < 2 ** 31
             and col_off + nc < 2 ** 31):
         raise ValueError("B1 cross sweep: global ids must fit int32")
+    f64 = kernel_float64(rows)
     if cosine:
         norms_r = norms_c = torch.zeros((1, 2), device=rows.device)
     else:
-        norms_r = norm_pairs(rows) if norms_r is None else norms_r
-        norms_c = norm_pairs(cols) if norms_c is None else norms_c
+        norms_r = sweep_norms(rows) if norms_r is None else norms_r
+        norms_c = sweep_norms(cols) if norms_c is None else norms_c
         for t, m in ((norms_r, nr), (norms_c, nc)):
-            if t.shape != (m + 1, 2) or not t.is_contiguous():
-                raise ValueError("B1 cross sweep: norm pairs must be "
-                                 "norm_pairs(block)")
-    dist = torch.empty((nr, k), device=rows.device, dtype=torch.float32)
+            want = (m + 1,) if f64 else (m + 1, 2)
+            if (t.shape != want or t.dtype != rows.dtype
+                    or not t.is_contiguous()):
+                raise ValueError("B1 cross sweep: norms must be "
+                                 "sweep_norms(block)")
+    dist = torch.empty((nr, k), device=rows.device, dtype=rows.dtype)
     idx = torch.empty((nr, k), device=rows.device, dtype=torch.int32)
-    if matmul_dtype is None:
+    if f64:
+        KERNELS["B1_f64"].entry("tsne_knn_cross_f64", rows.data_ptr(),
+                                norms_r.data_ptr(), nr, int(row_off),
+                                cols.data_ptr(), norms_c.data_ptr(), nc,
+                                int(col_off), int(n_global), f, k,
+                                int(cosine), dist.data_ptr(), idx.data_ptr())
+    elif matmul_dtype is None:
         KERNELS["B1"].entry("tsne_knn_cross_f32", rows.data_ptr(),
                             norms_r.data_ptr(), nr, int(row_off),
                             cols.data_ptr(), norms_c.data_ptr(), nc,

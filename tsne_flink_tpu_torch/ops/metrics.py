@@ -44,6 +44,18 @@ def check_matmul_dtype(dtype) -> None:
                          f"(None or one of {MATMUL_DTYPES})")
 
 
+def kernel_float64(x) -> bool:
+    """Whether ``x`` — a tensor or a dtype — is float64: the one test a
+    kernel wrapper dispatches its float64 form on (its float32 form
+    otherwise).  Any other dtype raises: the kernels take these two.
+    graftlint's dtype-drift blesses this function's float64 name."""
+    dtype = x.dtype if torch.is_tensor(x) else x
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the kernels take float32 or float64 values, got "
+                        f"{dtype}")
+    return dtype == torch.float64
+
+
 def resolve_matmul_dtype(dtype: str | None):
     """A run's ``--dtype`` / ``TSNE(dtype=)`` -> ``(compute dtype name,
     matmul operand dtype)``: ``bfloat16`` is mixed precision (float32

@@ -19,6 +19,12 @@ CUDA tensor (or it raises).  Same ``row_offset``/``col_valid``/``row_z``
 contract as the JAX function.  Without ``col_valid`` the rows may lie
 past ``y_full`` (``row_offset >= len(y_full)``): the serving path's query
 rows against a frozen base, where no pair is a self-pair.
+
+Float64 operands launch B2's float64 form (``KERNELS["B2_f64"]``: the
+same template at float64, an IEEE reciprocal a pair), with the same
+column splits and slab rounding, so a mesh shard keeps its bits at
+float64 too.  The wrapper casts nothing: both operands are float32, or
+both float64.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from __future__ import annotations
 import torch
 
 from tsne_flink_tpu_torch.kernels.build import KERNELS
+from tsne_flink_tpu_torch.ops.metrics import kernel_float64
 from tsne_flink_tpu_torch.ops.repulsion_exact import exact_repulsion
 
 #: rows one block of the kernel owns (128 threads x 4 rows: ROWS in
@@ -69,9 +76,13 @@ def _check_rows(y, y_full, col_valid, row_offset):
 
 def _check_cuda(y, y_full):
     for name, t in (("y", y), ("y_full", y_full)):
-        if not t.is_cuda or t.dtype != torch.float32:
-            raise TypeError(f"B2 kernel takes float32 CUDA tensors; {name} is "
-                            f"{t.dtype} on {t.device}")
+        if not t.is_cuda:
+            raise TypeError(f"B2 kernel takes CUDA tensors; {name} is on "
+                            f"{t.device}")
+        kernel_float64(t)
+        if t.dtype != y.dtype:
+            raise TypeError(f"B2 kernel takes one dtype; y is {y.dtype}, "
+                            f"y_full {y_full.dtype}")
         if t.dim() != 2 or not t.is_contiguous():
             raise ValueError(f"B2 kernel takes a contiguous [N, m] {name}")
     m = y.shape[1]
@@ -115,10 +126,11 @@ def cuda_exact_repulsion(y: torch.Tensor, y_full: torch.Tensor | None = None,
                            nfull, sms)
     rows = -(-nloc // PART_ROW_MULTIPLE) * PART_ROW_MULTIPLE
     part = torch.empty((splits, rows, m + 1), device=y.device,
-                       dtype=torch.float32)
-    KERNELS["B2"](y.data_ptr(), y_full.data_ptr(),
-                  None if valid is None else valid.data_ptr(), nloc, nfull,
-                  m, row_offset, splits, rows, part.data_ptr())
+                       dtype=y.dtype)
+    kernel = KERNELS["B2_f64"] if kernel_float64(y) else KERNELS["B2"]
+    kernel(y.data_ptr(), y_full.data_ptr(),
+           None if valid is None else valid.data_ptr(), nloc, nfull, m,
+           row_offset, splits, rows, part.data_ptr())
     # a fixed order for a fixed split count (rows past nloc are dropped)
     total = torch.sum(part, dim=0)[:nloc]
     zrow = total[:, m].contiguous()

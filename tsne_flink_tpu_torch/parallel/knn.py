@@ -50,7 +50,7 @@ from tsne_flink_tpu_torch.ops.knn import (ZORDER_PER_CYCLE, ProjectDraw,
                                           draw_refine, knn_refine,
                                           merge_rounds, pick_knn_filter)
 from tsne_flink_tpu_torch.ops.knn_cuda import (FEATURE_MULTIPLE, knn_cross,
-                                               norm_pairs)
+                                               sweep_norms)
 from tsne_flink_tpu_torch.ops.metrics import matmul_operands, pairwise
 from tsne_flink_tpu_torch.ops.zorder import BITS_FOR_DIMS, morton_keys
 
@@ -87,7 +87,7 @@ def ring_knn(x_local: torch.Tensor, k: int, n_global: int,
         base = base.contiguous()
         # the block's norm pairs travel with it: each pair's norms are its
         # points' own, as in the single sweep
-        norms = None if cosine else norm_pairs(base)
+        norms = None if cosine else sweep_norms(base)
     me, d_ = axis.index, axis.size
     row_off = me * n_local
     blk, blk_norms = base, norms

@@ -191,7 +191,7 @@ class JobSpec:
     assembly: str | None = None    # None = auto (admission may pin)
     row_chunk: int = 2048
     seed: int = 0
-    x64: bool = False              # float64 (the CPU only)
+    x64: bool = False              # float64 (the kernels' float64 forms)
     max_retries: int = 2           # in-job supervisor ladder relaunches
     fault_plan: str | None = None  # process-local chaos (job's own sites)
     job_timeout: float | None = None
@@ -330,10 +330,6 @@ def run_job(spec: JobSpec) -> dict:
     device = None
     try:
         device = resolve_device(spec.device)
-        if spec.x64 and device.type == "cuda":
-            raise NotImplementedError(
-                "x64 runs on the CPU only: the kernels are float32 (a limit "
-                "of ROADMAP §C)")
         x = np.load(spec.input)
         record["n"] = int(x.shape[0])
         dtype = torch.float64 if spec.x64 else torch.float32
@@ -413,7 +409,7 @@ class ServeSpec:
     iters: int | None = None
     eta: float | None = None
     max_ticks: int | None = None   # None: until idle exit or a kill
-    x64: bool = False              # float64 (the CPU only)
+    x64: bool = False              # a float64 model (its own dtype on the card)
     fault_plan: str | None = None
     job_timeout: float | None = None
     stage_timeout: float | None = None
@@ -484,10 +480,6 @@ def run_serve(spec: ServeSpec) -> dict:
     device = None
     try:
         device = resolve_device(spec.device)
-        if spec.x64 and device.type == "cuda":
-            raise NotImplementedError(
-                "x64 runs on the CPU only: the kernels are float32 (a limit "
-                "of ROADMAP §C)")
         x = np.load(spec.input)
         if spec.x64:
             x = x.astype(np.float64)
@@ -497,7 +489,8 @@ def run_serve(spec: ServeSpec) -> dict:
         model = load_frozen(spec.model, x, plan,
                             perplexity=float(spec.perplexity),
                             learning_rate=float(spec.learning_rate),
-                            metric=spec.metric, device=device)
+                            metric=spec.metric, device=device,
+                            dtype=torch.float64 if spec.x64 else None)
         daemon = ServeDaemon(model, spec.spool, bucket=spec.bucket,
                              iters=spec.iters, eta=spec.eta,
                              tick_s=spec.tick_s, max_batch=spec.max_batch,
@@ -520,7 +513,8 @@ def run_serve(spec: ServeSpec) -> dict:
                     metric=extra.get("metric", spec.metric),
                     neighbors=extra.get("neighbors", spec.neighbors),
                     repulsion=extra.get("repulsion", spec.repulsion),
-                    name=spec.name, device=device),
+                    name=spec.name, device=device,
+                    dtype=torch.float64 if spec.x64 else None),
                 activate=bool(extra.get("activate", False)))
         warm_stages(model, bucket=daemon.bucket, iters=daemon.iters,
                     eta=daemon.eta)

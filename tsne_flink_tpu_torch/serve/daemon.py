@@ -546,7 +546,8 @@ class ServeDaemon:
                         neighbors=spec.get("neighbors"),
                         repulsion=spec.get("repulsion", "auto"),
                         name=name[:-len(SWAP_SUFFIX)],
-                        device=self.model.x.device)
+                        device=self.model.x.device,
+                        dtype=self.model.x.dtype)
                     out.update(self.load_model(
                         model, activate=bool(spec.get("activate", True))))
                 except Exception as e:  # control-plane isolation

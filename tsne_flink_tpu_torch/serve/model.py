@@ -104,15 +104,29 @@ class FrozenModel:
         return transform_peak_bytes(self.serve_plan(int(bucket)))
 
 
+def frozen_dtype(device_type: str, dtype=None):
+    """The dtype a frozen model's tensors take, from the device type and
+    the dtype the caller asked for (``dtype``: ``torch.float64`` for a
+    float64 fit, an ``x64`` serve spec or ``--dtype float64``; None
+    otherwise).  On the card float64 when asked for (the kernels' float64
+    forms serve it), else float32; on the CPU None: the base features'
+    own dtype, as the JAX ``from_arrays`` keeps x's."""
+    if device_type != "cuda":
+        return None
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def from_arrays(x, y, plan: PlanConfig, *, perplexity: float = 30.0,
                 learning_rate: float = 1000.0, metric: str = "sqeuclidean",
-                ckpt_hash: str | None = None, device=None) -> FrozenModel:
+                ckpt_hash: str | None = None, device=None,
+                dtype=None) -> FrozenModel:
     """A FrozenModel from arrays (the estimator freezes its own fit this
     way).  ``model_id`` = sha256 over the checkpoint content hash when
     there is one, else the embedding's fingerprint, with the base
-    features' fingerprint and the serving repulsion.  On the card the
-    tensors are float32 (the kernels' type); on the CPU they keep the
-    features' dtype."""
+    features' fingerprint and the serving repulsion.  The tensors take
+    :func:`frozen_dtype` of the device and ``dtype``: on the card float32,
+    or float64 when the caller asks for it; on the CPU the features'
+    dtype."""
     from tsne_flink_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(device)
@@ -124,8 +138,12 @@ def from_arrays(x, y, plan: PlanConfig, *, perplexity: float = 30.0,
     emb_id = ckpt_hash if ckpt_hash else _fingerprint(y_np)
     model_id = hashlib.sha256(
         f"{emb_id}|{_fingerprint(x_np)}|{rep}".encode()).hexdigest()[:16]
-    dtype = torch.float32 if device.type == "cuda" else None
-    xd = torch.as_tensor(np.array(x_np), dtype=dtype, device=device)
+    xd = torch.as_tensor(np.array(x_np),
+                         dtype=frozen_dtype(device.type, dtype),
+                         device=device)
+    if device.type == "cuda":
+        # the memory model charges the bytes the card's tensors take
+        plan = replace(plan, dtype=str(xd.dtype).removeprefix("torch."))
     # a fresh contiguous allocation: B5 gathers y's rows as 16-byte vectors
     yd = torch.tensor(y_np, dtype=xd.dtype, device=device).contiguous()
     field = None
@@ -140,10 +158,12 @@ def from_arrays(x, y, plan: PlanConfig, *, perplexity: float = 30.0,
 
 def load_frozen(ckpt_path: str, x, plan: PlanConfig, *,
                 perplexity: float = 30.0, learning_rate: float = 1000.0,
-                metric: str = "sqeuclidean", device=None) -> FrozenModel:
+                metric: str = "sqeuclidean", device=None,
+                dtype=None) -> FrozenModel:
     """A fat v2 checkpoint as a FrozenModel, its base features supplied
     by the caller (checkpoints do not carry the input: the CLI's
-    ``--model`` pairs with ``--input``)."""
+    ``--model`` pairs with ``--input``); ``dtype`` as
+    :func:`from_arrays` takes it."""
     from tsne_flink_tpu_torch.utils import checkpoint as ckpt
 
     state, _, _, _, content_hash = ckpt.load_model(ckpt_path)
@@ -155,7 +175,7 @@ def load_frozen(ckpt_path: str, x, plan: PlanConfig, *,
             "the --model/--input pair must describe the same dataset")
     return from_arrays(x_arr, state.y, plan, perplexity=perplexity,
                        learning_rate=learning_rate, metric=metric,
-                       ckpt_hash=content_hash, device=device)
+                       ckpt_hash=content_hash, device=device, dtype=dtype)
 
 
 def frozen_from_files(ckpt_path: str, input_path: str, *,
@@ -164,9 +184,10 @@ def frozen_from_files(ckpt_path: str, input_path: str, *,
                       metric: str = "sqeuclidean",
                       neighbors: int | None = None,
                       repulsion: str = "auto", name: str = "swap",
-                      device=None) -> FrozenModel:
+                      device=None, dtype=None) -> FrozenModel:
     """A FrozenModel from (checkpoint, input ``.npy``) paths: the loader
-    behind the daemon's ``<name>.swap.json`` hot-swap files."""
+    behind the daemon's ``<name>.swap.json`` hot-swap files (``dtype`` as
+    :func:`from_arrays` takes it)."""
     from tsne_flink_tpu_torch.utils.device import resolve_device
 
     device = resolve_device(device)
@@ -177,4 +198,4 @@ def frozen_from_files(ckpt_path: str, input_path: str, *,
                       name=f"serve-load-{name}")
     return load_frozen(ckpt_path, x, plan, perplexity=float(perplexity),
                        learning_rate=float(learning_rate), metric=metric,
-                       device=device)
+                       device=device, dtype=dtype)

@@ -57,8 +57,10 @@ and one KL pass) and no output.
 stays float32 and the kNN stage's distance and projection products take
 bf16 operands (``ops/metrics.matmul_operands``; kernel B1's bf16 form on
 the card), on both routes and in ``--transform``'s query sweep.
-``--dtype float64`` runs on the CPU only.  The port reads no ``TSNE_*``
-environment variable.
+``--dtype float64`` runs on the card through the kernels' float64 forms
+(B1-B5), except on a refining ``project`` kNN plan, which is refused
+before the kNN stage (kernel B6 has no float64 form yet, ROADMAP §C).
+The port reads no ``TSNE_*`` environment variable.
 """
 
 from __future__ import annotations
@@ -165,8 +167,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "theta)")
     p.add_argument("--dtype", default=None,
                    choices=["float32", "float64", "bfloat16"],
-                   help="float32 (default; the kernels' type), float64 (the "
-                        "CPU only), or bfloat16: mixed precision, float32 "
+                   help="float32 (default), float64 (on the card but for "
+                        "a refining project kNN plan), or bfloat16: mixed "
+                        "precision, float32 "
                         "state with bf16 operands in the kNN stage's "
                         "distance and projection products")
     # --- multi-device (parallel/mesh) ---
@@ -747,7 +750,9 @@ def _serve_transform(args, ids, x_np, neighbors: int, device,
                       name="cli-launch")
     model = load_frozen(args.model, x_np, plan, perplexity=args.perplexity,
                         learning_rate=args.learningRate, metric=args.metric,
-                        device=device)
+                        device=device,
+                        dtype=(torch.float64 if args.dtype == "float64"
+                               else None))
     qids, q_np = tio.read_input(args.transform, args.dimension)
     tio.write_embedding(args.output, qids,
                         transform(model, q_np, matmul_dtype=operands))
@@ -823,10 +828,6 @@ def _main(argv, device, sp_run, state, mesh_devices=None) -> int:
                                      label="cli.run").start()
     wd = state["watchdog"]
     device = resolve_device(device)
-    if args.dtype == "float64" and device.type == "cuda":
-        raise NotImplementedError(
-            "--dtype float64 runs on the CPU only: the kernels are float32 "
-            "(a limit of ROADMAP §C)")
     from tsne_flink_tpu_torch.ops.metrics import resolve_matmul_dtype
     state_dtype, operands = resolve_matmul_dtype(args.dtype)
     dtype, np_dtype = ((torch.float64, np.float64)
