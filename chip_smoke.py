@@ -84,7 +84,25 @@ Phases, in order; any failure exits non-zero before the result line:
    flush), then the card against the CPU at 2,500 x 50 (BASELINE config
    1's size; the CPU's half a process of its own since phase 2): kNN ids
    equal, P within ±1e-12, y after one iteration within ±1e-9, the final
-   KL after 1,000 iterations within 0.05;
+   KL after 1,000 iterations within 0.05, and the project kNN (3 seed
+   rounds + 2 refine cycles, B6_f64 on the card) from the same draws: ids
+   equal outside ties, each distance within 1e-12 of |d| + ‖a‖² + ‖b‖²,
+   P from that graph within ±1e-12.  B6_f64 (``KERNELS["B6_f64"]``)
+   against its plain version on the stages of real refine chunks
+   captured at float64 (the blobs' cascade at F = 128 and exact stage at
+   F = 784, the cells' exact stage at F = 50, the edge chunks, the blobs'
+   first stage with n_valid = N − 64, and k = 600 on the [widths] cuts):
+   two launches bit for bit, each distance within 1e-12 of |d²| + ‖a‖² +
+   ‖b‖², ids equal outside ties, rows by (d, id), a keep stage's kept set
+   equal outside ties at the cut; each full-size stage timed over 32
+   chunks beside its plain version and its bound.  After phase 8,
+   ``TSNE(dtype="float64", knn_method="project")`` at [project]'s
+   configuration (B6_f64 360, no float32 form; recall@90 against
+   B1_f64's graph >= 0.93; final KL within 0.05 of [project]'s); after
+   [large], config 5's shape at float64 end to end (B6_f64 1,595, B5_f64
+   and B4_f64 as [large]'s B5 and B4; recall@150 on B1_f64's 4,096 rows
+   within 0.005 of the float32 run's; final KL within 0.05; the memory
+   model within [1, 2]x of the measured peak);
 5. full    — ``tsne_embed`` on 60,000 x 784 MNIST-like blobs (perplexity
    30, k = 90, exact repulsion, CSR attraction, 300 iterations): stage
    seconds (the plan stage on its own line), the launches of each kernel
@@ -135,8 +153,8 @@ Phases, in order; any failure exits non-zero before the result line:
    reads none of the float32 entries and ends within 0.05 KL of its
    float32 run; config 2 with ``--dtype float64 --knnMethod bruteforce``
    runs on the float64 forms alone within 0.05 KL of config 2's float32
-   run, and config 2 itself at ``--dtype float64`` (project) is refused
-   before the kNN stage naming §C and B6, nothing launched;
+   run, and config 2 itself at ``--dtype float64`` (its project kNN,
+   B6_f64 360 launches) too;
 9. large — ``tsne_embed`` at the shape of the 10x Genomics 1.3M mouse
    brain cells (1,306,127 x 50 principal components; a synthetic
    stand-in, see ``make_cells``): perplexity 50, k = 150, the hybrid kNN
@@ -241,7 +259,9 @@ Phases, in order; any failure exits non-zero before the result line:
    reference's refine cycles a rank) and the alltoall job (P ids equal
    to replicated's, values rtol 1e-6; final KL within 0.01); and
    ``--symStrict`` over a dropping symmetrization ending both ranks
-   non-zero;
+   non-zero; the float64 project kNN at mesh 2 on the test mesh equal to
+   mesh 1's graph bit for bit (one set of draws), and over the two
+   processes (B6_f64 a rank, recall@90 >= 0.93 against B1_f64's graph);
 9e. diverging — N = 2,000 at learning rate 1e30 with the sentinel: three
    rollbacks, eta halved each time, then ``DivergenceError``;
 10. determinism — two runs at N = 2,000 give the same bits, on the CSR
@@ -292,10 +312,11 @@ blocks runs; B2's ``mesh_shard_ms`` at a shard's shape), then the records
 of 9h's B1 cross sweep (``B1 knn cross``, at the two-process job's hop,
 its launches that job's) and B6 with ``n_valid`` (``B6 refine_chunk
 n_valid``, its launches the two-process project kNN's).  The float64
-forms' records (B1_f64-B5_f64) sit after B6's: their launches from the
-float64 ``[full]`` fit (B5_f64's from the float64 rows run), their
-times at 60k (B1_f64), [full]'s shapes (B2_f64, B3_f64) and [large]'s
-pass (B4_f64, B5_f64).  The script imports nothing of JAX.
+forms' records (B1_f64-B6_f64) sit after B6's: their launches from the
+float64 ``[full]`` fit (B5_f64's from the float64 rows run, B6_f64's
+from config 5's shape at float64), their times at 60k (B1_f64), [full]'s
+shapes (B2_f64, B3_f64), [large]'s pass (B4_f64, B5_f64) and the cells'
+exact refine stage (B6_f64).  The script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -341,7 +362,7 @@ KL_GUARDRAIL_TOL = 0.05
 
 #: the float64 forms' launch counts in a run that launches none of them
 NO_F64 = {kid: 0 for kid in ("B1_f64", "B2_f64", "B3_f64", "B4_f64",
-                             "B5_f64")}
+                             "B5_f64", "B6_f64")}
 
 
 #: kernel id -> (name, source, the TPU kernel it replaces)
@@ -373,6 +394,8 @@ KERNEL_META = {
     "B5_f64": ("attraction_forces_f64",
                "tsne_flink_tpu_torch/csrc/attraction.cu",
                "tsne_flink_tpu/ops/attraction_pallas.py:140"),
+    "B6_f64": ("refine_chunk_f64", "tsne_flink_tpu_torch/csrc/knn_cand.cu",
+               "tsne_flink_tpu/ops/knn_pallas.py:264"),
 }
 
 
@@ -1056,7 +1079,7 @@ def bf16_embed_gate(x_np, labels, csr_kl):
     return counts
 
 
-# ---- [f64]: float64 on the card (B1-B5's float64 forms) --------------------
+# ---- [f64]: float64 on the card (B1-B6's float64 forms) --------------------
 
 #: H100 SXM dense FP64 peaks at 700 W (NVIDIA data sheet): the tensor
 #: cores (B1_f64's DMMA) and the FP64 pipe outside them (B2-B5)
@@ -1072,18 +1095,22 @@ N_F64_CPU, F_F64_CPU, ITER_F64_CPU = 2_500, 50, 1_000
 #: [f64]: the golden tolerances (ROADMAP "Parity") the card is held to
 #: against the CPU, and the float64 forms' bar against their plain versions
 F64_P_ATOL, F64_Y1_ATOL, F64_RTOL = 1e-12, 1e-9, 1e-12
+#: [f64]: the project kNN of the card-against-CPU check: its seed rounds
+#: and refine cycles (the auto plan refines nothing at 2,500 points; two
+#: cycles run B6_f64), the draws' seed; at most one row in this many may
+#: differ, and only where a Z-order band differs (a projected coordinate
+#: within an ulp of a cell's edge rounds to either cell)
+F64_PROJECT_ROUNDS, F64_PROJECT_CYCLES, F64_PROJECT_SEED = 3, 2, 23
+F64_PROJECT_ROWS_PER_DIFF = 10_000
 
 
 def f64_launches(want):
-    """``want``'s launches moved onto the float64 forms: B1-B5 under their
-    ``_f64`` names, the float32 and bf16 forms at 0 (B6 has no float64
-    form; a float64 run that would launch it is refused)."""
+    """``want``'s launches moved onto the float64 forms: B1-B6 under their
+    ``_f64`` names, the float32 and bf16 forms at 0."""
     out = {kid: 0 for kid in want}
     for kid, v in want.items():
-        if kid in ("B1", "B2", "B3", "B4", "B5"):
+        if kid in ("B1", "B2", "B3", "B4", "B5", "B6"):
             out[kid + "_f64"] = v
-        elif kid == "B6":
-            out[kid] = v
     return out
 
 
@@ -1098,7 +1125,7 @@ def b1_f64_gates(tag, x, k, rows=None, twice=True):
     row, or ``rows``): each distance within 1e-12 of |d| + ‖a‖² + ‖b‖²,
     ids equal outside ties (neighbours within that tolerance of each
     other); two launches bit for bit when ``twice``.  Returns (max |d|
-    error, the first launch's CUDA-event ms)."""
+    error, the first launch's CUDA-event ms, the held rows' distances)."""
     import torch
     from tsne_flink_tpu_torch.ops.knn_cuda import (_fused_final,
                                                    knn_sweep_cuda,
@@ -1144,7 +1171,7 @@ def b1_f64_gates(tag, x, k, rows=None, twice=True):
     check(dk.dtype == torch.float64 and beyond == 0,
           f"[f64] B1_f64 {tag}: {beyond} distances beyond 1e-12")
     check(off == 0, f"[f64] B1_f64 {tag}: {off} ids differ outside ties")
-    return float(err.max()), ms
+    return float(err.max()), ms, dk
 
 
 def b3_f64_gate(tag, y, hidx, hval, rag, rep, z, upd, gains, valid=None):
@@ -1186,7 +1213,8 @@ def phase_f64(x_np, xc_np):
     m = 1..8 on [widths]' cut shapes (an edge problem: a hub row, an
     empty row, padding) against their plain versions at rtol 1e-12.
     Returns ({kid: max error}, B1_f64's (ms, plain ms, library ms), its
-    bound, its 1.3M launch ms)."""
+    bound, its 1.3M launch ms, and the 1.3M check's (rows, their exact
+    distances))."""
     import torch
     from tsne_flink_tpu_torch.ops import attraction_cuda as att
     from tsne_flink_tpu_torch.ops.knn_cuda import (knn_sweep_cuda,
@@ -1197,7 +1225,7 @@ def phase_f64(x_np, xc_np):
     errs = {}
     x = torch.from_numpy(x_np.astype(np.float64)).cuda()
     n, f = x.shape
-    errs["B1_f64"], _ = b1_f64_gates("full", x, K)
+    errs["B1_f64"], _, _ = b1_f64_gates("full", x, K)
     t = alternated_ms({"f64": lambda: knn_sweep_cuda(x, K, False),
                        "library": lambda: library_knn(x, K)},
                       ["f64", "library", "library", "f64", "f64", "library"])
@@ -1214,7 +1242,8 @@ def phase_f64(x_np, xc_np):
     xc = torch.from_numpy(xc_np.astype(np.float64)).cuda()
     rows = torch.from_numpy(np.sort(np.random.default_rng(11).choice(
         xc.shape[0], N_F64_ROWS_LARGE, replace=False))).cuda()
-    e_l, ms_l = b1_f64_gates("large", xc, K_CELLS, rows, twice=False)
+    e_l, ms_l, dk_l = b1_f64_gates("large", xc, K_CELLS, rows,
+                                   twice=False)
     errs["B1_f64"] = max(errs["B1_f64"], e_l)
     bnd_l = b1_f64_bound(*xc.shape, K_CELLS)
     print(f"[f64] B1_f64 {xc.shape[0]}x{xc.shape[1]} k={K_CELLS}: "
@@ -1253,7 +1282,7 @@ def phase_f64(x_np, xc_np):
         print(f"[f64] m={m}: B2_f64 {e2:.3e}, B3_f64 {e3:.3e}, B4_f64 "
               f"{e4:.3e}, B5_f64 {e5:.3e} (max abs err; rtol 1e-12)")
     print(f"[f64] kernels {time.perf_counter() - t_phase:.1f} s")
-    return errs, times, bnd, ms_l
+    return errs, times, bnd, ms_l, (rows, dk_l)
 
 
 def f64_full_kernels(y, csr, z_scale=None):
@@ -1413,6 +1442,146 @@ def f64_embed_gate(x_np, labels, csr_kl):
     return counts, y, wall
 
 
+def f64_project_gate(x_np, labels, kl_32):
+    """``TSNE(dtype="float64", knn_method="project")`` at [project]'s
+    configuration (the blobs, 3 seed rounds + the auto refine cycles,
+    exact repulsion), its launches counted from 0 just before it: B6_f64
+    one a funnel stage a refine chunk a cycle (as [project]'s B6), B2_f64
+    every iteration, B3_f64 or B5_f64 every iteration, B4_f64 every 10th,
+    no B1 of any form and no float32 or bf16 form; recall@90 of its graph
+    against B1_f64's exact graph >= 0.93 ([project]'s bar), final KL
+    within KL_GUARDRAIL_TOL of [project]'s float32 run (``kl_32``), label
+    agreement >= 0.9.  Returns (launches, seconds)."""
+    import torch
+    from tsne_flink_tpu_torch import TSNE
+    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
+    from tsne_flink_tpu_torch.ops.knn import pick_knn_refine
+    from tsne_flink_tpu_torch.ops.knn_cuda import fused_knn
+    n, d = x_np.shape
+    b6 = b6_launches(n, d, K, pick_knn_refine(n, d))
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    with record_knn() as graph:
+        est = TSNE(perplexity=PERPLEXITY, n_iter=ITERATIONS,
+                   repulsion="exact", knn_method="project", random_state=0,
+                   dtype="float64").fit(x_np)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    _, dist_e = fused_knn(torch.from_numpy(x_np.astype(np.float64)).cuda(),
+                          K)
+    recall = recall_at_k(graph[1], dist_e)
+    del dist_e, graph[:]
+    kl = est.kl_divergence_
+    agree = label_agreement(torch.from_numpy(est.embedding_).cuda(), labels)
+    print(f"[f64] TSNE(dtype='float64', knn_method='project') at "
+          f"[project]'s configuration: {wall:.3f} s, launches "
+          f"{json.dumps(counts)}; recall@{K} against B1_f64's exact graph "
+          f"{recall:.4f} (bar 0.93); final KL {kl:.6f} ([project] float32 "
+          f"{kl_32:.6f}, |dKL| {abs(kl - kl_32):.6f}), 10-NN label "
+          f"agreement {agree:.4f}")
+    step = counts["B3_f64"] + counts["B5_f64"]
+    check(counts["B6_f64"] == b6 and counts["B2_f64"] == ITERATIONS
+          and counts["B4_f64"] == ITERATIONS // 10 and step == ITERATIONS
+          and counts["B1_f64"] == 0
+          and not any(v for kid, v in counts.items()
+                      if not kid.endswith("_f64")),
+          f"[f64] project launches {counts} (B6_f64 {b6} wanted)")
+    check(est.embedding_.dtype == np.float64
+          and np.isfinite(est.embedding_).all(),
+          "[f64] project: the embedding is not finite float64")
+    check(recall >= 0.93, f"[f64] project recall {recall} < 0.93")
+    check(abs(kl - kl_32) <= KL_GUARDRAIL_TOL and agree >= 0.9,
+          f"[f64] project final KL {kl} vs {kl_32}, agreement {agree}")
+    return counts, wall
+
+
+def rows_recall(x, idx, rows, dist_exact):
+    """recall@k of the graph ``idx``'s rows ``rows`` against the exact
+    k-th distances ``dist_exact`` of those rows, each listed id's distance
+    recomputed in float64 from ``x`` (the same metric for any run)."""
+    import torch
+    xr = x[rows].double()
+    nb = x[idx[rows].long()].double()
+    d = torch.sum((nb - xr[:, None, :]) ** 2, dim=2)
+    return recall_at_k(d, dist_exact)
+
+
+def f64_large_run(xc_np, labels, z_latent, large, b1_rows):
+    """Config 5's shape at float64, once end to end: [large]'s
+    configuration (1,306,127 x 50 cells, k = 150, auto -> project, FFT
+    repulsion, the blocks layout) on float64 cells, its launches counted
+    from 0 just before it (B6_f64 as [large]'s B6, B5_f64 and B4_f64 as
+    its B5 and B4, no float32 form); the checks of [large] (finite, falling
+    KL, label agreement within 0.05 of the latent's); recall@150 on the
+    4,096 rows [f64] held B1_f64 on (``b1_rows``: their ids and exact
+    distances) within 0.005 of the float32 [large] run's on the same rows;
+    final KL within KL_GUARDRAIL_TOL of [large]'s; the memory model's
+    allocated peak at the graph's width bound within [1, 2]x of the run's
+    measured peak.  Returns (launches, seconds)."""
+    import torch
+    from tsne_flink_tpu_torch.analysis.audit.hbm import (allocated_peak,
+                                                         stage_terms)
+    from tsne_flink_tpu_torch.analysis.audit.plan import PlanConfig
+    from tsne_flink_tpu_torch.ops.affinities import width_bound
+    from tsne_flink_tpu_torch.ops.knn import pick_knn_refine
+    n, d = xc_np.shape
+    cycles = pick_knn_refine(n, d)
+    kl_32, cfg = large[1], large[6]
+    x64 = xc_np.astype(np.float64)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    with record_knn() as graph:
+        y, losses, stats, counts = run_embed(
+            "large f64", x64, cfg,
+            lambda st: f64_launches(layout_launches(
+                st["layout"], b1=0, b2=0,
+                b6=b6_launches(n, d, K_CELLS, cycles))),
+            neighbors=K_CELLS, knn_method="project")
+    wall = time.perf_counter() - t0
+    measured = stats["peak_bytes"] - held
+    agree_z = label_agreement(torch.from_numpy(z_latent).cuda(), labels)
+    kl = quality("large f64", y, losses, labels, cfg, agree_z - 0.05)
+    rows, dk = b1_rows
+    x = torch.from_numpy(xc_np).cuda()
+    rec64 = recall_at_k(graph[1][rows], dk)
+    rec32 = rows_recall(x, large[3], rows, dk)
+    bound_w = width_bound(graph[0])
+    del graph[:], x
+    plan = charged_plan(PlanConfig(
+        n=n, d=d, k=K_CELLS, backend="cuda", dtype="float64",
+        n_components=cfg.n_components, iterations=cfg.iterations,
+        knn_method="project", repulsion=cfg.repulsion, theta=cfg.theta,
+        assembly="auto", attraction=cfg.attraction, sym_width=bound_w,
+        row_chunk=cfg.row_chunk, fft_grid=cfg.fft_grid, name="large_f64"))
+    terms = stage_terms(plan)
+    pa = max(allocated_peak(t) for t in terms.values())
+    ratio = pa / measured
+    print(f"[f64] config 5's shape at float64 ({n} x {d}, k={K_CELLS}, "
+          f"{cycles} refine cycles, {stats['layout']}): {wall:.3f} s; "
+          f"recall@{K_CELLS} on the {len(rows)} rows B1_f64 held "
+          f"{rec64:.5f} (the float32 [large] run's {rec32:.5f}, |d| "
+          f"{abs(rec64 - rec32):.5f}, bar 0.005); final KL {kl:.6f} ("
+          f"[large] float32 {kl_32:.6f}, |dKL| {abs(kl - kl_32):.6f}); "
+          f"peak allocated {measured / 2**30:.3f} GiB, the memory model "
+          f"({plan.assembly} at the graph's width bound {bound_w}) "
+          f"{pa / 2**30:.3f} GiB = {ratio:.3f}x (bar [1, 2]); stage terms "
+          + json.dumps({st: round(allocated_peak(t) / 2**30, 3)
+                        for st, t in terms.items()}))
+    check(y.dtype == torch.float64, f"[f64] large: y {y.dtype}")
+    check(abs(rec64 - rec32) <= 0.005,
+          f"[f64] large recall {rec64} vs float32's {rec32}")
+    check(abs(kl - kl_32) <= KL_GUARDRAIL_TOL,
+          f"[f64] large final KL {kl} vs float32's {kl_32}")
+    check(1.0 <= ratio <= 2.0, f"[f64] large memory model {ratio:.3f}x "
+          "the measured peak")
+    del y
+    return counts, wall
+
+
 def f64_routes(x_np, xl_np, labels, labels_l, csr_kl):
     """The other routes at float64 on the card, each a full-size run with
     its launches (the float64 forms only): the default configuration on
@@ -1472,17 +1641,79 @@ prep = prepare(torch.as_tensor(x), neighbors=k, perplexity=perp,
 y1, _ = tsne_embed(x, TsneConfig(perplexity=perp, iterations=1,
                                  repulsion="exact"), neighbors=k,
                    device="cpu", y0=y0)
+import chip_smoke as cs
+pidx, pdist = cs.project_with_draws(torch.as_tensor(x), k,
+                                    cs.project_plan_draws(*x.shape, k))
+pprep = prepare(knn=(pidx, pdist), neighbors=k, perplexity=perp,
+                device="cpu")
 _, losses = tsne_embed(x, TsneConfig(perplexity=perp, iterations=iters,
                                      repulsion="exact"), neighbors=k,
                        device="cpu", y0=y0)
 np.savez(sys.argv[2] + ".out.npz", idx=prep.idx.numpy(),
          jidx=prep.jidx.numpy(), jval=prep.jval.numpy(), y1=y1.numpy(),
-         losses=losses.numpy())
+         losses=losses.numpy(), pidx=pidx.numpy(), pdist=pdist.numpy(),
+         pjidx=pprep.jidx.numpy(), pjval=pprep.jval.numpy())
 print(time.perf_counter() - t0)
 """
 #: host threads the CPU child takes (the card's driving process keeps the
 #: rest of the card machine's 8 cores)
 F64_CPU_THREADS = 4
+
+
+def project_plan_draws(n, d, k, rounds=F64_PROJECT_ROUNDS,
+                       cycles=F64_PROJECT_CYCLES, seed=F64_PROJECT_SEED):
+    """Every draw of the hybrid plan (``ops/knn.knn_project_refined``'s
+    order: the seed rounds, then a cycle's ``ZORDER_PER_CYCLE`` shifted
+    rounds and its refine round), float64 from a CPU generator, so that
+    the card and the CPU run the plan from the same numbers: (seed
+    rounds' draws, [(a cycle's Z-order draws, its refine draw)])."""
+    import torch
+    from tsne_flink_tpu_torch.ops import knn as tknn
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    m = min(d, 3)
+    f64 = torch.float64
+    seed_draws = [tknn.draw_project(gen, d, m, it > 0, f64, "cpu")
+                  for it in range(rounds)]
+    fd = tknn.pick_knn_filter(d)
+    plan = tknn._refine_plan(d, k, filter_dims=fd,
+                             expand_k=(k + 1) // 2 if fd else None)
+    cyc = []
+    for _ in range(cycles):
+        zd = [tknn.draw_project(gen, d, m, True, f64, "cpu")
+              for _ in range(tknn.ZORDER_PER_CYCLE)]
+        cyc.append((zd, tknn.draw_refine(gen, plan, n, k, d, f64, "cpu")))
+    return seed_draws, cyc
+
+
+def project_with_draws(x, k, draws):
+    """``knn_project_refined``'s steps on ``x`` from injected ``draws``
+    (:func:`project_plan_draws`), the card's tile plan on any device (the
+    band blocks decide the candidates): B6_f64 runs the refine rounds on
+    the card, the plain stages on the CPU.  Returns (idx, dist)."""
+    import dataclasses as dc
+
+    from tsne_flink_tpu_torch.ops import knn as tknn
+    from tsne_flink_tpu_torch.ops.knn_tiles import pick_knn_tiles
+    n, d = x.shape
+    tiles = pick_knn_tiles(n, d, k, "cuda")
+    fd = tknn.pick_knn_filter(d)
+
+    def on(dr):
+        return dc.replace(dr, **{f.name: getattr(dr, f.name).to(x.device)
+                                 for f in dc.fields(dr)
+                                 if getattr(dr, f.name) is not None})
+    seed_draws, cycles = draws
+    idx, dist = tknn.knn_project(x, k, draws=[on(dr) for dr in seed_draws],
+                                 tiles=tiles)
+    for zd, rd in cycles:
+        iz, dz = tknn.knn_project(x, k, draws=[on(dr) for dr in zd],
+                                  tiles=tiles)
+        idx, dist = tknn.merge_rounds([dist, dz], [idx, iz], k)
+        idx, dist = tknn.knn_refine(x, idx, dist, rounds=1, draws=[on(rd)],
+                                    filter_dims=fd, tiles=tiles,
+                                    expand_k=(k + 1) // 2 if fd else None)
+    return idx, dist
 
 
 def f64_cpu_start(tmp):
@@ -1506,11 +1737,18 @@ def f64_card_vs_cpu(cpu):
     2,500 x 50 blobs, perplexity 30, k = 90, exact repulsion): the kNN
     graph's ids equal, P within ±1e-12, y after one iteration from the
     same initial y within ±1e-9, and the final KL after 1,000 iterations
-    within 0.05 (the golden tolerances, ROADMAP "Parity").  ``cpu`` is
-    :func:`f64_cpu_start`'s (process, path): the card's runs go here,
-    then this waits for the CPU's."""
+    within 0.05 (the golden tolerances, ROADMAP "Parity"); then the
+    project kNN (F64_PROJECT_ROUNDS seed rounds + F64_PROJECT_CYCLES
+    refine cycles, B6_f64 on the card) from the same draws
+    (:func:`project_plan_draws`): ids equal outside ties and every
+    distance within 1e-12 of |d| + ‖a‖² + ‖b‖², at most one row in
+    F64_PROJECT_ROWS_PER_DIFF differing (each printed), and P from that
+    graph within ±1e-12 of the CPU's.  ``cpu`` is :func:`f64_cpu_start`'s
+    (process, path): the card's runs go here, then this waits for the
+    CPU's."""
     import torch
     from tsne_flink_tpu_torch import TsneConfig, tsne_embed
+    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
     from tsne_flink_tpu_torch.utils.artifacts import prepare
     proc, path = cpu
     t0 = time.perf_counter()
@@ -1525,6 +1763,12 @@ def f64_card_vs_cpu(cpu):
                                          iterations=ITER_F64_CPU,
                                          repulsion="exact"), neighbors=K,
                            y0=y0)
+    xg = torch.as_tensor(x, device="cuda")
+    reset_launches()
+    pidx, pdist = project_with_draws(xg, K, project_plan_draws(*x.shape, K))
+    b6 = launches()["B6_f64"]
+    pprep = prepare(knn=(pidx, pdist), neighbors=K, perplexity=PERPLEXITY,
+                    device="cuda")
     t_card = time.perf_counter() - t0
     try:
         out, err = proc.communicate(timeout=900)
@@ -1554,6 +1798,42 @@ def f64_card_vs_cpu(cpu):
           f"iteration err {y1_err}")
     check(abs(kl_g - kl_c) <= KL_GUARDRAIL_TOL,
           f"[f64] card vs CPU: final KL {kl_g} vs {kl_c}")
+    # the project kNN from the same draws
+    ci = torch.from_numpy(c["pidx"]).cuda()
+    cd = torch.from_numpy(c["pdist"]).cuda()
+    nrm = torch.sum(xg * xg, dim=1)
+    tol = F64_RTOL * (cd.abs() + nrm[:, None] + nrm[ci.long()])
+    off = (pidx.long() != ci.long()) & ((pdist - cd).abs() > tol)
+    rows_off = torch.nonzero(off.any(dim=1)).flatten().tolist()
+    same = ~off
+    d_err = float((pdist - cd).abs()[same].max())
+    beyond = int(((pdist - cd).abs() > tol)[same].sum())
+    allowed = N_F64_CPU // F64_PROJECT_ROWS_PER_DIFF
+    listed = f": {rows_off[:20]}" if rows_off else ""
+    print(f"[f64] card vs CPU project kNN ({F64_PROJECT_ROUNDS} seed rounds "
+          f"+ {F64_PROJECT_CYCLES} refine cycles from the same draws, "
+          f"B6_f64 x{b6} on the card): {len(rows_off)} rows differ outside "
+          f"ties (allowed {allowed}){listed}; distances max |err| "
+          f"{d_err:.3e}, {beyond} beyond 1e-12 of |d| + |a|^2 + |b|^2")
+    check(b6 == F64_PROJECT_CYCLES * math.ceil(
+        N_F64_CPU / pick_refine_chunk(N_F64_CPU, F_F64_CPU, K)),
+        f"[f64] card vs CPU project: B6_f64 launched {b6} times")
+    check(len(rows_off) <= allowed and beyond == 0,
+          f"[f64] card vs CPU project: {len(rows_off)} rows off, {beyond} "
+          "distances beyond 1e-12")
+    if not rows_off:
+        pj_same = np.array_equal(pprep.jidx.cpu().numpy(), c["pjidx"])
+        pp_err = float(np.abs(pprep.jval.cpu().numpy() - c["pjval"]).max())
+        print(f"[f64] card vs CPU: P from the project graph: ids equal "
+              f"{pj_same}, max |err| {pp_err:.3e} (bar {F64_P_ATOL:g})")
+        check(pj_same and pp_err <= F64_P_ATOL,
+              f"[f64] card vs CPU: P from the project graph err {pp_err}")
+
+
+def pick_refine_chunk(n, d, k):
+    """The refine chunk the card's tile plan gives (n, d, k)."""
+    from tsne_flink_tpu_torch.ops.knn_tiles import pick_knn_tiles
+    return pick_knn_tiles(n, d, k, "cuda").refine_chunk
 
 
 def b2_gates():
@@ -2283,24 +2563,41 @@ def stage_candidates(kind, args, kwargs):
 def stage_bound(kind, args, kwargs, out):
     """B6's bound on one stage from this run's inputs: each input read once
     — the U distinct rows of the scored operand the stage touches (F + 1
-    floats each: the row and its norm), the gateways and the first ke ids
-    of each distinct gateway's list (a first stage) or the candidate list,
-    the old lists (exact stage) — and each output written once; 2F + 3
-    operations a unique candidate of a row (the FP32 pipe)."""
+    values each: the row and its norm, 4 bytes or 8 at float64), the
+    gateways and the first ke ids of each distinct gateway's list (a first
+    stage) or the candidate list, the old lists (exact stage) — and each
+    output written once; 2F + 3 operations a unique candidate of a row
+    (the FP32 pipe, or the FP64 pipe for B6_f64)."""
     import torch
     rows, base, _ = stage_rows(kind, args)
     ids, count = stage_candidates(kind, args, kwargs)
     c, f = rows.shape[0], base.shape[1]
+    isz = base.element_size()
     u = int(torch.unique(torch.cat([rows, ids[ids >= 0]])).numel())
     cand = args[3] if kind == "keep" else args[4]
-    nbytes = 4.0 * (u * (f + 1) + cand.numel())
+    nbytes = isz * u * (f + 1) + 4.0 * cand.numel()
     if kwargs.get("graph") is not None:
         nbytes += 4.0 * int(torch.unique(cand).numel()) * kwargs["ke"]
     outs = out if isinstance(out, tuple) else (out,)
-    nbytes += sum(4.0 * t.numel() for t in outs if t is not None)
+    nbytes += sum(t.element_size() * t.numel() for t in outs
+                  if t is not None)
     if kind == "final":
-        nbytes += 8.0 * args[5].numel()
-    return bound(float(count.sum()) * (2.0 * f + 3.0), nbytes), u, count
+        nbytes += (4.0 + isz) * args[5].numel()
+    peak = PEAK_FP32_FLOPS if isz == 4 else PEAK_FP64_FLOPS
+    return bound(float(count.sum()) * (2.0 * f + 3.0), nbytes, peak), u, count
+
+
+def check_row_ids(what, ids, rows):
+    """A stage's output ids: the row itself absent, no id twice in a row
+    (-1 marks no candidate).  Returns the mask of listed ids."""
+    import torch
+    valid = ids >= 0
+    check(not bool((ids == rows[:, None]).any()), f"{what}: self kept")
+    srt = torch.sort(torch.where(valid, ids, -1 - torch.arange(
+        ids.shape[1], device=ids.device)), dim=1).values
+    check(not bool((srt[:, 1:] == srt[:, :-1]).any()),
+          f"{what}: an id twice in a row")
+    return valid
 
 
 def hold_stage(tag, kind, args, kwargs):
@@ -2364,16 +2661,100 @@ def hold_stage(tag, kind, args, kwargs):
         check(bool(((sk[:, 1:] >= sk[:, :-1] - tol) | ~valid).all()),
               f"B6 {tag}: kept candidates not in rank order")
         ids_k, ids_p = gi, wi
-    valid = ids_k >= 0
-    check(not bool((ids_k == rows[:, None]).any()), f"B6 {tag}: self kept")
-    srt = torch.sort(torch.where(valid, ids_k, -1 - torch.arange(
-        ids_k.shape[1], device=ids_k.device)), dim=1).values
-    check(not bool((srt[:, 1:] == srt[:, :-1]).any()),
-          f"B6 {tag}: an id twice in a row")
+    valid = check_row_ids(f"B6 {tag}", ids_k, rows)
     hits = (ids_k[:, :, None] == ids_p[:, None, :]).any(dim=2) & valid
     sets = float(hits.sum()) / max(1, int(valid.sum()))
     check(sets >= 0.999, f"B6 {tag}: set agreement with plain {sets:.5f}")
     return err, sets
+
+
+def ids_off_outside_ties(ids_k, d_k, ids_p, d_p, tol):
+    """Slots whose ids differ though their distances do not tie: at a
+    slot where the two lists hold other ids, the two distances lie more
+    than ``tol`` (per slot) apart."""
+    return int(((ids_k.long() != ids_p.long())
+                & ((d_k - d_p).abs() > tol)).sum())
+
+
+def hold_stage_f64(tag, kind, args, kwargs):
+    """B6_f64 against its plain version on one stage's float64 inputs, on
+    the card, at B1_f64's bar.  Exact stage: every output distance within
+    1e-12 of |d²| + ‖a‖² + ‖b‖² of the plain formula's for its (row, id)
+    (or of the id's old distance where that is smaller; squared for
+    euclidean), the ids equal the plain stage's outside ties (a slot may
+    hold another id only at a distance within that bar), rows ordered by
+    (d, id).  Keep stage: each row keeps min(keep, its unique candidates),
+    -1 only after them, and its kept set equals the plain stage's outside
+    ties at the cut (an id in one set alone scores within the bar of the
+    plain stage's last kept score).  Both: ids distinct, the row absent,
+    two launches bit-identical.  Returns (the max |error| of the distances
+    or of the cut's score, the slots or ids off outside ties: 0)."""
+    import torch
+    from tsne_flink_tpu_torch.ops.knn_cuda import (cand_exact_plain,
+                                                   cand_sqdist_plain)
+    rows, base, sq = stage_rows(kind, args)
+    got = stage_call(kind, args, kwargs)
+    again = stage_call(kind, args, kwargs)
+    want = stage_call(kind, args, kwargs, plain=True)
+    torch.cuda.synchronize()
+
+    def tol_of(ids, d2):
+        safe = torch.where(ids >= 0, ids, rows[:, None]).long()
+        return F64_RTOL * (d2.abs() + sq[rows][:, None] + sq[safe])
+    if kind == "final":
+        (gi, gd), (wi, wd) = got, want
+        check(gd.dtype == torch.float64, f"B6_f64 {tag}: distances {gd.dtype}")
+        check(torch.equal(gi, again[0]) and torch.equal(gd, again[1]),
+              f"B6_f64 {tag}: two launches differ")
+        metric, old_i, old_d = args[0], args[5], args[6]
+        sqr = 2 if metric == "euclidean" else 1
+        formula = cand_exact_plain(metric, base, sq, rows, gi)
+        in_old = gi[:, :, None] == old_i[:, None, :]
+        old = torch.where(in_old, old_d[:, None, :], math.inf).amin(dim=2)
+        ref = torch.minimum(formula, old) ** sqr
+        err_t = (gd ** sqr - ref).abs()
+        beyond = int((err_t > tol_of(gi, ref)).sum())
+        err = float(err_t.max())
+        off = ids_off_outside_ties(gi, gd ** sqr, wi, wd ** sqr,
+                                   tol_of(wi, wd ** sqr))
+        check(beyond == 0, f"B6_f64 {tag}: {beyond} distances beyond 1e-12 "
+              "of |d| + |a|^2 + |b|^2")
+        check(off == 0, f"B6_f64 {tag}: {off} ids differ outside ties")
+        ids_k = gi.long()
+        same_d = gd[:, 1:] == gd[:, :-1]
+        check(bool(((gd[:, 1:] > gd[:, :-1])
+                    | (same_d & (ids_k[:, 1:] > ids_k[:, :-1]))).all()),
+              f"B6_f64 {tag}: rows not ordered by (d, id)")
+    else:
+        gi, wi = got[0].long(), torch.where(want[1], -1, want[0]).long()
+        check(torch.equal(got[0], again[0]),
+              f"B6_f64 {tag}: two launches differ")
+        _, count = stage_candidates(kind, args, kwargs)
+        kept = (gi >= 0).sum(dim=1)
+        check(torch.equal(kept, torch.clamp(count, max=gi.shape[1]))
+              and torch.equal(kept, (wi >= 0).sum(dim=1)),
+              f"B6_f64 {tag}: rows keep the wrong number of candidates")
+        pos = torch.arange(gi.shape[1], device=gi.device)
+        check(bool(((gi >= 0) == (pos[None, :] < kept[:, None])).all()),
+              f"B6_f64 {tag}: -1 before a kept candidate")
+        sw = cand_sqdist_plain(base, sq, rows,
+                               torch.where(wi >= 0, wi, rows[:, None]))
+        sk = cand_sqdist_plain(base, sq, rows,
+                               torch.where(gi >= 0, gi, rows[:, None]))
+        last = torch.clamp(kept - 1, min=0)[:, None]
+        cut = torch.gather(sw, 1, last)
+        err = float((torch.gather(sk, 1, last) - cut).abs().max())
+        off = 0
+        for ids, other, s_ in ((gi, wi, sk), (wi, gi, sw)):
+            alone = (ids >= 0) & ~(ids[:, :, None] == other[:, None, :]
+                                   ).any(dim=2)
+            far = (s_ - cut).abs() > tol_of(ids, cut.expand_as(s_))
+            off += int((alone & far).sum())
+        check(off == 0, f"B6_f64 {tag}: {off} kept ids differ outside ties "
+              "at the cut")
+        ids_k = gi
+    check_row_ids(f"B6_f64 {tag}", ids_k, rows)
+    return err, off
 
 
 def edge_chunks(kind, args, kwargs):
@@ -2442,6 +2823,82 @@ def phase_b6(x_np, xc_np):
                   f"ms, bound {bnd[0]:.4f} ms by {bnd[1]}); two launches "
                   f"bit-identical")
         del x, chunks
+    return err, shapes
+
+
+def phase_b6_f64(x_np, xc_np):
+    """[f64] B6_f64 against its plain version (:func:`hold_stage_f64`) on
+    the stages of real refine chunks captured at float64: the blobs'
+    cascade (F = 128, first stage) and exact stage (F = 784), the cells'
+    exact stage (F = 50, first stage); the two edge chunks at each first
+    stage; the blobs' first stage with n_valid = N − 64 (no kept id at or
+    past it); one chunk at K_B6_DEEP on the [widths] cuts of both.  Each
+    full-size stage is timed over the round's first B6_TIMED_CHUNKS chunks
+    in sequence, kernel and plain, beside its bound.  Returns its max
+    error and, per stage, its (ms, plain ms, library ms), bound and chunk
+    rows."""
+    import torch
+    t_phase = time.perf_counter()
+    err, shapes = 0.0, {}
+    for tag, data, k in (("blobs", x_np, K), ("cells", xc_np, K_CELLS)):
+        x = torch.from_numpy(data.astype(np.float64)).cuda()
+        n = x.shape[0]
+        chunks = capture_refine_chunks(x, k, B6_TIMED_CHUNKS)
+        for s_idx, (kind, args, kwargs) in enumerate(chunks[0]):
+            rows, base, _ = stage_rows(kind, args)
+            c, f = rows.shape[0], base.shape[1]
+            first = kwargs.get("graph") is not None
+            name = (f"{tag} {'cascade' if kind == 'keep' else 'exact'} "
+                    f"stage F={f}")
+            e, _ = hold_stage_f64(name, kind, args, kwargs)
+            err = max(err, e)
+            if first:
+                for edge, eargs in edge_chunks(kind, args, kwargs).items():
+                    ee, _ = hold_stage_f64(f"{name}, {edge}", kind, eargs,
+                                           kwargs)
+                    err = max(err, ee)
+                    print(f"[f64] B6_f64 {name}, edge chunk '{edge}': held, "
+                          f"max err {ee:.3e}")
+                nv = dict(kwargs, n_valid=n - 64)
+                ev, _ = hold_stage_f64(f"{name}, n_valid {n - 64}", kind,
+                                       args, nv)
+                got = stage_call(kind, args, nv)
+                new = got[0] if isinstance(got, tuple) else got
+                if kind == "final":  # old entries past n_valid may stay
+                    new = torch.where((new[:, :, None] == args[5][:, None, :])
+                                      .any(dim=2), -1, new)
+                check(not bool((new >= n - 64).any()),
+                      f"B6_f64 {name}: a new id at or past n_valid")
+                err = max(err, ev)
+                print(f"[f64] B6_f64 {name} with n_valid {n - 64} of {n}: "
+                      f"held, max err {ev:.3e}, no new id past it")
+            stages = [chunk[s_idx] for chunk in chunks]
+            times = (chunks_ms(stages), chunks_ms(stages, plain=True), None)
+            per = [stage_bound(*st, stage_call(*st)) for st in stages]
+            bnd = (statistics.mean(b[0][0] for b in per), per[0][0][1])
+            u = statistics.mean(b[1] for b in per)
+            shapes[(tag, kind, f)] = (times, bnd, c)
+            print(f"[f64] B6_f64 {name} c={c} ({u:.0f} distinct rows a "
+                  f"chunk): max err {e:.3e}, ids equal outside ties; "
+                  f"{times[0]:.4f} ms a chunk over {len(stages)} chunks in "
+                  f"sequence (plain chunk body on the card {times[1]:.4f} "
+                  f"ms, bound {bnd[0]:.4f} ms by {bnd[1]}, library none); "
+                  f"two launches bit-identical")
+        del x, chunks
+    for tag, data in (("blobs", x_np), ("cells", xc_np)):
+        x = torch.from_numpy(data[:N_REFINE_DEEP].astype(np.float64)).cuda()
+        (chunk,) = capture_refine_chunks(x, K_B6_DEEP, 1)
+        for kind, args, kwargs in chunk:
+            rows, base, _ = stage_rows(kind, args)
+            name = (f"{tag} k={K_B6_DEEP} "
+                    f"{'keep' if kind == 'keep' else 'exact'} stage "
+                    f"F={base.shape[1]}")
+            e, _ = hold_stage_f64(name, kind, args, kwargs)
+            err = max(err, e)
+            print(f"[f64] B6_f64 {name} c={rows.shape[0]}: max err {e:.3e}, "
+                  f"ids equal outside ties; two launches bit-identical")
+        del x, chunk
+    print(f"[f64] B6_f64 holds {time.perf_counter() - t_phase:.1f} s")
     return err, shapes
 
 
@@ -2736,48 +3193,40 @@ def same_bits(a, b):
 
 def cli_f64_gate(argv, config2, kl_32, tmp):
     """[cli] gate 10: config 2's command line (``argv``, ``config2``) at
-    ``--dtype float64`` with the exact kNN runs on the float64 forms and
-    ends within KL_GUARDRAIL_TOL of config 2's float32 run (``kl_32``);
-    with its own project kNN it is refused before the kNN stage (B6 has no
-    float64 form; the refine count needs N, so after the input is read),
-    nothing launched and no output written."""
-    import io as _io
-
-    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
-    from tsne_flink_tpu_torch.utils.cli import main as cli_main
-    f64_line = ("--knnMethod", "bruteforce", "--theta", "0.5",
-                "--noCache", "--dtype", "float64")
-    y_64, counts_64, _, _ = run_cli("config 2 float64 bruteforce",
-                                    argv("f64.csv", *f64_line))
-    kl_64 = float(np.loadtxt(os.path.join(tmp, "f64.csv.loss"),
-                             delimiter=",", ndmin=2)[-1, 1])
-    print(f"[cli] gate 10: config 2 --dtype float64 --knnMethod "
-          f"bruteforce: final KL {kl_64:.6f} against config 2's float32 "
-          f"{kl_32:.6f} (|dKL| {abs(kl_64 - kl_32):.6f})")
-    check(counts_64["B1_f64"] == 1 and counts_64["B2_f64"] == ITERATIONS
-          and not any(v for kid, v in counts_64.items()
-                      if not kid.endswith("_f64")),
-          f"[cli] gate 10: float64 launches {counts_64}")
-    check(np.isfinite(y_64).all() and abs(kl_64 - kl_32)
-          <= KL_GUARDRAIL_TOL, f"[cli] gate 10: float64 KL {kl_64} vs "
-          f"float32 {kl_32}")
-    reset_launches()
-    t0 = time.perf_counter()
-    try:
-        with contextlib.redirect_stderr(_io.StringIO()):
-            cli_main(argv("f64p.csv", *config2, "--noCache", "--dtype",
-                          "float64"))
-        refused = ""
-    except NotImplementedError as e:
-        refused = str(e)
-    print(f"[cli] gate 10: config 2 --dtype float64 (project): refused "
-          f"after {time.perf_counter() - t0:.3f} s (the input read): "
-          f"{refused}")
-    check("§C" in refused and "B6" in refused
-          and not any(launches().values())
-          and not os.path.exists(os.path.join(tmp, "f64p.csv")),
-          "[cli] gate 10: float64 with a refining plan was not refused "
-          "before the kNN stage")
+    ``--dtype float64``, with the exact kNN and with its own project kNN
+    (3 seed rounds + 6 refine cycles through B6_f64): each runs on the
+    float64 forms alone and ends within KL_GUARDRAIL_TOL of config 2's
+    float32 run (``kl_32``); the project line launches B6_f64 as config
+    2's float32 line launches B6.  Returns the project line's launches."""
+    from tsne_flink_tpu_torch.ops.knn import pick_knn_refine
+    x_n, x_d = N_FULL, F_FULL
+    b6 = b6_launches(x_n, x_d, K, pick_knn_refine(x_n, x_d))
+    lines = {"bruteforce": ("--knnMethod", "bruteforce", "--theta", "0.5",
+                            "--noCache", "--dtype", "float64"),
+             "project": (*config2, "--noCache", "--dtype", "float64")}
+    out = None
+    for method, line in lines.items():
+        name = f"f64{method[0]}.csv"
+        y_64, counts_64, _, _ = run_cli(f"config 2 float64 {method}",
+                                        argv(name, *line))
+        kl_64 = float(np.loadtxt(os.path.join(tmp, name + ".loss"),
+                                 delimiter=",", ndmin=2)[-1, 1])
+        print(f"[cli] gate 10: config 2 --dtype float64 --knnMethod "
+              f"{method}: final KL {kl_64:.6f} against config 2's float32 "
+              f"{kl_32:.6f} (|dKL| {abs(kl_64 - kl_32):.6f}); launches "
+              f"{json.dumps(counts_64)}")
+        want_b1, want_b6 = (1, 0) if method == "bruteforce" else (0, b6)
+        check(counts_64["B1_f64"] == want_b1
+              and counts_64["B6_f64"] == want_b6
+              and counts_64["B2_f64"] == ITERATIONS
+              and not any(v for kid, v in counts_64.items()
+                          if not kid.endswith("_f64")),
+              f"[cli] gate 10: float64 {method} launches {counts_64}")
+        check(np.isfinite(y_64).all() and abs(kl_64 - kl_32)
+              <= KL_GUARDRAIL_TOL, f"[cli] gate 10: float64 {method} KL "
+              f"{kl_64} vs float32 {kl_32}")
+        out = counts_64
+    return out
 
 
 def phase_cli(x_np, xl_np, full, rows, project, y_bh):
@@ -4773,6 +5222,21 @@ rec["project"] = {"seconds": time.perf_counter() - t0,
 np.save(f"{out}/project_{r}.npy", np.concatenate(
     [idx.cpu().numpy().astype(np.float64), dist.cpu().numpy()], axis=1))
 del idx, dist
+gen = torch.Generator(device="cuda")
+gen.manual_seed(0)
+torch.cuda.synchronize()
+reset_launches()
+t0 = time.perf_counter()
+idx, dist = project_knn_sharded(
+    xp[r * nl:(r + 1) * nl].double().cuda(), k, n,
+    rounds=pick_knn_rounds(n), generator=gen, axis=axis,
+    refine_rounds=pick_knn_refine(n, d))
+torch.cuda.synchronize()
+rec["project64"] = {"seconds": time.perf_counter() - t0,
+                    "launches": launches(), "dtype": str(dist.dtype)}
+np.save(f"{out}/project64_{r}.npy", np.concatenate(
+    [idx.cpu().numpy().astype(np.float64), dist.cpu().numpy()], axis=1))
+del idx, dist
 cfg = TsneConfig(**spec["cfg"])
 pipe = SpmdPipeline(cfg, n, d, k, sym_mode="alltoall")
 jidx, jval, _ = pipe.prepare(x, 0)
@@ -4988,6 +5452,66 @@ def spmd_b6_n_valid(x, n_valid):
     return times, bnd, e
 
 
+def spmd_project_f64_mesh(x64):
+    """The float64 project kNN (``parallel/knn.project_knn_sharded``, the
+    auto seed rounds and refine cycles, B6_f64 with ``n_valid``) on the
+    test mesh at D = 2 and at D = 1, from one set of draws: each shard
+    draws the gateway scores of its local rows alike (the JAX function's
+    draws), so mesh 1 takes mesh 2's with the scores stacked for its two
+    halves.  The graphs equal bit for bit; B6_f64 launched on every shard
+    and no float32 form.  Returns (mesh 2's B6_f64 launches, seconds a
+    width)."""
+    import dataclasses as dc
+
+    import torch
+    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
+    from tsne_flink_tpu_torch.ops.knn import (RefineDraw, pick_knn_refine,
+                                              pick_knn_rounds)
+    from tsne_flink_tpu_torch.parallel.knn import (project_draws,
+                                                   project_knn_sharded)
+    from tsne_flink_tpu_torch.parallel.mesh import padded_rows_for, run_shards
+    n, d = x64.shape
+    rounds, cycles = pick_knn_rounds(n), pick_knn_refine(n, d)
+    npts = padded_rows_for(n, 2)
+    check(npts == padded_rows_for(n, 1), "[spmd] mesh 1 and 2 pad apart")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    dr2 = project_draws(gen, d, K, rounds, cycles, npts // 2, npts,
+                        torch.float64, "cuda")
+    dr1 = [dc.replace(dr, gate=torch.cat([dr.gate, dr.gate]))
+           if isinstance(dr, RefineDraw) and dr.gate is not None else dr
+           for dr in dr2]
+    xp = torch.nn.functional.pad(x64, (0, 0, 0, npts - n))
+    graphs, secs, b6 = {}, {}, {}
+    for width, draws in ((2, dr2), (1, dr1)):
+        nl = npts // width
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        outs = run_shards(test_mesh(width), lambda ax: project_knn_sharded(
+            xp[ax.index * nl:(ax.index + 1) * nl], K, n, rounds=rounds,
+            axis=ax, draws=draws, refine_rounds=cycles))
+        torch.cuda.synchronize()
+        secs[width] = time.perf_counter() - t0
+        got = launches()
+        b6[width] = got["B6_f64"]
+        check(got["B6_f64"] > 0 and not any(
+            v for kid, v in got.items() if not kid.endswith("_f64")),
+            f"[spmd] float64 project mesh {width} launches {got}")
+        graphs[width] = (torch.cat([o[0] for o in outs]),
+                         torch.cat([o[1] for o in outs]))
+    same = (torch.equal(graphs[1][0], graphs[2][0])
+            and torch.equal(graphs[1][1], graphs[2][1]))
+    print(f"[spmd] float64 project kNN on the test mesh ({rounds} seed "
+          f"rounds + {cycles} refine cycles, one set of draws): mesh 2 "
+          f"{secs[2]:.3f} s (B6_f64 x{b6[2]}), mesh 1 {secs[1]:.3f} s "
+          f"(B6_f64 x{b6[1]}); graphs equal bit for bit {same}, dist "
+          f"{graphs[1][1].dtype}")
+    check(same, "[spmd] the float64 project kNN at mesh 2 differs from "
+          "mesh 1")
+    return b6[2], secs
+
+
 def spmd_in_process(x_np, d):
     """``SpmdPipeline`` in this process at mesh ``d`` (the test mesh), the
     command line's configuration: (y, losses, seconds)."""
@@ -5050,7 +5574,10 @@ def phase_spmd(x_np, labels, csr_kl, b1_ms):
     hop_t, hop_bnd, hop_err = spmd_ring(x, want, b1_ms)
     spmd_ring_bf16(x)
     b6_t, b6_bnd, b6_err = spmd_b6_n_valid(x, n - 64)
-    del x
+    x64 = x.double()
+    want64 = fused_knn(x64, K)[1]
+    spmd_project_f64_mesh(x64)
+    del x, x64
 
     y1, l1, s1, _ = spmd_in_process(x_np, 1)
     y2, l2, s2, _ = spmd_in_process(x_np, 2)
@@ -5141,6 +5668,23 @@ def phase_spmd(x_np, labels, csr_kl, b1_ms):
               f"recall@{K} {recall:.4f} against B1's graph (bar 0.93), "
               f"{cycles} refine cycles, B6 {b6} a rank (n_valid {n}), "
               f"{[round(r_['project']['seconds'], 3) for r_ in recs]} s")
+        graph64 = np.concatenate([np.load(os.path.join(
+            tmp, f"project64_{r}.npy")) for r in range(SPMD_PROCESSES)])[:n]
+        recall64 = recall_at_k(torch.from_numpy(graph64[:, K:]).cuda(),
+                               want64)
+        l64 = [rec["project64"]["launches"] for rec in recs]
+        check(all(c["B6_f64"] == want_b6 and not any(
+            v for kid, v in c.items() if not kid.endswith("_f64"))
+            for c in l64), f"[spmd] float64 project launches {l64}")
+        check(recall64 >= 0.93 and all(
+            rec["project64"]["dtype"] == "torch.float64" for rec in recs),
+            f"[spmd] float64 project recall {recall64} < 0.93")
+        print(f"[spmd] float64 project kNN over {SPMD_PROCESSES} processes: "
+              f"recall@{K} {recall64:.4f} against B1_f64's graph (bar "
+              f"0.93), B6_f64 {[c['B6_f64'] for c in l64]} a rank, no "
+              f"float32 form, "
+              f"{[round(r_['project64']['seconds'], 3) for r_ in recs]} s")
+        del want64
         # alltoall against replicated: P and the final KL
         pipe = SpmdPipeline(TsneConfig(**spmd_cfg_kw()), n, f, K,
                             devices=test_mesh(SPMD_PROCESSES))
@@ -5900,7 +6444,8 @@ def main() -> int:
         for kid, e in phase_widths(x_np, xc_np).items():
             errs[kid] = max(errs.get(kid, 0.0), e)
         bf16_times, bf16_bnd, bf16_err = phase_bf16(x_np, xc_np)
-        f64_errs, b1f_times, b1f_bnd, _ = phase_f64(x_np, xc_np)
+        f64_errs, b1f_times, b1f_bnd, _, b1f_rows = phase_f64(x_np, xc_np)
+        f64_errs["B6_f64"], b6f_shapes = phase_b6_f64(x_np, xc_np)
         kernels, csr_kl, full, b1_ms, b2_ms = phase_full(x_np, labels,
                                                          errs, csr)
         bf16_counts = bf16_embed_gate(x_np, labels, csr_kl)
@@ -5919,6 +6464,7 @@ def main() -> int:
         phase_blocks(x_np, labels, blocks, csr_kl)
         project = phase_project(x_np, labels, b1_ms, b6_shapes,
                                 os.path.join(tmp, "project.npz"))
+        f64_project_gate(x_np, labels, project[3])
         y_bh = phase_bh(x_np, labels, y_60k, z_latent, project)
         phase_cli(x_np, xl_np, full, rows_run[:2], project, y_bh)
         (times, bnd, _), = [v for key, v in b6_shapes.items()
@@ -5936,8 +6482,13 @@ def main() -> int:
         f64_t.update(t_l64)
         f64_b.update(b_l64)
         f64_t["B1_f64"], f64_b["B1_f64"] = b1f_times, b1f_bnd
-        f64_n = {**f64_counts, "B5_f64": f64_rows["B5_f64"]}
-        for kid in ("B1_f64", "B2_f64", "B3_f64", "B4_f64", "B5_f64"):
+        (f64_t["B6_f64"], f64_b["B6_f64"], _), = [
+            v for key, v in b6f_shapes.items() if key[0] == "cells"]
+        large64, _ = f64_large_run(xc_np, labels_c, z_cells, large, b1f_rows)
+        f64_n = {**f64_counts, "B5_f64": f64_rows["B5_f64"],
+                 "B6_f64": large64["B6_f64"]}
+        for kid in ("B1_f64", "B2_f64", "B3_f64", "B4_f64", "B5_f64",
+                    "B6_f64"):
             err = max(f64_errs.get(kid, 0.0), e_full64.get(kid, 0.0),
                       e_l64.get(kid, 0.0))
             kernels.append(kernel_record(kid, *KERNEL_META[kid], f64_n[kid],

@@ -26,7 +26,15 @@ card's name and power limit head the output.  Each float32 kernel's
 output at those shapes is printed as a digest of its bytes (``out``): B1
 and B1's bf16 form (60k), B2, B3's step, B4 over the CSR head + tail, B5
 over both row layouts, B1 at 1.3M, and B6 through the ``[project]`` run's
-y digest; two trees whose digests match give the same bits.
+y digest and on the funnel stages of real refine chunks: the first 32
+chunks of a refine round at ``[project]``'s shape (the blobs' cascade at
+F = 128 and exact stage at F = 784) and at ``[large]``'s (the cells'
+exact stage at F = 50), and one chunk at the deep k (600 on 20,000-row
+cuts of both, 1,024 on the cells' cut), each stage's outputs over its
+chunks as one digest and its ms a chunk over them in sequence (the
+median (min-max) of 3 runs after an L2 flush, ``chip_smoke.chunks_ms``);
+two trees whose digests match give the same bits.  ``--b6`` runs the
+``[project]`` run and B6's stages alone.
 """
 
 import argparse
@@ -47,6 +55,8 @@ def parse():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=HERE,
                     help="tree to import tsne_flink_tpu_torch from")
+    ap.add_argument("--b6", action="store_true",
+                    help="the [project] run and B6's stages alone")
     return ap.parse_args()
 
 
@@ -137,6 +147,33 @@ def csr_step(cs, att, y, csr):
               f"{int(rag.dst.shape[0])} tail edges: {name} {spread(ms)}")
 
 
+def b6_stages(cs, x_np, xc_np):
+    """B6 on the funnel stages of refine chunks captured as the tree's
+    refine round calls them: each stage's outputs over its chunks as one
+    digest, and its ms a chunk over them in sequence."""
+    for tag, data, k, chunks in (
+            ("[project] blobs", x_np, 90, 32),
+            ("[large] cells", xc_np, 150, 32),
+            ("blobs cut k=600", x_np[:20_000], 600, 1),
+            ("cells cut k=600", xc_np[:20_000], 600, 1),
+            ("cells cut k=1024", xc_np[:20_000], 1024, 1)):
+        x = torch.from_numpy(data).cuda()
+        got = cs.capture_refine_chunks(x, k, chunks)
+        for s_idx, (kind, args, _) in enumerate(got[0]):
+            stages = [chunk[s_idx] for chunk in got]
+            outs = []
+            for st in stages:
+                out = cs.stage_call(*st)
+                outs += [t for t in (out if isinstance(out, tuple)
+                                     else (out,)) if t is not None]
+            ms = [cs.chunks_ms(stages) for _ in range(3)]
+            base = args[0] if kind == "keep" else args[1]
+            print(f"[regress] B6 {tag} k={k} {kind} stage F="
+                  f"{base.shape[1]}: {spread(ms)} a chunk over "
+                  f"{len(stages)} chunks; out {digest(*outs)}")
+        del x, got
+
+
 def main():
     args = parse()
     root = os.path.abspath(args.root)
@@ -164,6 +201,12 @@ def main():
     x_np, _ = cs.make_data()
     cfg = TsneConfig(perplexity=30.0, iterations=300, repulsion="exact",
                      attraction="csr")
+    if args.b6:
+        embed("[project] 60000x784 project", x_np,
+              TsneConfig(perplexity=30.0, iterations=300, repulsion="exact"),
+              knn_method="project")
+        b6_stages(cs, x_np, cs.make_cells()[0])
+        return
     y_full = embed("[full] 60000x784 CSR", x_np, cfg)
     embed("[project] 60000x784 project", x_np,
           TsneConfig(perplexity=30.0, iterations=300, repulsion="exact"),
@@ -204,6 +247,8 @@ def main():
     xc_np, _, _ = cs.make_cells()
     xc = torch.from_numpy(xc_np).cuda()
     print(f"[regress] B1 {xc.shape[0]}x{xc.shape[1]} k=150: {b1(xc, 150)}")
+    del xc
+    b6_stages(cs, x_np, xc_np)
 
 
 if __name__ == "__main__":

@@ -6,9 +6,11 @@ repulsion, the CSR layout, 300 iterations) and B1's time at that shape
 (the median of 3 warm launches).  Then it runs ``chip_smoke.phase_spmd``:
 the ring on the test mesh, B1's cross sweep a hop, B6 with ``n_valid``,
 the in-process job at mesh 1 and 2, the NCCL route at world size 1, and
-the two-process jobs on the one card (the command line, the project kNN,
-the alltoall job, ``--symStrict``), and prints the phase's two kernel
-records.  About two minutes on one H100.
+the two-process jobs on the one card (the command line, the project kNN
+at float32 and at float64, the alltoall job, ``--symStrict``), the
+float64 project kNN on the test mesh at D = 2 against D = 1 (bit for
+bit), and prints the phase's two kernel records.  About three minutes on
+one H100.
 
 Run from the repository root on a machine with an sm_90a card and nvcc:
 

@@ -47,8 +47,12 @@ ties bit for bit), its ring and a shard equal to its single sweep bit for
 bit, B2_f64-B5_f64 at every m against their plain versions (rtol 1e-12,
 gains equal), B3_f64's one launch the unfused float64 step bit for bit,
 mesh 2 equal to mesh 1 at float64, float64 through the estimator (with
-transform), the CLI and a fleet job on the card, and float64 with a
-refining kNN plan refused before the kNN stage.
+transform), the CLI and a fleet job on the card; B6_f64 in every B6 test
+above (within 1e-12 of |d²| + ‖a‖² + ‖b‖², ids equal outside ties, kept
+sets equal outside ties at the cut), a shard's rows of B6 and B6_f64 the
+single launch's bit for bit, mixed dtypes refused with no launch, and
+float64 with a refining kNN plan running through B6_f64 (``prepare``,
+the estimator, the CLI's project line) with no float32 form.
 """
 
 import numpy as np
@@ -656,14 +660,15 @@ def test_launches_count_kernel_launches_only(dev):
         cuda_exact_repulsion(y.half())  # no fallback on a CUDA tensor
 
 
-def _refine_problem(dev, n, f, k, c, seed, lattice=False):
-    """Points, their squared norms, a graph [n, k] of distinct non-self
-    ids with the formula's distances ordered by (d, id), and the gateways
-    [c, 16] of rows 0 .. c-1: random ids, one repeated, and the row
-    itself (as the caller's gateway dedup leaves it)."""
+def _refine_problem(dev, n, f, k, c, seed, lattice=False,
+                    dtype=torch.float32):
+    """Points (of ``dtype``), their squared norms, a graph [n, k] of
+    distinct non-self ids with the formula's distances ordered by (d, id),
+    and the gateways [c, 16] of rows 0 .. c-1: random ids, one repeated,
+    and the row itself (as the caller's gateway dedup leaves it)."""
     rng = np.random.default_rng(seed)
     x = (rng.integers(0, 3, (n, f)) if lattice else rng.random((n, f)))
-    x = torch.from_numpy(x.astype(np.float32)).to(dev)
+    x = torch.from_numpy(x).to(dev, dtype)
     sq = torch.sum(x * x, dim=1)
     ids = np.stack([(i + 1 + rng.choice(n - 1, k, replace=False)) % n
                     for i in range(n)]).astype(np.int32)
@@ -686,26 +691,63 @@ def _valid_ids(ids, bad=None):
     return torch.where(bad, -1, ids) if bad is not None else ids
 
 
+#: B1_f64's bar, which B6_f64 is held to: 1e-12 of |d| + ‖a‖² + ‖b‖²
+F64_RTOL = 1e-12
+
+
+def _b6_form(base):
+    """The B6 form a stage on ``base`` launches: B6_f64 on float64 values."""
+    return "B6_f64" if base.dtype == torch.float64 else "B6"
+
+
+def _f64_tol(sq, rows, ids, d2):
+    """B1_f64's bar: 1e-12 of |d²| + ‖a‖² + ‖b‖² for each (row, id)."""
+    safe = torch.where(ids >= 0, ids, rows[:, None]).long()
+    return F64_RTOL * (d2.abs() + sq[rows][:, None] + sq[safe])
+
+
+def _off_outside_ties(got, want, wd, tol):
+    """Slots whose ids differ where the plain distance has no neighbour
+    within ``tol`` (a tie may order either way)."""
+    gap = (wd[:, 1:] - wd[:, :-1]).abs()
+    tied = torch.zeros_like(got, dtype=torch.bool)
+    tied[:, :-1] |= gap <= tol[:, :-1]
+    tied[:, 1:] |= gap <= tol[:, 1:]
+    return int((~((got == want) | tied)).sum())
+
+
 def _hold_final(args, kw, exact):
     """Kernel vs plain on one exact stage: bit-equal where every value is
-    exact (lattice data), else the smoke's bars."""
+    exact (lattice data), else the smoke's bars (float32: rtol 2e-5, sets
+    >= 0.999; float64: each distance within 1e-12 of |d²| + ‖a‖² + ‖b‖²,
+    squared for euclidean, and the ids equal outside ties)."""
     metric, base, sq, row0, _, old_i, old_d = args
-    before = KERNELS["B6"].launches
+    kid = _b6_form(base)
+    before = {k: KERNELS[k].launches for k in ("B6", "B6_f64")}
     gi, gd = refine_final(*args, **kw)
     again = refine_final(*args, **kw)
-    assert KERNELS["B6"].launches == before + 2
+    assert KERNELS[kid].launches == before[kid] + 2
+    assert sum(KERNELS[k].launches - v for k, v in before.items()) == 2
     wi, wd = refine_final_plain(*args, **kw)
+    assert gd.dtype == base.dtype and gi.dtype == torch.int32
     assert torch.equal(gi, again[0]) and torch.equal(gd, again[1])
     if exact:
         assert torch.equal(gi, wi) and torch.equal(gd, wd)
         return
     rows = torch.arange(row0, row0 + gi.shape[0], device=gi.device)
     formula = cand_exact_plain(metric, base, sq, rows, gi)
-    torch.testing.assert_close(gd, formula, rtol=2e-5,
-                               atol=2e-5 * float(formula.max()))
-    torch.testing.assert_close(gd[:, -1], wd[:, -1], rtol=2e-5,
-                               atol=2e-5 * float(wd.max()))
-    assert _set_agreement(gi.long(), wi.long()) >= 0.999
+    if kid == "B6_f64":
+        sqr = 2 if metric == "euclidean" else 1
+        tol = _f64_tol(sq, rows, gi, formula ** sqr)
+        assert bool(((gd ** sqr - formula ** sqr).abs() <= tol).all())
+        wtol = _f64_tol(sq, rows, wi, wd ** sqr)
+        assert _off_outside_ties(gi, wi, wd ** sqr, wtol) == 0
+    else:
+        torch.testing.assert_close(gd, formula, rtol=2e-5,
+                                   atol=2e-5 * float(formula.max()))
+        torch.testing.assert_close(gd[:, -1], wd[:, -1], rtol=2e-5,
+                                   atol=2e-5 * float(wd.max()))
+        assert _set_agreement(gi.long(), wi.long()) >= 0.999
     assert not bool((gi == rows[:, None]).any())
     same = gd[:, 1:] == gd[:, :-1]
     assert bool(((gd[:, 1:] > gd[:, :-1]) | (same & (gi[:, 1:] > gi[:, :-1])))
@@ -713,17 +755,39 @@ def _hold_final(args, kw, exact):
 
 
 def _hold_keep(args, kw, exact):
+    """Kernel vs plain on one keep stage: the same ids on exact values;
+    else each row keeps as many, and the kept sets agree >= 0.999
+    (float32) or exactly outside ties at the cut (float64: an id in one
+    set alone scores within 1e-12 of |s| + ‖a‖² + ‖b‖² of the plain
+    stage's last kept score)."""
     base, sq, row0, _, keep = args
+    kid = _b6_form(base)
+    before = KERNELS[kid].launches
     gi, none = refine_keep(*args, **kw)
     assert none is None and gi.dtype == torch.int32
     assert torch.equal(gi, refine_keep(*args, **kw)[0])
+    assert KERNELS[kid].launches == before + 2
     wi = _valid_ids(*refine_keep_plain(*args, **kw)).to(torch.int32)
     if exact:
         assert torch.equal(gi, wi)
-    else:
-        assert torch.equal((gi >= 0).sum(dim=1), (wi >= 0).sum(dim=1))
-        hits = (gi[:, :, None] == wi[:, None, :]).any(dim=2) & (gi >= 0)
+        return gi
+    kept = (wi >= 0).sum(dim=1)
+    assert torch.equal((gi >= 0).sum(dim=1), kept)
+    hits = (gi[:, :, None] == wi[:, None, :]).any(dim=2) & (gi >= 0)
+    if kid == "B6":
         assert float(hits.sum()) / float((gi >= 0).sum()) >= 0.999
+        return gi
+    rows = torch.arange(row0, row0 + gi.shape[0], device=gi.device)
+    back = (wi[:, :, None] == gi[:, None, :]).any(dim=2) & (wi >= 0)
+    sw = cand_sqdist_plain(base, sq, rows, torch.where(wi >= 0, wi,
+                                                       rows[:, None]))
+    cut = torch.gather(sw, 1, torch.clamp(kept - 1, min=0)[:, None])
+    for ids, hit in ((gi, hits), (wi, back)):
+        alone = (ids >= 0) & ~hit
+        s = cand_sqdist_plain(base, sq, rows, torch.where(ids >= 0, ids,
+                                                          rows[:, None]))
+        tol = _f64_tol(sq, rows, ids, cut.expand_as(s))
+        assert bool(((s - cut).abs() <= tol)[alone].all())
     return gi
 
 
@@ -736,11 +800,14 @@ def _hold_keep(args, kw, exact):
     (16, 20, "euclidean", True),      # ties after the sqrt
     (50, 600, "sqeuclidean", False),  # past k = 512: 2k = 1,200 sort keys
 ])
-def test_refine_first_exact_stage_matches_plain(dev, f, k, metric, lattice):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_refine_first_exact_stage_matches_plain(dev, f, k, metric, lattice,
+                                                dtype):
     """A chunk whose first stage is the exact one (no funnel): candidates
-    built from the gateways, deduped, scored, the k best merged."""
+    built from the gateways, deduped, scored, the k best merged (B6, or
+    B6_f64 at float64)."""
     x, sq, graph, dist, gates = _refine_problem(dev, 3000, f, k, 300, f,
-                                                lattice)
+                                                lattice, dtype)
     if metric == "euclidean":
         dist = torch.sqrt(dist)
     for row0 in (0, 2700):
@@ -750,12 +817,13 @@ def test_refine_first_exact_stage_matches_plain(dev, f, k, metric, lattice):
 
 
 @pytest.mark.parametrize("lattice", [False, True])
-def test_refine_keep_then_exact_stage_matches_plain(dev, lattice):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_refine_keep_then_exact_stage_matches_plain(dev, lattice, dtype):
     """The blobs' funnel: a cascade keep stage (F = 128, the first stage)
     and the exact stage (F = 784) on its list."""
     n, k, ke = 2000, 90, 45
     x, sq, graph, dist, gates = _refine_problem(dev, n, 784, k, 200, 7,
-                                                lattice)
+                                                lattice, dtype)
     proj = (x[:, :128] * 2.0).contiguous()
     psq = torch.sum(proj * proj, dim=1)
     kept = _hold_keep((proj, psq, 0, gates, 270), dict(graph=graph, ke=ke),
@@ -765,12 +833,15 @@ def test_refine_keep_then_exact_stage_matches_plain(dev, lattice):
 
 
 @pytest.mark.parametrize("keep", [3 * K_MAX, 5 * K_MAX])
-def test_refine_funnel_at_the_deep_k_matches_plain(dev, keep):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_refine_funnel_at_the_deep_k_matches_plain(dev, keep, dtype):
     """k = K_MAX on a funnel: a first keep stage keeping the cascade's 3k
-    (F = 128) or the JL stage's 5k (8,192 sort keys), then the exact
-    stage merging 2k keys (F = 784)."""
+    (F = 128) or the JL stage's 5k (8,192 sort keys; B6_f64's 16-byte
+    keys fill its shared memory there), then the exact stage merging 2k
+    keys (F = 784)."""
     n, k, ke = 2000, K_MAX, K_MAX // 2
-    x, sq, graph, dist, gates = _refine_problem(dev, n, 784, k, 64, 12)
+    x, sq, graph, dist, gates = _refine_problem(dev, n, 784, k, 64, 12,
+                                                dtype=dtype)
     proj = (x[:, :128] * 2.0).contiguous()
     psq = torch.sum(proj * proj, dim=1)
     kept = _hold_keep((proj, psq, 0, gates, keep), dict(graph=graph, ke=ke),
@@ -779,12 +850,14 @@ def test_refine_funnel_at_the_deep_k_matches_plain(dev, keep):
                 False)
 
 
-def test_refine_edge_chunks_match_plain(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_refine_edge_chunks_match_plain(dev, dtype):
     """Every gateway one id, and a row whose gateways are all itself: rows
     with fewer unique candidates than the stage keeps (-1 after them) and
     than k."""
     n, k, ke = 2000, 90, 45
-    x, sq, graph, dist, gates = _refine_problem(dev, n, 128, k, 64, 8)
+    x, sq, graph, dist, gates = _refine_problem(dev, n, 128, k, 64, 8,
+                                                dtype=dtype)
     one = torch.full_like(gates, int(gates[0, 3]))
     short = gates.clone()
     short[5] = 5
@@ -824,6 +897,27 @@ def test_refine_wrapper_refuses_what_b6_does_not_take(dev):
     with pytest.raises(ValueError, match="shared memory"):
         refine_keep(xb, sqb, 0, gates_b, 20, graph=graph_b, ke=1900)
     assert KERNELS["B6"].launches == before
+
+
+def test_refine_wrapper_refuses_mixed_dtypes(dev):
+    """B6's wrapper casts nothing: float64 points with float32 norms or
+    old distances (or the reverse) raise before any launch of either
+    form, and a bf16 operand is no form's."""
+    x, sq, graph, dist, gates = _refine_problem(dev, 200, 8, 6, 4, 9)
+    x64, sq64, dist64 = x.double(), sq.double(), dist.double()
+    before = (KERNELS["B6"].launches, KERNELS["B6_f64"].launches)
+    for base, norms in ((x64, sq), (x, sq64)):
+        with pytest.raises(ValueError, match="B6"):
+            refine_keep(base, norms, 0, gates, 20, graph=graph, ke=6)
+    for base, norms, old_d in ((x64, sq64, dist[:4]), (x, sq, dist64[:4]),
+                               (x64, sq, dist64[:4])):
+        with pytest.raises(ValueError, match="B6"):
+            refine_final("sqeuclidean", base, norms, 0, gates, graph[:4],
+                         old_d, graph=graph, ke=6)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        refine_keep(x.bfloat16(), sq.bfloat16(), 0, gates, 20, graph=graph,
+                    ke=6)
+    assert (KERNELS["B6"].launches, KERNELS["B6_f64"].launches) == before
 
 
 def _recall(dist_approx, dist_exact, tol=1e-5):
@@ -898,7 +992,7 @@ def _coo_file(path, x):
 def test_cli_fat_resume_on_the_card(dev, tmp_path):
     """The CLI on the card: a fat-checkpoint resume launches no kNN kernel
     and gives the uninterrupted run's bytes; float64 on a refining kNN
-    plan is refused on the card before the kNN stage, nothing launched."""
+    plan runs its refine cycles through B6_f64, no float32 form."""
     from tsne_flink_tpu_torch.kernels.build import launches
     from tsne_flink_tpu_torch.utils.cli import main
     rng = np.random.default_rng(6)
@@ -921,12 +1015,15 @@ def test_cli_fat_resume_on_the_card(dev, tmp_path):
     assert counts["B1"] == 0 and counts["B6"] == 0 and counts["B2"] == 20
     assert ((tmp_path / "r.csv").read_bytes()
             == (tmp_path / "u.csv").read_bytes())
+    from tsne_flink_tpu_torch.ops.knn_tiles import pick_knn_tiles
+    chunks = -(-1500 // pick_knn_tiles(1500, 12, 30, "cuda").refine_chunk)
     reset_launches()
-    with pytest.raises(NotImplementedError, match="float64"):
-        main(argv("d.csv", "--dtype", "float64", "--knnMethod", "project",
-                  "--knnRefine", "2"))
-    assert not any(launches().values())
-    assert not (tmp_path / "d.csv").exists()
+    assert main(argv("d.csv", "--dtype", "float64", "--knnMethod",
+                     "project", "--knnRefine", "2")) == 0
+    counts = launches()
+    assert counts["B6_f64"] == 2 * chunks
+    assert all(v == 0 for k, v in counts.items() if not k.endswith("_f64"))
+    assert (tmp_path / "d.csv").exists()
 
 
 def test_cache_warm_hit_on_the_card(dev, tmp_path):
@@ -1447,10 +1544,12 @@ def test_knn_cross_sweep_matches_plain_and_the_ring_the_single_sweep(
         assert torch.equal(gi, want_i) and torch.equal(gd, want_d)
 
 
-def test_refine_n_valid_matches_plain(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_refine_n_valid_matches_plain(dev, dtype):
     """B6's first stage drops candidates at or past n_valid (a mesh's
     padding rows): every list id below it, against its plain version."""
-    x, sq, graph, dist, gates = _refine_problem(dev, 3000, 50, 40, 300, 5)
+    x, sq, graph, dist, gates = _refine_problem(dev, 3000, 50, 40, 300, 5,
+                                                dtype=dtype)
     n_valid = 2900
     for row0 in (0, 2500):
         args = ("sqeuclidean", x, sq, row0, gates, graph[row0:row0 + 300],
@@ -1464,6 +1563,29 @@ def test_refine_n_valid_matches_plain(dev):
                          .any(dim=2)).any())
         keep_i = _hold_keep((x, sq, row0, gates, 200), kw, False)
         assert not bool((keep_i >= n_valid).any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_refine_shard_rows_equal_the_single_launch(dev, dtype):
+    """A shard's launch (its rows' row0 into the gathered base, the
+    mesh's n_valid) gives the same rows of one launch over every row bit
+    for bit, on a first keep stage and a first exact stage (ROADMAP
+    "Sharded launches"; B6_f64 at float64)."""
+    x, sq, graph, dist, gates = _refine_problem(dev, 3000, 50, 40, 600, 5,
+                                                dtype=dtype)
+    kw = dict(graph=graph, ke=40, n_valid=2950)
+    whole_k = refine_keep(x, sq, 0, gates, 200, **kw)[0]
+    whole_f = refine_final("sqeuclidean", x, sq, 0, gates, graph[:600],
+                           dist[:600], **kw)
+    for r0, r1 in ((0, 256), (256, 600)):
+        part_k = refine_keep(x, sq, r0, gates[r0:r1].contiguous(), 200,
+                             **kw)[0]
+        part_f = refine_final("sqeuclidean", x, sq, r0,
+                              gates[r0:r1].contiguous(), graph[r0:r1],
+                              dist[r0:r1], **kw)
+        assert torch.equal(part_k, whole_k[r0:r1])
+        assert torch.equal(part_f[0], whole_f[0][r0:r1])
+        assert torch.equal(part_f[1], whole_f[1][r0:r1])
 
 
 def test_two_processes_on_the_card_equal_mesh_1(dev, tmp_path):
@@ -1859,18 +1981,35 @@ def test_float64_runs_on_the_card(dev, tmp_path):
     assert launches()["B2_f64"] == 40 and launches()["B2"] == 0
 
 
-def test_float64_project_is_refused_on_the_card(dev, tmp_path):
-    """A float64 run on the card whose kNN plan refines is refused before
-    the kNN stage, naming §C and B6: no kernel launches."""
+def _no_float32_form(counts):
+    return all(v == 0 for k, v in counts.items() if not k.endswith("_f64"))
+
+
+def test_float64_project_runs_on_the_card(dev, tmp_path):
+    """A float64 run on the card whose kNN plan refines runs through
+    B6_f64 (the plan a float64 run was refused on before B6 had its
+    float64 form): ``prepare`` with the auto refine cycles and
+    ``TSNE(dtype="float64", knn_method="project").fit``, each launching
+    B6_f64 one stage a chunk a cycle and no float32 form."""
     from tsne_flink_tpu_torch import TSNE
     from tsne_flink_tpu_torch.kernels.build import launches
+    from tsne_flink_tpu_torch.ops.knn_tiles import pick_knn_tiles
     from tsne_flink_tpu_torch.utils.artifacts import prepare
     x = torch.from_numpy(_f64_blobs(dev, n=9000)[0]).to(dev)
+    cycles = tknn.pick_knn_refine(9000, 16)
+    chunks = -(-9000 // pick_knn_tiles(9000, 16, 30, "cuda").refine_chunk)
     reset_launches()
-    with pytest.raises(NotImplementedError, match="B6.*§C"):
-        prepare(x, neighbors=30, knn_method="project", perplexity=10.0,
-                device=dev)
-    with pytest.raises(NotImplementedError, match="B6"):
-        TSNE(dtype="float64", knn_method="project", perplexity=10.0,
-             n_iter=10).fit(x.cpu().numpy())
-    assert not any(launches().values())
+    prep = prepare(x, neighbors=30, knn_method="project", perplexity=10.0,
+                   device=dev)
+    got = launches()
+    assert cycles > 0 and got["B6_f64"] == cycles * chunks
+    assert _no_float32_form(got)
+    assert prep.dist.dtype == prep.jval.dtype == torch.float64
+    assert bool(torch.isfinite(prep.dist).all())
+    reset_launches()
+    est = TSNE(dtype="float64", knn_method="project", perplexity=10.0,
+               n_iter=30, random_state=0).fit(x.cpu().numpy())
+    got = launches()
+    assert got["B6_f64"] == cycles * chunks and _no_float32_form(got)
+    assert est.embedding_.dtype == np.float64
+    assert np.isfinite(est.kl_divergence_)

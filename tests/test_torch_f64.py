@@ -3,22 +3,27 @@
 The kernels' float64 forms run on the card only (``tests/test_torch_cuda
 .py`` holds them there).  Here:
 
-* the one refusal left (``ops/knn.check_float64_plan``): float64 with a
-  refining kNN plan on ``cuda`` raises naming ROADMAP §C and B6, before
-  the kNN stage; nothing is refused on the CPU, nor on the card without a
-  refine, nor at float32;
+* no plan is refused for its dtype: ``ops/knn.check_knn_limits`` admits
+  float64 on every device and method, and every stage of every refine
+  plan it admits (k <= K_MAX, d <= CAND_F_MAX) fits the shared memory of
+  B6 and of its float64 form (``ops/knn_cuda.refine_smem_bytes`` at 4-
+  and 8-byte values, the layout of ``csrc/knn_cand.cu``);
+* a float64 ``project`` run (``prepare``, and the sharded prepare on a
+  mesh of 2) reaches the refine stages' wrappers with float64 values and
+  gets float64 distances back;
 * the frozen model's dtype (``serve/model.frozen_dtype``): float64 on the
   card when the caller asks for it, float32 otherwise, the features' own
   on the CPU;
-* ``KERNELS`` names the five float64 forms by their C symbols, and each
+* ``KERNELS`` names the six float64 forms by their C symbols, and each
   symbol has a signature with float64 scalars where the float32 form has
-  float32 ones;
+  float32 ones (the pointers are untyped: B6_f64's float64 base, norms
+  and distances pass where B6's float32 ones do);
 * the memory model at ``PlanConfig(dtype="float64")`` on ``cuda``: every
   term it shares with the JAX model, save those the card overrides,
   equals the JAX model's (rtol 1e-12), and B1's port term is one float64
   product, with no (hi, lo) pair or bf16 scratch;
 * graftcheck's recorder names the float64 forms for a float64 run (and
-  the float32 forms for a float32 one);
+  the float32 forms for a float32 one), B6_f64 on a refining plan;
 * the wrappers' dtype dispatch: graftlint's dtype-drift is clean on the
   port's tree with the one blessed helper (``ops/metrics.kernel_float64``)
   and the dtype audit's float64 scan still flags a float64 value in a
@@ -26,7 +31,9 @@ The kernels' float64 forms run on the card only (``tests/test_torch_cuda
 
 The float64 slice's parity with the JAX package is held where it was:
 ``tests/test_torch_tsne.py``, ``test_torch_api.py`` and
-``test_torch_serve.py`` run the port at float64 against it on the CPU.
+``test_torch_serve.py`` run the port at float64 against it on the CPU,
+and ``tests/test_torch_hybrid_knn.py`` holds the float64 plain refine
+round and project kNN to the JAX package with its own draws.
 """
 
 import math
@@ -40,7 +47,8 @@ from tsne_flink_tpu.analysis.audit.plan import PlanConfig as JPlan
 from tsne_flink_tpu_torch.analysis.audit import hbm as thbm
 from tsne_flink_tpu_torch.analysis.audit.plan import PlanConfig
 from tsne_flink_tpu_torch.kernels import build as kbuild
-from tsne_flink_tpu_torch.ops.knn import check_float64_plan
+from tsne_flink_tpu_torch.ops import knn as tknn
+from tsne_flink_tpu_torch.ops import knn_cuda as tkc
 from tsne_flink_tpu_torch.ops.metrics import kernel_float64
 from tsne_flink_tpu_torch.serve.model import frozen_dtype
 
@@ -49,7 +57,39 @@ pytestmark = pytest.mark.fast
 F64_FORMS = {"B1_f64": "tsne_knn_f64", "B2_f64": "tsne_repulsion_f64",
              "B3_f64": "tsne_fused_step_f64",
              "B4_f64": "tsne_attraction_loss_f64",
-             "B5_f64": "tsne_attraction_forces_f64"}
+             "B5_f64": "tsne_attraction_forces_f64",
+             "B6_f64": "tsne_refine_chunk_f64"}
+
+
+def _refine_stages(d: int, k: int):
+    """The B6 launches of one refine chunk of the auto plan at (d, k), as
+    ``ops/knn.knn_refine`` makes them: (f, w, ke, keep, build, final)."""
+    fd = tknn.pick_knn_filter(d)
+    plan = tknn._refine_plan(d, k, filter_dims=fd,
+                             expand_k=(k + 1) // 2 if fd else None)
+    widths = ([(plan.filter_dims, plan.keep)] if plan.filter_dims else [])
+    widths += [(plan.cascade_dims, plan.keep2)] if plan.cascade_dims else []
+    out, w = [], 2 * plan.s
+    for i, (f, keep) in enumerate(widths + [(d, 0)]):
+        build, final = i == 0, i == len(widths)
+        if not final:
+            keep = min(keep, w * (1 + plan.ke) if build else w)
+        out.append((f, w, plan.ke if build else 0, keep, build, final))
+        w = keep
+    return out
+
+
+def _fits(d: int, k: int, itemsize: int) -> list:
+    """The stages of the plan at (d, k) past B6's shared memory or sort
+    capacity at values of ``itemsize`` bytes (none, when it fits)."""
+    bad = []
+    for f, w, ke, keep, build, final in _refine_stages(d, k):
+        need = tkc.refine_smem_bytes(f, w, ke, keep, k, build, final,
+                                     itemsize)
+        sort = 2 * k if final else keep
+        if need > tkc.REFINE_SMEM_MAX or sort > tkc.REFINE_SORT_MAX:
+            bad.append((d, k, f, build, final, need))
+    return bad
 
 
 @pytest.mark.parametrize("device", ["cuda", "cpu"])
@@ -58,44 +98,100 @@ F64_FORMS = {"B1_f64": "tsne_knn_f64", "B2_f64": "tsne_repulsion_f64",
                                            ("bruteforce", None),
                                            ("partition", None)])
 def test_refusal_helper(device, dtype, method, refine):
-    refused = (device == "cuda" and dtype == torch.float64
-               and method == "project" and bool(refine))
-    if refused:
-        with pytest.raises(NotImplementedError, match=r"B6.*§C"):
-            check_float64_plan(device, dtype, method, refine)
-    else:
-        check_float64_plan(device, dtype, method, refine)
+    """The pre-kNN plan check refuses no dtype on any device: it admits
+    each case at the kernels' widest k, and a refining plan's every stage
+    fits B6's shared memory at the dtype's width (B6_f64's at float64)."""
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    for d in (50, 200, 784, tkc.CAND_F_MAX):
+        tknn.check_knn_limits(2_000_000, d, tkc.K_MAX, method, refine)
+        if method == "project" and refine:
+            assert _fits(d, tkc.K_MAX, itemsize) == []
+            assert _fits(d, 90, itemsize) == []
+
+
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("d", [1, 50, 128, 129, 256, 257, 784,
+                               tkc.CAND_F_MAX])
+def test_every_admitted_refine_plan_fits_both_forms(itemsize, d):
+    """Every k the pre-kNN check admits (1 .. K_MAX) at the widest d of
+    each funnel shape (no filter up to 128, the JL filter to 256, filter
+    or cascade + exact past it): each stage of the chunk fits the block's
+    shared memory at 4- and 8-byte values."""
+    bad = [b for k in range(1, tkc.K_MAX + 1) for b in _fits(d, k, itemsize)]
+    assert bad == []
+
+
+def test_float64_layout_keeps_the_old_list_in_the_ids():
+    """B6_f64's layout: 8-byte values and 16-byte keys, the exact stage's
+    old list inside the candidate ids' array; B6's float32 layout is the
+    one it had (the old list after the gateways)."""
+    f, w, ke, k = 50, 16, 150, 150
+    f32 = tkc.refine_smem_bytes(f, w, ke, 0, k, True, True)
+    f64 = tkc.refine_smem_bytes(f, w, ke, 0, k, True, True, 8)
+    zcap, sortcap = w * (1 + ke), 512
+    assert f32 == (208 + 4 * zcap + 1024 + 32 + 64 + 608 + 608
+                   + max(8 * zcap, 8 * sortcap + 4 * zcap))
+    assert f64 == (400 + 4 * zcap + 1024 + 32 + 64
+                   + 16 * sortcap + 8 * zcap)
+    # a list narrower than the old list's 12 bytes a slot widens the ids
+    assert (tkc.refine_smem_bytes(8, 4, 0, 0, 150, False, True, 8)
+            == 64 + 608 + 1200 + 1024 + 32 + 16 * 512 + 32)
 
 
 def test_prepare_refuses_before_the_knn_stage(monkeypatch):
-    """``prepare`` asks the helper with the RESOLVED plan (``auto`` and a
-    None refine count through their policies), before any kNN work."""
-    from tsne_flink_tpu_torch.ops import knn as tknn
+    """A float64 ``project`` run with refine cycles is no longer refused:
+    ``prepare`` runs its refine stages, each wrapper called with float64
+    values (the card's B6_f64 operands: points or projections, norms, old
+    distances), and the graph's distances come back float64."""
     from tsne_flink_tpu_torch.utils import artifacts
     seen = []
-    monkeypatch.setattr(tknn, "check_float64_plan",
-                        lambda *a: seen.append(a))
+    real = {"keep": tknn.refine_keep, "final": tknn.refine_final}
 
-    def no_knn(*a, **kw):
-        raise AssertionError("the kNN stage ran")
-    x = torch.zeros((9000, 8), dtype=torch.float64)
-    monkeypatch.setattr(tknn, "knn", lambda *a, **kw: no_knn())
-    with pytest.raises(AssertionError, match="kNN stage"):
-        artifacts.prepare(x, neighbors=30, knn_method="project",
-                          perplexity=10.0, device="cpu")
-    assert seen == [("cpu", torch.float64, "project",
-                     tknn.pick_knn_refine(9000, 8))]
-    assert seen[0][3] > 0   # a card would refuse this plan
+    def keep(base, sq, *a, **kw):
+        seen.append(("keep", base.dtype, sq.dtype))
+        return real["keep"](base, sq, *a, **kw)
+
+    def final(metric, base, cache, row0, cand, old_i, old_d, **kw):
+        seen.append(("final", base.dtype, cache.dtype, old_d.dtype))
+        out = real["final"](metric, base, cache, row0, cand, old_i, old_d,
+                            **kw)
+        seen.append(("out", out[1].dtype))
+        return out
+    monkeypatch.setattr(tknn, "refine_keep", keep)
+    monkeypatch.setattr(tknn, "refine_final", final)
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal((700, 140)))
+    prep = artifacts.prepare(x, neighbors=15, knn_method="project",
+                             knn_refine=1, perplexity=5.0, device="cpu")
+    assert {s[0] for s in seen} == {"keep", "final", "out"}
+    assert all(set(s[1:]) == {torch.float64} for s in seen)
+    assert prep.dist.dtype == torch.float64
 
 
-def test_sharded_prepare_refuses_before_any_shard():
+def test_sharded_prepare_refuses_before_any_shard(monkeypatch):
+    """The sharded prepare at float64 with a refining ``project`` plan
+    runs its refine on every shard (no refusal): each shard's exact stage
+    gets the gathered float64 points with ``n_valid``, and returns float64
+    distances."""
     from tsne_flink_tpu_torch.models.tsne import TsneConfig
     from tsne_flink_tpu_torch.parallel.pipeline import SpmdPipeline
-    pipe = SpmdPipeline(TsneConfig(perplexity=10.0), 9000, 8, 30,
-                        knn_method="project", devices=["cpu"] * 2)
-    pipe.devices = [torch.device("cuda")] * 2  # as a card mesh reports
-    with pytest.raises(NotImplementedError, match="B6"):
-        pipe._prepared(np.zeros((9000, 8)), 0, None)
+    seen = []
+    real = tknn.refine_final
+
+    def final(metric, base, cache, row0, cand, old_i, old_d, **kw):
+        out = real(metric, base, cache, row0, cand, old_i, old_d, **kw)
+        seen.append((base.dtype, old_d.dtype, out[1].dtype, kw["n_valid"],
+                     row0))
+        return out
+    monkeypatch.setattr(tknn, "refine_final", final)
+    n = 301
+    pipe = SpmdPipeline(TsneConfig(perplexity=5.0), n, 8, 15,
+                        knn_method="project", knn_refine=1,
+                        devices=["cpu"] * 2)
+    pipe._prepared(np.random.default_rng(1).standard_normal((n, 8)), 0,
+                   None)
+    assert seen and all(s[:3] == (torch.float64,) * 3 for s in seen)
+    assert {s[3] for s in seen} == {n}
+    assert {s[4] for s in seen} >= {0, pipe.n_padded // 2}
 
 
 @pytest.mark.parametrize("device,asked,want", [
@@ -182,7 +278,7 @@ def test_memory_model_at_float64_on_the_card(kw):
     assert f32["b1_norms"] == 2 * n * d * 8  # norm_pairs' copy + square
 
 
-def _recorded_steps(dtype):
+def _recorded_steps(dtype, **kw):
     from tsne_flink_tpu_torch.analysis.audit.record import Recorder
     from tsne_flink_tpu_torch.models.tsne import TsneConfig, tsne_embed
     rng = np.random.default_rng(0)
@@ -190,7 +286,7 @@ def _recorded_steps(dtype):
     cfg = TsneConfig(perplexity=5.0, iterations=20, repulsion="exact",
                      attraction="csr")
     with Recorder() as rec:
-        tsne_embed(x, cfg, neighbors=15, device="cpu")
+        tsne_embed(x, cfg, neighbors=15, device="cpu", **kw)
     return {e["plain_of"] for e in rec.events if "plain_of" in e}
 
 
@@ -198,6 +294,16 @@ def test_recorder_names_the_float64_forms():
     assert _recorded_steps(torch.float64) == {"B1_f64", "B2_f64", "B3_f64",
                                               "B4_f64"}
     assert _recorded_steps(torch.float32) == {"B1", "B2", "B3", "B4"}
+
+
+def test_recorder_names_b6_f64_on_a_refining_plan():
+    """A float64 ``project`` plan with a refine cycle: its refine stages
+    are B6_f64's (the exact stage's plain version takes the metric's name
+    first, then the float64 points), a float32 one's B6's."""
+    kw = dict(knn_method="project", knn_refine=1)
+    assert _recorded_steps(torch.float64, **kw) == {"B2_f64", "B3_f64",
+                                                    "B4_f64", "B6_f64"}
+    assert _recorded_steps(torch.float32, **kw) == {"B2", "B3", "B4", "B6"}
 
 
 def test_dtype_drift_clean_with_the_one_blessed_helper():

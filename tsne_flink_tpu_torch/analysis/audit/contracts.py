@@ -21,7 +21,8 @@ enumerates them):
 A kernel's launcher is held through the public wrapper the main path
 calls (``fused_knn`` for ``knn_sweep_cuda``, ``knn_cross`` for
 ``knn_cross_cuda``, ``knn_refine`` for B6's ``_refine_launch``): on the
-card that launches the kernel, on the CPU its plain version.
+card that launches the kernel (its float64 form on float64 inputs: every
+kernel, B6 included, has one), on the CPU its plain version.
 
 Declarations are plain ``contract(...)`` calls so the lint rule can read
 them with ``ast`` alone; this module is imported by the audit tier only.

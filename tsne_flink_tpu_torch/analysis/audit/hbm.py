@@ -375,8 +375,9 @@ def _port_knn(plan: PlanConfig, terms: dict) -> None:
                                                   pick_knn_filter)
         if plan.backend == "cuda":
             # B6 runs a chunk's funnel in shared memory: the chunk holds
-            # its gateways and its new [c, k] lists, not the JAX model's
-            # [c, Z, d] gathers
+            # its gateways and its new [c, k] lists (ids and distances at
+            # the run's itemsize: B6_f64's are float64), not the JAX
+            # model's [c, Z, d] gathers
             from tsne_flink_tpu_torch.ops.knn_tiles import (
                 pick_knn_tiles, refine_chunk_bytes)
             c = pick_knn_tiles(n, d, k, plan.backend).refine_chunk

@@ -24,9 +24,9 @@ shard context with ``parallel/mesh.SHARD_CONTEXTS``: each shard thread of
 the thread mesh enters the recorder itself, and its events carry its
 shard index.  On the CPU the kernels' wrappers run their plain versions;
 an aten op issued inside one carries ``plain_of`` (the kernel id: the
-float64 form's, ``B1_f64`` .. ``B5_f64``, when the plain version's first
-argument is a float64 tensor, as the wrappers choose on the card), so an
-op list names the kernel steps on either device.
+float64 form's, ``B1_f64`` .. ``B6_f64``, when the plain version's first
+tensor argument is a float64 tensor, as the wrappers choose on the
+card), so an op list names the kernel steps on either device.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ PLAIN_OF = {
     "refine_keep_plain": "B6", "refine_final_plain": "B6",
 }
 #: the kernels with a float64 form (``kernels/build.KERNELS[id + "_f64"]``)
-F64_FORMS = ("B1", "B2", "B3", "B4", "B5")
+F64_FORMS = ("B1", "B2", "B3", "B4", "B5", "B6")
 
 #: aten matrix products -> the position of the input whose last axis is
 #: the contraction
@@ -64,12 +64,15 @@ _ACCUMULATE_ARG = {"aten.index_put": 3, "aten.index_put_": 3,
 
 def _plain_form(f) -> str:
     """The kernel id a plain version's frame stands in for: its float64
-    form's when the frame's first argument is a float64 tensor."""
+    form's when the frame's first tensor argument (``refine_final_plain``'s
+    follows the metric's name) is a float64 tensor."""
     import torch
     kid = PLAIN_OF[f.f_code.co_name]
     code = f.f_code
-    first = f.f_locals.get(code.co_varnames[0]) if code.co_argcount else None
-    if (kid in F64_FORMS and isinstance(first, torch.Tensor)
+    first = next((v for v in map(f.f_locals.get,
+                                 code.co_varnames[:code.co_argcount])
+                  if isinstance(v, torch.Tensor)), None)
+    if (kid in F64_FORMS and first is not None
             and first.dtype == torch.float64):
         return kid + "_f64"
     return kid

@@ -63,6 +63,8 @@ struct Num<float> {
   static __device__ __forceinline__ float rcp(float a) { return __frcp_rn(a); }
   static __device__ __forceinline__ float fma(float a, float b, float c) { return fmaf(a, b, c); }
   static __device__ __forceinline__ float max(float a, float b) { return fmaxf(a, b); }
+  static __device__ __forceinline__ float min(float a, float b) { return fminf(a, b); }
+  static __device__ __forceinline__ float sqrt(float a) { return sqrtf(a); }
   static __device__ __forceinline__ float log(float a) { return logf(a); }
 };
 
@@ -75,6 +77,8 @@ struct Num<double> {
   static __device__ __forceinline__ double rcp(double a) { return __drcp_rn(a); }
   static __device__ __forceinline__ double fma(double a, double b, double c) { return ::fma(a, b, c); }
   static __device__ __forceinline__ double max(double a, double b) { return fmax(a, b); }
+  static __device__ __forceinline__ double min(double a, double b) { return fmin(a, b); }
+  static __device__ __forceinline__ double sqrt(double a) { return __dsqrt_rn(a); }
   static __device__ __forceinline__ double log(double a) { return ::log(a); }
 };
 

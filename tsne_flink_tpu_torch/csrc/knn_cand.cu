@@ -61,10 +61,35 @@
 // in which threads insert or compact: every output is written once, and
 // two launches give the same bits.
 //
-// Rounding: scores keep the score-only kernel's arithmetic — __fadd_rn /
-// __fmul_rn in the plain version's order (sq_i + sq_j) − 2·g, only the dot
-// product g summed in another order than the plain version's, which the
-// card's checks bound at rtol 2e-5.
+// Rounding: scores keep the score-only kernel's arithmetic — the scalar
+// type's separately rounded add, subtract and multiply (tsne::Num) in the
+// plain version's order (sq_i + sq_j) − 2·g, only the dot product g summed
+// in another order than the plain version's, which the card's checks bound
+// at rtol 2e-5 (float32) and within 1e-12 of |d| + ‖a‖² + ‖b‖² (float64).
+//
+// The float64 form (B6_f64, tsne_refine_chunk_f64) is the same kernel over
+// the scalar type: float64 base, norms, scores and distances, every score
+// rounded as the plain float64 stage rounds it and the euclidean root
+// correctly rounded.  What changes with the type:
+// - the key.  A float64 score has 64 order-preserving bits, so the key is
+//   a (score bits, tie) pair of 16 bytes compared lexicographically, as
+//   B1_f64's (distance, column) pair; −0 folds onto +0 and the bits turn
+//   back into the exact double, so FINAL's distances, written from the
+//   key, are the scores bit for bit.  The radix select walks 8 score bytes
+//   and then up to 4 tie bytes (at most 12 passes, most rows done in 2-3);
+// - the scoring lanes.  WIDE_F stays at 64 elements: below it a 32-lane
+//   group would idle 14 of its lanes in a row's second and last step at
+//   [large]'s F = 50, at either width, while the 8-lane group reads a row
+//   in 64-byte pieces at doubles (two whole 32-byte sectors a step; one
+//   at floats), so both fetch the same sectors and the narrow group keeps
+//   four times the candidates in flight;
+// - shared memory.  The row's vector, the scores and the keys double, so
+//   the float64 layout puts the old list (the exact stage's, read only
+//   after the survivors are compacted) into the candidate ids' array,
+//   which is dead by then; every stage of every plan ops/knn admits (k <=
+//   1,024) fits in 227 KB at both widths (tests/test_torch_f64.py).
+// What bounds it is still bytes: a distinct row moves (F + 1)·8 bytes, so
+// the gather, and with it the bound, doubles.
 #include "common.cuh"
 
 namespace {
@@ -74,12 +99,12 @@ constexpr int WIDE_F = 64;          // from this F on, a warp scores one candida
 constexpr int NARROW_LANES = 8;     // lanes a candidate below WIDE_F
 constexpr int SORT_MAX = 8192;      // keys a row sorts: keep, or 2k in FINAL mode
 constexpr int BINS = 256;           // radix-select digit: one byte
-constexpr unsigned long long KEY_NONE = ~0ull;
 constexpr size_t SMEM_MAX = 232448; // what a block may opt in to on sm_90
 
+template <class T>
 struct Params {
-  const float* base;  // [n, f]
-  const float* sq;    // [n] squared norms
+  const T* base;      // [n, f]
+  const T* sq;        // [n] squared norms
   int n, f, row0, c;
   const int* cand;    // BUILD: gateways [c, w]; else ids [c, w], -1 = none
   int w;
@@ -87,11 +112,107 @@ struct Params {
   int kg, ke;
   int keep;           // KEEP mode: survivors a row
   const int* old_i;   // FINAL mode: [c, k]
-  const float* old_d;
+  const T* old_d;
   int k, euclid;
   int n_valid;        // BUILD: ids >= n_valid are no candidates
   int* out_i;         // KEEP: [c, keep]; FINAL: [c, k]
-  float* out_d;       // FINAL: [c, k]
+  T* out_d;           // FINAL: [c, k]
+};
+
+// The selection key of a score and its tie, ordered as (score, tie): one
+// 64-bit word of 32 order-preserving score bits above the tie (float32),
+// or a 16-byte (64 score bits, tie) pair compared lexicographically
+// (float64).  Scores fold −0 onto +0 and come back from the key exactly.
+template <class T>
+struct KeyOps;
+
+template <>
+struct KeyOps<float> {
+  using Key = unsigned long long;
+  static constexpr int BYTES = 8;  // radix-select passes at most
+  static __device__ __forceinline__ Key none() { return ~0ull; }
+  static __device__ __forceinline__ Key make(float v, unsigned tie) {
+    const unsigned u = __float_as_uint(__fadd_rn(v, 0.f));
+    const unsigned o = (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+    return ((unsigned long long)o << 32) | tie;
+  }
+  static __device__ __forceinline__ float score(Key key) {
+    const unsigned o = (unsigned)(key >> 32);
+    return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
+  }
+  static __device__ __forceinline__ unsigned tie(Key key) {
+    return (unsigned)key;
+  }
+  static __device__ __forceinline__ bool greater(Key a, Key b) {
+    return a > b;
+  }
+  // byte b of the key, the most significant first
+  static __device__ __forceinline__ int digit(Key key, int b) {
+    return (int)((key >> (56 - 8 * b)) & 0xff);
+  }
+  static __device__ __forceinline__ void set_digit(Key& prefix, Key& mask,
+                                                   int b, int d) {
+    prefix |= (Key)d << (56 - 8 * b);
+    mask |= 0xffull << (56 - 8 * b);
+  }
+  static __device__ __forceinline__ bool masked_eq(Key key, Key mask,
+                                                   Key prefix) {
+    return (key & mask) == prefix;
+  }
+  static __device__ __forceinline__ bool masked_le(Key key, Key mask,
+                                                   Key prefix) {
+    return (key & mask) <= prefix;
+  }
+};
+
+struct __align__(16) Key16 {
+  unsigned long long s;  // the score's order-preserving bits
+  unsigned t;            // the tie
+  unsigned pad;
+};
+
+template <>
+struct KeyOps<double> {
+  using Key = Key16;
+  static constexpr int BYTES = 12;
+  static constexpr unsigned long long SIGN = 0x8000000000000000ull;
+  static __device__ __forceinline__ Key none() { return {~0ull, ~0u, 0u}; }
+  static __device__ __forceinline__ Key make(double v, unsigned tie) {
+    const unsigned long long u =
+        (unsigned long long)__double_as_longlong(__dadd_rn(v, 0.0));
+    return {(u & SIGN) ? ~u : (u | SIGN), tie, 0u};
+  }
+  static __device__ __forceinline__ double score(Key key) {
+    const unsigned long long o = key.s;
+    return __longlong_as_double((long long)((o & SIGN) ? (o & ~SIGN) : ~o));
+  }
+  static __device__ __forceinline__ unsigned tie(Key key) { return key.t; }
+  static __device__ __forceinline__ bool greater(Key a, Key b) {
+    return a.s > b.s || (a.s == b.s && a.t > b.t);
+  }
+  static __device__ __forceinline__ int digit(Key key, int b) {
+    return b < 8 ? (int)((key.s >> (56 - 8 * b)) & 0xff)
+                 : (int)((key.t >> (24 - 8 * (b - 8))) & 0xff);
+  }
+  static __device__ __forceinline__ void set_digit(Key& prefix, Key& mask,
+                                                   int b, int d) {
+    if (b < 8) {
+      prefix.s |= (unsigned long long)d << (56 - 8 * b);
+      mask.s |= 0xffull << (56 - 8 * b);
+    } else {
+      prefix.t |= (unsigned)d << (24 - 8 * (b - 8));
+      mask.t |= 0xffu << (24 - 8 * (b - 8));
+    }
+  }
+  static __device__ __forceinline__ bool masked_eq(Key key, Key mask,
+                                                   Key prefix) {
+    return (key.s & mask.s) == prefix.s && (key.t & mask.t) == prefix.t;
+  }
+  static __device__ __forceinline__ bool masked_le(Key key, Key mask,
+                                                   Key prefix) {
+    const unsigned long long s = key.s & mask.s;
+    return s < prefix.s || (s == prefix.s && (key.t & mask.t) <= prefix.t);
+  }
 };
 
 __host__ __device__ inline size_t align16(size_t b) {
@@ -104,29 +225,44 @@ __host__ __device__ inline int pow2_at_least(int v) {
   return p;
 }
 
-// The block's dynamic shared memory, byte offsets of each array.
+// The block's dynamic shared memory, byte offsets of each array.  The
+// float64 form keeps the old list (FINAL mode) in the ids' array, which
+// is read for the last time before the old list is loaded.
+template <class T>
 struct Layout {
+  static constexpr bool OLD_IN_IDS = sizeof(T) == 8;
   int zcap, hsize, sortcap;
   size_t rvec, ids, hist, misc, gates, oi, od, region, scores, bytes;
-  __host__ __device__ Layout(const Params& p, bool build, bool fin) {
+  __host__ __device__ Layout(const Params<T>& p, bool build, bool fin) {
     zcap = build ? p.w * (1 + p.ke) : p.w;
     hsize = build ? 2 * zcap : 0;
     sortcap = pow2_at_least(fin ? 2 * p.k : p.keep);
+    const size_t oi_bytes = fin ? align16(sizeof(int) * p.k) : 0;
+    const size_t od_bytes = fin ? align16(sizeof(T) * p.k) : 0;
+    size_t id_bytes = sizeof(int) * (size_t)zcap;
+    if (OLD_IN_IDS && oi_bytes + od_bytes > id_bytes)
+      id_bytes = oi_bytes + od_bytes;
     size_t at = 0;
-    rvec = at;   at += align16(sizeof(float) * p.f);
-    ids = at;    at += align16(sizeof(int) * zcap);
+    rvec = at;   at += align16(sizeof(T) * p.f);
+    ids = at;    at += align16(id_bytes);
     hist = at;   at += align16(sizeof(int) * BINS);
     misc = at;   at += align16(sizeof(int) * 8);
     gates = at;  at += build ? align16(sizeof(int) * p.w) : 0;
-    oi = at;     at += fin ? align16(sizeof(int) * p.k) : 0;
-    od = at;     at += fin ? align16(sizeof(float) * p.k) : 0;
+    if (OLD_IN_IDS) {
+      oi = ids;
+      od = ids + oi_bytes;
+    } else {
+      oi = at;   at += oi_bytes;
+      od = at;   at += od_bytes;
+    }
     // the region: the hash set while the candidates are built, then the
     // sort buffer (keys) followed by the scores
     region = at;
-    const size_t sort = sizeof(unsigned long long) * (size_t)sortcap;
+    const size_t sort =
+        sizeof(typename KeyOps<T>::Key) * (size_t)sortcap;
     scores = region + sort;
     const size_t table = sizeof(int) * (size_t)hsize;
-    const size_t after = sort + sizeof(float) * (size_t)zcap;
+    const size_t after = sort + sizeof(T) * (size_t)zcap;
     at += align16(table > after ? table : after);
     bytes = at;
   }
@@ -137,34 +273,25 @@ constexpr int M_COUNT = 0;  // candidates in ids[] (BUILD) / valid ones (list)
 constexpr int M_NSEL = 1;   // survivors compacted
 constexpr int M_DIGIT = 2, M_BELOW = 3, M_BIN = 4;  // radix-select pass
 
-__device__ __forceinline__ float combine(float sq_i, float sq_j, float g) {
-  return fmaxf(__fsub_rn(__fadd_rn(sq_i, sq_j), __fmul_rn(2.f, g)), 0.f);
-}
-
-// float -> uint32 in the float's order (−0 folded onto +0), and back
-__device__ __forceinline__ unsigned ord_bits(float v) {
-  const unsigned u = __float_as_uint(__fadd_rn(v, 0.f));
-  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
-}
-
-__device__ __forceinline__ float from_ord(unsigned o) {
-  return __uint_as_float((o & 0x80000000u) ? (o & 0x7fffffffu) : ~o);
-}
-
-__device__ __forceinline__ unsigned long long make_key(float d, unsigned tie) {
-  return ((unsigned long long)ord_bits(d) << 32) | tie;
+// d² = max((sq_i + sq_j) − 2·g, 0), each operation rounded on its own
+template <class T>
+__device__ __forceinline__ T combine(T sq_i, T sq_j, T g) {
+  using N = tsne::Num<T>;
+  return N::max(N::sub(N::add(sq_i, sq_j), N::mul(T(2), g)), T(0));
 }
 
 // Ascending bitonic sort of n (a power of two) keys; every thread calls.
-__device__ void bitonic_sort(unsigned long long* buf, int n) {
+template <class T>
+__device__ void bitonic_sort(typename KeyOps<T>::Key* buf, int n) {
+  using Key = typename KeyOps<T>::Key;
   for (int size = 2; size <= n; size <<= 1) {
     for (int stride = size >> 1; stride > 0; stride >>= 1) {
       for (int t = threadIdx.x; t < n / 2; t += THREADS) {
         const int lo = 2 * t - (t & (stride - 1));
         const int hi = lo + stride;
         const bool up = (lo & size) == 0;
-        const unsigned long long a = buf[lo], b = buf[hi];
-        if ((a > b) == up) {
+        const Key a = buf[lo], b = buf[hi];
+        if (KeyOps<T>::greater(a, b) == up) {
           buf[lo] = b;
           buf[hi] = a;
         }
@@ -187,27 +314,27 @@ __device__ __forceinline__ int warp_append(bool mine, int* counter) {
 
 // (prefix, mask) such that exactly `want` of the valid keys have
 // (key & mask) <= prefix.  Needs more than `want` valid, unique keys;
-// every thread calls and gets the same answer.  Lanes adding to one bin
-// add once, by __match_any_sync.
-template <class KeyOf, class Valid>
+// every thread calls and gets the same answer.  One byte of the key a
+// pass, most significant first; lanes adding to one bin add once, by
+// __match_any_sync.
+template <class T, class KeyOf, class Valid>
 __device__ void radix_threshold(KeyOf key_of, Valid valid, int nz, int want,
                                 int* hist, int* misc,
-                                unsigned long long& prefix,
-                                unsigned long long& mask) {
+                                typename KeyOps<T>::Key& prefix,
+                                typename KeyOps<T>::Key& mask) {
+  using K = KeyOps<T>;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   int need = want;
-  prefix = 0;
-  mask = 0;
-  for (int shift = 56; shift >= 0; shift -= 8) {
-    for (int b = threadIdx.x; b < BINS; b += THREADS) hist[b] = 0;
+  for (int b = 0; b < K::BYTES; ++b) {
+    for (int t = threadIdx.x; t < BINS; t += THREADS) hist[t] = 0;
     __syncthreads();
     for (int t0 = 0; t0 < nz; t0 += THREADS) {  // the same trips in a warp
       const int t = t0 + threadIdx.x;
       int bin = -1;
       if (t < nz && valid(t)) {
-        const unsigned long long key = key_of(t);
-        if ((key & mask) == prefix) bin = (int)((key >> shift) & 0xff);
+        const typename K::Key key = key_of(t);
+        if (K::masked_eq(key, mask, prefix)) bin = K::digit(key, b);
       }
       const unsigned peers = __match_any_sync(tsne::kFullMask, bin);
       if (bin >= 0 && lane == __ffs(peers) - 1)
@@ -242,30 +369,30 @@ __device__ void radix_threshold(KeyOf key_of, Valid valid, int nz, int want,
     }
     __syncthreads();
     need -= misc[M_BELOW];
-    prefix |= (unsigned long long)misc[M_DIGIT] << shift;
-    mask |= 0xffull << shift;
+    K::set_digit(prefix, mask, b, misc[M_DIGIT]);
     const bool done = misc[M_BIN] == need;
     __syncthreads();  // misc and hist are rewritten by the next pass
     if (done) break;
   }
 }
 
-template <bool BUILD, bool FINAL, int LANES>
-__global__ void __launch_bounds__(THREADS) refine_kernel(const Params p) {
+template <class T, bool BUILD, bool FINAL, int LANES>
+__global__ void __launch_bounds__(THREADS) refine_kernel(const Params<T> p) {
+  using K = KeyOps<T>;
+  using Key = typename K::Key;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout L(p, BUILD, FINAL);
-  float* rvec = reinterpret_cast<float*>(smem + L.rvec);
+  const Layout<T> L(p, BUILD, FINAL);
+  T* rvec = reinterpret_cast<T*>(smem + L.rvec);
   int* ids = reinterpret_cast<int*>(smem + L.ids);
-  float* scores = reinterpret_cast<float*>(smem + L.scores);
+  T* scores = reinterpret_cast<T*>(smem + L.scores);
   int* hist = reinterpret_cast<int*>(smem + L.hist);
   int* misc = reinterpret_cast<int*>(smem + L.misc);
-  unsigned long long* keys =
-      reinterpret_cast<unsigned long long*>(smem + L.region);
+  Key* keys = reinterpret_cast<Key*>(smem + L.region);
   const int tid = threadIdx.x;
   const int r = blockIdx.x;
   const int i = p.row0 + r;
 
-  const float* __restrict__ bi = p.base + (size_t)i * p.f;
+  const T* __restrict__ bi = p.base + (size_t)i * p.f;
   for (int t = tid; t < p.f; t += THREADS) rvec[t] = bi[t];
   if (tid < 8) misc[tid] = 0;
   if constexpr (BUILD) {
@@ -328,7 +455,7 @@ __global__ void __launch_bounds__(THREADS) refine_kernel(const Params p) {
   // a butterfly within the group adding the parts; two candidates a group
   // at a time, so that twice the loads are in flight
   const bool root = FINAL && p.euclid;
-  const float sq_i = p.sq[i];
+  const T sq_i = p.sq[i];
   {
     constexpr int GROUPS = THREADS / LANES;
     const int lane = tid % LANES;
@@ -338,14 +465,14 @@ __global__ void __launch_bounds__(THREADS) refine_kernel(const Params p) {
       const int tb = ta + GROUPS;
       const int ja = ta < nz ? ids[ta] : -1;
       const int jb = tb < nz ? ids[tb] : -1;
-      const float* __restrict__ ba = p.base + (size_t)(ja >= 0 ? ja : i) * p.f;
-      const float* __restrict__ bb = p.base + (size_t)(jb >= 0 ? jb : i) * p.f;
-      float ga = 0.f, gb = 0.f;
+      const T* __restrict__ ba = p.base + (size_t)(ja >= 0 ? ja : i) * p.f;
+      const T* __restrict__ bb = p.base + (size_t)(jb >= 0 ? jb : i) * p.f;
+      T ga = T(0), gb = T(0);
 #pragma unroll 4
       for (int q = lane; q < p.f; q += LANES) {
-        const float rq = rvec[q];
-        ga = fmaf(rq, __ldg(ba + q), ga);
-        gb = fmaf(rq, __ldg(bb + q), gb);
+        const T rq = rvec[q];
+        ga = tsne::Num<T>::fma(rq, __ldg(ba + q), ga);
+        gb = tsne::Num<T>::fma(rq, __ldg(bb + q), gb);
       }
 #pragma unroll
       for (int off = LANES / 2; off > 0; off >>= 1) {
@@ -354,12 +481,12 @@ __global__ void __launch_bounds__(THREADS) refine_kernel(const Params p) {
       }
       if (lane == 0) {
         if (ja >= 0) {
-          const float d = combine(sq_i, __ldg(p.sq + ja), ga);
-          scores[ta] = root ? sqrtf(d) : d;
+          const T d = combine(sq_i, __ldg(p.sq + ja), ga);
+          scores[ta] = root ? tsne::Num<T>::sqrt(d) : d;
         }
         if (jb >= 0) {
-          const float d = combine(sq_i, __ldg(p.sq + jb), gb);
-          scores[tb] = root ? sqrtf(d) : d;
+          const T d = combine(sq_i, __ldg(p.sq + jb), gb);
+          scores[tb] = root ? tsne::Num<T>::sqrt(d) : d;
         }
       }
     }
@@ -371,34 +498,34 @@ __global__ void __launch_bounds__(THREADS) refine_kernel(const Params p) {
   const int want = FINAL ? p.k : p.keep;
   auto valid = [&](int t) { return BUILD || ids[t] >= 0; };
   auto key_of = [&](int t) {
-    return make_key(scores[t], BUILD ? (unsigned)ids[t] : (unsigned)t);
+    return K::make(scores[t], BUILD ? (unsigned)ids[t] : (unsigned)t);
   };
-  unsigned long long prefix = 0, mask = 0;  // all of them, unless
+  Key prefix{}, mask{};  // all of them, unless
   if (nvalid > want)
-    radix_threshold(key_of, valid, nz, want, hist, misc, prefix, mask);
+    radix_threshold<T>(key_of, valid, nz, want, hist, misc, prefix, mask);
   for (int t0 = 0; t0 < nz; t0 += THREADS) {  // the same trips in a warp
     const int t = t0 + tid;
-    unsigned long long key = 0;
+    Key key{};
     bool take = false;
     if (t < nz && valid(t)) {
       key = key_of(t);
-      take = (key & mask) <= prefix;
+      take = K::masked_le(key, mask, prefix);
     }
     const int pos = warp_append(take, &misc[M_NSEL]);
     // FINAL keys by (d, id), the merge's order
-    if (take) keys[pos] = FINAL ? make_key(scores[t], (unsigned)ids[t]) : key;
+    if (take) keys[pos] = FINAL ? K::make(scores[t], (unsigned)ids[t]) : key;
   }
   __syncthreads();
   const int nsel = misc[M_NSEL];
 
   if constexpr (!FINAL) {
-    for (int t = nsel + tid; t < L.sortcap; t += THREADS) keys[t] = KEY_NONE;
+    for (int t = nsel + tid; t < L.sortcap; t += THREADS) keys[t] = K::none();
     __syncthreads();
-    bitonic_sort(keys, L.sortcap);
+    bitonic_sort<T>(keys, L.sortcap);
     for (int t = tid; t < p.keep; t += THREADS) {
       int id = -1;
       if (t < nsel) {
-        const unsigned tie = (unsigned)keys[t];
+        const unsigned tie = K::tie(keys[t]);
         id = BUILD ? (int)tie : ids[tie];
       }
       p.out_i[(size_t)r * p.keep + t] = id;
@@ -406,43 +533,43 @@ __global__ void __launch_bounds__(THREADS) refine_kernel(const Params p) {
   } else {
     // 4. merge with the old list: each id's smallest distance, by (d, id)
     int* oi = reinterpret_cast<int*>(smem + L.oi);
-    float* od = reinterpret_cast<float*>(smem + L.od);
+    T* od = reinterpret_cast<T*>(smem + L.od);
     for (int t = tid; t < p.k; t += THREADS) {
       oi[t] = p.old_i[(size_t)r * p.k + t];
       od[t] = p.old_d[(size_t)r * p.k + t];
     }
     __syncthreads();
     for (int e = tid; e < nsel; e += THREADS) {
-      const unsigned long long key = keys[e];
-      const int id = (int)(unsigned)key;
-      const float dn = from_ord((unsigned)(key >> 32));
+      const Key key = keys[e];
+      const int id = (int)K::tie(key);
+      const T dn = K::score(key);
       bool old = false;
       for (int o = 0; o < p.k; ++o) {
         if (oi[o] == id) {  // new ids are unique: one thread per old slot
-          od[o] = fminf(od[o], dn);
+          od[o] = tsne::Num<T>::min(od[o], dn);
           old = true;
         }
       }
-      if (old) keys[e] = KEY_NONE;
+      if (old) keys[e] = K::none();
     }
     __syncthreads();
     for (int t = tid; t < L.sortcap - nsel; t += THREADS)
-      keys[nsel + t] = t < p.k ? make_key(od[t], (unsigned)oi[t]) : KEY_NONE;
+      keys[nsel + t] = t < p.k ? K::make(od[t], (unsigned)oi[t]) : K::none();
     __syncthreads();
-    bitonic_sort(keys, L.sortcap);
+    bitonic_sort<T>(keys, L.sortcap);
     for (int t = tid; t < p.k; t += THREADS) {
-      const unsigned long long key = keys[t];
-      p.out_i[(size_t)r * p.k + t] = (int)(unsigned)key;
-      p.out_d[(size_t)r * p.k + t] = from_ord((unsigned)(key >> 32));
+      const Key key = keys[t];
+      p.out_i[(size_t)r * p.k + t] = (int)K::tie(key);
+      p.out_d[(size_t)r * p.k + t] = K::score(key);
     }
   }
 }
 
-template <bool BUILD, bool FINAL, int LANES>
-int launch(const Params& p, cudaStream_t stream) {
-  const Layout L(p, BUILD, FINAL);
+template <class T, bool BUILD, bool FINAL, int LANES>
+int launch(const Params<T>& p, cudaStream_t stream) {
+  const Layout<T> L(p, BUILD, FINAL);
   if (L.bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  auto kern = refine_kernel<BUILD, FINAL, LANES>;
+  auto kern = refine_kernel<T, BUILD, FINAL, LANES>;
   if (L.bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
@@ -452,32 +579,18 @@ int launch(const Params& p, cudaStream_t stream) {
   return tsne::launch_status();
 }
 
-template <bool BUILD, bool FINAL>
-int launch_width(const Params& p, cudaStream_t stream) {
-  return p.f < WIDE_F ? launch<BUILD, FINAL, NARROW_LANES>(p, stream)
-                      : launch<BUILD, FINAL, 32>(p, stream);
+template <class T, bool BUILD, bool FINAL>
+int launch_width(const Params<T>& p, cudaStream_t stream) {
+  return p.f < WIDE_F ? launch<T, BUILD, FINAL, NARROW_LANES>(p, stream)
+                      : launch<T, BUILD, FINAL, 32>(p, stream);
 }
 
-}  // namespace
-
-// One funnel stage of rows row0 .. row0 + c − 1 (every id in [0, n); a
-// BUILD stage drops ids >= n_valid, n_valid <= n).
-// base [n, f] f32, sq [n] f32.  BUILD when graph is non-null: cand holds
-// the gateways [c, w] and graph [n, kg] the lists, of which the first ke
-// ids are proposed.  Otherwise cand [c, w] is a list, -1 for none.
-// KEEP mode when old_i is null: out_i [c, keep].  FINAL mode otherwise:
-// old_i/old_d [c, k] the rows' lists, out_i/out_d [c, k] the new ones,
-// euclid != 0 for euclidean distances.  Needs c, w >= 1, keep <= 8,192
-// (KEEP) or 2k <= 8,192 (FINAL), and the block's shared memory (a few
-// words a candidate, 2·w·(1 + ke) hash slots, 8 bytes a sorted key) within
-// 227 KB: ops/knn_cuda.refine_smem_bytes states the same layout.
-TSNE_API int tsne_refine_chunk_f32(const float* base, const float* sq, int n,
-                                   int f, int row0, int c, const int* cand,
-                                   int w, const int* graph, int kg, int ke,
-                                   int keep, const int* old_i,
-                                   const float* old_d, int k, int euclid,
-                                   int n_valid, int* out_i, float* out_d,
-                                   void* stream) {
+template <class T>
+int refine_chunk(const T* base, const T* sq, int n, int f, int row0, int c,
+                 const int* cand, int w, const int* graph, int kg, int ke,
+                 int keep, const int* old_i, const T* old_d, int k,
+                 int euclid, int n_valid, int* out_i, T* out_d,
+                 void* stream) {
   const bool build = graph != nullptr;
   const bool fin = old_i != nullptr;
   if (c < 1 || w < 1 || f < 1 || row0 < 0 || row0 + c > n ||
@@ -485,10 +598,50 @@ TSNE_API int tsne_refine_chunk_f32(const float* base, const float* sq, int n,
       (build && (ke < 1 || ke > kg)) ||
       (fin ? (k < 1 || 2 * k > SORT_MAX) : (keep < 1 || keep > SORT_MAX)))
     return (int)cudaErrorInvalidValue;
-  const Params p{base, sq, n, f, row0, c, cand, w, graph, kg, ke, keep,
-                 old_i, old_d, k, euclid, n_valid, out_i, out_d};
+  const Params<T> p{base, sq, n, f, row0, c, cand, w, graph, kg, ke, keep,
+                    old_i, old_d, k, euclid, n_valid, out_i, out_d};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (build) return fin ? launch_width<true, true>(p, s)
-                        : launch_width<true, false>(p, s);
-  return fin ? launch_width<false, true>(p, s) : launch_width<false, false>(p, s);
+  if (build) return fin ? launch_width<T, true, true>(p, s)
+                        : launch_width<T, true, false>(p, s);
+  return fin ? launch_width<T, false, true>(p, s)
+             : launch_width<T, false, false>(p, s);
+}
+
+}  // namespace
+
+// One funnel stage of rows row0 .. row0 + c − 1 (every id in [0, n); a
+// BUILD stage drops ids >= n_valid, n_valid <= n).
+// base [n, f], sq [n] in the entry's value type (f32 or f64), as are
+// old_d and out_d.  BUILD when graph is non-null: cand holds
+// the gateways [c, w] and graph [n, kg] the lists, of which the first ke
+// ids are proposed.  Otherwise cand [c, w] is a list, -1 for none.
+// KEEP mode when old_i is null: out_i [c, keep].  FINAL mode otherwise:
+// old_i/old_d [c, k] the rows' lists, out_i/out_d [c, k] the new ones,
+// euclid != 0 for euclidean distances.  Needs c, w >= 1, keep <= 8,192
+// (KEEP) or 2k <= 8,192 (FINAL), and the block's shared memory (a few
+// words a candidate, 2·w·(1 + ke) hash slots, a key of 8 bytes (f32) or
+// 16 (f64) a sorted entry) within 227 KB: ops/knn_cuda.refine_smem_bytes
+// states the same layout.
+TSNE_API int tsne_refine_chunk_f32(const float* base, const float* sq, int n,
+                                   int f, int row0, int c, const int* cand,
+                                   int w, const int* graph, int kg, int ke,
+                                   int keep, const int* old_i,
+                                   const float* old_d, int k, int euclid,
+                                   int n_valid, int* out_i, float* out_d,
+                                   void* stream) {
+  return refine_chunk<float>(base, sq, n, f, row0, c, cand, w, graph, kg, ke,
+                             keep, old_i, old_d, k, euclid, n_valid, out_i,
+                             out_d, stream);
+}
+
+TSNE_API int tsne_refine_chunk_f64(const double* base, const double* sq,
+                                   int n, int f, int row0, int c,
+                                   const int* cand, int w, const int* graph,
+                                   int kg, int ke, int keep,
+                                   const int* old_i, const double* old_d,
+                                   int k, int euclid, int n_valid,
+                                   int* out_i, double* out_d, void* stream) {
+  return refine_chunk<double>(base, sq, n, f, row0, c, cand, w, graph, kg,
+                              ke, keep, old_i, old_d, k, euclid, n_valid,
+                              out_i, out_d, stream);
 }

@@ -81,6 +81,8 @@ SIGNATURES = {
                                  _D, _P, _P, _P],
     "tsne_attraction_forces_f64": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I,
                                    _D, _P, _P],
+    "tsne_refine_chunk_f64": [_P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _I,
+                              _I, _P, _P, _I, _I, _I, _P, _P, _P],
 }
 
 
@@ -285,7 +287,7 @@ class Kernel:
 LAUNCH_HOOKS: list = []
 
 #: the port's kernels by the id of the TPU kernel each replaces; B1's
-#: bf16-operand form (mixed precision) and the float64 forms of B1-B5
+#: bf16-operand form (mixed precision) and the float64 forms of B1-B6
 #: count under names of their own, so a run's launches tell the forms
 #: apart
 KERNELS = {
@@ -301,6 +303,7 @@ KERNELS = {
     "B5": Kernel("tsne_attraction_forces_f32", "B5"),
     "B5_f64": Kernel("tsne_attraction_forces_f64", "B5_f64"),
     "B6": Kernel("tsne_refine_chunk_f32", "B6"),
+    "B6_f64": Kernel("tsne_refine_chunk_f64", "B6_f64"),
 }
 
 

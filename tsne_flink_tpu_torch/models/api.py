@@ -25,8 +25,8 @@ spans, recorded in an ``obs/trace.collecting`` scope) and ``metrics_``
 ``metrics_["policy"]`` when those ran).  ``aot_cache`` False builds the
 kernel library into a directory of the process's own
 (``kernels/build.set_cache``).  ``dtype="float64"`` runs on the card
-through the kernels' float64 forms (a refining ``project`` kNN plan
-raises ``NotImplementedError`` naming ROADMAP §C before the kNN stage).
+through the kernels' float64 forms (B1_f64-B6_f64), every kNN plan
+included.
 ``transform`` embeds new rows
 into the fitted map without moving it (``serve/transform.py``): the fit
 keeps its input, and ``frozen_model`` freezes the two on first use.

@@ -39,8 +39,7 @@ import torch
 from tsne_flink_tpu_torch.obs import trace as obtrace
 from tsne_flink_tpu_torch.ops.knn_cuda import (CAND_F_MAX, K_MAX, fused_knn,
                                                refine_final, refine_keep)
-from tsne_flink_tpu_torch.ops.metrics import (kernel_float64,
-                                              matmul_operands, pairwise)
+from tsne_flink_tpu_torch.ops.metrics import matmul_operands, pairwise
 from tsne_flink_tpu_torch.ops.zorder import zorder_permutation
 from tsne_flink_tpu_torch.utils.device import timed_stage
 
@@ -213,7 +212,11 @@ def check_knn_limits(n: int, d: int, k: int, method: str,
       class), and the refine kernel B6 builds, hashes and sorts a row's
       candidates there (2s(1 + k) of them; up to 5k sorted keys);
     * a refining ``project`` plan needs d <= ``CAND_F_MAX`` = 12,288: B6
-      keeps the chunk row's vector in shared memory beside them."""
+      keeps the chunk row's vector in shared memory beside them.
+
+    Both hold at float32 and at float64: every stage of every plan these
+    admit fits B6's and B6_f64's shared memory (``ops/knn_cuda
+    .refine_smem_bytes``), so no dtype is refused."""
     k = _clamp_k(k, n)
     if k > K_MAX:
         raise ValueError(
@@ -226,29 +229,9 @@ def check_knn_limits(n: int, d: int, k: int, method: str,
         raise ValueError(
             f"d = {d} features is past the refine kernel's limit CAND_F_MAX "
             f"= {CAND_F_MAX}: kernel B6 keeps the chunk row's vector in "
-            f"shared memory (F·4 bytes) beside its candidates; reduce the "
+            f"shared memory (F values) beside its candidates; reduce the "
             f"features (e.g. to principal components) or use knn_method="
             f"'bruteforce'")
-
-
-def check_float64_plan(device_type: str, dtype, method: str,
-                       refine: int | None) -> None:
-    """Refuse, before any kNN work, a float64 run on the card whose
-    resolved plan refines (``method``/``refine`` as
-    :func:`resolve_knn_plan` gives them: ``project`` with refine cycles):
-    kernel B6, the refine chunk's fused stage, has no float64 form yet —
-    its selection key holds 32 score bits (ROADMAP §C).  Nothing is
-    refused on the CPU, whose plain refine stages compute in x's dtype,
-    nor a float64 plan that does not refine: B1-B5 have float64 forms."""
-    if (device_type == "cuda" and method == "project" and refine
-            and kernel_float64(dtype)):
-        raise NotImplementedError(
-            f"float64 on the card with a refining kNN plan (knn_method="
-            f"'project', {refine} refine cycles) is not supported yet: "
-            "kernel B6 (the refine chunk's fused stage) has no float64 "
-            "form, its selection key holds 32 score bits (ROADMAP §C); "
-            "use knn_method='bruteforce' or 'partition', knn_refine=0, or "
-            "float32")
 
 
 # ---- exact methods ----------------------------------------------------------

@@ -59,6 +59,14 @@ CPU tensor, the kernel on a CUDA tensor, or they raise.
 :func:`cand_sqdist_plain` is the TPU kernel's formula, which the plain
 stages score with.
 
+At float64 the stages take B6's float64 form (``KERNELS["B6_f64"]``,
+``csrc/knn_cand.cu``'s ``tsne_refine_chunk_f64``), as the TPU kernel
+writes its scores in the operands' dtype (``knn_pallas.py:300``): float64
+scores, keys of (64 score bits, tie) and distances out, the ids int32.
+The wrappers take float32 or float64 values, one dtype for ``base``,
+``sq`` and ``old_d``, and cast nothing; :func:`refine_smem_bytes` states
+each form's shared memory.
+
 B6 under bf16 operands: on its accelerator the JAX package scores the
 refine funnel through the tile plan's ``kernel``, ``pallas`` on a TPU
 (``ops/knn_tiles.pick_knn_tiles`` via ``knn_pallas.pick_knn_kernel``,
@@ -435,7 +443,7 @@ def fused_knn(x: torch.Tensor, k: int, metric: str = "sqeuclidean",
 
 # ---- B6: one funnel stage of a refine chunk -----------------------------
 
-#: the kernel keeps a chunk row's vector in shared memory (F·4 bytes)
+#: the kernel keeps a chunk row's vector in shared memory (F values)
 CAND_F_MAX = 12_288
 #: keys the kernel sorts a row: a keep stage's survivors, or the exact
 #: stage's old + new lists (2k); a keep stage's 5k at k = K_MAX rounds up
@@ -447,22 +455,28 @@ REFINE_SMEM_MAX = 232_448
 
 
 def refine_smem_bytes(f: int, w: int, ke: int, keep: int, k: int,
-                      build: bool, final: bool) -> int:
-    """The dynamic shared memory of one B6 block, as ``Layout`` in
-    ``csrc/knn_cand.cu`` lays it out: the row's vector (F floats), the
-    candidate ids, a histogram, the gateways (a first stage), the old
-    list (the exact stage), and one region that holds the hash set (2
-    slots a candidate) and then the sort keys (a power of two, 8 bytes
-    each) with the scores."""
+                      build: bool, final: bool, itemsize: int = 4) -> int:
+    """The dynamic shared memory of one B6 block at values of ``itemsize``
+    bytes (4: float32, 8: B6_f64), as ``Layout`` in ``csrc/knn_cand.cu``
+    lays it out: the row's vector (F values), the candidate ids, a
+    histogram, the gateways (a first stage), the old list (the exact
+    stage; the float64 form keeps it in the ids' array, dead by then),
+    and one region that holds the hash set (2 slots a candidate) and then
+    the sort keys (a power of two, 8 bytes each, or 16 at float64) with
+    the scores."""
     def a16(b):
         return (b + 15) // 16 * 16
     zcap = w * (1 + ke) if build else w
     sortcap = 1 << ((2 * k if final else keep) - 1).bit_length()
-    at = a16(4 * f) + a16(4 * zcap) + a16(4 * 256) + a16(4 * 8)
+    old = a16(4 * k) + a16(itemsize * k) if final else 0
+    ids = 4 * zcap
+    if itemsize == 8:
+        ids, old = max(ids, old), 0
+    at = a16(itemsize * f) + a16(ids) + a16(4 * 256) + a16(4 * 8) + old
     at += a16(4 * w) if build else 0
-    at += 2 * a16(4 * k) if final else 0
     table = 4 * 2 * zcap if build else 0
-    return at + a16(max(table, 8 * sortcap + 4 * zcap))
+    key = 8 if itemsize == 4 else 16
+    return at + a16(max(table, key * sortcap + itemsize * zcap))
 
 
 def _compact_gather(base: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
@@ -617,20 +631,23 @@ def refine_final_plain(metric: str, base, cache, row0: int, cand, old_i,
 
 def _check_refine(base, sq, row0, cand, graph, ke, old, keep,
                   n_valid) -> None:
-    named = [("base", base, torch.float32, 2), ("sq", sq, torch.float32, 1),
+    kernel_float64(base)  # float32 or float64; sq and old_d alike
+    vt = base.dtype
+    named = [("base", base, vt, 2), ("sq", sq, vt, 1),
              ("cand", cand, torch.int32, 2)]
     if graph is not None:
         named.append(("graph", graph, torch.int32, 2))
     if old is not None:
         named += [("old_i", old[0], torch.int32, 2),
-                  ("old_d", old[1], torch.float32, 2)]
+                  ("old_d", old[1], vt, 2)]
     for name, t, dtype, dim in named:
         if not t.is_cuda or t.device != base.device:
             raise ValueError(f"B6 kernel takes CUDA tensors on one device; "
                              f"{name} is on {t.device}")
         if t.dtype != dtype or t.dim() != dim or not t.is_contiguous():
             raise ValueError(f"B6 kernel takes a contiguous {dim}-D {dtype} "
-                             f"{name}; got {t.dtype} {tuple(t.shape)}")
+                             f"{name} (base's value dtype); got {t.dtype} "
+                             f"{tuple(t.shape)}")
     n, f = base.shape
     c = cand.shape[0]
     if sq.shape[0] != n or not 0 <= row0 <= n - c or c < 1:
@@ -652,7 +669,8 @@ def _check_refine(base, sq, row0, cand, graph, ke, old, keep,
     w = cand.shape[1]
     k = 0 if old is None else old[0].shape[1]
     need = refine_smem_bytes(f, w, ke if graph is not None else 0, keep, k,
-                             graph is not None, old is not None)
+                             graph is not None, old is not None,
+                             base.element_size())
     if need > REFINE_SMEM_MAX:
         raise ValueError(f"B6 kernel: a row's candidates, hash set and sort "
                          f"keys need {need} bytes of shared memory, more "
@@ -661,8 +679,9 @@ def _check_refine(base, sq, row0, cand, graph, ke, old, keep,
 
 def _refine_launch(base, sq, row0, cand, graph, ke, *, keep=0, old=None,
                    euclid=False, n_valid=None):
-    """Launch B6 on one stage of rows row0 .. row0 + c − 1; allocates only
-    its outputs: ids [c, keep] (keep mode) or the new lists [c, k]."""
+    """Launch B6 (B6_f64 on float64 values) on one stage of rows row0 ..
+    row0 + c − 1; allocates only its outputs: ids [c, keep] (keep mode) or
+    the new lists [c, k] in base's dtype."""
     (n, f), (c, w) = base.shape, cand.shape
     if old is None:
         keep = min(keep, w * (1 + ke) if graph is not None else w)
@@ -678,15 +697,15 @@ def _refine_launch(base, sq, row0, cand, graph, ke, *, keep=0, old=None,
     else:
         k = old[0].shape[1]
         out_i = torch.empty((c, k), dtype=torch.int32, device=dev)
-        out_d = torch.empty((c, k), dtype=torch.float32, device=dev)
-    KERNELS["B6"](base.data_ptr(), sq.data_ptr(), n, f, row0, c,
-                  cand.data_ptr(), w,
-                  None if graph is None else graph.data_ptr(),
-                  0 if graph is None else graph.shape[1], ke, keep,
-                  None if old is None else old[0].data_ptr(),
-                  None if old is None else old[1].data_ptr(), k, int(euclid),
-                  n_valid, out_i.data_ptr(),
-                  None if out_d is None else out_d.data_ptr())
+        out_d = torch.empty((c, k), dtype=base.dtype, device=dev)
+    kernel = KERNELS["B6_f64"] if kernel_float64(base) else KERNELS["B6"]
+    kernel(base.data_ptr(), sq.data_ptr(), n, f, row0, c, cand.data_ptr(), w,
+           None if graph is None else graph.data_ptr(),
+           0 if graph is None else graph.shape[1], ke, keep,
+           None if old is None else old[0].data_ptr(),
+           None if old is None else old[1].data_ptr(), k, int(euclid),
+           n_valid, out_i.data_ptr(),
+           None if out_d is None else out_d.data_ptr())
     return out_i if old is None else (out_i, out_d)
 
 
@@ -704,8 +723,8 @@ def refine_keep(base: torch.Tensor, sq: torch.Tensor, row0: int,
     previous stage's output.  A first stage drops candidates at or past
     ``n_valid`` (the sharded refine's mesh padding rows).  Returns (cand,
     bad): on a CPU tensor the plain version's (ids, self/duplicate/padding
-    mask); on a CUDA tensor kernel B6's int32 ids, -1 where a row had
-    fewer candidates, and None."""
+    mask); on a CUDA tensor kernel B6's int32 ids (B6_f64's on float64
+    values), -1 where a row had fewer candidates, and None."""
     if base.device.type == "cpu":
         return refine_keep_plain(base, sq, row0, cand, keep, bad=bad,
                                  graph=graph, ke=ke, compact=compact,
@@ -726,8 +745,9 @@ def refine_final(metric: str, base: torch.Tensor, cache: torch.Tensor,
     at its smallest distance, rows ordered by (distance, id).  ``cand``,
     ``bad``, ``graph``, ``ke`` and ``n_valid`` as :func:`refine_keep`'s.
 
-    Kernel B6 on a CUDA tensor for sqeuclidean and euclidean; the plain
-    version on a CPU tensor, and for cosine, whose exact stage is plain
+    Kernel B6 (B6_f64 on float64 values, its distances float64) on a CUDA
+    tensor for sqeuclidean and euclidean; the plain version on a CPU
+    tensor, and for cosine, whose exact stage is plain
     PyTorch on the card too (the JAX package has no kernel for it); its
     product alone takes ``matmul_dtype`` (the module docstring: B6 keeps
     its float32 bits under bf16 operands)."""

@@ -275,12 +275,7 @@ class SpmdPipeline:
 
     def _prepared(self, x, seed: int, knn_draws) -> list:
         """Every shard's (jidx, jval, dropped, nnz) of this process, the
-        escalated width and slack kept.  A float64 run on the card with a
-        refining plan is refused before any shard starts."""
-        from tsne_flink_tpu_torch.ops.knn import check_float64_plan
-        if self.knn_method != "precomputed":
-            check_float64_plan(self.devices[0].type, self._dtype(x),
-                               self.knn_method, self.knn_refine)
+        escalated width and slack kept."""
         data = self._data(x)
         outs = self._ranks(lambda axis: self._prepare_rank(
             axis, data, seed, knn_draws))

@@ -284,8 +284,7 @@ def prepare(x=None, *, knn=None, neighbors: int,
     changes a bit of the result.  ``matmul_dtype`` (None, or
     ``torch.bfloat16``: mixed precision) is the kNN products' operand
     dtype (``ops/knn``), named in the kNN fingerprint."""
-    from tsne_flink_tpu_torch.ops.knn import (backend_of, check_float64_plan,
-                                              check_knn_limits)
+    from tsne_flink_tpu_torch.ops.knn import backend_of, check_knn_limits
     from tsne_flink_tpu_torch.runtime import faults
 
     if assembly not in ("auto", "sorted", "split", "blocks"):
@@ -307,7 +306,6 @@ def prepare(x=None, *, knn=None, neighbors: int,
                 n, d, knn_method, knn_rounds, knn_refine, k=k,
                 backend=backend_of(x))
             check_knn_limits(n, d, k, method, refine)
-            check_float64_plan(x.device.type, x.dtype, method, refine)
             if generator is None and seed is not None:
                 from tsne_flink_tpu_torch.models.tsne import knn_generator
                 generator = knn_generator(seed, device)

@@ -58,8 +58,7 @@ stays float32 and the kNN stage's distance and projection products take
 bf16 operands (``ops/metrics.matmul_operands``; kernel B1's bf16 form on
 the card), on both routes and in ``--transform``'s query sweep.
 ``--dtype float64`` runs on the card through the kernels' float64 forms
-(B1-B5), except on a refining ``project`` kNN plan, which is refused
-before the kNN stage (kernel B6 has no float64 form yet, ROADMAP §C).
+(B1-B6), on every kNN plan.
 The port reads no ``TSNE_*`` environment variable.
 """
 
@@ -167,8 +166,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "theta)")
     p.add_argument("--dtype", default=None,
                    choices=["float32", "float64", "bfloat16"],
-                   help="float32 (default), float64 (on the card but for "
-                        "a refining project kNN plan), or bfloat16: mixed "
+                   help="float32 (default), float64, or bfloat16: mixed "
                         "precision, float32 "
                         "state with bf16 operands in the kNN stage's "
                         "distance and projection products")
