@@ -48,8 +48,9 @@ Phases, in order; any failure exits non-zero before the result line:
    above), B6 at k = 600 on refine chunks captured from cuts of the
    blobs (cascade + exact) and the cells, and at k = 1,024 on the cells,
    each against its plain version with the bars above; ``tsne_embed`` at n_components 1, 4 and 8, and
-   at k = 1,024 on the bruteforce and project paths; and the limits left
-   (k past 1,024, m past 8) refused before the kNN stage starts;
+   at k = 1,024 on the bruteforce and project paths; and the limit left
+   (m past 8) refused before the kNN stage starts (k past 1,024 runs:
+   8d);
 4b. bf16   — mixed precision (``--dtype bfloat16``): B1's bf16 form
    (``KERNELS["B1_bf16"]``) against its plain version run on float64
    copies (distances within rtol 1e-5 of the norm trick's terms, ids
@@ -155,6 +156,36 @@ Phases, in order; any failure exits non-zero before the result line:
    runs on the float64 forms alone within 0.05 KL of config 2's float32
    run, and config 2 itself at ``--dtype float64`` (its project kNN,
    B6_f64 360 launches) too;
+8d. bigk  — k past 1,024 (perplexity above 341): B1, its bf16 form and
+   B1_f64 at k = 1,025, 1,500, 2,048 and 4,096 on the blobs of phase 5,
+   each against its plain version run in float64 on the form's operands
+   on 1,024 sampled rows (distances within 1e-5, or 1e-12 at float64, of
+   |d| + ‖a‖² + ‖b‖², ids equal outside ties), two launches bit for bit,
+   both launches in the pending class (and the k = 1,024 launch in the
+   deep class), the held rows' first 1,024 slots bit for bit the deep
+   class's list; B6 and B6_f64 at k = 1,500 on stages captured from
+   20,000-row cuts (B6_f64 on their inputs at float64, the old lists'
+   distances recomputed: the cells' first exact stage, 16·1,501
+   candidates a row, on the workspace route;
+   the blobs' cascade and exact stages; the cells' first stage with
+   n_valid = N − 64) at the B6 bars, the route each took, each stage
+   timed a chunk with its bound; then
+   ``TSNE(perplexity=500)`` (k = 1,500) at 60,000 x 784, 300 iterations,
+   with ``knn_method="bruteforce"`` (B1 once, in its pending class) and
+   ``"project"`` (B6 each stage of each refine chunk; recall@1,500
+   against B1's graph >= 0.90): launches, finite and falling KL, label
+   agreement >= 0.9, the memory model's allocated peak within [1, 2]x of
+   the measured; B1's cross sweep at k = 1,500 (a row block against
+   every column = the single sweep's rows bit for bit; against a column
+   block vs its plain version) and the ring on the test mesh of 2 = the
+   single sweep's graph bit for bit; config 2's command line at
+   ``--perplexity 500`` = the project estimator's bits; one 256-row
+   serving bucket from that model (query kNN at k = 1,500, B5 at [256,
+   1,500], B2), finite, 1 x 256 = 4 x 64 bit for bit; B1's time at k =
+   1,500 (median of 3 warm launches in turns with its library yardstick,
+   chunked matmul + topk(1,500)) beside its plain version's and its
+   3xTF32 bound.  The kernels line's B1, B1_bf16, B1_f64, B6 and B6_f64
+   records carry these as ``bigk``;
 9. large — ``tsne_embed`` at the shape of the 10x Genomics 1.3M mouse
    brain cells (1,306,127 x 50 principal components; a synthetic
    stand-in, see ``make_cells``): perplexity 50, k = 150, the hybrid kNN
@@ -162,7 +193,7 @@ Phases, in order; any failure exits non-zero before the result line:
    FIt-SNE's large-N learning rate (``fitsne_learning_rate``):
    stage and kNN substage seconds, the refine substage split into B6
    and the rest of its rounds, B1's exact graph at this shape (its
-   time, 3 warm launches and both bounds, and the hybrid's recall
+   time, one warm launch and both bounds, and the hybrid's recall
    against it, >= 0.90), the efficiencies of pick_knn_method's cost
    model and its exact/hybrid crossover, the FFT repulsion's
    per-iteration split (spread / FFTs / gather) beside B2's at 60,000
@@ -283,7 +314,8 @@ Phases, in order; any failure exits non-zero before the result line:
    ``nan@optimize``, ``corrupt@checkpoint``, ``--stageTimeout`` -> 124);
    three 60,000 x 784 fleet jobs under a budget that admits two, one
    killed and retried, each equal to its solo run and within its
-   predicted footprint, against the three one at a time; config 2's
+   predicted footprint (``scripts/runtime_phase_cuda.py`` also times the
+   three one at a time); config 2's
    command line with and without ``--trace --metricsOut --profile``
    (the same bits, launches and host reads; the JAX span names).
 
@@ -352,7 +384,7 @@ N_B1_CHECK = 8_192
 N_DETERMINISM = 2_000
 PERPLEXITY, K, ITERATIONS = 30.0, 90, 300
 #: the widths phase: rows for B2-B5 at m = 1, 4, 8; B6's k and cut; the
-#: points and iterations of its short embeds; the largest k the kernels take
+#: points and iterations of its short embeds; the deep class's largest k
 N_WIDTHS, K_B6_DEEP, N_REFINE_DEEP = 4_000, 600, 20_000
 N_EMBED_DEEP, ITER_WIDTHS, K_DEEP = 12_000, 100, 1024
 #: the final-KL gap allowed between two runs over the same P
@@ -742,11 +774,12 @@ def phase_build():
             regs = line.split("Used ")[1].split(" registers")[0]
             print(f"  {regs:>3} registers | {spill} | {fn}")
     library()
-    for k in (K, K_CELLS, 256, 300, 1024):
-        rows, stages, bufs, smem = knn_config(k)
+    for k in (K, K_CELLS, 256, 300, 1024, 1500):
+        rows, stages, bufs, smem, pend = knn_config(k)
         print(f"[build] B1 at k={k}: {rows} rows a block, {stages}-stage "
               f"cp.async ring, {bufs} distance-tile buffer(s), {smem} B "
-              f"shared memory")
+              f"shared memory" + (f", {pend} pending keys a row (the "
+                                  "pending class)" if pend else ""))
     sass = sass_check(res.path)
     if sass is None:
         print("[build] cuobjdump not found: B1's SASS not inspected")
@@ -2910,8 +2943,8 @@ def phase_widths(x_np, xc_np):
     of the blobs, B6 at K_B6_DEEP on refine chunks captured from cuts of
     the blobs and the cells (and at K_DEEP on the cells); then
     ``tsne_embed`` at n_components 1, 4, 8 and at k = K_DEEP on the
-    bruteforce and project paths, and the limits left refused before the
-    kNN stage.  Returns each kernel's max error."""
+    bruteforce and project paths, and the limit left (m past 8) refused
+    before the kNN stage.  Returns each kernel's max error."""
     import torch
     from tsne_flink_tpu_torch import TsneConfig, tsne_embed
     from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
@@ -3007,12 +3040,11 @@ def phase_widths(x_np, xc_np):
               f"{K_DEEP} {method}: {time.perf_counter() - t0:.2f} s, finite; "
               f"final KL {float(losses[-1]):.5f}; launches "
               f"{json.dumps(counts)}")
-    # the limits left raise before the kNN stage: no kernel launches
+    # the limit left raises before the kNN stage: no kernel launches (k
+    # past 1,024 runs: [bigk])
     for what, call in (
-            (f"k = {K_DEEP + 1}", lambda: tsne_embed(
-                x_np[:N_EMBED_DEEP], cfg, neighbors=K_DEEP + 1)),
             ("n_components = 9", lambda: tsne_embed(
-                x_np[:N_WIDTHS], dataclasses.replace(cfg, n_components=9)))):
+                x_np[:N_WIDTHS], dataclasses.replace(cfg, n_components=9))),):
         reset_launches()
         try:
             call()
@@ -3145,6 +3177,28 @@ def write_coo(path, x, rows_per_block=1000):
             f.write(text)
 
 
+#: id(x) -> (the COO CSV of x, the seconds its write took)
+_COO = {}
+
+
+def shared_coo(x_np):
+    """``x_np`` as a COO CSV, written once a process (1.3 GB at 60,000 x
+    784 blobs), into a directory of its own removed at exit: the phases
+    that run the command line ([cli], [bigk], [spmd], [runtime]) read one
+    file."""
+    import atexit
+    import shutil
+    import tempfile
+    if id(x_np) not in _COO:
+        d = tempfile.mkdtemp(prefix="tsne_coo_")
+        atexit.register(shutil.rmtree, d, True)
+        path = os.path.join(d, "mnist60k.csv")
+        t0 = time.perf_counter()
+        write_coo(path, x_np)
+        _COO[id(x_np)] = (path, time.perf_counter() - t0)
+    return _COO[id(x_np)][0]
+
+
 def run_cli(tag, argv, mesh_devices=None):
     """The port's CLI in this process (on the test mesh ``mesh_devices``
     when given), its launches counted from 0 just before it.  Returns
@@ -3251,13 +3305,12 @@ def phase_cli(x_np, xl_np, full, rows, project, y_bh):
     tmp = tempfile.mkdtemp(prefix="tsne_cli_")
     try:
         n, f = x_np.shape
-        coo = os.path.join(tmp, "mnist60k.csv")
-        t0 = time.perf_counter()
-        write_coo(coo, x_np)
+        coo = shared_coo(x_np)
         size = os.path.getsize(coo)
         nnz = int(np.count_nonzero(x_np))
         print(f"[cli] wrote {nnz} point,feature,value lines ({size / 1e9:.3f}"
-              f" GB) in {time.perf_counter() - t0:.2f} s (not part of a run)")
+              f" GB) in {_COO[id(x_np)][1]:.2f} s (not part of a run; the "
+              "command-line phases read this one file)")
         t0 = time.perf_counter()
         ids, x_back = tio.read_input(coo, f)
         t_read = time.perf_counter() - t0
@@ -3625,6 +3678,454 @@ def phase_analysis(x_np, argv, config2, y_c2, counts_c2, tmp):
     print(f"[analysis] {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- [bigk]: k past the deep class -------------------------------------------
+
+#: the k each B1 form is held at past its deep class (its pending class),
+#: the rows of the plain check, the rows a B6 stage is held on (the plain
+#: merge holds [rows, k, k] masks), the cut B6's stages are captured from,
+#: and the full-width runs' perplexity (k = 3·perplexity = 1,500)
+K_BIG = (1025, 1500, 2048, 4096)
+N_BIGK_ROWS, N_BIGK_HOLD, N_BIGK_CUT = 1024, 128, 20_000
+PERPLEXITY_BIG = 500.0
+K_BIG_RUN = 1500
+
+
+def route_counts():
+    from tsne_flink_tpu_torch.ops.knn_cuda import ROUTE_LAUNCHES
+    return dict(ROUTE_LAUNCHES)
+
+
+def route_delta(before):
+    now = route_counts()
+    return {k: v - before.get(k, 0) for k, v in now.items()
+            if v != before.get(k, 0)}
+
+
+#: each B1 form's bar against its plain version run in float64 on the
+#: form's operands: a distance within this fraction of |d| + ‖a‖² + ‖b‖²
+#: (3xTF32 drops lo·lo, ~2^-22 of a product; bf16 operands' products are
+#: exact in float64, their FP32 sums hold ~1e-7; float64 is B1_f64's bar)
+B1_FORM_RTOL = {"B1": 1e-5, "B1_bf16": 1e-5, "B1_f64": F64_RTOL}
+
+
+def b1_form_gates(form, x, k, rows):
+    """One B1 form against its plain version on the sample ``rows``, the
+    plain sweep run in float64 on the form's operands (bf16-rounded for
+    B1_bf16): distances within B1_FORM_RTOL of the norm trick's terms,
+    ids equal outside ties (a slot whose plain distance lies within that
+    tolerance of a neighbouring slot's, the (k+1)-th included); two
+    launches bit-identical.  Returns (max |d err|, the first launch's ms,
+    the held rows' ordered ids and distances)."""
+    import torch
+    from tsne_flink_tpu_torch.ops.knn_cuda import (_fused_final,
+                                                   knn_sweep_cuda,
+                                                   knn_sweep_plain)
+    mdt = torch.bfloat16 if form == "B1_bf16" else None
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    a.record()
+    raw = knn_sweep_cuda(x, k, False, mdt)
+    b.record()
+    again = knn_sweep_cuda(x, k, False, mdt)
+    torch.cuda.synchronize()
+    ms = a.elapsed_time(b)
+    check(torch.equal(raw[0], again[0]) and torch.equal(raw[1], again[1]),
+          f"[bigk] {form} k={k}: two launches differ")
+    del again
+    ik, dk = _fused_final(*raw, "sqeuclidean")
+    del raw
+    ik, dk = ik[rows], dk[rows]
+    x64 = x.double()
+    dp, ip = knn_sweep_plain(x64, k + 1, False, row_chunk=256,
+                             matmul_dtype=mdt, rows=rows)
+    r = torch.sum(x64 * x64, 1)
+    tol = B1_FORM_RTOL[form] * (dp.abs() + r[rows][:, None]
+                                + r[ip.long()])
+    diff = (dk.double() - dp[:, :k]).abs()
+    beyond = int((diff > tol[:, :k]).sum())
+    gap = dp[:, 1:] - dp[:, :-1]
+    tied = gap[:, :k] <= tol[:, :k]
+    tied[:, 1:] |= gap[:, :k - 1] <= tol[:, 1:k]
+    same = ik.long() == ip[:, :k].long()
+    off = int((~same & ~tied).sum())
+    print(f"[bigk] {form} {x.shape[0]}x{x.shape[1]} k={k} ({rows.numel()} "
+          f"rows held): max |d err| vs the plain version (float64) "
+          f"{float(diff.max()):.3e}, {beyond} beyond "
+          f"{B1_FORM_RTOL[form]:.0e} of the norm trick's terms; ids equal "
+          f"{float(same.float().mean()):.6f}, ids off outside ties {off}; "
+          f"the launch {ms:.3f} ms; two launches bit-identical")
+    check(beyond == 0, f"[bigk] {form} k={k}: {beyond} distances off")
+    check(off == 0, f"[bigk] {form} k={k}: {off} ids differ outside ties")
+    return float(diff.max()), ms, ik, dk
+
+
+def b1_forms_past_1024(x):
+    """Each B1 form at every k of K_BIG on the blobs: against its plain
+    version on N_BIGK_ROWS sampled rows at the form's bar (0 ids off
+    outside ties, two launches bit for bit); the first 1,024 slots of the
+    held rows bit for bit the deep class's k = 1,024 list (one selection
+    over the same distances); each launch counted under the pending
+    class, the k = 1,024 one under the deep class (the float64 form's
+    k-list class).  Returns {form: (max err, {k: launch ms})}."""
+    import torch
+    from tsne_flink_tpu_torch.ops.knn_cuda import (_fused_final,
+                                                   knn_sweep_cuda)
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(19)
+    rows = torch.randperm(x.shape[0], generator=gen)[:N_BIGK_ROWS].cuda()
+    out = {}
+    for form in ("B1", "B1_bf16", "B1_f64"):
+        xf = x.double() if form == "B1_f64" else x
+        mdt = torch.bfloat16 if form == "B1_bf16" else None
+        before = route_counts()
+        di, dd = _fused_final(*knn_sweep_cuda(xf, 1024, False, mdt),
+                              "sqeuclidean")
+        di, dd = di[rows], dd[rows]
+        deep = route_delta(before)
+        check(deep == {"B1 deep": 1}, f"[bigk] {form} k=1024: class {deep}")
+        errs, times = 0.0, {}
+        for k in K_BIG:
+            before = route_counts()
+            err, ms, ik, dk = b1_form_gates(form, xf, k, rows)
+            cls = route_delta(before)
+            check(cls == {"B1 pending": 2}, f"[bigk] {form} k={k}: the "
+                  f"launches took {cls}, not the pending class")
+            prefix = (torch.equal(ik[:, :1024], di)
+                      and torch.equal(dk[:, :1024], dd))
+            print(f"[bigk] {form} k={k}: both launches in the pending "
+                  f"class; the held rows' first 1,024 slots = the deep "
+                  f"class's k=1024 list: {prefix}")
+            check(prefix, f"[bigk] {form} k={k}: the first 1,024 slots "
+                  "differ from the deep class's list")
+            errs, times[k] = max(errs, err), ms
+            del ik, dk
+            torch.cuda.empty_cache()
+        out[form] = (errs, times)
+        del xf
+    return out
+
+
+def cut_stage(kind, args, kwargs, m):
+    """A captured stage on its chunk's first ``m`` rows."""
+    if kind == "keep":
+        return kind, (*args[:3], args[3][:m], *args[4:]), kwargs
+    return kind, (*args[:4], args[4][:m], args[5][:m], args[6][:m]), kwargs
+
+
+def stage_f64(kind, args, kwargs):
+    """A captured float32 stage's inputs at float64: the scored operand in
+    float64, its squared norms summed in float64, and (the exact stage)
+    the old lists' distances recomputed at float64 by the plain formula,
+    as a float64 run's earlier stages would have left them; the ids as
+    they are."""
+    import torch
+    from tsne_flink_tpu_torch.ops.knn_cuda import cand_exact_plain
+    if kind == "keep":
+        b = args[0].double()
+        return kind, (b, torch.sum(b * b, dim=1), *args[2:]), kwargs
+    metric, b, row0, cand, old_i = args[0], args[1].double(), *args[3:6]
+    sq = torch.sum(b * b, dim=1)
+    rows = torch.arange(row0, row0 + cand.shape[0], device=b.device)
+    old_d = cand_exact_plain(metric, b, sq, rows, old_i).contiguous()
+    return kind, (metric, b, sq, row0, cand, old_i, old_d), kwargs
+
+
+def b6_past_1024(x_np, xc_np):
+    """B6 and B6_f64 at k = 1,500 on stages captured from refine chunks of
+    N_BIGK_CUT-row cuts (B6_f64 on the same stages' inputs at float64,
+    ``stage_f64``):
+    the cells' first (exact) stage, with 16·1,501 candidates a row (past
+    the on-chip block: the workspace route), and the blobs' cascade and
+    exact stages (on chip at float32; B6_f64's cascade on the workspace
+    route); the cells' first stage again with n_valid = N − 64.  Each
+    held to its plain version at the B6 bars on the chunk's first
+    N_BIGK_HOLD rows, the route each took printed and the workspace route
+    taken at least once a form; each stage timed a chunk over 8 chunks in
+    sequence, with its bound.  Returns {form: (max err, {stage: (ms, plain
+    ms, bound)})}."""
+    import torch
+    from tsne_flink_tpu_torch.ops.knn_cuda import refine_route
+    out = {"B6": (0.0, {}, {}), "B6_f64": (0.0, {}, {})}
+    for tag, data in (("cells", xc_np), ("blobs", x_np)):
+        x = torch.from_numpy(data[:N_BIGK_CUT]).cuda()
+        captured = capture_refine_chunks(x, K_BIG_RUN, 8)
+        del x
+        for form in ("B6", "B6_f64"):
+            err, shapes, routes = out[form]
+            chunks = ([[stage_f64(*st) for st in chunk] for chunk in captured]
+                      if form == "B6_f64" else captured)
+            for s_idx, (kind, args, kwargs) in enumerate(chunks[0]):
+                _, base, _ = stage_rows(kind, args)
+                name = (f"{tag} k={K_BIG_RUN} "
+                        f"{'keep' if kind == 'keep' else 'exact'} stage "
+                        f"F={base.shape[1]}")
+                cases = [("", kwargs)]
+                if kwargs.get("graph") is not None and tag == "cells":
+                    cases.append((" n_valid", dict(
+                        kwargs, n_valid=N_BIGK_CUT - 64)))
+                for extra, kw in cases:
+                    before = route_counts()
+                    held = cut_stage(kind, args, kw, N_BIGK_HOLD)
+                    if form == "B6":
+                        e, off = hold_stage(name + extra, *held)
+                    else:
+                        e, off = hold_stage_f64(name + extra, *held)
+                    took = route_delta(before)
+                    routes.update(took)
+                    err = max(err, e)
+                    print(f"[bigk] {form} {name}{extra} ({N_BIGK_HOLD} rows"
+                          f"): max err {e:.3e} ({'sets' if form == 'B6' else 'off'}"
+                          f" {off}); route {took}")
+                stages = [chunk[s_idx] for chunk in chunks]
+                ms = chunks_ms(stages)
+                plain = chunks_ms(stages[:2], plain=True)
+                got = stage_call(*stages[0])
+                bnd, u, _ = stage_bound(kind, stages[0][1], stages[0][2], got)
+                cand = args[3] if kind == "keep" else args[4]
+                first = kwargs.get("graph") is not None
+                ke = kwargs.get("ke", 0) if first else 0
+                w = cand.shape[1]
+                keep = (min(args[4], w * (1 + ke) if first else w)
+                        if kind == "keep" else 0)
+                rt = refine_route(base.shape[1], w, ke, keep, K_BIG_RUN,
+                                  first, kind == "final",
+                                  base.element_size())
+                print(f"[bigk] {form} {name} c={cand.shape[0]}: {ms:.4f} ms a "
+                      f"chunk over {len(stages)} chunks (plain {plain:.4f});"
+                      f" bound {bnd[0]:.4f} ms by {bnd[1]} ({u} distinct "
+                      f"rows); route {'workspace' if rt.workspace else 'chip'}"
+                      f" ({rt.workspace} B a row of workspace, {rt.smem} B "
+                      "shared memory)")
+                shapes[(tag, kind, base.shape[1])] = (ms, plain, bnd)
+            out[form] = (err, shapes, routes)
+            del chunks
+        del captured
+        torch.cuda.empty_cache()
+    for form, (_, _, routes) in out.items():
+        check(any(k.endswith("workspace") for k in routes),
+              f"[bigk] {form}: no stage took the workspace route ({routes})")
+    return {form: (err, shapes) for form, (err, shapes, _) in out.items()}
+
+
+def bigk_cross(x, graph):
+    """B1's cross sweep (the ring's hop) at k = 1,500: a row block against
+    every column gives the single sweep's rows bit for bit; against a
+    column block, against its plain version on 256 of its rows (distances
+    rtol 1e-4, neighbour sets >= 0.999, no padding or self); and the ring
+    on the test mesh at D = 2 gives the single sweep's graph bit for bit
+    (two hops a shard)."""
+    import torch
+    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
+    from tsne_flink_tpu_torch.ops.knn_cuda import knn_cross, knn_cross_plain
+    from tsne_flink_tpu_torch.parallel.knn import ring_knn
+    from tsne_flink_tpu_torch.parallel.mesh import run_shards
+    n, k = x.shape[0], K_BIG_RUN
+    want_i, want_d = graph
+    si, sd = knn_cross(x[:20_000], x, k, False, 0, 0, n)
+    check(torch.equal(si, want_i[:20_000]) and torch.equal(sd,
+                                                           want_d[:20_000]),
+          "[bigk] a cross hop against every column != the single sweep")
+    hi, hd = knn_cross(x[:256], x[20_000:40_000], k, False, 0, 20_000, n)
+    pd, pi = knn_cross_plain(x[:256], x[20_000:40_000], k, False, 0,
+                             20_000, n)
+    e = rel_close(hd, pd, 1e-4, "[bigk] cross hop distances")
+    sets = set_agreement(hi, pi)
+    check(sets >= 0.999 and bool((hi >= 20_000).all()),
+          f"[bigk] cross hop: sets {sets}")
+    reset_launches()
+    outs = run_shards([x.device] * 2, lambda ax: ring_knn(
+        x[ax.index * (n // 2):(ax.index + 1) * (n // 2)], k, n, axis=ax))
+    torch.cuda.synchronize()
+    ri = torch.cat([o[0] for o in outs])
+    rd = torch.cat([o[1] for o in outs])
+    same = torch.equal(ri, want_i) and torch.equal(rd, want_d)
+    print(f"[bigk] cross hop k={k}: 20,000 rows x every column = the single"
+          f" sweep's rows bit for bit; x a 20,000-column block vs plain: "
+          f"max err {e:.3e}, sets {sets:.6f}; the ring on the test mesh of "
+          f"2: the single sweep's graph bit for bit: {same} (B1 "
+          f"{launches()['B1']} hops)")
+    check(same and launches()["B1"] == 4,
+          "[bigk] the ring at D = 2 != the single sweep")
+    return e
+
+
+def bigk_memory(tag, n, d, method, peak, held, bound, cycles=None):
+    """The memory model's allocated peak for the run against the measured
+    one (the run's peak less what the script held before it), within [1,
+    2]x, the plan charged at the graph's row-width bound."""
+    from tsne_flink_tpu_torch.analysis.audit.hbm import (allocated_peak,
+                                                         stage_terms)
+    from tsne_flink_tpu_torch.analysis.audit.plan import PlanConfig
+    plan = charged_plan(PlanConfig(
+        n=n, d=d, k=K_BIG_RUN, backend="cuda", knn_method=method,
+        knn_refine=cycles, repulsion="exact", sym_width=bound, name=tag))
+    terms = stage_terms(plan)
+    pa = max(allocated_peak(t) for t in terms.values())
+    alloc = peak - held
+    print(f"[bigk] {tag}: memory model allocated peak {pa / 2**30:.3f} GiB "
+          f"vs measured {alloc / 2**30:.3f} GiB = {pa / alloc:.3f} (bar "
+          f"[1, 2]); knn terms " + json.dumps(
+              {t: round(v / 2**30, 4) for t, v in terms["knn"].items()
+               if not isinstance(v, str)}))
+    check(alloc <= pa <= 2 * alloc, f"[bigk] {tag}: the memory model "
+          f"predicts {pa} for {alloc} measured")
+
+
+def bigk_fit(tag, x_np, labels, method, want):
+    """``TSNE(perplexity=500)`` at 60,000 x 784, 300 iterations, exact
+    repulsion, ``knn_method``: launches counted from 0 just before it (B1
+    / B6 and the routes they took), finite and falling KL, label
+    agreement >= 0.9, its memory against the model.  Returns (estimator,
+    kNN graph, launches, routes)."""
+    import torch
+    from tsne_flink_tpu_torch import TSNE
+    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
+    from tsne_flink_tpu_torch.ops.affinities import width_bound
+    from tsne_flink_tpu_torch.ops.knn import pick_knn_refine
+    from tsne_flink_tpu_torch.ops.knn_cuda import reset_route_launches
+    n, d = x_np.shape
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    reset_route_launches()
+    t0 = time.perf_counter()
+    with record_knn() as graph:
+        est = TSNE(perplexity=PERPLEXITY_BIG, n_iter=ITERATIONS,
+                   knn_method=method, theta=0.5, random_state=0).fit(x_np)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    counts, routes = launches(), route_counts()
+    lh = est.kl_trace_
+    print(f"[bigk] {tag}: TSNE(perplexity={PERPLEXITY_BIG}, knn_method="
+          f"{method!r}).fit {n}x{d} (k={K_BIG_RUN}): {wall:.3f} s end to "
+          f"end; launches {json.dumps(counts)}; classes and routes "
+          f"{json.dumps(routes)}; KL head {np.round(lh[:3], 5).tolist()} "
+          f"tail {np.round(lh[-3:], 5).tolist()}; peak {peak / 2**30:.3f} "
+          "GiB")
+    check(counts == want(counts), f"[bigk] {tag}: launches {counts}")
+    check(bool(np.isfinite(est.embedding_).all()) and bool(
+        np.isfinite(lh).all()) and lh[-1] < lh[11],
+          f"[bigk] {tag}: non-finite or no falling KL")
+    agree = label_agreement(torch.from_numpy(est.embedding_).cuda(), labels)
+    print(f"[bigk] {tag}: 10-NN label agreement {agree:.4f} (bar 0.9)")
+    check(agree >= 0.9, f"[bigk] {tag}: label agreement {agree}")
+    bigk_memory(tag, n, d, method, peak, held, width_bound(graph[0]),
+                pick_knn_refine(n, d) if method == "project" else None)
+    return est, (graph[0].clone(), graph[1].clone()), counts, routes
+
+
+def bigk_times(x, k):
+    """B1 at 60,000 x 784 and k: its ms (median of 3 warm launches taken in
+    turns with its library yardstick, chunked torch.matmul + torch.topk),
+    the plain version's (one launch), and its bound (3xTF32 operations)."""
+    import torch
+    from tsne_flink_tpu_torch.ops.knn_cuda import (knn_sweep_cuda,
+                                                   knn_sweep_plain)
+    t = alternated_ms({"kernel": lambda: knn_sweep_cuda(x, k, False),
+                       "library": lambda: library_knn(x, k)},
+                      ["kernel", "library", "library", "kernel", "kernel",
+                       "library"])
+    plain = cuda_ms(lambda: knn_sweep_plain(x, k, False), 1, 0)
+    bnd = b1_bounds(x.shape[0], x.shape[1], k)[0]
+    ms, lib = statistics.median(t["kernel"]), statistics.median(t["library"])
+    print(f"[bigk] B1 {x.shape[0]}x{x.shape[1]} k={k} (pending class): "
+          f"{spread(t['kernel'])}; library (chunked matmul + topk) "
+          f"{spread(t['library'])}; plain {plain:.3f} ms; bound "
+          f"{bnd[0]:.3f} ms by {bnd[1]} ({bnd[0] / ms:.3f} of it)")
+    return (ms, plain, lib), bnd
+
+
+def phase_bigk(x_np, labels, xc_np):
+    """[bigk]: every kernel past k = 1,024 on the card (module docstring,
+    phase 8c).  Returns {kernel id: its record's "bigk" entry}."""
+    import shutil
+    import tempfile
+
+    import torch
+    from tsne_flink_tpu_torch.ops.knn import pick_knn_refine
+    t0 = time.perf_counter()
+    x = torch.from_numpy(x_np).cuda()
+    forms = b1_forms_past_1024(x)
+    b6 = b6_past_1024(x_np, xc_np)
+    n, d = x_np.shape
+    cycles = pick_knn_refine(n, d)
+    exact, graph_e, counts_e, _ = bigk_fit(
+        "bruteforce", x_np, labels, "bruteforce",
+        lambda c: {**{kid: 0 for kid in c}, "B1": 1, "B2": ITERATIONS,
+                   "B3": c["B3"], "B5": c["B5"], "B4": ITERATIONS // 10})
+    check(counts_e["B3"] + counts_e["B5"] == ITERATIONS,
+          "[bigk] bruteforce: one attraction step an iteration")
+    e_cross = bigk_cross(x, graph_e)
+    del exact
+    proj, graph_p, counts_p, routes_p = bigk_fit(
+        "project", x_np, labels, "project",
+        lambda c: {**{kid: 0 for kid in c},
+                   "B6": b6_launches(n, d, K_BIG_RUN, cycles),
+                   "B2": ITERATIONS, "B3": c["B3"], "B5": c["B5"],
+                   "B4": ITERATIONS // 10})
+    recall = recall_at_k(graph_p[1], graph_e[1])
+    print(f"[bigk] project: recall@{K_BIG_RUN} against B1's graph "
+          f"{recall:.4f} (bar 0.90); {cycles} refine cycles")
+    check(recall >= 0.90, f"[bigk] project recall {recall} < 0.90")
+    del graph_p
+    # config 2's own command line at --perplexity 500: the estimator's bits
+    tmp = tempfile.mkdtemp(prefix="tsne_bigk_")
+    try:
+        coo = shared_coo(x_np)
+        out = os.path.join(tmp, "c2_500.csv")
+        y_cli, counts_cli, _, _ = run_cli("config 2 --perplexity 500", [
+            "--input", coo, "--output", out, "--dimension", str(d),
+            "--perplexity", str(PERPLEXITY_BIG), "--iterations",
+            str(ITERATIONS), "--randomState", "0", "--knnMethod", "project",
+            "--theta", "0.5", "--noCache"])
+        check(same_bits(y_cli, proj.embedding_) and counts_cli == counts_p,
+              "[bigk] config 2 --perplexity 500 != TSNE(perplexity=500, "
+              "knn_method='project')")
+        print("[bigk] config 2 --perplexity 500: the estimator's embedding "
+              "bit for bit, its launches")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # one 256-row serving bucket from the project model
+    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
+    q = make_data(256, seed=7)[0]
+    reset_launches()
+    y256 = proj.transform(q, bucket=256)
+    c256 = launches()
+    # four requests of 64 rows, each its own (padded) 256-row bucket
+    y64 = np.concatenate([proj.transform(q[s:s + 64], bucket=256)
+                          for s in range(0, 256, 64)])
+    print(f"[bigk] serving: a 256-row bucket (query kNN k={K_BIG_RUN}, B5 "
+          f"at [256, {K_BIG_RUN}]) launches {json.dumps(c256)}; finite "
+          f"{bool(np.isfinite(y256).all())}; 1 x 256 = 4 x 64 bit for bit: "
+          f"{same_bits(y256, y64)}")
+    check(bool(np.isfinite(y256).all()) and same_bits(y256, y64)
+          and c256["B5"] > 0 and c256["B2"] > 0,
+          "[bigk] the serving bucket")
+    del proj
+    times, bnd = bigk_times(x, K_BIG_RUN)
+    lib_err = forms["B1"][0]
+    rec = {"B1": {"k": K_BIG_RUN, "launches": counts_e["B1"],
+                  "max_abs_err": max(lib_err, e_cross), "ms": times[0],
+                  "plain_ms": times[1], "library_ms": times[2],
+                  "bound_ms": bnd[0], "bound_by": bnd[1],
+                  "launch_ms": forms["B1"][1]}}
+    for form in ("B1_bf16", "B1_f64"):
+        rec[form] = {"k": list(K_BIG), "max_abs_err": forms[form][0],
+                     "launch_ms": forms[form][1]}
+    for form in ("B6", "B6_f64"):
+        err, shapes = b6[form]
+        rec[form] = {"k": K_BIG_RUN, "max_abs_err": err,
+                     "launches": counts_p["B6"] if form == "B6" else 0,
+                     "stages": {f"{t} {kind} F={f}": {
+                         "ms": v[0], "plain_ms": v[1], "bound_ms": v[2][0],
+                         "bound_by": v[2][1]}
+                         for (t, kind, f), v in shapes.items()}}
+    print(f"[bigk] phase {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
 def native_embedding(path):
     from tsne_flink_tpu_torch.utils import native
     return native.load_coo(path)[:, 1:].astype(np.float32)
@@ -3714,9 +4215,9 @@ def phase_large(xc_np, labels, z_latent, y_60k, b2_ms_60k, b6_chunk_ms):
     # the run's P, its final y and KL, for [bh] and [pilot]
     run = (y, kl, stats["optimize"], graph[0], fwd_val, rev, cfg)
     del graph[:], fwd_val, rev
-    # B1 at this shape, warm (the graph above was its first launch)
-    b1_ms = [cuda_ms(lambda: knn_sweep_cuda(x, K_CELLS, False), 1, 0)
-             for _ in range(3)]
+    # B1 at this shape, warm (the graph above was its first launch; one
+    # warm launch, for the smoke's time)
+    b1_ms = [cuda_ms(lambda: knn_sweep_cuda(x, K_CELLS, False), 1, 0)]
     del x
     b1_tf32, b1_fp32 = b1_bounds(n, d, K_CELLS)
     print(f"[large] B1 knn {n}x{d} k={K_CELLS}: {spread(b1_ms)}; bound "
@@ -5589,8 +6090,7 @@ def phase_spmd(x_np, labels, csr_kl, b1_ms):
 
     tmp = tempfile.mkdtemp(prefix="tsne_spmd_")
     try:
-        coo = os.path.join(tmp, "mnist60k.csv")
-        write_coo(coo, x_np)
+        coo = shared_coo(x_np)
         cli = [sys.executable, "-m", "tsne_flink_tpu_torch.utils.cli",
                "--input", coo, "--dimension", str(f), "--knnMethod",
                "bruteforce", "--noCache", "--spmd", "--coordinator",
@@ -6320,8 +6820,7 @@ def runtime_tracing(x_np, tmp):
     the stages the port runs, the profile directory is not empty; each
     one's wall time against the plain runs'."""
     from tsne_flink_tpu_torch.models import autopilot as ap
-    coo = os.path.join(tmp, "mnist60k.csv")
-    write_coo(coo, x_np)
+    coo = shared_coo(x_np)
     f = x_np.shape[1]
 
     def argv(out, *extra):
@@ -6393,10 +6892,14 @@ def runtime_tracing(x_np, tmp):
     check(same, "[runtime] tracing: --profile changed the output")
 
 
-def phase_runtime(x_np, xl_np, xc_np, tmp, serve_memory, context=None):
+def phase_runtime(x_np, xl_np, xc_np, tmp, serve_memory, context=None,
+                  serial=False):
     """[runtime]: the memory model, a real OOM, the fault rehearsals, the
     fleet and tracing, on the card (queue A15).  ``context`` is the CUDA
-    context [quorum] measured, else measured here."""
+    context [quorum] measured, else measured here.  ``serial`` also runs
+    the latent fleet's jobs one at a time for its wall-clock ratio
+    (``scripts/runtime_phase_cuda.py``; the smoke leaves it out for
+    time)."""
     t0 = time.perf_counter()
     if context is None:
         context = runtime_context()
@@ -6408,7 +6911,7 @@ def phase_runtime(x_np, xl_np, xc_np, tmp, serve_memory, context=None):
                     "blobs64": x_np.astype(np.float64)}, context)
     runtime_real_oom(tmp)
     runtime_rehearsals(x_np, tmp)
-    runtime_fleet(xl_np, "latent", tmp, context, serial=True)
+    runtime_fleet(xl_np, "latent", tmp, context, serial=serial)
     runtime_fleet(x_np, "blobs", tmp, context)
     runtime_tracing(x_np, tmp)
     print(f"[runtime] phase {time.perf_counter() - t0:.1f} s")
@@ -6467,6 +6970,7 @@ def main() -> int:
         f64_project_gate(x_np, labels, project[3])
         y_bh = phase_bh(x_np, labels, y_60k, z_latent, project)
         phase_cli(x_np, xl_np, full, rows_run[:2], project, y_bh)
+        bigk = phase_bigk(x_np, labels, xc_np)
         (times, bnd, _), = [v for key, v in b6_shapes.items()
                             if key[0] == "cells"]
         counts, pass_t, pass_b, (e5, e4), large = phase_large(
@@ -6516,6 +7020,9 @@ def main() -> int:
             rec["serve"] = serve.get(kid)
         kernels[[r["name"].split()[0] for r in kernels].index("B5")][
             "serve_large"] = serve["B5_large"]
+        for rec in kernels:
+            if rec["name"].split()[0] in bigk:
+                rec["bigk"] = bigk[rec["name"].split()[0]]
         kernels += phase_spmd(x_np, labels, csr_kl, b1_ms)
         context = phase_quorum(x_np, os.path.join(tmp, "project.npz"),
                                tmp, serve["daemon"])

@@ -34,7 +34,10 @@ cuts of both, 1,024 on the cells' cut), each stage's outputs over its
 chunks as one digest and its ms a chunk over them in sequence (the
 median (min-max) of 3 runs after an L2 flush, ``chip_smoke.chunks_ms``);
 two trees whose digests match give the same bits.  ``--b6`` runs the
-``[project]`` run and B6's stages alone.
+``[project]`` run and B6's stages alone; ``--b1`` runs B1 alone at
+60,000 x 784 in each class up to k = 1,024 and each form: k = 90 (the
+first class), 300 and 1,024 (the deep class) with 3xTF32, k = 90 with
+bf16 operands, and k = 90 and 1,024 at float64, each with its digest.
 """
 
 import argparse
@@ -57,6 +60,8 @@ def parse():
                     help="tree to import tsne_flink_tpu_torch from")
     ap.add_argument("--b6", action="store_true",
                     help="the [project] run and B6's stages alone")
+    ap.add_argument("--b1", action="store_true",
+                    help="B1 alone, each class up to k = 1,024, each form")
     return ap.parse_args()
 
 
@@ -201,6 +206,18 @@ def main():
     x_np, _ = cs.make_data()
     cfg = TsneConfig(perplexity=30.0, iterations=300, repulsion="exact",
                      attraction="csr")
+    if args.b1:
+        x = torch.from_numpy(x_np).cuda()
+        for k in (90, 300, 1024):
+            print(f"[regress] B1 60000x784 k={k}: {b1(x, k)}")
+        print(f"[regress] B1 bf16 form 60000x784 k=90: "
+              f"{b1(x, 90, torch.bfloat16)}")
+        x = x.double()
+        for k in (90, 1024):
+            print(f"[regress] B1 f64 form 60000x784 k={k}: {b1(x, k)}")
+        del x
+        if not args.b6:
+            return
     if args.b6:
         embed("[project] 60000x784 project", x_np,
               TsneConfig(perplexity=30.0, iterations=300, repulsion="exact"),

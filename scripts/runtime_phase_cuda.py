@@ -33,7 +33,7 @@ def main() -> int:
     xc, _, _ = cs.make_cells()
     tmp = tempfile.mkdtemp(prefix="tsne_runtime_")
     try:
-        cs.phase_runtime(x, xl, xc, tmp, [])
+        cs.phase_runtime(x, xl, xc, tmp, [], serial=True)
     except cs.SmokeFailure as e:
         print(f"runtime_phase_cuda: FAIL: {e}", file=sys.stderr)
         return 1

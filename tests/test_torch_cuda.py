@@ -9,8 +9,10 @@ JAX, so the card's machine runs them without the JAX test harness:
 
 The main-path shapes are checked by chip_smoke.py; these cover the edges:
 tiny and ragged N, k = N - 1, exact ties, every metric, B1 at the large
-run's width (F = 50 padded to 64, k = 150), at k = 256, 300 and K_MAX =
-1,024 (its deep class) against the float64 graph, every embedding width
+run's width (F = 50 padded to 64, k = 150), at k = 256, 300 and 1,024
+(its deep class) and past it (its pending class: k = 1,025, 2,048 and N
+- 1, exact ties bit for bit, every form and the ring) against the
+float64 graph, every embedding width
 m = 1 .. 8 in B2-B5, row shards with validity masks, B2 below one tile
 and at ragged N, two launches bit-identical, B5 from one slot to wide
 rows, B5 and B4 over a row block and a ragged edge part (a hub row, a
@@ -64,7 +66,8 @@ from tsne_flink_tpu_torch.kernels.build import reset_launches
 from tsne_flink_tpu_torch.ops import attraction_cuda as att
 from tsne_flink_tpu_torch.ops import knn as tknn
 from tsne_flink_tpu_torch.ops.knn import cosine_zbase
-from tsne_flink_tpu_torch.ops.knn_cuda import (K_MAX, _fused_final,
+from tsne_flink_tpu_torch.ops.knn_cuda import (ROUTE_LAUNCHES, K_REG_MAX,
+                                               _fused_final,
                                                cand_exact_plain, cand_sqdist,
                                                cand_sqdist_plain, knn_config,
                                                knn_sweep_cuda,
@@ -88,7 +91,8 @@ def dev():
 
 
 @pytest.mark.parametrize("n,f,k", [(5, 3, 4), (70, 16, 9), (200, 50, 90),
-                                   (1000, 33, 17)])
+                                   (1000, 33, 17), (1300, 16, 1100),
+                                   (2100, 12, 2048), (1100, 8, 1099)])
 def test_knn_exact_ties_match_plain(dev, n, f, k):
     """Small-integer points: every distance is exact in f32, so kernel and
     plain must agree bit for bit, ties broken by the lowest column."""
@@ -162,11 +166,49 @@ def _b1_gates(x, k, metric):
     return ik, dk
 
 
+def _b1_pending_gates(x, k, metric):
+    """B1's bar in its pending class (k > 1,024), the smoke's ``[bigk]``
+    bar: against its plain version run in float64 on the same points,
+    each distance within 1e-5 of the norm trick's terms |d| + ‖a‖² +
+    ‖b‖² (3xTF32 drops lo·lo, ~2^-22 of a product) and the ids equal
+    outside ties (a slot whose float64 distance lies within that
+    tolerance of a neighbouring slot's, the (k+1)-th included); two
+    launches bit for bit."""
+    cos = metric == "cosine"
+    base = cosine_zbase(x) if cos else x
+    raw = knn_sweep_cuda(base, k, cos)
+    again = knn_sweep_cuda(base, k, cos)
+    assert torch.equal(raw[0], again[0]) and torch.equal(raw[1], again[1])
+    ik, dk = _fused_final(*raw, "sqeuclidean")
+    b64 = base.double()
+    kk = min(k + 1, x.shape[0] - 1)
+    dp, ip = knn_sweep_plain(b64, kk, cos)
+    r = torch.sum(b64 * b64, dim=1)
+    tol = 1e-5 * (dp.abs() + r[:, None] + r[ip.long()])
+    assert bool(((dk.double() - dp[:, :k]).abs() <= tol[:, :k]).all())
+    gap = dp[:, 1:] - dp[:, :-1]
+    tied = torch.zeros_like(ik, dtype=torch.bool)
+    tied[:, :gap.shape[1]] |= gap[:, :k] <= tol[:, :gap.shape[1]]
+    tied[:, 1:] |= gap[:, :k - 1] <= tol[:, 1:k]
+    assert int((~((ik.long() == ip[:, :k].long()) | tied)).sum()) == 0
+
+
+@pytest.mark.parametrize("data,n,f,k,metric", [
+    ("blobs", 3000, 784, K_REG_MAX + 1, "sqeuclidean"),
+    ("cells", 3000, 50, 2048, "sqeuclidean"),
+    ("blobs", 2000, 784, 1500, "cosine"),
+    ("blobs", 1300, 100, 1299, "euclidean"),     # k = N - 1
+])
+def test_knn_pending_class_meets_its_bars(dev, data, n, f, k, metric):
+    x = torch.from_numpy((_cells if data == "cells" else _blobs)(n, f, k))
+    _b1_pending_gates(x.to(dev), k, metric)
+
+
 @pytest.mark.parametrize("data,n,f,k,metric", [
     ("cells", 6000, 50, 150, "sqeuclidean"),    # the large run's width
     ("blobs", 3000, 784, 256, "sqeuclidean"),   # the 1-buffer class
     ("cells", 4000, 50, 300, "sqeuclidean"),    # the deep class
-    ("blobs", 3000, 784, K_MAX, "sqeuclidean"),  # the deep class's top
+    ("blobs", 3000, 784, K_REG_MAX, "sqeuclidean"),  # the deep class's top
     ("blobs", 2500, 784, 140, "euclidean"),      # the 2-stage class
     ("blobs", 2000, 784, 90, "cosine"),
     ("blobs", 1111, 100, 33, "sqeuclidean"),     # N, F off every tile edge
@@ -196,24 +238,42 @@ def test_knn_configs_fit_and_launches_repeat_bitwise(dev):
     memory, and two launches give the same bits, in every class."""
     limit = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     configs = {k: knn_config(k) for k in (1, 90, 128, 129, 150, 160, 161,
-                                          256, 257, 600, K_MAX)}
+                                          256, 257, 600, K_REG_MAX,
+                                          K_REG_MAX + 1, 4096, 50_000)}
     assert configs[90][:3] == (64, 3, 2) and configs[150][:3] == (64, 2, 2)
     assert configs[256][:3] == (64, 2, 1)
-    assert configs[257][:3] == (16, 3, 2) and configs[K_MAX][:3] == (16, 3, 2)
-    assert all(smem <= limit for *_, smem in configs.values())
+    assert configs[257][:3] == (16, 3, 2)
+    assert configs[K_REG_MAX][:3] == (16, 3, 2)
+    assert all(c[4] == 0 for k, c in configs.items() if k <= K_REG_MAX)
+    assert all(c[:3] == (16, 3, 2) and c[4] == 1024
+               for k, c in configs.items() if k > K_REG_MAX)
+    assert all(smem <= limit for _, _, _, smem, _ in configs.values())
     x = torch.from_numpy(_blobs(1500, 784, 1)).to(dev)
-    for k in (90, 700):
+    for k in (90, 700, 1400):
         a = knn_sweep_cuda(x, k, False)
         b = knn_sweep_cuda(x, k, False)
         assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
 def test_knn_refuses_k_past_its_deep_class(dev):
-    x = torch.from_numpy(_blobs(1500, 64, 1)).to(dev)
+    """Past the deep class B1 refuses nothing: k = 1,025 launches its
+    pending class once, which gives the plain sweep's graph bit for bit
+    on exact distances; k past N - 1 is still refused, with no launch."""
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.integers(0, 4, (1500, 64)).astype(
+        np.float32)).to(dev)
     before = KERNELS["B1"].launches
+    pending = ROUTE_LAUNCHES.get("B1 pending", 0)
+    raw = knn_sweep_cuda(x, K_REG_MAX + 1, False)
+    assert KERNELS["B1"].launches == before + 1
+    assert ROUTE_LAUNCHES["B1 pending"] == pending + 1
+    ik, dk = _fused_final(*raw, "sqeuclidean")
+    ip, dp = _fused_final(*knn_sweep_plain(x, K_REG_MAX + 1, False),
+                          "sqeuclidean")
+    assert torch.equal(dk, dp) and torch.equal(ik, ip)
     with pytest.raises(ValueError, match="B1"):
-        knn_sweep_cuda(x, K_MAX + 1, False)
-    assert KERNELS["B1"].launches == before
+        knn_sweep_cuda(x, 1500, False)
+    assert KERNELS["B1"].launches == before + 1
 
 
 @pytest.mark.parametrize("n,m", [(97, 2), (530, 2), (257, 3), (97, 1),
@@ -832,14 +892,14 @@ def test_refine_keep_then_exact_stage_matches_plain(dev, lattice, dtype):
                 {}, lattice)
 
 
-@pytest.mark.parametrize("keep", [3 * K_MAX, 5 * K_MAX])
+@pytest.mark.parametrize("keep", [3 * K_REG_MAX, 5 * K_REG_MAX])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_refine_funnel_at_the_deep_k_matches_plain(dev, keep, dtype):
-    """k = K_MAX on a funnel: a first keep stage keeping the cascade's 3k
+    """k = 1,024 on a funnel: a first keep stage keeping the cascade's 3k
     (F = 128) or the JL stage's 5k (8,192 sort keys; B6_f64's 16-byte
     keys fill its shared memory there), then the exact stage merging 2k
-    keys (F = 784)."""
-    n, k, ke = 2000, K_MAX, K_MAX // 2
+    keys (F = 784); every stage on chip."""
+    n, k, ke = 2000, K_REG_MAX, K_REG_MAX // 2
     x, sq, graph, dist, gates = _refine_problem(dev, n, 784, k, 64, 12,
                                                 dtype=dtype)
     proj = (x[:, :128] * 2.0).contiguous()
@@ -891,12 +951,60 @@ def test_refine_wrapper_refuses_what_b6_does_not_take(dev):
                      dist[:4], graph=graph, ke=6)
     with pytest.raises(ValueError, match="CPU"):
         cand_sqdist(x, sq, torch.arange(4, device=dev), gates)
-    # 16 gateways x (1 + 1,900) candidates: their hash set alone is past
-    # the block's shared memory
-    xb, sqb, graph_b, _, gates_b = _refine_problem(dev, 2000, 8, 1900, 4, 9)
-    with pytest.raises(ValueError, match="shared memory"):
-        refine_keep(xb, sqb, 0, gates_b, 20, graph=graph_b, ke=1900)
+    with pytest.raises(ValueError, match="B6"):
+        refine_keep(x, sq, 0, gates, 0, graph=graph, ke=6)
     assert KERNELS["B6"].launches == before
+
+
+def _route_count(kind):
+    return ROUTE_LAUNCHES.get(kind, 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_refine_workspace_route_matches_plain(dev, dtype):
+    """Stages that do not fit on chip take B6's workspace route: a first
+    exact stage of 16 gateways x (1 + 1,500) candidates at k = 1,500 (its
+    hash set past the block), with n_valid; a first keep stage keeping
+    5k = 10,240 at k = 2,048 (its sort past 8,192) and the exact stage
+    after it; each against its plain version at the B6 bars, two launches
+    bit for bit, counted under the route; and the route the kernel library
+    decides equals refine_route's mirror."""
+    from tsne_flink_tpu_torch.ops.knn_cuda import (refine_route,
+                                                   refine_route_kernel)
+    isz = torch.empty(0, dtype=dtype).element_size()
+    kind = f"{_b6_form_name(dtype)} workspace"
+    n, k = 2100, 1500
+    x, sq, graph, dist, gates = _refine_problem(dev, n, 8, k, 48, 11,
+                                                dtype=dtype)
+    assert refine_route(8, 16, k, 0, k, True, True, isz).workspace > 0
+    before = _route_count(kind)
+    for n_valid in (None, n - 40):
+        _hold_final(("sqeuclidean", x, sq, 0, gates, graph[:48], dist[:48]),
+                    dict(graph=graph, ke=k, n_valid=n_valid), False)
+    assert _route_count(kind) == before + 4
+    n, k = 2400, 2048
+    x, sq, graph, dist, gates = _refine_problem(dev, n, 64, k, 32, 12,
+                                                dtype=dtype)
+    proj = (x[:, :32] * 2.0).contiguous()
+    psq = torch.sum(proj * proj, dim=1)
+    assert refine_route(32, 16, k // 2, 5 * k, k, True, False,
+                        isz).workspace > 0
+    kept = _hold_keep((proj, psq, 0, gates, 5 * k), dict(graph=graph,
+                                                         ke=k // 2), False)
+    _hold_final(("euclidean", x, sq, 0, kept, graph[:32],
+                 torch.sqrt(dist[:32])), {}, False)
+    for args in ((8, 16, 1500, 0, 1500, True, True),
+                 (32, 16, 1024, 10240, 2048, True, False),
+                 (200, 10240, 0, 0, 2048, False, True),
+                 (784, 16, 750, 4500, 1500, True, False),
+                 (50, 16, 1024, 0, 1024, True, True),
+                 (12288, 16, 90, 0, 90, True, True)):
+        assert (refine_route_kernel(*args, itemsize=isz)
+                == refine_route(*args, itemsize=isz)), args
+
+
+def _b6_form_name(dtype):
+    return "B6_f64" if dtype == torch.float64 else "B6"
 
 
 def test_refine_wrapper_refuses_mixed_dtypes(dev):
@@ -1507,7 +1615,8 @@ def _ring_on_the_card(x, d, k, metric, matmul_dtype=None):
 @pytest.mark.parametrize("n,f,k,metric", [(3001, 50, 90, "sqeuclidean"),
                                           (2000, 784, 30, "sqeuclidean"),
                                           (1500, 20, 150, "cosine"),
-                                          (800, 16, 300, "euclidean")])
+                                          (800, 16, 300, "euclidean"),
+                                          (2400, 50, 1100, "sqeuclidean")])
 def test_knn_cross_sweep_matches_plain_and_the_ring_the_single_sweep(
         dev, n, f, k, metric):
     """B1's cross sweep on a row block against column blocks (padding
@@ -1641,7 +1750,10 @@ np.save(r"{tmp_path}/y%d.npy" % r, y.cpu().numpy())
 @pytest.mark.parametrize("n,f,k,data", [(4096, 784, 90, "blobs"),
                                         (4096, 50, 150, "cells"),
                                         (700, 33, 17, "blobs"),
-                                        (300, 16, 299, "blobs")])
+                                        (300, 16, 299, "blobs"),
+                                        (2500, 784, 1025, "blobs"),
+                                        (2500, 50, 2048, "cells"),
+                                        (1200, 16, 1199, "blobs")])
 def test_knn_bf16_matches_plain(dev, n, f, k, data):
     """B1's bf16 form against its plain version run on float64 copies of
     the same points (the rounded operands' products exact there):
@@ -1726,7 +1838,10 @@ def _b1_f64_gate(x, k, metric):
     ("blobs", 3001, 784, 90, "sqeuclidean"),
     ("cells", 4096, 50, 150, "sqeuclidean"),
     ("blobs", 2000, 784, 300, "sqeuclidean"),   # the k <= 1,024 registers
-    ("blobs", 1500, 784, K_MAX, "sqeuclidean"),
+    ("blobs", 1500, 784, K_REG_MAX, "sqeuclidean"),
+    ("blobs", 1500, 784, K_REG_MAX + 1, "sqeuclidean"),  # pending class
+    ("cells", 2200, 50, 2048, "sqeuclidean"),
+    ("cells", 1100, 16, 1099, "sqeuclidean"),  # k = N - 1, pending class
     ("blobs", 1111, 100, 33, "euclidean"),     # N, F off every tile edge
     ("blobs", 2000, 784, 90, "cosine"),
     ("cells", 300, 16, 299, "sqeuclidean"),    # k = N - 1
@@ -1751,7 +1866,8 @@ def test_knn_f64_matches_plain(dev, data, n, f, k, metric):
 
 
 @pytest.mark.parametrize("n,f,k", [(5, 3, 4), (70, 16, 9), (200, 50, 90),
-                                   (1000, 33, 17)])
+                                   (1000, 33, 17), (1300, 16, 1100),
+                                   (2100, 12, 2048)])
 def test_knn_f64_exact_ties_match_plain(dev, n, f, k):
     """Small-integer points: every distance is exact in float64, so the
     float64 form and its plain version agree bit for bit, ties broken by
@@ -1781,6 +1897,30 @@ def test_knn_f64_ring_and_a_shard_equal_the_single_sweep(dev):
     si, sd = knn_cross(rows, x, 30, False, 1000, 0, 3001)
     assert torch.equal(si, want_i[1000:2000])
     assert torch.equal(sd, want_d[1000:2000])
+
+
+@pytest.mark.parametrize("form", ["bf16", "f64"])
+def test_knn_ring_past_k1024_equals_the_single_sweep(dev, form):
+    """The bf16 and float64 rings at D = 2 and 4 on the test mesh at k =
+    1,100 (the pending class; a hop of 600 columns holds fewer than k):
+    the form's single sweep's graph bit for bit, D launches a shard, and a
+    shard's cross sweep against every column the mesh-1 rows."""
+    from tsne_flink_tpu_torch.ops.knn_cuda import fused_knn, knn_cross
+    src = _blobs(2400, 64, 4)
+    x = torch.from_numpy(src.astype(np.float64) if form == "f64"
+                         else src).to(dev)
+    mdt = torch.bfloat16 if form == "bf16" else None
+    kid = "B1_bf16" if form == "bf16" else "B1_f64"
+    want_i, want_d = fused_knn(x, 1100, matmul_dtype=mdt)
+    for d in (2, 4):
+        before = KERNELS[kid].launches
+        gi, gd = _ring_on_the_card(x, d, 1100, "sqeuclidean", mdt)
+        assert KERNELS[kid].launches == before + d * d
+        assert torch.equal(gi, want_i) and torch.equal(gd, want_d)
+    si, sd = knn_cross(x[600:1200].contiguous(), x, 1100, False, 600, 0,
+                       2400, matmul_dtype=mdt)
+    assert torch.equal(si, want_i[600:1200])
+    assert torch.equal(sd, want_d[600:1200])
 
 
 def test_knn_f64_refuses_mixed_operands(dev):
@@ -2013,3 +2153,28 @@ def test_float64_project_runs_on_the_card(dev, tmp_path):
     assert got["B6_f64"] == cycles * chunks and _no_float32_form(got)
     assert est.embedding_.dtype == np.float64
     assert np.isfinite(est.kl_divergence_)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_project_past_k1024_runs_b6_on_its_workspace_route(dev, dtype):
+    """``prepare`` with a refining ``project`` plan at k = 1,200 on 4,000
+    cells x 50: each chunk's first (exact) stage proposes 16·1,201
+    candidates a row, past the block's shared memory, so every B6 launch
+    takes the workspace route; no B1 launch; the graph within the exact
+    one's k-th distance for >= 0.9 of its slots."""
+    from tsne_flink_tpu_torch.kernels.build import launches
+    from tsne_flink_tpu_torch.ops.knn_cuda import (fused_knn,
+                                                   reset_route_launches)
+    from tsne_flink_tpu_torch.utils.artifacts import prepare
+    x = torch.from_numpy(_cells(4000, 50, 8)).to(dev, dtype)
+    form = "B6_f64" if dtype == torch.float64 else "B6"
+    reset_launches()
+    reset_route_launches()
+    prep = prepare(x, neighbors=1200, knn_method="project", knn_refine=1,
+                   perplexity=100.0, device=dev)
+    got = launches()
+    assert got[form] > 0 and got["B1"] == got["B1_f64"] == 0
+    assert ROUTE_LAUNCHES == {f"{form} workspace": got[form]}
+    _, dist_e = fused_knn(x, 1200)
+    kth = dist_e[:, -1:] * (1 + 1e-5) + 1e-5
+    assert float((prep.dist <= kth).double().mean()) >= 0.9

@@ -3,11 +3,13 @@
 The kernels' float64 forms run on the card only (``tests/test_torch_cuda
 .py`` holds them there).  Here:
 
-* no plan is refused for its dtype: ``ops/knn.check_knn_limits`` admits
-  float64 on every device and method, and every stage of every refine
-  plan it admits (k <= K_MAX, d <= CAND_F_MAX) fits the shared memory of
-  B6 and of its float64 form (``ops/knn_cuda.refine_smem_bytes`` at 4-
-  and 8-byte values, the layout of ``csrc/knn_cand.cu``);
+* no plan is refused for its dtype or its k: ``ops/knn.check_knn_limits``
+  admits float64 and every k on every device and method; every stage of
+  every refine plan at k <= 1,024 (d <= CAND_F_MAX) fits the shared
+  memory of B6 and of its float64 form (``ops/knn_cuda.refine_smem_bytes``
+  at 4- and 8-byte values, the layout of ``csrc/knn_cand.cu``), and past
+  it a stage that does not takes the workspace route
+  (``ops/knn_cuda.refine_route``) at both widths;
 * a float64 ``project`` run (``prepare``, and the sharded prepare on a
   mesh of 2) reaches the refine stages' wrappers with float64 values and
   gets float64 distances back;
@@ -81,14 +83,22 @@ def _refine_stages(d: int, k: int):
 
 def _fits(d: int, k: int, itemsize: int) -> list:
     """The stages of the plan at (d, k) past B6's shared memory or sort
-    capacity at values of ``itemsize`` bytes (none, when it fits)."""
+    capacity at values of ``itemsize`` bytes (none, when it fits): the
+    stages that take the workspace route, each checked to take it (and
+    its block's shared memory to fit there)."""
     bad = []
+    assert _refine_stages(d, k) == tknn.refine_stages(d, k)
     for f, w, ke, keep, build, final in _refine_stages(d, k):
         need = tkc.refine_smem_bytes(f, w, ke, keep, k, build, final,
                                      itemsize)
         sort = 2 * k if final else keep
+        route = tkc.refine_route(f, w, ke, keep, k, build, final, itemsize)
         if need > tkc.REFINE_SMEM_MAX or sort > tkc.REFINE_SORT_MAX:
             bad.append((d, k, f, build, final, need))
+            assert route.workspace > 0
+            assert route.smem <= tkc.REFINE_SMEM_MAX
+        else:
+            assert route == (0, need)
     return bad
 
 
@@ -98,27 +108,34 @@ def _fits(d: int, k: int, itemsize: int) -> list:
                                            ("bruteforce", None),
                                            ("partition", None)])
 def test_refusal_helper(device, dtype, method, refine):
-    """The pre-kNN plan check refuses no dtype on any device: it admits
-    each case at the kernels' widest k, and a refining plan's every stage
-    fits B6's shared memory at the dtype's width (B6_f64's at float64)."""
+    """The pre-kNN plan check refuses no dtype and no k on any device: it
+    admits each case at the deep class's widest k and past it; a refining
+    plan's every stage fits B6's shared memory at the dtype's width
+    (B6_f64's at float64) up to k = 1,024, and past it takes a route."""
     itemsize = torch.empty(0, dtype=dtype).element_size()
     for d in (50, 200, 784, tkc.CAND_F_MAX):
-        tknn.check_knn_limits(2_000_000, d, tkc.K_MAX, method, refine)
+        for k in (tkc.K_REG_MAX, 1500, 4096):
+            tknn.check_knn_limits(2_000_000, d, k, method, refine)
         if method == "project" and refine:
-            assert _fits(d, tkc.K_MAX, itemsize) == []
+            assert _fits(d, tkc.K_REG_MAX, itemsize) == []
             assert _fits(d, 90, itemsize) == []
+            _fits(d, 4096, itemsize)
 
 
 @pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("d", [1, 50, 128, 129, 256, 257, 784,
                                tkc.CAND_F_MAX])
 def test_every_admitted_refine_plan_fits_both_forms(itemsize, d):
-    """Every k the pre-kNN check admits (1 .. K_MAX) at the widest d of
-    each funnel shape (no filter up to 128, the JL filter to 256, filter
-    or cascade + exact past it): each stage of the chunk fits the block's
-    shared memory at 4- and 8-byte values."""
-    bad = [b for k in range(1, tkc.K_MAX + 1) for b in _fits(d, k, itemsize)]
+    """Every k up to 1,024 at the widest d of each funnel shape (no filter
+    up to 128, the JL filter to 256, filter or cascade + exact past it):
+    each stage of the chunk fits the block's shared memory at 4- and
+    8-byte values, on chip; past it (k = 1,025 .. 4,096 in steps) each
+    stage takes the route its fit decides."""
+    bad = [b for k in range(1, tkc.K_REG_MAX + 1)
+           for b in _fits(d, k, itemsize)]
     assert bad == []
+    for k in range(tkc.K_REG_MAX + 1, 4097, 97):
+        _fits(d, k, itemsize)
 
 
 def test_float64_layout_keeps_the_old_list_in_the_ids():

@@ -2,12 +2,16 @@
 limits that remain.
 
 The card's kernels take every embedding width m = 1 .. 8 (B2-B5, the JAX
-package's MPAD), k up to 1,024 (B1's deep class, B6's sort capacity).
-Here their plain versions are held at those shapes against the JAX
-package — its Pallas kernels in interpret mode (``pallas_interpret``) or
-its XLA twins — on the same seeded numpy inputs, and the requests past
-the kernels' limits are refused before the kNN stage runs, on the CPU as
-on the card.
+package's MPAD) and every k (B1's deep class to 1,024, its pending class
+past it; B6 on chip, or through its workspace route where a stage does
+not fit).  Here their plain versions are held at those shapes against
+the JAX package — its Pallas kernels in interpret mode
+(``pallas_interpret``) or its XLA twins — on the same seeded numpy
+inputs, the B6 route and the tile plan's workspace are held to their
+formulas, ``prepare`` and ``tsne_embed`` run past k = 1,024 on every kNN
+plan, and the requests past the kernels' limits (m outside 1 .. 8, d past
+12,288 on a refining plan) are refused before the kNN stage runs, on the
+CPU as on the card.
 """
 
 from dataclasses import replace
@@ -165,6 +169,32 @@ def test_plain_knn_sweep_matches_jax_at_k300(pallas_interpret):
                                    atol=1e-6)
 
 
+# ---- a graph against the JAX package's, ties as sets ------------------------
+
+def _same_graph(ti, td, ji, jd, rtol):
+    """Distances at ``rtol``; ids equal as sets within each run of equal
+    (reference) distance, equal to ``rtol`` (two float32 sums of one
+    distance may round apart, and then order a near-tie either way).  The
+    reference may hold one column more than the graph: a run that crosses
+    the graph's last column only has to hold the graph's part of it."""
+    ti, td, ji, jd = map(np.asarray, (ti, td, ji, jd))
+    k = ti.shape[1]
+    np.testing.assert_allclose(td, jd[:, :k], rtol=rtol,
+                               atol=1e-6 if rtol else 0)
+    tol = 2.0 * rtol * np.abs(jd)
+    for r in range(ji.shape[0]):
+        s = 0
+        while s < k:
+            e = s + 1
+            while e < ji.shape[1] and jd[r, e] - jd[r, e - 1] <= tol[r, e]:
+                e += 1
+            if e <= k:
+                assert set(ti[r, s:e]) == set(ji[r, s:e]), (r, s)
+            else:
+                assert set(ti[r, s:k]) <= set(ji[r, s:e]), (r, s)
+            s = e
+
+
 # ---- the hybrid kNN past k = 512 ---------------------------------------------
 
 def _blobs(n, d, clusters=8, seed=0, spread=0.6):
@@ -219,31 +249,43 @@ def test_refine_round_past_k512_matches_jax_with_its_draws(d, k):
 
 @pytest.mark.parametrize("d", [16, 50, 128, 200, 784, tkc.CAND_F_MAX])
 def test_every_k_the_kernels_take_fits_the_refine_kernel(d):
-    """With k <= K_MAX and d <= CAND_F_MAX every stage of the refine plan
-    fits B6's shared memory and sort capacity, so those two are all that
-    the pre-kNN check has to refuse."""
+    """Every k takes a B6 route at d <= CAND_F_MAX: up to k = 1,024 every
+    stage of the refine plan fits B6's shared memory and sort capacity
+    (the on-chip route, as before); past it a stage that does not fit
+    takes the workspace route, whose shared memory fits at any k and
+    whose workspace is WsLayout's; and the tile plan's refine chunk on the
+    card counts that workspace within the tile budget."""
+    from tsne_flink_tpu_torch.ops import knn_tiles as ttiles
     fd = tknn.pick_knn_filter(d)
-    for k in (1, 90, 150, 300, 512, 513, 600, 1000, tkc.K_MAX):
+    for k in (1, 90, 150, 300, 512, 513, 600, 1000, tkc.K_REG_MAX,
+              tkc.K_REG_MAX + 1, 1500, 2048, 4096):
         plan = tknn._refine_plan(d, k, filter_dims=fd,
                                  expand_k=(k + 1) // 2 if fd else None)
-        w = 2 * plan.s
-        stages = []
-        first = True
-        if plan.filter_dims:
-            stages.append((plan.filter_dims, plan.keep, False, first))
-            first = False
-        if plan.cascade_dims:
-            stages.append((plan.cascade_dims, plan.keep2, False, first))
-            first = False
-        stages.append((d, 0, True, first))
-        width = w
-        for f, keep, final, build in stages:
-            keep = min(keep, width * (1 + plan.ke) if build else width)
-            assert keep <= tkc.REFINE_SORT_MAX
-            need = tkc.refine_smem_bytes(f, width, plan.ke if build else 0,
-                                         keep, k, build, final)
-            assert need <= tkc.REFINE_SMEM_MAX, (d, k, f, need)
-            width = keep
+        assert [s[4:] for s in tknn.refine_stages(d, k)][-1] == (
+            plan.filter_dims is None and plan.cascade_dims is None, True)
+        for f, w, ke, keep, build, final in tknn.refine_stages(d, k):
+            route = tkc.refine_route(f, w, ke, keep, k, build, final)
+            smem = tkc.refine_smem_bytes(f, w, ke, keep, k, build, final)
+            sort = 2 * k if final else keep
+            fits = (smem <= tkc.REFINE_SMEM_MAX
+                    and sort <= tkc.REFINE_SORT_MAX)
+            if k <= tkc.K_REG_MAX:
+                assert fits, (d, k, f, smem)
+            assert (route.workspace == 0) == fits
+            if fits:
+                assert route.smem == smem
+            else:
+                ws_smem, row = tkc.refine_ws_layout(f, w, ke, keep, k,
+                                                    build, final)
+                assert route == (row, ws_smem)
+                assert ws_smem <= tkc.REFINE_SMEM_MAX and row % 16 == 0
+        ws = ttiles.refine_workspace_bytes(d, k)
+        c = ttiles.pick_knn_tiles(60_000, d, k, "cuda").refine_chunk
+        assert (ttiles.refine_chunk_bytes(c, d, k, workspace=True)
+                == ttiles.refine_chunk_bytes(c, d, k) + c * ws)
+        if c > ttiles.MIN_REFINE_CHUNK:
+            assert (ttiles.refine_chunk_bytes(c, d, k, workspace=True)
+                    <= ttiles._tile_budget("cuda", None))
 
 
 # ---- the limits that remain raise before the kNN stage ------------------------
@@ -266,14 +308,23 @@ def test_embedding_width_past_the_kernels_raises_first(no_knn, m):
 
 @pytest.mark.parametrize("method", ["bruteforce", "partition", "project",
                                     "auto"])
-def test_k_past_k_max_raises_before_the_knn_stage(no_knn, method):
+def test_k_past_k_max_raises_before_the_knn_stage(method):
+    """k = 1,025 (past the old 1,024 limit) is no longer refused: prepare
+    runs on every kNN plan and gives the JAX package's exact graph (at N
+    = 1,100 a Z-order band of 1,024 + 2k covers every column, so the
+    project plan is exact too), and tsne_embed at perplexity 342 (k =
+    1,026) runs to a finite embedding."""
     x = np.random.default_rng(1).standard_normal((1100, 4))
-    with pytest.raises(ValueError, match="K_MAX"):
-        prepare(x, neighbors=tkc.K_MAX + 1, knn_method=method,
-                perplexity=30.0, device="cpu")
-    with pytest.raises(ValueError, match="K_MAX"):
-        tsne_embed(x, TsneConfig(perplexity=342.0, iterations=10),
-                   knn_method=method, device="cpu")
+    prep = prepare(x, neighbors=tkc.K_REG_MAX + 1, knn_method=method,
+                   perplexity=30.0, device="cpu", assembly="sorted")
+    ji, jd = jax_knn_bruteforce(jnp.asarray(x), tkc.K_REG_MAX + 2,
+                                "sqeuclidean", kernel="xla")
+    _same_graph(prep.idx.numpy(), prep.dist.numpy(), ji, jd, 1e-10)
+    y, losses = tsne_embed(x, TsneConfig(perplexity=342.0, iterations=10),
+                           knn_method=method, device="cpu",
+                           affinity_assembly="sorted")
+    assert tuple(y.shape) == (1100, 2) and bool(torch.isfinite(y).all())
+    assert bool(torch.isfinite(losses).all())
 
 
 def test_features_past_cand_f_max_raise_before_a_refining_plan(no_knn):
@@ -287,11 +338,15 @@ def test_features_past_cand_f_max_raise_before_a_refining_plan(no_knn):
 
 
 def test_k_is_clamped_before_the_check():
-    """k past N − 1 clamps (the reference's first(k)); only the clamped k
-    meets the limit."""
+    """k past N − 1 clamps (the reference's first(k)), and no k is
+    refused: the check admits k = 5,000 at N = 600 and at N = 5,000, and
+    the kNN stage returns the clamped N − 1 neighbours."""
     tknn.check_knn_limits(600, 8, 5000, "bruteforce", None)
-    with pytest.raises(ValueError, match="K_MAX"):
-        tknn.check_knn_limits(5000, 8, 5000, "bruteforce", None)
+    tknn.check_knn_limits(5000, 8, 5000, "bruteforce", None)
+    tknn.check_knn_limits(5000, 8, 5000, "project", 2)
+    x = torch.from_numpy(np.random.default_rng(2).standard_normal((600, 8)))
+    idx, dist = tknn.knn_bruteforce(x, 5000)
+    assert tuple(idx.shape) == tuple(dist.shape) == (600, 599)
 
 
 @pytest.mark.parametrize("m", [1, 5, 8])

@@ -350,7 +350,11 @@ def _port_knn(plan: PlanConfig, terms: dict) -> None:
     column ranks, the keep mask and the scatter's three index tensors and
     its int32 values (94 B an edge) — more than its argsort (64 B with the
     card's sort scratch).  On the card B6 runs a refine chunk's funnel in
-    shared memory (``refine_chunk`` replaces the JAX chunk's gathers).
+    shared memory (``refine_chunk`` replaces the JAX chunk's gathers),
+    save a stage on its workspace route, whose chunk workspace
+    (``b6_workspace``, ``ops/knn_tiles.refine_workspace_bytes``) the term
+    adds; B1's float64 form past k = 1,024 holds its pending pairs in
+    device memory (``b1_pending``, 12 bytes a pair, 1,024 a row).
 
     Under bf16 operands (``plan.matmul_dtype``) B1's bf16 form rounds x
     into a bf16 copy it streams (``b1_operands``: 2 bytes a feature, F
@@ -361,10 +365,15 @@ def _port_knn(plan: PlanConfig, terms: dict) -> None:
     x, graph = terms["input"], terms["graph"]
     bf16 = plan.matmul_dtype == "bfloat16"
     if "exact_tile" in terms and plan.backend == "cuda":
+        from tsne_flink_tpu_torch.ops.knn_cuda import b1_pending_bytes
         terms["b1_norms"] = (1.0 if plan.dtype == "float64" else 2.0) * (
             n * d * 8)
         terms["exact_tile"] = 0.0
-        terms["peak"] = x + graph + terms["b1_norms"]
+        # the float64 form's pending pairs past k = 1,024 (the float32
+        # form keeps its pending keys in shared memory)
+        terms["b1_pending"] = float(b1_pending_bytes(
+            n, min(k, n - 1), plan.dtype == "float64"))
+        terms["peak"] = x + graph + terms["b1_norms"] + terms["b1_pending"]
         if bf16:
             terms["b1_operands"] = 2.0 * n * (d + (-d % 16))
             terms["peak"] = max(terms["peak"],
@@ -379,12 +388,16 @@ def _port_knn(plan: PlanConfig, terms: dict) -> None:
             # the run's itemsize: B6_f64's are float64), not the JAX
             # model's [c, Z, d] gathers
             from tsne_flink_tpu_torch.ops.knn_tiles import (
-                pick_knn_tiles, refine_chunk_bytes)
+                pick_knn_tiles, refine_chunk_bytes, refine_workspace_bytes)
             c = pick_knn_tiles(n, d, k, plan.backend).refine_chunk
             jax_chunk = PIPELINE_FACTOR * refine_chunk_bytes(c, d, k,
                                                              itemsize=isz)
-            terms["refine_chunk"] = PIPELINE_FACTOR * c * (16 * 8.0
-                                                          + k * (4.0 + isz))
+            # a stage on B6's workspace route (past ~k = 1,100) adds its
+            # chunk's workspace, one stage's at a time
+            terms["b6_workspace"] = float(
+                min(c, n) * refine_workspace_bytes(d, k, itemsize=isz))
+            terms["refine_chunk"] = PIPELINE_FACTOR * c * (
+                16 * 8.0 + k * (4.0 + isz)) + terms["b6_workspace"]
             terms["refine"] += terms["refine_chunk"] - jax_chunk
             terms["peak"] = max(terms["band_sweep"], terms["round_merge"],
                                 terms["refine"], terms["cycle_merge"])

@@ -65,6 +65,22 @@
 //   lane (16·k·8 = 128 KB at k = 1,024), a 3-stage ring (22 KB a stage)
 //   and 2 Dt buffers (9 KB each).  Every column tile is then read by four
 //   times as many blocks; the k <= 256 classes keep their shape and code.
+// - Past k = 1,024 a lane's registers no longer hold a list (32 slots a
+//   lane are already 64 registers), nor does shared memory hold 16 rows'
+//   lists, so the pending class (any k) keeps each row's k-list in the
+//   outputs themselves (out_d's words hold the key's upper half, the
+//   distance bits, out_i the column) and gives each of its 16 rows a
+//   pending area of PEND = 1,024 keys in shared memory (128 KB).  The
+//   merge warp appends a flagged row's survivors (key < the row's worst,
+//   warp-ballot order) to its pending area; when fewer than TC slots are
+//   left, and after the last tile, it keeps the k smallest of list ∪
+//   pending in the list (pending_merge): a warp radix select over the
+//   same 64-bit keys, one byte a pass, finds a bound that exactly k keys
+//   do not pass, the pending keys within it are compacted in order, they
+//   fill the list's slots whose keys are past it, and the largest kept
+//   key is the row's new worst (its distance the threshold).  The keys
+//   are unique, so the kept set is the plain sweep's whatever the order
+//   of the survivors; the shape, ring and buffers are the deep class's.
 //
 // Precision ("3xTF32"): each x splits into hi = tf32(x) and lo = tf32(x -
 // hi) (ops/knn_cuda.tf32_split states the same split); each slice
@@ -104,10 +120,11 @@ constexpr int MROWS = 16;              // rows a merge warp owns
 
 // A block's shape, by k's class: MI m16 row tiles a compute warp owns, WM
 // compute warps down the rows (four across the columns), KREG k-list slots
-// a merge lane holds (k <= 32·KREG).
-template <int MI_, int WM_, int KREG_>
+// a merge lane holds (k <= 32·KREG), or, in the pending class (PEND > 0),
+// a row's pending keys in shared memory (its k-list in the outputs).
+template <int MI_, int WM_, int KREG_, int PEND_ = 0>
 struct Shape {
-  static constexpr int MI = MI_, WM = WM_, KREG = KREG_;
+  static constexpr int MI = MI_, WM = WM_, KREG = KREG_, PEND = PEND_;
   static constexpr int TR = 16 * MI * WM;            // rows a block owns
   static constexpr int COMPUTE = 128 * WM;           // compute threads
   static constexpr int MERGE_WARPS = TR / MROWS;
@@ -121,7 +138,11 @@ struct Shape {
 // in shared memory), 4 compute warps of 16 x 32, 1 merge warp
 using Wide = Shape<2, 2, 8>;
 using Deep = Shape<1, 1, 32>;
-constexpr int K_MAX = 32 * Deep::KREG;
+// k > 1,024: the deep class's shape, the k-lists in the outputs and 1,024
+// pending keys a row in shared memory
+using Pending = Shape<1, 1, 1, 1024>;
+constexpr int K_REG_MAX = 32 * Deep::KREG;  // the largest k held in registers
+constexpr int BINS = 256;                   // radix-select digit: one byte
 
 // named barriers: 0 is __syncthreads
 constexpr int BAR_COMPUTE = 1;
@@ -259,6 +280,202 @@ __device__ __forceinline__ void two_sum(float a, float b, float& s, float& e) {
   e = (a - (s - bp)) + (b - bp);
 }
 
+// ---- the pending class's merge (both forms) --------------------------------
+//
+// A key of up to 96 bits, compared lexicographically: (hi, lo).  The
+// float32 form's 64-bit (distance bits, column) key is hi with lo = 0 (8
+// radix levels); the float64 form's is (distance bits, column) (12).
+struct WKey {
+  u64 hi;
+  unsigned lo;
+};
+
+__device__ __forceinline__ bool wkey_le(WKey a, WKey b) {
+  return a.hi < b.hi || (a.hi == b.hi && a.lo <= b.lo);
+}
+
+__device__ __forceinline__ WKey wkey_max(WKey a, WKey b) {
+  return wkey_le(a, b) ? b : a;
+}
+
+// byte l of the key, the most significant first
+__device__ __forceinline__ int wkey_digit(WKey a, int l) {
+  return l < 8 ? (int)((a.hi >> (56 - 8 * l)) & 0xff)
+               : (int)((a.lo >> (24 - 8 * (l - 8))) & 0xff);
+}
+
+// the largest key over the warp
+__device__ __forceinline__ WKey warp_wkey_max(WKey v) {
+  const unsigned h1 = static_cast<unsigned>(v.hi >> 32);
+  const unsigned m1 = __reduce_max_sync(tsne::kFullMask, h1);
+  const unsigned h0 = h1 == m1 ? static_cast<unsigned>(v.hi) : 0u;
+  const unsigned m0 = __reduce_max_sync(tsne::kFullMask, h0);
+  const u64 mh = (static_cast<u64>(m1) << 32) | m0;
+  const unsigned m2 = __reduce_max_sync(tsne::kFullMask, v.hi == mh ? v.lo : 0u);
+  return {mh, m2};
+}
+
+// The bound b such that exactly `need` of the n unique keys at(0 .. n)
+// are <= b (1 <= need <= n).  A warp's radix select: one byte a pass, the
+// most significant first, over a 256-bin histogram in shared memory
+// (lanes adding to one bin add once, by __match_any_sync), stopping as
+// soon as the chosen bin holds exactly the keys still wanted.  Every lane
+// of the warp calls and gets the same bound.
+template <int LEVELS, class At>
+__device__ WKey warp_select(At at, int n, int need, unsigned* hist) {
+  const int lane = threadIdx.x & 31;
+  WKey pre{0ull, 0u}, msk{0ull, 0u};
+  for (int l = 0; l < LEVELS; ++l) {
+    for (int b = lane; b < BINS; b += 32) hist[b] = 0u;
+    __syncwarp();
+    for (int i0 = 0; i0 < n; i0 += 32) {  // the same trips in the warp
+      const int i = i0 + lane;
+      int bin = -1;
+      if (i < n) {
+        const WKey key = at(i);
+        if ((key.hi & msk.hi) == pre.hi && (key.lo & msk.lo) == pre.lo)
+          bin = wkey_digit(key, l);
+      }
+      const unsigned peers = __match_any_sync(tsne::kFullMask, bin);
+      if (bin >= 0 && lane == __ffs(peers) - 1)
+        atomicAdd(&hist[bin], static_cast<unsigned>(__popc(peers)));
+    }
+    __syncwarp();
+    unsigned v[BINS / 32], sum = 0;
+#pragma unroll
+    for (int j = 0; j < BINS / 32; ++j) {
+      v[j] = hist[lane * (BINS / 32) + j];
+      sum += v[j];
+    }
+    unsigned incl = sum;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const unsigned y = __shfl_up_sync(tsne::kFullMask, incl, off);
+      if (lane >= off) incl += y;
+    }
+    const unsigned want = static_cast<unsigned>(need);
+    const bool mine = incl - sum < want && want <= incl;
+    const int owner = __ffs(__ballot_sync(tsne::kFullMask, mine)) - 1;
+    int dg = 0;
+    unsigned below = 0, cnt = 0;
+    if (mine) {
+      unsigned run = incl - sum;
+#pragma unroll
+      for (int j = 0; j < BINS / 32; ++j) {
+        if (cnt == 0 && run + v[j] >= want) {
+          dg = lane * (BINS / 32) + j;
+          below = run;
+          cnt = v[j];
+        }
+        run += v[j];
+      }
+    }
+    dg = __shfl_sync(tsne::kFullMask, dg, owner);
+    below = __shfl_sync(tsne::kFullMask, below, owner);
+    cnt = __shfl_sync(tsne::kFullMask, cnt, owner);
+    need -= static_cast<int>(below);
+    if (l < 8) {
+      pre.hi |= static_cast<u64>(dg) << (56 - 8 * l);
+      msk.hi |= 0xffull << (56 - 8 * l);
+    } else {
+      pre.lo |= static_cast<unsigned>(dg) << (24 - 8 * (l - 8));
+      msk.lo |= 0xffu << (24 - 8 * (l - 8));
+    }
+    __syncwarp();  // the next pass rewrites hist
+    if (static_cast<int>(cnt) == need) break;
+  }
+  return {pre.hi | ~msk.hi, pre.lo | ~msk.lo};
+}
+
+// Keep the k smallest of a row's list (cnt held keys, list.get / set) and
+// its p pending keys (pend.get / set) in the list; returns the list's new
+// count and, when it holds k, its largest key in `worst`.  One warp calls;
+// the pending keys are compacted in place (in order), and the list's
+// slots whose keys are past the bound take them in that order.
+template <int LEVELS, class List, class Pend>
+__device__ int pending_merge(List list, Pend pend, int cnt, int p, int k,
+                             unsigned* hist, WKey& worst) {
+  const int lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  __syncwarp();
+  WKey w{0ull, 0u};
+  if (cnt + p <= k) {
+    for (int i = lane; i < p; i += 32) list.set(cnt + i, pend.get(i));
+    cnt += p;
+    if (cnt < k) {
+      __syncwarp();
+      return cnt;
+    }
+    __syncwarp();
+    for (int i = lane; i < k; i += 32) w = wkey_max(w, list.get(i));
+  } else {
+    const WKey b = warp_select<LEVELS>(
+        [&](int i) { return i < cnt ? list.get(i) : pend.get(i - cnt); },
+        cnt + p, k, hist);
+    int q = 0;  // the pending keys within the bound, compacted
+    for (int i0 = 0; i0 < p; i0 += 32) {
+      const int i = i0 + lane;
+      WKey key{0ull, 0u};
+      bool take = false;
+      if (i < p) {
+        key = pend.get(i);
+        take = wkey_le(key, b);
+      }
+      const unsigned m = __ballot_sync(tsne::kFullMask, take);
+      if (take) pend.set(q + __popc(m & below), key);
+      q += __popc(m);
+      __syncwarp();
+    }
+    int e = 0;  // the list's slots past the bound, refilled
+    for (int i0 = 0; i0 < cnt; i0 += 32) {
+      const int i = i0 + lane;
+      WKey key{0ull, 0u};
+      bool out = false;
+      if (i < cnt) {
+        key = list.get(i);
+        out = !wkey_le(key, b);
+      }
+      const unsigned m = __ballot_sync(tsne::kFullMask, out);
+      if (out) {
+        key = pend.get(e + __popc(m & below));
+        list.set(i, key);
+      }
+      e += __popc(m);
+      if (i < cnt) w = wkey_max(w, key);
+    }
+    for (int i = e + lane; i < q; i += 32) {  // and the rest fill cnt .. k
+      const WKey key = pend.get(i);
+      list.set(cnt + i - e, key);
+      w = wkey_max(w, key);
+    }
+    cnt = k;
+  }
+  worst = warp_wkey_max(w);
+  __syncwarp();
+  return cnt;
+}
+
+// the float32 form's k-list in its outputs: out_d's word the key's upper
+// half, out_i its column
+struct ListF32 {
+  unsigned* d;
+  int* i;
+  __device__ WKey get(int s) const {
+    return {(static_cast<u64>(d[s]) << 32) | static_cast<unsigned>(i[s]), 0u};
+  }
+  __device__ void set(int s, WKey key) const {
+    d[s] = static_cast<unsigned>(key.hi >> 32);
+    i[s] = static_cast<int>(static_cast<unsigned>(key.hi));
+  }
+};
+
+// the float32 form's pending keys in shared memory
+struct PendF32 {
+  u64* k;
+  __device__ WKey get(int s) const { return {k[s], 0u}; }
+  __device__ void set(int s, WKey key) const { k[s] = key.hi; }
+};
+
 // the two operands of a sweep: rows [nr, f] and columns [nc, f] (the same
 // array in the single sweep; f32, or bf16 in the BF16 form), each with its
 // norm pairs [n + 1, 2] and the global id of its first point; columns
@@ -280,15 +497,22 @@ knn_kernel(const Sweep sw, int f, int k, int cosine,
   constexpr int COMPUTE = T::COMPUTE, MERGE_WARPS = T::MERGE_WARPS;
   constexpr int THREADS = T::THREADS, OPER_FLOATS = T::OPER_FLOATS;
   constexpr int STAGE_FLOATS = T::STAGE_FLOATS, DT_FLOATS = T::DT_FLOATS;
+  constexpr int PEND = T::PEND;
+  constexpr bool BIG = PEND > 0;  // the pending class
   extern __shared__ __align__(16) float smem[];
   float* ring = smem;                                  // [STAGES][STAGE_FLOATS]
   float* dt = ring + STAGES * STAGE_FLOATS;            // [DTB][TR][DSTRIDE]
-  u64* lists = reinterpret_cast<u64*>(dt + DTB * DT_FLOATS);  // [TR][k]
-  u64* wkey = lists + TR * k;                          // [TR] worst key
+  // [TR][k] the k-lists, or [TR][PEND] the pending keys (the pending class)
+  u64* lists = reinterpret_cast<u64*>(dt + DTB * DT_FLOATS);
+  u64* wkey = lists + TR * (BIG ? PEND : k);           // [TR] worst key
   int* fill = reinterpret_cast<int*>(wkey + TR);       // [TR] filled slots
   volatile float* thr = reinterpret_cast<float*>(fill + TR);  // [TR] k-th d
   unsigned* rowmask = reinterpret_cast<unsigned*>(fill + 2 * TR);
-  // rowmask [DTB][MERGE_WARPS]: the rows of a Dt buffer with survivors
+  // rowmask [DTB][MERGE_WARPS]: the rows of a Dt buffer with survivors;
+  // the pending class's pending counts [TR] and histograms [MERGE_WARPS]
+  // [BINS] follow it
+  int* pcount = reinterpret_cast<int*>(rowmask + DTB * MERGE_WARPS);
+  unsigned* hist = reinterpret_cast<unsigned*>(pcount + TR);
 
   // a 16-byte copy carries EPC features; a stage holds BKF of a row
   constexpr int ESZ = BF16 ? 2 : 4, EPC = 16 / ESZ, BKF = BK * 4 / ESZ;
@@ -303,6 +527,7 @@ knn_kernel(const Sweep sw, int f, int k, int cosine,
     wkey[r] = ~0ull;
     fill[r] = 0;
     thr[r] = INFINITY;
+    if constexpr (BIG) pcount[r] = 0;
   }
   for (int e = tid; e < DTB * MERGE_WARPS; e += THREADS) rowmask[e] = 0;
   __syncthreads();
@@ -520,6 +745,61 @@ knn_kernel(const Sweep sw, int f, int k, int cosine,
 #pragma unroll
           for (int e = 0; e < 4; ++e) sh[i][j][e] = sl[i][j][e] = 0.f;
     }
+  } else if constexpr (BIG) {
+    // ---------------- the pending class's merge warps: each flagged row's
+    // survivors join its pending keys, merged into its k-list (in the
+    // outputs) when fewer than TC slots are left, and after the last tile
+    const int mw = (tid - COMPUTE) >> 5;
+    unsigned* h = hist + mw * BINS;
+    auto merge = [&](int r) {
+      const size_t o = (size_t)(row0 + r) * k;
+      WKey worst;
+      const int cnt = pending_merge<8>(
+          ListF32{reinterpret_cast<unsigned*>(out_d) + o, out_i + o},
+          PendF32{lists + (size_t)r * PEND}, fill[r], pcount[r], k, h,
+          worst);
+      if (lane == 0) {
+        fill[r] = cnt;
+        pcount[r] = 0;
+        if (cnt == k) {
+          wkey[r] = worst.hi;
+          thr[r] = key_dist(worst.hi);
+        }
+      }
+      __syncwarp();
+    };
+    for (int t = 0; t < tiles; ++t) {
+      const int buf = t % DTB;
+      const int col0 = t * TC;
+      bar_sync(BAR_FULL + buf, THREADS);
+      const float* d_tile = dt + buf * DT_FLOATS;
+      unsigned rows = rowmask[buf * MERGE_WARPS + mw];
+      while (rows) {
+        const int r = mw * MROWS + __ffs(rows) - 1;
+        rows &= rows - 1;
+        u64* pk = lists + (size_t)r * PEND;
+        const u64 wk = wkey[r];
+        int p = pcount[r];
+#pragma unroll
+        for (int h0 = 0; h0 < TC; h0 += 32) {
+          const float d = d_tile[r * DSTRIDE + h0 + lane];
+          const u64 key = make_key(d, sw.c_off + col0 + h0 + lane);
+          const bool take = d < INFINITY && key < wk;
+          const unsigned m = __ballot_sync(tsne::kFullMask, take);
+          if (take) pk[p + __popc(m & ((1u << lane) - 1u))] = key;
+          p += __popc(m);
+        }
+        __syncwarp();
+        if (lane == 0) pcount[r] = p;
+        __syncwarp();
+        if (p > PEND - TC) merge(r);
+      }
+      __syncwarp();
+      if (lane == 0) rowmask[buf * MERGE_WARPS + mw] = 0;
+      if (t + DTB < tiles) bar_arrive(BAR_EMPTY + buf, THREADS);
+    }
+    for (int r = mw * MROWS; r < (mw + 1) * MROWS; ++r)
+      if (pcount[r] > 0) merge(r);
   } else {
     // ---------------- merge warps: fold each filtered tile into the k-lists
     const int mw = (tid - COMPUTE) >> 5;
@@ -584,15 +864,31 @@ knn_kernel(const Sweep sw, int f, int k, int cosine,
   }
   __syncthreads();
 
-  for (int e = tid; e < TR * k; e += THREADS) {
-    const int g = row0 + e / k;
-    if (g < sw.nr) {
-      // a cross-sweep row may have fewer than k unmasked columns
-      const bool held = e % k < fill[e / k];
-      const u64 v = lists[e];
-      out_d[(size_t)g * k + e % k] = held ? key_dist(v) : INFINITY;
-      out_i[(size_t)g * k + e % k] =
-          held ? static_cast<int>(v & 0xffffffffu) : -1;
+  if constexpr (BIG) {
+    // the lists' key bits become distances; (inf, -1) past a row's held
+    // slots (a cross-sweep row may have fewer than k unmasked columns)
+    unsigned* ld = reinterpret_cast<unsigned*>(out_d);
+    for (int e = tid; e < TR * k; e += THREADS) {
+      const int g = row0 + e / k;
+      if (g < sw.nr) {
+        const size_t o = (size_t)g * k + e % k;
+        const bool held = e % k < fill[e / k];
+        ld[o] = __float_as_uint(
+            held ? key_dist(static_cast<u64>(ld[o]) << 32) : INFINITY);
+        if (!held) out_i[o] = -1;
+      }
+    }
+  } else {
+    for (int e = tid; e < TR * k; e += THREADS) {
+      const int g = row0 + e / k;
+      if (g < sw.nr) {
+        // a cross-sweep row may have fewer than k unmasked columns
+        const bool held = e % k < fill[e / k];
+        const u64 v = lists[e];
+        out_d[(size_t)g * k + e % k] = held ? key_dist(v) : INFINITY;
+        out_i[(size_t)g * k + e % k] =
+            held ? static_cast<int>(v & 0xffffffffu) : -1;
+      }
     }
   }
 }
@@ -605,15 +901,23 @@ struct Config {
 
 template <class T>
 size_t smem_for(int stages, int bufs, int k) {
+  const size_t per_row = T::PEND > 0 ? T::PEND : k;
   return sizeof(float) * ((size_t)stages * T::STAGE_FLOATS +
                           (size_t)bufs * T::DT_FLOATS) +
-         sizeof(u64) * ((size_t)T::TR * k + T::TR) + sizeof(int) * 2 * T::TR +
-         sizeof(unsigned) * (size_t)bufs * T::MERGE_WARPS;
+         sizeof(u64) * ((size_t)T::TR * per_row + T::TR) +
+         sizeof(int) * 2 * T::TR +
+         sizeof(unsigned) * (size_t)bufs * T::MERGE_WARPS +
+         (T::PEND > 0 ? sizeof(int) * T::TR +
+                            sizeof(unsigned) * T::MERGE_WARPS * BINS
+                      : 0);
 }
 
 // k <= 128: 3 stages, 2 buffers; k <= 160: 2 and 2; k <= 256: 2 and 1 (64
-// rows a block); k <= 1,024: 3 and 2 (16 rows a block)
+// rows a block); k <= 1,024: 3 and 2 (16 rows a block); past it the
+// pending class, 3 and 2 (16 rows a block, 1,024 pending keys a row)
 Config config(int k) {
+  if (k > K_REG_MAX)
+    return {Pending::TR, 3, 2, smem_for<Pending>(3, 2, k)};
   if (k > 256) return {Deep::TR, 3, 2, smem_for<Deep>(3, 2, k)};
   const int stages = k <= 128 ? 3 : 2, bufs = k <= 160 ? 2 : 1;
   return {Wide::TR, stages, bufs, smem_for<Wide>(stages, bufs, k)};
@@ -635,6 +939,9 @@ template <bool BF16>
 int sweep(const Sweep& sw, int f, int k, int cosine, float* out_d,
           int* out_i, cudaStream_t s) {
   const Config c = config(k);
+  if (k > K_REG_MAX)
+    return launch<Pending, 3, 2, BF16>(sw, f, k, cosine, out_d, out_i,
+                                       c.smem, s);
   if (c.rows == Deep::TR)
     return launch<Deep, 3, 2, BF16>(sw, f, k, cosine, out_d, out_i, c.smem,
                                     s);
@@ -650,25 +957,29 @@ int sweep(const Sweep& sw, int f, int k, int cosine, float* out_d,
 }  // namespace
 
 // B1's configuration for k: writes the rows a block owns, the ring's stage
-// count and the Dt buffer count, returns the dynamic shared memory in
-// bytes.
-TSNE_API int tsne_knn_config(int k, int* rows, int* stages, int* bufs) {
+// count, the Dt buffer count and the pending keys a row (0: the k-list
+// classes, whose lists a merge lane holds in registers), returns the
+// dynamic shared memory in bytes.
+TSNE_API int tsne_knn_config(int k, int* rows, int* stages, int* bufs,
+                             int* pend) {
   const Config c = config(k);
   *rows = c.rows;
   *stages = c.stages;
   *bufs = c.bufs;
+  *pend = k > K_REG_MAX ? Pending::PEND : 0;
   return (int)c.smem;
 }
 
 // x [n, f] f32 (f a multiple of 16, 16-byte aligned rows); norms [n + 1,
 // 2] f32: each row's squared norm as a (hi, lo) pair, then a zero row, 16-
 // byte aligned (unused for cosine);
-// out_d/out_i [n, k]: each row's k nearest columns, unordered.  Requires
-// 1 <= k <= min(1024, n - 1).
+// out_d/out_i [n, k]: each row's k nearest columns, unordered; pend is
+// unused (the float32 form's pending keys live in shared memory: the
+// operands are tsne_knn_f64's).  Requires 1 <= k <= n - 1.
 TSNE_API int tsne_knn_f32(const float* x, const float* norms, int n, int f,
                           int k, int cosine, float* out_d, int* out_i,
-                          void* stream) {
-  if (k < 1 || k > K_MAX || k > n - 1 || f % 16)
+                          void* pend, void* stream) {
+  if (k < 1 || k > n - 1 || f % 16)
     return (int)cudaErrorInvalidValue;
   const Sweep sw{x, norms, n, 0, x, norms, n, 0, n};
   return sweep<false>(sw, f, k, cosine, out_d, out_i, (cudaStream_t)stream);
@@ -680,7 +991,7 @@ TSNE_API int tsne_knn_f32(const float* x, const float* norms, int n, int f,
 TSNE_API int tsne_knn_bf16(const float* x, const float* norms, void* xb,
                            int n, int f, int k, int cosine, float* out_d,
                            int* out_i, void* stream) {
-  if (k < 1 || k > K_MAX || k > n - 1 || f % 16)
+  if (k < 1 || k > n - 1 || f % 16)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   const int rc = cast_bf16(x, xb, (size_t)n * f, s);
@@ -694,14 +1005,15 @@ TSNE_API int tsne_knn_bf16(const float* x, const float* norms, void* xb,
 // as tsne_knn_f32 takes them; columns with global id >= n_global and each
 // row's own id are masked.  out_d/out_i [nr, k]: each row's k nearest
 // columns by (distance, global id), unordered, global ids, (inf, -1) in
-// slots past a row's unmasked columns.  Requires 1 <= k <= 1024, nr, nc
-// >= 1.
+// slots past a row's unmasked columns; pend unused, as tsne_knn_f32's.
+// Requires k, nr, nc >= 1.
 TSNE_API int tsne_knn_cross_f32(const float* xr, const float* norms_r,
                                 int nr, int r_off, const float* xc,
                                 const float* norms_c, int nc, int c_off,
                                 int n_global, int f, int k, int cosine,
-                                float* out_d, int* out_i, void* stream) {
-  if (k < 1 || k > K_MAX || nr < 1 || nc < 1 || r_off < 0 || c_off < 0 ||
+                                float* out_d, int* out_i, void* pend,
+                                void* stream) {
+  if (k < 1 || nr < 1 || nc < 1 || r_off < 0 || c_off < 0 ||
       f % 16)
     return (int)cudaErrorInvalidValue;
   const Sweep sw{xr, norms_r, nr, r_off, xc, norms_c, nc, c_off, n_global};
@@ -717,7 +1029,7 @@ TSNE_API int tsne_knn_cross_bf16(const float* xr, const float* norms_r,
                                  void* xbc, int nc, int c_off, int n_global,
                                  int f, int k, int cosine, float* out_d,
                                  int* out_i, void* stream) {
-  if (k < 1 || k > K_MAX || nr < 1 || nc < 1 || r_off < 0 || c_off < 0 ||
+  if (k < 1 || nr < 1 || nc < 1 || r_off < 0 || c_off < 0 ||
       f % 16)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
@@ -752,7 +1064,12 @@ TSNE_API int tsne_knn_cross_bf16(const float* xr, const float* norms_r,
 //   rows, eight compute warps of 32 x 32, four merge warps, a 2-stage
 //   ring of 16 doubles a row (stride 20 doubles: the fragments' 64-bit
 //   loads are conflict-free), two Dt buffers; only the registers a merge
-//   lane holds (KREG slots) differ: k <= 256 and k <= 1,024.
+//   lane holds (KREG slots) differ: k <= 256 and k <= 1,024.  Past k =
+//   1,024 the pending class merges as the float32 form's does, with the
+//   (distance bits, column) pairs as 96-bit keys (12 radix levels): no
+//   room is left beside the float64 stages and Dt buffers, so a row's
+//   PEND = 1,024 pending pairs live in device memory the wrapper
+//   allocates ([nr, PEND] keys and columns, 12 bytes a slot).
 // What bounds it: 2·N²·F at the FP64 tensor-core rate, 67 TFLOP/s: 84.25
 // ms at 60,000 x 784.
 
@@ -771,12 +1088,41 @@ constexpr int STAGE_D = OPER_D + TC;                // + the columns' norms
 constexpr int DSD = TC + 8;                         // Dt row stride (doubles)
 constexpr int DT_D = TR * DSD;
 constexpr int STAGES = 2, DTB = 2;
+constexpr int PEND = 1024;  // the pending class's pending pairs a row
 
-size_t smem_bytes() {
+// the dynamic shared memory; the pending class adds its pending counts
+// and the merge warps' histograms
+size_t smem_bytes(bool pending) {
   return sizeof(double) * ((size_t)STAGES * STAGE_D + (size_t)DTB * DT_D) +
          (sizeof(u64) + sizeof(double) + 2 * sizeof(int)) * TR +
-         sizeof(unsigned) * DTB * MERGE_WARPS;
+         sizeof(unsigned) * DTB * MERGE_WARPS +
+         (pending ? sizeof(int) * TR + sizeof(unsigned) * MERGE_WARPS * BINS
+                  : 0);
 }
+
+// the float64 form's k-list in its outputs (key bits in out_d's words,
+// columns in out_i), and its pending pairs in device memory
+struct ListF64 {
+  u64* d;
+  int* i;
+  __device__ WKey get(int s) const {
+    return {d[s], static_cast<unsigned>(i[s])};
+  }
+  __device__ void set(int s, WKey key) const {
+    d[s] = key.hi;
+    i[s] = static_cast<int>(key.lo);
+  }
+};
+
+struct PendF64 {
+  u64* k;
+  unsigned* c;
+  __device__ WKey get(int s) const { return {k[s], c[s]}; }
+  __device__ void set(int s, WKey key) const {
+    k[s] = key.hi;
+    c[s] = key.lo;
+  }
+};
 
 __device__ __forceinline__ void cp_async16d(double* dst, const void* src,
                                             bool valid) {
@@ -857,10 +1203,12 @@ struct Sweep64 {
   int nc, c_off, n_global;
 };
 
-template <int KREG>
+// PENDING: the pending class (pend_k / pend_c [nr, PEND], the wrapper's
+// scratch); otherwise KREG k-list slots a merge lane holds
+template <int KREG, bool PENDING>
 __global__ void __launch_bounds__(THREADS, 1)
 knn_f64_kernel(const Sweep64 sw, int f, int k, int cosine, double* out_d,
-               int* out_i) {
+               int* out_i, u64* pend_k, unsigned* pend_c) {
   extern __shared__ __align__(16) double smem64[];
   double* ring = smem64;                               // [STAGES][STAGE_D]
   double* dt = ring + STAGES * STAGE_D;                // [DTB][TR][DSD]
@@ -870,6 +1218,9 @@ knn_f64_kernel(const Sweep64 sw, int f, int k, int cosine, double* out_d,
       const_cast<double*>(thr) + TR);                  // [TR] worst column
   int* fill = reinterpret_cast<int*>(wcol + TR);       // [TR]
   unsigned* rowmask = reinterpret_cast<unsigned*>(fill + TR);
+  // the pending class: pending counts [TR], histograms [MERGE_WARPS][BINS]
+  int* pcount = reinterpret_cast<int*>(rowmask + DTB * MERGE_WARPS);
+  unsigned* hist = reinterpret_cast<unsigned*>(pcount + TR);
   // the k-lists: out_d's words hold the key bits until the last pass
   u64* lists = reinterpret_cast<u64*>(out_d);
 
@@ -885,6 +1236,7 @@ knn_f64_kernel(const Sweep64 sw, int f, int k, int cosine, double* out_d,
     wcol[r] = ~0u;
     fill[r] = 0;
     thr[r] = INFINITY;
+    if constexpr (PENDING) pcount[r] = 0;
   }
   for (int e = tid; e < DTB * MERGE_WARPS; e += THREADS) rowmask[e] = 0;
   __syncthreads();
@@ -1035,6 +1387,67 @@ knn_f64_kernel(const Sweep64 sw, int f, int k, int cosine, double* out_d,
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0;
     }
+  } else if constexpr (PENDING) {
+    // ---------------- the pending class's merge warps (as the float32
+    // form's, over (distance bits, column) pairs)
+    const int mw = (tid - COMPUTE) >> 5;
+    unsigned* h = hist + mw * BINS;
+    auto merge = [&](int r) {
+      const size_t o = (size_t)(row0 + r) * k;
+      const size_t po = (size_t)(row0 + r) * PEND;
+      WKey worst;
+      const int cnt = pending_merge<12>(ListF64{lists + o, out_i + o},
+                                        PendF64{pend_k + po, pend_c + po},
+                                        fill[r], pcount[r], k, h, worst);
+      if (lane == 0) {
+        fill[r] = cnt;
+        pcount[r] = 0;
+        if (cnt == k) {
+          wkey[r] = worst.hi;
+          wcol[r] = worst.lo;
+          thr[r] = key_dist(worst.hi);
+        }
+      }
+      __syncwarp();
+    };
+    for (int t = 0; t < tiles; ++t) {
+      const int buf = t % DTB;
+      const int col0 = t * TC;
+      bar_sync(BAR_FULL + buf, THREADS);
+      const double* d_tile = dt + buf * DT_D;
+      unsigned rows = rowmask[buf * MERGE_WARPS + mw];
+      while (rows) {
+        const int r = mw * MROWS + __ffs(rows) - 1;
+        rows &= rows - 1;
+        const size_t po = (size_t)(row0 + r) * PEND;
+        const u64 wk = wkey[r];
+        const unsigned wc = wcol[r];
+        int p = pcount[r];
+#pragma unroll
+        for (int h0 = 0; h0 < TC; h0 += 32) {
+          const double d = d_tile[r * DSD + h0 + lane];
+          const u64 key = dkey(d);
+          const unsigned cid = static_cast<unsigned>(sw.c_off + col0 + h0 + lane);
+          const bool take = d < INFINITY && less(key, cid, wk, wc);
+          const unsigned m = __ballot_sync(tsne::kFullMask, take);
+          if (take) {
+            const size_t at = po + p + __popc(m & ((1u << lane) - 1u));
+            pend_k[at] = key;
+            pend_c[at] = cid;
+          }
+          p += __popc(m);
+        }
+        __syncwarp();
+        if (lane == 0) pcount[r] = p;
+        __syncwarp();
+        if (p > PEND - TC) merge(r);
+      }
+      __syncwarp();
+      if (lane == 0) rowmask[buf * MERGE_WARPS + mw] = 0;
+      if (t + DTB < tiles) bar_arrive(BAR_EMPTY + buf, THREADS);
+    }
+    for (int r = mw * MROWS; r < (mw + 1) * MROWS; ++r)
+      if (pcount[r] > 0) merge(r);
   } else {
     // ---------------- merge warps: fold each filtered tile into the k-lists
     const int mw = (tid - COMPUTE) >> 5;
@@ -1124,23 +1537,36 @@ knn_f64_kernel(const Sweep64 sw, int f, int k, int cosine, double* out_d,
   }
 }
 
-template <int KREG>
+template <int KREG, bool PENDING>
 int launch_f64(const Sweep64& sw, int f, int k, int cosine, double* out_d,
-               int* out_i, cudaStream_t stream) {
-  auto kern = knn_f64_kernel<KREG>;
-  const size_t smem = smem_bytes();
+               int* out_i, u64* pend_k, unsigned* pend_c,
+               cudaStream_t stream) {
+  auto kern = knn_f64_kernel<KREG, PENDING>;
+  const size_t smem = smem_bytes(PENDING);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int blocks = (sw.nr + TR - 1) / TR;
-  kern<<<blocks, THREADS, smem, stream>>>(sw, f, k, cosine, out_d, out_i);
+  kern<<<blocks, THREADS, smem, stream>>>(sw, f, k, cosine, out_d, out_i,
+                                          pend_k, pend_c);
   return tsne::launch_status();
 }
 
+// pend: the pending class's scratch, [nr, PEND] keys then [nr, PEND]
+// columns (12·nr·PEND bytes, 8-byte aligned), needed past k = 1,024
 int sweep(const Sweep64& sw, int f, int k, int cosine, double* out_d,
-          int* out_i, cudaStream_t s) {
-  return k <= 256 ? launch_f64<8>(sw, f, k, cosine, out_d, out_i, s)
-                  : launch_f64<32>(sw, f, k, cosine, out_d, out_i, s);
+          int* out_i, void* pend, cudaStream_t s) {
+  if (k <= 256)
+    return launch_f64<8, false>(sw, f, k, cosine, out_d, out_i, nullptr,
+                                nullptr, s);
+  if (k <= K_REG_MAX)
+    return launch_f64<32, false>(sw, f, k, cosine, out_d, out_i, nullptr,
+                                 nullptr, s);
+  if (pend == nullptr || reinterpret_cast<uintptr_t>(pend) % 8)
+    return (int)cudaErrorInvalidValue;
+  u64* pk = static_cast<u64*>(pend);
+  unsigned* pc = reinterpret_cast<unsigned*>(pk + (size_t)sw.nr * PEND);
+  return launch_f64<1, true>(sw, f, k, cosine, out_d, out_i, pk, pc, s);
 }
 
 }  // namespace f64
@@ -1150,30 +1576,35 @@ int sweep(const Sweep64& sw, int f, int k, int cosine, double* out_d,
 // The float64 form of tsne_knn_f32: x [n, f] f64 (f a multiple of 16,
 // 16-byte aligned rows); norms [n + 1] f64: each row's squared norm, then
 // a zero, 16-byte aligned (unused for cosine); out_d [n, k] f64, out_i
-// [n, k] int32: each row's k nearest columns, unordered.  Requires 1 <= k
-// <= min(1024, n - 1).
+// [n, k] int32: each row's k nearest columns, unordered; pend: past k =
+// 1,024 the pending class's scratch ([n, 1,024] keys, then [n, 1,024]
+// columns: 12 bytes a slot, 8-byte aligned), else unused.  Requires 1 <=
+// k <= n - 1.
 TSNE_API int tsne_knn_f64(const double* x, const double* norms, int n, int f,
                           int k, int cosine, double* out_d, int* out_i,
-                          void* stream) {
-  if (k < 1 || k > K_MAX || k > n - 1 || f % 16)
+                          void* pend, void* stream) {
+  if (k < 1 || k > n - 1 || f % 16)
     return (int)cudaErrorInvalidValue;
   const f64::Sweep64 sw{x, norms, n, 0, x, norms, n, 0, n};
-  return f64::sweep(sw, f, k, cosine, out_d, out_i, (cudaStream_t)stream);
+  return f64::sweep(sw, f, k, cosine, out_d, out_i, pend,
+                    (cudaStream_t)stream);
 }
 
 // The float64 form of tsne_knn_cross_f32 (norms as tsne_knn_f64 takes
-// them; out_d f64).
+// them; out_d f64; pend as tsne_knn_f64's, [nr, ...]).
 TSNE_API int tsne_knn_cross_f64(const double* xr, const double* norms_r,
                                 int nr, int r_off, const double* xc,
                                 const double* norms_c, int nc, int c_off,
                                 int n_global, int f, int k, int cosine,
-                                double* out_d, int* out_i, void* stream) {
-  if (k < 1 || k > K_MAX || nr < 1 || nc < 1 || r_off < 0 || c_off < 0 ||
+                                double* out_d, int* out_i, void* pend,
+                                void* stream) {
+  if (k < 1 || nr < 1 || nc < 1 || r_off < 0 || c_off < 0 ||
       f % 16)
     return (int)cudaErrorInvalidValue;
   const f64::Sweep64 sw{xr, norms_r, nr, r_off, xc, norms_c, nc, c_off,
                         n_global};
-  return f64::sweep(sw, f, k, cosine, out_d, out_i, (cudaStream_t)stream);
+  return f64::sweep(sw, f, k, cosine, out_d, out_i, pend,
+                    (cudaStream_t)stream);
 }
 
 TSNE_API const char* tsne_error_string(int code) {

@@ -90,6 +90,23 @@
 //   1,024) fits in 227 KB at both widths (tests/test_torch_f64.py).
 // What bounds it is still bytes: a distinct row moves (F + 1)·8 bytes, so
 // the gather, and with it the bound, doubles.
+//
+// The workspace route (a stage that does not fit on chip: past ~k = 1,100
+// a first exact stage's 2·w·(1 + k) hash slots, or a keep stage's sort
+// past 8,192 keys).  The row's vector, the histogram, the counters and
+// the gateways stay in shared memory; the candidate ids, the hash set,
+// the scores, the sort keys and the exact stage's old list move to a
+// device-memory workspace of the chunk's rows, WsLayout bytes a row,
+// allocated by the wrapper (ops/knn_cuda.refine_route states the same
+// layout).  Every step is the on-chip route's, save the sort: a stable
+// block-wide LSD radix sort over the key's bytes (8 passes, or 12 at
+// float64; a pass whose bytes are all equal is skipped) between the keys
+// and a second buffer in the workspace, of exactly the keys there are.
+// The keys are unique or equal only where they are indistinguishable, so
+// the result still does not depend on the order of insertion or
+// compaction, and two launches give the same bits.  The workspace is read
+// and written from L2 and device memory: a slower route, taken only where
+// the on-chip one cannot hold the stage.
 #include "common.cuh"
 
 namespace {
@@ -117,6 +134,14 @@ struct Params {
   int n_valid;        // BUILD: ids >= n_valid are no candidates
   int* out_i;         // KEEP: [c, keep]; FINAL: [c, k]
   T* out_d;           // FINAL: [c, k]
+};
+
+// The workspace route's device memory: ``row`` bytes for each of the c
+// rows (a kernel argument of its own, after Params, which the on-chip
+// route leaves unread)
+struct Workspace {
+  unsigned char* base;
+  size_t row;
 };
 
 // The selection key of a score and its tie, ordered as (score, tie): one
@@ -268,10 +293,49 @@ struct Layout {
   }
 };
 
+// The workspace route's layout: in shared memory the row's vector, the
+// histogram, the counters, the gateways (a first stage) and the radix
+// sort's per-warp digit counts; in the row's workspace the candidate ids,
+// the old list (the exact stage), and one region that holds the hash set
+// while the candidates are built, then the sort keys, the sort's second
+// buffer and the scores.
+template <class T>
+struct WsLayout {
+  int zcap, hsize, nsort;
+  size_t rvec, hist, misc, gates, wcnt, bytes;     // shared memory
+  size_t ids, oi, od, region, keys2, scores, row;  // the row's workspace
+  __host__ __device__ WsLayout(const Params<T>& p, bool build, bool fin) {
+    using Key = typename KeyOps<T>::Key;
+    zcap = build ? p.w * (1 + p.ke) : p.w;
+    hsize = build ? 2 * zcap : 0;
+    nsort = fin ? 2 * p.k : p.keep;
+    size_t at = 0;
+    rvec = at;   at += align16(sizeof(T) * p.f);
+    hist = at;   at += align16(sizeof(int) * BINS);
+    misc = at;   at += align16(sizeof(int) * 8);
+    gates = at;  at += build ? align16(sizeof(int) * p.w) : 0;
+    wcnt = at;   at += align16(sizeof(int) * (THREADS / 32) * BINS);
+    bytes = at;
+    at = 0;
+    ids = at;    at += align16(sizeof(int) * (size_t)zcap);
+    oi = at;     at += fin ? align16(sizeof(int) * p.k) : 0;
+    od = at;     at += fin ? align16(sizeof(T) * p.k) : 0;
+    region = at;
+    const size_t sort = align16(sizeof(Key) * (size_t)nsort);
+    keys2 = region + sort;
+    scores = keys2 + sort;
+    const size_t table = sizeof(int) * (size_t)hsize;
+    const size_t after = 2 * sort + sizeof(T) * (size_t)zcap;
+    at += align16(table > after ? table : after);
+    row = at;
+  }
+};
+
 // misc[] slots
 constexpr int M_COUNT = 0;  // candidates in ids[] (BUILD) / valid ones (list)
 constexpr int M_NSEL = 1;   // survivors compacted
 constexpr int M_DIGIT = 2, M_BELOW = 3, M_BIN = 4;  // radix-select pass
+constexpr int M_SKIP = 5;   // radix-sort pass: every key has the same byte
 
 // d² = max((sq_i + sq_j) − 2·g, 0), each operation rounded on its own
 template <class T>
@@ -299,6 +363,100 @@ __device__ void bitonic_sort(typename KeyOps<T>::Key* buf, int n) {
       __syncthreads();
     }
   }
+}
+
+// One pass of a stable block-wide LSD radix sort: src[0 .. n) -> dst by
+// byte b of the key (most significant = 0), or nothing when every key has
+// the same byte (returns false: src stays the result).  Each tile of
+// THREADS keys ranks its keys within a warp (__match_any_sync) and across
+// the warps (wcnt [warps][BINS], zero on entry and on return), after the
+// keys of the earlier tiles (hist, the running bin starts).  Every thread
+// calls.
+template <class T>
+__device__ bool radix_pass(const typename KeyOps<T>::Key* src,
+                           typename KeyOps<T>::Key* dst, int n, int b,
+                           int* hist, int* wcnt, int* misc) {
+  using K = KeyOps<T>;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  constexpr int WARPS = THREADS / 32;
+  for (int t = threadIdx.x; t < BINS; t += THREADS) hist[t] = 0;
+  __syncthreads();
+  for (int t0 = 0; t0 < n; t0 += THREADS) {  // the same trips in a warp
+    const int t = t0 + threadIdx.x;
+    const int bin = t < n ? K::digit(src[t], b) : -1;
+    const unsigned peers = __match_any_sync(tsne::kFullMask, bin);
+    if (bin >= 0 && lane == __ffs(peers) - 1)
+      atomicAdd(&hist[bin], __popc(peers));
+  }
+  __syncthreads();
+  if (warp == 0) {  // the bins' exclusive starts; one bin holding all: skip
+    int v[BINS / 32], sum = 0;
+#pragma unroll
+    for (int j = 0; j < BINS / 32; ++j) {
+      v[j] = hist[lane * (BINS / 32) + j];
+      sum += v[j];
+    }
+    int incl = sum;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int y = __shfl_up_sync(tsne::kFullMask, incl, off);
+      if (lane >= off) incl += y;
+    }
+    int run = incl - sum, one = 0;
+#pragma unroll
+    for (int j = 0; j < BINS / 32; ++j) {
+      one |= v[j] == n;
+      hist[lane * (BINS / 32) + j] = run;
+      run += v[j];
+    }
+    one = __reduce_or_sync(tsne::kFullMask, one);
+    if (lane == 0) misc[M_SKIP] = one;
+  }
+  __syncthreads();
+  if (misc[M_SKIP]) return false;
+  for (int t0 = 0; t0 < n; t0 += THREADS) {
+    const int t = t0 + threadIdx.x;
+    typename K::Key key{};
+    int bin = -1;
+    if (t < n) {
+      key = src[t];
+      bin = K::digit(key, b);
+    }
+    const unsigned peers = __match_any_sync(tsne::kFullMask, bin);
+    const bool lead = bin >= 0 && lane == __ffs(peers) - 1;
+    if (lead) wcnt[warp * BINS + bin] = __popc(peers);
+    __syncthreads();
+    if (bin >= 0) {
+      int at = hist[bin] + __popc(peers & ((1u << lane) - 1u));
+      for (int w = 0; w < warp; ++w) at += wcnt[w * BINS + bin];
+      dst[at] = key;
+    }
+    __syncthreads();
+    for (int d = threadIdx.x; d < BINS; d += THREADS)
+      for (int w = 0; w < WARPS; ++w) hist[d] += wcnt[w * BINS + d];
+    __syncthreads();
+    if (lead) wcnt[warp * BINS + bin] = 0;
+    __syncwarp();
+  }
+  __syncthreads();
+  return true;
+}
+
+// Ascending stable LSD radix sort of keys[0 .. n) over every byte of the
+// key, with tmp as the second buffer; returns where the result is.
+template <class T>
+__device__ typename KeyOps<T>::Key* radix_sort(typename KeyOps<T>::Key* keys,
+                                               typename KeyOps<T>::Key* tmp,
+                                               int n, int* hist, int* wcnt,
+                                               int* misc) {
+  for (int b = KeyOps<T>::BYTES - 1; b >= 0; --b) {
+    if (radix_pass<T>(keys, tmp, n, b, hist, wcnt, misc)) {
+      typename KeyOps<T>::Key* t = keys;
+      keys = tmp;
+      tmp = t;
+    }
+  }
+  return keys;
 }
 
 // One slot a warp for each lane with `mine` set: the slot of this lane's
@@ -376,18 +534,23 @@ __device__ void radix_threshold(KeyOf key_of, Valid valid, int nz, int want,
   }
 }
 
-template <class T, bool BUILD, bool FINAL, int LANES>
-__global__ void __launch_bounds__(THREADS) refine_kernel(const Params<T> p) {
+template <class T, bool BUILD, bool FINAL, int LANES, bool WS>
+__global__ void __launch_bounds__(THREADS)
+refine_kernel(const Params<T> p, const Workspace ws) {
   using K = KeyOps<T>;
   using Key = typename K::Key;
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout<T> L(p, BUILD, FINAL);
+  // the candidate-sized arrays: in shared memory (Layout), or in the
+  // row's workspace (WsLayout, the workspace route)
+  const std::conditional_t<WS, WsLayout<T>, Layout<T>> L(p, BUILD, FINAL);
+  unsigned char* big = smem;
+  if constexpr (WS) big = ws.base + (size_t)blockIdx.x * ws.row;
   T* rvec = reinterpret_cast<T*>(smem + L.rvec);
-  int* ids = reinterpret_cast<int*>(smem + L.ids);
-  T* scores = reinterpret_cast<T*>(smem + L.scores);
+  int* ids = reinterpret_cast<int*>(big + L.ids);
+  T* scores = reinterpret_cast<T*>(big + L.scores);
   int* hist = reinterpret_cast<int*>(smem + L.hist);
   int* misc = reinterpret_cast<int*>(smem + L.misc);
-  Key* keys = reinterpret_cast<Key*>(smem + L.region);
+  Key* keys = reinterpret_cast<Key*>(big + L.region);
   const int tid = threadIdx.x;
   const int r = blockIdx.x;
   const int i = p.row0 + r;
@@ -396,7 +559,7 @@ __global__ void __launch_bounds__(THREADS) refine_kernel(const Params<T> p) {
   for (int t = tid; t < p.f; t += THREADS) rvec[t] = bi[t];
   if (tid < 8) misc[tid] = 0;
   if constexpr (BUILD) {
-    int* table = reinterpret_cast<int*>(smem + L.region);
+    int* table = reinterpret_cast<int*>(big + L.region);
     int* gates = reinterpret_cast<int*>(smem + L.gates);
     for (int t = tid; t < L.hsize; t += THREADS) table[t] = -1;
     for (int t = tid; t < p.w; t += THREADS)
@@ -407,7 +570,7 @@ __global__ void __launch_bounds__(THREADS) refine_kernel(const Params<T> p) {
   // 1. the row's candidates
   int nz;
   if constexpr (BUILD) {
-    int* table = reinterpret_cast<int*>(smem + L.region);
+    int* table = reinterpret_cast<int*>(big + L.region);
     const int* gates = reinterpret_cast<const int*>(smem + L.gates);
     const int total = p.w * (1 + p.ke);
     for (int t0 = 0; t0 < total; t0 += THREADS) {  // the same trips in a warp
@@ -518,10 +681,25 @@ __global__ void __launch_bounds__(THREADS) refine_kernel(const Params<T> p) {
   __syncthreads();
   const int nsel = misc[M_NSEL];
 
+  // the workspace route's sort: a radix sort of exactly the keys there are
+  int* wcnt = nullptr;
+  Key* keys2 = nullptr;
+  if constexpr (WS) {
+    wcnt = reinterpret_cast<int*>(smem + L.wcnt);
+    keys2 = reinterpret_cast<Key*>(big + L.keys2);
+    for (int t = tid; t < (THREADS / 32) * BINS; t += THREADS) wcnt[t] = 0;
+  }
+
   if constexpr (!FINAL) {
-    for (int t = nsel + tid; t < L.sortcap; t += THREADS) keys[t] = K::none();
-    __syncthreads();
-    bitonic_sort<T>(keys, L.sortcap);
+    if constexpr (WS) {
+      __syncthreads();
+      keys = radix_sort<T>(keys, keys2, nsel, hist, wcnt, misc);
+    } else {
+      for (int t = nsel + tid; t < L.sortcap; t += THREADS)
+        keys[t] = K::none();
+      __syncthreads();
+      bitonic_sort<T>(keys, L.sortcap);
+    }
     for (int t = tid; t < p.keep; t += THREADS) {
       int id = -1;
       if (t < nsel) {
@@ -532,8 +710,8 @@ __global__ void __launch_bounds__(THREADS) refine_kernel(const Params<T> p) {
     }
   } else {
     // 4. merge with the old list: each id's smallest distance, by (d, id)
-    int* oi = reinterpret_cast<int*>(smem + L.oi);
-    T* od = reinterpret_cast<T*>(smem + L.od);
+    int* oi = reinterpret_cast<int*>(big + L.oi);
+    T* od = reinterpret_cast<T*>(big + L.od);
     for (int t = tid; t < p.k; t += THREADS) {
       oi[t] = p.old_i[(size_t)r * p.k + t];
       od[t] = p.old_d[(size_t)r * p.k + t];
@@ -553,10 +731,18 @@ __global__ void __launch_bounds__(THREADS) refine_kernel(const Params<T> p) {
       if (old) keys[e] = K::none();
     }
     __syncthreads();
-    for (int t = tid; t < L.sortcap - nsel; t += THREADS)
-      keys[nsel + t] = t < p.k ? K::make(od[t], (unsigned)oi[t]) : K::none();
-    __syncthreads();
-    bitonic_sort<T>(keys, L.sortcap);
+    if constexpr (WS) {
+      for (int t = tid; t < p.k; t += THREADS)
+        keys[nsel + t] = K::make(od[t], (unsigned)oi[t]);
+      __syncthreads();
+      keys = radix_sort<T>(keys, keys2, nsel + p.k, hist, wcnt, misc);
+    } else {
+      for (int t = tid; t < L.sortcap - nsel; t += THREADS)
+        keys[nsel + t] =
+            t < p.k ? K::make(od[t], (unsigned)oi[t]) : K::none();
+      __syncthreads();
+      bitonic_sort<T>(keys, L.sortcap);
+    }
     for (int t = tid; t < p.k; t += THREADS) {
       const Key key = keys[t];
       p.out_i[(size_t)r * p.k + t] = (int)K::tie(key);
@@ -565,46 +751,95 @@ __global__ void __launch_bounds__(THREADS) refine_kernel(const Params<T> p) {
   }
 }
 
-template <class T, bool BUILD, bool FINAL, int LANES>
-int launch(const Params<T>& p, cudaStream_t stream) {
-  const Layout<T> L(p, BUILD, FINAL);
-  if (L.bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  auto kern = refine_kernel<T, BUILD, FINAL, LANES>;
-  if (L.bytes > 48 * 1024) {
+// Whether a stage takes the workspace route: its on-chip layout past the
+// block's shared memory, or its sort past the bitonic sort's capacity.
+template <class T>
+bool needs_workspace(const Params<T>& p, bool build, bool fin) {
+  const Layout<T> L(p, build, fin);
+  return L.bytes > SMEM_MAX || L.sortcap > SORT_MAX;
+}
+
+template <class T, bool BUILD, bool FINAL, int LANES, bool WS>
+int launch(const Params<T>& p, const Workspace& ws, cudaStream_t stream) {
+  size_t bytes;
+  if constexpr (WS) {
+    const WsLayout<T> L(p, BUILD, FINAL);
+    if (ws.base == nullptr || ws.row < L.row || ws.row % 16 ||
+        reinterpret_cast<uintptr_t>(ws.base) % 16)
+      return (int)cudaErrorInvalidValue;
+    bytes = L.bytes;
+  } else {
+    bytes = Layout<T>(p, BUILD, FINAL).bytes;
+  }
+  if (bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  auto kern = refine_kernel<T, BUILD, FINAL, LANES, WS>;
+  if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  kern<<<p.c, THREADS, L.bytes, stream>>>(p);
+  kern<<<p.c, THREADS, bytes, stream>>>(p, ws);
   return tsne::launch_status();
 }
 
+template <class T, bool BUILD, bool FINAL, bool WS>
+int launch_width(const Params<T>& p, const Workspace& ws,
+                 cudaStream_t stream) {
+  return p.f < WIDE_F
+             ? launch<T, BUILD, FINAL, NARROW_LANES, WS>(p, ws, stream)
+             : launch<T, BUILD, FINAL, 32, WS>(p, ws, stream);
+}
+
 template <class T, bool BUILD, bool FINAL>
-int launch_width(const Params<T>& p, cudaStream_t stream) {
-  return p.f < WIDE_F ? launch<T, BUILD, FINAL, NARROW_LANES>(p, stream)
-                      : launch<T, BUILD, FINAL, 32>(p, stream);
+int launch_route(const Params<T>& p, const Workspace& ws,
+                 cudaStream_t stream) {
+  return needs_workspace(p, BUILD, FINAL)
+             ? launch_width<T, BUILD, FINAL, true>(p, ws, stream)
+             : launch_width<T, BUILD, FINAL, false>(p, ws, stream);
 }
 
 template <class T>
 int refine_chunk(const T* base, const T* sq, int n, int f, int row0, int c,
                  const int* cand, int w, const int* graph, int kg, int ke,
                  int keep, const int* old_i, const T* old_d, int k,
-                 int euclid, int n_valid, int* out_i, T* out_d,
-                 void* stream) {
+                 int euclid, int n_valid, int* out_i, T* out_d, void* ws,
+                 size_t ws_row, void* stream) {
   const bool build = graph != nullptr;
   const bool fin = old_i != nullptr;
   if (c < 1 || w < 1 || f < 1 || row0 < 0 || row0 + c > n ||
       n_valid < 1 || n_valid > n ||
       (build && (ke < 1 || ke > kg)) ||
-      (fin ? (k < 1 || 2 * k > SORT_MAX) : (keep < 1 || keep > SORT_MAX)))
+      (fin ? k < 1 : keep < 1))
     return (int)cudaErrorInvalidValue;
   const Params<T> p{base, sq, n, f, row0, c, cand, w, graph, kg, ke, keep,
                     old_i, old_d, k, euclid, n_valid, out_i, out_d};
+  const Workspace wsp{static_cast<unsigned char*>(ws), ws_row};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (build) return fin ? launch_width<T, true, true>(p, s)
-                        : launch_width<T, true, false>(p, s);
-  return fin ? launch_width<T, false, true>(p, s)
-             : launch_width<T, false, false>(p, s);
+  if (build) return fin ? launch_route<T, true, true>(p, wsp, s)
+                        : launch_route<T, true, false>(p, wsp, s);
+  return fin ? launch_route<T, false, true>(p, wsp, s)
+             : launch_route<T, false, false>(p, wsp, s);
+}
+
+// The route of one funnel stage (arguments as tsne_refine_chunk_f32's;
+// itemsize 4 or 8): returns the workspace bytes a row (0: the stage runs
+// on chip) and writes the block's dynamic shared memory.
+template <class T>
+size_t route_bytes(int f, int w, int ke, int keep, int k, int build,
+                   int fin, size_t* smem) {
+  Params<T> p{};
+  p.f = f;
+  p.w = w;
+  p.ke = ke;
+  p.keep = keep;
+  p.k = k;
+  if (!needs_workspace(p, build, fin)) {
+    *smem = Layout<T>(p, build, fin).bytes;
+    return 0;
+  }
+  const WsLayout<T> L(p, build, fin);
+  *smem = L.bytes;
+  return L.row;
 }
 
 }  // namespace
@@ -617,21 +852,24 @@ int refine_chunk(const T* base, const T* sq, int n, int f, int row0, int c,
 // ids are proposed.  Otherwise cand [c, w] is a list, -1 for none.
 // KEEP mode when old_i is null: out_i [c, keep].  FINAL mode otherwise:
 // old_i/old_d [c, k] the rows' lists, out_i/out_d [c, k] the new ones,
-// euclid != 0 for euclidean distances.  Needs c, w >= 1, keep <= 8,192
-// (KEEP) or 2k <= 8,192 (FINAL), and the block's shared memory (a few
-// words a candidate, 2·w·(1 + ke) hash slots, a key of 8 bytes (f32) or
-// 16 (f64) a sorted entry) within 227 KB: ops/knn_cuda.refine_smem_bytes
-// states the same layout.
+// euclid != 0 for euclidean distances.  Needs c, w >= 1 and keep >= 1
+// (KEEP) or k >= 1 (FINAL).  A stage whose block (a few words a
+// candidate, 2·w·(1 + ke) hash slots, a key of 8 bytes (f32) or 16 (f64)
+// a sorted entry) fits 227 KB of shared memory, with at most 8,192 keys
+// to sort, runs on chip; any other takes the workspace route, whose
+// workspace ws holds ws_row bytes (a multiple of 16, at least
+// tsne_refine_route's) for each of the c rows.  ops/knn_cuda.refine_route
+// states both layouts.
 TSNE_API int tsne_refine_chunk_f32(const float* base, const float* sq, int n,
                                    int f, int row0, int c, const int* cand,
                                    int w, const int* graph, int kg, int ke,
                                    int keep, const int* old_i,
                                    const float* old_d, int k, int euclid,
                                    int n_valid, int* out_i, float* out_d,
-                                   void* stream) {
+                                   void* ws, size_t ws_row, void* stream) {
   return refine_chunk<float>(base, sq, n, f, row0, c, cand, w, graph, kg, ke,
                              keep, old_i, old_d, k, euclid, n_valid, out_i,
-                             out_d, stream);
+                             out_d, ws, ws_row, stream);
 }
 
 TSNE_API int tsne_refine_chunk_f64(const double* base, const double* sq,
@@ -640,8 +878,21 @@ TSNE_API int tsne_refine_chunk_f64(const double* base, const double* sq,
                                    int kg, int ke, int keep,
                                    const int* old_i, const double* old_d,
                                    int k, int euclid, int n_valid,
-                                   int* out_i, double* out_d, void* stream) {
+                                   int* out_i, double* out_d, void* ws,
+                                   size_t ws_row, void* stream) {
   return refine_chunk<double>(base, sq, n, f, row0, c, cand, w, graph, kg,
                               ke, keep, old_i, old_d, k, euclid, n_valid,
-                              out_i, out_d, stream);
+                              out_i, out_d, ws, ws_row, stream);
+}
+
+// A stage's route as the kernel takes it (f, w, ke, keep, k as the entry
+// points take them, build / fin for a first stage / the exact stage,
+// itemsize 4 or 8): returns the workspace bytes a row, 0 on chip, and
+// writes the block's dynamic shared memory.
+TSNE_API size_t tsne_refine_route(int f, int w, int ke, int keep, int k,
+                                  int build, int fin, int itemsize,
+                                  size_t* smem) {
+  return itemsize == 8
+             ? route_bytes<double>(f, w, ke, keep, k, build, fin, smem)
+             : route_bytes<float>(f, w, ke, keep, k, build, fin, smem);
 }

@@ -50,12 +50,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _D = ctypes.c_double
+_S = ctypes.c_size_t
 
 #: C entry point -> argtypes (every pointer and the stream as c_void_p)
 SIGNATURES = {
-    "tsne_knn_f32": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "tsne_knn_f32": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "tsne_knn_cross_f32": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _P, _P, _P],
+                           _P, _P, _P, _P],
     "tsne_knn_bf16": [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P],
     "tsne_knn_cross_bf16": [_P, _P, _P, _I, _I, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _P, _P, _P],
@@ -68,11 +69,11 @@ SIGNATURES = {
     "tsne_attraction_forces_f32": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I,
                                    _F, _P, _P],
     "tsne_refine_chunk_f32": [_P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _I,
-                              _I, _P, _P, _I, _I, _I, _P, _P, _P],
+                              _I, _P, _P, _I, _I, _I, _P, _P, _P, _S, _P],
     # the float64 forms: the same operands, float64 values and scalars
-    "tsne_knn_f64": [_P, _P, _I, _I, _I, _I, _P, _P, _P],
+    "tsne_knn_f64": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     "tsne_knn_cross_f64": [_P, _P, _I, _I, _P, _P, _I, _I, _I, _I, _I, _I,
-                           _P, _P, _P],
+                           _P, _P, _P, _P],
     "tsne_repulsion_f64": [_P, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P],
     "tsne_fused_step_f64": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I, _P, _P,
                             _P, _P, _P, _P, _D, _D, _D, _D, _P, _P, _P, _P,
@@ -82,7 +83,7 @@ SIGNATURES = {
     "tsne_attraction_forces_f64": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _I,
                                    _D, _P, _P],
     "tsne_refine_chunk_f64": [_P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _I,
-                              _I, _P, _P, _I, _I, _I, _P, _P, _P],
+                              _I, _P, _P, _I, _I, _I, _P, _P, _P, _S, _P],
 }
 
 
@@ -244,8 +245,10 @@ def _library() -> ctypes.CDLL:
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-    lib.tsne_knn_config.argtypes = [_I, _P, _P, _P]
+    lib.tsne_knn_config.argtypes = [_I, _P, _P, _P, _P]
     lib.tsne_knn_config.restype = ctypes.c_int
+    lib.tsne_refine_route.argtypes = [_I, _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.tsne_refine_route.restype = _S
     lib.tsne_error_string.argtypes = [ctypes.c_int]
     lib.tsne_error_string.restype = ctypes.c_char_p
     return lib

@@ -37,7 +37,7 @@ from dataclasses import dataclass
 import torch
 
 from tsne_flink_tpu_torch.obs import trace as obtrace
-from tsne_flink_tpu_torch.ops.knn_cuda import (CAND_F_MAX, K_MAX, fused_knn,
+from tsne_flink_tpu_torch.ops.knn_cuda import (CAND_F_MAX, fused_knn,
                                                refine_final, refine_keep)
 from tsne_flink_tpu_torch.ops.metrics import matmul_operands, pairwise
 from tsne_flink_tpu_torch.ops.zorder import zorder_permutation
@@ -207,24 +207,12 @@ def check_knn_limits(n: int, d: int, k: int, method: str,
     refuses what a card run would.  ``method``/``refine`` are the resolved
     plan's (:func:`resolve_knn_plan`).
 
-    * k (clamped to N − 1) <= ``K_MAX`` = 1,024: kernel B1 keeps each
-      row's k-list in shared memory (16·k·8 bytes a block in its deep
-      class), and the refine kernel B6 builds, hashes and sorts a row's
-      candidates there (2s(1 + k) of them; up to 5k sorted keys);
-    * a refining ``project`` plan needs d <= ``CAND_F_MAX`` = 12,288: B6
-      keeps the chunk row's vector in shared memory beside them.
-
-    Both hold at float32 and at float64: every stage of every plan these
-    admit fits B6's and B6_f64's shared memory (``ops/knn_cuda
-    .refine_smem_bytes``), so no dtype is refused."""
-    k = _clamp_k(k, n)
-    if k > K_MAX:
-        raise ValueError(
-            f"k = {k} neighbours is past the kNN kernels' limit K_MAX = "
-            f"{K_MAX}: kernel B1 keeps each row's k-list in shared memory "
-            f"(16·k·8 bytes a block) and the refine kernel B6 its candidates "
-            f"and sort keys; use k <= {K_MAX} (perplexity <= "
-            f"{K_MAX // 3} with k = 3·perplexity)")
+    A refining ``project`` plan needs d <= ``CAND_F_MAX`` = 12,288: the
+    refine kernel B6 keeps the chunk row's vector in shared memory.  Every
+    k (clamped to N − 1) runs: B1 merges past k = 1,024 through its
+    pending class, and a B6 stage that does not fit on chip takes its
+    workspace route (``ops/knn_cuda.refine_route``), at float32 and at
+    float64 alike, so neither k nor the dtype is refused."""
     if method == "project" and refine and d > CAND_F_MAX:
         raise ValueError(
             f"d = {d} features is past the refine kernel's limit CAND_F_MAX "
@@ -443,6 +431,29 @@ def _refine_plan(dim: int, k: int, *, sample: int = 8,
                       keep=keep,
                       cascade_dims=cascade_dims if do_cascade else None,
                       keep2=keep2)
+
+
+def refine_stages(dim: int, k: int, *, sample: int = 8) -> list:
+    """The B6 launches of one refine chunk under the auto funnel
+    (:func:`knn_project_refined`'s filter and expand policy) at (dim, k),
+    in order, as :func:`knn_refine` makes them: ``(f, w, ke, keep, build,
+    final)`` — the stage's width, the candidates a row it takes (the 2s
+    gateways of the first stage), the ids proposed a gateway (first
+    stage), the survivors it keeps (a keep stage) and whether it is the
+    first and the exact stage."""
+    fd = pick_knn_filter(dim)
+    plan = _refine_plan(dim, k, sample=sample, filter_dims=fd,
+                        expand_k=(k + 1) // 2 if fd else None)
+    widths = [(plan.filter_dims, plan.keep)] if plan.filter_dims else []
+    widths += [(plan.cascade_dims, plan.keep2)] if plan.cascade_dims else []
+    out, w = [], 2 * plan.s
+    for i, (f, keep) in enumerate(widths + [(dim, 0)]):
+        build, final = i == 0, i == len(widths)
+        if not final:
+            keep = min(keep, w * (1 + plan.ke) if build else w)
+        out.append((f, w, plan.ke if build else 0, keep, build, final))
+        w = keep
+    return out
 
 
 def draw_refine(gen: torch.Generator, plan: RefinePlan, n: int, k: int,

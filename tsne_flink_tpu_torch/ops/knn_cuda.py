@@ -33,6 +33,12 @@ plain float64 norms (:func:`norms_f64`), float64 distances out.  The
 wrappers take float32 or float64 points and cast nothing;
 :func:`sweep_norms` is the norms each form takes.
 
+Every k runs: past :data:`K_REG_MAX` = 1,024 each form takes B1's
+pending class (:func:`b1_class`), which keeps the k-lists in the outputs
+and merges a pending area of :data:`B1_PENDING` keys a row into them by
+a radix select (``csrc/knn.cu``); the float64 form's pending pairs live
+in a scratch the wrapper allocates (:func:`b1_pending_bytes`).
+
 B1's cross sweep (:func:`knn_cross`) is the same kernel over a row block
 and a column block, each with the global id of its first point, masking
 columns past ``n_global`` and each row's own id: the hop of the
@@ -65,7 +71,11 @@ writes its scores in the operands' dtype (``knn_pallas.py:300``): float64
 scores, keys of (64 score bits, tie) and distances out, the ids int32.
 The wrappers take float32 or float64 values, one dtype for ``base``,
 ``sq`` and ``old_d``, and cast nothing; :func:`refine_smem_bytes` states
-each form's shared memory.
+each form's shared memory.  A stage that does not fit it (or sorts more
+than 8,192 keys) takes B6's workspace route, its candidate-sized arrays
+in device memory the wrapper allocates (:func:`refine_route`,
+:func:`refine_ws_layout`).  :data:`ROUTE_LAUNCHES` counts the launches of
+each B1 class and B6 route.
 
 B6 under bf16 operands: on its accelerator the JAX package scores the
 refine funnel through the tile plan's ``kernel``, ``pallas`` on a TPU
@@ -85,6 +95,8 @@ CPU both packages take the elementwise metric, which casts nothing.
 from __future__ import annotations
 
 import math
+import threading
+from typing import NamedTuple
 
 import torch
 
@@ -99,10 +111,16 @@ from tsne_flink_tpu_torch.ops.metrics import (check_matmul_dtype,
 FEATURE_MULTIPLE = 16
 #: the mantissa bits a float32 has beyond TF32's 10
 TF32_DROPPED_BITS = 13
-#: the kernel keeps each row's k-list in shared memory: 64·k·8 bytes a
-#: block up to k = 256, 16·k·8 bytes in its deep class up to this k (the
-#: float64 form keeps them in its outputs, to the same k)
-K_MAX = 1024
+#: the largest k whose list a merge lane of B1 holds in registers (64·k·8
+#: bytes a block of lists in shared memory up to k = 256, 16·k·8 in the
+#: deep class up to this k; the float64 form keeps them in its outputs).
+#: Past it B1 takes its pending class: the k-lists in the outputs, merged
+#: through a pending area of :data:`B1_PENDING` keys a row (``csrc/knn.cu``)
+K_REG_MAX = 1024
+#: pending keys a row of B1's pending class: in shared memory at float32
+#: and bf16 operands, in device memory the wrapper allocates at float64
+#: (12 bytes a pair, :func:`b1_pending_bytes`)
+B1_PENDING = 1024
 #: rows per distance block of the plain sweep
 PLAIN_ROW_CHUNK = 1024
 
@@ -191,16 +209,65 @@ def sweep_norms(base: torch.Tensor) -> torch.Tensor:
     return norms_f64(base) if kernel_float64(base) else norm_pairs(base)
 
 
-def knn_config(k: int) -> tuple[int, int, int, int]:
+def knn_config(k: int) -> tuple[int, int, int, int, int]:
     """B1's configuration for ``k`` as the kernel chooses it: (rows a
     block, ring stages, distance-tile buffers, dynamic shared memory
-    bytes)."""
+    bytes, pending keys a row: 0 in the k-list classes)."""
     import ctypes
     from tsne_flink_tpu_torch.kernels.build import library
-    rows, stages, bufs = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    rows, stages, bufs, pend = (ctypes.c_int(), ctypes.c_int(),
+                                ctypes.c_int(), ctypes.c_int())
     smem = library().tsne_knn_config(k, ctypes.byref(rows),
-                                     ctypes.byref(stages), ctypes.byref(bufs))
-    return rows.value, stages.value, bufs.value, smem
+                                     ctypes.byref(stages), ctypes.byref(bufs),
+                                     ctypes.byref(pend))
+    return rows.value, stages.value, bufs.value, smem, pend.value
+
+
+def b1_class(k: int) -> str:
+    """B1's class for ``k`` (at every form): ``wide`` (k <= 256, 64 rows a
+    block), ``deep`` (k <= :data:`K_REG_MAX`; the float64 form keeps the
+    wide shape) or ``pending`` (any larger k)."""
+    if k > K_REG_MAX:
+        return "pending"
+    return "deep" if k > 256 else "wide"
+
+
+def b1_pending_bytes(nr: int, k: int, f64: bool) -> int:
+    """Device memory B1's wrapper allocates for ``nr`` rows at ``k``: the
+    float64 form's pending pairs past :data:`K_REG_MAX` (12 bytes a
+    slot), nothing otherwise."""
+    return 12 * nr * B1_PENDING if f64 and k > K_REG_MAX else 0
+
+
+#: launches of each B1 class and B6 route ("B1 pending", "B6 workspace",
+#: ...), counted beside ``KERNELS``'s counts where the wrappers launch
+ROUTE_LAUNCHES: dict = {}
+_ROUTE_LOCK = threading.Lock()
+
+
+def _count_route(name: str) -> None:
+    with _ROUTE_LOCK:
+        ROUTE_LAUNCHES[name] = ROUTE_LAUNCHES.get(name, 0) + 1
+
+
+def reset_route_launches() -> None:
+    with _ROUTE_LOCK:
+        ROUTE_LAUNCHES.clear()
+
+
+def _b1_scratch(nr: int, k: int, f64: bool, device):
+    """B1's pending scratch for one launch (float64 past
+    :data:`K_REG_MAX`; allocated here, written by the kernel), or None.
+    Freed after the launch: the allocator reuses it only for work queued
+    after the kernel on the same stream."""
+    nbytes = b1_pending_bytes(nr, k, f64)
+    if not nbytes:
+        return None
+    return torch.empty(nbytes // 8, dtype=torch.int64, device=device)
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
 
 
 def _check_points(t: torch.Tensor, matmul_dtype) -> None:
@@ -220,9 +287,9 @@ def _check_cuda(base: torch.Tensor, k: int, matmul_dtype=None) -> None:
     if base.shape[1] % FEATURE_MULTIPLE or base.data_ptr() % 16:
         raise ValueError("B1 kernel needs F % 16 == 0 and 16-byte rows")
     n = base.shape[0]
-    if not 1 <= k <= min(K_MAX, n - 1):
-        raise ValueError(f"B1 kernel needs 1 <= k <= min({K_MAX}, N - 1); "
-                         f"got k={k}, N={n}")
+    if not 1 <= k <= n - 1:
+        raise ValueError(f"B1 kernel needs 1 <= k <= N - 1; got k={k}, "
+                         f"N={n}")
 
 
 def _operand_scratch(t: torch.Tensor, matmul_dtype) -> torch.Tensor:
@@ -248,16 +315,19 @@ def knn_sweep_cuda(base: torch.Tensor, k: int, cosine: bool,
     dist = torch.empty((n, k), device=base.device, dtype=base.dtype)
     idx = torch.empty((n, k), device=base.device, dtype=torch.int32)
     if kernel_float64(base):
+        pend = _b1_scratch(n, k, True, base.device)
         KERNELS["B1_f64"](base.data_ptr(), norms.data_ptr(), n, f, k,
-                          int(cosine), dist.data_ptr(), idx.data_ptr())
+                          int(cosine), dist.data_ptr(), idx.data_ptr(),
+                          _ptr(pend))
     elif matmul_dtype is None:
         KERNELS["B1"](base.data_ptr(), norms.data_ptr(), n, f, k,
-                      int(cosine), dist.data_ptr(), idx.data_ptr())
+                      int(cosine), dist.data_ptr(), idx.data_ptr(), None)
     else:
         xb = _operand_scratch(base, matmul_dtype)
         KERNELS["B1_bf16"](base.data_ptr(), norms.data_ptr(), xb.data_ptr(),
                            n, f, k, int(cosine), dist.data_ptr(),
                            idx.data_ptr())
+    _count_route(f"B1 {b1_class(k)}")
     return dist, idx
 
 
@@ -359,9 +429,9 @@ def knn_cross_cuda(rows: torch.Tensor, cols: torch.Tensor, k: int,
             raise ValueError("B1 kernel takes 16-byte aligned CUDA rows")
     nr, f = rows.shape
     nc = cols.shape[0]
-    if cols.shape[1] != f or nr < 1 or nc < 1 or not 1 <= k <= K_MAX:
+    if cols.shape[1] != f or nr < 1 or nc < 1 or k < 1:
         raise ValueError(f"B1 cross sweep needs rows [nr, F], cols [nc, F] "
-                         f"and 1 <= k <= {K_MAX}; got {tuple(rows.shape)}, "
+                         f"and k >= 1; got {tuple(rows.shape)}, "
                          f"{tuple(cols.shape)}, k={k}")
     if not (0 <= row_off and 0 <= col_off and row_off + nr < 2 ** 31
             and col_off + nc < 2 ** 31):
@@ -381,17 +451,19 @@ def knn_cross_cuda(rows: torch.Tensor, cols: torch.Tensor, k: int,
     dist = torch.empty((nr, k), device=rows.device, dtype=rows.dtype)
     idx = torch.empty((nr, k), device=rows.device, dtype=torch.int32)
     if f64:
+        pend = _b1_scratch(nr, k, True, rows.device)
         KERNELS["B1_f64"].entry("tsne_knn_cross_f64", rows.data_ptr(),
                                 norms_r.data_ptr(), nr, int(row_off),
                                 cols.data_ptr(), norms_c.data_ptr(), nc,
                                 int(col_off), int(n_global), f, k,
-                                int(cosine), dist.data_ptr(), idx.data_ptr())
+                                int(cosine), dist.data_ptr(), idx.data_ptr(),
+                                _ptr(pend))
     elif matmul_dtype is None:
         KERNELS["B1"].entry("tsne_knn_cross_f32", rows.data_ptr(),
                             norms_r.data_ptr(), nr, int(row_off),
                             cols.data_ptr(), norms_c.data_ptr(), nc,
                             int(col_off), int(n_global), f, k, int(cosine),
-                            dist.data_ptr(), idx.data_ptr())
+                            dist.data_ptr(), idx.data_ptr(), None)
     else:
         xbr = _operand_scratch(rows, matmul_dtype)
         xbc = _operand_scratch(cols, matmul_dtype)
@@ -401,6 +473,7 @@ def knn_cross_cuda(rows: torch.Tensor, cols: torch.Tensor, k: int,
             norms_c.data_ptr(), xbc.data_ptr(), nc, int(col_off),
             int(n_global), f, k, int(cosine), dist.data_ptr(),
             idx.data_ptr())
+    _count_route(f"B1 {b1_class(k)}")
     return dist, idx
 
 
@@ -445,27 +518,30 @@ def fused_knn(x: torch.Tensor, k: int, metric: str = "sqeuclidean",
 
 #: the kernel keeps a chunk row's vector in shared memory (F values)
 CAND_F_MAX = 12_288
-#: keys the kernel sorts a row: a keep stage's survivors, or the exact
-#: stage's old + new lists (2k); a keep stage's 5k at k = K_MAX rounds up
-#: to it
+#: keys the on-chip route's bitonic sort takes a row (a keep stage's
+#: survivors, or the exact stage's old + new lists, 2k, rounded up to a
+#: power of two); a stage past it takes the workspace route
 REFINE_SORT_MAX = 8192
 #: the dynamic shared memory a block may opt in to on sm_90 (SMEM_MAX in
 #: csrc/knn_cand.cu)
 REFINE_SMEM_MAX = 232_448
 
 
+def _a16(b: int) -> int:
+    return (b + 15) // 16 * 16
+
+
 def refine_smem_bytes(f: int, w: int, ke: int, keep: int, k: int,
                       build: bool, final: bool, itemsize: int = 4) -> int:
-    """The dynamic shared memory of one B6 block at values of ``itemsize``
-    bytes (4: float32, 8: B6_f64), as ``Layout`` in ``csrc/knn_cand.cu``
-    lays it out: the row's vector (F values), the candidate ids, a
-    histogram, the gateways (a first stage), the old list (the exact
-    stage; the float64 form keeps it in the ids' array, dead by then),
-    and one region that holds the hash set (2 slots a candidate) and then
-    the sort keys (a power of two, 8 bytes each, or 16 at float64) with
-    the scores."""
-    def a16(b):
-        return (b + 15) // 16 * 16
+    """The dynamic shared memory of one B6 block on the on-chip route at
+    values of ``itemsize`` bytes (4: float32, 8: B6_f64), as ``Layout``
+    in ``csrc/knn_cand.cu`` lays it out: the row's vector (F values), the
+    candidate ids, a histogram, the gateways (a first stage), the old
+    list (the exact stage; the float64 form keeps it in the ids' array,
+    dead by then), and one region that holds the hash set (2 slots a
+    candidate) and then the sort keys (a power of two, 8 bytes each, or
+    16 at float64) with the scores."""
+    a16 = _a16
     zcap = w * (1 + ke) if build else w
     sortcap = 1 << ((2 * k if final else keep) - 1).bit_length()
     old = a16(4 * k) + a16(itemsize * k) if final else 0
@@ -477,6 +553,69 @@ def refine_smem_bytes(f: int, w: int, ke: int, keep: int, k: int,
     table = 4 * 2 * zcap if build else 0
     key = 8 if itemsize == 4 else 16
     return at + a16(max(table, key * sortcap + itemsize * zcap))
+
+
+def refine_ws_layout(f: int, w: int, ke: int, keep: int, k: int,
+                     build: bool, final: bool,
+                     itemsize: int = 4) -> tuple[int, int]:
+    """(shared memory, workspace bytes a row) of one B6 block on the
+    workspace route, as ``WsLayout`` in ``csrc/knn_cand.cu`` lays it out.
+    Shared memory: the row's vector, the histogram, the counters, the
+    gateways (a first stage) and the radix sort's per-warp digit counts
+    (8 x 256).  The row's workspace: the candidate ids, the old list (the
+    exact stage) and one region holding the hash set (2 slots a
+    candidate), then the sort keys (exactly 2k, or ``keep``), the sort's
+    second buffer and the scores."""
+    zcap = w * (1 + ke) if build else w
+    nsort = 2 * k if final else keep
+    smem = (_a16(itemsize * f) + _a16(4 * 256) + _a16(4 * 8)
+            + (_a16(4 * w) if build else 0) + _a16(4 * 8 * 256))
+    row = _a16(4 * zcap)
+    if final:
+        row += _a16(4 * k) + _a16(itemsize * k)
+    sort = _a16((8 if itemsize == 4 else 16) * nsort)
+    table = 4 * 2 * zcap if build else 0
+    return smem, row + _a16(max(table, 2 * sort + itemsize * zcap))
+
+
+class RefineRoute(NamedTuple):
+    """Where one B6 stage runs: ``workspace`` bytes a chunk row of device
+    memory (0: on chip) and the block's dynamic shared memory."""
+
+    workspace: int
+    smem: int
+
+
+def refine_route(f: int, w: int, ke: int, keep: int, k: int, build: bool,
+                 final: bool, itemsize: int = 4) -> RefineRoute:
+    """The route of one B6 stage, as ``tsne_refine_route`` in
+    ``csrc/knn_cand.cu`` decides it: on chip when its block fits
+    :data:`REFINE_SMEM_MAX` (:func:`refine_smem_bytes`) and sorts at most
+    :data:`REFINE_SORT_MAX` keys, else through a workspace of
+    :func:`refine_ws_layout`'s bytes a row (any k: past ~k = 1,100 a
+    first exact stage's hash set, or a keep stage's 5k sort past 8,192)."""
+    sort = (2 * k if final else keep)
+    sortcap = 1 << max(sort - 1, 0).bit_length()
+    smem = refine_smem_bytes(f, w, ke, keep, k, build, final, itemsize)
+    if smem <= REFINE_SMEM_MAX and sortcap <= REFINE_SORT_MAX:
+        return RefineRoute(0, smem)
+    smem, row = refine_ws_layout(f, w, ke, keep, k, build, final, itemsize)
+    return RefineRoute(row, smem)
+
+
+def refine_route_kernel(f: int, w: int, ke: int, keep: int, k: int,
+                        build: bool, final: bool,
+                        itemsize: int = 4) -> RefineRoute:
+    """:func:`refine_route` as the kernel library itself decides it
+    (``tsne_refine_route``; builds the library): the card's checks hold
+    the mirror to it."""
+    import ctypes
+    from tsne_flink_tpu_torch.kernels.build import library
+    smem = ctypes.c_size_t()
+    ws = library().tsne_refine_route(f, w, ke, keep, k, int(build),
+                                     int(final), itemsize,
+                                     ctypes.byref(smem))
+    return RefineRoute(int(ws), int(smem.value))
 
 
 def _compact_gather(base: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
@@ -658,36 +797,26 @@ def _check_refine(base, sq, row0, cand, graph, ke, old, keep,
         raise ValueError(f"B6 kernel: graph {tuple(graph.shape)} must be "
                          f"[{n}, >= ke = {ke}]")
     if old is not None and (old[0].shape != old[1].shape
-                            or old[0].shape[0] != c
-                            or 2 * old[0].shape[1] > REFINE_SORT_MAX):
+                            or old[0].shape[0] != c or old[0].shape[1] < 1):
         raise ValueError(f"B6 kernel: old lists {tuple(old[0].shape)} must "
-                         f"be [{c}, k], k <= {REFINE_SORT_MAX // 2}")
+                         f"be [{c}, k], k >= 1")
     if not 1 <= f <= CAND_F_MAX:
         raise ValueError(f"B6 kernel takes 1 <= F <= {CAND_F_MAX}; got {f}")
     if not 1 <= n_valid <= n:
         raise ValueError(f"B6 kernel: n_valid {n_valid} must be in 1..{n}")
-    w = cand.shape[1]
-    k = 0 if old is None else old[0].shape[1]
-    need = refine_smem_bytes(f, w, ke if graph is not None else 0, keep, k,
-                             graph is not None, old is not None,
-                             base.element_size())
-    if need > REFINE_SMEM_MAX:
-        raise ValueError(f"B6 kernel: a row's candidates, hash set and sort "
-                         f"keys need {need} bytes of shared memory, more "
-                         f"than the {REFINE_SMEM_MAX} a block may have")
 
 
 def _refine_launch(base, sq, row0, cand, graph, ke, *, keep=0, old=None,
                    euclid=False, n_valid=None):
     """Launch B6 (B6_f64 on float64 values) on one stage of rows row0 ..
-    row0 + c − 1; allocates only its outputs: ids [c, keep] (keep mode) or
-    the new lists [c, k] in base's dtype."""
+    row0 + c − 1; allocates its outputs, ids [c, keep] (keep mode) or the
+    new lists [c, k] in base's dtype, and, for a stage on the workspace
+    route (:func:`refine_route`), the chunk's workspace."""
     (n, f), (c, w) = base.shape, cand.shape
     if old is None:
         keep = min(keep, w * (1 + ke) if graph is not None else w)
-        if not 1 <= keep <= REFINE_SORT_MAX:
-            raise ValueError(f"B6 kernel keeps 1..{REFINE_SORT_MAX} a row; "
-                             f"got {keep}")
+        if keep < 1:
+            raise ValueError(f"B6 kernel keeps at least 1 a row; got {keep}")
     n_valid = n if n_valid is None else int(n_valid)
     _check_refine(base, sq, row0, cand, graph, ke, old, keep, n_valid)
     dev = base.device
@@ -698,14 +827,25 @@ def _refine_launch(base, sq, row0, cand, graph, ke, *, keep=0, old=None,
         k = old[0].shape[1]
         out_i = torch.empty((c, k), dtype=torch.int32, device=dev)
         out_d = torch.empty((c, k), dtype=base.dtype, device=dev)
-    kernel = KERNELS["B6_f64"] if kernel_float64(base) else KERNELS["B6"]
+    route = refine_route(f, w, ke if graph is not None else 0, keep, k,
+                         graph is not None, old is not None,
+                         base.element_size())
+    # the workspace, freed after the launch (reused only by work queued
+    # after it on the stream)
+    ws = (torch.empty((c, route.workspace), dtype=torch.uint8, device=dev)
+          if route.workspace else None)
+    f64 = kernel_float64(base)
+    kernel = KERNELS["B6_f64"] if f64 else KERNELS["B6"]
     kernel(base.data_ptr(), sq.data_ptr(), n, f, row0, c, cand.data_ptr(), w,
            None if graph is None else graph.data_ptr(),
            0 if graph is None else graph.shape[1], ke, keep,
            None if old is None else old[0].data_ptr(),
            None if old is None else old[1].data_ptr(), k, int(euclid),
            n_valid, out_i.data_ptr(),
-           None if out_d is None else out_d.data_ptr())
+           None if out_d is None else out_d.data_ptr(), _ptr(ws),
+           route.workspace)
+    _count_route(f"B6{'_f64' if f64 else ''} "
+                 f"{'workspace' if route.workspace else 'chip'}")
     return out_i if old is None else (out_i, out_d)
 
 

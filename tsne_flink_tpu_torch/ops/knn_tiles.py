@@ -86,12 +86,27 @@ def _pow2_at_most(v: float, lo: int, hi: int) -> int:
     return int(min(hi, 2 ** math.floor(math.log2(max(v, 1)))))
 
 
+def refine_workspace_bytes(d: int, k: int, *, sample: int = 8,
+                           itemsize: int = 4) -> int:
+    """Device memory a chunk row of ``knn_refine`` takes on the card
+    beyond the JAX model's count: the largest workspace of the auto
+    funnel's B6 stages (``ops/knn_cuda.refine_route``; 0 when every
+    stage runs on chip, as at every k <= 1,024)."""
+    from tsne_flink_tpu_torch.ops.knn import refine_stages
+    from tsne_flink_tpu_torch.ops.knn_cuda import refine_route
+    return max(refine_route(f, w, ke, keep, k, build, final,
+                            itemsize).workspace
+               for f, w, ke, keep, build, final in refine_stages(
+                   d, k, sample=sample))
+
+
 def refine_chunk_bytes(c: int, d: int, k: int, *, sample: int = 8,
-                       itemsize: int = 4) -> float:
+                       itemsize: int = 4, workspace: bool = False) -> float:
     """Working-set bytes of one ``knn_refine`` row chunk under the auto
     funnel policy, as the JAX model counts it: the candidate id tensors
     ``[c, 2s(1+ke)]``, the staged-projection gathers and the full-width
-    exact gather of the cascade survivors."""
+    exact gather of the cascade survivors; with ``workspace`` (the card)
+    also the chunk's B6 workspace (:func:`refine_workspace_bytes`)."""
     from tsne_flink_tpu_torch.ops.knn import (CASCADE_KEEP, FILTER_KEEP,
                                               FILTER_KEEP_WIDE,
                                               pick_knn_cascade,
@@ -112,6 +127,9 @@ def refine_chunk_bytes(c: int, d: int, k: int, *, sample: int = 8,
     else:
         total += c * cand * d * itemsize       # single-stage exact gather
     total += c * 2 * s * k * itemsize          # gateway out-list gather
+    if workspace:
+        total += c * refine_workspace_bytes(d, k, sample=sample,
+                                            itemsize=itemsize)
     return total
 
 
@@ -145,7 +163,8 @@ def pick_knn_tiles(n: int, d: int, k: int, backend: str = "cuda",
     """Analytic tile plan for the kNN stage on ``backend`` (``cuda`` or
     ``cpu``; any other name gets the fallback budget), as the JAX
     function: ``block`` pinned at :data:`MIN_BLOCK`; ``refine_chunk`` the
-    CPU's measured 64, grown toward the tile budget elsewhere; the exact
+    CPU's measured 64, grown toward the tile budget elsewhere (on the card
+    counting B6's workspace, so a chunk at large k shrinks); the exact
     tiles' ``row_chunk`` sized by the budget (the JAX plan's column block
     has no user here: B1 streams its own column tiles).  A larger budget
     never shrinks a tile."""
@@ -154,8 +173,10 @@ def pick_knn_tiles(n: int, d: int, k: int, backend: str = "cuda",
     refine_chunk = MIN_REFINE_CHUNK
     if backend != "cpu":
         cap = MAX_REFINE_CHUNK_CUDA if backend == "cuda" else MAX_REFINE_CHUNK
+        ws = backend == "cuda"  # B6's workspace route, where a stage takes it
         while (refine_chunk * 2 <= cap
-               and refine_chunk_bytes(refine_chunk * 2, d, k) <= tile_budget):
+               and refine_chunk_bytes(refine_chunk * 2, d, k,
+                                      workspace=ws) <= tile_budget):
             refine_chunk *= 2
     row_chunk = _pow2_at_most(tile_budget / (max(d, 1) * 4 * 2), 128, 1024)
     return KnnTilePlan(row_chunk=row_chunk, block=block,
