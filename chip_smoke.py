@@ -49,8 +49,8 @@ Phases, in order; any failure exits non-zero before the result line:
    blobs (cascade + exact) and the cells, and at k = 1,024 on the cells,
    each against its plain version with the bars above; ``tsne_embed`` at n_components 1, 4 and 8, and
    at k = 1,024 on the bruteforce and project paths; and the limit left
-   (m past 8) refused before the kNN stage starts (k past 1,024 runs:
-   8d);
+   (more than 12,288 features on a refining ``project`` plan) refused
+   before the kNN stage starts (k past 1,024 runs: 8d; m past 8: 8e);
 4b. bf16   — mixed precision (``--dtype bfloat16``): B1's bf16 form
    (``KERNELS["B1_bf16"]``) against its plain version run on float64
    copies (distances within rtol 1e-5 of the norm trick's terms, ids
@@ -186,6 +186,36 @@ Phases, in order; any failure exits non-zero before the result line:
    chunked matmul + topk(1,500)) beside its plain version's and its
    3xTF32 bound.  The kernels line's B1, B1_bf16, B1_f64, B6 and B6_f64
    records carry these as ``bigk``;
+8e. wide  — embeddings wider than 8: B2w-B5w, the wide forms of B2-B5,
+   and their float64 forms at m = 9, 12, 16, 31, 32, 50, 64, 100 and 256
+   on 4,000 rows of a spread y against their plain versions (rtol 2e-5,
+   B3w's y and update 1e-4 with its gains equal; 1e-12 at float64), B2w
+   on a masked row shard and a shard at the canonical split count equal
+   to the full launch's rows bit for bit, B5w/B4w on an edge problem,
+   B3w the unfused step's bits, two launches bit for bit; then at
+   60,000 x 784 and n_components = 16 (300 iterations, k = 90, exact):
+   ``tsne_embed`` (B1, B2w 300, B3w or B5w 300, B4w 30), ``TSNE(dtype=
+   "float64")`` and its 256-row bucket (B5w_f64 and B2w_f64 75 each),
+   the project estimator and config 2's command line at ``--nComponents
+   16 --auditPlan`` (its bits and launches; the memory model's re-check
+   at the graph's width bound within [1, 2]x of the run's measured
+   allocated peak), a 256-row bucket of that model (1 x 256 = 4 x 64 bit
+   for bit), the test mesh of 2 equal to the mesh of 1 bit for bit; each
+   fit finite with falling KL and label agreement >= 0.9; then each
+   form at the m = 16 runs' final y (float32 and float64) on [full]'s
+   CSR, the shapes the runs gave it: B2w and every float64 form against
+   its plain version at the bars above (B3w_f64's gains equal and the
+   unfused step's bits, B4w_f64's total KL); B5w, B4w and B3w (gains
+   equal, the unfused step's bits) at float32 each within twice the
+   plain float32 version's own error against the plain version in
+   float64, since their forward part's norm trick cancels there as the
+   plain version's does (the elements beyond rtol 2e-5 / 1e-4 against
+   the float32 plain version printed); two launches bit for bit; and
+   timed beside its plain version and its bound (the m = 64 times are
+   ``scripts/wide_phase_cuda.py``'s).  The kernels line carries B2w-B5w
+   and their float64 forms after the float64 ones (their launches from
+   these runs, the error at the runs' y as ``max_abs_err_at_run``, B4w's
+   and B5w's against float64 as ``against_f64_at_run``);
 9. large — ``tsne_embed`` at the shape of the 10x Genomics 1.3M mouse
    brain cells (1,306,127 x 50 principal components; a synthetic
    stand-in, see ``make_cells``): perplexity 50, k = 150, the hybrid kNN
@@ -316,8 +346,10 @@ Phases, in order; any failure exits non-zero before the result line:
    killed and retried, each equal to its solo run and within its
    predicted footprint (``scripts/runtime_phase_cuda.py`` also times the
    three one at a time); config 2's
-   command line with and without ``--trace --metricsOut --profile``
-   (the same bits, launches and host reads; the JAX span names).
+   command line with and without ``--trace --metricsOut --profile`` on
+   20,000 of the blobs (cut for time; the same bits, launches and host
+   reads; the JAX span names), and ``--profile``'s cost in a fresh CLI
+   process (the same output bytes).
 
 Inside phase 8c, after its gate 1, ``[analysis]`` (queue A16): config
 2's command line with ``--auditPlan`` at the kNN graph's width bound
@@ -348,7 +380,11 @@ forms' records (B1_f64-B6_f64) sit after B6's: their launches from the
 float64 ``[full]`` fit (B5_f64's from the float64 rows run, B6_f64's
 from config 5's shape at float64), their times at 60k (B1_f64), [full]'s
 shapes (B2_f64, B3_f64), [large]'s pass (B4_f64, B5_f64) and the cells'
-exact refine stage (B6_f64).  The script imports nothing of JAX.
+exact refine stage (B6_f64).  The wide forms' records (B2w-B5w, then
+B2w_f64-B5w_f64) follow: their launches from 8e's m = 16 runs (B5w's and
+B5w_f64's from a 256-row bucket of the m = 16 models), their times at
+60k, m = 16 and, under ``m64``, m = 64.  The script imports nothing of
+JAX.
 """
 
 from __future__ import annotations
@@ -395,6 +431,9 @@ KL_GUARDRAIL_TOL = 0.05
 #: the float64 forms' launch counts in a run that launches none of them
 NO_F64 = {kid: 0 for kid in ("B1_f64", "B2_f64", "B3_f64", "B4_f64",
                              "B5_f64", "B6_f64")}
+#: the wide forms' (m > 8) launch counts in a run at m <= 8
+NO_WIDE = {kid: 0 for kid in ("B2w", "B3w", "B4w", "B5w", "B2w_f64",
+                              "B3w_f64", "B4w_f64", "B5w_f64")}
 
 
 #: kernel id -> (name, source, the TPU kernel it replaces)
@@ -429,6 +468,11 @@ KERNEL_META = {
     "B6_f64": ("refine_chunk_f64", "tsne_flink_tpu_torch/csrc/knn_cand.cu",
                "tsne_flink_tpu/ops/knn_pallas.py:264"),
 }
+# the wide forms (m > 8) of B2-B5, each a kernel of its own
+for _kid in ("B2", "B3", "B4", "B5"):
+    for _sfx in ("", "_f64"):
+        _name, _src, _repl = KERNEL_META[_kid]
+        KERNEL_META[f"{_kid}w{_sfx}"] = (f"{_name}_wide{_sfx}", _src, _repl)
 
 
 def fitsne_learning_rate(n: int) -> float:
@@ -567,15 +611,20 @@ def embedding_like(n, seed):
     return torch.from_numpy(y.astype(np.float32)).cuda()
 
 
-def rel_close(a, b, rtol, what):
-    """|a - b| <= rtol·|b| + rtol·max|b|, elementwise; returns max |a - b|."""
+def rel_excess(a, b, rtol):
+    """(the elements with |a - b| > rtol·|b| + rtol·max|b|, max |a - b|)."""
     import torch
     err = torch.abs(a - b)
     tol = rtol * torch.abs(b) + rtol * torch.max(torch.abs(b))
-    bad = int(torch.sum(err > tol))
+    return int(torch.sum(err > tol)), float(err.max())
+
+
+def rel_close(a, b, rtol, what):
+    """|a - b| <= rtol·|b| + rtol·max|b|, elementwise; returns max |a - b|."""
+    bad, err = rel_excess(a, b, rtol)
     check(bad == 0, f"{what}: {bad} elements beyond rtol {rtol} "
-          f"(max abs err {float(err.max()):.3e})")
-    return float(err.max())
+          f"(max abs err {err:.3e})")
+    return err
 
 
 def flushed_ms(fn, reps=10):
@@ -2167,7 +2216,7 @@ def want_launches(b3, b1=1, b2=None, b6=0, b1_bf16=0):
     B5 every iteration of any other (the unfused step's attraction
     pass), B4 every 10th (the KL over both parts); B1's bf16 form only in
     a bf16-operand run."""
-    return {"B1": b1, "B1_bf16": b1_bf16, **NO_F64,
+    return {"B1": b1, "B1_bf16": b1_bf16, **NO_F64, **NO_WIDE,
             "B2": ITERATIONS if b2 is None else b2, "B3": b3,
             "B4": ITERATIONS // 10, "B5": ITERATIONS - b3, "B6": b6}
 
@@ -2943,8 +2992,9 @@ def phase_widths(x_np, xc_np):
     of the blobs, B6 at K_B6_DEEP on refine chunks captured from cuts of
     the blobs and the cells (and at K_DEEP on the cells); then
     ``tsne_embed`` at n_components 1, 4, 8 and at k = K_DEEP on the
-    bruteforce and project paths, and the limit left (m past 8) refused
-    before the kNN stage.  Returns each kernel's max error."""
+    bruteforce and project paths, and the limit left (more than
+    CAND_F_MAX features on a refining project plan) refused before the
+    kNN stage.  Returns each kernel's max error."""
     import torch
     from tsne_flink_tpu_torch import TsneConfig, tsne_embed
     from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
@@ -3041,10 +3091,13 @@ def phase_widths(x_np, xc_np):
               f"final KL {float(losses[-1]):.5f}; launches "
               f"{json.dumps(counts)}")
     # the limit left raises before the kNN stage: no kernel launches (k
-    # past 1,024 runs: [bigk])
+    # past 1,024 runs: [bigk]; n_components past 8: [wide])
+    from tsne_flink_tpu_torch.ops.knn_cuda import CAND_F_MAX
+    wide_x = np.zeros((N_WIDTHS, CAND_F_MAX + 1), np.float32)
     for what, call in (
-            ("n_components = 9", lambda: tsne_embed(
-                x_np[:N_WIDTHS], dataclasses.replace(cfg, n_components=9))),):
+            (f"{CAND_F_MAX + 1} features on a refining project plan",
+             lambda: tsne_embed(wide_x, cfg, knn_method="project",
+                                knn_refine=1)),):
         reset_launches()
         try:
             call()
@@ -3228,7 +3281,9 @@ def run_cli(tag, argv, mesh_devices=None):
         if line.startswith("# stages s: "):
             stages = {kv.split("=")[0]: float(kv.split("=")[1])
                       for kv in line[len("# stages s: "):].split()}
-    out = native.load_coo(argv[argv.index("--output") + 1])
+    m = (int(argv[argv.index("--nComponents") + 1])
+         if "--nComponents" in argv else 2)
+    out = native.load_coo(argv[argv.index("--output") + 1], cols=1 + m)
     check(np.array_equal(out[:, 0], np.arange(out.shape[0])),
           f"[cli] {tag}: the embedding's ids are not 0..N-1")
     y = out[:, 1:].astype(np.float32)
@@ -4124,6 +4179,519 @@ def phase_bigk(x_np, labels, xc_np):
                          for (t, kind, f), v in shapes.items()}}
     print(f"[bigk] phase {time.perf_counter() - t0:.1f} s")
     return rec
+
+
+#: the wide phase: the widths B2w-B5w are held at (both dtypes), and the
+#: width of its 60k runs, where they are held and timed again
+WIDE_MS = (9, 12, 16, 31, 32, 50, 64, 100, 256)
+M_WIDE = 16
+#: the wide forms' ids, float32 then float64
+WIDE_FORMS = tuple(NO_WIDE)
+
+
+def wide_plain_chunk(m):
+    """The plain B2's row chunk at width m: its m [chunk, N] difference
+    planes stay under ~4 GiB at 60,000 columns."""
+    return max(64, 16384 // m)
+
+
+def wide_b2_gate(tag, y, rtol):
+    """B2w (or B2w_f64) on y against its plain version (rep and the row
+    Z within ``rtol`` with an absolute part of rtol·max), two launches
+    bit for bit, a masked row shard against plain, and a shard's rows
+    at the canonical split count the full launch's rows bit for bit.
+    Returns the max error."""
+    import torch
+    from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
+    from tsne_flink_tpu_torch.ops.repulsion_exact import exact_repulsion
+    n, m = y.shape
+    ch = wide_plain_chunk(m)
+    rk, zk = cuda_exact_repulsion(y, row_z=True)
+    rp, zp = exact_repulsion(y, row_z=True, row_chunk=ch)
+    err = max(rel_close(rk, rp, rtol, f"[wide] {tag} rep"),
+              rel_close(zk, zp, rtol, f"[wide] {tag} row Z"))
+    again = cuda_exact_repulsion(y, row_z=True)
+    check(torch.equal(again[0], rk) and torch.equal(again[1], zk),
+          f"[wide] {tag}: two launches differ")
+    valid = torch.arange(n, device="cuda") % 13 != 5
+    a, b = n // 4, n // 2 + 3
+    sk = cuda_exact_repulsion(y[a:b], y, row_offset=a, col_valid=valid,
+                              row_z=True)
+    sp = exact_repulsion(y[a:b], y, row_offset=a, col_valid=valid,
+                         row_z=True, row_chunk=ch)
+    err = max(err, rel_close(sk[0], sp[0], rtol, f"[wide] {tag} shard rep"),
+              rel_close(sk[1], sp[1], rtol, f"[wide] {tag} shard Z"))
+    canon = n // 8
+    full = cuda_exact_repulsion(y, row_z=True, split_rows=canon)
+    shard = cuda_exact_repulsion(y[a:b], y, row_offset=a, row_z=True,
+                                 split_rows=canon)
+    check(torch.equal(shard[0], full[0][a:b])
+          and torch.equal(shard[1], full[1][a:b]),
+          f"[wide] {tag}: a shard's rows differ from the full launch's")
+    return err
+
+
+def wide_b3_gate(tag, y, jidx, jval, rag, rtol, vs_f64=False):
+    """B3w (or B3w_f64): one launch over a head block and a ragged tail,
+    with a padded-row mask, on tie-free inputs (every grad at ±(|att| + a
+    margin)): the gains exactly its plain version's, y, update and
+    ‖grad‖² within ``rtol`` — with ``vs_f64`` (a float32 run's final y,
+    where the forward part's norm trick cancels) instead each within
+    twice the plain float32 version's own error against the plain
+    version in float64 —, the unfused step (B5w over head + tail, att −
+    rep/Z, the vdM update in PyTorch) bit for bit, two launches bit for
+    bit.  Returns the max error against the plain version (and, with
+    ``vs_f64``, also {output: (kernel's, plain's) max error against
+    float64})."""
+    import torch
+    from tsne_flink_tpu_torch.ops import attraction_cuda as att
+    n, m = y.shape
+    rng = np.random.default_rng(m)
+    dt = y.dtype
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).to("cuda", dt)
+    forces = att.attraction_forces(y, y, jidx, jval, 4.0, ragged=rag)
+    sign = t(rng.choice([-1.0, 1.0], (n, m)))
+    margin = torch.abs(forces) + 1e-3 * torch.max(torch.abs(forces))
+    rep = (forces - sign * margin).contiguous()
+    upd = t(1e-2 * rng.standard_normal((n, m)))
+    gains = t(1.0 + rng.random((n, m)))
+    valid = torch.arange(n, device="cuda") % 9 != 4
+    z = torch.ones((), dtype=dt, device="cuda")
+    args = (y, y, jidx, jval, 4.0, rep, z, valid, upd, gains, 0.8)
+    kw = dict(eta=200.0, min_gain=0.01, ragged=rag)
+    ok = att.fused_step_update(*args, **kw)
+    op = att.fused_step_plain(*args, **kw)
+    check(torch.equal(ok[2], op[2]), f"[wide] {tag}: gains differ")
+    names = ("y", "update", "gains", "|grad|^2")
+    vs = {}
+    if vs_f64:
+        args64 = tuple(a.double() if torch.is_tensor(a)
+                       and a.dtype == torch.float32 else a for a in args)
+        o64 = att.fused_step_plain(*args64, **{
+            **kw, "ragged": rag._replace(val=rag.val.double())})
+        for a, b, r, what in zip(ok, op, o64, names):
+            ek = float(torch.max(torch.abs(a.double() - r)))
+            ep = float(torch.max(torch.abs(b.double() - r)))
+            vs[what] = (ek, ep)
+            check(ek <= 2.0 * ep, f"[wide] {tag} {what} against float64: "
+                  f"kernel {ek:.3e}, plain f32 {ep:.3e}")
+        err = max(float(torch.max(torch.abs(a - b))) for a, b in zip(ok, op))
+        beyond = {what: rel_excess(a, b, rtol)[0]
+                  for a, b, what in zip(ok, op, names)}
+        print(f"[wide] {tag} against the plain version in float64 (kernel, "
+              f"plain f32 max |err|): " + ", ".join(
+                  f"{w} {e[0]:.3e} / {e[1]:.3e}" for w, e in vs.items())
+              + f"; against the plain f32 version max |err| {err:.3e}, "
+              f"elements beyond rtol {rtol} {beyond}")
+    else:
+        err = max(rel_close(a, b, rtol, f"[wide] {tag} {what}")
+                  for a, b, what in zip(ok, op, names))
+    grad = (forces - rep / z) * valid[:, None].to(dt)
+    same = (grad > 0.0) == (upd > 0.0)
+    g = torch.clamp(torch.where(same, gains * 0.8, gains + 0.2), min=0.01)
+    u = 0.8 * upd - 200.0 * g * grad
+    check(all(torch.equal(a, b) for a, b in zip(ok[:3], (y + u, u, g))),
+          f"[wide] {tag}: the fused step differs from the unfused")
+    again = att.fused_step_update(*args, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(ok, again)),
+          f"[wide] {tag}: two launches differ")
+    return (err, vs) if vs_f64 else err
+
+
+def wide_kernel_gates():
+    """B2w-B5w and their float64 forms at every width of WIDE_MS on
+    N_WIDTHS rows of a spread y (10·N(0, 1)) against their plain versions:
+    rtol 2e-5 (B3's y and update 1e-4, its gains equal) at float32,
+    F64_RTOL at float64; B5w/B4w on an edge problem (a hub row, an empty
+    row, padding).  Returns {kernel id: max error}."""
+    import torch
+    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
+    from tsne_flink_tpu_torch.kernels.build import M_NARROW
+    from tsne_flink_tpu_torch.ops import attraction_cuda as att
+    from tsne_flink_tpu_torch.ops import repulsion_cuda as rc
+    # the geometry the Python side mirrors (the memory model's split
+    # count and slab) is the kernels' own
+    for m in range(1, 2 * max(WIDE_MS) + 1):
+        check(att.kernel_wide_config(m) == (M_NARROW, att.WIDE_DIMS,
+                                            att.wide_chunks(m))
+              and all(rc.kernel_wide_config(m, f) == (
+                  M_NARROW, rc.WIDE_ROWS_PER_BLOCK, rc.wide_chunk(m, f))
+                  for f in (False, True)),
+              f"[wide] m={m}: the Python geometry is not the kernels'")
+    print(f"[wide] the wide forms' geometry (M_NARROW, B2w's rows a block "
+          f"and force chunk, B3w-B5w's dims a chunk and chunks) as the "
+          f"kernel library states it at m = 1 .. {2 * max(WIDE_MS)}: the "
+          f"Python mirror's")
+    errs = {kid: 0.0 for kid in WIDE_FORMS}
+    rng = np.random.default_rng(20)
+    for dt, sfx, rtol, rtol3 in ((torch.float32, "", 2e-5, 1e-4),
+                                 (torch.float64, "_f64", F64_RTOL,
+                                  F64_RTOL)):
+        for m in WIDE_MS:
+            t0 = time.perf_counter()
+            y = torch.from_numpy(10.0 * rng.standard_normal(
+                (N_WIDTHS, m))).to("cuda", dt)
+            reset_launches()
+            e2 = wide_b2_gate(f"B2w{sfx} m={m}", y, rtol)
+            jidx, jval, rag = edge_problem(y, 64, 60 + m)
+            jval = jval.to(dt)
+            rag = rag._replace(val=rag.val.to(dt))
+            z = torch.tensor(float(N_WIDTHS) ** 2 / 7.0, dtype=dt,
+                             device="cuda")
+            e5, e4 = hold_pass(f"wide{sfx} m={m}", y, jidx, jval, rag, z,
+                               rtol=rtol)
+            e3 = wide_b3_gate(f"B3w{sfx} m={m}", y, jidx, jval, rag, rtol3)
+            got = launches()
+            check(all(got[k + sfx] == 0 for k in ("B2", "B3", "B4", "B5"))
+                  and all(got[k + sfx] > 0
+                          for k in ("B2w", "B3w", "B4w", "B5w")),
+                  f"[wide] m={m}{sfx}: launches {got}")
+            for kid, e in (("B2w", e2), ("B3w", e3), ("B4w", e4),
+                           ("B5w", e5)):
+                errs[kid + sfx] = max(errs[kid + sfx], e)
+            print(f"[wide] m={m}{' float64' if sfx else ''} on {N_WIDTHS} "
+                  f"rows: max abs err B2w {e2:.3e}, B3w {e3:.3e} (gains "
+                  f"equal, the unfused step's bits), B4w {e4:.3e}, B5w "
+                  f"{e5:.3e}; two launches bit for bit; "
+                  f"{time.perf_counter() - t0:.2f} s")
+            del y, jidx, jval, rag
+    return errs
+
+
+def wide_bounds(n, m, isz, hval, e_tail):
+    """The wide forms' bounds at [full]'s CSR (head ``hval``, ``e_tail``
+    tail edges) and width m: B2 by operations ((5m + 3)·N² at the FP32 or
+    FP64 pipe plus N² reciprocals at RCP64_OPS each; y read, rep and Z
+    written once), B3-B5 the larger of their (6m + 10) operations a set
+    slot and their bytes (the head's values and its set ids, 4 + isz
+    bytes a tail edge and the row pointer, y read once in m·isz-byte
+    rows, and their own planes)."""
+    peak = PEAK_FP64_FLOPS if isz == 8 else PEAK_FP32_FLOPS
+    nnz = int((hval > 0).sum())
+    head = hval.numel() * isz + nnz * 4
+    tail = (4.0 + isz) * e_tail + 8.0 * (n + 1)
+    ops = (6.0 * m + 10.0) * (nnz + e_tail)  # |y_j|², y_i·y_j, the force
+    return {
+        "B2w": bound((5.0 * m + 3 + RCP64_OPS) * n * n,
+                     n * m * isz + n * (m + 1) * isz, peak),
+        "B3w": bound(ops, head + tail + 7 * n * m * isz + n * isz, peak),
+        "B4w": bound(ops, head + tail + n * m * isz + 2 * n * isz, peak),
+        "B5w": bound(ops, head + tail + 2 * n * m * isz, peak)}
+
+
+def timed_once(fn):
+    """(CUDA-event ms, result) of one call of ``fn``, no warm-up."""
+    import torch
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b), out
+
+
+def wide_times(y, csr, tag):
+    """B2w-B5w (or their float64 forms, by y's dtype) at 60,000 rows and
+    width y.shape[1] on [full]'s CSR (head W = 256 + the tail), held and
+    timed there.  Held, two launches bit for bit each: B2w's rep and row
+    Z against its plain version at rtol 2e-5 (F64_RTOL at float64); at
+    float64 B5w's forces, B4w's per-row and total KL at F64_RTOL and B3w
+    (``wide_b3_gate``: tie-free grads, a padded-row mask) its y, update
+    and ‖grad‖² with its gains equal and the unfused step's bits; at
+    float32, where the forward part's norm trick cancels at a run's y as
+    the plain version's does, B5w, B4w (``against_f64``) and B3w's y,
+    update and ‖grad‖² each within twice the plain float32 version's own
+    error against the plain version in float64 (gains equal, the
+    unfused step's bits), their errors against the float32 plain version
+    and the elements beyond 2e-5 (1e-4) printed.
+    Timed: each kernel's CUDA-event ms (B3w the run's step, hubs first)
+    beside its plain version's and its bound.  Returns ({kid: max error},
+    {kid: (kernel's, plain's) max error against float64} (float32 B4w /
+    B5w), {kid: ((ms, plain ms, None), bound)})."""
+    import torch
+    from tsne_flink_tpu_torch.models.tsne import _without_padding
+    from tsne_flink_tpu_torch.ops import attraction_cuda as att
+    from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
+    from tsne_flink_tpu_torch.ops.repulsion_exact import exact_repulsion
+    n, m = y.shape
+    dt = y.dtype
+    f64 = dt == torch.float64
+    sfx = "_f64" if f64 else ""
+    rtol, rtol3 = (F64_RTOL, F64_RTOL) if f64 else (2e-5, 1e-4)
+    hidx, hval = csr[0], csr[1].to(dt)
+    tsrc, tdst, tval = _without_padding(csr[2:])
+    rag = att.ragged_edges(tsrc, tdst, tval.to(dt), n)
+    ch = wide_plain_chunk(m)
+    # held at this run's shapes and y
+    rep, zr = cuda_exact_repulsion(y, row_z=True)
+    again = cuda_exact_repulsion(y, row_z=True)
+    check(torch.equal(again[0], rep) and torch.equal(again[1], zr),
+          f"[wide] B2w{sfx} {tag}: two launches differ")
+    b2_pms, (rp, zp) = timed_once(
+        lambda: exact_repulsion(y, row_z=True, row_chunk=ch))
+    errs = {"B2w": max(rel_close(rep, rp, rtol, f"[wide] B2w{sfx} {tag} rep"),
+                       rel_close(zr, zp, rtol,
+                                 f"[wide] B2w{sfx} {tag} row Z"))}
+    del rp, zp, again
+    z = torch.sum(zr)
+    vs64 = {}
+    if f64:
+        errs["B5w"], errs["B4w"] = hold_pass(f"wide{sfx} {tag}", y, hidx,
+                                             hval, rag, z, rtol=rtol)
+        errs["B3w"] = wide_b3_gate(f"B3w{sfx} {tag}", y, hidx, hval, rag,
+                                   rtol3)
+    else:
+        # the forward part's norm trick cancels at a run's final y as the
+        # plain version's does: held to the plain float32 version's own
+        # error against float64 (against_f64), two launches bit for bit
+        fk = att.attraction_forces(y, y, hidx, hval, 4.0, ragged=rag)
+        lk = att.attraction_loss(y, y, hidx, hval, 1.0, z, ragged=rag)
+        check(torch.equal(fk, att.attraction_forces(y, y, hidx, hval, 4.0,
+                                                    ragged=rag))
+              and torch.equal(lk, att.attraction_loss(y, y, hidx, hval, 1.0,
+                                                      z, ragged=rag)),
+              f"[wide] B5w/B4w {tag}: two launches differ")
+        for kid, k_out, p_out in (
+                ("B5w", fk, att.attraction_forces_plain(
+                    y, y, hidx, hval, 4.0, ragged=rag)),
+                ("B4w", lk, att.attraction_loss_plain(
+                    y, y, hidx, hval, 1.0, z, ragged=rag))):
+            bad, errs[kid] = rel_excess(k_out, p_out, rtol)
+            print(f"[wide] {kid} {tag}: against the plain f32 version max "
+                  f"|err| {errs[kid]:.3e}, {bad} of {k_out.numel()} "
+                  f"elements beyond rtol {rtol} (held against float64 "
+                  f"below)")
+        del fk, lk
+        got = against_f64(f"wide {tag}", y, hidx, hval, rag, z)
+        vs64 = {kid + "w": v for kid, v in got.items()}
+        errs["B3w"], v3 = wide_b3_gate(f"B3w {tag}", y, hidx, hval, rag,
+                                       rtol3, vs_f64=True)
+        vs64["B3w"] = max(v3.values())
+    print(f"[wide] {tag} ({n} x {m}, [full]'s CSR W={hidx.shape[1]} + "
+          f"{tval.shape[0]} tail edges): against plain, max abs err "
+          + ", ".join(f"{k}{sfx} {v:.3e}" for k, v in errs.items())
+          + "; two launches bit for bit")
+    # timed
+    rng = np.random.default_rng(22)
+    upd = 1e-2 * torch.from_numpy(rng.standard_normal((n, m))).to(
+        "cuda", dt)
+    gains = 1.0 + torch.from_numpy(rng.random((n, m))).to("cuda", dt)
+    order = att.visit_order(rag)
+    step = dict(eta=200.0, min_gain=0.01, ragged=rag)
+    calls = {
+        "B2w": (lambda: cuda_exact_repulsion(y), None),
+        "B3w": (lambda: att.fused_step_update(
+                    y, y, hidx, hval, 1.0, rep, z, None, upd, gains, 0.8,
+                    order=order, **step),
+                lambda: att.fused_step_plain(
+                    y, y, hidx, hval, 1.0, rep, z, None, upd, gains, 0.8,
+                    **step)),
+        "B4w": (lambda: att.attraction_loss(y, y, hidx, hval, 1.0, z,
+                                            ragged=rag),
+                lambda: att.attraction_loss_plain(y, y, hidx, hval, 1.0, z,
+                                                  ragged=rag)),
+        "B5w": (lambda: att.attraction_forces(y, y, hidx, hval, 1.0,
+                                              ragged=rag),
+                lambda: att.attraction_forces_plain(y, y, hidx, hval, 1.0,
+                                                    ragged=rag))}
+    bnds = wide_bounds(n, m, y.element_size(), hval, int(tval.shape[0]))
+    out = {}
+    for kid, (kern, plain) in calls.items():
+        ms = cuda_ms(kern, 5 if kid == "B2w" else 20)
+        pms = b2_pms if plain is None else cuda_ms(plain, 1, 0)
+        out[kid + sfx] = ((ms, pms, None), bnds[kid])
+        print(f"[wide] {kid}{sfx} {tag} ({n} x {m}"
+              + ("" if kid == "B2w" else f", W={hidx.shape[1]} + "
+                 f"{tval.shape[0]} tail edges") + f"): {ms:.4f} ms (plain "
+              f"{pms:.4f} ms, bound {bnds[kid][0]:.4f} ms by "
+              f"{bnds[kid][1]}, {bnds[kid][0] / ms:.3f} of it)")
+    return ({k + sfx: v for k, v in errs.items()},
+            {k + sfx: v for k, v in vs64.items()}, out)
+
+
+def wide_fit(tag, fit, labels, want):
+    """One m = M_WIDE fit at 60,000 x 784 (``fit()`` returns (y on the
+    card, the KL trace)), its launches counted from 0 just before it:
+    ``want`` (the launches named there, every other kernel 0; the step's
+    kernel, B3w in a fused CSR run and B5w in any other, every
+    iteration), finite and falling KL, label agreement >= 0.9.  Returns
+    (y, launches, seconds)."""
+    import torch
+    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    y, kl = fit()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches()
+    kl = torch.as_tensor(kl).double().cpu().numpy()
+    agree = label_agreement(y, labels)
+    sfx = "_f64" if y.dtype == torch.float64 else ""
+    step = "B3w" if counts["B3w" + sfx] else "B5w"
+    want = {**want, step + sfx: ITERATIONS}
+    print(f"[wide] {tag}: {wall:.3f} s end to end; launches "
+          f"{json.dumps(counts)}; KL head {np.round(kl[:3], 5).tolist()} "
+          f"tail {np.round(kl[-3:], 5).tolist()}; 10-NN label agreement "
+          f"{agree:.4f} (bar 0.9)")
+    check({k: v for k, v in counts.items() if v} == want,
+          f"[wide] {tag}: launches {counts}, want {want}")
+    check(tuple(y.shape) == (N_FULL, M_WIDE) and bool(torch.isfinite(y).all())
+          and bool(np.isfinite(kl).all()) and kl[-1] < kl[11],
+          f"[wide] {tag}: non-finite, wrong shape or no falling KL")
+    check(agree >= 0.9, f"[wide] {tag}: label agreement {agree}")
+    return y, counts, wall
+
+
+def phase_wide(x_np, labels, csr, m64=False):
+    """[wide]: embeddings wider than 8 (module docstring, phase 8e).
+    Returns ({kernel id: max error}, {kernel id: (ms, plain ms, None)},
+    {kernel id: bound}, {kernel id: launches}, {kernel id: max error at
+    the runs' final y}, {kernel id: (kernel's, plain's) max error against
+    float64 there}, {kernel id: the m = 64 times, with ``m64``}) for the
+    wide forms."""
+    import re
+    import shutil
+    import tempfile
+
+    import torch
+    from tsne_flink_tpu_torch import TSNE, TsneConfig, tsne_embed
+    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
+    from tsne_flink_tpu_torch.ops.knn import pick_knn_refine
+    t_phase = time.perf_counter()
+    errs = wide_kernel_gates()
+    n, d = x_np.shape
+    it = ITERATIONS
+    # the slice's full-width run: tsne_embed at n_components 16
+    cfg = TsneConfig(n_components=M_WIDE, perplexity=PERPLEXITY,
+                     iterations=it)
+    y16, counts, _ = wide_fit(
+        "tsne_embed n_components=16 (exact, the default layout)",
+        lambda: tsne_embed(x_np, cfg, neighbors=K, seed=0), labels,
+        {"B1": 1, "B2w": it, "B4w": it // 10})
+    n_launch = {kid: counts[kid] for kid in ("B2w", "B3w", "B4w")}
+    # float64 through the estimator, then one serving bucket of its model
+    est64 = TSNE(n_components=M_WIDE, perplexity=PERPLEXITY, n_iter=it,
+                 random_state=0, dtype="float64")
+    y64, c64, _ = wide_fit(
+        "TSNE(n_components=16, dtype='float64')",
+        lambda: (lambda e: (torch.from_numpy(e.embedding_).cuda(),
+                            e.kl_trace_))(est64.fit(x_np)), labels,
+        {"B1_f64": 1, "B2w_f64": it, "B4w_f64": it // 10})
+    check(est64.embedding_.dtype == np.float64, "[wide] float64 fit dtype")
+    n_launch.update({kid: c64[kid] for kid in ("B2w_f64", "B3w_f64",
+                                               "B4w_f64")})
+    q = make_data(256, seed=7)[0]
+    reset_launches()
+    t64 = est64.transform(q, bucket=256)
+    got = launches()
+    check(np.isfinite(t64).all() and t64.shape == (256, M_WIDE)
+          and got["B5w_f64"] == 75 and got["B2w_f64"] == 75,
+          f"[wide] float64 transform: launches {got}")
+    n_launch["B5w_f64"] = got["B5w_f64"]
+    print(f"[wide] the float64 model's 256-row bucket: launches "
+          f"{json.dumps({k: v for k, v in got.items() if v})}, finite")
+    # config 2's command line at --nComponents 16 = the project estimator
+    est = TSNE(n_components=M_WIDE, perplexity=PERPLEXITY, n_iter=it,
+               knn_method="project", theta=0.5, random_state=0)
+    cycles = pick_knn_refine(n, d)
+    yp, cp, _ = wide_fit(
+        "TSNE(n_components=16, knn_method='project', theta=0.5)",
+        lambda: (lambda e: (torch.from_numpy(e.embedding_).cuda(),
+                            e.kl_trace_))(est.fit(x_np)), labels,
+        {"B6": b6_launches(n, d, K, cycles), "B2w": it, "B4w": it // 10})
+    # ... under --auditPlan as users give it: the memory model's re-check
+    # at the graph's width bound against the run's measured peak
+    tmp = tempfile.mkdtemp(prefix="tsne_wide_")
+    try:
+        coo = shared_coo(x_np)
+        path = os.path.join(tmp, "c2_m16.csv")
+        rc, out, c_cli, secs, peak = _cli_captured([
+            "--input", coo, "--output", path, "--dimension", str(d),
+            "--perplexity", str(PERPLEXITY), "--iterations", str(it),
+            "--randomState", "0", "--knnMethod", "project", "--theta",
+            "0.5", "--nComponents", str(M_WIDE), "--noCache",
+            "--auditPlan"])
+        check(rc == 0, f"[wide] config 2 --nComponents 16: exit {rc}")
+        from tsne_flink_tpu_torch.utils import native
+        y_cli = native.load_coo(path, cols=1 + M_WIDE)[:, 1:].astype(
+            np.float32)
+        again = re.search(r"# auditPlan: after kNN: width bound (\d+): "
+                          r"peak HBM est ([0-9.]+) GiB in '(\w+)'", out)
+        check(again is not None, "[wide] no --auditPlan re-check line")
+        ratio = float(again.group(2)) * 2**30 / peak
+        print(f"[wide] config 2 --nComponents 16 --auditPlan: {secs:.3f} s; "
+              f"the re-check at width bound {again.group(1)} predicts "
+              f"{float(again.group(2)):.3f} GiB in '{again.group(3)}' vs "
+              f"{peak / 2**30:.3f} GiB measured allocated (x{ratio:.3f}, "
+              f"bar [1, 2]); the estimator's embedding bit for bit: "
+              f"{same_bits(y_cli, est.embedding_)}, its launches: "
+              f"{c_cli == cp}")
+        check(same_bits(y_cli, est.embedding_) and c_cli == cp,
+              "[wide] config 2 --nComponents 16 != the project estimator")
+        check(1.0 <= ratio <= 2.0, f"[wide] --auditPlan at m = 16 reads "
+              f"x{ratio:.3f} of the measured peak")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # a 256-row serving bucket of the m = 16 model: 1 x 256 = 4 x 64
+    reset_launches()
+    t256 = est.transform(q, bucket=256)
+    c256 = launches()
+    t4 = np.concatenate([est.transform(q[s:s + 64], bucket=256)
+                         for s in range(0, 256, 64)])
+    print(f"[wide] serving: a 256-row bucket of the m = 16 model launches "
+          f"{json.dumps({k: v for k, v in c256.items() if v})}; finite "
+          f"{bool(np.isfinite(t256).all())}; 1 x 256 = 4 x 64 bit for bit: "
+          f"{same_bits(t256, t4)}")
+    check(bool(np.isfinite(t256).all()) and same_bits(t256, t4)
+          and c256["B5w"] == 75 and c256["B2w"] == 75,
+          "[wide] the serving bucket")
+    n_launch["B5w"] = c256["B5w"]
+    del est, est64
+    # the thread mesh at D = 2 gives D = 1's bits
+    fits = {}
+    for dd in (1, 2):
+        reset_launches()
+        t0 = time.perf_counter()
+        fits[dd] = TSNE(mesh=["cuda:0"] * dd, n_components=M_WIDE,
+                        perplexity=PERPLEXITY, n_iter=it,
+                        random_state=0).fit(x_np).embedding_
+        got = launches()
+        print(f"[wide] TSNE(n_components=16) on the test mesh of {dd} "
+              f"shard(s): {time.perf_counter() - t0:.3f} s, launches "
+              f"{json.dumps({k: v for k, v in got.items() if v})}")
+        check(got["B2w"] == dd * it and got["B2"] == 0,
+              f"[wide] mesh {dd} launches {got}")
+    check(same_bits(fits[2], fits[1]), "[wide] mesh 2 differs from mesh 1")
+    print("[wide] mesh 2 equals mesh 1 bit for bit at m = 16")
+    # the forms held and timed at 60k at the runs' final y on [full]'s CSR
+    # (and, with ``m64``, timed at a spread y at m = 64)
+    times, bnds, at_run, vs64, at64 = {}, {}, {}, {}, {}
+    for yy, tag in ((y16, "at the m = 16 run's final y"),
+                    (y64, "at the float64 run's final y")):
+        e_run, v64, tms = wide_times(yy.contiguous(), csr, tag)
+        at_run.update(e_run)
+        vs64.update(v64)
+        for kid, (tm, bd) in tms.items():
+            times[kid], bnds[kid] = tm, bd
+    del y16, y64, yp
+    for kid, e in at_run.items():
+        errs[kid] = max(errs[kid], e)
+    rng = np.random.default_rng(64)
+    for dt in ((torch.float32, torch.float64) if m64 else ()):
+        yw = torch.from_numpy(10.0 * rng.standard_normal((n, 64))).to(
+            "cuda", dt)
+        for kid, (tm, bd) in wide_times(yw, csr, "at a spread y")[2].items():
+            at64[kid] = {"m": 64, "ms": tm[0], "plain_ms": tm[1],
+                         "bound_ms": bd[0], "bound_by": bd[1]}
+        del yw
+    torch.cuda.empty_cache()
+    print(f"[wide] phase {time.perf_counter() - t_phase:.1f} s")
+    return errs, times, bnds, n_launch, at_run, vs64, at64
 
 
 def native_embedding(path):
@@ -5412,8 +5980,9 @@ def mesh_b2_shapes(y):
     split_rows = n // PAD_QUANTUM
     whole, zw = cuda_exact_repulsion(y, row_z=True, split_rows=split_rows)
     full_ms = cuda_ms(lambda: cuda_exact_repulsion(y, row_z=True), 20)
-    print(f"[mesh] B2 at {n} rows: its own {column_splits(n, n, sms)} column"
-          f" splits {full_ms:.4f} ms")
+    print(f"[mesh] B2 at {n} rows: its own "
+          f"{column_splits(n, n, sms, 2, False)} column splits "
+          f"{full_ms:.4f} ms")
     out = {}
     for d in (2, 4, 8):
         nl = n // d
@@ -5427,8 +5996,9 @@ def mesh_b2_shapes(y):
         own = cuda_ms(lambda: cuda_exact_repulsion(ys, y, row_z=True), 20)
         out[d] = (can, own)
         print(f"[mesh] B2 at a shard of mesh {d} ({nl} x {n}): canonical "
-              f"{column_splits(split_rows, n, sms)} splits {can:.4f} ms, "
-              f"the shard's own {column_splits(nl, n, sms)} splits "
+              f"{column_splits(split_rows, n, sms, 2, False)} splits "
+              f"{can:.4f} ms, the shard's own "
+              f"{column_splits(nl, n, sms, 2, False)} splits "
               f"{own:.4f} ms; the canonical rows equal the mesh-1 "
               "launch's bit for bit")
     return out
@@ -5487,8 +6057,9 @@ def mesh_blobs(x_np, labels, cfg, full, csr_kl):
     del prep
     check(runs[1][4] == "csr", f"[mesh] blobs: layout {runs[1][4]}")
     mesh_same("blobs CSR", runs)
-    want = {"B1": 0, "B1_bf16": 0, **NO_F64, "B2": ITERATIONS,
-            "B3": ITERATIONS, "B4": ITERATIONS // 10, "B5": 0, "B6": 0}
+    want = {"B1": 0, "B1_bf16": 0, **NO_F64, **NO_WIDE,
+            "B2": ITERATIONS, "B3": ITERATIONS, "B4": ITERATIONS // 10,
+            "B5": 0, "B6": 0}
     shard_launches("blobs CSR", runs, want)
     y1 = runs[1][0].y
     kl1 = quality("mesh", y1, runs[1][1], labels, cfg, 0.9)
@@ -5568,8 +6139,9 @@ def phase_mesh(x_np, labels, full, csr_kl, latent_rows, large, tmp):
             for d in (1, 2)}
     check(runs[1][4] == "rows", f"[mesh] latent blobs: layout {runs[1][4]}")
     mesh_same("latent blobs rows", runs)
-    want = {"B1": 0, "B1_bf16": 0, **NO_F64, "B2": ITERATIONS, "B3": 0,
-            "B4": ITERATIONS // 10, "B5": ITERATIONS, "B6": 0}
+    want = {"B1": 0, "B1_bf16": 0, **NO_F64, **NO_WIDE,
+            "B2": ITERATIONS, "B3": 0, "B4": ITERATIONS // 10,
+            "B5": ITERATIONS, "B6": 0}
     shard_launches("latent blobs rows", runs, want)
     per_shard["rows"] = want
     mesh_checkpoint("latent blobs rows", cfg_r, ji, jv, runs[1], tmp)
@@ -5592,8 +6164,8 @@ def phase_mesh(x_np, labels, full, csr_kl, latent_rows, large, tmp):
             for d in (1, 2)}
     check(runs[1][4] == "blocks", f"[mesh] large: layout {runs[1][4]}")
     mesh_same("large blocks + FFT", runs)
-    want = {"B1": 0, "B1_bf16": 0, **NO_F64, "B2": 0, "B3": 0,
-            "B4": ITERATIONS // 10, "B5": ITERATIONS, "B6": 0}
+    want = {"B1": 0, "B1_bf16": 0, **NO_F64, **NO_WIDE, "B2": 0,
+            "B3": 0, "B4": ITERATIONS // 10, "B5": ITERATIONS, "B6": 0}
     shard_launches("large blocks + FFT", runs, want)
     per_shard["blocks"] = want
     print(f"[mesh] large: s/iter mesh 1 {runs[1][3] / ITERATIONS:.6f}, mesh "
@@ -6813,14 +7385,18 @@ class HostReads:
 
 def runtime_tracing(x_np, tmp):
     """[runtime] 5: config 2's command line (``--knnMethod project --theta
-    0.5``, 60,000 x 784 blobs from a COO CSV) plain, with ``--trace
+    0.5``; REHEARSAL_N of the 60,000 x 784 blobs from a COO CSV, cut for
+    time: the ingest dominates each run) plain, with ``--trace
     --metricsOut``, with ``--profile`` as well, and plain again: the same
     output bytes, the same launches and the same host reads (all, and in
     the optimize loop); the trace holds the JAX package's span names for
     the stages the port runs, the profile directory is not empty; each
-    one's wall time against the plain runs'."""
+    one's wall time against the plain runs'; then the profiler's wall
+    cost in a CLI process of its own, as a user pays it (two processes,
+    the same output bytes)."""
     from tsne_flink_tpu_torch.models import autopilot as ap
-    coo = shared_coo(x_np)
+    coo = os.path.join(tmp, f"blobs{REHEARSAL_N}.csv")
+    write_coo(coo, x_np[:REHEARSAL_N])
     f = x_np.shape[1]
 
     def argv(out, *extra):
@@ -6971,6 +7547,7 @@ def main() -> int:
         y_bh = phase_bh(x_np, labels, y_60k, z_latent, project)
         phase_cli(x_np, xl_np, full, rows_run[:2], project, y_bh)
         bigk = phase_bigk(x_np, labels, xc_np)
+        wide = phase_wide(x_np, labels, csr)
         (times, bnd, _), = [v for key, v in b6_shapes.items()
                             if key[0] == "cells"]
         counts, pass_t, pass_b, (e5, e4), large = phase_large(
@@ -6997,6 +7574,16 @@ def main() -> int:
                       e_l64.get(kid, 0.0))
             kernels.append(kernel_record(kid, *KERNEL_META[kid], f64_n[kid],
                                          err, f64_t[kid], f64_b[kid]))
+        w_errs, w_times, w_bnds, w_launch, w_run, w_64, _ = wide
+        for kid in WIDE_FORMS:
+            rec = kernel_record(kid, *KERNEL_META[kid], w_launch[kid],
+                                w_errs[kid], w_times[kid], w_bnds[kid])
+            rec["m"] = M_WIDE
+            rec["max_abs_err_at_run"] = w_run[kid]
+            if kid in w_64:
+                rec["against_f64_at_run"] = {"kernel": w_64[kid][0],
+                                             "plain_f32": w_64[kid][1]}
+            kernels.append(rec)
         f64_card_vs_cpu(f64_cpu)
         phase_bh_large(large[0])
         phase_pilot(xl_np, labels_l, z_latent, (rows_run[0], rows_run[2],

@@ -33,7 +33,15 @@ exact stage at F = 50), and one chunk at the deep k (600 on 20,000-row
 cuts of both, 1,024 on the cells' cut), each stage's outputs over its
 chunks as one digest and its ms a chunk over them in sequence (the
 median (min-max) of 3 runs after an L2 flush, ``chip_smoke.chunks_ms``);
-two trees whose digests match give the same bits.  ``--b6`` runs the
+two trees whose digests match give the same bits.  ``--widths`` runs
+B2-B5 alone at every m = 1 .. 8 (the register-held instances) in
+float32 and float64 at 60,000 rows of a seeded 10·N(0, 1) y, B3-B5 over
+``[full]``'s CSR head + tail, each with its digest and its time (the
+median (min-max) of 3 means of 5-20 launches).  ``--sass`` prints a
+digest of each B2-B5 instance's SASS in the tree's library
+(``cuobjdump -sass``: its instruction lines, the name without the
+anonymous namespace's hash), so two trees' instances can be shown to be
+the same code.  ``--b6`` runs the
 ``[project]`` run and B6's stages alone; ``--b1`` runs B1 alone at
 60,000 x 784 in each class up to k = 1,024 and each form: k = 90 (the
 first class), 300 and 1,024 (the deep class) with 3xTF32, k = 90 with
@@ -62,6 +70,10 @@ def parse():
                     help="the [project] run and B6's stages alone")
     ap.add_argument("--b1", action="store_true",
                     help="B1 alone, each class up to k = 1,024, each form")
+    ap.add_argument("--widths", action="store_true",
+                    help="B2-B5 alone at m = 1 .. 8, float32 and float64")
+    ap.add_argument("--sass", action="store_true",
+                    help="a digest of each B2-B5 instance's SASS")
     return ap.parse_args()
 
 
@@ -152,6 +164,76 @@ def csr_step(cs, att, y, csr):
               f"{int(rag.dst.shape[0])} tail edges: {name} {spread(ms)}")
 
 
+def widths(cs, att, x_np, cfg):
+    """B2-B5 at m = 1 .. 8 in float32 and float64 (see the module text)."""
+    import numpy as np
+    from tsne_flink_tpu_torch.models.tsne import (_plan_layout,
+                                                  _without_padding)
+    from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
+    from tsne_flink_tpu_torch.utils.artifacts import prepare
+    prep = prepare(x_np, neighbors=90, perplexity=30.0)
+    _, csr = _plan_layout(prep.jidx, prep.jval, cfg)
+    hidx = csr[0]
+    n = hidx.shape[0]
+    tail = _without_padding(csr[2:])
+    del prep
+    rng = np.random.default_rng(5)
+    for dt, sfx in ((torch.float32, ""), (torch.float64, "_f64")):
+        hval = csr[1].to(dt)
+        rag = att.ragged_edges(tail[0], tail[1], tail[2].to(dt), n)
+        for m in range(1, 9):
+            y = torch.from_numpy(10.0 * rng.standard_normal((n, m))).to(
+                "cuda", dt)
+            rep, zr = cuda_exact_repulsion(y, row_z=True)
+            z = torch.sum(zr)
+            upd = 1e-2 * torch.from_numpy(rng.standard_normal((n, m))).to(
+                "cuda", dt)
+            gains = 1.0 + torch.from_numpy(rng.random((n, m))).to("cuda", dt)
+            calls = {
+                "B2": (lambda: cuda_exact_repulsion(y, row_z=True), 5),
+                "B3": (lambda: att.fused_step_update(
+                    y, y, hidx, hval, 1.0, rep, z, None, upd, gains, 0.8,
+                    eta=1000.0, min_gain=0.01, ragged=rag), 20),
+                "B4": (lambda: att.attraction_loss(y, y, hidx, hval, 1.0, z,
+                                                   ragged=rag), 20),
+                "B5": (lambda: att.attraction_forces(y, y, hidx, hval, 1.0,
+                                                     ragged=rag), 20)}
+            for kid, (fn, reps) in calls.items():
+                out = fn()
+                out = out if isinstance(out, tuple) else (out,)
+                ms = [cs.cuda_ms(fn, reps) for _ in range(3)]
+                print(f"[regress] {kid}{sfx} m={m} {n} rows: {spread(ms)}; "
+                      f"out {digest(*out)}")
+            del y, rep, zr, upd, gains
+
+
+def sass_digests():
+    """A digest of each B2-B5 instance's SASS (see the module text)."""
+    import re
+    import shutil
+    from tsne_flink_tpu_torch.kernels.build import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("[regress] sass: cuobjdump not found")
+        return
+    sass = subprocess.run([tool, "-sass", str(build().path)],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    anon = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_[a-z_]+_cu_[0-9a-f]+")
+    n = 0
+    for chunk in sass.split("Function : ")[1:]:
+        name = chunk.split(None, 1)[0]
+        if not re.search(r"(repulsion|fused_step|loss|forces)_\w*kernel",
+                         name):
+            continue
+        code = "\n".join(anon.sub("", ln) for ln in chunk.splitlines()
+                         if "/*" in ln)
+        print(f"[regress] sass {anon.sub('', name)}: "
+              f"{hashlib.sha256(code.encode()).hexdigest()[:16]}")
+        n += 1
+    print(f"[regress] sass: {n} B2-B5 instances")
+
+
 def b6_stages(cs, x_np, xc_np):
     """B6 on the funnel stages of refine chunks captured as the tree's
     refine round calls them: each stage's outputs over its chunks as one
@@ -206,6 +288,12 @@ def main():
     x_np, _ = cs.make_data()
     cfg = TsneConfig(perplexity=30.0, iterations=300, repulsion="exact",
                      attraction="csr")
+    if args.sass:
+        sass_digests()
+        return
+    if args.widths:
+        widths(cs, att, x_np, cfg)
+        return
     if args.b1:
         x = torch.from_numpy(x_np).cuda()
         for k in (90, 300, 1024):

@@ -57,14 +57,16 @@ def optimize(state, jidx, jval, cfg, start_iter=0, loss_carry=None):
     return out[0], out[1]
 
 
-def _run(path, dimension, *, iterations, seed=0, **kw):
-    """The JAX CLI's program on ``path``: ``(state, losses, prep,
-    prep_kwargs)``."""
+def _run(path, dimension, *, iterations, seed=0, n_components=2, **kw):
+    """The JAX CLI's program on ``path`` (``--nComponents``:
+    ``n_components``): ``(state, losses, prep, prep_kwargs)``."""
     dtype = kw.get("dtype", jnp.float32)
     n, prep, prep_kw = prepare_file(path, dimension, seed=seed, **kw)
-    cfg = jtsne.TsneConfig(perplexity=kw.get("perplexity", 30.0),
+    cfg = jtsne.TsneConfig(n_components=n_components,
+                           perplexity=kw.get("perplexity", 30.0),
                            iterations=iterations)
-    state = jtsne.init_working_set(jax.random.key(seed), n, 2, dtype)
+    state = jtsne.init_working_set(jax.random.key(seed), n, n_components,
+                                   dtype)
     st, losses = optimize(state, prep.jidx, prep.jval, cfg)
     return st, losses, prep, prep_kw
 

@@ -54,7 +54,13 @@ above (within 1e-12 of |d²| + ‖a‖² + ‖b‖², ids equal outside ties, ke
 sets equal outside ties at the cut), a shard's rows of B6 and B6_f64 the
 single launch's bit for bit, mixed dtypes refused with no launch, and
 float64 with a refining kNN plan running through B6_f64 (``prepare``,
-the estimator, the CLI's project line) with no float32 form.
+the estimator, the CLI's project line) with no float32 form; and the
+wide forms (m > 8): B2w-B5w and their float64 forms against their plain
+versions at m = 9 .. 256 (one and several force chunks), two launches
+bit for bit, a B2w shard at the canonical split count the mesh-1 rows
+bit for bit at m = 16, B3w the unfused step's bits, ``tsne_embed``
+launching the wide forms alone, and the test mesh of 2 equal to the
+mesh of 1 at m = 16.
 """
 
 import numpy as np
@@ -451,10 +457,10 @@ def test_forces_wrapper_refuses_what_b5_does_not_take(dev):
     att.attraction_forces(y, y, jidx, jval, 1.0)
     att.attraction_forces(y.cpu(), y.cpu(), jidx.cpu(), jval.cpu(), 1.0)
     assert KERNELS["B5"].launches == before + 1
-    y9 = torch.zeros((50, 9), device=dev)
+    y0 = torch.zeros((50, 0), device=dev)
     for bad in (dict(y_local=y.double(), y_full=y.double()),
                 dict(jidx=jidx.long()), dict(jval=jval[:, :4]),
-                dict(y_local=y9, y_full=y9),
+                dict(y_local=y0, y_full=y0),
                 dict(ragged=rag._replace(rowptr=rag.rowptr.int())),
                 dict(ragged=rag._replace(dst=rag.dst.long())),
                 dict(ragged=rag._replace(rowptr=rag.rowptr[:-1]))):
@@ -463,9 +469,9 @@ def test_forces_wrapper_refuses_what_b5_does_not_take(dev):
         with pytest.raises(ValueError, match="B5"):
             att.attraction_forces(**kw)
     with pytest.raises(ValueError, match="B4"):
-        att.attraction_loss(y9, y9, jidx, jval, 1.0, 1.0)
+        att.attraction_loss(y0, y0, jidx, jval, 1.0, 1.0)
     with pytest.raises(ValueError, match="B3"):
-        att.fused_step_update(y9, y9, jidx, jval, 1.0, y9, 1.0, None, y9, y9,
+        att.fused_step_update(y0, y0, jidx, jval, 1.0, y0, 1.0, None, y0, y0,
                               0.5, eta=1.0, min_gain=0.01)
     planes = (y, torch.tensor(1.0, device=dev), None, y, y, 0.5)
     for bad in (dict(order=torch.arange(50, device=dev)),
@@ -475,7 +481,9 @@ def test_forces_wrapper_refuses_what_b5_does_not_take(dev):
             att.fused_step_update(y, y, jidx, jval, 1.0, *planes, eta=1.0,
                                   min_gain=0.01, **bad)
     with pytest.raises(ValueError, match="B2"):
-        cuda_exact_repulsion(y9)
+        cuda_exact_repulsion(y0)
+    with pytest.raises(ValueError, match="B2"):
+        cuda_exact_repulsion(y, torch.zeros((50, 3), device=dev))
     assert KERNELS["B5"].launches == before + 1
 
 
@@ -2178,3 +2186,248 @@ def test_project_past_k1024_runs_b6_on_its_workspace_route(dev, dtype):
     _, dist_e = fused_knn(x, 1200)
     kth = dist_e[:, -1:] * (1 + 1e-5) + 1e-5
     assert float((prep.dist <= kth).double().mean()) >= 0.9
+
+
+# ---- the wide forms (m > 8): B2w-B5w and their float64 forms ----------------
+
+def _wide_rtol(dtype):
+    """The bars of the wide forms against their plain versions: as the
+    m <= 8 instances' (rtol 2e-5, the fused step's y 1e-4; 1e-12 at
+    float64), with an absolute part of rtol·max."""
+    return (2e-5, 1e-4) if dtype == torch.float32 else (1e-12, 1e-12)
+
+
+def _wide_id(base, dtype):
+    return base + "w" + ("_f64" if dtype == torch.float64 else "")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,m", [(97, 9), (530, 16), (3001, 17),
+                                 (20_011, 33), (300, 64), (700, 130),
+                                 (257, 256)])
+def test_wide_repulsion_matches_plain(dev, n, m, dtype):
+    """B2w past m = 8: against its plain version (N below a block, ragged
+    N, S > 1, one and several force chunks), two launches bit for bit,
+    counted under the wide form alone."""
+    rng = np.random.default_rng(n + m)
+    y = torch.from_numpy(rng.standard_normal((n, m)) * 10.0).to(dev, dtype)
+    kid = _wide_id("B2", dtype)
+    before = {k: KERNELS[k].launches for k in (kid, "B2", "B2_f64")}
+    rk, zk = cuda_exact_repulsion(y, row_z=True)
+    rp, zp = exact_repulsion(y, row_z=True, row_chunk=max(64, 16384 // m))
+    rtol = _wide_rtol(dtype)[0]
+    _close_scaled(rk, rp, rtol)
+    _close_scaled(zk, zp, rtol)
+    again = cuda_exact_repulsion(y, row_z=True)
+    assert torch.equal(again[0], rk) and torch.equal(again[1], zk)
+    got = {k: KERNELS[k].launches - v for k, v in before.items()}
+    assert got == {kid: 2, "B2": 0, "B2_f64": 0}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_wide_repulsion_shard_is_the_mesh_1_rows(dev, dtype):
+    """At m = 16 a row shard with a column mask, at the canonical split
+    count, gives the rows of the launch over all of them bit for bit, and
+    holds to its plain version."""
+    rng = np.random.default_rng(16)
+    n, n_pad = 9000, 9472
+    y = torch.zeros((n_pad, 16), dtype=dtype)
+    y[:n] = torch.from_numpy(rng.standard_normal((n, 16)) * 10.0)
+    y = y.to(dev)
+    valid = torch.arange(n_pad, device=dev) < n
+    canon = n_pad // 8
+    full = cuda_exact_repulsion(y, col_valid=valid, row_z=True,
+                                split_rows=canon)
+    rtol = _wide_rtol(dtype)[0]
+    for off, rows in ((0, 1184), (3001, 2472), (7000, 2472)):
+        shard = y[off:off + rows].contiguous()
+        got = cuda_exact_repulsion(shard, y, row_offset=off, col_valid=valid,
+                                   row_z=True, split_rows=canon)
+        assert torch.equal(got[0], full[0][off:off + rows])
+        assert torch.equal(got[1], full[1][off:off + rows])
+        want = exact_repulsion(shard, y, row_offset=off, col_valid=valid,
+                               row_z=True)
+        _close_scaled(got[0], want[0], rtol)
+        _close_scaled(got[1], want[1], rtol)
+
+
+def _wide_ragged(dev, n, w, m, seed, dtype):
+    y, jidx, jval, rag = _ragged_problem(dev, n, w, m, seed)
+    y = y.to(dtype)
+    jval = None if jval is None else jval.to(dtype)
+    return y, jidx, jval, rag._replace(val=rag.val.to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [9, 16, 31, 64, 100, 129])
+@pytest.mark.parametrize("w", [0, 90])
+def test_wide_forces_and_loss_match_plain(dev, m, w, dtype):
+    """B5w and B4w over a row block and a ragged edge part (a hub row of
+    3,000 edges, a row with none, the last row owning padding), or the
+    edges alone, against their plain versions; two launches bit for bit;
+    a shard of rows against the full embedding; one launch over both
+    parts the head's plus the tail's, bit for bit."""
+    y, jidx, jval, rag = _wide_ragged(dev, 700, w, m, 10 * m + w, dtype)
+    rtol = _wide_rtol(dtype)[0]
+    ak = att.attraction_forces(y, y, jidx, jval, 4.0, ragged=rag)
+    ap = att.attraction_forces_plain(y, y, jidx, jval, 4.0, ragged=rag)
+    _close_scaled(ak, ap, rtol)
+    assert torch.equal(ak, att.attraction_forces(y, y, jidx, jval, 4.0,
+                                                 ragged=rag))
+    z = torch.tensor(321.0, device=dev, dtype=dtype)
+    lk = att.attraction_loss(y, y, jidx, jval, 1.0, z, ragged=rag)
+    lp = att.attraction_loss_plain(y, y, jidx, jval, 1.0, z, ragged=rag)
+    _close_scaled(lk, lp, rtol)
+    assert torch.equal(lk, att.attraction_loss(y, y, jidx, jval, 1.0, z,
+                                               ragged=rag))
+    if w:
+        head = att.attraction_forces(y, y, jidx, jval, 4.0)
+        tail = att.attraction_forces(y, y, None, None, 4.0, ragged=rag)
+        assert torch.equal(ak, head + tail)
+    sl = slice(300, 500)
+    sub = att.ragged_edges(*(a[int(rag.rowptr[300]):int(rag.rowptr[500])]
+                             for a in (rag.src - 300, rag.dst, rag.val)),
+                           200)
+    blk = (None, None) if jidx is None else (jidx[sl], jval[sl])
+    _close_scaled(att.attraction_forces(y[sl], y, *blk, 1.0, ragged=sub),
+                  att.attraction_forces_plain(y[sl], y, *blk, 1.0,
+                                              ragged=sub), rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [9, 16, 64, 129])
+def test_wide_fused_step_is_the_unfused_step(dev, m, dtype):
+    """B3w's one launch over a CSR head and tail, with a mask: the unfused
+    step (B5w over head + tail, att − rep/Z, the vdM update) bit for bit,
+    with the head and without it, in index order and hubs first; against
+    its plain version on tie-free inputs (gains equal, y and update and
+    ‖grad‖² within the bar)."""
+    y, hidx, hval, rag = _wide_ragged(dev, 700, 48, m, 70 + m, dtype)
+    n = y.shape[0]
+    rng = np.random.default_rng(m)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a)).to(dev, dtype)
+    rep = t(1e-1 * rng.standard_normal((n, m)))
+    z = torch.tensor(1.0 + 0.37 * m, device=dev, dtype=dtype)
+    upd = t(1e-2 * rng.standard_normal((n, m)))
+    gains = t(1.0 + rng.random((n, m)))
+    valid = torch.arange(n, device=dev) % 9 != 4
+    for blk in ((hidx, hval), (None, None)):
+        forces = att.attraction_forces(y, y, *blk, 4.0, ragged=rag)
+        want = _unfused_step(y, forces, rep, z, upd, gains, 0.5, 200.0,
+                             valid)
+        for order in (None, att.visit_order(rag)):
+            got = att.fused_step_update(y, y, *blk, 4.0, rep, z, valid, upd,
+                                        gains, 0.5, eta=200.0,
+                                        min_gain=0.01, ragged=rag,
+                                        order=order)
+            for a, b in zip(got[:3], want):
+                assert torch.equal(a, b)
+    # tie-free: every grad at ±(|att| + a margin)
+    forces = att.attraction_forces(y, y, hidx, hval, 4.0, ragged=rag)
+    sign = t(rng.choice([-1.0, 1.0], (n, m)))
+    rep = (forces - sign * (forces.abs() + 1e-3 * forces.abs().max()))
+    one = torch.ones((), device=dev, dtype=dtype)
+    args = (y, y, hidx, hval, 4.0, rep.contiguous(), one, valid, upd, gains,
+            0.8)
+    kw = dict(eta=200.0, min_gain=0.01, ragged=rag)
+    ok = att.fused_step_update(*args, **kw)
+    op = att.fused_step_plain(*args, **kw)
+    assert torch.equal(ok[2], op[2])
+    rtol = _wide_rtol(dtype)[1]
+    for a, b in zip(ok[:2] + ok[3:], op[:2] + op[3:]):
+        _close_scaled(a, b, rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_wide_embed_launches_the_wide_forms(dev, dtype):
+    """``tsne_embed`` at n_components 12 on the card: B2w, the step's
+    kernel (B3w or B5w) and B4w, each under its dtype's name, and no
+    register-held instance; a finite embedding, falling KL."""
+    from tsne_flink_tpu_torch import TsneConfig, tsne_embed
+    from tsne_flink_tpu_torch.kernels.build import launches
+    x = _cells(2000, 20, 5).astype(
+        np.float64 if dtype == torch.float64 else np.float32)
+    reset_launches()
+    y, losses = tsne_embed(x, TsneConfig(n_components=12, perplexity=10.0,
+                                         iterations=120), device=dev)
+    got = {k: v for k, v in launches().items() if v}
+    sfx = "_f64" if dtype == torch.float64 else ""
+    step = "B3w" if got.get("B3w" + sfx) else "B5w"
+    assert got == {"B1" + sfx: 1, "B2w" + sfx: 120, step + sfx: 120,
+                   "B4w" + sfx: 12}
+    assert tuple(y.shape) == (2000, 12) and bool(torch.isfinite(y).all())
+    assert float(losses[-1]) < float(losses[10])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+@pytest.mark.parametrize("m", [9, 16, 100])
+def test_wide_widths_run_through_each_route(dev, tmp_path, m, dtype):
+    """n_components 9, 16 (one force chunk) and 100 (several chunks) at
+    each dtype through ``tsne_embed``, ``TSNE(n_components=m).fit`` and
+    the CLI's ``--nComponents m``: a finite embedding of m columns, and
+    only the dtype's wide forms (with B1) launched."""
+    from tsne_flink_tpu_torch import TSNE, TsneConfig, tsne_embed
+    from tsne_flink_tpu_torch.kernels.build import launches
+    from tsne_flink_tpu_torch.utils import cli as tcli
+    sfx = "_f64" if dtype == "float64" else ""
+    allowed = {"B1" + sfx} | {f"B{i}w{sfx}" for i in (2, 3, 4, 5)}
+    x = _cells(600, 12, 4).astype(dtype)
+
+    def wide_only():
+        got = {k: v for k, v in launches().items() if v}
+        assert set(got) <= allowed and got["B2w" + sfx] > 0, got
+
+    reset_launches()
+    y, losses = tsne_embed(x, TsneConfig(n_components=m, perplexity=8.0,
+                                         iterations=40), device=dev)
+    assert tuple(y.shape) == (600, m) and bool(torch.isfinite(y).all())
+    wide_only()
+    reset_launches()
+    est = TSNE(n_components=m, perplexity=8.0, n_iter=40, random_state=0,
+               dtype=dtype).fit(x)
+    assert est.embedding_.shape == (600, m)
+    assert np.isfinite(est.embedding_).all()
+    wide_only()
+    path, out = tmp_path / "in.csv", tmp_path / "o.csv"
+    with open(path, "w") as fh:
+        fh.writelines(f"{i},{j},{float(x[i, j])!r}\n"
+                      for i in range(x.shape[0]) for j in range(x.shape[1]))
+    reset_launches()
+    assert tcli.main(["--input", str(path), "--output", str(out),
+                      "--dimension", str(x.shape[1]), "--knnMethod",
+                      "bruteforce", "--perplexity", "8", "--iterations",
+                      "40", "--nComponents", str(m), "--dtype", dtype,
+                      "--noCache"]) == 0
+    rows = np.loadtxt(out, delimiter=",", ndmin=2)
+    assert rows.shape == (600, m + 1) and np.isfinite(rows).all()
+    wide_only()
+
+
+def test_wide_geometry_mirrors_the_kernels(dev):
+    """The wide forms' geometry the Python side mirrors for the memory
+    model (M_NARROW, B2w's rows a block and force chunk, B3w-B5w's dims
+    a chunk and chunks) equals what the kernel library states, at every
+    m = 1 .. 520 and both dtypes."""
+    from tsne_flink_tpu_torch.kernels.build import M_NARROW
+    from tsne_flink_tpu_torch.ops import attraction_cuda as att
+    from tsne_flink_tpu_torch.ops import repulsion_cuda as rc
+    for m in range(1, 521):
+        assert att.kernel_wide_config(m) == (M_NARROW, att.WIDE_DIMS,
+                                             att.wide_chunks(m))
+        for f64 in (False, True):
+            assert rc.kernel_wide_config(m, f64) == (
+                M_NARROW, rc.WIDE_ROWS_PER_BLOCK, rc.wide_chunk(m, f64))
+
+
+def test_wide_mesh_equals_mesh_1(dev):
+    """``TSNE(n_components=16)`` on the test mesh of 2 gives the mesh of
+    1's bits on the card (B2w's canonical splits, B3w's per-row sums)."""
+    from tsne_flink_tpu_torch import TSNE
+    x = _cells(3000, 20, 6)
+    kw = dict(n_components=16, perplexity=10.0, n_iter=60, random_state=0)
+    y1 = TSNE(mesh=["cuda:0"], **kw).fit_transform(x)
+    y2 = TSNE(mesh=["cuda:0"] * 2, **kw).fit_transform(x)
+    assert y1.shape == (3000, 16) and np.isfinite(y1).all()
+    np.testing.assert_array_equal(y2, y1)

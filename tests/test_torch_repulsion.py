@@ -69,7 +69,7 @@ def test_column_splits_fill_the_card_and_cover_the_columns(sms):
     for nloc, nfull in ((60_000, 60_000), (2000, 2000), (100, 100),
                         (20_011, 20_011), (1_306_127, 1_306_127),
                         (2472, 9472)):
-        s = rc.column_splits(nloc, nfull, sms)
+        s = rc.column_splits(nloc, nfull, sms, 2, False)
         tiles = -(-nfull // rc.COLS_PER_TILE)
         assert 1 <= s <= tiles
         blocks = -(-nloc // rc.ROWS_PER_BLOCK) * s
@@ -77,4 +77,4 @@ def test_column_splits_fill_the_card_and_cover_the_columns(sms):
                              -(-nloc // rc.ROWS_PER_BLOCK) * tiles)
         span = -(-nfull // s)
         assert (s - 1) * span < nfull <= s * span
-    assert rc.column_splits(60_000, 60_000, 132) == 36
+    assert rc.column_splits(60_000, 60_000, 132, 2, False) == 36

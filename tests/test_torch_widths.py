@@ -2,16 +2,17 @@
 limits that remain.
 
 The card's kernels take every embedding width m = 1 .. 8 (B2-B5, the JAX
-package's MPAD) and every k (B1's deep class to 1,024, its pending class
+package's MPAD; wider m runs in their wide forms, tests/test_torch_wide.py)
+and every k (B1's deep class to 1,024, its pending class
 past it; B6 on chip, or through its workspace route where a stage does
 not fit).  Here their plain versions are held at those shapes against
 the JAX package — its Pallas kernels in interpret mode
 (``pallas_interpret``) or its XLA twins — on the same seeded numpy
 inputs, the B6 route and the tile plan's workspace are held to their
 formulas, ``prepare`` and ``tsne_embed`` run past k = 1,024 on every kNN
-plan, and the requests past the kernels' limits (m outside 1 .. 8, d past
-12,288 on a refining plan) are refused before the kNN stage runs, on the
-CPU as on the card.
+plan, and the requests past the limits (m = 0, d past 12,288 on a
+refining plan) are refused before the kNN stage runs, on the CPU as on
+the card.
 """
 
 from dataclasses import replace
@@ -299,11 +300,21 @@ def no_knn(monkeypatch):
 
 
 @pytest.mark.parametrize("m", [0, 9])
-def test_embedding_width_past_the_kernels_raises_first(no_knn, m):
+def test_embedding_width_past_the_kernels_raises_first(request, m):
+    """n_components = 0 is refused before the kNN stage; 9, past the
+    register-held instances, runs (B2-B5's wide forms on the card) to a
+    finite embedding."""
     x = np.random.default_rng(0).standard_normal((50, 4))
-    with pytest.raises(ValueError, match="n_components"):
-        tsne_embed(x, TsneConfig(n_components=m, iterations=10),
-                   neighbors=5, device="cpu")
+    if m == 0:
+        request.getfixturevalue("no_knn")
+        with pytest.raises(ValueError, match="n_components"):
+            tsne_embed(x, TsneConfig(n_components=m, iterations=10),
+                       neighbors=5, device="cpu")
+        return
+    y, losses = tsne_embed(x, TsneConfig(n_components=m, iterations=10),
+                           neighbors=5, device="cpu")
+    assert tuple(y.shape) == (50, m) and bool(torch.isfinite(y).all())
+    assert bool(torch.isfinite(losses).all())
 
 
 @pytest.mark.parametrize("method", ["bruteforce", "partition", "project",

@@ -481,8 +481,9 @@ def _port_optimize(plan: PlanConfig, terms: dict) -> None:
     (``ops/affinities.plan_attraction``) counts the row layout's entries
     through an [N, S] bool mask widened to int64 (9 B a slot) while the
     rows are held.  On the card B2 streams its columns: no [chunk, N]
-    tile, only its column splits' partial rep and Z
-    (``ops/repulsion_cuda.column_splits`` on :data:`CARD_SMS`)."""
+    tile, only its column splits' partial rep and Z: the slab
+    ``ops/repulsion_cuda.partials_bytes`` allocates on :data:`CARD_SMS`
+    (the wide form's splits past m = 8, the rows rounded to 4)."""
     n, d, k, m, isz = (plan.n, plan.d, plan.k, plan.n_components,
                        plan.itemsize)
     if plan.backend == "cuda":
@@ -490,8 +491,9 @@ def _port_optimize(plan: PlanConfig, terms: dict) -> None:
         terms["peak"] += resident - terms["resident"]
         terms["resident"] = resident
         if terms["repulsion"] == "exact":
-            from tsne_flink_tpu_torch.ops.repulsion_cuda import column_splits
-            tile = float(column_splits(n, n, CARD_SMS) * n * (m + 1) * isz)
+            from tsne_flink_tpu_torch.ops.repulsion_cuda import (
+                partials_bytes)
+            tile = float(partials_bytes(n, n, m, isz, CARD_SMS))
             terms["peak"] += tile - terms["repulsion_tile"]
             terms["repulsion_tile"] = tile
     if terms["assembly"] != "blocks" and plan.attraction != "rows":

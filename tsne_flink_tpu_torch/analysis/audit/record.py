@@ -63,19 +63,22 @@ _ACCUMULATE_ARG = {"aten.index_put": 3, "aten.index_put_": 3,
 
 
 def _plain_form(f) -> str:
-    """The kernel id a plain version's frame stands in for: its float64
-    form's when the frame's first tensor argument (``refine_final_plain``'s
-    follows the metric's name) is a float64 tensor."""
+    """The kernel id a plain version's frame stands in for
+    (``kernels/build.form_id``): by the frame's first tensor argument
+    (``refine_final_plain``'s follows the metric's name), its float64
+    form's when that tensor is float64, B2-B5's wide form's when it is an
+    [N, m] embedding past ``M_NARROW``."""
     import torch
+    from tsne_flink_tpu_torch.kernels.build import form_id
     kid = PLAIN_OF[f.f_code.co_name]
     code = f.f_code
     first = next((v for v in map(f.f_locals.get,
                                  code.co_varnames[:code.co_argcount])
                   if isinstance(v, torch.Tensor)), None)
-    if (kid in F64_FORMS and first is not None
-            and first.dtype == torch.float64):
-        return kid + "_f64"
-    return kid
+    if first is None:
+        return kid
+    return form_id(kid, kid in F64_FORMS and first.dtype == torch.float64,
+                   first.shape[1] if first.dim() == 2 else 0)
 
 
 def _frames(limit: int = 12) -> tuple[list, int | None, str | None]:

@@ -68,7 +68,8 @@
 // in-place y would race.  B3 and B4 read the global Z from device memory
 // (no host round trip); B4 writes per-row partials only, their sum a
 // fixed-order torch.sum outside.  No kernel here uses atomics.  Every m
-// from 1 to 8 (the JAX package's MPAD) is a template instance.
+// from 1 to 8 (the JAX package's MPAD) is a template instance; a wider m
+// takes the wide forms below (B3w, B4w, B5w: the *_wide_* entries).
 //
 // The float64 forms (B3_f64, B4_f64, B5_f64: the C entries ending in _f64)
 // are the same templates over the scalar type: tsne::Num<double> gives
@@ -400,6 +401,342 @@ loss_kernel(const T* __restrict__ y_loc, const T* __restrict__ y_full,
   if (lane == 0) loss_rows[i] = FWD && RAG ? fwd + rag : FWD ? fwd : rag;
 }
 
+// ---- the wide forms (B3w, B4w, B5w and their _f64 forms): any m ------------
+//
+// At wide m a lane cannot hold a neighbour's point.  The lanes of a warp
+// split a row's dimensions instead: lane l owns dimensions l + 32·g (g a
+// group of 32), one coalesced load of y_full[j] a group serves the warp,
+// and the warp walks the row's slots in order, WU at a time, skipping
+// padding (value 0 adds exactly 0).  A slot's d² — the forward part's
+// norm-trick terms |y_j|² and y_i·y_j, the ragged part's Σ(y_i − y_j)² —
+// is a per-lane partial over the groups in order, then a butterfly (a
+// fixed order: every lane holds the same bits), so each lane has the
+// slot's q and adds its own dimensions' terms; the running sums (Σw, the
+// KL) are the same in every lane.  A lane keeps WG groups (128 dims) in
+// registers; past that a second grid dimension runs ceil(m / 128) force
+// chunks of a row, each recomputing d² over all m with the same
+// operations in the same order.  B4 runs one chunk (its loss needs no
+// force); B3 writes each chunk's ‖grad‖² partial, summed outside.
+//
+// The contract is the narrow kernels': the forward part's distances by the
+// norm trick clamped at 0, the ragged part's by differences, each part's
+// sums in its own accumulators, every product and sum rounded on its own,
+// no atomics.  The sums over a row's slots are compensated (Kahan).  B3 and B5 share the walk
+// (wide_row, wide_walk, wide_forces), so B3's att is B5's bits and the
+// fused step the unfused one's.
+constexpr int WG = 4;  // groups of 32 dims a lane keeps: 128 dims a chunk
+constexpr int WU = 4;  // slots a warp takes at a time
+
+template <class T>
+struct WideRow {
+  int m, ng, g0, gn;  // the width, its groups, the chunk's first and count
+  const T* yi;        // the row in y_loc
+  T yc[WG];           // the lane's coordinates in the chunk's groups
+  T rr;               // |y_i|², the same in every lane
+};
+
+template <class T>
+__device__ __forceinline__ T dim_of(const T* __restrict__ row, int m, int g,
+                                    int lane) {
+  const int d = 32 * g + lane;
+  return d < m ? row[d] : T(0);
+}
+
+template <class T>
+__device__ __forceinline__ void wide_row(const T* __restrict__ y_loc, int i,
+                                         int m, int chunk, int lane,
+                                         WideRow<T>& w) {
+  using N = tsne::Num<T>;
+  w.m = m;
+  w.ng = (m + 31) / 32;
+  w.g0 = chunk * WG;
+  w.gn = min(WG, w.ng - w.g0);
+  w.yi = y_loc + (size_t)i * m;
+#pragma unroll
+  for (int u = 0; u < WG; ++u)
+    w.yc[u] = u < w.gn ? dim_of(w.yi, m, w.g0 + u, lane) : T(0);
+  T rr = T(0);
+  for (int g = 0; g < w.ng; ++g) {
+    const T v = dim_of(w.yi, m, g, lane);
+    rr = N::add(rr, N::mul(v, v));
+  }
+  w.rr = tsne::warp_sum(rr);
+}
+
+// q of WU slots (ids j, live where a slot is taken; FWD: the norm trick,
+// else differences) and the chunk's groups of their points in yj
+template <class T, bool FWD>
+__device__ __forceinline__ void wide_slots(const WideRow<T>& w,
+                                           const T* __restrict__ y_full,
+                                           const int (&j)[WU],
+                                           const bool (&live)[WU], int lane,
+                                           T (&yj)[WU][WG], T (&q)[WU]) {
+  using N = tsne::Num<T>;
+  T pa[WU], pb[WU];
+#pragma unroll
+  for (int u = 0; u < WU; ++u) pa[u] = pb[u] = T(0);
+  auto add = [&](int u, T a, T b) {
+    if constexpr (FWD) {
+      pa[u] = N::add(pa[u], N::mul(b, b));
+      pb[u] = N::add(pb[u], N::mul(a, b));
+    } else {
+      const T df = N::sub(a, b);
+      pa[u] = N::add(pa[u], N::mul(df, df));
+    }
+  };
+  // the groups before the chunk, the chunk's, the groups after it: the
+  // partials take g = 0 .. ng − 1 in order whatever the chunk
+  for (int g = 0; g < w.g0; ++g)
+#pragma unroll
+    for (int u = 0; u < WU; ++u)
+      if (live[u])
+        add(u, dim_of(w.yi, w.m, g, lane),
+            dim_of(y_full + (size_t)j[u] * w.m, w.m, g, lane));
+#pragma unroll
+  for (int ug = 0; ug < WG; ++ug)
+#pragma unroll
+    for (int u = 0; u < WU; ++u)
+      yj[u][ug] = live[u] && ug < w.gn
+                      ? dim_of(y_full + (size_t)j[u] * w.m, w.m, w.g0 + ug,
+                               lane)
+                      : T(0);
+#pragma unroll
+  for (int ug = 0; ug < WG; ++ug)
+    if (ug < w.gn)
+#pragma unroll
+      for (int u = 0; u < WU; ++u)
+        if (live[u]) add(u, w.yc[ug], yj[u][ug]);
+  for (int g = w.g0 + w.gn; g < w.ng; ++g)
+#pragma unroll
+    for (int u = 0; u < WU; ++u)
+      if (live[u])
+        add(u, dim_of(w.yi, w.m, g, lane),
+            dim_of(y_full + (size_t)j[u] * w.m, w.m, g, lane));
+#pragma unroll
+  for (int u = 0; u < WU; ++u) {
+    T d2;
+    if constexpr (FWD)
+      d2 = N::max(N::sub(N::add(w.rr, tsne::warp_sum(pa[u])),
+                         N::mul(T(2), tsne::warp_sum(pb[u]))),
+                  T(0));
+    else
+      d2 = tsne::warp_sum(pa[u]);
+    q[u] = N::rcp(N::add(T(1), d2));
+  }
+}
+
+// Walks a part's slots [0, len) (value vals[c], id ids[c], read only where
+// the value is set) in order: 32 a batch, one a lane, then the set ones WU
+// at a time, each handed to f(value, its point's chunk groups, q).
+template <class T, bool FWD, class F>
+__device__ __forceinline__ void wide_walk(const WideRow<T>& w,
+                                          const T* __restrict__ y_full,
+                                          const int* __restrict__ ids,
+                                          const T* __restrict__ vals,
+                                          long long len, int lane, F&& f) {
+  for (long long at = 0; at < len; at += 32) {
+    const long long c = at + lane;
+    const T v = c < len ? vals[c] : T(0);
+    const int jid = v > T(0) ? ids[c] : 0;
+    unsigned set = __ballot_sync(tsne::kFullMask, v > T(0));
+    while (set) {
+      int j[WU];
+      bool live[WU];
+      T vv[WU];
+#pragma unroll
+      for (int u = 0; u < WU; ++u) {
+        live[u] = set != 0u;
+        const int src = live[u] ? __ffs((int)set) - 1 : 0;
+        set &= set - 1u;
+        vv[u] = __shfl_sync(tsne::kFullMask, v, src);
+        j[u] = __shfl_sync(tsne::kFullMask, jid, src);
+      }
+      T yj[WU][WG], q[WU];
+      wide_slots<T, FWD>(w, y_full, j, live, lane, yj, q);
+#pragma unroll
+      for (int u = 0; u < WU; ++u)
+        if (live[u]) f(vv[u], yj[u], q[u]);
+    }
+  }
+}
+
+// A compensated (Kahan) running sum.  Every lane of a wide form walks all
+// of a row's slots in sequence — hundreds in a head block, thousands in a
+// hub's tail — where the narrow forms give each lane W/32 of them and
+// add the lanes by a butterfly.  Plain sequential sums lost ~6x the plain
+// version's accuracy against float64 at a converged m = 16 embedding,
+// where the forward part's y_i·Σw − Σw·y_j cancels; compensated ones
+// stay within it.  Each step is separately rounded (no FMA contraction).
+template <class T>
+struct Kahan {
+  T s, c;
+  __device__ __forceinline__ Kahan() : s(T(0)), c(T(0)) {}
+  __device__ __forceinline__ void add(T x) {
+    using N = tsne::Num<T>;
+    const T y = N::sub(x, c);
+    const T t = N::add(s, y);
+    c = N::sub(N::sub(t, s), y);
+    s = t;
+  }
+};
+
+// A row's forces in the lane's chunk dims: the forward part y_i·Σw − Σw·y_j
+// (w = v·exag·q) and the ragged part Σ w·(y_i − y_j), each sum over the
+// slots compensated (Kahan).
+template <class T, bool FWD, bool RAG>
+__device__ __forceinline__ void wide_forces(
+    const WideRow<T>& w, const T* __restrict__ y_full,
+    const int* __restrict__ ir, const T* __restrict__ vr, int wdt,
+    const int* __restrict__ dst, const T* __restrict__ val, long long e0,
+    long long e1, T exag, int lane, T (&fwd)[WG], T (&rag)[WG]) {
+  using N = tsne::Num<T>;
+#pragma unroll
+  for (int u = 0; u < WG; ++u) rag[u] = fwd[u] = T(0);
+  if constexpr (FWD) {
+    Kahan<T> sw, swy[WG];
+    wide_walk<T, true>(w, y_full, ir, vr, wdt, lane,
+                       [&](T v, const T (&yj)[WG], T q) {
+                         const T wt = N::mul(N::mul(v, exag), q);
+                         sw.add(wt);
+#pragma unroll
+                         for (int u = 0; u < WG; ++u)
+                           swy[u].add(N::mul(wt, yj[u]));
+                       });
+#pragma unroll
+    for (int u = 0; u < WG; ++u)
+      fwd[u] = N::sub(N::mul(w.yc[u], sw.s), swy[u].s);
+  }
+  if constexpr (RAG) {
+    Kahan<T> acc[WG];
+    wide_walk<T, false>(w, y_full, dst + e0, val + e0, e1 - e0, lane,
+                        [&](T v, const T (&yj)[WG], T q) {
+                          const T wt = N::mul(N::mul(v, exag), q);
+#pragma unroll
+                          for (int u = 0; u < WG; ++u)
+                            acc[u].add(N::mul(wt, N::sub(w.yc[u], yj[u])));
+                        });
+#pragma unroll
+    for (int u = 0; u < WG; ++u) rag[u] = acc[u].s;
+  }
+}
+
+template <class T, bool FWD, bool RAG>
+__global__ void __launch_bounds__(THREADS)
+forces_wide_kernel(const T* __restrict__ y_loc, const T* __restrict__ y_full,
+                   const int* __restrict__ jidx, const T* __restrict__ jval,
+                   int nloc, int w, const long long* __restrict__ rowptr,
+                   const int* __restrict__ dst, const T* __restrict__ val,
+                   int m, T exag, T* __restrict__ att_out) {
+  using N = tsne::Num<T>;
+  const int i = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (i >= nloc) return;  // whole warp
+  WideRow<T> row;
+  wide_row<T>(y_loc, i, m, blockIdx.y, lane, row);
+  const long long e0 = RAG ? rowptr[i] : 0, e1 = RAG ? rowptr[i + 1] : 0;
+  T fwd[WG], rag[WG];
+  wide_forces<T, FWD, RAG>(row, y_full, jidx + (size_t)i * w,
+                           jval + (size_t)i * w, w, dst, val, e0, e1, exag,
+                           lane, fwd, rag);
+#pragma unroll
+  for (int u = 0; u < WG; ++u) {
+    const int d = 32 * (row.g0 + u) + lane;
+    if (u < row.gn && d < m)
+      att_out[(size_t)i * m + d] = FWD && RAG ? N::add(fwd[u], rag[u])
+                                   : FWD      ? fwd[u]
+                                              : rag[u];
+  }
+}
+
+template <class T, bool FWD, bool RAG>
+__global__ void __launch_bounds__(THREADS)
+loss_wide_kernel(const T* __restrict__ y_loc, const T* __restrict__ y_full,
+                 const int* __restrict__ jidx, const T* __restrict__ jval,
+                 int nloc, int w, const long long* __restrict__ rowptr,
+                 const int* __restrict__ dst, const T* __restrict__ val,
+                 int m, T exag, const T* __restrict__ z_ptr,
+                 T* __restrict__ loss_rows) {
+  const int i = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (i >= nloc) return;
+  WideRow<T> row;
+  wide_row<T>(y_loc, i, m, 0, lane, row);
+  const T z = *z_ptr;
+  Kahan<T> fwd, rag;
+  if constexpr (FWD)
+    wide_walk<T, true>(row, y_full, jidx + (size_t)i * w,
+                       jval + (size_t)i * w, w, lane,
+                       [&](T v, const T (&)[WG], T q) {
+                         fwd.add(kl_term<T>(v, exag, z, q));
+                       });
+  if constexpr (RAG) {
+    const long long e0 = rowptr[i], e1 = rowptr[i + 1];
+    wide_walk<T, false>(row, y_full, dst + e0, val + e0, e1 - e0, lane,
+                        [&](T v, const T (&)[WG], T q) {
+                          rag.add(kl_term<T>(v, exag, z, q));
+                        });
+  }
+  if (lane == 0)
+    loss_rows[i] = FWD && RAG ? fwd.s + rag.s : FWD ? fwd.s : rag.s;
+}
+
+// B3w: as fused_step_kernel, over the lane's chunk dims; gsq_out [chunks,
+// nloc] takes each chunk's ‖grad‖² partial
+template <class T, bool FWD, bool RAG>
+__global__ void __launch_bounds__(THREADS)
+fused_step_wide_kernel(const T* __restrict__ y_loc,
+                       const T* __restrict__ y_full,
+                       const int* __restrict__ hidx,
+                       const T* __restrict__ hval, int nloc, int w,
+                       const long long* __restrict__ rowptr,
+                       const int* __restrict__ dst, const T* __restrict__ val,
+                       int m, const int* __restrict__ order,
+                       const T* __restrict__ rep, const T* __restrict__ z_ptr,
+                       const T* __restrict__ mask, const T* __restrict__ upd,
+                       const T* __restrict__ gains, T exag, T momentum, T eta,
+                       T min_gain, T* __restrict__ y_out,
+                       T* __restrict__ upd_out, T* __restrict__ gains_out,
+                       T* __restrict__ gsq_out) {
+  using N = tsne::Num<T>;
+  const int s = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (s >= nloc) return;  // whole warp
+  const int i = order != nullptr ? order[s] : s;
+  WideRow<T> row;
+  wide_row<T>(y_loc, i, m, blockIdx.y, lane, row);
+  const long long e0 = RAG ? rowptr[i] : 0, e1 = RAG ? rowptr[i + 1] : 0;
+  T fwd[WG], rag[WG];
+  wide_forces<T, FWD, RAG>(row, y_full, hidx + (size_t)i * w,
+                           hval + (size_t)i * w, w, dst, val, e0, e1, exag,
+                           lane, fwd, rag);
+  const T z = *z_ptr;
+  const T mk = mask != nullptr ? mask[i] : T(1);
+  T gsq = T(0);
+#pragma unroll
+  for (int u = 0; u < WG; ++u) {
+    const int d = 32 * (row.g0 + u) + lane;
+    if (u >= row.gn || d >= m) continue;
+    const size_t o = (size_t)i * m + d;
+    const T att = FWD && RAG ? N::add(fwd[u], rag[u]) : FWD ? fwd[u] : rag[u];
+    const T grad = N::mul(N::sub(att, N::div(rep[o], z)), mk);
+    const T up = upd[o];
+    const T g0 = gains[o];
+    const T g = N::max((grad > T(0)) == (up > T(0)) ? N::mul(g0, Gain<T>::down)
+                                                    : N::add(g0, Gain<T>::up),
+                       min_gain);
+    const T un = N::sub(N::mul(momentum, up), N::mul(N::mul(eta, g), grad));
+    y_out[o] = N::add(row.yc[u], un);
+    upd_out[o] = un;
+    gains_out[o] = g;
+    gsq = N::fma(grad, grad, gsq);
+  }
+  gsq = tsne::warp_sum(gsq);
+  if (lane == 0) gsq_out[(size_t)blockIdx.y * nloc + i] = gsq;
+}
+
+// the force chunks of a wide launch (ops/attraction_cuda.wide_chunks)
+inline int wide_chunks(int m) { return (m + 32 * WG - 1) / (32 * WG); }
+
 int grid_for(int nloc) { return (nloc + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK; }
 
 // the instance for the parts a launch has: the forward block when w > 0 or
@@ -473,6 +810,74 @@ int attraction_forces(const T* y_loc, const T* y_full, const int* jidx,
                                             w, rowptr, dst, val, exag, att);
     return tsne::launch_status();
   });
+}
+
+// the wide instance for the parts a launch has, as forces_for picks it
+template <class T>
+auto forces_wide_for(int w, const long long* rowptr) {
+  return rowptr == nullptr ? forces_wide_kernel<T, true, false>
+         : w == 0          ? forces_wide_kernel<T, false, true>
+                           : forces_wide_kernel<T, true, true>;
+}
+
+template <class T>
+auto fused_wide_for(int w, const long long* rowptr) {
+  return rowptr == nullptr ? fused_step_wide_kernel<T, true, false>
+         : w == 0          ? fused_step_wide_kernel<T, false, true>
+                           : fused_step_wide_kernel<T, true, true>;
+}
+
+template <class T>
+auto loss_wide_for(int w, const long long* rowptr) {
+  return rowptr == nullptr ? loss_wide_kernel<T, true, false>
+         : w == 0          ? loss_wide_kernel<T, false, true>
+                           : loss_wide_kernel<T, true, true>;
+}
+
+template <class T>
+int fused_step_wide(const T* y_loc, const T* y_full, const int* hidx,
+                    const T* hval, int nloc, int w, const long long* rowptr,
+                    const int* dst, const T* val, int m, const int* order,
+                    const T* rep, const T* z_ptr, const T* mask, const T* upd,
+                    const T* gains, T exag, T momentum, T eta, T min_gain,
+                    T* y_out, T* upd_out, T* gains_out, T* gsq_out,
+                    void* stream) {
+  if (m < 1 || wide_chunks(m) > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(grid_for(nloc), wide_chunks(m));
+  const auto kern = fused_wide_for<T>(w, rowptr);
+  kern<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      y_loc, y_full, hidx, hval, nloc, w, rowptr, dst, val, m, order, rep,
+      z_ptr, mask, upd, gains, exag, momentum, eta, min_gain, y_out, upd_out,
+      gains_out, gsq_out);
+  return tsne::launch_status();
+}
+
+template <class T>
+int attraction_loss_wide(const T* y_loc, const T* y_full, const int* jidx,
+                         const T* jval, int nloc, int w,
+                         const long long* rowptr, const int* dst,
+                         const T* val, int m, T exag, const T* z_ptr,
+                         T* loss_rows, void* stream) {
+  if (m < 1) return (int)cudaErrorInvalidValue;
+  const auto kern = loss_wide_for<T>(w, rowptr);
+  kern<<<grid_for(nloc), THREADS, 0, (cudaStream_t)stream>>>(
+      y_loc, y_full, jidx, jval, nloc, w, rowptr, dst, val, m, exag, z_ptr,
+      loss_rows);
+  return tsne::launch_status();
+}
+
+template <class T>
+int attraction_forces_wide(const T* y_loc, const T* y_full, const int* jidx,
+                           const T* jval, int nloc, int w,
+                           const long long* rowptr, const int* dst,
+                           const T* val, int m, T exag, T* att,
+                           void* stream) {
+  if (m < 1 || wide_chunks(m) > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(grid_for(nloc), wide_chunks(m));
+  const auto kern = forces_wide_for<T>(w, rowptr);
+  kern<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
+      y_loc, y_full, jidx, jval, nloc, w, rowptr, dst, val, m, exag, att);
+  return tsne::launch_status();
 }
 
 }  // namespace
@@ -572,4 +977,86 @@ TSNE_API int tsne_attraction_forces_f64(const double* y_loc,
                                         void* stream) {
   return attraction_forces<double>(y_loc, y_full, jidx, jval, nloc, w,
                                    rowptr, dst, val, m, exag, att, stream);
+}
+
+// The wide forms (B3w, B4w, B5w; the wrappers send them m > 8): the
+// operands of the narrow entries above, any m >= 1.  The fused step's
+// gsq_out is [ceil(m / 128), nloc]: each force chunk's ‖grad‖² partial.
+TSNE_API int tsne_fused_step_wide_f32(
+    const float* y_loc, const float* y_full, const int* hidx,
+    const float* hval, int nloc, int w, const long long* rowptr,
+    const int* dst, const float* val, int m, const int* order,
+    const float* rep, const float* z_ptr, const float* mask, const float* upd,
+    const float* gains, float exag, float momentum, float eta,
+    float min_gain, float* y_out, float* upd_out, float* gains_out,
+    float* gsq_out, void* stream) {
+  return fused_step_wide<float>(y_loc, y_full, hidx, hval, nloc, w, rowptr,
+                                dst, val, m, order, rep, z_ptr, mask, upd,
+                                gains, exag, momentum, eta, min_gain, y_out,
+                                upd_out, gains_out, gsq_out, stream);
+}
+
+TSNE_API int tsne_fused_step_wide_f64(
+    const double* y_loc, const double* y_full, const int* hidx,
+    const double* hval, int nloc, int w, const long long* rowptr,
+    const int* dst, const double* val, int m, const int* order,
+    const double* rep, const double* z_ptr, const double* mask,
+    const double* upd, const double* gains, double exag, double momentum,
+    double eta, double min_gain, double* y_out, double* upd_out,
+    double* gains_out, double* gsq_out, void* stream) {
+  return fused_step_wide<double>(y_loc, y_full, hidx, hval, nloc, w, rowptr,
+                                 dst, val, m, order, rep, z_ptr, mask, upd,
+                                 gains, exag, momentum, eta, min_gain, y_out,
+                                 upd_out, gains_out, gsq_out, stream);
+}
+
+TSNE_API int tsne_attraction_loss_wide_f32(
+    const float* y_loc, const float* y_full, const int* jidx,
+    const float* jval, int nloc, int w, const long long* rowptr,
+    const int* dst, const float* val, int m, float exag, const float* z_ptr,
+    float* loss_rows, void* stream) {
+  return attraction_loss_wide<float>(y_loc, y_full, jidx, jval, nloc, w,
+                                     rowptr, dst, val, m, exag, z_ptr,
+                                     loss_rows, stream);
+}
+
+TSNE_API int tsne_attraction_loss_wide_f64(
+    const double* y_loc, const double* y_full, const int* jidx,
+    const double* jval, int nloc, int w, const long long* rowptr,
+    const int* dst, const double* val, int m, double exag,
+    const double* z_ptr, double* loss_rows, void* stream) {
+  return attraction_loss_wide<double>(y_loc, y_full, jidx, jval, nloc, w,
+                                      rowptr, dst, val, m, exag, z_ptr,
+                                      loss_rows, stream);
+}
+
+TSNE_API int tsne_attraction_forces_wide_f32(
+    const float* y_loc, const float* y_full, const int* jidx,
+    const float* jval, int nloc, int w, const long long* rowptr,
+    const int* dst, const float* val, int m, float exag, float* att,
+    void* stream) {
+  return attraction_forces_wide<float>(y_loc, y_full, jidx, jval, nloc, w,
+                                       rowptr, dst, val, m, exag, att,
+                                       stream);
+}
+
+TSNE_API int tsne_attraction_forces_wide_f64(
+    const double* y_loc, const double* y_full, const int* jidx,
+    const double* jval, int nloc, int w, const long long* rowptr,
+    const int* dst, const double* val, int m, double exag, double* att,
+    void* stream) {
+  return attraction_forces_wide<double>(y_loc, y_full, jidx, jval, nloc, w,
+                                        rowptr, dst, val, m, exag, att,
+                                        stream);
+}
+
+// The wide forms' geometry at width m, as the launches above use it:
+// *dims the dims of one force chunk (32 lanes x WG groups), *chunks the
+// chunks of a B3w / B5w launch (B3w writes a ‖grad‖² partial each; the
+// wrapper sizes that buffer from this).  Returns M_NARROW, the widest m
+// with a register-held instance.
+TSNE_API int tsne_attraction_wide_config(int m, int* dims, int* chunks) {
+  *dims = 32 * WG;
+  *chunks = wide_chunks(m);
+  return tsne::M_NARROW;
 }

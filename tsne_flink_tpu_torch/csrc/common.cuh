@@ -19,12 +19,14 @@ namespace tsne {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// the embedding widths the kernels take: the JAX package's MPAD
-constexpr int M_MAX = 8;
+// the embedding widths with a register-blocked instance each (the JAX
+// package's MPAD); a wider m takes a kernel's wide form (the *_wide_* C
+// entries of csrc/repulsion.cu and csrc/attraction.cu), which takes any m
+constexpr int M_NARROW = 8;
 
-// Calls f(std::integral_constant<int, M>{}) for m = M in 1 .. M_MAX — the
-// one place a source turns the runtime width into its template argument —
-// or returns cudaErrorInvalidValue.
+// Calls f(std::integral_constant<int, M>{}) for m = M in 1 .. M_NARROW —
+// the one place a source turns the runtime width into its template
+// argument — or returns cudaErrorInvalidValue.
 template <class F>
 int with_m(int m, F&& f) {
   switch (m) {

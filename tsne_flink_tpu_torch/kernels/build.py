@@ -85,6 +85,12 @@ SIGNATURES = {
     "tsne_refine_chunk_f64": [_P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _I,
                               _I, _P, _P, _I, _I, _I, _P, _P, _P, _S, _P],
 }
+# the wide forms of B2-B5 (m > 8): the narrow forms' operands
+for _name in ("repulsion", "fused_step", "attraction_loss",
+              "attraction_forces"):
+    for _t in ("f32", "f64"):
+        SIGNATURES[f"tsne_{_name}_wide_{_t}"] = SIGNATURES[
+            f"tsne_{_name}_{_t}"]
 
 
 #: seconds a process waits for another's build of the same library, and
@@ -249,6 +255,10 @@ def _library() -> ctypes.CDLL:
     lib.tsne_knn_config.restype = ctypes.c_int
     lib.tsne_refine_route.argtypes = [_I, _I, _I, _I, _I, _I, _I, _I, _P]
     lib.tsne_refine_route.restype = _S
+    lib.tsne_repulsion_wide_config.argtypes = [_I, _I, _P, _P]
+    lib.tsne_repulsion_wide_config.restype = ctypes.c_int
+    lib.tsne_attraction_wide_config.argtypes = [_I, _P, _P]
+    lib.tsne_attraction_wide_config.restype = ctypes.c_int
     lib.tsne_error_string.argtypes = [ctypes.c_int]
     lib.tsne_error_string.restype = ctypes.c_char_p
     return lib
@@ -290,9 +300,9 @@ class Kernel:
 LAUNCH_HOOKS: list = []
 
 #: the port's kernels by the id of the TPU kernel each replaces; B1's
-#: bf16-operand form (mixed precision) and the float64 forms of B1-B6
-#: count under names of their own, so a run's launches tell the forms
-#: apart
+#: bf16-operand form (mixed precision), the float64 forms of B1-B6 and
+#: the wide forms of B2-B5 (``w``: embeddings wider than 8) count under
+#: names of their own, so a run's launches tell the forms apart
 KERNELS = {
     "B1": Kernel("tsne_knn_f32", "B1"),
     "B1_bf16": Kernel("tsne_knn_bf16", "B1_bf16"),
@@ -307,7 +317,31 @@ KERNELS = {
     "B5_f64": Kernel("tsne_attraction_forces_f64", "B5_f64"),
     "B6": Kernel("tsne_refine_chunk_f32", "B6"),
     "B6_f64": Kernel("tsne_refine_chunk_f64", "B6_f64"),
+    "B2w": Kernel("tsne_repulsion_wide_f32", "B2w"),
+    "B2w_f64": Kernel("tsne_repulsion_wide_f64", "B2w_f64"),
+    "B3w": Kernel("tsne_fused_step_wide_f32", "B3w"),
+    "B3w_f64": Kernel("tsne_fused_step_wide_f64", "B3w_f64"),
+    "B4w": Kernel("tsne_attraction_loss_wide_f32", "B4w"),
+    "B4w_f64": Kernel("tsne_attraction_loss_wide_f64", "B4w_f64"),
+    "B5w": Kernel("tsne_attraction_forces_wide_f32", "B5w"),
+    "B5w_f64": Kernel("tsne_attraction_forces_wide_f64", "B5w_f64"),
 }
+
+
+#: the widest embedding with a register-held instance of B2-B5 (the JAX
+#: package's MPAD; M_NARROW in csrc/common.cuh); a wider one launches the
+#: kernel's wide form
+M_NARROW = 8
+#: the kernels with a wide form
+WIDE_FORMS = ("B2", "B3", "B4", "B5")
+
+
+def form_id(kid: str, float64: bool, m: int = 0) -> str:
+    """The ``KERNELS`` entry kernel ``kid`` launches: its wide form at an
+    embedding width ``m`` past :data:`M_NARROW` (B2-B5), its float64 form
+    at float64."""
+    wide = kid in WIDE_FORMS and m > M_NARROW
+    return kid + ("w" if wide else "") + ("_f64" if float64 else "")
 
 
 def reset_launches() -> None:

@@ -92,6 +92,13 @@ class TsneConfig:
     fft_grid: int | None = None
     fft_interp: int = 3
 
+    def __post_init__(self):
+        # every route builds its config before the kNN stage: the one
+        # width refused (B2-B5 take every m >= 1)
+        if self.n_components < 1:
+            raise ValueError(f"n_components = {self.n_components}: an "
+                             "embedding needs at least one dimension")
+
     @property
     def momentum_switch(self) -> int:
         return min(self.iterations, 20)  # TsneHelpers.scala:403
@@ -753,12 +760,6 @@ def tsne_embed(x, cfg: TsneConfig | None = None, *,
     .policy_report``) and its autopilot pairs (``pilots``: ``run``, or
     ``landmark`` and ``polish``)."""
     cfg = cfg or TsneConfig()
-    from tsne_flink_tpu_torch.ops.attraction_cuda import M_MAX
-    if not 1 <= cfg.n_components <= M_MAX:
-        raise ValueError(
-            f"n_components = {cfg.n_components} is outside 1..{M_MAX}: the "
-            f"repulsion and attraction kernels (B2-B5) are built for every "
-            f"embedding width up to the JAX package's MPAD = {M_MAX}")
     device = resolve_device(device)
     run = _prepare_run(x, cfg, neighbors=neighbors, knn_method=knn_method,
                        knn_iterations=knn_iterations, knn_refine=knn_refine,

@@ -30,8 +30,11 @@ mirror the JAX package's XLA twins (``_xla_fused`` / ``_xla_loss`` /
 ``_xla_forces``) operation for operation, the fused one through the same
 head math as the forces, and its segment sums over an edge list
 (:func:`edge_forces_plain`, :func:`edge_loss_plain`); on CUDA tensors
-they launch the kernels or raise.  The kernels take every m from 1 to
-:data:`M_MAX`.  On a mesh shard (``parallel/mesh``) they take the
+they launch the kernels or raise.  The register-held instances take m
+= 1 .. :data:`M_NARROW`; a wider embedding launches the kernels' wide
+forms (``KERNELS["B3w"]``, ``["B4w"]``, ``["B5w"]``: the lanes of a warp
+split the row's dimensions, a force chunk of :data:`WIDE_DIMS` of them a
+grid row), which take any m.  On a mesh shard (``parallel/mesh``) they take the
 shard's rows — ``y_local``, its head or row block, its ragged part with
 local sources and global destinations — against the gathered
 ``y_full``; one warp walks one row, so a row's bits do not depend on the
@@ -45,18 +48,41 @@ the scalar type — casting nothing on the way in.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
 import torch
 
-from tsne_flink_tpu_torch.kernels.build import KERNELS
+from tsne_flink_tpu_torch.kernels.build import KERNELS, M_NARROW, form_id
 from tsne_flink_tpu_torch.ops.metrics import kernel_float64, metric_fn
 
 #: padding multiple of the CSR tail edge list
 TAIL_MULTIPLE = 1024
-#: the widest embedding the kernels take (the JAX package's MPAD)
-M_MAX = 8
+#: the dims of one force chunk of the wide forms (32 lanes x WG groups in
+#: csrc/attraction.cu; :func:`kernel_wide_config` reads the kernel's own)
+WIDE_DIMS = 128
+
+
+def wide_chunks(m: int) -> int:
+    """The force chunks of a wide launch at width ``m``, as the memory
+    model counts them on any device."""
+    return -(-m // WIDE_DIMS)
+
+
+@functools.cache
+def kernel_wide_config(m: int) -> tuple[int, int, int]:
+    """``(M_NARROW, dims a force chunk, chunks)`` of the wide forms at
+    width ``m`` as the kernel library states them
+    (``tsne_attraction_wide_config``; builds the library).  B3w's
+    ‖grad‖² partials are sized from it, so the buffer always holds what
+    the kernel writes."""
+    import ctypes
+    from tsne_flink_tpu_torch.kernels.build import library
+    dims, chunks = ctypes.c_int(), ctypes.c_int()
+    narrow = library().tsne_attraction_wide_config(m, ctypes.byref(dims),
+                                                   ctypes.byref(chunks))
+    return narrow, dims.value, chunks.value
 
 
 class Ragged(NamedTuple):
@@ -332,11 +358,11 @@ def _check_cuda(name, y_local, y_full, jidx, jval, planes=(), ragged=None):
     kernel_float64(y_local)  # float32 or float64, every value alike
     vt = y_local.dtype
     nloc, m = y_local.shape
-    if not 1 <= m <= M_MAX or y_full.dim() != 2 or y_full.shape[1] != m:
-        raise ValueError(f"{name} kernel takes [N, m] embeddings with 1 <= "
-                         f"m <= {M_MAX}; got {tuple(y_local.shape)} and "
+    if m < 1 or y_full.dim() != 2 or y_full.shape[1] != m:
+        raise ValueError(f"{name} kernel takes [N, m] embeddings of one "
+                         f"width m >= 1; got {tuple(y_local.shape)} and "
                          f"{tuple(y_full.shape)}")
-    if y_full.data_ptr() % 16:
+    if m <= M_NARROW and y_full.data_ptr() % 16:
         raise ValueError(f"{name} kernel gathers y_full's rows as vectors: "
                          "it needs a 16-byte aligned base")
     want = [(y_local, vt, (nloc, m)), (y_full, vt, tuple(y_full.shape))]
@@ -410,16 +436,20 @@ def fused_step_update(y_local, y_full, jidx, jval, exag, rep, z, valid,
     z = torch.as_tensor(z, dtype=y_local.dtype,
                         device=dev).reshape(1).contiguous()
     y2, u2, g2 = (torch.empty_like(y_local) for _ in range(3))
-    gsq = torch.empty(nloc, device=dev, dtype=y_local.dtype)
-    _launch_rows(KERNELS["B3_f64"] if kernel_float64(y_local)
-                 else KERNELS["B3"], y_local, y_full, jidx, jval, w, ragged,
+    m = y_local.shape[1]
+    # the wide form writes a ‖grad‖² partial a force chunk
+    chunks = kernel_wide_config(m)[2] if m > M_NARROW else 1
+    gsq = torch.empty((chunks, nloc) if chunks > 1 else nloc, device=dev,
+                      dtype=y_local.dtype)
+    _launch_rows(KERNELS[form_id("B3", kernel_float64(y_local), m)],
+                 y_local, y_full, jidx, jval, w, ragged,
                  None if order is None else order.data_ptr(),
                  rep.data_ptr(), z.data_ptr(),
                  None if mask is None else mask.data_ptr(),
                  update.data_ptr(), gains.data_ptr(), float(exag),
                  float(momentum), float(eta), float(min_gain), y2.data_ptr(),
                  u2.data_ptr(), g2.data_ptr(), gsq.data_ptr())
-    return y2, u2, g2, gsq
+    return y2, u2, g2, gsq if chunks == 1 else torch.sum(gsq, dim=0)
 
 
 def attraction_loss(y_local, y_full, jidx, jval, exag, z, *,
@@ -436,8 +466,9 @@ def attraction_loss(y_local, y_full, jidx, jval, exag, z, *,
                         device=y_local.device).reshape(1).contiguous()
     loss = torch.empty(y_local.shape[0], device=y_local.device,
                        dtype=y_local.dtype)
-    _launch_rows(KERNELS["B4_f64"] if kernel_float64(y_local)
-                 else KERNELS["B4"], y_local, y_full, jidx, jval, w, ragged,
+    _launch_rows(KERNELS[form_id("B4", kernel_float64(y_local),
+                                 y_local.shape[1])],
+                 y_local, y_full, jidx, jval, w, ragged,
                  float(exag), z.data_ptr(), loss.data_ptr())
     return loss
 
@@ -453,7 +484,8 @@ def attraction_forces(y_local, y_full, jidx, jval, exag, *,
                                        ragged=ragged, row_chunk=row_chunk)
     w = _check_cuda("B5", y_local, y_full, jidx, jval, ragged=ragged)
     att = torch.empty_like(y_local)
-    _launch_rows(KERNELS["B5_f64"] if kernel_float64(y_local)
-                 else KERNELS["B5"], y_local, y_full, jidx, jval, w, ragged,
+    _launch_rows(KERNELS[form_id("B5", kernel_float64(y_local),
+                                 y_local.shape[1])],
+                 y_local, y_full, jidx, jval, w, ragged,
                  float(exag), att.data_ptr())
     return att

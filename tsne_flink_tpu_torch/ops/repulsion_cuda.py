@@ -25,13 +25,21 @@ same template at float64, an IEEE reciprocal a pair), with the same
 column splits and slab rounding, so a mesh shard keeps its bits at
 float64 too.  The wrapper casts nothing: both operands are float32, or
 both float64.
+
+The register-blocked instances take m = 1 .. :data:`M_NARROW`; a wider
+embedding launches the wide form (``KERNELS["B2w"]``, ``["B2w_f64"]``:
+one row a thread, d² staged piece by piece, the force over
+:func:`wide_chunk`-wide chunks on a third grid dimension), which takes
+any m.  Its column splits (:func:`column_splits` with ``m``) and the
+slab's rounding follow the same rule, so a shard keeps its bits there
+too.
 """
 
 from __future__ import annotations
 
 import torch
 
-from tsne_flink_tpu_torch.kernels.build import KERNELS
+from tsne_flink_tpu_torch.kernels.build import KERNELS, M_NARROW, form_id
 from tsne_flink_tpu_torch.ops.metrics import kernel_float64
 from tsne_flink_tpu_torch.ops.repulsion_exact import exact_repulsion
 
@@ -44,19 +52,71 @@ COLS_PER_TILE = 512
 BLOCKS_PER_SM = 16
 #: waves of blocks the column splits aim for
 WAVES = 2
-#: the widest embedding the kernel takes (the JAX package's MPAD)
-M_MAX = 8
+#: rows one block of the wide form owns (one a thread: WT in
+#: csrc/repulsion.cu; :func:`kernel_wide_config` reads the kernel's own)
+WIDE_ROWS_PER_BLOCK = 128
+#: the wide form's blocks the split rule counts an SM to hold: a
+#: heuristic, not the occupancy (ptxas gives B2w 165-204 registers a
+#: thread, so 2-3 blocks of 128 fit an SM).  The split count, and so a
+#: row's bits, follow from it: changing it changes every wide run's bits.
+WIDE_BLOCKS_PER_SM = 4
 #: the partials' slab rows are a multiple of this (see the module text)
 PART_ROW_MULTIPLE = 4
 
 
-def column_splits(nloc: int, nfull: int, sms: int) -> int:
+def wide_chunk(m: int, float64: bool) -> int:
+    """The dims of one force chunk of the wide form (``wide_chunk`` in
+    csrc/repulsion.cu): 16, or 32 at float32 past m = 16."""
+    return 16 if float64 or m <= 16 else 32
+
+
+def kernel_wide_config(m: int, float64: bool) -> tuple[int, int, int]:
+    """``(M_NARROW, rows a block, dims a force chunk)`` of the wide form at
+    width ``m`` as the kernel library states them
+    (``tsne_repulsion_wide_config``; builds the library): what
+    :data:`M_NARROW`, :data:`WIDE_ROWS_PER_BLOCK` and :func:`wide_chunk`
+    mirror for the memory model on any device."""
+    import ctypes
+    from tsne_flink_tpu_torch.kernels.build import library
+    rows, chunk = ctypes.c_int(), ctypes.c_int()
+    narrow = library().tsne_repulsion_wide_config(
+        m, int(float64), ctypes.byref(rows), ctypes.byref(chunk))
+    return narrow, rows.value, chunk.value
+
+
+def column_splits(nloc: int, nfull: int, sms: int, m: int,
+                  float64: bool) -> int:
     """S, the column ranges of one launch: enough blocks for ``WAVES``
     waves on ``sms`` SMs, but no range narrower than one tile.  A function
-    of the shapes and the card alone, so a run's summation order is fixed."""
-    row_blocks = -(-nloc // ROWS_PER_BLOCK)
-    want = -(-WAVES * sms * BLOCKS_PER_SM // row_blocks)
+    of the shapes, the width, the dtype and the card alone, so a run's
+    summation order is fixed.  Past :data:`M_NARROW` the wide form's
+    blocks (:data:`WIDE_ROWS_PER_BLOCK` rows, one per force chunk)."""
+    if m <= M_NARROW:
+        row_blocks = -(-nloc // ROWS_PER_BLOCK)
+        want = -(-WAVES * sms * BLOCKS_PER_SM // row_blocks)
+    else:
+        row_blocks = (-(-nloc // WIDE_ROWS_PER_BLOCK)
+                      * -(-m // wide_chunk(m, float64)))
+        want = -(-WAVES * sms * WIDE_BLOCKS_PER_SM // row_blocks)
     return max(1, min(want, -(-nfull // COLS_PER_TILE)))
+
+
+def partials_shape(nloc: int, nfull: int, m: int, float64: bool, sms: int,
+                   split_rows: int | None = None) -> tuple[int, int, int]:
+    """``(S, rows, m + 1)``: one launch's partials slab, its rows rounded
+    up to :data:`PART_ROW_MULTIPLE` and S counted for ``split_rows``
+    (None: ``nloc``)."""
+    splits = column_splits(nloc if split_rows is None else split_rows,
+                           nfull, sms, m, float64)
+    return splits, -(-nloc // PART_ROW_MULTIPLE) * PART_ROW_MULTIPLE, m + 1
+
+
+def partials_bytes(nloc: int, nfull: int, m: int, itemsize: int,
+                   sms: int) -> int:
+    """The bytes of the slab :func:`cuda_exact_repulsion` allocates beside
+    its outputs."""
+    s, rows, cols = partials_shape(nloc, nfull, m, itemsize == 8, sms)
+    return s * rows * cols * itemsize
 
 
 def _check_rows(y, y_full, col_valid, row_offset):
@@ -86,8 +146,8 @@ def _check_cuda(y, y_full):
         if t.dim() != 2 or not t.is_contiguous():
             raise ValueError(f"B2 kernel takes a contiguous [N, m] {name}")
     m = y.shape[1]
-    if not 1 <= m <= M_MAX or y_full.shape[1] != m:
-        raise ValueError(f"B2 kernel takes 1 <= m <= {M_MAX} on both "
+    if m < 1 or y_full.shape[1] != m:
+        raise ValueError(f"B2 kernel takes one width m >= 1 on both "
                          f"operands; got {tuple(y.shape)} and "
                          f"{tuple(y_full.shape)}")
     if y.device != y_full.device:
@@ -122,13 +182,11 @@ def cuda_exact_repulsion(y: torch.Tensor, y_full: torch.Tensor | None = None,
         return y.new_zeros((0, m)), (y.new_zeros((0,)) if row_z
                                      else y.new_zeros(()))
     sms = torch.cuda.get_device_properties(y.device).multi_processor_count
-    splits = column_splits(nloc if split_rows is None else split_rows,
-                           nfull, sms)
-    rows = -(-nloc // PART_ROW_MULTIPLE) * PART_ROW_MULTIPLE
-    part = torch.empty((splits, rows, m + 1), device=y.device,
-                       dtype=y.dtype)
-    kernel = KERNELS["B2_f64"] if kernel_float64(y) else KERNELS["B2"]
-    kernel(y.data_ptr(), y_full.data_ptr(),
+    f64 = kernel_float64(y)
+    splits, rows, _ = shape = partials_shape(nloc, nfull, m, f64, sms,
+                                             split_rows)
+    part = torch.empty(shape, device=y.device, dtype=y.dtype)
+    KERNELS[form_id("B2", f64, m)](y.data_ptr(), y_full.data_ptr(),
            None if valid is None else valid.data_ptr(), nloc, nfull, m,
            row_offset, splits, rows, part.data_ptr())
     # a fixed order for a fixed split count (rows past nloc are dropped)
