@@ -48,9 +48,11 @@ Phases, in order; any failure exits non-zero before the result line:
    above), B6 at k = 600 on refine chunks captured from cuts of the
    blobs (cascade + exact) and the cells, and at k = 1,024 on the cells,
    each against its plain version with the bars above; ``tsne_embed`` at n_components 1, 4 and 8, and
-   at k = 1,024 on the bruteforce and project paths; and the limit left
-   (more than 12,288 features on a refining ``project`` plan) refused
-   before the kNN stage starts (k past 1,024 runs: 8d; m past 8: 8e);
+   at k = 1,024 on the bruteforce and project paths; and 12,289
+   features on a refining ``project`` plan (4,000 cells of 8f's counts,
+   one refine cycle), once refused, run: the cascade in B6, the exact
+   stage in B6u (k past 1,024 runs: 8d; m past 8: 8e; 32,738 features
+   at size: 8f);
 4b. bf16   — mixed precision (``--dtype bfloat16``): B1's bf16 form
    (``KERNELS["B1_bf16"]``) against its plain version run on float64
    copies (distances within rtol 1e-5 of the norm trick's terms, ids
@@ -216,6 +218,35 @@ Phases, in order; any failure exits non-zero before the result line:
    and their float64 forms after the float64 ones (their launches from
    these runs, the error at the runs' y as ``max_abs_err_at_run``, B4w's
    and B5w's against float64 as ``against_f64_at_run``);
+8f. features — more than 12,288 features on a refining project plan,
+   where B6 launches its unstaged form (``KERNELS["B6u"]``,
+   ``["B6u_f64"]``: the row read from global memory, not staged in
+   shared memory).  Forced at the blobs' staged widths (F = 128, 784)
+   the unstaged form gives the staged form's bits.  The data: a
+   synthetic stand-in for 10x Genomics' "Fresh 68k PBMCs (Donor A)"
+   raw counts (``make_counts``: 20 cell types, ~2% of a row detected,
+   log1p per 10,000), 20,000 cells x 32,738 genes densified on the card.
+   On a 64-row refine chunk captured there (k = 90) B6u against its
+   plain version at B6's bars and, at float32, its d² error against
+   float64 within twice the plain float32 version's own with no id off
+   outside that bar; B6u_f64 at B6_f64's.  Then each on the run's own
+   4,096-row chunks (the first and the last of a round: at 68,579 rows
+   the last holds the rows past 2^31 / F), launched whole and held on
+   64-row slices against the plain version, and timed over the round's
+   chunks beside its bound and the plain version's slices.
+   Then ``tsne_embed(perplexity=30, knn_method="project")`` on the cut
+   (``scripts/wide_features_phase_cuda.py``: at the full 68,579 x 32,738,
+   8.98 GB on the card): launches exact (B6 the cascade, B6u the exact
+   stage, a chunk a refine cycle each), finite falling KL, recall@90 >=
+   0.90 against B1's exact graph (timed beside the hybrid plan), the
+   memory model within [1, 2]x of the run's peak; and the cut through
+   two gloo processes on the card (run beside the rest: the in-process
+   job's bits on the test mesh of 2), ``TSNE(dtype="float64")``
+   (B6u_f64), ``TSNE(dtype="bfloat16")``, ``TSNE().fit``, the command
+   line on a COO CSV of the counts with ``--auditPlan`` and perplexity
+   500 (k = 1,500, one refine cycle).  The kernels line carries B6u
+   (launches from the run on the cut) and B6u_f64 (from the float64 fit)
+   after the wide forms;
 9. large — ``tsne_embed`` at the shape of the 10x Genomics 1.3M mouse
    brain cells (1,306,127 x 50 principal components; a synthetic
    stand-in, see ``make_cells``): perplexity 50, k = 150, the hybrid kNN
@@ -434,6 +465,8 @@ NO_F64 = {kid: 0 for kid in ("B1_f64", "B2_f64", "B3_f64", "B4_f64",
 #: the wide forms' (m > 8) launch counts in a run at m <= 8
 NO_WIDE = {kid: 0 for kid in ("B2w", "B3w", "B4w", "B5w", "B2w_f64",
                               "B3w_f64", "B4w_f64", "B5w_f64")}
+#: B6's unstaged forms' launch counts in a run at 12,288 features or fewer
+NO_UNSTAGED = {"B6u": 0, "B6u_f64": 0}
 
 
 #: kernel id -> (name, source, the TPU kernel it replaces)
@@ -467,6 +500,11 @@ KERNEL_META = {
                "tsne_flink_tpu/ops/attraction_pallas.py:140"),
     "B6_f64": ("refine_chunk_f64", "tsne_flink_tpu_torch/csrc/knn_cand.cu",
                "tsne_flink_tpu/ops/knn_pallas.py:264"),
+    "B6u": ("refine_chunk_unstaged", "tsne_flink_tpu_torch/csrc/knn_cand.cu",
+            "tsne_flink_tpu/ops/knn_pallas.py:264"),
+    "B6u_f64": ("refine_chunk_unstaged_f64",
+                "tsne_flink_tpu_torch/csrc/knn_cand.cu",
+                "tsne_flink_tpu/ops/knn_pallas.py:264"),
 }
 # the wide forms (m > 8) of B2-B5, each a kernel of its own
 for _kid in ("B2", "B3", "B4", "B5"):
@@ -773,16 +811,32 @@ def phase_device():
     return name, count
 
 
-def sass_check(lib_path):
-    """{kernel: (tensor-core ops, async-copy ops)} found in each SASS
-    function of the library whose name holds ``knn_kernel``, or None where
-    the toolkit has no cuobjdump."""
+def sass_start(lib_path):
+    """cuobjdump's SASS listing of the library, started (None where the
+    toolkit has no cuobjdump); :func:`sass_check` reads it."""
     import shutil
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
-    sass = subprocess.run([tool, "-sass", str(lib_path)], capture_output=True,
-                          text=True, timeout=300, check=True).stdout
+    import tempfile
+    out = tempfile.TemporaryFile(mode="w+")  # a pipe would stall it
+    return subprocess.Popen([tool, "-sass", str(lib_path)], stdout=out,
+                            stderr=subprocess.PIPE, text=True), out
+
+
+def sass_check(started):
+    """{kernel: (tensor-core ops, async-copy ops)} found in each SASS
+    function of the library whose name holds ``knn_kernel`` (``started``:
+    :func:`sass_start`'s), or None where the toolkit has no cuobjdump."""
+    if started is None:
+        return None
+    proc, out = started
+    got = child_result(proc, timeout=300)
+    check(got.returncode == 0, f"[build] cuobjdump failed: "
+          f"{got.stderr[-2000:]}")
+    out.seek(0)
+    sass = out.read()
+    out.close()
     found = {}
     for chunk in sass.split("Function : ")[1:]:
         name = chunk.split(None, 1)[0]
@@ -807,10 +861,14 @@ def kernel_name(mangled):
     return f"{names[-1]}<{', '.join(ints)}>"
 
 
-def phase_build():
+def phase_build(sass_later=False):
+    """Build the kernel library and print each instance's registers and B1's
+    shapes; then B1's SASS ops, or with ``sass_later`` a function that
+    prints them (cuobjdump runs meanwhile)."""
     from tsne_flink_tpu_torch.kernels.build import build, library
     from tsne_flink_tpu_torch.ops.knn_cuda import knn_config
     res = build()
+    sass_proc = sass_start(res.path)
     print(f"[build] nvcc {res.seconds:.2f} s -> {os.path.relpath(res.path)}")
     # one line a kernel instance: registers, spills, name<template ints>
     fn, spill = "?", ""
@@ -829,13 +887,19 @@ def phase_build():
               f"cp.async ring, {bufs} distance-tile buffer(s), {smem} B "
               f"shared memory" + (f", {pend} pending keys a row (the "
                                   "pending class)" if pend else ""))
-    sass = sass_check(res.path)
-    if sass is None:
-        print("[build] cuobjdump not found: B1's SASS not inspected")
-    for name, (mma, copy) in (sass or {}).items():
-        print(f"[build] B1 SASS {name[name.index('knn_kernel'):][:21]}: "
-              f"tensor-core ops "
-              f"{mma or 'none'}, async copies {copy or 'none'}")
+
+    def sass_lines():
+        sass = sass_check(sass_proc)
+        if sass is None:
+            print("[build] cuobjdump not found: B1's SASS not inspected")
+        for name, (mma, copy) in (sass or {}).items():
+            print(f"[build] B1 SASS {name[name.index('knn_kernel'):][:21]}: "
+                  f"tensor-core ops "
+                  f"{mma or 'none'}, async copies {copy or 'none'}")
+    if sass_later:
+        return sass_lines
+    sass_lines()
+    return None
 
 
 def set_agreement(a, b):
@@ -988,13 +1052,19 @@ def b1_bf16_gates(tag, x, k, rows=None):
     plus of the largest (``rel_close``'s form) is printed beside it, not
     gated.  ``rows`` (ids) restricts the plain sweep to those rows.
     Returns (max |distance error|, kernel ids and distances of the checked
-    rows, both ordered)."""
+    rows, both ordered, the first launch's CUDA-event ms)."""
     import torch
     from tsne_flink_tpu_torch.ops.knn_cuda import (_fused_final,
                                                    knn_sweep_cuda,
                                                    knn_sweep_plain)
     bf = torch.bfloat16
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    a.record()
     raw = knn_sweep_cuda(x, k, False, bf)
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b)
     again = knn_sweep_cuda(x, k, False, bf)
     check(torch.equal(raw[0], again[0]) and torch.equal(raw[1], again[1]),
           f"[bf16] B1 {tag}: two launches differ")
@@ -1039,7 +1109,7 @@ def b1_bf16_gates(tag, x, k, rows=None):
           f"{int(torch.sum(~same & ~near))}, not gated); two launches "
           "bit-identical")
     check(off == 0, f"[bf16] B1 {tag}: {off} ids differ outside ties")
-    return err, ik, dk
+    return err, ik, dk, ms
 
 
 def phase_bf16(x_np, xc_np):
@@ -1050,7 +1120,8 @@ def phase_bf16(x_np, xc_np):
     its recall@90 and slot-wise agreement against the float64 graph of
     the unrounded x beside 3xTF32's and the plain FP32 sweep's; its time
     beside 3xTF32's and its library yardstick, in turns, with its bound;
-    at 1.3M one launch of each form in turns.  Returns (the kernel's ms,
+    at 1.3M the gate's first bf16 launch (3xTF32's time at that shape is
+    [large]'s).  Returns (the kernel's ms,
     plain ms, library ms), its bound and its max error at 60k."""
     import torch
     from tsne_flink_tpu_torch.ops.knn_cuda import (_fused_final,
@@ -1060,7 +1131,7 @@ def phase_bf16(x_np, xc_np):
     t_phase = time.perf_counter()
     x = torch.from_numpy(x_np).cuda()
     n, f = x_np.shape
-    err, ik, dk = b1_bf16_gates("full", x, K)
+    err, ik, dk, _ = b1_bf16_gates("full", x, K)
     # quality against the float64 graph of the unrounded points
     i64, d64 = _fused_final(*knn_sweep_plain(x.double(), K, False),
                             "sqeuclidean")
@@ -1108,18 +1179,14 @@ def phase_bf16(x_np, xc_np):
     nc, fc = xc_np.shape
     rows = torch.from_numpy(np.sort(np.random.default_rng(11).choice(
         nc, N_BF16_ROWS_LARGE, replace=False))).cuda()
-    b1_bf16_gates("large", xc, K_CELLS, rows)
+    # the bf16 time is the gate's first launch (B1 built and warm by then)
+    ms_l = b1_bf16_gates("large", xc, K_CELLS, rows)[3]
     torch.cuda.empty_cache()
-    t_l = alternated_ms({"bf16": lambda: knn_sweep_cuda(xc, K_CELLS, False,
-                                                        bf),
-                         "3xTF32": lambda: knn_sweep_cuda(xc, K_CELLS,
-                                                          False)},
-                        ["bf16", "3xTF32"])
     bnd_l = b1_bf16_bound(nc, fc, K_CELLS)
-    print(f"[bf16] B1 bf16 {nc}x{fc} k={K_CELLS}: {t_l['bf16'][0]:.4f} ms "
-          f"(one warm launch), 3xTF32 {t_l['3xTF32'][0]:.4f} ms; bound "
-          f"{bnd_l[0]:.4f} ms by {bnd_l[1]}; library not timed at this "
-          f"shape")
+    print(f"[bf16] B1 bf16 {nc}x{fc} k={K_CELLS}: {ms_l:.4f} ms "
+          f"(the gate's first launch; 3xTF32's at this shape is [large]'s "
+          f"'B1 knn' line); bound {bnd_l[0]:.4f} ms by {bnd_l[1]}; library "
+          f"not timed at this shape")
     del xc
     torch.cuda.empty_cache()
     print(f"[bf16] {time.perf_counter() - t_phase:.1f} s")
@@ -2216,7 +2283,7 @@ def want_launches(b3, b1=1, b2=None, b6=0, b1_bf16=0):
     B5 every iteration of any other (the unfused step's attraction
     pass), B4 every 10th (the KL over both parts); B1's bf16 form only in
     a bf16-operand run."""
-    return {"B1": b1, "B1_bf16": b1_bf16, **NO_F64, **NO_WIDE,
+    return {"B1": b1, "B1_bf16": b1_bf16, **NO_F64, **NO_WIDE, **NO_UNSTAGED,
             "B2": ITERATIONS if b2 is None else b2, "B3": b3,
             "B4": ITERATIONS // 10, "B5": ITERATIONS - b3, "B6": b6}
 
@@ -2547,12 +2614,13 @@ class _Captured(Exception):
     pass
 
 
-def capture_refine_chunks(x, k, chunks):
+def capture_refine_chunks(x, k, chunks, row_chunk=None):
     """The funnel stages of the first ``chunks`` chunks of one refine round
     over a three-round Z-order seed graph of ``x`` (the seed the hybrid
     plan starts from), as the round calls them: per chunk, a list of
     (kind, args, kwargs), kind "keep" or "final".  The round stops once
-    they are taken."""
+    they are taken (``chunks`` None: every chunk of the round).
+    ``row_chunk`` replaces the tile plan's chunk rows."""
     import torch
     from tsne_flink_tpu_torch.ops import knn as tknn
     got = [[]]
@@ -2563,7 +2631,7 @@ def capture_refine_chunks(x, k, chunks):
             got[-1].append((kind, args, kwargs))
             out = real[kind](*args, **kwargs)
             if kind == "final":
-                if len(got) == chunks:
+                if chunks is not None and len(got) == chunks:
                     raise _Captured
                 got.append([])
             return out
@@ -2576,7 +2644,8 @@ def capture_refine_chunks(x, k, chunks):
     tknn.refine_keep, tknn.refine_final = grab("keep"), grab("final")
     try:
         tknn.knn_refine(x, idx, dist, generator=gen, filter_dims=fd,
-                        expand_k=(k + 1) // 2 if fd else None)
+                        expand_k=(k + 1) // 2 if fd else None,
+                        row_chunk=row_chunk)
     except _Captured:
         pass
     finally:
@@ -2682,7 +2751,7 @@ def check_row_ids(what, ids, rows):
     return valid
 
 
-def hold_stage(tag, kind, args, kwargs):
+def hold_stage(tag, kind, args, kwargs, got=None):
     """The kernel against its plain version on one stage's inputs, on the
     card.  Exact stage: every output distance is the plain formula's for
     its (row, id), or the id's old distance where that is smaller, to
@@ -2692,14 +2761,19 @@ def hold_stage(tag, kind, args, kwargs):
     Keep stage: each row keeps min(keep, its unique candidates), the kept
     sets agree >= 0.999, the last kept score agrees to rtol 2e-5, ids are
     distinct, the row absent, -1 only after the kept ones and in rank
-    order.  Both: two launches bit-identical.  Returns the max |error| of
-    the distances (exact stage) or scores (keep stage)."""
+    order.  Both: two launches bit-identical.  ``got``: the kernel's
+    output for these rows, taken from a larger launch (whose bits the
+    caller holds).  Returns the max |error| of the distances (exact stage)
+    or scores (keep stage)."""
     import torch
     from tsne_flink_tpu_torch.ops.knn_cuda import (cand_exact_plain,
                                                    cand_sqdist_plain)
     rows, base, sq = stage_rows(kind, args)
-    got = stage_call(kind, args, kwargs)
-    again = stage_call(kind, args, kwargs)
+    if got is None:
+        got, again = (stage_call(kind, args, kwargs),
+                      stage_call(kind, args, kwargs))
+    else:  # a slice of a launch whose bits the caller held
+        again = got
     want = stage_call(kind, args, kwargs, plain=True)
     torch.cuda.synchronize()
     if kind == "final":
@@ -2758,7 +2832,7 @@ def ids_off_outside_ties(ids_k, d_k, ids_p, d_p, tol):
                 & ((d_k - d_p).abs() > tol)).sum())
 
 
-def hold_stage_f64(tag, kind, args, kwargs):
+def hold_stage_f64(tag, kind, args, kwargs, got=None):
     """B6_f64 against its plain version on one stage's float64 inputs, on
     the card, at B1_f64's bar.  Exact stage: every output distance within
     1e-12 of |d²| + ‖a‖² + ‖b‖² of the plain formula's for its (row, id)
@@ -2769,14 +2843,18 @@ def hold_stage_f64(tag, kind, args, kwargs):
     -1 only after them, and its kept set equals the plain stage's outside
     ties at the cut (an id in one set alone scores within the bar of the
     plain stage's last kept score).  Both: ids distinct, the row absent,
-    two launches bit-identical.  Returns (the max |error| of the distances
-    or of the cut's score, the slots or ids off outside ties: 0)."""
+    two launches bit-identical (``got`` as :func:`hold_stage`'s).
+    Returns (the max |error| of the distances or of the cut's score, the
+    slots or ids off outside ties: 0)."""
     import torch
     from tsne_flink_tpu_torch.ops.knn_cuda import (cand_exact_plain,
                                                    cand_sqdist_plain)
     rows, base, sq = stage_rows(kind, args)
-    got = stage_call(kind, args, kwargs)
-    again = stage_call(kind, args, kwargs)
+    if got is None:
+        got, again = (stage_call(kind, args, kwargs),
+                      stage_call(kind, args, kwargs))
+    else:  # a slice of a launch whose bits the caller held
+        again = got
     want = stage_call(kind, args, kwargs, plain=True)
     torch.cuda.synchronize()
 
@@ -2992,9 +3070,9 @@ def phase_widths(x_np, xc_np):
     of the blobs, B6 at K_B6_DEEP on refine chunks captured from cuts of
     the blobs and the cells (and at K_DEEP on the cells); then
     ``tsne_embed`` at n_components 1, 4, 8 and at k = K_DEEP on the
-    bruteforce and project paths, and the limit left (more than
-    CAND_F_MAX features on a refining project plan) refused before the
-    kNN stage.  Returns each kernel's max error."""
+    bruteforce and project paths, and 12,289 features on a refining
+    project plan (once refused) through B6u.  Returns each kernel's max
+    error."""
     import torch
     from tsne_flink_tpu_torch import TsneConfig, tsne_embed
     from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
@@ -3090,23 +3168,32 @@ def phase_widths(x_np, xc_np):
               f"{K_DEEP} {method}: {time.perf_counter() - t0:.2f} s, finite; "
               f"final KL {float(losses[-1]):.5f}; launches "
               f"{json.dumps(counts)}")
-    # the limit left raises before the kNN stage: no kernel launches (k
-    # past 1,024 runs: [bigk]; n_components past 8: [wide])
-    from tsne_flink_tpu_torch.ops.knn_cuda import CAND_F_MAX
-    wide_x = np.zeros((N_WIDTHS, CAND_F_MAX + 1), np.float32)
-    for what, call in (
-            (f"{CAND_F_MAX + 1} features on a refining project plan",
-             lambda: tsne_embed(wide_x, cfg, knn_method="project",
-                                knn_refine=1)),):
-        reset_launches()
-        try:
-            call()
-        except ValueError as e:
-            check(not any(launches().values()),
-                  f"[widths] {what}: kernels ran before the refusal")
-            print(f"[widths] {what} refused before the kNN stage: {e}")
-        else:
-            raise SmokeFailure(f"[widths] {what} was not refused")
+    # 12,289 features on a refining project plan, once refused, run: the
+    # cascade in B6, the exact stage in B6u (k past 1,024 runs in [bigk],
+    # n_components past 8 in [wide], 32,738 features at size in
+    # [features])
+    from tsne_flink_tpu_torch.ops.knn_cuda import STAGED_F_MAX
+    from tsne_flink_tpu_torch.ops.knn_tiles import pick_knn_tiles
+    d = STAGED_F_MAX + 1
+    r, c, v, _ = make_counts(N_WIDTHS, d)
+    wide_x = counts_dense(r, c, v, N_WIDTHS, d)
+    del r, c, v
+    reset_launches()
+    t0 = time.perf_counter()
+    y, losses = tsne_embed(wide_x, cfg, knn_method="project", knn_refine=1)
+    torch.cuda.synchronize()
+    counts = launches()
+    chunks = math.ceil(N_WIDTHS / pick_knn_tiles(N_WIDTHS, d, K,
+                                                 "cuda").refine_chunk)
+    check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(losses).all())
+          and counts["B6u"] == counts["B6"] == chunks
+          and counts["B1"] == counts["B6_f64"] == counts["B6u_f64"] == 0,
+          f"[widths] tsne_embed at {d} features, project: {counts}")
+    print(f"[widths] tsne_embed {N_WIDTHS} x {d} project (one refine "
+          f"cycle): {time.perf_counter() - t0:.2f} s, finite; final KL "
+          f"{float(losses[-1]):.5f}; B6 x{counts['B6']} (cascade), B6u "
+          f"x{counts['B6u']} (exact stage)")
+    del wide_x, y
     return errs
 
 
@@ -3184,12 +3271,20 @@ _PAIRS = np.array([[ord(a), ord(b)] for a in "0123456789"
 
 def coo_text(x, r0=0):
     """The non-zero entries of ``x`` (values in [0, 1e15)) as
-    ``point,feature,value`` lines, built in a uint8 buffer with numpy: the
-    value is a 15-digit integer mantissa and a negative power of ten, which
-    reads back (correctly rounded to float64, then cast) as the same
-    float32.  Points are numbered from ``r0``."""
+    ``point,feature,value`` lines (:func:`coo_lines`), points numbered from
+    ``r0``."""
     rows, cols = np.nonzero(x)
-    v = x[rows, cols].astype(np.float64)
+    return coo_lines(rows + r0, cols, x[rows, cols], r0, r0 + x.shape[0],
+                     x.shape[1])
+
+
+def coo_lines(rows, cols, vals, row_lo, row_hi, n_cols):
+    """``point,feature,value`` lines of the entries (rows in [row_lo,
+    row_hi), columns below ``n_cols``, values in [0, 1e15)), built in a
+    uint8 buffer with numpy: the value is a 15-digit integer mantissa and
+    a negative power of ten, which reads back (correctly rounded to
+    float64, then cast) as the same float32."""
+    v = np.asarray(vals).astype(np.float64)
     check(bool((v >= 0).all() and (v < 1e15).all()),
           "[cli] coo_text takes values in [0, 1e15)")
     e = 14 - np.floor(np.log10(v)).astype(np.int64)  # 15 digits before e-
@@ -3211,8 +3306,8 @@ def coo_text(x, r0=0):
         d, m = _digits(np.arange(lo, hi, dtype=np.int64), width)
         return d[a - lo], m[a - lo]
 
-    pieces = (table(rows + r0, r0, r0 + x.shape[0], 7), lit(","),
-              table(cols, 0, x.shape[1], 5), lit(","), (digits, lead),
+    pieces = (table(rows, row_lo, row_hi, 7), lit(","),
+              table(cols, 0, n_cols, 5), lit(","), (digits, lead),
               lit("e-"), table(e, 0, 1000, 3), lit("\n"))
     chars = np.concatenate([c for c, _ in pieces], 1)
     return chars[np.concatenate([m for _, m in pieces], 1)].tobytes()
@@ -4694,6 +4789,612 @@ def phase_wide(x_np, labels, csr, m64=False):
     return errs, times, bnds, n_launch, at_run, vs64, at64
 
 
+# ---- [features]: features past 12,288 (B6's unstaged form) ----------------
+
+#: a synthetic stand-in for 10x Genomics' "Fresh 68k PBMCs (Donor A)"
+#: (Zheng et al., Nat. Commun. 2017): 68,579 cells x 32,738 genes of raw
+#: counts, ~2% of a row detected (a median of ~600 genes), log1p of the
+#: counts per 10,000; the routes run on a 20,000-row cut at the full width
+N_COUNTS, F_COUNTS, N_COUNTS_CUT = 68_579, 32_738, 20_000
+#: cell types, marker genes a type (each 40x its popularity), the median
+#: count draws a cell (a multinomial over its type's gene weights)
+COUNT_TYPES, COUNT_MARKERS, COUNT_DRAWS = 20, 150, 900
+#: the cut's run at perplexity 500 (k = 1,500)
+K_COUNTS_BIG = 1_500
+#: rows of the slices over which [features] holds B6u / B6u_f64 against
+#: their plain versions (the plain chunk body gathers [c, 270, F]: 2.3 GB
+#: at 64 rows, 145 GB in the run's own 4,096-row chunks)
+B6U_HELD_ROWS = 64
+
+
+def make_counts(n=N_COUNTS, d=F_COUNTS, types=COUNT_TYPES, seed=0):
+    """Cluster-structured raw counts, log1p-normalised, as COO triples on
+    the card: each cell draws ~COUNT_DRAWS counts (lognormal spread)
+    from its type's gene weights — a Zipf-like popularity shared by every
+    type, COUNT_MARKERS markers of its own at 40x — and a gene's value is
+    log1p(its count x 10,000 / the cell's total).  The draws come from
+    numpy (``seed``); the inverse-CDF lookup and the per-cell dedup run on
+    the card.  Returns (rows int64, cols int64, values float32, the cells'
+    types), rows ascending."""
+    import torch
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, types, n)
+    pop = (1.0 / np.arange(1, d + 1) ** 0.9)[rng.permutation(d)]
+    w = np.tile(pop, (types, 1))
+    for t in range(types):
+        w[t, rng.choice(d, COUNT_MARKERS, replace=False)] *= 40.0
+    cdf = np.cumsum(w / w.sum(axis=1, keepdims=True), axis=1)
+    cdf[:, -1] = 1.0
+    cdf += np.arange(types)[:, None]  # type t's CDF in (t, t + 1]
+    draws = np.clip(rng.lognormal(np.log(COUNT_DRAWS), 0.3, n), 100,
+                    6000).astype(np.int64)
+    u = rng.random(int(draws.sum()))
+    dev = torch.device("cuda")
+    row = torch.repeat_interleave(torch.arange(n, device=dev),
+                                  torch.from_numpy(draws).to(dev))
+    lab = torch.from_numpy(labels).to(dev)[row]
+    gene = torch.searchsorted(torch.from_numpy(cdf.ravel()).to(dev),
+                              torch.from_numpy(u).to(dev) + lab, right=True)
+    gene = torch.clamp(gene - lab * d, 0, d - 1)
+    del u, lab
+    key, cnt = torch.unique(row * d + gene, return_counts=True)
+    del row, gene
+    r, c = key // d, key % d
+    lib = torch.zeros(n, dtype=torch.float64, device=dev).index_add_(
+        0, r, cnt.double())
+    v = torch.log1p(cnt.double() * (1e4 / lib[r])).float()
+    return r, c, v, labels
+
+
+def counts_dense(r, c, v, n, d):
+    """The triples as a dense [n, d] float32 matrix on their device."""
+    import torch
+    x = torch.zeros((n, d), dtype=torch.float32, device=v.device)
+    x[r, c] = v
+    return x
+
+
+def features_data(n, d=F_COUNTS, seed=0):
+    """make_counts densified on the card: (x, (rows, cols, values) on the
+    host, types, seconds), its shape and non-zeros printed."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r, c, v, labels = make_counts(n, d, seed=seed)
+    x = counts_dense(r, c, v, n, d)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    per = torch.bincount(r, minlength=n)
+    triples = (r.cpu().numpy(), c.cpu().numpy(), v.cpu().numpy())
+    print(f"[features] counts {n} x {d}: {v.numel()} non-zeros "
+          f"({v.numel() / (n * d):.4f} of the matrix; a median of "
+          f"{int(per.median())} genes a cell, {int(per.min())}-"
+          f"{int(per.max())}), {x.numel() * 4 / 1e9:.3f} GB dense float32 "
+          f"on the card, {x.numel() / 2**31:.3f} x 2^31 elements; made in "
+          f"{secs:.2f} s")
+    del r, c, v
+    return x, triples, labels, secs
+
+
+def hold_stage_vs_f64(tag, kind, args, kwargs):
+    """A float32 exact stage against float64: the max |d² error| of the
+    kernel's list against a float64 evaluation of its (row, id) pairs (each
+    id at the smaller of its old and its new distance) within twice the
+    plain float32 version's own, and no slot whose ids differ where the
+    two lists' d² differ by more than that bar.  Returns (kernel error,
+    plain error, ids off)."""
+    import torch
+    from tsne_flink_tpu_torch.ops.knn_cuda import cand_exact_plain
+    rows, base, _ = stage_rows(kind, args)
+    metric, old_i, old_d = args[0], args[5], args[6].double()
+    (gi, gd), (wi, wd) = (stage_call(kind, args, kwargs),
+                          stage_call(kind, args, kwargs, plain=True))
+    x64 = base.double()
+    s64 = torch.sum(x64 * x64, dim=1)
+    sqr = 2 if metric == "euclidean" else 1
+
+    def err(ids, d):
+        new = cand_exact_plain(metric, x64, s64, rows, ids)
+        hit = ids[:, :, None] == old_i[:, None, :]
+        old = torch.where(hit, old_d[:, None, :], math.inf).amin(dim=2)
+        return float((d.double() ** sqr
+                      - torch.minimum(new, old) ** sqr).abs().max())
+    e_k, e_p = err(gi, gd), err(wi, wd)
+    del x64
+    off = int(((gi != wi) & ((gd.double() ** sqr - wd.double() ** sqr)
+                             .abs() > 2.0 * e_p)).sum())
+    print(f"[features] {tag}: d² error against float64 {e_k:.4e} (the "
+          f"plain float32 version's {e_p:.4e}; bar 2x), {off} ids off "
+          "outside pairs within the bar")
+    check(e_k <= 2.0 * e_p, f"[features] {tag}: d² error {e_k} > 2 x "
+          f"{e_p}")
+    check(off == 0, f"[features] {tag}: {off} ids off outside the bar")
+    return e_k, e_p, off
+
+
+def unstaged_bits_at_a_staged_width(x_np):
+    """B6's unstaged form forced at F <= 12,288 gives the staged form's
+    bits: the blobs' captured cascade (F = 128) and exact stage (F =
+    784) of a 20,000-row cut, at float32 and float64."""
+    import torch
+    from tsne_flink_tpu_torch.ops import knn_cuda as kc
+    for dt in (torch.float32, torch.float64):
+        x = torch.from_numpy(x_np[:N_REFINE_DEEP]).to("cuda", dt)
+        (chunk,) = capture_refine_chunks(x, K, 1)
+        for kind, args, kwargs in chunk:
+            rows, base, sq = stage_rows(kind, args)
+            cand = args[3] if kind == "keep" else args[4]
+            call = dict(n_valid=kwargs.get("n_valid"))
+            if kind == "keep":
+                call["keep"] = args[4]
+            else:
+                call.update(old=(args[5], args[6]),
+                            euclid=args[0] == "euclidean")
+            outs = [kc._refine_launch(base, sq, int(rows[0]), cand,
+                                      kwargs.get("graph"),
+                                      kwargs.get("ke", 0), staged=s,
+                                      **call)
+                    for s in (True, False)]
+            same = all(torch.equal(a, b) for a, b in zip(
+                *(o if isinstance(o, tuple) else (o,) for o in outs)))
+            check(same, f"[features] the unstaged form at F = "
+                  f"{base.shape[1]} ({dt}) differs from the staged form")
+            print(f"[features] B6u{'_f64' if dt == torch.float64 else ''} "
+                  f"forced at F = {base.shape[1]} ({kind} stage): the "
+                  "staged form's bits")
+        del x, chunk
+
+
+def features_holds(x, dt_name):
+    """B6u (float32) or B6u_f64 on the stages of one refine chunk of
+    B6U_HELD_ROWS rows captured on ``x`` (the counts, float32 or float64)
+    at k = 90: the cascade (F = 128, staged B6 / B6_f64) and the exact
+    stage (F = x's width, the unstaged form) held against their plain
+    versions — float32 at the B6 bars (``hold_stage``) and against
+    float64 (``hold_stage_vs_f64``), float64 at B6_f64's
+    (``hold_stage_f64``).  Returns the exact stage's max error."""
+    import torch
+    f64 = x.dtype == torch.float64
+    (chunk,) = capture_refine_chunks(x, K, 1, row_chunk=B6U_HELD_ROWS)
+    err = 0.0
+    for kind, args, kwargs in chunk:
+        rows, base, _ = stage_rows(kind, args)
+        c, f = rows.shape[0], base.shape[1]
+        name = f"counts {dt_name} {kind} stage F={f}"
+        if f64:
+            e, _ = hold_stage_f64(name, kind, args, kwargs)
+        else:
+            e, _ = hold_stage(name, kind, args, kwargs)
+        if kind != "final":
+            print(f"[features] {'B6_f64' if f64 else 'B6'} {name} c={c}: "
+                  f"held, max err {e:.3e}")
+            continue
+        if not f64:
+            hold_stage_vs_f64(name, kind, args, kwargs)
+        err = max(err, e)
+        print(f"[features] {'B6u_f64' if f64 else 'B6u'} {name} c={c} "
+              f"({args[4].shape[1]} candidates a row): held, max err "
+              f"{e:.3e}; two launches bit-identical")
+    del chunk
+    return err
+
+
+def stage_slice(args, kwargs, s0, s1):
+    """An exact stage's inputs for rows s0 .. s1 - 1 of its chunk."""
+    metric, base, cache, row0, cand, old_i, old_d = args[:7]
+    kw = dict(kwargs)
+    if kw.get("bad") is not None:
+        kw["bad"] = kw["bad"][s0:s1]
+    return (metric, base, cache, row0 + s0, cand[s0:s1], old_i[s0:s1],
+            old_d[s0:s1]) + tuple(args[7:]), kw
+
+
+def hold_run_chunks(x, dt_name):
+    """B6u (float32) or B6u_f64 on the exact stage of the refine chunks
+    that the tile plan gives a run on ``x`` (k = 90: 4,096 rows at 32,738
+    features), every chunk of one round captured: the first chunk and the
+    last (at 68,579 rows it holds the rows past 2^31 / F) launched whole,
+    twice, bit-identical, and held against the plain version on
+    B6U_HELD_ROWS-row slices of them at B6's bars (``hold_stage``) or
+    B6_f64's (``hold_stage_f64``); then the kernel timed over the round's
+    full chunks in sequence, the plain version over the first chunk's
+    slices (its chunk body on the card, a slice at a time: a whole chunk's
+    gather does not fit), and the bound from the first chunk's inputs.
+    Returns (max error, (ms, plain ms, None), (bound ms, by), the
+    kernel's ms a row)."""
+    import torch
+    f64 = x.dtype == torch.float64
+    kid = "B6u_f64" if f64 else "B6u"
+    hold = hold_stage_f64 if f64 else hold_stage
+    finals = [chunk[-1] for chunk in capture_refine_chunks(x, K, None)]
+    c_run = finals[0][1][4].shape[0]
+    err = 0.0
+    for pos in sorted({0, len(finals) - 1}):
+        kind, args, kwargs = finals[pos]
+        rows, base, _ = stage_rows(kind, args)
+        c, f = rows.shape[0], base.shape[1]
+        got = stage_call(kind, args, kwargs)
+        again = stage_call(kind, args, kwargs)
+        check(all(torch.equal(a, b) for a, b in zip(got, again)),
+              f"[features] {kid}: two launches of the run's chunk {pos} "
+              "differ")
+        del again
+        e_chunk = 0.0
+        for s0 in range(0, c, B6U_HELD_ROWS):
+            s1 = min(c, s0 + B6U_HELD_ROWS)
+            sa, skw = stage_slice(args, kwargs, s0, s1)
+            e, _ = hold(f"counts {dt_name} run chunk {pos} rows "
+                        f"{int(rows[s0])}-{int(rows[s1 - 1])}", kind, sa,
+                        skw, got=(got[0][s0:s1], got[1][s0:s1]))
+            e_chunk = max(e_chunk, e)
+        err = max(err, e_chunk)
+        past = int((rows.long() * f >= 2 ** 31).sum())
+        print(f"[features] {kid} counts {dt_name} {x.shape[0]} x {f}: the "
+              f"run's chunk {pos} of {len(finals)} (rows {int(rows[0])}-"
+              f"{int(rows[-1])}, {past} of them past 2^31 / F) launched "
+              f"whole twice, bit-identical, and held on {B6U_HELD_ROWS}-row "
+              f"slices against the plain version: max err {e_chunk:.3e}")
+        del got
+    full = [st for st in finals if st[1][4].shape[0] == c_run]
+    ms = chunks_ms(full)
+    slices = [("final",) + stage_slice(finals[0][1], finals[0][2], s0,
+                                       min(c_run, s0 + B6U_HELD_ROWS))
+              for s0 in range(0, c_run, B6U_HELD_ROWS)]
+    plain_ms = chunks_ms(slices, plain=True) * len(slices)
+    bnd, u, _ = stage_bound(*finals[0], stage_call(*finals[0]))
+    print(f"[features] {kid} counts {dt_name} exact stage in the run's "
+          f"{c_run}-row chunks ({finals[0][1][4].shape[1]} candidates a "
+          f"row, {u} distinct rows in the first): {ms:.4f} ms a chunk over "
+          f"{len(full)} chunks in sequence, {ms / c_run * 1e3:.3f} us a row "
+          f"(the plain chunk body on the card in {len(slices)} slices "
+          f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms by {bnd[1]}, library "
+          "none)")
+    del finals, full, slices
+    return err, (ms, plain_ms, None), bnd, ms / c_run
+
+
+def features_launches(n, d, k, cycles, layout, b1=0):
+    """A counts run's launches: the refine funnel's cascade in B6 and its
+    exact stage in B6u, once a chunk a cycle each."""
+    want = layout_launches(layout, b1=b1, b6=b6_launches(n, d, k, cycles))
+    want["B6"] //= 2
+    want["B6u"] = want["B6"]
+    return want
+
+
+def features_memory(tag, n, d, k, cycles, peak, held, x_bytes, width,
+                    assembly):
+    """The memory model's allocated peak for a counts run at the graph's
+    width bound against the measured one: the run's peak less what the
+    script held before it, plus the points (densified on the card before
+    the run, as a run would upload them), within [1, 2]x.  The plan is
+    the charged one (``charged_plan``) of the assembly the run built:
+    under ``auto`` the charge takes split rows up to the rows gate and
+    the blocks layout past it, and the run builds one of them from its
+    exact split width (blocks at 68,579 x 32,738).  The charge over both
+    is printed beside it."""
+    from tsne_flink_tpu_torch.analysis.audit.hbm import (allocated_peak,
+                                                         charged_plans,
+                                                         stage_terms)
+    from tsne_flink_tpu_torch.analysis.audit.plan import PlanConfig
+
+    def peak_of(p):
+        return max(allocated_peak(t) for t in stage_terms(p).values())
+    plans = charged_plans(PlanConfig(
+        n=n, d=d, k=k, backend="cuda", knn_method="project",
+        knn_refine=cycles, repulsion="exact", sym_width=width, name=tag))
+    built = [p for p in plans
+             if (p.assembly == "blocks") == (assembly == "blocks")]
+    check(len(built) == 1, f"[features] {tag}: the charge has no plan of "
+          f"the {assembly} assembly the run built")
+    terms = stage_terms(built[0])
+    pa = peak_of(built[0])
+    alloc = peak - held + x_bytes
+    print(f"[features] {tag}: memory model allocated peak {pa / 2**30:.3f} "
+          f"GiB ({assembly}, the assembly the run built; over every "
+          f"assembly the charge allows {max(map(peak_of, plans)) / 2**30:.3f}"
+          f") vs measured {alloc / 2**30:.3f} GiB = {pa / alloc:.3f} (bar "
+          "[1, 2]); knn terms " + json.dumps(
+              {t: round(v / 2**30, 4) for t, v in terms["knn"].items()
+               if not isinstance(v, str)}))
+    check(alloc <= pa <= 2 * alloc, f"[features] {tag}: the memory model "
+          f"predicts {pa} for {alloc} measured")
+    return pa / alloc
+
+
+def features_run(tag, x, labels, b6u_row_ms):
+    """``tsne_embed(x, TsneConfig(perplexity=30), knn_method="project")``
+    on the counts (the auto funnel: JL skipped by the 95% rule, cascade at
+    128, exact at F): exact launches (B6 the cascade, B6u the exact
+    stage, a chunk a cycle each), stage split, finite and falling KL,
+    10-NN type agreement, peak memory against the model; then B1's exact
+    graph of the same points, timed, and recall@90 against it.  Returns
+    a record."""
+    import torch
+    from tsne_flink_tpu_torch import TsneConfig
+    from tsne_flink_tpu_torch.ops.affinities import width_bound
+    from tsne_flink_tpu_torch.ops.knn import pick_knn_refine
+    from tsne_flink_tpu_torch.ops.knn_cuda import reset_route_launches
+    from tsne_flink_tpu_torch.ops.knn_tiles import pick_knn_tiles
+    n, d = x.shape
+    cycles = pick_knn_refine(n, d)
+    cfg = TsneConfig(perplexity=PERPLEXITY, iterations=ITERATIONS,
+                     repulsion="exact")
+    held = torch.cuda.memory_allocated()
+    reset_route_launches()
+    with record_knn() as graph:
+        y, losses, stats, counts = run_embed(
+            tag, x, cfg, lambda st: features_launches(n, d, K, cycles,
+                                                      st["layout"]),
+            knn_method="project")
+    routes = route_counts()
+    kl = quality(tag, y, losses, labels, cfg, 0.0)
+    ratio = features_memory(tag, n, d, K, cycles, stats["peak_bytes"],
+                            held, x.numel() * 4, width_bound(graph[0]),
+                            stats["assembly"])
+    dist_a = graph[1].clone()
+    del graph[:], y
+    _, dist_e, t_b1 = timed_exact_graph(x, K)
+    recall = recall_at_k(dist_a, dist_e)
+    del dist_e
+    chunk = pick_knn_tiles(n, d, K, "cuda").refine_chunk
+    b6u = (f"; B6u ~{cycles * n * b6u_row_ms / 1e3:.3f} s of it at "
+           f"{b6u_row_ms * 1e3:.3f} us a row in its chunks")
+    print(f"[features] {tag}: {cycles} refine cycles of {math.ceil(n / chunk)}"
+          f" chunks of {chunk} rows; B6 x{counts['B6']} (cascade, F=128), "
+          f"B6u x{counts['B6u']} (exact, F={d}); routes {json.dumps(routes)}"
+          f"; the hybrid knn stage {stats['knn']:.3f} s (refine "
+          f"{stats['knn_substages']['refine']:.3f}{b6u}) against B1's exact "
+          f"graph {t_b1:.3f} s; recall@{K} {recall:.4f} (bar 0.90)")
+    check(recall >= 0.90, f"[features] {tag}: recall@{K} {recall} < 0.90")
+    return {"n": n, "d": d, "cycles": cycles, "chunk": chunk,
+            "launches": counts, "routes": routes, "stages": {
+                k_: v for k_, v in stats.items() if isinstance(v, float)},
+            "knn_substages": stats["knn_substages"], "kl": kl,
+            "b1_exact_s": t_b1, "recall": recall, "memory_ratio": ratio}
+
+
+#: one rank of the cut's two-process project job (torch and the port only)
+FEATURES_WORKER = r"""
+import json, sys
+import numpy as np, torch
+from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
+from tsne_flink_tpu_torch.models.tsne import TsneConfig
+from tsne_flink_tpu_torch.parallel.mesh import distributed_init
+from tsne_flink_tpu_torch.parallel.pipeline import SpmdPipeline
+spec = json.loads(sys.argv[1])
+distributed_init(spec["coordinator"], 2, spec["rank"], timeout_s=300)
+x = torch.from_numpy(np.load(spec["x"]))
+n, d = x.shape
+reset_launches()
+pipe = SpmdPipeline(TsneConfig(perplexity=spec["perplexity"],
+                               iterations=spec["iterations"]), n, d,
+                    spec["k"], knn_method="project")
+y, losses = pipe(x, 0)
+np.save(spec["out"], y.cpu().numpy())
+print("FEATURES_RANK " + json.dumps(launches()))
+"""
+
+
+def features_fit(tag, x, want_kid, **kw):
+    """``TSNE(knn_method="project", random_state=0, **kw).fit(x)`` with its
+    launches and B6 routes counted from 0 just before it: finite and
+    falling KL, ``want_kid`` launched.  Returns (embedding, launches,
+    routes, seconds, final KL)."""
+    import torch
+    from tsne_flink_tpu_torch import TSNE
+    from tsne_flink_tpu_torch.kernels.build import launches, reset_launches
+    from tsne_flink_tpu_torch.ops.knn_cuda import reset_route_launches
+    torch.cuda.synchronize()
+    reset_launches()
+    reset_route_launches()
+    t0 = time.perf_counter()
+    est = TSNE(knn_method="project", random_state=0, **kw).fit(x)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, routes = launches(), route_counts()
+    lh = est.kl_trace_
+    print(f"[features] {tag}: {secs:.3f} s end to end; launches "
+          f"{json.dumps({k_: v for k_, v in counts.items() if v})}; B6 "
+          f"routes {json.dumps(routes)}; KL tail "
+          f"{np.round(lh[-3:], 5).tolist()}")
+    check(bool(np.isfinite(est.embedding_).all()) and bool(
+        np.isfinite(lh).all()) and lh[-1] < lh[11],
+          f"[features] {tag}: non-finite or no falling KL")
+    check(counts[want_kid] > 0, f"[features] {tag}: no {want_kid} launch")
+    return est.embedding_, counts, routes, secs, float(lh[-1])
+
+
+def write_coo_triples(path, triples, n, d, rows_per_block=1000):
+    """The triples (rows ascending) as a COO CSV, blocks of rows built on a
+    few threads and written in order; returns its lines."""
+    from concurrent.futures import ThreadPoolExecutor
+    r, c, v = triples
+    cuts = np.searchsorted(r, np.arange(0, n + rows_per_block,
+                                        rows_per_block))
+    spans = list(zip(range(0, n, rows_per_block), cuts[:-1], cuts[1:]))
+    with open(path, "wb") as f, ThreadPoolExecutor(
+            min(8, os.cpu_count() or 1)) as pool:
+        for text in pool.map(lambda s: coo_lines(
+                r[s[1]:s[2]], c[s[1]:s[2]], v[s[1]:s[2]], s[0],
+                min(n, s[0] + rows_per_block), d), spans):
+            f.write(text)
+    return len(v)
+
+
+def features_cut_routes(x, triples, tmp):
+    """The cut (20,000 x 32,738) through the routes with a form of their
+    own: two gloo processes on the card (started first, run while the
+    rest runs here) against the in-process job on the test mesh of 2 bit
+    for bit; ``TSNE().fit``; ``TSNE(dtype="float64")`` (B6u_f64);
+    ``TSNE(dtype="bfloat16")`` (bf16 operands in the Z-order products; B6u
+    keeps its float32 bits); the command line from a COO CSV of the
+    triples with ``--auditPlan`` (its embedding TSNE().fit's bit for
+    bit); and perplexity 500 (k = 1,500; one refine cycle).  Returns
+    {route: record}."""
+    import torch
+    from tsne_flink_tpu_torch import TsneConfig
+    from tsne_flink_tpu_torch.parallel.pipeline import SpmdPipeline
+    n, d = x.shape
+    out = {}
+    xp = os.path.join(tmp, "counts.npy")
+    np.save(xp, x.cpu().numpy())
+    job = spmd_start([[sys.executable, "-c", FEATURES_WORKER, json.dumps({
+        "coordinator": "{coord}", "rank": r, "x": xp, "k": K,
+        "perplexity": PERPLEXITY, "iterations": ITERATIONS,
+        "out": os.path.join(tmp, f"counts_y{r}.npy")})] for r in range(2)])
+    try:
+        y32, c32, _, s32, kl32 = features_fit("TSNE().fit (float32)", x,
+                                              "B6u")
+        out["fit"] = {"seconds": s32, "kl": kl32, "launches": c32}
+        y64, c64, r64, s64, kl64 = features_fit(
+            "TSNE(dtype='float64').fit", x, "B6u_f64", dtype="float64")
+        check(c64["B6u"] == c64["B6"] == 0, "[features] a float32 form ran "
+              "in the float64 fit")
+        out["f64"] = {"seconds": s64, "kl": kl64, "launches": c64,
+                      "routes": r64}
+        del y64
+        ybf, cbf, _, sbf, klbf = features_fit(
+            "TSNE(dtype='bfloat16').fit", x, "B6u", dtype="bfloat16")
+        out["bf16"] = {"seconds": sbf, "kl": klbf, "launches": cbf,
+                       "kl_gap": klbf - kl32}
+        print(f"[features] bf16 operands: final KL {klbf:.5f} against "
+              f"float32's {kl32:.5f}")
+        del ybf
+        out["cli"] = features_cli(triples, n, d, y32, tmp)
+        yk, ck, rk, sk, klk = features_fit(
+            f"TSNE(perplexity=500).fit (k = {K_COUNTS_BIG}, one refine "
+            "cycle)", x, "B6u", perplexity=K_COUNTS_BIG / 3.0, knn_refine=1)
+        out["big_k"] = {"seconds": sk, "kl": klk, "launches": ck,
+                        "routes": rk}
+        del yk, y32
+        # the in-process job at the processes' width (the project kNN's
+        # band blocks split by range: the graph depends on the width)
+        t0 = time.perf_counter()
+        y_in, _ = SpmdPipeline(TsneConfig(perplexity=PERPLEXITY,
+                                          iterations=ITERATIONS), n, d, K,
+                               knn_method="project", devices=test_mesh(2))(
+            x, 0)
+        t_in = time.perf_counter() - t0
+    finally:
+        rcs, secs, outs = spmd_wait("features two-process project", job)
+    check(rcs == [0, 0], f"[features] two-process job: exit codes {rcs}")
+    rank_counts = [json.loads(o.split("FEATURES_RANK ")[1].splitlines()[0])
+                   for o in outs]
+    ys = [np.load(os.path.join(tmp, f"counts_y{r}.npy")) for r in range(2)]
+    check(all(same_bits(y_, y_in.cpu().numpy()) for y_ in ys),
+          "[features] the two-process job's embedding != the in-process "
+          "job's")
+    check(all(c_["B6u"] > 0 for c_ in rank_counts),
+          "[features] a rank launched no B6u")
+    print(f"[features] two processes: the in-process job's bits on the "
+          f"test mesh of 2 ({t_in:.1f} s in process, {secs:.1f} s as two "
+          f"processes beside the fits above); a rank's B6 / B6u launches "
+          + ", ".join(f"{c_['B6']} / {c_['B6u']}" for c_ in rank_counts))
+    os.remove(xp)
+    out["spmd"] = {"seconds_in_process": t_in, "seconds": secs,
+                   "rank_launches": rank_counts}
+    del y_in
+    torch.cuda.empty_cache()
+    return out
+
+
+def features_cli(triples, n, d, y_fit, tmp):
+    """The command line on the cut, from the triples as a COO CSV, with
+    ``--auditPlan``: the plan check before and after the kNN stage, B6u
+    launched, the embedding ``y_fit``'s (TSNE().fit's) bit for bit."""
+    coo = os.path.join(tmp, "counts.csv")
+    t0 = time.perf_counter()
+    lines = write_coo_triples(coo, triples, n, d)
+    print(f"[features] wrote {lines} point,feature,value lines "
+          f"({os.path.getsize(coo) / 1e9:.3f} GB) in "
+          f"{time.perf_counter() - t0:.2f} s")
+    out_buf = io.StringIO()
+    with contextlib.redirect_stdout(out_buf):
+        y_cli, c_cli, st_cli, _ = run_cli("features cut", [
+            "--input", coo, "--output", os.path.join(tmp, "counts_y.csv"),
+            "--loss", os.path.join(tmp, "counts.loss"), "--dimension",
+            str(d), "--perplexity", str(PERPLEXITY), "--iterations",
+            str(ITERATIONS), "--randomState", "0", "--knnMethod", "project",
+            "--auditPlan", "--noCache"])
+    os.remove(coo)
+    plan_lines = [ln for ln in out_buf.getvalue().splitlines()
+                  if ln.startswith("# auditPlan: ") and "peak HBM" in ln]
+    for line in out_buf.getvalue().splitlines():
+        print(f"[features] cli: {line}" if line.startswith("# auditPlan")
+              else line)
+    check(len(plan_lines) == 2, "[features] the CLI printed no plan check "
+          "before and after the kNN stage")
+    check(c_cli["B6u"] > 0, "[features] the CLI run launched no B6u")
+    check(same_bits(y_cli, y_fit),
+          "[features] the command line's embedding != TSNE().fit's")
+    print("[features] the command line's embedding equals TSNE().fit's bit "
+          "for bit")
+    return {"stages": st_cli, "launches": c_cli}
+
+
+def phase_features(x_np, full=False, routes=True):
+    """[features] More than 12,288 features on a refining project plan:
+    B6's unstaged form forced at the blobs' staged widths gives the
+    staged form's bits; on the counts' 20,000-row cut at the full 32,738
+    features, B6u and B6u_f64 held against their plain versions on a
+    captured 64-row refine chunk (float32 also against float64), then on
+    the run's own chunks (:func:`hold_run_chunks`: B6u's on the run's x,
+    the cut or the full size) and timed there; the project run at the
+    cut — or, with ``full``, at 68,579 x 32,738 (the script's) — with its
+    exact launches, recall@90 against B1's exact
+    graph and its memory against the model; then (``routes``) the cut
+    through the routes of :func:`features_cut_routes`.  Returns ({kid:
+    max error}, {kid: (ms, plain ms, None)}, {kid: (bound ms, by)}, {kid:
+    launches}, the records)."""
+    import shutil
+    import tempfile
+
+    import torch
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="tsne_features_")
+    try:
+        unstaged_bits_at_a_staged_width(x_np)
+        x, triples, labels, _ = features_data(N_COUNTS_CUT)
+        errs, times, bnds = {}, {}, {}
+        e32 = features_holds(x, "float32")
+        x64 = x.double()
+        e64 = features_holds(x64, "float64")
+        e, times["B6u_f64"], bnds["B6u_f64"], _ = hold_run_chunks(
+            x64, "float64")
+        errs["B6u_f64"] = max(e64, e)
+        del x64
+        torch.cuda.empty_cache()
+        recs = {}
+        if full:
+            xf, _, labels_f, _ = features_data(N_COUNTS)
+        else:
+            xf, labels_f = x, labels
+        e, times["B6u"], bnds["B6u"], row_ms = hold_run_chunks(
+            xf, "float32")
+        errs["B6u"] = max(e32, e)
+        torch.cuda.empty_cache()
+        if full:
+            recs["full"] = features_run("features full", xf, labels_f,
+                                        row_ms)
+            del xf
+            torch.cuda.empty_cache()
+        else:
+            recs["cut"] = features_run("features cut", x, labels, row_ms)
+        main = recs["full" if full else "cut"]
+        n_launch = {"B6u": main["launches"]["B6u"], "B6u_f64": 0}
+        if routes:
+            recs["routes"] = features_cut_routes(x, triples, tmp)
+            n_launch["B6u_f64"] = recs["routes"]["f64"]["launches"][
+                "B6u_f64"]
+        del x
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[features] phase {time.perf_counter() - t_phase:.1f} s")
+    return errs, times, bnds, n_launch, recs
+
+
 def native_embedding(path):
     from tsne_flink_tpu_torch.utils import native
     return native.load_coo(path)[:, 1:].astype(np.float32)
@@ -5416,11 +6117,12 @@ def quorum_memory(subs, context, total):
           f"{feet / 2**30:.3f} GiB of the card's {total / 2**30:.3f} GiB")
 
 
-def quorum_chaos(ckpt_path, x_path, tmp, queries, want, shed_q, want_e):
-    """[quorum] 2-5 at once, each fleet over a spool of its own: both
-    replicas killed at their first request's boundary; one replica hung
-    at its second tick; one ended by its watchdog; bulk shed before
-    express."""
+def quorum_chaos_start(ckpt_path, x_path, tmp, queries, shed_q):
+    """Start [quorum] 2-5 at once, each fleet over a spool of its own, its
+    supervisor in a thread of this process: both replicas killed at their
+    first request's boundary; one replica hung at its second tick; one
+    ended by its watchdog; bulk shed before express.  Returns the job for
+    :func:`quorum_chaos`."""
     out = {}
     kill = quorum_spec("kill", tmp, ckpt_path, x_path, 2, fault_plans={
         "0": "kill@serve:seg0", "1": "kill@serve:seg0"})
@@ -5438,9 +6140,16 @@ def quorum_chaos(ckpt_path, x_path, tmp, queries, want, shed_q, want_e):
     t0 = time.perf_counter()
     threads = [(quorum_thread(spec, out), spec)
                for spec in (kill, hang, dog, shed)]
+    return out, threads, t0, (kill, hang, dog, shed)
+
+
+def quorum_chaos(job, want, shed_q, want_e):
+    """[quorum] 2-5: wait for :func:`quorum_chaos_start`'s fleets, then
+    check each."""
+    out, threads, t0, (kill, hang, dog, shed) = job
     recs = {spec.name: quorum_join(th, spec, out) for th, spec in threads}
-    print(f"[quorum] kill, hang, watchdog and shed fleets at once: "
-          f"{time.perf_counter() - t0:.1f} s")
+    print(f"[quorum] kill, hang, watchdog and shed fleets at once (beside "
+          f"the clean fleet): {time.perf_counter() - t0:.1f} s")
 
     rec = recs["kill"]
     quorum_answers("kill", kill, want)
@@ -5533,12 +6242,19 @@ def phase_quorum(x_np, ckpt_path, tmp, solo, cold_build=False):
               if len(q) <= SERVE_BUCKET}
     del model
     torch.cuda.empty_cache()
+    # the context is probed while no replica holds the card; then the
+    # chaos fleets run beside the clean one
+    context = runtime_context()
+    chaos = None
+    if not cold_build:
+        chaos = quorum_chaos_start(ckpt_path, x_path, tmp, queries, shed_q)
     subs = quorum_clean(ckpt_path, x_path, tmp, queries, want, solo,
                         cold_build)
-    context = runtime_context()
     quorum_memory(subs, context,
                   torch.cuda.get_device_properties(0).total_memory)
-    quorum_chaos(ckpt_path, x_path, tmp, queries, want, shed_q, want_e)
+    if chaos is None:
+        chaos = quorum_chaos_start(ckpt_path, x_path, tmp, queries, shed_q)
+    quorum_chaos(chaos, want, shed_q, want_e)
     print(f"[quorum] phase {time.perf_counter() - t_phase:.1f} s")
     return context
 
@@ -6057,7 +6773,7 @@ def mesh_blobs(x_np, labels, cfg, full, csr_kl):
     del prep
     check(runs[1][4] == "csr", f"[mesh] blobs: layout {runs[1][4]}")
     mesh_same("blobs CSR", runs)
-    want = {"B1": 0, "B1_bf16": 0, **NO_F64, **NO_WIDE,
+    want = {"B1": 0, "B1_bf16": 0, **NO_F64, **NO_WIDE, **NO_UNSTAGED,
             "B2": ITERATIONS, "B3": ITERATIONS, "B4": ITERATIONS // 10,
             "B5": 0, "B6": 0}
     shard_launches("blobs CSR", runs, want)
@@ -6139,7 +6855,7 @@ def phase_mesh(x_np, labels, full, csr_kl, latent_rows, large, tmp):
             for d in (1, 2)}
     check(runs[1][4] == "rows", f"[mesh] latent blobs: layout {runs[1][4]}")
     mesh_same("latent blobs rows", runs)
-    want = {"B1": 0, "B1_bf16": 0, **NO_F64, **NO_WIDE,
+    want = {"B1": 0, "B1_bf16": 0, **NO_F64, **NO_WIDE, **NO_UNSTAGED,
             "B2": ITERATIONS, "B3": 0, "B4": ITERATIONS // 10,
             "B5": ITERATIONS, "B6": 0}
     shard_launches("latent blobs rows", runs, want)
@@ -6164,7 +6880,7 @@ def phase_mesh(x_np, labels, full, csr_kl, latent_rows, large, tmp):
             for d in (1, 2)}
     check(runs[1][4] == "blocks", f"[mesh] large: layout {runs[1][4]}")
     mesh_same("large blocks + FFT", runs)
-    want = {"B1": 0, "B1_bf16": 0, **NO_F64, **NO_WIDE, "B2": 0,
+    want = {"B1": 0, "B1_bf16": 0, **NO_F64, **NO_WIDE, **NO_UNSTAGED, "B2": 0,
             "B3": 0, "B4": ITERATIONS // 10, "B5": ITERATIONS, "B6": 0}
     shard_launches("large blocks + FFT", runs, want)
     per_shard["blocks"] = want
@@ -6353,32 +7069,49 @@ def free_port():
     return port
 
 
-def spmd_job(tag, argvs, timeout=600):
-    """Run one process a rank (``argvs[r]``, each a full command line; the
-    string ``{coord}`` becomes the job's rendezvous) from the repository
-    root; returns (exit codes, seconds, outputs)."""
+def spmd_start(argvs):
+    """Start one process a rank (``argvs[r]``, each a full command line;
+    the string ``{coord}`` becomes the job's rendezvous) from the
+    repository root, each writing into a temporary file; returns the job
+    for :func:`spmd_wait`."""
+    import tempfile
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [ROOT] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
     coord = f"127.0.0.1:{free_port()}"
     t0 = time.perf_counter()
+    logs = [tempfile.TemporaryFile(mode="w+") for _ in argvs]
     procs = [subprocess.Popen([a.replace("{coord}", coord) for a in argv],
-                              cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                              cwd=ROOT, env=env, stdout=log,
                               stderr=subprocess.STDOUT, text=True)
-             for argv in argvs]
-    outs, rcs = [], []
+             for argv, log in zip(argvs, logs)]
+    return procs, logs, t0
+
+
+def spmd_wait(tag, job, timeout=600):
+    """Wait for a job's ranks, then stop every process it started; returns
+    (exit codes, seconds since the start, outputs)."""
+    procs, logs, t0 = job
+    rcs, outs = [], []
     try:
-        for p in procs:
-            out, _ = p.communicate(timeout=timeout)
-            outs.append(out)
-            rcs.append(p.returncode)
+        for p, log in zip(procs, logs):
+            rcs.append(p.wait(timeout=timeout))
+            log.seek(0)
+            outs.append(log.read())
     finally:
-        for p in procs:  # stop every process this job started
-            p.kill()
+        for p, log in zip(procs, logs):
+            p.kill()  # a no-op for those that ended
             p.wait()
+            log.close()
     secs = time.perf_counter() - t0
-    print(f"[spmd] {tag}: {len(argvs)} processes, exit codes {rcs}, "
+    print(f"[spmd] {tag}: {len(procs)} processes, exit codes {rcs}, "
           f"{secs:.1f} s")
     return rcs, secs, outs
+
+
+def spmd_job(tag, argvs, timeout=600):
+    """:func:`spmd_start` then :func:`spmd_wait`: (exit codes, seconds,
+    outputs)."""
+    return spmd_wait(tag, spmd_start(argvs), timeout)
 
 
 def spmd_ring(x, want, b1_ms):
@@ -6630,7 +7363,8 @@ def phase_spmd(x_np, labels, csr_kl, b1_ms):
     line's two-process job on the one card (gloo) against the in-process
     job at mesh 1 and 2, the NCCL route at world size 1, the project kNN
     and the alltoall symmetrization over two processes, and --symStrict
-    ending both ranks.  Returns the records of B1's cross sweep and B6
+    ending both ranks (the three process jobs run beside each other and
+    the in-process jobs, after the timed launches).  Returns the records of B1's cross sweep and B6
     with n_valid."""
     import shutil
     import tempfile
@@ -6651,30 +7385,55 @@ def phase_spmd(x_np, labels, csr_kl, b1_ms):
     want64 = fused_knn(x64, K)[1]
     spmd_project_f64_mesh(x64)
     del x, x64
-
-    y1, l1, s1, _ = spmd_in_process(x_np, 1)
-    y2, l2, s2, _ = spmd_in_process(x_np, 2)
-    check(same_bits(y1, y2), "[spmd] in-process mesh 2 differs from mesh 1")
-    print(f"[spmd] in-process SpmdPipeline: mesh 1 {s1:.2f} s, mesh 2 (the "
-          f"test mesh) {s2:.2f} s, y equal bit for bit, final KL "
-          f"{float(l1[-1]):.6f}")
-    spmd_nccl(x_np, y1)
+    torch.cuda.empty_cache()  # the card's room for the process jobs
 
     tmp = tempfile.mkdtemp(prefix="tsne_spmd_")
+    jobs = []
     try:
+        # the three process jobs start together here, after the phase's
+        # timed launches, and run beside each other and the in-process
+        # jobs; each is waited for and checked in turn below
         coo = shared_coo(x_np)
         cli = [sys.executable, "-m", "tsne_flink_tpu_torch.utils.cli",
                "--input", coo, "--dimension", str(f), "--knnMethod",
                "bruteforce", "--noCache", "--spmd", "--coordinator",
                "{coord}", "--numProcesses", str(SPMD_PROCESSES)]
 
-        def argv(r, *extra):
+        def argv(r, *extra, out="y", loss="loss"):
             return cli + ["--processId", str(r), "--output",
-                          os.path.join(tmp, f"y{r}.csv"), "--loss",
-                          os.path.join(tmp, f"loss{r}.txt"), *extra]
+                          os.path.join(tmp, f"{out}{r}.csv"), "--loss",
+                          os.path.join(tmp, f"{loss}{r}.txt"), *extra]
 
-        rcs, secs, outs = spmd_job("the command line, replicated", [
-            argv(r) for r in range(SPMD_PROCESSES)])
+        np.save(os.path.join(tmp, "x.npy"), x_np)
+        spec = dict(x=os.path.join(tmp, "x.npy"), out=tmp, k=K,
+                    world=SPMD_PROCESSES, coordinator="{coord}",
+                    timeout_s=SPMD_TIMEOUT_S, cfg=spmd_cfg_kw())
+        # --symStrict: both ranks end non-zero, no hang (on a cut of the
+        # blobs: the gate is the job's ending, not its size)
+        cut = os.path.join(tmp, "cut.csv")
+        write_coo(cut, x_np[:SPMD_STRICT_ROWS])
+        jobs.append(spmd_start([argv(r) for r in range(SPMD_PROCESSES)]))
+        jobs.append(spmd_start([
+            [sys.executable, "-c", SPMD_WORKER, json.dumps(dict(spec,
+                                                                rank=r))]
+            for r in range(SPMD_PROCESSES)]))
+        jobs.append(spmd_start([
+            [a if a != coo else cut
+             for a in argv(r, out="strict_y", loss="strict_loss")]
+            + ["--symMode", "alltoall", "--symSlack", "1", "--symWidth", "8",
+               "--symStrict"] for r in range(SPMD_PROCESSES)]))
+
+        y1, l1, s1, _ = spmd_in_process(x_np, 1)
+        y2, l2, s2, _ = spmd_in_process(x_np, 2)
+        check(same_bits(y1, y2),
+              "[spmd] in-process mesh 2 differs from mesh 1")
+        print(f"[spmd] in-process SpmdPipeline: mesh 1 {s1:.2f} s, mesh 2 "
+              f"(the test mesh) {s2:.2f} s, y equal bit for bit, final KL "
+              f"{float(l1[-1]):.6f}")
+        spmd_nccl(x_np, y1)
+
+        rcs, secs, outs = spmd_wait("the command line, replicated",
+                                    jobs.pop(0))
         check(rcs == [0] * SPMD_PROCESSES,
               f"[spmd] CLI job failed: {outs[0][-2000:]}")
         check(not any(os.path.exists(os.path.join(tmp, f"{name}{r}.{ext}"))
@@ -6697,20 +7456,14 @@ def phase_spmd(x_np, labels, csr_kl, b1_ms):
               f"wrote, final KL {kl_cli:.6f} ([full] {csr_kl:.6f}), 10-NN "
               f"label agreement {agree:.4f}; {secs:.1f} s end to end "
               f"(process start, a 1 GB COO read a rank, kernel library "
-              f"load)")
+              f"load; beside the phase's other jobs)")
         for out in outs:
             for line in out.splitlines():
                 if line.startswith(("embedded", "# sym_width")):
                     print(f"[spmd]   {line}")
 
-        np.save(os.path.join(tmp, "x.npy"), x_np)
-        spec = dict(x=os.path.join(tmp, "x.npy"), out=tmp, k=K,
-                    world=SPMD_PROCESSES, coordinator="{coord}",
-                    timeout_s=SPMD_TIMEOUT_S, cfg=spmd_cfg_kw())
-        rcs, secs, outs = spmd_job("project kNN + alltoall job", [
-            [sys.executable, "-c", SPMD_WORKER, json.dumps(dict(spec,
-                                                                rank=r))]
-            for r in range(SPMD_PROCESSES)])
+        rcs, secs, outs = spmd_wait("project kNN + alltoall job",
+                                    jobs.pop(0))
         check(rcs == [0] * SPMD_PROCESSES,
               f"[spmd] worker job failed: {outs[0][-3000:]}")
         recs = [json.loads(line.split(" ", 1)[1]) for out in outs
@@ -6782,15 +7535,8 @@ def phase_spmd(x_np, labels, csr_kl, b1_ms):
         check(b1_cross == SPMD_PROCESSES * SPMD_PROCESSES,
               f"[spmd] the alltoall job launched B1 {b1_cross} times")
 
-        # --symStrict: both ranks end non-zero, no hang (on a cut of the
-        # blobs: the gate is the job's ending, not its size)
-        cut = os.path.join(tmp, "cut.csv")
-        write_coo(cut, x_np[:SPMD_STRICT_ROWS])
-        rcs, secs, outs = spmd_job("--symStrict", [
-            [a if a != coo else cut for a in argv(r)]
-            + ["--symMode", "alltoall", "--symSlack", "1", "--symWidth", "8",
-               "--symStrict"] for r in range(SPMD_PROCESSES)],
-            timeout=SPMD_TIMEOUT_S + 120)
+        rcs, secs, outs = spmd_wait("--symStrict", jobs.pop(0),
+                                    timeout=SPMD_TIMEOUT_S + 120)
         check(all(rc != 0 for rc in rcs)
               and all("--symStrict set" in out for out in outs),
               f"[spmd] --symStrict: exit codes {rcs}")
@@ -6799,6 +7545,11 @@ def phase_spmd(x_np, labels, csr_kl, b1_ms):
               f"exits non-zero ({rcs}) in {secs:.1f} s (group timeout "
               f"{SPMD_TIMEOUT_S} s)")
     finally:
+        for procs, logs, _ in jobs:  # jobs a failed check left running
+            for p, log in zip(procs, logs):
+                p.kill()
+                p.wait()
+                log.close()
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"[spmd] phase {time.perf_counter() - t_phase:.1f} s")
     name, src, repl = KERNEL_META["B1"]
@@ -7073,7 +7824,29 @@ print(json.dumps({"seconds": time.perf_counter() - t0, "marks": marks,
 """
 
 
-def runtime_real_oom(tmp):
+def runtime_real_oom_start(tmp):
+    """Start :func:`runtime_real_oom`'s capped subprocess; returns it, its
+    output path and its start."""
+    out = os.path.join(tmp, "oom_y.npy")
+    proc = subprocess.Popen([sys.executable, "-c", OOM_CHILD, ROOT,
+                             str(OOM_CAP_GIB * 2**30), out],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, out, time.perf_counter()
+
+
+def child_result(proc, timeout=600):
+    """(exit code, stdout, stderr) of a started subprocess, which is killed
+    if it outlives ``timeout``."""
+    try:
+        so, se = proc.communicate(timeout=timeout)
+    finally:
+        proc.kill()  # a no-op for one that ended
+        proc.wait()
+    return subprocess.CompletedProcess(proc.args, proc.returncode, so, se)
+
+
+def runtime_real_oom(tmp, started=None):
     """[runtime] 2: a real CUDA OOM recovered by the ladder.  A subprocess
     caps its allocator at OOM_CAP_GIB and runs the supervised [full]
     configuration: the split rows' [N, S] planes (8.4 GiB) do not fit, the
@@ -7081,15 +7854,13 @@ def runtime_real_oom(tmp):
     blocks assembly (rung 2; rung 1's tile budget holds nothing of the
     stage on the card) and the relaunch completes.  Gate: the degradation
     is recorded, and the embedding equals, bit for bit, a run given the
-    blocks assembly from the start."""
+    blocks assembly from the start.  ``started``: the subprocess
+    :func:`runtime_real_oom_start` started (else it starts here)."""
     import torch
     from tsne_flink_tpu_torch.runtime.supervisor import (Supervisor,
                                                          supervised_embed)
-    out = os.path.join(tmp, "oom_y.npy")
-    t0 = time.perf_counter()
-    got = subprocess.run([sys.executable, "-c", OOM_CHILD, ROOT,
-                          str(OOM_CAP_GIB * 2**30), out],
-                         capture_output=True, text=True, timeout=600)
+    proc, out, t0 = started or runtime_real_oom_start(tmp)
+    got = child_result(proc)
     check(got.returncode == 0, f"[runtime] the capped run failed: "
           f"{got.stderr[-3000:]}")
     rec = json.loads(got.stdout.strip().splitlines()[-1])
@@ -7129,23 +7900,49 @@ def _cli_argv(coo, d, out, tmp, *extra):
 
 
 def _cli_child(argv, timeout=600):
+    return child_result(_cli_child_start(argv), timeout)
+
+
+def _cli_child_start(argv):
     code = ("import sys; sys.path.insert(0, %r)\n"
             "from tsne_flink_tpu_torch.utils.cli import main\n"
             "main(%r)\n") % (ROOT, argv)
-    return subprocess.run([sys.executable, "-c", code], capture_output=True,
-                          text=True, timeout=timeout)
+    return subprocess.Popen([sys.executable, "-c", code],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
 
 
 REHEARSAL_N, REHEARSAL_ITERS = 20_000, 100
 
 
-def runtime_rehearsals(x_np, tmp):
+def runtime_children_start(x_np, tmp):
+    """Start [runtime]'s subprocesses at once: the real OOM's capped run,
+    and on 20,000 of the blobs (written as a COO file) the
+    ``kill@optimize:seg1`` run and the ``--stageTimeout 0.01`` run.
+    Returns what :func:`runtime_real_oom` and :func:`runtime_rehearsals`
+    wait for."""
+    coo = os.path.join(tmp, "blobs20k.csv")
+    write_coo(coo, x_np[:REHEARSAL_N])
+    d = x_np.shape[1]
+    ck = os.path.join(tmp, "rehearsal.npz")
+    t0 = time.perf_counter()
+    kill = _cli_child_start(_cli_argv(
+        coo, d, "killed.csv", tmp, "--checkpoint", ck, "--checkpointEvery",
+        "50", "--fatCheckpoint", "--faultPlan", "kill@optimize:seg1"))
+    late = _cli_child_start(_cli_argv(coo, d, "late.csv", tmp,
+                                      "--stageTimeout", "0.01"))
+    return runtime_real_oom_start(tmp), (coo, ck, kill, late, t0)
+
+
+def runtime_rehearsals(x_np, tmp, started=None):
     """[runtime] 3: the fault plans on the card, on 20,000 of the blobs:
     ``oom@knn`` completes through the ladder with the clean run's bits;
     ``kill@optimize:seg1`` in a subprocess, then ``--resume``, gives the
     uninterrupted run's bits; ``nan@optimize`` is rolled back by the
     sentinel; ``corrupt@checkpoint`` is caught with its path and hash; a
-    ``--stageTimeout`` too small exits 124."""
+    ``--stageTimeout`` too small exits 124.  ``started``: the two
+    subprocesses :func:`runtime_children_start` started (else they start
+    here, one after the other)."""
     import torch
     from tsne_flink_tpu_torch.runtime import faults
     from tsne_flink_tpu_torch.runtime.supervisor import (Supervisor,
@@ -7195,17 +7992,21 @@ def runtime_rehearsals(x_np, tmp):
     print(f"[runtime] corrupt@checkpoint: {caught}")
     check(caught is not None and path in caught and "hash" in caught,
           "[runtime] corrupt@checkpoint: not caught with path and hash")
-    coo = os.path.join(tmp, "blobs20k.csv")
-    write_coo(coo, x)
     d = x.shape[1]
-    ck = os.path.join(tmp, "rehearsal.npz")
-    t1 = time.perf_counter()
-    got = _cli_child(_cli_argv(coo, d, "killed.csv", tmp, "--checkpoint",
-                               ck, "--checkpointEvery", "50",
-                               "--fatCheckpoint", "--faultPlan",
-                               "kill@optimize:seg1"))
-    print(f"[runtime] kill@optimize:seg1: exit {got.returncode} after "
-          f"{time.perf_counter() - t1:.1f} s")
+    if started is None:
+        coo = os.path.join(tmp, "blobs20k.csv")
+        write_coo(coo, x)
+        ck = os.path.join(tmp, "rehearsal.npz")
+        t1 = time.perf_counter()
+        got = _cli_child(_cli_argv(coo, d, "killed.csv", tmp,
+                                   "--checkpoint", ck, "--checkpointEvery",
+                                   "50", "--fatCheckpoint", "--faultPlan",
+                                   "kill@optimize:seg1"))
+    else:
+        coo, ck, kill, late, t1 = started
+        got = child_result(kill)
+    print(f"[runtime] kill@optimize:seg1: exit {got.returncode} "
+          f"{time.perf_counter() - t1:.1f} s after its start")
     check(got.returncode == -9 and os.path.exists(ck),
           f"[runtime] kill@optimize:seg1: exit {got.returncode} "
           f"{got.stderr[-1500:]}")
@@ -7219,11 +8020,14 @@ def runtime_rehearsals(x_np, tmp):
     print(f"[runtime] --resume after the kill equals the uninterrupted "
           f"run: {same}")
     check(same, "[runtime] the resumed run differs from the uninterrupted")
-    t1 = time.perf_counter()
-    got = _cli_child(_cli_argv(coo, d, "late.csv", tmp, "--stageTimeout",
-                               "0.01"))
-    print(f"[runtime] --stageTimeout 0.01: exit {got.returncode} after "
-          f"{time.perf_counter() - t1:.1f} s")
+    if started is None:
+        t1 = time.perf_counter()
+        got = _cli_child(_cli_argv(coo, d, "late.csv", tmp,
+                                   "--stageTimeout", "0.01"))
+    else:
+        got = child_result(late)
+    print(f"[runtime] --stageTimeout 0.01: exit {got.returncode} "
+          f"{time.perf_counter() - t1:.1f} s after its start")
     check(got.returncode == 124 and "watchdog" in got.stderr,
           f"[runtime] --stageTimeout: exit {got.returncode}")
     print(f"[runtime] rehearsals {time.perf_counter() - t0:.1f} s")
@@ -7472,10 +8276,13 @@ def phase_runtime(x_np, xl_np, xc_np, tmp, serve_memory, context=None,
                   serial=False):
     """[runtime]: the memory model, a real OOM, the fault rehearsals, the
     fleet and tracing, on the card (queue A15).  ``context`` is the CUDA
-    context [quorum] measured, else measured here.  ``serial`` also runs
-    the latent fleet's jobs one at a time for its wall-clock ratio
-    (``scripts/runtime_phase_cuda.py``; the smoke leaves it out for
-    time)."""
+    context [quorum] measured, else measured here.  The real OOM's and
+    two rehearsals' subprocesses start first and run beside the memory
+    runs (their gates are per process: a capped allocator, exit codes,
+    bits).  ``serial`` also runs the latent fleet's jobs one at a time
+    for its wall-clock ratio, and the fleet of the 60,000 x 784 blobs
+    beside the latent blobs' (``scripts/runtime_phase_cuda.py``; the
+    smoke leaves both out for time)."""
     t0 = time.perf_counter()
     if context is None:
         context = runtime_context()
@@ -7483,14 +8290,39 @@ def phase_runtime(x_np, xl_np, xc_np, tmp, serve_memory, context=None,
         print(f"[runtime] memory serve {tag}: transform_peak "
               f"{pred / 2**20:.1f} MiB, measured {meas / 2**20:.1f} MiB "
               f"(resident model included), ratio {pred / meas:.3f}")
-    runtime_memory({"blobs": x_np, "latent": xl_np, "cells": xc_np,
-                    "blobs64": x_np.astype(np.float64)}, context)
-    runtime_real_oom(tmp)
-    runtime_rehearsals(x_np, tmp)
+    oom, rehearsal = runtime_children_start(x_np, tmp)
+    try:
+        runtime_memory({"blobs": x_np, "latent": xl_np, "cells": xc_np,
+                        "blobs64": x_np.astype(np.float64)}, context)
+        runtime_real_oom(tmp, oom)
+        runtime_rehearsals(x_np, tmp, rehearsal)
+    finally:
+        for proc in (oom[0], *rehearsal[2:4]):  # those a failed check left
+            proc.kill()
+            proc.wait()
     runtime_fleet(xl_np, "latent", tmp, context, serial=serial)
-    runtime_fleet(x_np, "blobs", tmp, context)
+    if serial:
+        runtime_fleet(x_np, "blobs", tmp, context)
     runtime_tracing(x_np, tmp)
     print(f"[runtime] phase {time.perf_counter() - t0:.1f} s")
+
+
+class Laps:
+    """Each phase's seconds, for the line before ``[done]``: a call closes
+    the interval since the last one under ``name``."""
+
+    def __init__(self):
+        self.t = time.perf_counter()
+        self.rows = []
+
+    def __call__(self, name):
+        now = time.perf_counter()
+        self.rows.append((name, now - self.t))
+        self.t = now
+
+    def line(self):
+        return "[phases] s: " + ", ".join(f"{name}={secs:.1f}"
+                                          for name, secs in self.rows)
 
 
 def main() -> int:
@@ -7510,21 +8342,28 @@ def main() -> int:
     t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="tsne_smoke_")
     f64_cpu = None
+    lap = Laps()
     try:
         name, count = phase_device()
-        phase_build()
+        sass_lines = phase_build(sass_later=True)
+        lap("device + build")
         # [f64]'s CPU reference runs beside the phases up to [f64]'s check
         f64_cpu = f64_cpu_start(tmp)
         x_np, labels = make_data()
         xl_np, labels_l, z_latent = make_latent_blobs()
         xc_np, labels_c, z_cells = make_cells()
+        sass_lines()  # cuobjdump ran beside the data's making
+        lap("data")
         errs, csr, rows, blocks = phase_kernels(x_np, xl_np, xc_np)
         errs["B6"], b6_shapes = phase_b6(x_np, xc_np)
+        lap("kernels")
         for kid, e in phase_widths(x_np, xc_np).items():
             errs[kid] = max(errs.get(kid, 0.0), e)
+        lap("widths")
         bf16_times, bf16_bnd, bf16_err = phase_bf16(x_np, xc_np)
         f64_errs, b1f_times, b1f_bnd, _, b1f_rows = phase_f64(x_np, xc_np)
         f64_errs["B6_f64"], b6f_shapes = phase_b6_f64(x_np, xc_np)
+        lap("bf16 + f64 kernels")
         kernels, csr_kl, full, b1_ms, b2_ms = phase_full(x_np, labels,
                                                          errs, csr)
         bf16_counts = bf16_embed_gate(x_np, labels, csr_kl)
@@ -7544,10 +8383,17 @@ def main() -> int:
         project = phase_project(x_np, labels, b1_ms, b6_shapes,
                                 os.path.join(tmp, "project.npz"))
         f64_project_gate(x_np, labels, project[3])
+        lap("full .. project")
         y_bh = phase_bh(x_np, labels, y_60k, z_latent, project)
+        lap("bh")
         phase_cli(x_np, xl_np, full, rows_run[:2], project, y_bh)
+        lap("cli")
         bigk = phase_bigk(x_np, labels, xc_np)
+        lap("bigk")
         wide = phase_wide(x_np, labels, csr)
+        lap("wide")
+        feats = phase_features(x_np)
+        lap("features")
         (times, bnd, _), = [v for key, v in b6_shapes.items()
                             if key[0] == "cells"]
         counts, pass_t, pass_b, (e5, e4), large = phase_large(
@@ -7566,6 +8412,7 @@ def main() -> int:
         (f64_t["B6_f64"], f64_b["B6_f64"], _), = [
             v for key, v in b6f_shapes.items() if key[0] == "cells"]
         large64, _ = f64_large_run(xc_np, labels_c, z_cells, large, b1f_rows)
+        lap("large")
         f64_n = {**f64_counts, "B5_f64": f64_rows["B5_f64"],
                  "B6_f64": large64["B6_f64"]}
         for kid in ("B1_f64", "B2_f64", "B3_f64", "B4_f64", "B5_f64",
@@ -7584,14 +8431,22 @@ def main() -> int:
                 rec["against_f64_at_run"] = {"kernel": w_64[kid][0],
                                              "plain_f32": w_64[kid][1]}
             kernels.append(rec)
+        f_errs, f_times, f_bnds, f_launch, _ = feats
+        for kid in ("B6u", "B6u_f64"):
+            kernels.append(kernel_record(kid, *KERNEL_META[kid],
+                                         f_launch[kid], f_errs[kid],
+                                         f_times[kid], f_bnds[kid]))
         f64_card_vs_cpu(f64_cpu)
         phase_bh_large(large[0])
         phase_pilot(xl_np, labels_l, z_latent, (rows_run[0], rows_run[2],
                                                 rows_run[3]), large)
+        lap("f64 vs cpu, bh-large, pilot")
         serve, serve_counts = phase_serve(x_np, os.path.join(
             tmp, "project.npz"), large, xc_np, tmp)
+        lap("serve")
         mesh_counts, b2_shard = phase_mesh(x_np, labels, full, csr_kl, rows,
                                            large, tmp)
+        lap("mesh")
         del large
         for rec in kernels:
             kid = rec["name"].split()[0]
@@ -7611,12 +8466,16 @@ def main() -> int:
             if rec["name"].split()[0] in bigk:
                 rec["bigk"] = bigk[rec["name"].split()[0]]
         kernels += phase_spmd(x_np, labels, csr_kl, b1_ms)
+        lap("spmd")
         context = phase_quorum(x_np, os.path.join(tmp, "project.npz"),
                                tmp, serve["daemon"])
+        lap("quorum")
         phase_diverging(x_np)
         phase_determinism(x_np, xl_np)
+        lap("diverging + determinism")
         phase_runtime(x_np, xl_np, xc_np, tmp, serve["memory"],
                       context=context)
+        lap("runtime")
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -7625,6 +8484,7 @@ def main() -> int:
             f64_cpu[0].kill()
             f64_cpu[0].wait()
         shutil.rmtree(tmp, ignore_errors=True)
+    print(lap.line())
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -33,7 +33,14 @@ exact stage at F = 50), and one chunk at the deep k (600 on 20,000-row
 cuts of both, 1,024 on the cells' cut), each stage's outputs over its
 chunks as one digest and its ms a chunk over them in sequence (the
 median (min-max) of 3 runs after an L2 flush, ``chip_smoke.chunks_ms``);
-two trees whose digests match give the same bits.  ``--widths`` runs
+two trees whose digests match give the same bits; with ``--b6`` each
+stage's B6 routes too (``ops/knn_cuda.ROUTE_LAUNCHES``) and, where the
+toolkit has cuobjdump, each B6 instance's registers and a digest of its
+SASS (named ``refine_kernel<T, build, final, lanes, workspace>``; the
+unstaged form's instances, F > 12,288, marked ``unstaged``), so two
+trees' staged instances can be shown to be the same code.  ``--forms``
+times B6's staged form against its unstaged form forced on the same
+stages (``b6_forms``: F = 128, 784 and 12,288).  ``--widths`` runs
 B2-B5 alone at every m = 1 .. 8 (the register-held instances) in
 float32 and float64 at 60,000 rows of a seeded 10·N(0, 1) y, B3-B5 over
 ``[full]``'s CSR head + tail, each with its digest and its time (the
@@ -74,6 +81,9 @@ def parse():
                     help="B2-B5 alone at m = 1 .. 8, float32 and float64")
     ap.add_argument("--sass", action="store_true",
                     help="a digest of each B2-B5 instance's SASS")
+    ap.add_argument("--forms", action="store_true",
+                    help="B6's staged form against its unstaged form "
+                    "forced, at F = 128, 784 and 12,288")
     return ap.parse_args()
 
 
@@ -234,10 +244,54 @@ def sass_digests():
     print(f"[regress] sass: {n} B2-B5 instances")
 
 
+def b6_instances():
+    """Each B6 instance of the tree's library (``cuobjdump``): its
+    registers and a digest of its SASS instruction lines, by a name that
+    two trees share: ``refine_kernel<T, build, final, lanes, workspace>``
+    (``unstaged`` appended for the form past 12,288 features)."""
+    import re
+    import shutil
+    from tsne_flink_tpu_torch.kernels.build import build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("[regress] B6 instances: cuobjdump not found")
+        return
+    lib = str(build().path)
+
+    def short(mangled):
+        m = re.search(r"refine_kernelI([fd])((?:L[bi]\d+E)+)E", mangled)
+        if m is None:
+            return None
+        flags = re.findall(r"L[bi](\d+)E", m.group(2))
+        name = f"refine_kernel<{m.group(1)}, {', '.join(flags[:4])}>"
+        return name + (" unstaged" if flags[4:] == ["0"] else "")
+    res = subprocess.run([tool, "-res-usage", lib], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    regs, fn = {}, None
+    for line in res.splitlines():
+        if "Function " in line:
+            fn = short(line.split("Function ", 1)[1])
+        elif fn and "REG:" in line:
+            regs[fn] = int(line.split("REG:")[1].split()[0])
+            fn = None
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    anon = re.compile(r"_GLOBAL__N__[0-9a-f]+_\d+_[a-z_]+_cu_[0-9a-f]+")
+    for chunk in sass.split("Function : ")[1:]:
+        name = short(chunk.split(None, 1)[0])
+        if name is None:
+            continue
+        code = "\n".join(anon.sub("", ln) for ln in chunk.splitlines()
+                         if "/*" in ln)
+        print(f"[regress] B6 instance {name}: {regs.get(name, '?')} "
+              f"registers, sass {hashlib.sha256(code.encode()).hexdigest()[:16]}")
+
+
 def b6_stages(cs, x_np, xc_np):
     """B6 on the funnel stages of refine chunks captured as the tree's
     refine round calls them: each stage's outputs over its chunks as one
-    digest, and its ms a chunk over them in sequence."""
+    digest, its routes, and its ms a chunk over them in sequence."""
+    from tsne_flink_tpu_torch.ops import knn_cuda as kc
     for tag, data, k, chunks in (
             ("[project] blobs", x_np, 90, 32),
             ("[large] cells", xc_np, 150, 32),
@@ -249,16 +303,82 @@ def b6_stages(cs, x_np, xc_np):
         for s_idx, (kind, args, _) in enumerate(got[0]):
             stages = [chunk[s_idx] for chunk in got]
             outs = []
+            kc.reset_route_launches()
             for st in stages:
                 out = cs.stage_call(*st)
                 outs += [t for t in (out if isinstance(out, tuple)
                                      else (out,)) if t is not None]
+            routes = dict(kc.ROUTE_LAUNCHES)
             ms = [cs.chunks_ms(stages) for _ in range(3)]
             base = args[0] if kind == "keep" else args[1]
             print(f"[regress] B6 {tag} k={k} {kind} stage F="
                   f"{base.shape[1]}: {spread(ms)} a chunk over "
-                  f"{len(stages)} chunks; out {digest(*outs)}")
+                  f"{len(stages)} chunks; routes {routes}; out "
+                  f"{digest(*outs)}")
         del x, got
+
+
+def b6_forms(cs, x_np):
+    """B6's staged form against its unstaged form forced on the same
+    captured stages (k = 90): the blobs' cascade (F = 128) and exact stage
+    (F = 784) over 32 chunks of the tile plan's, and ``make_counts`` at
+    20,000 x 12,288 (the widest staged F) over 16 of its chunks (128 rows)
+    and 4 of 4,096 rows; each form's ms a chunk over them in sequence
+    (the median (min-max) of 3 runs after an L2 flush, as
+    ``chip_smoke.chunks_ms``) and whether their outputs' bytes agree."""
+    from tsne_flink_tpu_torch.ops import knn_cuda as kc
+    r, c, v, _ = cs.make_counts(20_000, 12_288)
+    xw = cs.counts_dense(r, c, v, 20_000, 12_288)
+    del r, c, v
+
+    def launch(st, staged):
+        kind, args, kwargs = st
+        rows, base, sq = cs.stage_rows(kind, args)
+        call = dict(n_valid=kwargs.get("n_valid"))
+        if kind == "keep":
+            call["keep"] = args[4]
+        else:
+            call.update(old=(args[5], args[6]),
+                        euclid=args[0] == "euclidean")
+        out = kc._refine_launch(base, sq, int(rows[0]),
+                                args[3] if kind == "keep" else args[4],
+                                kwargs.get("graph"), kwargs.get("ke", 0),
+                                staged=staged, **call)
+        return out if isinstance(out, tuple) else (out,)
+
+    def timed(stages, staged):
+        for st in stages[:2]:
+            launch(st, staged)
+        flush = torch.empty(1 << 28, dtype=torch.float32, device="cuda")
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for st in stages:
+            launch(st, staged)
+        b.record()
+        b.synchronize()
+        return a.elapsed_time(b) / len(stages)
+
+    for tag, x, chunks, rows in (
+            ("blobs 60000x784", torch.from_numpy(x_np).cuda(), 32, None),
+            ("counts 20000x12288", xw, 16, None),
+            ("counts 20000x12288", xw, 4, 4096)):
+        got = cs.capture_refine_chunks(x, 90, chunks, row_chunk=rows)
+        for s_idx, (kind, args, _) in enumerate(got[0]):
+            stages = [chunk[s_idx] for chunk in got]
+            same = all(torch.equal(a, b) for st in stages for a, b in zip(
+                launch(st, True), launch(st, False)))
+            ms = {f: [timed(stages, f) for _ in range(3)]
+                  for f in (True, False)}
+            base = args[0] if kind == "keep" else args[1]
+            print(f"[regress] B6 forms {tag} {kind} stage F={base.shape[1]} "
+                  f"c={stages[0][1][3 if kind == 'keep' else 4].shape[0]}: "
+                  f"staged {spread(ms[True])}, unstaged forced "
+                  f"{spread(ms[False])} a chunk over {len(stages)} chunks; "
+                  f"the same bytes: {same}")
+        del got
+    del xw
 
 
 def main():
@@ -291,6 +411,9 @@ def main():
     if args.sass:
         sass_digests()
         return
+    if args.forms:
+        b6_forms(cs, x_np)
+        return
     if args.widths:
         widths(cs, att, x_np, cfg)
         return
@@ -311,6 +434,7 @@ def main():
               TsneConfig(perplexity=30.0, iterations=300, repulsion="exact"),
               knn_method="project")
         b6_stages(cs, x_np, cs.make_cells()[0])
+        b6_instances()
         return
     y_full = embed("[full] 60000x784 CSR", x_np, cfg)
     embed("[project] 60000x784 project", x_np,

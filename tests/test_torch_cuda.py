@@ -60,8 +60,18 @@ versions at m = 9 .. 256 (one and several force chunks), two launches
 bit for bit, a B2w shard at the canonical split count the mesh-1 rows
 bit for bit at m = 16, B3w the unfused step's bits, ``tsne_embed``
 launching the wide forms alone, and the test mesh of 2 equal to the
-mesh of 1 at m = 16.
+mesh of 1 at m = 16; and B6's unstaged form past 12,288 features
+(B6u, B6u_f64): the exact stage at F = 12,289, 16,384 and 32,768 on chip
+(k = 90) and a first exact stage on the workspace route (k = 1,500)
+against their plain versions (float32 also against float64: within twice
+the plain float32 version's error, no id off outside that bar), forced
+at staged widths the staged form's bits, forced forms refusing the
+widths they do not take, the route mirror at those widths, and a
+two-process project job at 12,289 features equal to the in-process job
+bit for bit.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -763,9 +773,15 @@ def _valid_ids(ids, bad=None):
 F64_RTOL = 1e-12
 
 
+#: every form of B6: staged and unstaged, float32 and float64
+B6_FORMS = ("B6", "B6_f64", "B6u", "B6u_f64")
+
+
 def _b6_form(base):
-    """The B6 form a stage on ``base`` launches: B6_f64 on float64 values."""
-    return "B6_f64" if base.dtype == torch.float64 else "B6"
+    """The B6 form a stage on ``base`` launches: B6_f64 on float64 values,
+    the unstaged form (B6u, B6u_f64) past 12,288 features."""
+    from tsne_flink_tpu_torch.kernels.build import form_id
+    return form_id("B6", base.dtype == torch.float64, base.shape[1])
 
 
 def _f64_tol(sq, rows, ids, d2):
@@ -791,7 +807,7 @@ def _hold_final(args, kw, exact):
     squared for euclidean, and the ids equal outside ties)."""
     metric, base, sq, row0, _, old_i, old_d = args
     kid = _b6_form(base)
-    before = {k: KERNELS[k].launches for k in ("B6", "B6_f64")}
+    before = {k: KERNELS[k].launches for k in B6_FORMS}
     gi, gd = refine_final(*args, **kw)
     again = refine_final(*args, **kw)
     assert KERNELS[kid].launches == before[kid] + 2
@@ -804,7 +820,7 @@ def _hold_final(args, kw, exact):
         return
     rows = torch.arange(row0, row0 + gi.shape[0], device=gi.device)
     formula = cand_exact_plain(metric, base, sq, rows, gi)
-    if kid == "B6_f64":
+    if base.dtype == torch.float64:
         sqr = 2 if metric == "euclidean" else 1
         tol = _f64_tol(sq, rows, gi, formula ** sqr)
         assert bool(((gd ** sqr - formula ** sqr).abs() <= tol).all())
@@ -842,7 +858,7 @@ def _hold_keep(args, kw, exact):
     kept = (wi >= 0).sum(dim=1)
     assert torch.equal((gi >= 0).sum(dim=1), kept)
     hits = (gi[:, :, None] == wi[:, None, :]).any(dim=2) & (gi >= 0)
-    if kid == "B6":
+    if base.dtype == torch.float32:
         assert float(hits.sum()) / float((gi >= 0).sum()) >= 0.999
         return gi
     rows = torch.arange(row0, row0 + gi.shape[0], device=gi.device)
@@ -1006,9 +1022,22 @@ def test_refine_workspace_route_matches_plain(dev, dtype):
                  (200, 10240, 0, 0, 2048, False, True),
                  (784, 16, 750, 4500, 1500, True, False),
                  (50, 16, 1024, 0, 1024, True, True),
-                 (12288, 16, 90, 0, 90, True, True)):
+                 (12288, 16, 90, 0, 90, True, True),
+                 # past the staged width: the unstaged form's layouts
+                 (12289, 270, 0, 0, 90, False, True),
+                 (16384, 16, 1500, 0, 1500, True, True),
+                 (32768, 270, 0, 0, 90, False, True),
+                 (32768, 4500, 0, 0, 1500, False, True),
+                 (32768, 8400, 0, 0, 2800, False, True),
+                 (32768, 16, 45, 720, 90, True, False)):
         assert (refine_route_kernel(*args, itemsize=isz)
                 == refine_route(*args, itemsize=isz)), args
+    # either form forced at a width the other takes by default
+    for args in ((784, 270, 0, 0, 90, False, True),
+                 (64, 16, 1500, 0, 1500, True, True),
+                 (12288, 16, 90, 0, 90, True, True)):
+        assert (refine_route_kernel(*args, itemsize=isz, staged=False)
+                == refine_route(*args, itemsize=isz, staged=False)), args
 
 
 def _b6_form_name(dtype):
@@ -1034,6 +1063,264 @@ def test_refine_wrapper_refuses_mixed_dtypes(dev):
         refine_keep(x.bfloat16(), sq.bfloat16(), 0, gates, 20, graph=graph,
                     ke=6)
     assert (KERNELS["B6"].launches, KERNELS["B6_f64"].launches) == before
+
+
+# ---- B6's unstaged form (features past 12,288) ------------------------------
+
+#: widths past the staged form held: the first, a power of two, and the
+#: widest raw gene-count width (B6u, B6u_f64)
+UNSTAGED_FS = (12_289, 16_384, 32_768)
+
+
+def _wide_problem(dev, n, f, k, seed, dtype):
+    """Uniform points [n, f] of ``dtype``, their squared norms and a graph
+    [n, k] of distinct non-self ids (no distances: the callers take the
+    old lists of their chunk rows from it)."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.random((n, f), dtype=np.float32)).to(dev,
+                                                                  dtype)
+    sq = torch.sum(x * x, dim=1)
+    ids = np.stack([(i + 1 + rng.choice(n - 1, k, replace=False)) % n
+                    for i in range(n)]).astype(np.int32)
+    return x, sq, torch.from_numpy(ids).to(dev)
+
+
+def _old_lists(metric, x, sq, row0, ids):
+    """Rows row0 ..'s lists ``ids`` with the formula's distances, ordered
+    by (distance, id)."""
+    rows = torch.arange(row0, row0 + ids.shape[0], device=x.device)
+    d = cand_exact_plain(metric, x, sq, rows, ids)
+    by_id = torch.argsort(ids, dim=1, stable=True)
+    ids, d = torch.gather(ids, 1, by_id), torch.gather(d, 1, by_id)
+    by_d = torch.argsort(d, dim=1, stable=True)
+    return (torch.gather(ids, 1, by_d).contiguous(),
+            torch.gather(d, 1, by_d).contiguous())
+
+
+def _hold_unstaged(args, kw):
+    """B6u / B6u_f64 on one exact stage against its plain version: the
+    B6 bars (``_hold_final``: float64 within 1e-12 of |d²| + ‖a‖² + ‖b‖²
+    and ids equal outside ties; float32 rtol 2e-5 of the plain formula),
+    and at float32 the error of d² against a float64 evaluation within
+    twice the plain float32 version's own, with no id off outside pairs
+    whose distances differ by less than that bar."""
+    metric, base = args[0], args[1]
+    assert _b6_form(base) == ("B6u_f64" if base.dtype == torch.float64
+                              else "B6u")
+    _hold_final(args, kw, False)
+    if base.dtype == torch.float64:
+        return
+    sqr = 2 if metric == "euclidean" else 1
+    gi, gd = refine_final(*args, **kw)
+    wi, wd = refine_final_plain(*args, **kw)
+    x64 = base.double()
+    s64 = torch.sum(x64 * x64, dim=1)
+    row0 = args[3]
+    rows = torch.arange(row0, row0 + gi.shape[0], device=gi.device)
+    old_i, old_d = args[5], args[6].double()
+
+    def err(ids, d):
+        # each id at the smaller of its old and its new distance, in float64
+        new = cand_exact_plain(metric, x64, s64, rows, ids)
+        hit = ids[:, :, None] == old_i[:, None, :]
+        old = torch.where(hit, old_d[:, None, :], math.inf).amin(dim=2)
+        return float((d.double() ** sqr
+                      - torch.minimum(new, old) ** sqr).abs().max())
+    e_k, e_p = err(gi, gd), err(wi, wd)
+    assert e_k <= 2.0 * e_p, (e_k, e_p)
+    off = int(((gi != wi) & ((gd.double() ** sqr - wd.double() ** sqr).abs()
+                             > 2.0 * e_p)).sum())
+    assert off == 0
+
+
+@pytest.mark.parametrize("f", UNSTAGED_FS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_unstaged_exact_stage_matches_plain_on_chip(dev, f, dtype):
+    """The funnel's exact stage past the staged width (a list of 3k = 270
+    candidates a row, k = 90, some -1): B6u / B6u_f64 on chip against
+    their plain versions, sqeuclidean and euclidean, counted under the
+    unstaged form's route."""
+    from tsne_flink_tpu_torch.ops.knn_cuda import refine_route
+    n, k, c, row0 = 2000, 90, 32, 1500
+    x, sq, graph = _wide_problem(dev, n, f, 3 * k, f % 101, dtype)
+    cand = graph[row0:row0 + c].clone()
+    cand[::5, 250:] = -1
+    kid = _b6_form(x)
+    assert refine_route(f, 3 * k, 0, 0, k, False, True,
+                        x.element_size()).workspace == 0
+    before = _route_count(f"{kid} chip")
+    for metric in ("sqeuclidean", "euclidean"):
+        old_i, old_d = _old_lists(metric, x, sq, row0,
+                                  graph[row0:row0 + c, ::3].contiguous())
+        _hold_unstaged((metric, x, sq, row0, cand, old_i, old_d), {})
+    # _hold_final launches twice, the float32 error check once more
+    per = 2 if dtype == torch.float64 else 3
+    assert _route_count(f"{kid} chip") == before + 2 * per
+
+
+@pytest.mark.parametrize("f", UNSTAGED_FS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_unstaged_first_exact_stage_matches_plain_on_its_workspace(dev, f,
+                                                                    dtype):
+    """A first exact stage of 16 gateways x (1 + 1,500) candidates at k =
+    1,500 past the staged width: its hash set is past the block, so B6u /
+    B6u_f64 take the workspace route, with n_valid; against their plain
+    versions (two rows: the plain stage gathers [c, 24,016, F])."""
+    from tsne_flink_tpu_torch.ops.knn_cuda import refine_route
+    n, k, c = 2000, 1500, 2
+    x, sq, graph = _wide_problem(dev, n, f, k, f % 103, dtype)
+    gates = torch.from_numpy(np.random.default_rng(f).integers(
+        0, n, (c, 16)).astype(np.int32)).to(dev)
+    gates[:, 0] = torch.arange(c, device=dev, dtype=torch.int32)
+    kid = _b6_form(x)
+    assert refine_route(f, 16, k, 0, k, True, True,
+                        x.element_size()).workspace > 0
+    before = _route_count(f"{kid} workspace")
+    old_i, old_d = _old_lists("sqeuclidean", x, sq, 0, graph[:c])
+    for n_valid in (None, n - 40):
+        _hold_unstaged(("sqeuclidean", x, sq, 0, gates, old_i, old_d),
+                       dict(graph=graph, ke=k, n_valid=n_valid))
+    per = 2 if dtype == torch.float64 else 3
+    assert _route_count(f"{kid} workspace") == before + 2 * per
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_unstaged_form_forced_at_a_staged_width_gives_its_bits(dev, dtype):
+    """The unstaged form at F <= 12,288 gives the staged form's bits on the
+    same stage (the same lanes, fma order and butterfly): a first keep
+    stage (F = 128), the exact stage after it (F = 784) and at F =
+    12,288, on chip; a first exact stage at k = 1,500 (F = 64) on the
+    workspace route.  Each launch counted under its own form."""
+    from tsne_flink_tpu_torch.ops.knn_cuda import _refine_launch
+    sfx = "_f64" if dtype == torch.float64 else ""
+
+    def both(*args, **kw):
+        before = (KERNELS["B6" + sfx].launches,
+                  KERNELS["B6u" + sfx].launches)
+        staged = _refine_launch(*args, **kw)
+        unstaged = _refine_launch(*args, staged=False, **kw)
+        assert (KERNELS["B6" + sfx].launches - before[0],
+                KERNELS["B6u" + sfx].launches - before[1]) == (1, 1)
+        for a, b in zip(*(o if isinstance(o, tuple) else (o,)
+                          for o in (staged, unstaged))):
+            assert torch.equal(a, b)
+        return staged
+    n, k, ke = 2000, 90, 45
+    x, sq, graph, dist, gates = _refine_problem(dev, n, 784, k, 200, 7,
+                                                dtype=dtype)
+    proj = (x[:, :128] * 2.0).contiguous()
+    psq = torch.sum(proj * proj, dim=1)
+    kept = both(proj, psq, 0, gates, graph, ke, keep=270)
+    both(x, sq, 0, kept, None, 0, old=(graph[:200], dist[:200]))
+    x, sq, graph = _wide_problem(dev, 600, 12_288, 270, 5, dtype)
+    old = _old_lists("euclidean", x, sq, 0, graph[:64, ::3].contiguous())
+    both(x, sq, 0, graph[:64], None, 0, old=old, euclid=True)
+    x, sq, graph, dist, gates = _refine_problem(dev, 2100, 64, 1500, 48, 11,
+                                                dtype=dtype)
+    both(x, sq, 0, gates, graph, 1500, old=(graph[:48], dist[:48]),
+         n_valid=2060)
+
+
+def test_unstaged_wrapper_refuses_what_its_form_does_not_take(dev):
+    """Forced forms refuse widths they do not take (the staged form past
+    12,288, the unstaged one below 64) with no launch."""
+    from tsne_flink_tpu_torch.ops.knn_cuda import _refine_launch
+    x, sq, graph, dist, gates = _refine_problem(dev, 200, 8, 6, 4, 9)
+    before = {k: KERNELS[k].launches for k in B6_FORMS}
+    with pytest.raises(ValueError, match="B6"):
+        _refine_launch(x, sq, 0, gates, graph, 6, keep=20, staged=False)
+    w, wsq, wg = _wide_problem(dev, 64, 12_289, 8, 3, torch.float32)
+    with pytest.raises(ValueError, match="B6"):
+        _refine_launch(w, wsq, 0, wg[:4], None, 0, keep=4, staged=True)
+    assert {k: KERNELS[k].launches for k in B6_FORMS} == before
+
+
+def test_two_processes_run_project_past_the_staged_width(dev, tmp_path):
+    """Two gloo ranks on the one card run a refining project job at 12,289
+    features (B6u on each rank's shard, B6 on the cascade) and give the
+    in-process job's embedding on the test mesh of 2 bit for bit."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    from tsne_flink_tpu_torch.models.tsne import TsneConfig
+    from tsne_flink_tpu_torch.parallel.pipeline import SpmdPipeline
+    n, d = 2001, 12_289
+    rng = np.random.default_rng(4)
+    centers = rng.normal(0.0, 1.0, (12, d))
+    x = (centers[rng.integers(0, 12, n)]
+         + rng.normal(0.0, 0.3, (n, d))).astype(np.float32)
+    np.save(tmp_path / "x.npy", x)
+    kw = dict(knn_method="project", knn_refine=1)
+    before = KERNELS["B6u"].launches
+    y1, _ = SpmdPipeline(TsneConfig(perplexity=10.0, iterations=60), n, d,
+                         30, devices=["cuda:0"] * 2, **kw)(
+        torch.from_numpy(x))
+    assert KERNELS["B6u"].launches > before
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    code = f"""
+import numpy as np, torch, sys
+from tsne_flink_tpu_torch.kernels.build import KERNELS
+from tsne_flink_tpu_torch.models.tsne import TsneConfig
+from tsne_flink_tpu_torch.parallel.mesh import distributed_init
+from tsne_flink_tpu_torch.parallel.pipeline import SpmdPipeline
+r = int(sys.argv[1])
+distributed_init("127.0.0.1:{port}", 2, r, timeout_s=300)
+x = torch.from_numpy(np.load(r"{tmp_path / 'x.npy'}"))
+pipe = SpmdPipeline(TsneConfig(perplexity=10.0, iterations=60), {n}, {d},
+                    30, knn_method="project", knn_refine=1)
+y, _ = pipe(x)
+assert KERNELS["B6u"].launches > 0 and KERNELS["B6"].launches > 0
+np.save(r"{tmp_path}/y%d.npy" % r, y.cpu().numpy())
+"""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    procs = [subprocess.Popen([sys.executable, "-c", code, str(r)], env=env,
+                              cwd=root) for r in range(2)]
+    assert [p.wait(timeout=600) for p in procs] == [0, 0]
+    for r in range(2):
+        assert np.array_equal(np.load(tmp_path / f"y{r}.npy"),
+                              y1.cpu().numpy())
+
+
+def test_cosine_project_past_the_staged_width_fits_its_chunk(dev):
+    """Cosine's exact stage is the plain version on the card too, which
+    gathers its candidates' vectors: at 20,000 x 32,738 (k = 90) the tile
+    plan's chunk counts that [c, 270, F] gather and fits the tile budget,
+    and a refining project run completes there (B6 on the cascade, no
+    B6u), its peak within the card, the embedding finite."""
+    from tsne_flink_tpu_torch import TsneConfig, tsne_embed
+    from tsne_flink_tpu_torch.ops import knn_tiles as ttiles
+    n, d, k = 20_000, 32_738, 90
+    budget = (ttiles.DEFAULT_BUDGET_BYTES["cuda"]
+              * ttiles.TILE_BUDGET_FRACTION)
+    c = ttiles.pick_knn_tiles(n, d, k, "cuda", metric="cosine").refine_chunk
+    assert c == ttiles.MIN_REFINE_CHUNK
+    assert ttiles.refine_chunk_bytes(c, d, k, workspace=True,
+                                     metric="cosine") <= budget
+    g = torch.Generator(device=dev).manual_seed(5)
+    centers = torch.rand((12, d), generator=g, device=dev)
+    lab = torch.randint(0, 12, (n,), generator=g, device=dev)
+    x = centers[lab]
+    x += 0.3 * torch.rand((n, d), generator=g, device=dev)
+    del centers
+    before = {kk: KERNELS[kk].launches for kk in ("B6", "B6u")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    y, losses = tsne_embed(x, TsneConfig(perplexity=30.0, iterations=60,
+                                         metric="cosine"),
+                           knn_method="project", knn_refine=1)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    assert KERNELS["B6"].launches > before["B6"]
+    assert KERNELS["B6u"].launches == before["B6u"]
+    assert peak < torch.cuda.get_device_properties(0).total_memory
+    assert y.shape == (n, 2) and bool(torch.isfinite(y).all())
+    assert bool(torch.isfinite(torch.as_tensor(losses)).all())
 
 
 def _recall(dist_approx, dist_exact, tol=1e-5):

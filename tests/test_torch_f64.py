@@ -3,13 +3,14 @@
 The kernels' float64 forms run on the card only (``tests/test_torch_cuda
 .py`` holds them there).  Here:
 
-* no plan is refused for its dtype or its k: ``ops/knn.check_knn_limits``
-  admits float64 and every k on every device and method; every stage of
-  every refine plan at k <= 1,024 (d <= CAND_F_MAX) fits the shared
-  memory of B6 and of its float64 form (``ops/knn_cuda.refine_smem_bytes``
-  at 4- and 8-byte values, the layout of ``csrc/knn_cand.cu``), and past
-  it a stage that does not takes the workspace route
-  (``ops/knn_cuda.refine_route``) at both widths;
+* no plan is refused for its dtype, its k or its width: every plan
+  resolves on every device and method; every stage of every refine plan
+  at k <= 1,024 fits the shared memory of B6 and of its float64 form
+  (``ops/knn_cuda.refine_smem_bytes`` at 4- and 8-byte values, the
+  layout of ``csrc/knn_cand.cu``; past 12,288 features the unstaged
+  form's, which holds no row vector), and past it a stage that does not
+  takes the workspace route (``ops/knn_cuda.refine_route``) at both
+  widths;
 * a float64 ``project`` run (``prepare``, and the sharded prepare on a
   mesh of 2) reaches the refine stages' wrappers with float64 values and
   gets float64 distances back;
@@ -90,7 +91,7 @@ def _fits(d: int, k: int, itemsize: int) -> list:
     assert _refine_stages(d, k) == tknn.refine_stages(d, k)
     for f, w, ke, keep, build, final in _refine_stages(d, k):
         need = tkc.refine_smem_bytes(f, w, ke, keep, k, build, final,
-                                     itemsize)
+                                     itemsize, tkc.refine_staged(f))
         sort = 2 * k if final else keep
         route = tkc.refine_route(f, w, ke, keep, k, build, final, itemsize)
         if need > tkc.REFINE_SMEM_MAX or sort > tkc.REFINE_SORT_MAX:
@@ -108,14 +109,19 @@ def _fits(d: int, k: int, itemsize: int) -> list:
                                            ("bruteforce", None),
                                            ("partition", None)])
 def test_refusal_helper(device, dtype, method, refine):
-    """The pre-kNN plan check refuses no dtype and no k on any device: it
-    admits each case at the deep class's widest k and past it; a refining
-    plan's every stage fits B6's shared memory at the dtype's width
-    (B6_f64's at float64) up to k = 1,024, and past it takes a route."""
+    """No plan is refused for its dtype, its k or its width on any
+    device: each case resolves to its method at the deep class's widest k
+    and past it, at d up to and past the staged width; a refining plan's
+    every stage fits B6's shared memory at the dtype's width (B6_f64's at
+    float64; the unstaged forms' past 12,288 features) up to k = 1,024,
+    and past it takes a route."""
     itemsize = torch.empty(0, dtype=dtype).element_size()
-    for d in (50, 200, 784, tkc.CAND_F_MAX):
+    for d in (50, 200, 784, tkc.STAGED_F_MAX, tkc.STAGED_F_MAX + 1,
+              32_768):
         for k in (tkc.K_REG_MAX, 1500, 4096):
-            tknn.check_knn_limits(2_000_000, d, k, method, refine)
+            got = tknn.resolve_knn_plan(2_000_000, d, method, None, refine,
+                                        k=k, backend=device)
+            assert got[0] == method and (refine is None or got[2] == refine)
         if method == "project" and refine:
             assert _fits(d, tkc.K_REG_MAX, itemsize) == []
             assert _fits(d, 90, itemsize) == []
@@ -124,7 +130,8 @@ def test_refusal_helper(device, dtype, method, refine):
 
 @pytest.mark.parametrize("itemsize", [4, 8])
 @pytest.mark.parametrize("d", [1, 50, 128, 129, 256, 257, 784,
-                               tkc.CAND_F_MAX])
+                               tkc.STAGED_F_MAX, tkc.STAGED_F_MAX + 1,
+                               32_768])
 def test_every_admitted_refine_plan_fits_both_forms(itemsize, d):
     """Every k up to 1,024 at the widest d of each funnel shape (no filter
     up to 128, the JL filter to 256, filter or cascade + exact past it):

@@ -10,8 +10,9 @@ the JAX package — its Pallas kernels in interpret mode
 (``pallas_interpret``) or its XLA twins — on the same seeded numpy
 inputs, the B6 route and the tile plan's workspace are held to their
 formulas, ``prepare`` and ``tsne_embed`` run past k = 1,024 on every kNN
-plan, and the requests past the limits (m = 0, d past 12,288 on a
-refining plan) are refused before the kNN stage runs, on the CPU as on
+plan and past 12,288 features on a refining plan (B6's unstaged form on
+the card, tests/test_torch_wide_features.py), and the one request past
+the limits (m = 0) is refused before the kNN stage runs, on the CPU as on
 the card.
 """
 
@@ -248,14 +249,17 @@ def test_refine_round_past_k512_matches_jax_with_its_draws(d, k):
                                atol=1e-12)
 
 
-@pytest.mark.parametrize("d", [16, 50, 128, 200, 784, tkc.CAND_F_MAX])
+@pytest.mark.parametrize("d", [16, 50, 128, 200, 784, tkc.STAGED_F_MAX,
+                               tkc.STAGED_F_MAX + 1, 32_768])
 def test_every_k_the_kernels_take_fits_the_refine_kernel(d):
-    """Every k takes a B6 route at d <= CAND_F_MAX: up to k = 1,024 every
-    stage of the refine plan fits B6's shared memory and sort capacity
-    (the on-chip route, as before); past it a stage that does not fit
-    takes the workspace route, whose shared memory fits at any k and
-    whose workspace is WsLayout's; and the tile plan's refine chunk on the
-    card counts that workspace within the tile budget."""
+    """Every k takes a B6 route at every d (the staged form's layout up
+    to STAGED_F_MAX features, the unstaged form's past it): up to k =
+    1,024 every stage of the refine plan fits B6's shared memory and sort
+    capacity (the on-chip route, as before); past it a stage that does
+    not fit takes the workspace route, whose shared memory fits at any k
+    and whose workspace is WsLayout's; and the tile plan's refine chunk
+    on the card counts that workspace within the tile budget (past the
+    staged width without the exact gather B6 never makes)."""
     from tsne_flink_tpu_torch.ops import knn_tiles as ttiles
     fd = tknn.pick_knn_filter(d)
     for k in (1, 90, 150, 300, 512, 513, 600, 1000, tkc.K_REG_MAX,
@@ -265,8 +269,10 @@ def test_every_k_the_kernels_take_fits_the_refine_kernel(d):
         assert [s[4:] for s in tknn.refine_stages(d, k)][-1] == (
             plan.filter_dims is None and plan.cascade_dims is None, True)
         for f, w, ke, keep, build, final in tknn.refine_stages(d, k):
+            staged = tkc.refine_staged(f)
             route = tkc.refine_route(f, w, ke, keep, k, build, final)
-            smem = tkc.refine_smem_bytes(f, w, ke, keep, k, build, final)
+            smem = tkc.refine_smem_bytes(f, w, ke, keep, k, build, final,
+                                         staged=staged)
             sort = 2 * k if final else keep
             fits = (smem <= tkc.REFINE_SMEM_MAX
                     and sort <= tkc.REFINE_SORT_MAX)
@@ -277,19 +283,24 @@ def test_every_k_the_kernels_take_fits_the_refine_kernel(d):
                 assert route.smem == smem
             else:
                 ws_smem, row = tkc.refine_ws_layout(f, w, ke, keep, k,
-                                                    build, final)
+                                                    build, final,
+                                                    staged=staged)
                 assert route == (row, ws_smem)
                 assert ws_smem <= tkc.REFINE_SMEM_MAX and row % 16 == 0
         ws = ttiles.refine_workspace_bytes(d, k)
         c = ttiles.pick_knn_tiles(60_000, d, k, "cuda").refine_chunk
+        # past the staged width the card's count leaves out the exact
+        # gather, which B6 never makes
+        unmade = (0.0 if tkc.refine_staged(d)
+                  else ttiles.exact_gather_bytes(c, d, k))
         assert (ttiles.refine_chunk_bytes(c, d, k, workspace=True)
-                == ttiles.refine_chunk_bytes(c, d, k) + c * ws)
+                == ttiles.refine_chunk_bytes(c, d, k) + c * ws - unmade)
         if c > ttiles.MIN_REFINE_CHUNK:
             assert (ttiles.refine_chunk_bytes(c, d, k, workspace=True)
                     <= ttiles._tile_budget("cuda", None))
 
 
-# ---- the limits that remain raise before the kNN stage ------------------------
+# ---- the limit that remains raises before the kNN stage; the rest run ---------
 
 @pytest.fixture
 def no_knn(monkeypatch):
@@ -338,23 +349,38 @@ def test_k_past_k_max_raises_before_the_knn_stage(method):
     assert bool(torch.isfinite(losses).all())
 
 
-def test_features_past_cand_f_max_raise_before_a_refining_plan(no_knn):
-    x = np.zeros((40, tkc.CAND_F_MAX + 1), np.float32)
-    with pytest.raises(ValueError, match="CAND_F_MAX"):
-        prepare(x, neighbors=5, knn_method="project", knn_refine=1,
-                perplexity=2.0, device="cpu")
-    # the same width without a refine cycle, or exact, is not refused
-    tknn.check_knn_limits(40, tkc.CAND_F_MAX + 1, 5, "project", 0)
-    tknn.check_knn_limits(40, tkc.CAND_F_MAX + 1, 5, "bruteforce", None)
+def test_features_past_cand_f_max_raise_before_a_refining_plan(monkeypatch):
+    """12,289 features on a refining project plan, once refused, run:
+    ``prepare`` reaches the refine stages at that width and gives the
+    exact graph (at N = 40 one Z-order band block covers every point),
+    as it does with no refine cycle and on the exact plan."""
+    d = tkc.STAGED_F_MAX + 1
+    x = np.random.default_rng(3).standard_normal((40, d))
+    seen = []
+    real = tknn.refine_final
+
+    def final(metric, base, *a, **kw):
+        seen.append(base.shape[1])
+        return real(metric, base, *a, **kw)
+    monkeypatch.setattr(tknn, "refine_final", final)
+    prep = prepare(x, neighbors=5, knn_method="project", knn_refine=1,
+                   perplexity=2.0, device="cpu")
+    assert seen and set(seen) == {d}
+    ji, jd = jax_knn_bruteforce(jnp.asarray(x), 5, "sqeuclidean",
+                                kernel="xla")
+    _same_graph(prep.idx.numpy(), prep.dist.numpy(), ji, jd, 1e-10)
+    for method, refine in (("project", 0), ("bruteforce", None)):
+        other = prepare(x, neighbors=5, knn_method=method, knn_refine=refine,
+                        perplexity=2.0, device="cpu")
+        assert torch.equal(other.idx, prep.idx)
 
 
 def test_k_is_clamped_before_the_check():
     """k past N − 1 clamps (the reference's first(k)), and no k is
-    refused: the check admits k = 5,000 at N = 600 and at N = 5,000, and
-    the kNN stage returns the clamped N − 1 neighbours."""
-    tknn.check_knn_limits(600, 8, 5000, "bruteforce", None)
-    tknn.check_knn_limits(5000, 8, 5000, "bruteforce", None)
-    tknn.check_knn_limits(5000, 8, 5000, "project", 2)
+    refused: k = 5,000 at N = 600 clamps to 599 on every plan, and the
+    kNN stage returns the clamped N − 1 neighbours."""
+    assert tknn._clamp_k(5000, 600) == 599
+    assert tknn._clamp_k(5000, 5000) == 4999
     x = torch.from_numpy(np.random.default_rng(2).standard_normal((600, 8)))
     idx, dist = tknn.knn_bruteforce(x, 5000)
     assert tuple(idx.shape) == tuple(dist.shape) == (600, 599)

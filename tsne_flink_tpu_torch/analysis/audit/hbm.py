@@ -144,7 +144,7 @@ def _knn_stage(plan: PlanConfig) -> dict:
         return terms
 
     rounds, refine = plan.resolved_knn()
-    tiles = pick_knn_tiles(n, d, k, plan.backend)
+    tiles = pick_knn_tiles(n, d, k, plan.backend, metric=plan.metric)
     b = min(tiles.block, n)
     npad = math.ceil(n / b) * b
 
@@ -353,8 +353,12 @@ def _port_knn(plan: PlanConfig, terms: dict) -> None:
     shared memory (``refine_chunk`` replaces the JAX chunk's gathers),
     save a stage on its workspace route, whose chunk workspace
     (``b6_workspace``, ``ops/knn_tiles.refine_workspace_bytes``) the term
-    adds; B1's float64 form past k = 1,024 holds its pending pairs in
-    device memory (``b1_pending``, 12 bytes a pair, 1,024 a row).
+    adds, and cosine's exact stage, the plain version on the card too,
+    its gather of the candidates' vectors (``exact_gather``); a round's
+    squared norms hold a row block of x's elementwise square
+    (``refine_norms``, at most ``ops/knn.NORM_BLOCK_VALUES`` values);
+    B1's float64 form past k = 1,024 holds its pending pairs in device
+    memory (``b1_pending``, 12 bytes a pair, 1,024 a row).
 
     Under bf16 operands (``plan.matmul_dtype``) B1's bf16 form rounds x
     into a bf16 copy it streams (``b1_operands``: 2 bytes a feature, F
@@ -387,20 +391,33 @@ def _port_knn(plan: PlanConfig, terms: dict) -> None:
             # its gateways and its new [c, k] lists (ids and distances at
             # the run's itemsize: B6_f64's are float64), not the JAX
             # model's [c, Z, d] gathers
+            from tsne_flink_tpu_torch.ops.knn import norm_rows
+            from tsne_flink_tpu_torch.ops.knn_cuda import final_in_kernel
             from tsne_flink_tpu_torch.ops.knn_tiles import (
-                pick_knn_tiles, refine_chunk_bytes, refine_workspace_bytes)
-            c = pick_knn_tiles(n, d, k, plan.backend).refine_chunk
+                exact_gather_bytes, pick_knn_tiles, refine_chunk_bytes,
+                refine_workspace_bytes)
+            c = pick_knn_tiles(n, d, k, plan.backend,
+                               metric=plan.metric).refine_chunk
             jax_chunk = PIPELINE_FACTOR * refine_chunk_bytes(c, d, k,
                                                              itemsize=isz)
             # a stage on B6's workspace route (past ~k = 1,100) adds its
             # chunk's workspace, one stage's at a time
             terms["b6_workspace"] = float(
                 min(c, n) * refine_workspace_bytes(d, k, itemsize=isz))
+            terms["exact_gather"] = (
+                0.0 if final_in_kernel(plan.metric) else
+                PIPELINE_FACTOR * exact_gather_bytes(min(c, n), d, k,
+                                                     itemsize=isz))
             terms["refine_chunk"] = PIPELINE_FACTOR * c * (
-                16 * 8.0 + k * (4.0 + isz)) + terms["b6_workspace"]
+                16 * 8.0 + k * (4.0 + isz)) + terms["b6_workspace"] + \
+                terms["exact_gather"]
             terms["refine"] += terms["refine_chunk"] - jax_chunk
+            # the round's squared norms (ops/knn._sq_norms) hold a row
+            # block of x's elementwise square beside x and the graph
+            terms["refine_norms"] = float(min(n, norm_rows(d)) * d * isz)
             terms["peak"] = max(terms["band_sweep"], terms["round_merge"],
-                                terms["refine"], terms["cycle_merge"])
+                                terms["refine"], terms["cycle_merge"],
+                                x + graph + terms["refine_norms"])
         e = float(n * k)
         proj = n * ((pick_knn_filter(d) or 0) + (pick_knn_cascade(d) or 0)
                     + 2) * isz

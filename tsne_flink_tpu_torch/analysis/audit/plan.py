@@ -76,6 +76,10 @@ class PlanConfig:
     #: (``bfloat16``; None: the array's own).  ``dtype`` stays the state's
     #: (float32), as the JAX CLI's plan takes it
     matmul_dtype: str | None = None
+    #: the kNN metric: cosine's exact refine stage is the plain version on
+    #: the card, which gathers its candidates' vectors
+    #: (``ops/knn_tiles.refine_chunk_bytes``)
+    metric: str = "sqeuclidean"
     name: str = "plan"
 
     def __post_init__(self):

@@ -25,7 +25,8 @@ the thread mesh enters the recorder itself, and its events carry its
 shard index.  On the CPU the kernels' wrappers run their plain versions;
 an aten op issued inside one carries ``plain_of`` (the kernel id: the
 float64 form's, ``B1_f64`` .. ``B6_f64``, when the plain version's first
-tensor argument is a float64 tensor, as the wrappers choose on the
+tensor argument is a float64 tensor, B2-B5's wide form past m = 8 and
+B6's unstaged form past 12,288 features, as the wrappers choose on the
 card), so an op list names the kernel steps on either device.
 """
 
@@ -67,7 +68,8 @@ def _plain_form(f) -> str:
     (``kernels/build.form_id``): by the frame's first tensor argument
     (``refine_final_plain``'s follows the metric's name), its float64
     form's when that tensor is float64, B2-B5's wide form's when it is an
-    [N, m] embedding past ``M_NARROW``."""
+    [N, m] embedding past ``M_NARROW``, B6's unstaged form's when it is
+    an [N, F] base past ``B6_STAGED_F_MAX``."""
     import torch
     from tsne_flink_tpu_torch.kernels.build import form_id
     kid = PLAIN_OF[f.f_code.co_name]

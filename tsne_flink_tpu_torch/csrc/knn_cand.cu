@@ -107,6 +107,30 @@
 // compaction, and two launches give the same bits.  The workspace is read
 // and written from L2 and device memory: a slower route, taken only where
 // the on-chip one cannot hold the stage.
+//
+// The unstaged form (B6u, B6u_f64: tsne_refine_chunk_unstaged_f32/_f64),
+// for rows wider than STAGED_F_MAX = 12,288 values.  The staged form keeps
+// the chunk row's F values in shared memory (rvec: 48 KB at float32, 96 KB
+// at float64 at that width) beside the stage's other arrays; at F = 32,768
+// and float64 the row alone (256 KB) is past the 227 KB a block may have,
+// so no route of the staged form takes it.  The unstaged form is the same
+// kernel under a template flag: the scoring loop reads the row as
+// __ldg(bi + q) where the staged form reads rvec[q] — the same lanes, the
+// same fma order, the same butterfly, so for a given F both forms give the
+// same bits — and its layouts (Layout, WsLayout) hold no rvec; every other
+// array is where the staged form keeps it, and a stage takes the on-chip
+// or the workspace route by what those arrays need.  Its groups are warps
+// (LANES = 32: F > 12,288 > WIDE_F).  Where the row comes from: the eight
+// warps of a block read one row's segment at nearly the same q, so a line
+// fetched from L2 for one warp serves the others from L1 while they stay
+// close.  The row itself does not fit in L1 (an SM's 256 KB of L1 and
+// shared memory, less the blocks' shared memory: a few KB a block in the
+// exact stage at k = 90, so nearly all of it is L1, shared by up to eight
+// resident blocks' rows and their candidates' lines), so each pass of a
+// warp over a pair of candidates reads the row again, from L1 or L2: at
+// most half the candidates' bytes more L2 traffic, and none more from
+// device memory (the chunk's rows, 128-256 KB each, stay in L2 while their
+// blocks run).  The bound is the staged form's: the distinct rows' bytes.
 #include "common.cuh"
 
 namespace {
@@ -117,6 +141,7 @@ constexpr int NARROW_LANES = 8;     // lanes a candidate below WIDE_F
 constexpr int SORT_MAX = 8192;      // keys a row sorts: keep, or 2k in FINAL mode
 constexpr int BINS = 256;           // radix-select digit: one byte
 constexpr size_t SMEM_MAX = 232448; // what a block may opt in to on sm_90
+constexpr int STAGED_F_MAX = 12288; // the widest row the staged form keeps
 
 template <class T>
 struct Params {
@@ -252,13 +277,15 @@ __host__ __device__ inline int pow2_at_least(int v) {
 
 // The block's dynamic shared memory, byte offsets of each array.  The
 // float64 form keeps the old list (FINAL mode) in the ids' array, which
-// is read for the last time before the old list is loaded.
+// is read for the last time before the old list is loaded.  The unstaged
+// form (staged false) holds no row vector.
 template <class T>
 struct Layout {
   static constexpr bool OLD_IN_IDS = sizeof(T) == 8;
   int zcap, hsize, sortcap;
   size_t rvec, ids, hist, misc, gates, oi, od, region, scores, bytes;
-  __host__ __device__ Layout(const Params<T>& p, bool build, bool fin) {
+  __host__ __device__ Layout(const Params<T>& p, bool build, bool fin,
+                             bool staged) {
     zcap = build ? p.w * (1 + p.ke) : p.w;
     hsize = build ? 2 * zcap : 0;
     sortcap = pow2_at_least(fin ? 2 * p.k : p.keep);
@@ -268,7 +295,7 @@ struct Layout {
     if (OLD_IN_IDS && oi_bytes + od_bytes > id_bytes)
       id_bytes = oi_bytes + od_bytes;
     size_t at = 0;
-    rvec = at;   at += align16(sizeof(T) * p.f);
+    rvec = at;   at += staged ? align16(sizeof(T) * p.f) : 0;
     ids = at;    at += align16(id_bytes);
     hist = at;   at += align16(sizeof(int) * BINS);
     misc = at;   at += align16(sizeof(int) * 8);
@@ -293,24 +320,25 @@ struct Layout {
   }
 };
 
-// The workspace route's layout: in shared memory the row's vector, the
-// histogram, the counters, the gateways (a first stage) and the radix
-// sort's per-warp digit counts; in the row's workspace the candidate ids,
-// the old list (the exact stage), and one region that holds the hash set
-// while the candidates are built, then the sort keys, the sort's second
-// buffer and the scores.
+// The workspace route's layout: in shared memory the row's vector (the
+// staged form), the histogram, the counters, the gateways (a first stage)
+// and the radix sort's per-warp digit counts; in the row's workspace the
+// candidate ids, the old list (the exact stage), and one region that holds
+// the hash set while the candidates are built, then the sort keys, the
+// sort's second buffer and the scores.
 template <class T>
 struct WsLayout {
   int zcap, hsize, nsort;
   size_t rvec, hist, misc, gates, wcnt, bytes;     // shared memory
   size_t ids, oi, od, region, keys2, scores, row;  // the row's workspace
-  __host__ __device__ WsLayout(const Params<T>& p, bool build, bool fin) {
+  __host__ __device__ WsLayout(const Params<T>& p, bool build, bool fin,
+                               bool staged) {
     using Key = typename KeyOps<T>::Key;
     zcap = build ? p.w * (1 + p.ke) : p.w;
     hsize = build ? 2 * zcap : 0;
     nsort = fin ? 2 * p.k : p.keep;
     size_t at = 0;
-    rvec = at;   at += align16(sizeof(T) * p.f);
+    rvec = at;   at += staged ? align16(sizeof(T) * p.f) : 0;
     hist = at;   at += align16(sizeof(int) * BINS);
     misc = at;   at += align16(sizeof(int) * 8);
     gates = at;  at += build ? align16(sizeof(int) * p.w) : 0;
@@ -534,7 +562,9 @@ __device__ void radix_threshold(KeyOf key_of, Valid valid, int nz, int want,
   }
 }
 
-template <class T, bool BUILD, bool FINAL, int LANES, bool WS>
+// STAGED: the row's vector in shared memory (rvec); otherwise the scoring
+// loop reads it from global memory (the unstaged form, any F)
+template <class T, bool BUILD, bool FINAL, int LANES, bool WS, bool STAGED>
 __global__ void __launch_bounds__(THREADS)
 refine_kernel(const Params<T> p, const Workspace ws) {
   using K = KeyOps<T>;
@@ -542,7 +572,8 @@ refine_kernel(const Params<T> p, const Workspace ws) {
   extern __shared__ __align__(16) unsigned char smem[];
   // the candidate-sized arrays: in shared memory (Layout), or in the
   // row's workspace (WsLayout, the workspace route)
-  const std::conditional_t<WS, WsLayout<T>, Layout<T>> L(p, BUILD, FINAL);
+  const std::conditional_t<WS, WsLayout<T>, Layout<T>> L(p, BUILD, FINAL,
+                                                         STAGED);
   unsigned char* big = smem;
   if constexpr (WS) big = ws.base + (size_t)blockIdx.x * ws.row;
   T* rvec = reinterpret_cast<T*>(smem + L.rvec);
@@ -556,7 +587,8 @@ refine_kernel(const Params<T> p, const Workspace ws) {
   const int i = p.row0 + r;
 
   const T* __restrict__ bi = p.base + (size_t)i * p.f;
-  for (int t = tid; t < p.f; t += THREADS) rvec[t] = bi[t];
+  if constexpr (STAGED)
+    for (int t = tid; t < p.f; t += THREADS) rvec[t] = bi[t];
   if (tid < 8) misc[tid] = 0;
   if constexpr (BUILD) {
     int* table = reinterpret_cast<int*>(big + L.region);
@@ -633,7 +665,9 @@ refine_kernel(const Params<T> p, const Workspace ws) {
       T ga = T(0), gb = T(0);
 #pragma unroll 4
       for (int q = lane; q < p.f; q += LANES) {
-        const T rq = rvec[q];
+        T rq;
+        if constexpr (STAGED) rq = rvec[q];
+        else rq = __ldg(bi + q);
         ga = tsne::Num<T>::fma(rq, __ldg(ba + q), ga);
         gb = tsne::Num<T>::fma(rq, __ldg(bb + q), gb);
       }
@@ -754,25 +788,25 @@ refine_kernel(const Params<T> p, const Workspace ws) {
 // Whether a stage takes the workspace route: its on-chip layout past the
 // block's shared memory, or its sort past the bitonic sort's capacity.
 template <class T>
-bool needs_workspace(const Params<T>& p, bool build, bool fin) {
-  const Layout<T> L(p, build, fin);
+bool needs_workspace(const Params<T>& p, bool build, bool fin, bool staged) {
+  const Layout<T> L(p, build, fin, staged);
   return L.bytes > SMEM_MAX || L.sortcap > SORT_MAX;
 }
 
-template <class T, bool BUILD, bool FINAL, int LANES, bool WS>
+template <class T, bool BUILD, bool FINAL, int LANES, bool WS, bool STAGED>
 int launch(const Params<T>& p, const Workspace& ws, cudaStream_t stream) {
   size_t bytes;
   if constexpr (WS) {
-    const WsLayout<T> L(p, BUILD, FINAL);
+    const WsLayout<T> L(p, BUILD, FINAL, STAGED);
     if (ws.base == nullptr || ws.row < L.row || ws.row % 16 ||
         reinterpret_cast<uintptr_t>(ws.base) % 16)
       return (int)cudaErrorInvalidValue;
     bytes = L.bytes;
   } else {
-    bytes = Layout<T>(p, BUILD, FINAL).bytes;
+    bytes = Layout<T>(p, BUILD, FINAL, STAGED).bytes;
   }
   if (bytes > SMEM_MAX) return (int)cudaErrorInvalidValue;
-  auto kern = refine_kernel<T, BUILD, FINAL, LANES, WS>;
+  auto kern = refine_kernel<T, BUILD, FINAL, LANES, WS, STAGED>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
@@ -782,23 +816,28 @@ int launch(const Params<T>& p, const Workspace& ws, cudaStream_t stream) {
   return tsne::launch_status();
 }
 
-template <class T, bool BUILD, bool FINAL, bool WS>
+// The staged form: 8 lanes a candidate below WIDE_F, a warp from it; the
+// unstaged form a warp (its F is checked to be WIDE_F or more).
+template <class T, bool BUILD, bool FINAL, bool WS, bool STAGED>
 int launch_width(const Params<T>& p, const Workspace& ws,
                  cudaStream_t stream) {
-  return p.f < WIDE_F
-             ? launch<T, BUILD, FINAL, NARROW_LANES, WS>(p, ws, stream)
-             : launch<T, BUILD, FINAL, 32, WS>(p, ws, stream);
+  if constexpr (STAGED)
+    return p.f < WIDE_F
+               ? launch<T, BUILD, FINAL, NARROW_LANES, WS, true>(p, ws, stream)
+               : launch<T, BUILD, FINAL, 32, WS, true>(p, ws, stream);
+  else
+    return launch<T, BUILD, FINAL, 32, WS, false>(p, ws, stream);
 }
 
-template <class T, bool BUILD, bool FINAL>
+template <class T, bool BUILD, bool FINAL, bool STAGED>
 int launch_route(const Params<T>& p, const Workspace& ws,
                  cudaStream_t stream) {
-  return needs_workspace(p, BUILD, FINAL)
-             ? launch_width<T, BUILD, FINAL, true>(p, ws, stream)
-             : launch_width<T, BUILD, FINAL, false>(p, ws, stream);
+  return needs_workspace(p, BUILD, FINAL, STAGED)
+             ? launch_width<T, BUILD, FINAL, true, STAGED>(p, ws, stream)
+             : launch_width<T, BUILD, FINAL, false, STAGED>(p, ws, stream);
 }
 
-template <class T>
+template <class T, bool STAGED>
 int refine_chunk(const T* base, const T* sq, int n, int f, int row0, int c,
                  const int* cand, int w, const int* graph, int kg, int ke,
                  int keep, const int* old_i, const T* old_d, int k,
@@ -808,6 +847,7 @@ int refine_chunk(const T* base, const T* sq, int n, int f, int row0, int c,
   const bool fin = old_i != nullptr;
   if (c < 1 || w < 1 || f < 1 || row0 < 0 || row0 + c > n ||
       n_valid < 1 || n_valid > n ||
+      (STAGED ? f > STAGED_F_MAX : f < WIDE_F) ||
       (build && (ke < 1 || ke > kg)) ||
       (fin ? k < 1 : keep < 1))
     return (int)cudaErrorInvalidValue;
@@ -815,29 +855,30 @@ int refine_chunk(const T* base, const T* sq, int n, int f, int row0, int c,
                     old_i, old_d, k, euclid, n_valid, out_i, out_d};
   const Workspace wsp{static_cast<unsigned char*>(ws), ws_row};
   const cudaStream_t s = (cudaStream_t)stream;
-  if (build) return fin ? launch_route<T, true, true>(p, wsp, s)
-                        : launch_route<T, true, false>(p, wsp, s);
-  return fin ? launch_route<T, false, true>(p, wsp, s)
-             : launch_route<T, false, false>(p, wsp, s);
+  if (build) return fin ? launch_route<T, true, true, STAGED>(p, wsp, s)
+                        : launch_route<T, true, false, STAGED>(p, wsp, s);
+  return fin ? launch_route<T, false, true, STAGED>(p, wsp, s)
+             : launch_route<T, false, false, STAGED>(p, wsp, s);
 }
 
 // The route of one funnel stage (arguments as tsne_refine_chunk_f32's;
-// itemsize 4 or 8): returns the workspace bytes a row (0: the stage runs
-// on chip) and writes the block's dynamic shared memory.
+// itemsize 4 or 8; staged: the staged form's layouts, else the unstaged
+// form's): returns the workspace bytes a row (0: the stage runs on chip)
+// and writes the block's dynamic shared memory.
 template <class T>
 size_t route_bytes(int f, int w, int ke, int keep, int k, int build,
-                   int fin, size_t* smem) {
+                   int fin, bool staged, size_t* smem) {
   Params<T> p{};
   p.f = f;
   p.w = w;
   p.ke = ke;
   p.keep = keep;
   p.k = k;
-  if (!needs_workspace(p, build, fin)) {
-    *smem = Layout<T>(p, build, fin).bytes;
+  if (!needs_workspace(p, build, fin, staged)) {
+    *smem = Layout<T>(p, build, fin, staged).bytes;
     return 0;
   }
-  const WsLayout<T> L(p, build, fin);
+  const WsLayout<T> L(p, build, fin, staged);
   *smem = L.bytes;
   return L.row;
 }
@@ -845,7 +886,8 @@ size_t route_bytes(int f, int w, int ke, int keep, int k, int build,
 }  // namespace
 
 // One funnel stage of rows row0 .. row0 + c − 1 (every id in [0, n); a
-// BUILD stage drops ids >= n_valid, n_valid <= n).
+// BUILD stage drops ids >= n_valid, n_valid <= n), by the staged form:
+// 1 <= f <= 12,288 (STAGED_F_MAX).
 // base [n, f], sq [n] in the entry's value type (f32 or f64), as are
 // old_d and out_d.  BUILD when graph is non-null: cand holds
 // the gateways [c, w] and graph [n, kg] the lists, of which the first ke
@@ -859,7 +901,8 @@ size_t route_bytes(int f, int w, int ke, int keep, int k, int build,
 // to sort, runs on chip; any other takes the workspace route, whose
 // workspace ws holds ws_row bytes (a multiple of 16, at least
 // tsne_refine_route's) for each of the c rows.  ops/knn_cuda.refine_route
-// states both layouts.
+// states both layouts.  Returns cudaErrorInvalidValue for what it does
+// not take.
 TSNE_API int tsne_refine_chunk_f32(const float* base, const float* sq, int n,
                                    int f, int row0, int c, const int* cand,
                                    int w, const int* graph, int kg, int ke,
@@ -867,9 +910,9 @@ TSNE_API int tsne_refine_chunk_f32(const float* base, const float* sq, int n,
                                    const float* old_d, int k, int euclid,
                                    int n_valid, int* out_i, float* out_d,
                                    void* ws, size_t ws_row, void* stream) {
-  return refine_chunk<float>(base, sq, n, f, row0, c, cand, w, graph, kg, ke,
-                             keep, old_i, old_d, k, euclid, n_valid, out_i,
-                             out_d, ws, ws_row, stream);
+  return refine_chunk<float, true>(base, sq, n, f, row0, c, cand, w, graph,
+                                   kg, ke, keep, old_i, old_d, k, euclid,
+                                   n_valid, out_i, out_d, ws, ws_row, stream);
 }
 
 TSNE_API int tsne_refine_chunk_f64(const double* base, const double* sq,
@@ -880,19 +923,47 @@ TSNE_API int tsne_refine_chunk_f64(const double* base, const double* sq,
                                    int k, int euclid, int n_valid,
                                    int* out_i, double* out_d, void* ws,
                                    size_t ws_row, void* stream) {
-  return refine_chunk<double>(base, sq, n, f, row0, c, cand, w, graph, kg,
-                              ke, keep, old_i, old_d, k, euclid, n_valid,
-                              out_i, out_d, ws, ws_row, stream);
+  return refine_chunk<double, true>(base, sq, n, f, row0, c, cand, w, graph,
+                                    kg, ke, keep, old_i, old_d, k, euclid,
+                                    n_valid, out_i, out_d, ws, ws_row, stream);
+}
+
+// The unstaged form (B6u, B6u_f64): the same stage, the same arguments and
+// bits, the row read from global memory; any f >= 64 (WIDE_F).  The
+// wrapper launches it past STAGED_F_MAX.
+TSNE_API int tsne_refine_chunk_unstaged_f32(
+    const float* base, const float* sq, int n, int f, int row0, int c,
+    const int* cand, int w, const int* graph, int kg, int ke, int keep,
+    const int* old_i, const float* old_d, int k, int euclid, int n_valid,
+    int* out_i, float* out_d, void* ws, size_t ws_row, void* stream) {
+  return refine_chunk<float, false>(base, sq, n, f, row0, c, cand, w, graph,
+                                    kg, ke, keep, old_i, old_d, k, euclid,
+                                    n_valid, out_i, out_d, ws, ws_row,
+                                    stream);
+}
+
+TSNE_API int tsne_refine_chunk_unstaged_f64(
+    const double* base, const double* sq, int n, int f, int row0, int c,
+    const int* cand, int w, const int* graph, int kg, int ke, int keep,
+    const int* old_i, const double* old_d, int k, int euclid, int n_valid,
+    int* out_i, double* out_d, void* ws, size_t ws_row, void* stream) {
+  return refine_chunk<double, false>(base, sq, n, f, row0, c, cand, w,
+                                     graph, kg, ke, keep, old_i, old_d, k,
+                                     euclid, n_valid, out_i, out_d, ws,
+                                     ws_row, stream);
 }
 
 // A stage's route as the kernel takes it (f, w, ke, keep, k as the entry
 // points take them, build / fin for a first stage / the exact stage,
-// itemsize 4 or 8): returns the workspace bytes a row, 0 on chip, and
-// writes the block's dynamic shared memory.
+// itemsize 4 or 8, staged != 0 for the staged form, 0 for the unstaged
+// one): returns the workspace bytes a row, 0 on chip, and writes the
+// block's dynamic shared memory.
 TSNE_API size_t tsne_refine_route(int f, int w, int ke, int keep, int k,
                                   int build, int fin, int itemsize,
-                                  size_t* smem) {
+                                  int staged, size_t* smem) {
   return itemsize == 8
-             ? route_bytes<double>(f, w, ke, keep, k, build, fin, smem)
-             : route_bytes<float>(f, w, ke, keep, k, build, fin, smem);
+             ? route_bytes<double>(f, w, ke, keep, k, build, fin, staged,
+                                   smem)
+             : route_bytes<float>(f, w, ke, keep, k, build, fin, staged,
+                                  smem);
 }

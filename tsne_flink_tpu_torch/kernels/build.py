@@ -85,12 +85,16 @@ SIGNATURES = {
     "tsne_refine_chunk_f64": [_P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _I,
                               _I, _P, _P, _I, _I, _I, _P, _P, _P, _S, _P],
 }
-# the wide forms of B2-B5 (m > 8): the narrow forms' operands
+# the wide forms of B2-B5 (m > 8): the narrow forms' operands; B6's
+# unstaged form (F > 12,288): the staged form's
 for _name in ("repulsion", "fused_step", "attraction_loss",
               "attraction_forces"):
     for _t in ("f32", "f64"):
         SIGNATURES[f"tsne_{_name}_wide_{_t}"] = SIGNATURES[
             f"tsne_{_name}_{_t}"]
+for _t in ("f32", "f64"):
+    SIGNATURES[f"tsne_refine_chunk_unstaged_{_t}"] = SIGNATURES[
+        f"tsne_refine_chunk_{_t}"]
 
 
 #: seconds a process waits for another's build of the same library, and
@@ -253,7 +257,8 @@ def _library() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     lib.tsne_knn_config.argtypes = [_I, _P, _P, _P, _P]
     lib.tsne_knn_config.restype = ctypes.c_int
-    lib.tsne_refine_route.argtypes = [_I, _I, _I, _I, _I, _I, _I, _I, _P]
+    lib.tsne_refine_route.argtypes = [_I, _I, _I, _I, _I, _I, _I, _I, _I,
+                                      _P]
     lib.tsne_refine_route.restype = _S
     lib.tsne_repulsion_wide_config.argtypes = [_I, _I, _P, _P]
     lib.tsne_repulsion_wide_config.restype = ctypes.c_int
@@ -300,9 +305,10 @@ class Kernel:
 LAUNCH_HOOKS: list = []
 
 #: the port's kernels by the id of the TPU kernel each replaces; B1's
-#: bf16-operand form (mixed precision), the float64 forms of B1-B6 and
-#: the wide forms of B2-B5 (``w``: embeddings wider than 8) count under
-#: names of their own, so a run's launches tell the forms apart
+#: bf16-operand form (mixed precision), the float64 forms of B1-B6, the
+#: wide forms of B2-B5 (``w``: embeddings wider than 8) and B6's unstaged
+#: form (``u``: rows wider than :data:`B6_STAGED_F_MAX`) count under names
+#: of their own, so a run's launches tell the forms apart
 KERNELS = {
     "B1": Kernel("tsne_knn_f32", "B1"),
     "B1_bf16": Kernel("tsne_knn_bf16", "B1_bf16"),
@@ -317,6 +323,8 @@ KERNELS = {
     "B5_f64": Kernel("tsne_attraction_forces_f64", "B5_f64"),
     "B6": Kernel("tsne_refine_chunk_f32", "B6"),
     "B6_f64": Kernel("tsne_refine_chunk_f64", "B6_f64"),
+    "B6u": Kernel("tsne_refine_chunk_unstaged_f32", "B6u"),
+    "B6u_f64": Kernel("tsne_refine_chunk_unstaged_f64", "B6u_f64"),
     "B2w": Kernel("tsne_repulsion_wide_f32", "B2w"),
     "B2w_f64": Kernel("tsne_repulsion_wide_f64", "B2w_f64"),
     "B3w": Kernel("tsne_fused_step_wide_f32", "B3w"),
@@ -334,14 +342,23 @@ KERNELS = {
 M_NARROW = 8
 #: the kernels with a wide form
 WIDE_FORMS = ("B2", "B3", "B4", "B5")
+#: the widest row (features) whose values B6 stages in shared memory
+#: (STAGED_F_MAX in csrc/knn_cand.cu); a wider one launches its unstaged
+#: form, which reads the row from global memory
+B6_STAGED_F_MAX = 12_288
 
 
 def form_id(kid: str, float64: bool, m: int = 0) -> str:
-    """The ``KERNELS`` entry kernel ``kid`` launches: its wide form at an
-    embedding width ``m`` past :data:`M_NARROW` (B2-B5), its float64 form
-    at float64."""
-    wide = kid in WIDE_FORMS and m > M_NARROW
-    return kid + ("w" if wide else "") + ("_f64" if float64 else "")
+    """The ``KERNELS`` entry kernel ``kid`` launches at width ``m`` (the
+    last axis of its [N, m] operand): its wide form past :data:`M_NARROW`
+    (B2-B5), B6's unstaged form past :data:`B6_STAGED_F_MAX`, its float64
+    form at float64."""
+    form = ""
+    if kid in WIDE_FORMS and m > M_NARROW:
+        form = "w"
+    elif kid == "B6" and m > B6_STAGED_F_MAX:
+        form = "u"
+    return kid + form + ("_f64" if float64 else "")
 
 
 def reset_launches() -> None:

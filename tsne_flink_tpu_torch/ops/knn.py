@@ -37,8 +37,8 @@ from dataclasses import dataclass
 import torch
 
 from tsne_flink_tpu_torch.obs import trace as obtrace
-from tsne_flink_tpu_torch.ops.knn_cuda import (CAND_F_MAX, fused_knn,
-                                               refine_final, refine_keep)
+from tsne_flink_tpu_torch.ops.knn_cuda import (fused_knn, refine_final,
+                                               refine_keep)
 from tsne_flink_tpu_torch.ops.metrics import matmul_operands, pairwise
 from tsne_flink_tpu_torch.ops.zorder import zorder_permutation
 from tsne_flink_tpu_torch.utils.device import timed_stage
@@ -62,11 +62,12 @@ def _topk_smallest(d: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _resolve_tiles(tiles, n: int, d: int, k: int, backend: str):
+def _resolve_tiles(tiles, n: int, d: int, k: int, backend: str,
+                   metric: str = "sqeuclidean"):
     if tiles is not None:
         return tiles
     from tsne_flink_tpu_torch.ops.knn_tiles import pick_knn_tiles
-    return pick_knn_tiles(n, d, k, backend)
+    return pick_knn_tiles(n, d, k, backend, metric=metric)
 
 
 def _clamp_k(k: int, n: int) -> int:
@@ -94,6 +95,25 @@ def pick_knn_rounds(n: int) -> int:
     if 4000 < n <= 8000:
         return 6
     return 3
+
+
+#: values of x's elementwise square that a refine round's squared norms
+#: hold at once (1 GiB at float32): made a row block at a time, the square
+#: never exists whole (8.4 GiB at 68,579 x 32,738)
+NORM_BLOCK_VALUES = 1 << 28
+
+
+def norm_rows(d: int) -> int:
+    """Rows a block of the refine round's squared norms takes at width
+    ``d`` (:data:`NORM_BLOCK_VALUES`)."""
+    return max(1, NORM_BLOCK_VALUES // max(d, 1))
+
+
+def _sq_norms(x: torch.Tensor) -> torch.Tensor:
+    """Each row's squared norm, summed a row block of :func:`norm_rows`
+    at a time; x of fewer rows is one block, the one-call sum."""
+    return torch.cat([torch.sum(b * b, dim=1)
+                      for b in x.split(norm_rows(x.shape[1]))])
 
 
 #: refine-funnel constants, shared with the FLOP model (utils/flops)
@@ -198,28 +218,6 @@ def resolve_knn_plan(n: int, d: int, method: str, rounds, refine, k=None,
         if refine is None:
             refine = pick_knn_refine(n, d)
     return method, rounds, refine
-
-
-def check_knn_limits(n: int, d: int, k: int, method: str,
-                     refine: int | None) -> None:
-    """Refuse, before any kNN work, a request that the card's kernels do
-    not take; the same check runs on every device, so that a CPU run
-    refuses what a card run would.  ``method``/``refine`` are the resolved
-    plan's (:func:`resolve_knn_plan`).
-
-    A refining ``project`` plan needs d <= ``CAND_F_MAX`` = 12,288: the
-    refine kernel B6 keeps the chunk row's vector in shared memory.  Every
-    k (clamped to N − 1) runs: B1 merges past k = 1,024 through its
-    pending class, and a B6 stage that does not fit on chip takes its
-    workspace route (``ops/knn_cuda.refine_route``), at float32 and at
-    float64 alike, so neither k nor the dtype is refused."""
-    if method == "project" and refine and d > CAND_F_MAX:
-        raise ValueError(
-            f"d = {d} features is past the refine kernel's limit CAND_F_MAX "
-            f"= {CAND_F_MAX}: kernel B6 keeps the chunk row's vector in "
-            f"shared memory (F values) beside its candidates; reduce the "
-            f"features (e.g. to principal components) or use knn_method="
-            f"'bruteforce'")
 
 
 # ---- exact methods ----------------------------------------------------------
@@ -545,8 +543,8 @@ def knn_refine(x: torch.Tensor, idx: torch.Tensor, dist: torch.Tensor,
                         cascade_dims=cascade_dims, cascade_keep=cascade_keep)
     s, ke = plan.s, plan.ke
     if row_chunk is None:
-        row_chunk = _resolve_tiles(tiles, nloc, dim, k,
-                                   backend_of(xf)).refine_chunk
+        row_chunk = _resolve_tiles(tiles, nloc, dim, k, backend_of(xf),
+                                   metric).refine_chunk
     compact = False if dedup_gather == "auto" else bool(dedup_gather)
     c = min(row_chunk, nloc)
     if draws is None:
@@ -561,7 +559,7 @@ def knn_refine(x: torch.Tensor, idx: torch.Tensor, dist: torch.Tensor,
     if metric == "cosine":
         xcache = torch.clamp(torch.linalg.norm(xf, dim=1), min=1e-12)
     else:
-        xcache = torch.sum(xf * xf, dim=1)
+        xcache = _sq_norms(xf)
 
     for rnd in range(max(0, rounds)):
         dr = (draws[rnd] if draws is not None else
@@ -759,7 +757,7 @@ def knn_project_refined(x: torch.Tensor, k: int, metric: str = "sqeuclidean",
         # funnel runs (the JAX package measured higher recall at less cost)
         expand_k = (k + 1) // 2 if filter_dims else None
     zpc = ZORDER_PER_CYCLE if z_per_cycle is None else z_per_cycle
-    tiles = _resolve_tiles(tiles, n, dim, k, backend_of(x))
+    tiles = _resolve_tiles(tiles, n, dim, k, backend_of(x), metric)
     subs: dict = {}
 
     def run(name, fn):

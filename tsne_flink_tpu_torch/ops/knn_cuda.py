@@ -77,6 +77,13 @@ in device memory the wrapper allocates (:func:`refine_route`,
 :func:`refine_ws_layout`).  :data:`ROUTE_LAUNCHES` counts the launches of
 each B1 class and B6 route.
 
+Every F runs.  Up to :data:`STAGED_F_MAX` = 12,288 features B6 stages the
+chunk row's vector in shared memory; past it a stage launches B6's
+unstaged form (``KERNELS["B6u"]``, ``["B6u_f64"]``: the same kernel under
+a template flag, reading the row from global memory in the same fma
+order, so the same bits), on whichever route its other arrays need
+(:func:`refine_route` with ``staged=False``).
+
 B6 under bf16 operands: on its accelerator the JAX package scores the
 refine funnel through the tile plan's ``kernel``, ``pallas`` on a TPU
 (``ops/knn_tiles.pick_knn_tiles`` via ``knn_pallas.pick_knn_kernel``,
@@ -100,7 +107,7 @@ from typing import NamedTuple
 
 import torch
 
-from tsne_flink_tpu_torch.kernels.build import KERNELS
+from tsne_flink_tpu_torch.kernels.build import B6_STAGED_F_MAX, KERNELS
 from tsne_flink_tpu_torch.ops.metrics import (check_matmul_dtype,
                                               kernel_float64,
                                               matmul_operands, metric_fn,
@@ -516,8 +523,12 @@ def fused_knn(x: torch.Tensor, k: int, metric: str = "sqeuclidean",
 
 # ---- B6: one funnel stage of a refine chunk -----------------------------
 
-#: the kernel keeps a chunk row's vector in shared memory (F values)
-CAND_F_MAX = 12_288
+#: the widest row (F values) B6 stages in shared memory; a wider stage
+#: launches its unstaged form, which no F limits
+STAGED_F_MAX = B6_STAGED_F_MAX
+#: the narrowest F the unstaged form takes (WIDE_F in csrc/knn_cand.cu:
+#: its groups are warps)
+UNSTAGED_F_MIN = 64
 #: keys the on-chip route's bitonic sort takes a row (a keep stage's
 #: survivors, or the exact stage's old + new lists, 2k, rounded up to a
 #: power of two); a stage past it takes the workspace route
@@ -531,16 +542,32 @@ def _a16(b: int) -> int:
     return (b + 15) // 16 * 16
 
 
+def final_in_kernel(metric: str) -> bool:
+    """Whether the card's exact stage in ``metric`` runs in kernel B6,
+    which gathers no candidate vectors, rather than in the plain version,
+    which gathers them [c, Z, F] (cosine: :func:`refine_final`)."""
+    return metric != "cosine"
+
+
+def refine_staged(f: int) -> bool:
+    """Whether a B6 stage at width ``f`` takes the staged form (its row
+    in shared memory) rather than the unstaged one."""
+    return f <= STAGED_F_MAX
+
+
 def refine_smem_bytes(f: int, w: int, ke: int, keep: int, k: int,
-                      build: bool, final: bool, itemsize: int = 4) -> int:
+                      build: bool, final: bool, itemsize: int = 4,
+                      staged: bool | None = None) -> int:
     """The dynamic shared memory of one B6 block on the on-chip route at
     values of ``itemsize`` bytes (4: float32, 8: B6_f64), as ``Layout``
-    in ``csrc/knn_cand.cu`` lays it out: the row's vector (F values), the
-    candidate ids, a histogram, the gateways (a first stage), the old
-    list (the exact stage; the float64 form keeps it in the ids' array,
-    dead by then), and one region that holds the hash set (2 slots a
-    candidate) and then the sort keys (a power of two, 8 bytes each, or
-    16 at float64) with the scores."""
+    in ``csrc/knn_cand.cu`` lays it out: the row's vector (F values; the
+    staged form only), the candidate ids, a histogram, the gateways (a
+    first stage), the old list (the exact stage; the float64 form keeps
+    it in the ids' array, dead by then), and one region that holds the
+    hash set (2 slots a candidate) and then the sort keys (a power of
+    two, 8 bytes each, or 16 at float64) with the scores.  ``staged``
+    (None: :func:`refine_staged` of ``f``) picks the form."""
+    staged = refine_staged(f) if staged is None else staged
     a16 = _a16
     zcap = w * (1 + ke) if build else w
     sortcap = 1 << ((2 * k if final else keep) - 1).bit_length()
@@ -548,7 +575,8 @@ def refine_smem_bytes(f: int, w: int, ke: int, keep: int, k: int,
     ids = 4 * zcap
     if itemsize == 8:
         ids, old = max(ids, old), 0
-    at = a16(itemsize * f) + a16(ids) + a16(4 * 256) + a16(4 * 8) + old
+    at = ((a16(itemsize * f) if staged else 0) + a16(ids) + a16(4 * 256)
+          + a16(4 * 8) + old)
     at += a16(4 * w) if build else 0
     table = 4 * 2 * zcap if build else 0
     key = 8 if itemsize == 4 else 16
@@ -556,20 +584,23 @@ def refine_smem_bytes(f: int, w: int, ke: int, keep: int, k: int,
 
 
 def refine_ws_layout(f: int, w: int, ke: int, keep: int, k: int,
-                     build: bool, final: bool,
-                     itemsize: int = 4) -> tuple[int, int]:
+                     build: bool, final: bool, itemsize: int = 4,
+                     staged: bool | None = None) -> tuple[int, int]:
     """(shared memory, workspace bytes a row) of one B6 block on the
     workspace route, as ``WsLayout`` in ``csrc/knn_cand.cu`` lays it out.
-    Shared memory: the row's vector, the histogram, the counters, the
-    gateways (a first stage) and the radix sort's per-warp digit counts
-    (8 x 256).  The row's workspace: the candidate ids, the old list (the
-    exact stage) and one region holding the hash set (2 slots a
-    candidate), then the sort keys (exactly 2k, or ``keep``), the sort's
-    second buffer and the scores."""
+    Shared memory: the row's vector (the staged form only), the
+    histogram, the counters, the gateways (a first stage) and the radix
+    sort's per-warp digit counts (8 x 256).  The row's workspace: the
+    candidate ids, the old list (the exact stage) and one region holding
+    the hash set (2 slots a candidate), then the sort keys (exactly 2k,
+    or ``keep``), the sort's second buffer and the scores.  ``staged``
+    as :func:`refine_smem_bytes`'s."""
+    staged = refine_staged(f) if staged is None else staged
     zcap = w * (1 + ke) if build else w
     nsort = 2 * k if final else keep
-    smem = (_a16(itemsize * f) + _a16(4 * 256) + _a16(4 * 8)
-            + (_a16(4 * w) if build else 0) + _a16(4 * 8 * 256))
+    smem = ((_a16(itemsize * f) if staged else 0) + _a16(4 * 256)
+            + _a16(4 * 8) + (_a16(4 * w) if build else 0)
+            + _a16(4 * 8 * 256))
     row = _a16(4 * zcap)
     if final:
         row += _a16(4 * k) + _a16(itemsize * k)
@@ -587,33 +618,40 @@ class RefineRoute(NamedTuple):
 
 
 def refine_route(f: int, w: int, ke: int, keep: int, k: int, build: bool,
-                 final: bool, itemsize: int = 4) -> RefineRoute:
+                 final: bool, itemsize: int = 4,
+                 staged: bool | None = None) -> RefineRoute:
     """The route of one B6 stage, as ``tsne_refine_route`` in
     ``csrc/knn_cand.cu`` decides it: on chip when its block fits
     :data:`REFINE_SMEM_MAX` (:func:`refine_smem_bytes`) and sorts at most
     :data:`REFINE_SORT_MAX` keys, else through a workspace of
     :func:`refine_ws_layout`'s bytes a row (any k: past ~k = 1,100 a
-    first exact stage's hash set, or a keep stage's 5k sort past 8,192)."""
+    first exact stage's hash set, or a keep stage's 5k sort past 8,192).
+    ``staged`` (None: :func:`refine_staged` of ``f``) picks the staged
+    form's layouts or the unstaged form's, which hold no row vector."""
+    staged = refine_staged(f) if staged is None else staged
     sort = (2 * k if final else keep)
     sortcap = 1 << max(sort - 1, 0).bit_length()
-    smem = refine_smem_bytes(f, w, ke, keep, k, build, final, itemsize)
+    smem = refine_smem_bytes(f, w, ke, keep, k, build, final, itemsize,
+                             staged)
     if smem <= REFINE_SMEM_MAX and sortcap <= REFINE_SORT_MAX:
         return RefineRoute(0, smem)
-    smem, row = refine_ws_layout(f, w, ke, keep, k, build, final, itemsize)
+    smem, row = refine_ws_layout(f, w, ke, keep, k, build, final, itemsize,
+                                 staged)
     return RefineRoute(row, smem)
 
 
 def refine_route_kernel(f: int, w: int, ke: int, keep: int, k: int,
-                        build: bool, final: bool,
-                        itemsize: int = 4) -> RefineRoute:
+                        build: bool, final: bool, itemsize: int = 4,
+                        staged: bool | None = None) -> RefineRoute:
     """:func:`refine_route` as the kernel library itself decides it
     (``tsne_refine_route``; builds the library): the card's checks hold
     the mirror to it."""
     import ctypes
     from tsne_flink_tpu_torch.kernels.build import library
+    staged = refine_staged(f) if staged is None else staged
     smem = ctypes.c_size_t()
     ws = library().tsne_refine_route(f, w, ke, keep, k, int(build),
-                                     int(final), itemsize,
+                                     int(final), itemsize, int(staged),
                                      ctypes.byref(smem))
     return RefineRoute(int(ws), int(smem.value))
 
@@ -800,19 +838,25 @@ def _check_refine(base, sq, row0, cand, graph, ke, old, keep,
                             or old[0].shape[0] != c or old[0].shape[1] < 1):
         raise ValueError(f"B6 kernel: old lists {tuple(old[0].shape)} must "
                          f"be [{c}, k], k >= 1")
-    if not 1 <= f <= CAND_F_MAX:
-        raise ValueError(f"B6 kernel takes 1 <= F <= {CAND_F_MAX}; got {f}")
     if not 1 <= n_valid <= n:
         raise ValueError(f"B6 kernel: n_valid {n_valid} must be in 1..{n}")
 
 
 def _refine_launch(base, sq, row0, cand, graph, ke, *, keep=0, old=None,
-                   euclid=False, n_valid=None):
-    """Launch B6 (B6_f64 on float64 values) on one stage of rows row0 ..
-    row0 + c − 1; allocates its outputs, ids [c, keep] (keep mode) or the
-    new lists [c, k] in base's dtype, and, for a stage on the workspace
-    route (:func:`refine_route`), the chunk's workspace."""
+                   euclid=False, n_valid=None, staged=None):
+    """Launch B6 (B6_f64 on float64 values; past :data:`STAGED_F_MAX`
+    features their unstaged forms B6u / B6u_f64) on one stage of rows
+    row0 .. row0 + c − 1; allocates its outputs, ids [c, keep] (keep
+    mode) or the new lists [c, k] in base's dtype, and, for a stage on
+    the workspace route (:func:`refine_route`), the chunk's workspace.
+    ``staged`` (None: :func:`refine_staged` of F) picks the form: the
+    unstaged form takes any F >= :data:`UNSTAGED_F_MIN`, with the staged
+    form's bits."""
     (n, f), (c, w) = base.shape, cand.shape
+    staged = refine_staged(f) if staged is None else bool(staged)
+    if f < 1 or (f > STAGED_F_MAX if staged else f < UNSTAGED_F_MIN):
+        raise ValueError(f"B6's {'staged' if staged else 'unstaged'} form "
+                         f"does not take F = {f}")
     if old is None:
         keep = min(keep, w * (1 + ke) if graph is not None else w)
         if keep < 1:
@@ -829,13 +873,14 @@ def _refine_launch(base, sq, row0, cand, graph, ke, *, keep=0, old=None,
         out_d = torch.empty((c, k), dtype=base.dtype, device=dev)
     route = refine_route(f, w, ke if graph is not None else 0, keep, k,
                          graph is not None, old is not None,
-                         base.element_size())
+                         base.element_size(), staged)
     # the workspace, freed after the launch (reused only by work queued
     # after it on the stream)
     ws = (torch.empty((c, route.workspace), dtype=torch.uint8, device=dev)
           if route.workspace else None)
-    f64 = kernel_float64(base)
-    kernel = KERNELS["B6_f64"] if f64 else KERNELS["B6"]
+    kid = "B6" + ("" if staged else "u") + (
+        "_f64" if kernel_float64(base) else "")
+    kernel = KERNELS[kid]
     kernel(base.data_ptr(), sq.data_ptr(), n, f, row0, c, cand.data_ptr(), w,
            None if graph is None else graph.data_ptr(),
            0 if graph is None else graph.shape[1], ke, keep,
@@ -844,8 +889,7 @@ def _refine_launch(base, sq, row0, cand, graph, ke, *, keep=0, old=None,
            n_valid, out_i.data_ptr(),
            None if out_d is None else out_d.data_ptr(), _ptr(ws),
            route.workspace)
-    _count_route(f"B6{'_f64' if f64 else ''} "
-                 f"{'workspace' if route.workspace else 'chip'}")
+    _count_route(f"{kid} {'workspace' if route.workspace else 'chip'}")
     return out_i if old is None else (out_i, out_d)
 
 
@@ -864,7 +908,8 @@ def refine_keep(base: torch.Tensor, sq: torch.Tensor, row0: int,
     ``n_valid`` (the sharded refine's mesh padding rows).  Returns (cand,
     bad): on a CPU tensor the plain version's (ids, self/duplicate/padding
     mask); on a CUDA tensor kernel B6's int32 ids (B6_f64's on float64
-    values), -1 where a row had fewer candidates, and None."""
+    values; B6u's / B6u_f64's past :data:`STAGED_F_MAX` features), -1
+    where a row had fewer candidates, and None."""
     if base.device.type == "cpu":
         return refine_keep_plain(base, sq, row0, cand, keep, bad=bad,
                                  graph=graph, ke=ke, compact=compact,
@@ -885,13 +930,14 @@ def refine_final(metric: str, base: torch.Tensor, cache: torch.Tensor,
     at its smallest distance, rows ordered by (distance, id).  ``cand``,
     ``bad``, ``graph``, ``ke`` and ``n_valid`` as :func:`refine_keep`'s.
 
-    Kernel B6 (B6_f64 on float64 values, its distances float64) on a CUDA
+    Kernel B6 (B6_f64 on float64 values, its distances float64; their
+    unstaged forms past :data:`STAGED_F_MAX` features) on a CUDA
     tensor for sqeuclidean and euclidean; the plain version on a CPU
     tensor, and for cosine, whose exact stage is plain
     PyTorch on the card too (the JAX package has no kernel for it); its
     product alone takes ``matmul_dtype`` (the module docstring: B6 keeps
     its float32 bits under bf16 operands)."""
-    if base.device.type == "cpu" or metric == "cosine":
+    if base.device.type == "cpu" or not final_in_kernel(metric):
         return refine_final_plain(metric, base, cache, row0, cand, old_i,
                                   old_d, bad=bad, graph=graph, ke=ke,
                                   compact=compact, n_valid=n_valid,

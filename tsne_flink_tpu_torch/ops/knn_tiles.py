@@ -100,13 +100,9 @@ def refine_workspace_bytes(d: int, k: int, *, sample: int = 8,
                    d, k, sample=sample))
 
 
-def refine_chunk_bytes(c: int, d: int, k: int, *, sample: int = 8,
-                       itemsize: int = 4, workspace: bool = False) -> float:
-    """Working-set bytes of one ``knn_refine`` row chunk under the auto
-    funnel policy, as the JAX model counts it: the candidate id tensors
-    ``[c, 2s(1+ke)]``, the staged-projection gathers and the full-width
-    exact gather of the cascade survivors; with ``workspace`` (the card)
-    also the chunk's B6 workspace (:func:`refine_workspace_bytes`)."""
+def _funnel(d: int, k: int, sample: int):
+    """(candidates a row, the JL and cascade widths, the keeps after each:
+    the JL stage's and the exact stage's rows a row) of the auto funnel."""
     from tsne_flink_tpu_torch.ops.knn import (CASCADE_KEEP, FILTER_KEEP,
                                               FILTER_KEEP_WIDE,
                                               pick_knn_cascade,
@@ -116,16 +112,53 @@ def refine_chunk_bytes(c: int, d: int, k: int, *, sample: int = 8,
     cd = pick_knn_cascade(d)
     ke = (k + 1) // 2 if fd else k
     cand = 2 * s * (1 + ke)
+    keep = exact = cand
+    if fd:
+        keep = exact = min((FILTER_KEEP_WIDE if cd else FILTER_KEEP) * k,
+                           cand)
+        if cd:
+            exact = min(CASCADE_KEEP * k, keep)
+    return s, cand, fd, cd, keep, exact
+
+
+def exact_gather_bytes(c: int, d: int, k: int, *, sample: int = 8,
+                       itemsize: int = 4) -> float:
+    """The JAX count's full-width exact gather of a chunk (the cascade's
+    survivors, the JL stage's, or every candidate, [c, exact, d]): made by
+    the plain exact stage (the CPU's, and cosine's on the card), never by
+    kernel B6."""
+    return float(c * _funnel(d, k, sample)[5] * d * itemsize)
+
+
+def refine_chunk_bytes(c: int, d: int, k: int, *, sample: int = 8,
+                       itemsize: int = 4, workspace: bool = False,
+                       metric: str = "sqeuclidean") -> float:
+    """Working-set bytes of one ``knn_refine`` row chunk under the auto
+    funnel policy, as the JAX model counts it: the candidate id tensors
+    ``[c, 2s(1+ke)]``, the staged-projection gathers and the full-width
+    exact gather of the cascade survivors.  With ``workspace`` (the card)
+    also the chunk's B6 workspace (:func:`refine_workspace_bytes`), and
+    past B6's staged width (``ops/knn_cuda.STAGED_F_MAX``) the exact
+    gather (:func:`exact_gather_bytes`) only where the exact stage makes
+    one: in ``metric`` cosine, whose exact stage is the plain version on
+    the card too (``ops/knn_cuda.final_in_kernel``).  B6 never makes it;
+    counted, it alone would hold the chunk to 64 rows, one block a row on
+    half the card's SMs (at 20,000 x 32,738, k = 90, NVIDIA H100 80GB
+    HBM3: 36.7 us a row in a 64-row chunk against 11.2-13.4 in chunks of
+    256-4,096, ``scripts/wide_features_phase_cuda.py --chunks``).  Up to
+    the staged width the card keeps the JAX count, as its chunks were
+    measured."""
+    from tsne_flink_tpu_torch.ops.knn_cuda import (final_in_kernel,
+                                                   refine_staged)
+    s, cand, fd, cd, keep, _ = _funnel(d, k, sample)
     total = 3.0 * c * cand * itemsize          # ids + ranks + bad masks
     if fd:
-        keep = min((FILTER_KEEP_WIDE if cd else FILTER_KEEP) * k, cand)
         total += c * cand * fd * itemsize      # JL-stage gather [c, cand, fd]
         if cd:
             total += c * keep * cd * itemsize  # cascade gather [c, keep, cd]
-            keep = min(CASCADE_KEEP * k, keep)
-        total += c * keep * d * itemsize       # exact gather
-    else:
-        total += c * cand * d * itemsize       # single-stage exact gather
+    if not (workspace and final_in_kernel(metric) and not refine_staged(d)):
+        total += exact_gather_bytes(c, d, k, sample=sample,
+                                    itemsize=itemsize)
     total += c * 2 * s * k * itemsize          # gateway out-list gather
     if workspace:
         total += c * refine_workspace_bytes(d, k, sample=sample,
@@ -159,12 +192,15 @@ def project_block_group(b: int, d: int, k: int, backend: str,
 # graftlint: disable=policy-recorded -- the resolved plan is printed by
 # the CLI ('# knn tiles:') and returned by prepare (knn_tiles)
 def pick_knn_tiles(n: int, d: int, k: int, backend: str = "cuda",
-                   hbm_bytes: int | None = None) -> KnnTilePlan:
+                   hbm_bytes: int | None = None,
+                   metric: str = "sqeuclidean") -> KnnTilePlan:
     """Analytic tile plan for the kNN stage on ``backend`` (``cuda`` or
     ``cpu``; any other name gets the fallback budget), as the JAX
     function: ``block`` pinned at :data:`MIN_BLOCK`; ``refine_chunk`` the
     CPU's measured 64, grown toward the tile budget elsewhere (on the card
-    counting B6's workspace, so a chunk at large k shrinks); the exact
+    counting B6's workspace, so a chunk at large k shrinks, and the exact
+    gather of ``metric``'s exact stage where it makes one:
+    :func:`refine_chunk_bytes`); the exact
     tiles' ``row_chunk`` sized by the budget (the JAX plan's column block
     has no user here: B1 streams its own column tiles).  A larger budget
     never shrinks a tile."""
@@ -176,7 +212,8 @@ def pick_knn_tiles(n: int, d: int, k: int, backend: str = "cuda",
         ws = backend == "cuda"  # B6's workspace route, where a stage takes it
         while (refine_chunk * 2 <= cap
                and refine_chunk_bytes(refine_chunk * 2, d, k,
-                                      workspace=ws) <= tile_budget):
+                                      workspace=ws, metric=metric)
+               <= tile_budget):
             refine_chunk *= 2
     row_chunk = _pow2_at_most(tile_budget / (max(d, 1) * 4 * 2), 128, 1024)
     return KnnTilePlan(row_chunk=row_chunk, block=block,
@@ -208,7 +245,7 @@ def autotune_knn_tiles(x, k: int, metric: str = "sqeuclidean", *,
     n, d = int(x.shape[0]), int(x.shape[1])
     backend = backend_of(x)
     if plan is None:
-        plan = pick_knn_tiles(n, d, k, backend)
+        plan = pick_knn_tiles(n, d, k, backend, metric=metric)
     ns = int(min(n, AUTOTUNE_ROWS))
     if ns < 2 * MIN_BLOCK or ns <= k + 1:
         return plan

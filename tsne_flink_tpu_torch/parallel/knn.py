@@ -149,7 +149,8 @@ def project_knn_sharded(x_local: torch.Tensor, k: int, n_global: int,
     k = _clamp_k(k, n_global)
     dev, dtype = x_local.device, x_local.dtype
     if block is None:
-        tiles = _resolve_tiles(tiles, n_global, dim, k, backend_of(x_local))
+        tiles = _resolve_tiles(tiles, n_global, dim, k, backend_of(x_local),
+                               metric)
         block = tiles.block
     me, d_ = axis.index, axis.size
     x_full = axis.all_gather(x_local.contiguous())   # [npts, dim]

@@ -114,11 +114,13 @@ class OomLadder:
         p = self.plan
         base = DEFAULT_BUDGET_BYTES.get(p.backend, _FALLBACK_BUDGET)
         before = (self.knn_tiles or pick_knn_tiles(
-            p.n, p.d, p.k, p.backend, hbm_bytes=base >> self.tile_shrinks))
+            p.n, p.d, p.k, p.backend, hbm_bytes=base >> self.tile_shrinks,
+            metric=p.metric))
         self.tile_shrinks += 1
         budget = base >> self.tile_shrinks
         after = replace(pick_knn_tiles(p.n, p.d, p.k, p.backend,
-                                       hbm_bytes=budget), source="override")
+                                       hbm_bytes=budget, metric=p.metric),
+                        source="override")
         self.knn_tiles = after
         return Degradation(
             seq=len(self.degradations), stage=stage,

@@ -354,7 +354,7 @@ def run_plan_from_fit(n: int, d: int, k: int, cfg, assembly: str,
         attraction=cfg.attraction, sym_width=sym_width,
         row_chunk=cfg.row_chunk, mesh=int(mesh),
         fft_grid=cfg.fft_grid, autopilot=bool(cfg.autopilot), name=name,
-        matmul_dtype=matmul_dtype_name(matmul_dtype))
+        matmul_dtype=matmul_dtype_name(matmul_dtype), metric=cfg.metric)
 
 
 def segment_every(iterations: int) -> int:

@@ -267,8 +267,7 @@ def prepare(x=None, *, knn=None, neighbors: int,
     (``knn_rounds``/``knn_refine`` None = the auto policies); the hybrid
     plan draws from ``generator``, or from ``models/tsne.knn_generator
     (seed)`` when only ``seed`` is given (both None: the kNN functions'
-    seeded defaults).  A plan past the kernels' limits raises before the
-    kNN stage runs (``ops/knn.check_knn_limits``), on every device.
+    seeded defaults).
 
     ``cache`` keys both stages' arrays by :func:`prepare_fingerprints`
     (a hybrid plan needs ``seed``, which names its draws, not a bare
@@ -284,7 +283,7 @@ def prepare(x=None, *, knn=None, neighbors: int,
     changes a bit of the result.  ``matmul_dtype`` (None, or
     ``torch.bfloat16``: mixed precision) is the kNN products' operand
     dtype (``ops/knn``), named in the kNN fingerprint."""
-    from tsne_flink_tpu_torch.ops.knn import backend_of, check_knn_limits
+    from tsne_flink_tpu_torch.ops.knn import backend_of
     from tsne_flink_tpu_torch.runtime import faults
 
     if assembly not in ("auto", "sorted", "split", "blocks"):
@@ -305,7 +304,6 @@ def prepare(x=None, *, knn=None, neighbors: int,
             method, rounds, refine = resolve_knn_plan(
                 n, d, knn_method, knn_rounds, knn_refine, k=k,
                 backend=backend_of(x))
-            check_knn_limits(n, d, k, method, refine)
             if generator is None and seed is not None:
                 from tsne_flink_tpu_torch.models.tsne import knn_generator
                 generator = knn_generator(seed, device)
@@ -396,7 +394,8 @@ def _compute_knn(x, k, knn_method, metric, method, refine, *, knn_rounds,
     from tsne_flink_tpu_torch.ops.knn_tiles import (autotune_knn_tiles,
                                                     pick_knn_tiles)
     n, d = x.shape
-    tiles = knn_tiles or pick_knn_tiles(n, d, k, backend_of(x))
+    tiles = knn_tiles or pick_knn_tiles(n, d, k, backend_of(x),
+                                        metric=metric)
     if knn_autotune and knn_tiles is None and method == "project" and refine:
         tiles = autotune_knn_tiles(x, k, metric, plan=tiles)
     subs = {}

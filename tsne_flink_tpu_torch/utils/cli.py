@@ -450,7 +450,8 @@ def run_plan(args, cfg, n: int, d: int, assembly: str, neighbors: int,
         attraction=cfg.attraction, sym_width=args.symWidth,
         row_chunk=cfg.row_chunk, mesh=int(mesh),
         autopilot=bool(cfg.autopilot),
-        matmul_dtype=matmul_dtype_name(operands), name="cli-launch")
+        matmul_dtype=matmul_dtype_name(operands), metric=args.metric,
+        name="cli-launch")
 
 
 def _plan_audit_summary(plan) -> dict:

@@ -57,8 +57,12 @@ def _load_coo(path: str) -> np.ndarray:
 
 def read_input(path: str, dimension: int):
     """COO (point, feature, value) CSV -> (ids [N], dense X [N, dimension]
-    float64)."""
+    float64).  A file written point by point is assembled natively
+    (``native.coo_dense``); any other by numpy, to the same arrays."""
     coo = _load_coo(path)
+    dense = native.coo_dense(coo, dimension)
+    if dense is not None:
+        return dense
     pts = coo[:, 0].astype(np.int64)
     feats = coo[:, 1].astype(np.int64)
     if feats.max() >= dimension:

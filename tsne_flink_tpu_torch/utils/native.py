@@ -23,7 +23,10 @@ import numpy as np
 SRC = Path(__file__).resolve().parent.parent / "native" / "fastcsv.cpp"
 BUILD_DIR = SRC.parent / "build"
 CXX = "g++"
-CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
+CXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread")
+# a parse thread for each PARSE_SLICE_BYTES of file, at most PARSE_THREADS
+PARSE_SLICE_BYTES = 1 << 24
+PARSE_THREADS = 8
 
 
 class NativeBuildError(RuntimeError):
@@ -72,13 +75,23 @@ def build() -> Path:
 def library() -> ctypes.CDLL:
     """The loaded parser library (built on first use)."""
     lib = ctypes.CDLL(str(build()))
-    lib.coo_count_rows.argtypes = [ctypes.c_char_p]
+    lib.coo_count_rows.argtypes = [ctypes.c_char_p, ctypes.c_int]
     lib.coo_count_rows.restype = ctypes.c_longlong
     lib.coo_parse.argtypes = [
         ctypes.c_char_p,
         np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"),
-        ctypes.c_longlong, ctypes.c_int]
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
     lib.coo_parse.restype = ctypes.c_longlong
+    lib.coo_points.argtypes = [
+        np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"),
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int]
+    lib.coo_points.restype = ctypes.c_longlong
+    lib.coo_dense.argtypes = [
+        np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS"),
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+        np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
+        np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")]
+    lib.coo_dense.restype = None
     lib.write_embedding.argtypes = [
         ctypes.c_char_p,
         np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS"),
@@ -88,23 +101,58 @@ def library() -> ctypes.CDLL:
     return lib
 
 
-def load_coo(path: str, cols: int = 3) -> np.ndarray:
+def parse_threads(size: int) -> int:
+    """Threads for a file of ``size`` bytes: one for each PARSE_SLICE_BYTES,
+    at most PARSE_THREADS and the CPUs this process may run on."""
+    cpus = len(os.sched_getaffinity(0))
+    return max(1, min(PARSE_THREADS, cpus, -(-size // PARSE_SLICE_BYTES)))
+
+
+def load_coo(path: str, cols: int = 3, threads: int | None = None
+             ) -> np.ndarray:
     """Parse a numeric CSV of ``cols`` columns into a float64 [rows, cols]
-    array.  Raises :class:`MalformedCsv` on a line the parser refuses,
+    array, the file cut into ``threads`` slices of whole lines parsed at
+    once (default :func:`parse_threads`; the result does not depend on
+    it).  Raises :class:`MalformedCsv` on a line the parser refuses,
     ``FileNotFoundError`` for a missing file, ``ValueError`` for an empty
     one."""
     lib = library()
-    if os.stat(path).st_size == 0:
+    size = os.stat(path).st_size
+    if size == 0:
         raise ValueError(f"{path} is empty")
+    if threads is None:
+        threads = parse_threads(size)
     pathb = os.fsencode(path)
-    rows = lib.coo_count_rows(pathb)
+    rows = lib.coo_count_rows(pathb, threads)
     if rows < 0:
         raise OSError(f"cannot read {path}")
     out = np.empty((rows, cols), np.float64)
-    got = lib.coo_parse(pathb, out, rows, cols)
+    got = lib.coo_parse(pathb, out, rows, cols, threads)
     if got < 0:
         raise MalformedCsv(path, -got - 1)
     return out[:got]
+
+
+def coo_dense(coo: np.ndarray, dimension: int, threads: int | None = None):
+    """(ids [N] int64, x [N, dimension] float64) of a parsed COO ([rows, 3]
+    float64 point, feature, value) whose point ids never decrease and whose
+    ids and features are integers (features below ``dimension``), as a
+    file written point by point gives them: one pass over slices of
+    whole points on ``threads`` threads (default :func:`parse_threads` of
+    its bytes).  ``None`` for any other COO."""
+    if coo.ndim != 2 or coo.shape[1] != 3 or coo.shape[0] == 0:
+        return None
+    coo = np.ascontiguousarray(coo, np.float64)
+    if threads is None:
+        threads = parse_threads(coo.nbytes)
+    lib = library()
+    n = lib.coo_points(coo, coo.shape[0], dimension, threads)
+    if n < 0:
+        return None
+    ids = np.empty(n, np.int64)
+    x = np.zeros((n, dimension), np.float64)
+    lib.coo_dense(coo, coo.shape[0], dimension, threads, ids, x)
+    return ids, x
 
 
 def write_embedding(path: str, ids: np.ndarray, y: np.ndarray) -> None:
