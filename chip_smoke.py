@@ -220,9 +220,10 @@ Phases, in order; any failure exits non-zero before the result line:
    and B5w's against float64 as ``against_f64_at_run``);
 8f. features — more than 12,288 features on a refining project plan,
    where B6 launches its unstaged form (``KERNELS["B6u"]``,
-   ``["B6u_f64"]``: the row read from global memory, not staged in
-   shared memory).  Forced at the blobs' staged widths (F = 128, 784)
-   the unstaged form gives the staged form's bits.  The data: a
+   ``["B6u_f64"]``: the row not staged in shared memory; the chunk's
+   pairs scored over F in slabs that stay in L2).  Forced at the blobs'
+   staged widths (F = 128, 784) the unstaged form holds to its plain
+   version and gives the staged form's ids outside ties.  The data: a
    synthetic stand-in for 10x Genomics' "Fresh 68k PBMCs (Donor A)"
    raw counts (``make_counts``: 20 cell types, ~2% of a row detected,
    log1p per 10,000), 20,000 cells x 32,738 genes densified on the card.
@@ -4412,7 +4413,7 @@ def wide_kernel_gates():
         check(att.kernel_wide_config(m) == (M_NARROW, att.WIDE_DIMS,
                                             att.wide_chunks(m))
               and all(rc.kernel_wide_config(m, f) == (
-                  M_NARROW, rc.WIDE_ROWS_PER_BLOCK, rc.wide_chunk(m, f))
+                  M_NARROW, rc.wide_rows(m, f), rc.wide_chunk(m, f))
                   for f in (False, True)),
               f"[wide] m={m}: the Python geometry is not the kernels'")
     print(f"[wide] the wide forms' geometry (M_NARROW, B2w's rows a block "
@@ -4912,10 +4913,35 @@ def hold_stage_vs_f64(tag, kind, args, kwargs):
     return e_k, e_p, off
 
 
-def unstaged_bits_at_a_staged_width(x_np):
-    """B6's unstaged form forced at F <= 12,288 gives the staged form's
-    bits: the blobs' captured cascade (F = 128) and exact stage (F =
-    784) of a 20,000-row cut, at float32 and float64."""
+def ids_outside_ties(tag, base, sq, rows, got, want):
+    """Slot by slot ``got``'s ids are ``want``'s, but where the two ids'
+    formula d² lie within B6's bar of each other (float32: 2e-5 of the
+    largest; float64: F64_RTOL of |d²| + ‖a‖² + ‖b‖²), a tie two summation
+    orders may break either way.  Returns the slots that differ."""
+    import torch
+    from tsne_flink_tpu_torch.ops.knn_cuda import cand_sqdist_plain
+    sg = cand_sqdist_plain(base, sq, rows, torch.where(got >= 0, got,
+                                                       rows[:, None]))
+    sw = cand_sqdist_plain(base, sq, rows, torch.where(want >= 0, want,
+                                                       rows[:, None]))
+    safe = torch.where(want >= 0, want, rows[:, None]).long()
+    tol = (F64_RTOL * (sw.abs() + sq[rows][:, None] + sq[safe])
+           if base.dtype == torch.float64
+           else torch.full_like(sw, 2e-5 * float(sw.abs().max())))
+    differ = (got != want) & (got >= 0) & (want >= 0)
+    check(torch.equal(got >= 0, want >= 0)
+          and bool(((sg - sw).abs() <= tol)[differ].all()),
+          f"[features] {tag}: ids differ outside ties")
+    return int(differ.sum())
+
+
+def unstaged_forced_at_a_staged_width(x_np):
+    """B6's unstaged form forced at F <= 12,288 on the blobs' captured
+    cascade (F = 128) and exact stage (F = 784) of a 20,000-row cut, at
+    float32 and float64: held against its plain version at B6's bars (or
+    B6_f64's), two launches bit for bit, and its ids the staged form's
+    outside ties.  Its sums run over F in slabs, so its scores are not the
+    staged form's bits."""
     import torch
     from tsne_flink_tpu_torch.ops import knn_cuda as kc
     for dt in (torch.float32, torch.float64):
@@ -4930,18 +4956,28 @@ def unstaged_bits_at_a_staged_width(x_np):
             else:
                 call.update(old=(args[5], args[6]),
                             euclid=args[0] == "euclidean")
-            outs = [kc._refine_launch(base, sq, int(rows[0]), cand,
-                                      kwargs.get("graph"),
-                                      kwargs.get("ke", 0), staged=s,
-                                      **call)
-                    for s in (True, False)]
-            same = all(torch.equal(a, b) for a, b in zip(
-                *(o if isinstance(o, tuple) else (o,) for o in outs)))
-            check(same, f"[features] the unstaged form at F = "
-                  f"{base.shape[1]} ({dt}) differs from the staged form")
-            print(f"[features] B6u{'_f64' if dt == torch.float64 else ''} "
-                  f"forced at F = {base.shape[1]} ({kind} stage): the "
-                  "staged form's bits")
+
+            def launch(staged):
+                out = kc._refine_launch(base, sq, int(rows[0]), cand,
+                                        kwargs.get("graph"),
+                                        kwargs.get("ke", 0), staged=staged,
+                                        **call)
+                return out if isinstance(out, tuple) else (out, None)
+            staged, forced, again = launch(True), launch(False), launch(False)
+            check(all(a is None or torch.equal(a, b)
+                      for a, b in zip(forced, again)),
+                  f"[features] the unstaged form forced at F = "
+                  f"{base.shape[1]} ({dt}): two launches differ")
+            tag = (f"B6u{'_f64' if dt == torch.float64 else ''} forced at "
+                   f"F = {base.shape[1]} ({kind} stage)")
+            hold = hold_stage_f64 if dt == torch.float64 else hold_stage
+            e = hold(tag, kind, args, kwargs, got=forced)
+            if isinstance(e, tuple):
+                e = e[0]
+            off = ids_outside_ties(tag, base, sq, rows, forced[0], staged[0])
+            print(f"[features] {tag}: held against the plain version (max "
+                  f"err {e:.3e}), two launches bit for bit, {off} slots "
+                  "off the staged form's ids, all within a tie")
         del x, chunk
 
 
@@ -5335,8 +5371,9 @@ def features_cli(triples, n, d, y_fit, tmp):
 
 def phase_features(x_np, full=False, routes=True):
     """[features] More than 12,288 features on a refining project plan:
-    B6's unstaged form forced at the blobs' staged widths gives the
-    staged form's bits; on the counts' 20,000-row cut at the full 32,738
+    B6's unstaged form forced at the blobs' staged widths holds to its
+    plain version and gives the staged form's ids outside ties; on the
+    counts' 20,000-row cut at the full 32,738
     features, B6u and B6u_f64 held against their plain versions on a
     captured 64-row refine chunk (float32 also against float64), then on
     the run's own chunks (:func:`hold_run_chunks`: B6u's on the run's x,
@@ -5354,7 +5391,7 @@ def phase_features(x_np, full=False, routes=True):
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="tsne_features_")
     try:
-        unstaged_bits_at_a_staged_width(x_np)
+        unstaged_forced_at_a_staged_width(x_np)
         x, triples, labels, _ = features_data(N_COUNTS_CUT)
         errs, times, bnds = {}, {}, {}
         e32 = features_holds(x, "float32")

@@ -48,7 +48,15 @@ median (min-max) of 3 means of 5-20 launches).  ``--sass`` prints a
 digest of each B2-B5 instance's SASS in the tree's library
 (``cuobjdump -sass``: its instruction lines, the name without the
 anonymous namespace's hash), so two trees' instances can be shown to be
-the same code.  ``--b6`` runs the
+the same code.  ``--b6u`` times B6's unstaged form (B6u and B6u_f64) on the
+exact stage of ``chip_smoke.make_counts``'s 4,096-row refine chunks, every
+chunk of one round captured as the tile plan cuts it, at the 20,000-row
+cut and at the full 68,579 x 32,738 (the ms a chunk over the round's full
+chunks in sequence after an L2 flush, the median (min-max) of 3, and a
+digest of the chunks' outputs).  ``--wide`` times B2w (and B2w_f64) at
+60,000 rows of a seeded 10·N(0, 1) y at m = 16 and 64 (the median
+(min-max) of 3 means of 5 launches, and the output's digest).  ``--b6``
+runs the
 ``[project]`` run and B6's stages alone; ``--b1`` runs B1 alone at
 60,000 x 784 in each class up to k = 1,024 and each form: k = 90 (the
 first class), 300 and 1,024 (the deep class) with 3xTF32, k = 90 with
@@ -81,6 +89,10 @@ def parse():
                     help="B2-B5 alone at m = 1 .. 8, float32 and float64")
     ap.add_argument("--sass", action="store_true",
                     help="a digest of each B2-B5 instance's SASS")
+    ap.add_argument("--b6u", action="store_true",
+                    help="B6u / B6u_f64 on the raw counts' refine chunks")
+    ap.add_argument("--wide", action="store_true",
+                    help="B2w / B2w_f64 at 60,000 x 16 and x 64")
     ap.add_argument("--forms", action="store_true",
                     help="B6's staged form against its unstaged form "
                     "forced, at F = 128, 784 and 12,288")
@@ -381,6 +393,52 @@ def b6_forms(cs, x_np):
     del xw
 
 
+def b6u_chunks(cs):
+    """B6u and B6u_f64 on the exact stage of the raw counts' refine
+    chunks (see the module text): at the cut, then at the full size."""
+    import torch
+    for n in (cs.N_COUNTS_CUT, cs.N_COUNTS):
+        x, _, _, _ = cs.features_data(n)
+        for dt in (torch.float32, torch.float64):
+            xd = x if dt == torch.float32 else x.double()
+            finals = [ch[-1] for ch in cs.capture_refine_chunks(xd, cs.K,
+                                                                None)]
+            c = finals[0][1][4].shape[0]
+            full = [st for st in finals if st[1][4].shape[0] == c]
+            outs = []
+            for st in finals:
+                outs += list(cs.stage_call(*st))
+            ms = [cs.chunks_ms(full) for _ in range(3)]
+            kid = "B6u" + ("_f64" if dt == torch.float64 else "")
+            print(f"[regress] {kid} counts {n} x {x.shape[1]} exact stage: "
+                  f"{spread(ms)} a {c}-row chunk over {len(full)} chunks "
+                  f"({len(finals)} in the round); out {digest(*outs)}")
+            del finals, full, outs
+            if dt == torch.float64:
+                del xd
+            torch.cuda.empty_cache()
+        del x
+        torch.cuda.empty_cache()
+
+
+def wide_b2(cs):
+    """B2w and B2w_f64 at 60,000 rows of a seeded spread y, m = 16 and 64."""
+    import numpy as np
+    import torch
+    from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
+    for m in (16, 64):
+        y0 = 10.0 * np.random.default_rng(m).standard_normal((60_000, m))
+        for dt in (torch.float32, torch.float64):
+            y = torch.from_numpy(y0).to("cuda", dt)
+            out = cuda_exact_repulsion(y, row_z=True)
+            ms = [cs.cuda_ms(lambda: cuda_exact_repulsion(y, row_z=True), 5)
+                  for _ in range(3)]
+            kid = "B2w" + ("_f64" if dt == torch.float64 else "")
+            print(f"[regress] {kid} 60000x{m}: {spread(ms)}; out "
+                  f"{digest(*out)}")
+            del y, out
+
+
 def main():
     args = parse()
     root = os.path.abspath(args.root)
@@ -413,6 +471,12 @@ def main():
         return
     if args.forms:
         b6_forms(cs, x_np)
+        return
+    if args.b6u or args.wide:
+        if args.wide:
+            wide_b2(cs)
+        if args.b6u:
+            b6u_chunks(cs)
         return
     if args.widths:
         widths(cs, att, x_np, cfg)

@@ -800,13 +800,14 @@ def _off_outside_ties(got, want, wd, tol):
     return int((~((got == want) | tied)).sum())
 
 
-def _hold_final(args, kw, exact):
+def _hold_final(args, kw, exact, kid=None):
     """Kernel vs plain on one exact stage: bit-equal where every value is
     exact (lattice data), else the smoke's bars (float32: rtol 2e-5, sets
     >= 0.999; float64: each distance within 1e-12 of |d²| + ‖a‖² + ‖b‖²,
-    squared for euclidean, and the ids equal outside ties)."""
+    squared for euclidean, and the ids equal outside ties).  ``kid``
+    (None: the form F takes) is the form the launches count under."""
     metric, base, sq, row0, _, old_i, old_d = args
-    kid = _b6_form(base)
+    kid = kid or _b6_form(base)
     before = {k: KERNELS[k].launches for k in B6_FORMS}
     gi, gd = refine_final(*args, **kw)
     again = refine_final(*args, **kw)
@@ -838,14 +839,14 @@ def _hold_final(args, kw, exact):
                 .all())
 
 
-def _hold_keep(args, kw, exact):
+def _hold_keep(args, kw, exact, kid=None):
     """Kernel vs plain on one keep stage: the same ids on exact values;
     else each row keeps as many, and the kept sets agree >= 0.999
     (float32) or exactly outside ties at the cut (float64: an id in one
     set alone scores within 1e-12 of |s| + ‖a‖² + ‖b‖² of the plain
-    stage's last kept score)."""
+    stage's last kept score).  ``kid`` as :func:`_hold_final`'s."""
     base, sq, row0, _, keep = args
-    kid = _b6_form(base)
+    kid = kid or _b6_form(base)
     before = KERNELS[kid].launches
     gi, none = refine_keep(*args, **kw)
     assert none is None and gi.dtype == torch.int32
@@ -1067,9 +1068,10 @@ def test_refine_wrapper_refuses_mixed_dtypes(dev):
 
 # ---- B6's unstaged form (features past 12,288) ------------------------------
 
-#: widths past the staged form held: the first, a power of two, and the
-#: widest raw gene-count width (B6u, B6u_f64)
-UNSTAGED_FS = (12_289, 16_384, 32_768)
+#: widths past the staged form held (B6u, B6u_f64): the first, a power
+#: of two and one past it, the raw gene counts' width (32,738) and 32,768;
+#: all but the powers of two end in a partial slab
+UNSTAGED_FS = (12_289, 16_384, 16_385, 32_738, 32_768)
 
 
 def _wide_problem(dev, n, f, k, seed, dtype):
@@ -1184,41 +1186,141 @@ def test_unstaged_first_exact_stage_matches_plain_on_its_workspace(dev, f,
     assert _route_count(f"{kid} workspace") == before + 2 * per
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_unstaged_form_forced_at_a_staged_width_gives_its_bits(dev, dtype):
-    """The unstaged form at F <= 12,288 gives the staged form's bits on the
-    same stage (the same lanes, fma order and butterfly): a first keep
-    stage (F = 128), the exact stage after it (F = 784) and at F =
-    12,288, on chip; a first exact stage at k = 1,500 (F = 64) on the
-    workspace route.  Each launch counted under its own form."""
-    from tsne_flink_tpu_torch.ops.knn_cuda import _refine_launch
-    sfx = "_f64" if dtype == torch.float64 else ""
+def _same_outside_ties(base, sq, row0, got, want, sqr=1):
+    """Slot by slot, ``got``'s ids are ``want``'s, but where the two ids'
+    formula distances (squared: ``sqr`` 2 for euclidean lists) lie within
+    the B6 bar of each other: a tie the two forms' sums may order either
+    way (float32: 2e-5 of the largest; float64: 1e-12 of |d²| + ‖a‖² +
+    ‖b‖²)."""
+    rows = torch.arange(row0, row0 + got.shape[0], device=got.device)
+    sg = cand_sqdist_plain(base, sq, rows, torch.where(got >= 0, got,
+                                                       rows[:, None]))
+    sw = cand_sqdist_plain(base, sq, rows, torch.where(want >= 0, want,
+                                                       rows[:, None]))
+    if base.dtype == torch.float64:
+        tol = _f64_tol(sq, rows, want, sw)
+    else:
+        tol = torch.full_like(sw, 2e-5 * float(sw.abs().max()))
+    differ = (got != want) & (got >= 0) & (want >= 0)
+    assert torch.equal(got >= 0, want >= 0)
+    assert bool(((sg - sw).abs() <= tol)[differ].all())
+    return int(differ.sum())
 
-    def both(*args, **kw):
-        before = (KERNELS["B6" + sfx].launches,
-                  KERNELS["B6u" + sfx].launches)
-        staged = _refine_launch(*args, **kw)
-        unstaged = _refine_launch(*args, staged=False, **kw)
-        assert (KERNELS["B6" + sfx].launches - before[0],
-                KERNELS["B6u" + sfx].launches - before[1]) == (1, 1)
-        for a, b in zip(*(o if isinstance(o, tuple) else (o,)
-                          for o in (staged, unstaged))):
-            assert torch.equal(a, b)
-        return staged
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_unstaged_form_forced_at_a_staged_width_gives_its_bits(dev, dtype,
+                                                               monkeypatch):
+    """The unstaged form forced at F <= 12,288, on the staged form's own
+    stages — a first keep stage (F = 128), the exact stage after it (F =
+    784) and at F = 12,288, on chip; a first exact stage at k = 1,500 (F =
+    64) on the workspace route with n_valid: each against its plain
+    version at the B6 bars, two launches bit for bit, counted under the
+    unstaged form, and its ids the staged form's outside ties.  Its sums
+    run over F in slabs, so its scores are not the staged form's bits."""
+    from tsne_flink_tpu_torch.ops import knn_cuda as tkc
+    uid = "B6u" + ("_f64" if dtype == torch.float64 else "")
+
+    def staged(*args, **kw):
+        out = tkc._refine_launch(*args, staged=True, **kw)
+        return out if isinstance(out, tuple) else (out,)
+
     n, k, ke = 2000, 90, 45
     x, sq, graph, dist, gates = _refine_problem(dev, n, 784, k, 200, 7,
                                                 dtype=dtype)
     proj = (x[:, :128] * 2.0).contiguous()
     psq = torch.sum(proj * proj, dim=1)
-    kept = both(proj, psq, 0, gates, graph, ke, keep=270)
-    both(x, sq, 0, kept, None, 0, old=(graph[:200], dist[:200]))
-    x, sq, graph = _wide_problem(dev, 600, 12_288, 270, 5, dtype)
-    old = _old_lists("euclidean", x, sq, 0, graph[:64, ::3].contiguous())
-    both(x, sq, 0, graph[:64], None, 0, old=old, euclid=True)
-    x, sq, graph, dist, gates = _refine_problem(dev, 2100, 64, 1500, 48, 11,
-                                                dtype=dtype)
-    both(x, sq, 0, gates, graph, 1500, old=(graph[:48], dist[:48]),
-         n_valid=2060)
+    s_keep = staged(proj, psq, 0, gates, graph, ke, keep=270)[0]
+    s_fin = staged(x, sq, 0, s_keep, None, 0, old=(graph[:200], dist[:200]))
+    w, wsq, wg = _wide_problem(dev, 600, 12_288, 270, 5, dtype)
+    w_old = _old_lists("euclidean", w, wsq, 0, wg[:64, ::3].contiguous())
+    s_w = staged(w, wsq, 0, wg[:64], None, 0, old=w_old, euclid=True)
+    b, bsq, bgraph, bdist, bgates = _refine_problem(dev, 2100, 64, 1500, 48,
+                                                    11, dtype=dtype)
+    s_b = staged(b, bsq, 0, bgates, bgraph, 1500,
+                 old=(bgraph[:48], bdist[:48]), n_valid=2060)
+    monkeypatch.setattr(tkc, "refine_staged", lambda f: False)
+    kept = _hold_keep((proj, psq, 0, gates, 270), dict(graph=graph, ke=ke),
+                      False, kid=uid)
+    _same_outside_ties(proj, psq, 0, kept, s_keep)
+    _hold_final(("sqeuclidean", x, sq, 0, s_keep, graph[:200], dist[:200]),
+                {}, False, kid=uid)
+    gi = tkc._refine_launch(x, sq, 0, s_keep, None, 0,
+                            old=(graph[:200], dist[:200]), staged=False)[0]
+    _same_outside_ties(x, sq, 0, gi, s_fin[0])
+    _hold_final(("euclidean", w, wsq, 0, wg[:64], *w_old), {}, False,
+                kid=uid)
+    gi = tkc._refine_launch(w, wsq, 0, wg[:64], None, 0, old=w_old,
+                            euclid=True, staged=False)[0]
+    _same_outside_ties(w, wsq, 0, gi, s_w[0])
+    _hold_final(("sqeuclidean", b, bsq, 0, bgates, bgraph[:48], bdist[:48]),
+                dict(graph=bgraph, ke=1500, n_valid=2060), False, kid=uid)
+    gi = tkc._refine_launch(b, bsq, 0, bgates, bgraph, 1500,
+                            old=(bgraph[:48], bdist[:48]), n_valid=2060,
+                            staged=False)[0]
+    _same_outside_ties(b, bsq, 0, gi, s_b[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_unstaged_rows_past_2_31_over_f_match_plain(dev, dtype):
+    """An exact-stage chunk at F = 32,738 whose rows lie past 2^31 / F
+    (their element offsets pass int32), its candidates below and past it:
+    B6u / B6u_f64 against their plain versions."""
+    f, k, c = 32_738, 90, 32
+    row0 = 2 ** 31 // f + 3
+    n = row0 + c + 64
+    g = torch.Generator(device=dev)
+    g.manual_seed(31)
+    x = torch.rand((n, f), generator=g, device=dev, dtype=dtype)
+    sq = torch.sum(x * x, dim=1)
+    rows = torch.arange(row0, row0 + c, device=dev)
+    offs = torch.randperm(n - 1, generator=g, device=dev)[:3 * k] + 1
+    cand = ((rows[:, None] + offs[None, :]) % n).to(torch.int32)
+    old_i, old_d = _old_lists("sqeuclidean", x, sq, row0,
+                              cand[:, :3 * k:3].contiguous())
+    cand[::5, 250:] = -1
+    assert int(row0) * f >= 2 ** 31
+    _hold_unstaged(("sqeuclidean", x, sq, row0, cand.contiguous(), old_i,
+                    old_d), {})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_unstaged_rows_keep_their_bits_in_any_chunk(dev, dtype):
+    """A row's outputs are the same bits whether its chunk holds 64 rows
+    or 4,096 (B6u's score pass walks the same slabs in the same order for
+    every pair): the exact stage on a list at F = 16,385 and a first exact
+    stage from gateways at F = 12,289."""
+    from tsne_flink_tpu_torch.ops.knn_cuda import _refine_launch
+    c, k = 4096, 90
+    x, sq, graph = _wide_problem(dev, 4200, 16_385, 3 * k, 17, dtype)
+    cand = graph[:c].clone()
+    cand[::7, 200:] = -1
+    olds = [_old_lists("euclidean", x, sq, r0,
+                       graph[r0:r0 + 256, ::3].contiguous())
+            for r0 in range(0, c, 256)]
+    old = tuple(torch.cat([o[j] for o in olds]) for j in (0, 1))
+    full = _refine_launch(x, sq, 0, cand, None, 0, old=old, euclid=True)
+    for r0 in range(0, c, 64):
+        part = _refine_launch(x, sq, r0, cand[r0:r0 + 64].contiguous(),
+                              None, 0, old=(old[0][r0:r0 + 64].contiguous(),
+                                            old[1][r0:r0 + 64].contiguous()),
+                              euclid=True)
+        assert torch.equal(part[0], full[0][r0:r0 + 64])
+        assert torch.equal(part[1], full[1][r0:r0 + 64])
+    del x, sq, graph, cand, olds, old, full
+    x, sq, graph = _wide_problem(dev, 4200, 12_289, k, 18, dtype)
+    gates = torch.from_numpy(np.random.default_rng(18).integers(
+        0, 4200, (c, 16)).astype(np.int32)).to(dev)
+    gates[:, 0] = torch.arange(c, device=dev, dtype=torch.int32)
+    dist = torch.full((c, k), math.inf, device=dev, dtype=dtype)
+    ids = torch.full((c, k), -1, device=dev, dtype=torch.int32)
+    full = _refine_launch(x, sq, 0, gates, graph, k // 2, old=(ids, dist))
+    for r0 in range(0, c, 64):
+        part = _refine_launch(x, sq, r0, gates[r0:r0 + 64].contiguous(),
+                              graph, k // 2,
+                              old=(ids[r0:r0 + 64].contiguous(),
+                                   dist[r0:r0 + 64].contiguous()))
+        assert torch.equal(part[0], full[0][r0:r0 + 64])
+        assert torch.equal(part[1], full[1][r0:r0 + 64])
 
 
 def test_unstaged_wrapper_refuses_what_its_form_does_not_take(dev):
@@ -2511,6 +2613,28 @@ def test_wide_repulsion_matches_plain(dev, n, m, dtype):
     assert got == {kid: 2, "B2": 0, "B2_f64": 0}
 
 
+@pytest.mark.parametrize("m", [16, 64])
+def test_wide_repulsion_far_from_the_origin_holds_to_float64(dev, m):
+    """B2w on rows far from the origin (y = 1e3 + 10·N(0, 1)): against a
+    float64 evaluation its force and Z err at most twice the plain float32
+    version's own (it forms each difference y_i − y_j from the
+    coordinates, as the plain version does; the norm trick would cancel
+    here), and it holds to the plain version at rtol 2e-5 of the max."""
+    rng = np.random.default_rng(1000 + m)
+    n = 6007
+    y = torch.from_numpy(1e3 + 10.0 * rng.standard_normal((n, m))).to(
+        dev, torch.float32)
+    rk, zk = cuda_exact_repulsion(y, row_z=True)
+    chunk = max(64, 16384 // m)
+    rp, zp = exact_repulsion(y, row_z=True, row_chunk=chunk)
+    r64, z64 = exact_repulsion(y.double(), row_z=True, row_chunk=chunk)
+    for got, plain, want in ((rk, rp, r64), (zk, zp, z64)):
+        ek = float((got.double() - want).abs().max())
+        ep = float((plain.double() - want).abs().max())
+        assert ek <= 2.0 * ep, (m, ek, ep)
+        _close_scaled(got, plain, 2e-5)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_wide_repulsion_shard_is_the_mesh_1_rows(dev, dtype):
     """At m = 16 a row shard with a column mask, at the canonical split
@@ -2694,9 +2818,9 @@ def test_wide_widths_run_through_each_route(dev, tmp_path, m, dtype):
 
 def test_wide_geometry_mirrors_the_kernels(dev):
     """The wide forms' geometry the Python side mirrors for the memory
-    model (M_NARROW, B2w's rows a block and force chunk, B3w-B5w's dims
-    a chunk and chunks) equals what the kernel library states, at every
-    m = 1 .. 520 and both dtypes."""
+    model (M_NARROW, B2w's rows a block and the dims its force takes at
+    once, B3w-B5w's dims a chunk and chunks) equals what the kernel
+    library states, at every m = 1 .. 520 and both dtypes."""
     from tsne_flink_tpu_torch.kernels.build import M_NARROW
     from tsne_flink_tpu_torch.ops import attraction_cuda as att
     from tsne_flink_tpu_torch.ops import repulsion_cuda as rc
@@ -2705,7 +2829,7 @@ def test_wide_geometry_mirrors_the_kernels(dev):
                                              att.wide_chunks(m))
         for f64 in (False, True):
             assert rc.kernel_wide_config(m, f64) == (
-                M_NARROW, rc.WIDE_ROWS_PER_BLOCK, rc.wide_chunk(m, f64))
+                M_NARROW, rc.wide_rows(m, f64), rc.wide_chunk(m, f64))
 
 
 def test_wide_mesh_equals_mesh_1(dev):

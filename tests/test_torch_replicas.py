@@ -496,6 +496,67 @@ def test_daemon_sheds_bulk_before_express(tmp_path, sched):
             "r0" + quorum.BEAT_SUFFIX])
 
 
+def test_slow_healthy_tick_keeps_its_beat_fresh(tmp_path, monkeypatch):
+    """A replica whose ticks run past ``stale_ms`` while they make progress
+    (each bucket's dispatch made 0.4 s slow, two buckets a tick, stale_ms
+    700) beats after each step, so its beat stays younger than
+    ``stale_ms`` throughout: the supervisor's hung triage (a live pid
+    whose beat is older than stale_ms) never finds it hung, and it serves
+    every request bit for bit.  The beat's ``seq`` still counts ticks."""
+    import threading
+    import time
+
+    from tsne_flink_tpu_torch.obs.trace import walltime
+    from tsne_flink_tpu_torch.serve import daemon as tdaemon
+    model, rng = _small_model()
+    spool = str(tmp_path / "spool")
+    os.makedirs(spool)
+    queries = {f"s{i}": rng.standard_normal((BUCKET, 6)).astype(np.float32)
+               for i in range(4)}
+    for rid, q in queries.items():
+        submit(spool, q, rid)
+    real = tdaemon.dispatch_bucket
+
+    def slow(*args, **kwargs):
+        time.sleep(0.4)
+        return real(*args, **kwargs)
+    monkeypatch.setattr(tdaemon, "dispatch_bucket", slow)
+    stale_ms = 700.0
+    d = ServeDaemon(model, spool, bucket=BUCKET, iters=2, tick_s=0.001,
+                    sched="on", replica="r0", stale_ms=stale_ms)
+    ticks, ages, stop = [], [], threading.Event()
+    tick = d._sched_tick
+
+    def timed_tick():
+        t0 = time.perf_counter()
+        out = tick()
+        ticks.append(time.perf_counter() - t0)
+        return out
+    d._sched_tick = timed_tick
+
+    def watch():
+        while not stop.is_set():
+            beat = quorum.read_beat(spool, "r0")
+            if beat is not None:
+                ages.append(walltime() - float(beat["t"]))
+            time.sleep(0.005)
+    watcher = threading.Thread(target=watch)
+    watcher.start()
+    try:
+        summary = d.serve_forever(max_ticks=4)
+    finally:
+        stop.set()
+        watcher.join()
+    assert summary["served"] == len(queries)
+    assert max(ticks) > stale_ms / 1e3
+    assert ages and max(ages) < stale_ms / 1e3, max(ages)
+    assert quorum.read_beat(spool, "r0")["seq"] == 4
+    for rid, q in queries.items():
+        np.testing.assert_array_equal(
+            read_result(spool, rid),
+            transform(model, q, bucket=BUCKET, iters=2))
+
+
 def test_daemon_summary_keys_equal_jax(tmp_path):
     """The port daemon's summary carries every key of the JAX one."""
     from tsne_flink_tpu.serve.daemon import ServeDaemon as JDaemon

@@ -28,6 +28,7 @@ Here, on the same seeded numpy inputs:
   are summed a row block at a time.
 """
 
+import ctypes
 from dataclasses import replace
 
 import jax
@@ -257,6 +258,43 @@ def test_unstaged_layouts_and_routes(itemsize, d):
         assert row > tkc.REFINE_SMEM_MAX
 
 
+@pytest.mark.parametrize("itemsize", [4, 8])
+def test_unstaged_scratch_is_charged_where_the_chunk_is_planned(itemsize):
+    """B6u's passes share a scratch a chunk row (``Scratch`` in
+    csrc/knn_cand.cu: a first stage's count and candidate ids, a double
+    sum and a score a candidate), which the tile plan's workspace and the
+    memory model's ``b6_workspace`` count beside the route's workspace for
+    the unstaged stages alone: ~3.3 KB a row in the counts' exact stage (k
+    = 90, 270 candidates), nothing up to the staged width."""
+    from tsne_flink_tpu_torch.analysis.audit.hbm import stage_terms
+    from tsne_flink_tpu_torch.analysis.audit.plan import PlanConfig
+    a16 = lambda b: (b + 15) // 16 * 16  # noqa: E731
+    for w, ke, build in ((270, 0, False), (16, 45, True), (16, 1500, True),
+                         (4500, 0, False), (7, 3, True)):
+        z = w * (1 + ke) if build else w
+        want = ((16 + a16(4 * z) if build else 0) + a16(8 * z)
+                + a16(itemsize * z))
+        assert tkc.refine_scratch_bytes(w, ke, build, itemsize) == want
+    assert tkc.refine_scratch_bytes(270, 0, False, 4) == 3248
+    for d, k in ((32_738, 90), (12_289, 1500), (784, 90),
+                 (tkc.STAGED_F_MAX, 90)):
+        stages = tknn.refine_stages(d, k)
+        want = max(tkc.refine_route(f, w, ke, keep, k, build, final,
+                                    itemsize).workspace
+                   + (0 if tkc.refine_staged(f) else
+                      tkc.refine_scratch_bytes(w, ke, build, itemsize))
+                   for f, w, ke, keep, build, final in stages)
+        assert ttiles.refine_workspace_bytes(d, k, itemsize=itemsize) == want
+        assert (want > 0) == (not tkc.refine_staged(d) or k > tkc.K_REG_MAX)
+    n, d = 68_579, 32_738
+    knn = stage_terms(PlanConfig(
+        n=n, d=d, k=90, backend="cuda", knn_method="project", knn_refine=7,
+        dtype="float32" if itemsize == 4 else "float64"))["knn"]
+    c = ttiles.pick_knn_tiles(n, d, 90, "cuda").refine_chunk
+    assert knn["b6_workspace"] == c * tkc.refine_scratch_bytes(270, 0, False,
+                                                              itemsize)
+
+
 def test_card_chunk_leaves_out_the_gather_b6_never_makes():
     """On the card the refine chunk past the staged width is sized without
     the JAX count's exact gather (B6 reads the rows it scores): 4,096 rows
@@ -335,8 +373,11 @@ def test_registry_and_recorder_name_the_unstaged_form():
     for sfx, t in (("", "f32"), ("_f64", "f64")):
         k = kbuild.KERNELS["B6u" + sfx]
         assert k.symbol == f"tsne_refine_chunk_unstaged_{t}"
-        assert kbuild.SIGNATURES[k.symbol] == kbuild.SIGNATURES[
-            f"tsne_refine_chunk_{t}"]
+        # the staged form's operands, then the scratch its passes share
+        # (a pointer and its bytes a row), then the stream
+        staged = kbuild.SIGNATURES[f"tsne_refine_chunk_{t}"]
+        assert kbuild.SIGNATURES[k.symbol] == staged[:-1] + [
+            ctypes.c_void_p, ctypes.c_size_t, ctypes.c_void_p]
         f64 = bool(sfx)
         assert kbuild.form_id("B6", f64, D_PAST) == "B6u" + sfx
         assert kbuild.form_id("B6", f64, tkc.STAGED_F_MAX) == "B6" + sfx

@@ -401,7 +401,9 @@ def _port_knn(plan: PlanConfig, terms: dict) -> None:
             jax_chunk = PIPELINE_FACTOR * refine_chunk_bytes(c, d, k,
                                                              itemsize=isz)
             # a stage on B6's workspace route (past ~k = 1,100) adds its
-            # chunk's workspace, one stage's at a time
+            # chunk's workspace, and a stage of its unstaged form (past
+            # 12,288 features) the scratch its passes share, one stage's
+            # at a time
             terms["b6_workspace"] = float(
                 min(c, n) * refine_workspace_bytes(d, k, itemsize=isz))
             terms["exact_gather"] = (

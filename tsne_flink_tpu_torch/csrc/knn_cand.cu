@@ -109,28 +109,48 @@
 // the on-chip one cannot hold the stage.
 //
 // The unstaged form (B6u, B6u_f64: tsne_refine_chunk_unstaged_f32/_f64),
-// for rows wider than STAGED_F_MAX = 12,288 values.  The staged form keeps
-// the chunk row's F values in shared memory (rvec: 48 KB at float32, 96 KB
-// at float64 at that width) beside the stage's other arrays; at F = 32,768
-// and float64 the row alone (256 KB) is past the 227 KB a block may have,
-// so no route of the staged form takes it.  The unstaged form is the same
-// kernel under a template flag: the scoring loop reads the row as
-// __ldg(bi + q) where the staged form reads rvec[q] — the same lanes, the
-// same fma order, the same butterfly, so for a given F both forms give the
-// same bits — and its layouts (Layout, WsLayout) hold no rvec; every other
-// array is where the staged form keeps it, and a stage takes the on-chip
-// or the workspace route by what those arrays need.  Its groups are warps
-// (LANES = 32: F > 12,288 > WIDE_F).  Where the row comes from: the eight
-// warps of a block read one row's segment at nearly the same q, so a line
-// fetched from L2 for one warp serves the others from L1 while they stay
-// close.  The row itself does not fit in L1 (an SM's 256 KB of L1 and
-// shared memory, less the blocks' shared memory: a few KB a block in the
-// exact stage at k = 90, so nearly all of it is L1, shared by up to eight
-// resident blocks' rows and their candidates' lines), so each pass of a
-// warp over a pair of candidates reads the row again, from L1 or L2: at
-// most half the candidates' bytes more L2 traffic, and none more from
-// device memory (the chunk's rows, 128-256 KB each, stay in L2 while their
-// blocks run).  The bound is the staged form's: the distinct rows' bytes.
+// for rows wider than STAGED_F_MAX = 12,288 values, where the staged
+// form's row vector (rvec: 48 KB at float32, 96 KB at float64 at that
+// width) no longer fits beside the stage's other arrays.
+// What bounds it: bytes.  At 68,579 x 32,738 raw counts (k = 90) a
+// 4,096-row exact-stage chunk scores 4,096 x 270 pairs whose candidates
+// are 48,140 distinct rows of 131 KB: 6.30 GB, 1.885 ms at 3.35 TB/s.  A
+// design that scores a pair at a time over its whole row (as the staged
+// form does) makes the chunk's resident pairs touch ~1,000 rows of 131
+// KB at once, far past the 50 MB L2, so each pair reads its candidate
+// from device memory: 144.8 GB a chunk, each distinct row ~23 times.
+// The design: three launches a stage, each reading only what it needs.
+// - The build pass (a first stage only): refine_kernel with
+//   Workspace::build_only builds the rows' candidates as the staged form
+//   does and writes them, and their count, to the row's Scratch.
+// - The score pass (score_kernel): one wave of blocks, every block
+//   resident at once, each owning a contiguous run of the chunk's rows
+//   and every pair of them, walks F in slabs of SLAB_BYTES (64 floats, 32
+//   doubles) in the same order: a slab of the block's rows is staged in
+//   shared memory, a warp reads a candidate's slab at once (one 8-byte
+//   load a lane where the rows allow it) for 8 pairs at a time, and one
+//   transposing butterfly sums the 8 pairs' products over the lanes; the
+//   pair's running sum, a double, is kept in the block's shared memory
+//   (or, past 64 KB of them, in the Scratch).  At one time the card
+//   holds a slab or two of the chunk's distinct candidates (48,140 x 256
+//   B = 12.3 MB) beside the rows' slab (1 MB): all of it in L2, so each
+//   candidate row's bytes come from device memory once a chunk, and every
+//   later pair reads them from L2 (counted: 6.30 GB of rows + 0.54 GB of
+//   the chunk rows' slabs + ~0.02 GB of scores a chunk, against 144.8
+//   GB).  After the last slab the pair's score is formed as the staged
+//   form forms it,
+//   combine(sq_i, sq_j, g) (sqrt for euclidean in the exact stage), with
+//   g the double sum rounded once to the scalar type.
+// - The select pass: refine_kernel with STAGED = false reads the
+//   candidates (the list, or the build pass's) and the scores from the
+//   Scratch and selects and merges exactly as the staged form does, on
+//   chip or on the workspace route by what its arrays need (Layout and
+//   WsLayout hold no rvec).
+// A pair's score is the same operations in the same order whatever chunk
+// or block it lands in, so a row's outputs do not depend on the chunk,
+// and two launches give the same bits.  The summation order is not the
+// staged form's, so at a width both take the two forms agree to the B6
+// bars and in their ids outside ties, not bit for bit.
 #include "common.cuh"
 
 namespace {
@@ -142,6 +162,8 @@ constexpr int SORT_MAX = 8192;      // keys a row sorts: keep, or 2k in FINAL mo
 constexpr int BINS = 256;           // radix-select digit: one byte
 constexpr size_t SMEM_MAX = 232448; // what a block may opt in to on sm_90
 constexpr int STAGED_F_MAX = 12288; // the widest row the staged form keeps
+constexpr int SLAB_BYTES = 256;     // the unstaged form's score pass: a slab
+constexpr int SCORE_LANES = 8;      // lanes a pair in the score pass
 
 template <class T>
 struct Params {
@@ -163,10 +185,14 @@ struct Params {
 
 // The workspace route's device memory: ``row`` bytes for each of the c
 // rows (a kernel argument of its own, after Params, which the on-chip
-// route leaves unread)
+// route leaves unread); the unstaged form's Scratch, ``srow`` bytes a row,
+// and its build pass
 struct Workspace {
   unsigned char* base;
   size_t row;
+  unsigned char* scratch;
+  size_t srow;
+  int build_only;
 };
 
 // The selection key of a score and its tie, ordered as (score, tie): one
@@ -356,6 +382,23 @@ struct WsLayout {
     const size_t after = 2 * sort + sizeof(T) * (size_t)zcap;
     at += align16(table > after ? table : after);
     row = at;
+  }
+};
+
+// The unstaged form's device memory for each chunk row: the count and
+// ids of a first stage's candidates (its build pass writes them), the
+// score pass's running sums (double) and the finished scores.
+template <class T>
+struct Scratch {
+  size_t cnt, ids, acc, scores, bytes;
+  __host__ __device__ Scratch(int w, int ke, bool build) {
+    const size_t zcap = build ? (size_t)w * (1 + ke) : (size_t)w;
+    size_t at = 0;
+    cnt = at;    at += build ? 16 : 0;
+    ids = at;    at += build ? align16(sizeof(int) * zcap) : 0;
+    acc = at;    at += align16(sizeof(double) * zcap);
+    scores = at; at += align16(sizeof(T) * zcap);
+    bytes = at;
   }
 };
 
@@ -562,8 +605,10 @@ __device__ void radix_threshold(KeyOf key_of, Valid valid, int nz, int want,
   }
 }
 
-// STAGED: the row's vector in shared memory (rvec); otherwise the scoring
-// loop reads it from global memory (the unstaged form, any F)
+// STAGED: the row's vector in shared memory (rvec) and the scores computed
+// here; otherwise (the unstaged form, any F) the build pass (BUILD and
+// ws.build_only: step 1 alone, into the Scratch) or the select pass, which
+// reads its candidates and scores from the Scratch (the score pass's)
 template <class T, bool BUILD, bool FINAL, int LANES, bool WS, bool STAGED>
 __global__ void __launch_bounds__(THREADS)
 refine_kernel(const Params<T> p, const Workspace ws) {
@@ -585,6 +630,16 @@ refine_kernel(const Params<T> p, const Workspace ws) {
   const int tid = threadIdx.x;
   const int r = blockIdx.x;
   const int i = p.row0 + r;
+  // the unstaged form's Scratch: a first stage's candidates (the build
+  // pass writes them there), the scores the score pass left
+  int* sc_cnt = nullptr;
+  if constexpr (!STAGED) {
+    const Scratch<T> SC(p.w, p.ke, BUILD);
+    unsigned char* sc = ws.scratch + (size_t)r * ws.srow;
+    sc_cnt = reinterpret_cast<int*>(sc + SC.cnt);
+    if constexpr (BUILD) ids = reinterpret_cast<int*>(sc + SC.ids);
+    scores = reinterpret_cast<T*>(sc + SC.scores);
+  }
 
   const T* __restrict__ bi = p.base + (size_t)i * p.f;
   if constexpr (STAGED)
@@ -601,7 +656,11 @@ refine_kernel(const Params<T> p, const Workspace ws) {
 
   // 1. the row's candidates
   int nz;
-  if constexpr (BUILD) {
+  if (!STAGED && BUILD && !ws.build_only) {
+    nz = *sc_cnt;  // the build pass's
+    if (tid == 0) misc[M_COUNT] = nz;
+    __syncthreads();
+  } else if constexpr (BUILD) {
     int* table = reinterpret_cast<int*>(big + L.region);
     const int* gates = reinterpret_cast<const int*>(smem + L.gates);
     const int total = p.w * (1 + p.ke);
@@ -633,6 +692,10 @@ refine_kernel(const Params<T> p, const Workspace ws) {
     }
     __syncthreads();
     nz = misc[M_COUNT];
+    if constexpr (!STAGED) {  // the build pass ends here
+      if (tid == 0) *sc_cnt = nz;
+      return;
+    }
   } else {
     int mine = 0;
     for (int t = tid; t < p.w; t += THREADS) {
@@ -646,12 +709,15 @@ refine_kernel(const Params<T> p, const Workspace ws) {
     nz = p.w;
   }
 
-  // 2. scores: LANES lanes a candidate, each summing a strided part of F,
+  // 2. scores (the staged form; the unstaged form's are the score
+  // pass's): LANES lanes a candidate, each summing a strided part of F,
   // a butterfly within the group adding the parts; two candidates a group
   // at a time, so that twice the loads are in flight
+  // root, sq_i and bi stay at function scope: moved into the staged
+  // form's block they change ptxas's code for its on-chip exact stages
   const bool root = FINAL && p.euclid;
   const T sq_i = p.sq[i];
-  {
+  if constexpr (STAGED) {
     constexpr int GROUPS = THREADS / LANES;
     const int lane = tid % LANES;
     const int group = tid / LANES;
@@ -665,9 +731,7 @@ refine_kernel(const Params<T> p, const Workspace ws) {
       T ga = T(0), gb = T(0);
 #pragma unroll 4
       for (int q = lane; q < p.f; q += LANES) {
-        T rq;
-        if constexpr (STAGED) rq = rvec[q];
-        else rq = __ldg(bi + q);
+        const T rq = rvec[q];
         ga = tsne::Num<T>::fma(rq, __ldg(ba + q), ga);
         gb = tsne::Num<T>::fma(rq, __ldg(bb + q), gb);
       }
@@ -785,6 +849,119 @@ refine_kernel(const Params<T> p, const Workspace ws) {
   }
 }
 
+// The unstaged form's score pass: every pair (chunk row r, candidate t)
+// of the stage, blocks of rpb consecutive rows, every block resident at
+// once; F walked in slabs of S values in the same order by every block
+// (see the header).  A group of SCORE_LANES lanes takes a pair's slab: lane
+// l sums base_i[q]·base_j[q] over q = V·l + 8V·u + e (u = 0 .. PER/V − 1,
+// e = 0 .. V − 1, V = 8 / sizeof(T)) in that order, reading its V values
+// as one 8-byte load where the rows allow it (VEC: float32 rows of an even
+// F) and one by one otherwise (the same sums either way); a butterfly
+// adds the lanes, and the group's lane 0 adds the slab to the pair's
+// double sum, held in shared memory for the block's pairs (acc_on_chip)
+// or else in the Scratch; after the last slab it writes the pair's score.
+template <class T, bool BUILD, bool VEC>
+__global__ void __launch_bounds__(THREADS)
+score_kernel(const Params<T> p, const Workspace ws, int rpb,
+             int acc_on_chip) {
+  constexpr int S = SLAB_BYTES / sizeof(T);  // values a slab
+  constexpr int V = 8 / sizeof(T);           // values a lane loads at once
+  constexpr int PER = S / SCORE_LANES;       // values a lane
+  constexpr int GROUPS = THREADS / SCORE_LANES;
+  static_assert(!VEC || V == 2, "VEC: float32 pairs");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int zc = BUILD ? p.w * (1 + p.ke) : p.w;
+  T* rows = reinterpret_cast<T*>(smem);                     // [rpb][S]
+  int* nzs = reinterpret_cast<int*>(smem + align16(sizeof(T) * rpb * S));
+  double* sacc = reinterpret_cast<double*>(
+      smem + align16(sizeof(T) * rpb * S) + align16(4 * (size_t)rpb));
+  const Scratch<T> SC(p.w, p.ke, BUILD);
+  const int r0 = blockIdx.x * rpb;
+  const int nr = min(rpb, p.c - r0);
+  const int lane = threadIdx.x % SCORE_LANES;
+  const int group = threadIdx.x / SCORE_LANES;
+  const bool root = p.old_i != nullptr && p.euclid;  // the exact stage
+  for (int t = threadIdx.x; t < nr; t += THREADS)
+    nzs[t] = BUILD ? *reinterpret_cast<const int*>(
+                         ws.scratch + (size_t)(r0 + t) * ws.srow + SC.cnt)
+                   : p.w;
+  const int nslab = (p.f + S - 1) / S;
+  for (int s = 0; s < nslab; ++s) {
+    const int q0 = s * S;
+    const bool last = s == nslab - 1;
+    __syncthreads();  // the previous slab's rows are read (and nzs set)
+    for (int e = threadIdx.x; e < nr * S; e += THREADS) {
+      const int rr = e / S, q = e - rr * S;
+      rows[e] = q0 + q < p.f
+                    ? p.base[(size_t)(p.row0 + r0 + rr) * p.f + q0 + q]
+                    : T(0);
+    }
+    __syncthreads();
+    // group g walks the block's pairs g, g + GROUPS, ... row by row (the
+    // same trips in a warp: every group of a warp steps together)
+    int rr = 0, t = group;
+    while (rr < nr && t >= nzs[rr]) t -= nzs[rr++];
+    for (;;) {
+      const bool live = __any_sync(tsne::kFullMask, rr < nr);
+      if (!live) break;
+      const bool mine = rr < nr;
+      const int row = mine ? rr : 0;
+      unsigned char* sc = ws.scratch + (size_t)(r0 + row) * ws.srow;
+      int j = -1;
+      if (mine)
+        j = BUILD ? __ldg(reinterpret_cast<const int*>(sc + SC.ids) + t)
+                  : __ldg(p.cand + (size_t)(r0 + rr) * p.w + t);
+      const bool pair = j >= 0;
+      const T* __restrict__ bj =
+          p.base + (size_t)(pair ? j : p.row0 + r0) * p.f + q0;
+      const T* ri = rows + row * S;
+      double* acc = acc_on_chip
+                        ? sacc + (size_t)row * zc + t
+                        : reinterpret_cast<double*>(sc + SC.acc) + t;
+      const double before = pair && s > 0 && lane == 0 ? *acc : 0.0;
+      T g = T(0);
+#pragma unroll
+      for (int u = 0; u < PER / V; ++u) {
+        const int q = V * lane + 8 * V * u;
+        T b[V];
+        if constexpr (VEC) {
+          if (q0 + q < p.f) {
+            const float2 v = __ldg(reinterpret_cast<const float2*>(bj + q));
+            b[0] = v.x;
+            b[1] = v.y;
+          } else {
+            b[0] = b[1] = T(0);
+          }
+        } else {
+#pragma unroll
+          for (int e = 0; e < V; ++e)
+            b[e] = q0 + q + e < p.f ? __ldg(bj + q + e) : T(0);
+        }
+#pragma unroll
+        for (int e = 0; e < V; ++e) g = tsne::Num<T>::fma(ri[q + e], b[e], g);
+      }
+#pragma unroll
+      for (int off = SCORE_LANES / 2; off > 0; off >>= 1)
+        g += __shfl_xor_sync(tsne::kFullMask, g, off, SCORE_LANES);
+      if (pair && lane == 0) {
+        const double sum = before + (double)g;
+        if (!last) {
+          *acc = sum;
+        } else {
+          const int i = p.row0 + r0 + rr;
+          const T d = combine(__ldg(p.sq + i), __ldg(p.sq + j), (T)sum);
+          reinterpret_cast<T*>(sc + SC.scores)[t] =
+              root ? tsne::Num<T>::sqrt(d) : d;
+        }
+      }
+      if (mine) {
+        t += GROUPS;
+        while (rr < nr && t >= nzs[rr]) t -= nzs[rr++];
+      }
+    }
+  }
+}
+
 // Whether a stage takes the workspace route: its on-chip layout past the
 // block's shared memory, or its sort past the bitonic sort's capacity.
 template <class T>
@@ -817,7 +994,7 @@ int launch(const Params<T>& p, const Workspace& ws, cudaStream_t stream) {
 }
 
 // The staged form: 8 lanes a candidate below WIDE_F, a warp from it; the
-// unstaged form a warp (its F is checked to be WIDE_F or more).
+// unstaged form's build and select passes score nothing (LANES 32).
 template <class T, bool BUILD, bool FINAL, bool WS, bool STAGED>
 int launch_width(const Params<T>& p, const Workspace& ws,
                  cudaStream_t stream) {
@@ -837,12 +1014,78 @@ int launch_route(const Params<T>& p, const Workspace& ws,
              : launch_width<T, BUILD, FINAL, false, STAGED>(p, ws, stream);
 }
 
+// The unstaged form's score pass: blocks of rpb rows, rpb the least that
+// puts every block of the chunk on the card at once (the occupancy the
+// block's shared memory allows), so the slabs are walked in one wave; the
+// block's pairs' sums in its shared memory when they take at most
+// ACC_SMEM bytes there, else in the Scratch.
+constexpr size_t ACC_SMEM = 64 * 1024;
+
+template <class T, bool BUILD, bool VEC>
+int launch_score_form(const Params<T>& p, const Workspace& ws,
+                      cudaStream_t s) {
+  constexpr int S = SLAB_BYTES / sizeof(T);
+  auto kern = score_kernel<T, BUILD, VEC>;
+  const size_t zc = BUILD ? (size_t)p.w * (1 + p.ke) : (size_t)p.w;
+  int dev = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_MAX);
+  if (err != cudaSuccess) return (int)err;
+  for (int on_chip = 1; on_chip >= 0; --on_chip) {
+    int rpb = 1;
+    size_t bytes = 0;
+    bool fits = false;
+    for (int tries = 0; tries < 8; ++tries) {
+      const size_t acc = on_chip ? align16(8 * zc * rpb) : 0;
+      bytes = align16(sizeof(T) * (size_t)rpb * S) +
+              align16(4 * (size_t)rpb) + acc;
+      if (bytes > SMEM_MAX || acc > ACC_SMEM) break;
+      int per_sm = 0;
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                          THREADS, bytes);
+      if (err != cudaSuccess) return (int)err;
+      if (per_sm < 1) break;
+      const long long wave = (long long)sms * per_sm;
+      if (wave * rpb >= p.c) {
+        fits = true;
+        break;
+      }
+      rpb = (int)((p.c + wave - 1) / wave);
+    }
+    if (!fits) continue;
+    const int grid = (p.c + rpb - 1) / rpb;
+    kern<<<grid, THREADS, bytes, s>>>(p, ws, rpb, on_chip);
+    return tsne::launch_status();
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// float32 rows of an even F (and a base 8-byte aligned) load their
+// values in pairs
+template <class T, bool BUILD>
+int launch_score(const Params<T>& p, const Workspace& ws, cudaStream_t s) {
+  if constexpr (std::is_same_v<T, float>) {
+    if (p.f % 2 == 0 && reinterpret_cast<uintptr_t>(p.base) % 8 == 0)
+      return launch_score_form<T, BUILD, true>(p, ws, s);
+  }
+  return launch_score_form<T, BUILD, false>(p, ws, s);
+}
+
+// One funnel stage on the caller's stream.  The unstaged form first runs
+// its build pass (a first stage) and its score pass, which fill scratch
+// (scratch_row bytes, at least Scratch's, for each of the c rows); then
+// either form's stage (the unstaged form's select pass) on its route.
 template <class T, bool STAGED>
 int refine_chunk(const T* base, const T* sq, int n, int f, int row0, int c,
                  const int* cand, int w, const int* graph, int kg, int ke,
                  int keep, const int* old_i, const T* old_d, int k,
                  int euclid, int n_valid, int* out_i, T* out_d, void* ws,
-                 size_t ws_row, void* stream) {
+                 size_t ws_row, void* scratch, size_t scratch_row,
+                 void* stream) {
   const bool build = graph != nullptr;
   const bool fin = old_i != nullptr;
   if (c < 1 || w < 1 || f < 1 || row0 < 0 || row0 + c > n ||
@@ -851,10 +1094,28 @@ int refine_chunk(const T* base, const T* sq, int n, int f, int row0, int c,
       (build && (ke < 1 || ke > kg)) ||
       (fin ? k < 1 : keep < 1))
     return (int)cudaErrorInvalidValue;
+  if (!STAGED && (scratch == nullptr || scratch_row % 16 ||
+                  reinterpret_cast<uintptr_t>(scratch) % 16 ||
+                  scratch_row < Scratch<T>(w, build ? ke : 0, build).bytes))
+    return (int)cudaErrorInvalidValue;
   const Params<T> p{base, sq, n, f, row0, c, cand, w, graph, kg, ke, keep,
                     old_i, old_d, k, euclid, n_valid, out_i, out_d};
-  const Workspace wsp{static_cast<unsigned char*>(ws), ws_row};
+  Workspace wsp{static_cast<unsigned char*>(ws), ws_row,
+                static_cast<unsigned char*>(scratch), scratch_row, 0};
   const cudaStream_t s = (cudaStream_t)stream;
+  if constexpr (!STAGED) {
+    int rc;
+    if (build) {
+      wsp.build_only = 1;
+      rc = fin ? launch_route<T, true, true, false>(p, wsp, s)
+               : launch_route<T, true, false, false>(p, wsp, s);
+      wsp.build_only = 0;
+      if (rc == 0) rc = launch_score<T, true>(p, wsp, s);
+    } else {
+      rc = launch_score<T, false>(p, wsp, s);
+    }
+    if (rc) return rc;
+  }
   if (build) return fin ? launch_route<T, true, true, STAGED>(p, wsp, s)
                         : launch_route<T, true, false, STAGED>(p, wsp, s);
   return fin ? launch_route<T, false, true, STAGED>(p, wsp, s)
@@ -912,7 +1173,8 @@ TSNE_API int tsne_refine_chunk_f32(const float* base, const float* sq, int n,
                                    void* ws, size_t ws_row, void* stream) {
   return refine_chunk<float, true>(base, sq, n, f, row0, c, cand, w, graph,
                                    kg, ke, keep, old_i, old_d, k, euclid,
-                                   n_valid, out_i, out_d, ws, ws_row, stream);
+                                   n_valid, out_i, out_d, ws, ws_row, nullptr,
+                                   0, stream);
 }
 
 TSNE_API int tsne_refine_chunk_f64(const double* base, const double* sq,
@@ -925,32 +1187,44 @@ TSNE_API int tsne_refine_chunk_f64(const double* base, const double* sq,
                                    size_t ws_row, void* stream) {
   return refine_chunk<double, true>(base, sq, n, f, row0, c, cand, w, graph,
                                     kg, ke, keep, old_i, old_d, k, euclid,
-                                    n_valid, out_i, out_d, ws, ws_row, stream);
+                                    n_valid, out_i, out_d, ws, ws_row,
+                                    nullptr, 0, stream);
 }
 
-// The unstaged form (B6u, B6u_f64): the same stage, the same arguments and
-// bits, the row read from global memory; any f >= 64 (WIDE_F).  The
-// wrapper launches it past STAGED_F_MAX.
+// The unstaged form (B6u, B6u_f64): the same stage and outputs, scored
+// over F in slabs (see the header); any f >= 64 (WIDE_F).  The wrapper
+// launches it past STAGED_F_MAX.  The arguments of tsne_refine_chunk_f32,
+// and scratch [c, scratch_row] bytes (scratch_row a multiple of 16, at
+// least tsne_refine_scratch's) that the three passes share.
 TSNE_API int tsne_refine_chunk_unstaged_f32(
     const float* base, const float* sq, int n, int f, int row0, int c,
     const int* cand, int w, const int* graph, int kg, int ke, int keep,
     const int* old_i, const float* old_d, int k, int euclid, int n_valid,
-    int* out_i, float* out_d, void* ws, size_t ws_row, void* stream) {
+    int* out_i, float* out_d, void* ws, size_t ws_row, void* scratch,
+    size_t scratch_row, void* stream) {
   return refine_chunk<float, false>(base, sq, n, f, row0, c, cand, w, graph,
                                     kg, ke, keep, old_i, old_d, k, euclid,
                                     n_valid, out_i, out_d, ws, ws_row,
-                                    stream);
+                                    scratch, scratch_row, stream);
 }
 
 TSNE_API int tsne_refine_chunk_unstaged_f64(
     const double* base, const double* sq, int n, int f, int row0, int c,
     const int* cand, int w, const int* graph, int kg, int ke, int keep,
     const int* old_i, const double* old_d, int k, int euclid, int n_valid,
-    int* out_i, double* out_d, void* ws, size_t ws_row, void* stream) {
+    int* out_i, double* out_d, void* ws, size_t ws_row, void* scratch,
+    size_t scratch_row, void* stream) {
   return refine_chunk<double, false>(base, sq, n, f, row0, c, cand, w,
                                      graph, kg, ke, keep, old_i, old_d, k,
                                      euclid, n_valid, out_i, out_d, ws,
-                                     ws_row, stream);
+                                     ws_row, scratch, scratch_row, stream);
+}
+
+// The unstaged form's scratch bytes a chunk row (w, ke as the entry points
+// take them, build != 0 for a first stage, itemsize 4 or 8): Scratch's.
+TSNE_API size_t tsne_refine_scratch(int w, int ke, int build, int itemsize) {
+  return itemsize == 8 ? Scratch<double>(w, build ? ke : 0, build).bytes
+                       : Scratch<float>(w, build ? ke : 0, build).bytes;
 }
 
 // A stage's route as the kernel takes it (f, w, ke, keep, k as the entry

@@ -235,11 +235,11 @@ int repulsion(const T* y_loc, const T* y_full, const unsigned char* valid,
   });
 }
 
-// ---- the wide form (B2w, B2w_f64): any m, meant for m > 8 -----------------
+// ---- the wide form at float64 (B2w_f64): any m, meant for m > 8 ----------
 //
 // The sweep above keeps R = 4 rows' coordinates and m + 1 sums a thread in
-// registers: past m = 8 that passes the register file.  The wide form
-// gives a thread one row and splits each pair's work in two:
+// registers: past m = 8 that passes the register file.  The float64 wide
+// form gives a thread one row and splits each pair's work in two:
 // - d² over the whole width, a piece of WD dimensions at a time: per
 //   sub-tile of WJ columns a thread keeps the WJ running d² in registers
 //   while the block stages the rows' and the columns' next piece in shared
@@ -256,20 +256,16 @@ int repulsion(const T* y_loc, const T* y_full, const unsigned char* valid,
 template <class T>
 struct Wide;
 template <>
-struct Wide<float> {
-  static constexpr int WJ = 32, WD = 32;  // columns a sub-tile, dims a piece
-};
-template <>
 struct Wide<double> {
-  static constexpr int WJ = 16, WD = 16;
+  static constexpr int WJ = 16, WD = 16;  // columns a sub-tile, dims a piece
 };
 constexpr int WT = 128;  // rows (threads) a block of the wide form
 
-// the wide form's force chunk: 16 dims, 32 at float32 past m = 16
+// the float64 wide form's force chunk: 16 dims
 // (ops/repulsion_cuda.wide_chunk)
 template <class T>
-__host__ __device__ constexpr int wide_chunk(int m) {
-  return std::is_same_v<T, double> || m <= 16 ? 16 : 32;
+__host__ __device__ constexpr int wide_chunk(int) {
+  return 16;
 }
 
 template <class T>
@@ -413,11 +409,509 @@ int repulsion_wide(const T* y_loc, const T* y_full, const unsigned char* valid,
         part_rows, part);
     return tsne::launch_status();
   };
-  if constexpr (std::is_same_v<T, double>)
-    return go(std::integral_constant<int, 16>{});
-  else
-    return c == 16 ? go(std::integral_constant<int, 16>{})
-                   : go(std::integral_constant<int, 32>{});
+  return go(std::integral_constant<int, 16>{});
+}
+
+// ---- the wide form at float32 (B2w): tiles, d² once a pair ---------------
+//
+// What bounds it: the FP32 pipe.  A pair costs m subtractions and m FMAs
+// for d², one reciprocal (MUFU) and m FMAs of the force: (5m + 3) FP32
+// operations and a reciprocal, 4.89 ms at 60k x 16 and 17.8 at 60k x 64
+// at 67 TFLOP/s (ops/repulsion_cuda).  The bytes (y once, the partials)
+// are a few megabytes.
+// Design, m <= 16 (the class of 16): rows in registers.  A thread owns
+// RR = 2 rows (strided by the block) and their coordinates; each staged
+// column (16 values as four float4 broadcasts, zeros past m; a ring of two
+// tiles of RJ columns that cp.async fills while the tile before computes)
+// feeds both rows: a pair's 16 differences are formed once and give its
+// d² (one FMA each) and, once q = rcp.approx(1 + d²)·weight is known, its
+// force (one FMA each): 3m + 8 operations a pair, d² once.  A tile's sums
+// run in float and are then added to the rows' totals, doubles in shared
+// memory.
+// Design, m > 16: tiles.
+// - A block owns TR = 4096 / MP rows and walks its column split in tiles of
+//   TC = MP columns, MP the width class (32 or 64; 64 past it), so a
+//   tile is 4,096 pairs for every class.
+// - d² once a pair: a thread takes 4 rows x 4 columns of the tile and, for
+//   d = 0 .. m − 1 in order, reads the 4 rows' and the 4 columns' value as
+//   two float4s from shared memory (the rows staged once, dims-major; the
+//   columns' tiles in a ring of two that cp.async fills while the tile
+//   before computes), adding 16 squared differences with one FMA each.
+//   Then q = rcp.approx(1 + d²)·weight (0 on the diagonal), Z's part, and
+//   q², which stays in shared memory for the force.
+// - The force from the tile's q²: a thread takes 4 rows x 4 dims and walks
+//   the tile's columns in order, reading 4 columns' q² and each column's
+//   4 dims as float4s (the ring holds each tile a second time, columns-
+//   major, for these reads): F_id += q²_ij·(y_id − y_jd), the difference
+//   formed from the coordinates.  The tensor cores are not used: Σ_j q²_ij·y_j as a product
+//   (y_i·Σq² − Σq²·y_j) cancels for rows far from the origin, as d² by the
+//   norm trick does, and the plain version's differences do not.
+// - A tile's sums are taken from 0 in float and then added to the row's
+//   totals, held in double (a float sum over thousands of tiles would
+//   drift past the plain version's pairwise sums); Z's parts from the
+//   tile's column groups meet in a fixed order at the end.  Past m = 64 the tiles walk the width in blocks of 64 dims: d²
+//   over every block, then the force block by block, added to the
+//   partials slab rows the block owns (read, add, write: no other block
+//   writes those rows of its split).
+// A row's sums take the same operations in the same order whatever block,
+// split position or shard holds it, and the column splits and the slab
+// keep B2's contract (no atomics: two launches give the same bits).
+constexpr int TW = 256;        // threads a block of the float32 wide form
+constexpr int TPAIRS = 4096;   // pairs a tile
+
+constexpr int RT = 128;  // threads a block of the m <= 16 path
+constexpr int RR = 2;    // rows a thread there
+constexpr int RJ = 128;  // columns a tile there
+
+// the float32 wide form's width class (ops/repulsion_cuda.wide_class)
+__host__ __device__ constexpr int wide_class(int m) {
+  return m <= 16 ? 16 : m <= 32 ? 32 : 64;
+}
+
+// a class's tile and its dynamic shared memory, in floats: the rows'
+// dims [MP][RS], the columns' ring of two slots, each the tile's columns
+// dims-major [MP][CS] (d²'s reads: 4 columns of a dim) and columns-major
+// [TC][CT] (the force's: 4 dims of a column), q² [TC][RS] (Z's parts at
+// the end) and the columns' weights [2][TC]; the strides padded by a
+// float4 so that a warp's float4 reads spread over the banks
+template <int MP>
+struct TileGeom {
+  static constexpr int TR = TPAIRS / MP, TC = MP;
+  static constexpr int RS = TR + 4, CS = TC + 4, CT = MP + 4;
+  static constexpr int SLOT = MP * CS + TC * CT;
+  static constexpr int ROWS = 0, COLS = MP * RS, Q2 = COLS + 2 * SLOT,
+                       WGT = Q2 + TC * RS, FLOATS = WGT + 2 * TC;
+};
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void unpack(const float4 v, float (&o)[4]) {
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+}
+
+template <int MP>
+__global__ void __launch_bounds__(TW, 2)
+repulsion_tile_kernel(const float* __restrict__ y_loc,
+                      const float* __restrict__ y_full,
+                      const unsigned char* __restrict__ valid, int nloc,
+                      int nfull, int m, int row_offset, int col_span,
+                      int part_rows, float* __restrict__ part) {
+  using G = TileGeom<MP>;
+  constexpr int TR = G::TR, TC = G::TC, RS = G::RS, CS = G::CS, CT = G::CT;
+  extern __shared__ __align__(16) float sm[];
+  float* rs = sm + G::ROWS;
+  float* cs = sm + G::COLS;
+  float* q2s = sm + G::Q2;
+  float* cw = sm + G::WGT;
+  const int t = threadIdx.x;
+  const int row0 = blockIdx.x * TR;
+  const int c_begin = blockIdx.y * col_span;
+  const int c_end = min(nfull, c_begin + col_span);
+  const int ntiles = c_end > c_begin ? (c_end - c_begin + TC - 1) / TC : 0;
+  const bool blocked = m > MP;  // MP = 64 alone is launched past its width
+  const int dcg = t % (TC / 4), drg = t / (TC / 4);  // d²: 4 rows x 4 cols
+  const int fdg = t % (MP / 4), frg = t / (MP / 4);  // force: 4 rows x 4 dims
+  float* out = part + (size_t)blockIdx.y * part_rows * (m + 1);
+
+  // dims [d0, d0 + MP) of the block's rows, zeros past m or nloc
+  auto stage_rows = [&](int d0) {
+    for (int e = t; e < TR * MP; e += TW) {
+      const int d = e % MP, r = e / MP;
+      rs[d * RS + r] = row0 + r < nloc && d0 + d < m
+                           ? y_loc[(size_t)(row0 + r) * m + d0 + d] : 0.f;
+    }
+  };
+  // columns [j0, j0 + TC) dims [d0, d0 + MP) into ring slot b, both
+  // layouts (cp.async, zero-filled past the split or m), and their weights
+  auto stage_cols = [&](int j0, int d0, int b) {
+    float* dst = cs + b * G::SLOT;
+    for (int e = t; e < TC * MP; e += TW) {
+      const int d = e % MP, c = e / MP;
+      const bool ok = j0 + c < c_end && d0 + d < m;
+      const float* src = ok ? y_full + (size_t)(j0 + c) * m + d0 + d : y_full;
+      cp_async4(dst + d * CS + c, src, ok);
+      cp_async4(dst + MP * CS + c * CT + d, src, ok);
+    }
+    if (t < TC) {
+      const int j = j0 + t;
+      cw[b * TC + t] =
+          j >= c_end ? 0.f : valid == nullptr || valid[j] ? 1.f : 0.f;
+    }
+  };
+  // d² of the thread's 16 pairs over dims [0, dm) of the staged block
+  auto add_d2 = [&](const float* csb, int dm, float (&d2)[4][4]) {
+#pragma unroll 4
+    for (int d = 0; d < dm; ++d) {
+      float rv[4], cv[4];
+      unpack(*reinterpret_cast<const float4*>(rs + d * RS + drg * 4), rv);
+      unpack(*reinterpret_cast<const float4*>(csb + d * CS + dcg * 4), cv);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float diff = rv[a] - cv[c];
+          d2[a][c] = fmaf(diff, diff, d2[a][c]);
+        }
+    }
+  };
+  // the thread's 4 rows x 4 dims of the staged block (force mapping)
+  auto load_yi = [&](float (&yi)[4][4]) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      float v[4];
+      unpack(*reinterpret_cast<const float4*>(rs + (fdg * 4 + u) * RS +
+                                              frg * 4), v);
+#pragma unroll
+      for (int a = 0; a < 4; ++a) yi[a][u] = v[a];
+    }
+  };
+  // the force of the thread's 4 rows x 4 dims over the tile's columns
+  auto tile_force = [&](const float* csb, const float (&yi)[4][4],
+                        float (&ft)[4][4]) {
+    const float* ctb = csb + MP * CS;
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) ft[a][u] = 0.f;
+#pragma unroll 2
+    for (int c = 0; c < TC; c += 4) {
+      float q[4][4], y[4][4];  // q[column][row], y[column][dim]
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        unpack(*reinterpret_cast<const float4*>(q2s + (c + e) * RS + frg * 4),
+               q[e]);
+        unpack(*reinterpret_cast<const float4*>(ctb + (c + e) * CT + fdg * 4),
+               y[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            ft[a][u] = fmaf(q[e][a], yi[a][u] - y[e][u], ft[a][u]);
+    }
+  };
+
+  double acc[4][4], zacc[4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    zacc[a] = 0.0;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) acc[a][u] = 0.0;
+  }
+  float yi[4][4];  // the force's rows, held across the tiles (m <= MP)
+  if (!blocked) {
+    stage_rows(0);
+    if (ntiles > 0) stage_cols(c_begin, 0, 0);
+    cp_async_commit();
+    __syncthreads();
+    load_yi(yi);
+  }
+  for (int k = 0; k < ntiles; ++k) {
+    const int j0 = c_begin + k * TC;
+    const int b = blocked ? 0 : k & 1;
+    const float* csb = cs + b * G::SLOT;
+    float d2[4][4];
+#pragma unroll
+    for (int a = 0; a < 4; ++a)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) d2[a][c] = 0.f;
+    if (!blocked) {
+      if (k + 1 < ntiles) {  // the next tile fills behind this one
+        stage_cols(j0 + TC, 0, b ^ 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      add_d2(csb, m, d2);
+    } else {
+      for (int d0 = 0; d0 < m; d0 += MP) {
+        __syncthreads();  // the block before is read
+        stage_rows(d0);
+        stage_cols(j0, d0, 0);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        add_d2(csb, min(MP, m - d0), d2);
+      }
+    }
+    // q, Z's part and q² of the thread's 16 pairs
+    float zt[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int jc = dcg * 4 + c;
+      const float w = cw[b * TC + jc];
+      float q2[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        float q = inv(1.f + d2[a][c]) * w;
+        q = j0 + jc == row_offset + row0 + drg * 4 + a ? 0.f : q;
+        zt[a] += q;
+        q2[a] = q * q;
+      }
+      *reinterpret_cast<float4*>(q2s + jc * RS + drg * 4) =
+          make_float4(q2[0], q2[1], q2[2], q2[3]);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) zacc[a] += (double)zt[a];
+    __syncthreads();
+    float ft[4][4];
+    if (!blocked) {
+      tile_force(csb, yi, ft);
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[a][u] += (double)ft[a][u];
+    } else {
+      for (int d0 = 0; d0 < m; d0 += MP) {
+        if (d0) __syncthreads();  // the block before is read
+        stage_rows(d0);
+        stage_cols(j0, d0, 0);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        load_yi(yi);
+        tile_force(csb, yi, ft);
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+          const int i = row0 + frg * 4 + a;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const int d = d0 + fdg * 4 + u;
+            if (i < nloc && d < m) {
+              float* o = out + (size_t)i * (m + 1) + d;
+              *o = (k == 0 ? 0.f : *o) + ft[a][u];
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // q² and the ring slot are rewritten
+  }
+  cp_async_wait<0>();
+
+  // Z: the column groups' parts of each row, in order
+  double* zs = reinterpret_cast<double*>(q2s);  // [TC / 4][TR]
+#pragma unroll
+  for (int a = 0; a < 4; ++a) zs[dcg * TR + drg * 4 + a] = zacc[a];
+  __syncthreads();
+  if (t < TR && row0 + t < nloc) {
+    const int i = row0 + t;
+    double z = 0.0;
+    for (int g = 0; g < TC / 4; ++g) z += zs[g * TR + t];
+    const bool row_ok = valid == nullptr || valid[row_offset + i];
+    out[(size_t)i * (m + 1) + m] = row_ok ? (float)z : 0.f;
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int i = row0 + frg * 4 + a;
+    if (i >= nloc) continue;
+    const bool row_ok = valid == nullptr || valid[row_offset + i];
+    for (int d0 = 0; d0 < (blocked ? m : 1); d0 += MP) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int d = d0 + fdg * 4 + u;
+        if (d >= m) continue;
+        float* o = out + (size_t)i * (m + 1) + d;
+        if (!blocked)
+          *o = row_ok ? (float)acc[a][u] : 0.f;
+        else if (!row_ok || ntiles == 0)
+          *o = 0.f;
+      }
+    }
+  }
+}
+
+// the m <= 16 path's dynamic shared memory: the columns' ring [2][RJ][16]
+// and weights [2][RJ] in floats, then the rows' totals [RR][17][RT]
+constexpr size_t ROWS_COLS = 2 * RJ * 16 + 2 * RJ;
+constexpr size_t ROWS_BYTES = 4 * ROWS_COLS + 8 * (size_t)RR * 17 * RT;
+
+__global__ void __launch_bounds__(RT, 4)
+repulsion_rows_kernel(const float* __restrict__ y_loc,
+                      const float* __restrict__ y_full,
+                      const unsigned char* __restrict__ valid, int nloc,
+                      int nfull, int m, int row_offset, int col_span,
+                      int part_rows, float* __restrict__ part) {
+  extern __shared__ __align__(16) float smr[];
+  float* cs = smr;                       // [2][RJ][16]
+  float* cw = smr + 2 * RJ * 16;         // [2][RJ]
+  double* tot = reinterpret_cast<double*>(smr + ROWS_COLS);  // [RR][17][RT]
+  const int t = threadIdx.x;
+  const int row0 = blockIdx.x * RT * RR;
+  const int c_begin = blockIdx.y * col_span;
+  const int c_end = min(nfull, c_begin + col_span);
+  const int ntiles = c_end > c_begin ? (c_end - c_begin + RJ - 1) / RJ : 0;
+
+  float yi[RR][16];
+  int gi[RR];
+#pragma unroll
+  for (int r = 0; r < RR; ++r) {
+    const int i = row0 + r * RT + t;
+    gi[r] = row_offset + i;
+#pragma unroll
+    for (int d = 0; d < 16; ++d)
+      yi[r][d] = i < nloc && d < m ? y_loc[(size_t)i * m + d] : 0.f;
+#pragma unroll
+    for (int d = 0; d <= 16; ++d) tot[(r * 17 + d) * RT + t] = 0.0;
+  }
+  // columns [j0, j0 + RJ) into ring slot b (zeros past the split or m)
+  auto stage = [&](int j0, int b) {
+    float* dst = cs + b * RJ * 16;
+    for (int e = t; e < RJ * 16; e += RT) {
+      const int d = e % 16, c = e / 16;
+      const bool ok = j0 + c < c_end && d < m;
+      cp_async4(dst + e, ok ? y_full + (size_t)(j0 + c) * m + d : y_full,
+                ok);
+    }
+    const int j = j0 + t;  // RT == RJ: a weight a thread
+    cw[b * RJ + t] =
+        j >= c_end ? 0.f : valid == nullptr || valid[j] ? 1.f : 0.f;
+  };
+  if (ntiles > 0) stage(c_begin, 0);
+  cp_async_commit();
+  for (int k = 0; k < ntiles; ++k) {
+    const int j0 = c_begin + k * RJ;
+    const int b = k & 1;
+    if (k + 1 < ntiles) {  // the next tile fills behind this one
+      stage(j0 + RJ, b ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float4* col = reinterpret_cast<const float4*>(cs + b * RJ * 16);
+    const float* wb = cw + b * RJ;
+    float acc[RR][17];
+#pragma unroll
+    for (int r = 0; r < RR; ++r)
+#pragma unroll
+      for (int d = 0; d <= 16; ++d) acc[r][d] = 0.f;
+    const int cnt = min(RJ, c_end - j0);
+#pragma unroll 2
+    for (int c = 0; c < cnt; ++c) {
+      float pj[16];
+#pragma unroll
+      for (int v = 0; v < 4; ++v) {
+        const float4 a = col[c * 4 + v];
+        pj[4 * v] = a.x;
+        pj[4 * v + 1] = a.y;
+        pj[4 * v + 2] = a.z;
+        pj[4 * v + 3] = a.w;
+      }
+      const float w = wb[c];
+#pragma unroll
+      for (int r = 0; r < RR; ++r) {
+        float diff[16], d2 = 0.f;
+#pragma unroll
+        for (int d = 0; d < 16; ++d) {
+          diff[d] = yi[r][d] - pj[d];
+          d2 = fmaf(diff[d], diff[d], d2);
+        }
+        float q = inv(1.f + d2) * w;
+        q = j0 + c == gi[r] ? 0.f : q;
+        acc[r][16] += q;
+        const float q2 = q * q;
+#pragma unroll
+        for (int d = 0; d < 16; ++d) acc[r][d] = fmaf(q2, diff[d], acc[r][d]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < RR; ++r)
+#pragma unroll
+      for (int d = 0; d <= 16; ++d)
+        tot[(r * 17 + d) * RT + t] += (double)acc[r][d];
+    __syncthreads();  // the ring slot is rewritten
+  }
+  cp_async_wait<0>();
+  float* out = part + (size_t)blockIdx.y * part_rows * (m + 1);
+#pragma unroll
+  for (int r = 0; r < RR; ++r) {
+    const int i = row0 + r * RT + t;
+    if (i >= nloc) continue;
+    const bool row_ok = valid == nullptr || valid[gi[r]];
+    for (int d = 0; d < m; ++d)
+      out[(size_t)i * (m + 1) + d] =
+          row_ok ? (float)tot[(r * 17 + d) * RT + t] : 0.f;
+    out[(size_t)i * (m + 1) + m] =
+        row_ok ? (float)tot[(r * 17 + 16) * RT + t] : 0.f;
+  }
+}
+
+int launch_rows(const float* y_loc, const float* y_full,
+                const unsigned char* valid, int nloc, int nfull, int m,
+                int row_offset, int splits, int part_rows, float* part,
+                cudaStream_t s) {
+  static_assert(RT == RJ, "a weight a thread");
+  const cudaError_t err = cudaFuncSetAttribute(
+      repulsion_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)ROWS_BYTES);
+  if (err != cudaSuccess) return (int)err;
+  const int col_span = (nfull + splits - 1) / splits;
+  const dim3 grid((nloc + RT * RR - 1) / (RT * RR), splits);
+  repulsion_rows_kernel<<<grid, RT, ROWS_BYTES, s>>>(
+      y_loc, y_full, valid, nloc, nfull, m, row_offset, col_span, part_rows,
+      part);
+  return tsne::launch_status();
+}
+
+template <int MP>
+int launch_tile(const float* y_loc, const float* y_full,
+                const unsigned char* valid, int nloc, int nfull, int m,
+                int row_offset, int splits, int part_rows, float* part,
+                cudaStream_t s) {
+  using G = TileGeom<MP>;
+  const size_t bytes = sizeof(float) * G::FLOATS;
+  auto kern = repulsion_tile_kernel<MP>;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int col_span = (nfull + splits - 1) / splits;
+  const dim3 grid((nloc + G::TR - 1) / G::TR, splits);
+  kern<<<grid, TW, bytes, s>>>(y_loc, y_full, valid, nloc, nfull, m,
+                               row_offset, col_span, part_rows, part);
+  return tsne::launch_status();
+}
+
+int repulsion_tiles(const float* y_loc, const float* y_full,
+                    const unsigned char* valid, int nloc, int nfull, int m,
+                    int row_offset, int splits, int part_rows, float* part,
+                    void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (m < 1 || splits < 1 || splits > 65535 || part_rows < nloc)
+    return (int)cudaErrorInvalidValue;
+  switch (wide_class(m)) {
+    case 16:
+      return launch_rows(y_loc, y_full, valid, nloc, nfull, m, row_offset,
+                         splits, part_rows, part, s);
+    case 32:
+      return launch_tile<32>(y_loc, y_full, valid, nloc, nfull, m,
+                             row_offset, splits, part_rows, part, s);
+    default:
+      return launch_tile<64>(y_loc, y_full, valid, nloc, nfull, m,
+                             row_offset, splits, part_rows, part, s);
+  }
 }
 
 }  // namespace
@@ -445,16 +939,15 @@ TSNE_API int tsne_repulsion_f64(const double* y_loc, const double* y_full,
 }
 
 // The wide form (B2w): the operands and the partials of
-// tsne_repulsion_f32, any m >= 1 (the wrapper sends it m > 8); the grid's
-// third dimension runs ceil(m / C) force chunks (C = 16, or 32 past m =
-// 16).
+// tsne_repulsion_f32, any m >= 1 (the wrapper sends it m > 8); blocks of
+// 4,096 / wide_class(m) rows, the columns in tiles of wide_class(m).
 TSNE_API int tsne_repulsion_wide_f32(const float* y_loc, const float* y_full,
                                      const unsigned char* valid, int nloc,
                                      int nfull, int m, int row_offset,
                                      int splits, int part_rows, float* part,
                                      void* stream) {
-  return repulsion_wide<float>(y_loc, y_full, valid, nloc, nfull, m,
-                               row_offset, splits, part_rows, part, stream);
+  return repulsion_tiles(y_loc, y_full, valid, nloc, nfull, m, row_offset,
+                         splits, part_rows, part, stream);
 }
 
 // The float64 form of tsne_repulsion_wide_f32 (B2w_f64; C = 16).
@@ -469,12 +962,14 @@ TSNE_API int tsne_repulsion_wide_f64(const double* y_loc,
 }
 
 // The wide form's geometry at width m and dtype (float64 != 0: B2w_f64):
-// *rows the rows a block (one a thread), *chunk the dims of a force chunk
-// (ops/repulsion_cuda mirrors both for the memory model on any device;
-// the card's checks hold the mirror to this).  Returns M_NARROW.
+// *rows the rows a block, *chunk the dims the force takes at once (B2w_f64:
+// a chunk of its third grid dimension; B2w: its width class, the dims of
+// a block past it) (ops/repulsion_cuda mirrors both for the memory model
+// on any device; the card's checks hold the mirror to this).  Returns
+// M_NARROW.
 TSNE_API int tsne_repulsion_wide_config(int m, int float64, int* rows,
                                         int* chunk) {
-  *rows = WT;
-  *chunk = float64 ? wide_chunk<double>(m) : wide_chunk<float>(m);
+  *rows = float64 ? WT : m <= 16 ? RT * RR : TPAIRS / wide_class(m);
+  *chunk = float64 ? wide_chunk<double>(m) : wide_class(m);
   return tsne::M_NARROW;
 }

@@ -86,7 +86,8 @@ SIGNATURES = {
                               _I, _P, _P, _I, _I, _I, _P, _P, _P, _S, _P],
 }
 # the wide forms of B2-B5 (m > 8): the narrow forms' operands; B6's
-# unstaged form (F > 12,288): the staged form's
+# unstaged form (F > 12,288): the staged form's and its scratch (a
+# pointer and the bytes a row) before the stream
 for _name in ("repulsion", "fused_step", "attraction_loss",
               "attraction_forces"):
     for _t in ("f32", "f64"):
@@ -94,7 +95,7 @@ for _name in ("repulsion", "fused_step", "attraction_loss",
             f"tsne_{_name}_{_t}"]
 for _t in ("f32", "f64"):
     SIGNATURES[f"tsne_refine_chunk_unstaged_{_t}"] = SIGNATURES[
-        f"tsne_refine_chunk_{_t}"]
+        f"tsne_refine_chunk_{_t}"][:-1] + [_P, _S, _P]
 
 
 #: seconds a process waits for another's build of the same library, and
@@ -260,6 +261,8 @@ def _library() -> ctypes.CDLL:
     lib.tsne_refine_route.argtypes = [_I, _I, _I, _I, _I, _I, _I, _I, _I,
                                       _P]
     lib.tsne_refine_route.restype = _S
+    lib.tsne_refine_scratch.argtypes = [_I, _I, _I, _I]
+    lib.tsne_refine_scratch.restype = _S
     lib.tsne_repulsion_wide_config.argtypes = [_I, _I, _P, _P]
     lib.tsne_repulsion_wide_config.restype = ctypes.c_int
     lib.tsne_attraction_wide_config.argtypes = [_I, _P, _P]

@@ -79,10 +79,14 @@ each B1 class and B6 route.
 
 Every F runs.  Up to :data:`STAGED_F_MAX` = 12,288 features B6 stages the
 chunk row's vector in shared memory; past it a stage launches B6's
-unstaged form (``KERNELS["B6u"]``, ``["B6u_f64"]``: the same kernel under
-a template flag, reading the row from global memory in the same fma
-order, so the same bits), on whichever route its other arrays need
-(:func:`refine_route` with ``staged=False``).
+unstaged form (``KERNELS["B6u"]``, ``["B6u_f64"]``: a build pass for a
+first stage, a score pass that walks F in slabs shared by the whole
+chunk, so each candidate row comes from device memory once a chunk, and
+the staged form's selection and merge over the scores), whose select
+pass takes whichever route its other arrays need (:func:`refine_route`
+with ``staged=False``) and whose passes share a scratch of
+:func:`refine_scratch_bytes` a row.  Its sums run in another order than
+the staged form's: the two agree to the B6 bars, not bit for bit.
 
 B6 under bf16 operands: on its accelerator the JAX package scores the
 refine funnel through the tile plan's ``kernel``, ``pallas`` on a TPU
@@ -656,6 +660,25 @@ def refine_route_kernel(f: int, w: int, ke: int, keep: int, k: int,
     return RefineRoute(int(ws), int(smem.value))
 
 
+def refine_scratch_bytes(w: int, ke: int, build: bool,
+                         itemsize: int = 4) -> int:
+    """The unstaged form's device memory a chunk row beside its route's
+    workspace, as ``Scratch`` in ``csrc/knn_cand.cu`` lays it out: a first
+    stage's candidate count and ids (2s(1 + ke) of them), the score pass's
+    double sums and the scores, one a candidate."""
+    zcap = w * (1 + ke) if build else w
+    return ((16 + _a16(4 * zcap) if build else 0) + _a16(8 * zcap)
+            + _a16(itemsize * zcap))
+
+
+def refine_scratch_kernel(w: int, ke: int, build: bool,
+                          itemsize: int = 4) -> int:
+    """:func:`refine_scratch_bytes` as the kernel library states it
+    (``tsne_refine_scratch``; builds the library)."""
+    from tsne_flink_tpu_torch.kernels.build import library
+    return int(library().tsne_refine_scratch(w, ke, int(build), itemsize))
+
+
 def _compact_gather(base: torch.Tensor, cand: torch.Tensor) -> torch.Tensor:
     """Dedup-then-gather: fetch each UNIQUE candidate row of the chunk
     once into a compact [U, d] buffer, then rebuild the [c, Z, d] operand
@@ -847,11 +870,11 @@ def _refine_launch(base, sq, row0, cand, graph, ke, *, keep=0, old=None,
     """Launch B6 (B6_f64 on float64 values; past :data:`STAGED_F_MAX`
     features their unstaged forms B6u / B6u_f64) on one stage of rows
     row0 .. row0 + c − 1; allocates its outputs, ids [c, keep] (keep
-    mode) or the new lists [c, k] in base's dtype, and, for a stage on
-    the workspace route (:func:`refine_route`), the chunk's workspace.
+    mode) or the new lists [c, k] in base's dtype, for a stage on the
+    workspace route (:func:`refine_route`) the chunk's workspace, and for
+    the unstaged form its scratch (:func:`refine_scratch_bytes`).
     ``staged`` (None: :func:`refine_staged` of F) picks the form: the
-    unstaged form takes any F >= :data:`UNSTAGED_F_MIN`, with the staged
-    form's bits."""
+    unstaged form takes any F >= :data:`UNSTAGED_F_MIN`."""
     (n, f), (c, w) = base.shape, cand.shape
     staged = refine_staged(f) if staged is None else bool(staged)
     if f < 1 or (f > STAGED_F_MAX if staged else f < UNSTAGED_F_MIN):
@@ -880,15 +903,20 @@ def _refine_launch(base, sq, row0, cand, graph, ke, *, keep=0, old=None,
           if route.workspace else None)
     kid = "B6" + ("" if staged else "u") + (
         "_f64" if kernel_float64(base) else "")
-    kernel = KERNELS[kid]
-    kernel(base.data_ptr(), sq.data_ptr(), n, f, row0, c, cand.data_ptr(), w,
-           None if graph is None else graph.data_ptr(),
-           0 if graph is None else graph.shape[1], ke, keep,
-           None if old is None else old[0].data_ptr(),
-           None if old is None else old[1].data_ptr(), k, int(euclid),
-           n_valid, out_i.data_ptr(),
-           None if out_d is None else out_d.data_ptr(), _ptr(ws),
-           route.workspace)
+    args = [base.data_ptr(), sq.data_ptr(), n, f, row0, c, cand.data_ptr(),
+            w, None if graph is None else graph.data_ptr(),
+            0 if graph is None else graph.shape[1], ke, keep,
+            None if old is None else old[0].data_ptr(),
+            None if old is None else old[1].data_ptr(), k, int(euclid),
+            n_valid, out_i.data_ptr(),
+            None if out_d is None else out_d.data_ptr(), _ptr(ws),
+            route.workspace]
+    if not staged:
+        srow = refine_scratch_bytes(w, ke if graph is not None else 0,
+                                    graph is not None, base.element_size())
+        scratch = torch.empty((c, srow), dtype=torch.uint8, device=dev)
+        args += [scratch.data_ptr(), srow]
+    KERNELS[kid](*args)
     _count_route(f"{kid} {'workspace' if route.workspace else 'chip'}")
     return out_i if old is None else (out_i, out_d)
 

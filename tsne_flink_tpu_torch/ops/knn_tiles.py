@@ -89,13 +89,19 @@ def _pow2_at_most(v: float, lo: int, hi: int) -> int:
 def refine_workspace_bytes(d: int, k: int, *, sample: int = 8,
                            itemsize: int = 4) -> int:
     """Device memory a chunk row of ``knn_refine`` takes on the card
-    beyond the JAX model's count: the largest workspace of the auto
-    funnel's B6 stages (``ops/knn_cuda.refine_route``; 0 when every
-    stage runs on chip, as at every k <= 1,024)."""
+    beyond the JAX model's count: the largest of the auto funnel's B6
+    stages' workspace (``ops/knn_cuda.refine_route``; 0 when every stage
+    runs on chip, as at every k <= 1,024) and, for a stage of the
+    unstaged form (past ``STAGED_F_MAX`` features), its scratch beside it
+    (``ops/knn_cuda.refine_scratch_bytes``: ~3.3 KB a row at k = 90)."""
     from tsne_flink_tpu_torch.ops.knn import refine_stages
-    from tsne_flink_tpu_torch.ops.knn_cuda import refine_route
+    from tsne_flink_tpu_torch.ops.knn_cuda import (refine_route,
+                                                   refine_scratch_bytes,
+                                                   refine_staged)
     return max(refine_route(f, w, ke, keep, k, build, final,
                             itemsize).workspace
+               + (0 if refine_staged(f) else
+                  refine_scratch_bytes(w, ke, build, itemsize))
                for f, w, ke, keep, build, final in refine_stages(
                    d, k, sample=sample))
 

@@ -27,12 +27,15 @@ float64 too.  The wrapper casts nothing: both operands are float32, or
 both float64.
 
 The register-blocked instances take m = 1 .. :data:`M_NARROW`; a wider
-embedding launches the wide form (``KERNELS["B2w"]``, ``["B2w_f64"]``:
-one row a thread, d² staged piece by piece, the force over
-:func:`wide_chunk`-wide chunks on a third grid dimension), which takes
-any m.  Its column splits (:func:`column_splits` with ``m``) and the
-slab's rounding follow the same rule, so a shard keeps its bits there
-too.
+embedding launches the wide form, which takes any m: at float32
+``KERNELS["B2w"]`` (d² once a pair: up to m = 16 two rows a thread in
+registers, a pair's differences giving its d² and its force; past it
+tiles of 4,096 pairs, the force from the tile's q² held on chip;
+:func:`wide_rows` rows a block), at float64
+``KERNELS["B2w_f64"]`` (one row a thread, d² staged piece by piece, the
+force over :func:`wide_chunk`-wide chunks on a third grid dimension).
+Its column splits (:func:`column_splits` with ``m``) and the slab's
+rounding follow the same rule, so a shard keeps its bits there too.
 """
 
 from __future__ import annotations
@@ -52,30 +55,52 @@ COLS_PER_TILE = 512
 BLOCKS_PER_SM = 16
 #: waves of blocks the column splits aim for
 WAVES = 2
-#: rows one block of the wide form owns (one a thread: WT in
+#: rows one block of the float64 wide form owns (one a thread: WT in
 #: csrc/repulsion.cu; :func:`kernel_wide_config` reads the kernel's own)
 WIDE_ROWS_PER_BLOCK = 128
-#: the wide form's blocks the split rule counts an SM to hold: a
-#: heuristic, not the occupancy (ptxas gives B2w 165-204 registers a
-#: thread, so 2-3 blocks of 128 fit an SM).  The split count, and so a
-#: row's bits, follow from it: changing it changes every wide run's bits.
+#: the float64 wide form's blocks the split rule counts an SM to hold: a
+#: heuristic, not the occupancy.  The split count, and so a row's bits,
+#: follow from it: changing it changes every wide run's bits.
 WIDE_BLOCKS_PER_SM = 4
+#: pairs a tile of the float32 wide form past m = 16 (TPAIRS in
+#: csrc/repulsion.cu): a block owns TILE_PAIRS / :func:`wide_class` rows;
+#: at m <= 16 a block owns 256 rows too (128 threads x 2 rows)
+TILE_PAIRS = 4096
+#: the float32 wide form's blocks the split rule counts an SM to hold: 4
+#: of the m <= 16 path (``__launch_bounds__(128, 4)``), 2 of the tiles
+#: (``__launch_bounds__(256, 2)``)
+TILE_BLOCKS_PER_SM = {16: 4, 32: 2, 64: 2}
 #: the partials' slab rows are a multiple of this (see the module text)
 PART_ROW_MULTIPLE = 4
 
 
+def wide_class(m: int) -> int:
+    """The float32 wide form's width class (``wide_class`` in
+    csrc/repulsion.cu): 16, 32 or 64 (64 past it too: the width walked in
+    blocks of 64 dims)."""
+    return 16 if m <= 16 else 32 if m <= 32 else 64
+
+
+def wide_rows(m: int, float64: bool) -> int:
+    """Rows one block of the wide form owns at width ``m``:
+    :data:`WIDE_ROWS_PER_BLOCK` at float64, :data:`TILE_PAIRS` /
+    :func:`wide_class` at float32 (256, 128 or 64)."""
+    return WIDE_ROWS_PER_BLOCK if float64 else TILE_PAIRS // wide_class(m)
+
+
 def wide_chunk(m: int, float64: bool) -> int:
-    """The dims of one force chunk of the wide form (``wide_chunk`` in
-    csrc/repulsion.cu): 16, or 32 at float32 past m = 16."""
-    return 16 if float64 or m <= 16 else 32
+    """The dims the wide form's force takes at once: a chunk of the
+    float64 form's third grid dimension (16), the float32 form's width
+    class (:func:`wide_class`)."""
+    return 16 if float64 else wide_class(m)
 
 
 def kernel_wide_config(m: int, float64: bool) -> tuple[int, int, int]:
-    """``(M_NARROW, rows a block, dims a force chunk)`` of the wide form at
-    width ``m`` as the kernel library states them
+    """``(M_NARROW, rows a block, dims the force takes at once)`` of the
+    wide form at width ``m`` as the kernel library states them
     (``tsne_repulsion_wide_config``; builds the library): what
-    :data:`M_NARROW`, :data:`WIDE_ROWS_PER_BLOCK` and :func:`wide_chunk`
-    mirror for the memory model on any device."""
+    :data:`M_NARROW`, :func:`wide_rows` and :func:`wide_chunk` mirror for
+    the memory model on any device."""
     import ctypes
     from tsne_flink_tpu_torch.kernels.build import library
     rows, chunk = ctypes.c_int(), ctypes.c_int()
@@ -90,14 +115,19 @@ def column_splits(nloc: int, nfull: int, sms: int, m: int,
     waves on ``sms`` SMs, but no range narrower than one tile.  A function
     of the shapes, the width, the dtype and the card alone, so a run's
     summation order is fixed.  Past :data:`M_NARROW` the wide form's
-    blocks (:data:`WIDE_ROWS_PER_BLOCK` rows, one per force chunk)."""
+    blocks: :func:`wide_rows` rows each, and at float64 one per force
+    chunk."""
     if m <= M_NARROW:
         row_blocks = -(-nloc // ROWS_PER_BLOCK)
         want = -(-WAVES * sms * BLOCKS_PER_SM // row_blocks)
-    else:
+    elif float64:
         row_blocks = (-(-nloc // WIDE_ROWS_PER_BLOCK)
                       * -(-m // wide_chunk(m, float64)))
         want = -(-WAVES * sms * WIDE_BLOCKS_PER_SM // row_blocks)
+    else:
+        row_blocks = -(-nloc // wide_rows(m, False))
+        want = -(-WAVES * sms * TILE_BLOCKS_PER_SM[wide_class(m)]
+                 // row_blocks)
     return max(1, min(want, -(-nfull // COLS_PER_TILE)))
 
 

@@ -43,8 +43,9 @@ writing its result (``kill@serve:segN``, N the requests served so far).
 
 **Replica mode** (``serve/replicas.py``): a daemon given a ``replica``
 name runs as one of N over a shared spool.  It writes a
-``<replica>.beat.json`` heartbeat before every tick and names itself in
-each claim lock; the claim stale-break folds in the holder's pid and
+``<replica>.beat.json`` heartbeat before every tick and after each step
+of it that makes progress (a claim pass that claimed, a bucket
+dispatched, computed or written), and names itself in each claim lock; the claim stale-break folds in the holder's pid and
 heartbeat (dead: break now; alive and beating: never; anonymous: the age
 rule); past ``shed_depth`` pending requests, bulk requests are refused
 with a ``retry_after_ms`` hint, and express is never shed before bulk.
@@ -332,14 +333,21 @@ class ServeDaemon:
         return sorted(os.path.join(self.spool, n) for n in names
                       if n.endswith(REQ_SUFFIX))
 
-    def _beat(self) -> None:
-        """One heartbeat a tick, written BEFORE the tick body: a tick that
-        hangs leaves a beat that ages past ``stale_ms`` while the pid
-        lives, the evidence the supervisor's hung triage and the claims'
-        stale verdict key on.  A solo daemon writes none."""
+    def _beat(self, progress: bool = False) -> None:
+        """The replica's heartbeat, written BEFORE each tick body (``seq``
+        counts the ticks) and again, with the tick's ``seq`` and a fresh
+        clock, after each step of the tick that made progress
+        (``progress``): the claim pass, a bucket dispatched, a bucket
+        computed and its results written.  So a healthy tick longer than
+        ``stale_ms`` (a loaded host, a slow first bucket) keeps its beat
+        fresh, while a tick that hangs — at its start or inside one step
+        — writes no more, and its beat ages past ``stale_ms`` while the
+        pid lives: the evidence the supervisor's hung triage and the
+        claims' stale verdict key on.  A solo daemon writes none."""
         if not self.replica:
             return
-        self._beat_seq += 1
+        if not progress:
+            self._beat_seq += 1
         quorum.write_beat(self.spool, self.replica, self._beat_seq,
                           [r.rid for r in self._claimed.values()])
 
@@ -593,6 +601,7 @@ class ServeDaemon:
             rows += int(x.shape[0])
         if not claimed:
             return 0
+        self._beat(progress=True)
         done = 0
         try:
             with obtrace.span("serve.drain", cat="serve",
@@ -605,6 +614,7 @@ class ServeDaemon:
                                         bucket=self.bucket, iters=self.iters,
                                         eta=self.eta)
                     offs[mid] = 0
+            self._beat(progress=True)
             per_req = sp.seconds / len(claimed)
             for req_path, lock, x, mid, epoch in claimed:
                 b, off = int(x.shape[0]), offs[mid]
@@ -616,6 +626,7 @@ class ServeDaemon:
                              model_id=mid, epoch=epoch)
                 offs[mid] = off + b
                 done += 1
+                self._beat(progress=True)
             claimed = []
         finally:
             for _, lock, _, _, _ in claimed:
@@ -751,7 +762,9 @@ class ServeDaemon:
         if inj:
             inj.fire("serve")  # oom / delay / hang at tick start
         progress = bool(self._control_pass())
-        progress = bool(self._claim_pass()) or progress
+        if self._claim_pass():
+            self._beat(progress=True)
+            progress = True
         now = walltime()
         while (len(self.inflight) < self.depth
                and self.batcher.ready(now, device_idle=not self.inflight)):
@@ -759,11 +772,13 @@ class ServeDaemon:
             if batch is None:
                 break
             self._dispatch(batch)
+            self._beat(progress=True)
             progress = True
             now = walltime()
         done = 0
         if self.inflight:
             done = self._resolve(self.inflight.pop(0))
+            self._beat(progress=True)
             progress = True
         self._progress = progress
         return done
@@ -786,7 +801,8 @@ class ServeDaemon:
 
     def serve_forever(self, max_ticks: int | None = None) -> dict:
         """Poll the spool until ``max_ticks`` or ``idle_exit_s`` of idling;
-        returns :meth:`summary`.  A replica beats before every tick; the
+        returns :meth:`summary`.  A replica beats before every tick and
+        after each step of it that made progress (:meth:`_beat`); the
         watchdog (when given) is beaten after it, so a wedged tick stops
         its beat and the watchdog ends the process.  The poll interval
         doubles on every empty scan up to ``poll_max_ms`` and snaps back
