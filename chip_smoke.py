@@ -4410,10 +4410,10 @@ def wide_kernel_gates():
     # the geometry the Python side mirrors (the memory model's split
     # count and slab) is the kernels' own
     for m in range(1, 2 * max(WIDE_MS) + 1):
-        check(att.kernel_wide_config(m) == (M_NARROW, att.WIDE_DIMS,
-                                            att.wide_chunks(m))
-              and all(rc.kernel_wide_config(m, f) == (
-                  M_NARROW, rc.wide_rows(m, f), rc.wide_chunk(m, f))
+        check(all(att.kernel_wide_config(m, f) == (
+                  M_NARROW, att.wide_dims(f), att.wide_chunks(m, f))
+                  and rc.kernel_wide_config(m, f) == (
+                      M_NARROW, rc.wide_rows(m, f), rc.wide_chunk(m, f))
                   for f in (False, True)),
               f"[wide] m={m}: the Python geometry is not the kernels'")
     print(f"[wide] the wide forms' geometry (M_NARROW, B2w's rows a block "
@@ -4456,22 +4456,37 @@ def wide_kernel_gates():
     return errs
 
 
+def wide_b2_bound(n, m, isz):
+    """B2w's bound at N rows and width m on the card's fastest pipe for
+    each part of the work.  Float32: the (5m + 3)·N² operations (m
+    differences and m FMAs of d², m FMAs of the force) plus N² reciprocals
+    at RCP64_OPS each on the FP32 pipe (the force's product form cancels
+    there, so it has no tensor-core rate).  Float64, at every m: the
+    force's Σq²·y_j (2m·N²) on the FP64 tensor cores beside the pipe's
+    (3m + 3)·N² + reciprocals, the larger of the two times (the product
+    form holds float64's bar).  y read, rep and Z written once."""
+    nbytes = n * m * isz + n * (m + 1) * isz
+    if isz == 4:
+        return bound((5.0 * m + 3 + RCP64_OPS) * n * n, nbytes)
+    pipe = bound((3.0 * m + 3 + RCP64_OPS) * n * n, nbytes, PEAK_FP64_FLOPS)
+    tc = bound(2.0 * m * n * n, nbytes, PEAK_FP64_TC_FLOPS)
+    return max(pipe, tc)
+
+
 def wide_bounds(n, m, isz, hval, e_tail):
     """The wide forms' bounds at [full]'s CSR (head ``hval``, ``e_tail``
-    tail edges) and width m: B2 by operations ((5m + 3)·N² at the FP32 or
-    FP64 pipe plus N² reciprocals at RCP64_OPS each; y read, rep and Z
-    written once), B3-B5 the larger of their (6m + 10) operations a set
-    slot and their bytes (the head's values and its set ids, 4 + isz
-    bytes a tail edge and the row pointer, y read once in m·isz-byte
-    rows, and their own planes)."""
+    tail edges) and width m: B2 by operations (``wide_b2_bound``), B3-B5
+    the larger of their (6m + 10) operations a set slot and their bytes
+    (the head's values and its set ids, 4 + isz bytes a tail edge and the
+    row pointer, y read once in m·isz-byte rows, and their own
+    planes)."""
     peak = PEAK_FP64_FLOPS if isz == 8 else PEAK_FP32_FLOPS
     nnz = int((hval > 0).sum())
     head = hval.numel() * isz + nnz * 4
     tail = (4.0 + isz) * e_tail + 8.0 * (n + 1)
     ops = (6.0 * m + 10.0) * (nnz + e_tail)  # |y_j|², y_i·y_j, the force
     return {
-        "B2w": bound((5.0 * m + 3 + RCP64_OPS) * n * n,
-                     n * m * isz + n * (m + 1) * isz, peak),
+        "B2w": wide_b2_bound(n, m, isz),
         "B3w": bound(ops, head + tail + 7 * n * m * isz + n * isz, peak),
         "B4w": bound(ops, head + tail + n * m * isz + 2 * n * isz, peak),
         "B5w": bound(ops, head + tail + 2 * n * m * isz, peak)}

@@ -55,7 +55,11 @@ cut and at the full 68,579 x 32,738 (the ms a chunk over the round's full
 chunks in sequence after an L2 flush, the median (min-max) of 3, and a
 digest of the chunks' outputs).  ``--wide`` times B2w (and B2w_f64) at
 60,000 rows of a seeded 10·N(0, 1) y at m = 16 and 64 (the median
-(min-max) of 3 means of 5 launches, and the output's digest).  ``--b6``
+(min-max) of 3 means of 5 launches, and the output's digest), then B3w,
+B5w and B4w (and their float64 forms) over ``[full]``'s CSR head + tail
+at the same y (B3w's step hubs first, Z fixed at N²/3,000; the median
+(min-max) of 3 means of 20 launches taken in turns, and each output's
+digest).  ``--b6``
 runs the
 ``[project]`` run and B6's stages alone; ``--b1`` runs B1 alone at
 60,000 x 784 in each class up to k = 1,024 and each form: k = 90 (the
@@ -92,7 +96,8 @@ def parse():
     ap.add_argument("--b6u", action="store_true",
                     help="B6u / B6u_f64 on the raw counts' refine chunks")
     ap.add_argument("--wide", action="store_true",
-                    help="B2w / B2w_f64 at 60,000 x 16 and x 64")
+                    help="B2w-B5w and their float64 forms at 60,000 x 16 "
+                    "and x 64")
     ap.add_argument("--forms", action="store_true",
                     help="B6's staged form against its unstaged form "
                     "forced, at F = 128, 784 and 12,288")
@@ -439,6 +444,63 @@ def wide_b2(cs):
             del y, out
 
 
+def wide_csr(cs, att, x_np, cfg):
+    """B3w, B4w and B5w (and their float64 forms) over [full]'s CSR head +
+    tail at m = 16 and 64, on a seeded spread y (the B2w one): B3w's step
+    with the rows hubs first as optimize runs it, B5w's forces and B4w's
+    KL over head + tail, each with its digest and its time (the median
+    (min-max) of 3 means of 20 launches, taken in turns)."""
+    import numpy as np
+    from tsne_flink_tpu_torch.models.tsne import (_plan_layout,
+                                                  _without_padding)
+    from tsne_flink_tpu_torch.ops.repulsion_cuda import cuda_exact_repulsion
+    from tsne_flink_tpu_torch.utils.artifacts import prepare
+    prep = prepare(x_np, neighbors=90, perplexity=30.0)
+    _, csr = _plan_layout(prep.jidx, prep.jval, cfg)
+    del prep
+    hidx = csr[0]
+    n = hidx.shape[0]
+    tail = _without_padding(csr[2:])
+    for m in (16, 64):
+        y0 = 10.0 * np.random.default_rng(m).standard_normal((n, m))
+        rng = np.random.default_rng(100 + m)
+        upd0 = 1e-2 * rng.standard_normal((n, m))
+        gains0 = 1.0 + rng.random((n, m))
+        for dt in (torch.float32, torch.float64):
+            sfx = "_f64" if dt == torch.float64 else ""
+            y = torch.from_numpy(y0).to("cuda", dt)
+            hval = csr[1].to(dt)
+            rag = att.ragged_edges(tail[0], tail[1], tail[2].to(dt), n)
+            order = att.visit_order(rag)
+            rep, _ = cuda_exact_repulsion(y, row_z=True)
+            # a fixed Z, so B4w's output does not follow B2w's bits
+            z = torch.tensor(n * n / 3000.0, dtype=dt, device="cuda")
+            upd = torch.from_numpy(upd0).to("cuda", dt)
+            gains = torch.from_numpy(gains0).to("cuda", dt)
+            fns = {
+                "B3w": lambda: att.fused_step_update(
+                    y, y, hidx, hval, 4.0, rep, z, None, upd, gains, 0.8,
+                    eta=1000.0, min_gain=0.01, ragged=rag, order=order),
+                "B5w": lambda: att.attraction_forces(y, y, hidx, hval, 4.0,
+                                                     ragged=rag),
+                "B4w": lambda: att.attraction_loss(y, y, hidx, hval, 4.0, z,
+                                                   ragged=rag)}
+            outs = {}
+            for kid, fn in fns.items():
+                out = fn()
+                outs[kid] = digest(*(out if isinstance(out, tuple)
+                                     else (out,)))
+            times = {kid: [] for kid in fns}
+            for _ in range(3):
+                for kid in [*fns, *reversed(fns)]:
+                    times[kid].append(cs.cuda_ms(fns[kid], 20, 0))
+            for kid in fns:
+                print(f"[regress] {kid}{sfx} [full]'s CSR {n}x{m}, W="
+                      f"{hidx.shape[1]} + {int(rag.dst.shape[0])} tail "
+                      f"edges: {spread(times[kid])}; out {outs[kid]}")
+            del y, rep, upd, gains, hval, rag, order
+
+
 def main():
     args = parse()
     root = os.path.abspath(args.root)
@@ -475,6 +537,7 @@ def main():
     if args.b6u or args.wide:
         if args.wide:
             wide_b2(cs)
+            wide_csr(cs, att, x_np, cfg)
         if args.b6u:
             b6u_chunks(cs)
         return

@@ -2613,20 +2613,30 @@ def test_wide_repulsion_matches_plain(dev, n, m, dtype):
     assert got == {kid: 2, "B2": 0, "B2_f64": 0}
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("m", [16, 64])
-def test_wide_repulsion_far_from_the_origin_holds_to_float64(dev, m):
+def test_wide_repulsion_far_from_the_origin_holds_to_float64(dev, m, dtype):
     """B2w on rows far from the origin (y = 1e3 + 10·N(0, 1)): against a
     float64 evaluation its force and Z err at most twice the plain float32
     version's own (it forms each difference y_i − y_j from the
     coordinates, as the plain version does; the norm trick would cancel
-    here), and it holds to the plain version at rtol 2e-5 of the max."""
+    here), and it holds to the plain version at rtol 2e-5 of the max.
+    B2w_f64 there (past m = 16 its force in product form, which cancels
+    ~100x at these rows) holds to its plain version at 1e-12 of the max,
+    two launches bit for bit."""
     rng = np.random.default_rng(1000 + m)
     n = 6007
     y = torch.from_numpy(1e3 + 10.0 * rng.standard_normal((n, m))).to(
-        dev, torch.float32)
+        dev, dtype)
     rk, zk = cuda_exact_repulsion(y, row_z=True)
     chunk = max(64, 16384 // m)
     rp, zp = exact_repulsion(y, row_z=True, row_chunk=chunk)
+    if dtype == torch.float64:
+        _close_scaled(rk, rp, _wide_rtol(dtype)[0])
+        _close_scaled(zk, zp, _wide_rtol(dtype)[0])
+        again = cuda_exact_repulsion(y, row_z=True)
+        assert torch.equal(again[0], rk) and torch.equal(again[1], zk)
+        return
     r64, z64 = exact_repulsion(y.double(), row_z=True, row_chunk=chunk)
     for got, plain, want in ((rk, rp, r64), (zk, zp, z64)):
         ek = float((got.double() - want).abs().max())
@@ -2670,7 +2680,7 @@ def _wide_ragged(dev, n, w, m, seed, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("m", [9, 16, 31, 64, 100, 129])
+@pytest.mark.parametrize("m", [9, 16, 31, 64, 100, 129, 300])
 @pytest.mark.parametrize("w", [0, 90])
 def test_wide_forces_and_loss_match_plain(dev, m, w, dtype):
     """B5w and B4w over a row block and a ragged edge part (a hub row of
@@ -2706,7 +2716,7 @@ def test_wide_forces_and_loss_match_plain(dev, m, w, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("m", [9, 16, 64, 129])
+@pytest.mark.parametrize("m", [9, 16, 64, 129, 300])
 def test_wide_fused_step_is_the_unfused_step(dev, m, dtype):
     """B3w's one launch over a CSR head and tail, with a mask: the unfused
     step (B5w over head + tail, att − rep/Z, the vdM update) bit for bit,
@@ -2749,6 +2759,53 @@ def test_wide_fused_step_is_the_unfused_step(dev, m, dtype):
     rtol = _wide_rtol(dtype)[1]
     for a, b in zip(ok[:2] + ok[3:], op[:2] + op[3:]):
         _close_scaled(a, b, rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("m", [16, 64])
+def test_wide_slot_walk_at_the_ragged_extremes(dev, m, dtype):
+    """B5w and B3w where their slot walk is most uneven: a CSR head [n, 64]
+    (30% padding) whose row 2 is all padding, and a tail whose row 0 is a
+    hub of 3,500 edges while rows 1 and 2 have none (row 2 has no slot at
+    all).  B5w against its plain version, row 2's force exactly 0; B3w,
+    hubs first, the unfused step bit for bit; two launches of each bit
+    for bit."""
+    rng = np.random.default_rng(3500 + m)
+    n, w = 900, 64
+
+    def t(a, dt=dtype):
+        return torch.from_numpy(np.asarray(a)).to(dev, dt)
+    y = t(3.0 * rng.standard_normal((n, m)))
+    hidx = t(rng.integers(0, n, (n, w)), torch.int32)
+    v = rng.random((n, w)) * 1e-3
+    v[rng.random((n, w)) < 0.3] = 0.0
+    v[2] = 0.0
+    hval = t(v)
+    deg = rng.integers(0, 12, n)
+    deg[0], deg[1], deg[2] = 3500, 0, 0
+    rag = att.ragged_edges(t(np.repeat(np.arange(n), deg), torch.int32),
+                           t(rng.integers(0, n, int(deg.sum())), torch.int32),
+                           t(rng.random(int(deg.sum())) * 1e-3), n)
+    fk = att.attraction_forces(y, y, hidx, hval, 4.0, ragged=rag)
+    assert torch.equal(fk, att.attraction_forces(y, y, hidx, hval, 4.0,
+                                                 ragged=rag))
+    _close_scaled(fk, att.attraction_forces_plain(y, y, hidx, hval, 4.0,
+                                                  ragged=rag),
+                  _wide_rtol(dtype)[0])
+    assert not bool(fk[2].any())
+    rep = t(1e-1 * rng.standard_normal((n, m)))
+    z = torch.tensor(1.0 + 0.37 * m, device=dev, dtype=dtype)
+    upd = t(1e-2 * rng.standard_normal((n, m)))
+    gains = t(1.0 + rng.random((n, m)))
+    args = (y, y, hidx, hval, 4.0, rep, z, None, upd, gains, 0.5)
+    kw = dict(eta=200.0, min_gain=0.01, ragged=rag,
+              order=att.visit_order(rag))
+    got = att.fused_step_update(*args, **kw)
+    for a, b in zip(got[:3], _unfused_step(y, fk, rep, z, upd, gains, 0.5,
+                                           200.0)):
+        assert torch.equal(a, b)
+    for a, b in zip(got, att.fused_step_update(*args, **kw)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
@@ -2825,9 +2882,9 @@ def test_wide_geometry_mirrors_the_kernels(dev):
     from tsne_flink_tpu_torch.ops import attraction_cuda as att
     from tsne_flink_tpu_torch.ops import repulsion_cuda as rc
     for m in range(1, 521):
-        assert att.kernel_wide_config(m) == (M_NARROW, att.WIDE_DIMS,
-                                             att.wide_chunks(m))
         for f64 in (False, True):
+            assert att.kernel_wide_config(m, f64) == (
+                M_NARROW, att.wide_dims(f64), att.wide_chunks(m, f64))
             assert rc.kernel_wide_config(m, f64) == (
                 M_NARROW, rc.wide_rows(m, f64), rc.wide_chunk(m, f64))
 

@@ -338,29 +338,34 @@ def test_thread_mesh_at_m12_gives_mesh_1_bits():
 @pytest.mark.parametrize("m", [9, 16, 17, 64, 256])
 def test_wide_column_splits_fill_the_card_and_cover_the_columns(sms, m):
     """Past M_NARROW the split count follows the wide form's blocks
-    (float64: 128 rows, one per force chunk of 16 dims; float32: tiles of
-    4,096 pairs, 4,096 / the width class rows, all dims at once), never
-    narrower than a tile; a function of (rows, columns, SMs, m, dtype)
-    alone."""
+    (float64: 128 rows of one thread each at m <= 16, tiles of 32 rows
+    past it; float32: tiles of 4,096 pairs, 4,096 / the width class rows),
+    all dims at once, never narrower than a tile; a function of (rows,
+    columns, SMs, m, dtype) alone.  B3w / B5w run a force chunk per 256
+    dims at float32, per 128 at float64."""
     cls = 16 if m <= 16 else 32 if m <= 32 else 64
-    assert trc.wide_class(m) == cls
+    cls64 = 16 if m <= 16 else 64
+    assert trc.wide_class(m) == cls and trc.wide_class64(m) == cls64
     for f64 in (False, True):
         c = trc.wide_chunk(m, f64)
-        assert c == (16 if f64 else cls)
+        assert c == (cls64 if f64 else cls)
         rows = trc.wide_rows(m, f64)
-        assert rows == (128 if f64 else 4096 // cls)
-        per_sm = 4 if f64 or m <= 16 else 2
+        assert rows == ((128 if m <= 16 else 32) if f64 else 4096 // cls)
+        per_sm = (4 if m <= 16 else 3) if f64 else 4 if m <= 16 else 2
         for nloc, nfull in ((60_000, 60_000), (256, 60_000), (7, 7),
                             (30_000, 60_000)):
             s = trc.column_splits(nloc, nfull, sms, m, f64)
-            blocks = -(-nloc // rows) * (-(-m // c) if f64 else 1)
+            blocks = -(-nloc // rows)
             assert 1 <= s <= max(1, -(-nfull // trc.COLS_PER_TILE))
             if s > 1:
                 assert (s - 1) * blocks < 2 * sms * per_sm
     # m <= 8 keeps the narrow rule
     assert trc.column_splits(60_000, 60_000, 132, 8, False) == \
         trc.column_splits(60_000, 60_000, 132, 2, False) == 36
-    assert tatt.wide_chunks(128) == 1 and tatt.wide_chunks(129) == 2
+    assert tatt.wide_chunks(256, False) == 1 and \
+        tatt.wide_chunks(257, False) == 2
+    assert tatt.wide_chunks(128, True) == 1 and \
+        tatt.wide_chunks(129, True) == 2
 
 
 @pytest.mark.parametrize("dtype,isz", [("float32", 4), ("float64", 8)])

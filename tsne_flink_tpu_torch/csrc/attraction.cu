@@ -401,172 +401,11 @@ loss_kernel(const T* __restrict__ y_loc, const T* __restrict__ y_full,
   if (lane == 0) loss_rows[i] = FWD && RAG ? fwd + rag : FWD ? fwd : rag;
 }
 
-// ---- the wide forms (B3w, B4w, B5w and their _f64 forms): any m ------------
-//
-// At wide m a lane cannot hold a neighbour's point.  The lanes of a warp
-// split a row's dimensions instead: lane l owns dimensions l + 32·g (g a
-// group of 32), one coalesced load of y_full[j] a group serves the warp,
-// and the warp walks the row's slots in order, WU at a time, skipping
-// padding (value 0 adds exactly 0).  A slot's d² — the forward part's
-// norm-trick terms |y_j|² and y_i·y_j, the ragged part's Σ(y_i − y_j)² —
-// is a per-lane partial over the groups in order, then a butterfly (a
-// fixed order: every lane holds the same bits), so each lane has the
-// slot's q and adds its own dimensions' terms; the running sums (Σw, the
-// KL) are the same in every lane.  A lane keeps WG groups (128 dims) in
-// registers; past that a second grid dimension runs ceil(m / 128) force
-// chunks of a row, each recomputing d² over all m with the same
-// operations in the same order.  B4 runs one chunk (its loss needs no
-// force); B3 writes each chunk's ‖grad‖² partial, summed outside.
-//
-// The contract is the narrow kernels': the forward part's distances by the
-// norm trick clamped at 0, the ragged part's by differences, each part's
-// sums in its own accumulators, every product and sum rounded on its own,
-// no atomics.  The sums over a row's slots are compensated (Kahan).  B3 and B5 share the walk
-// (wide_row, wide_walk, wide_forces), so B3's att is B5's bits and the
-// fused step the unfused one's.
-constexpr int WG = 4;  // groups of 32 dims a lane keeps: 128 dims a chunk
-constexpr int WU = 4;  // slots a warp takes at a time
-
-template <class T>
-struct WideRow {
-  int m, ng, g0, gn;  // the width, its groups, the chunk's first and count
-  const T* yi;        // the row in y_loc
-  T yc[WG];           // the lane's coordinates in the chunk's groups
-  T rr;               // |y_i|², the same in every lane
-};
-
-template <class T>
-__device__ __forceinline__ T dim_of(const T* __restrict__ row, int m, int g,
-                                    int lane) {
-  const int d = 32 * g + lane;
-  return d < m ? row[d] : T(0);
-}
-
-template <class T>
-__device__ __forceinline__ void wide_row(const T* __restrict__ y_loc, int i,
-                                         int m, int chunk, int lane,
-                                         WideRow<T>& w) {
-  using N = tsne::Num<T>;
-  w.m = m;
-  w.ng = (m + 31) / 32;
-  w.g0 = chunk * WG;
-  w.gn = min(WG, w.ng - w.g0);
-  w.yi = y_loc + (size_t)i * m;
-#pragma unroll
-  for (int u = 0; u < WG; ++u)
-    w.yc[u] = u < w.gn ? dim_of(w.yi, m, w.g0 + u, lane) : T(0);
-  T rr = T(0);
-  for (int g = 0; g < w.ng; ++g) {
-    const T v = dim_of(w.yi, m, g, lane);
-    rr = N::add(rr, N::mul(v, v));
-  }
-  w.rr = tsne::warp_sum(rr);
-}
-
-// q of WU slots (ids j, live where a slot is taken; FWD: the norm trick,
-// else differences) and the chunk's groups of their points in yj
-template <class T, bool FWD>
-__device__ __forceinline__ void wide_slots(const WideRow<T>& w,
-                                           const T* __restrict__ y_full,
-                                           const int (&j)[WU],
-                                           const bool (&live)[WU], int lane,
-                                           T (&yj)[WU][WG], T (&q)[WU]) {
-  using N = tsne::Num<T>;
-  T pa[WU], pb[WU];
-#pragma unroll
-  for (int u = 0; u < WU; ++u) pa[u] = pb[u] = T(0);
-  auto add = [&](int u, T a, T b) {
-    if constexpr (FWD) {
-      pa[u] = N::add(pa[u], N::mul(b, b));
-      pb[u] = N::add(pb[u], N::mul(a, b));
-    } else {
-      const T df = N::sub(a, b);
-      pa[u] = N::add(pa[u], N::mul(df, df));
-    }
-  };
-  // the groups before the chunk, the chunk's, the groups after it: the
-  // partials take g = 0 .. ng − 1 in order whatever the chunk
-  for (int g = 0; g < w.g0; ++g)
-#pragma unroll
-    for (int u = 0; u < WU; ++u)
-      if (live[u])
-        add(u, dim_of(w.yi, w.m, g, lane),
-            dim_of(y_full + (size_t)j[u] * w.m, w.m, g, lane));
-#pragma unroll
-  for (int ug = 0; ug < WG; ++ug)
-#pragma unroll
-    for (int u = 0; u < WU; ++u)
-      yj[u][ug] = live[u] && ug < w.gn
-                      ? dim_of(y_full + (size_t)j[u] * w.m, w.m, w.g0 + ug,
-                               lane)
-                      : T(0);
-#pragma unroll
-  for (int ug = 0; ug < WG; ++ug)
-    if (ug < w.gn)
-#pragma unroll
-      for (int u = 0; u < WU; ++u)
-        if (live[u]) add(u, w.yc[ug], yj[u][ug]);
-  for (int g = w.g0 + w.gn; g < w.ng; ++g)
-#pragma unroll
-    for (int u = 0; u < WU; ++u)
-      if (live[u])
-        add(u, dim_of(w.yi, w.m, g, lane),
-            dim_of(y_full + (size_t)j[u] * w.m, w.m, g, lane));
-#pragma unroll
-  for (int u = 0; u < WU; ++u) {
-    T d2;
-    if constexpr (FWD)
-      d2 = N::max(N::sub(N::add(w.rr, tsne::warp_sum(pa[u])),
-                         N::mul(T(2), tsne::warp_sum(pb[u]))),
-                  T(0));
-    else
-      d2 = tsne::warp_sum(pa[u]);
-    q[u] = N::rcp(N::add(T(1), d2));
-  }
-}
-
-// Walks a part's slots [0, len) (value vals[c], id ids[c], read only where
-// the value is set) in order: 32 a batch, one a lane, then the set ones WU
-// at a time, each handed to f(value, its point's chunk groups, q).
-template <class T, bool FWD, class F>
-__device__ __forceinline__ void wide_walk(const WideRow<T>& w,
-                                          const T* __restrict__ y_full,
-                                          const int* __restrict__ ids,
-                                          const T* __restrict__ vals,
-                                          long long len, int lane, F&& f) {
-  for (long long at = 0; at < len; at += 32) {
-    const long long c = at + lane;
-    const T v = c < len ? vals[c] : T(0);
-    const int jid = v > T(0) ? ids[c] : 0;
-    unsigned set = __ballot_sync(tsne::kFullMask, v > T(0));
-    while (set) {
-      int j[WU];
-      bool live[WU];
-      T vv[WU];
-#pragma unroll
-      for (int u = 0; u < WU; ++u) {
-        live[u] = set != 0u;
-        const int src = live[u] ? __ffs((int)set) - 1 : 0;
-        set &= set - 1u;
-        vv[u] = __shfl_sync(tsne::kFullMask, v, src);
-        j[u] = __shfl_sync(tsne::kFullMask, jid, src);
-      }
-      T yj[WU][WG], q[WU];
-      wide_slots<T, FWD>(w, y_full, j, live, lane, yj, q);
-#pragma unroll
-      for (int u = 0; u < WU; ++u)
-        if (live[u]) f(vv[u], yj[u], q[u]);
-    }
-  }
-}
-
-// A compensated (Kahan) running sum.  Every lane of a wide form walks all
-// of a row's slots in sequence — hundreds in a head block, thousands in a
-// hub's tail — where the narrow forms give each lane W/32 of them and
-// add the lanes by a butterfly.  Plain sequential sums lost ~6x the plain
-// version's accuracy against float64 at a converged m = 16 embedding,
-// where the forward part's y_i·Σw − Σw·y_j cancels; compensated ones
-// stay within it.  Each step is separately rounded (no FMA contraction).
+// A compensated (Kahan) running sum.  At a converged m = 16 embedding the
+// forward part's y_i·Σw − Σw·y_j cancels, and plain sequential sums over
+// a row's slots lose several times the plain version's accuracy against
+// float64; compensated ones stay within it.  Each step is separately
+// rounded (no FMA contraction).
 template <class T>
 struct Kahan {
   T s, c;
@@ -580,71 +419,536 @@ struct Kahan {
   }
 };
 
-// A row's forces in the lane's chunk dims: the forward part y_i·Σw − Σw·y_j
-// (w = v·exag·q) and the ragged part Σ w·(y_i − y_j), each sum over the
-// slots compensated (Kahan).
-template <class T, bool FWD, bool RAG>
-__device__ __forceinline__ void wide_forces(
-    const WideRow<T>& w, const T* __restrict__ y_full,
-    const int* __restrict__ ir, const T* __restrict__ vr, int wdt,
-    const int* __restrict__ dst, const T* __restrict__ val, long long e0,
-    long long e1, T exag, int lane, T (&fwd)[WG], T (&rag)[WG]) {
-  using N = tsne::Num<T>;
+// ---- the wide forms of B3 and B5 (B3w, B5w and their _f64 forms): any m --
+//
+// At wide m a lane cannot hold a neighbour's whole point, but a few lanes
+// can.  A point is cut into pieces of 32 bytes (DL = 8 dims at float32, 4
+// at float64: two 16-byte vectors), and a group of G lanes — the pieces
+// of m rounded up to a power of two, at most 32 — takes one slot at a
+// time, lane g of the group holding piece g of the row and of the slot's
+// point.  So a warp has 32 / G slots in flight (16 at m = 16 in float32, 8
+// at float64): the lanes take slots, as in the narrow forms, not dims.  A
+// group walks its slots of a part in order: it loads a slot's value and,
+// where the value is set, its id, then each lane gathers its piece of the
+// point (16-byte vectors where m and the bases allow), the loads running
+// two slots ahead of the arithmetic.  A slot's d² — the forward part's
+// norm-trick terms |y_j|² and y_i·y_j, the ragged part's Σ(y_i − y_j)² —
+// is the lane's partial over its piece and a log2(G)-step butterfly
+// inside the group, the same bits in every lane of the group.  Each lane
+// keeps running sums of its own slots for its piece's dims (Σw and Σw·y_j
+// of the forward part, Σw·(y_i − y_j) of the ragged one; compensated at
+// float32, LaneSum), and the groups meet once a part, in a fixed
+// butterfly order.  The row's force passes through shared memory (the
+// forward part parked there while the ragged one walks), so that the
+// epilogue (B5w's store, B3w's update and ‖grad‖²) takes a dim a lane,
+// coalesced.  What bounds the walk is the latency of its dependent loads
+// (value, id, point), so a lane holds few registers and an SM keeps many
+// warps in flight.  Past 32 pieces (256 dims at float32, 128 at float64)
+// a lane holds one piece of each force chunk: a second grid dimension runs
+// the chunks, each recomputing d² over all the lane's pieces in the same
+// order, and B3w writes a ‖grad‖² partial a chunk.
+//
+// The contract is the narrow kernels': the forward part's distances by the
+// norm trick clamped at 0, the ragged part's by differences, each part's
+// sums in its own accumulators, every product and sum rounded on its own,
+// no atomics; a padding slot (value 0) gathers nothing and adds nothing.
+// B3w and B5w share the walk (slot_row, slot_walk, slot_row_force), so
+// B3w's att is B5w's bits and the fused step the unfused one's.
+//
+// blocks of THREADS an SM keeps of B3w / B5w (their registers capped to
+// fit): more warps in flight beat spare registers
+constexpr int SLOT_BLOCKS = 3;
+
+// a lane's piece of a point: DL dims, L of them a 16-byte vector
+template <class T>
+struct Slice {
+  static constexpr int DL = 32 / (int)sizeof(T), L = 16 / (int)sizeof(T);
+  using V = std::conditional_t<std::is_same_v<T, double>, double2, float4>;
+};
+
+__device__ __forceinline__ void unpack_vec(const float4 v, float* o) {
+  o[0] = v.x;
+  o[1] = v.y;
+  o[2] = v.z;
+  o[3] = v.w;
+}
+__device__ __forceinline__ void unpack_vec(const double2 v, double* o) {
+  o[0] = v.x;
+  o[1] = v.y;
+}
+
+// piece p of a row of m values into out, zeros past m or without `take`;
+// 16-byte vectors when `vec` (m a multiple of L and the base aligned)
+template <class T>
+__device__ __forceinline__ void load_piece(const T* __restrict__ row, int m,
+                                           int p, bool take, bool vec,
+                                           T (&out)[Slice<T>::DL]) {
+  constexpr int DL = Slice<T>::DL, L = Slice<T>::L;
+  using V = typename Slice<T>::V;
+  const int d0 = p * DL;
 #pragma unroll
-  for (int u = 0; u < WG; ++u) rag[u] = fwd[u] = T(0);
-  if constexpr (FWD) {
-    Kahan<T> sw, swy[WG];
-    wide_walk<T, true>(w, y_full, ir, vr, wdt, lane,
-                       [&](T v, const T (&yj)[WG], T q) {
-                         const T wt = N::mul(N::mul(v, exag), q);
-                         sw.add(wt);
+  for (int e = 0; e < DL; ++e) out[e] = T(0);
+  if (!take) return;
+  if (vec) {
 #pragma unroll
-                         for (int u = 0; u < WG; ++u)
-                           swy[u].add(N::mul(wt, yj[u]));
-                       });
+    for (int v = 0; v < DL / L; ++v)
+      if (d0 + v * L < m)
+        unpack_vec(__ldg(reinterpret_cast<const V*>(row + d0) + v),
+                   out + v * L);
+  } else {
 #pragma unroll
-    for (int u = 0; u < WG; ++u)
-      fwd[u] = N::sub(N::mul(w.yc[u], sw.s), swy[u].s);
-  }
-  if constexpr (RAG) {
-    Kahan<T> acc[WG];
-    wide_walk<T, false>(w, y_full, dst + e0, val + e0, e1 - e0, lane,
-                        [&](T v, const T (&yj)[WG], T q) {
-                          const T wt = N::mul(N::mul(v, exag), q);
-#pragma unroll
-                          for (int u = 0; u < WG; ++u)
-                            acc[u].add(N::mul(wt, N::sub(w.yc[u], yj[u])));
-                        });
-#pragma unroll
-    for (int u = 0; u < WG; ++u) rag[u] = acc[u].s;
+    for (int e = 0; e < DL; ++e)
+      if (d0 + e < m) out[e] = __ldg(row + d0 + e);
   }
 }
 
+// the sum over the G lanes of a group (every lane ends with the same bits)
+template <class T>
+__device__ __forceinline__ T group_sum(T v, int g) {
+  for (int off = 1; off < g; off <<= 1)
+    v = tsne::Num<T>::add(v, __shfl_xor_sync(tsne::kFullMask, v, off));
+  return v;
+}
+
+// the sum over the 32 / G groups of a warp, lane by lane of a group
+template <class T>
+__device__ __forceinline__ T cross_sum(T v, int g) {
+  for (int off = g; off < 32; off <<= 1)
+    v = tsne::Num<T>::add(v, __shfl_xor_sync(tsne::kFullMask, v, off));
+  return v;
+}
+
+template <class T>
+struct SlotRow {
+  int m, g, s, gl;    // the width, the lanes a slot, the lane's group, its
+                      // lane in the group
+  int r, chunk;       // the pieces a lane walks, the launch's chunk
+  bool vec;           // 16-byte gathers
+  const T* yi;        // the row in y_loc
+  T yc[Slice<T>::DL]; // the row's piece in the chunk (piece gl + g·chunk)
+  T rr;               // |y_i|², the same in every lane
+};
+
+template <class T>
+__device__ __forceinline__ void slot_row(const T* __restrict__ y_loc, int i,
+                                         int m, int chunk, bool vec, int lane,
+                                         SlotRow<T>& w) {
+  using N = tsne::Num<T>;
+  constexpr int DL = Slice<T>::DL;
+  const int pieces = (m + DL - 1) / DL;
+  int g = 1;
+  while (g < pieces && g < 32) g <<= 1;
+  w.m = m;
+  w.g = g;
+  w.s = lane / g;
+  w.gl = lane % g;
+  w.r = (pieces + g - 1) / g;
+  w.chunk = chunk;
+  w.vec = vec;
+  w.yi = y_loc + (size_t)i * m;
+  load_piece<T>(w.yi, m, w.gl + g * chunk, true, vec, w.yc);
+  T rr = T(0);
+  for (int r = 0; r < w.r; ++r) {
+    T v[DL];
+    load_piece<T>(w.yi, m, w.gl + g * r, true, vec, v);
+#pragma unroll
+    for (int e = 0; e < DL; ++e) rr = N::add(rr, N::mul(v[e], v[e]));
+  }
+  w.rr = group_sum(rr, g);
+}
+
+// The lane's partials of a slot's d² over its pieces in order (the
+// chunk's from registers, any other — past one force chunk — a value at a
+// time from memory): FWD |y_j|² in pa and y_i·y_j in pb, else Σ(y_i −
+// y_j)² in pa.
+template <class T, bool FWD>
+__device__ __forceinline__ void slot_partial(const SlotRow<T>& w,
+                                             const T* __restrict__ yrow,
+                                             bool take,
+                                             const T (&yj)[Slice<T>::DL],
+                                             T& pa, T& pb) {
+  using N = tsne::Num<T>;
+  constexpr int DL = Slice<T>::DL;
+  pa = pb = T(0);
+  auto add = [&](T a, T b) {
+    if constexpr (FWD) {
+      pa = N::add(pa, N::mul(b, b));
+      pb = N::add(pb, N::mul(a, b));
+    } else {
+      const T df = N::sub(a, b);
+      pa = N::add(pa, N::mul(df, df));
+    }
+  };
+  for (int r = 0; r < w.r; ++r) {
+    if (r == w.chunk) {
+#pragma unroll
+      for (int e = 0; e < DL; ++e) add(w.yc[e], yj[e]);
+    } else {
+      const int d0 = (w.gl + w.g * r) * DL;
+      for (int e = 0; e < DL; ++e) {
+        const int d = d0 + e;
+        add(d < w.m ? __ldg(w.yi + d) : T(0),
+            take && d < w.m ? __ldg(yrow + d) : T(0));
+      }
+    }
+  }
+}
+
+// slot c of a part: its value (0 past len) and, where it is set, its id
+// (a padded layout reads no id for a padding slot)
+template <class T>
+__device__ __forceinline__ T slot_val(const T* __restrict__ vals,
+                                      long long len, long long c) {
+  return c < len ? vals[c] : T(0);
+}
+__device__ __forceinline__ int slot_id(const int* __restrict__ ids,
+                                       long long c, bool set) {
+  return set ? ids[c] : 0;
+}
+
+// Walks a part's slots [0, len) (value vals[c], id ids[c]): the group
+// takes slots s, s + 32/G, ..., handing each set one to f(value, the
+// lane's piece of its point, q).  The loads run two slots ahead: while a
+// slot's point is gathered and summed, the next slot's id and the one
+// after's value load, so a slot waits on one memory latency, not three.
+template <class T, bool FWD, class F>
+__device__ __forceinline__ void slot_walk(const SlotRow<T>& w,
+                                          const T* __restrict__ y_full,
+                                          const int* __restrict__ ids,
+                                          const T* __restrict__ vals,
+                                          long long len, F&& f) {
+  using N = tsne::Num<T>;
+  constexpr int DL = Slice<T>::DL;
+  const int step = 32 / w.g;
+  const int p = w.gl + w.g * w.chunk;
+  if (len <= 0) return;
+  long long c = w.s;
+  T v = slot_val(vals, len, c), vn = slot_val(vals, len, c + step);
+  int j = slot_id(ids, c, v > T(0));
+  for (long long at = 0; at < len; at += step, c += step) {
+    T yj[DL];
+    load_piece<T>(y_full + (size_t)j * w.m, w.m, p, v > T(0), w.vec, yj);
+    const int jn = slot_id(ids, c + step, vn > T(0));
+    const T vnn = slot_val(vals, len, c + 2 * step);
+    if (__any_sync(tsne::kFullMask, v > T(0))) {  // else padding
+      T pa, pb;
+      slot_partial<T, FWD>(w, y_full + (size_t)j * w.m, v > T(0), yj, pa,
+                           pb);
+      T d2;
+      if constexpr (FWD)
+        d2 = N::max(N::sub(N::add(w.rr, group_sum(pa, w.g)),
+                           N::mul(T(2), group_sum(pb, w.g))),
+                    T(0));
+      else
+        d2 = group_sum(pa, w.g);
+      const T q = N::rcp(N::add(T(1), d2));
+      if (v > T(0)) f(v, yj, q);
+    }
+    v = vn;
+    vn = vnn;
+    j = jn;
+  }
+}
+
+// A lane's running sum over its slots: compensated at float32, where a
+// group of many lanes a slot leaves a lane a long run of slots (all of a
+// row's at 32 lanes a slot); plain at float64, whose rounding sits far
+// below its bars.
+template <class T>
+struct PlainSum {
+  T s = T(0);
+  __device__ __forceinline__ void add(T x) { s = tsne::Num<T>::add(s, x); }
+};
+template <class T>
+using LaneSum =
+    std::conditional_t<std::is_same_v<T, float>, Kahan<float>, PlainSum<T>>;
+
+// the dims of one force chunk of B3w / B5w: 32 lanes x a piece each
+// (ops/attraction_cuda.wide_dims)
+template <class T>
+__host__ __device__ constexpr int slot_chunk_dims() {
+  return 32 * Slice<T>::DL;
+}
+
+// Row i's force over the launch's chunk into the warp's buffer sh (the
+// chunk's dims [base, base + n) as sh[0 .. n)): the forward part y_i·Σw −
+// Σw·y_j (w = v·exag·q) and the ragged part Σ w·(y_i − y_j), each summed
+// by the lanes over their own slots and then by a butterfly over the
+// groups; sh takes the forward part, then forward + ragged as B5 adds
+// them.  Returns n.
 template <class T, bool FWD, bool RAG>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ int slot_row_force(
+    const T* __restrict__ y_loc, const T* __restrict__ y_full,
+    const int* __restrict__ ir, const T* __restrict__ vr, int w,
+    const long long* __restrict__ rowptr, const int* __restrict__ dst,
+    const T* __restrict__ val, int m, int i, int vec, T exag, int lane,
+    T* sh, int& base) {
+  using N = tsne::Num<T>;
+  constexpr int DL = Slice<T>::DL;
+  SlotRow<T> row;
+  slot_row<T>(y_loc, i, m, blockIdx.y, vec != 0, lane, row);
+  base = row.g * blockIdx.y * DL;
+  const int n = min(row.g * DL, m - base);
+  const int at = row.gl * DL;  // the lane's piece in the chunk
+  const bool mine = row.s == 0;
+  if constexpr (FWD) {
+    LaneSum<T> sw, swy[DL];
+    slot_walk<T, true>(row, y_full, ir + (size_t)i * w, vr + (size_t)i * w,
+                       w, [&](T v, const T (&yj)[DL], T q) {
+                         const T wt = N::mul(N::mul(v, exag), q);
+                         sw.add(wt);
+#pragma unroll
+                         for (int e = 0; e < DL; ++e)
+                           swy[e].add(N::mul(wt, yj[e]));
+                       });
+    const T swt = cross_sum(sw.s, row.g);
+#pragma unroll
+    for (int e = 0; e < DL; ++e) {
+      const T f = N::sub(N::mul(row.yc[e], swt), cross_sum(swy[e].s, row.g));
+      if (mine && at + e < n) sh[at + e] = f;
+    }
+  }
+  if constexpr (RAG) {
+    const long long e0 = rowptr[i], e1 = rowptr[i + 1];
+    LaneSum<T> rag[DL];
+    slot_walk<T, false>(row, y_full, dst + e0, val + e0, e1 - e0,
+                        [&](T v, const T (&yj)[DL], T q) {
+                          const T wt = N::mul(N::mul(v, exag), q);
+#pragma unroll
+                          for (int e = 0; e < DL; ++e)
+                            rag[e].add(N::mul(wt, N::sub(row.yc[e], yj[e])));
+                        });
+#pragma unroll
+    for (int e = 0; e < DL; ++e) {
+      const T r = cross_sum(rag[e].s, row.g);
+      if (mine && at + e < n) sh[at + e] = FWD ? N::add(sh[at + e], r) : r;
+    }
+  }
+  __syncwarp();
+  return n;
+}
+
+// the warp's force buffer: shared memory of ROWS_PER_BLOCK x
+// min(m, slot_chunk_dims) values
+template <class T>
+__device__ __forceinline__ T* warp_buffer(int m) {
+  extern __shared__ __align__(16) unsigned char slot_sh[];
+  return reinterpret_cast<T*>(slot_sh) +
+         (threadIdx.x >> 5) * min(m, slot_chunk_dims<T>());
+}
+
+template <class T, bool FWD, bool RAG>
+__global__ void __launch_bounds__(THREADS, SLOT_BLOCKS)
 forces_wide_kernel(const T* __restrict__ y_loc, const T* __restrict__ y_full,
                    const int* __restrict__ jidx, const T* __restrict__ jval,
                    int nloc, int w, const long long* __restrict__ rowptr,
                    const int* __restrict__ dst, const T* __restrict__ val,
-                   int m, T exag, T* __restrict__ att_out) {
-  using N = tsne::Num<T>;
+                   int m, int vec, T exag, T* __restrict__ att_out) {
   const int i = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (i >= nloc) return;  // whole warp
-  WideRow<T> row;
-  wide_row<T>(y_loc, i, m, blockIdx.y, lane, row);
-  const long long e0 = RAG ? rowptr[i] : 0, e1 = RAG ? rowptr[i + 1] : 0;
-  T fwd[WG], rag[WG];
-  wide_forces<T, FWD, RAG>(row, y_full, jidx + (size_t)i * w,
-                           jval + (size_t)i * w, w, dst, val, e0, e1, exag,
-                           lane, fwd, rag);
+  T* sh = warp_buffer<T>(m);
+  int base;
+  const int n = slot_row_force<T, FWD, RAG>(y_loc, y_full, jidx, jval, w,
+                                            rowptr, dst, val, m, i, vec, exag,
+                                            lane, sh, base);
+  for (int d = lane; d < n; d += 32) att_out[(size_t)i * m + base + d] = sh[d];
+}
+
+// B3w: as fused_step_kernel, over the launch's chunk of dims, a dim a
+// lane; gsq_out [chunks, nloc] takes each chunk's ‖grad‖² partial
+template <class T, bool FWD, bool RAG>
+__global__ void __launch_bounds__(THREADS, SLOT_BLOCKS)
+fused_step_wide_kernel(const T* __restrict__ y_loc,
+                       const T* __restrict__ y_full,
+                       const int* __restrict__ hidx,
+                       const T* __restrict__ hval, int nloc, int w,
+                       const long long* __restrict__ rowptr,
+                       const int* __restrict__ dst, const T* __restrict__ val,
+                       int m, int vec, const int* __restrict__ order,
+                       const T* __restrict__ rep, const T* __restrict__ z_ptr,
+                       const T* __restrict__ mask, const T* __restrict__ upd,
+                       const T* __restrict__ gains, T exag, T momentum, T eta,
+                       T min_gain, T* __restrict__ y_out,
+                       T* __restrict__ upd_out, T* __restrict__ gains_out,
+                       T* __restrict__ gsq_out) {
+  using N = tsne::Num<T>;
+  const int s = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (s >= nloc) return;  // whole warp
+  const int i = order != nullptr ? order[s] : s;
+  T* sh = warp_buffer<T>(m);
+  int base;
+  const int n = slot_row_force<T, FWD, RAG>(y_loc, y_full, hidx, hval, w,
+                                            rowptr, dst, val, m, i, vec, exag,
+                                            lane, sh, base);
+  const T z = *z_ptr;
+  const T mk = mask != nullptr ? mask[i] : T(1);
+  T gsq = T(0);
+  for (int d = lane; d < n; d += 32) {
+    const size_t o = (size_t)i * m + base + d;
+    const T att = sh[d];
+    const T grad = N::mul(N::sub(att, N::div(rep[o], z)), mk);
+    const T up = upd[o];
+    const T g0 = gains[o];
+    const T g = N::max((grad > T(0)) == (up > T(0)) ? N::mul(g0, Gain<T>::down)
+                                                    : N::add(g0, Gain<T>::up),
+                       min_gain);
+    const T un = N::sub(N::mul(momentum, up), N::mul(N::mul(eta, g), grad));
+    y_out[o] = N::add(y_loc[o], un);
+    upd_out[o] = un;
+    gains_out[o] = g;
+    gsq = N::fma(grad, grad, gsq);
+  }
+  gsq = tsne::warp_sum(gsq);
+  if (lane == 0) gsq_out[(size_t)blockIdx.y * nloc + i] = gsq;
+}
+
+// ---- B4w's walk: a warp a row, the lanes splitting its dims --------------
+//
+// B4w keeps the wide forms' first walk (B3w and B5w walk slots instead,
+// above).  The lanes of a warp split a row's dimensions: lane l owns
+// dimensions l + 32·g (g a group of 32), one coalesced load of y_full[j] a
+// group serves the warp, and the warp walks the row's slots in order, LU
+// at a time, skipping padding (value 0 adds exactly 0).  A slot's d² — the
+// forward part's norm-trick terms |y_j|² and y_i·y_j, the ragged part's
+// Σ(y_i − y_j)² — is a per-lane partial over the groups in order, then a
+// butterfly (a fixed order: every lane holds the same bits), so each lane
+// has the slot's q; the running KL sums are the same in every lane and
+// compensated (Kahan).  Its contract is the narrow B4's.
+constexpr int LG = 4;  // groups of 32 dims a lane keeps: 128 dims
+constexpr int LU = 4;  // slots a warp takes at a time
+
+template <class T>
+struct LossRow {
+  int m, ng, g0, gn;  // the width, its groups, the chunk's first and count
+  const T* yi;        // the row in y_loc
+  T yc[LG];           // the lane's coordinates in the chunk's groups
+  T rr;               // |y_i|², the same in every lane
+};
+
+template <class T>
+__device__ __forceinline__ T dim_of(const T* __restrict__ row, int m, int g,
+                                    int lane) {
+  const int d = 32 * g + lane;
+  return d < m ? row[d] : T(0);
+}
+
+template <class T>
+__device__ __forceinline__ void loss_row(const T* __restrict__ y_loc, int i,
+                                         int m, int chunk, int lane,
+                                         LossRow<T>& w) {
+  using N = tsne::Num<T>;
+  w.m = m;
+  w.ng = (m + 31) / 32;
+  w.g0 = chunk * LG;
+  w.gn = min(LG, w.ng - w.g0);
+  w.yi = y_loc + (size_t)i * m;
 #pragma unroll
-  for (int u = 0; u < WG; ++u) {
-    const int d = 32 * (row.g0 + u) + lane;
-    if (u < row.gn && d < m)
-      att_out[(size_t)i * m + d] = FWD && RAG ? N::add(fwd[u], rag[u])
-                                   : FWD      ? fwd[u]
-                                              : rag[u];
+  for (int u = 0; u < LG; ++u)
+    w.yc[u] = u < w.gn ? dim_of(w.yi, m, w.g0 + u, lane) : T(0);
+  T rr = T(0);
+  for (int g = 0; g < w.ng; ++g) {
+    const T v = dim_of(w.yi, m, g, lane);
+    rr = N::add(rr, N::mul(v, v));
+  }
+  w.rr = tsne::warp_sum(rr);
+}
+
+// q of LU slots (ids j, live where a slot is taken; FWD: the norm trick,
+// else differences) and the chunk's groups of their points in yj
+template <class T, bool FWD>
+__device__ __forceinline__ void loss_slots(const LossRow<T>& w,
+                                           const T* __restrict__ y_full,
+                                           const int (&j)[LU],
+                                           const bool (&live)[LU], int lane,
+                                           T (&yj)[LU][LG], T (&q)[LU]) {
+  using N = tsne::Num<T>;
+  T pa[LU], pb[LU];
+#pragma unroll
+  for (int u = 0; u < LU; ++u) pa[u] = pb[u] = T(0);
+  auto add = [&](int u, T a, T b) {
+    if constexpr (FWD) {
+      pa[u] = N::add(pa[u], N::mul(b, b));
+      pb[u] = N::add(pb[u], N::mul(a, b));
+    } else {
+      const T df = N::sub(a, b);
+      pa[u] = N::add(pa[u], N::mul(df, df));
+    }
+  };
+  // the groups before the chunk, the chunk's, the groups after it: the
+  // partials take g = 0 .. ng − 1 in order whatever the chunk
+  for (int g = 0; g < w.g0; ++g)
+#pragma unroll
+    for (int u = 0; u < LU; ++u)
+      if (live[u])
+        add(u, dim_of(w.yi, w.m, g, lane),
+            dim_of(y_full + (size_t)j[u] * w.m, w.m, g, lane));
+#pragma unroll
+  for (int ug = 0; ug < LG; ++ug)
+#pragma unroll
+    for (int u = 0; u < LU; ++u)
+      yj[u][ug] = live[u] && ug < w.gn
+                      ? dim_of(y_full + (size_t)j[u] * w.m, w.m, w.g0 + ug,
+                               lane)
+                      : T(0);
+#pragma unroll
+  for (int ug = 0; ug < LG; ++ug)
+    if (ug < w.gn)
+#pragma unroll
+      for (int u = 0; u < LU; ++u)
+        if (live[u]) add(u, w.yc[ug], yj[u][ug]);
+  for (int g = w.g0 + w.gn; g < w.ng; ++g)
+#pragma unroll
+    for (int u = 0; u < LU; ++u)
+      if (live[u])
+        add(u, dim_of(w.yi, w.m, g, lane),
+            dim_of(y_full + (size_t)j[u] * w.m, w.m, g, lane));
+#pragma unroll
+  for (int u = 0; u < LU; ++u) {
+    T d2;
+    if constexpr (FWD)
+      d2 = N::max(N::sub(N::add(w.rr, tsne::warp_sum(pa[u])),
+                         N::mul(T(2), tsne::warp_sum(pb[u]))),
+                  T(0));
+    else
+      d2 = tsne::warp_sum(pa[u]);
+    q[u] = N::rcp(N::add(T(1), d2));
+  }
+}
+
+// Walks a part's slots [0, len) (value vals[c], id ids[c], read only where
+// the value is set) in order: 32 a batch, one a lane, then the set ones LU
+// at a time, each handed to f(value, its point's chunk groups, q).
+template <class T, bool FWD, class F>
+__device__ __forceinline__ void loss_walk(const LossRow<T>& w,
+                                          const T* __restrict__ y_full,
+                                          const int* __restrict__ ids,
+                                          const T* __restrict__ vals,
+                                          long long len, int lane, F&& f) {
+  for (long long at = 0; at < len; at += 32) {
+    const long long c = at + lane;
+    const T v = c < len ? vals[c] : T(0);
+    const int jid = v > T(0) ? ids[c] : 0;
+    unsigned set = __ballot_sync(tsne::kFullMask, v > T(0));
+    while (set) {
+      int j[LU];
+      bool live[LU];
+      T vv[LU];
+#pragma unroll
+      for (int u = 0; u < LU; ++u) {
+        live[u] = set != 0u;
+        const int src = live[u] ? __ffs((int)set) - 1 : 0;
+        set &= set - 1u;
+        vv[u] = __shfl_sync(tsne::kFullMask, v, src);
+        j[u] = __shfl_sync(tsne::kFullMask, jid, src);
+      }
+      T yj[LU][LG], q[LU];
+      loss_slots<T, FWD>(w, y_full, j, live, lane, yj, q);
+#pragma unroll
+      for (int u = 0; u < LU; ++u)
+        if (live[u]) f(vv[u], yj[u], q[u]);
+    }
   }
 }
 
@@ -659,20 +963,20 @@ loss_wide_kernel(const T* __restrict__ y_loc, const T* __restrict__ y_full,
   const int i = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (i >= nloc) return;
-  WideRow<T> row;
-  wide_row<T>(y_loc, i, m, 0, lane, row);
+  LossRow<T> row;
+  loss_row<T>(y_loc, i, m, 0, lane, row);
   const T z = *z_ptr;
   Kahan<T> fwd, rag;
   if constexpr (FWD)
-    wide_walk<T, true>(row, y_full, jidx + (size_t)i * w,
+    loss_walk<T, true>(row, y_full, jidx + (size_t)i * w,
                        jval + (size_t)i * w, w, lane,
-                       [&](T v, const T (&)[WG], T q) {
+                       [&](T v, const T (&)[LG], T q) {
                          fwd.add(kl_term<T>(v, exag, z, q));
                        });
   if constexpr (RAG) {
     const long long e0 = rowptr[i], e1 = rowptr[i + 1];
-    wide_walk<T, false>(row, y_full, dst + e0, val + e0, e1 - e0, lane,
-                        [&](T v, const T (&)[WG], T q) {
+    loss_walk<T, false>(row, y_full, dst + e0, val + e0, e1 - e0, lane,
+                        [&](T v, const T (&)[LG], T q) {
                           rag.add(kl_term<T>(v, exag, z, q));
                         });
   }
@@ -680,62 +984,25 @@ loss_wide_kernel(const T* __restrict__ y_loc, const T* __restrict__ y_full,
     loss_rows[i] = FWD && RAG ? fwd.s + rag.s : FWD ? fwd.s : rag.s;
 }
 
-// B3w: as fused_step_kernel, over the lane's chunk dims; gsq_out [chunks,
-// nloc] takes each chunk's ‖grad‖² partial
-template <class T, bool FWD, bool RAG>
-__global__ void __launch_bounds__(THREADS)
-fused_step_wide_kernel(const T* __restrict__ y_loc,
-                       const T* __restrict__ y_full,
-                       const int* __restrict__ hidx,
-                       const T* __restrict__ hval, int nloc, int w,
-                       const long long* __restrict__ rowptr,
-                       const int* __restrict__ dst, const T* __restrict__ val,
-                       int m, const int* __restrict__ order,
-                       const T* __restrict__ rep, const T* __restrict__ z_ptr,
-                       const T* __restrict__ mask, const T* __restrict__ upd,
-                       const T* __restrict__ gains, T exag, T momentum, T eta,
-                       T min_gain, T* __restrict__ y_out,
-                       T* __restrict__ upd_out, T* __restrict__ gains_out,
-                       T* __restrict__ gsq_out) {
-  using N = tsne::Num<T>;
-  const int s = blockIdx.x * ROWS_PER_BLOCK + (threadIdx.x >> 5);
-  const int lane = threadIdx.x & 31;
-  if (s >= nloc) return;  // whole warp
-  const int i = order != nullptr ? order[s] : s;
-  WideRow<T> row;
-  wide_row<T>(y_loc, i, m, blockIdx.y, lane, row);
-  const long long e0 = RAG ? rowptr[i] : 0, e1 = RAG ? rowptr[i + 1] : 0;
-  T fwd[WG], rag[WG];
-  wide_forces<T, FWD, RAG>(row, y_full, hidx + (size_t)i * w,
-                           hval + (size_t)i * w, w, dst, val, e0, e1, exag,
-                           lane, fwd, rag);
-  const T z = *z_ptr;
-  const T mk = mask != nullptr ? mask[i] : T(1);
-  T gsq = T(0);
-#pragma unroll
-  for (int u = 0; u < WG; ++u) {
-    const int d = 32 * (row.g0 + u) + lane;
-    if (u >= row.gn || d >= m) continue;
-    const size_t o = (size_t)i * m + d;
-    const T att = FWD && RAG ? N::add(fwd[u], rag[u]) : FWD ? fwd[u] : rag[u];
-    const T grad = N::mul(N::sub(att, N::div(rep[o], z)), mk);
-    const T up = upd[o];
-    const T g0 = gains[o];
-    const T g = N::max((grad > T(0)) == (up > T(0)) ? N::mul(g0, Gain<T>::down)
-                                                    : N::add(g0, Gain<T>::up),
-                       min_gain);
-    const T un = N::sub(N::mul(momentum, up), N::mul(N::mul(eta, g), grad));
-    y_out[o] = N::add(row.yc[u], un);
-    upd_out[o] = un;
-    gains_out[o] = g;
-    gsq = N::fma(grad, grad, gsq);
-  }
-  gsq = tsne::warp_sum(gsq);
-  if (lane == 0) gsq_out[(size_t)blockIdx.y * nloc + i] = gsq;
+// the force chunks of a B3w / B5w launch (ops/attraction_cuda.wide_chunks)
+template <class T>
+int wide_chunks(int m) {
+  return (m + slot_chunk_dims<T>() - 1) / slot_chunk_dims<T>();
 }
 
-// the force chunks of a wide launch (ops/attraction_cuda.wide_chunks)
-inline int wide_chunks(int m) { return (m + 32 * WG - 1) / (32 * WG); }
+// whether the slot walk gathers 16-byte vectors: m a multiple of a
+// vector's values and both bases aligned (a row then starts aligned)
+template <class T>
+int slot_vec(const T* y_loc, const T* y_full, int m) {
+  return m % Slice<T>::L == 0 && (uintptr_t)y_loc % 16 == 0 &&
+         (uintptr_t)y_full % 16 == 0;
+}
+
+// a B3w / B5w block's force buffers (warp_buffer)
+template <class T>
+size_t slot_shared(int m) {
+  return sizeof(T) * ROWS_PER_BLOCK * min(m, slot_chunk_dims<T>());
+}
 
 int grid_for(int nloc) { return (nloc + ROWS_PER_BLOCK - 1) / ROWS_PER_BLOCK; }
 
@@ -842,13 +1109,13 @@ int fused_step_wide(const T* y_loc, const T* y_full, const int* hidx,
                     const T* gains, T exag, T momentum, T eta, T min_gain,
                     T* y_out, T* upd_out, T* gains_out, T* gsq_out,
                     void* stream) {
-  if (m < 1 || wide_chunks(m) > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid(grid_for(nloc), wide_chunks(m));
+  if (m < 1 || wide_chunks<T>(m) > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(grid_for(nloc), wide_chunks<T>(m));
   const auto kern = fused_wide_for<T>(w, rowptr);
-  kern<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      y_loc, y_full, hidx, hval, nloc, w, rowptr, dst, val, m, order, rep,
-      z_ptr, mask, upd, gains, exag, momentum, eta, min_gain, y_out, upd_out,
-      gains_out, gsq_out);
+  kern<<<grid, THREADS, slot_shared<T>(m), (cudaStream_t)stream>>>(
+      y_loc, y_full, hidx, hval, nloc, w, rowptr, dst, val, m,
+      slot_vec(y_loc, y_full, m), order, rep, z_ptr, mask, upd, gains, exag,
+      momentum, eta, min_gain, y_out, upd_out, gains_out, gsq_out);
   return tsne::launch_status();
 }
 
@@ -872,11 +1139,12 @@ int attraction_forces_wide(const T* y_loc, const T* y_full, const int* jidx,
                            const long long* rowptr, const int* dst,
                            const T* val, int m, T exag, T* att,
                            void* stream) {
-  if (m < 1 || wide_chunks(m) > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid(grid_for(nloc), wide_chunks(m));
+  if (m < 1 || wide_chunks<T>(m) > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(grid_for(nloc), wide_chunks<T>(m));
   const auto kern = forces_wide_for<T>(w, rowptr);
-  kern<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      y_loc, y_full, jidx, jval, nloc, w, rowptr, dst, val, m, exag, att);
+  kern<<<grid, THREADS, slot_shared<T>(m), (cudaStream_t)stream>>>(
+      y_loc, y_full, jidx, jval, nloc, w, rowptr, dst, val, m,
+      slot_vec(y_loc, y_full, m), exag, att);
   return tsne::launch_status();
 }
 
@@ -981,7 +1249,8 @@ TSNE_API int tsne_attraction_forces_f64(const double* y_loc,
 
 // The wide forms (B3w, B4w, B5w; the wrappers send them m > 8): the
 // operands of the narrow entries above, any m >= 1.  The fused step's
-// gsq_out is [ceil(m / 128), nloc]: each force chunk's ‖grad‖² partial.
+// gsq_out is [chunks, nloc] (tsne_attraction_wide_config): each force
+// chunk's ‖grad‖² partial.
 TSNE_API int tsne_fused_step_wide_f32(
     const float* y_loc, const float* y_full, const int* hidx,
     const float* hval, int nloc, int w, const long long* rowptr,
@@ -1050,13 +1319,15 @@ TSNE_API int tsne_attraction_forces_wide_f64(
                                         stream);
 }
 
-// The wide forms' geometry at width m, as the launches above use it:
-// *dims the dims of one force chunk (32 lanes x WG groups), *chunks the
-// chunks of a B3w / B5w launch (B3w writes a ‖grad‖² partial each; the
-// wrapper sizes that buffer from this).  Returns M_NARROW, the widest m
-// with a register-held instance.
-TSNE_API int tsne_attraction_wide_config(int m, int* dims, int* chunks) {
-  *dims = 32 * WG;
-  *chunks = wide_chunks(m);
+// The wide forms' geometry at width m and dtype (float64 != 0), as the
+// launches above use it: *dims the dims of one B3w / B5w force chunk (32
+// lanes x a 32-byte piece: 256 at float32, 128 at float64), *chunks the
+// chunks of a launch (B3w writes a ‖grad‖² partial each; the wrapper sizes
+// that buffer from this).  Returns M_NARROW, the widest m with a
+// register-held instance.
+TSNE_API int tsne_attraction_wide_config(int m, int float64, int* dims,
+                                         int* chunks) {
+  *dims = float64 ? slot_chunk_dims<double>() : slot_chunk_dims<float>();
+  *chunks = float64 ? wide_chunks<double>(m) : wide_chunks<float>(m);
   return tsne::M_NARROW;
 }

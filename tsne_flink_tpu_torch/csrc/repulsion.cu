@@ -235,183 +235,6 @@ int repulsion(const T* y_loc, const T* y_full, const unsigned char* valid,
   });
 }
 
-// ---- the wide form at float64 (B2w_f64): any m, meant for m > 8 ----------
-//
-// The sweep above keeps R = 4 rows' coordinates and m + 1 sums a thread in
-// registers: past m = 8 that passes the register file.  The float64 wide
-// form gives a thread one row and splits each pair's work in two:
-// - d² over the whole width, a piece of WD dimensions at a time: per
-//   sub-tile of WJ columns a thread keeps the WJ running d² in registers
-//   while the block stages the rows' and the columns' next piece in shared
-//   memory, zero-padded (a padded dimension adds an exact 0 to d²), and
-//   adds d = 0 .. m − 1 in order with one FMA each, as the sweep does;
-// - the force over C of the m dimensions: a third grid dimension runs
-//   ceil(m / C) force chunks, each recomputing q from the full d² — the
-//   same operations in the same order in every chunk, so each chunk sees
-//   q's bits — and chunk 0 also writes Z.
-// So no m is refused, and at m <= C one chunk does all of it.  The
-// partials, the column splits, the diagonal and the masks keep the
-// sweep's contract (part[S, part_rows, m + 1], no atomics), each sub-tile
-// summed before it is added to the row's total.
-template <class T>
-struct Wide;
-template <>
-struct Wide<double> {
-  static constexpr int WJ = 16, WD = 16;  // columns a sub-tile, dims a piece
-};
-constexpr int WT = 128;  // rows (threads) a block of the wide form
-
-// the float64 wide form's force chunk: 16 dims
-// (ops/repulsion_cuda.wide_chunk)
-template <class T>
-__host__ __device__ constexpr int wide_chunk(int) {
-  return 16;
-}
-
-template <class T>
-__device__ __forceinline__ void get4(const T* p, T (&v)[4]) {
-  if constexpr (std::is_same_v<T, double>) {
-    const double2 a = reinterpret_cast<const double2*>(p)[0];
-    const double2 b = reinterpret_cast<const double2*>(p)[1];
-    v[0] = a.x; v[1] = a.y; v[2] = b.x; v[3] = b.y;
-  } else {
-    const float4 a = reinterpret_cast<const float4*>(p)[0];
-    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  }
-}
-
-template <class T, int C>
-__global__ void __launch_bounds__(WT)
-repulsion_wide_kernel(const T* __restrict__ y_loc, const T* __restrict__ y_full,
-                      const unsigned char* __restrict__ valid, int nloc,
-                      int nfull, int m, int row_offset, int col_span,
-                      int part_rows, T* __restrict__ part) {
-  constexpr int WJ = Wide<T>::WJ, WD = Wide<T>::WD;
-  using N = tsne::Num<T>;
-  __shared__ T rs[WD][WT + 1];                  // the rows' piece, transposed
-  __shared__ __align__(16) T cs[WJ][WD];        // the columns' piece
-  __shared__ __align__(16) T cf[WJ][C];         // the columns' force chunk
-  __shared__ T cw[WJ];                          // their weights, 0 past the end
-
-  const int t = threadIdx.x;
-  const int row0 = blockIdx.x * WT;
-  const int i = row0 + t;
-  const int gi = row_offset + i;
-  const int f0 = blockIdx.z * C;
-  const int c_begin = blockIdx.y * col_span;
-  const int c_end = min(nfull, c_begin + col_span);
-
-  T yf[C];
-#pragma unroll
-  for (int d = 0; d < C; ++d)
-    yf[d] = i < nloc && f0 + d < m ? y_loc[(size_t)i * m + f0 + d] : T(0);
-  T acc[C + 1];
-#pragma unroll
-  for (int d = 0; d <= C; ++d) acc[d] = T(0);
-
-  auto stage_rows = [&](int s0, int sd) {
-    for (int e = t; e < WT * WD; e += WT) {
-      const int r = e / WD, d = e % WD;
-      rs[d][r] = row0 + r < nloc && d < sd
-                     ? y_loc[(size_t)(row0 + r) * m + s0 + d] : T(0);
-    }
-  };
-  const bool rows_once = m <= WD;  // one piece: the rows stay staged
-  if (rows_once) stage_rows(0, m);
-
-  for (int j0 = c_begin; j0 < c_end; j0 += WJ) {
-    const int cnt = min(WJ, c_end - j0);
-    T d2[WJ];
-#pragma unroll
-    for (int c = 0; c < WJ; ++c) d2[c] = T(0);
-    for (int s0 = 0; s0 < m; s0 += WD) {
-      const int sd = min(WD, m - s0);
-      __syncthreads();
-      if (!rows_once) stage_rows(s0, sd);
-      for (int e = t; e < WJ * WD; e += WT) {
-        const int c = e / WD, d = e % WD;
-        cs[c][d] = c < cnt && d < sd ? y_full[(size_t)(j0 + c) * m + s0 + d]
-                                     : T(0);
-      }
-      if (s0 == 0) {
-        for (int e = t; e < WJ * C; e += WT) {
-          const int c = e / C, d = e % C;
-          cf[c][d] = c < cnt && f0 + d < m
-                         ? y_full[(size_t)(j0 + c) * m + f0 + d] : T(0);
-        }
-        if (t < WJ)
-          cw[t] = t >= cnt ? T(0)
-                  : valid == nullptr || valid[j0 + t] ? T(1) : T(0);
-      }
-      __syncthreads();
-      for (int d = 0; d < sd; d += 4) {
-        T yi[4];
-#pragma unroll
-        for (int u = 0; u < 4; ++u) yi[u] = rs[d + u][t];
-#pragma unroll
-        for (int c = 0; c < WJ; ++c) {
-          T pj[4];
-          get4(&cs[c][d], pj);
-#pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const T diff = yi[u] - pj[u];
-            d2[c] = N::fma(diff, diff, d2[c]);
-          }
-        }
-      }
-    }
-    T tacc[C + 1];
-#pragma unroll
-    for (int d = 0; d <= C; ++d) tacc[d] = T(0);
-#pragma unroll
-    for (int c = 0; c < WJ; ++c) {
-      T q = inv(T(1) + d2[c]) * cw[c];
-      q = j0 + c == gi ? T(0) : q;
-      tacc[C] += q;
-      const T q2 = q * q;
-#pragma unroll
-      for (int d = 0; d < C; d += 4) {
-        T pj[4];
-        get4(&cf[c][d], pj);
-#pragma unroll
-        for (int u = 0; u < 4; ++u)
-          tacc[d + u] = N::fma(q2, yf[d + u] - pj[u], tacc[d + u]);
-      }
-    }
-#pragma unroll
-    for (int d = 0; d <= C; ++d) acc[d] += tacc[d];
-  }
-
-  if (i >= nloc) return;
-  const bool row_ok = valid == nullptr || valid[gi];
-  T* out = part + ((size_t)blockIdx.y * part_rows + i) * (m + 1);
-#pragma unroll
-  for (int d = 0; d < C; ++d)
-    if (f0 + d < m) out[f0 + d] = row_ok ? acc[d] : T(0);
-  if (blockIdx.z == 0) out[m] = row_ok ? acc[C] : T(0);
-}
-
-template <class T>
-int repulsion_wide(const T* y_loc, const T* y_full, const unsigned char* valid,
-                   int nloc, int nfull, int m, int row_offset, int splits,
-                   int part_rows, T* part, void* stream) {
-  cudaStream_t s = (cudaStream_t)stream;
-  const int c = wide_chunk<T>(m);
-  const int chunks = m < 1 ? 0 : (m + c - 1) / c;
-  if (m < 1 || chunks > 65535 || splits < 1 || splits > 65535 ||
-      part_rows < nloc)
-    return (int)cudaErrorInvalidValue;
-  const int col_span = (nfull + splits - 1) / splits;
-  const dim3 grid((nloc + WT - 1) / WT, splits, chunks);
-  auto go = [&](auto cc) {
-    repulsion_wide_kernel<T, decltype(cc)::value><<<grid, WT, 0, s>>>(
-        y_loc, y_full, valid, nloc, nfull, m, row_offset, col_span,
-        part_rows, part);
-    return tsne::launch_status();
-  };
-  return go(std::integral_constant<int, 16>{});
-}
-
 // ---- the wide form at float32 (B2w): tiles, d² once a pair ---------------
 //
 // What bounds it: the FP32 pipe.  A pair costs m subtractions and m FMAs
@@ -914,6 +737,461 @@ int repulsion_tiles(const float* y_loc, const float* y_full,
   }
 }
 
+
+// ---- the wide form at float64 (B2w_f64): d² once a pair ------------------
+//
+// What bounds it: the FP64 pipe, half the FP32 pipe's rate (34 TFLOP/s on
+// an H100 outside the tensor cores).  A pair costs m subtractions and m
+// FMAs for d², the IEEE reciprocal (__drcp_rn, the plain version's
+// division: a MUFU seed refined by FMAs, counted as 8 operations) and m
+// FMAs of the force.  With the force's Σq²·y_j on the FP64 tensor cores
+// (67 TFLOP/s) the pipe keeps (3m + 11) operations a pair: 6.25 ms at 60k
+// x 16 and 21.49 at 60k x 64 (chip_smoke.wide_b2_bound).  The bytes (y
+// once, the partials) are a few megabytes.
+// Design, m <= 16 (repulsion_rows64_kernel): a row in registers.  A
+// thread owns one row and its 16 coordinates; each staged column (16
+// doubles, zeros past m, read as eight double2 broadcasts; a ring of two
+// tiles of RJ64 columns that cp.async fills with 8-byte copies while the
+// tile before computes) gives a pair's 16 differences once, its d² (one
+// FMA each) and, once q = rcp(1 + d²)·weight is known, its force (one FMA
+// each): 3m + 12 FP64 operations a pair, the force on the pipe.  A
+// tile's sums start from 0 and are then added to the row's totals, held
+// in shared memory.  One row a thread: the FP64 pipe, not the column
+// reads, sets the pace, and a second row's 16 coordinates and 17 sums
+// would cost the SM a block (two rows a thread ran 10% slower).
+// Design, m > 16 (repulsion_tile64_kernel): tiles of TR64 rows x TC64
+// columns.
+// - d² once a pair: a thread takes 4 rows x 2 columns of the tile and, for
+//   d = 0 .. m − 1 in order, reads the 4 rows' value as two double2
+//   broadcasts and the 2 columns' value (columns lg and lg + 16, so a half
+//   warp reads 16 neighbouring doubles) from shared memory — the rows
+//   staged once, dims-major; the columns' tiles dims-major in a ring of
+//   two that cp.async fills while the tile before computes —, one
+//   subtraction and one FMA a pair and dim.  Then q = rcp(1 + d²)·weight
+//   (0 on the diagonal), Z's and Σq²'s parts, and q², which stays in
+//   shared memory for the force.
+// - The force in product form, F_i = y_i·Σ_j q²_ij − Σ_j q²_ij·y_j, with
+//   Σ_j q²_ij·y_j a product on the FP64 tensor cores (mma.sync m8n8k4,
+//   67 TFLOP/s): q² [rows x columns] times the tile's columns [columns x
+//   dims], each warp 8 rows x 64 dims, 8 k-steps of 4 columns — the
+//   differences are not formed a second time, and the FP64 pipe keeps d²
+//   and q alone.  Far from the origin the product cancels (at |y| ~ 1e3
+//   and spreads ~10 about 100x, two of float64's sixteen digits: within
+//   the 1e-12 bar, where at float32 it would not be); d² keeps the
+//   differences, whose norm-trick form would cancel ~5,000x.
+// - A tile's force sums start from 0 and are then added to the rows'
+//   totals; Z's and Σq²'s parts from the tile's 16 column groups meet in a
+//   fixed order at the end.  Past m = 64 the tiles walk the width in
+//   blocks of DB64 dims: d² over every block, then the force block by
+//   block, added to the partials slab rows the block owns (read, add,
+//   write: no other block writes those rows of its split).
+// At m <= 16 the force stays on the FP64 pipe: the differences are in
+// registers already.  A row's sums take the same operations in the same
+// order whatever block, split position or shard holds it; the column
+// splits and the slab keep B2's contract (no atomics: two launches give
+// the same bits).
+constexpr int RT64 = 128;  // threads (and rows) a block of the float64
+                           // m <= 16 path
+constexpr int RJ64 = 64;   // columns a tile there
+// its dynamic shared memory in doubles: the columns' ring [2][RJ64][16]
+// and their weights [2][RJ64], then the rows' totals [17][RT64]
+constexpr int ROWS64_COLS = 2 * RJ64 * 16 + 2 * RJ64;
+constexpr size_t ROWS64_BYTES = 8 * ((size_t)ROWS64_COLS + 17 * RT64);
+
+constexpr int TW64 = 128;  // threads a block of the float64 tiles
+constexpr int TR64 = 32;   // rows a block there
+constexpr int TC64 = 32;   // columns a tile
+constexpr int DB64 = 64;   // dims a block of the width
+// the tiles' dynamic shared memory, in doubles: the rows' dims [DB64][RS],
+// the columns' ring of two slots [DB64][CS], q² [TC64][QS] (Z's and Σq²'s
+// parts at the end) and the columns' weights [2][TC64] (the rows' Σq² at
+// the end); RS keeps the rows' double2 reads aligned, CS = 4 (mod 16) and
+// QS = 8 (mod 16) spread the tensor cores' B and A fragment reads over the
+// banks (two wavefronts a warp, the least for 32 doubles)
+struct Tile64 {
+  static constexpr int RS = TR64 + 2, CS = TC64 + 4, QS = TR64 + 8;
+  static constexpr int ROWS = 0, COLS = DB64 * RS, Q2 = COLS + 2 * DB64 * CS,
+                       WGT = Q2 + TC64 * QS, DOUBLES = WGT + 2 * TC64;
+};
+
+// the float64 wide form's width class: 16 (rows in registers) or 64
+// (tiles) (ops/repulsion_cuda.wide_class64)
+__host__ __device__ constexpr int wide_class64(int m) {
+  return m <= 16 ? 16 : DB64;
+}
+
+__device__ __forceinline__ void cp_async8(double* dst, const double* src,
+                                          bool ok) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+               "l"(src), "r"(ok ? 8 : 0));
+}
+
+__global__ void __launch_bounds__(RT64, 3)
+repulsion_rows64_kernel(const double* __restrict__ y_loc,
+                        const double* __restrict__ y_full,
+                        const unsigned char* __restrict__ valid, int nloc,
+                        int nfull, int m, int row_offset, int col_span,
+                        int part_rows, double* __restrict__ part) {
+  extern __shared__ __align__(16) double smd[];
+  double* cs = smd;                     // [2][RJ64][16]
+  double* cw = smd + 2 * RJ64 * 16;     // [2][RJ64]
+  double* tot = smd + ROWS64_COLS;      // [17][RT64]
+  const int t = threadIdx.x;
+  const int i = blockIdx.x * RT64 + t;
+  const int gi = row_offset + i;
+  const int c_begin = blockIdx.y * col_span;
+  const int c_end = min(nfull, c_begin + col_span);
+  const int ntiles = c_end > c_begin ? (c_end - c_begin + RJ64 - 1) / RJ64 : 0;
+
+  double yi[16];
+#pragma unroll
+  for (int d = 0; d < 16; ++d)
+    yi[d] = i < nloc && d < m ? y_loc[(size_t)i * m + d] : 0.0;
+#pragma unroll
+  for (int d = 0; d <= 16; ++d) tot[d * RT64 + t] = 0.0;
+  // columns [j0, j0 + RJ64) into ring slot b (zeros past the split or m)
+  auto stage = [&](int j0, int b) {
+    double* dst = cs + b * RJ64 * 16;
+    for (int e = t; e < RJ64 * 16; e += RT64) {
+      const int d = e % 16, c = e / 16;
+      const bool ok = j0 + c < c_end && d < m;
+      cp_async8(dst + e, ok ? y_full + (size_t)(j0 + c) * m + d : y_full,
+                ok);
+    }
+    if (t < RJ64) {
+      const int j = j0 + t;
+      cw[b * RJ64 + t] =
+          j >= c_end ? 0.0 : valid == nullptr || valid[j] ? 1.0 : 0.0;
+    }
+  };
+  if (ntiles > 0) stage(c_begin, 0);
+  cp_async_commit();
+  for (int k = 0; k < ntiles; ++k) {
+    const int j0 = c_begin + k * RJ64;
+    const int b = k & 1;
+    if (k + 1 < ntiles) {  // the next tile fills behind this one
+      stage(j0 + RJ64, b ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const double2* col = reinterpret_cast<const double2*>(cs + b * RJ64 * 16);
+    const double* wb = cw + b * RJ64;
+    double acc[17];
+#pragma unroll
+    for (int d = 0; d <= 16; ++d) acc[d] = 0.0;
+    const int cnt = min(RJ64, c_end - j0);
+#pragma unroll 2
+    for (int c = 0; c < cnt; ++c) {
+      double pj[16];
+#pragma unroll
+      for (int v = 0; v < 8; ++v) {
+        const double2 a = col[c * 8 + v];
+        pj[2 * v] = a.x;
+        pj[2 * v + 1] = a.y;
+      }
+      const double w = wb[c];
+      double diff[16], d2 = 0.0;
+#pragma unroll
+      for (int d = 0; d < 16; ++d) {
+        diff[d] = yi[d] - pj[d];
+        d2 = fma(diff[d], diff[d], d2);
+      }
+      double q = inv(1.0 + d2) * w;
+      q = j0 + c == gi ? 0.0 : q;
+      acc[16] += q;
+      const double q2 = q * q;
+#pragma unroll
+      for (int d = 0; d < 16; ++d) acc[d] = fma(q2, diff[d], acc[d]);
+    }
+#pragma unroll
+    for (int d = 0; d <= 16; ++d) tot[d * RT64 + t] += acc[d];
+    __syncthreads();  // the ring slot is rewritten
+  }
+  cp_async_wait<0>();
+  if (i >= nloc) return;
+  double* out = part + (size_t)blockIdx.y * part_rows * (m + 1);
+  const bool row_ok = valid == nullptr || valid[gi];
+  for (int d = 0; d < m; ++d)
+    out[(size_t)i * (m + 1) + d] = row_ok ? tot[d * RT64 + t] : 0.0;
+  out[(size_t)i * (m + 1) + m] = row_ok ? tot[16 * RT64 + t] : 0.0;
+}
+
+// D += A·B on the FP64 tensor cores: one m8n8k4 step of a warp (a: A's
+// element at row lane / 4, k lane % 4; b: B's at k lane % 4, column
+// lane / 4; c: D's at row lane / 4, columns 2·(lane % 4) and + 1)
+__device__ __forceinline__ void dmma_m8n8k4(double (&c)[2], double a,
+                                            double b) {
+  asm volatile(
+      "mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0, %1}, {%2}, "
+      "{%3}, {%0, %1};\n"
+      : "+d"(c[0]), "+d"(c[1])
+      : "d"(a), "d"(b));
+}
+
+__global__ void __launch_bounds__(TW64, 3)
+repulsion_tile64_kernel(const double* __restrict__ y_loc,
+                        const double* __restrict__ y_full,
+                        const unsigned char* __restrict__ valid, int nloc,
+                        int nfull, int m, int row_offset, int col_span,
+                        int part_rows, double* __restrict__ part) {
+  using G = Tile64;
+  constexpr int RS = G::RS, CS = G::CS, QS = G::QS;
+  extern __shared__ __align__(16) double smt[];
+  double* rs = smt + G::ROWS;
+  double* cs = smt + G::COLS;
+  double* q2s = smt + G::Q2;
+  double* cw = smt + G::WGT;
+  const int t = threadIdx.x;
+  // d²: rows rg·4 + a, columns lg and lg + 16
+  const int lg = t % 16, rg = t / 16;
+  // the force: warp wp's rows 8·wp .. + 7 on the tensor cores, the lane
+  // holding row 8·wp + gid, dims 8·nt + 2·tig and + 1 of each 8-dim tile nt
+  const int wp = t / 32, gid = (t % 32) / 4, tig = t % 4;
+  const int row0 = blockIdx.x * TR64;
+  const int c_begin = blockIdx.y * col_span;
+  const int c_end = min(nfull, c_begin + col_span);
+  const int ntiles = c_end > c_begin ? (c_end - c_begin + TC64 - 1) / TC64 : 0;
+  const bool blocked = m > DB64;
+  double* out = part + (size_t)blockIdx.y * part_rows * (m + 1);
+
+  // dims [d0, d0 + DB64) of the block's rows, zeros past m or nloc
+  auto stage_rows = [&](int d0) {
+    for (int e = t; e < TR64 * DB64; e += TW64) {
+      const int d = e % DB64, r = e / DB64;
+      rs[d * RS + r] = row0 + r < nloc && d0 + d < m
+                           ? y_loc[(size_t)(row0 + r) * m + d0 + d] : 0.0;
+    }
+  };
+  // columns [j0, j0 + TC64) dims [d0, d0 + DB64) into ring slot b,
+  // dims-major (cp.async, zero-filled past the split or m; a warp copies
+  // 8 dims of 4 columns, so its stores spread over the banks), and their
+  // weights
+  auto stage_cols = [&](int j0, int d0, int b) {
+    double* dst = cs + b * DB64 * CS;
+    for (int e = t; e < TC64 * DB64; e += TW64) {
+      const int q = e / 32, r = e % 32;
+      const int d = 8 * (q % 8) + r % 8, c = 4 * (q / 8) + r / 8;
+      const bool ok = j0 + c < c_end && d0 + d < m;
+      cp_async8(dst + d * CS + c,
+                ok ? y_full + (size_t)(j0 + c) * m + d0 + d : y_full, ok);
+    }
+    if (t < TC64) {
+      const int j = j0 + t;
+      cw[b * TC64 + t] =
+          j >= c_end ? 0.0 : valid == nullptr || valid[j] ? 1.0 : 0.0;
+    }
+  };
+  // d² of the thread's 8 pairs over dims [0, dm) of the staged block
+  auto add_d2 = [&](const double* csb, int dm, double (&d2)[4][2]) {
+#pragma unroll 4
+    for (int d = 0; d < dm; ++d) {
+      const double2 r01 =
+          *reinterpret_cast<const double2*>(rs + d * RS + rg * 4);
+      const double2 r23 =
+          *reinterpret_cast<const double2*>(rs + d * RS + rg * 4 + 2);
+      const double rv[4] = {r01.x, r01.y, r23.x, r23.y};
+      const double cv[2] = {csb[d * CS + lg], csb[d * CS + lg + 16]};
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const double diff = rv[a] - cv[c];
+          d2[a][c] = fma(diff, diff, d2[a][c]);
+        }
+    }
+  };
+  // Σ_j q²_ij·y_j over the tile's columns for the warp's 8 rows and the
+  // staged block's first nt8 8-dim tiles: q² [row][column] (A) times the
+  // columns' dims [column][dim] (B), 8 k-steps of 4 columns
+  auto tile_force = [&](const double* csb, int nt8, double (&ft)[8][2]) {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) ft[nt][0] = ft[nt][1] = 0.0;
+#pragma unroll
+    for (int k0 = 0; k0 < TC64; k0 += 4) {
+      const double a = q2s[(k0 + tig) * QS + 8 * wp + gid];
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt)
+        if (nt < nt8)
+          dmma_m8n8k4(ft[nt], a, csb[(8 * nt + gid) * CS + k0 + tig]);
+    }
+  };
+
+  double acc[8][2];                      // Σ q²·y_j of the lane's 16 dims
+  double zacc[4], sacc[4];               // Z and Σ q² of the d² rows
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) acc[nt][0] = acc[nt][1] = 0.0;
+#pragma unroll
+  for (int a = 0; a < 4; ++a) zacc[a] = sacc[a] = 0.0;
+  if (!blocked) {
+    stage_rows(0);
+    if (ntiles > 0) stage_cols(c_begin, 0, 0);
+    cp_async_commit();
+  }
+  for (int k = 0; k < ntiles; ++k) {
+    const int j0 = c_begin + k * TC64;
+    const int b = blocked ? 0 : k & 1;
+    const double* csb = cs + b * DB64 * CS;
+    double d2[4][2];
+#pragma unroll
+    for (int a = 0; a < 4; ++a) d2[a][0] = d2[a][1] = 0.0;
+    if (!blocked) {
+      if (k + 1 < ntiles) {  // the next tile fills behind this one
+        stage_cols(j0 + TC64, 0, b ^ 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      add_d2(csb, m, d2);
+    } else {
+      for (int d0 = 0; d0 < m; d0 += DB64) {
+        __syncthreads();  // the block before is read
+        stage_rows(d0);
+        stage_cols(j0, d0, 0);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        add_d2(csb, min(DB64, m - d0), d2);
+      }
+    }
+    // q, Z's and Σq²'s parts, and q² of the thread's 8 pairs
+    double zt[4] = {0.0, 0.0, 0.0, 0.0}, st[4] = {0.0, 0.0, 0.0, 0.0};
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int jc = lg + 16 * c;
+      const double w = cw[b * TC64 + jc];
+      double q2[4];
+#pragma unroll
+      for (int a = 0; a < 4; ++a) {
+        double q = inv(1.0 + d2[a][c]) * w;
+        q = j0 + jc == row_offset + row0 + rg * 4 + a ? 0.0 : q;
+        zt[a] += q;
+        q2[a] = q * q;
+        st[a] += q2[a];
+      }
+      *reinterpret_cast<double2*>(q2s + jc * QS + rg * 4) =
+          make_double2(q2[0], q2[1]);
+      *reinterpret_cast<double2*>(q2s + jc * QS + rg * 4 + 2) =
+          make_double2(q2[2], q2[3]);
+    }
+#pragma unroll
+    for (int a = 0; a < 4; ++a) {
+      zacc[a] += zt[a];
+      sacc[a] += st[a];
+    }
+    __syncthreads();
+    double ft[8][2];
+    if (!blocked) {
+      tile_force(csb, (m + 7) / 8, ft);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        acc[nt][0] += ft[nt][0];
+        acc[nt][1] += ft[nt][1];
+      }
+    } else {
+      const int i = row0 + 8 * wp + gid;
+      for (int d0 = 0; d0 < m; d0 += DB64) {
+        if (d0) __syncthreads();  // the block before is read
+        stage_cols(j0, d0, 0);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        tile_force(csb, (min(DB64, m - d0) + 7) / 8, ft);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int d = d0 + 8 * nt + 2 * tig + h;
+            if (i < nloc && d < m) {
+              double* o = out + (size_t)i * (m + 1) + d;
+              *o = (k == 0 ? 0.0 : *o) + ft[nt][h];
+            }
+          }
+      }
+    }
+    __syncthreads();  // q² and the ring slot are rewritten
+  }
+  cp_async_wait<0>();
+
+  // Z and Σq²: the column groups' parts of each row, in order
+  double* zs = q2s;  // [16][TR64] Z's parts, then [16][TR64] Σq²'s
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    zs[lg * TR64 + rg * 4 + a] = zacc[a];
+    zs[(16 + lg) * TR64 + rg * 4 + a] = sacc[a];
+  }
+  __syncthreads();
+  if (t < TR64) {
+    double z = 0.0, s2 = 0.0;
+    for (int g = 0; g < 16; ++g) {
+      z += zs[g * TR64 + t];
+      s2 += zs[(16 + g) * TR64 + t];
+    }
+    cw[t] = s2;  // 2·TC64 >= TR64 doubles
+    const int i = row0 + t;
+    if (i < nloc) {
+      const bool row_ok = valid == nullptr || valid[row_offset + i];
+      out[(size_t)i * (m + 1) + m] = row_ok ? z : 0.0;
+    }
+  }
+  __syncthreads();
+  // F_i = y_i·Σq² − Σq²·y_j
+  const int i = row0 + 8 * wp + gid;
+  if (i >= nloc) return;
+  const bool row_ok = valid == nullptr || valid[row_offset + i];
+  const double s2 = cw[8 * wp + gid];
+  for (int d0 = 0; d0 < (blocked ? m : 1); d0 += DB64) {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int d = d0 + 8 * nt + 2 * tig + h;
+        if (d >= m) continue;
+        double* o = out + (size_t)i * (m + 1) + d;
+        const double sy = blocked ? (ntiles > 0 ? *o : 0.0) : acc[nt][h];
+        *o = row_ok ? fma(y_loc[(size_t)i * m + d], s2, -sy) : 0.0;
+      }
+  }
+}
+
+int repulsion_wide64(const double* y_loc, const double* y_full,
+                     const unsigned char* valid, int nloc, int nfull, int m,
+                     int row_offset, int splits, int part_rows, double* part,
+                     void* stream) {
+  static_assert(2 * TC64 >= TR64, "the rows' Σq² fit the weights' space");
+  static_assert(32 * TR64 <= TC64 * Tile64::QS, "Z's parts fit q²'s space");
+  cudaStream_t s = (cudaStream_t)stream;
+  if (m < 1 || splits < 1 || splits > 65535 || part_rows < nloc)
+    return (int)cudaErrorInvalidValue;
+  const int col_span = (nfull + splits - 1) / splits;
+  if (wide_class64(m) == 16) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        repulsion_rows64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)ROWS64_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((nloc + RT64 - 1) / RT64, splits);
+    repulsion_rows64_kernel<<<grid, RT64, ROWS64_BYTES, s>>>(
+        y_loc, y_full, valid, nloc, nfull, m, row_offset, col_span,
+        part_rows, part);
+    return tsne::launch_status();
+  }
+  const size_t bytes = sizeof(double) * Tile64::DOUBLES;
+  const cudaError_t err = cudaFuncSetAttribute(
+      repulsion_tile64_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((nloc + TR64 - 1) / TR64, splits);
+  repulsion_tile64_kernel<<<grid, TW64, bytes, s>>>(
+      y_loc, y_full, valid, nloc, nfull, m, row_offset, col_span, part_rows,
+      part);
+  return tsne::launch_status();
+}
+
 }  // namespace
 
 // y_loc [nloc, m] = rows [row_offset, row_offset + nloc) of y_full
@@ -950,26 +1228,28 @@ TSNE_API int tsne_repulsion_wide_f32(const float* y_loc, const float* y_full,
                          splits, part_rows, part, stream);
 }
 
-// The float64 form of tsne_repulsion_wide_f32 (B2w_f64; C = 16).
+// The float64 form of tsne_repulsion_wide_f32 (B2w_f64): blocks of 128
+// rows at m <= 16, of 32 rows past it, the columns in tiles of 64 / 32.
 TSNE_API int tsne_repulsion_wide_f64(const double* y_loc,
                                      const double* y_full,
                                      const unsigned char* valid, int nloc,
                                      int nfull, int m, int row_offset,
                                      int splits, int part_rows, double* part,
                                      void* stream) {
-  return repulsion_wide<double>(y_loc, y_full, valid, nloc, nfull, m,
-                                row_offset, splits, part_rows, part, stream);
+  return repulsion_wide64(y_loc, y_full, valid, nloc, nfull, m, row_offset,
+                          splits, part_rows, part, stream);
 }
 
 // The wide form's geometry at width m and dtype (float64 != 0: B2w_f64):
-// *rows the rows a block, *chunk the dims the force takes at once (B2w_f64:
-// a chunk of its third grid dimension; B2w: its width class, the dims of
-// a block past it) (ops/repulsion_cuda mirrors both for the memory model
-// on any device; the card's checks hold the mirror to this).  Returns
+// *rows the rows a block, *chunk the dims the force takes at once (the
+// width class: at float64 16 or 64, at float32 16, 32 or 64, the dims of a
+// block past it) (ops/repulsion_cuda mirrors both for the memory model on
+// any device; the card's checks hold the mirror to this).  Returns
 // M_NARROW.
 TSNE_API int tsne_repulsion_wide_config(int m, int float64, int* rows,
                                         int* chunk) {
-  *rows = float64 ? WT : m <= 16 ? RT * RR : TPAIRS / wide_class(m);
-  *chunk = float64 ? wide_chunk<double>(m) : wide_class(m);
+  *rows = float64 ? (wide_class64(m) == 16 ? RT64 : TR64)
+          : m <= 16 ? RT * RR : TPAIRS / wide_class(m);
+  *chunk = float64 ? wide_class64(m) : wide_class(m);
   return tsne::M_NARROW;
 }

@@ -265,7 +265,7 @@ def _library() -> ctypes.CDLL:
     lib.tsne_refine_scratch.restype = _S
     lib.tsne_repulsion_wide_config.argtypes = [_I, _I, _P, _P]
     lib.tsne_repulsion_wide_config.restype = ctypes.c_int
-    lib.tsne_attraction_wide_config.argtypes = [_I, _P, _P]
+    lib.tsne_attraction_wide_config.argtypes = [_I, _I, _P, _P]
     lib.tsne_attraction_wide_config.restype = ctypes.c_int
     lib.tsne_error_string.argtypes = [ctypes.c_int]
     lib.tsne_error_string.restype = ctypes.c_char_p

@@ -32,9 +32,10 @@ head math as the forces, and its segment sums over an edge list
 (:func:`edge_forces_plain`, :func:`edge_loss_plain`); on CUDA tensors
 they launch the kernels or raise.  The register-held instances take m
 = 1 .. :data:`M_NARROW`; a wider embedding launches the kernels' wide
-forms (``KERNELS["B3w"]``, ``["B4w"]``, ``["B5w"]``: the lanes of a warp
-split the row's dimensions, a force chunk of :data:`WIDE_DIMS` of them a
-grid row), which take any m.  On a mesh shard (``parallel/mesh``) they take the
+forms (``KERNELS["B3w"]``, ``["B4w"]``, ``["B5w"]``), which take any m:
+B3w and B5w give a slot to a group of lanes, each lane a 32-byte piece
+of the point, a force chunk of :func:`wide_dims` dims a grid row; B4w's
+lanes split the row's dimensions.  On a mesh shard (``parallel/mesh``) they take the
 shard's rows — ``y_local``, its head or row block, its ragged part with
 local sources and global destinations — against the gathered
 ``y_full``; one warp walks one row, so a row's bits do not depend on the
@@ -59,29 +60,33 @@ from tsne_flink_tpu_torch.ops.metrics import kernel_float64, metric_fn
 
 #: padding multiple of the CSR tail edge list
 TAIL_MULTIPLE = 1024
-#: the dims of one force chunk of the wide forms (32 lanes x WG groups in
-#: csrc/attraction.cu; :func:`kernel_wide_config` reads the kernel's own)
-WIDE_DIMS = 128
 
 
-def wide_chunks(m: int) -> int:
-    """The force chunks of a wide launch at width ``m``, as the memory
-    model counts them on any device."""
-    return -(-m // WIDE_DIMS)
+def wide_dims(float64: bool) -> int:
+    """The dims of one force chunk of B3w / B5w: 32 lanes x a 32-byte
+    piece each (csrc/attraction.cu ``slot_chunk_dims``), 256 at float32,
+    128 at float64; :func:`kernel_wide_config` reads the kernel's own."""
+    return 128 if float64 else 256
+
+
+def wide_chunks(m: int, float64: bool) -> int:
+    """The force chunks of a B3w / B5w launch at width ``m``, as the
+    memory model counts them on any device."""
+    return -(-m // wide_dims(float64))
 
 
 @functools.cache
-def kernel_wide_config(m: int) -> tuple[int, int, int]:
-    """``(M_NARROW, dims a force chunk, chunks)`` of the wide forms at
-    width ``m`` as the kernel library states them
+def kernel_wide_config(m: int, float64: bool) -> tuple[int, int, int]:
+    """``(M_NARROW, dims a force chunk, chunks)`` of B3w / B5w at width
+    ``m`` and the dtype as the kernel library states them
     (``tsne_attraction_wide_config``; builds the library).  B3w's
     ‖grad‖² partials are sized from it, so the buffer always holds what
     the kernel writes."""
     import ctypes
     from tsne_flink_tpu_torch.kernels.build import library
     dims, chunks = ctypes.c_int(), ctypes.c_int()
-    narrow = library().tsne_attraction_wide_config(m, ctypes.byref(dims),
-                                                   ctypes.byref(chunks))
+    narrow = library().tsne_attraction_wide_config(
+        m, int(float64), ctypes.byref(dims), ctypes.byref(chunks))
     return narrow, dims.value, chunks.value
 
 
@@ -438,7 +443,8 @@ def fused_step_update(y_local, y_full, jidx, jval, exag, rep, z, valid,
     y2, u2, g2 = (torch.empty_like(y_local) for _ in range(3))
     m = y_local.shape[1]
     # the wide form writes a ‖grad‖² partial a force chunk
-    chunks = kernel_wide_config(m)[2] if m > M_NARROW else 1
+    chunks = (kernel_wide_config(m, kernel_float64(y_local))[2]
+              if m > M_NARROW else 1)
     gsq = torch.empty((chunks, nloc) if chunks > 1 else nloc, device=dev,
                       dtype=y_local.dtype)
     _launch_rows(KERNELS[form_id("B3", kernel_float64(y_local), m)],

@@ -31,9 +31,11 @@ embedding launches the wide form, which takes any m: at float32
 ``KERNELS["B2w"]`` (d² once a pair: up to m = 16 two rows a thread in
 registers, a pair's differences giving its d² and its force; past it
 tiles of 4,096 pairs, the force from the tile's q² held on chip;
-:func:`wide_rows` rows a block), at float64
-``KERNELS["B2w_f64"]`` (one row a thread, d² staged piece by piece, the
-force over :func:`wide_chunk`-wide chunks on a third grid dimension).
+:func:`wide_rows` rows a block), at float64 ``KERNELS["B2w_f64"]`` (d²
+once a pair too: up to m = 16 a row a thread in registers, its
+differences giving d² and the force; past it tiles of 32 rows x 32
+columns, the force in product form from the tile's q² held on chip, its
+Σq²·y_j on the FP64 tensor cores).
 Its column splits (:func:`column_splits` with ``m``) and the slab's
 rounding follow the same rule, so a shard keeps its bits there too.
 """
@@ -55,13 +57,19 @@ COLS_PER_TILE = 512
 BLOCKS_PER_SM = 16
 #: waves of blocks the column splits aim for
 WAVES = 2
-#: rows one block of the float64 wide form owns (one a thread: WT in
-#: csrc/repulsion.cu; :func:`kernel_wide_config` reads the kernel's own)
-WIDE_ROWS_PER_BLOCK = 128
-#: the float64 wide form's blocks the split rule counts an SM to hold: a
-#: heuristic, not the occupancy.  The split count, and so a row's bits,
-#: follow from it: changing it changes every wide run's bits.
-WIDE_BLOCKS_PER_SM = 4
+#: rows one block of the float64 wide form owns, by its width class
+#: (:func:`wide_class64`): 128 threads x 1 row at m <= 16, a tile's 32 rows
+#: past it (RT64 and TR64 in csrc/repulsion.cu;
+#: :func:`kernel_wide_config` reads the kernel's own)
+WIDE64_ROWS = {16: 128, 64: 32}
+#: the float64 wide form's blocks the split rule counts an SM to hold, by
+#: its width class: a heuristic, not the occupancy (3 blocks of each are
+#: resident, ``__launch_bounds__(128, 3)``): at m <= 16 counting 4 gives
+#: 60,000 rows 3 column splits, 3.55 waves of blocks rather than 2 splits'
+#: 2.37, whose last wave would leave most of the card idle.  The split
+#: count, and so a row's bits, follow from it: changing it changes every
+#: wide run's bits.
+WIDE64_BLOCKS_PER_SM = {16: 4, 64: 3}
 #: pairs a tile of the float32 wide form past m = 16 (TPAIRS in
 #: csrc/repulsion.cu): a block owns TILE_PAIRS / :func:`wide_class` rows;
 #: at m <= 16 a block owns 256 rows too (128 threads x 2 rows)
@@ -81,18 +89,25 @@ def wide_class(m: int) -> int:
     return 16 if m <= 16 else 32 if m <= 32 else 64
 
 
+def wide_class64(m: int) -> int:
+    """The float64 wide form's width class (``wide_class64`` in
+    csrc/repulsion.cu): 16 (rows in registers) or 64 (tiles; past it the
+    width walked in blocks of 64 dims)."""
+    return 16 if m <= 16 else 64
+
+
 def wide_rows(m: int, float64: bool) -> int:
     """Rows one block of the wide form owns at width ``m``:
-    :data:`WIDE_ROWS_PER_BLOCK` at float64, :data:`TILE_PAIRS` /
+    :data:`WIDE64_ROWS` at float64 (128 or 32), :data:`TILE_PAIRS` /
     :func:`wide_class` at float32 (256, 128 or 64)."""
-    return WIDE_ROWS_PER_BLOCK if float64 else TILE_PAIRS // wide_class(m)
+    return (WIDE64_ROWS[wide_class64(m)] if float64
+            else TILE_PAIRS // wide_class(m))
 
 
 def wide_chunk(m: int, float64: bool) -> int:
-    """The dims the wide form's force takes at once: a chunk of the
-    float64 form's third grid dimension (16), the float32 form's width
-    class (:func:`wide_class`)."""
-    return 16 if float64 else wide_class(m)
+    """The dims the wide form's force takes at once: its width class
+    (:func:`wide_class64` at float64, :func:`wide_class` at float32)."""
+    return wide_class64(m) if float64 else wide_class(m)
 
 
 def kernel_wide_config(m: int, float64: bool) -> tuple[int, int, int]:
@@ -115,15 +130,14 @@ def column_splits(nloc: int, nfull: int, sms: int, m: int,
     waves on ``sms`` SMs, but no range narrower than one tile.  A function
     of the shapes, the width, the dtype and the card alone, so a run's
     summation order is fixed.  Past :data:`M_NARROW` the wide form's
-    blocks: :func:`wide_rows` rows each, and at float64 one per force
-    chunk."""
+    blocks: :func:`wide_rows` rows each."""
     if m <= M_NARROW:
         row_blocks = -(-nloc // ROWS_PER_BLOCK)
         want = -(-WAVES * sms * BLOCKS_PER_SM // row_blocks)
     elif float64:
-        row_blocks = (-(-nloc // WIDE_ROWS_PER_BLOCK)
-                      * -(-m // wide_chunk(m, float64)))
-        want = -(-WAVES * sms * WIDE_BLOCKS_PER_SM // row_blocks)
+        row_blocks = -(-nloc // wide_rows(m, True))
+        want = -(-WAVES * sms * WIDE64_BLOCKS_PER_SM[wide_class64(m)]
+                 // row_blocks)
     else:
         row_blocks = -(-nloc // wide_rows(m, False))
         want = -(-WAVES * sms * TILE_BLOCKS_PER_SM[wide_class(m)]
